@@ -2,22 +2,30 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py             # every phase (needs one card)
-    python3 chip_smoke.py --profile   # ... plus a profile of the fused decode
+    python3 chip_smoke.py --profile   # ... plus profiles of the fused
+                                      # decode and of the mixed step
 
 Phases, each failing loudly (any failure exits non-zero):
 
 1. ``build``: prints the card (``nvidia-smi`` name and power limit, torch's
    device name), builds the CUDA kernels from ``csrc/`` and prints the
    build time and the compiler's register/spill summary.
-2. ``kernels``: holds each kernel against its plain PyTorch version on the
-   card at the Llama-3-8B decode shapes (B=8, H=32, Hkv=8, Dh=128, P=128,
-   W=8, MP=16; D=4096, F=14336), in bf16 and fp32, with the tolerance
-   printed beside the max error (flash-decode is also held per row to
-   max|out - ref32| / max|ref32| against the plain version on the same
-   values in fp32, so long rows with small outputs are held as tightly as
-   short ones), and times kernel, plain version and one
-   PyTorch library call (a yardstick the port never calls) with CUDA
-   events over back-to-back launches on rotating buffers (cold L2).
+2. ``kernels``: holds each of the five kernels against its plain PyTorch
+   version on the card at the Llama-3-8B shapes, in bf16 and fp32, with
+   the tolerance printed beside the max error, and times kernel, plain
+   version and one PyTorch library call (a yardstick the port never
+   calls) with CUDA events over back-to-back launches on rotating
+   buffers (cold L2):
+   - flash-decode and its writeback variant at the decode shapes (B=8,
+     H=32, Hkv=8, Dh=128, P=128, W=8, MP=16; the fw check with inactive
+     slots and a slot at side_idx = W, the side buffers compared);
+   - ragged attention at R=10 rows (8 decode rows with context 0-1000, two
+     of them inert, a 256-query chunk at 0 and a 177-query chunk at 444
+     straddling a page; MP=8), the written pages compared;
+   - the GEMV pair (D=4096, F=14336).
+   Attention kernels are also held per output row to max|out - ref32| /
+   max|ref32| against the plain version on the same values in fp32. Each
+   bound counts the valid work only (no query padding).
 3. ``serve``: starts the port's worker CLI on a free localhost port with
    the full 32-layer llama3-8b (random bf16 weights from seed 0,
    ``attention_impl=pallas-decode``), sends 8 concurrent requests (prompts
@@ -25,19 +33,32 @@ Phases, each failing loudly (any failure exits non-zero):
    through the port's ``WorkerClient``, checks counts, lengths and finish
    reasons, and reads the worker's kernel launch counts (zeroed just
    before the requests).
-4. ``fused``: rebuilds the same weights in this process, checks one served
+4. ``mixed``: the worker CLI again, once the first has shut down, with
+   ``attention_impl=pallas-ragged,prefill_chunk=256,mixed_step_tokens=512``
+   (same weights): 8 concurrent requests with prompts of 16-900 tokens,
+   then a second wave of a prefix hit on the 520-token prompt with a
+   400-token tail (it resumes chunked at 256) beside a 40-token prompt.
+   Checks the results, one ragged launch per layer per mixed step,
+   flash-decode on the pure-decode steps, and the mixed, chunked and
+   prefix-hit admission counts.
+5. ``fused``: rebuilds the same weights in this process, checks one served
    chain teacher-forced against ``forward_train`` (bf16: ties within the
-   measured bf16 gap between the two code paths), runs the same requests
-   through an in-process ``ContinuousEngine`` with ``decode_fused=True``
-   (launch counts zeroed just before) and checks its chain the same way
-   (a bf16 smoke); then, in fp32 at full width, holds the decode path's
-   logits (through all three kernels) to ``forward_train``'s within 1e-3,
-   and runs the same 8 requests through an fp32 ``ContinuousEngine``
-   (fp32 KV pools) with ``decode_fused`` off and on, holding every slot's
-   chain teacher-forced to ``forward_train`` with a 1e-3 tie band.
+   measured bf16 gap between the two code paths), runs the serve
+   requests through in-process ``ContinuousEngine``s with
+   ``decode_fused=True`` and with ``attention_impl="pallas-decode-fw"``
+   (launch counts zeroed just before each) and checks a chain of each the
+   same way (bf16 smokes); then, in fp32 at full width, holds the decode
+   path's logits to ``forward_train``'s within 1e-3 (flash-decode fused
+   off and on, and the fw kernel), and runs the mixed phase's first wave
+   through fp32 engines (fp32 pools): ``pallas-decode`` with
+   ``decode_fused`` off and on, and ``pallas-ragged`` with
+   ``prefill_chunk=256``, holding every chain teacher-forced to
+   ``forward_train`` with a 1e-3 tie band and counting the chains equal
+   to ``pallas-decode``'s. Every run is at full depth (32 layers).
 
 The last lines are the card's name and power limit, one JSON object
-naming every kernel with its launches, error and times, and
+naming every kernel with its launches (on its own path: serve,
+in-process fused, mixed, fw), error and times, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -75,6 +96,10 @@ FP32_LOGIT_TOL = 1e-3
 SERVE_MODEL = ("name=llama3-8b,architecture=llama,size=llama3-8b,"
                "continuous=1,attention_impl=pallas-decode,max_seq_len=1024,"
                "seed=0")
+# the slice's path: chunked prefill in the ragged mixed step
+MIXED_MODEL = (SERVE_MODEL.replace("attention_impl=pallas-decode",
+                                   "attention_impl=pallas-ragged")
+               + ",prefill_chunk=256,mixed_step_tokens=512")
 
 
 def log(msg: str) -> None:
@@ -229,6 +254,213 @@ def check_flash_decode(torch):
     return rows
 
 
+def check_flash_decode_fw(torch):
+    """The writeback variant at kernel 1's shapes: some slots inactive,
+    slot 3 active at side_idx = W (the fresh row is dropped there, as in
+    the plain version); output and the side buffers after the write."""
+    from distributed_inference_engine_tpu_torch.ops import flash_decode as fd
+
+    F = torch.nn.functional
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n_layers, n_per_layer = 2, B * MP
+    i32 = dict(dtype=torch.int32, device="cuda")
+    prefix = torch.tensor([0, 1, 127, 128, 300, 777, 1500, 2040], **i32)
+    side_idx = torch.tensor([0, 1, 3, W, 2, 5, 7, 6], **i32)
+    active = torch.tensor([1, 1, 0, 1, 1, 0, 1, 1], **i32)
+    perm = torch.randperm(n_per_layer, generator=g, device="cuda")
+    table = perm.reshape(B, MP).to(torch.int32).contiguous()
+    # side entries read, the fresh rows attended (and written)
+    n_read = torch.clamp(side_idx, max=W)
+    wrote = (active > 0) & (side_idx < W)
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        q = torch.randn((B, H, DH), generator=g, device="cuda").to(dt)
+        pool_shape = (n_layers * n_per_layer, P, HKV * DH)
+        item = torch.finfo(dt).bits // 8
+        n_copies = copies_for(2 * n_per_layer * P * HKV * DH * item, limit=4)
+        kps = [torch.randn(pool_shape, generator=g, device="cuda").to(dt)
+               for _ in range(n_copies)]
+        vps = [torch.randn(pool_shape, generator=g, device="cuda").to(dt)
+               for _ in range(n_copies)]
+        sk = torch.randn((B, W, HKV, DH), generator=g, device="cuda").to(dt)
+        sv = torch.randn((B, W, HKV, DH), generator=g, device="cuda").to(dt)
+        fk = torch.randn((B, 1, HKV, DH), generator=g, device="cuda").to(dt)
+        fv = torch.randn((B, 1, HKV, DH), generator=g, device="cuda").to(dt)
+        kw = dict(n_kv_heads=HKV, layer=1, n_pages_per_layer=n_per_layer)
+        sk_k, sv_k, sk_p, sv_p = sk.clone(), sv.clone(), sk.clone(), sv.clone()
+        out, _, _ = fd.flash_decode_attention_fw(
+            q, kps[0], vps[0], table, prefix, sk_k, sv_k, fk, fv, side_idx,
+            active, **kw)
+        torch.cuda.synchronize()
+        ref, _, _ = fd.flash_decode_attention_fw_plain(
+            q, kps[0], vps[0], table, prefix, sk_p, sv_p, fk, fv, side_idx,
+            active, **kw)
+        torch.cuda.synchronize()
+        sides_equal = torch.equal(sk_k, sk_p) and torch.equal(sv_k, sv_p)
+        assert bool(torch.equal(sk_k[~wrote], sk[~wrote])), \
+            "flash_decode_fw: wrote an inactive or full-window side row"
+        err = max_err(torch, out, ref)
+        # per (slot, head) row against the plain version in fp32, as for
+        # kernel 1
+        ref32, _, _ = fd.flash_decode_attention_fw_plain(
+            q.float(), kps[0].float(), vps[0].float(), table, prefix,
+            sk.float(), sv.float(), fk.float(), fv.float(), side_idx, active,
+            **kw)
+        row_err = (out.float() - ref32).abs().amax(-1)
+        row_ref = ref32.abs().amax(-1)
+        live = row_ref > 0
+        row_rel = float((row_err[live] / row_ref[live]).max())
+        ok = (within(torch, out, ref, dtype_name) and sides_equal
+              and row_rel <= ROW_REL_TOL[dtype_name])
+        assert torch.isfinite(out).all(), "flash_decode_fw: non-finite"
+
+        def mk(i):
+            j = i % n_copies
+            return (q, kps[j], vps[j], table, prefix, sk_k, sv_k, fk, fv,
+                    side_idx, active)
+
+        t_k = time_ms(torch,
+                      lambda *a: fd.flash_decode_attention_fw(*a, **kw), mk)
+        t_p = time_ms(torch,
+                      lambda *a: fd.flash_decode_attention_fw_plain(*a, **kw),
+                      mk, reps=3, per_rep=3)
+        # library yardstick: kernel 1's SDPA over the pre-gathered prefix
+        # and the side window after the write
+        n_side = torch.clamp(side_idx + active, max=W)
+        idx = (n_per_layer + table.long())
+        kg = torch.cat([kps[0][idx].reshape(B, MP * P, HKV, DH), sk_k], 1)
+        vg = torch.cat([vps[0][idx].reshape(B, MP * P, HKV, DH), sv_k], 1)
+        kg = kg.transpose(1, 2).contiguous()
+        vg = vg.transpose(1, 2).contiguous()
+        pos = torch.arange(MP * P + W, device="cuda")[None, :]
+        mask = ((pos < prefix[:, None]) | ((pos >= MP * P)
+                & (pos - MP * P < n_side[:, None])))[:, None, None, :]
+        q4 = q[:, :, None, :]
+        t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, kg, vg, attn_mask=mask, enable_gqa=True), lambda i: ())
+        n_fresh = int(wrote.sum())
+        keys = int(prefix.sum()) + int(n_read.sum()) + n_fresh
+        # K/V of every key read once, the fresh rows written once, q, out
+        nbytes = (2 * (keys + n_fresh) * HKV * DH + 2 * B * H * DH) * item + \
+            (table.numel() + 3 * B) * 4
+        b_ms, b_by = bound_ms(nbytes, 4.0 * keys * H * DH, dtype_name)
+        rows.append(dict(dtype=dtype_name, err=err, ok=ok, ms=t_k,
+                         plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                         bound_by=b_by, row_rel=row_rel,
+                         shape=f"B{B} H{H} Hkv{HKV} Dh{DH} "
+                         f"P{P} MP{MP} W{W} keys{keys}"))
+    return rows
+
+
+# ragged rows (ctx_len, q_len): 8 decode rows, two of them inert, then a
+# 256-query chunk from position 0 and a 177-query chunk at 384 + 60 that
+# straddles a page
+RAGGED_ROWS = [(0, 0), (1, 1), (127, 1), (128, 1), (383, 1), (640, 1),
+               (1000, 1), (0, 0), (0, 256), (384 + 60, 177)]
+MP_RAGGED = 8
+
+
+def check_ragged(torch):
+    """Ragged attention at full width against its plain version: outputs
+    (and, in bf16, each (row, query, head) vector against the plain version
+    on the same values in fp32) and the pools after the writeback."""
+    from distributed_inference_engine_tpu_torch.ops import (
+        ragged_attention as ra)
+
+    F = torch.nn.functional
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(6)
+    r = len(RAGGED_ROWS)
+    qmax = max(q for _, q in RAGGED_ROWS)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    ctx = torch.tensor([c for c, _ in RAGGED_ROWS], **i32)
+    ql = torch.tensor([q for _, q in RAGGED_ROWS], **i32)
+    n_layers, n = 2, r * MP_RAGGED + 8
+    perm = torch.randperm(n, generator=g, device="cuda")[: r * MP_RAGGED]
+    table = perm.reshape(r, MP_RAGGED).to(torch.int32).contiguous()
+    table[0] = table[1]               # inert rows aim at live pages
+    table[7] = table[6]
+    valid = (torch.arange(qmax, device="cuda")[None, :] < ql[:, None])
+    ctx_keys = sum(c for c, q in RAGGED_ROWS if q)
+    n_q = sum(q for _, q in RAGGED_ROWS)
+    flops = 4.0 * H * DH * sum(q * (c + (q + 1) / 2) for c, q in RAGGED_ROWS)
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        item = torch.finfo(dt).bits // 8
+        q = torch.randn((r, qmax, H, DH), generator=g, device="cuda").to(dt)
+        fk = torch.randn((r, qmax, HKV, DH), generator=g,
+                         device="cuda").to(dt)
+        fv = torch.randn((r, qmax, HKV, DH), generator=g,
+                         device="cuda").to(dt)
+        pool_shape = (n_layers * n, P, HKV * DH)
+        n_copies = copies_for(2 * n * P * HKV * DH * item, limit=4)
+        kps = [torch.randn(pool_shape, generator=g, device="cuda").to(dt)
+               for _ in range(n_copies)]
+        vps = [torch.randn(pool_shape, generator=g, device="cuda").to(dt)
+               for _ in range(n_copies)]
+        kw = dict(n_kv_heads=HKV, layer=1, n_pages_per_layer=n)
+        kp_p, vp_p = kps[0].clone(), vps[0].clone()
+        kp_32, vp_32 = kps[0].float(), vps[0].float()
+        out, _, _ = ra.ragged_attention(q, kps[0], vps[0], table, ctx, ql,
+                                        fk, fv, **kw)
+        torch.cuda.synchronize()
+        ref, _, _ = ra.ragged_attention_plain(q, kp_p, vp_p, table, ctx, ql,
+                                              fk, fv, **kw)
+        torch.cuda.synchronize()
+        pages_equal = torch.equal(kps[0], kp_p) and torch.equal(vps[0], vp_p)
+        err = max_err(torch, out, ref)
+        ref32, _, _ = ra.ragged_attention_plain(
+            q.float(), kp_32, vp_32, table, ctx, ql, fk.float(), fv.float(),
+            **kw)
+        row_err = (out.float() - ref32).abs().amax(-1)[valid]
+        row_ref = ref32.abs().amax(-1)[valid]
+        row_rel = float((row_err / row_ref).max())
+        ok = (within(torch, out, ref, dtype_name) and pages_equal
+              and row_rel <= ROW_REL_TOL[dtype_name])
+        assert torch.isfinite(out).all(), "ragged_attention: non-finite"
+        assert float(out[~valid].abs().max()) == 0.0, \
+            "ragged_attention: padding rows not zero"
+
+        def mk(i):
+            j = i % n_copies
+            return (q, kps[j], vps[j], table, ctx, ql, fk, fv)
+
+        t_k = time_ms(torch, lambda *a: ra.ragged_attention(*a, **kw), mk)
+        t_p = time_ms(torch, lambda *a: ra.ragged_attention_plain(*a, **kw),
+                      mk, reps=3, per_rep=3)
+        # library yardstick: SDPA with a boolean mask over the pre-gathered
+        # context ++ fresh K/V (the gather is not timed; padding queries
+        # see key 0, so no row is fully masked)
+        s_ctx = MP_RAGGED * P
+        idx = (n + table.long())
+        kg = torch.cat([kps[0][idx].reshape(r, s_ctx, HKV, DH), fk], 1)
+        vg = torch.cat([vps[0][idx].reshape(r, s_ctx, HKV, DH), fv], 1)
+        kg = kg.transpose(1, 2).contiguous()
+        vg = vg.transpose(1, 2).contiguous()
+        pos = torch.arange(s_ctx + qmax, device="cuda")[None, None, :]
+        qi = torch.arange(qmax, device="cuda")[None, :, None]
+        mask = ((pos < ctx[:, None, None])
+                | ((pos >= s_ctx) & (pos - s_ctx <= qi)
+                   & (pos - s_ctx < ql[:, None, None])))
+        mask[..., 0] |= ~valid
+        q4 = q.transpose(1, 2).contiguous()
+        t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, kg, vg, attn_mask=mask[:, None], enable_gqa=True),
+            lambda i: ())
+        # valid work only: context K/V below ctx_len, the fresh K/V read
+        # and written, the valid queries and their outputs
+        nbytes = (2 * ctx_keys * HKV * DH + 4 * n_q * HKV * DH
+                  + 2 * n_q * H * DH) * item + (table.numel() + 2 * r) * 4
+        b_ms, b_by = bound_ms(nbytes, flops, dtype_name)
+        rows.append(dict(dtype=dtype_name, err=err, ok=ok, ms=t_k,
+                         plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                         bound_by=b_by, row_rel=row_rel,
+                         shape=f"R{r} Qmax{qmax} H{H} Hkv{HKV} Dh{DH} P{P} "
+                         f"MP{MP_RAGGED} q{n_q} ctx{ctx_keys}"))
+    return rows
+
+
 def check_gemv(torch, which: str):
     from distributed_inference_engine_tpu_torch.ops import fused_decode as fdec
 
@@ -297,6 +529,8 @@ def phase_kernels(torch, card: str):
         "flash_decode": check_flash_decode(torch),
         "norm_matmul": check_gemv(torch, "norm_matmul"),
         "matmul_residual": check_gemv(torch, "matmul_residual"),
+        "ragged_attention": check_ragged(torch),
+        "flash_decode_fw": check_flash_decode_fw(torch),
     }
     bad = []
     for name, rows in results.items():
@@ -304,7 +538,7 @@ def phase_kernels(torch, card: str):
             atol, rtol = TOL[r["dtype"]]
             rel = (f" row max_rel_err={r['row_rel']:.3e} (tol "
                    f"{ROW_REL_TOL[r['dtype']]})" if "row_rel" in r else "")
-            log(f"[kernels] {name:15s} {r['dtype']:8s} {r['shape']:34s} "
+            log(f"[kernels] {name:16s} {r['dtype']:8s} {r['shape']:34s} "
                 f"max_abs_err={r['err']:.3e} (tol atol={atol} rtol={rtol})"
                 f"{rel} {'ok' if r['ok'] else 'FAIL'} | kernel "
                 f"{r['ms']:.4f} ms, "
@@ -346,12 +580,28 @@ def check_results(results, prompts, label: str) -> None:
         assert all(0 <= t < 128256 for t in r.tokens), f"{label}: token id"
 
 
-def start_worker():
+def mixed_prompts():
+    """Wave 1: 8 prompts of 16-900 tokens (the four over 256 prefill in
+    chunks). Wave 2: the first 256 tokens of the 520-token prompt plus a
+    400-token tail (a prefix hit resuming chunked at 256), and a 40-token
+    prompt that decodes while it prefills."""
+    import numpy as np
+
+    rs = np.random.RandomState(11)
+    vocab = 128256
+    wave1 = [rs.randint(1, vocab, size=n).tolist()
+             for n in (16, 40, 100, 200, 300, 520, 700, 900)]
+    wave2 = [wave1[5][:256] + rs.randint(1, vocab, size=400).tolist(),
+             rs.randint(1, vocab, size=40).tolist()]
+    return wave1, wave2
+
+
+def start_worker(model: str):
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep +
                os.environ.get("PYTHONPATH", ""))
     proc = subprocess.Popen(
         [sys.executable, "-m", f"{PKG}.cli.worker", "--worker-id", "smoke",
-         "--host", "127.0.0.1", "--port", "0", "--model", SERVE_MODEL,
+         "--host", "127.0.0.1", "--port", "0", "--model", model,
          "--log-level", "WARNING"],
         cwd=str(REPO), env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
@@ -376,7 +626,11 @@ def start_worker():
     raise RuntimeError("worker did not come up:\n" + "\n".join(lines))
 
 
-async def serve_requests(host, port, prompts):
+async def drive_worker(host, port, waves):
+    """Each wave's requests concurrently through the port's
+    ``WorkerClient``, a wave after the previous one returned; the
+    worker's kernel launch counts are zeroed just before the first wave
+    and read just after the last."""
     from distributed_inference_engine_tpu_torch.cluster.worker import (
         WorkerClient)
     from distributed_inference_engine_tpu_torch.engine.types import (
@@ -387,49 +641,87 @@ async def serve_requests(host, port, prompts):
         pong = await client.ping()
         assert pong["models"] == ["llama3-8b"], pong
         await client.kernel_counts(reset=True)       # main path starts here
-        t0 = time.perf_counter()
-        outs = await asyncio.gather(*[
-            client.generate("llama3-8b", [GenerationRequest(
-                prompt=p, max_new_tokens=32, request_id=f"s{i}")])
-            for i, p in enumerate(prompts)])
-        wall = time.perf_counter() - t0
+        results, wall = [], 0.0
+        for w, prompts in enumerate(waves):
+            t0 = time.perf_counter()
+            outs = await asyncio.gather(*[
+                client.generate("llama3-8b", [GenerationRequest(
+                    prompt=p, max_new_tokens=32, request_id=f"w{w}_{i}")])
+                for i, p in enumerate(prompts)])
+            wall += time.perf_counter() - t0
+            results.append([o[0] for o in outs])
         launches = await client.kernel_counts()      # ... and ends here
         metrics = await client.metrics()
         await client.shutdown()
     finally:
         await client.close()
-    return [o[0] for o in outs], wall, launches, metrics
+    return results, wall, launches, metrics["models"]["llama3-8b"]
 
 
-def phase_serve(torch, card: str):
-    prompts = serve_prompts()
-    proc, host, port = start_worker()
+def run_worker(model: str, waves):
+    """Start the worker CLI with ``model``, drive ``waves`` through it,
+    and wait for it to exit."""
+    proc, host, port = start_worker(model)
     try:
-        results, wall, launches, metrics = asyncio.run(
-            serve_requests(host, port, prompts))
+        out = asyncio.run(drive_worker(host, port, waves))
         proc.wait(timeout=120)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+    return out
+
+
+def served_line(results, wall: float) -> str:
+    gen = sum(len(r.tokens) for r in results)
+    ttfts = sorted(r.ttft_s for r in results)
+    return (f"{len(results)} requests, {gen} tokens in {wall:.3f} s = "
+            f"{gen / wall:.1f} tok/s; TTFT p50 {ttfts[len(ttfts) // 2]:.3f} s"
+            f" max {ttfts[-1]:.3f} s")
+
+
+def phase_serve(torch, card: str):
+    prompts = serve_prompts()
+    results, wall, launches, eng = run_worker(SERVE_MODEL, [prompts])
+    results = results[0]
     check_results(results, prompts, "serve")
     assert launches.get("flash_decode", 0) > 0, \
         f"serve: flash_decode never launched: {launches}"
-    eng = metrics["models"]["llama3-8b"]
-    gen = sum(len(r.tokens) for r in results)
-    ttfts = sorted(r.ttft_s for r in results)
-    log(f"[serve] {len(results)} requests, {gen} tokens in {wall:.3f} s = "
-        f"{gen / wall:.1f} tok/s; TTFT p50 {ttfts[len(ttfts) // 2]:.3f} s "
-        f"max {ttfts[-1]:.3f} s; prefix-hit admissions "
+    log(f"[serve] {served_line(results, wall)}; prefix-hit admissions "
         f"{eng['prefix_hit_admissions']}; launches {launches} [{card}]")
     return prompts, results, launches
 
 
-def decode_logit_gap(torch, spec, params, prompt, cont, fused: bool):
+def phase_mixed(torch, card: str):
+    """The slice's path: chunked prefill in the ragged mixed step, through
+    the worker CLI at full width."""
+    wave1, wave2 = mixed_prompts()
+    results, wall, launches, eng = run_worker(MIXED_MODEL, [wave1, wave2])
+    check_results(results[0], wave1, "mixed wave 1")
+    check_results(results[1], wave2, "mixed wave 2")
+    for k in ("ragged_attention", "flash_decode"):
+        assert launches.get(k, 0) > 0, f"mixed: {k} never launched: " \
+            f"{launches}"
+    assert eng["mixed_steps"] > 0 and eng["chunked_admissions"] > 0, eng
+    assert eng["prefix_hit_admissions"] >= 1, eng
+    # one ragged launch per layer per mixed step
+    assert launches["ragged_attention"] == 32 * eng["mixed_steps"], \
+        (launches, eng["mixed_steps"])
+    log(f"[mixed] {served_line(results[0] + results[1], wall)}; mixed steps "
+        f"{eng['mixed_steps']} carrying {eng['mixed_prefill_tokens']} "
+        f"prefill tokens; chunked admissions {eng['chunked_admissions']}; "
+        f"prefix-hit admissions {eng['prefix_hit_admissions']}; engine "
+        f"steps {eng['engine_steps']}; launches {launches} [{card}]")
+    return wave1, launches
+
+
+def decode_logit_gap(torch, spec, params, prompt, cont, fused: bool,
+                     attn_impl: str = "pallas-decode"):
     """Max |logit| gap between the decode path (pages written by
     ``forward_prefill_into_pages``, then one ``forward_decode_window`` step
-    per token of ``cont``, teacher-forced, through the CUDA kernels) and
-    ``forward_train`` over the whole sequence — one number per step."""
+    per token of ``cont``, teacher-forced, through the CUDA kernels of
+    ``attn_impl``) and ``forward_train`` over the whole sequence — one
+    number per step."""
     import numpy as np
     from distributed_inference_engine_tpu_torch.models import base as mb
 
@@ -460,13 +752,14 @@ def decode_logit_gap(torch, spec, params, prompt, cont, fused: bool):
             x, _, _ = mb.forward_decode_window(
                 spec, params, torch.tensor([seq[n0 + s]], **i32),
                 torch.tensor([n0 + s], **i32), start, kp, vp, tab, side[0],
-                side[1], active, attn_impl="pallas-decode", fused=fused)
+                side[1], active, attn_impl=attn_impl, fused=fused)
             gaps.append(float((mb.unembed(spec, params, x)[0]
                                - ref[n0 + s]).abs().max()))
     return gaps
 
 
-def phase_fused(torch, card: str, prompts, results, profile_it: bool):
+def phase_fused(torch, card: str, prompts, results, mixed_wave,
+                profile_it: bool):
     from distributed_inference_engine_tpu_torch.config import EngineConfig
     from distributed_inference_engine_tpu_torch.engine.continuous import (
         ContinuousEngine)
@@ -522,7 +815,33 @@ def phase_fused(torch, card: str, prompts, results, profile_it: bool):
         f"the served ones: {same}/{len(out)} [{card}]")
     if profile_it:
         profile_decode(torch, engine, prompts, card)
-    del engine, params
+    del engine
+
+    # the fw decode configuration: a bf16 engine through the writeback
+    # kernel (a smoke, teacher-forced at the bf16 tie band)
+    cfg = EngineConfig(max_slots=8, max_seq_len=1024,
+                       attention_impl="pallas-decode-fw")
+    engine = ContinuousEngine(spec, params=params, config=cfg, device="cuda")
+    _cuda.reset_launch_counts()                      # fw path starts here
+    t0 = time.perf_counter()
+    out_fw = engine.generate([GenerationRequest(
+        prompt=p, max_new_tokens=32, request_id=f"fw{i}")
+        for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fw_launch = _cuda.launch_counts()                # ... and ends here
+    check_results(out_fw, prompts, "fw")
+    assert fw_launch.get("flash_decode_fw", 0) > 0, fw_launch
+    assert fw_launch.get("flash_decode", 0) == 0, fw_launch
+    m, t = assert_greedy_parity(spec, params, prompts[5], out_fw[5].tokens,
+                                eps=eps, label="fw chain")
+    log(f"[fused] fw engine: {len(out_fw)} requests in {wall:.3f} s = "
+        f"{sum(len(r.tokens) for r in out_fw) / wall:.1f} tok/s; launches "
+        f"{fw_launch}; teacher-forced {m} strict, {t} ties [{card}]")
+    del engine
+    if profile_it:
+        profile_mixed(torch, spec, params, mixed_wave, card)
+    del params
     torch.cuda.empty_cache()
 
     # fp32 at full width: the decode path through all three kernels must
@@ -531,48 +850,83 @@ def phase_fused(torch, card: str, prompts, results, profile_it: bool):
     spec32 = spec.replace(dtype="float32")
     params = init_params(spec32, torch.Generator(device="cuda").manual_seed(0))
     cont = out[5].tokens[:8]
-    for fused in (False, True):
+    for impl, fused in (("pallas-decode", False), ("pallas-decode", True),
+                        ("pallas-decode-fw", False)):
         gaps = decode_logit_gap(torch, spec32, params, prompts[5], cont,
-                                fused=fused)
+                                fused=fused, attn_impl=impl)
         log(f"[fused] fp32 decode-vs-forward_train max|logit gap| "
-            f"(fused={fused}) {max(gaps):.3e} over {len(gaps)} steps "
+            f"({impl}, fused={fused}) {max(gaps):.3e} over {len(gaps)} steps "
             f"(limit {FP32_LOGIT_TOL}) [{card}]")
         assert max(gaps) <= FP32_LOGIT_TOL, gaps
+    # fp32 engines over the mixed phase's first wave (prompts of 16-900):
+    # the decode path fused off and on, and the chunked ragged mixed step,
+    # every chain held teacher-forced to forward_train
     chains = {}
-    for fused in (False, True):
+    for label, extra in (("pallas-decode", dict()),
+                         ("pallas-decode fused", dict(decode_fused=True)),
+                         ("pallas-ragged chunk 256", dict(
+                             attention_impl="pallas-ragged",
+                             prefill_chunk=256))):
         # 8 slots x 8 pages of 128 cover max_seq_len 1024
-        cfg32 = EngineConfig(max_slots=8, max_seq_len=1024, num_pages=64,
-                             kv_dtype="float32", decode_fused=fused,
-                             attention_impl="pallas-decode")
+        cfg32 = EngineConfig(**dict(dict(
+            max_slots=8, max_seq_len=1024, num_pages=64, kv_dtype="float32",
+            attention_impl="pallas-decode"), **extra))
         engine = ContinuousEngine(spec32, params=params, config=cfg32,
                                   device="cuda")
         res32 = engine.generate([
             GenerationRequest(prompt=p, max_new_tokens=32,
-                              request_id=f"e{int(fused)}_{i}")
-            for i, p in enumerate(prompts)])
+                              request_id=f"{label}_{i}")
+            for i, p in enumerate(mixed_wave)])
+        em = engine.get_metrics()
         del engine
-        check_results(res32, prompts, f"fp32 engine fused={fused}")
+        check_results(res32, mixed_wave, f"fp32 engine {label}")
+        if "ragged" in label:
+            assert em["mixed_steps"] > 0, em
         m = t = 0
-        for i, (p, r) in enumerate(zip(prompts, res32)):
+        for i, (p, r) in enumerate(zip(mixed_wave, res32)):
             mi, ti = assert_greedy_parity(
                 spec32, params, p, r.tokens, eps=FP32_LOGIT_TOL,
-                label=f"fp32 engine fused={fused} slot {i}")
+                label=f"fp32 engine {label} slot {i}")
             m, t = m + mi, t + ti
-        chains[fused] = [r.tokens for r in res32]
-        log(f"[fused] fp32 engine (fused={fused}), 8 slots: every chain "
+        chains[label] = [r.tokens for r in res32]
+        log(f"[fused] fp32 engine ({label}), 8 slots: every chain "
             f"teacher-forced to forward_train, {m} strict, {t} ties "
-            f"(band {FP32_LOGIT_TOL}) [{card}]")
-    same = sum(a == b for a, b in zip(chains[False], chains[True]))
-    log(f"[fused] fp32 chains equal fused vs unfused: {same}/{len(prompts)}")
+            f"(band {FP32_LOGIT_TOL}); mixed steps {em['mixed_steps']} "
+            f"[{card}]")
+    base = chains["pallas-decode"]
+    for label in ("pallas-decode fused", "pallas-ragged chunk 256"):
+        same = sum(a == b for a, b in zip(base, chains[label]))
+        log(f"[fused] fp32 chains equal to pallas-decode's: {label} "
+            f"{same}/{len(mixed_wave)}")
     del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, fw_launch
+
+
+def report_profile(prof, wall: float, steps: int, label: str,
+                   card: str) -> None:
+    """Wall per step, the device-busy share and the device time by kernel
+    of a ``torch.profiler`` window over ``steps`` steps."""
+    def dev_us(e):
+        t = getattr(e, "self_device_time_total", None)
+        return t if t is not None else e.self_cuda_time_total
+
+    # kernel-level entries only (op entries would count their kernels twice)
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in events) / 1e6
+    log(f"[profile] {label}: {steps} steps in {wall * 1e3:.1f} ms = "
+        f"{wall * 1e3 / steps:.2f} ms/step; device busy {busy * 1e3:.1f} ms "
+        f"= {100 * busy / wall:.1f}% of wall [{card}]")
+    for e in sorted(events, key=dev_us, reverse=True)[:15]:
+        log(f"[profile] {label}: {dev_us(e) / 1e3 / steps:9.3f} ms/step "
+            f"{100 * dev_us(e) / 1e6 / busy:5.1f}% of device  "
+            f"x{e.count / steps:<6.1f}/step {e.key[:90]}")
 
 
 def profile_decode(torch, engine, prompts, card: str) -> None:
     """``--profile``: torch.profiler over two pure-decode chunks of the
-    fused engine (8 slots live): wall per chunk, device-busy share, and
-    the device time by kernel."""
+    fused engine (8 slots live)."""
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_inference_engine_tpu_torch.engine.types import (
@@ -592,23 +946,51 @@ def profile_decode(torch, engine, prompts, card: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     engine.run_until_idle()
-    steps = n_chunks * engine.config.decode_steps_per_call
+    report_profile(prof, wall, n_chunks * engine.config.decode_steps_per_call,
+                   "decode", card)
 
-    def dev_us(e):
-        t = getattr(e, "self_device_time_total", None)
-        return t if t is not None else e.self_cuda_time_total
 
-    # kernel-level entries only (op entries would count their kernels twice)
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
-    busy = sum(dev_us(e) for e in events) / 1e6
-    log(f"[profile] {steps} decode steps in {wall * 1e3:.1f} ms = "
-        f"{wall * 1e3 / steps:.2f} ms/step; device busy {busy * 1e3:.1f} ms "
-        f"= {100 * busy / wall:.1f}% of wall [{card}]")
-    for e in sorted(events, key=dev_us, reverse=True)[:15]:
-        log(f"[profile] {dev_us(e) / 1e3 / steps:9.3f} ms/step "
-            f"{100 * dev_us(e) / 1e6 / busy:5.1f}% of device  "
-            f"x{e.count // steps:<4d}/step {e.key[:90]}")
+def profile_mixed(torch, spec, params, prompts, card: str) -> None:
+    """``--profile``: torch.profiler over up to three mixed steps of a
+    bf16 ``pallas-ragged`` engine (the mixed phase's configuration) while
+    the long prompts of ``prompts`` prefill, the first mixed step (with
+    the admission) unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_inference_engine_tpu_torch.config import EngineConfig
+    from distributed_inference_engine_tpu_torch.engine.continuous import (
+        ContinuousEngine)
+    from distributed_inference_engine_tpu_torch.engine.types import (
+        GenerationRequest)
+
+    cfg = EngineConfig(max_slots=8, max_seq_len=1024,
+                       attention_impl="pallas-ragged", prefill_chunk=256,
+                       mixed_step_tokens=512)
+    engine = ContinuousEngine(spec, params=params, config=cfg, device="cuda")
+    for i, p in enumerate(prompts):
+        engine.submit(GenerationRequest(prompt=p, max_new_tokens=32,
+                                        request_id=f"pmix{i}"))
+    engine.step()
+    torch.cuda.synchronize()
+    before = engine.get_metrics()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            if not engine.get_metrics()["prefilling_slots"]:
+                break
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    after = engine.get_metrics()
+    engine.run_until_idle()
+    steps = after["mixed_steps"] - before["mixed_steps"]
+    assert steps > 0 and steps == after["engine_steps"] - \
+        before["engine_steps"], (before, after)
+    tokens = after["mixed_prefill_tokens"] - before["mixed_prefill_tokens"]
+    log(f"[profile] mixed: {tokens} prefill tokens over {steps} mixed steps")
+    report_profile(prof, wall, steps, "mixed", card)
+    del engine
 
 
 # ------------------------------------------------------------------- main
@@ -654,27 +1036,35 @@ def main() -> int:
         f"{max(spills) if spills else 'n/a'}")
 
     kern = phase_kernels(torch, card)
+    torch.cuda.empty_cache()
     prompts, results, serve_launch = phase_serve(torch, card)
-    fused_launch = phase_fused(torch, card, prompts, results, args.profile)
+    mixed_wave, mixed_launch = phase_mixed(torch, card)
+    fused_launch, fw_launch = phase_fused(torch, card, prompts, results,
+                                          mixed_wave, args.profile)
 
-    sources = {"flash_decode": ("csrc/flash_decode.cu",
-                                "distributed_inference_engine_tpu/ops/"
-                                "flash_decode.py:246"),
-               "norm_matmul": ("csrc/fused_decode.cu",
-                               "distributed_inference_engine_tpu/ops/"
-                               "fused_decode.py:120"),
-               "matmul_residual": ("csrc/fused_decode.cu",
-                                   "distributed_inference_engine_tpu/ops/"
-                                   "fused_decode.py:165")}
+    jax_ops = "distributed_inference_engine_tpu/ops/"
+    # kernel: (source, TPU kernel it replaces, launches on its path)
+    sources = {
+        "flash_decode": ("csrc/flash_decode.cu",
+                         jax_ops + "flash_decode.py:246", serve_launch),
+        "norm_matmul": ("csrc/fused_decode.cu",
+                        jax_ops + "fused_decode.py:120", fused_launch),
+        "matmul_residual": ("csrc/fused_decode.cu",
+                            jax_ops + "fused_decode.py:165", fused_launch),
+        "ragged_attention": ("csrc/ragged_attention.cu",
+                             jax_ops + "ragged_attention.py:181",
+                             mixed_launch),
+        "flash_decode_fw": ("csrc/flash_decode.cu",
+                            jax_ops + "flash_decode.py:314", fw_launch)}
     # representative main-path shape per kernel: bf16, and for the GEMVs
     # the d_ff projections (gate/up for norm_matmul, down for residual)
-    pick = {"flash_decode": 0, "norm_matmul": 2, "matmul_residual": 1}
+    pick = {"flash_decode": 0, "norm_matmul": 2, "matmul_residual": 1,
+            "ragged_attention": 0, "flash_decode_fw": 0}
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces, path_launches) in sources.items():
         rows = kern[name]
         r = rows[pick[name]]
-        launches = (serve_launch[name] if name == "flash_decode"
-                    else fused_launch[name])
+        launches = path_launches[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"{PKG}/{src}",
             "replaces": replaces, "launches": launches,

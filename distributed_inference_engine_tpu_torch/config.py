@@ -61,8 +61,11 @@ class EngineConfig:
     kv_dtype: str = "bfloat16"
     decode_steps_per_call: int = 8
     use_paged_kv: bool = False
-    attention_impl: str = "auto"       # "auto" | "pallas-decode": both run
-    # the flash-decode kernel (ops/flash_decode.py) on the window scheme
+    attention_impl: str = "auto"       # "auto" | "pallas-decode": the
+    # flash-decode kernel (ops/flash_decode.py) on the window scheme;
+    # "pallas-decode-fw": its side-window writeback variant;
+    # "pallas-ragged": with prefill_chunk, the ragged mixed step
+    # (ops/ragged_attention.py), flash-decode on pure-decode steps
     decode_fused: bool = False         # norm_matmul / matmul_residual
     # kernels on the decode step (ops/fused_decode.py)
     decode_mode: str = "window"
@@ -97,10 +100,6 @@ class EngineConfig:
                 f"{what} is not ported to the PyTorch engine yet "
                 f"(ROADMAP.md {item})")
 
-        if self.prefill_chunk:
-            no("prefill_chunk (chunked prefill)", "A5a")
-        if self.mixed_step_tokens:
-            no("mixed_step_tokens (ragged mixed step)", "A5a")
         if self.defer_sync:
             no("defer_sync (deferred chunk read)", "A5b")
         if self.stream_chunk_steps:
@@ -120,12 +119,13 @@ class EngineConfig:
             no("spec_async (async speculation)", "A12")
         if self.timeline_capacity:
             no("timeline_capacity (step timeline)", "A6")
-        if self.attention_impl not in ("auto", "pallas-decode"):
+        if self.attention_impl not in ("auto", "pallas-decode",
+                                       "pallas-decode-fw", "pallas-ragged"):
             raise ValueError(
                 f"attention_impl {self.attention_impl!r}: the PyTorch engine "
-                "runs the flash-decode kernel ('auto' or 'pallas-decode'); "
-                "the ragged, fw and paged kernels are not ported yet "
-                "(ROADMAP.md B)")
+                "runs 'auto', 'pallas-decode', 'pallas-decode-fw' or "
+                "'pallas-ragged'; the paged-attention kernel and the XLA "
+                "and interpret paths are not ported (ROADMAP.md B)")
 
 
 @dataclass

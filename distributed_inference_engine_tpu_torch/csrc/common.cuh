@@ -29,10 +29,30 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, like astype()
 }
 
+// x rounded through storage type T and widened back (T's rounding, as a
+// PyTorch .to(T).float() round trip).
+template <typename T>
+__device__ __forceinline__ float through(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// One global load: through the read-only (non-coherent) cache, or a plain
+// load where the kernel also writes the buffer it reads (the ragged and fw
+// kernels write their pools / side rows in place, at addresses they never
+// read).
+template <bool kReadOnly, typename V>
+__device__ __forceinline__ V ld(const V* p) {
+  if constexpr (kReadOnly) {
+    return __ldg(p);
+  } else {
+    return *p;
+  }
+}
+
 // Load E contiguous elements starting at p (aligned to E * sizeof(T), or
 // to 16 bytes when the run is longer) and widen them to fp32. One 4-, 8-
 // or 16-byte load per lane keeps a warp's row read in full sectors.
-template <typename T, int E>
+template <typename T, int E, bool kReadOnly = true>
 __device__ __forceinline__ void load_row(const T* __restrict__ p,
                                          float (&out)[E]) {
   constexpr int kBytes = E * static_cast<int>(sizeof(T));
@@ -40,24 +60,48 @@ __device__ __forceinline__ void load_row(const T* __restrict__ p,
     constexpr int kPer = 16 / static_cast<int>(sizeof(T));
 #pragma unroll
     for (int c = 0; c < kBytes / 16; ++c) {
-      uint4 raw = __ldg(reinterpret_cast<const uint4*>(p) + c);
+      uint4 raw = ld<kReadOnly>(reinterpret_cast<const uint4*>(p) + c);
       const T* t = reinterpret_cast<const T*>(&raw);
 #pragma unroll
       for (int e = 0; e < kPer; ++e) out[c * kPer + e] = to_f(t[e]);
     }
   } else if constexpr (kBytes == 8) {
-    uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+    uint2 raw = ld<kReadOnly>(reinterpret_cast<const uint2*>(p));
     const T* t = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int e = 0; e < E; ++e) out[e] = to_f(t[e]);
   } else if constexpr (kBytes == 4) {
-    unsigned int raw = __ldg(reinterpret_cast<const unsigned int*>(p));
+    unsigned int raw =
+        ld<kReadOnly>(reinterpret_cast<const unsigned int*>(p));
     const T* t = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int e = 0; e < E; ++e) out[e] = to_f(t[e]);
   } else {
 #pragma unroll
     for (int e = 0; e < E; ++e) out[e] = to_f(p[e]);
+  }
+}
+
+// E contiguous fp32 values from shared memory (aligned to 4 * E bytes
+// when E is 2 or a multiple of 4).
+template <int E>
+__device__ __forceinline__ void lds_row(const float* p, float (&out)[E]) {
+  if constexpr (E % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < E / 4; ++c) {
+      const float4 v = reinterpret_cast<const float4*>(p)[c];
+      out[4 * c] = v.x;
+      out[4 * c + 1] = v.y;
+      out[4 * c + 2] = v.z;
+      out[4 * c + 3] = v.w;
+    }
+  } else if constexpr (E == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    out[0] = v.x;
+    out[1] = v.y;
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) out[e] = p[e];
   }
 }
 
@@ -102,6 +146,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 

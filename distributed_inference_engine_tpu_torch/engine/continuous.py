@@ -9,22 +9,34 @@ their pages at once.
 - Admission prefills whole prompts straight into the pages
   (``forward_prefill_into_pages``), batched; a prefix-cache hit prefills
   only the uncached suffix against its cached pages.
+- Chunked prefill (``prefill_chunk``): a prompt whose uncached part
+  exceeds the chunk is prefilled a chunk per engine step, its first chunk
+  riding the batched admission prefill. By default each step advances
+  every prefilling prompt in suffix-prefill dispatches grouped by context
+  size, then runs the decode chunk (the split path). With
+  ``attention_impl="pallas-ragged"`` a step with prompts mid-prefill is
+  one ragged mixed step instead: every decode slot advances one token
+  and the prefill chunks ride the same forward (``forward_mixed_step``,
+  the ragged-attention kernel writing each row's K/V into its pages).
 - Decode runs in chunks of ``decode_steps_per_call`` steps in the window
   scheme: the pools are frozen for the chunk, fresh K/V accumulates in a
-  side window, attention is the flash-decode kernel over prefix ⊕ window,
-  and the window is written into the pages once at the chunk's end.
+  side window, attention is the flash-decode kernel over prefix ⊕ window
+  (or its writeback variant, ``"pallas-decode-fw"``), and the window is
+  written into the pages once at the chunk's end.
 - Stops: EOS, ``max_new_tokens``, capacity (``"length"``) and the first
   ``_DEVICE_STOP_K`` single-token stop ids retire a slot on the device,
   inside the chunk; longer stop lists and stop sequences retire on the
   host, which trims every result with ``trim_at_stops``.
-- One host read per chunk: tokens, logprobs, active flags and the lengths
-  before and after the chunk ride one packed int32 buffer.
+- One host read per chunk or mixed step: tokens, logprobs, active flags,
+  the lengths before and after, and a mixed step's prefill samples ride
+  one packed int32 buffer.
 
 What the port leaves out, and how it fails when asked for it, is in
 ``config.EngineConfig.check_supported``. The JAX default decode path
 (``attention_impl="auto"`` -> a dense gather of the live prefix) is a TPU
-layout choice; here "auto" and "pallas-decode" both run the flash-decode
-kernel. Decode chunks are eager PyTorch (no CUDA graphs yet).
+layout choice; here "auto", "pallas-decode" and "pallas-ragged" (on its
+pure-decode steps) run the flash-decode kernel. Decode chunks are eager
+PyTorch (no CUDA graphs yet).
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ from ..models.base import (
     ModelSpec,
     Params,
     forward_decode_window,
+    forward_mixed_step,
     forward_prefill_into_pages,
     forward_prefill_suffix,
     init_params,
@@ -100,9 +113,26 @@ class _Slot:
         self.stop_cut = -1
 
 
+class _PrefillProgress:
+    """A long prompt mid-way through chunked prefill: its slot and pages
+    are allocated, but it is not decoding yet (not in ``_slots``)."""
+
+    __slots__ = ("request", "prompt", "done", "t_submit")
+
+    def __init__(self, request: GenerationRequest, prompt: List[int],
+                 t_submit: float, done: int) -> None:
+        self.request = request
+        self.prompt = prompt
+        self.done = done                # tokens prefilled (page-aligned)
+        self.t_submit = t_submit
+
+
 class _Chunk:
-    """A dispatched decode chunk: its packed device output, the side
-    window to flush, and the slots it was dispatched for."""
+    """A dispatched decode chunk or mixed step: its packed device output
+    (flat int32: ``2 * n_steps + 3`` rows of ``max_slots``, then a mixed
+    step's prefill samples), the side window to flush (None for a mixed
+    step, whose kernel wrote the pages) and the slots it was dispatched
+    for."""
 
     __slots__ = ("packed", "n_steps", "snapshot", "t0", "caps", "side_k",
                  "side_v", "table")
@@ -151,10 +181,27 @@ class ContinuousEngine:
             {b for b in cfg.prefill_buckets if b < max_seq} | {max_seq})
         self.max_seq_len = max_seq
         self.attn_impl = cfg.attention_impl
+        # pure-decode steps of a ragged engine take the flash-decode kernel
+        self.decode_impl = ("pallas-decode"
+                            if self.attn_impl == "pallas-ragged"
+                            else self.attn_impl)
         self.decode_fused = bool(cfg.decode_fused)
         self.prefix_cache = bool(cfg.prefix_cache)
         self._ctx_page_buckets = _pow2_buckets(self.kv.max_pages_per_seq)
         self._prefix_hit_admissions = 0
+        # chunked prefill: the chunk is page-aligned, so every suffix chunk
+        # starts on a page boundary (the context gather reads whole pages)
+        ps = self.kv.page_size
+        self._chunk = (max(ps, cfg.prefill_chunk // ps * ps)
+                       if cfg.prefill_chunk else 0)
+        self._prefilling: Dict[int, _PrefillProgress] = {}
+        self._mixed = self.attn_impl == "pallas-ragged" and self._chunk > 0
+        # a mixed step's prefill rows pad to one of these widths: short
+        # tails reuse the smaller prefill buckets (CUDA graphs of the mixed
+        # step will need a bounded set of shapes)
+        self._mixed_q_buckets = (sorted(
+            {b for b in self.prefill_buckets if b < self._chunk}
+            | {self._chunk}) if self._chunk else [1])
 
         self._waiting: Deque[Tuple[GenerationRequest, float]] = (
             collections.deque())
@@ -196,6 +243,11 @@ class ContinuousEngine:
         self._capacity_finishes = 0
         self._steps = 0
         self._prefill_calls = 0
+        self._chunked_admissions = 0
+        self._mixed_steps = 0
+        self._mixed_prefill_tokens = 0
+        # (prefill-rows bucket, chunk bucket) shapes the mixed step ran
+        self._mixed_programs: set = set()
         self._occupancy_sum = 0
         # called right after a chunk's launches are queued and before its
         # blocking read (the pump drains its inbox here, in the device's
@@ -224,26 +276,47 @@ class ContinuousEngine:
                           | (knobs[:, 3] > 0).any())
         return needs_mask, bool((knobs[:, 0] > 0).any())
 
-    def _sample_firsts(self, hidden: torch.Tensor, last_idx: np.ndarray,
-                       reqs: List[GenerationRequest]):
-        """Prefill tail: last-token logits -> first tokens + logprobs, read
-        to the host (one read per admission dispatch)."""
-        bb = hidden.shape[0]
-        idx = torch.as_tensor(last_idx, device=self.device).long()
-        last = hidden[torch.arange(bb, device=self.device), idx]
-        logits = unembed(self.spec, self.params, last)
-        knobs = np.zeros((bb, 4), np.float32)
+    @staticmethod
+    def _request_knobs(reqs: Sequence[GenerationRequest], n: int
+                       ) -> np.ndarray:
+        """Host knob rows [temp, k, p, min_p] of ``reqs``, padded to ``n``
+        rows with greedy defaults."""
+        knobs = np.zeros((n, 4), np.float32)
         knobs[:, 2] = 1.0
         for i, r in enumerate(reqs):
             knobs[i] = (r.temperature, r.top_k, r.top_p, r.min_p)
+        return knobs
+
+    def _sample_knobs(self, logits: torch.Tensor, knobs: np.ndarray):
+        """Sample rows of ``logits`` under host knob rows -> (tokens [n]
+        int32, logprobs [n] fp32) on the device."""
         t = torch.from_numpy(knobs).to(self.device)
         sampling = SamplingParams(t[:, 0], t[:, 1].to(torch.int32), t[:, 2],
                                   t[:, 3])
         needs_mask, needs_noise = self._knob_flags(knobs)
-        toks, lps = sample_tokens_with_logprobs(
+        return sample_tokens_with_logprobs(
             logits, sampling, generator=self._gen, needs_mask=needs_mask,
             needs_noise=needs_noise)
-        return toks.cpu().numpy(), lps.cpu().numpy()
+
+    def _sample_firsts(self, hidden: torch.Tensor, last_idx: np.ndarray,
+                       reqs: List[GenerationRequest]) -> torch.Tensor:
+        """Prefill tail: last-token logits -> first tokens and logprobs, on
+        the device as one [2, bb] int32 buffer (tokens; logprob bits), so
+        the caller reads both in one transfer, or not at all."""
+        bb = hidden.shape[0]
+        idx = torch.as_tensor(last_idx, device=self.device).long()
+        last = hidden[torch.arange(bb, device=self.device), idx]
+        logits = unembed(self.spec, self.params, last)
+        toks, lps = self._sample_knobs(logits,
+                                       self._request_knobs(reqs, bb))
+        return torch.stack([toks, lps.view(torch.int32)])
+
+    @staticmethod
+    def _read_firsts(firsts: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+        """The host read of a ``_sample_firsts`` buffer -> (tokens,
+        logprobs)."""
+        host = firsts.cpu().numpy()
+        return host[0], host[1].view(np.float32)
 
     def _register_slot_host(self, req: GenerationRequest, slot: int,
                             prompt_len: int, first: int, t_submit: float,
@@ -326,11 +399,12 @@ class ContinuousEngine:
     def _should_hold_admissions(self) -> bool:
         """Admission coalescing (``admission_min_batch``), as in the JAX
         engine: hold a small admission round for batch-mates unless the
-        engine is under half full or the oldest request waited too long."""
+        engine is under half full or the oldest request waited too long.
+        A prompt mid-prefill holds a slot, so it counts as live."""
         mb = self.config.admission_min_batch
         if not mb or not self._waiting:
             return False
-        live = len(self._slots)
+        live = len(self._slots) + len(self._prefilling)
         if len(self._waiting) >= min(mb, self.max_slots - live):
             return False
         if live * 2 < self.max_slots:
@@ -343,7 +417,10 @@ class ContinuousEngine:
         Cache misses share one batched prefill; prefix-cache hits run
         their suffix prefill one by one. A request whose first page a
         same-round admission will register waits for that flush, so it
-        finds the pages and takes the suffix path."""
+        finds the pages and takes the suffix path. With ``prefill_chunk``
+        a prompt whose uncached part exceeds the chunk starts chunked: a
+        miss sends its first chunk through the batched prefill, a hit
+        resumes after its cached pages."""
         if self._should_hold_admissions():
             return 0
         admitted = 0
@@ -369,27 +446,42 @@ class ContinuousEngine:
                 if slot is None:
                     self._admission_denied += 1
                     break
-            if self.prefix_cache and n_cached == 0:
+            # chunk whenever the uncached part exceeds the chunk: a prefix
+            # hit with a long unique tail stalls decode as hard as a miss
+            will_chunk = (bool(self._chunk)
+                          and len(prompt) - n_cached > self._chunk)
+            if self.prefix_cache and n_cached == 0 and not will_chunk:
+                # a chunked admission registers its prefix only after its
+                # last chunk: advertising its hash would force flushes
+                # that register nothing
                 hr = self.kv.first_page_hash(prompt, registerable=True)
                 if hr is not None:
                     pending_hashes.add(hr)
             self._waiting.popleft()
             admitted += 1
-            if n_cached > 0:
-                t0 = time.perf_counter()
+            if will_chunk and n_cached > 0:
                 self._prefix_hit_admissions += 1
-                toks, lps = self._run_suffix_prefill(
-                    [prompt[n_cached:]], [slot], [n_cached], [req])
-                self.kv.register_prefix(slot, prompt)
-                self._total_prompt_tokens += len(prompt)
-                self._install_slot(req, slot, len(prompt), int(toks[0]), t0,
-                                   t_submit=t_submit, first_lp=float(lps[0]))
-            else:
-                batch.append((req, slot, prompt, t_submit))
+                self._start_chunked(req, slot, prompt, t_submit,
+                                    done=n_cached)
+            elif will_chunk or n_cached == 0:
+                # a chunked miss sends its first chunk (and the full prompt
+                # for the chunk advance) through the batched prefill
+                batch.append((req, slot, prompt[: self._chunk] if will_chunk
+                              else prompt, t_submit,
+                              prompt if will_chunk else None))
                 if len(batch) >= self._admit_row_cap():
                     self._admit_batch(batch)
                     batch = []
                     pending_hashes.clear()
+            else:
+                t0 = time.perf_counter()
+                self._prefix_hit_admissions += 1
+                toks, lps = self._read_firsts(self._run_suffix_prefill(
+                    [prompt[n_cached:]], [slot], [n_cached], [req]))
+                self.kv.register_prefix(slot, prompt)
+                self._total_prompt_tokens += len(prompt)
+                self._install_slot(req, slot, len(prompt), int(toks[0]), t0,
+                                   t_submit=t_submit, first_lp=float(lps[0]))
         if batch:
             self._admit_batch(batch)
         return admitted
@@ -398,28 +490,37 @@ class ContinuousEngine:
         """One prefill (pools written in place) + one first-token read +
         one state install for N cache-miss admissions. Rows pad to a
         power-of-two batch and the prompts to a prefill bucket; pad rows
-        have seq_len 0 and write nothing."""
+        have seq_len 0 and write nothing. A row with a full prompt
+        (``full`` not None) is the first chunk of a chunked admission."""
         t0 = time.perf_counter()
         self._prefill_calls += 1
         n = len(batch)
         bb = 1 << (n - 1).bit_length()
-        tb = _next_bucket(max(len(p) for _, _, p, _ in batch),
+        tb = _next_bucket(max(len(p) for _, _, p, _, _ in batch),
                           self.prefill_buckets)
         tokens = np.zeros((bb, tb), np.int32)
         seq_lens = np.zeros((bb,), np.int32)
         table_rows = np.zeros((bb, self.kv.max_pages_per_seq), np.int32)
-        for i, (_req, slot, prompt, _ts) in enumerate(batch):
+        for i, (_req, slot, prompt, _ts, _full) in enumerate(batch):
             tokens[i, : len(prompt)] = prompt
             seq_lens[i] = len(prompt)
             table_rows[i] = self.kv._table[slot]
         hidden, _, _ = forward_prefill_into_pages(
             self.spec, self.params, torch.from_numpy(tokens).to(self.device),
             seq_lens, self.kv.k_pages, self.kv.v_pages, table_rows)
-        firsts, first_lps = self._sample_firsts(
-            hidden, np.maximum(seq_lens - 1, 0), [r for r, *_ in batch])
+        firsts, first_lps = self._read_firsts(self._sample_firsts(
+            hidden, np.maximum(seq_lens - 1, 0), [r for r, *_ in batch]))
         self.prefill_stats.add(time.perf_counter() - t0)
         rows = []
-        for i, (req, slot, prompt, t_submit) in enumerate(batch):
+        for i, (req, slot, prompt, t_submit, full) in enumerate(batch):
+            if full is not None:
+                # first chunk of a chunked admission: its pages are written
+                # and its sample is discarded (the logits saw a truncated
+                # prompt); the chunk advance takes over. Its prompt tokens
+                # and prefix pages are counted at the last chunk
+                self._start_chunked(req, slot, full, t_submit,
+                                    done=len(prompt))
+                continue
             if self.prefix_cache:
                 self.kv.register_prefix(slot, prompt)
             self._total_prompt_tokens += len(prompt)
@@ -430,10 +531,12 @@ class ContinuousEngine:
                 rows.append(self._slot_row(req, slot, len(prompt), first))
         self._install_device(rows)
 
-    def _run_suffix_prefill(self, suffixes, slots, n_ctxs, reqs):
+    def _run_suffix_prefill(self, suffixes, slots, n_ctxs, reqs
+                            ) -> torch.Tensor:
         """Prefill each row's ``suffixes[i]`` on top of ``n_ctxs[i]``
         (page-aligned) tokens already in ``slots[i]``'s pages; the fresh
-        K/V lands at that offset. Returns host (first tokens, logprobs)."""
+        K/V lands at that offset. Shared by prefix-cache hits and the
+        chunk advance. Returns the ``_sample_firsts`` device buffer."""
         n = len(suffixes)
         bb = 1 << (n - 1).bit_length()
         tb = _next_bucket(max(len(s) for s in suffixes), self.prefill_buckets)
@@ -465,6 +568,71 @@ class ContinuousEngine:
         return self._sample_firsts(hidden, np.maximum(suffix_lens - 1, 0),
                                    list(reqs))
 
+    # ----------------------------------------------------- chunked prefill
+
+    def _start_chunked(self, req: GenerationRequest, slot: int,
+                       prompt: List[int], t_submit: float, done: int
+                       ) -> None:
+        """Begin the incremental prefill of a long prompt: its slot and
+        pages are reserved; ``done`` (page-aligned, > 0) tokens are in its
+        pages, from the batched first chunk or a prefix-cache hit."""
+        self._chunked_admissions += 1
+        self._prefilling[slot] = _PrefillProgress(req, prompt, t_submit,
+                                                  done)
+
+    def _finish_prefill(self, slot: int, prog: _PrefillProgress, first: int,
+                        first_lp: float, rows: List[Dict[str, Any]]) -> None:
+        """A prompt's last chunk ran: it registers its prefix and becomes
+        a live slot with the last chunk's sample as its first token."""
+        del self._prefilling[slot]
+        if self.prefix_cache:
+            self.kv.register_prefix(slot, prog.prompt)
+        self._total_prompt_tokens += len(prog.prompt)
+        if self._register_slot_host(prog.request, slot, len(prog.prompt),
+                                    first, prog.t_submit, first_lp=first_lp):
+            rows.append(self._slot_row(prog.request, slot, len(prog.prompt),
+                                       first))
+
+    def _advance_chunked(self) -> None:
+        """The split path: advance every prompt mid-prefill by one chunk,
+        in one suffix-prefill dispatch per context-page bucket (batching
+        pads every row's context gather to the batch's largest, so rows
+        are grouped to keep that padding under 2x)."""
+        if not self._prefilling:
+            return
+        groups: Dict[int, List[Tuple[int, _PrefillProgress]]] = {}
+        for slot, prog in self._prefilling.items():
+            b = _next_bucket(prog.done // self.kv.page_size,
+                             self._ctx_page_buckets)
+            groups.setdefault(b, []).append((slot, prog))
+        for _, items in sorted(groups.items()):
+            self._advance_group(items)
+
+    def _advance_group(self, items) -> None:
+        """One suffix-prefill dispatch advancing ``items`` by a chunk each;
+        only a prompt's last chunk yields its first token, read to the host
+        only when some row finished."""
+        t0 = time.perf_counter()
+        suffixes = [prog.prompt[prog.done: prog.done + self._chunk]
+                    for _, prog in items]
+        firsts = self._run_suffix_prefill(
+            suffixes, [slot for slot, _ in items],
+            [prog.done for _, prog in items],
+            [prog.request for _, prog in items])
+        self._prefill_calls += 1
+        self.prefill_stats.add(time.perf_counter() - t0)
+        host = None
+        rows: List[Dict[str, Any]] = []
+        for i, (slot, prog) in enumerate(items):
+            prog.done += len(suffixes[i])
+            if prog.done < len(prog.prompt):
+                continue
+            if host is None:
+                host = self._read_firsts(firsts)
+            self._finish_prefill(slot, prog, int(host[0][i]),
+                                 float(host[1][i]), rows)
+        self._install_device(rows)
+
     # ------------------------------------------------------------- finish
 
     def _finish(self, slot: int, reason: str) -> None:
@@ -492,11 +660,31 @@ class ContinuousEngine:
 
     # --------------------------------------------------------------- step
 
+    def _advance(self, next_tok, lp, lengths, last, active, produced, cap,
+                 use_stops: bool):
+        """The per-step bookkeeping of a decode step (the JAX chunk's
+        ``advance``): eos, ``max_new_tokens``, the capacity grant and the
+        device stop matrix retire a slot in place. Returns the new
+        (lengths, last, active, produced) and the step's emitted tokens
+        (-1 for idle slots) and logprobs."""
+        was = active
+        produced = produced + was.to(torch.int32)
+        hit_eos = (next_tok == self._eos) & (self._eos >= 0)
+        lengths = lengths + was.to(torch.int32)
+        done = hit_eos | (produced >= self._max_new) | (lengths >= cap)
+        if use_stops:
+            done = done | ((next_tok[:, None] == self._stops_dev)
+                           & (self._stops_dev >= 0)).any(dim=-1)
+        active = was & ~done
+        last = torch.where(was, next_tok, last)
+        emitted = torch.where(was, next_tok, torch.full_like(next_tok, -1))
+        lp = torch.where(was, lp, torch.zeros_like(lp))
+        return lengths, last, active, produced, emitted, lp
+
     def _decode_chunk(self, n_steps: int, caps: List[int], t0: float
                       ) -> _Chunk:
         """Queue one chunk of ``n_steps`` decode steps over all slots
-        (``caps``: each slot's token capacity). The per-step bookkeeping
-        (advance) is the JAX chunk's, on the device."""
+        (``caps``: each slot's token capacity)."""
         spec = self.spec
         n = self.max_slots
         dev = self.device
@@ -518,39 +706,37 @@ class ContinuousEngine:
             hidden, side_k, side_v = forward_decode_window(
                 spec, self.params, last, lengths, start_lengths,
                 self.kv.k_pages, self.kv.v_pages, table, side_k, side_v,
-                active, attn_impl=self.attn_impl, fused=self.decode_fused)
+                active, attn_impl=self.decode_impl, fused=self.decode_fused)
             logits = unembed(spec, self.params, hidden)
             next_tok, lp = sample_tokens_with_logprobs(
                 logits, sampling, generator=self._gen,
                 needs_mask=needs_mask, needs_noise=needs_noise)
-            was = active
-            produced = produced + was.to(torch.int32)
-            hit_eos = (next_tok == self._eos) & (self._eos >= 0)
-            lengths = lengths + was.to(torch.int32)
-            done = hit_eos | (produced >= self._max_new) | (lengths >= cap)
-            if use_stops:
-                done = done | ((next_tok[:, None] == self._stops_dev)
-                               & (self._stops_dev >= 0)).any(dim=-1)
-            active = was & ~done
-            last = torch.where(was, next_tok, last)
-            toks.append(torch.where(was, next_tok, torch.full_like(
-                next_tok, -1)))
-            lps.append(torch.where(was, lp, torch.zeros_like(lp)))
+            lengths, last, active, produced, emitted, lp = self._advance(
+                next_tok, lp, lengths, last, active, produced, cap,
+                use_stops)
+            toks.append(emitted)
+            lps.append(lp)
         self._lengths, self._last = lengths, last
         self._active, self._produced = active, produced
         packed = torch.cat([
             torch.stack(toks), torch.stack(lps).view(torch.int32),
             active[None].to(torch.int32), lengths[None],
-            start_lengths[None]], dim=0)
+            start_lengths[None]], dim=0).reshape(-1)
         return _Chunk(packed, n_steps, dict(self._slots), t0, caps, side_k,
                       side_v, self.kv._table.copy())
 
     def step(self) -> int:
-        """One engine iteration: admit, then one decode chunk. Returns the
-        number of live slots after it."""
+        """One engine iteration: admit, advance the chunked prefills, then
+        one decode chunk — or, on a ragged engine with prompts
+        mid-prefill, one mixed step. Returns the number of live and
+        mid-prefill slots after it."""
         self._try_admit()
+        if self._mixed and self._prefilling:
+            self._step_mixed()
+            return len(self._slots) + len(self._prefilling)
+        self._advance_chunked()
         if not self._slots:
-            return 0
+            return len(self._prefilling)
         self._steps += 1
         self._occupancy_sum += len(self._slots)
         # capacity: grow every slot toward a full chunk; one that can't
@@ -568,36 +754,167 @@ class ContinuousEngine:
                 n_steps = min(n_steps, cap_tok - cur)
         self._set_active(retired, False)
         if not self._slots or n_steps <= 0:
-            return len(self._slots)
+            return len(self._slots) + len(self._prefilling)
 
         t0 = time.perf_counter()
-        cap_list = [min(self.kv.slot_capacity(s), self.max_seq_len)
-                    if s in self._slots else 0
-                    for s in range(self.max_slots)]
-        chunk = self._decode_chunk(n_steps, cap_list, t0)
+        chunk = self._decode_chunk(n_steps, self._cap_list(), t0)
+        self._run_overlap_hook()
+        self._process_chunk(chunk)
+        return len(self._slots) + len(self._prefilling)
+
+    def _cap_list(self) -> List[int]:
+        """Each slot's token capacity (0 for a free slot)."""
+        return [min(self.kv.slot_capacity(s), self.max_seq_len)
+                if s in self._slots else 0 for s in range(self.max_slots)]
+
+    def _run_overlap_hook(self) -> None:
         if self.overlap_hook is not None:
             try:
                 self.overlap_hook()
             except Exception:
                 logger.exception("overlap hook failed")
-        self._process_chunk(chunk)
-        return len(self._slots)
 
-    def _process_chunk(self, chunk: _Chunk) -> None:
-        """The one blocking read of the chunk, the page flush of its side
-        window, then token appends, stop scans and finish/revive."""
+    # -------------------------------------------------------- mixed step
+
+    def _step_mixed(self) -> None:
+        """One mixed step (``attention_impl="pallas-ragged"`` with prompts
+        mid-prefill): every decode slot advances one token and prefill
+        chunks ride the same ``forward_mixed_step``, instead of the split
+        path's suffix dispatch plus decode chunk.
+
+        ``mixed_step_tokens`` caps the prefill tokens per step at row
+        granularity, oldest prompt first and always at least one row. The
+        ragged kernel writes every row's K/V into its pages: a mixed step
+        has no side window and no chunk-end flush."""
+        t0 = time.perf_counter()
+        budget = self.config.mixed_step_tokens
+        sel: List[Tuple[int, _PrefillProgress, List[int]]] = []
+        spent = 0
+        for slot, prog in self._prefilling.items():
+            sfx = prog.prompt[prog.done: prog.done + self._chunk]
+            if budget and sel and spent + len(sfx) > budget:
+                break
+            sel.append((slot, prog, sfx))
+            spent += len(sfx)
+
+        # decode capacity: one more token of pages per live slot
+        retired: List[int] = []
+        for slot in list(self._slots):
+            cur = int(self._lengths_host[slot])
+            if self.kv.ensure_capacity(slot, cur + 1) <= cur:
+                self._capacity_finishes += 1
+                retired.append(slot)
+                self._finish(slot, "length")
+        self._set_active(retired, False)
+        # the kernel writes each prefill row's K/V blindly: its pages must
+        # cover the chunk before the launch
+        for slot, prog, sfx in sel:
+            self.kv.ensure_capacity(slot, prog.done + len(sfx))
+            self.kv.ensure_backed(slot, prog.done + len(sfx))
+
+        n = len(sel)
+        rpb = 1 << (n - 1).bit_length()
+        qb = _next_bucket(max(len(s) for _, _, s in sel),
+                          self._mixed_q_buckets)
+        self._mixed_programs.add((rpb, qb))
+        pf_tokens = np.zeros((rpb, qb), np.int32)
+        pf_ctx = np.zeros((rpb,), np.int32)
+        pf_qlens = np.zeros((rpb,), np.int32)       # pad rows: inert
+        pf_tables = np.zeros((rpb, self.kv.max_pages_per_seq), np.int32)
+        for i, (slot, prog, sfx) in enumerate(sel):
+            pf_tokens[i, : len(sfx)] = sfx
+            pf_ctx[i] = prog.done
+            pf_qlens[i] = len(sfx)
+            pf_tables[i] = self.kv._table[slot]
+        pf_knobs = self._request_knobs([prog.request for _, prog, _ in sel],
+                                       rpb)
+
+        self._steps += 1
+        self._mixed_steps += 1
+        self._mixed_prefill_tokens += spent
+        self._occupancy_sum += len(self._slots)
+        chunk = self._mixed_chunk(pf_tokens, pf_ctx, pf_qlens, pf_tables,
+                                  pf_knobs, self._cap_list(), t0)
+        self._run_overlap_hook()
+        pf_host = self._process_chunk(chunk)
+
+        # only a prompt's last chunk yields its first token
+        rows: List[Dict[str, Any]] = []
+        pf_lps = pf_host[rpb:].view(np.float32)
+        for i, (slot, prog, sfx) in enumerate(sel):
+            prog.done += len(sfx)
+            if prog.done >= len(prog.prompt):
+                self._finish_prefill(slot, prog, int(pf_host[i]),
+                                     float(pf_lps[i]), rows)
+        self._install_device(rows)
+
+    def _mixed_chunk(self, pf_tokens: np.ndarray, pf_ctx: np.ndarray,
+                     pf_qlens: np.ndarray, pf_tables: np.ndarray,
+                     pf_knobs: np.ndarray, caps: List[int], t0: float
+                     ) -> _Chunk:
+        """Queue one mixed step: the decode rows (one per slot; active
+        rows q=1 at ctx=length, the rest inert with q=0, ctx=0) and the
+        prefill rows in one ragged forward, one ``unembed`` over all rows,
+        the decode rows' ``advance`` and the prefill rows' samples."""
+        spec = self.spec
+        b = self.max_slots
+        dev = self.device
+        qb = pf_tokens.shape[1]
+        lengths, last = self._lengths, self._last
+        active, produced = self._active, self._produced
+        tokens = torch.zeros((b, qb), dtype=torch.int32, device=dev)
+        tokens[:, 0] = last
+        tokens = torch.cat([tokens, torch.from_numpy(pf_tokens).to(dev)])
+        ctx = torch.cat([torch.where(active, lengths,
+                                     torch.zeros_like(lengths)),
+                         torch.from_numpy(pf_ctx).to(dev)])
+        qlens = torch.cat([active.to(torch.int32),
+                           torch.from_numpy(pf_qlens).to(dev)])
+        table = torch.cat([self.kv.page_table,
+                           torch.from_numpy(pf_tables).to(dev)])
+        hidden, _, _ = forward_mixed_step(
+            spec, self.params, tokens, ctx, qlens, self.kv.k_pages,
+            self.kv.v_pages, table)
+        logits = unembed(spec, self.params, hidden)
+        needs_mask, needs_noise = self._knob_flags(self._knobs_host)
+        next_tok, lp = sample_tokens_with_logprobs(
+            logits[:b], SamplingParams(self._temps, self._top_k,
+                                       self._top_p, self._min_p),
+            generator=self._gen, needs_mask=needs_mask,
+            needs_noise=needs_noise)
+        pf_tok, pf_lp = self._sample_knobs(logits[b:], pf_knobs)
+        cap = torch.as_tensor(caps, dtype=torch.int32, device=dev)
+        new_len, last, active, produced, emitted, lp = self._advance(
+            next_tok, lp, lengths, last, active, produced, cap,
+            bool(self._stop_slots))
+        self._lengths, self._last = new_len, last
+        self._active, self._produced = active, produced
+        packed = torch.cat([
+            emitted, lp.view(torch.int32), active.to(torch.int32), new_len,
+            lengths, pf_tok, pf_lp.view(torch.int32)])
+        return _Chunk(packed, 1, dict(self._slots), t0, caps, None, None,
+                      None)
+
+    def _process_chunk(self, chunk: _Chunk) -> np.ndarray:
+        """The one blocking read of a chunk or mixed step, the page flush
+        of a chunk's side window, then token appends, stop scans and
+        finish/revive. Returns what the packed buffer carries past the
+        decode rows (a mixed step's prefill samples)."""
         n_steps = chunk.n_steps
-        host = chunk.packed.cpu().numpy()
+        b = self.max_slots
+        flat = chunk.packed.cpu().numpy()
+        host = flat[: (2 * n_steps + 3) * b].reshape(2 * n_steps + 3, b)
         toks_np = host[:n_steps]
         lps_np = host[n_steps:2 * n_steps].view(np.float32)
         active_np = host[2 * n_steps].astype(bool)
         lengths_row = host[2 * n_steps + 1]
         start_row = host[2 * n_steps + 2]
-        # chunk-end flush: slot b's fresh K/V sits in side entries [0,
-        # written) and lands at [start, start + written) of its pages
-        write_prefill_pages(self.kv.k_pages, self.kv.v_pages, chunk.side_k,
-                            chunk.side_v, chunk.table,
-                            lengths_row - start_row, start=start_row)
+        if chunk.side_k is not None:
+            # chunk-end flush: slot b's fresh K/V sits in side entries [0,
+            # written) and lands at [start, start + written) of its pages
+            write_prefill_pages(self.kv.k_pages, self.kv.v_pages,
+                                chunk.side_k, chunk.side_v, chunk.table,
+                                lengths_row - start_row, start=start_row)
         self.chunk_stats.add(time.perf_counter() - chunk.t0)
 
         retired: List[int] = []
@@ -638,6 +955,7 @@ class ContinuousEngine:
                 self._finish(slot, "stop")
         self._set_active(retired, False)
         self._set_active(revived, True)
+        return flat[(2 * n_steps + 3) * b:]
 
     # ---------------------------------------------------------------- run
 
@@ -662,11 +980,13 @@ class ContinuousEngine:
         return out
 
     def abort_all(self) -> int:
-        """Drop every waiting and live request and free their pages."""
-        n = len(self._waiting) + len(self._slots)
+        """Drop every waiting, mid-prefill and live request and free their
+        pages."""
+        n = len(self._waiting) + len(self._slots) + len(self._prefilling)
         self._waiting.clear()
-        for slot in list(self._slots):
-            self._slots.pop(slot)
+        for slot in list(self._slots) + list(self._prefilling):
+            self._slots.pop(slot, None)
+            self._prefilling.pop(slot, None)
             self.kv.free_slot(slot)
         self._stop_slots.clear()
         self._active = torch.zeros_like(self._active)
@@ -678,7 +998,9 @@ class ContinuousEngine:
 
     @property
     def n_live(self) -> int:
-        return len(self._slots)
+        # a prompt mid-prefill holds a slot and needs further steps: the
+        # pump gates its loop on this
+        return len(self._slots) + len(self._prefilling)
 
     # ------------------------------------------------------------ metrics
 
@@ -693,7 +1015,12 @@ class ContinuousEngine:
             "capacity_finishes": self._capacity_finishes,
             "engine_steps": self._steps,
             "prefill_calls": self._prefill_calls,
+            "mixed_steps": self._mixed_steps,
+            "mixed_prefill_tokens": self._mixed_prefill_tokens,
+            "mixed_programs": len(self._mixed_programs),
             "prefix_hit_admissions": self._prefix_hit_admissions,
+            "prefilling_slots": len(self._prefilling),
+            "chunked_admissions": self._chunked_admissions,
             "ttft": self.ttft_stats.snapshot(),
             "batch_occupancy": (self._occupancy_sum
                                 / (self._steps * self.max_slots)

@@ -30,7 +30,10 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import causal_attention, suffix_attention
-from ..ops.flash_decode import flash_decode_attention
+from ..ops.flash_decode import (
+    flash_decode_attention,
+    flash_decode_attention_fw,
+)
 from ..ops.fused_decode import (
     matmul_residual,
     matmul_residual_wants,
@@ -38,6 +41,7 @@ from ..ops.fused_decode import (
     norm_matmul_wants,
 )
 from ..ops.norms import rms_norm
+from ..ops.ragged_attention import ragged_attention
 from ..ops.rope import apply_rope
 
 Params = Dict[str, Any]
@@ -286,13 +290,23 @@ def embed(spec: ModelSpec, params: Params, tokens: torch.Tensor,
 
 def unembed(spec: ModelSpec, params: Params, hidden: torch.Tensor
             ) -> torch.Tensor:
-    """Final norm + LM head -> fp32 logits [..., V]. The JAX code asks XLA
-    for an fp32 accumulator output of a bf16 product; PyTorch's bf16
-    matmul accumulates in fp32 but returns bf16, so bf16 logits carry one
-    bf16 rounding before the cast (fp32 weights are exact)."""
+    """Final norm + LM head -> fp32 logits [..., V], with no rounding to
+    the weight dtype in between (the JAX code's fp32 accumulator output,
+    ``preferred_element_type=float32``). The head stays in its storage
+    dtype on the card: one cuBLAS call with an fp32 output
+    (``aten::mm.dtype``), never an fp32 copy of the [D, V] weight. That
+    overload has no CPU kernel, so a CPU tensor widens both operands:
+    bf16 values are exact in fp32, and the arithmetic is the same."""
     h = _norm(spec, hidden, params["lnf_scale"])
     w = params["tok_emb"].t() if spec.tie_embeddings else params["lm_head"]
-    return (h.to(w.dtype) @ w).float()
+    h = h.to(w.dtype)
+    if w.dtype == torch.float32:
+        return h @ w
+    if h.device.type == "cpu":
+        return h.float() @ w.float()
+    h2 = h.reshape(-1, h.shape[-1])
+    return torch.mm(h2, w, out_dtype=torch.float32).reshape(
+        *h.shape[:-1], w.shape[-1])
 
 
 # ------------------------------------------------------------------ prefill
@@ -442,35 +456,98 @@ def forward_decode_window(
 
     ``attn_impl`` "auto" and "pallas-decode" both take the flash-decode
     kernel: the JAX default ("auto" -> dense XLA gather) is a TPU layout
-    choice the port does not carry."""
-    if attn_impl not in ("auto", "pallas-decode"):
+    choice the port does not carry. "pallas-decode-fw" takes the
+    writeback kernel instead: the fresh K/V goes in as its own operand
+    and the kernel lands it in the side window, in place of the one-hot
+    write."""
+    if attn_impl not in ("auto", "pallas-decode", "pallas-decode-fw"):
         raise ValueError(f"attn_impl {attn_impl!r} is not ported "
                          "(ROADMAP.md B)")
+    fw = attn_impl == "pallas-decode-fw"
     b = tokens.shape[0]
     L, n_pages, page_size, fusedw = k_pages.shape
     w = side_k.shape[2]
     positions = lengths[:, None].long()
     x = embed(spec, params, tokens[:, None], positions)
-    idx = lengths - start_lengths
-    onehot = (torch.arange(w, device=tokens.device)[None, :]
-              == idx[:, None]) & active[:, None]
-    n_side = (idx + active.to(idx.dtype)).to(torch.int32)
+    idx = (lengths - start_lengths).to(torch.int32)
     kp_flat = k_pages.view(L * n_pages, page_size, fusedw)
     vp_flat = v_pages.view(L * n_pages, page_size, fusedw)
-    sel = onehot[:, :, None, None]
+    if fw:
+        active_i = active.to(torch.int32)
+    else:
+        sel = ((torch.arange(w, device=tokens.device)[None, :]
+                == idx[:, None]) & active[:, None])[:, :, None, None]
+        n_side = (idx + active.to(idx.dtype)).to(torch.int32)
     for layer in range(L):
         blk = layer_view(params, layer)
         q, k, v = _qkv_norm(spec, blk, x, positions, fused=fused)
         sk, sv = side_k[layer], side_v[layer]
-        sk.copy_(torch.where(sel, k[:, 0][:, None].to(sk.dtype), sk))
-        sv.copy_(torch.where(sel, v[:, 0][:, None].to(sv.dtype), sv))
-        attn = flash_decode_attention(
-            q[:, 0].contiguous(), kp_flat, vp_flat, page_table,
-            start_lengths, sk, sv, n_side, n_kv_heads=spec.n_kv_heads,
-            layer=layer, n_pages_per_layer=n_pages)
+        kw = dict(n_kv_heads=spec.n_kv_heads, layer=layer,
+                  n_pages_per_layer=n_pages)
+        if fw:
+            attn, _, _ = flash_decode_attention_fw(
+                q[:, 0].contiguous(), kp_flat, vp_flat, page_table,
+                start_lengths, sk, sv, k.to(sk.dtype).contiguous(),
+                v.to(sv.dtype).contiguous(), idx, active_i, **kw)
+        else:
+            sk.copy_(torch.where(sel, k[:, 0][:, None].to(sk.dtype), sk))
+            sv.copy_(torch.where(sel, v[:, 0][:, None].to(sv.dtype), sv))
+            attn = flash_decode_attention(
+                q[:, 0].contiguous(), kp_flat, vp_flat, page_table,
+                start_lengths, sk, sv, n_side, **kw)
         x = _out_residual(spec, blk, attn[:, None], x, fused=fused)
         x = _mlp_residual(spec, blk, x, fused=fused)
     return x[:, 0, :], side_k, side_v
+
+
+def forward_mixed_step(
+    spec: ModelSpec,
+    params: Params,
+    tokens: torch.Tensor,       # [R, Qm] per-row fresh tokens (right-padded)
+    ctx_lens: torch.Tensor,     # [R] tokens already in the row's pages
+    q_lens: torch.Tensor,       # [R] 0 = inert row, 1 = decode, >1 = chunk
+    k_pages: torch.Tensor,      # [L, N, P, Hkv*Dh] written in place
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,   # [R, MP] int32
+    *,
+    return_hidden_all: bool = False,
+):
+    """One ragged mixed-batch step (the JAX function's "pallas-ragged"
+    branch): decode rows (one token) and prefill-chunk rows share one
+    forward against the paged pools, one ragged attention call per layer
+    on the stacked pools, and every row's fresh K/V lands in its reserved
+    pages (``ops/ragged_attention.py``).
+
+    Row r's token i sits at absolute position ``ctx_lens[r] + i``; rows
+    ``i >= q_lens[r]`` are padding. Returns (the hidden state at each
+    row's last valid token [R, D] — or the whole lattice [R, Qm, D] with
+    ``return_hidden_all`` — plus the pools, updated in place where the
+    JAX function donated them). Rows with ``q_lens == 0`` carry garbage
+    hidden; callers mask them."""
+    r, qm = tokens.shape
+    L, n, p, fusedw = k_pages.shape
+    dev = tokens.device
+    ctx = _device_ints(ctx_lens, dev)
+    ql = _device_ints(q_lens, dev)
+    positions = ctx[:, None].long() + torch.arange(qm, device=dev)[None, :]
+    x = embed(spec, params, tokens, positions)
+    table = _device_ints(page_table, dev)
+    kp_flat = k_pages.view(L * n, p, fusedw)
+    vp_flat = v_pages.view(L * n, p, fusedw)
+    for layer in range(L):
+        blk = layer_view(params, layer)
+        h = _norm(spec, x, blk["ln1_scale"])
+        q, k, v = _qkv(spec, blk, h, positions)
+        attn, _, _ = ragged_attention(
+            q.contiguous(), kp_flat, vp_flat, table, ctx, ql,
+            k.contiguous(), v.contiguous(), n_kv_heads=spec.n_kv_heads,
+            layer=layer, n_pages_per_layer=n)
+        x = x + _out_proj(blk, attn)
+        x = x + _mlp(spec, blk, _norm(spec, x, blk["ln2_scale"]))
+    if return_hidden_all:
+        return x, k_pages, v_pages
+    last = x[torch.arange(r, device=dev), torch.clamp(ql.long() - 1, min=0)]
+    return last, k_pages, v_pages
 
 
 def write_prefill_pages(k_pages: torch.Tensor, v_pages: torch.Tensor,

@@ -31,7 +31,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("flash_decode.cu", "fused_decode.cu")
+SOURCES = ("flash_decode.cu", "fused_decode.cu", "ragged_attention.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -128,11 +128,18 @@ def lib() -> ctypes.CDLL:
         handle.die_flash_decode.argtypes = [
             P, P, P, P, P, P, P, P, P,           # q .. out
             I, I, I, I, I, I, I, LL, I, I, P]    # shapes, dtypes, stream
+        handle.die_flash_decode_fw.argtypes = [
+            P, P, P, P, P, P, P, P, P, P, P, P,  # q .. out
+            I, I, I, I, I, I, I, LL, I, I, P]    # shapes, dtypes, stream
+        handle.die_ragged_attention.argtypes = [
+            P, P, P, P, P, P, P, P, P,           # q .. out
+            I, I, I, I, I, I, I, LL, I, I, P]    # shapes, dtypes, stream
         handle.die_norm_matmul.argtypes = [
             P, P, P, P, P, P, I, I, I, F, I, I, I, I, P]
         handle.die_matmul_residual.argtypes = [
             P, P, P, P, P, I, I, I, I, I, I, P]
-        for fn in (handle.die_flash_decode, handle.die_norm_matmul,
+        for fn in (handle.die_flash_decode, handle.die_flash_decode_fw,
+                   handle.die_ragged_attention, handle.die_norm_matmul,
                    handle.die_matmul_residual):
             fn.restype = I
         _lib = handle
@@ -159,6 +166,12 @@ def check(err: int, name: str) -> None:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def require_int32(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        require(t.dtype == torch.int32, f"{name}: index tensors must be "
+                "int32")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

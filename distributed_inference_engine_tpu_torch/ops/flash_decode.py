@@ -8,6 +8,11 @@ the plain version for a CPU tensor. The plain version is the JAX
 package's reference composition ``flash_decode_attention_xla``: paged
 prefix attention with flash stats, side-window attention, merged.
 
+``flash_decode_attention_fw`` is the writeback variant (replacing
+``_flash_decode_fw_kernel``): this step's fresh K/V comes as its own
+operand, is attended as one extra key and lands in the side window in
+place (the JAX function donated the side buffers and returned new ones).
+
 Stacked pools: the engine passes the whole ``[L*N, P, Hkv*Dh]`` pool and
 ``layer``; page p of slot b lives at row ``layer*N + page_table[b, p]``.
 """
@@ -49,6 +54,38 @@ def flash_decode_attention_plain(
     return merge_attention([prefix, window], dtype=q.dtype)
 
 
+def _check_decode(name, q, k_pages, v_pages, page_table, prefix_lens,
+                  side_k, side_v, *, n_kv_heads, layer, n_pages_per_layer):
+    """Shared wrapper checks of the two flash-decode kernels; returns the
+    stacked pool's first row of ``layer``."""
+    b, h, dh = q.shape
+    rows, _page_size, fused = k_pages.shape
+    w = side_k.shape[1]
+    _cuda.require(q.device.type == "cuda", f"{name}: unsupported device "
+                  f"{q.device}")
+    _cuda.require(h % n_kv_heads == 0 and h // n_kv_heads in (1, 2, 4, 8),
+                  f"{name}: H/Hkv = {h}/{n_kv_heads} must be 1, 2, 4 or 8")
+    _cuda.require(dh % 32 == 0 and dh // 32 in (1, 2, 4, 8),
+                  f"{name}: head_dim {dh} must be 32, 64, 128 or 256")
+    _cuda.require(fused == n_kv_heads * dh and v_pages.shape ==
+                  k_pages.shape, f"{name}: pool shape {tuple(k_pages.shape)}"
+                  f" does not match Hkv*Dh = {n_kv_heads * dh}")
+    _cuda.require(tuple(side_k.shape) == (b, w, n_kv_heads, dh) and
+                  side_v.shape == side_k.shape,
+                  f"{name}: side window shape {tuple(side_k.shape)}")
+    _cuda.require(side_k.dtype == q.dtype == side_v.dtype and
+                  k_pages.dtype == v_pages.dtype,
+                  f"{name}: side window must be in q's dtype")
+    _cuda.require(page_table.dim() == 2 and page_table.shape[0] == b
+                  and prefix_lens.shape == (b,),
+                  f"{name}: page_table/prefix_lens batch mismatch")
+    n = n_pages_per_layer or rows
+    base = 0 if layer is None else int(layer) * n
+    _cuda.require(0 <= base and base + n <= rows,
+                  f"{name}: layer {layer} outside the stacked pool")
+    return base
+
+
 def flash_decode_attention(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -72,43 +109,112 @@ def flash_decode_attention(
             n_pages_per_layer=n_pages_per_layer)
     name = "flash_decode"
     b, h, dh = q.shape
-    rows, page_size, fused = k_pages.shape
-    w = side_k.shape[1]
-    _cuda.require(q.device.type == "cuda", f"{name}: unsupported device "
-                  f"{q.device}")
+    base = _check_decode(name, q, k_pages, v_pages, page_table, prefix_lens,
+                         side_k, side_v, n_kv_heads=n_kv_heads, layer=layer,
+                         n_pages_per_layer=n_pages_per_layer)
     _cuda.require_cuda(name, q, k_pages, v_pages, page_table, prefix_lens,
                        side_k, side_v, n_side)
-    _cuda.require(h % n_kv_heads == 0 and h // n_kv_heads in (1, 2, 4, 8),
-                  f"{name}: H/Hkv = {h}/{n_kv_heads} must be 1, 2, 4 or 8")
-    _cuda.require(dh % 32 == 0 and dh // 32 in (1, 2, 4, 8),
-                  f"{name}: head_dim {dh} must be 32, 64, 128 or 256")
-    _cuda.require(fused == n_kv_heads * dh and v_pages.shape ==
-                  k_pages.shape, f"{name}: pool shape {tuple(k_pages.shape)}"
-                  f" does not match Hkv*Dh = {n_kv_heads * dh}")
-    _cuda.require(tuple(side_k.shape) == (b, w, n_kv_heads, dh) and
-                  side_v.shape == side_k.shape,
-                  f"{name}: side window shape {tuple(side_k.shape)}")
-    _cuda.require(side_k.dtype == q.dtype == side_v.dtype and
-                  k_pages.dtype == v_pages.dtype,
-                  f"{name}: side window must be in q's dtype")
-    for t in (page_table, prefix_lens, n_side):
-        _cuda.require(t.dtype == torch.int32, f"{name}: index tensors must "
-                      "be int32")
-    _cuda.require(page_table.dim() == 2 and page_table.shape[0] == b
-                  and prefix_lens.shape == (b,) and n_side.shape == (b,),
-                  f"{name}: page_table/prefix_lens/n_side batch mismatch")
-    n = n_pages_per_layer or rows
-    base = 0 if layer is None else int(layer) * n
-    _cuda.require(0 <= base and base + n <= rows,
-                  f"{name}: layer {layer} outside the stacked pool")
+    _cuda.require_int32(name, page_table, prefix_lens, n_side)
+    _cuda.require(n_side.shape == (b,), f"{name}: n_side batch mismatch")
     out = torch.empty_like(q)
     err = _cuda.lib().die_flash_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), prefix_lens.data_ptr(), side_k.data_ptr(),
         side_v.data_ptr(), n_side.data_ptr(), out.data_ptr(),
-        b, h, n_kv_heads, dh, page_size, page_table.shape[1], w, base,
-        _cuda.dtype_code(q.dtype), _cuda.dtype_code(k_pages.dtype),
-        _cuda.stream_ptr(q.device))
+        b, h, n_kv_heads, dh, k_pages.shape[1], page_table.shape[1],
+        side_k.shape[1], base, _cuda.dtype_code(q.dtype),
+        _cuda.dtype_code(k_pages.dtype), _cuda.stream_ptr(q.device))
     _cuda.check(err, name)
     _cuda.LAUNCHES[name] += 1
     return out
+
+
+def flash_decode_attention_fw_plain(
+    q: torch.Tensor,            # [B, H, Dh]
+    k_pages: torch.Tensor,      # [N, P, Hkv*Dh] (or stacked [L*N, ...])
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,   # [B, MP] int32
+    prefix_lens: torch.Tensor,  # [B] frozen prefix length per slot
+    side_k: torch.Tensor,       # [B, W, Hkv, Dh], written in place
+    side_v: torch.Tensor,
+    fresh_k: torch.Tensor,      # [B, 1, Hkv, Dh] this step's K/V
+    fresh_v: torch.Tensor,
+    side_idx: torch.Tensor,     # [B] side column this step writes
+    active: torch.Tensor,       # [B] bool/int: inactive slots don't write
+    *,
+    n_kv_heads: int,
+    layer: Optional[int] = None,
+    n_pages_per_layer: int = 0,
+):
+    """Reference composition: the one-hot side write of the active slots
+    (``side_idx < W``), then flash-decode with ``n_side = side_idx +
+    active`` — what the JAX non-fw branch of ``forward_decode_window``
+    computes. Returns (out, side_k, side_v)."""
+    b, w = side_k.shape[:2]
+    act = active.to(torch.bool)
+    onehot = ((torch.arange(w, device=q.device)[None, :]
+               == side_idx[:, None]) & act[:, None])[:, :, None, None]
+    side_k.copy_(torch.where(onehot, fresh_k.reshape(b, 1, *side_k.shape[2:])
+                             .to(side_k.dtype), side_k))
+    side_v.copy_(torch.where(onehot, fresh_v.reshape(b, 1, *side_v.shape[2:])
+                             .to(side_v.dtype), side_v))
+    n_side = (side_idx + act.to(side_idx.dtype)).to(torch.int32)
+    out = flash_decode_attention_plain(
+        q, k_pages, v_pages, page_table, prefix_lens, side_k, side_v, n_side,
+        n_kv_heads=n_kv_heads, layer=layer,
+        n_pages_per_layer=n_pages_per_layer)
+    return out, side_k, side_v
+
+
+def flash_decode_attention_fw(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    prefix_lens: torch.Tensor,
+    side_k: torch.Tensor,
+    side_v: torch.Tensor,
+    fresh_k: torch.Tensor,
+    fresh_v: torch.Tensor,
+    side_idx: torch.Tensor,
+    active: torch.Tensor,
+    *,
+    n_kv_heads: int,
+    layer: Optional[int] = None,
+    n_pages_per_layer: int = 0,
+):
+    """Flash-decode with the side-window writeback -> (out [B, H, Dh] in
+    q's dtype, side_k, side_v), the side buffers updated in place. CUDA
+    tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
+    if q.device.type == "cpu":
+        return flash_decode_attention_fw_plain(
+            q, k_pages, v_pages, page_table, prefix_lens, side_k, side_v,
+            fresh_k, fresh_v, side_idx, active, n_kv_heads=n_kv_heads,
+            layer=layer, n_pages_per_layer=n_pages_per_layer)
+    name = "flash_decode_fw"
+    b, h, dh = q.shape
+    base = _check_decode(name, q, k_pages, v_pages, page_table, prefix_lens,
+                         side_k, side_v, n_kv_heads=n_kv_heads, layer=layer,
+                         n_pages_per_layer=n_pages_per_layer)
+    _cuda.require_cuda(name, q, k_pages, v_pages, page_table, prefix_lens,
+                       side_k, side_v, fresh_k, fresh_v, side_idx, active)
+    _cuda.require_int32(name, page_table, prefix_lens, side_idx, active)
+    _cuda.require(tuple(fresh_k.shape) == (b, 1, n_kv_heads, dh) and
+                  fresh_v.shape == fresh_k.shape and
+                  fresh_k.dtype == q.dtype == fresh_v.dtype,
+                  f"{name}: fresh K/V must be [B, 1, Hkv, Dh] in q's dtype")
+    _cuda.require(side_idx.shape == (b,) and active.shape == (b,),
+                  f"{name}: side_idx/active batch mismatch")
+    out = torch.empty_like(q)
+    err = _cuda.lib().die_flash_decode_fw(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), prefix_lens.data_ptr(), side_k.data_ptr(),
+        side_v.data_ptr(), fresh_k.data_ptr(), fresh_v.data_ptr(),
+        side_idx.data_ptr(), active.data_ptr(), out.data_ptr(),
+        b, h, n_kv_heads, dh, k_pages.shape[1], page_table.shape[1],
+        side_k.shape[1], base, _cuda.dtype_code(q.dtype),
+        _cuda.dtype_code(k_pages.dtype), _cuda.stream_ptr(q.device))
+    _cuda.check(err, name)
+    _cuda.LAUNCHES[name] += 1
+    return out, side_k, side_v

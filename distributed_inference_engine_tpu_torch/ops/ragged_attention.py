@@ -1,0 +1,151 @@
+"""Ragged mixed-batch attention: decode rows and prefill-chunk rows in one
+launch per layer, with each row's fresh K/V written into its pages (port
+of ``ops/ragged_attention.py``).
+
+Row r carries ``q_lens[r]`` fresh queries (0: an inert row, 1: a decode
+row, more: a prefill chunk) at absolute positions ``ctx_lens[r] + i``, and
+``ctx_lens[r]`` context tokens already in its pages. Context key j is
+visible iff ``j < ctx_lens[r]``; fresh key j is visible to query i iff
+``j <= i < q_lens[r]``; output rows ``i >= q_lens[r]`` are 0. The fresh
+K/V, cast to the pool dtype, lands at positions ``[ctx_lens[r],
+ctx_lens[r] + q_lens[r])`` of the row's pages, straddling pages through
+the table.
+
+``ragged_attention`` launches the hand-written CUDA kernel
+(``csrc/ragged_attention.cu``, replacing the TPU kernel
+``ops/ragged_attention.py:_ragged_kernel``) for a CUDA tensor and runs
+the plain version for a CPU tensor. Both update the pools IN PLACE (the
+JAX function donated them and returned new ones); they still return
+them, so call sites read as in the JAX package.
+
+Stacked pools: the engine passes the whole ``[L*N, P, Hkv*Dh]`` pool and
+``layer``; page p of row r lives at row ``layer*N + page_table[r, p]``.
+Preconditions (``engine/paged_kv.py:ensure_backed``): rows own disjoint
+pages, and every row's pages cover ``ctx_lens[r] + q_lens[r]`` tokens —
+the kernel writes blindly.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _cuda
+from .attention import suffix_attention
+
+
+def ragged_attention_plain(
+    q: torch.Tensor,            # [R, Qmax, H, Dh]
+    k_pages: torch.Tensor,      # [N, P, Hkv*Dh] (or stacked [L*N, ...])
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,   # [R, MP] int32
+    ctx_lens: torch.Tensor,     # [R] tokens already in the row's pages
+    q_lens: torch.Tensor,       # [R] fresh queries per row
+    fresh_k: torch.Tensor,      # [R, Qmax, Hkv, Dh] this step's K/V
+    fresh_v: torch.Tensor,
+    *,
+    n_kv_heads: int,
+    layer: Optional[int] = None,
+    n_pages_per_layer: int = 0,
+):
+    """The JAX reference ``ragged_attention_xla`` on one layer of the
+    stacked pools: round the fresh K/V through the pool dtype, gather
+    each row's table, ``suffix_attention``, zero rows ``i >= q_len``,
+    write the fresh K/V into the pages. Returns (out, k_pages, v_pages)."""
+    if layer is not None:
+        n = n_pages_per_layer or k_pages.shape[0]
+        kp = k_pages[layer * n:(layer + 1) * n]           # views, no copy
+        vp = v_pages[layer * n:(layer + 1) * n]
+    else:
+        kp, vp = k_pages, v_pages
+    r, qmax, h, dh = q.shape
+    n, p, fused = kp.shape
+    mp = page_table.shape[1]
+    dev = q.device
+    ctx = ctx_lens.to(device=dev, dtype=torch.int64)
+    ql = q_lens.to(device=dev, dtype=torch.int64)
+    table = page_table.to(device=dev, dtype=torch.int64)
+    # the kernel attends to the same bits it writes back
+    fk = fresh_k.to(kp.dtype)
+    fv = fresh_v.to(vp.dtype)
+    ctx_k = kp[table].reshape(r, mp * p, n_kv_heads, dh)
+    ctx_v = vp[table].reshape(r, mp * p, n_kv_heads, dh)
+    out = suffix_attention(q, ctx_k.to(q.dtype), ctx_v.to(q.dtype), ctx,
+                           fk.to(q.dtype), fv.to(q.dtype), ql)
+    local = torch.arange(qmax, device=dev)[None, :]
+    row_valid = local < ql[:, None]                               # [R, Qmax]
+    out = torch.where(row_valid[..., None, None], out,
+                      torch.zeros_like(out)).to(q.dtype)
+    # fresh K/V -> positions [ctx, ctx + q_len) of the row's pages
+    pos = local + ctx[:, None]
+    logical = torch.clamp(pos // p, max=mp - 1)
+    phys = torch.gather(table, 1, logical)
+    flat = (phys * p + pos % p)[row_valid]
+    kp.view(n * p, fused)[flat] = fk.reshape(r, qmax, fused)[row_valid]
+    vp.view(n * p, fused)[flat] = fv.reshape(r, qmax, fused)[row_valid]
+    return out, k_pages, v_pages
+
+
+def ragged_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    ctx_lens: torch.Tensor,
+    q_lens: torch.Tensor,
+    fresh_k: torch.Tensor,
+    fresh_v: torch.Tensor,
+    *,
+    n_kv_heads: int,
+    layer: Optional[int] = None,
+    n_pages_per_layer: int = 0,
+):
+    """(out [R, Qmax, H, Dh] in q's dtype, k_pages, v_pages), the pools
+    written in place. CUDA tensors launch the kernel (or raise); CPU
+    tensors take the plain version."""
+    if q.device.type == "cpu":
+        return ragged_attention_plain(
+            q, k_pages, v_pages, page_table, ctx_lens, q_lens, fresh_k,
+            fresh_v, n_kv_heads=n_kv_heads, layer=layer,
+            n_pages_per_layer=n_pages_per_layer)
+    name = "ragged_attention"
+    _cuda.require(q.device.type == "cuda", f"{name}: unsupported device "
+                  f"{q.device}")
+    _cuda.require(q.dim() == 4, f"{name}: q must be [R, Qmax, H, Dh]")
+    r, qmax, h, dh = q.shape
+    rows, page_size, fused = k_pages.shape
+    _cuda.require_cuda(name, q, k_pages, v_pages, page_table, ctx_lens,
+                       q_lens, fresh_k, fresh_v)
+    _cuda.require_int32(name, page_table, ctx_lens, q_lens)
+    _cuda.require(h % n_kv_heads == 0 and 64 % (h // n_kv_heads) == 0,
+                  f"{name}: H/Hkv = {h}/{n_kv_heads} must divide 64")
+    _cuda.require(dh % 32 == 0 and dh // 32 in (1, 2, 4, 8),
+                  f"{name}: head_dim {dh} must be 32, 64, 128 or 256")
+    _cuda.require(fused == n_kv_heads * dh and v_pages.shape ==
+                  k_pages.shape and k_pages.dtype == v_pages.dtype,
+                  f"{name}: pool shape {tuple(k_pages.shape)} does not "
+                  f"match Hkv*Dh = {n_kv_heads * dh}")
+    _cuda.require(tuple(fresh_k.shape) == (r, qmax, n_kv_heads, dh) and
+                  fresh_v.shape == fresh_k.shape and
+                  fresh_k.dtype == q.dtype == fresh_v.dtype,
+                  f"{name}: fresh K/V must be [R, Qmax, Hkv, Dh] in q's "
+                  "dtype")
+    _cuda.require(page_table.dim() == 2 and page_table.shape[0] == r and
+                  ctx_lens.shape == (r,) and q_lens.shape == (r,),
+                  f"{name}: page_table/ctx_lens/q_lens row mismatch")
+    n = n_pages_per_layer or rows
+    base = 0 if layer is None else int(layer) * n
+    _cuda.require(0 <= base and base + n <= rows,
+                  f"{name}: layer {layer} outside the stacked pool")
+    out = torch.empty_like(q)
+    err = _cuda.lib().die_ragged_attention(
+        q.data_ptr(), fresh_k.data_ptr(), fresh_v.data_ptr(),
+        k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+        ctx_lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
+        r, qmax, h, n_kv_heads, dh, page_size, page_table.shape[1], base,
+        _cuda.dtype_code(q.dtype), _cuda.dtype_code(k_pages.dtype),
+        _cuda.stream_ptr(q.device))
+    _cuda.check(err, name)
+    _cuda.LAUNCHES[name] += 1
+    return out, k_pages, v_pages

@@ -2,7 +2,8 @@
 card (run there with ``python -m pytest --noconftest -q
 tests/test_torch_cuda.py``, since ``tests/conftest.py`` imports JAX; skipped
 without a card). Small shapes; chip_smoke.py checks the Llama-3-8B ones.
-Tolerances: fp32 atol 1e-4, bf16 atol = rtol = 2e-2."""
+Tolerances: fp32 atol 1e-4, bf16 (and fp32 over bf16 pools) atol = rtol =
+2e-2; written pages and side rows equal."""
 
 import pytest
 import torch
@@ -10,6 +11,7 @@ import torch
 from distributed_inference_engine_tpu_torch.ops import _cuda
 from distributed_inference_engine_tpu_torch.ops import flash_decode as fd
 from distributed_inference_engine_tpu_torch.ops import fused_decode as fdec
+from distributed_inference_engine_tpu_torch.ops import ragged_attention as ra
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 
@@ -74,6 +76,80 @@ def test_fused_decode_kernels(card, dtype, b, d, n):
     _close(out, fdec.matmul_residual_plain(x, w, res), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,dh", [(8, 4, 32), (8, 2, 64), (32, 8, 128)])
+def test_flash_decode_fw_kernel(card, dtype, h, hkv, dh):
+    """The writeback variant: output and the side rows written (active
+    slots with side_idx < W only; slot 3 is active at side_idx = W)."""
+    g = torch.Generator(device=card).manual_seed(3)
+    b, p, mp, w, n = 6, 16, 4, 4, 40
+    q = torch.randn((b, h, dh), generator=g, device=card).to(dtype)
+    kp = torch.randn((2 * n, p, hkv * dh), generator=g,
+                     device=card).to(dtype)
+    vp = torch.randn_like(kp)
+    table = torch.randint(0, n, (b, mp), generator=g, device=card,
+                          dtype=torch.int32)
+    plen = torch.tensor([0, 1, 15, 16, 64, 0], dtype=torch.int32,
+                        device=card)
+    sidx = torch.tensor([0, 2, 1, 4, 3, 0], dtype=torch.int32, device=card)
+    active = torch.tensor([1, 1, 0, 1, 1, 0], dtype=torch.int32,
+                          device=card)
+    sk = torch.randn((b, w, hkv, dh), generator=g, device=card).to(dtype)
+    sv = torch.randn_like(sk)
+    fk = torch.randn((b, 1, hkv, dh), generator=g, device=card).to(dtype)
+    fv = torch.randn_like(fk)
+    kw = dict(n_kv_heads=hkv, layer=1, n_pages_per_layer=n)
+    sk2, sv2 = sk.clone(), sv.clone()
+    before = _cuda.LAUNCHES["flash_decode_fw"]
+    out, _, _ = fd.flash_decode_attention_fw(
+        q, kp, vp, table, plen, sk, sv, fk, fv, sidx, active, **kw)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_decode_fw"] == before + 1
+    ref, _, _ = fd.flash_decode_attention_fw_plain(
+        q, kp, vp, table, plen, sk2, sv2, fk, fv, sidx, active, **kw)
+    _close(out, ref, dtype)
+    assert torch.equal(sk, sk2) and torch.equal(sv, sv2)
+    assert float(out[5].abs().max()) == 0.0    # inactive, nothing before
+
+
+@pytest.mark.parametrize("dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("h,hkv,dh", [(8, 4, 32), (8, 2, 64), (32, 8, 128),
+                                      (4, 4, 32)])
+def test_ragged_attention_kernel(card, dtype, kv_dtype, h, hkv, dh):
+    """Rows of q_len 0 (one on another row's live pages), 1 and chunks
+    straddling pages, against the plain version: outputs, and the pools
+    equal everywhere (the written positions included)."""
+    g = torch.Generator(device=card).manual_seed(4)
+    rows = [(0, 37), (15, 1), (16, 1), (10, 9), (0, 0), (39, 12), (20, 0)]
+    r, p, mp, n = len(rows), 16, 6, 50
+    qmax = max(q for _, q in rows)
+    ctx = torch.tensor([c for c, _ in rows], dtype=torch.int32, device=card)
+    ql = torch.tensor([q for _, q in rows], dtype=torch.int32, device=card)
+    table = torch.randperm(n, generator=g, device=card)[: r * mp].reshape(
+        r, mp).to(torch.int32)
+    table[4] = table[3]
+    q = torch.randn((r, qmax, h, dh), generator=g, device=card).to(dtype)
+    fk = torch.randn((r, qmax, hkv, dh), generator=g, device=card).to(dtype)
+    fv = torch.randn_like(fk)
+    kp = torch.randn((2 * n, p, hkv * dh), generator=g,
+                     device=card).to(kv_dtype)
+    vp = torch.randn_like(kp)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kw = dict(n_kv_heads=hkv, layer=1, n_pages_per_layer=n)
+    before = _cuda.LAUNCHES["ragged_attention"]
+    out, _, _ = ra.ragged_attention(q, kp, vp, table, ctx, ql, fk, fv, **kw)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["ragged_attention"] == before + 1
+    ref, _, _ = ra.ragged_attention_plain(q, kp2, vp2, table, ctx, ql, fk,
+                                          fv, **kw)
+    _close(out, ref, dtype if kv_dtype == dtype else torch.bfloat16)
+    assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
+    for i, (_, qi) in enumerate(rows):
+        assert float(out[i, qi:].abs().max() if qi < qmax else 0) == 0.0
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     x = torch.zeros((2, 8), device=card)
     with pytest.raises(ValueError):
@@ -83,3 +159,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         fdec.matmul_residual(x, torch.zeros((8, 6), device=card,
                                             dtype=torch.bfloat16),
                              torch.zeros((2, 6), device=card))
+    pool = torch.zeros((4, 16, 64), device=card)
+    i32 = dict(dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):          # int64 lengths
+        ra.ragged_attention(torch.zeros((1, 2, 2, 32), device=card), pool,
+                            pool, torch.zeros((1, 2), **i32),
+                            torch.zeros((1,), device=card,
+                                        dtype=torch.int64),
+                            torch.ones((1,), **i32),
+                            torch.zeros((1, 2, 2, 32), device=card),
+                            torch.zeros((1, 2, 2, 32), device=card),
+                            n_kv_heads=2)

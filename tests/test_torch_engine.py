@@ -2,9 +2,11 @@
 ContinuousEngine (attention_impl="xla") on the same bridged llama-tiny
 f32 weights: greedy tokens identical under staggered admissions, a
 prefix-cache hit, stop ids, eos_id and max_new_tokens (decode_fused off
-and on), at the max_seq_len cap and under page-pool pressure; and the
-port's chain passes the JAX package's teacher-forced
-``assert_greedy_parity``."""
+and on, and the fw decode), at the max_seq_len cap and under page-pool
+pressure; with chunked prefill, the port's ragged mixed step (with and
+without a token budget) and its split path against the JAX split path;
+and the port's chain passes the JAX package's teacher-forced
+``assert_greedy_parity``. Logprobs within 1e-4."""
 
 import jax
 import numpy as np
@@ -59,14 +61,15 @@ def _engines(weights, fused):
     return je, te
 
 
-def _drive(engine, req_cls, waves):
-    """Submit each wave, then step twice before the next — the same call
-    sequence on both engines, so admissions interleave identically."""
+def _drive(engine, req_cls, waves, steps=2):
+    """Submit each wave, then step ``steps`` times before the next — the
+    same call sequence on both engines, so admissions interleave
+    identically."""
     out = {}
     for wave in waves:
         for kw in wave:
             engine.submit(req_cls(**kw))
-        for _ in range(2):
+        for _ in range(steps):
             engine.step()
             out.update({r.request_id: r for r in engine.drain_finished()})
     out.update({r.request_id: r for r in engine.run_until_idle()})
@@ -177,13 +180,96 @@ def test_page_pressure_matches(weights):
 
 
 def test_unported_features_raise():
-    for kw in (dict(prefill_chunk=64), dict(mixed_step_tokens=8),
-               dict(defer_sync=True), dict(stream_chunk_steps=2),
+    for kw in (dict(defer_sync=True), dict(stream_chunk_steps=2),
                dict(defer_admission=True), dict(max_waiting=4),
                dict(queue_deadline_s=1.0), dict(decode_mode="inline"),
                dict(kv_dtype="float8_e4m3fn"), dict(kv_offload=True),
                dict(spec_async=True), dict(timeline_capacity=16)):
         with pytest.raises(NotImplementedError):
             EngineConfig(**kw).check_supported()
-    with pytest.raises(ValueError):
-        EngineConfig(attention_impl="pallas-ragged").check_supported()
+    for impl in ("pallas", "xla", "pallas-ragged_interpret",
+                 "pallas-decode_interpret"):
+        with pytest.raises(ValueError):
+            EngineConfig(attention_impl=impl).check_supported()
+
+
+def _assert_same(got, want, n):
+    assert sorted(got) == sorted(want) and len(got) == n
+    for rid in want:
+        assert got[rid].tokens == want[rid].tokens, rid
+        assert got[rid].finish_reason == want[rid].finish_reason, rid
+        np.testing.assert_allclose(got[rid].logprobs, want[rid].logprobs,
+                                   rtol=0, atol=1e-4)
+
+
+def test_decode_fw_matches_jax_engine(weights):
+    """attention_impl="pallas-decode-fw" (the writeback kernel's plain
+    version on the CPU) emits the JAX engine's tokens."""
+    js, ts, jp, tp = weights
+    je = JEngine(js, params=jp, config=JCfg(attention_impl="xla",
+                                            **ENGINE_KW))
+    te = ContinuousEngine(ts, params=tp, config=EngineConfig(
+        attention_impl="pallas-decode-fw", **ENGINE_KW), device="cpu")
+    waves = _waves()
+    _assert_same(_drive(te, GenerationRequest, waves),
+                 _drive(je, JReq, waves), 9)
+
+
+def _chunk_waves():
+    """The JAX ragged engine test's prompts (two 28-token prompts and a
+    3-token one), a 45-token prompt owning a 2-page prefix, a staggered
+    wave, then a prefix hit on the owner whose 40-token uncached tail
+    exceeds the chunk (submitted after the owner's last chunk: a chunked
+    admission registers its pages only then)."""
+    rs = np.random.RandomState(6)
+    shared = rs.randint(1, 1024, size=32).tolist()
+    first = [dict(prompt=[(3 * i + j) % 250 + 1 for j in range(28)],
+                  max_new_tokens=8, request_id=f"long{i}") for i in range(2)]
+    first += [dict(prompt=[5, 9, 13], max_new_tokens=8, request_id="short"),
+              dict(prompt=shared + rs.randint(1, 1024, size=13).tolist(),
+                   max_new_tokens=6, request_id="owner")]
+    second = [dict(prompt=rs.randint(1, 1024, size=n).tolist(),
+                   max_new_tokens=m, request_id=f"w{i}")
+              for i, (n, m) in enumerate(((20, 5), (37, 7)))]
+    third = [dict(prompt=shared + rs.randint(1, 1024, size=40).tolist(),
+                  max_new_tokens=8, request_id="hit")]
+    return [first, second, third]
+
+
+@pytest.fixture(scope="module")
+def jax_chunked(weights):
+    """The JAX split path (attention_impl="xla", prefill_chunk=16)."""
+    js, _, jp, _ = weights
+    je = JEngine(js, params=jp, config=JCfg(
+        attention_impl="xla", prefill_chunk=16, **ENGINE_KW))
+    out = _drive(je, JReq, _chunk_waves(), steps=3)
+    m = je.get_metrics()
+    assert m["chunked_admissions"] >= 4 and m["prefix_hit_admissions"] >= 1
+    return out
+
+
+@pytest.mark.parametrize("impl,budget", [("pallas-ragged", 0),
+                                         ("pallas-ragged", 12),
+                                         ("auto", 0)])
+def test_chunked_prefill_matches_jax_engine(weights, jax_chunked, impl,
+                                            budget):
+    """Chunked prefill through the port's ragged mixed step (with and
+    without a 12-token budget, which forces one prefill row per step) and
+    through its split path: the JAX split path's tokens, finish reasons
+    and logprobs, the prefix hit resuming chunked after its cached
+    pages."""
+    _, ts, _, tp = weights
+    te = ContinuousEngine(ts, params=tp, config=EngineConfig(
+        attention_impl=impl, prefill_chunk=16, mixed_step_tokens=budget,
+        **ENGINE_KW), device="cpu")
+    got = _drive(te, GenerationRequest, _chunk_waves(), steps=3)
+    _assert_same(got, jax_chunked, 7)
+    m = te.get_metrics()
+    assert m["chunked_admissions"] >= 4 and m["prefix_hit_admissions"] >= 1
+    assert m["prefilling_slots"] == 0 and m["live_slots"] == 0
+    if impl == "auto":
+        assert m["mixed_steps"] == 0
+    else:
+        assert m["mixed_steps"] >= (2 if budget else 1)
+        assert m["mixed_prefill_tokens"] > 0
+        assert 0 < m["mixed_programs"] <= m["mixed_steps"]

@@ -1,23 +1,37 @@
 """Flash-decode attention of the port (its plain version, which a CPU
 tensor takes) against the JAX package's reference composition
 ``flash_decode_attention_xla`` and against ``cached_attention`` ground
-truth. The CUDA kernel itself is held to this plain version on the card
-by chip_smoke.py. Tolerances: f32 atol 1e-5, bf16 pools atol 2e-2."""
+truth; the writeback variant against the JAX one-hot side write plus
+``flash_decode_attention_xla``, and the port's ``forward_decode_window``
+with it against the JAX window step. The CUDA kernels themselves are held
+to these plain versions on the card by chip_smoke.py. Tolerances: f32
+atol 1e-5 (hidden 1e-4 after four layers), bf16 pools atol 2e-2; side
+buffers equal, and within 1e-5 where a model step computed the K/V
+written."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from distributed_inference_engine_tpu.models import base as jb
+from distributed_inference_engine_tpu.models.llama import llama_spec as jspec
 from distributed_inference_engine_tpu.ops.attention import cached_attention
 from distributed_inference_engine_tpu.ops.flash_decode import (
     flash_decode_attention_xla,
 )
 from distributed_inference_engine_tpu_torch.bridge import (
+    params_from_numpy,
     tensor_from_numpy,
     tensor_to_numpy,
 )
+from distributed_inference_engine_tpu_torch.models import base as tb
+from distributed_inference_engine_tpu_torch.models.llama import (
+    llama_spec as tspec,
+)
 from distributed_inference_engine_tpu_torch.ops.flash_decode import (
     flash_decode_attention,
+    flash_decode_attention_fw,
 )
 
 pytestmark = pytest.mark.torch_port
@@ -110,3 +124,91 @@ def test_bf16_pools():
     got = _port(c, 2)
     want, _, _ = _jax(c, 2)
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-2)
+
+
+# fw: this step's side column per slot (W = a full window) and activity
+SIDE_IDX = np.array([0, 1, 2, W, 3, W - 1], np.int32)
+ACTIVE = np.array([1, 1, 0, 0, 1, 1], np.int32)
+
+
+@pytest.mark.parametrize("h,hkv", [(4, 2), (8, 2)])
+def test_fw_plain_matches_onehot_write_and_xla(h, hkv):
+    """The fw plain version: the fresh K/V lands at side_idx for active
+    slots only (not for inactive ones, nor at side_idx = W), and the
+    output is flash-decode over the written window with n_side =
+    side_idx + active."""
+    c = _case(3, h, hkv)
+    rs = np.random.RandomState(4)
+    b = len(PREFIX)
+    fk = rs.randn(b, 1, hkv, DH).astype(np.float32)
+    fv = rs.randn(b, 1, hkv, DH).astype(np.float32)
+    onehot = ((np.arange(W)[None, :] == SIDE_IDX[:, None])
+              & (ACTIVE[:, None] > 0))[:, :, None, None]
+    sk_ref = np.where(onehot, fk, c["sk"])
+    sv_ref = np.where(onehot, fv, c["sv"])
+    n_side = SIDE_IDX + ACTIVE
+    want = np.asarray(flash_decode_attention_xla(
+        *(jnp.asarray(a) for a in (c["q"], c["kp"], c["vp"], c["table"],
+                                   PREFIX, sk_ref, sv_ref, n_side)),
+        n_kv_heads=hkv))
+    t = {k: tensor_from_numpy(c[k]) for k in ("q", "kp", "vp", "sk", "sv")}
+    out, sk, sv = flash_decode_attention_fw(
+        t["q"], t["kp"], t["vp"], tensor_from_numpy(c["table"]),
+        tensor_from_numpy(PREFIX), t["sk"], t["sv"], tensor_from_numpy(fk),
+        tensor_from_numpy(fv), tensor_from_numpy(SIDE_IDX),
+        tensor_from_numpy(ACTIVE), n_kv_heads=hkv, layer=0,
+        n_pages_per_layer=c["n"])
+    assert sk is t["sk"] and sv is t["sv"]          # written in place
+    np.testing.assert_allclose(tensor_to_numpy(out), want, rtol=0,
+                               atol=1e-5)
+    np.testing.assert_array_equal(tensor_to_numpy(sk), sk_ref)
+    np.testing.assert_array_equal(tensor_to_numpy(sv), sv_ref)
+    # the inactive and the full-window slots kept their side rows
+    for i in (2, 3):
+        np.testing.assert_array_equal(tensor_to_numpy(sk)[i], c["sk"][i])
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    js = jspec("llama-tiny", dtype="float32")
+    ts = tspec("llama-tiny", dtype="float32")
+    jp = jb.init_params(js, jax.random.key(0))
+    return js, ts, jp, params_from_numpy(jax.device_get(jp), ts, "cpu")
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_forward_decode_window_fw_matches_jax(tiny, fused):
+    """One window step with attn_impl="pallas-decode-fw" against the JAX
+    step on the xla path: hidden within 1e-4, the side entries written
+    within 1e-5 and the rest unchanged."""
+    js, ts, jp, tp = tiny
+    rs = np.random.RandomState(5)
+    L, n, b, w, hkv = js.n_layers, 24, 4, 3, js.n_kv_heads
+    kp = rs.randn(L, n, P, hkv * DH).astype(np.float32)
+    vp = rs.randn(L, n, P, hkv * DH).astype(np.float32)
+    table = rs.randint(0, n, size=(b, MP)).astype(np.int32)
+    start = np.array([0, 5, 16, 40], np.int32)
+    lengths = start + np.array([0, 1, 2, 1], np.int32)
+    active = np.array([True, True, True, False])
+    toks = rs.randint(1, 1024, size=(b,)).astype(np.int32)
+    side = rs.randn(2, L, b, w, hkv, DH).astype(np.float32)
+    jx, jsk, jsv = jb.forward_decode_window(
+        js, jp, *(jnp.asarray(a) for a in (toks, lengths, start, kp, vp,
+                                           table, side[0], side[1], active)),
+        attn_impl="xla", fused=fused)
+    tsk, tsv = tensor_from_numpy(side[0]), tensor_from_numpy(side[1])
+    tx, _, _ = tb.forward_decode_window(
+        ts, tp, *(tensor_from_numpy(a) for a in (toks, lengths, start, kp,
+                                                 vp, table)),
+        tsk, tsv, tensor_from_numpy(active), attn_impl="pallas-decode-fw",
+        fused=fused)
+    np.testing.assert_allclose(tensor_to_numpy(tx), np.asarray(jx), rtol=0,
+                               atol=1e-4)
+    # the written entries hold this step's K/V (its projection rounds in
+    # another order than XLA's: 1e-5); every other entry keeps its bytes
+    written = np.zeros((b, w), bool)
+    written[np.arange(b), lengths - start] = active
+    for got, want, orig in ((tsk, jsk, side[0]), (tsv, jsv, side[1])):
+        got = tensor_to_numpy(got)
+        np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(got[:, ~written], orig[:, ~written])

@@ -149,6 +149,27 @@ def test_forward_decode_window(tiny, fused):
     _close(tsv, jsv, atol=1e-5)
 
 
+def test_bf16_unembed_logits_are_fp32_accumulated():
+    """bf16 weights: the port's logits are the fp32 accumulator output of
+    the bf16 product, as JAX's ``preferred_element_type=float32`` gives,
+    with no bf16 rounding in between. The LM head is scaled so logits sit
+    at |4-8|, where one bf16 ulp of a logit is 0.03."""
+    js = jspec("llama-tiny", dtype="bfloat16")
+    ts = tspec("llama-tiny", dtype="bfloat16")
+    tree = jax.device_get(jb.init_params(js, jax.random.key(4)))
+    tree["lm_head"] = np.asarray(jnp.asarray(tree["lm_head"], jnp.float32)
+                                 * 20.0, jnp.bfloat16)
+    tp = params_from_numpy(tree, ts, "cpu")
+    hidden = np.asarray(jnp.asarray(np.random.RandomState(8).randn(
+        3, 5, 256), jnp.bfloat16))
+    want = np.asarray(jb.unembed(js, tree, jnp.asarray(hidden)))
+    got = tb.unembed(ts, tp, tensor_from_numpy(hidden))
+    assert got.dtype == torch.float32
+    assert np.abs(want).max() > 4.0
+    np.testing.assert_allclose(tensor_to_numpy(got), want, rtol=0,
+                               atol=1e-3)
+
+
 def test_write_prefill_pages():
     rs = np.random.RandomState(7)
     b, t = 3, 10

@@ -1,0 +1,182 @@
+"""Ragged mixed-batch attention of the port (its plain version, which a
+CPU tensor takes) against the JAX package's reference
+``ragged_attention_xla``, and the port's ``forward_mixed_step`` against
+JAX ``forward_mixed_step(attn_impl="xla")`` on bridged llama-tiny f32
+weights. The CUDA kernel itself is held to this plain version on the card
+by chip_smoke.py and tests/test_torch_cuda.py. Tolerances: f32 atol 1e-5
+(hidden 2e-4, pools 1e-6 after four layers), bf16 atol 2e-2; written
+pages bit-equal, every other pool element unchanged."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from distributed_inference_engine_tpu.models import base as jb
+from distributed_inference_engine_tpu.models.llama import llama_spec as jspec
+from distributed_inference_engine_tpu.ops.ragged_attention import (
+    ragged_attention_xla,
+)
+from distributed_inference_engine_tpu_torch.bridge import (
+    params_from_numpy,
+    tensor_from_numpy,
+    tensor_to_numpy,
+)
+from distributed_inference_engine_tpu_torch.models import base as tb
+from distributed_inference_engine_tpu_torch.models.llama import (
+    llama_spec as tspec,
+)
+from distributed_inference_engine_tpu_torch.ops.ragged_attention import (
+    ragged_attention,
+)
+
+pytestmark = pytest.mark.torch_port
+
+P, MP, DH = 16, 4, 32
+# per row: (ctx_len, q_len). Row 0 a chunk from position 0, rows 1-2
+# decode at ctx P-1 and P, row 3 a chunk straddling a page, row 4 inert
+# with its table on row 3's live pages, row 5 a chunk straddling into its
+# last page, row 6 q_len 0 over a non-empty context
+ROWS = [(0, 5), (P - 1, 1), (P, 1), (10, 9), (0, 0), (2 * P + 7, 12),
+        (20, 0)]
+CTX = np.array([c for c, _ in ROWS], np.int32)
+QLEN = np.array([q for _, q in ROWS], np.int32)
+QMAX = int(QLEN.max())
+
+
+def _case(seed, h, hkv, n_layers=1, q_dtype="float32", kv_dtype="float32"):
+    rs = np.random.RandomState(seed)
+    r = len(ROWS)
+    n = r * MP + 3                      # a few pages no row owns
+    cast = (lambda a, dt: np.asarray(jnp.asarray(a, dt)))
+    table = rs.permutation(n)[: r * MP].reshape(r, MP).astype(np.int32)
+    table[4] = table[3]                 # the inert row aims at live pages
+    return dict(
+        q=cast(rs.randn(r, QMAX, h, DH), q_dtype),
+        fk=cast(rs.randn(r, QMAX, hkv, DH), q_dtype),
+        fv=cast(rs.randn(r, QMAX, hkv, DH), q_dtype),
+        kp=cast(rs.randn(n_layers * n, P, hkv * DH), kv_dtype),
+        vp=cast(rs.randn(n_layers * n, P, hkv * DH), kv_dtype),
+        table=table, n=n)
+
+
+def _written(table, n_pool_pages):
+    """Flat [N * P] mask of the pool positions a launch writes."""
+    mask = np.zeros(n_pool_pages * P, bool)
+    for (ctx, ql), row in zip(ROWS, table):
+        for pos in range(ctx, ctx + ql):
+            mask[row[pos // P] * P + pos % P] = True
+    return mask
+
+
+def _port(c, hkv, layer=None):
+    t = {k: tensor_from_numpy(c[k]) for k in ("q", "fk", "fv", "kp", "vp")}
+    out, kp, vp = ragged_attention(
+        t["q"], t["kp"], t["vp"], tensor_from_numpy(c["table"]),
+        tensor_from_numpy(CTX), tensor_from_numpy(QLEN), t["fk"], t["fv"],
+        n_kv_heads=hkv, layer=layer, n_pages_per_layer=c["n"])
+    assert kp is t["kp"] and vp is t["vp"]          # written in place
+    return (tensor_to_numpy(out.float()), tensor_to_numpy(kp),
+            tensor_to_numpy(vp))
+
+
+def _jax(c, hkv, layer=0):
+    n = c["n"]
+    kp = c["kp"][layer * n:(layer + 1) * n]
+    vp = c["vp"][layer * n:(layer + 1) * n]
+    out, kp2, vp2 = ragged_attention_xla(
+        *(jnp.asarray(a) for a in (c["q"], kp, vp, c["table"], CTX, QLEN,
+                                   c["fk"], c["fv"])), n_kv_heads=hkv)
+    bits = (lambda a: np.asarray(a).view(np.uint16)
+            if a.dtype == jnp.bfloat16 else np.asarray(a))
+    return np.asarray(out.astype(jnp.float32)), bits(kp2), bits(vp2)
+
+
+def _check(c, hkv, atol, layer=None):
+    got, gkp, gvp = _port(c, hkv, layer=layer)
+    want, wkp, wvp = _jax(c, hkv, layer=layer or 0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+    for i, ql in enumerate(QLEN):               # rows i >= q_len are 0
+        assert not got[i, ql:].any()
+    n = c["n"]
+    lo = (layer or 0) * n
+    gkp_l, gvp_l = gkp[lo:lo + n], gvp[lo:lo + n]
+    np.testing.assert_array_equal(gkp_l, wkp)   # written pages bit-equal
+    np.testing.assert_array_equal(gvp_l, wvp)
+    # every element the launch does not write keeps its bytes, this
+    # layer's and the other layers'
+    bits = (lambda a: a.view(np.uint16) if a.dtype.name == "bfloat16"
+            else a)
+    keep = ~_written(c["table"], n)
+    fused = gkp.shape[-1]
+    for got_pool, orig in ((gkp, bits(c["kp"])), (gvp, bits(c["vp"]))):
+        flat_got = got_pool[lo:lo + n].reshape(n * P, fused)
+        flat_orig = orig[lo:lo + n].reshape(n * P, fused)
+        np.testing.assert_array_equal(flat_got[keep], flat_orig[keep])
+        np.testing.assert_array_equal(np.delete(got_pool, np.s_[lo:lo + n], 0),
+                                      np.delete(orig, np.s_[lo:lo + n], 0))
+    assert _written(c["table"], n).sum() == int(QLEN.sum())
+
+
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2), (8, 2)])
+def test_plain_matches_xla(h, hkv):
+    _check(_case(0, h, hkv), hkv, atol=1e-5)
+
+
+def test_stacked_layer_indexing():
+    """Stacked [L*N, P, fused] pools with layer > 0 read and write layer
+    l's rows only."""
+    c = _case(1, 8, 2, n_layers=3)
+    for layer in (1, 2):
+        _check(c, 2, atol=1e-5, layer=layer)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,atol", [
+    ("bfloat16", "bfloat16", 2e-2),
+    # f32 activations over a bf16 pool: the fresh K/V is attended after
+    # its round trip through the pool dtype, as it is written
+    ("float32", "bfloat16", 1e-5)])
+def test_low_precision_pools(q_dtype, kv_dtype, atol):
+    _check(_case(2, 8, 2, q_dtype=q_dtype, kv_dtype=kv_dtype), 2, atol=atol)
+
+
+def test_forward_mixed_step_matches_jax():
+    """One mixed step of decode and chunk rows through every layer (one
+    ragged call per layer on the stacked pools): the last-token hidden
+    within 2e-4, the pools within 1e-6 (tests/test_ragged_attention.py's
+    model-level check, on llama-tiny)."""
+    js = jspec("llama-tiny", dtype="float32")
+    ts = tspec("llama-tiny", dtype="float32")
+    jp = jb.init_params(js, jax.random.key(0))
+    tp = params_from_numpy(jax.device_get(jp), ts, "cpu")
+    rs = np.random.RandomState(3)
+    L, n, r, qmax = js.n_layers, 16, 3, 8
+    fused = js.n_kv_heads * js.head_dim
+    kp = rs.randn(L, n, P, fused).astype(np.float32)
+    vp = rs.randn(L, n, P, fused).astype(np.float32)
+    table = rs.permutation(n)[: r * MP].reshape(r, MP).astype(np.int32)
+    tokens = rs.randint(1, 1024, size=(r, qmax)).astype(np.int32)
+    ctx = np.array([5, 0, 17], np.int32)
+    qlens = np.array([1, 8, 3], np.int32)
+    h_ref, kp_ref, vp_ref = jb.forward_mixed_step(
+        js, jp, *(jnp.asarray(a) for a in (tokens, ctx, qlens, kp, vp,
+                                           table)), attn_impl="xla")
+    tkp, tvp = tensor_from_numpy(kp), tensor_from_numpy(vp)
+    h_got, kp_got, vp_got = tb.forward_mixed_step(
+        ts, tp, tensor_from_numpy(tokens), ctx, qlens, tkp, tvp,
+        tensor_from_numpy(table))
+    assert kp_got is tkp and vp_got is tvp
+    np.testing.assert_allclose(tensor_to_numpy(h_got), np.asarray(h_ref),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(tensor_to_numpy(tkp), np.asarray(kp_ref),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tensor_to_numpy(tvp), np.asarray(vp_ref),
+                               rtol=1e-6, atol=1e-6)
+    full, _, _ = tb.forward_mixed_step(
+        ts, tp, tensor_from_numpy(tokens), ctx, qlens,
+        tensor_from_numpy(kp), tensor_from_numpy(vp),
+        tensor_from_numpy(table), return_hidden_all=True)
+    assert tuple(full.shape) == (r, qmax, js.d_model)
+    np.testing.assert_allclose(
+        tensor_to_numpy(full)[np.arange(r), qlens - 1],
+        tensor_to_numpy(h_got), rtol=0, atol=1e-6)

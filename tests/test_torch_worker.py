@@ -140,6 +140,8 @@ def test_frames_byte_identical_to_jax(obj):
     "name=tiny,architecture=llama,size=llama-tiny,continuous=1",
     "name=m,architecture=llama,max_seq_len=1024,page_size=64,"
     "attention_impl=pallas-decode,dtype=float32,quantized=false,seed=3",
+    "name=llama3-8b,architecture=llama,size=llama3-8b,continuous=1,"
+    "attention_impl=pallas-ragged,prefill_chunk=256,mixed_step_tokens=512",
 ])
 def test_parse_model_arg_matches_jax(text):
     assert t_parse(text).to_dict() == j_parse(text).to_dict()
@@ -154,7 +156,7 @@ def test_engine_from_config_rejects_unported():
                    dict(metadata={**base["metadata"], "speculative": 2}),
                    dict(metadata={**base["metadata"], "continuous": False}),
                    dict(metadata={**base["metadata"],
-                                  "prefill_chunk": "64"})):
+                                  "stream_chunk_steps": "2"})):
         with pytest.raises(NotImplementedError):
             engine_from_config(ModelConfig(**{**base, **change}),
                                device="cpu")
@@ -201,3 +203,25 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and "clean" in out.stdout, out.stderr
+
+
+def test_engine_from_config_runs_the_mixed_step():
+    """The CLI's metadata strings configure chunked prefill in the ragged
+    mixed step, and the engine's metrics report it."""
+    md = {"size": "llama-tiny", "continuous": "1",
+          "attention_impl": "pallas-ragged", "prefill_chunk": "32",
+          "mixed_step_tokens": "64", "page_size": "16", "num_pages": "64"}
+    eng = engine_from_config(ModelConfig(
+        name="m", architecture="llama", dtype="float32", max_seq_len=256,
+        metadata=md), device="cpu")
+    assert (eng.config.prefill_chunk, eng.config.mixed_step_tokens) == \
+        (32, 64)
+    prompt = np.random.RandomState(1).randint(1, 1024, size=100).tolist()
+    res = eng.generate([GenerationRequest(prompt=prompt, max_new_tokens=5),
+                        GenerationRequest(prompt=prompt[:9],
+                                          max_new_tokens=5)])
+    assert [len(r.tokens) for r in res] == [5, 5]
+    m = eng.get_metrics()
+    assert m["mixed_steps"] >= 2 and m["chunked_admissions"] == 1
+    assert m["mixed_prefill_tokens"] == 100 - 32
+    assert m["prefilling_slots"] == 0 and m["mixed_programs"] >= 1
