@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py             # every phase (needs one card)
     python3 chip_smoke.py --profile   # ... plus profiles of the fused
-                                      # decode and of the mixed step
+                                      # decode and of the bf16 and int4
+                                      # mixed steps
 
 Phases, each failing loudly (any failure exits non-zero):
 
@@ -22,7 +23,13 @@ Phases, each failing loudly (any failure exits non-zero):
    - ragged attention at R=10 rows (8 decode rows with context 0-1000, two
      of them inert, a 256-query chunk at 0 and a 177-query chunk at 444
      straddling a page; MP=8), the written pages compared;
-   - the GEMV pair (D=4096, F=14336).
+   - the GEMV pair (D=4096, F=14336);
+   - the packed-int4 matmul at every Llama-3-8B int4 product (fused
+     q|k|v, o, fused gate|up, down in bf16; the vocab-padded head with fp32
+     activations) at M = 1, 8, 10 and 2560 rows, and at two shapes off the
+     tiles; held per output column (``check_int4``); its library yardstick
+     is cuBLAS on the dequantized weight, which reads 4x (bf16) or 8x
+     (fp32) the packed bytes.
    Attention kernels are also held per output row to max|out - ref32| /
    max|ref32| against the plain version on the same values in fp32. Each
    bound counts the valid work only (no query padding).
@@ -54,11 +61,24 @@ Phases, each failing loudly (any failure exits non-zero):
    ``decode_fused`` off and on, and ``pallas-ragged`` with
    ``prefill_chunk=256``, holding every chain teacher-forced to
    ``forward_train`` with a 1e-3 tie band and counting the chains equal
-   to ``pallas-decode``'s. Every run is at full depth (32 layers).
+   to ``pallas-decode``'s. Every run is at full depth (32 layers). It also
+   times the bf16 mixed steps over the mixed phase's first wave.
+6. ``int4``: the worker CLI with the ``mixed`` model plus
+   ``quantized=1,weight_bits=4`` (int4 weights born from seed 0) and the
+   mixed phase's two waves. Checks the results, 32 ragged launches per
+   mixed step, 129 ``int4_matmul`` launches per forward (four per layer
+   and the LM head) and no fused decode GEMV. Then in this process, on the
+   same weights: the served chain teacher-forced (bf16 band); a
+   ``decode_fused=True`` engine launching no fused GEMV and 129 int4
+   launches per forward; the int4 mixed steps' time; a bf16 int8 engine
+   (``weight_bits`` 8) with its decode and mixed-step times; then in fp32,
+   for int4 and for int8, the decode path's logits within 1e-3 of
+   ``forward_train``'s and a ``pallas-ragged`` engine at 8 slots (chunk
+   256) holding every chain teacher-forced at the 1e-3 band.
 
 The last lines are the card's name and power limit, one JSON object
 naming every kernel with its launches (on its own path: serve,
-in-process fused, mixed, fw), error and times, and
+in-process fused, mixed, fw, int4), error and times, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -100,6 +120,29 @@ SERVE_MODEL = ("name=llama3-8b,architecture=llama,size=llama3-8b,"
 MIXED_MODEL = (SERVE_MODEL.replace("attention_impl=pallas-decode",
                                    "attention_impl=pallas-ragged")
                + ",prefill_chunk=256,mixed_step_tokens=512")
+# the same served with int4 weights, born quantized from the seed
+INT4_MODEL = MIXED_MODEL + ",quantized=1,weight_bits=4"
+N_LAYERS = 32
+# int4 launches per forward: w_qkv, wo, w_gate_up and w_down per layer, and
+# the LM head
+INT4_PER_FORWARD = 4 * N_LAYERS + 1
+# Llama-3-8B int4 products (name, K/2, N, activation dtype): the fused
+# q|k|v, o, fused gate|up, down, and the vocab-padded head, which takes fp32
+# activations (models/base.py:unembed)
+INT4_SHAPES = [("w_qkv", D_MODEL // 2, 6144, "bfloat16"),
+               ("wo", D_MODEL // 2, D_MODEL, "bfloat16"),
+               ("w_gate_up", D_MODEL // 2, 2 * D_FF, "bfloat16"),
+               ("w_down", D_FF // 2, D_MODEL, "bfloat16"),
+               ("lm_head", D_MODEL // 2, 129024, "float32")]
+# decode slots, the mixed step's unembed rows, the mixed step's lattice
+INT4_ROWS = (1, 8, 10, 2560)
+# the kernels line's int4 row: gate|up at the 8 decode rows
+INT4_MAIN = 2 * len(INT4_ROWS) + 1
+# off the tiles and the vector widths: the tensor-core and GEMV instances
+INT4_EDGES = [("edges", 37, 2000, 4100, "bfloat16"),
+              ("edges", 5, 2000, 4100, "float32")]
+# per output column: max|out - ref32| / max|ref32|
+COL_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 
 
 def log(msg: str) -> None:
@@ -524,6 +567,73 @@ def check_gemv(torch, which: str):
     return rows
 
 
+def check_int4(torch):
+    """The packed-int4 matmul at every Llama-3-8B shape and the rows the
+    path gives it, and at two ragged shapes. Held per output column to
+    max|out - ref32| / max|ref32| (ref32: the plain version on the same
+    inputs widened to fp32) at 8 rows and more; at every row count to the
+    same bound relative to the column's largest sum |x w| s, since a
+    column of one or a few rows can sum thousands of random terms to near
+    0, where the fp32 summation order alone moves the relative error.
+    Library yardstick: cuBLAS ``torch.mm`` on the weight dequantized to
+    x's dtype, which reads 4x (bf16) or 8x (fp32) the packed bytes."""
+    from distributed_inference_engine_tpu_torch.ops import int4_matmul as i4
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    cases = [(name, m, k2, n, dt) for name, k2, n, dt in INT4_SHAPES
+             for m in INT4_ROWS] + INT4_EDGES
+    for name, m, k2, n, dtype_name in cases:
+        dt = getattr(torch, dtype_name)
+        item = torch.finfo(dt).bits // 8
+        x = torch.randn((m, 2 * k2), generator=g, device="cuda").to(dt)
+        n_copies = copies_for(k2 * n, limit=4)
+        packs = [torch.randint(-128, 128, (k2, n), generator=g,
+                               device="cuda", dtype=torch.int8)
+                 for _ in range(n_copies)]
+        scale = 0.002 + 0.01 * torch.rand((n,), generator=g, device="cuda")
+        out = i4.int4_matmul(x, packs[0], scale)
+        torch.cuda.synchronize()
+        ref = i4.int4_matmul_plain(x, packs[0], scale)
+        ref32 = i4.int4_matmul_plain(x.float(), packs[0], scale)
+        err = max_err(torch, out, ref)
+        col_err = (out.float() - ref32).abs().amax(0)
+        col_rel = float((col_err / ref32.abs().amax(0).clamp_min(1e-30))
+                        .max())
+        lo, hi = i4.unpack_int4(packs[0])
+        xa = x.float().abs()
+        mag = (xa[:, :k2] @ lo.abs().float()
+               + xa[:, k2:] @ hi.abs().float()) * scale
+        col_rel_mag = float((col_err / mag.amax(0).clamp_min(1e-30)).max())
+        tol = COL_REL_TOL[dtype_name]
+        ok = (bool(torch.isfinite(out).all()) and col_rel_mag <= tol
+              and (m < 8 or col_rel <= tol))
+        del ref, ref32, mag, xa
+        w_deq = [(torch.cat(i4.unpack_int4(p), 0).to(dt) * scale.to(dt))
+                 for p in packs[: copies_for(2 * k2 * n * item, limit=2)]]
+        del lo, hi
+
+        def mk(i):
+            return (x, packs[i % n_copies], scale)
+
+        big = m * k2 * n > 1e11                  # tens of ms per call
+        reps = dict(reps=3, per_rep=3) if big else {}
+        t_k = time_ms(torch, i4.int4_matmul, mk, **reps)
+        t_p = time_ms(torch, i4.int4_matmul_plain, mk, reps=3, per_rep=3)
+        t_l = time_ms(torch, lambda w: torch.mm(x, w),
+                      lambda i: (w_deq[i % len(w_deq)],), **reps)
+        del w_deq, packs
+        nbytes = k2 * n + m * 2 * k2 * item + m * n * item + 4 * n
+        b_ms, b_by = bound_ms(nbytes, 2.0 * m * 2 * k2 * n, dtype_name)
+        rows.append(dict(dtype=dtype_name, err=err, ok=ok, ms=t_k,
+                         plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                         bound_by=b_by, col_rel=col_rel,
+                         col_rel_mag=col_rel_mag,
+                         shape=f"{name} M{m} K/2={k2} N{n}"))
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels(torch, card: str):
     results = {
         "flash_decode": check_flash_decode(torch),
@@ -531,15 +641,22 @@ def phase_kernels(torch, card: str):
         "matmul_residual": check_gemv(torch, "matmul_residual"),
         "ragged_attention": check_ragged(torch),
         "flash_decode_fw": check_flash_decode_fw(torch),
+        "int4_matmul": check_int4(torch),
     }
     bad = []
     for name, rows in results.items():
         for r in rows:
             atol, rtol = TOL[r["dtype"]]
+            held = f"(tol atol={atol} rtol={rtol})"
             rel = (f" row max_rel_err={r['row_rel']:.3e} (tol "
                    f"{ROW_REL_TOL[r['dtype']]})" if "row_rel" in r else "")
+            if "col_rel" in r:
+                held = "(not held: the column errors are)"
+                rel = (f" column max_rel_err={r['col_rel']:.3e} of max|ref| "
+                       f"(held from 8 rows), {r['col_rel_mag']:.3e} of max "
+                       f"sum|x w| s (tol {COL_REL_TOL[r['dtype']]})")
             log(f"[kernels] {name:16s} {r['dtype']:8s} {r['shape']:34s} "
-                f"max_abs_err={r['err']:.3e} (tol atol={atol} rtol={rtol})"
+                f"max_abs_err={r['err']:.3e} {held}"
                 f"{rel} {'ok' if r['ok'] else 'FAIL'} | kernel "
                 f"{r['ms']:.4f} ms, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
@@ -672,6 +789,13 @@ def run_worker(model: str, waves):
     return out
 
 
+def decode_ms_per_step(eng, launches) -> float:
+    """Decode chunk wall per decode step of an engine whose every chunk
+    is pure decode (flash-decode launches once per layer per step)."""
+    steps = launches.get("flash_decode", 0) // N_LAYERS
+    return 1e3 * eng["decode_chunk"]["sum_s"] / max(1, steps)
+
+
 def served_line(results, wall: float) -> str:
     gen = sum(len(r.tokens) for r in results)
     ttfts = sorted(r.ttft_s for r in results)
@@ -688,7 +812,9 @@ def phase_serve(torch, card: str):
     assert launches.get("flash_decode", 0) > 0, \
         f"serve: flash_decode never launched: {launches}"
     log(f"[serve] {served_line(results, wall)}; prefix-hit admissions "
-        f"{eng['prefix_hit_admissions']}; launches {launches} [{card}]")
+        f"{eng['prefix_hit_admissions']}; decode "
+        f"{decode_ms_per_step(eng, launches):.2f} ms/step; launches "
+        f"{launches} [{card}]")
     return prompts, results, launches
 
 
@@ -839,6 +965,8 @@ def phase_fused(torch, card: str, prompts, results, mixed_wave,
         f"{sum(len(r.tokens) for r in out_fw) / wall:.1f} tok/s; launches "
         f"{fw_launch}; teacher-forced {m} strict, {t} ties [{card}]")
     del engine
+    log(f"[fused] bf16 {mixed_steps_line(torch, spec, params, mixed_wave)} "
+        f"[{card}]")
     if profile_it:
         profile_mixed(torch, spec, params, mixed_wave, card)
     del params
@@ -903,6 +1031,221 @@ def phase_fused(torch, card: str, prompts, results, mixed_wave,
     return launches, fw_launch
 
 
+def mixed_steps_line(torch, spec, params, prompts) -> str:
+    """Wall of each mixed step of a ``mixed``-configuration engine while
+    ``prompts`` prefill. A step ends in its one blocking host read, so its
+    wall is its time; the first step also runs the batched admission
+    prefill and is reported apart."""
+    from distributed_inference_engine_tpu_torch.config import EngineConfig
+    from distributed_inference_engine_tpu_torch.engine.continuous import (
+        ContinuousEngine)
+    from distributed_inference_engine_tpu_torch.engine.types import (
+        GenerationRequest)
+
+    engine = ContinuousEngine(spec, params=params, config=EngineConfig(
+        max_slots=8, max_seq_len=1024, attention_impl="pallas-ragged",
+        prefill_chunk=256, mixed_step_tokens=512), device="cuda")
+    for i, p in enumerate(prompts):
+        engine.submit(GenerationRequest(prompt=p, max_new_tokens=32,
+                                        request_id=f"tm{i}"))
+    times = []
+    while True:
+        before = engine.get_metrics()["mixed_steps"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        if engine.get_metrics()["mixed_steps"] == before:
+            break
+        times.append(1e3 * (time.perf_counter() - t0))
+    del engine
+    assert len(times) >= 2, times
+    rest = times[1:]
+    return (f"mixed steps over the mixed phase's wave 1: admission + first "
+            f"step {times[0]:.1f} ms, then {len(rest)} steps of "
+            f"{statistics.mean(rest):.1f} ms on average "
+            f"({', '.join(f'{t:.1f}' for t in rest)})")
+
+
+def phase_int4(torch, card: str):
+    """The slice's path: the worker CLI serving the mixed phase's two waves
+    with int4 weights (born int4 from seed 0, q|k|v and gate|up fused at
+    engine init). Every projection and the LM head launch the int4 kernel
+    (129 launches per forward); no fused decode GEMV runs."""
+    wave1, wave2 = mixed_prompts()
+    results, wall, launches, eng = run_worker(INT4_MODEL, [wave1, wave2])
+    check_results(results[0], wave1, "int4 wave 1")
+    check_results(results[1], wave2, "int4 wave 2")
+    for k in ("int4_matmul", "ragged_attention", "flash_decode"):
+        assert launches.get(k, 0) > 0, f"int4: {k} never launched: " \
+            f"{launches}"
+    for k in ("norm_matmul", "matmul_residual"):
+        assert launches.get(k, 0) == 0, f"int4: {k} launched: {launches}"
+    assert eng["mixed_steps"] > 0 and eng["chunked_admissions"] > 0, eng
+    assert eng["prefix_hit_admissions"] >= 1, eng
+    assert launches["ragged_attention"] == N_LAYERS * eng["mixed_steps"], \
+        (launches, eng["mixed_steps"])
+    # forwards: the batched admission prefills, the pure-decode steps (one
+    # flash-decode per layer) and the mixed steps; the one prefix hit
+    # resumes chunked in the mixed step, so no suffix prefill runs
+    decode_steps = launches["flash_decode"] // N_LAYERS
+    assert launches["flash_decode"] == N_LAYERS * decode_steps, launches
+    forwards = eng["prefill_calls"] + decode_steps + eng["mixed_steps"]
+    assert launches["int4_matmul"] == INT4_PER_FORWARD * forwards, \
+        (launches, eng["prefill_calls"], decode_steps, eng["mixed_steps"])
+    log(f"[int4] {served_line(results[0] + results[1], wall)}; mixed steps "
+        f"{eng['mixed_steps']} carrying {eng['mixed_prefill_tokens']} "
+        f"prefill tokens; chunked admissions {eng['chunked_admissions']}; "
+        f"prefix-hit admissions {eng['prefix_hit_admissions']}; forwards "
+        f"{forwards} ({eng['prefill_calls']} admission prefills, "
+        f"{decode_steps} decode steps, {eng['mixed_steps']} mixed steps); "
+        f"launches {launches} [{card}]")
+    return wave1, results[0], launches
+
+
+def engine_run(torch, spec, params, prompts, label: str, **cfg):
+    """``prompts`` (32 new tokens each) through an in-process engine at 8
+    slots, launch counts zeroed just before; returns (results, launches,
+    metrics, wall s)."""
+    from distributed_inference_engine_tpu_torch.config import EngineConfig
+    from distributed_inference_engine_tpu_torch.engine.continuous import (
+        ContinuousEngine)
+    from distributed_inference_engine_tpu_torch.engine.types import (
+        GenerationRequest)
+    from distributed_inference_engine_tpu_torch.ops import _cuda
+
+    engine = ContinuousEngine(spec, params=params, config=EngineConfig(
+        **dict(dict(max_slots=8, max_seq_len=1024), **cfg)), device="cuda")
+    _cuda.reset_launch_counts()                      # this path starts here
+    t0 = time.perf_counter()
+    out = engine.generate([GenerationRequest(
+        prompt=p, max_new_tokens=32, request_id=f"{label}{i}")
+        for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _cuda.launch_counts()                 # ... and ends here
+    metrics = engine.get_metrics()
+    del engine
+    check_results(out, prompts, label)
+    return out, launches, metrics, wall
+
+
+def phase_int4_inproc(torch, card: str, wave1, served, profile_it: bool):
+    """The int4 weights of phase ``int4`` rebuilt in this process (same
+    seed and card, so the same draws): the served chain teacher-forced to
+    ``forward_train``; ``decode_fused=True`` launching no fused GEMV; the
+    mixed steps' time; a bf16 int8 engine's times; then fp32 at full
+    width, int4 and int8 (``fp32_chains``)."""
+    from distributed_inference_engine_tpu_torch.models import (
+        spec_for_architecture)
+    from distributed_inference_engine_tpu_torch.ops.quant import (
+        param_bytes, prepare_params, random_quantized_params)
+    from distributed_inference_engine_tpu_torch.utils.parity import (
+        assert_greedy_parity)
+
+    spec = spec_for_architecture("llama", "llama3-8b", max_seq_len=1024)
+
+    def born(spec, bits):
+        return prepare_params(random_quantized_params(
+            spec, torch.Generator(device="cuda").manual_seed(0), bits=bits))
+
+    params = born(spec, 4)
+    gaps = decode_logit_gap(torch, spec, params, wave1[5],
+                            served[5].tokens[:8], fused=False)
+    log(f"[int4] bf16 decode-vs-forward_train max|logit gap| per step "
+        f"{[round(g, 4) for g in gaps]}; tie band eps={BF16_TIE_EPS}; "
+        f"weights {param_bytes(params) / 1e9:.2f} GB [{card}]")
+    m, t = assert_greedy_parity(spec, params, wave1[5], served[5].tokens,
+                                eps=BF16_TIE_EPS, label="int4 served chain")
+    log(f"[int4] served chain teacher-forced: {m} strict, {t} ties")
+
+    out, launches, eng, wall = engine_run(
+        torch, spec, params, wave1, "int4 fused", decode_fused=True,
+        attention_impl="pallas-decode")
+    for k in ("norm_matmul", "matmul_residual"):
+        assert launches.get(k, 0) == 0, f"int4 fused: {k} launched"
+    decode_steps = launches.get("flash_decode", 0) // N_LAYERS
+    assert decode_steps > 0, launches
+    forwards = eng["prefill_calls"] + decode_steps
+    assert launches["int4_matmul"] == INT4_PER_FORWARD * forwards, \
+        (launches, eng["prefill_calls"])
+    m, t = assert_greedy_parity(spec, params, wave1[5], out[5].tokens,
+                                eps=BF16_TIE_EPS, label="int4 fused chain")
+    log(f"[int4] decode_fused=True engine: {len(out)} requests in "
+        f"{wall:.3f} s = {sum(len(r.tokens) for r in out) / wall:.1f} tok/s;"
+        f" decode {decode_ms_per_step(eng, launches):.2f} ms/step; launches "
+        f"{launches}; teacher-forced {m} strict, {t} ties [{card}]")
+    log(f"[int4] {mixed_steps_line(torch, spec, params, wave1)} [{card}]")
+    if profile_it:
+        profile_mixed(torch, spec, params, wave1, card, label="int4 mixed")
+    del params
+    torch.cuda.empty_cache()
+
+    # int8: the payload widened to bf16 per call, no kernel of its own. Its
+    # bf16 chains are timed, not held: two bf16 code paths differ by ~0.4
+    # in a logit here (printed), more than the 0.3 tie band, so the int8
+    # chains are held in fp32 below
+    params = born(spec, 8)
+    gaps = decode_logit_gap(torch, spec, params, wave1[5],
+                            served[5].tokens[:8], fused=False)
+    out, launches, eng, wall = engine_run(
+        torch, spec, params, wave1, "int8", attention_impl="pallas-decode")
+    assert not launches.get("int4_matmul"), launches
+    log(f"[int8] bf16 engine: {len(out)} requests in {wall:.3f} s = "
+        f"{sum(len(r.tokens) for r in out) / wall:.1f} tok/s; decode "
+        f"{decode_ms_per_step(eng, launches):.2f} ms/step; weights "
+        f"{param_bytes(params) / 1e9:.2f} GB; launches {launches}; bf16 "
+        f"decode-vs-forward_train max|logit gap| per step "
+        f"{[round(g, 4) for g in gaps]} [{card}]")
+    log(f"[int8] {mixed_steps_line(torch, spec, params, wave1)} [{card}]")
+    del params
+    torch.cuda.empty_cache()
+
+    # fp32 at full width: int4 through the kernel's fp32 instances (GEMV,
+    # CUDA-core tiles), and int8, on the decode path and through an
+    # engine's chunked mixed step
+    spec32 = spec.replace(dtype="float32")
+    for bits in (4, 8):
+        params = born(spec32, bits)
+        launches = fp32_chains(torch, card, spec32, params, wave1,
+                               served[5].tokens[:8], f"int{bits}")
+        assert bool(launches.get("int4_matmul")) == (bits == 4), launches
+        del params
+        torch.cuda.empty_cache()
+
+
+def fp32_chains(torch, card: str, spec32, params, prompts, cont, label: str):
+    """fp32 at full width: the decode path's logits within 1e-3 of
+    ``forward_train``'s over ``prompts[5]`` + ``cont``, then ``prompts``
+    through an fp32 ``pallas-ragged`` engine (chunk 256) at 8 slots, every
+    chain held teacher-forced to ``forward_train`` at the 1e-3 band."""
+    from distributed_inference_engine_tpu_torch.utils.parity import (
+        assert_greedy_parity)
+
+    gaps = decode_logit_gap(torch, spec32, params, prompts[5], cont,
+                            fused=False)
+    log(f"[{label}] fp32 decode-vs-forward_train max|logit gap| "
+        f"{max(gaps):.3e} over {len(gaps)} steps (limit {FP32_LOGIT_TOL}) "
+        f"[{card}]")
+    assert max(gaps) <= FP32_LOGIT_TOL, gaps
+    out, launches, eng, wall = engine_run(
+        torch, spec32, params, prompts, f"{label} fp32", num_pages=64,
+        kv_dtype="float32", attention_impl="pallas-ragged",
+        prefill_chunk=256)
+    assert eng["mixed_steps"] > 0, eng
+    m = t = 0
+    for i, (p, r) in enumerate(zip(prompts, out)):
+        mi, ti = assert_greedy_parity(spec32, params, p, r.tokens,
+                                      eps=FP32_LOGIT_TOL,
+                                      label=f"{label} fp32 engine slot {i}")
+        m, t = m + mi, t + ti
+    log(f"[{label}] fp32 engine (pallas-ragged chunk 256), 8 slots, in "
+        f"{wall:.3f} s: every chain teacher-forced to forward_train, {m} "
+        f"strict, {t} ties (band {FP32_LOGIT_TOL}); mixed steps "
+        f"{eng['mixed_steps']}; launches {launches} [{card}]")
+    return launches
+
+
 def report_profile(prof, wall: float, steps: int, label: str,
                    card: str) -> None:
     """Wall per step, the device-busy share and the device time by kernel
@@ -950,9 +1293,11 @@ def profile_decode(torch, engine, prompts, card: str) -> None:
                    "decode", card)
 
 
-def profile_mixed(torch, spec, params, prompts, card: str) -> None:
+def profile_mixed(torch, spec, params, prompts, card: str,
+                  label: str = "mixed") -> None:
     """``--profile``: torch.profiler over up to three mixed steps of a
-    bf16 ``pallas-ragged`` engine (the mixed phase's configuration) while
+    bf16 ``pallas-ragged`` engine on ``params`` (bf16 or int4 weights; the
+    mixed phase's configuration) while
     the long prompts of ``prompts`` prefill, the first mixed step (with
     the admission) unprofiled."""
     from torch.profiler import ProfilerActivity, profile
@@ -988,8 +1333,9 @@ def profile_mixed(torch, spec, params, prompts, card: str) -> None:
     assert steps > 0 and steps == after["engine_steps"] - \
         before["engine_steps"], (before, after)
     tokens = after["mixed_prefill_tokens"] - before["mixed_prefill_tokens"]
-    log(f"[profile] mixed: {tokens} prefill tokens over {steps} mixed steps")
-    report_profile(prof, wall, steps, "mixed", card)
+    log(f"[profile] {label}: {tokens} prefill tokens over {steps} mixed "
+        f"steps")
+    report_profile(prof, wall, steps, label, card)
     del engine
 
 
@@ -999,7 +1345,8 @@ def profile_mixed(torch, spec, params, prompts, card: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile two decode chunks of the fused engine")
+                    help="also profile two decode chunks of the fused engine "
+                    "and the bf16 and int4 mixed steps")
     args = ap.parse_args()
 
     import torch
@@ -1041,6 +1388,8 @@ def main() -> int:
     mixed_wave, mixed_launch = phase_mixed(torch, card)
     fused_launch, fw_launch = phase_fused(torch, card, prompts, results,
                                           mixed_wave, args.profile)
+    int4_wave, int4_served, int4_launch = phase_int4(torch, card)
+    phase_int4_inproc(torch, card, int4_wave, int4_served, args.profile)
 
     jax_ops = "distributed_inference_engine_tpu/ops/"
     # kernel: (source, TPU kernel it replaces, launches on its path)
@@ -1055,11 +1404,15 @@ def main() -> int:
                              jax_ops + "ragged_attention.py:181",
                              mixed_launch),
         "flash_decode_fw": ("csrc/flash_decode.cu",
-                            jax_ops + "flash_decode.py:314", fw_launch)}
+                            jax_ops + "flash_decode.py:314", fw_launch),
+        "int4_matmul": ("csrc/int4_matmul.cu",
+                        jax_ops + "int4_matmul.py:240", int4_launch)}
     # representative main-path shape per kernel: bf16, and for the GEMVs
-    # the d_ff projections (gate/up for norm_matmul, down for residual)
+    # the d_ff projections (gate/up for norm_matmul, down for residual,
+    # gate|up at the 8 decode rows for int4)
     pick = {"flash_decode": 0, "norm_matmul": 2, "matmul_residual": 1,
-            "ragged_attention": 0, "flash_decode_fw": 0}
+            "ragged_attention": 0, "flash_decode_fw": 0,
+            "int4_matmul": INT4_MAIN}
     kernels = []
     for name, (src, replaces, path_launches) in sources.items():
         rows = kern[name]

@@ -5,7 +5,10 @@ numpy arrays (a caller on the JAX side runs ``jax.device_get``; the port
 never sees JAX) and returns the port's parameter dict on ``device``. The
 layouts are the same, so this is a copy. bf16 arrives with the
 ``ml_dtypes`` numpy dtype; it is reinterpreted bit for bit through
-``uint16`` without importing ``ml_dtypes``.
+``uint16`` without importing ``ml_dtypes``. A quantized leaf (any object
+with ``q``, ``s``, ``bits`` and ``pack_axis``, as ``jax.device_get`` of the
+JAX ``QuantizedTensor`` gives) becomes the port's ``QuantizedTensor``,
+payload and scales bit for bit.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from .models.base import ModelSpec, Params
+from .ops.quant import FUSED_GROUPS, QuantizedTensor
 
 BLOCK_KEYS = ("ln1_scale", "ln2_scale", "wq", "wk", "wv", "wo", "w_gate",
               "w_up", "w_down")
@@ -39,32 +43,59 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_from_numpy(tree: Dict[str, Any], spec: ModelSpec,
-                      device="cpu") -> Params:
-    """JAX parameter tree (numpy leaves) -> port parameters on ``device``.
-    Covers the Llama tree: ``tok_emb``, ``lm_head``, ``lnf_scale`` and the
-    stacked ``blocks``. ``ops/quant.py:prepare_params`` is the identity on
-    such plain trees, so nothing else needs mapping."""
-    spec.check_supported()
-    blocks = tree["blocks"]
-    missing = [k for k in BLOCK_KEYS if k not in blocks]
-    extra = [k for k in blocks if k not in BLOCK_KEYS]
+def leaf_from_numpy(leaf, device="cpu"):
+    """A plain or quantized leaf -> the port's tensor or QuantizedTensor."""
+    if all(hasattr(leaf, a) for a in ("q", "s", "bits", "pack_axis")):
+        return QuantizedTensor(q=tensor_from_numpy(leaf.q, device),
+                               s=tensor_from_numpy(leaf.s, device),
+                               bits=int(leaf.bits),
+                               pack_axis=int(leaf.pack_axis))
+    return tensor_from_numpy(leaf, device)
+
+
+def _check_block_keys(blocks) -> None:
+    want = set(BLOCK_KEYS)
+    for fused, members in FUSED_GROUPS.items():
+        if fused in blocks:                  # a fused payload replaces them
+            want = (want - set(members)) | {fused}
+    missing = sorted(want - set(blocks))
+    extra = sorted(set(blocks) - want)
     if missing or extra:
         raise ValueError(f"blocks keys: missing {missing}, unsupported "
                          f"{extra}")
+
+
+def params_from_numpy(tree: Dict[str, Any], spec: ModelSpec,
+                      device="cpu") -> Params:
+    """JAX parameter tree (numpy leaves) -> port parameters on ``device``.
+    Covers the Llama tree: ``tok_emb``, ``lm_head`` (vocab-padded when
+    int4), ``lnf_scale`` and the stacked ``blocks``, with the fused
+    ``w_qkv``/``w_gate_up`` payloads in place of their members where the
+    JAX engine fused them."""
+    spec.check_supported()
+    blocks = tree["blocks"]
+    _check_block_keys(blocks)
     out: Params = {
         "tok_emb": tensor_from_numpy(tree["tok_emb"], device),
         "lnf_scale": tensor_from_numpy(tree["lnf_scale"], device),
-        "blocks": {k: tensor_from_numpy(blocks[k], device)
-                   for k in BLOCK_KEYS},
+        "blocks": {k: leaf_from_numpy(v, device) for k, v in blocks.items()},
     }
     if not spec.tie_embeddings:
-        out["lm_head"] = tensor_from_numpy(tree["lm_head"], device)
+        out["lm_head"] = leaf_from_numpy(tree["lm_head"], device)
     return out
 
 
 def params_to_numpy(params: Params) -> Dict[str, Any]:
     """Port parameters -> the same tree of numpy arrays (bf16 as uint16
-    bits), for round-trip checks."""
-    return {k: (params_to_numpy(v) if isinstance(v, dict)
-                else tensor_to_numpy(v)) for k, v in params.items()}
+    bits; a ``QuantizedTensor`` keeps its class, with numpy leaves), for
+    round-trip checks."""
+    def leaf(v):
+        if isinstance(v, dict):
+            return params_to_numpy(v)
+        if isinstance(v, QuantizedTensor):
+            return QuantizedTensor(q=tensor_to_numpy(v.q),
+                                   s=tensor_to_numpy(v.s), bits=v.bits,
+                                   pack_axis=v.pack_axis)
+        return tensor_to_numpy(v)
+
+    return {k: leaf(v) for k, v in params.items()}

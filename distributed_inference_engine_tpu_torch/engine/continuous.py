@@ -62,6 +62,7 @@ from ..models.base import (
     write_prefill_pages,
 )
 from ..ops import _cuda
+from ..ops.quant import prepare_params
 from ..ops.sampling import SamplingParams, sample_tokens_with_logprobs
 from ..utils.tracing import LatencyStats
 from .paged_kv import PagedKVCache
@@ -168,7 +169,8 @@ class ContinuousEngine:
         if params is None:
             params = init_params(spec, torch.Generator(
                 device=self.device).manual_seed(seed))
-        self.params = params
+        # the int4 q|k|v and gate|up payload fusion (ops/quant.py)
+        self.params = prepare_params(params)
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
 
         self.max_slots = cfg.max_slots

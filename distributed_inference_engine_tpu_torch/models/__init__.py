@@ -8,6 +8,8 @@ import dataclasses
 import json
 from typing import Any
 
+import torch
+
 from .base import ModelSpec
 from .llama import llama_spec
 
@@ -52,10 +54,13 @@ def _coerce(default: Any, value: Any) -> Any:
 def engine_from_config(cfg, device="cuda"):
     """``ModelConfig`` -> ``ContinuousEngine`` with random weights drawn
     from a seeded ``torch.Generator`` on ``device`` (metadata ``seed``).
-    Reads ``size``, ``continuous=1``, ``dtype`` and the engine metadata
-    keys; what the port lacks raises ``NotImplementedError``."""
+    Reads ``size``, ``continuous=1``, ``dtype``, ``quantized`` (with
+    metadata ``weight_bits``, 8 by default, or 4) and the engine metadata
+    keys; what the port lacks raises ``NotImplementedError``. A quantized
+    model is born quantized (``ops/quant.py:random_quantized_params``)."""
     from ..config import EngineConfig
     from ..engine.continuous import ContinuousEngine
+    from ..ops.quant import random_quantized_params
 
     arch = cfg.architecture.lower()
     md = dict(cfg.metadata)
@@ -66,8 +71,9 @@ def engine_from_config(cfg, device="cuda"):
 
     if cfg.path:
         no("checkpoint loading (path=)", "A11")
-    if cfg.quantized:
-        no("weight-only quantization (quantized)", "A7")
+    bits = int(md.get("weight_bits", 8) or 8)
+    if cfg.quantized and bits not in (4, 8):
+        raise ValueError(f"weight_bits must be 4 or 8, got {bits}")
     if any(int(md.get(k, 1) or 1) > 1 for k in ("tp", "sp", "dp")):
         no("tp/sp/dp parallel serving", "A13")
     if int(md.get("speculative", 0) or 0):
@@ -92,5 +98,11 @@ def engine_from_config(cfg, device="cuda"):
     for k in ENGINE_KEYS:
         if k in md:
             setattr(ecfg, k, _coerce(defaults[k], md[k]))
-    return ContinuousEngine(spec, config=ecfg,
-                            seed=int(md.get("seed", 0) or 0), device=device)
+    seed = int(md.get("seed", 0) or 0)
+    params = None
+    if cfg.quantized:
+        params = random_quantized_params(
+            spec, torch.Generator(device=device).manual_seed(seed),
+            bits=bits)
+    return ContinuousEngine(spec, params=params, config=ecfg, seed=seed,
+                            device=device)

@@ -4,8 +4,10 @@ serving engine runs (port of ``models/base.py``).
 Parameters are a plain dict of tensors in the JAX stacked layout —
 ``blocks[name]`` carries a leading ``[L]`` axis and weights are ``[in,
 out]``, used as ``x @ w`` — so the weight bridge (``bridge.py``) is a copy
-and every function here mirrors its JAX namesake. The JAX ``lax.scan``
-over layers is a Python loop over layer views.
+and every function here mirrors its JAX namesake. A weight may also be an
+``ops/quant.py:QuantizedTensor`` (int8, or int4 with the q|k|v and
+gate|up payloads fused): every projection goes through ``matmul_any``.
+The JAX ``lax.scan`` over layers is a Python loop over layer views.
 
 Page pools are updated IN PLACE (the JAX functions donate and return new
 pools); functions that write pools still return them, so call sites read
@@ -41,6 +43,7 @@ from ..ops.fused_decode import (
     norm_matmul_wants,
 )
 from ..ops.norms import rms_norm
+from ..ops.quant import QuantizedTensor, matmul_any
 from ..ops.ragged_attention import ragged_attention
 from ..ops.rope import apply_rope
 
@@ -198,27 +201,36 @@ def _act(spec: ModelSpec, gate: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp(spec: ModelSpec, blk: Params, x: torch.Tensor) -> torch.Tensor:
-    gate = x @ blk["w_gate"]
-    up = x @ blk["w_up"]
+    if "w_gate_up" in blk:
+        # fused gate|up int4 payload (ops/quant.py:fuse_block_weights)
+        gate, up = matmul_any(x, blk["w_gate_up"]).chunk(2, dim=-1)
+    else:
+        gate = matmul_any(x, blk["w_gate"])
+        up = matmul_any(x, blk["w_up"])
     h = _act(spec, gate).to(x.dtype) * up
-    return h @ blk["w_down"]
+    return matmul_any(h, blk["w_down"])
 
 
 def _qkv(spec: ModelSpec, blk: Params, x: torch.Tensor,
          positions: torch.Tensor):
     b, t, _ = x.shape
     H, Hkv, Dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
-    q = (x @ blk["wq"]).reshape(b, t, H, Dh)
-    k = (x @ blk["wk"]).reshape(b, t, Hkv, Dh)
-    v = (x @ blk["wv"]).reshape(b, t, Hkv, Dh)
-    q = apply_rope(q, positions, spec.rope_theta)
-    k = apply_rope(k, positions, spec.rope_theta)
-    return q, k, v
+    if "w_qkv" in blk:
+        # fused q|k|v int4 payload (ops/quant.py:fuse_block_weights)
+        q, k, v = matmul_any(x, blk["w_qkv"]).split(
+            [H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
+    else:
+        q = matmul_any(x, blk["wq"])
+        k = matmul_any(x, blk["wk"])
+        v = matmul_any(x, blk["wv"])
+    q = apply_rope(q.reshape(b, t, H, Dh), positions, spec.rope_theta)
+    k = apply_rope(k.reshape(b, t, Hkv, Dh), positions, spec.rope_theta)
+    return q, k, v.reshape(b, t, Hkv, Dh)
 
 
 def _out_proj(blk: Params, attn_out: torch.Tensor) -> torch.Tensor:
     b, t, h, dh = attn_out.shape
-    return attn_out.reshape(b, t, h * dh) @ blk["wo"]
+    return matmul_any(attn_out.reshape(b, t, h * dh), blk["wo"])
 
 
 # ------------------------------------------------ fused decode seams
@@ -227,11 +239,12 @@ def _out_proj(blk: Params, attn_out: torch.Tensor) -> torch.Tensor:
 def _qkv_norm(spec: ModelSpec, blk: Params, x: torch.Tensor,
               positions: torch.Tensor, fused: bool = False):
     """ln1 + QKV, the norm folded into three ``norm_matmul`` launches when
-    the weights are eligible."""
+    the weights are eligible (plain; a quantized or fused tree takes the
+    unfused chain, as in JAX)."""
     b, t, d = x.shape
     x2 = x.reshape(b * t, d)
-    if fused and all(norm_matmul_wants(x2, blk[m]) for m in ("wq", "wk",
-                                                              "wv")):
+    if fused and all(norm_matmul_wants(x2, blk.get(m))
+                     for m in ("wq", "wk", "wv")):
         H, Hkv, Dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
 
         def nm(w):
@@ -265,8 +278,8 @@ def _mlp_residual(spec: ModelSpec, blk: Params, x: torch.Tensor,
     the residual rides the down projection."""
     b, t, d = x.shape
     x2 = x.reshape(b * t, d)
-    if fused and norm_matmul_wants(x2, blk["w_gate"]) and \
-            norm_matmul_wants(x2, blk["w_up"]):
+    if fused and norm_matmul_wants(x2, blk.get("w_gate")) and \
+            norm_matmul_wants(x2, blk.get("w_up")):
         def nm(w):
             return norm_matmul(x2, blk["ln2_scale"], w, eps=spec.norm_eps,
                                plus_one=spec.norm_plus_one)
@@ -275,7 +288,7 @@ def _mlp_residual(spec: ModelSpec, blk: Params, x: torch.Tensor,
         h = _act(spec, gate).to(x.dtype) * up
         if matmul_residual_wants(h, blk["w_down"]):
             return matmul_residual(h, blk["w_down"], x2).reshape(b, t, d)
-        return x + (h @ blk["w_down"]).reshape(b, t, d)
+        return x + matmul_any(h, blk["w_down"]).reshape(b, t, d)
     return x + _mlp(spec, blk, _norm(spec, x, blk["ln2_scale"]))
 
 
@@ -296,9 +309,15 @@ def unembed(spec: ModelSpec, params: Params, hidden: torch.Tensor
     dtype on the card: one cuBLAS call with an fp32 output
     (``aten::mm.dtype``), never an fp32 copy of the [D, V] weight. That
     overload has no CPU kernel, so a CPU tensor widens both operands:
-    bf16 values are exact in fp32, and the arithmetic is the same."""
+    bf16 values are exact in fp32, and the arithmetic is the same.
+
+    A quantized head takes the normed hidden state in fp32 through
+    ``matmul_any`` (the int4 kernel); an int4 head is vocab-padded, and
+    its zero pad columns are cut off here."""
     h = _norm(spec, hidden, params["lnf_scale"])
     w = params["tok_emb"].t() if spec.tie_embeddings else params["lm_head"]
+    if isinstance(w, QuantizedTensor):
+        return matmul_any(h.float(), w)[..., : spec.vocab_size]
     h = h.to(w.dtype)
     if w.dtype == torch.float32:
         return h @ w

@@ -31,7 +31,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("flash_decode.cu", "fused_decode.cu", "ragged_attention.cu")
+SOURCES = ("flash_decode.cu", "fused_decode.cu", "int4_matmul.cu",
+           "ragged_attention.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -138,9 +139,11 @@ def lib() -> ctypes.CDLL:
             P, P, P, P, P, P, I, I, I, F, I, I, I, I, P]
         handle.die_matmul_residual.argtypes = [
             P, P, P, P, P, I, I, I, I, I, I, P]
+        handle.die_int4_matmul.argtypes = [
+            P, P, P, P, P, I, I, I, I, I, I, P]
         for fn in (handle.die_flash_decode, handle.die_flash_decode_fw,
                    handle.die_ragged_attention, handle.die_norm_matmul,
-                   handle.die_matmul_residual):
+                   handle.die_matmul_residual, handle.die_int4_matmul):
             fn.restype = I
         _lib = handle
     return _lib

@@ -1,0 +1,320 @@
+"""Weight-only quantization of the matmul weights (port of ``ops/quant.py``).
+
+Symmetric per-output-channel scales over the contraction axis:
+
+- ``bits=8``: ``q = round(w / s)`` in [-127, 127], ``s = max|w| / 127``;
+  the matmul widens ``q`` to the activation dtype and multiplies the
+  product by ``s`` (the JAX package's XLA einsum; no kernel).
+- ``bits=4``: values in [-7, 7], ``s = max|w| / 7``, two per byte in the
+  split-half layout: along the contraction axis (halved in the stored
+  shape), source index ``k < K/2`` sits in the low nibble of byte ``k`` and
+  ``K/2 + k`` in its high nibble. Every int4 product goes to the kernel of
+  ``ops/int4_matmul.py``.
+
+Activations, norms, embeddings and the KV cache stay in the compute dtype.
+
+Parameter trees keep the JAX stacked layout: a block weight is a
+``QuantizedTensor`` with a leading ``[L]`` layer axis on ``q`` and on its
+keepdims scale ``s``; ``qt[layer]`` is the layer's ``QuantizedTensor`` of
+views. The JAX package's ``IndexedQuant``/``split_indexed_blocks`` have no
+counterpart: they keep a scanned layer slice away from an opaque custom
+call, which XLA would copy first; here ``q[layer]`` of the contiguous
+stacked payload is a zero-copy view whose pointer the kernel takes.
+
+Not ported yet: ``repack_int4_interleaved_to_split`` and the layout
+marker (with checkpoints, ROADMAP A11), ``resolve_kernel_modes`` and the
+``kernel_mode`` stamp (with tp, A13), the MoE weight axes (with Mixtral,
+A9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, Sequence, Tuple
+
+import torch
+
+from .int4_matmul import int4_matmul, unpack_int4
+
+
+@dataclass
+class QuantizedTensor:
+    """Quantized weight + per-channel scales (keepdims shape: the weight's
+    shape with its contraction axes at size 1). ``bits=4`` packs along
+    ``pack_axis``, stored negative (from the end) as in JAX, so taking the
+    leading layer axis off leaves it pointing at the same dim."""
+
+    q: Any                  # int8 payload (bits=4: the packed axis halved)
+    s: Any                  # float32 scales
+    bits: int = 8
+    pack_axis: int = 0
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        if self.bits == 4:
+            a = self.pack_axis % self.q.dim()
+            return tuple(d * 2 if i == a else d
+                         for i, d in enumerate(self.q.shape))
+        return tuple(self.q.shape)
+
+    @property
+    def nbytes(self) -> int:
+        return (self.q.numel() * self.q.element_size()
+                + self.s.numel() * self.s.element_size())
+
+    def __getitem__(self, idx) -> "QuantizedTensor":
+        """Index the leading (layer) axis of payload and scale together."""
+        return dataclasses.replace(self, q=self.q[idx], s=self.s[idx])
+
+    def unpacked(self) -> torch.Tensor:
+        """int8 values at the original shape (bits=4 unpacked)."""
+        if self.bits != 4:
+            return self.q
+        lo, hi = unpack_int4(self.q)
+        return torch.cat([lo, hi], dim=self.pack_axis).to(torch.int8)
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        return (self.unpacked().float() * self.s).to(dtype)
+
+
+def pack_int4(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Signed values in [-8, 7] -> int8 bytes, ``lo`` in the low nibble."""
+    lo16, hi16 = lo.to(torch.int16), hi.to(torch.int16)
+    return ((lo16 & 0xF) | ((hi16 & 0xF) << 4)).to(torch.uint8).view(
+        torch.int8)
+
+
+def quantize_weight(w: torch.Tensor, reduce_axes: Sequence[int],
+                    bits: int = 8) -> QuantizedTensor:
+    """Symmetric int8/int4 over ``reduce_axes`` (the contraction axes; the
+    others are output channels, one scale each). ``bits=4`` packs along the
+    first reduce axis, which must be even-sized. Rounds half to even, as
+    ``jnp.round`` does."""
+    w32 = w.float()
+    axes = sorted(int(a) % w32.dim() for a in reduce_axes)
+    amax = w32.abs().amax(dim=axes, keepdim=True)
+    if bits == 8:
+        scale = torch.clamp(amax, min=1e-8) / 127.0
+        q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+        return QuantizedTensor(q=q, s=scale)
+    if bits != 4:
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    a = axes[0]
+    if w32.shape[a] % 2:
+        raise ValueError(f"int4 pack axis {a} has odd size {w32.shape[a]}")
+    scale = torch.clamp(amax, min=1e-8) / 7.0
+    q = torch.clamp(torch.round(w32 / scale), -7, 7).to(torch.int8)
+    lo, hi = q.chunk(2, dim=a)
+    return QuantizedTensor(q=pack_int4(lo, hi), s=scale, bits=4,
+                           pack_axis=a - w32.dim())
+
+
+# Same-input matmul groups whose int4 payloads concatenate along the output
+# axis into one [L, K/2, sum(N)] payload: one launch per layer instead of
+# 2-3, and the small k/v projections ride the wide one.
+FUSED_GROUPS: Dict[str, Tuple[str, ...]] = {
+    "w_qkv": ("wq", "wk", "wv"),
+    "w_gate_up": ("w_gate", "w_up"),
+}
+_FUSE_BLOCKERS = {"w_qkv": ("bq", "bk", "bv"), "w_gate_up": ("b_up",)}
+
+
+def _stacked_int4(w) -> bool:
+    return (isinstance(w, QuantizedTensor) and w.bits == 4
+            and w.q.dim() == 3 and w.pack_axis % 3 == 1)
+
+
+def fuse_block_weights(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Concatenate each ``FUSED_GROUPS`` group along the output axis when
+    all its members are stacked int4 payloads with the same ``[L, K/2]``
+    and no bias key is present (a one-time device copy at engine init).
+    Per-channel scales concatenate the same way, so the function is
+    unchanged. Identity otherwise, and on an already fused tree. Unlike
+    JAX (which fuses only where its kernel is engaged), every int4 tensor
+    takes the kernel on the card."""
+    blocks = dict(params["blocks"])
+    changed = False
+    for fused_name, members in FUSED_GROUPS.items():
+        if fused_name in blocks:
+            continue
+        ws = [blocks.get(m) for m in members]
+        if not all(_stacked_int4(w) for w in ws):
+            continue
+        if any(b in blocks for b in _FUSE_BLOCKERS[fused_name]):
+            continue
+        if len({tuple(w.q.shape[:2]) for w in ws}) != 1:
+            continue
+        fused = QuantizedTensor(q=torch.cat([w.q for w in ws], dim=-1),
+                                s=torch.cat([w.s for w in ws], dim=-1),
+                                bits=4, pack_axis=ws[0].pack_axis)
+        for m in members:
+            del blocks[m]
+        blocks[fused_name] = fused
+        changed = True
+    if not changed:
+        return params
+    out = dict(params)
+    out["blocks"] = blocks
+    return out
+
+
+def prepare_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Engine-init parameter preparation: the int4 payload fusion."""
+    return fuse_block_weights(params)
+
+
+def _out_scale(s: torch.Tensor) -> torch.Tensor:
+    """The keepdims scale with its leading (contracted) size-1 axes
+    dropped, so it broadcasts against the product."""
+    while s.dim() > 0 and s.shape[0] == 1:
+        s = s[0]
+    return s
+
+
+def matmul_any(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """``x @ w`` for a plain weight or a per-layer ``QuantizedTensor``
+    (contraction over x's last axis and the weight's first). int8 widens
+    the payload to x's dtype and scales the product in x's dtype (a copy
+    of the weight per call, as the JAX einsum materialises on a CPU);
+    int4 goes to the kernel."""
+    if not isinstance(w, QuantizedTensor):
+        return x @ w
+    if w.q.dim() != 2:
+        raise ValueError(f"matmul_any takes a per-layer weight, got payload "
+                         f"{tuple(w.q.shape)}")
+    if w.bits == 8:
+        return (x @ w.q.to(x.dtype)) * _out_scale(w.s).to(x.dtype)
+    if w.pack_axis % 2 != 0:
+        raise ValueError("int4 payload must be packed on its input axis")
+    lead = x.shape[:-1]
+    y = int4_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w.q,
+                    _out_scale(w.s))
+    return y.reshape(*lead, y.shape[-1])
+
+
+# ------------------------------------------------------------ param trees
+
+# block weights, stored [L, D_in, D_out]: quantized over D_in (axis 1)
+_BLOCK_WEIGHTS = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
+
+# the int4 LM head's vocab is padded to a multiple of this; the pad columns
+# are zero weights (scale at the 1e-8 floor), so their logits are exactly
+# 0, and models/base.py:unembed cuts them off
+_LM_HEAD_PAD = 2048
+
+
+def _pad_vocab(n: int) -> int:
+    return -(-n // _LM_HEAD_PAD) * _LM_HEAD_PAD
+
+
+def quantize_params(spec, params: Dict[str, Any],
+                    bits: int = 8) -> Dict[str, Any]:
+    """Quantize the block weights and an untied LM head (bits 8 or 4; the
+    int4 head vocab-padded). Embeddings and norms stay as they are."""
+    out = dict(params)
+    blocks = dict(params["blocks"])
+    for name in _BLOCK_WEIGHTS:
+        w = blocks.get(name)
+        if w is None or isinstance(w, QuantizedTensor):
+            continue
+        blocks[name] = quantize_weight(w, (1,), bits=bits)
+    out["blocks"] = blocks
+    head = out.get("lm_head")
+    if not spec.tie_embeddings and isinstance(head, torch.Tensor):
+        pad = _pad_vocab(head.shape[1]) - head.shape[1] if bits == 4 else 0
+        if pad:
+            head = torch.nn.functional.pad(head, (0, pad))
+        out["lm_head"] = quantize_weight(head, (0,), bits=bits)
+    return out
+
+
+def _param_shapes(spec) -> Dict[str, Any]:
+    """Shapes of ``models/base.py:init_params``'s tree, without drawing."""
+    L, D, F, V = spec.n_layers, spec.d_model, spec.d_ff, spec.vocab_size
+    H, Hkv, Dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    blocks = {"ln1_scale": (L, D), "ln2_scale": (L, D),
+              "wq": (L, D, H * Dh), "wk": (L, D, Hkv * Dh),
+              "wv": (L, D, Hkv * Dh), "wo": (L, H * Dh, D),
+              "w_gate": (L, D, F), "w_up": (L, D, F), "w_down": (L, F, D)}
+    shapes: Dict[str, Any] = {"tok_emb": (V, D), "blocks": blocks,
+                              "lnf_scale": (D,)}
+    if not spec.tie_embeddings:
+        shapes["lm_head"] = (D, V)
+    return shapes
+
+
+def random_quantized_params(spec, generator: torch.Generator,
+                            w_std: float = 0.02,
+                            bits: int = 8) -> Dict[str, Any]:
+    """A quantized tree born quantized on the generator's device: no
+    full-precision tree is built (an 8B bf16 tree plus its fp32 working
+    copy would not be needed to serve int4). Payloads are uniform in
+    [-127, 127] (int8) or two uniform nibbles in [-7, 7] per byte (int4,
+    drawn packed), at a constant scale that puts the effective weight std
+    at ``w_std``; norms are ones, embeddings ``normal * w_std``. The draws
+    differ from the JAX package's; the statistics are the same. The int4
+    LM head is vocab-padded."""
+    spec.validate()
+    dev = generator.device
+    dt = spec.torch_dtype
+
+    def q_leaf(shape, axis: int) -> QuantizedTensor:
+        s_shape = tuple(1 if i == axis else d for i, d in enumerate(shape))
+        if bits == 8:
+            # discrete-uniform std over [-n, n]: sqrt(n (n + 1) / 3)
+            q = torch.randint(-127, 128, shape, generator=generator,
+                              device=dev, dtype=torch.int8)
+            std = (127 * 128 / 3.0) ** 0.5
+            return QuantizedTensor(q=q, s=torch.full(
+                s_shape, w_std / std, dtype=torch.float32, device=dev))
+        if bits != 4:
+            raise ValueError(f"bits must be 4 or 8, got {bits}")
+        if shape[axis] % 2:
+            raise ValueError(f"int4 pack axis {axis} has odd size "
+                             f"{shape[axis]}")
+        half = tuple(d // 2 if i == axis else d for i, d in enumerate(shape))
+        q = torch.empty(half, dtype=torch.int8, device=dev)
+        # one layer (or the head) at a time: the int16 packing transient
+        # stays small
+        for dst in (q if len(half) == 3 else [q]):
+            lo = torch.randint(-7, 8, dst.shape, generator=generator,
+                               device=dev, dtype=torch.int8)
+            hi = torch.randint(-7, 8, dst.shape, generator=generator,
+                               device=dev, dtype=torch.int8)
+            dst.copy_(pack_int4(lo, hi))
+        std = (7 * 8 / 3.0) ** 0.5
+        return QuantizedTensor(
+            q=q, s=torch.full(s_shape, w_std / std, dtype=torch.float32,
+                              device=dev),
+            bits=4, pack_axis=axis - len(shape))
+
+    def f_leaf(name, shape) -> torch.Tensor:
+        if "scale" in name:
+            return torch.ones(shape, dtype=dt, device=dev)
+        return (torch.randn(shape, generator=generator, device=dev)
+                * w_std).to(dt)
+
+    shapes = _param_shapes(spec)
+    blocks = {name: (q_leaf(shape, 1) if name in _BLOCK_WEIGHTS
+                     else f_leaf(name, shape))
+              for name, shape in shapes["blocks"].items()}
+    out: Dict[str, Any] = {}
+    for name, shape in shapes.items():
+        if name == "blocks":
+            out[name] = blocks
+        elif name == "lm_head":
+            d, v = shape
+            out[name] = q_leaf((d, _pad_vocab(v) if bits == 4 else v), 0)
+        else:
+            out[name] = f_leaf(name, shape)
+    return out
+
+
+def param_bytes(params: Any) -> int:
+    """Total stored bytes of a (possibly quantized) parameter tree."""
+    if isinstance(params, dict):
+        return sum(param_bytes(v) for v in params.values())
+    if isinstance(params, QuantizedTensor):
+        return params.nbytes
+    return params.numel() * params.element_size()

@@ -3,7 +3,11 @@ card (run there with ``python -m pytest --noconftest -q
 tests/test_torch_cuda.py``, since ``tests/conftest.py`` imports JAX; skipped
 without a card). Small shapes; chip_smoke.py checks the Llama-3-8B ones.
 Tolerances: fp32 atol 1e-4, bf16 (and fp32 over bf16 pools) atol = rtol =
-2e-2; written pages and side rows equal."""
+2e-2; written pages and side rows equal. The int4 matmul is held per output
+column to max|out - ref32| / max|ref32| <= 1e-2 (bf16) and 1e-4 (fp32) at
+8 rows and more, ref32 being the plain version on the same inputs widened
+to fp32, and at every row count to the same bound relative to the column's
+largest sum |x w| s, at every Llama-3-8B projection shape."""
 
 import pytest
 import torch
@@ -11,6 +15,7 @@ import torch
 from distributed_inference_engine_tpu_torch.ops import _cuda
 from distributed_inference_engine_tpu_torch.ops import flash_decode as fd
 from distributed_inference_engine_tpu_torch.ops import fused_decode as fdec
+from distributed_inference_engine_tpu_torch.ops import int4_matmul as i4
 from distributed_inference_engine_tpu_torch.ops import ragged_attention as ra
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
@@ -170,3 +175,69 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
                             torch.zeros((1, 2, 2, 32), device=card),
                             torch.zeros((1, 2, 2, 32), device=card),
                             n_kv_heads=2)
+
+
+def _int4_case(card, dtype, m, k2, n, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((m, 2 * k2), generator=g, device=card).to(dtype)
+    packed = torch.randint(-128, 128, (k2, n), generator=g, device=card,
+                           dtype=torch.int8)
+    scale = 0.01 * torch.rand((n,), generator=g, device=card) + 1e-3
+    before = _cuda.LAUNCHES["int4_matmul"]
+    out = i4.int4_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["int4_matmul"] == before + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    ref32 = i4.int4_matmul_plain(x.float(), packed, scale)
+    # the magnitude of each entry's sum, sum_k |x w| s: a column of one or
+    # a few rows can sum thousands of random terms to near 0, where the
+    # fp32 summation order alone moves the relative error
+    lo, hi = i4.unpack_int4(packed)
+    xf = x.float().abs()
+    mag = (xf[:, :k2] @ lo.abs().float() + xf[:, k2:] @ hi.abs().float()
+           ) * scale
+    err = (out.float() - ref32).abs()
+    rel = float((err.amax(0) / ref32.abs().amax(0).clamp_min(1e-30)).max())
+    rel_mag = float((err.amax(0) / mag.amax(0).clamp_min(1e-30)).max())
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    print(f"int4_matmul {dtype} M={m} K/2={k2} N={n}: column max_rel_err "
+          f"{rel:.3e} (of max|ref|), {rel_mag:.3e} (of max sum|x w| s); tol "
+          f"{tol}")
+    assert torch.isfinite(out).all() and rel_mag <= tol
+    if m >= 8:
+        assert rel <= tol
+
+
+# Llama-3-8B: fused q|k|v, o, fused gate|up, down (bf16), the padded LM head
+# (fp32 activations)
+@pytest.mark.parametrize("k2,n,dtype", [
+    (2048, 6144, torch.bfloat16), (2048, 4096, torch.bfloat16),
+    (2048, 28672, torch.bfloat16), (7168, 4096, torch.bfloat16),
+    (2048, 129024, torch.float32)])
+@pytest.mark.parametrize("m", [1, 8, 10, 2560])
+def test_int4_matmul_llama3_8b_shapes(card, m, k2, n, dtype):
+    _int4_case(card, dtype, m, k2, n, seed=m + n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k2,n", [(37, 200, 1000), (3, 100, 1040),
+                                    (129, 64, 130), (17, 2048, 1040),
+                                    (16, 36, 24), (300, 1000, 4100)])
+def test_int4_matmul_ragged_edges(card, dtype, m, k2, n):
+    """Odd M, N off the tiles (and off the vector widths), K/2 off the
+    tiles: every edge is bounds-checked."""
+    _int4_case(card, dtype, m, k2, n, seed=m * k2)
+
+
+def test_int4_matmul_refuses_what_the_kernel_does_not_take(card):
+    x = torch.zeros((4, 64), device=card, dtype=torch.bfloat16)
+    s = torch.ones((16,), device=card)
+    with pytest.raises(ValueError):                   # K != 2 * K/2
+        i4.int4_matmul(x, torch.zeros((16, 16), device=card,
+                                      dtype=torch.int8), s)
+    with pytest.raises(ValueError):                   # payload not int8
+        i4.int4_matmul(x, torch.zeros((32, 16), device=card,
+                                      dtype=torch.int32), s)
+    with pytest.raises(ValueError):                   # scale not fp32
+        i4.int4_matmul(x, torch.zeros((32, 16), device=card,
+                                      dtype=torch.int8), s.half())

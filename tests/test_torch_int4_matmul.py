@@ -1,0 +1,126 @@
+"""The port's int4 matmul (``ops/int4_matmul.py``) against the JAX package's
+TPU kernel ``_kernel_stacked`` run in interpret mode on the CPU, on the same
+numpy inputs: the plain version (which the kernel of
+``csrc/int4_matmul.cu`` is held to on the card) for the 2-D and the
+layer-stacked wrappers, fp32 (rtol = atol = 2e-5) and bf16 (rtol = atol =
+1e-2, the JAX test's own band: the TPU kernel rounds once after the fp32
+sum and the scale, as the plain version does); and the port's
+``forward_train`` logits against JAX's with the kernel on, on a tileable
+tiny int4 tree, in fp32 (atol 1e-4)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_inference_engine_tpu.models import base as jb
+from distributed_inference_engine_tpu.models.llama import llama_spec as jspec
+from distributed_inference_engine_tpu.ops import quant as jq
+from distributed_inference_engine_tpu.ops.int4_matmul import (
+    _int4_matmul_2d,
+    _int4_matmul_stacked,
+    set_kernel_mode,
+)
+from distributed_inference_engine_tpu_torch.bridge import params_from_numpy
+from distributed_inference_engine_tpu_torch.models import base as tb
+from distributed_inference_engine_tpu_torch.models.llama import (
+    llama_spec as tspec,
+)
+from distributed_inference_engine_tpu_torch.ops import _cuda
+from distributed_inference_engine_tpu_torch.ops import quant as tq
+from distributed_inference_engine_tpu_torch.ops.int4_matmul import (
+    int4_matmul,
+    int4_matmul_plain,
+)
+
+pytestmark = pytest.mark.torch_port
+
+TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+K, N = 512, 384                     # K/2 and N tile the TPU kernel
+
+
+@pytest.fixture
+def kernel_on():
+    set_kernel_mode("on")
+    yield
+    set_kernel_mode("auto")
+
+
+def _quantized(rs, shape, axis):
+    w = jnp.asarray(rs.randn(*shape).astype(np.float32) * 0.05)
+    return jq.quantize_weight(w, (axis,), bits=4)
+
+
+def _torch(a, dtype=None):
+    t = torch.from_numpy(np.array(a, dtype=np.float32 if dtype else None))
+    return t.to(getattr(torch, dtype)) if dtype else t
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 5, 37, 128])
+def test_plain_matches_interpreted_kernel(m, dtype):
+    rs = np.random.RandomState(m)
+    qt = _quantized(rs, (K, N), 0)
+    x = rs.randn(m, K).astype(np.float32)
+    want = _int4_matmul_2d(jnp.asarray(x, dtype), qt.q, qt.s,
+                           interpret=True)
+    got = int4_matmul_plain(_torch(x, dtype), _torch(qt.q),
+                            _torch(qt.s).reshape(-1))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (m, N)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_interpreted_stacked_kernel_per_layer(dtype):
+    """Each layer of a stacked payload: the JAX kernel picks the layer in
+    its grid, the port takes the layer view through ``matmul_any``."""
+    rs = np.random.RandomState(7)
+    n_layers = 3
+    qt = _quantized(rs, (n_layers, K, N), 1)
+    tqt = tq.QuantizedTensor(q=_torch(qt.q), s=_torch(qt.s), bits=4,
+                             pack_axis=qt.pack_axis)
+    x = rs.randn(5, K).astype(np.float32)
+    for layer in range(n_layers):
+        want = _int4_matmul_stacked(jnp.asarray(x, dtype), qt.q, qt.s,
+                                    jnp.int32(layer), interpret=True)
+        got = tq.matmul_any(_torch(x, dtype), tqt[layer])
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_cpu_tensors_take_the_plain_version():
+    rs = np.random.RandomState(3)
+    qt = _quantized(rs, (64, 40), 0)
+    x = torch.from_numpy(rs.randn(6, 64).astype(np.float32))
+    before = dict(_cuda.LAUNCHES)
+    got = int4_matmul(x, _torch(qt.q), _torch(qt.s).reshape(-1))
+    assert torch.equal(got, int4_matmul_plain(x, _torch(qt.q),
+                                              _torch(qt.s).reshape(-1)))
+    assert dict(_cuda.LAUNCHES) == before
+
+
+def test_forward_train_logits_match_jax_kernel_on(kernel_on):
+    """A tileable tiny int4 tree (d_model 256, d_ff 512), fused by the JAX
+    engine preparation with the kernel on: JAX's forward_train runs every
+    projection through the interpreted TPU kernel; the port's, through its
+    plain version on the bridged tree."""
+    js = jspec("llama-tiny", dtype="float32").replace(d_ff=512)
+    ts = tspec("llama-tiny", dtype="float32").replace(d_ff=512)
+    jp = jq.prepare_params(jq.random_quantized_params(
+        js, jax.random.key(3), bits=4))
+    assert "w_qkv" in jp["blocks"] and "w_gate_up" in jp["blocks"]
+    tp = params_from_numpy(jax.device_get(jp), ts, "cpu")
+    rs = np.random.RandomState(4)
+    tokens = rs.randint(1, ts.vocab_size, size=(2, 19)).astype(np.int32)
+    lens = np.array([19, 11], np.int32)
+    want = jb.forward_train(js, jp, jnp.asarray(tokens), jnp.asarray(lens))
+    got = tb.forward_train(ts, tp, torch.from_numpy(tokens), lens)
+    assert got.shape == (2, 19, ts.vocab_size)
+    for b, n in enumerate(lens):
+        np.testing.assert_allclose(got[b, :n].numpy(),
+                                   np.asarray(want)[b, :n], rtol=0,
+                                   atol=1e-4)

@@ -151,7 +151,7 @@ def test_engine_from_config_rejects_unported():
     base = dict(name="m", architecture="llama",
                 metadata={"size": "llama-tiny", "continuous": True,
                           "device": "cpu"})
-    for change in (dict(path="/ckpt"), dict(quantized=True),
+    for change in (dict(path="/ckpt"),
                    dict(metadata={**base["metadata"], "tp": 2}),
                    dict(metadata={**base["metadata"], "speculative": 2}),
                    dict(metadata={**base["metadata"], "continuous": False}),
