@@ -3,15 +3,15 @@
 
     python3 chip_smoke.py             # every phase (needs one card)
     python3 chip_smoke.py --profile   # ... plus profiles of the fused
-                                      # decode and of the bf16 and int4
-                                      # mixed steps
+                                      # and the inline Mistral decode and
+                                      # of the bf16 and int4 mixed steps
 
 Phases, each failing loudly (any failure exits non-zero):
 
 1. ``build``: prints the card (``nvidia-smi`` name and power limit, torch's
    device name), builds the CUDA kernels from ``csrc/`` and prints the
    build time and the compiler's register/spill summary.
-2. ``kernels``: holds each of the five kernels against its plain PyTorch
+2. ``kernels``: holds each of the seven kernels against its plain PyTorch
    version on the card at the Llama-3-8B shapes, in bf16 and fp32, with
    the tolerance printed beside the max error, and times kernel, plain
    version and one PyTorch library call (a yardstick the port never
@@ -29,7 +29,11 @@ Phases, each failing loudly (any failure exits non-zero):
      activations) at M = 1, 8, 10 and 2560 rows, and at two shapes off the
      tiles; held per output column (``check_int4``); its library yardstick
      is cuBLAS on the dequantized weight, which reads 4x (bf16) or 8x
-     (fp32) the packed bytes.
+     (fp32) the packed bytes;
+   - paged attention at the Mistral decode shapes (B=8, H=32, Hkv=8,
+     Dh=128, P=128, MP=48, lengths 0-6,000 with one empty slot), windows
+     0 and 4096, on one layer's pool and on the stacked pool (layer 5 of
+     32) with the flash stats m and l held too (``check_paged``).
    Attention kernels are also held per output row to max|out - ref32| /
    max|ref32| against the plain version on the same values in fp32. Each
    bound counts the valid work only (no query padding).
@@ -75,6 +79,19 @@ Phases, each failing loudly (any failure exits non-zero):
    for int4 and for int8, the decode path's logits within 1e-3 of
    ``forward_train``'s and a ``pallas-ragged`` engine at 8 slots (chunk
    256) holding every chain teacher-forced at the 1e-3 band.
+7. ``mistral``: the worker CLI with Mistral-7B v0.1 at full width and
+   depth (``MISTRAL_MODEL``: random bf16 weights from seed 0, window
+   4096, ``attention_impl=pallas``, ``prefill_chunk=512``,
+   ``max_seq_len=8192``): 8 concurrent requests with prompts of 16-5,200
+   tokens (two past the window, two sharing a 256-token prefix), then a
+   chunked prefix hit beside a short prompt. Checks the results, the
+   inline decode mode, 32 ``paged_attention`` launches per decode step and
+   no flash-decode or ragged launch. Then in this process: the served
+   5,200-token chain teacher-forced (bf16 band), and in fp32 the inline
+   decode path's logits within 1e-3 of ``forward_train``'s over 32 tokens
+   past the window. Phase ``fused`` also runs Llama-3-8B engines with
+   ``attention_impl="pallas"`` (window scheme) and
+   ``decode_mode="inline"``, with their launch counts and a chain each.
 
 The last lines are the card's name and power limit, one JSON object
 naming every kernel with its launches (on its own path: serve,
@@ -143,6 +160,20 @@ INT4_EDGES = [("edges", 37, 2000, 4100, "bfloat16"),
               ("edges", 5, 2000, 4100, "float32")]
 # per output column: max|out - ref32| / max|ref32|
 COL_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+
+# Mistral-7B v0.1 (sliding window 4096) through the per-step paged decode
+MISTRAL_MODEL = ("name=mistral-7b-v01,architecture=mistral,"
+                 "size=mistral-7b-v01,continuous=1,attention_impl=pallas,"
+                 "max_seq_len=8192,prefill_chunk=512,seed=0")
+MISTRAL_VOCAB, MISTRAL_WINDOW = 32000, 4096
+# paged attention at the Mistral decode shapes: 8 slots, 48 pages of 128
+# per slot (6,144 keys), lengths over 0-6,000 with one empty slot, around
+# the window (4,097) and with len - window on a page edge (4,224) and one
+# past it (4,225); the stacked pool of 32 layers, layer 5
+MP_PAGED, PAGED_LAYERS, PAGED_LAYER = 48, 32, 5
+PAGED_LENS = [0, 1, 127, 1500, 4097, 4224, 4225, 6000]
+# m and l of the flash stats against the plain version's in fp32
+STATS_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -504,6 +535,130 @@ def check_ragged(torch):
     return rows
 
 
+def check_paged(torch):
+    """Paged attention at the Mistral decode shapes against its plain
+    version: windows 0 and 4096, on one layer's pool and on the stacked
+    pool (layer 5 of 32, with the flash stats), bf16 and fp32. Held per
+    output row to max|out - ref32| / max|ref32| (ref32: the plain version
+    on the same values widened to fp32) and elementwise to the dtype's
+    tolerance; m and l to ``STATS_TOL`` of the fp32 plain stats. Timed on
+    the stacked pool, rotating over its 32 layers (cold L2); the library
+    yardstick is SDPA over the pre-gathered pages with the window mask."""
+    from distributed_inference_engine_tpu_torch.ops import paged_attention \
+        as pa
+
+    F = torch.nn.functional
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(8)
+    n = B * MP_PAGED
+    i32 = dict(dtype=torch.int32, device="cuda")
+    lens = torch.tensor(PAGED_LENS, **i32)
+    table = torch.randperm(n, generator=g, device="cuda").reshape(
+        B, MP_PAGED).to(torch.int32).contiguous()
+    pos = torch.arange(MP_PAGED * P, device="cuda")[None, :]
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        item = torch.finfo(dt).bits // 8
+        shape = (PAGED_LAYERS * n, P, HKV * DH)
+        kp = torch.randn(shape, generator=g, device="cuda", dtype=dt)
+        vp = torch.randn(shape, generator=g, device="cuda", dtype=dt)
+        q = torch.randn((B, H, DH), generator=g, device="cuda", dtype=dt)
+        lo = PAGED_LAYER * n
+        one = (kp[lo:lo + n], vp[lo:lo + n])
+        for window in (0, MISTRAL_WINDOW):
+            for stacked in (False, True):
+                pools = (kp, vp) if stacked else one
+                kw = dict(n_kv_heads=HKV, window=window, with_stats=stacked)
+                if stacked:
+                    kw.update(layer=PAGED_LAYER, n_pages_per_layer=n)
+                got = pa.paged_attention(q, *pools, table, lens, **kw)
+                torch.cuda.synchronize()
+                ref = pa.paged_attention_xla(q, *pools, table, lens, **kw)
+                ref32 = pa.paged_attention_xla(
+                    q.float(), *(t.float() for t in one), table, lens,
+                    **dict(kw, with_stats=True, layer=None,
+                           n_pages_per_layer=0))
+                out = got[0] if stacked else got
+                ref_out = ref[0] if stacked else ref
+                err = max_err(torch, out, ref_out)
+                row_err = (out.float() - ref32[0]).abs().amax(-1)
+                row_ref = ref32[0].abs().amax(-1)
+                live = row_ref > 0
+                row_rel = float((row_err[live] / row_ref[live]).max())
+                ok = (within(torch, out, ref_out, dtype_name)
+                      and row_rel <= ROW_REL_TOL[dtype_name])
+                assert torch.isfinite(out).all(), "paged_attention: non-finite"
+                assert float(out[0].abs().max()) == 0.0, \
+                    "paged_attention: empty slot not zero"
+                assert int(live.sum()) == (B - 1) * H, "paged_attention: rows"
+                stats_rel = None
+                if stacked:
+                    _, m, l = got
+                    _, m32, l32 = ref32
+                    has = l32 > 0
+                    stats_rel = max(
+                        float(((m - m32).abs()[has] / m32.abs()[has]
+                               .clamp_min(1.0)).max()),
+                        float(((l - l32).abs() / l32.clamp_min(1.0)).max()))
+                    ok = ok and stats_rel <= STATS_TOL and \
+                        float(l[0].abs().max()) == 0.0
+                if window:
+                    keys = sum(min(x, window) for x in PAGED_LENS)
+                    vis = ((pos < lens[:, None])
+                           & (pos >= lens[:, None] - window))
+                else:
+                    keys = sum(PAGED_LENS)
+                    vis = pos < lens[:, None]
+
+                def call(fn, i, pools=pools, kw=kw, stacked=stacked):
+                    # the stacked pool rotates over its 32 layers (cold L2)
+                    if stacked:
+                        kw = dict(kw, layer=i % PAGED_LAYERS)
+                    return fn(q, *pools, table, lens, **kw)
+
+                t_k = time_ms(torch, lambda i: call(pa.paged_attention, i),
+                              lambda i: (i,))
+                t_p = time_ms(torch,
+                              lambda i: call(pa.paged_attention_xla, i),
+                              lambda i: (i,), reps=3, per_rep=3)
+                idx = lo + table.long()
+                kg = kp[idx].reshape(B, MP_PAGED * P, HKV, DH).transpose(
+                    1, 2).contiguous()
+                vg = vp[idx].reshape(B, MP_PAGED * P, HKV, DH).transpose(
+                    1, 2).contiguous()
+                q4 = q[:, :, None, :]
+                mask = vis[:, None, None, :]
+                t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q4, kg, vg, attn_mask=mask, enable_gqa=True),
+                    lambda i: ())
+                del kg, vg
+                # the live window's K/V read once, q and out (and the
+                # stats), the table and lengths
+                nbytes = (2 * keys * HKV * DH + 2 * B * H * DH) * item + \
+                    (table.numel() + B) * 4 + (8 * B * H if stacked else 0)
+                b_ms, b_by = bound_ms(nbytes, 4.0 * keys * H * DH,
+                                      dtype_name)
+                row = dict(dtype=dtype_name, err=err, ok=ok, ms=t_k,
+                           plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                           bound_by=b_by, row_rel=row_rel, window=window,
+                           stacked=stacked,
+                           shape=f"B{B} H{H} Hkv{HKV} Dh{DH} P{P} "
+                           f"MP{MP_PAGED} win{window} "
+                           f"{'L5/32+stats' if stacked else 'layer'} "
+                           f"keys{keys}")
+                if stats_rel is not None:
+                    row["stats_rel"] = stats_rel
+                rows.append(row)
+        del kp, vp
+        torch.cuda.empty_cache()
+    return rows
+
+
+# the kernels line's paged row: the Mistral path's call (bf16, stacked
+# pool, window 4096)
+PAGED_MAIN = 3
+
+
 def check_gemv(torch, which: str):
     from distributed_inference_engine_tpu_torch.ops import fused_decode as fdec
 
@@ -642,6 +797,7 @@ def phase_kernels(torch, card: str):
         "ragged_attention": check_ragged(torch),
         "flash_decode_fw": check_flash_decode_fw(torch),
         "int4_matmul": check_int4(torch),
+        "paged_attention": check_paged(torch),
     }
     bad = []
     for name, rows in results.items():
@@ -650,6 +806,9 @@ def phase_kernels(torch, card: str):
             held = f"(tol atol={atol} rtol={rtol})"
             rel = (f" row max_rel_err={r['row_rel']:.3e} (tol "
                    f"{ROW_REL_TOL[r['dtype']]})" if "row_rel" in r else "")
+            if "stats_rel" in r:
+                rel += (f" m,l max_rel_err={r['stats_rel']:.3e} (tol "
+                        f"{STATS_TOL})")
             if "col_rel" in r:
                 held = "(not held: the column errors are)"
                 rel = (f" column max_rel_err={r['col_rel']:.3e} of max|ref| "
@@ -687,14 +846,15 @@ def serve_prompts():
     return prompts
 
 
-def check_results(results, prompts, label: str) -> None:
+def check_results(results, prompts, label: str, vocab: int = 128256
+                  ) -> None:
     assert len(results) == len(prompts), f"{label}: {len(results)} results"
     for i, r in enumerate(results):
         assert len(r.tokens) == 32, f"{label}: request {i} has " \
             f"{len(r.tokens)} tokens"
         assert r.finish_reason == "length", \
             f"{label}: request {i} finished {r.finish_reason!r}"
-        assert all(0 <= t < 128256 for t in r.tokens), f"{label}: token id"
+        assert all(0 <= t < vocab for t in r.tokens), f"{label}: token id"
 
 
 def mixed_prompts():
@@ -743,11 +903,11 @@ def start_worker(model: str):
     raise RuntimeError("worker did not come up:\n" + "\n".join(lines))
 
 
-async def drive_worker(host, port, waves):
+async def drive_worker(host, port, waves, name: str):
     """Each wave's requests concurrently through the port's
-    ``WorkerClient``, a wave after the previous one returned; the
-    worker's kernel launch counts are zeroed just before the first wave
-    and read just after the last."""
+    ``WorkerClient`` to model ``name``, a wave after the previous one
+    returned; the worker's kernel launch counts are zeroed just before the
+    first wave and read just after the last."""
     from distributed_inference_engine_tpu_torch.cluster.worker import (
         WorkerClient)
     from distributed_inference_engine_tpu_torch.engine.types import (
@@ -756,13 +916,13 @@ async def drive_worker(host, port, waves):
     client = WorkerClient(host, port, timeout=900.0)
     try:
         pong = await client.ping()
-        assert pong["models"] == ["llama3-8b"], pong
+        assert pong["models"] == [name], pong
         await client.kernel_counts(reset=True)       # main path starts here
         results, wall = [], 0.0
         for w, prompts in enumerate(waves):
             t0 = time.perf_counter()
             outs = await asyncio.gather(*[
-                client.generate("llama3-8b", [GenerationRequest(
+                client.generate(name, [GenerationRequest(
                     prompt=p, max_new_tokens=32, request_id=f"w{w}_{i}")])
                 for i, p in enumerate(prompts)])
             wall += time.perf_counter() - t0
@@ -772,15 +932,16 @@ async def drive_worker(host, port, waves):
         await client.shutdown()
     finally:
         await client.close()
-    return results, wall, launches, metrics["models"]["llama3-8b"]
+    return results, wall, launches, metrics["models"][name]
 
 
 def run_worker(model: str, waves):
     """Start the worker CLI with ``model``, drive ``waves`` through it,
     and wait for it to exit."""
+    name = re.search(r"name=([^,]+)", model).group(1)
     proc, host, port = start_worker(model)
     try:
-        out = asyncio.run(drive_worker(host, port, waves))
+        out = asyncio.run(drive_worker(host, port, waves, name))
         proc.wait(timeout=120)
     finally:
         if proc.poll() is None:
@@ -965,6 +1126,30 @@ def phase_fused(torch, card: str, prompts, results, mixed_wave,
         f"{sum(len(r.tokens) for r in out_fw) / wall:.1f} tok/s; launches "
         f"{fw_launch}; teacher-forced {m} strict, {t} ties [{card}]")
     del engine
+    # the paged-attention kernel's two routes on Llama-3-8B: the window
+    # scheme with attention_impl="pallas" (the kernel over the frozen
+    # prefix with stats, merged with the side window) and the per-step
+    # paged decode (decode_mode="inline"); bf16 smokes at the tie band
+    for label, extra in (("pallas", dict(attention_impl="pallas")),
+                         ("inline", dict(decode_mode="inline"))):
+        out_p, launch_p, eng, wall = engine_run(
+            torch, spec, params, prompts, f"paged {label}", **extra)
+        steps = eng["decode_steps"]
+        assert eng["decode_mode"] == ("inline" if label == "inline"
+                                      else "window"), eng["decode_mode"]
+        assert steps > 0 and launch_p.get("paged_attention", 0) == \
+            N_LAYERS * steps, (launch_p, steps)
+        for k in ("flash_decode", "flash_decode_fw", "ragged_attention"):
+            assert not launch_p.get(k), f"paged {label}: {k} launched"
+        m, t = assert_greedy_parity(spec, params, prompts[5],
+                                    out_p[5].tokens, eps=eps,
+                                    label=f"paged {label} chain")
+        log(f"[fused] llama3-8b attention_impl/decode_mode {label}: "
+            f"{len(out_p)} requests in {wall:.3f} s = "
+            f"{sum(len(r.tokens) for r in out_p) / wall:.1f} tok/s; decode "
+            f"{1e3 * eng['decode_chunk']['sum_s'] / steps:.2f} ms/step over "
+            f"{steps} steps; launches {launch_p}; teacher-forced {m} "
+            f"strict, {t} ties [{card}]")
     log(f"[fused] bf16 {mixed_steps_line(torch, spec, params, mixed_wave)} "
         f"[{card}]")
     if profile_it:
@@ -1065,6 +1250,174 @@ def mixed_steps_line(torch, spec, params, prompts) -> str:
             f"step {times[0]:.1f} ms, then {len(rest)} steps of "
             f"{statistics.mean(rest):.1f} ms on average "
             f"({', '.join(f'{t:.1f}' for t in rest)})")
+
+
+def mistral_prompts():
+    """Wave 1: 8 prompts of 16-5,200 tokens, two past the 4,096-token
+    window (4,500 and 5,200) and two sharing a 256-token prefix; those
+    over 512 tokens prefill in 512-token chunks. Wave 2: the first 2,048
+    tokens of the 4,500-token prompt plus a 700-token tail (a prefix hit
+    that resumes chunked) beside a 40-token prompt."""
+    import numpy as np
+
+    rs = np.random.RandomState(13)
+    v = MISTRAL_VOCAB
+    shared = rs.randint(1, v, size=256).tolist()
+    wave1 = [rs.randint(1, v, size=n).tolist()
+             for n in (16, 100, 700, 1500, 4500, 5200)]
+    wave1 += [shared + rs.randint(1, v, size=20).tolist(),
+              shared + rs.randint(1, v, size=300).tolist()]
+    wave2 = [wave1[4][:2048] + rs.randint(1, v, size=700).tolist(),
+             rs.randint(1, v, size=40).tolist()]
+    return wave1, wave2
+
+
+def phase_mistral(torch, card: str):
+    """The slice's path: Mistral-7B v0.1 at full width and depth through
+    the worker CLI. Sliding-window specs decode inline: every decode step
+    lands each layer's K/V in its page and runs the paged-attention kernel
+    once per layer (32 launches per step); no flash-decode and no ragged
+    launch."""
+    wave1, wave2 = mistral_prompts()
+    results, wall, launches, eng = run_worker(MISTRAL_MODEL, [wave1, wave2])
+    check_results(results[0], wave1, "mistral wave 1", MISTRAL_VOCAB)
+    check_results(results[1], wave2, "mistral wave 2", MISTRAL_VOCAB)
+    assert eng["decode_mode"] == "inline", eng["decode_mode"]
+    steps = eng["decode_steps"]
+    assert steps > 0 and launches.get("paged_attention", 0) == \
+        N_LAYERS * steps, (launches, steps)
+    for k in ("flash_decode", "flash_decode_fw", "ragged_attention"):
+        assert not launches.get(k), f"mistral: {k} launched: {launches}"
+    assert eng["chunked_admissions"] >= 5, eng["chunked_admissions"]
+    assert eng["prefix_hit_admissions"] >= 1, eng["prefix_hit_admissions"]
+    log(f"[mistral] {served_line(results[0] + results[1], wall)}; decode "
+        f"{1e3 * eng['decode_chunk']['sum_s'] / steps:.2f} ms/step over "
+        f"{steps} steps; chunked admissions {eng['chunked_admissions']}; "
+        f"prefix-hit admissions {eng['prefix_hit_admissions']}; prefill "
+        f"calls {eng['prefill_calls']}; pools {eng['kv']['kv_bytes'] / 1e9:.2f}"
+        f" GB ({eng['kv']['num_pages']} pages of {eng['kv']['page_size']}); "
+        f"launches {launches} [{card}]")
+    return wave1, results[0], launches
+
+
+def paged_logit_gap(torch, spec, params, prompt, cont):
+    """Max |logit| gap between the inline decode path (pages written by
+    ``forward_prefill_into_pages``, then one ``forward_decode_paged`` step
+    per token of ``cont``, teacher-forced, through the paged-attention
+    kernel) and ``forward_train`` over the whole sequence, per step."""
+    import numpy as np
+    from distributed_inference_engine_tpu_torch.models import base as mb
+
+    seq = list(prompt) + list(cont)
+    n0 = len(prompt)
+    with torch.no_grad():
+        ref = mb.forward_train(spec, params, torch.tensor(
+            [seq], device="cuda"), np.array([len(seq)], np.int32))[0]
+        fusedw = spec.n_kv_heads * spec.head_dim
+        n_pages = -(-len(seq) // P)
+        kp = torch.zeros((spec.n_layers, n_pages, P, fusedw),
+                         dtype=spec.torch_dtype, device="cuda")
+        vp = torch.zeros_like(kp)
+        table = np.arange(n_pages, dtype=np.int32)[None]
+        h, _, _ = mb.forward_prefill_into_pages(
+            spec, params, torch.tensor([prompt], device="cuda"),
+            np.array([n0], np.int32), kp, vp, table)
+        gaps = [float((mb.unembed(spec, params, h[0, -1:])[0]
+                       - ref[n0 - 1]).abs().max())]
+        del h
+        i32 = dict(dtype=torch.int32, device="cuda")
+        tab = torch.tensor(table, device="cuda")
+        for s in range(len(cont)):
+            x, _, _ = mb.forward_decode_paged(
+                spec, params, torch.tensor([seq[n0 + s]], **i32),
+                torch.tensor([n0 + s], **i32), kp, vp, tab)
+            gaps.append(float((mb.unembed(spec, params, x)[0]
+                               - ref[n0 + s]).abs().max()))
+    return gaps
+
+
+def phase_mistral_inproc(torch, card: str, wave1, served,
+                         profile_it: bool):
+    """The Mistral weights of phase ``mistral`` rebuilt in this process
+    (same seed and card, so the same draws): the served 5,200-token chain
+    teacher-forced to ``forward_train`` at the bf16 tie band; then in fp32
+    at full width, the inline decode path's logits within 1e-3 of
+    ``forward_train``'s over the 32 served tokens continuing the
+    4,500-token prompt (the window skips pages 0-2 and cuts page 3)."""
+    from distributed_inference_engine_tpu_torch.models import (
+        spec_for_architecture)
+    from distributed_inference_engine_tpu_torch.models.base import init_params
+    from distributed_inference_engine_tpu_torch.ops import _cuda
+    from distributed_inference_engine_tpu_torch.utils.parity import (
+        assert_greedy_parity)
+
+    spec = spec_for_architecture("mistral", "mistral-7b-v01",
+                                 max_seq_len=8192)
+    params = init_params(spec, torch.Generator(device="cuda").manual_seed(0))
+    m, t = assert_greedy_parity(spec, params, wave1[5], served[5].tokens,
+                                eps=BF16_TIE_EPS,
+                                label="mistral served chain")
+    log(f"[mistral] served chain (5,200-token prompt) teacher-forced to "
+        f"forward_train: {m} strict, {t} ties (band {BF16_TIE_EPS}) "
+        f"[{card}]")
+    if profile_it:
+        profile_inline(torch, spec, params, wave1, card)
+    del params
+    torch.cuda.empty_cache()
+
+    spec32 = spec.replace(dtype="float32")
+    params = init_params(spec32, torch.Generator(device="cuda").manual_seed(0))
+    _cuda.reset_launch_counts()
+    gaps = paged_logit_gap(torch, spec32, params, wave1[4],
+                           served[4].tokens)
+    launches = _cuda.launch_counts()
+    assert launches.get("paged_attention") == N_LAYERS * len(
+        served[4].tokens), launches
+    log(f"[mistral] fp32 inline decode-vs-forward_train max|logit gap| "
+        f"{max(gaps):.3e} over {len(gaps)} steps past the window (prompt "
+        f"{len(wave1[4])}, limit {FP32_LOGIT_TOL}); launches {launches} "
+        f"[{card}]")
+    assert max(gaps) <= FP32_LOGIT_TOL, gaps
+    del params
+    torch.cuda.empty_cache()
+
+
+def profile_inline(torch, spec, params, prompts, card: str) -> None:
+    """``--profile``: torch.profiler over two inline decode chunks of a
+    bf16 Mistral engine (the ``mistral`` configuration) with ``prompts``
+    all prefilled and decoding (8 live slots, contexts up to 5,200)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_inference_engine_tpu_torch.config import EngineConfig
+    from distributed_inference_engine_tpu_torch.engine.continuous import (
+        ContinuousEngine)
+    from distributed_inference_engine_tpu_torch.engine.types import (
+        GenerationRequest)
+
+    engine = ContinuousEngine(spec, params=params, config=EngineConfig(
+        max_slots=8, max_seq_len=8192, attention_impl="pallas",
+        prefill_chunk=512), device="cuda")
+    for i, p in enumerate(prompts):
+        engine.submit(GenerationRequest(prompt=p, max_new_tokens=256,
+                                        request_id=f"pin{i}"))
+    while True:
+        m = engine.get_metrics()
+        if not (m["prefilling_slots"] or m["waiting"]):
+            break
+        engine.step()
+    assert m["live_slots"] == len(prompts), m["live_slots"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steps = engine.get_metrics()["decode_steps"] - m["decode_steps"]
+    engine.abort_all()
+    del engine
+    report_profile(prof, wall, steps, "mistral inline decode", card)
 
 
 def phase_int4(torch, card: str):
@@ -1346,7 +1699,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile two decode chunks of the fused engine "
-                    "and the bf16 and int4 mixed steps")
+                    "and of the inline Mistral engine, and the bf16 and "
+                    "int4 mixed steps")
     args = ap.parse_args()
 
     import torch
@@ -1390,6 +1744,9 @@ def main() -> int:
                                           mixed_wave, args.profile)
     int4_wave, int4_served, int4_launch = phase_int4(torch, card)
     phase_int4_inproc(torch, card, int4_wave, int4_served, args.profile)
+    torch.cuda.empty_cache()
+    m_wave, m_served, mistral_launch = phase_mistral(torch, card)
+    phase_mistral_inproc(torch, card, m_wave, m_served, args.profile)
 
     jax_ops = "distributed_inference_engine_tpu/ops/"
     # kernel: (source, TPU kernel it replaces, launches on its path)
@@ -1406,13 +1763,17 @@ def main() -> int:
         "flash_decode_fw": ("csrc/flash_decode.cu",
                             jax_ops + "flash_decode.py:314", fw_launch),
         "int4_matmul": ("csrc/int4_matmul.cu",
-                        jax_ops + "int4_matmul.py:240", int4_launch)}
+                        jax_ops + "int4_matmul.py:240", int4_launch),
+        "paged_attention": ("csrc/paged_attention.cu",
+                            jax_ops + "paged_attention.py:112",
+                            mistral_launch)}
     # representative main-path shape per kernel: bf16, and for the GEMVs
     # the d_ff projections (gate/up for norm_matmul, down for residual,
-    # gate|up at the 8 decode rows for int4)
+    # gate|up at the 8 decode rows for int4); paged attention as Mistral
+    # calls it (stacked pool, window 4096)
     pick = {"flash_decode": 0, "norm_matmul": 2, "matmul_residual": 1,
             "ragged_attention": 0, "flash_decode_fw": 0,
-            "int4_matmul": INT4_MAIN}
+            "int4_matmul": INT4_MAIN, "paged_attention": PAGED_MAIN}
     kernels = []
     for name, (src, replaces, path_launches) in sources.items():
         rows = kern[name]

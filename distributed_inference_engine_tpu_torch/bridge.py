@@ -2,8 +2,9 @@
 
 ``params_from_numpy`` takes a JAX-layout parameter tree whose leaves are
 numpy arrays (a caller on the JAX side runs ``jax.device_get``; the port
-never sees JAX) and returns the port's parameter dict on ``device``. The
-layouts are the same, so this is a copy. bf16 arrives with the
+never sees JAX) and returns the port's parameter dict on ``device``, the
+card unless the caller asks for the CPU, like every entry point of the
+port. The layouts are the same, so this is a copy. bf16 arrives with the
 ``ml_dtypes`` numpy dtype; it is reinterpreted bit for bit through
 ``uint16`` without importing ``ml_dtypes``. A quantized leaf (any object
 with ``q``, ``s``, ``bits`` and ``pack_axis``, as ``jax.device_get`` of the
@@ -25,7 +26,7 @@ BLOCK_KEYS = ("ln1_scale", "ln2_scale", "wq", "wk", "wv", "wo", "w_gate",
               "w_up", "w_down")
 
 
-def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(arr, device="cuda") -> torch.Tensor:
     """numpy array (fp32, int, or ml_dtypes bf16) -> torch tensor."""
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
@@ -43,7 +44,7 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def leaf_from_numpy(leaf, device="cpu"):
+def leaf_from_numpy(leaf, device="cuda"):
     """A plain or quantized leaf -> the port's tensor or QuantizedTensor."""
     if all(hasattr(leaf, a) for a in ("q", "s", "bits", "pack_axis")):
         return QuantizedTensor(q=tensor_from_numpy(leaf.q, device),
@@ -66,12 +67,12 @@ def _check_block_keys(blocks) -> None:
 
 
 def params_from_numpy(tree: Dict[str, Any], spec: ModelSpec,
-                      device="cpu") -> Params:
+                      device="cuda") -> Params:
     """JAX parameter tree (numpy leaves) -> port parameters on ``device``.
-    Covers the Llama tree: ``tok_emb``, ``lm_head`` (vocab-padded when
-    int4), ``lnf_scale`` and the stacked ``blocks``, with the fused
-    ``w_qkv``/``w_gate_up`` payloads in place of their members where the
-    JAX engine fused them."""
+    Covers the Llama tree, which Mistral shares: ``tok_emb``, ``lm_head``
+    (vocab-padded when int4), ``lnf_scale`` and the stacked ``blocks``,
+    with the fused ``w_qkv``/``w_gate_up`` payloads in place of their
+    members where the JAX engine fused them."""
     spec.check_supported()
     blocks = tree["blocks"]
     _check_block_keys(blocks)

@@ -63,12 +63,16 @@ class EngineConfig:
     use_paged_kv: bool = False
     attention_impl: str = "auto"       # "auto" | "pallas-decode": the
     # flash-decode kernel (ops/flash_decode.py) on the window scheme;
-    # "pallas-decode-fw": its side-window writeback variant;
-    # "pallas-ragged": with prefill_chunk, the ragged mixed step
-    # (ops/ragged_attention.py), flash-decode on pure-decode steps
+    # "pallas-decode-fw": its side-window writeback variant; "pallas":
+    # the paged-attention kernel (ops/paged_attention.py) over the frozen
+    # prefix, merged with the side window; "pallas-ragged": with
+    # prefill_chunk, the ragged mixed step (ops/ragged_attention.py),
+    # flash-decode on pure-decode steps. decode_mode="inline" (and every
+    # sliding-window spec) runs the paged-attention kernel whatever this is
     decode_fused: bool = False         # norm_matmul / matmul_residual
     # kernels on the decode step (ops/fused_decode.py)
-    decode_mode: str = "window"
+    decode_mode: str = "window"        # "window" | "inline": the per-step
+    # page write (models/base.py:forward_decode_paged)
     prefix_cache: bool = True
     kv_offload: bool = False
     kv_offload_bytes: int = 1 << 30
@@ -108,9 +112,9 @@ class EngineConfig:
             no("defer_admission (deferred first-token read)", "A5c")
         if self.max_waiting or self.queue_deadline_s:
             no("max_waiting/queue_deadline_s (overload shedding)", "A5d")
-        if self.decode_mode != "window":
-            no(f"decode_mode={self.decode_mode!r} (per-step page scatter)",
-               "A5e")
+        if self.decode_mode not in ("window", "inline"):
+            raise ValueError(
+                f"decode_mode {self.decode_mode!r} is not 'window'|'inline'")
         if "float8" in str(self.kv_dtype):
             no(f"kv_dtype={self.kv_dtype} (fp8 KV pools)", "A5f")
         if self.kv_offload:
@@ -119,13 +123,13 @@ class EngineConfig:
             no("spec_async (async speculation)", "A12")
         if self.timeline_capacity:
             no("timeline_capacity (step timeline)", "A6")
-        if self.attention_impl not in ("auto", "pallas-decode",
+        if self.attention_impl not in ("auto", "pallas", "pallas-decode",
                                        "pallas-decode-fw", "pallas-ragged"):
             raise ValueError(
                 f"attention_impl {self.attention_impl!r}: the PyTorch engine "
-                "runs 'auto', 'pallas-decode', 'pallas-decode-fw' or "
-                "'pallas-ragged'; the paged-attention kernel and the XLA "
-                "and interpret paths are not ported (ROADMAP.md B)")
+                "runs 'auto', 'pallas', 'pallas-decode', 'pallas-decode-fw' "
+                "or 'pallas-ragged'; the XLA and interpret paths are TPU "
+                "choices it does not carry")
 
 
 @dataclass

@@ -21,8 +21,13 @@ their pages at once.
 - Decode runs in chunks of ``decode_steps_per_call`` steps in the window
   scheme: the pools are frozen for the chunk, fresh K/V accumulates in a
   side window, attention is the flash-decode kernel over prefix ⊕ window
-  (or its writeback variant, ``"pallas-decode-fw"``), and the window is
-  written into the pages once at the chunk's end.
+  (or its writeback variant, ``"pallas-decode-fw"``, or the paged-attention
+  kernel over the prefix merged with the window, ``"pallas"``), and the
+  window is written into the pages once at the chunk's end. With
+  ``decode_mode="inline"``, and always for a sliding-window spec
+  (Mistral v0.1), each step writes its K/V into the pages and attends
+  through the paged-attention kernel (``forward_decode_paged``): no side
+  window and no flush.
 - Stops: EOS, ``max_new_tokens``, capacity (``"length"``) and the first
   ``_DEVICE_STOP_K`` single-token stop ids retire a slot on the device,
   inside the chunk; longer stop lists and stop sequences retire on the
@@ -35,7 +40,9 @@ What the port leaves out, and how it fails when asked for it, is in
 ``config.EngineConfig.check_supported``. The JAX default decode path
 (``attention_impl="auto"`` -> a dense gather of the live prefix) is a TPU
 layout choice; here "auto", "pallas-decode" and "pallas-ragged" (on its
-pure-decode steps) run the flash-decode kernel. Decode chunks are eager
+pure-decode steps) run the flash-decode kernel on the window scheme, and
+every ``attention_impl`` runs the paged-attention kernel on the inline
+path (JAX sends "auto" there to its XLA gather). Decode chunks are eager
 PyTorch (no CUDA graphs yet).
 """
 
@@ -53,6 +60,7 @@ from ..config import EngineConfig
 from ..models.base import (
     ModelSpec,
     Params,
+    forward_decode_paged,
     forward_decode_window,
     forward_mixed_step,
     forward_prefill_into_pages,
@@ -183,6 +191,15 @@ class ContinuousEngine:
             {b for b in cfg.prefill_buckets if b < max_seq} | {max_seq})
         self.max_seq_len = max_seq
         self.attn_impl = cfg.attention_impl
+        if self.attn_impl == "pallas-ragged" and spec.sliding_window:
+            raise ValueError(
+                "attention_impl='pallas-ragged' does not support "
+                "sliding-window models: the ragged kernel carries no window "
+                "mask (every context page is live)")
+        # sliding-window specs always decode inline: their prefix mask
+        # depends on the growing total length
+        self.use_window = (cfg.decode_mode == "window"
+                           and not spec.sliding_window)
         # pure-decode steps of a ragged engine take the flash-decode kernel
         self.decode_impl = ("pallas-decode"
                             if self.attn_impl == "pallas-ragged"
@@ -244,6 +261,7 @@ class ContinuousEngine:
         self._admission_denied = 0
         self._capacity_finishes = 0
         self._steps = 0
+        self._decode_steps = 0
         self._prefill_calls = 0
         self._chunked_admissions = 0
         self._mixed_steps = 0
@@ -698,17 +716,29 @@ class ContinuousEngine:
                                   self._min_p)
         needs_mask, needs_noise = self._knob_flags(self._knobs_host)
         use_stops = bool(self._stop_slots)
-        side_k = torch.zeros((spec.n_layers, n, n_steps, spec.n_kv_heads,
-                              spec.head_dim), dtype=spec.torch_dtype,
-                             device=dev)
-        side_v = torch.zeros_like(side_k)
+        side_k = side_v = None
+        if self.use_window:
+            side_k = torch.zeros((spec.n_layers, n, n_steps,
+                                  spec.n_kv_heads, spec.head_dim),
+                                 dtype=spec.torch_dtype, device=dev)
+            side_v = torch.zeros_like(side_k)
         cap = torch.as_tensor(caps, dtype=torch.int32, device=dev)
         toks, lps = [], []
+        self._decode_steps += n_steps
         for _ in range(n_steps):
-            hidden, side_k, side_v = forward_decode_window(
-                spec, self.params, last, lengths, start_lengths,
-                self.kv.k_pages, self.kv.v_pages, table, side_k, side_v,
-                active, attn_impl=self.decode_impl, fused=self.decode_fused)
+            if self.use_window:
+                hidden, side_k, side_v = forward_decode_window(
+                    spec, self.params, last, lengths, start_lengths,
+                    self.kv.k_pages, self.kv.v_pages, table, side_k, side_v,
+                    active, attn_impl=self.decode_impl,
+                    fused=self.decode_fused)
+            else:
+                # inactive slots (free, or retired earlier in the chunk)
+                # must not write
+                hidden, _, _ = forward_decode_paged(
+                    spec, self.params, last, lengths, self.kv.k_pages,
+                    self.kv.v_pages, table, active,
+                    attn_impl=self.decode_impl, fused=self.decode_fused)
             logits = unembed(spec, self.params, hidden)
             next_tok, lp = sample_tokens_with_logprobs(
                 logits, sampling, generator=self._gen,
@@ -1016,6 +1046,7 @@ class ContinuousEngine:
             "admission_denied": self._admission_denied,
             "capacity_finishes": self._capacity_finishes,
             "engine_steps": self._steps,
+            "decode_steps": self._decode_steps,
             "prefill_calls": self._prefill_calls,
             "mixed_steps": self._mixed_steps,
             "mixed_prefill_tokens": self._mixed_prefill_tokens,
@@ -1031,6 +1062,7 @@ class ContinuousEngine:
             "decode_chunk": self.chunk_stats.snapshot(),
             "kv": self.kv.get_stats(),
             "attn_impl": self.attn_impl,
+            "decode_mode": "window" if self.use_window else "inline",
             "decode_fused": self.decode_fused,
             "device": str(self.device),
             # per-process launch counts of the CUDA kernels

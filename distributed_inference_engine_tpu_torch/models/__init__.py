@@ -1,5 +1,6 @@
 """Model specs and the config-driven engine factory of the port (the
-``models/__init__.py:engine_from_config`` subset for ``architecture=llama``).
+``models/__init__.py:engine_from_config`` subset for ``architecture``
+``llama`` and ``mistral``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,14 @@ import torch
 
 from .base import ModelSpec
 from .llama import llama_spec
+from .mistral import mistral_spec
+
+# family prefix -> (spec factory, default size), as in the JAX package;
+# an architecture string like "mistral-7b-v01" selects the size directly
+_FAMILIES = {
+    "mistral": (mistral_spec, "mistral-7b"),
+    "llama": (llama_spec, "llama3-8b"),
+}
 
 # metadata keys the JAX factory copies into EngineConfig
 # (models/__init__.py of the JAX package); the engine rejects the ones
@@ -28,9 +37,10 @@ ENGINE_KEYS = ("page_size", "num_pages", "decode_steps_per_call",
 def spec_for_architecture(architecture: str, size: str = "",
                           max_seq_len: int = 0) -> ModelSpec:
     overrides = {"max_seq_len": max_seq_len} if max_seq_len else {}
-    if architecture.startswith("llama"):
-        name = size or (architecture if "-" in architecture else "llama3-8b")
-        return llama_spec(name, **overrides)
+    for prefix, (factory, default) in _FAMILIES.items():
+        if architecture.startswith(prefix):
+            name = size or (architecture if "-" in architecture else default)
+            return factory(name, **overrides)
     raise NotImplementedError(
         f"architecture {architecture!r} is not ported to PyTorch yet "
         "(ROADMAP.md A9)")

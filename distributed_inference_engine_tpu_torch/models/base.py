@@ -13,11 +13,13 @@ Page pools are updated IN PLACE (the JAX functions donate and return new
 pools); functions that write pools still return them, so call sites read
 the same as in the JAX package. Scatter index lists are computed on the
 host from host-known lengths and page tables, so a pool write never
-synchronises with the device.
+synchronises with the device; the per-step paged decode computes its one
+row per slot on the device instead, since only the device knows which
+slots still write.
 
-The slice carries RoPE + RMSNorm + SwiGLU/GeGLU + GQA without biases: a
-spec with experts, a sliding window, learned positions, biases,
-LayerNorm or a logit softcap raises ``NotImplementedError``
+The slice carries RoPE + RMSNorm + SwiGLU/GeGLU + GQA without biases,
+with Mistral's sliding window: a spec with experts, learned positions,
+biases, LayerNorm or a logit softcap raises ``NotImplementedError``
 (``ModelSpec.check_supported``).
 """
 
@@ -31,7 +33,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import causal_attention, suffix_attention
+from ..ops.attention import (
+    causal_attention,
+    merge_attention,
+    suffix_attention,
+    window_decode_attention,
+)
 from ..ops.flash_decode import (
     flash_decode_attention,
     flash_decode_attention_fw,
@@ -43,6 +50,7 @@ from ..ops.fused_decode import (
     norm_matmul_wants,
 )
 from ..ops.norms import rms_norm
+from ..ops.paged_attention import paged_attention
 from ..ops.quant import QuantizedTensor, matmul_any
 from ..ops.ragged_attention import ragged_attention
 from ..ops.rope import apply_rope
@@ -99,6 +107,8 @@ class ModelSpec:
     def validate(self) -> "ModelSpec":
         if not self.head_dim_override and self.d_model % self.n_heads:
             raise ValueError("d_model must divide by n_heads")
+        if self.sliding_window < 0:
+            raise ValueError("sliding_window must be >= 0")
         if self.n_heads % self.n_kv_heads:
             raise ValueError("n_heads must divide by n_kv_heads")
         self.check_supported()
@@ -107,7 +117,6 @@ class ModelSpec:
     def check_supported(self) -> None:
         lacks = [name for name, on in (
             ("mixture-of-experts", self.n_experts),
-            ("sliding-window attention", self.sliding_window),
             ("learned positions", self.pos_emb != "rope"),
             ("biases", self.use_bias or self.qkv_bias),
             ("LayerNorm", self.norm != "rmsnorm"),
@@ -390,7 +399,8 @@ def forward_prefill(spec: ModelSpec, params: Params, tokens: torch.Tensor,
     for layer in range(spec.n_layers):
         x, k, v = transformer_block(
             spec, layer_view(params, layer), x, positions,
-            lambda q, k, v: causal_attention(q, k, v, lens))
+            lambda q, k, v: causal_attention(q, k, v, lens,
+                                             window=spec.sliding_window))
         ks.append(k)
         vs.append(v)
     return x, torch.stack(ks), torch.stack(vs)
@@ -415,7 +425,8 @@ def forward_prefill_into_pages(spec: ModelSpec, params: Params,
     for layer in range(spec.n_layers):
         x, k, v = transformer_block(
             spec, layer_view(params, layer), x, positions,
-            lambda q, k, v: causal_attention(q, k, v, lens))
+            lambda q, k, v: causal_attention(q, k, v, lens,
+                                             window=spec.sliding_window))
         kp = k_pages[layer].view(n * p, fused)
         vp = v_pages[layer].view(n * p, fused)
         kp[dst] = k.reshape(b * t, fused)[src].to(kp.dtype)
@@ -441,7 +452,7 @@ def forward_prefill_suffix(spec: ModelSpec, params: Params,
         h = _norm(spec, x, blk["ln1_scale"])
         q, k, v = _qkv(spec, blk, h, positions)
         attn = suffix_attention(q, k_ctx[layer], v_ctx[layer], ctx, k, v,
-                                slen)
+                                slen, window=spec.sliding_window)
         x = x + _out_proj(blk, attn)
         x = x + _mlp(spec, blk, _norm(spec, x, blk["ln2_scale"]))
         ks.append(k)
@@ -478,8 +489,11 @@ def forward_decode_window(
     choice the port does not carry. "pallas-decode-fw" takes the
     writeback kernel instead: the fresh K/V goes in as its own operand
     and the kernel lands it in the side window, in place of the one-hot
-    write."""
-    if attn_impl not in ("auto", "pallas-decode", "pallas-decode-fw"):
+    write. "pallas" takes the paged-attention kernel over the frozen
+    prefix on the stacked pool, with flash stats, then the plain
+    side-window attention and merge (the JAX package's XLA ops there)."""
+    if attn_impl not in ("auto", "pallas", "pallas-decode",
+                         "pallas-decode-fw"):
         raise ValueError(f"attn_impl {attn_impl!r} is not ported "
                          "(ROADMAP.md B)")
     fw = attn_impl == "pallas-decode-fw"
@@ -511,12 +525,99 @@ def forward_decode_window(
         else:
             sk.copy_(torch.where(sel, k[:, 0][:, None].to(sk.dtype), sk))
             sv.copy_(torch.where(sel, v[:, 0][:, None].to(sv.dtype), sv))
-            attn = flash_decode_attention(
-                q[:, 0].contiguous(), kp_flat, vp_flat, page_table,
-                start_lengths, sk, sv, n_side, **kw)
+            if attn_impl == "pallas":
+                prefix = paged_attention(
+                    q[:, 0].contiguous(), kp_flat, vp_flat, page_table,
+                    start_lengths, with_stats=True, **kw)
+                attn = merge_attention(
+                    [prefix, window_decode_attention(q[:, 0], sk, sv,
+                                                     n_side)],
+                    dtype=q.dtype)
+            else:
+                attn = flash_decode_attention(
+                    q[:, 0].contiguous(), kp_flat, vp_flat, page_table,
+                    start_lengths, sk, sv, n_side, **kw)
         x = _out_residual(spec, blk, attn[:, None], x, fused=fused)
         x = _mlp_residual(spec, blk, x, fused=fused)
     return x[:, 0, :], side_k, side_v
+
+
+def forward_decode_paged(
+    spec: ModelSpec,
+    params: Params,
+    tokens: torch.Tensor,         # [B] the most recent token per slot
+    lengths: torch.Tensor,        # [B] position of `tokens`
+    k_pages: torch.Tensor,        # [L, N, P, Hkv*Dh] written in place
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,     # [B, MP] int32
+    write_mask: Optional[torch.Tensor] = None,   # [B] bool: which write
+    *,
+    attn_impl: str = "auto",
+    fused: bool = False,
+):
+    """One decode step against the paged pools: each layer writes every
+    slot's fresh K/V into its page at position ``lengths`` (page
+    ``lengths // P``, offset ``lengths % P``; capacity is reserved before
+    the chunk), then the paged-attention kernel attends over the slot's
+    ``lengths + 1`` keys, windowed by ``spec.sliding_window``. Returns
+    (hidden [B, D], k_pages, v_pages), the pools updated in place.
+
+    Every ``attn_impl`` takes the paged-attention kernel on the stacked
+    pool: the JAX function sends "auto", "xla" and "pallas-decode*" to
+    its XLA gather, a TPU layout choice the port does not carry.
+
+    ``write_mask``: decode runs over all slots, and an inactive slot's
+    table row points at pages it does not own (page 0, or past a slot that
+    retired earlier in the chunk), so its write must not land; JAX drops
+    it with an out-of-range scatter index. Which slots write is known only
+    on the device, so the destination is computed there: a masked slot
+    aims at the row of the first writing slot (``j``) with that slot's own
+    value, so the duplicate rows of one ``index_put_`` all carry the same
+    bytes; when no slot writes, every row aims at ``j``'s destination with
+    the bytes already there."""
+    del attn_impl              # one kernel whatever the JAX impl name
+    b = tokens.shape[0]
+    L, n, p, fusedw = k_pages.shape
+    dev = tokens.device
+    positions = lengths[:, None].long()
+    x = embed(spec, params, tokens[:, None], positions)
+    table = _device_ints(page_table, dev)
+    logical = torch.clamp(lengths.long() // p, max=table.shape[1] - 1)
+    rows = (table.gather(1, logical[:, None])[:, 0].long() * p
+            + lengths.long() % p)                            # [B] in a layer
+    if write_mask is None:
+        write_mask = torch.ones((b,), dtype=torch.bool, device=dev)
+    mask = write_mask.to(torch.bool)
+    # [1] index tensors, not 0-d ones: indexing with a 0-d tensor reads it
+    # on the host
+    j = torch.argmax(mask.to(torch.int32)).reshape(1)       # first writer
+    any_write = mask.any()
+    dst = torch.where(mask, rows, rows[j])                   # [B]
+    kp_rows = k_pages.view(L * n * p, fusedw)
+    vp_rows = v_pages.view(L * n * p, fusedw)
+    kp_flat = k_pages.view(L * n, p, fusedw)
+    vp_flat = v_pages.view(L * n, p, fusedw)
+    lens1 = (lengths + 1).to(torch.int32)
+
+    def land(pool_rows, fresh, idx):
+        fresh = fresh.reshape(b, fusedw).to(pool_rows.dtype)
+        anchor = torch.where(any_write, fresh[j], pool_rows[idx[j]])
+        pool_rows.index_put_((idx,), torch.where(mask[:, None], fresh,
+                                                 anchor))
+
+    for layer in range(L):
+        blk = layer_view(params, layer)
+        q, k, v = _qkv_norm(spec, blk, x, positions, fused=fused)
+        idx = dst + layer * n * p
+        land(kp_rows, k, idx)
+        land(vp_rows, v, idx)
+        attn = paged_attention(
+            q[:, 0].contiguous(), kp_flat, vp_flat, table, lens1,
+            n_kv_heads=spec.n_kv_heads, window=spec.sliding_window,
+            layer=layer, n_pages_per_layer=n)
+        x = _out_residual(spec, blk, attn[:, None], x, fused=fused)
+        x = _mlp_residual(spec, blk, x, fused=fused)
+    return x[:, 0, :], k_pages, v_pages
 
 
 def forward_mixed_step(
@@ -543,6 +644,11 @@ def forward_mixed_step(
     ``return_hidden_all`` — plus the pools, updated in place where the
     JAX function donated them). Rows with ``q_lens == 0`` carry garbage
     hidden; callers mask them."""
+    if spec.sliding_window:
+        raise ValueError(
+            "forward_mixed_step does not support sliding-window specs "
+            "(the ragged kernel has no window mask); use the split "
+            "prefill/decode path")
     r, qm = tokens.shape
     L, n, p, fusedw = k_pages.shape
     dev = tokens.device

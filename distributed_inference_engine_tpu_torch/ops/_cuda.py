@@ -32,7 +32,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("flash_decode.cu", "fused_decode.cu", "int4_matmul.cu",
-           "ragged_attention.cu")
+           "paged_attention.cu", "ragged_attention.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -141,9 +141,13 @@ def lib() -> ctypes.CDLL:
             P, P, P, P, P, I, I, I, I, I, I, P]
         handle.die_int4_matmul.argtypes = [
             P, P, P, P, P, I, I, I, I, I, I, P]
+        handle.die_paged_attention.argtypes = [
+            P, P, P, P, P, P, P, P,              # q .. l_out
+            I, I, I, I, I, I, I, LL, I, I, P]    # shapes, dtypes, stream
         for fn in (handle.die_flash_decode, handle.die_flash_decode_fw,
                    handle.die_ragged_attention, handle.die_norm_matmul,
-                   handle.die_matmul_residual, handle.die_int4_matmul):
+                   handle.die_matmul_residual, handle.die_int4_matmul,
+                   handle.die_paged_attention):
             fn.restype = I
         _lib = handle
     return _lib

@@ -39,14 +39,18 @@ def _softmax_masked(scores: torch.Tensor, mask: torch.Tensor
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     seq_lens: torch.Tensor) -> torch.Tensor:
-    """Prefill attention, causal within the prompt, padding masked.
-    q [B, T, H, Dh], k/v [B, T, Hkv, Dh], seq_lens [B] -> [B, T, H, Dh]."""
+                     seq_lens: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """Prefill attention, causal within the prompt, padding masked; with
+    ``window`` > 0 query i sees keys j with i - j < window (Mistral's
+    sliding window). q [B, T, H, Dh], k/v [B, T, Hkv, Dh], seq_lens [B] ->
+    [B, T, H, Dh]."""
     b, t, h, dh = q.shape
     qg = _group_query(q, k.shape[2])
     scores = torch.einsum("bikgd,bjkd->bkgij", qg, k).float() * _scale(dh)
     ar = torch.arange(t, device=q.device)
     causal = ar[None, :] <= ar[:, None]                         # [T, T]
+    if window:
+        causal &= (ar[:, None] - ar[None, :]) < window
     valid = ar[None, :] < seq_lens[:, None]                     # [B, T]
     mask = causal[None] & valid[:, None, :]                     # [B, T, T]
     probs = _softmax_masked(scores, mask[:, None, None])
@@ -57,9 +61,12 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def suffix_attention(q: torch.Tensor, k_ctx: torch.Tensor,
                      v_ctx: torch.Tensor, n_ctx: torch.Tensor,
                      k_suf: torch.Tensor, v_suf: torch.Tensor,
-                     suffix_lens: torch.Tensor) -> torch.Tensor:
+                     suffix_lens: torch.Tensor, window: int = 0
+                     ) -> torch.Tensor:
     """Prefill of a prompt suffix against cached prefix K/V: suffix query
-    i sees every context key j < n_ctx and suffix keys causally.
+    i sees every context key j < n_ctx and suffix keys causally; with
+    ``window`` > 0 only keys whose absolute position is within ``window``
+    of the query's (``n_ctx + i``).
     q [B, Ts, H, Dh], ctx [B, Tc, Hkv, Dh], suffix K/V [B, Ts, Hkv, Dh]."""
     b, ts, h, dh = q.shape
     tc = k_ctx.shape[1]
@@ -77,6 +84,13 @@ def suffix_attention(q: torch.Tensor, k_ctx: torch.Tensor,
     mask_suf = (~in_ctx) & causal[None] & \
         (suf_j[None] < suffix_lens[:, None, None])
     mask = mask_ctx | mask_suf                                  # [B, Ts, Tc+Ts]
+    if window:
+        # absolute positions: query n_ctx + i, context key j, suffix key
+        # n_ctx + suf_j
+        nc = n_ctx.long()[:, None, None]
+        q_abs = nc + i[None]                                    # [B, Ts, 1]
+        k_abs = torch.where(in_ctx, j, nc + suf_j)              # [B, 1, Tc+Ts]
+        mask &= (q_abs - k_abs) < window
     probs = _softmax_masked(scores, mask[:, None, None])
     out = torch.einsum("bkgij,bjkd->bikgd", probs.to(v_all.dtype), v_all)
     return out.reshape(b, ts, h, dh).to(q.dtype)

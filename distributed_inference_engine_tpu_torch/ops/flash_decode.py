@@ -43,13 +43,10 @@ def flash_decode_attention_plain(
     n_pages_per_layer: int = 0,
 ) -> torch.Tensor:
     """Reference composition: paged prefix (with stats) ⊕ side window."""
-    if layer is not None:
-        n = n_pages_per_layer or k_pages.shape[0]
-        k_pages = k_pages[layer * n:(layer + 1) * n]      # views, no copy
-        v_pages = v_pages[layer * n:(layer + 1) * n]
     prefix = paged_attention_xla(q, k_pages, v_pages, page_table,
                                  prefix_lens, n_kv_heads=n_kv_heads,
-                                 with_stats=True)
+                                 with_stats=True, layer=layer,
+                                 n_pages_per_layer=n_pages_per_layer)
     window = window_decode_attention(q, side_k, side_v, n_side)
     return merge_attention([prefix, window], dtype=q.dtype)
 

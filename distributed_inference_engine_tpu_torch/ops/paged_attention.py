@@ -1,27 +1,50 @@
-"""Paged decode attention, plain version (port of
-``ops/paged_attention.py:paged_attention_xla``).
+"""Paged decode attention with an optional sliding window and flash stats
+(port of ``ops/paged_attention.py``).
 
-Pools are ``[N, P, Hkv*Dh]`` per layer; ``page_table[b, p]`` names the
-physical page of slot b's logical page p; keys ``j < lengths[b]`` are
-valid. This is the prefix half of flash-decode's plain version
-(``ops/flash_decode.py``); the JAX package's Pallas paged-attention kernel
-serves the sliding-window families and is not ported yet.
+Pools are ``[N, P, Hkv*Dh]`` per layer, or the stacked ``[L*N, P,
+Hkv*Dh]`` pool with ``layer``: page p of slot b lives at row ``layer*N +
+page_table[b, p]``. Keys ``j < lengths[b]`` are valid (the count includes
+the current token); with ``window`` > 0 only ``j >= lengths[b] - window``
+too (Mistral v0.1's sliding window).
+
+``paged_attention`` launches the hand-written CUDA kernel
+(``csrc/paged_attention.cu``, replacing the TPU kernel
+``ops/paged_attention.py:_paged_attn_kernel``) for a CUDA tensor and runs
+the plain version ``paged_attention_xla`` for a CPU tensor. The plain
+version also takes the stacked layer offset, which the JAX XLA path
+leaves to its callers, so that the tests hold both of the kernel's routes.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from . import _cuda
 from .attention import NEG_INF, _scale
+
+
+def _layer_pools(k_pages, v_pages, layer, n_pages_per_layer):
+    """One layer's pools out of the stacked pool (views, no copy)."""
+    if layer is None:
+        return k_pages, v_pages
+    n = n_pages_per_layer or k_pages.shape[0]
+    return (k_pages[layer * n:(layer + 1) * n],
+            v_pages[layer * n:(layer + 1) * n])
 
 
 def paged_attention_xla(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, page_table: torch.Tensor,
                         lengths: torch.Tensor, *, n_kv_heads: int,
-                        with_stats: bool = False):
+                        window: int = 0, with_stats: bool = False,
+                        layer: Optional[int] = None,
+                        n_pages_per_layer: int = 0):
     """Gather the slot's pages, then masked attention. q [B, H, Dh] ->
     [B, H, Dh] in q's dtype, or (out, m, l) with ``with_stats`` (a slot
-    with no valid key carries l = 0)."""
+    with no valid key carries m = NEG_INF and l = 0)."""
+    k_pages, v_pages = _layer_pools(k_pages, v_pages, layer,
+                                    n_pages_per_layer)
     b, h, dh = q.shape
     _n, p, _fused = k_pages.shape
     mp = page_table.shape[1]
@@ -33,11 +56,16 @@ def paged_attention_xla(q: torch.Tensor, k_pages: torch.Tensor,
     ct = torch.promote_types(q.dtype, k.dtype)      # jnp.einsum promotion
     scores = torch.einsum("bkgd,bskd->bkgs", qg.to(ct), k.to(ct)).float() \
         * _scale(dh)
-    valid = (torch.arange(mp * p, device=q.device)[None, :]
-             < lengths[:, None])[:, None, None, :]
+    pos = torch.arange(mp * p, device=q.device)[None, :]
+    valid = pos < lengths[:, None]
+    if window:
+        valid &= pos >= (lengths[:, None] - window)
+    valid = valid[:, None, None, :]
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     m = scores.amax(dim=-1)
     probs = torch.exp(scores - m[..., None])
+    # zero-valid rows: m == NEG_INF turns every exp into 1; zero them so l
+    # is a true denominator (merge weight 0)
     probs = torch.where(valid, probs, torch.zeros_like(probs))
     l = probs.sum(dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs.to(v.dtype), v)
@@ -46,3 +74,69 @@ def paged_attention_xla(q: torch.Tensor, k_pages: torch.Tensor,
     if with_stats:
         return out, m.reshape(b, h), l.reshape(b, h)
     return out
+
+
+def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, page_table: torch.Tensor,
+                         lengths: torch.Tensor, *, n_kv_heads: int,
+                         window: int = 0, with_stats: bool = False,
+                         layer: Optional[int] = None,
+                         n_pages_per_layer: int = 0):
+    """The CUDA kernel: q [B, H, Dh] (bf16 or fp32), pools in bf16 or fp32,
+    int32 ``page_table``/``lengths`` -> out [B, H, Dh] in q's dtype, or
+    (out, m, l) with ``with_stats``. Raises on what the kernel does not
+    take."""
+    name = "paged_attention"
+    b, h, dh = q.shape
+    rows, page_size, fused = k_pages.shape
+    _cuda.require(q.device.type == "cuda",
+                  f"{name}: unsupported device {q.device}")
+    _cuda.require(h % n_kv_heads == 0 and h // n_kv_heads in (1, 2, 4, 8),
+                  f"{name}: H/Hkv = {h}/{n_kv_heads} must be 1, 2, 4 or 8")
+    _cuda.require(dh in (32, 64, 128),
+                  f"{name}: head_dim {dh} must be 32, 64 or 128")
+    _cuda.require(fused == n_kv_heads * dh and v_pages.shape ==
+                  k_pages.shape, f"{name}: pool shape {tuple(k_pages.shape)}"
+                  f" does not match Hkv*Dh = {n_kv_heads * dh}")
+    _cuda.require(k_pages.dtype == v_pages.dtype,
+                  f"{name}: K and V pools differ in dtype")
+    _cuda.require(page_table.dim() == 2 and page_table.shape[0] == b
+                  and tuple(lengths.shape) == (b,),
+                  f"{name}: page_table/lengths batch mismatch")
+    _cuda.require(int(window) >= 0, f"{name}: window {window} < 0")
+    n = n_pages_per_layer or rows
+    base = 0 if layer is None else int(layer) * n
+    _cuda.require(0 <= base and base + n <= rows,
+                  f"{name}: layer {layer} outside the stacked pool")
+    _cuda.require_cuda(name, q, k_pages, v_pages, page_table, lengths)
+    _cuda.require_int32(name, page_table, lengths)
+    out = torch.empty_like(q)
+    m = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    err = _cuda.lib().die_paged_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        m.data_ptr(), l.data_ptr(), b, h, n_kv_heads, dh, page_size,
+        page_table.shape[1], int(window), base, _cuda.dtype_code(q.dtype),
+        _cuda.dtype_code(k_pages.dtype), _cuda.stream_ptr(q.device))
+    _cuda.check(err, name)
+    _cuda.LAUNCHES[name] += 1
+    if with_stats:
+        return out, m, l
+    return out
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, page_table: torch.Tensor,
+                    lengths: torch.Tensor, *, n_kv_heads: int,
+                    window: int = 0, with_stats: bool = False,
+                    layer: Optional[int] = None, n_pages_per_layer: int = 0):
+    """CUDA tensors launch the kernel (or raise); CPU tensors take the
+    plain version."""
+    kw = dict(n_kv_heads=n_kv_heads, window=window, with_stats=with_stats,
+              layer=layer, n_pages_per_layer=n_pages_per_layer)
+    if q.device.type == "cpu":
+        return paged_attention_xla(q, k_pages, v_pages, page_table, lengths,
+                                   **kw)
+    return paged_attention_cuda(q, k_pages, v_pages, page_table, lengths,
+                                **kw)

@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card (run there with ``python -m pytest --noconftest -q
 tests/test_torch_cuda.py``, since ``tests/conftest.py`` imports JAX; skipped
-without a card). Small shapes; chip_smoke.py checks the Llama-3-8B ones.
+without a card). Small shapes; chip_smoke.py checks the Llama-3-8B and Mistral ones.
 Tolerances: fp32 atol 1e-4, bf16 (and fp32 over bf16 pools) atol = rtol =
-2e-2; written pages and side rows equal. The int4 matmul is held per output
+2e-2; written pages and side rows equal; paged attention's m and l
+within 1e-4 of the plain version's on the inputs widened to fp32. The int4 matmul is held per output
 column to max|out - ref32| / max|ref32| <= 1e-2 (bf16) and 1e-4 (fp32) at
 8 rows and more, ref32 being the plain version on the same inputs widened
 to fp32, and at every row count to the same bound relative to the column's
@@ -16,6 +17,7 @@ from distributed_inference_engine_tpu_torch.ops import _cuda
 from distributed_inference_engine_tpu_torch.ops import flash_decode as fd
 from distributed_inference_engine_tpu_torch.ops import fused_decode as fdec
 from distributed_inference_engine_tpu_torch.ops import int4_matmul as i4
+from distributed_inference_engine_tpu_torch.ops import paged_attention as pa
 from distributed_inference_engine_tpu_torch.ops import ragged_attention as ra
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
@@ -155,6 +157,51 @@ def test_ragged_attention_kernel(card, dtype, kv_dtype, h, hkv, dh):
         assert float(out[i, qi:].abs().max() if qi < qmax else 0) == 0.0
 
 
+@pytest.mark.parametrize("window", [0, 16, 40])
+@pytest.mark.parametrize("dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("h,hkv,dh", [(8, 8, 32), (8, 4, 64), (32, 8, 128),
+                                      (16, 2, 128)])
+def test_paged_attention_kernel(card, dtype, kv_dtype, window, h, hkv, dh):
+    """Lengths 0 (an empty slot), around page edges and windows, a full
+    table; per-layer and stacked (layer 1) pools, out and the flash stats
+    against the plain version."""
+    g = torch.Generator(device=card).manual_seed(5)
+    p, mp, n = 16, 6, 60
+    lens = [0, 1, 15, 16, 17, 40, 41, 56, 57, 96]
+    b = len(lens)
+    q = torch.randn((b, h, dh), generator=g, device=card).to(dtype)
+    kp = torch.randn((2 * n, p, hkv * dh), generator=g,
+                     device=card).to(kv_dtype)
+    vp = torch.randn_like(kp)
+    table = torch.randperm(n, generator=g, device=card)[: b * mp].reshape(
+        b, mp).to(torch.int32)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=card)
+    for kw in (dict(), dict(layer=1, n_pages_per_layer=n)):
+        pools = (kp[:n], vp[:n]) if not kw else (kp, vp)
+        before = _cuda.LAUNCHES["paged_attention"]
+        out, m, l = pa.paged_attention(q, *pools, table, lengths,
+                                       n_kv_heads=hkv, window=window,
+                                       with_stats=True, **kw)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["paged_attention"] == before + 1
+        ref = pa.paged_attention_xla(q, *pools, table, lengths,
+                                     n_kv_heads=hkv, window=window, **kw)
+        _close(out, ref, dtype if kv_dtype == dtype else torch.bfloat16)
+        # the stats against the plain version on the same values widened
+        # to fp32 (the bf16 plain version rounds its scores to bf16; the
+        # kernel keeps them in fp32)
+        _, rm, rl = pa.paged_attention_xla(
+            q.float(), *(t.float() for t in pools), table, lengths,
+            n_kv_heads=hkv, window=window, with_stats=True, **kw)
+        live = rl > 0
+        torch.testing.assert_close(m[live], rm[live], atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
+        assert float(out[0].abs().max()) == 0.0 and float(l[0].max()) == 0.0
+        assert float(m[0].max()) <= -1e29
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     x = torch.zeros((2, 8), device=card)
     with pytest.raises(ValueError):
@@ -175,6 +222,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
                             torch.zeros((1, 2, 2, 32), device=card),
                             torch.zeros((1, 2, 2, 32), device=card),
                             n_kv_heads=2)
+    q = torch.zeros((1, 2, 32), device=card)
+    args = (torch.zeros((1, 2), **i32), torch.ones((1,), **i32))
+    for bad in (dict(q=torch.zeros((1, 2, 96), device=card)),   # Dh 96
+                dict(q=torch.zeros((1, 6, 32), device=card)),   # G = 3
+                dict(pool=pool.half()),                          # fp16 pool
+                dict(layer=2, n_pages_per_layer=4)):             # past pool
+        kw = {k: v for k, v in bad.items() if k not in ("q", "pool")}
+        kp = bad.get("pool", pool)
+        with pytest.raises((ValueError, TypeError)):
+            pa.paged_attention(bad.get("q", q), kp, kp, *args,
+                               n_kv_heads=2, **kw)
 
 
 def _int4_case(card, dtype, m, k2, n, seed):

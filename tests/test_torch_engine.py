@@ -5,8 +5,10 @@ prefix-cache hit, stop ids, eos_id and max_new_tokens (decode_fused off
 and on, and the fw decode), at the max_seq_len cap and under page-pool
 pressure; with chunked prefill, the port's ragged mixed step (with and
 without a token budget) and its split path against the JAX split path;
-and the port's chain passes the JAX package's teacher-forced
-``assert_greedy_parity``. Logprobs within 1e-4."""
+the paged-attention kernel's routes (``decode_mode="inline"`` and
+``attention_impl="pallas"``); and the port's chain passes the JAX
+package's teacher-forced ``assert_greedy_parity``. Logprobs within
+1e-4."""
 
 import jax
 import numpy as np
@@ -159,8 +161,18 @@ def test_page_pressure_matches(weights):
     """A pool too small for every slot's full generation: capacity grants
     stop slots mid-chunk (paused and revived, or finished "length") in the
     same places on both engines."""
+    _page_pressure(weights)
+
+
+def test_page_pressure_inline_matches(weights):
+    """The same under the per-step paged decode, where a slot stopped
+    mid-chunk must write nothing for the rest of the chunk."""
+    _page_pressure(weights, decode_mode="inline")
+
+
+def _page_pressure(weights, **extra):
     js, ts, jp, tp = weights
-    kw = dict(ENGINE_KW, num_pages=9)
+    kw = dict(ENGINE_KW, num_pages=9, **extra)
     je = JEngine(js, params=jp, config=JCfg(attention_impl="xla", **kw))
     te = ContinuousEngine(ts, params=tp, config=EngineConfig(**kw),
                           device="cpu")
@@ -182,15 +194,20 @@ def test_page_pressure_matches(weights):
 def test_unported_features_raise():
     for kw in (dict(defer_sync=True), dict(stream_chunk_steps=2),
                dict(defer_admission=True), dict(max_waiting=4),
-               dict(queue_deadline_s=1.0), dict(decode_mode="inline"),
+               dict(queue_deadline_s=1.0),
                dict(kv_dtype="float8_e4m3fn"), dict(kv_offload=True),
                dict(spec_async=True), dict(timeline_capacity=16)):
         with pytest.raises(NotImplementedError):
             EngineConfig(**kw).check_supported()
-    for impl in ("pallas", "xla", "pallas-ragged_interpret",
-                 "pallas-decode_interpret"):
+    for impl in ("xla", "pallas-ragged_interpret", "pallas-decode_interpret",
+                 "pallas_interpret"):
         with pytest.raises(ValueError):
             EngineConfig(attention_impl=impl).check_supported()
+    # an unknown decode mode raises the JAX engine's ValueError
+    with pytest.raises(ValueError, match="is not 'window'"):
+        EngineConfig(decode_mode="scatter").check_supported()
+    for kw in (dict(decode_mode="inline"), dict(attention_impl="pallas")):
+        EngineConfig(**kw).check_supported()
 
 
 def _assert_same(got, want, n):
@@ -213,6 +230,29 @@ def test_decode_fw_matches_jax_engine(weights):
     waves = _waves()
     _assert_same(_drive(te, GenerationRequest, waves),
                  _drive(je, JReq, waves), 9)
+
+
+@pytest.mark.parametrize("label,jkw,tkw", [
+    ("inline", dict(decode_mode="inline"), dict(decode_mode="inline")),
+    ("pallas", dict(), dict(attention_impl="pallas")),
+    ("inline fused", dict(decode_mode="inline", decode_fused=True),
+     dict(decode_mode="inline", decode_fused=True))])
+def test_paged_attention_paths_match_jax_engine(weights, label, jkw, tkw):
+    """The paged-attention kernel's two routes (its plain version on the
+    CPU): the per-step paged decode (``decode_mode="inline"``, fused off
+    and on) and the window scheme with ``attention_impl="pallas"``. Both
+    emit the JAX engine's tokens (JAX on its XLA path)."""
+    js, ts, jp, tp = weights
+    je = JEngine(js, params=jp, config=JCfg(attention_impl="xla",
+                                            **dict(ENGINE_KW, **jkw)))
+    te = ContinuousEngine(ts, params=tp, config=EngineConfig(
+        **dict(ENGINE_KW, **tkw)), device="cpu")
+    waves = _waves()
+    _assert_same(_drive(te, GenerationRequest, waves),
+                 _drive(je, JReq, waves), 9)
+    m = te.get_metrics()
+    assert m["decode_mode"] == ("window" if label == "pallas" else "inline")
+    assert m["decode_steps"] > 0 and m["prefix_hit_admissions"] >= 1
 
 
 def _chunk_waves():

@@ -36,6 +36,10 @@ from distributed_inference_engine_tpu_torch.ops.flash_decode import (
 
 pytestmark = pytest.mark.torch_port
 
+
+def _t(a):
+    return tensor_from_numpy(a, "cpu")
+
 P, MP, W, DH = 16, 4, 4, 32
 # prefix lengths 0, 1, P-1, P, several pages, full table; side 0..W
 PREFIX = np.array([0, 1, P - 1, P, 2 * P + 7, MP * P], np.int32)
@@ -59,10 +63,10 @@ def _case(seed, h, hkv, n_layers=1, dtype="float32"):
 
 
 def _port(c, hkv, layer=None):
-    t = {k: tensor_from_numpy(v) for k, v in c.items() if k != "n"}
+    t = {k: _t(v) for k, v in c.items() if k != "n"}
     out = flash_decode_attention(
-        t["q"], t["kp"], t["vp"], t["table"], tensor_from_numpy(PREFIX),
-        t["sk"], t["sv"], tensor_from_numpy(N_SIDE), n_kv_heads=hkv,
+        t["q"], t["kp"], t["vp"], t["table"], _t(PREFIX),
+        t["sk"], t["sv"], _t(N_SIDE), n_kv_heads=hkv,
         layer=layer, n_pages_per_layer=c["n"])
     return tensor_to_numpy(out.float())
 
@@ -151,12 +155,12 @@ def test_fw_plain_matches_onehot_write_and_xla(h, hkv):
         *(jnp.asarray(a) for a in (c["q"], c["kp"], c["vp"], c["table"],
                                    PREFIX, sk_ref, sv_ref, n_side)),
         n_kv_heads=hkv))
-    t = {k: tensor_from_numpy(c[k]) for k in ("q", "kp", "vp", "sk", "sv")}
+    t = {k: _t(c[k]) for k in ("q", "kp", "vp", "sk", "sv")}
     out, sk, sv = flash_decode_attention_fw(
-        t["q"], t["kp"], t["vp"], tensor_from_numpy(c["table"]),
-        tensor_from_numpy(PREFIX), t["sk"], t["sv"], tensor_from_numpy(fk),
-        tensor_from_numpy(fv), tensor_from_numpy(SIDE_IDX),
-        tensor_from_numpy(ACTIVE), n_kv_heads=hkv, layer=0,
+        t["q"], t["kp"], t["vp"], _t(c["table"]),
+        _t(PREFIX), t["sk"], t["sv"], _t(fk),
+        _t(fv), _t(SIDE_IDX),
+        _t(ACTIVE), n_kv_heads=hkv, layer=0,
         n_pages_per_layer=c["n"])
     assert sk is t["sk"] and sv is t["sv"]          # written in place
     np.testing.assert_allclose(tensor_to_numpy(out), want, rtol=0,
@@ -196,11 +200,11 @@ def test_forward_decode_window_fw_matches_jax(tiny, fused):
         js, jp, *(jnp.asarray(a) for a in (toks, lengths, start, kp, vp,
                                            table, side[0], side[1], active)),
         attn_impl="xla", fused=fused)
-    tsk, tsv = tensor_from_numpy(side[0]), tensor_from_numpy(side[1])
+    tsk, tsv = _t(side[0]), _t(side[1])
     tx, _, _ = tb.forward_decode_window(
-        ts, tp, *(tensor_from_numpy(a) for a in (toks, lengths, start, kp,
+        ts, tp, *(_t(a) for a in (toks, lengths, start, kp,
                                                  vp, table)),
-        tsk, tsv, tensor_from_numpy(active), attn_impl="pallas-decode-fw",
+        tsk, tsv, _t(active), attn_impl="pallas-decode-fw",
         fused=fused)
     np.testing.assert_allclose(tensor_to_numpy(tx), np.asarray(jx), rtol=0,
                                atol=1e-4)

@@ -33,7 +33,7 @@ def _inputs(seed, dtype):
 
 
 def _t(a):
-    return tensor_from_numpy(np.asarray(a))
+    return tensor_from_numpy(np.asarray(a), "cpu")
 
 
 def _close(got, want, dtype):

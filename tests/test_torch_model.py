@@ -49,7 +49,7 @@ def tiny():
 
 
 def _t(a):
-    return tensor_from_numpy(np.asarray(a))
+    return tensor_from_numpy(np.asarray(a), "cpu")
 
 
 def _np(x):
@@ -163,7 +163,7 @@ def test_bf16_unembed_logits_are_fp32_accumulated():
     hidden = np.asarray(jnp.asarray(np.random.RandomState(8).randn(
         3, 5, 256), jnp.bfloat16))
     want = np.asarray(jb.unembed(js, tree, jnp.asarray(hidden)))
-    got = tb.unembed(ts, tp, tensor_from_numpy(hidden))
+    got = tb.unembed(ts, tp, tensor_from_numpy(hidden, "cpu"))
     assert got.dtype == torch.float32
     assert np.abs(want).max() > 4.0
     np.testing.assert_allclose(tensor_to_numpy(got), want, rtol=0,
@@ -232,8 +232,11 @@ def test_paged_kv_accounting_matches_jax():
 
 
 def test_unsupported_spec_features_raise():
-    for kw in (dict(n_experts=4), dict(sliding_window=8),
-               dict(pos_emb="learned"), dict(use_bias=True),
-               dict(norm="layernorm"), dict(logit_softcap=30.0)):
+    for kw in (dict(n_experts=4), dict(pos_emb="learned"),
+               dict(use_bias=True), dict(norm="layernorm"),
+               dict(logit_softcap=30.0)):
         with pytest.raises(NotImplementedError):
             tspec("llama-tiny", **kw)
+    with pytest.raises(ValueError):
+        tspec("llama-tiny", sliding_window=-1)
+    assert tspec("llama-tiny", sliding_window=8).sliding_window == 8

@@ -28,7 +28,7 @@ ATOL = 1e-5
 
 
 def _t(a):
-    return tensor_from_numpy(np.asarray(a))
+    return tensor_from_numpy(np.asarray(a), "cpu")
 
 
 def _np(x):

@@ -32,6 +32,10 @@ from distributed_inference_engine_tpu_torch.ops.ragged_attention import (
 
 pytestmark = pytest.mark.torch_port
 
+
+def _t(a):
+    return tensor_from_numpy(a, "cpu")
+
 P, MP, DH = 16, 4, 32
 # per row: (ctx_len, q_len). Row 0 a chunk from position 0, rows 1-2
 # decode at ctx P-1 and P, row 3 a chunk straddling a page, row 4 inert
@@ -70,10 +74,10 @@ def _written(table, n_pool_pages):
 
 
 def _port(c, hkv, layer=None):
-    t = {k: tensor_from_numpy(c[k]) for k in ("q", "fk", "fv", "kp", "vp")}
+    t = {k: _t(c[k]) for k in ("q", "fk", "fv", "kp", "vp")}
     out, kp, vp = ragged_attention(
-        t["q"], t["kp"], t["vp"], tensor_from_numpy(c["table"]),
-        tensor_from_numpy(CTX), tensor_from_numpy(QLEN), t["fk"], t["fv"],
+        t["q"], t["kp"], t["vp"], _t(c["table"]),
+        _t(CTX), _t(QLEN), t["fk"], t["fv"],
         n_kv_heads=hkv, layer=layer, n_pages_per_layer=c["n"])
     assert kp is t["kp"] and vp is t["vp"]          # written in place
     return (tensor_to_numpy(out.float()), tensor_to_numpy(kp),
@@ -161,10 +165,10 @@ def test_forward_mixed_step_matches_jax():
     h_ref, kp_ref, vp_ref = jb.forward_mixed_step(
         js, jp, *(jnp.asarray(a) for a in (tokens, ctx, qlens, kp, vp,
                                            table)), attn_impl="xla")
-    tkp, tvp = tensor_from_numpy(kp), tensor_from_numpy(vp)
+    tkp, tvp = _t(kp), _t(vp)
     h_got, kp_got, vp_got = tb.forward_mixed_step(
-        ts, tp, tensor_from_numpy(tokens), ctx, qlens, tkp, tvp,
-        tensor_from_numpy(table))
+        ts, tp, _t(tokens), ctx, qlens, tkp, tvp,
+        _t(table))
     assert kp_got is tkp and vp_got is tvp
     np.testing.assert_allclose(tensor_to_numpy(h_got), np.asarray(h_ref),
                                rtol=2e-4, atol=2e-4)
@@ -173,9 +177,9 @@ def test_forward_mixed_step_matches_jax():
     np.testing.assert_allclose(tensor_to_numpy(tvp), np.asarray(vp_ref),
                                rtol=1e-6, atol=1e-6)
     full, _, _ = tb.forward_mixed_step(
-        ts, tp, tensor_from_numpy(tokens), ctx, qlens,
-        tensor_from_numpy(kp), tensor_from_numpy(vp),
-        tensor_from_numpy(table), return_hidden_all=True)
+        ts, tp, _t(tokens), ctx, qlens,
+        _t(kp), _t(vp),
+        _t(table), return_hidden_all=True)
     assert tuple(full.shape) == (r, qmax, js.d_model)
     np.testing.assert_allclose(
         tensor_to_numpy(full)[np.arange(r), qlens - 1],

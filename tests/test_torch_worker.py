@@ -142,6 +142,9 @@ def test_frames_byte_identical_to_jax(obj):
     "attention_impl=pallas-decode,dtype=float32,quantized=false,seed=3",
     "name=llama3-8b,architecture=llama,size=llama3-8b,continuous=1,"
     "attention_impl=pallas-ragged,prefill_chunk=256,mixed_step_tokens=512",
+    "name=mistral-7b-v01,architecture=mistral,size=mistral-7b-v01,"
+    "continuous=1,attention_impl=pallas,max_seq_len=8192,prefill_chunk=512,"
+    "seed=0",
 ])
 def test_parse_model_arg_matches_jax(text):
     assert t_parse(text).to_dict() == j_parse(text).to_dict()
@@ -203,6 +206,49 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and "clean" in out.stdout, out.stderr
+
+
+async def test_port_worker_serves_mistral_tiny():
+    """``architecture=mistral,size=mistral-tiny`` through the port's worker
+    (its own factory, weights drawn from the seed on the CPU) and the JAX
+    client: prompts past the 64-token window, chunked on the split path,
+    decoded inline. The tokens are the JAX engine's on the same weights
+    (the port's tree bridged back through numpy)."""
+    from distributed_inference_engine_tpu.models.mistral import (
+        mistral_spec as jmistral)
+    from distributed_inference_engine_tpu_torch.bridge import (
+        params_to_numpy)
+
+    cfg = t_parse("name=mistral,architecture=mistral,size=mistral-tiny,"
+                  "continuous=1,dtype=float32,max_seq_len=256,page_size=16,"
+                  "num_pages=64,prefill_chunk=32,kv_dtype=float32,seed=0")
+    server = WorkerServer(ServerConfig(worker_id="tw1", port=0),
+                          device="cpu")
+    server.load_model(cfg)
+    eng = server.engines["mistral"]
+    tree = jax.tree_util.tree_map(np.asarray, params_to_numpy(eng.params))
+    js = jmistral("mistral-tiny", dtype="float32", max_seq_len=256)
+    jcfg = JCfg(attention_impl="xla", prefill_chunk=32, page_size=16,
+                num_pages=64, max_seq_len=256, kv_dtype="float32")
+    rs = np.random.RandomState(9)
+    prompts = [rs.randint(1, 1024, size=n).tolist() for n in (20, 90, 140)]
+    want = JEngine(js, params=tree, config=jcfg).generate(
+        [JReq(prompt=p, max_new_tokens=7) for p in prompts])
+    host, port = await server.start()
+    jc = JClient(host, port, timeout=60.0)
+    try:
+        outs = await asyncio.gather(*[
+            jc.generate("mistral", [JReq(prompt=p, max_new_tokens=7,
+                                         request_id=f"m{i}")])
+            for i, p in enumerate(prompts)])
+        for o, w in zip(outs, want):
+            assert o[0].tokens == w.tokens and len(w.tokens) == 7
+        m = (await jc.metrics())["models"]["mistral"]
+        assert m["decode_mode"] == "inline" and m["decode_steps"] > 0
+        assert m["chunked_admissions"] == 2
+    finally:
+        await jc.close()
+        await server.stop()
 
 
 def test_engine_from_config_runs_the_mixed_step():
