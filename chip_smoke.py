@@ -4,7 +4,8 @@
     python3 chip_smoke.py             # every phase (needs one card)
     python3 chip_smoke.py --profile   # ... plus profiles of the fused
                                       # and the inline Mistral decode and
-                                      # of the bf16 and int4 mixed steps
+                                      # of the bf16 and int4 mixed steps,
+                                      # and the int4 wgmma token tiles
 
 Phases, each failing loudly (any failure exits non-zero):
 
@@ -26,14 +27,16 @@ Phases, each failing loudly (any failure exits non-zero):
    - the GEMV pair (D=4096, F=14336);
    - the packed-int4 matmul at every Llama-3-8B int4 product (fused
      q|k|v, o, fused gate|up, down in bf16; the vocab-padded head with fp32
-     activations) at M = 1, 8, 10 and 2560 rows, and at two shapes off the
-     tiles; held per output column (``check_int4``); its library yardstick
-     is cuBLAS on the dequantized weight, which reads 4x (bf16) or 8x
-     (fp32) the packed bytes;
+     activations) at M = 1, 8, 10, 64, 512 and 2560 rows, and at two
+     shapes off the tiles; held per output column (``check_int4``), each
+     row naming the instance it ran (gemv, wgmma, wmma, simt); its library
+     yardstick is cuBLAS on the dequantized weight, which reads 4x (bf16)
+     or 8x (fp32) the packed bytes;
    - paged attention at the Mistral decode shapes (B=8, H=32, Hkv=8,
      Dh=128, P=128, MP=48, lengths 0-6,000 with one empty slot), windows
      0 and 4096, on one layer's pool and on the stacked pool (layer 5 of
-     32) with the flash stats m and l held too (``check_paged``).
+     32) with the flash stats m and l held too, and one 6,000-token slot
+     alone (B=1, window 4096, stacked) (``check_paged``).
    Attention kernels are also held per output row to max|out - ref32| /
    max|ref32| against the plain version on the same values in fp32. Each
    bound counts the valid work only (no query padding).
@@ -71,7 +74,8 @@ Phases, each failing loudly (any failure exits non-zero):
    ``quantized=1,weight_bits=4`` (int4 weights born from seed 0) and the
    mixed phase's two waves. Checks the results, 32 ragged launches per
    mixed step, 129 ``int4_matmul`` launches per forward (four per layer
-   and the LM head) and no fused decode GEMV. Then in this process, on the
+   and the LM head), the wgmma instance's launches (the mixed steps and
+   the admission prefills) and no wmma one, and no fused decode GEMV. Then in this process, on the
    same weights: the served chain teacher-forced (bf16 band); a
    ``decode_fused=True`` engine launching no fused GEMV and 129 int4
    launches per forward; the int4 mixed steps' time; a bf16 int8 engine
@@ -151,10 +155,16 @@ INT4_SHAPES = [("w_qkv", D_MODEL // 2, 6144, "bfloat16"),
                ("w_gate_up", D_MODEL // 2, 2 * D_FF, "bfloat16"),
                ("w_down", D_FF // 2, D_MODEL, "bfloat16"),
                ("lm_head", D_MODEL // 2, 129024, "float32")]
-# decode slots, the mixed step's unembed rows, the mixed step's lattice
-INT4_ROWS = (1, 8, 10, 2560)
+# decode slots, the mixed step's unembed rows, the wgmma instance's
+# 64-token tile (a small mixed step) and a 512-row admission prefill, the
+# mixed step's lattice
+INT4_ROWS = (1, 8, 10, 64, 512, 2560)
 # the kernels line's int4 row: gate|up at the 8 decode rows
 INT4_MAIN = 2 * len(INT4_ROWS) + 1
+# --profile: the wgmma instance's token tiles, timed at these rows (small
+# mixed steps, admission prefills of 200 to 900 rows, the lattice)
+WGMMA_TILES = (64, 128, 256)
+INT4_TILE_ROWS = (64, 200, 320, 512, 900, 2560)
 # off the tiles and the vector widths: the tensor-core and GEMV instances
 INT4_EDGES = [("edges", 37, 2000, 4100, "bfloat16"),
               ("edges", 5, 2000, 4100, "float32")]
@@ -538,7 +548,8 @@ def check_ragged(torch):
 def check_paged(torch):
     """Paged attention at the Mistral decode shapes against its plain
     version: windows 0 and 4096, on one layer's pool and on the stacked
-    pool (layer 5 of 32, with the flash stats), bf16 and fp32. Held per
+    pool (layer 5 of 32, with the flash stats), bf16 and fp32, then the
+    6,000-token slot alone (B=1, bf16, window 4096, stacked). Held per
     output row to max|out - ref32| / max|ref32| (ref32: the plain version
     on the same values widened to fp32) and elementwise to the dtype's
     tolerance; m and l to ``STATS_TOL`` of the fp32 plain stats. Timed on
@@ -552,105 +563,112 @@ def check_paged(torch):
     g = torch.Generator(device="cuda").manual_seed(8)
     n = B * MP_PAGED
     i32 = dict(dtype=torch.int32, device="cuda")
-    lens = torch.tensor(PAGED_LENS, **i32)
-    table = torch.randperm(n, generator=g, device="cuda").reshape(
+    table_all = torch.randperm(n, generator=g, device="cuda").reshape(
         B, MP_PAGED).to(torch.int32).contiguous()
     pos = torch.arange(MP_PAGED * P, device="cuda")[None, :]
+
+    def one(dtype_name, q, kp, vp, table, lens_list, window, stacked):
+        item = torch.finfo(q.dtype).bits // 8
+        b = len(lens_list)
+        lens = torch.tensor(lens_list, **i32)
+        lo = PAGED_LAYER * n
+        one_pool = (kp[lo:lo + n], vp[lo:lo + n])
+        pools = (kp, vp) if stacked else one_pool
+        kw = dict(n_kv_heads=HKV, window=window, with_stats=stacked)
+        if stacked:
+            kw.update(layer=PAGED_LAYER, n_pages_per_layer=n)
+        got = pa.paged_attention(q, *pools, table, lens, **kw)
+        torch.cuda.synchronize()
+        ref = pa.paged_attention_xla(q, *pools, table, lens, **kw)
+        ref32 = pa.paged_attention_xla(
+            q.float(), *(t.float() for t in one_pool), table, lens,
+            **dict(kw, with_stats=True, layer=None, n_pages_per_layer=0))
+        out = got[0] if stacked else got
+        ref_out = ref[0] if stacked else ref
+        err = max_err(torch, out, ref_out)
+        row_err = (out.float() - ref32[0]).abs().amax(-1)
+        row_ref = ref32[0].abs().amax(-1)
+        live = row_ref > 0
+        row_rel = float((row_err[live] / row_ref[live]).max())
+        ok = (within(torch, out, ref_out, dtype_name)
+              and row_rel <= ROW_REL_TOL[dtype_name])
+        assert torch.isfinite(out).all(), "paged_attention: non-finite"
+        empty = [i for i, x in enumerate(lens_list) if x == 0]
+        for i in empty:
+            assert float(out[i].abs().max()) == 0.0, \
+                "paged_attention: empty slot not zero"
+        assert int(live.sum()) == (b - len(empty)) * H, \
+            "paged_attention: rows"
+        stats_rel = None
+        if stacked:
+            _, m, l = got
+            _, m32, l32 = ref32
+            has = l32 > 0
+            stats_rel = max(
+                float(((m - m32).abs()[has] / m32.abs()[has]
+                       .clamp_min(1.0)).max()),
+                float(((l - l32).abs() / l32.clamp_min(1.0)).max()))
+            ok = ok and stats_rel <= STATS_TOL and all(
+                float(l[i].abs().max()) == 0.0 for i in empty)
+        if window:
+            keys = sum(min(x, window) for x in lens_list)
+            vis = (pos < lens[:, None]) & (pos >= lens[:, None] - window)
+        else:
+            keys = sum(lens_list)
+            vis = pos < lens[:, None]
+
+        def call(fn, i):
+            # the stacked pool rotates over its 32 layers (cold L2)
+            kwi = dict(kw, layer=i % PAGED_LAYERS) if stacked else kw
+            return fn(q, *pools, table, lens, **kwi)
+
+        t_k = time_ms(torch, lambda i: call(pa.paged_attention, i),
+                      lambda i: (i,))
+        t_p = time_ms(torch, lambda i: call(pa.paged_attention_xla, i),
+                      lambda i: (i,), reps=3, per_rep=3)
+        idx = lo + table.long()
+        kg = kp[idx].reshape(b, MP_PAGED * P, HKV, DH).transpose(
+            1, 2).contiguous()
+        vg = vp[idx].reshape(b, MP_PAGED * P, HKV, DH).transpose(
+            1, 2).contiguous()
+        q4 = q[:, :, None, :]
+        mask = vis[:, None, None, :]
+        t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, kg, vg, attn_mask=mask, enable_gqa=True), lambda i: ())
+        del kg, vg
+        # the live window's K/V read once, q and out (and the stats), the
+        # table and lengths
+        nbytes = (2 * keys * HKV * DH + 2 * b * H * DH) * item + \
+            (table.numel() + b) * 4 + (8 * b * H if stacked else 0)
+        b_ms, b_by = bound_ms(nbytes, 4.0 * keys * H * DH, dtype_name)
+        row = dict(dtype=dtype_name, err=err, ok=ok, ms=t_k, plain_ms=t_p,
+                   library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                   row_rel=row_rel, window=window, stacked=stacked,
+                   shape=f"B{b} H{H} Hkv{HKV} Dh{DH} P{P} MP{MP_PAGED} "
+                   f"win{window} {'L5/32+stats' if stacked else 'layer'} "
+                   f"keys{keys}")
+        if stats_rel is not None:
+            row["stats_rel"] = stats_rel
+        return row
+
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
-        item = torch.finfo(dt).bits // 8
         shape = (PAGED_LAYERS * n, P, HKV * DH)
         kp = torch.randn(shape, generator=g, device="cuda", dtype=dt)
         vp = torch.randn(shape, generator=g, device="cuda", dtype=dt)
         q = torch.randn((B, H, DH), generator=g, device="cuda", dtype=dt)
-        lo = PAGED_LAYER * n
-        one = (kp[lo:lo + n], vp[lo:lo + n])
         for window in (0, MISTRAL_WINDOW):
             for stacked in (False, True):
-                pools = (kp, vp) if stacked else one
-                kw = dict(n_kv_heads=HKV, window=window, with_stats=stacked)
-                if stacked:
-                    kw.update(layer=PAGED_LAYER, n_pages_per_layer=n)
-                got = pa.paged_attention(q, *pools, table, lens, **kw)
-                torch.cuda.synchronize()
-                ref = pa.paged_attention_xla(q, *pools, table, lens, **kw)
-                ref32 = pa.paged_attention_xla(
-                    q.float(), *(t.float() for t in one), table, lens,
-                    **dict(kw, with_stats=True, layer=None,
-                           n_pages_per_layer=0))
-                out = got[0] if stacked else got
-                ref_out = ref[0] if stacked else ref
-                err = max_err(torch, out, ref_out)
-                row_err = (out.float() - ref32[0]).abs().amax(-1)
-                row_ref = ref32[0].abs().amax(-1)
-                live = row_ref > 0
-                row_rel = float((row_err[live] / row_ref[live]).max())
-                ok = (within(torch, out, ref_out, dtype_name)
-                      and row_rel <= ROW_REL_TOL[dtype_name])
-                assert torch.isfinite(out).all(), "paged_attention: non-finite"
-                assert float(out[0].abs().max()) == 0.0, \
-                    "paged_attention: empty slot not zero"
-                assert int(live.sum()) == (B - 1) * H, "paged_attention: rows"
-                stats_rel = None
-                if stacked:
-                    _, m, l = got
-                    _, m32, l32 = ref32
-                    has = l32 > 0
-                    stats_rel = max(
-                        float(((m - m32).abs()[has] / m32.abs()[has]
-                               .clamp_min(1.0)).max()),
-                        float(((l - l32).abs() / l32.clamp_min(1.0)).max()))
-                    ok = ok and stats_rel <= STATS_TOL and \
-                        float(l[0].abs().max()) == 0.0
-                if window:
-                    keys = sum(min(x, window) for x in PAGED_LENS)
-                    vis = ((pos < lens[:, None])
-                           & (pos >= lens[:, None] - window))
-                else:
-                    keys = sum(PAGED_LENS)
-                    vis = pos < lens[:, None]
-
-                def call(fn, i, pools=pools, kw=kw, stacked=stacked):
-                    # the stacked pool rotates over its 32 layers (cold L2)
-                    if stacked:
-                        kw = dict(kw, layer=i % PAGED_LAYERS)
-                    return fn(q, *pools, table, lens, **kw)
-
-                t_k = time_ms(torch, lambda i: call(pa.paged_attention, i),
-                              lambda i: (i,))
-                t_p = time_ms(torch,
-                              lambda i: call(pa.paged_attention_xla, i),
-                              lambda i: (i,), reps=3, per_rep=3)
-                idx = lo + table.long()
-                kg = kp[idx].reshape(B, MP_PAGED * P, HKV, DH).transpose(
-                    1, 2).contiguous()
-                vg = vp[idx].reshape(B, MP_PAGED * P, HKV, DH).transpose(
-                    1, 2).contiguous()
-                q4 = q[:, :, None, :]
-                mask = vis[:, None, None, :]
-                t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    q4, kg, vg, attn_mask=mask, enable_gqa=True),
-                    lambda i: ())
-                del kg, vg
-                # the live window's K/V read once, q and out (and the
-                # stats), the table and lengths
-                nbytes = (2 * keys * HKV * DH + 2 * B * H * DH) * item + \
-                    (table.numel() + B) * 4 + (8 * B * H if stacked else 0)
-                b_ms, b_by = bound_ms(nbytes, 4.0 * keys * H * DH,
-                                      dtype_name)
-                row = dict(dtype=dtype_name, err=err, ok=ok, ms=t_k,
-                           plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                           bound_by=b_by, row_rel=row_rel, window=window,
-                           stacked=stacked,
-                           shape=f"B{B} H{H} Hkv{HKV} Dh{DH} P{P} "
-                           f"MP{MP_PAGED} win{window} "
-                           f"{'L5/32+stats' if stacked else 'layer'} "
-                           f"keys{keys}")
-                if stats_rel is not None:
-                    row["stats_rel"] = stats_rel
-                rows.append(row)
+                rows.append(one(dtype_name, q, kp, vp, table_all,
+                                PAGED_LENS, window, stacked))
+        if dtype_name == "bfloat16":
+            b1 = PAGED_LENS.index(max(PAGED_LENS))
+            long_row = one(dtype_name, q[b1:b1 + 1].contiguous(), kp, vp,
+                           table_all[b1:b1 + 1].contiguous(),
+                           [PAGED_LENS[b1]], MISTRAL_WINDOW, True)
         del kp, vp
         torch.cuda.empty_cache()
+    rows.append(long_row)
     return rows
 
 
@@ -732,6 +750,7 @@ def check_int4(torch):
     0, where the fp32 summation order alone moves the relative error.
     Library yardstick: cuBLAS ``torch.mm`` on the weight dequantized to
     x's dtype, which reads 4x (bf16) or 8x (fp32) the packed bytes."""
+    from distributed_inference_engine_tpu_torch.ops import _cuda
     from distributed_inference_engine_tpu_torch.ops import int4_matmul as i4
 
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -747,8 +766,11 @@ def check_int4(torch):
                                device="cuda", dtype=torch.int8)
                  for _ in range(n_copies)]
         scale = 0.002 + 0.01 * torch.rand((n,), generator=g, device="cuda")
+        inst = i4.int4_instance(m, k2, n, dt, True)
+        before = _cuda.LAUNCHES[f"int4_matmul.{inst}"]
         out = i4.int4_matmul(x, packs[0], scale)
         torch.cuda.synchronize()
+        assert _cuda.LAUNCHES[f"int4_matmul.{inst}"] == before + 1, inst
         ref = i4.int4_matmul_plain(x, packs[0], scale)
         ref32 = i4.int4_matmul_plain(x.float(), packs[0], scale)
         err = max_err(torch, out, ref)
@@ -784,9 +806,57 @@ def check_int4(torch):
                          plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                          bound_by=b_by, col_rel=col_rel,
                          col_rel_mag=col_rel_mag,
-                         shape=f"{name} M{m} K/2={k2} N{n}"))
+                         shape=f"{name} M{m} K/2={k2} N{n} {inst}"))
     torch.cuda.empty_cache()
     return rows
+
+
+def profile_int4_tiles(torch, card: str) -> None:
+    """``--profile``: the wgmma instance at each of its token tiles (the
+    wrapper's ``wgmma_tile`` replaced here only) beside the tile that rule
+    picks and cuBLAS on the dequantized weight, at the bf16 Llama-3-8B
+    shapes and ``INT4_TILE_ROWS``; every tile held per column to
+    ``COL_REL_TOL``."""
+    from distributed_inference_engine_tpu_torch.ops import int4_matmul as i4
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rule = i4.wgmma_tile
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    try:
+        for name, k2, n, dtype_name in INT4_SHAPES:
+            if dtype_name != "bfloat16":
+                continue
+            packs = [torch.randint(-128, 128, (k2, n), generator=g,
+                                   device="cuda", dtype=torch.int8)
+                     for _ in range(copies_for(k2 * n, limit=4))]
+            scale = 0.002 + 0.01 * torch.rand((n,), generator=g, device="cuda")
+            w = torch.cat(i4.unpack_int4(packs[0]), 0).bfloat16() * \
+                scale.bfloat16()
+            for m in INT4_TILE_ROWS:
+                x = torch.randn((m, 2 * k2), generator=g,
+                                device="cuda").bfloat16()
+                ref32 = i4.int4_matmul_plain(x.float(), packs[0], scale)
+                times = []
+                for tile in WGMMA_TILES:
+                    i4.wgmma_tile = lambda *a, t=tile: t
+                    out = i4.int4_matmul(x, packs[0], scale)
+                    col_rel = float(((out.float() - ref32).abs().amax(0)
+                                     / ref32.abs().amax(0).clamp_min(1e-30))
+                                    .max())
+                    assert col_rel <= COL_REL_TOL["bfloat16"], \
+                        (name, m, tile, col_rel)
+                    times.append(time_ms(torch, i4.int4_matmul, lambda i: (
+                        x, packs[i % len(packs)], scale)))
+                i4.wgmma_tile = rule
+                t_l = time_ms(torch, lambda: torch.mm(x, w), lambda i: ())
+                log(f"[profile] int4 tiles: {name} M{m} N{n}: " + ", ".join(
+                    f"{t} tokens {ms:.4f}" for t, ms in zip(WGMMA_TILES, times))
+                    + f" ms; the rule picks {rule(m, n, sms)}; cuBLAS "
+                    f"{t_l:.4f} ms [{card}]")
+            del packs, w
+    finally:
+        i4.wgmma_tile = rule
+    torch.cuda.empty_cache()
 
 
 def phase_kernels(torch, card: str):
@@ -1446,6 +1516,15 @@ def phase_int4(torch, card: str):
     forwards = eng["prefill_calls"] + decode_steps + eng["mixed_steps"]
     assert launches["int4_matmul"] == INT4_PER_FORWARD * forwards, \
         (launches, eng["prefill_calls"], decode_steps, eng["mixed_steps"])
+    # by instance: every projection of a mixed step (hundreds of lattice
+    # rows) and of an admission prefill takes the wgmma instance; decode
+    # (8 rows) and the head take the GEMV; no Llama-3-8B shape needs wmma
+    inst = {k.split(".", 1)[1]: v for k, v in launches.items()
+            if k.startswith("int4_matmul.")}
+    assert sum(inst.values()) == launches["int4_matmul"], launches
+    per_step = (INT4_PER_FORWARD - 1) * eng["mixed_steps"]
+    assert inst.get("wgmma", 0) > per_step and not inst.get("wmma"), \
+        (inst, eng["mixed_steps"], eng["prefill_calls"])
     log(f"[int4] {served_line(results[0] + results[1], wall)}; mixed steps "
         f"{eng['mixed_steps']} carrying {eng['mixed_prefill_tokens']} "
         f"prefill tokens; chunked admissions {eng['chunked_admissions']}; "
@@ -1600,9 +1679,10 @@ def fp32_chains(torch, card: str, spec32, params, prompts, cont, label: str):
 
 
 def report_profile(prof, wall: float, steps: int, label: str,
-                   card: str) -> None:
+                   card: str, share_of: str = "") -> None:
     """Wall per step, the device-busy share and the device time by kernel
-    of a ``torch.profiler`` window over ``steps`` steps."""
+    of a ``torch.profiler`` window over ``steps`` steps; with ``share_of``,
+    also the share of device time of the kernels whose name holds it."""
     def dev_us(e):
         t = getattr(e, "self_device_time_total", None)
         return t if t is not None else e.self_cuda_time_total
@@ -1618,6 +1698,12 @@ def report_profile(prof, wall: float, steps: int, label: str,
         log(f"[profile] {label}: {dev_us(e) / 1e3 / steps:9.3f} ms/step "
             f"{100 * dev_us(e) / 1e6 / busy:5.1f}% of device  "
             f"x{e.count / steps:<6.1f}/step {e.key[:90]}")
+    if share_of:
+        mine = [e for e in events if share_of in e.key]
+        t = sum(dev_us(e) for e in mine) / 1e6
+        log(f"[profile] {label}: {share_of} {t * 1e3 / steps:.3f} ms/step = "
+            f"{100 * t / busy:.1f}% of device time, "
+            f"x{sum(e.count for e in mine) / steps:.1f}/step [{card}]")
 
 
 def profile_decode(torch, engine, prompts, card: str) -> None:
@@ -1688,7 +1774,8 @@ def profile_mixed(torch, spec, params, prompts, card: str,
     tokens = after["mixed_prefill_tokens"] - before["mixed_prefill_tokens"]
     log(f"[profile] {label}: {tokens} prefill tokens over {steps} mixed "
         f"steps")
-    report_profile(prof, wall, steps, label, card)
+    report_profile(prof, wall, steps, label, card,
+                   share_of="int4_wgmma_kernel" if "int4" in label else "")
     del engine
 
 
@@ -1700,7 +1787,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile two decode chunks of the fused engine "
                     "and of the inline Mistral engine, and the bf16 and "
-                    "int4 mixed steps")
+                    "int4 mixed steps, and time the int4 wgmma token tiles")
     args = ap.parse_args()
 
     import torch
@@ -1738,6 +1825,8 @@ def main() -> int:
 
     kern = phase_kernels(torch, card)
     torch.cuda.empty_cache()
+    if args.profile:
+        profile_int4_tiles(torch, card)
     prompts, results, serve_launch = phase_serve(torch, card)
     mixed_wave, mixed_launch = phase_mixed(torch, card)
     fused_launch, fw_launch = phase_fused(torch, card, prompts, results,

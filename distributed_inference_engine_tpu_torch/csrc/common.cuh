@@ -156,4 +156,63 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// ------------------------------------------------ flash partials (split KV)
+//
+// A partial softmax state over a subset of the keys: m, the max of the
+// scaled scores (-1e30 when the subset is empty), l = sum exp(s - m), and
+// acc = sum exp(s - m) v, not yet divided by l. Two states over disjoint
+// key sets merge exactly; an empty state (l = 0, acc = 0) has weight 0.
+
+// Merge another state (mo, lo, acco) into (m, l, acc).
+template <int N>
+__device__ __forceinline__ void merge_state(float& m, float& l,
+                                            float (&acc)[N], float mo,
+                                            float lo, const float (&acco)[N]) {
+  const float mx = fmaxf(m, mo);
+  const float a = expf(m - mx);
+  const float c = expf(mo - mx);
+  l = l * a + lo * c;
+#pragma unroll
+  for (int e = 0; e < N; ++e) acc[e] = acc[e] * a + acco[e] * c;
+  m = mx;
+}
+
+// Workspace of the split-KV attention kernels: for each output row r (a
+// (slot, query head) pair) and split s, m at m[r * n_split + s], l at
+// l[r * n_split + s], and the unnormalised acc at acc[(r * n_split + s) * dh
+// + d]. One fp32 buffer of rows * n_split * (dh + 2) values.
+struct SplitPartials {
+  float* m;
+  float* l;
+  float* acc;
+  int n_split;
+  int dh;
+
+  __device__ __host__ SplitPartials(float* ws, long long rows, int n_split_,
+                                    int dh_)
+      : m(ws + rows * n_split_ * dh_),
+        l(ws + rows * n_split_ * dh_ + rows * n_split_),
+        acc(ws),
+        n_split(n_split_),
+        dh(dh_) {}
+};
+
+// The merged (m, l, acc[d]) of row r over its n_split partials: the
+// softmax over the union of the splits' keys, as one pass would give it.
+__device__ __forceinline__ void merge_split_row(const SplitPartials& p,
+                                                long long r, int d, float& m,
+                                                float& l, float& acc) {
+  const long long base = r * p.n_split;
+  float mx = -1e30f;
+  for (int s = 0; s < p.n_split; ++s) mx = fmaxf(mx, p.m[base + s]);
+  l = 0.f;
+  acc = 0.f;
+  for (int s = 0; s < p.n_split; ++s) {
+    const float w = expf(p.m[base + s] - mx);
+    l += p.l[base + s] * w;
+    acc += p.acc[(base + s) * p.dh + d] * w;
+  }
+  m = mx;
+}
+
 }  // namespace die

@@ -18,43 +18,68 @@
 //   - small M (decode: 8 slots; the LM head: at most a few rows, fp32 x):
 //     bound by the packed weight bytes, half a byte per weight;
 //   - large M (admission prefill, the mixed step's [R, Qmax] lattice: up to
-//     thousands of rows): bound by arithmetic, 2 * M * K * N operations.
-// So there are three instances, chosen by the host entry point:
-//   1. M <= 16, any dtype: a GEMV. A block owns 256 output columns (32 lanes
-//      x 8 adjacent columns, one 8-byte load per lane per packed row,
-//      coalesced along N) and a chunk of the contraction; its 8 warps take
-//      interleaved packed rows of the chunk and are summed in shared memory
-//      at the end. The activations of the chunk sit in shared memory as
-//      fp32, so every weight byte loaded feeds all M rows from registers.
-//      The contraction is split over enough blocks to fill the card
-//      (split-K, fp32 partials summed by a second kernel, which applies the
-//      scale), as csrc/fused_decode.cu does.
-//   2. M > 16, bf16: tensor cores, in the simplest form that is right. A
-//      block computes a 128 x 128 tile of y with 8 warps (nvcuda::wmma bf16
-//      16x16x16 fragments, fp32 accumulators). Per step it unpacks a 32 x 128
-//      packed tile into lo and hi bf16 tiles in shared memory (the nibbles
-//      are small integers, exact in bf16) beside the matching x[:, :K/2] and
-//      x[:, K/2:] tiles; the next step's global loads are issued into
-//      registers before the current step's products. No TMA, no wgmma, no
-//      multi-stage pipeline yet.
-//   3. M > 16, fp32 (the fp32 parity engines only): the same tiling on CUDA
-//      cores, a 64 x 64 tile per block, 4 x 4 outputs per thread.
+//     thousands of rows): bound by arithmetic, 2 * M * K * N operations,
+//     which only the tensor cores' wgmma reaches at full rate.
+// So there are four instances. The wrapper (ops/int4_matmul.py,
+// int4_instance) picks one from the shapes, the dtype and the pointers'
+// 16-byte alignment alone, and names it here; this entry point checks
+// that the instance takes the call and never falls back:
+//   gemv  (M <= 16, any dtype): a block owns 256 output columns (32 lanes x
+//         8 adjacent columns, one 8-byte load per lane per packed row,
+//         coalesced along N) and a chunk of the contraction; its 8 warps
+//         take interleaved packed rows of the chunk and are summed in
+//         shared memory at the end. The activations of the chunk sit in
+//         shared memory as fp32, so every weight byte loaded feeds all M
+//         rows from registers. The contraction is split over enough blocks
+//         to fill the card (split-K, fp32 partials summed by a second
+//         kernel, which applies the scale), as csrc/fused_decode.cu does.
+//   wgmma (M > 16, bf16, K/2 % 8 == 0, N % 16 == 0, x and P 16-byte
+//         aligned: every Llama-3-8B projection): TMA loads into a
+//         shared-memory ring tracked by mbarriers, one producer thread;
+//         two consumer warpgroups unpack the packed tile straight into
+//         wgmma A fragments in registers (the weights are the 64-row
+//         operand, the tokens wgmma's N) and accumulate in fp32 registers
+//         (see the section below). 128 columns by 64, 128 or 256 tokens
+//         (ops/int4_matmul.py, wgmma_tile). Swapping the operands keeps the
+//         unpacked weights out of shared memory: no unpacked-tile stores,
+//         no proxy fence and no barrier between the consumers, and the
+//         token count, which is small for most calls, only has to fill
+//         wgmma's N (a multiple of 8) instead of its 64-row M.
+//   wmma  (M > 16, bf16, the shapes TMA cannot address): 128 x 128 tiles
+//         with 8 warps of nvcuda::wmma 16x16x16 fragments, the packed tile
+//         unpacked into shared memory beside the x tiles, the next step's
+//         global loads in registers during the products; every load
+//         element-wise and bounds-checked.
+//   simt  (M > 16, fp32, the fp32 parity engines only): the same tiling on
+//         CUDA cores, a 64 x 64 tile per block, 4 x 4 outputs per thread.
 //
 // Unpacking. A nibble of signed value v has unsigned bits u = v & 15, and
 // u ^ 8 = v + 8 for every v in [-8, 7]. So the kernels flip bit 3 of every
 // nibble once per 32-bit word (x ^ 0x88888888) and rebuild the value from
 // float bits: fp32 0x4B000000 | (v + 8) is 2^23 + v + 8; bf16 0x4300 |
-// (v + 8) is 128 + v + 8. One subtraction then gives v exactly.
+// (v + 8) is 128 + v + 8. One subtraction then gives v exactly. A zero
+// byte (TMA's fill past an edge) unpacks to weight 0.
 //
-// Edges. Every edge is bounds-checked: any M, any N, any K/2. Vector loads
-// are used where the host entry point finds the shapes and pointers aligned
-// for them; otherwise the same kernels load element by element.
+// Left: the wgmma instance is not persistent (a block's epilogue does not
+// overlap the next tile's loads), spends the consumers' issue slots on the
+// unpack (about 2.5 integer operations per weight beside each wgmma: the
+// likeliest cause of the gap to the operations bound at large M, not yet
+// measured apart), and at M <= 64 with N = 4096 runs 32 blocks on 132 SMs
+// (no split-K yet). The GEMV and simt instances are as in their first
+// version.
+#include <cuda.h>
 #include <mma.h>
 
 #include "common.cuh"
 
 namespace die {
 namespace {
+
+// instance codes shared with the wrapper (ops/int4_matmul.py INSTANCES)
+constexpr int kInstGemv = 0;
+constexpr int kInstWgmma = 1;
+constexpr int kInstWmma = 2;
+constexpr int kInstSimt = 3;
 
 // ------------------------------------------------------------- unpacking
 
@@ -224,7 +249,513 @@ cudaError_t gemv_by_rows(const T* x, const int8_t* p, const float* s,
   return cudaGetLastError();
 }
 
-// ------------------------------------------- large M, bf16: tensor cores
+// ------------------------------- M > 16, bf16, TMA-addressable: wgmma
+//
+// Operands swapped: the weights are wgmma's 64-row A operand, unpacked
+// straight into registers, and the tokens are its N, so that y^T [N, M] =
+// W^T [N, K] x^T [K, M] is summed in fp32 registers and no unpacked weight
+// passes through shared memory. A block computes 128 output columns (two
+// consumer warpgroups of 64) by NT tokens (64, 128 or 256), with one
+// producer warpgroup of which one thread issues the loads. Per k-step of
+// kWgBK packed rows a stage of the shared-memory ring holds three TMA
+// tiles: x[m0:, kb:kb+64] (lo half) and x[m0:, K/2+kb:...] (hi half), both
+// from one 3-D tensor map over x seen as [M][2][K/2] with the 128-byte
+// swizzle a K-major wgmma B operand takes, and the packed bytes
+// [kb:kb+64, n0:n0+128]. TMA zero-fills the M, N and K/2 edges; a zero byte
+// unpacks to weight 0, so the loop has no bounds check. Each consumer
+// unpacks its own fragments of the stage (four 2-byte loads and 16 bf16
+// pairs per k16 step) and issues 8 wgmma (4 k16 steps for each half); the
+// fragments are double-buffered in registers, so step k's unpack runs while
+// step k - 1's wgmma are in flight, and the warpgroups never wait for each
+// other.
+
+constexpr int kWgBN = 128;       // output columns per block
+constexpr int kWgBK = 64;        // packed rows per stage (128 bytes of x)
+constexpr int kWgPTile = kWgBN * kWgBK;       // packed bytes
+
+template <int NT>
+struct WgLayout {
+  static constexpr int kXTile = NT * kWgBK * 2;           // one half, bytes
+  static constexpr int kStage = 2 * kXTile + kWgPTile;    // TMA bytes
+  static constexpr int kFit = 216 * 1024 / kStage;
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static constexpr int kBar = kStages * kStage;
+  static constexpr int kBytes = kBar + 2 * kStages * 8 + 1024;  // + align
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma descriptor of a K-major tile with the 128-byte swizzle: rows of 128
+// bytes, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return ((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// wait for the completion of the barrier's phase of parity `parity`; a
+// wait that has not ended after ~2^34 cycles (seconds) is a fault, and
+// traps rather than hold the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[N / 2] += A (64 x 16 bf16, in registers: the per-warp layout of
+// mma.m16n8k16's A fragment, warp w holding rows 16 w .. 16 w + 15) x B (16 x
+// N, K-major, 128-byte swizzle, through a descriptor); one warpgroup,
+// asynchronous until wgmma.wait_group, which the A registers must outlive
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// bf16 pair (as its 32 bits) of the biased nibbles at bits [0, 4) and
+// [16, 20) of t: the unpack of nib_pair_bf16 for words whose bytes are
+// laid out so that both nibbles of a pair sit in one 16-bit lane
+__device__ __forceinline__ unsigned int nib_lanes_bf16(unsigned int t) {
+  union {
+    unsigned int u;
+    __nv_bfloat162 h;
+  } v;
+  v.u = (t & 0x000F000Fu) | 0x43004300u;  // 128 + v + 8
+  v.h = __hsub2(v.h, __floats2bfloat162_rn(136.0f, 136.0f));
+  return v.u;
+}
+
+// The packed tile [64 k][128 n] arrives by TMA with the 128-byte swizzle
+// (16-byte chunk j of row k stored at chunk j ^ (k & 7)), so that the
+// fragment loads below, four rows apart in k, hit distinct banks.
+__device__ __forceinline__ unsigned int packed_pair(const unsigned char* pt,
+                                                    int k, int nrow) {
+  return *reinterpret_cast<const unsigned short*>(
+      pt + k * 128 + ((((nrow >> 4) ^ (k & 7))) << 4) + (nrow & 15));
+}
+
+// The A fragments of one stage for the thread whose fragment rows are
+// weight columns nrow and nrow + 1 (q = lane / 4) and whose fragment
+// columns are k = 2c, 2c + 1, 2c + 8, 2c + 9 (c = lane % 4) of each k16
+// step: fr[kk] the lo weights of step kk, fr[4 + kk] the hi ones. Two bytes
+// (columns nrow, nrow + 1) of packed rows k and k + 1 make one word
+// [k n, k n+1, k+1 n, k+1 n+1]; its lo nibbles at bits 0 and 16 are the
+// bf16 pair of column nrow, at bits 8 and 24 that of nrow + 1, and the hi
+// nibbles four bits up.
+__device__ __forceinline__ void unpack_fragments(const unsigned char* pt,
+                                                 int nrow, int c,
+                                                 uint32_t (&fr)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kWgBK / 16; ++kk) {
+    const int k0 = kk * 16 + 2 * c;
+    const unsigned int t01 = (packed_pair(pt, k0, nrow) |
+                              (packed_pair(pt, k0 + 1, nrow) << 16)) ^
+                             0x88888888u;
+    const unsigned int t89 = (packed_pair(pt, k0 + 8, nrow) |
+                              (packed_pair(pt, k0 + 9, nrow) << 16)) ^
+                             0x88888888u;
+    fr[kk][0] = nib_lanes_bf16(t01);
+    fr[kk][1] = nib_lanes_bf16(t01 >> 8);
+    fr[kk][2] = nib_lanes_bf16(t89);
+    fr[kk][3] = nib_lanes_bf16(t89 >> 8);
+    fr[4 + kk][0] = nib_lanes_bf16(t01 >> 4);
+    fr[4 + kk][1] = nib_lanes_bf16(t01 >> 12);
+    fr[4 + kk][2] = nib_lanes_bf16(t89 >> 4);
+    fr[4 + kk][3] = nib_lanes_bf16(t89 >> 12);
+  }
+}
+
+// keeps A fragment registers live (and in place) until the wgmma that
+// read them has been waited for
+__device__ __forceinline__ void fence_fragments(uint32_t (&fr)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(fr[i][j])::"memory");
+}
+
+// 384 threads, one block per SM: ptxas gives each thread 168 registers,
+// which setmaxnreg moves from the producer warpgroup (40) to the two
+// consumer warpgroups (232)
+template <int NT>
+__global__ void __launch_bounds__(384, 1)
+    int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap pmap,
+                      const float* __restrict__ s,
+                      __nv_bfloat16* __restrict__ out, int m, int k2, int n) {
+  using L = WgLayout<NT>;
+  constexpr int kS = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte aligned base: the swizzle pattern repeats every 1024 bytes
+  unsigned char* smem =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + kS;
+  const int m0 = blockIdx.x * NT;
+  const int n0 = blockIdx.y * kWgBN;
+  const int nk = (k2 + kWgBK - 1) / kWgBK;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);  // the consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % kS;
+        mbar_wait(&empty[st], ((kt / kS) & 1) ^ 1);
+        unsigned char* stage = smem + st * L::kStage;
+        mbar_expect_tx(&full[st], L::kStage);
+        const int kb = kt * kWgBK;
+        tma_load_3d(stage, &xmap, kb, 0, m0, &full[st]);
+        tma_load_3d(stage + L::kXTile, &xmap, kb, 1, m0, &full[st]);
+        tma_load_2d(stage + 2 * L::kXTile, &pmap, n0, kb, &full[st]);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int lane = threadIdx.x & 31;
+    const int w = (threadIdx.x & 127) >> 5;
+    const int q = lane >> 2;
+    const int c = lane & 3;
+    // this thread's fragment rows: weight columns nrow, nrow + 1 of the tile
+    const int nrow = wg * 64 + w * 16 + 2 * q;
+    float acc[NT / 2];
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+    uint32_t fa[8][4], fb[8][4];
+
+    // one k-step into fragments `cur` while step kt - 1's wgmma, reading
+    // `prev`, are in flight
+    auto step = [&](int kt, uint32_t(&cur)[8][4], uint32_t(&prev)[8][4]) {
+      const int st = kt % kS;
+      unsigned char* stage = smem + st * L::kStage;
+      mbar_wait(&full[st], (kt / kS) & 1);
+      unpack_fragments(stage + 2 * L::kXTile, nrow, c, cur);
+      const uint32_t x_lo = smem_u32(stage);
+      const uint32_t x_hi = x_lo + L::kXTile;
+      fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk)
+        wgmma_rs<NT>(acc, cur[kk], sw128_desc(x_lo + kk * 32));
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk)
+        wgmma_rs<NT>(acc, cur[4 + kk], sw128_desc(x_hi + kk * 32));
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      // step kt - 1's products are done: its fragments may be overwritten
+      // and its stage goes back to the producer
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      fence_fragments(prev);
+      fence_acc(acc);
+      if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % kS]);
+    };
+    for (int kt = 0; kt < nk; kt += 2) {
+      step(kt, fa, fb);
+      if (kt + 1 < nk) step(kt + 1, fb, fa);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_fragments(fa);
+    fence_fragments(fb);
+    fence_acc(acc);
+
+    // epilogue: accumulator rows are weight columns (row q: nrow, row
+    // q + 8: nrow + 1), its columns tokens: acc[4 j + {0, 1}] are tokens
+    // 8 j + 2 c + {0, 1} of column nrow, acc[4 j + {2, 3}] of nrow + 1
+    const int col = n0 + nrow;
+    if (col < n) {  // n % 16 == 0: nrow + 1 < n too
+      const float s0 = s[col], s1 = s[col + 1];
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = m0 + 8 * j + 2 * c + e;
+          if (r < m)
+            *reinterpret_cast<__nv_bfloat162*>(
+                out + static_cast<long long>(r) * n + col) =
+                __floats2bfloat162_rn(acc[4 * j + e] * s0,
+                                      acc[4 * j + 2 + e] * s1);
+        }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API call: the library links only the
+// runtime, so it is fetched from the driver once through the runtime
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+template <int NT>
+cudaError_t wgmma_launch(const __nv_bfloat16* x, const int8_t* p,
+                         const float* s, __nv_bfloat16* out, int m, int k2,
+                         int n, cudaStream_t st) {
+  using L = WgLayout<NT>;
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap xmap, pmap;
+  // x [M, K] seen as [M][2][K/2]: the halves' tiles zero-fill past K/2
+  const cuuint64_t xdim[3] = {static_cast<cuuint64_t>(k2), 2,
+                              static_cast<cuuint64_t>(m)};
+  const cuuint64_t xstride[2] = {static_cast<cuuint64_t>(k2) * 2,
+                                 static_cast<cuuint64_t>(k2) * 4};
+  const cuuint32_t xbox[3] = {kWgBK, 1, NT};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  CUresult r = encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                      const_cast<__nv_bfloat16*>(x), xdim, xstride, xbox,
+                      ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  const cuuint64_t pdim[2] = {static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(k2)};
+  const cuuint64_t pstride[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint32_t pbox[2] = {kWgBN, kWgBK};
+  r = encode(&pmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+             const_cast<int8_t*>(p), pdim, pstride, pbox, ones,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      int4_wgmma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kBytes);
+  if (err != cudaSuccess) return err;
+  // tokens fastest: the blocks of one wave share weight tiles through L2
+  dim3 grid((m + NT - 1) / NT, (n + kWgBN - 1) / kWgBN);
+  int4_wgmma_kernel<NT><<<grid, 384, L::kBytes, st>>>(xmap, pmap, s, out, m,
+                                                      k2, n);
+  return cudaGetLastError();
+}
+
+cudaError_t wgmma_by_tile(const __nv_bfloat16* x, const int8_t* p,
+                          const float* s, __nv_bfloat16* out, int m, int k2,
+                          int n, int tile, cudaStream_t st) {
+  switch (tile) {
+    case 64: return wgmma_launch<64>(x, p, s, out, m, k2, n, st);
+    case 128: return wgmma_launch<128>(x, p, s, out, m, k2, n, st);
+    case 256: return wgmma_launch<256>(x, p, s, out, m, k2, n, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ------------------- M > 16, bf16, shapes TMA cannot address: wmma
 
 constexpr int kMmaM = 128, kMmaN = 128, kMmaK = 32;  // kMmaK packed rows
 constexpr int kMmaThreads = 256;                     // 8 warps: 4 (M) x 2 (N)
@@ -234,7 +765,6 @@ constexpr int kApad = 8, kBpad = 8;                  // bf16 elements
 // behind
 constexpr int kMmaBlocksPerSm = 2;
 
-template <bool VEC>
 __global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSm)
 int4_mma_kernel(const __nv_bfloat16* __restrict__ x,
                 const int8_t* __restrict__ p, const float* __restrict__ s,
@@ -271,48 +801,37 @@ int4_mma_kernel(const __nv_bfloat16* __restrict__ x,
       const int gr = m0 + row;
       const int gk = kb + seg * 8;
       const __nv_bfloat16* src = x + gr * kdim + half * k2 + gk;
-      if constexpr (VEC) {
-        a_reg[i] = (gr < m && gk < k2)
-                       ? __ldg(reinterpret_cast<const uint4*>(src))
-                       : make_uint4(0, 0, 0, 0);
-      } else {
-        unsigned int h[8];
+      unsigned int h[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          h[e] = (gr < m && gk + e < k2)
-                     ? __ldg(reinterpret_cast<const unsigned short*>(src) + e)
-                     : 0u;
-        a_reg[i] = make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
-                              h[4] | (h[5] << 16), h[6] | (h[7] << 16));
-      }
+      for (int e = 0; e < 8; ++e)
+        h[e] = (gr < m && gk + e < k2)
+                   ? __ldg(reinterpret_cast<const unsigned short*>(src) + e)
+                   : 0u;
+      a_reg[i] = make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
+                            h[4] | (h[5] << 16), h[6] | (h[7] << 16));
     }
     const int row = tid >> 3;
     const int seg = tid & 7;
     const int gk = kb + row;
     const int gc = n0 + seg * 16;
     const int8_t* src = p + static_cast<long long>(gk) * n + gc;
-    if constexpr (VEC) {
-      // out-of-range weights unpack to 0 (bytes 0x88 after the flip)
-      b_reg = (gk < k2 && gc < n) ? __ldg(reinterpret_cast<const uint4*>(src))
-                                  : make_uint4(0, 0, 0, 0);
-    } else {
-      unsigned int w[4];
+    // out-of-range weights unpack to 0 (bytes 0x88 after the flip)
+    unsigned int w[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        unsigned int word = 0;
+    for (int q = 0; q < 4; ++q) {
+      unsigned int word = 0;
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int c = 4 * q + b;
-          const unsigned int byte =
-              (gk < k2 && gc + c < n)
-                  ? static_cast<unsigned char>(__ldg(src + c))
-                  : 0u;
-          word |= byte << (8 * b);
-        }
-        w[q] = word;
+      for (int b = 0; b < 4; ++b) {
+        const int c = 4 * q + b;
+        const unsigned int byte =
+            (gk < k2 && gc + c < n)
+                ? static_cast<unsigned char>(__ldg(src + c))
+                : 0u;
+        word |= byte << (8 * b);
       }
-      b_reg = make_uint4(w[0], w[1], w[2], w[3]);
+      w[q] = word;
     }
+    b_reg = make_uint4(w[0], w[1], w[2], w[3]);
   };
 
   auto store_tiles = [&]() {
@@ -494,58 +1013,69 @@ bool aligned16(const void* ptr) {
 }  // namespace die
 
 // x [M, K] (K = 2 * k2, dtype code `dtype`), packed [k2, N] int8, scale [N]
-// fp32, out [M, N] in x's dtype. ws: fp32 [ks, M, N] scratch for a split
-// contraction (M <= 16 only; unused when ks == 1); chunk: packed rows per
-// split. Returns cudaGetLastError() of the launches (0 on success).
+// fp32, out [M, N] in x's dtype. `instance` names the kernel that runs
+// (kInstGemv .. kInstSimt, chosen by the wrapper from shapes and
+// alignment); a call it does not take returns cudaErrorInvalidValue. tile:
+// the wgmma instance's tokens per block (64, 128 or 256, the wrapper's
+// wgmma_tile), unused by the others. ws:
+// fp32 [ks, M, N] scratch for the GEMV's split contraction (unused when
+// ks == 1); chunk: packed rows per split. Returns cudaGetLastError() of the
+// launches (0 on success).
 extern "C" int die_int4_matmul(const void* x, const void* packed,
                                const void* scale, void* out, void* ws, int m,
                                int k2, int n, int ks, int chunk, int dtype,
-                               void* stream) {
+                               int instance, int tile, void* stream) {
   using namespace die;
   if (m <= 0 || n <= 0) return 0;
   if (k2 <= 0 || ks < 1 || chunk < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* p = static_cast<const int8_t*>(packed);
   const float* s = static_cast<const float*>(scale);
-  float* w = static_cast<float*>(ws);
+  const bool bf16 = dtype == kBF16;
+  if (!bf16 && dtype != kF32) return cudaErrorInvalidValue;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
   cudaError_t err;
-  if (m <= 16) {
-    if (ks > 1 && ws == nullptr) return cudaErrorInvalidValue;
-    const bool vec = n % kGemvCols == 0 && aligned16(packed);
-    if (dtype == kBF16) {
-      const auto* xb = static_cast<const __nv_bfloat16*>(x);
-      auto* ob = static_cast<__nv_bfloat16*>(out);
-      err = vec ? gemv_by_rows<__nv_bfloat16, true>(xb, p, s, w, ob, m, k2, n, ks, chunk, st)
-                : gemv_by_rows<__nv_bfloat16, false>(xb, p, s, w, ob, m, k2, n, ks, chunk, st);
-    } else if (dtype == kF32) {
-      const auto* xf = static_cast<const float*>(x);
-      auto* of = static_cast<float*>(out);
-      err = vec ? gemv_by_rows<float, true>(xf, p, s, w, of, m, k2, n, ks, chunk, st)
-                : gemv_by_rows<float, false>(xf, p, s, w, of, m, k2, n, ks, chunk, st);
-    } else {
-      err = cudaErrorInvalidValue;
+  switch (instance) {
+    case kInstGemv: {
+      if (m > 16 || (ks > 1 && ws == nullptr)) return cudaErrorInvalidValue;
+      float* w = static_cast<float*>(ws);
+      const bool vec = n % kGemvCols == 0 && aligned16(packed);
+      if (bf16) {
+        err = vec ? gemv_by_rows<__nv_bfloat16, true>(xb, p, s, w, ob, m, k2, n, ks, chunk, st)
+                  : gemv_by_rows<__nv_bfloat16, false>(xb, p, s, w, ob, m, k2, n, ks, chunk, st);
+      } else {
+        const auto* xf = static_cast<const float*>(x);
+        auto* of = static_cast<float*>(out);
+        err = vec ? gemv_by_rows<float, true>(xf, p, s, w, of, m, k2, n, ks, chunk, st)
+                  : gemv_by_rows<float, false>(xf, p, s, w, of, m, k2, n, ks, chunk, st);
+      }
+      break;
     }
-    return static_cast<int>(err);
-  }
-  if (dtype == kBF16) {
-    const bool vec = k2 % 8 == 0 && n % 16 == 0 && aligned16(x) &&
-                     aligned16(packed);
-    dim3 grid((n + kMmaN - 1) / kMmaN, (m + kMmaM - 1) / kMmaM);
-    const auto* xb = static_cast<const __nv_bfloat16*>(x);
-    auto* ob = static_cast<__nv_bfloat16*>(out);
-    if (vec)
-      int4_mma_kernel<true><<<grid, kMmaThreads, 0, st>>>(xb, p, s, ob, m, k2, n);
-    else
-      int4_mma_kernel<false><<<grid, kMmaThreads, 0, st>>>(xb, p, s, ob, m, k2, n);
-    err = cudaGetLastError();
-  } else if (dtype == kF32) {
-    dim3 grid((n + kSimtN - 1) / kSimtN, (m + kSimtM - 1) / kSimtM);
-    int4_simt_kernel<<<grid, kSimtThreads, 0, st>>>(
-        static_cast<const float*>(x), p, s, static_cast<float*>(out), m, k2,
-        n);
-    err = cudaGetLastError();
-  } else {
-    err = cudaErrorInvalidValue;
+    case kInstWgmma:
+      if (!bf16 || m <= 16 || k2 % 8 || n % 16 || !aligned16(x) ||
+          !aligned16(packed))
+        return cudaErrorInvalidValue;
+      err = wgmma_by_tile(xb, p, s, ob, m, k2, n, tile, st);
+      break;
+    case kInstWmma: {
+      if (!bf16 || m <= 16) return cudaErrorInvalidValue;
+      dim3 grid((n + kMmaN - 1) / kMmaN, (m + kMmaM - 1) / kMmaM);
+      int4_mma_kernel<<<grid, kMmaThreads, 0, st>>>(xb, p, s, ob, m, k2, n);
+      err = cudaGetLastError();
+      break;
+    }
+    case kInstSimt: {
+      if (bf16 || m <= 16) return cudaErrorInvalidValue;
+      dim3 grid((n + kSimtN - 1) / kSimtN, (m + kSimtM - 1) / kSimtM);
+      int4_simt_kernel<<<grid, kSimtThreads, 0, st>>>(
+          static_cast<const float*>(x), p, s, static_cast<float*>(out), m, k2,
+          n);
+      err = cudaGetLastError();
+      break;
+    }
+    default:
+      err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

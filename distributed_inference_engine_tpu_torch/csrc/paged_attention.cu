@@ -19,24 +19,32 @@
 // before them, so at a 4096-token window a 6,000-token slot reads
 // two thirds of its pages.
 //
-// Design. One block per (slot, KV head): every K/V row is read once for
-// the G = H/Hkv query heads that share it, held in registers. A key row of
-// this head is Dh elements; LPK lanes read it with one 16-byte load each,
-// so a warp reads KPW = 32 / LPK rows at once (two at Dh = 128 in bf16).
-// Each lane group keeps its own (m, l, acc) over a strided subset of the
-// keys, issuing the loads of kU rows before using any; the groups of a
-// warp merge through shuffles and the warps through shared memory at the
-// end, as flash-decoding merges KV splits. What the TPU kernel needed and
-// this one does not: the sequential (slot, page) grid with scratch
-// accumulators (a block loops over its own keys), the 0/1 segment-sum
-// matmuls and the lane-slice GQA concats (Mosaic's rank-2 rule). The TPU
-// kernel skips whole pages outside the window and masks inside them; this
-// one walks the valid keys only, which reads the same bytes.
+// Design: split KV. The grid is (slot x KV head, split): the keys
+// [lo, hi) of a slot are cut into n_split runs of `chunk` keys from lo,
+// and each block walks one run, so a long slot is read by n_split SMs at
+// once instead of one (the host sizes n_split from mp * page_size or the
+// window and the SM count, without reading the lengths). Every K/V row is
+// read once for the G = H/Hkv query heads that share it, held in
+// registers. A key row of this head is Dh elements; LPK lanes read it
+// with one 16-byte load each, so a warp reads KPW = 32 / LPK rows at once
+// (two at Dh = 128 in bf16). Each lane group keeps its own (m, l, acc)
+// over a strided subset of the keys: it loads kU rows, scores all of them,
+// rescales its state once for the kU keys and then adds them. The groups
+// of a warp merge through shuffles and the warps through shared memory.
+// With one split the block writes the result; with more it writes its
+// fp32 partial (m, l, unnormalised acc; common.cuh SplitPartials) and a
+// second kernel merges the splits of each row (merge_split_row). A block
+// whose run lies wholly outside [lo, hi) writes the empty state and
+// exits. What the TPU kernel needed and this one does not: the
+// sequential (slot, page) grid with scratch accumulators, the 0/1
+// segment-sum matmuls and the lane-slice GQA concats (Mosaic's rank-2
+// rule). The TPU kernel skips whole pages outside the window and masks
+// inside them; this one walks the valid keys only, which reads the same
+// bytes.
 //
-// Known limit: B * Hkv blocks (64 at B = 8, Hkv = 8) under-fill 132 SMs,
-// and the block of a slot's longest row streams its whole window through
-// one SM (2 MB for 4096 keys at Dh = 128 in bf16). Splitting a long window
-// over several blocks (and tensor cores, TMA) is the next step.
+// Left: the scores and the weighted sum run on CUDA cores (a decode row
+// has one query per head, G per K/V row: too few for tensor cores), and
+// rows are loaded straight into registers (no cp.async or TMA ring).
 #include "common.cuh"
 
 namespace die {
@@ -50,30 +58,19 @@ struct PaArgs {
   const void* k_pages;     // [rows, P, Hkv*Dh] kv dtype
   const void* v_pages;
   const int* page_table;   // [B, MP]
-  const int* lengths;      // [B] valid keys, this step's included
+  const int* lengths;      // [B] valid keys, this step's token included
   void* out;               // [B, H, Dh] q dtype
   float* m_out;            // [B, H]
   float* l_out;            // [B, H]
-  int hkv, page_size, mp, window;
+  float* ws;               // split partials (n_split > 1)
+  int hkv, page_size, mp, window, chunk;
   long long layer_base;
 };
 
-// Merge another partial softmax state (mo, lo, acco) into (m, l, acc).
-template <int N>
-__device__ __forceinline__ void merge_state(float& m, float& l,
-                                            float (&acc)[N], float mo,
-                                            float lo, const float (&acco)[N]) {
-  const float mx = fmaxf(m, mo);
-  const float a = expf(m - mx);
-  const float c = expf(mo - mx);
-  l = l * a + lo * c;
-#pragma unroll
-  for (int e = 0; e < N; ++e) acc[e] = acc[e] * a + acco[e] * c;
-  m = mx;
-}
-
+// G >= 8 keeps 64 fp32 accumulators and 64 query values a lane: one block
+// per SM; smaller groups are held to two.
 template <typename TQ, typename TKV, int DH, int G>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, (G >= 8 ? 1 : 2))
     paged_attention_kernel(PaArgs a, float scale) {
   constexpr int kVec = 16 / static_cast<int>(sizeof(TKV));  // per load
   constexpr int kLpk = DH / kVec;        // lanes per key row
@@ -81,27 +78,61 @@ __global__ void __launch_bounds__(kWarps * 32)
                 "a key row is 1 to 32 sixteen-byte loads");
   constexpr int kKpw = 32 / kLpk;        // key rows a warp reads at once
   constexpr int kSweep = kWarps * kKpw;  // key rows the block reads at once
-  constexpr int kU = G >= 8 ? 4 : 8;     // rows in flight per lane group
+  constexpr int kU = G >= 8 ? 2 : 4;     // rows in flight per lane group
   extern __shared__ float smem[];
   const int hkv = a.hkv;
   const int b = blockIdx.x / hkv;
   const int kh = blockIdx.x - b * hkv;
+  const int split = blockIdx.y;
+  const int n_split = gridDim.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int grp = lane / kLpk;
   const int lk = lane - grp * kLpk;
   const int h = hkv * G;
+  const long long row0 = static_cast<long long>(b) * h + kh * G;
+  TQ* out = static_cast<TQ*>(a.out);
+  const SplitPartials part(a.ws, static_cast<long long>(gridDim.x) * G,
+                           n_split, DH);
+
+  // this block's keys: its run of the valid keys [lo, hi), the window's
+  // first key to the last written
+  const int len = a.lengths[b];
+  const int hi = min(len, a.mp * a.page_size);
+  const int lo = a.window > 0 ? max(0, len - a.window) : 0;
+  const int s_lo = lo + split * a.chunk;
+  const int s_hi = min(hi, s_lo + a.chunk);
+  if (s_lo >= s_hi) {  // uniform across the block
+    for (int idx = threadIdx.x; idx < G * DH; idx += blockDim.x) {
+      const int gi = idx / DH;
+      const int d = idx - gi * DH;
+      const long long r = row0 + gi;
+      if (n_split == 1) {
+        out[r * DH + d] = from_f<TQ>(0.f);
+      } else {
+        part.acc[(r * n_split + split) * DH + d] = 0.f;
+      }
+      if (d == 0) {
+        if (n_split == 1) {
+          a.m_out[r] = kNegInf;
+          a.l_out[r] = 0.f;
+        } else {
+          part.m[r * n_split + split] = kNegInf;
+          part.l[r * n_split + split] = 0.f;
+        }
+      }
+    }
+    return;
+  }
+
   const long long fused = static_cast<long long>(hkv) * DH;
   const TQ* q = static_cast<const TQ*>(a.q);
   const TKV* k_pages = static_cast<const TKV*>(a.k_pages);
   const TKV* v_pages = static_cast<const TKV*>(a.v_pages);
-
   float qr[G][kVec];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi)
-    load_row<TQ, kVec>(
-        q + (static_cast<long long>(b) * h + kh * G + gi) * DH + lk * kVec,
-        qr[gi]);
+    load_row<TQ, kVec>(q + (row0 + gi) * DH + lk * kVec, qr[gi]);
   float m[G], l[G], acc[G][kVec];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
@@ -111,20 +142,16 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int e = 0; e < kVec; ++e) acc[gi][e] = 0.f;
   }
 
-  // the valid keys: [lo, hi), the window's first key to the last written
-  const int len = a.lengths[b];
-  const int hi = min(len, a.mp * a.page_size);
-  const int lo = a.window > 0 ? max(0, len - a.window) : 0;
   const int* row = a.page_table + static_cast<long long>(b) * a.mp;
   const long long head_off = static_cast<long long>(kh) * DH + lk * kVec;
   using Row = RawRow<TKV, kVec>;
   // base is uniform across the warp, so every lane runs every shuffle
-  for (int base = lo + warp * kKpw; base < hi; base += kU * kSweep) {
+  for (int base = s_lo + warp * kKpw; base < s_hi; base += kU * kSweep) {
     Row kraw[kU], vraw[kU];
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       const int t = base + u * kSweep + grp;
-      if (t < hi) {
+      if (t < s_hi) {
         const int pg = row[t / a.page_size];
         const long long off =
             ((a.layer_base + pg) * a.page_size + t % a.page_size) * fused +
@@ -136,31 +163,46 @@ __global__ void __launch_bounds__(kWarps * 32)
         for (int i = 0; i < Row::kWords; ++i) kraw[u].w[i] = vraw[u].w[i] = 0u;
       }
     }
+    // score the kU rows, then rescale the state once for all of them
+    float s[kU][G];
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
-      const bool valid = base + u * kSweep + grp < hi;
-      float kr[kVec], vr[kVec];
+      const bool valid = base + u * kSweep + grp < s_hi;
+      float kr[kVec];
       kraw[u].widen(kr);
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) dot += qr[gi][e] * kr[e];
+#pragma unroll
+        for (int off = kLpk / 2; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        s[u][gi] = valid ? dot * scale : kNegInf;
+      }
+    }
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      float mn = m[gi];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) mn = fmaxf(mn, s[u][gi]);
+      const float alpha = expf(m[gi] - mn);
+      l[gi] *= alpha;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[gi][e] *= alpha;
+      m[gi] = mn;
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const bool valid = base + u * kSweep + grp < s_hi;
+      float vr[kVec];
       vraw[u].widen(vr);
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
-        float s = 0.f;
+        const float p = valid ? expf(s[u][gi] - m[gi]) : 0.f;
+        l[gi] += p;
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) s += qr[gi][e] * kr[e];
-#pragma unroll
-        for (int off = kLpk / 2; off > 0; off >>= 1)
-          s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (valid) {
-          s *= scale;
-          const float mn = fmaxf(m[gi], s);
-          const float alpha = expf(m[gi] - mn);
-          const float p = expf(s - mn);
-          l[gi] = l[gi] * alpha + p;
-#pragma unroll
-          for (int e = 0; e < kVec; ++e)
-            acc[gi][e] = acc[gi][e] * alpha + p * vr[e];
-          m[gi] = mn;
-        }
+        for (int e = 0; e < kVec; ++e) acc[gi][e] = fmaf(p, vr[e], acc[gi][e]);
       }
     }
   }
@@ -196,7 +238,6 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
   }
   __syncthreads();
-  TQ* out = static_cast<TQ*>(a.out);
   for (int idx = threadIdx.x; idx < G * DH; idx += blockDim.x) {
     const int gi = idx / DH;
     const int d = idx - gi * DH;
@@ -212,41 +253,72 @@ __global__ void __launch_bounds__(kWarps * 32)
       den += slot[1] * wgt;
       num += slot[2 + d] * wgt;
     }
-    const long long r = static_cast<long long>(b) * h + kh * G + gi;
-    out[r * DH + d] = from_f<TQ>(num / fmaxf(den, 1e-30f));
-    if (d == 0) {
-      a.m_out[r] = mx;
-      a.l_out[r] = den;
+    const long long r = row0 + gi;
+    if (n_split == 1) {
+      out[r * DH + d] = from_f<TQ>(num / fmaxf(den, 1e-30f));
+      if (d == 0) {
+        a.m_out[r] = mx;
+        a.l_out[r] = den;
+      }
+    } else {
+      part.acc[(r * n_split + split) * DH + d] = num;
+      if (d == 0) {
+        part.m[r * n_split + split] = mx;
+        part.l[r * n_split + split] = den;
+      }
     }
   }
 }
 
+// One block per output row, one thread per element: the row's split
+// partials merged, divided once and rounded once.
+template <typename TQ>
+__global__ void __launch_bounds__(128)
+    paged_merge_kernel(float* ws, int n_split, int dh, void* out_,
+                       float* m_out, float* l_out) {
+  const SplitPartials part(ws, gridDim.x, n_split, dh);
+  const long long r = blockIdx.x;
+  const int d = threadIdx.x;
+  float m, l, acc;
+  merge_split_row(part, r, d, m, l, acc);
+  static_cast<TQ*>(out_)[r * dh + d] = from_f<TQ>(acc / fmaxf(l, 1e-30f));
+  if (d == 0) {
+    m_out[r] = m;
+    l_out[r] = l;
+  }
+}
+
 template <typename TQ, typename TKV, int DH, int G>
-cudaError_t launch(const PaArgs& a, int b, cudaStream_t stream) {
+cudaError_t launch(const PaArgs& a, int b, int n_split, cudaStream_t stream) {
   const int smem = kWarps * G * (2 + DH) * static_cast<int>(sizeof(float));
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
   paged_attention_kernel<TQ, TKV, DH, G>
-      <<<b * a.hkv, kWarps * 32, smem, stream>>>(a, scale);
+      <<<dim3(b * a.hkv, n_split), kWarps * 32, smem, stream>>>(a, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  paged_merge_kernel<TQ><<<b * a.hkv * G, DH, 0, stream>>>(
+      a.ws, n_split, DH, a.out, a.m_out, a.l_out);
   return cudaGetLastError();
 }
 
 template <typename TQ, typename TKV, int DH>
-cudaError_t by_group(int g, const PaArgs& a, int b, cudaStream_t st) {
+cudaError_t by_group(int g, const PaArgs& a, int b, int ns, cudaStream_t st) {
   switch (g) {
-    case 1: return launch<TQ, TKV, DH, 1>(a, b, st);
-    case 2: return launch<TQ, TKV, DH, 2>(a, b, st);
-    case 4: return launch<TQ, TKV, DH, 4>(a, b, st);
-    case 8: return launch<TQ, TKV, DH, 8>(a, b, st);
+    case 1: return launch<TQ, TKV, DH, 1>(a, b, ns, st);
+    case 2: return launch<TQ, TKV, DH, 2>(a, b, ns, st);
+    case 4: return launch<TQ, TKV, DH, 4>(a, b, ns, st);
+    case 8: return launch<TQ, TKV, DH, 8>(a, b, ns, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename TQ, typename TKV>
-cudaError_t by_width(int dh, int g, const PaArgs& a, int b, cudaStream_t st) {
+cudaError_t by_width(int dh, int g, const PaArgs& a, int b, int ns,
+                     cudaStream_t st) {
   switch (dh) {
-    case 32: return by_group<TQ, TKV, 32>(g, a, b, st);
-    case 64: return by_group<TQ, TKV, 64>(g, a, b, st);
-    case 128: return by_group<TQ, TKV, 128>(g, a, b, st);
+    case 32: return by_group<TQ, TKV, 32>(g, a, b, ns, st);
+    case 64: return by_group<TQ, TKV, 64>(g, a, b, ns, st);
+    case 128: return by_group<TQ, TKV, 128>(g, a, b, ns, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -256,17 +328,23 @@ cudaError_t by_width(int dh, int g, const PaArgs& a, int b, cudaStream_t st) {
 
 // q [B, H, Dh] in q_dtype; the pools [rows, P, Hkv*Dh] in kv_dtype, page p
 // of slot b at row layer_base + page_table[b, p]; out [B, H, Dh] in
-// q_dtype; m_out/l_out [B, H] fp32. window 0 is full attention. Returns
-// the launch's cudaGetLastError() (0 on success).
+// q_dtype; m_out/l_out [B, H] fp32. window 0 is full attention. The keys
+// of a slot are cut into n_split runs of `chunk` (n_split * chunk must
+// cover the most valid keys a slot can have); with n_split > 1, ws is an
+// fp32 workspace of B * H * n_split * (Dh + 2) values and a second kernel
+// merges the runs. Returns cudaGetLastError() of the launches (0 on
+// success).
 extern "C" int die_paged_attention(const void* q, const void* k_pages,
                                    const void* v_pages, const int* page_table,
                                    const int* lengths, void* out, float* m_out,
-                                   float* l_out, int b, int h, int hkv,
-                                   int dh, int page_size, int mp, int window,
+                                   float* l_out, float* ws, int b, int h,
+                                   int hkv, int dh, int page_size, int mp,
+                                   int window, int n_split, int chunk,
                                    long long layer_base, int q_dtype,
                                    int kv_dtype, void* stream) {
   if (b <= 0) return 0;
-  if (hkv <= 0 || h % hkv || page_size <= 0 || window < 0)
+  if (hkv <= 0 || h % hkv || page_size <= 0 || window < 0 || n_split < 1 ||
+      chunk < 1 || (n_split > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   die::PaArgs a{};
   a.q = q;
@@ -277,22 +355,24 @@ extern "C" int die_paged_attention(const void* q, const void* k_pages,
   a.out = out;
   a.m_out = m_out;
   a.l_out = l_out;
+  a.ws = ws;
   a.hkv = hkv;
   a.page_size = page_size;
   a.mp = mp;
   a.window = window;
+  a.chunk = chunk;
   a.layer_base = layer_base;
   const int g = h / hkv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q_dtype == die::kBF16 && kv_dtype == die::kBF16)
-    err = die::by_width<__nv_bfloat16, __nv_bfloat16>(dh, g, a, b, st);
+    err = die::by_width<__nv_bfloat16, __nv_bfloat16>(dh, g, a, b, n_split, st);
   else if (q_dtype == die::kF32 && kv_dtype == die::kF32)
-    err = die::by_width<float, float>(dh, g, a, b, st);
+    err = die::by_width<float, float>(dh, g, a, b, n_split, st);
   else if (q_dtype == die::kBF16 && kv_dtype == die::kF32)
-    err = die::by_width<__nv_bfloat16, float>(dh, g, a, b, st);
+    err = die::by_width<__nv_bfloat16, float>(dh, g, a, b, n_split, st);
   else if (q_dtype == die::kF32 && kv_dtype == die::kBF16)
-    err = die::by_width<float, __nv_bfloat16>(dh, g, a, b, st);
+    err = die::by_width<float, __nv_bfloat16>(dh, g, a, b, n_split, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

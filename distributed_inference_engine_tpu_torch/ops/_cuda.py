@@ -9,6 +9,10 @@ flags, so an edited kernel is rebuilt and a current one is reused. A file
 lock serialises concurrent builds (a worker process and the process that
 launched it).
 
+The link names only the CUDA runtime (no ``-lcuda``). The one driver-API
+call, ``cuTensorMapEncodeTiled`` for the int4 kernel's TMA tensor maps,
+is fetched at run time through ``cudaGetDriverEntryPoint(ByVersion)``.
+
 Nothing here runs at import: the CPU tests import every module, and this
 machine class has no ``nvcc``.
 """
@@ -18,6 +22,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -140,10 +145,11 @@ def lib() -> ctypes.CDLL:
         handle.die_matmul_residual.argtypes = [
             P, P, P, P, P, I, I, I, I, I, I, P]
         handle.die_int4_matmul.argtypes = [
-            P, P, P, P, P, I, I, I, I, I, I, P]
+            P, P, P, P, P, I, I, I, I, I, I, I, I, P]
         handle.die_paged_attention.argtypes = [
-            P, P, P, P, P, P, P, P,              # q .. l_out
-            I, I, I, I, I, I, I, LL, I, I, P]    # shapes, dtypes, stream
+            P, P, P, P, P, P, P, P, P,           # q .. l_out, workspace
+            I, I, I, I, I, I, I, I, I,           # shapes, window, split
+            LL, I, I, P]                         # layer base, dtypes, stream
         for fn in (handle.die_flash_decode, handle.die_flash_decode_fw,
                    handle.die_ragged_attention, handle.die_norm_matmul,
                    handle.die_matmul_residual, handle.die_int4_matmul,
@@ -159,6 +165,12 @@ def dtype_code(dt: torch.dtype) -> int:
     if dt == torch.bfloat16:
         return BF16
     raise TypeError(f"kernel takes float32 or bfloat16, not {dt}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The card's SM count, which the wrappers size their grids by."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -19,8 +19,6 @@ float weight in x's dtype (fp32 or bf16). The TPU's VMEM budget gate and
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import _cuda
@@ -30,10 +28,8 @@ _BLOCKS_PER_SM = 4            # resident split-K blocks aimed for per SM
 _COLS_PER_BLOCK = 256         # csrc/fused_decode.cu: 128 threads x 2
 
 
-@functools.lru_cache(maxsize=None)
 def _target_blocks(device_index: int) -> int:
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return _BLOCKS_PER_SM * sms
+    return _BLOCKS_PER_SM * _cuda.sm_count(device_index)
 
 
 def norm_matmul_wants(x: torch.Tensor, w) -> bool:

@@ -10,17 +10,26 @@ nibble layout of ``ops/quant.py`` (low nibble of byte ``k``: weight row
 one rounding, as the TPU kernel ``_kernel_stacked`` does.
 
 CUDA tensors launch the hand-written kernel of ``csrc/int4_matmul.cu``
-(replacing ``ops/int4_matmul.py:_kernel_stacked``): a split-K GEMV for
-M <= 16 rows (decode, the LM head), tensor cores for larger bf16 M
-(prefill, the mixed step), CUDA cores for larger fp32 M. CPU tensors take
-the plain version below. The TPU's kernel-mode switch, tiling gates and
-tuned block table have no counterpart: the kernel takes any M and N and
-any even K.
+(replacing ``ops/int4_matmul.py:_kernel_stacked``) in one of four
+instances, chosen by ``int4_instance`` from the shapes, the dtype and the
+16-byte alignment of x and the payload, never by a failure:
+
+- ``gemv``: M <= 16 rows (decode, the LM head), a split-K GEMV;
+- ``wgmma``: larger bf16 M (prefill, the mixed step) where TMA can address
+  the operands (K/2 % 8 == 0, N % 16 == 0, both aligned): TMA, a
+  shared-memory ring and ``wgmma``, 128 columns by ``wgmma_tile`` tokens
+  a block;
+- ``wmma``: larger bf16 M at the other shapes, ``wmma`` tiles;
+- ``simt``: larger fp32 M, CUDA cores.
+
+Each call counts one launch of ``int4_matmul`` and one of
+``int4_matmul.<instance>``. CPU tensors take the plain version below. The
+TPU's kernel-mode switch, tiling gates and tuned block table have no
+counterpart: the kernel takes any M and N and any even K.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import torch
@@ -28,14 +37,15 @@ import torch
 from . import _cuda
 
 GEMV_MAX_ROWS = 16            # csrc/int4_matmul.cu: larger M takes tiles
+# instance codes of csrc/int4_matmul.cu (kInstGemv .. kInstSimt)
+INSTANCES = {"gemv": 0, "wgmma": 1, "wmma": 2, "simt": 3}
 _GEMV_BLOCK_COLS = 256        # 32 lanes x 8 columns
 _GEMV_BLOCKS_PER_SM = 2       # resident split-K blocks aimed for per SM
-
-
-@functools.lru_cache(maxsize=None)
-def _target_blocks(device_index: int) -> int:
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return _GEMV_BLOCKS_PER_SM * sms
+_WGMMA_COLS = 128             # output columns per wgmma block
+# a wgmma block's time is about (tile + _WGMMA_BLOCK_COST) token-steps of
+# MMA work: its packed-weight stream and pipeline fill cost what 160
+# tokens do (fitted to the tile timings of chip_smoke.py --profile)
+_WGMMA_BLOCK_COST = 160
 
 
 def unpack_int4(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -52,6 +62,32 @@ def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     xf = x.float()
     y = xf[:, :k2] @ lo.float() + xf[:, k2:] @ hi.float()
     return (y * scale.float()).to(x.dtype)
+
+
+def int4_instance(m: int, k2: int, n: int, dtype: torch.dtype,
+                  aligned: bool) -> str:
+    """The kernel instance for x [m, 2 * k2] of ``dtype`` against packed
+    [k2, n]; ``aligned``: x and the payload start on 16 bytes."""
+    if m <= GEMV_MAX_ROWS:
+        return "gemv"
+    if dtype != torch.bfloat16:
+        return "simt"
+    if k2 % 8 == 0 and n % 16 == 0 and aligned:
+        return "wgmma"
+    return "wmma"
+
+
+def wgmma_tile(m: int, n: int, sms: int) -> int:
+    """Tokens per block of the wgmma instance (its wgmma N): the tile of
+    64, 128 or 256 that minimises waves x (tile + _WGMMA_BLOCK_COST), where
+    a wave is ``sms`` blocks of the grid; on a tie, the smaller tile."""
+    col_tiles = -(-n // _WGMMA_COLS)
+
+    def cost(tile: int) -> int:
+        waves = -(-(-(-m // tile) * col_tiles) // sms)
+        return waves * (tile + _WGMMA_BLOCK_COST)
+
+    return min((64, 128, 256), key=cost)
 
 
 def _split(k2: int, n: int, target_blocks: int) -> Tuple[int, int]:
@@ -92,16 +128,22 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
-    if m <= GEMV_MAX_ROWS:
-        ks, chunk = _split(k2, n, _target_blocks(x.device.index))
-    else:
-        ks, chunk = 1, k2
+    code = _cuda.dtype_code(x.dtype)
+    inst = int4_instance(m, k2, n, x.dtype, x.data_ptr() % 16 == 0
+                         and packed.data_ptr() % 16 == 0)
+    sms = _cuda.sm_count(x.device.index)
+    ks, chunk, tile = 1, k2, 0
+    if inst == "gemv":
+        ks, chunk = _split(k2, n, _GEMV_BLOCKS_PER_SM * sms)
+    elif inst == "wgmma":
+        tile = wgmma_tile(m, n, sms)
     ws = torch.empty((ks if ks > 1 else 0, m, n), dtype=torch.float32,
                      device=x.device)
     err = _cuda.lib().die_int4_matmul(
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), m, k2, n, ks, chunk, _cuda.dtype_code(x.dtype),
+        ws.data_ptr(), m, k2, n, ks, chunk, code, INSTANCES[inst], tile,
         _cuda.stream_ptr(x.device))
-    _cuda.check(err, name)
+    _cuda.check(err, f"{name} ({inst})")
     _cuda.LAUNCHES[name] += 1
+    _cuda.LAUNCHES[f"{name}.{inst}"] += 1
     return out

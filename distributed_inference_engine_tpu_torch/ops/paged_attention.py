@@ -13,16 +13,42 @@ too (Mistral v0.1's sliding window).
 the plain version ``paged_attention_xla`` for a CPU tensor. The plain
 version also takes the stacked layer offset, which the JAX XLA path
 leaves to its callers, so that the tests hold both of the kernel's routes.
+
+The kernel cuts each slot's valid keys into ``n_split`` runs of ``chunk``
+keys (``paged_split``), one block per (slot, KV head, run), and a second
+kernel merges the runs' flash partials: a call makes one device launch
+when ``n_split`` is 1 and two otherwise, and counts as one launch.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _cuda
 from .attention import NEG_INF, _scale
+
+
+# split sizing: aim for this many blocks per SM over the whole grid, and
+# give no block fewer keys than _MIN_CHUNK (a run of keys is walked 64 at a
+# time by the block's 8 warps)
+_BLOCKS_PER_SM = 4
+_MIN_CHUNK = 256
+_CHUNK_ALIGN = 64
+
+
+def paged_split(b: int, n_kv_heads: int, max_keys: int,
+                sms: int) -> Tuple[int, int]:
+    """(n_split, chunk) of the kernel's grid: the most keys a slot can hold
+    (``mp * page_size``, or ``window`` when smaller) cut into ``n_split``
+    runs of ``chunk`` keys, with ``n_split * chunk >= max_keys``. Chosen
+    from shapes only, so the inline decode never reads the lengths back."""
+    want = -(-_BLOCKS_PER_SM * sms // max(1, b * n_kv_heads))
+    n_split = max(1, min(want, -(-max_keys // _MIN_CHUNK)))
+    chunk = -(-max_keys // n_split)
+    chunk = max(_CHUNK_ALIGN, -(-chunk // _CHUNK_ALIGN) * _CHUNK_ALIGN)
+    return -(-max_keys // chunk), chunk
 
 
 def _layer_pools(k_pages, v_pages, layer, n_pages_per_layer):
@@ -110,15 +136,24 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                   f"{name}: layer {layer} outside the stacked pool")
     _cuda.require_cuda(name, q, k_pages, v_pages, page_table, lengths)
     _cuda.require_int32(name, page_table, lengths)
+    mp = page_table.shape[1]
+    max_keys = mp * page_size
+    if window:
+        max_keys = min(max_keys, int(window))
+    n_split, chunk = paged_split(b, n_kv_heads, max(1, max_keys),
+                                 _cuda.sm_count(q.device.index))
     out = torch.empty_like(q)
     m = torch.empty((b, h), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
+    ws = torch.empty((b * h * n_split * (dh + 2) if n_split > 1 else 0,),
+                     dtype=torch.float32, device=q.device)
     err = _cuda.lib().die_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        m.data_ptr(), l.data_ptr(), b, h, n_kv_heads, dh, page_size,
-        page_table.shape[1], int(window), base, _cuda.dtype_code(q.dtype),
-        _cuda.dtype_code(k_pages.dtype), _cuda.stream_ptr(q.device))
+        m.data_ptr(), l.data_ptr(), ws.data_ptr() if n_split > 1 else None,
+        b, h, n_kv_heads, dh, page_size, mp, int(window), n_split, chunk,
+        base, _cuda.dtype_code(q.dtype), _cuda.dtype_code(k_pages.dtype),
+        _cuda.stream_ptr(q.device))
     _cuda.check(err, name)
     _cuda.LAUNCHES[name] += 1
     if with_stats:

@@ -4,11 +4,13 @@ tests/test_torch_cuda.py``, since ``tests/conftest.py`` imports JAX; skipped
 without a card). Small shapes; chip_smoke.py checks the Llama-3-8B and Mistral ones.
 Tolerances: fp32 atol 1e-4, bf16 (and fp32 over bf16 pools) atol = rtol =
 2e-2; written pages and side rows equal; paged attention's m and l
-within 1e-4 of the plain version's on the inputs widened to fp32. The int4 matmul is held per output
+within 1e-4 of the plain version's on the inputs widened to fp32, also
+with a slot's keys split over many blocks. The int4 matmul is held per output
 column to max|out - ref32| / max|ref32| <= 1e-2 (bf16) and 1e-4 (fp32) at
 8 rows and more, ref32 being the plain version on the same inputs widened
 to fp32, and at every row count to the same bound relative to the column's
-largest sum |x w| s, at every Llama-3-8B projection shape."""
+largest sum |x w| s, at every Llama-3-8B projection shape; each call
+also counts one launch of the instance ``int4_instance`` names."""
 
 import pytest
 import torch
@@ -157,20 +159,13 @@ def test_ragged_attention_kernel(card, dtype, kv_dtype, h, hkv, dh):
         assert float(out[i, qi:].abs().max() if qi < qmax else 0) == 0.0
 
 
-@pytest.mark.parametrize("window", [0, 16, 40])
-@pytest.mark.parametrize("dtype,kv_dtype", [
-    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
-@pytest.mark.parametrize("h,hkv,dh", [(8, 8, 32), (8, 4, 64), (32, 8, 128),
-                                      (16, 2, 128)])
-def test_paged_attention_kernel(card, dtype, kv_dtype, window, h, hkv, dh):
-    """Lengths 0 (an empty slot), around page edges and windows, a full
-    table; per-layer and stacked (layer 1) pools, out and the flash stats
-    against the plain version."""
-    g = torch.Generator(device=card).manual_seed(5)
-    p, mp, n = 16, 6, 60
-    lens = [0, 1, 15, 16, 17, 40, 41, 56, 57, 96]
+def _paged_case(card, dtype, kv_dtype, h, hkv, dh, p, mp, lens, window,
+                seed):
+    """Per-layer and stacked (layer 1) pools: out and the flash stats
+    against the plain version (stats on the inputs widened to fp32)."""
+    g = torch.Generator(device=card).manual_seed(seed)
     b = len(lens)
+    n = b * mp + 4
     q = torch.randn((b, h, dh), generator=g, device=card).to(dtype)
     kp = torch.randn((2 * n, p, hkv * dh), generator=g,
                      device=card).to(kv_dtype)
@@ -198,8 +193,47 @@ def test_paged_attention_kernel(card, dtype, kv_dtype, window, h, hkv, dh):
         live = rl > 0
         torch.testing.assert_close(m[live], rm[live], atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
-        assert float(out[0].abs().max()) == 0.0 and float(l[0].max()) == 0.0
-        assert float(m[0].max()) <= -1e29
+        empty = lengths == 0
+        assert float(out[empty].abs().max() if empty.any() else 0) == 0.0
+        assert float(l[empty].abs().max() if empty.any() else 0) == 0.0
+        assert bool((m[empty] <= -1e29).all())
+
+
+@pytest.mark.parametrize("window", [0, 16, 40])
+@pytest.mark.parametrize("dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("h,hkv,dh", [(8, 8, 32), (8, 4, 64), (32, 8, 128),
+                                      (16, 2, 128)])
+def test_paged_attention_kernel(card, dtype, kv_dtype, window, h, hkv, dh):
+    """Lengths 0 (an empty slot), around page edges and windows, a full
+    table; per-layer and stacked (layer 1) pools, out and the flash stats
+    against the plain version."""
+    _paged_case(card, dtype, kv_dtype, h, hkv, dh, 16, 6,
+                [0, 1, 15, 16, 17, 40, 41, 56, 57, 96], window, seed=5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [0, 4096, 1000])
+@pytest.mark.parametrize("slots", ["one long", "split edges"])
+def test_paged_attention_split_kv(card, dtype, window, slots):
+    """A slot's keys cut over many blocks at the Mistral widths (H 32, Hkv
+    8, Dh 128, pages of 128, 48 a slot): B = 1 with a 6,000-key slot, and 8
+    slots with lengths on the split edges, one key either side of them, a
+    window whose first key falls mid-run (window 1000) and the empty
+    slot."""
+    p, mp, hkv = 128, 48, 8
+    max_keys = min(mp * p, window) if window else mp * p
+    if slots == "one long":
+        lens = [6000]
+    else:
+        sms = torch.cuda.get_device_properties(card).multi_processor_count
+        n_split, chunk = pa.paged_split(8, hkv, max_keys, sms)
+        assert n_split > 1 and n_split * chunk >= max_keys
+        lens = [0, 1, chunk, chunk + 1, 2 * chunk - 1, 3 * chunk,
+                min(mp * p, (window or 4096) + chunk), 6000]
+    _paged_case(card, dtype, dtype, 32, hkv, 128, p, mp, lens, window,
+                seed=len(lens) + window)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
@@ -235,16 +269,25 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
                                n_kv_heads=2, **kw)
 
 
-def _int4_case(card, dtype, m, k2, n, seed):
+def _int4_case(card, dtype, m, k2, n, seed, expect=None, x_offset=0):
+    """``expect``: the instance the call must take (else the one
+    ``int4_instance`` names); ``x_offset``: x starts that many elements
+    into its buffer (off the 16-byte alignment when odd)."""
     g = torch.Generator(device=card).manual_seed(seed)
-    x = torch.randn((m, 2 * k2), generator=g, device=card).to(dtype)
+    buf = torch.randn((m * 2 * k2 + x_offset,), generator=g,
+                      device=card).to(dtype)
+    x = buf[x_offset:].view(m, 2 * k2)
     packed = torch.randint(-128, 128, (k2, n), generator=g, device=card,
                            dtype=torch.int8)
     scale = 0.01 * torch.rand((n,), generator=g, device=card) + 1e-3
+    inst = i4.int4_instance(m, k2, n, dtype, x.data_ptr() % 16 == 0)
+    assert expect is None or inst == expect, (inst, expect)
     before = _cuda.LAUNCHES["int4_matmul"]
+    before_inst = _cuda.LAUNCHES[f"int4_matmul.{inst}"]
     out = i4.int4_matmul(x, packed, scale)
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["int4_matmul"] == before + 1
+    assert _cuda.LAUNCHES[f"int4_matmul.{inst}"] == before_inst + 1
     assert out.dtype == dtype and out.shape == (m, n)
     ref32 = i4.int4_matmul_plain(x.float(), packed, scale)
     # the magnitude of each entry's sum, sum_k |x w| s: a column of one or
@@ -285,6 +328,25 @@ def test_int4_matmul_ragged_edges(card, dtype, m, k2, n):
     """Odd M, N off the tiles (and off the vector widths), K/2 off the
     tiles: every edge is bounds-checked."""
     _int4_case(card, dtype, m, k2, n, seed=m * k2)
+
+
+# K/2 = 1000 is not a multiple of the wgmma instance's 64-row k-tile
+@pytest.mark.parametrize("k2,n", [(2048, 4096), (1000, 1040)])
+@pytest.mark.parametrize("m", [17, 63, 64, 65, 129, 512, 2560])
+def test_int4_matmul_wgmma_instance(card, m, k2, n):
+    """bf16 above 16 rows at TMA-addressable shapes: the wgmma instance,
+    every token tile ``wgmma_tile`` picks (64, 128, 256) and the edges of
+    each."""
+    _int4_case(card, torch.bfloat16, m, k2, n, seed=m + k2, expect="wgmma")
+
+
+@pytest.mark.parametrize("m,k2,n,x_offset", [(37, 2000, 4100, 0),
+                                             (40, 2048, 4096, 1)])
+def test_int4_matmul_untileable_takes_wmma(card, m, k2, n, x_offset):
+    """N off the 16-byte TMA stride, or x off 16-byte alignment: the wmma
+    instance, chosen by shape and alignment before the launch."""
+    _int4_case(card, torch.bfloat16, m, k2, n, seed=m, expect="wmma",
+               x_offset=x_offset)
 
 
 def test_int4_matmul_refuses_what_the_kernel_does_not_take(card):

@@ -6,7 +6,8 @@ layer-stacked wrappers, fp32 (rtol = atol = 2e-5) and bf16 (rtol = atol =
 1e-2, the JAX test's own band: the TPU kernel rounds once after the fp32
 sum and the scale, as the plain version does); and the port's
 ``forward_train`` logits against JAX's with the kernel on, on a tileable
-tiny int4 tree, in fp32 (atol 1e-4)."""
+tiny int4 tree, in fp32 (atol 1e-4); and the CUDA kernel's instance
+choice, from shapes, dtype and alignment alone."""
 
 import jax
 import jax.numpy as jnp
@@ -30,8 +31,10 @@ from distributed_inference_engine_tpu_torch.models.llama import (
 from distributed_inference_engine_tpu_torch.ops import _cuda
 from distributed_inference_engine_tpu_torch.ops import quant as tq
 from distributed_inference_engine_tpu_torch.ops.int4_matmul import (
+    int4_instance,
     int4_matmul,
     int4_matmul_plain,
+    wgmma_tile,
 )
 
 pytestmark = pytest.mark.torch_port
@@ -124,3 +127,42 @@ def test_forward_train_logits_match_jax_kernel_on(kernel_on):
         np.testing.assert_allclose(got[b, :n].numpy(),
                                    np.asarray(want)[b, :n], rtol=0,
                                    atol=1e-4)
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("m,k2,n,dtype,aligned,want", [
+    (1, 2048, 28672, BF16, True, "gemv"),       # decode, one slot
+    (16, 2048, 129024, F32, True, "gemv"),      # the head, fp32 rows
+    (17, 2048, 28672, BF16, True, "wgmma"),     # smallest tiled M
+    (2560, 7168, 4096, BF16, True, "wgmma"),    # the mixed step's lattice
+    (2560, 2048, 129024, F32, True, "simt"),    # fp32 parity engines
+    (37, 2000, 4100, BF16, True, "wmma"),       # N % 16 != 0
+    (40, 1004, 4096, BF16, True, "wmma"),       # K/2 % 8 != 0
+    (40, 2048, 4096, BF16, False, "wmma"),      # x or payload off 16 bytes
+])
+def test_int4_instance_choice(m, k2, n, dtype, aligned, want):
+    assert int4_instance(m, k2, n, dtype, aligned) == want
+
+
+# (M, N) -> tokens per block at 132 SMs; the cost is waves x (tile + 160)
+@pytest.mark.parametrize("m,n,want", [
+    (17, 4096, 64),        # a small mixed step: one wave whatever the tile
+    (64, 28672, 64),       # 224 blocks: two waves of 64 beat two of 128
+    (65, 28672, 128),      # 64: four waves (896); 128: two (576)
+    (65, 4096, 64),        # one wave either way
+    (200, 4096, 64),       # 64: 128 blocks, one wave
+    (200, 6144, 128),      # 64: 192 blocks, two waves (448); 128: one (288)
+    (200, 28672, 256),     # 256: two waves (832); 128: four (1152)
+    (512, 4096, 128),      # 128: one wave (288); 64: two (448)
+    (512, 6144, 256),      # 256: one wave of 96 blocks (416)
+    (512, 28672, 256),     # an admission prefill's gate|up
+    (2560, 4096, 256),     # the lattice's o and down: 320 blocks
+    (2560, 6144, 256),
+    (2560, 28672, 256),
+])
+def test_wgmma_token_tile(m, n, want):
+    """The wgmma instance's tokens per block, from the shapes and the SM
+    count (132 on an H100 SXM) alone."""
+    assert wgmma_tile(m, n, 132) == want

@@ -3,9 +3,12 @@ package's ``paged_attention_xla`` and its Pallas kernel in interpret mode
 (``paged_attention_pallas(interpret=True)``, as ``tests/test_paged.py``
 runs it), with sliding windows, GQA, a partial last page, an empty slot,
 lengths at and around the window and page edges, flash stats and the
-stacked-pool layer offset; the windowed prefill attentions against JAX's.
-Tolerances: fp32 1e-5; bf16 2e-2 against the interpreted kernel (the
-XLA path rounds the scores to bf16 first, the kernel does not)."""
+stacked-pool layer offset; the windowed prefill attentions against JAX's;
+the CUDA kernel's split-KV rule (each slot's keys cut into runs, each run
+a plain paged attention with stats, merged) against JAX's attention over
+all keys; and the kernel's split sizing. Tolerances: fp32 1e-5; bf16 2e-2
+against the interpreted kernel (the XLA path rounds the scores to bf16
+first, the kernel does not)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -174,3 +177,72 @@ def test_windowed_suffix_attention(window):
         q, kc, vc, n_ctx, ks, vs, slen)), window=window)
     for i, n in enumerate(slen):
         _close(got[i, :n], want[i, :n])
+
+
+def _runs_merged(case, hkv, window, chunk):
+    """The CUDA kernel's split-KV rule on the port's plain version: slot
+    b's valid keys [lo, hi) are cut into runs of ``chunk`` keys from lo, as
+    many as the longest possible slot needs; run [s0, s1) is
+    ``paged_attention_xla`` with lengths s1 and window s1 - s0 (an empty
+    run: lengths 0), and the runs' (out, m, l) merge as
+    ``merge_attention`` and the merge kernel do."""
+    q, kp, vp, table, lens = (np.asarray(a) for a in case)
+    max_keys = MP * P if not window else min(MP * P, window)
+    n_split = -(-max_keys // chunk)
+    outs, ms, ls = [], [], []
+    for b, n in enumerate(lens):
+        hi = min(int(n), MP * P)
+        lo = max(0, int(n) - window) if window else 0
+        parts = []
+        for i in range(n_split):
+            s0 = lo + i * chunk
+            s1 = min(hi, s0 + chunk)
+            length, win = (s1, s1 - s0) if s1 > s0 else (0, 0)
+            parts.append(tpa.paged_attention_xla(
+                _t(q[b:b + 1]), _t(kp), _t(vp), _t(table[b:b + 1]),
+                _t(np.array([length], np.int32)), n_kv_heads=hkv,
+                window=win, with_stats=True))
+        m = torch.stack([pm for _, pm, _ in parts]).amax(0)
+        l = sum(pl * torch.exp(pm - m) for _, pm, pl in parts)
+        outs.append(tatt.merge_attention(parts))
+        ms.append(m)
+        ls.append(l)
+    return torch.cat(outs), torch.cat(ms), torch.cat(ls), n_split
+
+
+# runs of 5 keys (most slots end in empty runs), 12 and 24 (runs cut pages
+# of 16 mid-page; the first run starts at the window's edge, mid-page for
+# most lengths, and the last is partial; at window 16 runs of 24 are one
+# run, the kernel's route without a merge)
+@pytest.mark.parametrize("chunk", [5, 12, 24])
+@pytest.mark.parametrize("window", [0, 16, 64])
+def test_split_kv_rule_matches_jax(window, chunk):
+    h, hkv, dh = 8, 2, 64
+    case = _case(70 + window + chunk, h, hkv, dh)
+    out, m, l, n_split = _runs_merged(case, hkv, window, chunk)
+    assert n_split == -(-(window or MP * P) // chunk)
+    want = jpaged.paged_attention_xla(*case, n_kv_heads=hkv, window=window,
+                                      with_stats=True)
+    _close(out, want[0])
+    np.testing.assert_allclose(_np(l), _np(want[2]), rtol=1e-5, atol=ATOL)
+    live = np.asarray(LENS) > 0
+    _close(m[live], np.asarray(want[1])[live])
+    assert float(out[0].abs().max()) == 0.0 and float(l[0].max()) == 0.0
+    assert float(m[0].max()) <= -1e29
+
+
+@pytest.mark.parametrize("b,hkv,max_keys,sms,want", [
+    (8, 8, 4096, 132, (8, 512)),      # Mistral decode, window 4096
+    (8, 8, 6144, 132, (9, 704)),      # window 0, 48 pages of 128
+    (1, 8, 6144, 132, (24, 256)),     # one long slot: runs of 256 keys
+    (64, 8, 6144, 132, (2, 3072)),    # 512 (slot, head) pairs fill the card
+    (8, 8, 100, 132, (1, 128)),       # short slots: one run, no merge
+])
+def test_paged_split_sizing(b, hkv, max_keys, sms, want):
+    """The kernel's grid from shapes alone: n_split runs of chunk keys
+    cover the longest possible slot, the last run is not empty, and a run
+    is a multiple of 64 keys."""
+    n_split, chunk = tpa.paged_split(b, hkv, max_keys, sms)
+    assert (n_split, chunk) == want
+    assert n_split * chunk >= max_keys > (n_split - 1) * chunk
+    assert chunk % 64 == 0
