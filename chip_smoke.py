@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py             # every phase (needs one card)
     python3 chip_smoke.py --profile   # ... plus profiles of the fused
-                                      # and the inline Mistral decode and
+                                      # decode (with flash-decode's ms per
+                                      # step) and the inline Mistral decode and
                                       # of the bf16 and int4 mixed steps,
                                       # and the int4 wgmma token tiles
 
@@ -19,8 +20,10 @@ Phases, each failing loudly (any failure exits non-zero):
    calls) with CUDA events over back-to-back launches on rotating
    buffers (cold L2):
    - flash-decode and its writeback variant at the decode shapes (B=8,
-     H=32, Hkv=8, Dh=128, P=128, W=8, MP=16; the fw check with inactive
-     slots and a slot at side_idx = W, the side buffers compared);
+     H=32, Hkv=8, Dh=128, P=128, W=8, MP=16), and with one 2,040-key slot
+     alone (B=1, the single-user decode), each row printing its split
+     grid (runs x keys); the fw check with inactive slots and a slot at
+     side_idx = W, the side buffers compared;
    - ragged attention at R=10 rows (8 decode rows with context 0-1000, two
      of them inert, a 256-query chunk at 0 and a 177-query chunk at 444
      straddling a page; MP=8), the written pages compared;
@@ -200,6 +203,30 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def flash_decode_ptxas(report: str) -> str:
+    """ptxas's registers and spills of the flash-decode instances, by head
+    width (the template argument Dh read off the mangled names)."""
+    inst = {}
+    for block in report.split("Compiling entry function")[1:]:
+        name = re.search(r"'(\S+)'", block)
+        args = re.search(r"flash_decode_kernel\S*?Li(\d+)ELi(\d+)ELb([01])E",
+                         name.group(1) if name else "")
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        if args and regs and spill:
+            inst.setdefault(int(args.group(1)), []).append(
+                (int(regs.group(1)), int(spill.group(1))))
+    parts = []
+    for dh, rows in sorted(inst.items()):
+        spilled = [sp for _, sp in rows if sp]
+        parts.append(f"Dh {dh}: {min(r for r, _ in rows)}-"
+                     f"{max(r for r, _ in rows)} registers, "
+                     + (f"{len(spilled)}/{len(rows)} spill (max "
+                        f"{max(spilled)} B)" if spilled else "no spill"))
+    return (f"flash_decode.cu, {sum(map(len, inst.values()))} instances: "
+            + "; ".join(parts))
+
+
 # ----------------------------------------------------------------- timing
 
 
@@ -250,190 +277,218 @@ def within(torch, got, ref, dtype: str) -> bool:
 # ---------------------------------------------------------------- phase 2
 
 
+# flash-decode cases: (label, prefix lengths, n_side, fw side_idx, fw
+# active). The Llama-3-8B decode batch, and one 2,040-key slot alone (the
+# single-user decode, where one block per (slot, KV head) used 8 SMs)
+FD_CASES = [
+    ("B8", [0, 1, 127, 128, 300, 777, 1500, 2040], [0, 1, 3, 8, 2, 5, 8, 7],
+     [0, 1, 3, W, 2, 5, 7, 6], [1, 1, 0, 1, 1, 0, 1, 1]),
+    ("B1", [2040], [W], [6], [1]),
+]
+
+
+def fd_inputs(torch, g, nb: int, dt, n_copies_limit: int = 4):
+    """q, the stacked two-layer pools (copies for cold L2), a shuffled page
+    table and side buffers of an nb-slot flash-decode call."""
+    n_layers, n_per_layer = 2, nb * MP
+    perm = torch.randperm(n_per_layer, generator=g, device="cuda")
+    table = perm.reshape(nb, MP).to(torch.int32).contiguous()
+    q = torch.randn((nb, H, DH), generator=g, device="cuda").to(dt)
+    pool_shape = (n_layers * n_per_layer, P, HKV * DH)
+    item = torch.finfo(dt).bits // 8
+    n_copies = copies_for(2 * n_per_layer * P * HKV * DH * item,
+                          limit=n_copies_limit)
+    kps = [torch.randn(pool_shape, generator=g, device="cuda").to(dt)
+           for _ in range(n_copies)]
+    vps = [torch.randn(pool_shape, generator=g, device="cuda").to(dt)
+           for _ in range(n_copies)]
+    sk = torch.randn((nb, W, HKV, DH), generator=g, device="cuda").to(dt)
+    sv = torch.randn((nb, W, HKV, DH), generator=g, device="cuda").to(dt)
+    return q, kps, vps, table, sk, sv, n_per_layer
+
+
+def fd_sdpa_ms(torch, q, kp, vp, table, prefix, sk, sv, n_side,
+               n_per_layer):
+    """Library yardstick: SDPA over the pre-gathered K/V (layer 1's pages
+    and the side window) with a length mask (the gather is not timed)."""
+    F = torch.nn.functional
+    nb = q.shape[0]
+    idx = (n_per_layer + table.long())
+    kg = torch.cat([kp[idx].reshape(nb, MP * P, HKV, DH), sk], 1)
+    vg = torch.cat([vp[idx].reshape(nb, MP * P, HKV, DH), sv], 1)
+    kg = kg.transpose(1, 2).contiguous()
+    vg = vg.transpose(1, 2).contiguous()
+    pos = torch.arange(MP * P + W, device="cuda")[None, :]
+    mask = ((pos < prefix[:, None]) | ((pos >= MP * P)
+            & (pos - MP * P < n_side[:, None])))[:, None, None, :]
+    q4 = q[:, :, None, :]
+    return time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, kg, vg, attn_mask=mask, enable_gqa=True), lambda i: ())
+
+
+def fd_row_rel(torch, out, ref32) -> float:
+    """max over (slot, head) rows of max|out - ref32| / max|ref32|: the
+    rows with thousands of keys have outputs near 0.05, where the
+    elementwise atol alone would be loose."""
+    row_err = (out.float() - ref32).abs().amax(-1)
+    row_ref = ref32.abs().amax(-1)
+    live = row_ref > 0
+    return float((row_err[live] / row_ref[live]).max())
+
+
 def check_flash_decode(torch):
+    """Kernel 1 at the decode shapes (B 8, and B 1 with one 2,040-key
+    slot), held against the plain version: elementwise and
+    per row against the plain version on the same values in fp32 (the bf16
+    plain composition itself rounds three times: prefix part, window part,
+    merge; the kernel once); a slot with no key gives exactly 0."""
     from distributed_inference_engine_tpu_torch.ops import flash_decode as fd
 
-    F = torch.nn.functional
     rows = []
     g = torch.Generator(device="cuda").manual_seed(1)
-    n_layers, n_per_layer = 2, B * MP
-    prefix = torch.tensor([0, 1, 127, 128, 300, 777, 1500, 2040],
-                          dtype=torch.int32, device="cuda")
-    n_side = torch.tensor([0, 1, 3, 8, 2, 5, 8, 7], dtype=torch.int32,
-                          device="cuda")
-    perm = torch.randperm(n_per_layer, generator=g, device="cuda")
-    table = perm.reshape(B, MP).to(torch.int32).contiguous()
-    for dtype_name in ("bfloat16", "float32"):
-        dt = getattr(torch, dtype_name)
-        q = torch.randn((B, H, DH), generator=g, device="cuda").to(dt)
-        pool_shape = (n_layers * n_per_layer, P, HKV * DH)
-        pool_bytes = 2 * n_layers * n_per_layer * P * HKV * DH * \
-            torch.finfo(dt).bits // 8
-        n_copies = copies_for(pool_bytes // n_layers, limit=4)
-        kps = [torch.randn(pool_shape, generator=g, device="cuda").to(dt)
-               for _ in range(n_copies)]
-        vps = [torch.randn(pool_shape, generator=g, device="cuda").to(dt)
-               for _ in range(n_copies)]
-        sk = torch.randn((B, W, HKV, DH), generator=g, device="cuda").to(dt)
-        sv = torch.randn((B, W, HKV, DH), generator=g, device="cuda").to(dt)
-        args = (q, kps[0], vps[0], table, prefix, sk, sv, n_side)
-        kw = dict(n_kv_heads=HKV, layer=1, n_pages_per_layer=n_per_layer)
-        out = fd.flash_decode_attention(*args, **kw)
-        torch.cuda.synchronize()
-        ref = fd.flash_decode_attention_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = max_err(torch, out, ref)
-        # per (slot, head) row, relative to the row's largest output: the
-        # rows with thousands of keys have outputs near 0.05, where the
-        # elementwise atol alone would be loose. The reference is the plain
-        # version on the same values widened to fp32, since the bf16 plain
-        # composition itself rounds three times (prefix part, window part,
-        # merge) and the kernel once
-        ref32 = fd.flash_decode_attention_plain(
-            *(t.float() if t.is_floating_point() else t for t in args),
-            **kw)
-        row_err = (out.float() - ref32).abs().amax(-1)
-        row_ref = ref32.abs().amax(-1)
-        live = row_ref > 0
-        row_rel = float((row_err[live] / row_ref[live]).max())
-        ok = (within(torch, out, ref, dtype_name)
-              and row_rel <= ROW_REL_TOL[dtype_name])
-        assert torch.isfinite(out).all(), "flash_decode: non-finite output"
-        # row 0 has no prefix and no side key: exactly zero
-        assert float(out[0].abs().max()) == 0.0, "flash_decode: empty row"
-        assert int(live.sum()) == (B - 1) * H, "flash_decode: zero rows"
+    i32 = dict(dtype=torch.int32, device="cuda")
+    for label, prefix_l, n_side_l, _, _ in FD_CASES:
+        nb = len(prefix_l)
+        prefix = torch.tensor(prefix_l, **i32)
+        n_side = torch.tensor(n_side_l, **i32)
+        n_split, chunk = fd.flash_decode_split(nb, HKV, P, MP,
+                                               torch.device("cuda", 0))
+        for dtype_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype_name)
+            q, kps, vps, table, sk, sv, n_per_layer = fd_inputs(
+                torch, g, nb, dt)
+            n_copies = len(kps)
+            args = (q, kps[0], vps[0], table, prefix, sk, sv, n_side)
+            kw = dict(n_kv_heads=HKV, layer=1, n_pages_per_layer=n_per_layer)
+            ref = fd.flash_decode_attention_plain(*args, **kw)
+            ref32 = fd.flash_decode_attention_plain(
+                *(t.float() if t.is_floating_point() else t for t in args),
+                **kw)
+            torch.cuda.synchronize()
 
-        def mk(i):
-            j = i % n_copies
-            return (q, kps[j], vps[j], table, prefix, sk, sv, n_side)
+            def mk(i):
+                j = i % n_copies
+                return (q, kps[j], vps[j], table, prefix, sk, sv, n_side)
 
-        t_k = time_ms(torch, lambda *a: fd.flash_decode_attention(*a, **kw),
-                      mk)
-        t_p = time_ms(torch,
-                      lambda *a: fd.flash_decode_attention_plain(*a, **kw),
-                      mk, reps=3, per_rep=3)
-        # library yardstick: SDPA over the pre-gathered K/V with a length
-        # mask (the gather itself is not timed)
-        idx = (n_per_layer + table.long())
-        kg = torch.cat([kps[0][idx].reshape(B, MP * P, HKV, DH), sk], 1)
-        vg = torch.cat([vps[0][idx].reshape(B, MP * P, HKV, DH), sv], 1)
-        kg = kg.transpose(1, 2).contiguous()
-        vg = vg.transpose(1, 2).contiguous()
-        pos = torch.arange(MP * P + W, device="cuda")[None, :]
-        mask = ((pos < prefix[:, None]) | ((pos >= MP * P)
-                & (pos - MP * P < n_side[:, None])))[:, None, None, :]
-        q4 = q[:, :, None, :]
-        t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, kg, vg, attn_mask=mask, enable_gqa=True), lambda i: ())
-        keys = int(prefix.sum()) + int(n_side.sum())
-        item = torch.finfo(dt).bits // 8
-        nbytes = (2 * keys * HKV * DH + 2 * B * H * DH) * item + \
-            (table.numel() + 2 * B) * 4
-        b_ms, b_by = bound_ms(nbytes, 4.0 * keys * H * DH, dtype_name)
-        rows.append(dict(dtype=dtype_name, err=err, ok=ok, ms=t_k,
-                         plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                         bound_by=b_by, row_rel=row_rel,
-                         shape=f"B{B} H{H} Hkv{HKV} Dh{DH} "
-                         f"P{P} MP{MP} W{W} keys{keys}"))
+            t_p = time_ms(torch,
+                          lambda *a: fd.flash_decode_attention_plain(*a, **kw),
+                          mk, reps=3, per_rep=3)
+            t_l = fd_sdpa_ms(torch, q, kps[0], vps[0], table, prefix, sk, sv,
+                             n_side, n_per_layer)
+            keys = int(prefix.sum()) + int(n_side.sum())
+            item = torch.finfo(dt).bits // 8
+            nbytes = (2 * keys * HKV * DH + 2 * nb * H * DH) * item + \
+                (table.numel() + 2 * nb) * 4
+            b_ms, b_by = bound_ms(nbytes, 4.0 * keys * H * DH, dtype_name)
+            out = fd.flash_decode_attention(*args, **kw)
+            torch.cuda.synchronize()
+            err = max_err(torch, out, ref)
+            row_rel = fd_row_rel(torch, out, ref32)
+            ok = (within(torch, out, ref, dtype_name)
+                  and row_rel <= ROW_REL_TOL[dtype_name])
+            assert torch.isfinite(out).all(), "flash_decode: non-finite output"
+            empty = (prefix + n_side) == 0
+            assert float(out[empty].abs().max() if empty.any()
+                         else 0) == 0.0, "flash_decode: empty row"
+            assert int((ref32.abs().amax(-1) > 0).sum()) == \
+                int((~empty).sum()) * H, "flash_decode: zero rows"
+            t_k = time_ms(torch,
+                          lambda *a: fd.flash_decode_attention(*a, **kw), mk)
+            rows.append(dict(
+                dtype=dtype_name, err=err, ok=ok, ms=t_k, plain_ms=t_p,
+                library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                row_rel=row_rel, n_split=n_split, chunk=chunk,
+                note=f"{n_split} runs of {chunk}",
+                shape=f"{label} H{H} Hkv{HKV} Dh{DH} "
+                f"P{P} MP{MP} W{W} keys{keys}"))
     return rows
 
 
 def check_flash_decode_fw(torch):
-    """The writeback variant at kernel 1's shapes: some slots inactive,
-    slot 3 active at side_idx = W (the fresh row is dropped there, as in
-    the plain version); output and the side buffers after the write."""
+    """The writeback variant at kernel 1's cases: some slots inactive,
+    slot 3 of B 8 active at side_idx = W (the fresh row is dropped there,
+    as in the plain version); output and the side buffers after the
+    write, bit-equal to the plain version's."""
     from distributed_inference_engine_tpu_torch.ops import flash_decode as fd
 
-    F = torch.nn.functional
     rows = []
     g = torch.Generator(device="cuda").manual_seed(5)
-    n_layers, n_per_layer = 2, B * MP
     i32 = dict(dtype=torch.int32, device="cuda")
-    prefix = torch.tensor([0, 1, 127, 128, 300, 777, 1500, 2040], **i32)
-    side_idx = torch.tensor([0, 1, 3, W, 2, 5, 7, 6], **i32)
-    active = torch.tensor([1, 1, 0, 1, 1, 0, 1, 1], **i32)
-    perm = torch.randperm(n_per_layer, generator=g, device="cuda")
-    table = perm.reshape(B, MP).to(torch.int32).contiguous()
-    # side entries read, the fresh rows attended (and written)
-    n_read = torch.clamp(side_idx, max=W)
-    wrote = (active > 0) & (side_idx < W)
-    for dtype_name in ("bfloat16", "float32"):
-        dt = getattr(torch, dtype_name)
-        q = torch.randn((B, H, DH), generator=g, device="cuda").to(dt)
-        pool_shape = (n_layers * n_per_layer, P, HKV * DH)
-        item = torch.finfo(dt).bits // 8
-        n_copies = copies_for(2 * n_per_layer * P * HKV * DH * item, limit=4)
-        kps = [torch.randn(pool_shape, generator=g, device="cuda").to(dt)
-               for _ in range(n_copies)]
-        vps = [torch.randn(pool_shape, generator=g, device="cuda").to(dt)
-               for _ in range(n_copies)]
-        sk = torch.randn((B, W, HKV, DH), generator=g, device="cuda").to(dt)
-        sv = torch.randn((B, W, HKV, DH), generator=g, device="cuda").to(dt)
-        fk = torch.randn((B, 1, HKV, DH), generator=g, device="cuda").to(dt)
-        fv = torch.randn((B, 1, HKV, DH), generator=g, device="cuda").to(dt)
-        kw = dict(n_kv_heads=HKV, layer=1, n_pages_per_layer=n_per_layer)
-        sk_k, sv_k, sk_p, sv_p = sk.clone(), sv.clone(), sk.clone(), sv.clone()
-        out, _, _ = fd.flash_decode_attention_fw(
-            q, kps[0], vps[0], table, prefix, sk_k, sv_k, fk, fv, side_idx,
-            active, **kw)
-        torch.cuda.synchronize()
-        ref, _, _ = fd.flash_decode_attention_fw_plain(
-            q, kps[0], vps[0], table, prefix, sk_p, sv_p, fk, fv, side_idx,
-            active, **kw)
-        torch.cuda.synchronize()
-        sides_equal = torch.equal(sk_k, sk_p) and torch.equal(sv_k, sv_p)
-        assert bool(torch.equal(sk_k[~wrote], sk[~wrote])), \
-            "flash_decode_fw: wrote an inactive or full-window side row"
-        err = max_err(torch, out, ref)
-        # per (slot, head) row against the plain version in fp32, as for
-        # kernel 1
-        ref32, _, _ = fd.flash_decode_attention_fw_plain(
-            q.float(), kps[0].float(), vps[0].float(), table, prefix,
-            sk.float(), sv.float(), fk.float(), fv.float(), side_idx, active,
-            **kw)
-        row_err = (out.float() - ref32).abs().amax(-1)
-        row_ref = ref32.abs().amax(-1)
-        live = row_ref > 0
-        row_rel = float((row_err[live] / row_ref[live]).max())
-        ok = (within(torch, out, ref, dtype_name) and sides_equal
-              and row_rel <= ROW_REL_TOL[dtype_name])
-        assert torch.isfinite(out).all(), "flash_decode_fw: non-finite"
+    for label, prefix_l, _, side_idx_l, active_l in FD_CASES:
+        nb = len(prefix_l)
+        prefix = torch.tensor(prefix_l, **i32)
+        side_idx = torch.tensor(side_idx_l, **i32)
+        active = torch.tensor(active_l, **i32)
+        n_split, chunk = fd.flash_decode_split(nb, HKV, P, MP,
+                                               torch.device("cuda", 0))
+        # side entries read, the fresh rows attended (and written)
+        n_read = torch.clamp(side_idx, max=W)
+        wrote = (active > 0) & (side_idx < W)
+        for dtype_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype_name)
+            q, kps, vps, table, sk, sv, n_per_layer = fd_inputs(
+                torch, g, nb, dt)
+            n_copies = len(kps)
+            fk = torch.randn((nb, 1, HKV, DH), generator=g,
+                             device="cuda").to(dt)
+            fv = torch.randn((nb, 1, HKV, DH), generator=g,
+                             device="cuda").to(dt)
+            kw = dict(n_kv_heads=HKV, layer=1, n_pages_per_layer=n_per_layer)
+            sk_p, sv_p = sk.clone(), sv.clone()
+            ref, _, _ = fd.flash_decode_attention_fw_plain(
+                q, kps[0], vps[0], table, prefix, sk_p, sv_p, fk, fv,
+                side_idx, active, **kw)
+            ref32, _, _ = fd.flash_decode_attention_fw_plain(
+                q.float(), kps[0].float(), vps[0].float(), table, prefix,
+                sk.float(), sv.float(), fk.float(), fv.float(), side_idx,
+                active, **kw)
+            torch.cuda.synchronize()
+            sk_t, sv_t = sk.clone(), sv.clone()
 
-        def mk(i):
-            j = i % n_copies
-            return (q, kps[j], vps[j], table, prefix, sk_k, sv_k, fk, fv,
-                    side_idx, active)
+            def mk(i):
+                j = i % n_copies
+                return (q, kps[j], vps[j], table, prefix, sk_t, sv_t, fk, fv,
+                        side_idx, active)
 
-        t_k = time_ms(torch,
-                      lambda *a: fd.flash_decode_attention_fw(*a, **kw), mk)
-        t_p = time_ms(torch,
-                      lambda *a: fd.flash_decode_attention_fw_plain(*a, **kw),
-                      mk, reps=3, per_rep=3)
-        # library yardstick: kernel 1's SDPA over the pre-gathered prefix
-        # and the side window after the write
-        n_side = torch.clamp(side_idx + active, max=W)
-        idx = (n_per_layer + table.long())
-        kg = torch.cat([kps[0][idx].reshape(B, MP * P, HKV, DH), sk_k], 1)
-        vg = torch.cat([vps[0][idx].reshape(B, MP * P, HKV, DH), sv_k], 1)
-        kg = kg.transpose(1, 2).contiguous()
-        vg = vg.transpose(1, 2).contiguous()
-        pos = torch.arange(MP * P + W, device="cuda")[None, :]
-        mask = ((pos < prefix[:, None]) | ((pos >= MP * P)
-                & (pos - MP * P < n_side[:, None])))[:, None, None, :]
-        q4 = q[:, :, None, :]
-        t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, kg, vg, attn_mask=mask, enable_gqa=True), lambda i: ())
-        n_fresh = int(wrote.sum())
-        keys = int(prefix.sum()) + int(n_read.sum()) + n_fresh
-        # K/V of every key read once, the fresh rows written once, q, out
-        nbytes = (2 * (keys + n_fresh) * HKV * DH + 2 * B * H * DH) * item + \
-            (table.numel() + 3 * B) * 4
-        b_ms, b_by = bound_ms(nbytes, 4.0 * keys * H * DH, dtype_name)
-        rows.append(dict(dtype=dtype_name, err=err, ok=ok, ms=t_k,
-                         plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                         bound_by=b_by, row_rel=row_rel,
-                         shape=f"B{B} H{H} Hkv{HKV} Dh{DH} "
-                         f"P{P} MP{MP} W{W} keys{keys}"))
+            t_p = time_ms(
+                torch,
+                lambda *a: fd.flash_decode_attention_fw_plain(*a, **kw), mk,
+                reps=3, per_rep=3)
+            # library yardstick: kernel 1's SDPA over the pre-gathered
+            # prefix and the side window after the write
+            t_l = fd_sdpa_ms(torch, q, kps[0], vps[0], table, prefix, sk_p,
+                             sv_p, torch.clamp(side_idx + active, max=W),
+                             n_per_layer)
+            n_fresh = int(wrote.sum())
+            keys = int(prefix.sum()) + int(n_read.sum()) + n_fresh
+            item = torch.finfo(dt).bits // 8
+            # K/V of every key read once, the fresh rows written once, q,
+            # out
+            nbytes = (2 * (keys + n_fresh) * HKV * DH + 2 * nb * H * DH) * \
+                item + (table.numel() + 3 * nb) * 4
+            b_ms, b_by = bound_ms(nbytes, 4.0 * keys * H * DH, dtype_name)
+            sk_k, sv_k = sk.clone(), sv.clone()
+            out, _, _ = fd.flash_decode_attention_fw(
+                q, kps[0], vps[0], table, prefix, sk_k, sv_k, fk, fv,
+                side_idx, active, **kw)
+            torch.cuda.synchronize()
+            sides_equal = torch.equal(sk_k, sk_p) and torch.equal(sv_k, sv_p)
+            assert bool(torch.equal(sk_k[~wrote], sk[~wrote])), \
+                "flash_decode_fw: wrote an inactive or full-window side row"
+            err = max_err(torch, out, ref)
+            row_rel = fd_row_rel(torch, out, ref32)
+            ok = (within(torch, out, ref, dtype_name) and sides_equal
+                  and row_rel <= ROW_REL_TOL[dtype_name])
+            assert torch.isfinite(out).all(), "flash_decode_fw: non-finite"
+            t_k = time_ms(
+                torch, lambda *a: fd.flash_decode_attention_fw(*a, **kw), mk)
+            rows.append(dict(
+                dtype=dtype_name, err=err, ok=ok, ms=t_k, plain_ms=t_p,
+                library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                row_rel=row_rel, n_split=n_split, chunk=chunk,
+                note=f"{n_split} runs of {chunk}",
+                shape=f"{label} H{H} Hkv{HKV} Dh{DH} "
+                f"P{P} MP{MP} W{W} keys{keys}"))
     return rows
 
 
@@ -889,8 +944,8 @@ def phase_kernels(torch, card: str):
                 f"{rel} {'ok' if r['ok'] else 'FAIL'} | kernel "
                 f"{r['ms']:.4f} ms, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
-                f"[{card}]")
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms"
+                f"{' (' + r['note'] + ')' if 'note' in r else ''} [{card}]")
             if not r["ok"]:
                 bad.append(f"{name} {r['dtype']} {r['shape']}")
     if bad:
@@ -1729,7 +1784,7 @@ def profile_decode(torch, engine, prompts, card: str) -> None:
         wall = time.perf_counter() - t0
     engine.run_until_idle()
     report_profile(prof, wall, n_chunks * engine.config.decode_steps_per_call,
-                   "decode", card)
+                   "decode", card, share_of="flash_decode_kernel")
 
 
 def profile_mixed(torch, spec, params, prompts, card: str,
@@ -1822,6 +1877,9 @@ def main() -> int:
         f"(cached={rep.get('cached')}); registers max "
         f"{max(regs) if regs else 'n/a'}, spill stores max "
         f"{max(spills) if spills else 'n/a'}")
+    fd_report = rep.get("reports", {}).get("flash_decode.cu")
+    if fd_report:
+        log(f"[build] {flash_decode_ptxas(fd_report)}")
 
     kern = phase_kernels(torch, card)
     torch.cuda.empty_cache()

@@ -132,6 +132,7 @@ class WorkerServer(FramedServerMixin):
         self._shutdown_event = asyncio.Event()
         self._request_count = 0
         self._error_count = 0
+        self._deadline_expired_count = 0
         self._ping_count = 0
         self.latency = LatencyStats()
         self.model_load_stats = LatencyStats()
@@ -252,6 +253,9 @@ class WorkerServer(FramedServerMixin):
             raise ValueError("empty 'requests'")
         self._request_count += 1
         results = await self._pumps[name].generate(reqs)
+        # requests shed past their own deadline_s are results, not errors
+        self._deadline_expired_count += sum(
+            1 for r in results if r.finish_reason == "deadline")
         return {"model": name,
                 "results": [result_to_dict(r) for r in results]}
 
@@ -282,6 +286,7 @@ class WorkerServer(FramedServerMixin):
                          if self._started_at else 0.0),
             "request_count": self._request_count,
             "error_count": self._error_count,
+            "deadline_expired_count": self._deadline_expired_count,
             "ping_count": self._ping_count,
             "latency": self.latency.snapshot(),
             "model_load": self.model_load_stats.snapshot(),

@@ -197,22 +197,96 @@ struct SplitPartials {
         dh(dh_) {}
 };
 
-// The merged (m, l, acc[d]) of row r over its n_split partials: the
-// softmax over the union of the splits' keys, as one pass would give it.
-__device__ __forceinline__ void merge_split_row(const SplitPartials& p,
-                                                long long r, int d, float& m,
-                                                float& l, float& acc) {
-  const long long base = r * p.n_split;
-  float mx = -1e30f;
-  for (int s = 0; s < p.n_split; ++s) mx = fmaxf(mx, p.m[base + s]);
-  l = 0.f;
-  acc = 0.f;
-  for (int s = 0; s < p.n_split; ++s) {
-    const float w = expf(p.m[base + s] - mx);
-    l += p.l[base + s] * w;
-    acc += p.acc[(base + s) * p.dh + d] * w;
+// The merge rule of one row's n_split partials, (m_s, l_s) at ms[s] and
+// ls[s]: m and l of the softmax over the union of the splits' keys, as one
+// pass would give them, and weight(m_s) = exp(m_s - m) / l, the weight of
+// split s's unnormalised acc in the normalised output (the apply step is
+// out[d] = sum_s weight(m_s) acc_s[d]). An empty split (m_s = -1e30, l_s
+// = 0, acc_s = 0) adds nothing; a row with no key at all gives exactly 0.
+// Both split-KV kernels merge with it: paged attention's merge kernel and
+// flash-decode's last block.
+struct SplitMerge {
+  float m;
+  float l;
+  float inv_l;
+
+  __device__ __forceinline__ SplitMerge(const float* ms, const float* ls,
+                                        int n_split) {
+    m = -1e30f;
+    for (int s = 0; s < n_split; ++s) m = fmaxf(m, ms[s]);
+    l = 0.f;
+    for (int s = 0; s < n_split; ++s) l += ls[s] * expf(ms[s] - m);
+    inv_l = 1.f / fmaxf(l, 1e-30f);
   }
-  m = mx;
+
+  __device__ __forceinline__ float weight(float m_s) const {
+    return expf(m_s - m) * inv_l;
+  }
+};
+
+// ------------------------------------- asynchronous copies, tensor cores
+//
+// cp.async stages 16 bytes from global into shared memory without a
+// register round trip (Ampere and later); with `valid` false it writes 16
+// zero bytes and reads nothing (src must still be a global address).
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8. With .trans each matrix arrives transposed.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a . b on the tensor cores: a 16x16 bf16 (row major), b 16x8 bf16
+// (column major), d 16x8 fp32, in the mma.sync fragment layouts.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two fp32 values rounded to bf16 in one 32-bit register, lo in the low
+// half (the element with the smaller column index of a fragment).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 }  // namespace die

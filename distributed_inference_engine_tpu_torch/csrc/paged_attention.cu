@@ -33,7 +33,7 @@
 // of a warp merge through shuffles and the warps through shared memory.
 // With one split the block writes the result; with more it writes its
 // fp32 partial (m, l, unnormalised acc; common.cuh SplitPartials) and a
-// second kernel merges the splits of each row (merge_split_row). A block
+// second kernel merges the splits of each row (SplitMerge). A block
 // whose run lies wholly outside [lo, hi) writes the empty state and
 // exits. What the TPU kernel needed and this one does not: the
 // sequential (slot, page) grid with scratch accumulators, the 0/1
@@ -271,20 +271,23 @@ __global__ void __launch_bounds__(kWarps * 32, (G >= 8 ? 1 : 2))
 }
 
 // One block per output row, one thread per element: the row's split
-// partials merged, divided once and rounded once.
+// partials merged with SplitMerge's weights and rounded once.
 template <typename TQ>
 __global__ void __launch_bounds__(128)
     paged_merge_kernel(float* ws, int n_split, int dh, void* out_,
                        float* m_out, float* l_out) {
   const SplitPartials part(ws, gridDim.x, n_split, dh);
   const long long r = blockIdx.x;
+  const long long base = r * n_split;
   const int d = threadIdx.x;
-  float m, l, acc;
-  merge_split_row(part, r, d, m, l, acc);
-  static_cast<TQ*>(out_)[r * dh + d] = from_f<TQ>(acc / fmaxf(l, 1e-30f));
+  const SplitMerge mg(part.m + base, part.l + base, n_split);
+  float o = 0.f;
+  for (int s = 0; s < n_split; ++s)
+    o += part.acc[(base + s) * dh + d] * mg.weight(part.m[base + s]);
+  static_cast<TQ*>(out_)[r * dh + d] = from_f<TQ>(o);
   if (d == 0) {
-    m_out[r] = m;
-    l_out[r] = l;
+    m_out[r] = mg.m;
+    l_out[r] = mg.l;
   }
 }
 

@@ -259,6 +259,7 @@ class ContinuousEngine:
         self._total_generated = 0
         self._total_prompt_tokens = 0
         self._admission_denied = 0
+        self._deadline_expired = 0
         self._capacity_finishes = 0
         self._steps = 0
         self._decode_steps = 0
@@ -285,6 +286,34 @@ class ContinuousEngine:
             request.request_id = f"creq-{self._total_requests}"
         self._waiting.append((request, time.perf_counter()))
         return request.request_id
+
+    def _shed_expired(self) -> None:
+        """A request's own ``deadline_s`` budget, checked at step start
+        before any prefill or decode work is spent on it (the per-request
+        branch of the JAX engine's ``_shed_expired``): a request still
+        queued ``deadline_s`` after its submit resolves with
+        ``finish_reason="deadline"`` and no tokens; the client already
+        stopped caring. The engine-wide ``queue_deadline_s`` is not ported
+        (ROADMAP A5d)."""
+        if not any(req.deadline_s is not None for req, _ in self._waiting):
+            return
+        now = time.perf_counter()
+        keep: Deque[Tuple[GenerationRequest, float]] = collections.deque()
+        for req, t_submit in self._waiting:
+            if req.deadline_s is not None and now - t_submit >= req.deadline_s:
+                self._deadline_expired += 1
+                self._finished.append(GenerationResult(
+                    request_id=req.request_id,
+                    tokens=[],
+                    finish_reason="deadline",
+                    prompt_tokens=len(req.prompt),
+                    ttft_s=now - t_submit,
+                    decode_s=0.0,
+                    metadata={"deadline_s": req.deadline_s},
+                ))
+            else:
+                keep.append((req, t_submit))
+        self._waiting = keep
 
     # ---------------------------------------------------------- admission
 
@@ -761,7 +790,9 @@ class ContinuousEngine:
         """One engine iteration: admit, advance the chunked prefills, then
         one decode chunk — or, on a ragged engine with prompts
         mid-prefill, one mixed step. Returns the number of live and
-        mid-prefill slots after it."""
+        mid-prefill slots after it. A queued request past its own
+        ``deadline_s`` is resolved first (``_shed_expired``)."""
+        self._shed_expired()
         self._try_admit()
         if self._mixed and self._prefilling:
             self._step_mixed()
@@ -1044,6 +1075,7 @@ class ContinuousEngine:
             "waiting": self.n_waiting,
             "live_slots": len(self._slots),
             "admission_denied": self._admission_denied,
+            "deadline_expired": self._deadline_expired,
             "capacity_finishes": self._capacity_finishes,
             "engine_steps": self._steps,
             "decode_steps": self._decode_steps,

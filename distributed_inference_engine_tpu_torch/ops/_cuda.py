@@ -132,11 +132,14 @@ def lib() -> ctypes.CDLL:
         P, I, F, LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                        ctypes.c_longlong)
         handle.die_flash_decode.argtypes = [
-            P, P, P, P, P, P, P, P, P,           # q .. out
-            I, I, I, I, I, I, I, LL, I, I, P]    # shapes, dtypes, stream
+            P, P, P, P, P, P, P, P, P, P, P,     # q .. out, ws, counters
+            I, I, I, I, I, I, I, I, I,           # shapes, split
+            LL, I, I, P]                         # layer base, dtypes, stream
         handle.die_flash_decode_fw.argtypes = [
             P, P, P, P, P, P, P, P, P, P, P, P,  # q .. out
-            I, I, I, I, I, I, I, LL, I, I, P]    # shapes, dtypes, stream
+            P, P,                                # ws, counters
+            I, I, I, I, I, I, I, I, I,           # shapes, split
+            LL, I, I, P]                         # layer base, dtypes, stream
         handle.die_ragged_attention.argtypes = [
             P, P, P, P, P, P, P, P, P,           # q .. out
             I, I, I, I, I, I, I, LL, I, I, P]    # shapes, dtypes, stream

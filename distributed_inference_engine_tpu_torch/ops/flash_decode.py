@@ -15,17 +15,36 @@ place (the JAX function donated the side buffers and returned new ones).
 
 Stacked pools: the engine passes the whole ``[L*N, P, Hkv*Dh]`` pool and
 ``layer``; page p of slot b lives at row ``layer*N + page_table[b, p]``.
+
+Both kernels cut each slot's prefix into ``n_split`` runs of ``chunk``
+keys (``paged_split`` on ``mp * page_size`` keys: shapes only, the lengths
+are never read back), one block per (slot, KV head, run); the last run also
+takes the side window. The runs' fp32 partials merge in the same launch
+(the last block of each (slot, KV head) to finish merges them), so a call
+is one device launch and counts one under the kernel's name. bf16 q over
+bf16 pools runs on the tensor cores, every other dtype pair on the CUDA
+cores.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import _cuda
 from .attention import merge_attention, window_decode_attention
-from .paged_attention import paged_attention_xla
+from .paged_attention import paged_attention_xla, paged_split
+
+# the shortest run of prefix keys a block takes (paged_split's
+# min_chunk): a lone slot at 8 KV heads gets 32 runs, not the paged
+# kernel's 8, where a block's time is mostly its fixed chain of steps
+MIN_CHUNK = 64
+
+# (device index, stream) -> (fp32 partials, int32 arrival counters) of the
+# split grid, grown on demand; the kernel leaves the counters at 0. See
+# _scratch for what this asks of CUDA graphs.
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def flash_decode_attention_plain(
@@ -76,11 +95,66 @@ def _check_decode(name, q, k_pages, v_pages, page_table, prefix_lens,
     _cuda.require(page_table.dim() == 2 and page_table.shape[0] == b
                   and prefix_lens.shape == (b,),
                   f"{name}: page_table/prefix_lens batch mismatch")
+    # cp.async copies 16-byte pieces of each K/V and side row
+    _cuda.require(dh * k_pages.element_size() % 16 == 0 and
+                  dh * q.element_size() % 16 == 0,
+                  f"{name}: rows of head_dim {dh} are not whole 16-byte "
+                  "pieces")
     n = n_pages_per_layer or rows
     base = 0 if layer is None else int(layer) * n
     _cuda.require(0 <= base and base + n <= rows,
                   f"{name}: layer {layer} outside the stacked pool")
     return base
+
+
+def flash_decode_split(b: int, n_kv_heads: int, page_size: int, mp: int,
+                       device: torch.device) -> Tuple[int, int]:
+    """(n_split, chunk) of the kernels' grid: the most prefix keys a slot
+    can hold (``mp * page_size``) over ``paged_split``."""
+    return paged_split(b, n_kv_heads, max(1, mp * page_size),
+                       _cuda.sm_count(device.index), min_chunk=MIN_CHUNK)
+
+
+def _scratch(device: torch.device, n_partials: int, n_groups: int):
+    """Workspace and zeroed counters of the split grid on this device's
+    current stream (kept: calls on one stream run in order, and each
+    launch leaves its counters at 0).
+
+    The scratch is keyed by the raw stream pointer, so two launches that
+    run at the same time must not share a stream's scratch. A CUDA graph
+    records the pointers of the capture stream's scratch: two graphs
+    captured on one stream share it, and so does an eager call on that
+    stream. Such graphs must not replay at once on different streams, nor
+    overlap an eager call on the capture stream; otherwise their partials
+    and counts mix, and nothing reports it. Capture each graph on its own
+    stream (one scratch per graph), or pass the scratch in from the
+    caller."""
+    key = (device.index, _cuda.stream_ptr(device))
+    ws, cnt = _SCRATCH.get(key, (None, None))
+    if ws is None or ws.numel() < n_partials:
+        ws = torch.empty((n_partials,), dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < n_groups:
+        cnt = torch.zeros((n_groups,), dtype=torch.int32, device=device)
+    _SCRATCH[key] = (ws, cnt)
+    return ws, cnt
+
+
+def _launch(name, fn, q, k_pages, page_table, side_k, n_kv_heads, base,
+            pointers):
+    """Size the split grid, take the scratch, launch ``fn`` and count."""
+    b, h, dh = q.shape
+    page_size, mp = k_pages.shape[1], page_table.shape[1]
+    n_split, chunk = flash_decode_split(b, n_kv_heads, page_size, mp,
+                                        q.device)
+    ws, cnt = _scratch(q.device, b * h * n_split * (dh + 2), b * n_kv_heads)
+    out = torch.empty_like(q)
+    err = fn(*pointers, out.data_ptr(), ws.data_ptr(), cnt.data_ptr(),
+             b, h, n_kv_heads, dh, page_size, mp, side_k.shape[1], n_split,
+             chunk, base, _cuda.dtype_code(q.dtype),
+             _cuda.dtype_code(k_pages.dtype), _cuda.stream_ptr(q.device))
+    _cuda.check(err, name)
+    _cuda.LAUNCHES[name] += 1
+    return out
 
 
 def flash_decode_attention(
@@ -105,7 +179,7 @@ def flash_decode_attention(
             n_side, n_kv_heads=n_kv_heads, layer=layer,
             n_pages_per_layer=n_pages_per_layer)
     name = "flash_decode"
-    b, h, dh = q.shape
+    b = q.shape[0]
     base = _check_decode(name, q, k_pages, v_pages, page_table, prefix_lens,
                          side_k, side_v, n_kv_heads=n_kv_heads, layer=layer,
                          n_pages_per_layer=n_pages_per_layer)
@@ -113,17 +187,12 @@ def flash_decode_attention(
                        side_k, side_v, n_side)
     _cuda.require_int32(name, page_table, prefix_lens, n_side)
     _cuda.require(n_side.shape == (b,), f"{name}: n_side batch mismatch")
-    out = torch.empty_like(q)
-    err = _cuda.lib().die_flash_decode(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), prefix_lens.data_ptr(), side_k.data_ptr(),
-        side_v.data_ptr(), n_side.data_ptr(), out.data_ptr(),
-        b, h, n_kv_heads, dh, k_pages.shape[1], page_table.shape[1],
-        side_k.shape[1], base, _cuda.dtype_code(q.dtype),
-        _cuda.dtype_code(k_pages.dtype), _cuda.stream_ptr(q.device))
-    _cuda.check(err, name)
-    _cuda.LAUNCHES[name] += 1
-    return out
+    return _launch(name, _cuda.lib().die_flash_decode, q, k_pages,
+                   page_table, side_k, n_kv_heads, base, (
+                       q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                       page_table.data_ptr(), prefix_lens.data_ptr(),
+                       side_k.data_ptr(), side_v.data_ptr(),
+                       n_side.data_ptr()))
 
 
 def flash_decode_attention_fw_plain(
@@ -203,15 +272,11 @@ def flash_decode_attention_fw(
                   f"{name}: fresh K/V must be [B, 1, Hkv, Dh] in q's dtype")
     _cuda.require(side_idx.shape == (b,) and active.shape == (b,),
                   f"{name}: side_idx/active batch mismatch")
-    out = torch.empty_like(q)
-    err = _cuda.lib().die_flash_decode_fw(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), prefix_lens.data_ptr(), side_k.data_ptr(),
-        side_v.data_ptr(), fresh_k.data_ptr(), fresh_v.data_ptr(),
-        side_idx.data_ptr(), active.data_ptr(), out.data_ptr(),
-        b, h, n_kv_heads, dh, k_pages.shape[1], page_table.shape[1],
-        side_k.shape[1], base, _cuda.dtype_code(q.dtype),
-        _cuda.dtype_code(k_pages.dtype), _cuda.stream_ptr(q.device))
-    _cuda.check(err, name)
-    _cuda.LAUNCHES[name] += 1
+    out = _launch(name, _cuda.lib().die_flash_decode_fw, q, k_pages,
+                  page_table, side_k, n_kv_heads, base, (
+                      q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                      page_table.data_ptr(), prefix_lens.data_ptr(),
+                      side_k.data_ptr(), side_v.data_ptr(),
+                      fresh_k.data_ptr(), fresh_v.data_ptr(),
+                      side_idx.data_ptr(), active.data_ptr()))
     return out, side_k, side_v

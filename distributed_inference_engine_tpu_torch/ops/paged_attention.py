@@ -38,14 +38,15 @@ _MIN_CHUNK = 256
 _CHUNK_ALIGN = 64
 
 
-def paged_split(b: int, n_kv_heads: int, max_keys: int,
-                sms: int) -> Tuple[int, int]:
+def paged_split(b: int, n_kv_heads: int, max_keys: int, sms: int,
+                min_chunk: int = _MIN_CHUNK) -> Tuple[int, int]:
     """(n_split, chunk) of the kernel's grid: the most keys a slot can hold
     (``mp * page_size``, or ``window`` when smaller) cut into ``n_split``
-    runs of ``chunk`` keys, with ``n_split * chunk >= max_keys``. Chosen
-    from shapes only, so the inline decode never reads the lengths back."""
+    runs of ``chunk`` keys, with ``n_split * chunk >= max_keys``, no run
+    much below ``min_chunk`` keys. Chosen from shapes only, so the inline
+    decode never reads the lengths back."""
     want = -(-_BLOCKS_PER_SM * sms // max(1, b * n_kv_heads))
-    n_split = max(1, min(want, -(-max_keys // _MIN_CHUNK)))
+    n_split = max(1, min(want, -(-max_keys // min_chunk)))
     chunk = -(-max_keys // n_split)
     chunk = max(_CHUNK_ALIGN, -(-chunk // _CHUNK_ALIGN) * _CHUNK_ALIGN)
     return -(-max_keys // chunk), chunk

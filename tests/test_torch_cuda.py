@@ -121,6 +121,130 @@ def test_flash_decode_fw_kernel(card, dtype, h, hkv, dh):
     assert float(out[5].abs().max()) == 0.0    # inactive, nothing before
 
 
+# flash-decode per output row: max|out - ref32| / max|ref32|, ref32 the
+# plain version on the same values widened to fp32
+FD_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _fd_split_case(card, dtype, kv_dtype, h, hkv, dh, p, mp, prefix, fw,
+                   seed):
+    """Both flash-decode kernels on the split grid against their plain
+    versions: outputs within TOL and, per row, within FD_ROW_REL of the
+    plain version in fp32; rows with no key exactly 0; the fw side rows
+    equal the plain version's: each active slot's column side_idx < W
+    holds its fresh row, every other row keeps its bits."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    b, w = len(prefix), 8
+    n = b * mp + 3
+    q = torch.randn((b, h, dh), generator=g, device=card).to(dtype)
+    kp = torch.randn((2 * n, p, hkv * dh), generator=g,
+                     device=card).to(kv_dtype)
+    vp = torch.randn_like(kp)
+    table = torch.randperm(n, generator=g, device=card)[: b * mp].reshape(
+        b, mp).to(torch.int32)
+    plen = torch.tensor(prefix, dtype=torch.int32, device=card)
+    i32 = dict(dtype=torch.int32, device=card)
+    sk = torch.randn((b, w, hkv, dh), generator=g, device=card).to(dtype)
+    sv = torch.randn_like(sk)
+    kw = dict(n_kv_heads=hkv, layer=1, n_pages_per_layer=n)
+    name = "flash_decode_fw" if fw else "flash_decode"
+    before = _cuda.LAUNCHES[name]
+    if fw:
+        # side columns over 0..W (W: the fresh row is dropped), one in
+        # three slots inactive
+        sidx = torch.tensor([(3 * i) % (w + 1) for i in range(b)], **i32)
+        active = torch.tensor([int(i % 3 != 2) for i in range(b)], **i32)
+        fk = torch.randn((b, 1, hkv, dh), generator=g,
+                         device=card).to(dtype)
+        fv = torch.randn_like(fk)
+        sk_k, sv_k = sk.clone(), sv.clone()
+        out, _, _ = fd.flash_decode_attention_fw(
+            q, kp, vp, table, plen, sk_k, sv_k, fk, fv, sidx, active, **kw)
+        torch.cuda.synchronize()
+        sk_p, sv_p = sk.clone(), sv.clone()
+        ref, _, _ = fd.flash_decode_attention_fw_plain(
+            q, kp, vp, table, plen, sk_p, sv_p, fk, fv, sidx, active, **kw)
+        ref32, _, _ = fd.flash_decode_attention_fw_plain(
+            q.float(), kp.float(), vp.float(), table, plen, sk.float(),
+            sv.float(), fk.float(), fv.float(), sidx, active, **kw)
+        assert torch.equal(sk_k, sk_p) and torch.equal(sv_k, sv_p)
+        wrote = torch.zeros((b, w), dtype=torch.bool, device=card)
+        for i in range(b):
+            if active[i] and sidx[i] < w:
+                wrote[i, sidx[i]] = True
+                assert torch.equal(sk_k[i, sidx[i]], fk[i, 0])
+                assert torch.equal(sv_k[i, sidx[i]], fv[i, 0])
+        assert torch.equal(sk_k[~wrote], sk[~wrote])
+        assert torch.equal(sv_k[~wrote], sv[~wrote])
+        n_keys = plen + torch.clamp(sidx, 0, w) + (active > 0) * (sidx < w)
+    else:
+        nside = torch.tensor([(5 * i) % (w + 1) for i in range(b)], **i32)
+        nside[0] = 0
+        args = (q, kp, vp, table, plen, sk, sv, nside)
+        out = fd.flash_decode_attention(*args, **kw)
+        torch.cuda.synchronize()
+        ref = fd.flash_decode_attention_plain(*args, **kw)
+        ref32 = fd.flash_decode_attention_plain(
+            *(t.float() if t.is_floating_point() else t for t in args),
+            **kw)
+        n_keys = plen + nside
+    assert _cuda.LAUNCHES[name] == before + 1
+    _close(out, ref, dtype if kv_dtype == dtype else torch.bfloat16)
+    live = n_keys > 0
+    row_err = (out.float() - ref32).abs().amax(-1)[live]
+    row_ref = ref32.abs().amax(-1)[live]
+    assert float((row_err / row_ref).max()) <= FD_ROW_REL[
+        dtype if kv_dtype == dtype else torch.bfloat16]
+    if (~live).any():
+        assert float(out[~live].abs().max()) == 0.0
+
+
+# lengths on the edges of the 256-key runs of the Llama-3-8B decode grid
+# (8 runs at MP 16, P 128), and one slot with 2,040 keys alone
+FD_EDGES = [0, 1, 255, 256, 257, 1023, 2047, 2048]
+
+
+@pytest.mark.parametrize("fw", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("prefix", [FD_EDGES, [2040]],
+                         ids=["split edges", "one long"])
+def test_flash_decode_split_llama3_8b(card, fw, dtype, prefix):
+    n_split, chunk = fd.flash_decode_split(len(prefix), 8, 128, 16, card)
+    assert n_split * chunk >= 16 * 128 and n_split > 1
+    _fd_split_case(card, dtype, dtype, 32, 8, 128, 128, 16, prefix, fw,
+                   seed=20 + fw)
+
+
+@pytest.mark.parametrize("fw", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_split_head_dim_256(card, fw, dtype):
+    """Dh 256 (the largest head the wrappers take) on a grid of several
+    runs, pages of 16."""
+    _fd_split_case(card, dtype, dtype, 8, 2, 256, 16, 64,
+                   [0, 17, 255, 256, 700, 1024], fw, seed=30 + fw)
+
+
+@pytest.mark.parametrize("fw", [False, True])
+@pytest.mark.parametrize("dtype,kv_dtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("h,hkv,dh", [(8, 8, 32), (16, 4, 64),
+                                      (32, 8, 128)])
+def test_flash_decode_mixed_dtypes(card, fw, dtype, kv_dtype, h, hkv, dh):
+    """The two mixed (q, pool) dtype pairs (on the CUDA cores)."""
+    _fd_split_case(card, dtype, kv_dtype, h, hkv, dh, 16, 40,
+                   [0, 1, 300, 513, 640], fw, seed=40 + fw)
+
+
+@pytest.mark.parametrize("fw", [False, True])
+@pytest.mark.parametrize("h,hkv,dh", [(8, 8, 32), (8, 4, 64), (16, 2, 128),
+                                      (32, 8, 128)])
+def test_flash_decode_bf16_tensor_cores(card, fw, h, hkv, dh):
+    """bf16 (on the tensor cores) at every G of the wrappers, pages of 16,
+    a split grid of several runs."""
+    _fd_split_case(card, torch.bfloat16, torch.bfloat16, h, hkv, dh, 16, 40,
+                   [3, 0, 16, 255, 640], fw, seed=50 + fw)
+
+
 @pytest.mark.parametrize("dtype,kv_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.float32, torch.bfloat16)])

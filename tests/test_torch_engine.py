@@ -134,6 +134,51 @@ def test_greedy_tokens_match_jax_engine(weights, fused):
         assert got[rid].finish_reason == want[rid].finish_reason == "stop"
 
 
+# requests shed at step start for their own deadline_s: 0 expires at once,
+# 1e6 never does
+DEADLINES = {"r1": 0.0, "p1": 0.0, "r6": 0.0, "r5": 1e6}
+
+
+def test_request_deadline_sheds_like_jax_engine(weights):
+    """A request's own ``deadline_s``: both engines resolve the expired
+    ones at step start with finish_reason "deadline" and no tokens, and
+    the rest (one with a far deadline) emit the same greedy tokens; the
+    engines count the same expiries."""
+    je, te = _engines(weights, False)
+    waves = _waves()
+    for wave in waves:
+        for kw in wave:
+            kw["deadline_s"] = DEADLINES.get(kw["request_id"])
+    want = _drive(je, JReq, waves)
+    got = _drive(te, GenerationRequest, waves)
+    assert sorted(got) == sorted(want) and len(got) == 9
+    for rid in want:
+        assert got[rid].tokens == want[rid].tokens, rid
+        assert got[rid].finish_reason == want[rid].finish_reason, rid
+    shed = {rid for rid in want if want[rid].finish_reason == "deadline"}
+    assert shed == {"r1", "p1", "r6"}
+    for rid in shed:
+        r = got[rid]
+        assert r.tokens == [] and r.decode_s == 0.0 and r.ttft_s >= 0.0
+        assert r.metadata == {"deadline_s": 0.0}
+        assert r.prompt_tokens == want[rid].prompt_tokens
+    assert te.get_metrics()["deadline_expired"] == 3
+    assert je.get_metrics()["deadline_expired"] == 3
+    assert te.get_metrics()["waiting"] == 0
+
+
+def test_shed_only_step_hands_over_results(weights):
+    """A step that sheds every queued request and admits nothing still
+    hands the results over through ``run_until_idle``."""
+    _, te = _engines(weights, False)
+    res = te.generate([GenerationRequest(prompt=[5, 6, 7], max_new_tokens=4,
+                                         deadline_s=0.0) for _ in range(3)])
+    assert [r.finish_reason for r in res] == ["deadline"] * 3
+    m = te.get_metrics()
+    assert m["deadline_expired"] == 3 and m["engine_steps"] == 0
+    assert m["total_generated_tokens"] == 0 and m["prefill_calls"] == 0
+
+
 def test_jax_teacher_forced_parity_on_port_chain(weights):
     js, ts, jp, tp = weights
     _, te = _engines(weights, True)

@@ -7,12 +7,16 @@ with it against the JAX window step. The CUDA kernels themselves are held
 to these plain versions on the card by chip_smoke.py. Tolerances: f32
 atol 1e-5 (hidden 1e-4 after four layers), bf16 pools atol 2e-2; side
 buffers equal, and within 1e-5 where a model step computed the K/V
-written."""
+written. The CUDA kernels' split-KV rule (runs of ``chunk`` prefix keys,
+the side window and fw's fresh row in the last run, runs merged with
+``SplitMerge``'s weights) is composed in plain PyTorch and held to
+``flash_decode_attention_xla`` at fp32 atol 1e-5."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from distributed_inference_engine_tpu.models import base as jb
 from distributed_inference_engine_tpu.models.llama import llama_spec as jspec
@@ -30,8 +34,12 @@ from distributed_inference_engine_tpu_torch.models.llama import (
     llama_spec as tspec,
 )
 from distributed_inference_engine_tpu_torch.ops.flash_decode import (
+    MIN_CHUNK,
     flash_decode_attention,
     flash_decode_attention_fw,
+)
+from distributed_inference_engine_tpu_torch.ops.paged_attention import (
+    paged_split,
 )
 
 pytestmark = pytest.mark.torch_port
@@ -216,3 +224,144 @@ def test_forward_decode_window_fw_matches_jax(tiny, fused):
         got = tensor_to_numpy(got)
         np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-5)
         np.testing.assert_array_equal(got[:, ~written], orig[:, ~written])
+
+
+# ------------------------------------------------------- the split-KV rule
+
+def _state(q, k, v):
+    """The flash partial (m, l, unnormalised acc) of q [H, Dh] over keys
+    k, v [n, Hkv, Dh] (query head i reads KV head i // G); no key: m =
+    -1e30, l = 0, acc = 0, the state SplitMerge weighs 0."""
+    h, dh = q.shape
+    if k.shape[0] == 0:
+        return (torch.full((h,), -1e30), torch.zeros(h),
+                torch.zeros(h, dh))
+    g = h // k.shape[1]
+    kk, vv = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    s = torch.einsum("hd,nhd->hn", q, kk) / np.sqrt(dh)
+    m = s.amax(-1)
+    p = torch.exp(s - m[:, None])
+    return m, p.sum(-1), torch.einsum("hn,nhd->hd", p, vv)
+
+
+def _merge_runs(states):
+    """SplitMerge (csrc/common.cuh): m = max m_s, l = sum l_s exp(m_s - m),
+    weights exp(m_s - m) / max(l, 1e-30) on the runs' acc."""
+    m = torch.stack([s[0] for s in states]).amax(0)
+    l = sum(s[1] * torch.exp(s[0] - m) for s in states)
+    inv_l = 1.0 / torch.clamp(l, min=1e-30)
+    return sum(s[2] * (torch.exp(s[0] - m) * inv_l)[:, None]
+               for s in states)
+
+
+def _split_rule(c, prefix, chunk, mp, side_k, side_v, n_read, fresh=None):
+    """The kernels' grid on plain tensors: slot b's prefix keys (at most
+    mp * P) cut into runs of ``chunk``, as many runs as mp * P needs; the
+    last run also takes side entries j < n_read[b] and, where ``fresh``
+    holds (k, v) for the slot, the fresh row; the runs merged."""
+    kp, vp = torch.from_numpy(c["kp"]), torch.from_numpy(c["vp"])
+    q = torch.from_numpy(c["q"])
+    hkv, dh = side_k.shape[2:]
+    n_split = -(-mp * P // chunk)
+    outs = []
+    for b, plen in enumerate(prefix):
+        pages = torch.from_numpy(c["table"][b]).long()
+        keys = kp[pages].reshape(mp * P, hkv, dh)[:min(plen, mp * P)]
+        vals = vp[pages].reshape(mp * P, hkv, dh)[:min(plen, mp * P)]
+        states = []
+        for i in range(n_split):
+            k, v = keys[i * chunk:(i + 1) * chunk], vals[i * chunk:
+                                                        (i + 1) * chunk]
+            if i == n_split - 1:
+                k = torch.cat([k, torch.from_numpy(side_k[b, :n_read[b]])])
+                v = torch.cat([v, torch.from_numpy(side_v[b, :n_read[b]])])
+                if fresh is not None and fresh[b] is not None:
+                    k = torch.cat([k, torch.from_numpy(fresh[b][0])])
+                    v = torch.cat([v, torch.from_numpy(fresh[b][1])])
+            states.append(_state(q[b], k, v))
+        outs.append(_merge_runs(states))
+    return torch.stack(outs).numpy(), n_split
+
+
+def _edge_case(seed, chunk, mp, h=8, hkv=2):
+    """Prefix lengths on the runs' edges (0, 1, chunk - 1, chunk, chunk
+    + 1, the full prefix, a slot with no key at all, a mid-run length)."""
+    full = mp * P
+    prefix = [0, 1, chunk - 1, chunk, min(chunk + 1, full), full, 0,
+              min(2 * chunk + 3, full)]
+    rs = np.random.RandomState(seed)
+    b = len(prefix)
+    n = b * mp
+    c = dict(q=rs.randn(b, h, DH).astype(np.float32),
+             kp=rs.randn(n, P, hkv * DH).astype(np.float32),
+             vp=rs.randn(n, P, hkv * DH).astype(np.float32),
+             table=np.stack([rs.permutation(n)[:mp] for _ in range(b)]
+                            ).astype(np.int32),
+             sk=rs.randn(b, W, hkv, DH).astype(np.float32),
+             sv=rs.randn(b, W, hkv, DH).astype(np.float32),
+             fk=rs.randn(b, 1, hkv, DH).astype(np.float32),
+             fv=rs.randn(b, 1, hkv, DH).astype(np.float32))
+    return c, np.array(prefix, np.int32)
+
+
+# (chunk, mp): runs mid-page (12), on pages (16), two runs with a partial
+# second (64), one run (96: no merge), and paged_split's own grid at
+# 1,024 keys (4 runs of 256)
+SPLITS = [(12, 6), (16, 6), (64, 6), (96, 6),
+          (paged_split(8, 2, 64 * P, 132)[1], 64)]
+
+
+@pytest.mark.parametrize("chunk,mp", SPLITS)
+def test_split_rule_matches_xla(chunk, mp):
+    """flash_decode: the runs plus the side window in the last run, merged,
+    against the JAX composition; a slot with no key gives exactly 0."""
+    hkv = 2
+    c, prefix = _edge_case(60 + chunk, chunk, mp)
+    n_side = np.array([0, 1, W, 2, 0, W, 3, 1], np.int32)
+    got, n_split = _split_rule(c, prefix, chunk, mp, c["sk"], c["sv"],
+                               n_side)
+    assert n_split * chunk >= mp * P
+    want = np.asarray(flash_decode_attention_xla(
+        *(jnp.asarray(a) for a in (c["q"], c["kp"], c["vp"], c["table"],
+                                   prefix, c["sk"], c["sv"], n_side)),
+        n_kv_heads=hkv))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert not got[0].any()          # no prefix, no side entry: exactly 0
+
+
+@pytest.mark.parametrize("chunk,mp", SPLITS)
+def test_fw_split_rule_matches_xla(chunk, mp):
+    """flash_decode_fw: the last run reads side entries j < min(side_idx,
+    W) and attends the fresh row of an active slot with side_idx < W (an
+    inactive slot and one at side_idx = W attend none); against the JAX
+    one-hot write plus flash_decode_attention_xla."""
+    hkv = 2
+    c, prefix = _edge_case(80 + chunk, chunk, mp)
+    side_idx = np.array([0, 1, W, 2, 0, W - 1, 3, W], np.int32)
+    active = np.array([0, 1, 1, 0, 1, 1, 1, 0], np.int32)
+    wrote = (active > 0) & (side_idx < W)
+    fresh = [(c["fk"][b], c["fv"][b]) if wrote[b] else None
+             for b in range(len(prefix))]
+    got, _ = _split_rule(c, prefix, chunk, mp, c["sk"], c["sv"],
+                         np.minimum(side_idx, W), fresh)
+    onehot = ((np.arange(W)[None, :] == side_idx[:, None])
+              & (active[:, None] > 0))[:, :, None, None]
+    want = np.asarray(flash_decode_attention_xla(
+        *(jnp.asarray(a) for a in (
+            c["q"], c["kp"], c["vp"], c["table"], prefix,
+            np.where(onehot, c["fk"], c["sk"]),
+            np.where(onehot, c["fv"], c["sv"]), side_idx + active)),
+        n_kv_heads=hkv))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert not got[0].any()          # inactive, no prefix: no key at all
+
+
+@pytest.mark.parametrize("b,max_keys,want", [
+    (8, 16 * 128, (8, 256)),     # the Llama-3-8B decode batch (MP 16)
+    (1, 16 * 128, (32, 64)),     # one slot alone: 256 blocks, not 8
+    (8, 8 * 128, (8, 128)),      # max_seq_len 1024 (MP 8), the served grid
+])
+def test_flash_decode_grid_at_llama3_8b_shapes(b, max_keys, want):
+    """The kernels' grid on a 132-SM card at 8 KV heads (paged_split with
+    flash-decode's shortest run), from shapes only."""
+    assert paged_split(b, 8, max_keys, 132, min_chunk=MIN_CHUNK) == want

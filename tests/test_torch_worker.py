@@ -117,6 +117,38 @@ async def test_jax_client_gets_jax_engine_tokens_from_port_worker():
         await server.stop()
 
 
+async def test_worker_counts_deadline_expiries():
+    """Requests past their own ``deadline_s`` come back over the wire with
+    finish_reason "deadline"; the worker counts them in
+    ``deadline_expired_count`` (the JAX worker's key), the engine in
+    ``deadline_expired``."""
+    ts = tspec("llama-tiny", dtype="float32")
+
+    def factory(cfg):
+        return ContinuousEngine(ts, config=EngineConfig(**KW), device="cpu")
+
+    server = WorkerServer(ServerConfig(worker_id="tw1", port=0),
+                          engine_factory=factory)
+    server.load_model(ModelConfig(name="tiny", architecture="llama"))
+    host, port = await server.start()
+    jc = JClient(host, port, timeout=60.0)
+    try:
+        prompts = _prompts()
+        outs = await jc.generate("tiny", [
+            JReq(prompt=p, max_new_tokens=3, request_id=f"d{i}",
+                 deadline_s=0.0 if i % 2 else None)
+            for i, p in enumerate(prompts)])
+        assert [o.finish_reason for o in outs] == [
+            "length", "deadline", "length", "deadline"]
+        assert [len(o.tokens) for o in outs] == [3, 0, 3, 0]
+        m = await jc.metrics()
+        assert m["deadline_expired_count"] == 2 and m["error_count"] == 0
+        assert m["models"]["tiny"]["deadline_expired"] == 2
+    finally:
+        await jc.close()
+        await server.stop()
+
+
 @pytest.mark.parametrize("obj", [
     {"method": "generate", "id": "7f-1", "model": "tiny",
      "requests": [{"prompt": [1, 300, 70000, 5_000_000_000],
