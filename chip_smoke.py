@@ -3,16 +3,20 @@
 
     python3 chip_smoke.py             # every phase (needs one card)
     python3 chip_smoke.py --profile   # ... plus profiles of the fused
-                                      # decode (with flash-decode's ms per
-                                      # step) and the inline Mistral decode and
-                                      # of the bf16 and int4 mixed steps,
-                                      # and the int4 wgmma token tiles
+                                      # decode (with flash-decode's and
+                                      # matmul_residual's ms per step) and
+                                      # the inline Mistral decode and of the
+                                      # bf16 and int4 mixed steps (with the
+                                      # ragged kernel's ms per step), and
+                                      # the int4 wgmma token tiles
 
 Phases, each failing loudly (any failure exits non-zero):
 
 1. ``build``: prints the card (``nvidia-smi`` name and power limit, torch's
    device name), builds the CUDA kernels from ``csrc/`` and prints the
-   build time and the compiler's register/spill summary.
+   build time and the compiler's register/spill summary, and the
+   registers and spills of the flash-decode instances, the ragged
+   tensor-core instances (by head width) and the matmul_residual ones.
 2. ``kernels``: holds each of the seven kernels against its plain PyTorch
    version on the card at the Llama-3-8B shapes, in bf16 and fp32, with
    the tolerance printed beside the max error, and times kernel, plain
@@ -26,8 +30,12 @@ Phases, each failing loudly (any failure exits non-zero):
      side_idx = W, the side buffers compared;
    - ragged attention at R=10 rows (8 decode rows with context 0-1000, two
      of them inert, a 256-query chunk at 0 and a 177-query chunk at 444
-     straddling a page; MP=8), the written pages compared;
-   - the GEMV pair (D=4096, F=14336);
+     straddling a page; MP=8), the written pages compared, bf16 on the
+     tensor-core instance (``mma``) and fp32 on the CUDA cores (``simt``),
+     each checked by its launch count;
+   - the GEMV pair (D=4096, F=14336), matmul_residual's rows naming their
+     instance (bf16 ``mma``, fp32 ``simt``, checked by launch count) and
+     cluster size;
    - the packed-int4 matmul at every Llama-3-8B int4 product (fused
      q|k|v, o, fused gate|up, down in bf16; the vocab-padded head with fp32
      activations) at M = 1, 8, 10, 64, 512 and 2560 rows, and at two
@@ -55,16 +63,17 @@ Phases, each failing loudly (any failure exits non-zero):
    (same weights): 8 concurrent requests with prompts of 16-900 tokens,
    then a second wave of a prefix hit on the 520-token prompt with a
    400-token tail (it resumes chunked at 256) beside a 40-token prompt.
-   Checks the results, one ragged launch per layer per mixed step,
-   flash-decode on the pure-decode steps, and the mixed, chunked and
-   prefix-hit admission counts.
+   Checks the results, one ragged launch per layer per mixed step (all of
+   them the tensor-core instance), flash-decode on the pure-decode steps,
+   and the mixed, chunked and prefix-hit admission counts.
 5. ``fused``: rebuilds the same weights in this process, checks one served
    chain teacher-forced against ``forward_train`` (bf16: ties within the
    measured bf16 gap between the two code paths), runs the serve
    requests through in-process ``ContinuousEngine``s with
-   ``decode_fused=True`` and with ``attention_impl="pallas-decode-fw"``
-   (launch counts zeroed just before each) and checks a chain of each the
-   same way (bf16 smokes); then, in fp32 at full width, holds the decode
+   ``decode_fused=True`` (every matmul_residual launch on the tensor
+   cores) and with ``attention_impl="pallas-decode-fw"`` (launch counts
+   zeroed just before each) and checks a chain of each the same way (bf16
+   smokes); then, in fp32 at full width, holds the decode
    path's logits to ``forward_train``'s within 1e-3 (flash-decode fused
    off and on, and the fw kernel), and runs the mixed phase's first wave
    through fp32 engines (fp32 pools): ``pallas-decode`` with
@@ -76,10 +85,10 @@ Phases, each failing loudly (any failure exits non-zero):
 6. ``int4``: the worker CLI with the ``mixed`` model plus
    ``quantized=1,weight_bits=4`` (int4 weights born from seed 0) and the
    mixed phase's two waves. Checks the results, 32 ragged launches per
-   mixed step, 129 ``int4_matmul`` launches per forward (four per layer
-   and the LM head), the wgmma instance's launches (the mixed steps and
-   the admission prefills) and no wmma one, and no fused decode GEMV. Then in this process, on the
-   same weights: the served chain teacher-forced (bf16 band); a
+   mixed step (tensor cores), 129 ``int4_matmul`` launches per forward
+   (four per layer and the LM head), the wgmma instance's launches (the
+   mixed steps and the admission prefills) and no wmma one, and no fused
+   decode GEMV. Then in this process, on the same weights: the served chain teacher-forced (bf16 band); a
    ``decode_fused=True`` engine launching no fused GEMV and 129 int4
    launches per forward; the int4 mixed steps' time; a bf16 int8 engine
    (``weight_bits`` 8) with its decode and mixed-step times; then in fp32,
@@ -203,28 +212,45 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def flash_decode_ptxas(report: str) -> str:
-    """ptxas's registers and spills of the flash-decode instances, by head
-    width (the template argument Dh read off the mangled names)."""
+def ptxas_summary(report: str, source: str, pattern: str, key) -> str:
+    """ptxas's registers and spills of the kernel instances of ``source``
+    whose mangled name matches ``pattern``, grouped by ``key(match)``
+    (e.g. the head width read off the template arguments)."""
     inst = {}
     for block in report.split("Compiling entry function")[1:]:
         name = re.search(r"'(\S+)'", block)
-        args = re.search(r"flash_decode_kernel\S*?Li(\d+)ELi(\d+)ELb([01])E",
-                         name.group(1) if name else "")
+        args = re.search(pattern, name.group(1) if name else "")
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
         if args and regs and spill:
-            inst.setdefault(int(args.group(1)), []).append(
+            inst.setdefault(key(args), []).append(
                 (int(regs.group(1)), int(spill.group(1))))
     parts = []
-    for dh, rows in sorted(inst.items()):
+    for k, rows in sorted(inst.items()):
         spilled = [sp for _, sp in rows if sp]
-        parts.append(f"Dh {dh}: {min(r for r, _ in rows)}-"
+        parts.append(f"{k}: {min(r for r, _ in rows)}-"
                      f"{max(r for r, _ in rows)} registers, "
                      + (f"{len(spilled)}/{len(rows)} spill (max "
                         f"{max(spilled)} B)" if spilled else "no spill"))
-    return (f"flash_decode.cu, {sum(map(len, inst.values()))} instances: "
+    return (f"{source}, {sum(map(len, inst.values()))} instances: "
             + "; ".join(parts))
+
+
+# (source, mangled-name pattern, group key) of the instances whose
+# registers and spills the build reports: flash-decode by head width, the
+# ragged tensor-core instance by head width, matmul_residual by dtype and
+# token tile
+PTXAS_REPORTS = [
+    ("flash_decode.cu", r"flash_decode_kernel\S*?Li(\d+)ELi(\d+)ELb([01])E",
+     lambda m: f"Dh {int(m.group(1)):3d}"),
+    ("ragged_attention.cu", r"ragged_mma_kernelILi(\d+)E",
+     lambda m: f"tensor cores, Dh {int(m.group(1)):3d}"),
+    ("fused_decode.cu", r"matmul_residual_kernelI(13__nv_bfloat16|f)Li(\d)E"
+     r"Lb([01])E",
+     lambda m: (f"matmul_residual {'bf16' if m.group(1) != 'f' else 'fp32'}"
+                f" x {8 * int(m.group(2))} tokens"
+                f"{'' if m.group(3) == '1' else ' (4-byte copies)'}")),
+]
 
 
 # ----------------------------------------------------------------- timing
@@ -503,7 +529,9 @@ MP_RAGGED = 8
 def check_ragged(torch):
     """Ragged attention at full width against its plain version: outputs
     (and, in bf16, each (row, query, head) vector against the plain version
-    on the same values in fp32) and the pools after the writeback."""
+    on the same values in fp32) and the pools after the writeback. bf16
+    must run the tensor-core instance (``mma``), fp32 the CUDA cores."""
+    from distributed_inference_engine_tpu_torch.ops import _cuda
     from distributed_inference_engine_tpu_torch.ops import (
         ragged_attention as ra)
 
@@ -541,9 +569,14 @@ def check_ragged(torch):
         kw = dict(n_kv_heads=HKV, layer=1, n_pages_per_layer=n)
         kp_p, vp_p = kps[0].clone(), vps[0].clone()
         kp_32, vp_32 = kps[0].float(), vps[0].float()
+        inst = ra.ragged_instance(dt, dt)
+        assert inst == ("mma" if dtype_name == "bfloat16" else "simt"), inst
+        before = _cuda.LAUNCHES[f"ragged_attention.{inst}"]
         out, _, _ = ra.ragged_attention(q, kps[0], vps[0], table, ctx, ql,
                                         fk, fv, **kw)
         torch.cuda.synchronize()
+        assert _cuda.LAUNCHES[f"ragged_attention.{inst}"] == before + 1, \
+            f"ragged_attention: the {inst} instance did not run"
         ref, _, _ = ra.ragged_attention_plain(q, kp_p, vp_p, table, ctx, ql,
                                               fk, fv, **kw)
         torch.cuda.synchronize()
@@ -594,7 +627,7 @@ def check_ragged(torch):
         b_ms, b_by = bound_ms(nbytes, flops, dtype_name)
         rows.append(dict(dtype=dtype_name, err=err, ok=ok, ms=t_k,
                          plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                         bound_by=b_by, row_rel=row_rel,
+                         bound_by=b_by, row_rel=row_rel, note=inst,
                          shape=f"R{r} Qmax{qmax} H{H} Hkv{HKV} Dh{DH} P{P} "
                          f"MP{MP_RAGGED} q{n_q} ctx{ctx_keys}"))
     return rows
@@ -733,6 +766,7 @@ PAGED_MAIN = 3
 
 
 def check_gemv(torch, which: str):
+    from distributed_inference_engine_tpu_torch.ops import _cuda
     from distributed_inference_engine_tpu_torch.ops import fused_decode as fdec
 
     F = torch.nn.functional
@@ -774,8 +808,21 @@ def check_gemv(torch, which: str):
                 def lib(w):
                     return torch.addmm(res, x, w)
                 nbytes = (B * d + d * n + 2 * B * n) * item
+            note = {}
+            if which == "matmul_residual":
+                # bf16 on the tensor cores, fp32 on the CUDA cores, in one
+                # launch (a cluster of `ks` blocks along K)
+                inst = fdec.matmul_residual_instance(dt)
+                plan = fdec.matmul_residual_plan(B, d, n, dt,
+                                                 _cuda.sm_count(0))
+                note = dict(note=f"{inst}, clusters of {plan['ks']}, "
+                            f"{plan['blocks']} blocks")
+                before = _cuda.LAUNCHES[f"matmul_residual.{inst}"]
             out = kern(ws[0])
             torch.cuda.synchronize()
+            if which == "matmul_residual":
+                assert _cuda.LAUNCHES[f"matmul_residual.{inst}"] == \
+                    before + 1, f"matmul_residual: {inst} did not run"
             ref = plain(ws[0])
             torch.cuda.synchronize()
             err = max_err(torch, out, ref)
@@ -791,7 +838,7 @@ def check_gemv(torch, which: str):
             b_ms, b_by = bound_ms(nbytes, 2.0 * B * d * n, dtype_name)
             rows.append(dict(dtype=dtype_name, err=err, ok=ok, ms=t_k,
                              plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                             bound_by=b_by, shape=f"B{B} D{d} N{n}"))
+                             bound_by=b_by, shape=f"B{B} D{d} N{n}", **note))
     return rows
 
 
@@ -1116,9 +1163,11 @@ def phase_mixed(torch, card: str):
             f"{launches}"
     assert eng["mixed_steps"] > 0 and eng["chunked_admissions"] > 0, eng
     assert eng["prefix_hit_admissions"] >= 1, eng
-    # one ragged launch per layer per mixed step
+    # one ragged launch per layer per mixed step, all on the tensor cores
     assert launches["ragged_attention"] == 32 * eng["mixed_steps"], \
         (launches, eng["mixed_steps"])
+    assert launches.get("ragged_attention.mma") == \
+        launches["ragged_attention"], launches
     log(f"[mixed] {served_line(results[0] + results[1], wall)}; mixed steps "
         f"{eng['mixed_steps']} carrying {eng['mixed_prefill_tokens']} "
         f"prefill tokens; chunked admissions {eng['chunked_admissions']}; "
@@ -1217,6 +1266,8 @@ def phase_fused(torch, card: str, prompts, results, mixed_wave,
     assert launches["norm_matmul"] == 5 * launches["flash_decode"], launches
     assert launches["matmul_residual"] == 2 * launches["flash_decode"], \
         launches
+    assert launches.get("matmul_residual.mma") == \
+        launches["matmul_residual"], launches
     m, t = assert_greedy_parity(spec, params, prompts[5], out[5].tokens,
                                 eps=eps, label="fused chain")
     same = sum(a.tokens == b.tokens for a, b in zip(out, results))
@@ -1563,6 +1614,8 @@ def phase_int4(torch, card: str):
     assert eng["prefix_hit_admissions"] >= 1, eng
     assert launches["ragged_attention"] == N_LAYERS * eng["mixed_steps"], \
         (launches, eng["mixed_steps"])
+    assert launches.get("ragged_attention.mma") == \
+        launches["ragged_attention"], launches
     # forwards: the batched admission prefills, the pure-decode steps (one
     # flash-decode per layer) and the mixed steps; the one prefix hit
     # resumes chunked in the mixed step, so no suffix prefill runs
@@ -1720,6 +1773,8 @@ def fp32_chains(torch, card: str, spec32, params, prompts, cont, label: str):
         kv_dtype="float32", attention_impl="pallas-ragged",
         prefill_chunk=256)
     assert eng["mixed_steps"] > 0, eng
+    assert launches.get("ragged_attention.simt") == \
+        launches.get("ragged_attention"), launches
     m = t = 0
     for i, (p, r) in enumerate(zip(prompts, out)):
         mi, ti = assert_greedy_parity(spec32, params, p, r.tokens,
@@ -1734,10 +1789,11 @@ def fp32_chains(torch, card: str, spec32, params, prompts, cont, label: str):
 
 
 def report_profile(prof, wall: float, steps: int, label: str,
-                   card: str, share_of: str = "") -> None:
+                   card: str, share_of=()) -> None:
     """Wall per step, the device-busy share and the device time by kernel
-    of a ``torch.profiler`` window over ``steps`` steps; with ``share_of``,
-    also the share of device time of the kernels whose name holds it."""
+    of a ``torch.profiler`` window over ``steps`` steps; for each name in
+    ``share_of``, also the device time per step and the share of device
+    time of the kernels whose name holds it."""
     def dev_us(e):
         t = getattr(e, "self_device_time_total", None)
         return t if t is not None else e.self_cuda_time_total
@@ -1753,10 +1809,10 @@ def report_profile(prof, wall: float, steps: int, label: str,
         log(f"[profile] {label}: {dev_us(e) / 1e3 / steps:9.3f} ms/step "
             f"{100 * dev_us(e) / 1e6 / busy:5.1f}% of device  "
             f"x{e.count / steps:<6.1f}/step {e.key[:90]}")
-    if share_of:
-        mine = [e for e in events if share_of in e.key]
+    for name in share_of:
+        mine = [e for e in events if name in e.key]
         t = sum(dev_us(e) for e in mine) / 1e6
-        log(f"[profile] {label}: {share_of} {t * 1e3 / steps:.3f} ms/step = "
+        log(f"[profile] {label}: {name} {t * 1e3 / steps:.3f} ms/step = "
             f"{100 * t / busy:.1f}% of device time, "
             f"x{sum(e.count for e in mine) / steps:.1f}/step [{card}]")
 
@@ -1784,7 +1840,9 @@ def profile_decode(torch, engine, prompts, card: str) -> None:
         wall = time.perf_counter() - t0
     engine.run_until_idle()
     report_profile(prof, wall, n_chunks * engine.config.decode_steps_per_call,
-                   "decode", card, share_of="flash_decode_kernel")
+                   "decode", card, share_of=("flash_decode_kernel",
+                                             "matmul_residual_kernel",
+                                             "gemv_kernel"))
 
 
 def profile_mixed(torch, spec, params, prompts, card: str,
@@ -1830,7 +1888,8 @@ def profile_mixed(torch, spec, params, prompts, card: str,
     log(f"[profile] {label}: {tokens} prefill tokens over {steps} mixed "
         f"steps")
     report_profile(prof, wall, steps, label, card,
-                   share_of="int4_wgmma_kernel" if "int4" in label else "")
+                   share_of=(("int4_wgmma_kernel",) if "int4" in label else ())
+                   + ("ragged_mma_kernel",))
     del engine
 
 
@@ -1877,9 +1936,10 @@ def main() -> int:
         f"(cached={rep.get('cached')}); registers max "
         f"{max(regs) if regs else 'n/a'}, spill stores max "
         f"{max(spills) if spills else 'n/a'}")
-    fd_report = rep.get("reports", {}).get("flash_decode.cu")
-    if fd_report:
-        log(f"[build] {flash_decode_ptxas(fd_report)}")
+    for source, pattern, key in PTXAS_REPORTS:
+        report = rep.get("reports", {}).get(source)
+        if report:
+            log(f"[build] {ptxas_summary(report, source, pattern, key)}")
 
     kern = phase_kernels(torch, card)
     torch.cuda.empty_cache()

@@ -1,8 +1,12 @@
 // Shared helpers for the port's hand-written Hopper kernels: float
-// conversion for the two storage types (fp32, bf16) and vectorised row
-// loads. Every kernel accumulates in fp32 whatever its storage type.
+// conversion for the two storage types (fp32, bf16), vectorised row loads,
+// cp.async and TMA copies, tensor-core fragments, split-softmax merges and
+// cluster reductions. Every kernel accumulates in fp32 whatever its
+// storage type.
 #pragma once
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -142,6 +146,14 @@ struct RawRow {
   }
 };
 
+// 2^x in one MUFU instruction (ex2.approx, denormals flushed to 0: an
+// online softmax's weights below 2^-126 are 0 either way).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -246,6 +258,15 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// The same for 4 bytes (src and dst aligned to 4), through L1.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 // Wait until at most N of this thread's committed groups are in flight.
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -287,6 +308,124 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ------------------------------------- TMA copies tracked by mbarriers
+//
+// A tile copy of the Tensor Memory Accelerator lands in shared memory and
+// reports its bytes to an mbarrier; consumers wait on the barrier's phase.
+// The int4 wgmma instance and matmul_residual's bf16 instance use them.
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// wait for the completion of the barrier's phase of parity `parity`; a
+// wait that has not ended after ~2^34 cycles (seconds) is a fault, and
+// traps rather than hold the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API call: the library links only the
+// runtime, so it is fetched from the driver once through the runtime
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// ------------------------------------------------ thread-block clusters
+//
+// Element i of the sum of the cluster's per-block fp32 partials, each
+// block's at `part` in its own shared memory (distributed shared memory),
+// added in rank order; a cluster of at most MAX blocks. The loads are all
+// issued before the adds, so the remote latency is paid once. Every block
+// must have written its partial and passed a cluster barrier before any
+// block reads, and must not exit before the others have read it (a
+// second barrier).
+template <int MAX>
+__device__ __forceinline__ float cluster_sum(float* part, int i) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  const int n = static_cast<int>(cl.num_blocks());
+  float v[MAX];
+#pragma unroll
+  for (int q = 0; q < MAX; ++q)
+    v[q] = q < n ? cl.map_shared_rank(part, q)[i] : 0.f;
+  float s = 0.f;
+#pragma unroll
+  for (int q = 0; q < MAX; ++q) s += v[q];
+  return s;
 }
 
 }  // namespace die

@@ -142,11 +142,12 @@ def lib() -> ctypes.CDLL:
             LL, I, I, P]                         # layer base, dtypes, stream
         handle.die_ragged_attention.argtypes = [
             P, P, P, P, P, P, P, P, P,           # q .. out
-            I, I, I, I, I, I, I, LL, I, I, P]    # shapes, dtypes, stream
+            I, I, I, I, I, I, I, I, I,           # shapes, query tiles, grid
+            LL, I, I, P]                         # layer base, dtypes, stream
         handle.die_norm_matmul.argtypes = [
             P, P, P, P, P, P, I, I, I, F, I, I, I, I, P]
         handle.die_matmul_residual.argtypes = [
-            P, P, P, P, P, I, I, I, I, I, I, P]
+            P, P, P, P, I, I, I, I, I, I, P]
         handle.die_int4_matmul.argtypes = [
             P, P, P, P, P, I, I, I, I, I, I, I, I, P]
         handle.die_paged_attention.argtypes = [

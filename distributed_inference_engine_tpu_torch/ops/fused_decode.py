@@ -7,10 +7,13 @@
 CUDA tensors launch the hand-written kernels of
 ``csrc/fused_decode.cu`` (replacing the TPU kernels
 ``ops/fused_decode.py:_norm_matmul_kernel`` and ``_matmul_residual_kernel``);
-CPU tensors take the plain versions below. The JAX kernels are
-bit-identical to the unfused XLA chain on a TPU; on the card the kernels
-are held to their plain versions within a stated tolerance instead, and
-the engine's tokens are checked teacher-forced.
+CPU tensors take the plain versions below. ``matmul_residual`` is one
+launch: the contraction splits over the blocks of a thread-block cluster
+(``matmul_residual_plan``), which reduce in shared memory; bf16 runs the
+tensor cores (instance ``mma``), fp32 the CUDA cores (``simt``). The JAX
+kernels are bit-identical to the unfused XLA chain on a TPU; on the card
+the kernels are held to their plain versions within a stated tolerance
+instead, and the engine's tokens are checked teacher-forced.
 
 Eligibility (``*_wants``) keeps only what the kernel needs: a plain 2-D
 float weight in x's dtype (fp32 or bf16). The TPU's VMEM budget gate and
@@ -18,6 +21,8 @@ float weight in x's dtype (fp32 or bf16). The TPU's VMEM budget gate and
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
@@ -56,8 +61,47 @@ def matmul_residual_plain(x: torch.Tensor, w: torch.Tensor,
     return res + x @ w
 
 
+# csrc/fused_decode.cu matmul_residual_kernel: output columns a block, the
+# most blocks a cluster, blocks resident per SM aimed for, tokens a block
+_RES_COLS = 128
+_RES_MAX_CLUSTER = 8
+_RES_BLOCKS_PER_SM = 2
+_RES_MAX_TOKENS = 32
+
+
+def matmul_residual_instance(dtype: torch.dtype) -> str:
+    """``mma`` (tensor cores) for bf16, ``simt`` (CUDA cores) for fp32."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def matmul_residual_plan(b: int, d: int, n: int, dtype: torch.dtype,
+                         sms: int) -> Dict[str, int]:
+    """The grid of the residual kernel for x [b, d] @ w [d, n]: column
+    tiles of 128, token tiles of up to 32 (``tokens``: 8, 16 or 32 a
+    block), and the contraction split over ``ks`` blocks of one cluster
+    (1, 2, 4 or 8), ``chunk`` rows each, a multiple of the stage depth
+    (``depth``: 32 rows bf16, 16 fp32; a stage is 8 KB of weight).
+    ``ks`` is the largest such count that keeps the grid within ~2 blocks
+    an SM and gives each block at least one stage; the last blocks'
+    chunks may be short or empty."""
+    depth = 32 if dtype == torch.bfloat16 else 16
+    tokens = 8 if b <= 8 else 16 if b <= 16 else _RES_MAX_TOKENS
+    col_tiles = -(-n // _RES_COLS)
+    tok_tiles = -(-b // tokens)
+    k_tiles = -(-d // depth)
+    ks = 1
+    while (ks * 2 <= _RES_MAX_CLUSTER and ks * 2 <= k_tiles and
+           col_tiles * tok_tiles * ks * 2 <= _RES_BLOCKS_PER_SM * sms):
+        ks *= 2
+    chunk = -(-k_tiles // ks) * depth
+    return dict(ks=ks, chunk=chunk, depth=depth, tokens=tokens,
+                col_tiles=col_tiles, tok_tiles=tok_tiles,
+                blocks=col_tiles * tok_tiles * ks)
+
+
 def _split(b: int, d: int, n: int, target_blocks: int):
-    """(ks, chunk): split the contraction so ~target_blocks blocks run."""
+    """norm_matmul's (ks, chunk): split the contraction so ~target_blocks
+    blocks run."""
     col_blocks = -(-n // _COLS_PER_BLOCK)
     row_tiles = -(-b // 32)
     ks = max(1, -(-target_blocks // (col_blocks * row_tiles)))
@@ -114,14 +158,14 @@ def matmul_residual(x: torch.Tensor, w: torch.Tensor,
     b, d = x.shape
     n = w.shape[1]
     _cuda.require(res.shape == (b, n), f"{name}: res must be [{b}, {n}]")
-    ks, chunk = _split(b, d, n, _target_blocks(x.device.index))
+    plan = matmul_residual_plan(b, d, n, x.dtype,
+                                _cuda.sm_count(x.device.index))
     out = torch.empty((b, n), dtype=x.dtype, device=x.device)
-    ws = torch.empty((ks if ks > 1 else 0, b, n), dtype=torch.float32,
-                     device=x.device)
     err = _cuda.lib().die_matmul_residual(
-        x.data_ptr(), w.data_ptr(), res.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), b, d, n, ks, chunk, _cuda.dtype_code(x.dtype),
+        x.data_ptr(), w.data_ptr(), res.data_ptr(), out.data_ptr(), b, d, n,
+        plan["ks"], plan["chunk"], _cuda.dtype_code(x.dtype),
         _cuda.stream_ptr(x.device))
     _cuda.check(err, name)
     _cuda.LAUNCHES[name] += 1
+    _cuda.LAUNCHES[f"{name}.{matmul_residual_instance(x.dtype)}"] += 1
     return out

@@ -14,7 +14,13 @@ the table.
 ``ragged_attention`` launches the hand-written CUDA kernel
 (``csrc/ragged_attention.cu``, replacing the TPU kernel
 ``ops/ragged_attention.py:_ragged_kernel``) for a CUDA tensor and runs
-the plain version for a CPU tensor. Both update the pools IN PLACE (the
+the plain version for a CPU tensor. The instance follows the dtypes
+(``ragged_instance``): bf16 q over bf16 pools runs the tensor cores
+(``mma``), every other pair the CUDA cores (``simt``). The launch is
+sized from the shapes (``ragged_plan``), never from the lengths, which
+live on the card; there the tensor-core instance orders its work by the
+lengths (``ragged_schedule`` is the same rule on the host). Both update
+the pools IN PLACE (the
 JAX function donated them and returned new ones); they still return
 them, so call sites read as in the JAX package.
 
@@ -27,7 +33,7 @@ the kernel writes blindly.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -87,6 +93,102 @@ def ragged_attention_plain(
     return out, k_pages, v_pages
 
 
+# (query, head) rows of one block, by instance, and the (row, query tile)
+# pairs and rows the tensor-core instance ranks on the card
+# (csrc/ragged_attention.cu)
+ROWS_PER_BLOCK = {"mma": 128, "simt": 64}
+MMA_MAX_PAIRS, MMA_MAX_ROWS = 512, 256
+
+
+def ragged_instance(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
+    """The kernel instance for these dtypes: ``mma`` (tensor cores) for
+    bf16 q over bf16 pools, ``simt`` (CUDA cores) for every other pair."""
+    if q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16:
+        return "mma"
+    return "simt"
+
+
+def ragged_plan(r: int, qmax: int, h: int, hkv: int, instance: str,
+                sms: int) -> Tuple[int, int, int]:
+    """(queries per tile, query tiles per row, blocks) of the kernel's
+    launch. A tile is ``ROWS_PER_BLOCK[instance]`` (query, head) rows, the
+    g = H/Hkv heads of each of its queries; an item is a (row, KV head,
+    query tile). ``simt`` runs one block an item; ``mma`` is persistent,
+    one block an SM (``sms``), the blocks taking the items in
+    ``ragged_schedule`` order."""
+    tq = ROWS_PER_BLOCK[instance] // (h // hkv)
+    n_tiles = -(-qmax // tq)
+    items = r * hkv * n_tiles
+    return tq, n_tiles, items if instance == "simt" else min(items, sms)
+
+
+def _pair_cost(p: int, r: int, n_tiles: int, tq: int, g: int, q_lens,
+               ctx_lens, keys: int, max_ctx: int) -> int:
+    """The kernel's work estimate of (row, query tile) pair ``p``: its key
+    tiles, twice when more than 64 of its (query, head) rows are live; 0
+    when no query is live."""
+    row = r - 1 - p % r
+    q0 = (n_tiles - 1 - p // r) * tq
+    ql = int(q_lens[row])
+    if q0 >= ql:
+        return 0
+    ctx = min(int(ctx_lens[row]), max_ctx)
+    fresh_end = min(q0 + tq, ql)
+    tiles = -(-ctx // keys) + -(-fresh_end // keys)
+    return 2 * tiles if (fresh_end - q0) * g > 64 else tiles
+
+
+def ragged_schedule(q_lens, ctx_lens, qmax: int, h: int, hkv: int, dh: int,
+                    page_size: int, mp: int, n_blocks: int
+                    ) -> List[List[Tuple[int, int, int, bool]]]:
+    """The tensor-core instance's items, (row, KV head, query tile, live),
+    as each of its ``n_blocks`` persistent blocks takes them (the card
+    computes this from the lengths; this host version is the rule the
+    tests hold): the (row, query tile) pairs ranked by ``_pair_cost``,
+    heaviest first, ties in ``ragged_block`` order, their KV heads
+    together, dealt to the blocks in a snake (round k forwards when k is
+    even, backwards when odd); dead pairs rank last. Past
+    ``MMA_MAX_PAIRS`` pairs or ``MMA_MAX_ROWS`` rows, ``ragged_block``
+    order round-robin."""
+    r = len(q_lens)
+    g = h // hkv
+    tq, n_tiles, _ = ragged_plan(r, qmax, h, hkv, "mma", n_blocks)
+    keys = 64 if dh <= 128 else 32
+    n_pairs = r * n_tiles
+    costs = [_pair_cost(p, r, n_tiles, tq, g, q_lens, ctx_lens, keys,
+                        mp * page_size) for p in range(n_pairs)]
+    out: List[List[Tuple[int, int, int, bool]]] = [
+        [] for _ in range(n_blocks)]
+
+    def item(i: int) -> Tuple[int, int, int, bool]:
+        row, kh, tile = ragged_block(i, r, hkv, n_tiles)
+        return row, kh, tile, costs[i // hkv] > 0
+
+    if r > MMA_MAX_ROWS or n_pairs > MMA_MAX_PAIRS:
+        for i in range(n_pairs * hkv):
+            out[i % n_blocks].append(item(i))
+        return out
+    order = sorted(range(n_pairs), key=lambda p: (-costs[p], p))
+    for i in range(n_pairs * hkv):
+        k, pos = divmod(i, n_blocks)
+        b = pos if k % 2 == 0 else n_blocks - 1 - pos
+        out[b].append(item(order[i // hkv] * hkv + i % hkv))
+    return out
+
+
+def ragged_block(item: int, r: int, hkv: int, n_tiles: int
+                 ) -> Tuple[int, int, int]:
+    """(row, KV head, query tile) of item ``item`` of the ``r * hkv *
+    n_tiles`` items, as the kernel's ``block_of`` reads it: the highest
+    query tile of every row first, then the next, the rows from the last
+    (the engine's prefill rows follow its decode rows) to the first. The
+    CUDA-core instance runs a block an item in this order; the
+    tensor-core instance breaks its ranking's ties by it."""
+    per_tile = r * hkv
+    i, rem = divmod(item, per_tile)
+    return r - 1 - rem // hkv, rem % hkv, n_tiles - 1 - i
+
+
 def ragged_attention(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -138,14 +240,18 @@ def ragged_attention(
     base = 0 if layer is None else int(layer) * n
     _cuda.require(0 <= base and base + n <= rows,
                   f"{name}: layer {layer} outside the stacked pool")
+    inst = ragged_instance(q.dtype, k_pages.dtype)
+    _, n_tiles, grid = ragged_plan(r, qmax, h, n_kv_heads, inst,
+                                   _cuda.sm_count(q.device.index))
     out = torch.empty_like(q)
     err = _cuda.lib().die_ragged_attention(
         q.data_ptr(), fresh_k.data_ptr(), fresh_v.data_ptr(),
         k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
         ctx_lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
-        r, qmax, h, n_kv_heads, dh, page_size, page_table.shape[1], base,
-        _cuda.dtype_code(q.dtype), _cuda.dtype_code(k_pages.dtype),
-        _cuda.stream_ptr(q.device))
+        r, qmax, h, n_kv_heads, dh, page_size, page_table.shape[1],
+        n_tiles, grid, base, _cuda.dtype_code(q.dtype),
+        _cuda.dtype_code(k_pages.dtype), _cuda.stream_ptr(q.device))
     _cuda.check(err, name)
     _cuda.LAUNCHES[name] += 1
+    _cuda.LAUNCHES[f"{name}.{inst}"] += 1
     return out, k_pages, v_pages

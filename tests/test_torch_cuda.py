@@ -80,9 +80,52 @@ def test_fused_decode_kernels(card, dtype, b, d, n):
         torch.cuda.synchronize()
         _close(out, fdec.norm_matmul_plain(x, gain, w, eps=1e-5,
                                            plus_one=plus_one), dtype)
+    inst = "matmul_residual." + fdec.matmul_residual_instance(dtype)
+    before = _cuda.LAUNCHES[inst]
     out = fdec.matmul_residual(x, w, res)
     torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[inst] == before + 1
     _close(out, fdec.matmul_residual_plain(x, w, res), dtype)
+
+
+# matmul_residual at the decode batches (B 1-40: one, two and four 8-token
+# tiles, then two 32-token tiles), the Llama-3-8B contractions (wo 4096,
+# w_down 14336) and a small one, N 4096 and two N off the 128-column tile:
+# 1000 (rows of whole 16-byte pieces: bf16 weights by TMA, the last tile
+# past N zero-filled) and 1002 (they are not: 4-byte copies)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [688, 4096, 14336])
+@pytest.mark.parametrize("n", [4096, 1000, 1002])
+def test_matmul_residual_shapes(card, dtype, d, n):
+    g = torch.Generator(device=card).manual_seed(11)
+    w = (0.02 * torch.randn((d, n), generator=g, device=card)).to(dtype)
+    inst = "matmul_residual." + fdec.matmul_residual_instance(dtype)
+    for b in (1, 2, 7, 8, 9, 16, 32, 40):
+        x = torch.randn((b, d), generator=g, device=card).to(dtype)
+        res = torch.randn((b, n), generator=g, device=card).to(dtype)
+        before = _cuda.LAUNCHES[inst]
+        out = fdec.matmul_residual(x, w, res)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES[inst] == before + 1, (b, inst)
+        _close(out, fdec.matmul_residual_plain(x, w, res), dtype)
+
+
+@pytest.mark.parametrize("b", [1, 8, 40])
+def test_matmul_residual_rounds_the_product_first(card, b):
+    """bf16: x @ w = 1 + 2^-8 exactly (a tie that rounds to 1.0), res =
+    256. Rounding the product first gives 257, a tie that rounds to 256;
+    adding before rounding would give 257.0039..., which rounds to 258."""
+    d, n = 4096, 4096
+    x = torch.zeros((b, d), dtype=torch.bfloat16, device=card)
+    x[:, :2] = 1.0
+    w = torch.zeros((d, n), dtype=torch.bfloat16, device=card)
+    w[0] = 1.0
+    w[1] = 2.0 ** -8
+    res = torch.full((b, n), 256.0, dtype=torch.bfloat16, device=card)
+    out = fdec.matmul_residual(x, w, res)
+    torch.cuda.synchronize()
+    assert bool((out == 256.0).all()), out.unique()
+    assert torch.equal(out, fdec.matmul_residual_plain(x, w, res))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -271,16 +314,98 @@ def test_ragged_attention_kernel(card, dtype, kv_dtype, h, hkv, dh):
     vp = torch.randn_like(kp)
     kp2, vp2 = kp.clone(), vp.clone()
     kw = dict(n_kv_heads=hkv, layer=1, n_pages_per_layer=n)
-    before = _cuda.LAUNCHES["ragged_attention"]
+    inst = "ragged_attention." + ra.ragged_instance(dtype, kv_dtype)
+    before = _cuda.LAUNCHES["ragged_attention"], _cuda.LAUNCHES[inst]
     out, _, _ = ra.ragged_attention(q, kp, vp, table, ctx, ql, fk, fv, **kw)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["ragged_attention"] == before + 1
+    assert (_cuda.LAUNCHES["ragged_attention"], _cuda.LAUNCHES[inst]) == (
+        before[0] + 1, before[1] + 1)
     ref, _, _ = ra.ragged_attention_plain(q, kp2, vp2, table, ctx, ql, fk,
                                           fv, **kw)
     _close(out, ref, dtype if kv_dtype == dtype else torch.bfloat16)
     assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
     for i, (_, qi) in enumerate(rows):
         assert float(out[i, qi:].abs().max() if qi < qmax else 0) == 0.0
+
+
+# the tensor-core instance's rows (ctx_len, q_len), pages of 16: an inert
+# row aimed at row 1's live pages, decode rows with the context on a tile
+# boundary (64), on a page boundary (16), empty and ragged, a 256-query
+# chunk from ctx 0 beside them, chunks straddling pages (37 + 100, 64 +
+# 33) and an inert row with a context
+RAGGED_MMA_ROWS = [(0, 0), (64, 1), (16, 1), (0, 1), (127, 1), (0, 256),
+                   (37, 100), (64, 33), (300, 0)]
+
+
+def _ragged_mma_case(card, rows, h, hkv, dh, p, mp, seed):
+    """bf16 over bf16 pools (the mma instance): each live (row, query,
+    head) vector within 1e-2 of the plain version on the same values
+    widened to fp32 (max|out - ref32| / max|ref32|), the rest within the
+    bf16 tolerance of the bf16 plain version, dead rows exactly 0, and the
+    pools bit-equal to the plain version's after the writeback (so an
+    inert row's pages, another row's live ones, are untouched)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    r = len(rows)
+    n = r * mp + 8
+    qmax = max(q for _, q in rows)
+    i32 = dict(dtype=torch.int32, device=card)
+    ctx = torch.tensor([c for c, _ in rows], **i32)
+    ql = torch.tensor([q for _, q in rows], **i32)
+    table = torch.randperm(n, generator=g, device=card)[: r * mp].reshape(
+        r, mp).to(torch.int32)
+    table[0] = table[1]
+    bf = torch.bfloat16
+    q = torch.randn((r, qmax, h, dh), generator=g, device=card).to(bf)
+    fk = torch.randn((r, qmax, hkv, dh), generator=g, device=card).to(bf)
+    fv = torch.randn((r, qmax, hkv, dh), generator=g, device=card).to(bf)
+    kp = torch.randn((2 * n, p, hkv * dh), generator=g, device=card).to(bf)
+    vp = torch.randn_like(kp)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp32, vp32 = kp.float(), vp.float()
+    kw = dict(n_kv_heads=hkv, layer=1, n_pages_per_layer=n)
+    assert ra.ragged_instance(bf, bf) == "mma"
+    before = _cuda.LAUNCHES["ragged_attention.mma"]
+    out, _, _ = ra.ragged_attention(q, kp, vp, table, ctx, ql, fk, fv, **kw)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["ragged_attention.mma"] == before + 1
+    ref, _, _ = ra.ragged_attention_plain(q, kp2, vp2, table, ctx, ql, fk,
+                                          fv, **kw)
+    ref32, _, _ = ra.ragged_attention_plain(
+        q.float(), kp32, vp32, table, ctx, ql, fk.float(), fv.float(), **kw)
+    assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
+    valid = torch.arange(qmax, device=card)[None, :] < ql[:, None]
+    assert float(out[~valid].abs().max()) == 0.0
+    row_err = (out.float() - ref32).abs().amax(-1)[valid]
+    row_ref = ref32.abs().amax(-1)[valid]
+    assert float((row_err / row_ref).max()) <= 1e-2
+    _close(out, ref, bf)
+
+
+# the tensor-core instance's rows (ctx_len, q_len), pages of 16: an inert
+# row aimed at row 1's live pages, decode rows with the context on a tile
+# boundary (64), on a page boundary (16), empty and ragged, a 256-query
+# chunk from ctx 0 beside them, chunks straddling pages (37 + 100, 64 +
+# 33) and an inert row with a context
+RAGGED_MMA_ROWS = [(0, 0), (64, 1), (16, 1), (0, 1), (127, 1), (0, 256),
+                   (37, 100), (64, 33), (300, 0)]
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("h,hkv", [(8, 8), (8, 4), (16, 4), (16, 2)])
+def test_ragged_attention_tensor_cores(card, h, hkv, dh):
+    """The mma instance at G 1, 2, 4 and 8 and every head width (see
+    _ragged_mma_case)."""
+    _ragged_mma_case(card, RAGGED_MMA_ROWS, h, hkv, dh, 16, 24,
+                     seed=40 + dh + h + hkv)
+
+
+def test_ragged_attention_tensor_cores_many_pairs(card):
+    """More (row, query tile) pairs than the kernel ranks on the card (40
+    rows x 16 tiles of 16 queries at G 8): the blocks walk the plain
+    round-robin order instead; long decode contexts (to 1,000 keys)."""
+    rows = [(0, 0)] + [(25 * i, 1) for i in range(1, 38)] + [(0, 256),
+                                                               (500, 77)]
+    _ragged_mma_case(card, rows, 16, 2, 128, 16, 64, seed=77)
 
 
 def _paged_case(card, dtype, kv_dtype, h, hkv, dh, p, mp, lens, window,

@@ -2,11 +2,14 @@
 CPU tensors take) against the JAX kernels in interpret mode and against
 the unfused JAX chain ``rms_norm(x, g) @ w`` / ``res + x @ w``.
 Tolerances: f32 atol 1e-5; bf16 atol = rtol = 2e-2 (one bf16 rounding of
-outputs of magnitude ~1 differs by up to 2^-7)."""
+outputs of magnitude ~1 differs by up to 2^-7). matmul_residual's launch
+plan (``matmul_residual_plan``, a plain function of the shapes) is checked
+here too: every contraction row, column and token in exactly one block."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from distributed_inference_engine_tpu.ops import fused_decode as jfd
 from distributed_inference_engine_tpu.ops.norms import rms_norm as jrms
@@ -74,3 +77,45 @@ def test_wants_gate():
         x, _t(np.zeros((8, 6), np.float32)).to(dtype=x.dtype).half())
     assert not tfd.matmul_residual_wants(x, _t(np.zeros((2, 8, 6),
                                                          np.float32)))
+
+
+H100_SMS = 132
+
+
+# the decode batches the engine gives (8 slots; up to 40 in the card
+# tests), the Llama-3-8B contractions (wo 4096, w_down 14336) and a small
+# one, N = d_model and two N off the 128-column tile
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [688, 4096, 14336])
+@pytest.mark.parametrize("n", [4096, 1000, 1002])
+def test_residual_plan_covers_every_row_once(dtype, d, n):
+    for b in (1, 2, 7, 8, 9, 16, 32, 40):
+        pl = tfd.matmul_residual_plan(b, d, n, dtype, H100_SMS)
+        ks, chunk, depth = pl["ks"], pl["chunk"], pl["depth"]
+        assert ks in (1, 2, 4, 8) and chunk % depth == 0
+        assert depth == (32 if dtype == torch.bfloat16 else 16)
+        rows = np.zeros(d, int)                 # each K row: one rank
+        for rank in range(ks):
+            rows[rank * chunk:min(d, (rank + 1) * chunk)] += 1
+        assert (rows == 1).all() and ks * chunk >= d
+        cols = np.zeros(n, int)
+        for ct in range(pl["col_tiles"]):
+            cols[ct * 128:min(n, (ct + 1) * 128)] += 1
+        assert (cols == 1).all()
+        assert pl["tokens"] in (8, 16, 32) and pl["tokens"] >= min(b, 32)
+        assert pl["tok_tiles"] * pl["tokens"] >= b
+        assert (pl["tok_tiles"] - 1) * pl["tokens"] < b
+        assert pl["blocks"] == pl["col_tiles"] * pl["tok_tiles"] * ks
+        # at most ~2 blocks an SM, unless the contraction is not split
+        assert ks == 1 or pl["blocks"] <= 2 * H100_SMS
+
+
+def test_residual_plan_at_the_llama3_8b_decode_shapes():
+    """B 8, N 4096: 32 column tiles; an 8-block cluster at both
+    contractions (256 blocks, two an SM on 132 SMs)."""
+    bf = torch.bfloat16
+    for d, chunk in ((4096, 512), (14336, 1792)):
+        pl = tfd.matmul_residual_plan(8, d, 4096, bf, H100_SMS)
+        assert (pl["ks"], pl["chunk"], pl["blocks"]) == (8, chunk, 256)
+    assert tfd.matmul_residual_instance(bf) == "mma"
+    assert tfd.matmul_residual_instance(torch.float32) == "simt"

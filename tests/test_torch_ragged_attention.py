@@ -5,12 +5,16 @@ JAX ``forward_mixed_step(attn_impl="xla")`` on bridged llama-tiny f32
 weights. The CUDA kernel itself is held to this plain version on the card
 by chip_smoke.py and tests/test_torch_cuda.py. Tolerances: f32 atol 1e-5
 (hidden 2e-4, pools 1e-6 after four layers), bf16 atol 2e-2; written
-pages bit-equal, every other pool element unchanged."""
+pages bit-equal, every other pool element unchanged. The kernel's grid
+(``ragged_plan``, ``ragged_block``: plain functions of the shapes) is
+checked here too: every (row, KV head, query tile) exactly once, heavy
+tiles first."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from distributed_inference_engine_tpu.models import base as jb
 from distributed_inference_engine_tpu.models.llama import llama_spec as jspec
@@ -27,7 +31,12 @@ from distributed_inference_engine_tpu_torch.models.llama import (
     llama_spec as tspec,
 )
 from distributed_inference_engine_tpu_torch.ops.ragged_attention import (
+    ROWS_PER_BLOCK,
     ragged_attention,
+    ragged_block,
+    ragged_instance,
+    ragged_plan,
+    ragged_schedule,
 )
 
 pytestmark = pytest.mark.torch_port
@@ -184,3 +193,94 @@ def test_forward_mixed_step_matches_jax():
     np.testing.assert_allclose(
         tensor_to_numpy(full)[np.arange(r), qlens - 1],
         tensor_to_numpy(h_got), rtol=0, atol=1e-6)
+
+
+def test_instance_follows_the_dtypes():
+    bf, f32 = torch.bfloat16, torch.float32
+    assert ragged_instance(bf, bf) == "mma"
+    assert {ragged_instance(a, b) for a, b in ((f32, f32), (bf, f32),
+                                               (f32, bf))} == {"simt"}
+
+
+# the engine's mixed-step lattices: 8 decode rows and 1 or 2 prefill rows
+# at Qmax 32-256 (prefill_chunk), and the heads of llama-tiny, Llama-3-8B
+# (G 4), G 1 and G 8
+@pytest.mark.parametrize("instance", ["mma", "simt"])
+@pytest.mark.parametrize("r", [9, 10])
+@pytest.mark.parametrize("qmax", [32, 100, 256])
+@pytest.mark.parametrize("h,hkv", [(4, 2), (32, 8), (8, 8), (32, 4)])
+def test_plan_covers_every_query_tile_once(instance, r, qmax, h, hkv):
+    tq, n_tiles, grid = ragged_plan(r, qmax, h, hkv, instance, 132)
+    assert tq * (h // hkv) == ROWS_PER_BLOCK[instance]
+    # the tiles cover the queries [0, qmax) once, none starts past qmax
+    covered = np.zeros(qmax, int)
+    for t in range(n_tiles):
+        assert t * tq < qmax
+        covered[t * tq:min(qmax, (t + 1) * tq)] += 1
+    assert (covered == 1).all()
+    items = r * hkv * n_tiles
+    blocks = [ragged_block(b, r, hkv, n_tiles) for b in range(items)]
+    assert sorted(blocks) == [(row, kh, t) for row in range(r)
+                              for kh in range(hkv) for t in range(n_tiles)]
+    # simt: a block an item; mma: persistent blocks, block b taking items
+    # b, b + grid, ...: every item exactly once
+    assert grid == (items if instance == "simt" else min(items, 132))
+    walked = sorted(i for b in range(grid) for i in range(b, items, grid))
+    assert walked == list(range(items))
+
+
+def test_block_order_runs_heavy_tiles_first():
+    """Tiles from the highest down; within a tile the rows from the last
+    (the engine's prefill rows) down, each row's KV heads together."""
+    r, hkv = 10, 8
+    tq, n_tiles, grid = ragged_plan(r, 256, 32, hkv, "mma", 132)
+    assert (tq, n_tiles, grid) == (32, 8, 132)
+    order = [ragged_block(b, r, hkv, n_tiles)
+             for b in range(r * hkv * n_tiles)]
+    assert order[0] == (r - 1, 0, n_tiles - 1)
+    assert order[-1] == (0, hkv - 1, 0)
+    keys = [(-t, -row, kh) for row, kh, t in order]
+    assert keys == sorted(keys)
+
+
+# engine-like lattices: 8 decode rows (two inert, contexts up to 1,000)
+# beside 1 or 2 prefill rows (at context 0 and past it), Qmax 32-256
+ENGINE_ROWS = [
+    [(0, 0), (1, 1), (127, 1), (128, 1), (383, 1), (640, 1), (1000, 1),
+     (0, 0), (0, 256), (444, 177)],
+    [(900, 1), (700, 1), (0, 0), (300, 1), (850, 1), (120, 1), (60, 1),
+     (990, 1), (300, 200)],
+    [(5, 1), (0, 0), (17, 1), (30, 1), (0, 0), (0, 0), (2, 1), (9, 1),
+     (0, 32), (40, 20)],
+]
+
+
+@pytest.mark.parametrize("rows", ENGINE_ROWS)
+@pytest.mark.parametrize("h,hkv,dh", [(32, 8, 128), (8, 8, 64), (32, 4, 256)])
+@pytest.mark.parametrize("n_blocks", [132, 7])
+def test_schedule_takes_every_item_once(rows, h, hkv, dh, n_blocks):
+    """The tensor-core instance's device schedule (its host mirror): every
+    (row, KV head, query tile) item exactly once over the blocks, live
+    exactly when a query of the tile is live, each block's live items
+    before its dead ones, and the heaviest items on different blocks."""
+    q_lens = [q for _, q in rows]
+    ctx_lens = [c for c, _ in rows]
+    qmax = max(max(q_lens), 1)
+    r = len(rows)
+    tq, n_tiles, _ = ragged_plan(r, qmax, h, hkv, "mma", n_blocks)
+    sched = ragged_schedule(q_lens, ctx_lens, qmax, h, hkv, dh, 128, 8,
+                            n_blocks)
+    assert len(sched) == n_blocks
+    items = [it for blk in sched for it in blk]
+    assert sorted((row, kh, t) for row, kh, t, _ in items) == [
+        (row, kh, t) for row in range(r) for kh in range(hkv)
+        for t in range(n_tiles)]
+    for row, _, t, live in items:
+        assert live == (t * tq < q_lens[row])
+    for blk in sched:
+        flags = [live for *_, live in blk]
+        assert flags == sorted(flags, reverse=True)
+    # round 0: the first n_blocks items (the heaviest), one a block
+    n_live = sum(live for *_, live in items)
+    firsts = [blk[0] for blk in sched if blk and blk[0][3]]
+    assert len(firsts) == min(n_blocks, n_live)
