@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py             # every phase (needs one card)
     python3 chip_smoke.py --profile   # ... plus profiles of the fused
-                                      # decode (with flash-decode's and
-                                      # matmul_residual's ms per step) and
-                                      # the inline Mistral decode and of the
-                                      # bf16 and int4 mixed steps (with the
-                                      # ragged kernel's ms per step), and
-                                      # the int4 wgmma token tiles
+                                      # decode (with flash-decode's,
+                                      # matmul_residual's and norm_matmul's
+                                      # ms per step), the int4 decode (the
+                                      # int4 GEMV's ms per step), the inline
+                                      # Mistral decode and the bf16 and
+                                      # int4 mixed steps (with the ragged
+                                      # kernel's ms per step), and the int4
+                                      # wgmma token tiles; each fails if a
+                                      # kernel the one-launch GEMVs replaced
+                                      # runs
 
 Phases, each failing loudly (any failure exits non-zero):
 
@@ -33,14 +37,14 @@ Phases, each failing loudly (any failure exits non-zero):
      straddling a page; MP=8), the written pages compared, bf16 on the
      tensor-core instance (``mma``) and fp32 on the CUDA cores (``simt``),
      each checked by its launch count;
-   - the GEMV pair (D=4096, F=14336), matmul_residual's rows naming their
-     instance (bf16 ``mma``, fp32 ``simt``, checked by launch count) and
-     cluster size;
+   - the GEMV pair (D=4096, F=14336), each row naming its instance (bf16
+     ``mma``, fp32 ``simt``, checked by launch count) and cluster size;
    - the packed-int4 matmul at every Llama-3-8B int4 product (fused
      q|k|v, o, fused gate|up, down in bf16; the vocab-padded head with fp32
      activations) at M = 1, 8, 10, 64, 512 and 2560 rows, and at two
      shapes off the tiles; held per output column (``check_int4``), each
-     row naming the instance it ran (gemv, wgmma, wmma, simt); its library
+     row naming the instance it ran (gemv, with its cluster plan; wgmma,
+     wmma, simt); its library
      yardstick is cuBLAS on the dequantized weight, which reads 4x (bf16)
      or 8x (fp32) the packed bytes;
    - paged attention at the Mistral decode shapes (B=8, H=32, Hkv=8,
@@ -70,8 +74,8 @@ Phases, each failing loudly (any failure exits non-zero):
    chain teacher-forced against ``forward_train`` (bf16: ties within the
    measured bf16 gap between the two code paths), runs the serve
    requests through in-process ``ContinuousEngine``s with
-   ``decode_fused=True`` (every matmul_residual launch on the tensor
-   cores) and with ``attention_impl="pallas-decode-fw"`` (launch counts
+   ``decode_fused=True`` (every matmul_residual and norm_matmul launch on
+   the tensor cores) and with ``attention_impl="pallas-decode-fw"`` (launch counts
    zeroed just before each) and checks a chain of each the same way (bf16
    smokes); then, in fp32 at full width, holds the decode
    path's logits to ``forward_train``'s within 1e-3 (flash-decode fused
@@ -238,18 +242,25 @@ def ptxas_summary(report: str, source: str, pattern: str, key) -> str:
 
 # (source, mangled-name pattern, group key) of the instances whose
 # registers and spills the build reports: flash-decode by head width, the
-# ragged tensor-core instance by head width, matmul_residual by dtype and
-# token tile
+# ragged tensor-core instance by head width, matmul_residual and
+# norm_matmul by dtype and token tile, the int4 GEMV by dtype, token tile
+# and copy route
 PTXAS_REPORTS = [
     ("flash_decode.cu", r"flash_decode_kernel\S*?Li(\d+)ELi(\d+)ELb([01])E",
      lambda m: f"Dh {int(m.group(1)):3d}"),
     ("ragged_attention.cu", r"ragged_mma_kernelILi(\d+)E",
      lambda m: f"tensor cores, Dh {int(m.group(1)):3d}"),
-    ("fused_decode.cu", r"matmul_residual_kernelI(13__nv_bfloat16|f)Li(\d)E"
-     r"Lb([01])E",
-     lambda m: (f"matmul_residual {'bf16' if m.group(1) != 'f' else 'fp32'}"
-                f" x {8 * int(m.group(2))} tokens"
-                f"{'' if m.group(3) == '1' else ' (4-byte copies)'}")),
+    ("fused_decode.cu", r"(matmul_residual|norm_matmul)_kernelI"
+     r"(13__nv_bfloat16|f)Li(\d)ELb([01])E",
+     lambda m: (f"{m.group(1)} {'bf16' if m.group(2) != 'f' else 'fp32'}"
+                f" x {8 * int(m.group(3))} tokens"
+                f"{'' if m.group(4) == '1' else ' (4-byte copies)'}")),
+    ("int4_matmul.cu", r"int4_gemv_mma_kernelI(13__nv_bfloat16|f)Li(\d)E"
+     r"Lb([01])ELb([01])E",
+     lambda m: (f"int4 gemv {'bf16' if m.group(1) != 'f' else 'fp32'} x "
+                f"{8 * int(m.group(2))} tokens"
+                f"{'' if m.group(3) == '1' else ' (byte loads)'}"
+                f"{'' if m.group(4) == '1' else ' (x by element)'}")),
 ]
 
 
@@ -808,21 +819,17 @@ def check_gemv(torch, which: str):
                 def lib(w):
                     return torch.addmm(res, x, w)
                 nbytes = (B * d + d * n + 2 * B * n) * item
-            note = {}
-            if which == "matmul_residual":
-                # bf16 on the tensor cores, fp32 on the CUDA cores, in one
-                # launch (a cluster of `ks` blocks along K)
-                inst = fdec.matmul_residual_instance(dt)
-                plan = fdec.matmul_residual_plan(B, d, n, dt,
-                                                 _cuda.sm_count(0))
-                note = dict(note=f"{inst}, clusters of {plan['ks']}, "
-                            f"{plan['blocks']} blocks")
-                before = _cuda.LAUNCHES[f"matmul_residual.{inst}"]
+            # bf16 on the tensor cores, fp32 on the CUDA cores, in one
+            # launch (a cluster of `ks` blocks along K)
+            inst = fdec.gemv_instance(dt)
+            plan = fdec.gemv_plan(B, d, n, dt, _cuda.sm_count(0))
+            note = dict(note=f"{inst}, clusters of {plan['ks']}, "
+                        f"{plan['blocks']} blocks")
+            before = _cuda.LAUNCHES[f"{which}.{inst}"]
             out = kern(ws[0])
             torch.cuda.synchronize()
-            if which == "matmul_residual":
-                assert _cuda.LAUNCHES[f"matmul_residual.{inst}"] == \
-                    before + 1, f"matmul_residual: {inst} did not run"
+            assert _cuda.LAUNCHES[f"{which}.{inst}"] == before + 1, \
+                f"{which}: {inst} did not run"
             ref = plain(ws[0])
             torch.cuda.synchronize()
             err = max_err(torch, out, ref)
@@ -869,6 +876,13 @@ def check_int4(torch):
                  for _ in range(n_copies)]
         scale = 0.002 + 0.01 * torch.rand((n,), generator=g, device="cuda")
         inst = i4.int4_instance(m, k2, n, dt, True)
+        if inst == "gemv":
+            # one launch: clusters of ks blocks along the packed rows
+            pl = i4.int4_gemv_plan(m, k2, n, _cuda.sm_count(0))
+            inst_note = (f"gemv, clusters of {pl['ks']}, {pl['blocks']} "
+                         f"blocks")
+        else:
+            inst_note = inst
         before = _cuda.LAUNCHES[f"int4_matmul.{inst}"]
         out = i4.int4_matmul(x, packs[0], scale)
         torch.cuda.synchronize()
@@ -903,12 +917,18 @@ def check_int4(torch):
                       lambda i: (w_deq[i % len(w_deq)],), **reps)
         del w_deq, packs
         nbytes = k2 * n + m * 2 * k2 * item + m * n * item + 4 * n
-        b_ms, b_by = bound_ms(nbytes, 2.0 * m * 2 * k2 * n, dtype_name)
+        flops = 2.0 * m * 2 * k2 * n
+        if inst == "gemv" and dtype_name == "float32":
+            # the GEMV runs an fp32 x as three bf16 terms on the tensor cores
+            b_ms, b_by = bound_ms(nbytes, 3 * flops, "bfloat16")
+        else:
+            b_ms, b_by = bound_ms(nbytes, flops, dtype_name)
         rows.append(dict(dtype=dtype_name, err=err, ok=ok, ms=t_k,
                          plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                          bound_by=b_by, col_rel=col_rel,
                          col_rel_mag=col_rel_mag,
-                         shape=f"{name} M{m} K/2={k2} N{n} {inst}"))
+                         shape=f"{name} M{m} K/2={k2} N{n} {inst}",
+                         note=inst_note))
     torch.cuda.empty_cache()
     return rows
 
@@ -1268,6 +1288,8 @@ def phase_fused(torch, card: str, prompts, results, mixed_wave,
         launches
     assert launches.get("matmul_residual.mma") == \
         launches["matmul_residual"], launches
+    assert launches.get("norm_matmul.mma") == launches["norm_matmul"], \
+        launches
     m, t = assert_greedy_parity(spec, params, prompts[5], out[5].tokens,
                                 eps=eps, label="fused chain")
     same = sum(a.tokens == b.tokens for a, b in zip(out, results))
@@ -1675,7 +1697,11 @@ def phase_int4_inproc(torch, card: str, wave1, served, profile_it: bool):
     seed and card, so the same draws): the served chain teacher-forced to
     ``forward_train``; ``decode_fused=True`` launching no fused GEMV; the
     mixed steps' time; a bf16 int8 engine's times; then fp32 at full
-    width, int4 and int8 (``fp32_chains``)."""
+    width, int4 and int8 (``fp32_chains``). ``profile_it``: also the int4
+    decode and mixed-step profiles."""
+    from distributed_inference_engine_tpu_torch.config import EngineConfig
+    from distributed_inference_engine_tpu_torch.engine.continuous import (
+        ContinuousEngine)
     from distributed_inference_engine_tpu_torch.models import (
         spec_for_architecture)
     from distributed_inference_engine_tpu_torch.ops.quant import (
@@ -1717,6 +1743,13 @@ def phase_int4_inproc(torch, card: str, wave1, served, profile_it: bool):
         f"{launches}; teacher-forced {m} strict, {t} ties [{card}]")
     log(f"[int4] {mixed_steps_line(torch, spec, params, wave1)} [{card}]")
     if profile_it:
+        # the int4 GEMV's ms per int4 decode step: 129 launches a step
+        engine = ContinuousEngine(spec, params=params, config=EngineConfig(
+            max_slots=8, max_seq_len=1024, attention_impl="pallas-decode"),
+            device="cuda")
+        profile_decode(torch, engine, wave1, card, label="int4 decode",
+                       share_of=("int4_gemv", "flash_decode_kernel"))
+        del engine
         profile_mixed(torch, spec, params, wave1, card, label="int4 mixed")
     del params
     torch.cuda.empty_cache()
@@ -1788,12 +1821,19 @@ def fp32_chains(torch, card: str, spec32, params, prompts, cont, label: str):
     return launches
 
 
+# kernels that the one-launch GEMVs replaced (norm_matmul's prologue, GEMV
+# and split-K reduce; the int4 GEMV and its reduce): no profile may see one
+RETIRED_KERNELS = ("rms_inv_kernel", "::gemv_kernel<", "splitk_reduce_kernel",
+                   "int4_gemv_kernel<")
+
+
 def report_profile(prof, wall: float, steps: int, label: str,
                    card: str, share_of=()) -> None:
     """Wall per step, the device-busy share and the device time by kernel
     of a ``torch.profiler`` window over ``steps`` steps; for each name in
     ``share_of``, also the device time per step and the share of device
-    time of the kernels whose name holds it."""
+    time of the kernels whose name holds it. Fails if one of
+    ``RETIRED_KERNELS`` ran."""
     def dev_us(e):
         t = getattr(e, "self_device_time_total", None)
         return t if t is not None else e.self_cuda_time_total
@@ -1815,11 +1855,17 @@ def report_profile(prof, wall: float, steps: int, label: str,
         log(f"[profile] {label}: {name} {t * 1e3 / steps:.3f} ms/step = "
             f"{100 * t / busy:.1f}% of device time, "
             f"x{sum(e.count for e in mine) / steps:.1f}/step [{card}]")
+    retired = {name: sum(dev_us(e) for e in events if name in e.key)
+               / 1e3 / steps for name in RETIRED_KERNELS}
+    assert not any(retired.values()), \
+        f"{label}: retired kernels ran: {retired}"
 
 
-def profile_decode(torch, engine, prompts, card: str) -> None:
-    """``--profile``: torch.profiler over two pure-decode chunks of the
-    fused engine (8 slots live)."""
+def profile_decode(torch, engine, prompts, card: str, label: str = "decode",
+                   share_of=("flash_decode_kernel", "matmul_residual_kernel",
+                             "norm_matmul_kernel")) -> None:
+    """``--profile``: torch.profiler over two pure-decode chunks of
+    ``engine`` (the fused bf16 engine, or the int4 one; 8 slots live)."""
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_inference_engine_tpu_torch.engine.types import (
@@ -1840,9 +1886,7 @@ def profile_decode(torch, engine, prompts, card: str) -> None:
         wall = time.perf_counter() - t0
     engine.run_until_idle()
     report_profile(prof, wall, n_chunks * engine.config.decode_steps_per_call,
-                   "decode", card, share_of=("flash_decode_kernel",
-                                             "matmul_residual_kernel",
-                                             "gemv_kernel"))
+                   label, card, share_of=share_of)
 
 
 def profile_mixed(torch, spec, params, prompts, card: str,

@@ -405,27 +405,81 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // ------------------------------------------------ thread-block clusters
-//
+
+constexpr int kMaxCluster = 8;   // the portable cluster size
+
 // Element i of the sum of the cluster's per-block fp32 partials, each
 // block's at `part` in its own shared memory (distributed shared memory),
-// added in rank order; a cluster of at most MAX blocks. The loads are all
-// issued before the adds, so the remote latency is paid once. Every block
-// must have written its partial and passed a cluster barrier before any
-// block reads, and must not exit before the others have read it (a
-// second barrier).
-template <int MAX>
+// added in rank order; a cluster of at most kMaxCluster blocks. The loads
+// are all issued before the adds, so the remote latency is paid once.
+// Every block must have written its partial and passed a cluster barrier
+// before any block reads, and must not exit before the others have read it
+// (a second barrier).
 __device__ __forceinline__ float cluster_sum(float* part, int i) {
   namespace cg = cooperative_groups;
   cg::cluster_group cl = cg::this_cluster();
   const int n = static_cast<int>(cl.num_blocks());
-  float v[MAX];
+  float v[kMaxCluster];
 #pragma unroll
-  for (int q = 0; q < MAX; ++q)
+  for (int q = 0; q < kMaxCluster; ++q)
     v[q] = q < n ? cl.map_shared_rank(part, q)[i] : 0.f;
   float s = 0.f;
 #pragma unroll
-  for (int q = 0; q < MAX; ++q) s += v[q];
+  for (int q = 0; q < kMaxCluster; ++q) s += v[q];
   return s;
+}
+
+// The split-K reduce of a cluster GEMV, run by every thread of every block
+// once each block's fp32 partial [rows][kCols] sits at `part` in its own
+// shared memory: after a cluster barrier, block `rank` of ks sums the
+// cluster's partials of its kCols / ks columns in rank order (cluster_sum)
+// and hands epi(row, column, sum) each of them; a closing barrier keeps
+// every block, and so its partial, alive until all have read.
+template <int kCols, int kThreads, typename Epi>
+__device__ __forceinline__ void cluster_reduce(float* part, int rows,
+                                               Epi epi) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();   // every partial of the cluster written
+  const int ks = static_cast<int>(cl.num_blocks());
+  const int per = kCols / ks;
+  const int c0 = static_cast<int>(cl.block_rank()) * per;
+  for (int i = threadIdx.x; i < rows * per; i += kThreads) {
+    const int row = i / per;
+    const int c = c0 + (i - row * per);
+    epi(row, c, cluster_sum(part, row * kCols + c));
+  }
+  cl.sync();   // no block leaves while its partial is read
+}
+
+// One launch of Kernel with `args`: `grid` blocks of `threads`, clusters
+// of ks blocks along x, `smem` bytes of dynamic shared memory (the kernel's
+// limit raised on its first launch; one card). Returns the launch's error.
+template <auto Kernel, typename... Args>
+cudaError_t launch_cluster(dim3 grid, int threads, int ks, int smem,
+                           cudaStream_t st, Args... args) {
+  static bool attr_set = false;  // per kernel
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, Kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace die

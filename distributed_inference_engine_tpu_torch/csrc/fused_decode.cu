@@ -19,44 +19,51 @@
 // Bound on the card: at decode (B <= 64) these are GEMVs, bound by the
 // weight bytes (D * N * itemsize, read once) over 3.35 TB/s.
 //
-// norm_matmul. The TPU kernel kept the whole [B, D] activation resident in
-// VMEM and streamed [D, bn] weight blocks over a sequential grid. A block
-// here owns 256 output columns (128 threads x 2 adjacent columns: one 4-
-// or 8-byte load per thread per weight row, coalesced along N) and a
-// chunk of the contraction axis; its batch rows' normalised activations
-// for the current 128-row slice of the chunk sit in shared memory as
-// [d][b], so every weight element loaded feeds all B rows from registers.
-// The contraction is split over enough blocks to fill the card (split-K),
-// and a second small kernel sums the fp32 partials. The inverse RMS of
-// each row is computed once by a prologue kernel rather than by every
-// block, which would re-read [B, D] per block.
+// One core, cluster_gemv, serves both (kernels norm_matmul_kernel and
+// matmul_residual_kernel). A block owns 128 output columns, a tile of 8, 16
+// or 32 tokens and a chunk of the contraction axis; the chunks of one column
+// tile are the blocks of one thread-block cluster (up to 8,
+// ops/fused_decode.py gemv_plan). Each block streams its weight rows at full
+// width through a ring of 2 stages of 8 KB, one in flight while the other is
+// used (deeper or wider rings measured slower on the H100, with a tuning
+// script not kept): bf16 weights whose rows are whole 16-byte pieces by TMA
+// (two boxes of 64 columns a stage, the 128-byte swizzle, zeros past the
+// matrix, one thread issuing, an mbarrier a stage; it measured faster than
+// 16-byte cp.async copies), the others by cp.async (16 bytes a thread, 4
+// where a row of w or x is not a whole number of 16-byte pieces). bf16 runs
+// on the tensor cores with the weights as the M operand and the tokens as N
+// (mma.sync.m16n8k16: a transposed 16-column x 16-k weight tile from
+// ldmatrix.trans on the swizzled boxes, the tokens as n8 tiles from
+// ldmatrix), fp32 on the CUDA cores (a thread a column, x broadcast from
+// shared memory); both accumulate in fp32. The cluster then reduces its
+// partials through distributed shared memory in the same launch: each block
+// sums the cluster's partials of 128 / cluster-size columns in rank order
+// (its remote loads issued together) and applies the epilogue. No global
+// scratch and no second kernel. Batches above 32 rows tile over blockIdx.y
+// and re-read the weights once per tile. Any D and even N are taken; tails
+// are zero-filled.
 //
-// matmul_residual (matmul_residual_kernel). A block owns 128 output columns,
-// a tile of 8, 16 or 32 tokens and a chunk of the contraction axis; the
-// chunks of one column tile are the blocks of one thread-block cluster (up to
-// 8, ops/fused_decode.py matmul_residual_plan). Each block streams its weight
-// rows at full width through a ring of 2 stages of 8 KB, one in flight while
-// the other is used (deeper or wider rings measured slower on the H100, with
-// a tuning script not kept): bf16 weights whose rows are whole 16-byte pieces
-// by TMA (two boxes of 64 columns a stage, the 128-byte swizzle, zeros past
-// the matrix, one thread issuing, an mbarrier a stage; it measured faster
-// than 16-byte cp.async copies), the others by cp.async (16 bytes a thread, 4
-// where a row of w or x is not a whole number of 16-byte pieces), the x tile
-// beside them by cp.async. bf16 runs on the tensor cores with the weights as
-// the M operand and the tokens as N (mma.sync.m16n8k16: a transposed
-// 16-column x 16-k weight tile from ldmatrix.trans on the swizzled boxes, the
-// tokens as n8 tiles from ldmatrix), fp32 on the CUDA cores (a thread a
-// column, x broadcast from shared memory); both accumulate in fp32. The
-// cluster then reduces its partials through distributed shared memory in the
-// same launch: each block sums the cluster's partials of 128 / cluster-size
-// columns in rank order (its remote loads issued together) and applies the
-// epilogue (round, add res, round). No global scratch and no second kernel.
-// Batches above 32 rows tile over blockIdx.y and re-read the weights once per
-// tile. Any D and even N are taken; tails are zero-filled. The x tile is
-// staged by stage_tile alone, so a normalising prologue can take its place
-// there. What bounds it: the weight bytes, at about four fifths of the
-// data-sheet rate at K 14336 on the H100 (PERF.md), plus a fixed cost a
-// launch (fill, cluster barriers, reduce) that weighs at small K.
+// What the two differ in:
+//   matmul_residual: the x tile of a stage comes by cp.async beside the
+//     weights; the epilogue rounds the product, adds res and rounds again.
+//   norm_matmul: the row's inverse RMS needs all of D, of which each block
+//     of the cluster holds one chunk. So the block issues its first weight
+//     stage, then sums the squares of its own x chunk for its tokens in fp32
+//     (sum_squares), the cluster exchanges these partials through
+//     distributed shared memory, and every block adds them in rank order,
+//     so each block gets the same 1 / sqrt(ms + eps) for a row. The x tile
+//     of a stage then goes through registers (NormX): loaded from global one
+//     stage ahead, beside the stage's weight copy, and after the current
+//     stage's products normalised, h = to_T((x * rinv) * (g (+1))), and
+//     stored into the next stage where the tile code reads x. The epilogue
+//     rounds the product once. So the norm costs one read of the block's x
+//     chunk (L2) and one cluster barrier before the loop, overlapped with
+//     the first weight stage, and no extra kernel, barrier or scratch.
+//
+// What bounds it: the weight bytes, at about four fifths of the data-sheet
+// rate at K 14336 on the H100 (PERF.md), plus a fixed cost a launch (fill,
+// cluster barriers, reduce; the norm's prologue) that weighs at small K or
+// N.
 //
 // Dropped from the TPU design: the 16-row batch pad (the kernels mask rows
 // >= B) and the VMEM budget gate (any D and even N are taken; at 8B the
@@ -68,160 +75,12 @@
 namespace die {
 namespace {
 
-// ------------------------------------------------------------ norm_matmul
-
-constexpr int kThreads = 128;
-constexpr int kCols = 2;    // adjacent output columns per thread
-constexpr int kSlice = 128; // contraction rows staged in shared memory
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-rms_inv_kernel(const T* __restrict__ x, float* __restrict__ rinv, int d,
-               float eps) {
-  __shared__ float part[8];
-  const int b = blockIdx.x;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const float v = to_f(x[static_cast<long long>(b) * d + i]);
-    s += v * v;
-  }
-  s = warp_sum(s);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float tot = 0.f;
-    for (int i = 0; i < (blockDim.x >> 5); ++i) tot += part[i];
-    const float ms = tot / static_cast<float>(d);
-    rinv[b] = 1.0f / sqrtf(ms + eps);
-  }
-}
-
-// x is normalised with rinv/gain in the prologue. Writes fp32 partials to
-// ws[z, b, n] when the contraction is split (gridDim.z > 1), else the
-// finished output.
-template <typename T, int BT>
-__global__ void __launch_bounds__(kThreads)
-gemv_kernel(const T* __restrict__ x, const T* __restrict__ gain,
-            const float* __restrict__ rinv, int plus_one,
-            const T* __restrict__ w, float* __restrict__ ws,
-            T* __restrict__ out, int bsz, int d, int n, int chunk) {
-  __shared__ float hs[kSlice][BT];
-  const int n0 = (blockIdx.x * kThreads + threadIdx.x) * kCols;
-  const int b0 = blockIdx.y * BT;
-  const int d_begin = blockIdx.z * chunk;
-  const int d_end = min(d, d_begin + chunk);
-  float acc[BT][kCols];
-#pragma unroll
-  for (int r = 0; r < BT; ++r)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-
-  for (int ds = d_begin; ds < d_end; ds += kSlice) {
-    const int dn = min(kSlice, d_end - ds);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kSlice * BT; i += kThreads) {
-      const int dd = i / BT;
-      const int r = i - dd * BT;
-      const int b = b0 + r;
-      float hv = 0.f;
-      if (dd < dn && b < bsz) {
-        const float xv = to_f(x[static_cast<long long>(b) * d + ds + dd]);
-        float g = to_f(gain[ds + dd]);
-        if (plus_one) g += 1.0f;
-        hv = to_f(from_f<T>((xv * rinv[b]) * g));
-      }
-      hs[dd][r] = hv;
-    }
-    __syncthreads();
-    if (n0 < n) {
-      const T* wp = w + static_cast<long long>(ds) * n + n0;
-#pragma unroll 16
-      for (int dd = 0; dd < dn; ++dd) {
-        float wv[kCols];
-        load_row<T, kCols>(wp + static_cast<long long>(dd) * n, wv);
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          const float hv = hs[dd][r];
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) acc[r][c] += hv * wv[c];
-        }
-      }
-    }
-  }
-  if (n0 >= n) return;
-#pragma unroll
-  for (int r = 0; r < BT; ++r) {
-    const int b = b0 + r;
-    if (b >= bsz) break;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const long long o = static_cast<long long>(b) * n + n0 + c;
-      if (gridDim.z > 1) {
-        ws[static_cast<long long>(blockIdx.z) * bsz * n + o] = acc[r][c];
-      } else {
-        out[o] = from_f<T>(acc[r][c]);
-      }
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-splitk_reduce_kernel(const float* __restrict__ ws, T* __restrict__ out,
-                     int ks, long long total) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= total) return;
-  float s = 0.f;
-  for (int k = 0; k < ks; ++k) s += ws[k * total + i];
-  out[i] = from_f<T>(s);
-}
-
-template <typename T, int BT>
-cudaError_t gemv(const T* x, const T* gain, const float* rinv, int plus_one,
-                 const T* w, float* ws, T* out, int bsz, int d, int n,
-                 int ks, int chunk, cudaStream_t st) {
-  dim3 grid((n + kThreads * kCols - 1) / (kThreads * kCols),
-            (bsz + BT - 1) / BT, ks);
-  gemv_kernel<T, BT><<<grid, kThreads, 0, st>>>(
-      x, gain, rinv, plus_one, w, ws, out, bsz, d, n, chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || ks == 1) return err;
-  const long long total = static_cast<long long>(bsz) * n;
-  splitk_reduce_kernel<T><<<static_cast<unsigned>((total + 255) / 256), 256,
-                            0, st>>>(ws, out, ks, total);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t norm_matmul_t(const void* xv, const void* gainv, const void* wv,
-                          void* outv, float* rinv, float* ws, int bsz, int d,
-                          int n, float eps, int plus_one, int ks, int chunk,
-                          cudaStream_t st) {
-  const T* x = static_cast<const T*>(xv);
-  const T* g = static_cast<const T*>(gainv);
-  const T* w = static_cast<const T*>(wv);
-  T* out = static_cast<T*>(outv);
-  rms_inv_kernel<T><<<bsz, 256, 0, st>>>(x, rinv, d, eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (bsz <= 1) return gemv<T, 1>(x, g, rinv, plus_one, w, ws, out, bsz, d, n, ks, chunk, st);
-  if (bsz <= 2) return gemv<T, 2>(x, g, rinv, plus_one, w, ws, out, bsz, d, n, ks, chunk, st);
-  if (bsz <= 4) return gemv<T, 4>(x, g, rinv, plus_one, w, ws, out, bsz, d, n, ks, chunk, st);
-  if (bsz <= 8) return gemv<T, 8>(x, g, rinv, plus_one, w, ws, out, bsz, d, n, ks, chunk, st);
-  if (bsz <= 16) return gemv<T, 16>(x, g, rinv, plus_one, w, ws, out, bsz, d, n, ks, chunk, st);
-  return gemv<T, 32>(x, g, rinv, plus_one, w, ws, out, bsz, d, n, ks, chunk, st);
-}
-
-// -------------------------------------------------------- matmul_residual
-
 constexpr int kRThreads = 128;   // 4 warps
 constexpr int kRCols = 128;      // output columns a block
 constexpr int kRWarpCols = kRCols / 4;
 constexpr int kRMt = kRWarpCols / 16;  // 16-column m-tiles a warp
 constexpr int kRStages = 2;
 constexpr int kRStageW = 8192;   // weight bytes a stage
-constexpr int kRMaxCluster = 8;  // the portable cluster size
 static_assert(kRCols == kRThreads && kRWarpCols % 16 == 0,
               "a column a thread (fp32), whole m-tiles a warp (bf16)");
 
@@ -259,39 +118,41 @@ __device__ __forceinline__ int swz_offset(int k, int col) {
          ((((col % 64) / 8) ^ (k & 7)) << 4) + (col % 8) * 2;
 }
 
-// Stage weight rows [k0, k0 + kK) of columns [n0, n0 + kRCols) and the x
-// tile of tokens [b0, b0 + kBt) over the same rows into dst; rows at or
-// past k_end, columns past n and tokens past bsz are zeros. The weights
-// come by cp.async here unless kTma (bf16 rows of whole 16-byte pieces:
-// the TMA copy of matmul_residual_kernel brings them): 16-byte copies
-// when kVec (rows of w and x are whole 16-byte pieces), else 4-byte copies
-// (N is even) and element loads of x.
-template <typename T, int NT, bool kVec, bool kTma>
-__device__ __forceinline__ void stage_tile(const T* x, const T* w,
-                                           char* dst, int k0, int k_end,
-                                           int n0, int b0, int bsz, int d,
-                                           int n) {
+// Stage weight rows [k0, k0 + kK) of columns [n0, n0 + kRCols) into dst by
+// cp.async; rows at or past k_end and columns past n are zeros. 16-byte
+// copies when kVec (rows of w are whole 16-byte pieces), else 4-byte copies
+// (N is even). (bf16 rows of whole 16-byte pieces come by TMA instead.)
+template <typename T, int NT, bool kVec>
+__device__ __forceinline__ void stage_w(const T* w, char* dst, int k0,
+                                        int k_end, int n0, int n) {
   using G = RGeo<T, NT>;
-  if constexpr (!kTma) {
-    constexpr int kPiece = kVec ? 16 : 4;
-    constexpr int kPerRow = kRCols * G::kSize / kPiece;
-    constexpr int kElems = kPiece / G::kSize;
-    for (int i = threadIdx.x; i < G::kK * kPerRow; i += kRThreads) {
-      const int row = i / kPerRow;
-      const int c = i - row * kPerRow;
-      const int k = k0 + row;
-      const int col = n0 + c * kElems;
-      const bool ok = k < k_end && col < n;
-      const T* src = ok ? w + static_cast<long long>(k) * n + col : w;
-      char* dd = dst + (G::kSwz ? swz_offset(row, c * kElems)
-                                : row * G::kWStride + c * kPiece);
-      if constexpr (kVec) {
-        cp_async16(dd, src, ok);
-      } else {
-        cp_async4(dd, src, ok);
-      }
+  constexpr int kPiece = kVec ? 16 : 4;
+  constexpr int kPerRow = kRCols * G::kSize / kPiece;
+  constexpr int kElems = kPiece / G::kSize;
+  for (int i = threadIdx.x; i < G::kK * kPerRow; i += kRThreads) {
+    const int row = i / kPerRow;
+    const int c = i - row * kPerRow;
+    const int k = k0 + row;
+    const int col = n0 + c * kElems;
+    const bool ok = k < k_end && col < n;
+    const T* src = ok ? w + static_cast<long long>(k) * n + col : w;
+    char* dd = dst + (G::kSwz ? swz_offset(row, c * kElems)
+                              : row * G::kWStride + c * kPiece);
+    if constexpr (kVec) {
+      cp_async16(dd, src, ok);
+    } else {
+      cp_async4(dd, src, ok);
     }
   }
+}
+
+// Stage the x tile of tokens [b0, b0 + kBt) over rows [k0, k0 + kK) beside
+// the weights in dst (matmul_residual); tokens past bsz and rows at or past
+// k_end are zeros. cp.async of 16 bytes when kVec, else element loads.
+template <typename T, int NT, bool kVec>
+__device__ __forceinline__ void stage_x(const T* x, char* dst, int k0,
+                                        int k_end, int b0, int bsz, int d) {
+  using G = RGeo<T, NT>;
   char* xd = dst + G::kWBytes;
   if constexpr (kVec) {
     constexpr int kXPer = G::kK * G::kSize / 16;
@@ -313,6 +174,105 @@ __device__ __forceinline__ void stage_tile(const T* x, const T* w,
         v = x[static_cast<long long>(b0 + tok) * d + k];
       reinterpret_cast<T*>(xd + tok * G::kXStride)[kk] = v;
     }
+  }
+}
+
+// norm_matmul's x tile through registers: load() reads a stage's x and gain
+// pieces from global (16 bytes each when kVec, else one element), store()
+// writes h = to_T((x * rinv[tok]) * (g + plus)) where the tile code reads x.
+// A thread holds kPer pieces; tokens past bsz and rows at or past k_end are
+// zeros (so h is 0 there).
+template <typename T, int NT, bool kVec>
+struct NormX {
+  using G = RGeo<T, NT>;
+  static constexpr int kE = kVec ? 16 / G::kSize : 1;  // elements a piece
+  static constexpr int kRow = G::kK / kE;               // pieces a token
+  static constexpr int kPieces = G::kBt * kRow;
+  static constexpr int kPer = (kPieces + kRThreads - 1) / kRThreads;
+  uint4 xv[kPer];   // kVec
+  uint4 gv[kPer];
+  T xe[kPer];       // element loads
+  T ge[kPer];
+
+  __device__ __forceinline__ void load(const T* x, const T* gain, int k0,
+                                       int k_end, int b0, int bsz, int d) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = threadIdx.x + j * kRThreads;
+      const int tok = i / kRow;
+      const int k = k0 + (i - tok * kRow) * kE;
+      const bool ok = i < kPieces && b0 + tok < bsz && k < k_end;
+      const long long o = static_cast<long long>(b0 + tok) * d + k;
+      if constexpr (kVec) {
+        xv[j] = ok ? __ldg(reinterpret_cast<const uint4*>(x + o))
+                   : make_uint4(0, 0, 0, 0);
+        gv[j] = ok ? __ldg(reinterpret_cast<const uint4*>(gain + k))
+                   : make_uint4(0, 0, 0, 0);
+      } else {
+        xe[j] = ok ? x[o] : from_f<T>(0.f);
+        ge[j] = ok ? gain[k] : from_f<T>(0.f);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(char* xd, const float* rinv,
+                                        float plus) const {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = threadIdx.x + j * kRThreads;
+      if (i >= kPieces) break;
+      const int tok = i / kRow;
+      const int kk = (i - tok * kRow) * kE;
+      const float r = rinv[tok];
+      char* dst = xd + tok * G::kXStride + kk * G::kSize;
+      if constexpr (kVec) {
+        const T* xs = reinterpret_cast<const T*>(&xv[j]);
+        const T* gs = reinterpret_cast<const T*>(&gv[j]);
+        alignas(16) T h[kE];
+#pragma unroll
+        for (int e = 0; e < kE; ++e)
+          h[e] = from_f<T>((to_f(xs[e]) * r) * (to_f(gs[e]) + plus));
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(h);
+      } else {
+        *reinterpret_cast<T*>(dst) =
+            from_f<T>((to_f(xe[j]) * r) * (to_f(ge[j]) + plus));
+      }
+    }
+  }
+};
+
+// fp32 sums of squares of x[b0 + tok][k_begin, k_end) into ss[tok] for the
+// block's kBt tokens (0 past bsz): warp w takes tokens w, w + 4, ..., its
+// lanes 16-byte pieces (one element unless kVec) strided along k.
+template <typename T, int NT, bool kVec>
+__device__ __forceinline__ void sum_squares(const T* x, float* ss,
+                                            int k_begin, int k_end, int b0,
+                                            int bsz, int d) {
+  using G = RGeo<T, NT>;
+  constexpr int kE = kVec ? 16 / G::kSize : 1;
+  constexpr int kTok = G::kBt / 4;   // tokens a warp
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float acc[kTok];
+#pragma unroll
+  for (int j = 0; j < kTok; ++j) acc[j] = 0.f;
+#pragma unroll 4
+  for (int k = k_begin + lane * kE; k < k_end; k += 32 * kE) {
+#pragma unroll
+    for (int j = 0; j < kTok; ++j) {
+      const int b = b0 + warp + 4 * j;
+      if (b < bsz) {
+        float v[kE];
+        load_row<T, kE>(x + static_cast<long long>(b) * d + k, v);
+#pragma unroll
+        for (int e = 0; e < kE; ++e) acc[j] = fmaf(v[e], v[e], acc[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kTok; ++j) {
+    const float s = warp_sum(acc[j]);
+    if (lane == 0) ss[warp + 4 * j] = s;
   }
 }
 
@@ -377,22 +337,27 @@ __device__ __forceinline__ void simt_tile(const char* st,
   }
 }
 
-// kTma (bf16, rows of whole 16-byte pieces): thread 0 brings each stage's
-// weight boxes by TMA (wmap: w as [d rows][n columns], boxes of 64 x kK,
-// 128-byte swizzle, zeros past d and n), tracked by an mbarrier a stage;
-// the x tile still comes by cp.async. Otherwise wmap is not read.
-template <typename T, int NT, bool kVec>
-__global__ void __launch_bounds__(kRThreads)
-matmul_residual_kernel(const __grid_constant__ CUtensorMap wmap,
-                       const T* __restrict__ x, const T* __restrict__ w,
-                       const T* __restrict__ res, T* __restrict__ out,
-                       int bsz, int d, int n, int chunk) {
+// The core of both kernels (kNorm: norm_matmul, else matmul_residual). kTma
+// (bf16, rows of whole 16-byte pieces): thread 0 brings each stage's weight
+// boxes by TMA (wmap: w as [d rows][n columns], boxes of 64 x kK, 128-byte
+// swizzle, zeros past d and n), tracked by an mbarrier a stage. Otherwise
+// wmap is not read. res is read only by matmul_residual; gain, eps and plus
+// (1 with plus_one, else 0) only by norm_matmul.
+template <typename T, int NT, bool kVec, bool kNorm>
+__device__ __forceinline__ void cluster_gemv(
+    const CUtensorMap* wmap, const T* __restrict__ x, const T* __restrict__ w,
+    const T* __restrict__ res, const T* __restrict__ gain, T* __restrict__ out,
+    int bsz, int d, int n, int chunk, float eps, float plus) {
   using G = RGeo<T, NT>;
   constexpr bool kMma = G::kSwz;
   constexpr bool kTma = kMma && kVec;
+  static_assert(!kNorm || kRStages == 2,
+                "NormX holds one stage's x: the one stage issued ahead");
   extern __shared__ __align__(16) char smem_raw[];
   char* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
   __shared__ __align__(8) uint64_t full[kRStages];
+  __shared__ float ss[G::kBt];     // norm: this block's sums of squares
+  __shared__ float rinv[G::kBt];   // norm: each token's 1 / rms
   namespace cg = cooperative_groups;
   cg::cluster_group cl = cg::this_cluster();
   const int ks = static_cast<int>(cl.num_blocks());  // along x
@@ -412,7 +377,9 @@ matmul_residual_kernel(const __grid_constant__ CUtensorMap wmap,
     }
     __syncthreads();
   }
-  // stage tile t: its weights (TMA or cp.async) and x tile (cp.async)
+  NormX<T, NT, kVec> hx;
+  // stage tile t: its weights (TMA or cp.async) and its x tile (cp.async;
+  // for the norm, into registers, stored by put_h)
   auto issue = [&](int t) {
     char* st = smem + (t % kRStages) * G::kStageBytes;
     const int k0 = k_begin + t * G::kK;
@@ -420,11 +387,21 @@ matmul_residual_kernel(const __grid_constant__ CUtensorMap wmap,
       if (threadIdx.x == 0) {
         uint64_t* bar = &full[t % kRStages];
         mbar_expect_tx(bar, G::kWBytes);
-        tma_load_2d(st, &wmap, n0, k0, bar);
-        tma_load_2d(st + G::kBox, &wmap, n0 + 64, k0, bar);
+        tma_load_2d(st, wmap, n0, k0, bar);
+        tma_load_2d(st + G::kBox, wmap, n0 + 64, k0, bar);
       }
+    } else {
+      stage_w<T, NT, kVec>(w, st, k0, k_end, n0, n);
     }
-    stage_tile<T, NT, kVec, kTma>(x, w, st, k0, k_end, n0, b0, bsz, d, n);
+    if constexpr (kNorm) {
+      hx.load(x, gain, k0, k_end, b0, bsz, d);
+    } else {
+      stage_x<T, NT, kVec>(x, st, k0, k_end, b0, bsz, d);
+    }
+  };
+  auto put_h = [&](int t) {
+    hx.store(smem + (t % kRStages) * G::kStageBytes + G::kWBytes, rinv,
+             plus);
   };
 
   float acc_m[kRMt][NT][4];
@@ -446,6 +423,18 @@ matmul_residual_kernel(const __grid_constant__ CUtensorMap wmap,
     if (t < n_kt) issue(t);
     cp_async_commit();
   }
+  if constexpr (kNorm) {
+    // the rows' inverse RMS over all of D: this block's partial sums of
+    // squares, exchanged in the cluster and added in rank order
+    sum_squares<T, NT, kVec>(x, ss, k_begin, k_end, b0, bsz, d);
+    cl.sync();
+    if (threadIdx.x < G::kBt) {
+      const float s = cluster_sum(ss, threadIdx.x);
+      rinv[threadIdx.x] = 1.0f / sqrtf(s / static_cast<float>(d) + eps);
+    }
+    __syncthreads();
+    if (n_kt > 0) put_h(0);
+  }
   for (int t = 0; t < n_kt; ++t) {
     const int tn = t + kRStages - 1;
     if (tn < n_kt) issue(tn);
@@ -458,6 +447,9 @@ matmul_residual_kernel(const __grid_constant__ CUtensorMap wmap,
       mma_tile<NT>(st, acc_m);
     } else {
       simt_tile<NT>(st, acc_s);
+    }
+    if constexpr (kNorm) {
+      if (tn < n_kt) put_h(tn);     // that stage was freed by the last barrier
     }
     __syncthreads();                // the stage is free again
   }
@@ -481,29 +473,49 @@ matmul_residual_kernel(const __grid_constant__ CUtensorMap wmap,
     for (int b = 0; b < 8 * NT; ++b)
       part[b * kRCols + threadIdx.x] = acc_s[b];
   }
-  cl.sync();   // every partial of the cluster written
-
-  // block `rank` sums the cluster's partials of its kRCols / ks columns
-  // and writes them: round the product, add res, round again
-  const int per = kRCols / ks;
-  for (int i = threadIdx.x; i < G::kBt * per; i += kRThreads) {
-    const int tok = i / per;
-    const int c = rank * per + (i - tok * per);
-    const float s = cluster_sum<kRMaxCluster>(part, tok * kRCols + c);
-    const int b = b0 + tok;
-    const int col = n0 + c;
-    if (b < bsz && col < n) {
-      const long long o = static_cast<long long>(b) * n + col;
-      out[o] = from_f<T>(to_f(from_f<T>(s)) + to_f(res[o]));
-    }
-  }
-  cl.sync();   // no block leaves while its partial is read
+  // the cluster's sums (no block leaves while its partial, or ss, is
+  // read): norm_matmul rounds the product; matmul_residual rounds it, adds
+  // res and rounds again
+  cluster_reduce<kRCols, kRThreads>(
+      part, G::kBt, [&](int tok, int c, float s) {
+        const int b = b0 + tok;
+        const int col = n0 + c;
+        if (b >= bsz || col >= n) return;
+        const long long o = static_cast<long long>(b) * n + col;
+        if constexpr (kNorm) {
+          out[o] = from_f<T>(s);
+        } else {
+          out[o] = from_f<T>(to_f(from_f<T>(s)) + to_f(res[o]));
+        }
+      });
 }
 
 template <typename T, int NT, bool kVec>
-cudaError_t launch_residual(const T* x, const T* w, const T* res, T* out,
-                            int bsz, int d, int n, int ks, int chunk,
-                            cudaStream_t st) {
+__global__ void __launch_bounds__(kRThreads)
+matmul_residual_kernel(const __grid_constant__ CUtensorMap wmap,
+                       const T* __restrict__ x, const T* __restrict__ w,
+                       const T* __restrict__ res, T* __restrict__ out,
+                       int bsz, int d, int n, int chunk) {
+  cluster_gemv<T, NT, kVec, false>(&wmap, x, w, res, nullptr, out, bsz, d, n,
+                                   chunk, 0.f, 0.f);
+}
+
+template <typename T, int NT, bool kVec>
+__global__ void __launch_bounds__(kRThreads)
+norm_matmul_kernel(const __grid_constant__ CUtensorMap wmap,
+                   const T* __restrict__ x, const T* __restrict__ gain,
+                   const T* __restrict__ w, T* __restrict__ out, int bsz,
+                   int d, int n, int chunk, float eps, float plus) {
+  cluster_gemv<T, NT, kVec, true>(&wmap, x, w, nullptr, gain, out, bsz, d, n,
+                                  chunk, eps, plus);
+}
+
+// One launch of the kNorm (norm_matmul) or residual kernel instance: a grid
+// of column tiles x ks (one cluster each) by token tiles.
+template <typename T, int NT, bool kVec, bool kNorm>
+cudaError_t launch_gemv(const T* x, const T* w, const T* res, const T* gain,
+                        T* out, int bsz, int d, int n, int ks, int chunk,
+                        float eps, float plus, cudaStream_t st) {
   using G = RGeo<T, NT>;
   CUtensorMap wmap = {};
   if constexpr (G::kSwz && kVec) {
@@ -522,115 +534,110 @@ cudaError_t launch_residual(const T* x, const T* w, const T* res, T* out,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
       return cudaErrorInvalidValue;
   }
-  static bool attr_set = false;  // per instantiation (one card)
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        matmul_residual_kernel<T, NT, kVec>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
+  const dim3 grid(((n + kRCols - 1) / kRCols) * ks,
+                  (bsz + G::kBt - 1) / G::kBt, 1);
+  if constexpr (kNorm) {
+    return launch_cluster<norm_matmul_kernel<T, NT, kVec>>(
+        grid, kRThreads, ks, G::kSmem, st, wmap, x, gain, w, out, bsz, d, n,
+        chunk, eps, plus);
+  } else {
+    return launch_cluster<matmul_residual_kernel<T, NT, kVec>>(
+        grid, kRThreads, ks, G::kSmem, st, wmap, x, w, res, out, bsz, d, n,
+        chunk);
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((n + kRCols - 1) / kRCols) * ks,
-                     (bsz + G::kBt - 1) / G::kBt, 1);
-  cfg.blockDim = dim3(kRThreads, 1, 1);
-  cfg.dynamicSmemBytes = G::kSmem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, matmul_residual_kernel<T, NT, kVec>, wmap, x,
-                         w, res, out, bsz, d, n, chunk);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
 }
 
-template <typename T, bool kVec>
-cudaError_t residual_by_tile(const void* x, const void* w, const void* res,
-                             void* out, int bsz, int d, int n, int ks,
-                             int chunk, cudaStream_t st) {
+template <typename T, bool kVec, bool kNorm>
+cudaError_t gemv_by_tile(const void* x, const void* w, const void* res,
+                         const void* gain, void* out, int bsz, int d, int n,
+                         int ks, int chunk, float eps, float plus,
+                         cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   const T* rt = static_cast<const T*>(res);
+  const T* gt = static_cast<const T*>(gain);
   T* ot = static_cast<T*>(out);
   if (bsz <= 8)
-    return launch_residual<T, 1, kVec>(xt, wt, rt, ot, bsz, d, n, ks, chunk,
-                                       st);
+    return launch_gemv<T, 1, kVec, kNorm>(xt, wt, rt, gt, ot, bsz, d, n, ks,
+                                          chunk, eps, plus, st);
   if (bsz <= 16)
-    return launch_residual<T, 2, kVec>(xt, wt, rt, ot, bsz, d, n, ks, chunk,
-                                       st);
-  return launch_residual<T, 4, kVec>(xt, wt, rt, ot, bsz, d, n, ks, chunk,
-                                     st);
+    return launch_gemv<T, 2, kVec, kNorm>(xt, wt, rt, gt, ot, bsz, d, n, ks,
+                                          chunk, eps, plus, st);
+  return launch_gemv<T, 4, kVec, kNorm>(xt, wt, rt, gt, ot, bsz, d, n, ks,
+                                        chunk, eps, plus, st);
 }
 
-template <typename T>
-cudaError_t residual_t(const void* x, const void* w, const void* res,
-                       void* out, int bsz, int d, int n, int ks, int chunk,
-                       cudaStream_t st) {
+// kVec: rows of w and x (and the gain's pieces) are whole 16-byte pieces
+template <typename T, bool kNorm>
+cudaError_t gemv_t(const void* x, const void* w, const void* res,
+                   const void* gain, void* out, int bsz, int d, int n, int ks,
+                   int chunk, float eps, float plus, cudaStream_t st) {
   constexpr int kSize = static_cast<int>(sizeof(T));
   if ((static_cast<long long>(n) * kSize) % 16 == 0 &&
       (static_cast<long long>(d) * kSize) % 16 == 0)
-    return residual_by_tile<T, true>(x, w, res, out, bsz, d, n, ks, chunk,
-                                     st);
-  return residual_by_tile<T, false>(x, w, res, out, bsz, d, n, ks, chunk,
-                                    st);
+    return gemv_by_tile<T, true, kNorm>(x, w, res, gain, out, bsz, d, n, ks,
+                                        chunk, eps, plus, st);
+  return gemv_by_tile<T, false, kNorm>(x, w, res, gain, out, bsz, d, n, ks,
+                                       chunk, eps, plus, st);
+}
+
+// The launch plan's checks shared by both entry points: ks is 1, 2, 4 or
+// 8, chunk a multiple of the stage depth (32 rows bf16, 16 fp32) and ks *
+// chunk covers d (ops/fused_decode.py gemv_plan); N is even.
+bool plan_ok(int d, int n, int ks, int chunk, int dtype) {
+  const int depth = dtype == kBF16 ? RGeo<__nv_bfloat16, 1>::kK
+                                    : RGeo<float, 1>::kK;
+  return n % 2 == 0 && d > 0 && ks >= 1 && ks <= kMaxCluster &&
+         (ks & (ks - 1)) == 0 && chunk >= depth && chunk % depth == 0 &&
+         static_cast<long long>(ks) * chunk >= d;
 }
 
 }  // namespace
 }  // namespace die
 
-// rinv: fp32 [B] scratch; ws: fp32 [ks, B, N] scratch (unused when
-// ks == 1). Returns cudaGetLastError() of the launches (0 on success).
+// One launch: ks blocks of a cluster split the contraction into chunks of
+// `chunk` rows and reduce through distributed shared memory, the norm's
+// inverse RMS exchanged the same way. bf16 runs the tensor cores, fp32 the
+// CUDA cores. plus_one adds 1 to the gain (in fp32). Returns the launch's
+// error (0 on success).
 extern "C" int die_norm_matmul(const void* x, const void* gain,
-                               const void* w, void* out, void* rinv,
-                               void* ws, int bsz, int d, int n, float eps,
-                               int plus_one, int ks, int chunk, int dtype,
-                               void* stream) {
+                               const void* w, void* out, int bsz, int d,
+                               int n, float eps, int plus_one, int ks,
+                               int chunk, int dtype, void* stream) {
   using namespace die;
   if (bsz <= 0 || n <= 0) return 0;
-  if (n % kCols || ks < 1 || chunk < 1) return cudaErrorInvalidValue;
+  if (!plan_ok(d, n, ks, chunk, dtype)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* r = static_cast<float*>(rinv);
-  float* p = static_cast<float*>(ws);
+  const float plus = plus_one ? 1.0f : 0.0f;
   cudaError_t err;
   if (dtype == kBF16)
-    err = norm_matmul_t<__nv_bfloat16>(x, gain, w, out, r, p, bsz, d, n, eps, plus_one, ks, chunk, st);
+    err = gemv_t<__nv_bfloat16, true>(x, w, nullptr, gain, out, bsz, d, n, ks,
+                                      chunk, eps, plus, st);
   else if (dtype == kF32)
-    err = norm_matmul_t<float>(x, gain, w, out, r, p, bsz, d, n, eps, plus_one, ks, chunk, st);
+    err = gemv_t<float, true>(x, w, nullptr, gain, out, bsz, d, n, ks, chunk,
+                              eps, plus, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 
-// One launch: ks blocks of a cluster split the contraction into chunks of
-// `chunk` rows (a multiple of the stage depth: 32 bf16, 16 fp32) and
-// reduce through distributed shared memory. ks is 1, 2, 4 or 8 and ks *
-// chunk covers d (ops/fused_decode.py matmul_residual_plan). bf16 runs
-// the tensor cores, fp32 the CUDA cores. Returns the launch's error (0 on
-// success).
+// The same core with the residual epilogue (no norm). Returns the launch's
+// error (0 on success).
 extern "C" int die_matmul_residual(const void* x, const void* w,
                                    const void* res, void* out, int bsz,
                                    int d, int n, int ks, int chunk,
                                    int dtype, void* stream) {
   using namespace die;
   if (bsz <= 0 || n <= 0) return 0;
-  const int depth = dtype == kBF16 ? RGeo<__nv_bfloat16, 1>::kK
-                                    : RGeo<float, 1>::kK;
-  if (n % 2 || d <= 0 || ks < 1 || ks > kRMaxCluster || (ks & (ks - 1)) ||
-      chunk < depth || chunk % depth ||
-      static_cast<long long>(ks) * chunk < d)
-    return cudaErrorInvalidValue;
+  if (!plan_ok(d, n, ks, chunk, dtype)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == kBF16)
-    err = residual_t<__nv_bfloat16>(x, w, res, out, bsz, d, n, ks, chunk, st);
+    err = gemv_t<__nv_bfloat16, false>(x, w, res, nullptr, out, bsz, d, n, ks,
+                                       chunk, 0.f, 0.f, st);
   else if (dtype == kF32)
-    err = residual_t<float>(x, w, res, out, bsz, d, n, ks, chunk, st);
+    err = gemv_t<float, false>(x, w, res, nullptr, out, bsz, d, n, ks, chunk,
+                               0.f, 0.f, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

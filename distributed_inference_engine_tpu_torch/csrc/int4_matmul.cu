@@ -24,15 +24,11 @@
 // int4_instance) picks one from the shapes, the dtype and the pointers'
 // 16-byte alignment alone, and names it here; this entry point checks
 // that the instance takes the call and never falls back:
-//   gemv  (M <= 16, any dtype): a block owns 256 output columns (32 lanes x
-//         8 adjacent columns, one 8-byte load per lane per packed row,
-//         coalesced along N) and a chunk of the contraction; its 8 warps
-//         take interleaved packed rows of the chunk and are summed in
-//         shared memory at the end. The activations of the chunk sit in
-//         shared memory as fp32, so every weight byte loaded feeds all M
-//         rows from registers. The contraction is split over enough blocks
-//         to fill the card (split-K, fp32 partials summed by a second
-//         kernel, which applies the scale), as csrc/fused_decode.cu does.
+//   gemv  (M <= 16, any dtype): one launch of a cluster GEMV on the tensor
+//         cores, the packed rows split over a thread-block cluster of up to
+//         8 and reduced in distributed shared memory, the packed tiles by
+//         TMA, an fp32 x split into three exact bf16 terms (see the section
+//         below).
 //   wgmma (M > 16, bf16, K/2 % 8 == 0, N % 16 == 0, x and P 16-byte
 //         aligned: every Llama-3-8B projection): TMA loads into a
 //         shared-memory ring tracked by mbarriers, one producer thread;
@@ -62,11 +58,10 @@
 //
 // Left: the wgmma instance is not persistent (a block's epilogue does not
 // overlap the next tile's loads), spends the consumers' issue slots on the
-// unpack (about 2.5 integer operations per weight beside each wgmma: the
+// unpack (about 1.5 integer operations per weight beside each wgmma: the
 // likeliest cause of the gap to the operations bound at large M, not yet
 // measured apart), and at M <= 64 with N = 4096 runs 32 blocks on 132 SMs
-// (no split-K yet). The GEMV and simt instances are as in their first
-// version.
+// (no split-K yet). The simt instance is as in its first version.
 #include <cuda.h>
 #include <mma.h>
 
@@ -100,155 +95,6 @@ __device__ __forceinline__ unsigned int nib_pair_bf16(unsigned int x) {
   return v.u;
 }
 
-// ------------------------------------------------------------------ GEMV
-
-constexpr int kGemvThreads = 256;
-constexpr int kGemvWarps = kGemvThreads / 32;
-constexpr int kGemvCols = 8;                  // columns (bytes) per lane
-constexpr int kGemvBlockCols = 32 * kGemvCols;
-constexpr int kGemvSlice = 64;                // packed rows staged per pass
-
-template <typename T, int BT, bool VEC>
-__global__ void __launch_bounds__(kGemvThreads)
-int4_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ p,
-                 const float* __restrict__ s, float* __restrict__ ws,
-                 T* __restrict__ out, int m, int k2, int n, int chunk) {
-  __shared__ float xs[2][kGemvSlice][BT];
-  __shared__ float red[kGemvWarps][kGemvBlockCols];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int c0 = blockIdx.x * kGemvBlockCols + lane * kGemvCols;
-  const int k_begin = blockIdx.z * chunk;
-  const int k_end = min(k2, k_begin + chunk);
-  const long long kdim = 2LL * k2;
-
-  float acc[BT][kGemvCols];
-#pragma unroll
-  for (int r = 0; r < BT; ++r)
-#pragma unroll
-    for (int c = 0; c < kGemvCols; ++c) acc[r][c] = 0.f;
-
-  for (int ks = k_begin; ks < k_end; ks += kGemvSlice) {
-    const int kn = min(kGemvSlice, k_end - ks);
-    __syncthreads();
-    for (int i = threadIdx.x; i < 2 * kGemvSlice * BT; i += kGemvThreads) {
-      const int half = i / (kGemvSlice * BT);
-      const int rem = i - half * kGemvSlice * BT;
-      const int kk = rem / BT;
-      const int r = rem - kk * BT;
-      float v = 0.f;
-      if (kk < kn && r < m)
-        v = to_f(x[r * kdim + static_cast<long long>(half) * k2 + ks + kk]);
-      xs[half][kk][r] = v;
-    }
-    __syncthreads();
-    if (c0 >= n) continue;
-#pragma unroll 4
-    for (int kk = warp; kk < kn; kk += kGemvWarps) {
-      const int8_t* row = p + static_cast<long long>(ks + kk) * n + c0;
-      unsigned int words[kGemvCols / 4];
-      if constexpr (VEC) {
-        const uint2 v = __ldg(reinterpret_cast<const uint2*>(row));
-        words[0] = v.x;
-        words[1] = v.y;
-      } else {
-#pragma unroll
-        for (int w = 0; w < kGemvCols / 4; ++w) {
-          unsigned int word = 0;
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            const int c = 4 * w + b;
-            const unsigned int byte =
-                c0 + c < n ? static_cast<unsigned char>(__ldg(row + c)) : 0u;
-            word |= byte << (8 * b);
-          }
-          words[w] = word;
-        }
-      }
-      float lo[kGemvCols], hi[kGemvCols];
-#pragma unroll
-      for (int w = 0; w < kGemvCols / 4; ++w) {
-        const unsigned int t = words[w] ^ 0x88888888u;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          lo[4 * w + b] = nib_f((t >> (8 * b)) & 0xFu);
-          hi[4 * w + b] = nib_f((t >> (8 * b + 4)) & 0xFu);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        const float xl = xs[0][kk][r];
-        const float xh = xs[1][kk][r];
-#pragma unroll
-        for (int c = 0; c < kGemvCols; ++c)
-          acc[r][c] = fmaf(xl, lo[c], fmaf(xh, hi[c], acc[r][c]));
-      }
-    }
-  }
-
-  // sum the warps' partials, one batch row at a time
-  const int col = blockIdx.x * kGemvBlockCols + threadIdx.x;
-#pragma unroll
-  for (int r = 0; r < BT; ++r) {
-    if (r >= m) break;  // uniform across the block
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < kGemvCols; ++c)
-      red[warp][lane * kGemvCols + c] = acc[r][c];
-    __syncthreads();
-    if (col < n) {
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < kGemvWarps; ++w) sum += red[w][threadIdx.x];
-      const long long o = static_cast<long long>(r) * n + col;
-      if (gridDim.z > 1)
-        ws[static_cast<long long>(blockIdx.z) * m * n + o] = sum;
-      else
-        out[o] = from_f<T>(sum * s[col]);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-int4_splitk_reduce_kernel(const float* __restrict__ ws,
-                          const float* __restrict__ s, T* __restrict__ out,
-                          int ks, int n, long long total) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float sum = 0.f;
-  for (int k = 0; k < ks; ++k) sum += ws[k * total + i];
-  out[i] = from_f<T>(sum * s[i % n]);
-}
-
-template <typename T, bool VEC>
-cudaError_t gemv_by_rows(const T* x, const int8_t* p, const float* s,
-                         float* ws, T* out, int m, int k2, int n, int ks,
-                         int chunk, cudaStream_t st) {
-  dim3 grid((n + kGemvBlockCols - 1) / kGemvBlockCols, 1, ks);
-#define DIE_GEMV(BT)                                                      \
-  int4_gemv_kernel<T, BT, VEC>                                            \
-      <<<grid, kGemvThreads, 0, st>>>(x, p, s, ws, out, m, k2, n, chunk)
-  if (m <= 1)
-    DIE_GEMV(1);
-  else if (m <= 2)
-    DIE_GEMV(2);
-  else if (m <= 4)
-    DIE_GEMV(4);
-  else if (m <= 8)
-    DIE_GEMV(8);
-  else
-    DIE_GEMV(16);
-#undef DIE_GEMV
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || ks == 1) return err;
-  const long long total = static_cast<long long>(m) * n;
-  int4_splitk_reduce_kernel<T><<<static_cast<unsigned>((total + 255) / 256),
-                                 256, 0, st>>>(ws, s, out, ks, n, total);
-  return cudaGetLastError();
-}
-
 // ------------------------------- M > 16, bf16, TMA-addressable: wgmma
 //
 // Operands swapped: the weights are wgmma's 64-row A operand, unpacked
@@ -263,8 +109,8 @@ cudaError_t gemv_by_rows(const T* x, const int8_t* p, const float* s,
 // swizzle a K-major wgmma B operand takes, and the packed bytes
 // [kb:kb+64, n0:n0+128]. TMA zero-fills the M, N and K/2 edges; a zero byte
 // unpacks to weight 0, so the loop has no bounds check. Each consumer
-// unpacks its own fragments of the stage (four 2-byte loads and 16 bf16
-// pairs per k16 step) and issues 8 wgmma (4 k16 steps for each half); the
+// unpacks its own fragments of the stage (half an ldmatrix.x4.trans and 16
+// bf16 pairs per k16 step, unpack_fragments) and issues 8 wgmma (4 k16 steps for each half); the
 // fragments are double-buffered in registers, so step k's unpack runs while
 // step k - 1's wgmma are in flight, and the warpgroups never wait for each
 // other.
@@ -449,43 +295,43 @@ __device__ __forceinline__ unsigned int nib_lanes_bf16(unsigned int t) {
   return v.u;
 }
 
-// The packed tile [64 k][128 n] arrives by TMA with the 128-byte swizzle
-// (16-byte chunk j of row k stored at chunk j ^ (k & 7)), so that the
-// fragment loads below, four rows apart in k, hit distinct banks.
-__device__ __forceinline__ unsigned int packed_pair(const unsigned char* pt,
-                                                    int k, int nrow) {
-  return *reinterpret_cast<const unsigned short*>(
-      pt + k * 128 + ((((nrow >> 4) ^ (k & 7))) << 4) + (nrow & 15));
-}
-
-// The A fragments of one stage for the thread whose fragment rows are
-// weight columns nrow and nrow + 1 (q = lane / 4) and whose fragment
-// columns are k = 2c, 2c + 1, 2c + 8, 2c + 9 (c = lane % 4) of each k16
-// step: fr[kk] the lo weights of step kk, fr[4 + kk] the hi ones. Two bytes
-// (columns nrow, nrow + 1) of packed rows k and k + 1 make one word
-// [k n, k n+1, k+1 n, k+1 n+1]; its lo nibbles at bits 0 and 16 are the
-// bf16 pair of column nrow, at bits 8 and 24 that of nrow + 1, and the hi
-// nibbles four bits up.
+// The A fragments of one 16-row m-tile of weight columns col16 .. col16 +
+// 15 (a multiple of 16: one 16-byte chunk of each packed row) from a stage's
+// packed tile [64 k][128 n], which arrives by TMA with the 128-byte swizzle
+// (16-byte chunk j of row k stored at chunk j ^ (k & 7)). The thread's
+// fragment rows are weight columns nrow = col16 + 2q and nrow + 1 (q =
+// lane / 4), its fragment columns k = 2c, 2c + 1, 2c + 8, 2c + 9 (c = lane
+// % 4) of each k16 step: fr[kk] the lo weights of step kk, fr[4 + kk] the hi
+// ones. Two bytes (columns nrow, nrow + 1) of packed rows k and k + 1 make
+// one word [k n, k n+1, k+1 n, k+1 n+1], which ldmatrix.trans, reading the
+// tile as b16 pairs, hands lane l for rows 2c, 2c + 1 of an 8-row matrix;
+// one ldmatrix.x4.trans brings the words of two k16 steps (conflict-free:
+// the swizzle puts a matrix's 8 rows in distinct banks). The word's lo
+// nibbles at bits 0 and 16 are the bf16 pair of column nrow, at bits 8 and
+// 24 that of nrow + 1, and the hi nibbles four bits up.
 __device__ __forceinline__ void unpack_fragments(const unsigned char* pt,
-                                                 int nrow, int c,
+                                                 int col16, int lane,
                                                  uint32_t (&fr)[8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kWgBK / 16; ++kk) {
-    const int k0 = kk * 16 + 2 * c;
-    const unsigned int t01 = (packed_pair(pt, k0, nrow) |
-                              (packed_pair(pt, k0 + 1, nrow) << 16)) ^
-                             0x88888888u;
-    const unsigned int t89 = (packed_pair(pt, k0 + 8, nrow) |
-                              (packed_pair(pt, k0 + 9, nrow) << 16)) ^
-                             0x88888888u;
-    fr[kk][0] = nib_lanes_bf16(t01);
-    fr[kk][1] = nib_lanes_bf16(t01 >> 8);
-    fr[kk][2] = nib_lanes_bf16(t89);
-    fr[kk][3] = nib_lanes_bf16(t89 >> 8);
-    fr[4 + kk][0] = nib_lanes_bf16(t01 >> 4);
-    fr[4 + kk][1] = nib_lanes_bf16(t01 >> 12);
-    fr[4 + kk][2] = nib_lanes_bf16(t89 >> 4);
-    fr[4 + kk][3] = nib_lanes_bf16(t89 >> 12);
+  for (int kp = 0; kp < kWgBK / 32; ++kp) {
+    // matrix lane / 8: rows kp 32 + 8 (lane / 8) .. + 7
+    const int k = kp * 32 + lane;
+    uint32_t t[4];
+    ldsm_x4_trans(t, pt + k * 128 + (((col16 >> 4) ^ (k & 7)) << 4));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kk = 2 * kp + h;
+      const unsigned int t01 = t[2 * h] ^ 0x88888888u;      // rows 2c, 2c + 1
+      const unsigned int t89 = t[2 * h + 1] ^ 0x88888888u;  // rows 2c + 8, + 9
+      fr[kk][0] = nib_lanes_bf16(t01);
+      fr[kk][1] = nib_lanes_bf16(t01 >> 8);
+      fr[kk][2] = nib_lanes_bf16(t89);
+      fr[kk][3] = nib_lanes_bf16(t89 >> 8);
+      fr[4 + kk][0] = nib_lanes_bf16(t01 >> 4);
+      fr[4 + kk][1] = nib_lanes_bf16(t01 >> 12);
+      fr[4 + kk][2] = nib_lanes_bf16(t89 >> 4);
+      fr[4 + kk][3] = nib_lanes_bf16(t89 >> 12);
+    }
   }
 }
 
@@ -563,7 +409,7 @@ __global__ void __launch_bounds__(384, 1)
       const int st = kt % kS;
       unsigned char* stage = smem + st * L::kStage;
       mbar_wait(&full[st], (kt / kS) & 1);
-      unpack_fragments(stage + 2 * L::kXTile, nrow, c, cur);
+      unpack_fragments(stage + 2 * L::kXTile, wg * 64 + w * 16, lane, cur);
       const uint32_t x_lo = smem_u32(stage);
       const uint32_t x_hi = x_lo + L::kXTile;
       fence_acc(acc);
@@ -665,6 +511,451 @@ cudaError_t wgmma_by_tile(const __nv_bfloat16* x, const int8_t* p,
     case 256: return wgmma_launch<256>(x, p, s, out, m, k2, n, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// ------------------------------------- M <= 16: the GEMV, on tensor cores
+//
+// Decode (8 slots), the LM head and the mixed step's unembed rows. A block
+// owns 128 output columns, the M <= 16 tokens (one or two n8 tiles) and a
+// chunk of the packed rows; the chunks of one column tile are the blocks of
+// one thread-block cluster of up to 8 (ops/int4_matmul.py int4_gemv_plan),
+// which reduce their fp32 partials through distributed shared memory in rank
+// order and apply the scale and the one rounding in the same launch: no
+// workspace, no second kernel.
+//
+// Each block streams its packed rows through a ring of 2 stages of 64 rows x
+// 128 columns (8 KB, as matmul_residual's two 8 KB stages; 3 and 4 stages
+// measured no faster on the H100, a tuning script not kept), by TMA into the
+// wgmma instance's 128-byte-swizzled tile where N % 16 == 0 and the payload
+// is 16-byte aligned, else by bounds-checked byte loads through registers
+// into the same layout (chosen from the shape and the pointer before the
+// launch). Beside each stage sit both halves' x slices, x[:, k0 : k0 + 64]
+// for the low nibbles and x[:, K/2 + k0 : ...] for the high ones, as bf16:
+// a bf16 x by cp.async (16-byte pieces where K/2 and x allow); an fp32 x
+// split exactly into three bf16 terms hi + mid + lo (each rounding's
+// remainder is exact in fp32, and the three carry more than fp32's 24
+// bits), each an n8 tile of its own, and x in element loads, both through
+// registers, loaded one stage ahead and stored after the current stage's
+// products.
+//
+// The products run on mma.sync.m16n8k16 with the weights as M (16 columns a
+// fragment) and the tokens as N: each warp owns 32 columns (two m-tiles)
+// and unpacks its A fragments straight from the packed bytes in registers
+// (unpack_fragments: one 16-row byte tile gives the lo fragment against the
+// x rows [k0, k0 + 16) and the hi fragment against [K/2 + k0, ...)), the
+// tokens' B fragments come from the x slices by ldmatrix. int4 values are
+// exact in bf16 and each product is exact in fp32, so the result differs
+// from the plain version only in the order of the fp32 sum. The mma
+// accumulators restart from 0 each stage and are added to fp32 totals on
+// the CUDA cores (round to nearest), so no long chain of tensor-core
+// accumulation carries an fp32 x's sum.
+//
+// What bounds it: the packed bytes, half a byte a weight. At M 8 a CUDA-
+// core design needs 16 FMAs a packed byte, more than the card's FMA rate
+// allows at the bytes rate (for the fp32 head, such a design on this same
+// cluster core measured 3x slower than the three bf16 terms); here a byte
+// costs about one integer operation of unpacking and 1/64 of an mma (3/64
+// for fp32 x). Measured (PERF.md): about 56% of the bytes bound at gate|up,
+// 41% at w_down and 63% at the fp32 head, plus a fixed cost a launch (fill,
+// cluster barriers, reduce) of several microseconds that weighs at the
+// small projections.
+
+constexpr int kGvThreads = 128;           // 4 warps
+constexpr int kGvCols = 128;              // output columns a block
+constexpr int kGvK = 64;                  // packed rows a stage
+constexpr int kGvStages = 2;
+constexpr int kGvPBytes = kGvCols * kGvK; // packed bytes a stage
+static_assert(kGvK == kWgBK && kGvCols == kWgBN,
+              "the stage's packed tile is the wgmma instance's TMA tile");
+
+// Stage geometry for x of type T and NT 8-token tiles: the 8 KB packed tile
+// (1024-byte aligned for the swizzle), then the x slices [half][term][kBt]
+// rows of 64 bf16 padded by 16 bytes (conflict-free ldmatrix); after the
+// loop the ring holds the block's fp32 partial [kBt][kGvCols].
+template <typename T, int NT>
+struct GvGeo {
+  static constexpr int kTerms = sizeof(T) == 4 ? 3 : 1;  // bf16 terms of x
+  static constexpr int kBt = 8 * NT;
+  static constexpr int kXStride = kGvK * 2 + 16;
+  static constexpr int kXTile = kBt * kXStride;          // one (half, term)
+  static constexpr int kStage =
+      (kGvPBytes + 2 * kTerms * kXTile + 1023) / 1024 * 1024;
+  static constexpr int kPart = kBt * kGvCols * 4;
+  static constexpr int kRing = kGvStages * kStage;
+  static constexpr int kSmem = (kRing > kPart ? kRing : kPart) + 1024;
+};
+
+// x's three bf16 terms: v = hi + mid + lo, each remainder exact in fp32
+__device__ __forceinline__ void split3(float v, __nv_bfloat16 (&t)[3]) {
+  t[0] = __float2bfloat16(v);
+  const float r1 = v - __bfloat162float(t[0]);
+  t[1] = __float2bfloat16(r1);
+  t[2] = __float2bfloat16(r1 - __bfloat162float(t[1]));
+}
+
+// A stage's bf16 x slices by cp.async, 16 bytes a piece (K/2 % 8 == 0, x
+// aligned); zeros past m and at or past k_end.
+template <int NT>
+__device__ __forceinline__ void stage_x_async(const __nv_bfloat16* x,
+                                              unsigned char* xs, int k0,
+                                              int k_end, int m, int k2) {
+  using G = GvGeo<__nv_bfloat16, NT>;
+  constexpr int kRow = kGvK / 8;   // 16-byte pieces a (half, token) row
+  for (int i = threadIdx.x; i < 2 * G::kBt * kRow; i += kGvThreads) {
+    const int row = i / kRow;      // half * kBt + token
+    const int half = row / G::kBt;
+    const int tok = row - half * G::kBt;
+    const int c = i - row * kRow;
+    const int k = k0 + c * 8;
+    const bool ok = tok < m && k < k_end;
+    const __nv_bfloat16* src = x + static_cast<long long>(tok) * 2 * k2 +
+                               static_cast<long long>(half) * k2 + k;
+    cp_async16(xs + half * G::kXTile + tok * G::kXStride + c * 16,
+               ok ? src : x, ok);
+  }
+}
+
+// A stage's x slices through registers: load() reads pieces of kE elements
+// along k of one (half, token) row (16 bytes when kVec, else one element;
+// zeros past m and at or past k_end), store() writes them as bf16 terms.
+template <typename T, int NT, bool kVec>
+struct GvX {
+  using G = GvGeo<T, NT>;
+  static constexpr int kE = kVec ? 16 / static_cast<int>(sizeof(T)) : 1;
+  static constexpr int kRow = kGvK / kE;                 // pieces a row
+  static constexpr int kPieces = 2 * G::kBt * kRow;
+  static constexpr int kPer = (kPieces + kGvThreads - 1) / kGvThreads;
+  uint4 v[kPer];    // kVec
+  T e[kPer];        // element loads
+
+  __device__ __forceinline__ void load(const T* x, int k0, int k_end, int m,
+                                       int k2) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = threadIdx.x + j * kGvThreads;
+      const int row = i / kRow;                 // half * kBt + token
+      const int half = row / G::kBt;
+      const int tok = row - half * G::kBt;
+      const int k = k0 + (i - row * kRow) * kE;
+      const bool ok = i < kPieces && tok < m && k < k_end;
+      const T* src = x + static_cast<long long>(tok) * 2 * k2 +
+                     static_cast<long long>(half) * k2 + k;
+      if constexpr (kVec) {
+        v[j] = ok ? __ldg(reinterpret_cast<const uint4*>(src))
+                  : make_uint4(0, 0, 0, 0);
+      } else {
+        e[j] = ok ? src[0] : from_f<T>(0.f);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(unsigned char* xs) const {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = threadIdx.x + j * kGvThreads;
+      if (i >= kPieces) break;
+      const int row = i / kRow;
+      const int half = row / G::kBt;
+      const int tok = row - half * G::kBt;
+      const int kk = (i - row * kRow) * kE;
+      unsigned char* dst = xs + half * G::kTerms * G::kXTile +
+                           tok * G::kXStride + kk * 2;
+      if constexpr (G::kTerms == 1) {
+        if constexpr (kVec) {
+          *reinterpret_cast<uint4*>(dst) = v[j];
+        } else {
+          *reinterpret_cast<T*>(dst) = e[j];
+        }
+      } else {
+        const float* f = kVec ? reinterpret_cast<const float*>(&v[j])
+                              : reinterpret_cast<const float*>(&e[j]);
+        alignas(8) __nv_bfloat16 t[3][kE];
+#pragma unroll
+        for (int q = 0; q < kE; ++q) {
+          __nv_bfloat16 s[3];
+          split3(f[q], s);
+          t[0][q] = s[0];
+          t[1][q] = s[1];
+          t[2][q] = s[2];
+        }
+#pragma unroll
+        for (int term = 0; term < 3; ++term) {
+          if constexpr (kE == 4) {
+            *reinterpret_cast<uint2*>(dst + term * G::kXTile) =
+                *reinterpret_cast<const uint2*>(t[term]);
+          } else {
+            *reinterpret_cast<__nv_bfloat16*>(dst + term * G::kXTile) =
+                t[term][0];
+          }
+        }
+      }
+    }
+  }
+};
+
+// A stage's packed tile through registers where TMA cannot address it:
+// 16-byte chunks of one row read byte by byte (zeros at or past k_end or n)
+// and stored where the 128-byte swizzle puts them (chunk j of row r at chunk
+// j ^ (r % 8)), the layout TMA writes.
+struct GvP {
+  static constexpr int kChunks = kGvK * kGvCols / 16;
+  static constexpr int kPer = kChunks / kGvThreads;
+  uint4 v[kPer];
+
+  __device__ __forceinline__ void load(const int8_t* p, int k0, int k_end,
+                                       int n0, int n) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = threadIdx.x + j * kGvThreads;
+      const int r = i / (kGvCols / 16);
+      const int c0 = n0 + (i - r * (kGvCols / 16)) * 16;
+      const int k = k0 + r;
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(p) +
+                                 static_cast<long long>(k) * n + c0;
+      unsigned int w[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        unsigned int word = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int c = 4 * q + b;
+          const unsigned int byte =
+              k < k_end && c0 + c < n ? __ldg(src + c) : 0u;
+          word |= byte << (8 * b);
+        }
+        w[q] = word;
+      }
+      v[j] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+
+  __device__ __forceinline__ void store(unsigned char* pt) const {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = threadIdx.x + j * kGvThreads;
+      const int r = i / (kGvCols / 16);
+      const int c = i - r * (kGvCols / 16);
+      *reinterpret_cast<uint4*>(pt + r * 128 + ((c ^ (r & 7)) << 4)) = v[j];
+    }
+  }
+};
+
+// kTma: thread 0 brings each stage's packed tile by TMA (pmap: the payload
+// as [k2 rows][n columns] bytes, boxes of 128 x 64, 128-byte swizzle, zeros
+// past k2 and n), tracked by an mbarrier a stage; else pmap is not read.
+// kXVec: x's (half, token) rows are whole 16-byte pieces (K/2 % (16 /
+// sizeof(T)) == 0, x aligned); a bf16 x then comes by cp.async beside the
+// packed tile, else (an fp32 x, which is split, or element loads) through
+// registers, loaded one stage ahead and stored after the current stage's
+// products.
+template <typename T, int NT, bool kTma, bool kXVec>
+__global__ void __launch_bounds__(kGvThreads)
+int4_gemv_mma_kernel(const __grid_constant__ CUtensorMap pmap,
+                     const T* __restrict__ x, const int8_t* __restrict__ p,
+                     const float* __restrict__ s, T* __restrict__ out, int m,
+                     int k2, int n, int chunk) {
+  using G = GvGeo<T, NT>;
+  constexpr bool kXAsync = kXVec && G::kTerms == 1;
+  extern __shared__ __align__(16) unsigned char gv_smem_raw[];
+  unsigned char* smem =
+      gv_smem_raw + ((1024u - (smem_u32(gv_smem_raw) & 1023u)) & 1023u);
+  __shared__ __align__(8) uint64_t full[kGvStages];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  const int ks = static_cast<int>(cl.num_blocks());  // along x
+  const int rank = static_cast<int>(cl.block_rank());
+  const int n0 = (blockIdx.x / ks) * kGvCols;
+  const int k_begin = rank * chunk;
+  const int k_end = min(k2, k_begin + chunk);
+  const int n_kt = k_end > k_begin ? (k_end - k_begin + kGvK - 1) / kGvK : 0;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if constexpr (kTma) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < kGvStages; ++i) mbar_init(&full[i], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+  }
+  GvX<T, NT, kXVec> xr;
+  GvP pr;
+  // tile t: its packed tile by TMA (or into registers) and its x slices
+  // by cp.async (or into registers); put() stores what came through
+  // registers
+  auto issue = [&](int t) {
+    unsigned char* st = smem + (t % kGvStages) * G::kStage;
+    const int k0 = k_begin + t * kGvK;
+    if constexpr (kTma) {
+      if (threadIdx.x == 0) {
+        uint64_t* bar = &full[t % kGvStages];
+        mbar_expect_tx(bar, kGvPBytes);
+        tma_load_2d(st, &pmap, n0, k0, bar);
+      }
+    } else {
+      pr.load(p, k0, k_end, n0, n);
+    }
+    if constexpr (kXAsync) {
+      stage_x_async<NT>(x, st + kGvPBytes, k0, k_end, m, k2);
+    } else {
+      xr.load(x, k0, k_end, m, k2);
+    }
+  };
+  auto put = [&](int t) {
+    unsigned char* st = smem + (t % kGvStages) * G::kStage;
+    if constexpr (!kTma) pr.store(st);
+    if constexpr (!kXAsync) xr.store(st + kGvPBytes);
+  };
+
+  float tot[2][NT][4];   // the block's sums (fp32, CUDA cores)
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[mt][nt][e] = 0.f;
+
+  // the first kGvStages - 1 tiles in flight before the loop; each tile's
+  // register-staged part is stored as soon as it arrives
+#pragma unroll
+  for (int t = 0; t < kGvStages - 1; ++t) {
+    if (t < n_kt) {
+      issue(t);
+      put(t);
+    }
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_kt; ++t) {
+    const int tn = t + kGvStages - 1;
+    if (tn < n_kt) issue(tn);
+    cp_async_commit();
+    cp_async_wait<kGvStages - 1>();  // tile t's copies landed (this thread's)
+    if constexpr (kTma) mbar_wait(&full[t % kGvStages], (t / kGvStages) & 1);
+    __syncthreads();   // tile t's packed tile and x slices in place
+    const unsigned char* st = smem + (t % kGvStages) * G::kStage;
+    const unsigned char* xs = st + kGvPBytes;
+    // the warp's two m-tiles: columns 32 warp + 16 mt + 2 (lane / 4) (+1)
+    // are fragment rows lane / 4 (+8) (unpack_fragments)
+    uint32_t fr[2][8][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      unpack_fragments(st, 32 * warp + 16 * mt, lane, fr[mt]);
+    float acc[2][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int kq = 0; kq < kGvK / 32; ++kq)
+#pragma unroll
+        for (int term = 0; term < G::kTerms; ++term)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            // the tokens' B fragments of k16 steps 2kq and 2kq + 1
+            uint32_t xb[4];
+            ldsm_x4(xb, xs + (half * G::kTerms + term) * G::kXTile +
+                            (8 * nt + (lane & 7)) * G::kXStride +
+                            (kq * 32 + (lane >> 3) * 8) * 2);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mma_bf16_16816(acc[mt][nt], fr[mt][4 * half + 2 * kq], xb[0],
+                             xb[1]);
+              mma_bf16_16816(acc[mt][nt], fr[mt][4 * half + 2 * kq + 1],
+                             xb[2], xb[3]);
+            }
+          }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tot[mt][nt][e] += acc[mt][nt][e];
+    if (tn < n_kt) put(tn);   // that stage was freed by the last barrier
+    __syncthreads();          // stage t is free again
+  }
+  cp_async_wait<0>();
+
+  // the block's partial [kBt][kGvCols]: accumulator row lane/4 (+8) is
+  // weight column nrow (+1), its columns tokens 8nt + 2 (lane % 4) (+1)
+  float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        part[(8 * nt + 2 * (lane & 3) + (e & 1)) * kGvCols + 32 * warp +
+             16 * mt + 2 * (lane >> 2) + (e >> 1)] = tot[mt][nt][e];
+  // the cluster's sums, scaled and rounded once
+  cluster_reduce<kGvCols, kGvThreads>(
+      part, G::kBt, [&](int tok, int c, float sum) {
+        const int col = n0 + c;
+        if (tok < m && col < n)
+          out[static_cast<long long>(tok) * n + col] =
+              from_f<T>(sum * s[col]);
+      });
+}
+
+template <typename T, int NT, bool kTma, bool kXVec>
+cudaError_t gemv_launch(const T* x, const int8_t* p, const float* s, T* out,
+                        int m, int k2, int n, int ks, int chunk,
+                        cudaStream_t st) {
+  using G = GvGeo<T, NT>;
+  CUtensorMap pmap = {};
+  if constexpr (kTma) {
+    const EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n),
+                                static_cast<cuuint64_t>(k2)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n)};
+    const cuuint32_t box[2] = {kGvCols, kGvK};
+    const cuuint32_t ones[2] = {1, 1};
+    if (encode(&pmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+               const_cast<int8_t*>(p), dims, strides, box, ones,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  }
+  return launch_cluster<int4_gemv_mma_kernel<T, NT, kTma, kXVec>>(
+      dim3(((n + kGvCols - 1) / kGvCols) * ks, 1, 1), kGvThreads, ks,
+      G::kSmem, st, pmap, x, p, s, out, m, k2, n, chunk);
+}
+
+template <typename T, bool kTma, bool kXVec>
+cudaError_t gemv_by_rows(const T* x, const int8_t* p, const float* s, T* out,
+                         int m, int k2, int n, int ks, int chunk,
+                         cudaStream_t st) {
+  if (m <= 8)
+    return gemv_launch<T, 1, kTma, kXVec>(x, p, s, out, m, k2, n, ks, chunk,
+                                          st);
+  return gemv_launch<T, 2, kTma, kXVec>(x, p, s, out, m, k2, n, ks, chunk,
+                                        st);
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
+}
+
+// the GEMV's copy routes, from the shape and the pointers: the packed tile
+// by TMA (N % 16 == 0, payload aligned), x in 16-byte pieces
+template <typename T>
+cudaError_t gemv_t(const void* xv, const int8_t* p, const float* s,
+                   void* outv, int m, int k2, int n, int ks, int chunk,
+                   cudaStream_t st) {
+  const T* x = static_cast<const T*>(xv);
+  T* out = static_cast<T*>(outv);
+  const bool tma = n % 16 == 0 && aligned16(p);
+  const bool xvec = k2 % (16 / static_cast<int>(sizeof(T))) == 0 &&
+                    aligned16(x);
+  if (tma)
+    return xvec ? gemv_by_rows<T, true, true>(x, p, s, out, m, k2, n, ks, chunk, st)
+                : gemv_by_rows<T, true, false>(x, p, s, out, m, k2, n, ks, chunk, st);
+  return xvec ? gemv_by_rows<T, false, true>(x, p, s, out, m, k2, n, ks, chunk, st)
+              : gemv_by_rows<T, false, false>(x, p, s, out, m, k2, n, ks, chunk, st);
 }
 
 // ------------------- M > 16, bf16, shapes TMA cannot address: wmma
@@ -917,10 +1208,6 @@ int4_simt_kernel(const float* __restrict__ x, const int8_t* __restrict__ p,
   }
 }
 
-bool aligned16(const void* ptr) {
-  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
-}
-
 }  // namespace
 }  // namespace die
 
@@ -929,17 +1216,17 @@ bool aligned16(const void* ptr) {
 // (kInstGemv .. kInstSimt, chosen by the wrapper from shapes and
 // alignment); a call it does not take returns cudaErrorInvalidValue. tile:
 // the wgmma instance's tokens per block (64, 128 or 256, the wrapper's
-// wgmma_tile), unused by the others. ws:
-// fp32 [ks, M, N] scratch for the GEMV's split contraction (unused when
-// ks == 1); chunk: packed rows per split. Returns cudaGetLastError() of the
-// launches (0 on success).
+// wgmma_tile), unused by the others. ks, chunk: the GEMV's cluster size (1,
+// 2, 4 or 8) and packed rows a block (a multiple of 64, ks * chunk >= k2;
+// the wrapper's int4_gemv_plan), unused by the others. Returns
+// cudaGetLastError() of the launch (0 on success).
 extern "C" int die_int4_matmul(const void* x, const void* packed,
-                               const void* scale, void* out, void* ws, int m,
-                               int k2, int n, int ks, int chunk, int dtype,
+                               const void* scale, void* out, int m, int k2,
+                               int n, int ks, int chunk, int dtype,
                                int instance, int tile, void* stream) {
   using namespace die;
   if (m <= 0 || n <= 0) return 0;
-  if (k2 <= 0 || ks < 1 || chunk < 1) return cudaErrorInvalidValue;
+  if (k2 <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* p = static_cast<const int8_t*>(packed);
   const float* s = static_cast<const float*>(scale);
@@ -949,21 +1236,14 @@ extern "C" int die_int4_matmul(const void* x, const void* packed,
   auto* ob = static_cast<__nv_bfloat16*>(out);
   cudaError_t err;
   switch (instance) {
-    case kInstGemv: {
-      if (m > 16 || (ks > 1 && ws == nullptr)) return cudaErrorInvalidValue;
-      float* w = static_cast<float*>(ws);
-      const bool vec = n % kGemvCols == 0 && aligned16(packed);
-      if (bf16) {
-        err = vec ? gemv_by_rows<__nv_bfloat16, true>(xb, p, s, w, ob, m, k2, n, ks, chunk, st)
-                  : gemv_by_rows<__nv_bfloat16, false>(xb, p, s, w, ob, m, k2, n, ks, chunk, st);
-      } else {
-        const auto* xf = static_cast<const float*>(x);
-        auto* of = static_cast<float*>(out);
-        err = vec ? gemv_by_rows<float, true>(xf, p, s, w, of, m, k2, n, ks, chunk, st)
-                  : gemv_by_rows<float, false>(xf, p, s, w, of, m, k2, n, ks, chunk, st);
-      }
+    case kInstGemv:
+      if (m > 16 || ks < 1 || ks > kMaxCluster || (ks & (ks - 1)) ||
+          chunk < kGvK || chunk % kGvK ||
+          static_cast<long long>(ks) * chunk < k2)
+        return cudaErrorInvalidValue;
+      err = bf16 ? gemv_t<__nv_bfloat16>(x, p, s, out, m, k2, n, ks, chunk, st)
+                 : gemv_t<float>(x, p, s, out, m, k2, n, ks, chunk, st);
       break;
-    }
     case kInstWgmma:
       if (!bf16 || m <= 16 || k2 % 8 || n % 16 || !aligned16(x) ||
           !aligned16(packed))

@@ -29,7 +29,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -145,11 +145,11 @@ def lib() -> ctypes.CDLL:
             I, I, I, I, I, I, I, I, I,           # shapes, query tiles, grid
             LL, I, I, P]                         # layer base, dtypes, stream
         handle.die_norm_matmul.argtypes = [
-            P, P, P, P, P, P, I, I, I, F, I, I, I, I, P]
+            P, P, P, P, I, I, I, F, I, I, I, I, P]
         handle.die_matmul_residual.argtypes = [
             P, P, P, P, I, I, I, I, I, I, P]
         handle.die_int4_matmul.argtypes = [
-            P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+            P, P, P, P, I, I, I, I, I, I, I, I, P]
         handle.die_paged_attention.argtypes = [
             P, P, P, P, P, P, P, P, P,           # q .. l_out, workspace
             I, I, I, I, I, I, I, I, I,           # shapes, window, split
@@ -175,6 +175,29 @@ def dtype_code(dt: torch.dtype) -> int:
 def sm_count(device_index: int) -> int:
     """The card's SM count, which the wrappers size their grids by."""
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+# the cluster GEMVs (csrc/fused_decode.cu cluster_gemv,
+# csrc/int4_matmul.cu int4_gemv_mma_kernel): the most blocks a cluster (the
+# portable size) and the blocks an SM a grid aims for (4: measured faster
+# than 2 for norm_matmul at N 14336 and the int4 gate|up on the H100)
+MAX_CLUSTER = 8
+CLUSTER_BLOCKS_PER_SM = 4
+
+
+def cluster_split(k_tiles: int, blocks: int, sms: int) -> Tuple[int, int]:
+    """A contraction of ``k_tiles`` stages split over the blocks of one
+    thread-block cluster, for a grid of ``blocks`` blocks before the split:
+    ``(ks, chunk_tiles)``, where ``ks`` (1, 2, 4 or 8) is the largest count
+    that keeps the grid within ``CLUSTER_BLOCKS_PER_SM`` blocks an SM and
+    gives each block at least one stage, and each block takes
+    ``chunk_tiles`` stages (the last blocks' chunks may be short or
+    empty)."""
+    ks = 1
+    while (ks * 2 <= MAX_CLUSTER and ks * 2 <= k_tiles and
+           blocks * ks * 2 <= CLUSTER_BLOCKS_PER_SM * sms):
+        ks *= 2
+    return ks, -(-k_tiles // ks)
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -7,13 +7,16 @@
 CUDA tensors launch the hand-written kernels of
 ``csrc/fused_decode.cu`` (replacing the TPU kernels
 ``ops/fused_decode.py:_norm_matmul_kernel`` and ``_matmul_residual_kernel``);
-CPU tensors take the plain versions below. ``matmul_residual`` is one
-launch: the contraction splits over the blocks of a thread-block cluster
-(``matmul_residual_plan``), which reduce in shared memory; bf16 runs the
-tensor cores (instance ``mma``), fp32 the CUDA cores (``simt``). The JAX
-kernels are bit-identical to the unfused XLA chain on a TPU; on the card
-the kernels are held to their plain versions within a stated tolerance
-instead, and the engine's tokens are checked teacher-forced.
+CPU tensors take the plain versions below. Both are one launch of one core:
+the contraction splits over the blocks of a thread-block cluster
+(``gemv_plan``), which reduce in shared memory; bf16 runs the tensor cores
+(instance ``mma``), fp32 the CUDA cores (``simt``). norm_matmul's inverse
+RMS is formed inside the launch: each block sums the squares of its own
+chunk of x and the cluster adds the partials. Each call counts one launch of
+its kernel and one of ``<kernel>.<instance>``. The JAX kernels are
+bit-identical to the unfused XLA chain on a TPU; on the card the kernels are
+held to their plain versions within a stated tolerance instead, and the
+engine's tokens are checked teacher-forced.
 
 Eligibility (``*_wants``) keeps only what the kernel needs: a plain 2-D
 float weight in x's dtype (fp32 or bf16). The TPU's VMEM budget gate and
@@ -28,13 +31,6 @@ import torch
 
 from . import _cuda
 from .norms import rms_norm
-
-_BLOCKS_PER_SM = 4            # resident split-K blocks aimed for per SM
-_COLS_PER_BLOCK = 256         # csrc/fused_decode.cu: 128 threads x 2
-
-
-def _target_blocks(device_index: int) -> int:
-    return _BLOCKS_PER_SM * _cuda.sm_count(device_index)
 
 
 def norm_matmul_wants(x: torch.Tensor, w) -> bool:
@@ -61,54 +57,36 @@ def matmul_residual_plain(x: torch.Tensor, w: torch.Tensor,
     return res + x @ w
 
 
-# csrc/fused_decode.cu matmul_residual_kernel: output columns a block, the
-# most blocks a cluster, blocks resident per SM aimed for, tokens a block
-_RES_COLS = 128
-_RES_MAX_CLUSTER = 8
-_RES_BLOCKS_PER_SM = 2
-_RES_MAX_TOKENS = 32
+# csrc/fused_decode.cu cluster_gemv: output columns a block, tokens a block
+_COLS = 128
+_MAX_TOKENS = 32
 
 
-def matmul_residual_instance(dtype: torch.dtype) -> str:
+def gemv_instance(dtype: torch.dtype) -> str:
     """``mma`` (tensor cores) for bf16, ``simt`` (CUDA cores) for fp32."""
     return "mma" if dtype == torch.bfloat16 else "simt"
 
 
-def matmul_residual_plan(b: int, d: int, n: int, dtype: torch.dtype,
-                         sms: int) -> Dict[str, int]:
-    """The grid of the residual kernel for x [b, d] @ w [d, n]: column
-    tiles of 128, token tiles of up to 32 (``tokens``: 8, 16 or 32 a
-    block), and the contraction split over ``ks`` blocks of one cluster
-    (1, 2, 4 or 8), ``chunk`` rows each, a multiple of the stage depth
-    (``depth``: 32 rows bf16, 16 fp32; a stage is 8 KB of weight).
-    ``ks`` is the largest such count that keeps the grid within ~2 blocks
-    an SM and gives each block at least one stage; the last blocks'
-    chunks may be short or empty."""
+def gemv_plan(b: int, d: int, n: int, dtype: torch.dtype,
+              sms: int) -> Dict[str, int]:
+    """The grid of both kernels for x [b, d] @ w [d, n]: column tiles of
+    128, token tiles of up to 32 (``tokens``: 8, 16 or 32 a block), and the
+    contraction split over ``ks`` blocks of one cluster (1, 2, 4 or 8),
+    ``chunk`` rows each, a multiple of the stage depth (``depth``: 32 rows
+    bf16, 16 fp32; a stage is 8 KB of weight). ``ks`` is the largest such
+    count that keeps the grid within ~4 blocks an SM and gives each block
+    at least one stage (``_cuda.cluster_split``); the last blocks' chunks
+    may be short or empty."""
     depth = 32 if dtype == torch.bfloat16 else 16
-    tokens = 8 if b <= 8 else 16 if b <= 16 else _RES_MAX_TOKENS
-    col_tiles = -(-n // _RES_COLS)
+    tokens = 8 if b <= 8 else 16 if b <= 16 else _MAX_TOKENS
+    col_tiles = -(-n // _COLS)
     tok_tiles = -(-b // tokens)
-    k_tiles = -(-d // depth)
-    ks = 1
-    while (ks * 2 <= _RES_MAX_CLUSTER and ks * 2 <= k_tiles and
-           col_tiles * tok_tiles * ks * 2 <= _RES_BLOCKS_PER_SM * sms):
-        ks *= 2
-    chunk = -(-k_tiles // ks) * depth
+    ks, chunk_tiles = _cuda.cluster_split(-(-d // depth),
+                                          col_tiles * tok_tiles, sms)
+    chunk = chunk_tiles * depth
     return dict(ks=ks, chunk=chunk, depth=depth, tokens=tokens,
                 col_tiles=col_tiles, tok_tiles=tok_tiles,
                 blocks=col_tiles * tok_tiles * ks)
-
-
-def _split(b: int, d: int, n: int, target_blocks: int):
-    """norm_matmul's (ks, chunk): split the contraction so ~target_blocks
-    blocks run."""
-    col_blocks = -(-n // _COLS_PER_BLOCK)
-    row_tiles = -(-b // 32)
-    ks = max(1, -(-target_blocks // (col_blocks * row_tiles)))
-    ks = min(ks, max(1, d // 64))
-    chunk = -(-d // ks)
-    chunk = -(-chunk // 8) * 8
-    return -(-d // chunk), chunk
 
 
 def _check(name: str, x: torch.Tensor, w: torch.Tensor, *others) -> None:
@@ -123,6 +101,11 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, *others) -> None:
         _cuda.require(t.dtype == x.dtype, f"{name}: dtype mismatch")
 
 
+def _count(name: str, dtype: torch.dtype) -> None:
+    _cuda.LAUNCHES[name] += 1
+    _cuda.LAUNCHES[f"{name}.{gemv_instance(dtype)}"] += 1
+
+
 def norm_matmul(x: torch.Tensor, gain: torch.Tensor, w: torch.Tensor, *,
                 eps: float = 1e-6, plus_one: bool = False) -> torch.Tensor:
     """``rms_norm(x, gain, eps) @ w`` -> [B, N] in x's dtype."""
@@ -133,18 +116,14 @@ def norm_matmul(x: torch.Tensor, gain: torch.Tensor, w: torch.Tensor, *,
     b, d = x.shape
     n = w.shape[1]
     _cuda.require(gain.shape == (d,), f"{name}: gain must be [{d}]")
-    ks, chunk = _split(b, d, n, _target_blocks(x.device.index))
+    plan = gemv_plan(b, d, n, x.dtype, _cuda.sm_count(x.device.index))
     out = torch.empty((b, n), dtype=x.dtype, device=x.device)
-    rinv = torch.empty((b,), dtype=torch.float32, device=x.device)
-    ws = torch.empty((ks if ks > 1 else 0, b, n), dtype=torch.float32,
-                     device=x.device)
     err = _cuda.lib().die_norm_matmul(
-        x.data_ptr(), gain.data_ptr(), w.data_ptr(), out.data_ptr(),
-        rinv.data_ptr(), ws.data_ptr(), b, d, n, float(eps),
-        int(bool(plus_one)), ks, chunk, _cuda.dtype_code(x.dtype),
-        _cuda.stream_ptr(x.device))
+        x.data_ptr(), gain.data_ptr(), w.data_ptr(), out.data_ptr(), b, d, n,
+        float(eps), int(bool(plus_one)), plan["ks"], plan["chunk"],
+        _cuda.dtype_code(x.dtype), _cuda.stream_ptr(x.device))
     _cuda.check(err, name)
-    _cuda.LAUNCHES[name] += 1
+    _count(name, x.dtype)
     return out
 
 
@@ -158,14 +137,12 @@ def matmul_residual(x: torch.Tensor, w: torch.Tensor,
     b, d = x.shape
     n = w.shape[1]
     _cuda.require(res.shape == (b, n), f"{name}: res must be [{b}, {n}]")
-    plan = matmul_residual_plan(b, d, n, x.dtype,
-                                _cuda.sm_count(x.device.index))
+    plan = gemv_plan(b, d, n, x.dtype, _cuda.sm_count(x.device.index))
     out = torch.empty((b, n), dtype=x.dtype, device=x.device)
     err = _cuda.lib().die_matmul_residual(
         x.data_ptr(), w.data_ptr(), res.data_ptr(), out.data_ptr(), b, d, n,
         plan["ks"], plan["chunk"], _cuda.dtype_code(x.dtype),
         _cuda.stream_ptr(x.device))
     _cuda.check(err, name)
-    _cuda.LAUNCHES[name] += 1
-    _cuda.LAUNCHES[f"{name}.{matmul_residual_instance(x.dtype)}"] += 1
+    _count(name, x.dtype)
     return out

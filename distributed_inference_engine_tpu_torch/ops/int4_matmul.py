@@ -14,7 +14,10 @@ CUDA tensors launch the hand-written kernel of ``csrc/int4_matmul.cu``
 instances, chosen by ``int4_instance`` from the shapes, the dtype and the
 16-byte alignment of x and the payload, never by a failure:
 
-- ``gemv``: M <= 16 rows (decode, the LM head), a split-K GEMV;
+- ``gemv``: M <= 16 rows (decode, the LM head): one launch on the tensor
+  cores, the packed rows split over a thread-block cluster
+  (``int4_gemv_plan``) whose blocks reduce in shared memory; an fp32 x is
+  split exactly into three bf16 terms;
 - ``wgmma``: larger bf16 M (prefill, the mixed step) where TMA can address
   the operands (K/2 % 8 == 0, N % 16 == 0, both aligned): TMA, a
   shared-memory ring and ``wgmma``, 128 columns by ``wgmma_tile`` tokens
@@ -30,7 +33,7 @@ counterpart: the kernel takes any M and N and any even K.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -39,8 +42,10 @@ from . import _cuda
 GEMV_MAX_ROWS = 16            # csrc/int4_matmul.cu: larger M takes tiles
 # instance codes of csrc/int4_matmul.cu (kInstGemv .. kInstSimt)
 INSTANCES = {"gemv": 0, "wgmma": 1, "wmma": 2, "simt": 3}
-_GEMV_BLOCK_COLS = 256        # 32 lanes x 8 columns
-_GEMV_BLOCKS_PER_SM = 2       # resident split-K blocks aimed for per SM
+# csrc/int4_matmul.cu int4_gemv_mma_kernel: output columns a block, packed
+# rows a stage
+_GEMV_COLS = 128
+_GEMV_DEPTH = 64
 _WGMMA_COLS = 128             # output columns per wgmma block
 # a wgmma block's time is about (tile + _WGMMA_BLOCK_COST) token-steps of
 # MMA work: its packed-weight stream and pipeline fill cost what 160
@@ -90,15 +95,21 @@ def wgmma_tile(m: int, n: int, sms: int) -> int:
     return min((64, 128, 256), key=cost)
 
 
-def _split(k2: int, n: int, target_blocks: int) -> Tuple[int, int]:
-    """(ks, chunk) of the GEMV: split the packed rows so ~target_blocks
-    blocks run."""
-    col_blocks = -(-n // _GEMV_BLOCK_COLS)
-    ks = max(1, -(-target_blocks // col_blocks))
-    ks = min(ks, max(1, k2 // 64))
-    chunk = -(-k2 // ks)
-    chunk = -(-chunk // 8) * 8
-    return -(-k2 // chunk), chunk
+def int4_gemv_plan(m: int, k2: int, n: int, sms: int) -> Dict[str, int]:
+    """The GEMV's grid for x [m <= 16, 2 k2] against packed [k2, n]: column
+    tiles of 128, one token tile (``tokens``: 8 or 16), and the packed rows
+    split over ``ks`` blocks of one cluster (1, 2, 4 or 8), ``chunk`` rows
+    each, a multiple of the 64-row stage. ``ks`` is the largest such count
+    that keeps the grid within ~4 blocks an SM and gives each block at
+    least one stage (``_cuda.cluster_split``); the last blocks' chunks may
+    be short or empty."""
+    tokens = 8 if m <= 8 else 16
+    col_tiles = -(-n // _GEMV_COLS)
+    ks, chunk_tiles = _cuda.cluster_split(-(-k2 // _GEMV_DEPTH), col_tiles,
+                                          sms)
+    chunk = chunk_tiles * _GEMV_DEPTH
+    return dict(ks=ks, chunk=chunk, depth=_GEMV_DEPTH, tokens=tokens,
+                col_tiles=col_tiles, blocks=col_tiles * ks)
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
@@ -134,14 +145,13 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
     sms = _cuda.sm_count(x.device.index)
     ks, chunk, tile = 1, k2, 0
     if inst == "gemv":
-        ks, chunk = _split(k2, n, _GEMV_BLOCKS_PER_SM * sms)
+        plan = int4_gemv_plan(m, k2, n, sms)
+        ks, chunk = plan["ks"], plan["chunk"]
     elif inst == "wgmma":
         tile = wgmma_tile(m, n, sms)
-    ws = torch.empty((ks if ks > 1 else 0, m, n), dtype=torch.float32,
-                     device=x.device)
     err = _cuda.lib().die_int4_matmul(
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), m, k2, n, ks, chunk, code, INSTANCES[inst], tile,
+        m, k2, n, ks, chunk, code, INSTANCES[inst], tile,
         _cuda.stream_ptr(x.device))
     _cuda.check(err, f"{name} ({inst})")
     _cuda.LAUNCHES[name] += 1

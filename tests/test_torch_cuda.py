@@ -80,7 +80,7 @@ def test_fused_decode_kernels(card, dtype, b, d, n):
         torch.cuda.synchronize()
         _close(out, fdec.norm_matmul_plain(x, gain, w, eps=1e-5,
                                            plus_one=plus_one), dtype)
-    inst = "matmul_residual." + fdec.matmul_residual_instance(dtype)
+    inst = "matmul_residual." + fdec.gemv_instance(dtype)
     before = _cuda.LAUNCHES[inst]
     out = fdec.matmul_residual(x, w, res)
     torch.cuda.synchronize()
@@ -99,7 +99,7 @@ def test_fused_decode_kernels(card, dtype, b, d, n):
 def test_matmul_residual_shapes(card, dtype, d, n):
     g = torch.Generator(device=card).manual_seed(11)
     w = (0.02 * torch.randn((d, n), generator=g, device=card)).to(dtype)
-    inst = "matmul_residual." + fdec.matmul_residual_instance(dtype)
+    inst = "matmul_residual." + fdec.gemv_instance(dtype)
     for b in (1, 2, 7, 8, 9, 16, 32, 40):
         x = torch.randn((b, d), generator=g, device=card).to(dtype)
         res = torch.randn((b, n), generator=g, device=card).to(dtype)
@@ -108,6 +108,62 @@ def test_matmul_residual_shapes(card, dtype, d, n):
         torch.cuda.synchronize()
         assert _cuda.LAUNCHES[inst] == before + 1, (b, inst)
         _close(out, fdec.matmul_residual_plain(x, w, res), dtype)
+
+
+@pytest.fixture
+def fp32_sums():
+    """The plain versions' bf16 matmuls summed in fp32 throughout, as the
+    kernels sum: cuBLAS may otherwise reduce split-K partials in bf16
+    (PyTorch's default), which moves an output near 0 by more than the
+    bf16 tolerance at K 14336."""
+    m = torch.backends.cuda.matmul
+    before = m.allow_bf16_reduced_precision_reduction
+    m.allow_bf16_reduced_precision_reduction = False
+    yield
+    m.allow_bf16_reduced_precision_reduction = before
+
+
+# norm_matmul on the same core at the same shapes and batches, plus_one off
+# and on (one launch each, counted by instance)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [688, 4096, 14336])
+@pytest.mark.parametrize("n", [4096, 1000, 1002])
+def test_norm_matmul_shapes(card, fp32_sums, dtype, d, n):
+    g = torch.Generator(device=card).manual_seed(12)
+    w = (0.02 * torch.randn((d, n), generator=g, device=card)).to(dtype)
+    gain = (1.0 + 0.1 * torch.randn((d,), generator=g, device=card)
+            ).to(dtype)
+    inst = "norm_matmul." + fdec.gemv_instance(dtype)
+    for b in (1, 2, 7, 8, 9, 16, 32, 40):
+        x = torch.randn((b, d), generator=g, device=card).to(dtype)
+        for plus_one in (False, True):
+            before = _cuda.LAUNCHES[inst]
+            out = fdec.norm_matmul(x, gain, w, eps=1e-5, plus_one=plus_one)
+            torch.cuda.synchronize()
+            assert _cuda.LAUNCHES[inst] == before + 1, (b, inst)
+            _close(out, fdec.norm_matmul_plain(x, gain, w, eps=1e-5,
+                                               plus_one=plus_one), dtype)
+
+
+@pytest.mark.parametrize("b", [1, 8, 40])
+def test_norm_matmul_rounds_h_first(card, b):
+    """bf16: x all ones (so 1 / rms is exactly 1 at eps 0), gain[0] =
+    3 * 2^-9 with plus_one, so (x rinv) g = 1 + 3 * 2^-9, which rounds to
+    h = 1 + 2^-7 in bf16; w's rows 0 and 1 are 1 and -1. Rounding h before
+    the product gives h0 - h1 = 2^-7; the unrounded 3 * 2^-9 is another
+    bf16 value."""
+    d, n = 4096, 4096
+    x = torch.ones((b, d), dtype=torch.bfloat16, device=card)
+    gain = torch.zeros((d,), dtype=torch.bfloat16, device=card)
+    gain[0] = 3 * 2.0 ** -9
+    w = torch.zeros((d, n), dtype=torch.bfloat16, device=card)
+    w[0] = 1.0
+    w[1] = -1.0
+    out = fdec.norm_matmul(x, gain, w, eps=0.0, plus_one=True)
+    torch.cuda.synchronize()
+    assert bool((out == 2.0 ** -7).all()), out.unique()
+    assert torch.equal(out, fdec.norm_matmul_plain(x, gain, w, eps=0.0,
+                                                   plus_one=True))
 
 
 @pytest.mark.parametrize("b", [1, 8, 40])
@@ -518,18 +574,22 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
                                n_kv_heads=2, **kw)
 
 
-def _int4_case(card, dtype, m, k2, n, seed, expect=None, x_offset=0):
+def _int4_case(card, dtype, m, k2, n, seed, expect=None, x_offset=0,
+               p_offset=0):
     """``expect``: the instance the call must take (else the one
-    ``int4_instance`` names); ``x_offset``: x starts that many elements
-    into its buffer (off the 16-byte alignment when odd)."""
+    ``int4_instance`` names); ``x_offset`` / ``p_offset``: x / the payload
+    starts that many elements into its buffer (off the 16-byte alignment
+    unless a multiple of 16 bytes)."""
     g = torch.Generator(device=card).manual_seed(seed)
     buf = torch.randn((m * 2 * k2 + x_offset,), generator=g,
                       device=card).to(dtype)
     x = buf[x_offset:].view(m, 2 * k2)
-    packed = torch.randint(-128, 128, (k2, n), generator=g, device=card,
-                           dtype=torch.int8)
+    packed = torch.randint(-128, 128, (k2 * n + p_offset,), generator=g,
+                           device=card, dtype=torch.int8)[p_offset:].view(
+                               k2, n)
     scale = 0.01 * torch.rand((n,), generator=g, device=card) + 1e-3
-    inst = i4.int4_instance(m, k2, n, dtype, x.data_ptr() % 16 == 0)
+    inst = i4.int4_instance(m, k2, n, dtype, x.data_ptr() % 16 == 0
+                            and packed.data_ptr() % 16 == 0)
     assert expect is None or inst == expect, (inst, expect)
     before = _cuda.LAUNCHES["int4_matmul"]
     before_inst = _cuda.LAUNCHES[f"int4_matmul.{inst}"]
@@ -577,6 +637,24 @@ def test_int4_matmul_ragged_edges(card, dtype, m, k2, n):
     """Odd M, N off the tiles (and off the vector widths), K/2 off the
     tiles: every edge is bounds-checked."""
     _int4_case(card, dtype, m, k2, n, seed=m * k2)
+
+
+# the GEMV instance (M <= 16: one and two 8-token tiles) at the Llama-3-8B
+# products (the head with fp32 x) and off every tile: N off the 16-byte
+# TMA stride (24, 1000, 4100) or not (1040), K/2 off the 64-row stage and
+# off the 16-byte x pieces (36, 100, 1002), and the copy routes by
+# alignment: x off 16 bytes (element loads), the payload off 16 bytes
+# (byte loads instead of TMA)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k2,n,x_offset,p_offset", [
+    (2048, 6144, 0, 0), (2048, 4096, 0, 0), (2048, 28672, 0, 0),
+    (7168, 4096, 0, 0), (2048, 129024, 0, 0), (36, 24, 0, 0),
+    (100, 1040, 0, 0), (1002, 1000, 0, 0), (200, 4100, 0, 0),
+    (2048, 4096, 1, 0), (2048, 4096, 0, 16), (2048, 4096, 0, 8)])
+@pytest.mark.parametrize("m", [1, 5, 8, 9, 16])
+def test_int4_gemv_instance(card, dtype, m, k2, n, x_offset, p_offset):
+    _int4_case(card, dtype, m, k2, n, seed=m + k2 + n, expect="gemv",
+               x_offset=x_offset, p_offset=p_offset)
 
 
 # K/2 = 1000 is not a multiple of the wgmma instance's 64-row k-tile

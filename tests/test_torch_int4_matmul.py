@@ -7,7 +7,8 @@ layer-stacked wrappers, fp32 (rtol = atol = 2e-5) and bf16 (rtol = atol =
 sum and the scale, as the plain version does); and the port's
 ``forward_train`` logits against JAX's with the kernel on, on a tileable
 tiny int4 tree, in fp32 (atol 1e-4); and the CUDA kernel's instance
-choice, from shapes, dtype and alignment alone."""
+choice, from shapes, dtype and alignment alone, and the GEMV instance's
+launch plan (``int4_gemv_plan``)."""
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,7 @@ from distributed_inference_engine_tpu_torch.models.llama import (
 from distributed_inference_engine_tpu_torch.ops import _cuda
 from distributed_inference_engine_tpu_torch.ops import quant as tq
 from distributed_inference_engine_tpu_torch.ops.int4_matmul import (
+    int4_gemv_plan,
     int4_instance,
     int4_matmul,
     int4_matmul_plain,
@@ -61,7 +63,7 @@ def _torch(a, dtype=None):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m", [1, 5, 37, 128])
+@pytest.mark.parametrize("m", [1, 5, 8, 16, 37, 128])
 def test_plain_matches_interpreted_kernel(m, dtype):
     rs = np.random.RandomState(m)
     qt = _quantized(rs, (K, N), 0)
@@ -166,3 +168,45 @@ def test_wgmma_token_tile(m, n, want):
     """The wgmma instance's tokens per block, from the shapes and the SM
     count (132 on an H100 SXM) alone."""
     assert wgmma_tile(m, n, 132) == want
+
+
+H100_SMS = 132
+
+
+# the Llama-3-8B products (fused q|k|v, o, gate|up, down, the padded head)
+# and shapes off every tile, at one and two 8-token tiles
+@pytest.mark.parametrize("k2,n", [(2048, 6144), (2048, 4096), (2048, 28672),
+                                  (7168, 4096), (2048, 129024), (36, 24),
+                                  (100, 1040), (1002, 1000), (200, 4100),
+                                  (64, 130)])
+@pytest.mark.parametrize("m", [1, 8, 9, 16])
+def test_int4_gemv_plan_covers_every_row_once(m, k2, n):
+    pl = int4_gemv_plan(m, k2, n, H100_SMS)
+    ks, chunk = pl["ks"], pl["chunk"]
+    assert ks in (1, 2, 4, 8) and chunk % 64 == 0 and pl["depth"] == 64
+    rows = np.zeros(k2, int)                    # each packed row: one rank
+    for rank in range(ks):
+        rows[rank * chunk:min(k2, (rank + 1) * chunk)] += 1
+    assert (rows == 1).all() and ks * chunk >= k2
+    assert (ks - 1) * chunk < k2                # every rank but maybe the
+    cols = np.zeros(n, int)                     # last has rows
+    for ct in range(pl["col_tiles"]):
+        cols[ct * 128:min(n, (ct + 1) * 128)] += 1
+    assert (cols == 1).all()
+    assert pl["tokens"] == (8 if m <= 8 else 16)
+    assert pl["blocks"] == pl["col_tiles"] * ks
+    # at most ~4 blocks an SM, unless the packed rows are not split
+    assert ks == 1 or pl["blocks"] <= 4 * H100_SMS
+
+
+@pytest.mark.parametrize("k2,n,plan", [
+    (2048, 6144, (8, 256, 384)),      # w_qkv: 48 column tiles
+    (2048, 4096, (8, 256, 256)),      # wo: 32 column tiles, clusters of 8
+    (2048, 28672, (2, 1024, 448)),    # w_gate_up: 224 column tiles
+    (7168, 4096, (8, 896, 256)),      # w_down
+    (2048, 129024, (1, 2048, 1008)),  # the head: 1,008 column tiles
+])
+def test_int4_gemv_plan_at_the_llama3_8b_decode_shapes(k2, n, plan):
+    """(ks, chunk, blocks) at the 8 decode rows on 132 SMs."""
+    pl = int4_gemv_plan(8, k2, n, H100_SMS)
+    assert (pl["ks"], pl["chunk"], pl["blocks"]) == plan
