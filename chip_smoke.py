@@ -2,17 +2,21 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py             # every phase (needs one card)
-    python3 chip_smoke.py --profile   # ... plus profiles of the fused
-                                      # decode (with flash-decode's,
-                                      # matmul_residual's and norm_matmul's
-                                      # ms per step), the int4 decode (the
-                                      # int4 GEMV's ms per step), the inline
-                                      # Mistral decode and the bf16 and
+    python3 chip_smoke.py --profile   # ... plus profiles of the bf16 and
                                       # int4 mixed steps (with the ragged
-                                      # kernel's ms per step), and the int4
-                                      # wgmma token tiles; each fails if a
-                                      # kernel the one-launch GEMVs replaced
-                                      # runs
+                                      # kernel's ms per step) and the int4
+                                      # wgmma token tiles
+
+The engine replays a CUDA graph for every decode chunk and mixed step (the
+worker phases and every in-process engine). Each decode scheme (``serve``,
+fused, fw, ``pallas``, ``inline``, int4, Mistral's inline) and the mixed
+step (bf16, int4, int8) also runs through a second engine with the eager
+comparison hook (``pair_run``, ``mixed_pair_line``): the graph run's greedy
+tokens and launch counts must equal the eager run's; each prints both runs'
+decode ms per step and device-busy share (``torch.profiler`` over two
+decode chunks with 8 slots live, each failing if a kernel the one-launch
+GEMVs replaced runs), the mixed steps' ms by bucket, and the graphs' count,
+capture seconds and pool bytes.
 
 Phases, each failing loudly (any failure exits non-zero):
 
@@ -112,6 +116,10 @@ Phases, each failing loudly (any failure exits non-zero):
    past the window. Phase ``fused`` also runs Llama-3-8B engines with
    ``attention_impl="pallas"`` (window scheme) and
    ``decode_mode="inline"``, with their launch counts and a chain each.
+
+Phases ``fused``, ``int4`` and ``mistral`` hold their in-process decode
+schemes graph against eager as above; the worker phases print each worker
+engine's graphs and fail if it captured none.
 
 The last lines are the card's name and power limit, one JSON object
 naming every kernel with its launches (on its own path: serve,
@@ -1149,6 +1157,16 @@ def decode_ms_per_step(eng, launches) -> float:
     return 1e3 * eng["decode_chunk"]["sum_s"] / max(1, steps)
 
 
+def graphs_line(eng) -> str:
+    """A worker engine's CUDA graphs (it must have replayed some)."""
+    assert eng["cuda_graphs"] >= 1, eng["cuda_graphs"]
+    warm = sum(w for w, _ in eng["graph_capture_s"].values())
+    cap = sum(c for _, c in eng["graph_capture_s"].values())
+    return (f"{eng['cuda_graphs']} CUDA graphs ({eng['decode_programs']} "
+            f"decode keys, {eng['mixed_programs']} mixed buckets), warm-up "
+            f"{warm:.2f} s + capture {cap:.2f} s")
+
+
 def served_line(results, wall: float) -> str:
     gen = sum(len(r.tokens) for r in results)
     ttfts = sorted(r.ttft_s for r in results)
@@ -1164,10 +1182,12 @@ def phase_serve(torch, card: str):
     check_results(results, prompts, "serve")
     assert launches.get("flash_decode", 0) > 0, \
         f"serve: flash_decode never launched: {launches}"
+    assert launches["flash_decode"] == N_LAYERS * eng["decode_steps"], \
+        (launches, eng["decode_steps"])
     log(f"[serve] {served_line(results, wall)}; prefix-hit admissions "
         f"{eng['prefix_hit_admissions']}; decode "
-        f"{decode_ms_per_step(eng, launches):.2f} ms/step; launches "
-        f"{launches} [{card}]")
+        f"{decode_ms_per_step(eng, launches):.2f} ms/step; "
+        f"{graphs_line(eng)}; launches {launches} [{card}]")
     return prompts, results, launches
 
 
@@ -1192,7 +1212,8 @@ def phase_mixed(torch, card: str):
         f"{eng['mixed_steps']} carrying {eng['mixed_prefill_tokens']} "
         f"prefill tokens; chunked admissions {eng['chunked_admissions']}; "
         f"prefix-hit admissions {eng['prefix_hit_admissions']}; engine "
-        f"steps {eng['engine_steps']}; launches {launches} [{card}]")
+        f"steps {eng['engine_steps']}; {graphs_line(eng)}; launches "
+        f"{launches} [{card}]")
     return wave1, launches
 
 
@@ -1249,7 +1270,6 @@ def phase_fused(torch, card: str, prompts, results, mixed_wave,
     from distributed_inference_engine_tpu_torch.models import (
         spec_for_architecture)
     from distributed_inference_engine_tpu_torch.models.base import init_params
-    from distributed_inference_engine_tpu_torch.ops import _cuda
     from distributed_inference_engine_tpu_torch.utils.parity import (
         assert_greedy_parity)
 
@@ -1267,18 +1287,19 @@ def phase_fused(torch, card: str, prompts, results, mixed_wave,
     m, t = assert_greedy_parity(spec, params, prompts[5], results[5].tokens,
                                 eps=eps, label="served chain")
     log(f"[fused] served chain teacher-forced: {m} strict, {t} ties")
-    cfg = EngineConfig(max_slots=8, max_seq_len=1024, decode_fused=True,
-                       attention_impl="pallas-decode")
-    engine = ContinuousEngine(spec, params=params, config=cfg, device="cuda")
-    reqs = [GenerationRequest(prompt=p, max_new_tokens=32, request_id=f"f{i}")
-            for i, p in enumerate(prompts)]
-    _cuda.reset_launch_counts()                      # main path starts here
-    t0 = time.perf_counter()
-    out = engine.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = _cuda.launch_counts()                 # ... and ends here
-    check_results(out, prompts, "fused")
+    # the serve configuration in this process: graph replays against the
+    # eager hook (the worker above replayed graphs)
+    out_s, _, _, _ = pair_run(torch, spec, params, prompts, "serve", card,
+                              profile_share=("flash_decode_kernel",),
+                              attention_impl="pallas-decode")
+    log(f"[fused] serve chains in process equal to the worker's: "
+        f"{sum(a.tokens == b.tokens for a, b in zip(out_s, results))}/"
+        f"{len(out_s)}")
+    out, launches, eng, wall = pair_run(
+        torch, spec, params, prompts, "fused", card,
+        profile_share=("flash_decode_kernel", "matmul_residual_kernel",
+                       "norm_matmul_kernel"),
+        decode_fused=True, attention_impl="pallas-decode")
     for k in ("flash_decode", "norm_matmul", "matmul_residual"):
         assert launches.get(k, 0) > 0, f"fused: {k} never launched"
     steps = launches["flash_decode"] // spec.n_layers
@@ -1298,24 +1319,13 @@ def phase_fused(torch, card: str, prompts, results, mixed_wave,
         f"{gen / wall:.1f} tok/s; {steps} decode steps; launches "
         f"{launches}; teacher-forced {m} strict, {t} ties; chains equal to "
         f"the served ones: {same}/{len(out)} [{card}]")
-    if profile_it:
-        profile_decode(torch, engine, prompts, card)
-    del engine
 
     # the fw decode configuration: a bf16 engine through the writeback
     # kernel (a smoke, teacher-forced at the bf16 tie band)
-    cfg = EngineConfig(max_slots=8, max_seq_len=1024,
-                       attention_impl="pallas-decode-fw")
-    engine = ContinuousEngine(spec, params=params, config=cfg, device="cuda")
-    _cuda.reset_launch_counts()                      # fw path starts here
-    t0 = time.perf_counter()
-    out_fw = engine.generate([GenerationRequest(
-        prompt=p, max_new_tokens=32, request_id=f"fw{i}")
-        for i, p in enumerate(prompts)])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    fw_launch = _cuda.launch_counts()                # ... and ends here
-    check_results(out_fw, prompts, "fw")
+    out_fw, fw_launch, _, wall = pair_run(
+        torch, spec, params, prompts, "fw", card,
+        profile_share=("flash_decode_kernel",),
+        attention_impl="pallas-decode-fw")
     assert fw_launch.get("flash_decode_fw", 0) > 0, fw_launch
     assert fw_launch.get("flash_decode", 0) == 0, fw_launch
     m, t = assert_greedy_parity(spec, params, prompts[5], out_fw[5].tokens,
@@ -1323,15 +1333,14 @@ def phase_fused(torch, card: str, prompts, results, mixed_wave,
     log(f"[fused] fw engine: {len(out_fw)} requests in {wall:.3f} s = "
         f"{sum(len(r.tokens) for r in out_fw) / wall:.1f} tok/s; launches "
         f"{fw_launch}; teacher-forced {m} strict, {t} ties [{card}]")
-    del engine
     # the paged-attention kernel's two routes on Llama-3-8B: the window
     # scheme with attention_impl="pallas" (the kernel over the frozen
     # prefix with stats, merged with the side window) and the per-step
     # paged decode (decode_mode="inline"); bf16 smokes at the tie band
     for label, extra in (("pallas", dict(attention_impl="pallas")),
                          ("inline", dict(decode_mode="inline"))):
-        out_p, launch_p, eng, wall = engine_run(
-            torch, spec, params, prompts, f"paged {label}", **extra)
+        out_p, launch_p, eng, wall = pair_run(
+            torch, spec, params, prompts, f"paged {label}", card, **extra)
         steps = eng["decode_steps"]
         assert eng["decode_mode"] == ("inline" if label == "inline"
                                       else "window"), eng["decode_mode"]
@@ -1348,8 +1357,8 @@ def phase_fused(torch, card: str, prompts, results, mixed_wave,
             f"{1e3 * eng['decode_chunk']['sum_s'] / steps:.2f} ms/step over "
             f"{steps} steps; launches {launch_p}; teacher-forced {m} "
             f"strict, {t} ties [{card}]")
-    log(f"[fused] bf16 {mixed_steps_line(torch, spec, params, mixed_wave)} "
-        f"[{card}]")
+    log(f"[fused] {mixed_pair_line(torch, spec, params, mixed_wave, card, 'bf16')}"
+        f" [{card}]")
     if profile_it:
         profile_mixed(torch, spec, params, mixed_wave, card)
     del params
@@ -1414,11 +1423,13 @@ def phase_fused(torch, card: str, prompts, results, mixed_wave,
     return launches, fw_launch
 
 
-def mixed_steps_line(torch, spec, params, prompts) -> str:
-    """Wall of each mixed step of a ``mixed``-configuration engine while
-    ``prompts`` prefill. A step ends in its one blocking host read, so its
-    wall is its time; the first step also runs the batched admission
-    prefill and is reported apart."""
+def mixed_step_times(torch, spec, params, prompts, eager: bool = False):
+    """The wall of each mixed step of a ``mixed``-configuration engine
+    while ``prompts`` prefill, with its bucket (prefill rows, chunk width),
+    the first step (with the batched admission prefill) left out; a step
+    ends in its one blocking host read, so its wall is its time. Returns
+    ([(bucket, ms, whether the step captured a graph)], the chains'
+    tokens, the engine's metrics, its graph pool's bytes)."""
     from distributed_inference_engine_tpu_torch.config import EngineConfig
     from distributed_inference_engine_tpu_torch.engine.continuous import (
         ContinuousEngine)
@@ -1428,26 +1439,37 @@ def mixed_steps_line(torch, spec, params, prompts) -> str:
     engine = ContinuousEngine(spec, params=params, config=EngineConfig(
         max_slots=8, max_seq_len=1024, attention_impl="pallas-ragged",
         prefill_chunk=256, mixed_step_tokens=512), device="cuda")
+    engine._eager = eager
+    buckets = []
+    run_chunk = engine._mixed_chunk
+
+    def spy(inputs, qb, *rest):
+        buckets.append((inputs.shape[0], qb))
+        return run_chunk(inputs, qb, *rest)
+
+    engine._mixed_chunk = spy
     for i, p in enumerate(prompts):
         engine.submit(GenerationRequest(prompt=p, max_new_tokens=32,
                                         request_id=f"tm{i}"))
     times = []
     while True:
         before = engine.get_metrics()["mixed_steps"]
+        n_graphs = len(engine._graphs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         engine.step()
         torch.cuda.synchronize()
         if engine.get_metrics()["mixed_steps"] == before:
             break
-        times.append(1e3 * (time.perf_counter() - t0))
+        times.append((buckets[-1], 1e3 * (time.perf_counter() - t0),
+                      len(engine._graphs) > n_graphs))
+    out = engine.run_until_idle()
+    metrics = engine.get_metrics()
+    pool = graph_pool_bytes(torch, engine._graph_pool)
     del engine
     assert len(times) >= 2, times
-    rest = times[1:]
-    return (f"mixed steps over the mixed phase's wave 1: admission + first "
-            f"step {times[0]:.1f} ms, then {len(rest)} steps of "
-            f"{statistics.mean(rest):.1f} ms on average "
-            f"({', '.join(f'{t:.1f}' for t in rest)})")
+    return (times[1:], sorted((r.request_id, r.tokens) for r in out),
+            metrics, pool)
 
 
 def mistral_prompts():
@@ -1494,7 +1516,7 @@ def phase_mistral(torch, card: str):
         f"prefix-hit admissions {eng['prefix_hit_admissions']}; prefill "
         f"calls {eng['prefill_calls']}; pools {eng['kv']['kv_bytes'] / 1e9:.2f}"
         f" GB ({eng['kv']['num_pages']} pages of {eng['kv']['page_size']}); "
-        f"launches {launches} [{card}]")
+        f"{graphs_line(eng)}; launches {launches} [{card}]")
     return wave1, results[0], launches
 
 
@@ -1534,8 +1556,7 @@ def paged_logit_gap(torch, spec, params, prompt, cont):
     return gaps
 
 
-def phase_mistral_inproc(torch, card: str, wave1, served,
-                         profile_it: bool):
+def phase_mistral_inproc(torch, card: str, wave1, served):
     """The Mistral weights of phase ``mistral`` rebuilt in this process
     (same seed and card, so the same draws): the served 5,200-token chain
     teacher-forced to ``forward_train`` at the bf16 tie band; then in fp32
@@ -1558,8 +1579,18 @@ def phase_mistral_inproc(torch, card: str, wave1, served,
     log(f"[mistral] served chain (5,200-token prompt) teacher-forced to "
         f"forward_train: {m} strict, {t} ties (band {BF16_TIE_EPS}) "
         f"[{card}]")
-    if profile_it:
-        profile_inline(torch, spec, params, wave1, card)
+    # the inline decode, graphs against eager, with 8 live slots over
+    # contexts up to 5,200 (ms per step and busy share)
+    out, launches, eng, _ = pair_run(
+        torch, spec, params, wave1, "mistral", card,
+        profile_share=("paged_attention_kernel", "paged_merge_kernel"),
+        attention_impl="pallas", max_seq_len=8192, prefill_chunk=512)
+    assert eng["decode_mode"] == "inline" and launches.get(
+        "paged_attention") == N_LAYERS * eng["decode_steps"], \
+        (launches, eng["decode_steps"])
+    log(f"[mistral] in-process graph chains equal to the served ones: "
+        f"{sum(a.tokens == b.tokens for a, b in zip(out, served))}/"
+        f"{len(out)}")
     del params
     torch.cuda.empty_cache()
 
@@ -1578,44 +1609,6 @@ def phase_mistral_inproc(torch, card: str, wave1, served,
     assert max(gaps) <= FP32_LOGIT_TOL, gaps
     del params
     torch.cuda.empty_cache()
-
-
-def profile_inline(torch, spec, params, prompts, card: str) -> None:
-    """``--profile``: torch.profiler over two inline decode chunks of a
-    bf16 Mistral engine (the ``mistral`` configuration) with ``prompts``
-    all prefilled and decoding (8 live slots, contexts up to 5,200)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from distributed_inference_engine_tpu_torch.config import EngineConfig
-    from distributed_inference_engine_tpu_torch.engine.continuous import (
-        ContinuousEngine)
-    from distributed_inference_engine_tpu_torch.engine.types import (
-        GenerationRequest)
-
-    engine = ContinuousEngine(spec, params=params, config=EngineConfig(
-        max_slots=8, max_seq_len=8192, attention_impl="pallas",
-        prefill_chunk=512), device="cuda")
-    for i, p in enumerate(prompts):
-        engine.submit(GenerationRequest(prompt=p, max_new_tokens=256,
-                                        request_id=f"pin{i}"))
-    while True:
-        m = engine.get_metrics()
-        if not (m["prefilling_slots"] or m["waiting"]):
-            break
-        engine.step()
-    assert m["live_slots"] == len(prompts), m["live_slots"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(2):
-            engine.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    steps = engine.get_metrics()["decode_steps"] - m["decode_steps"]
-    engine.abort_all()
-    del engine
-    report_profile(prof, wall, steps, "mistral inline decode", card)
 
 
 def phase_int4(torch, card: str):
@@ -1661,7 +1654,7 @@ def phase_int4(torch, card: str):
         f"prefix-hit admissions {eng['prefix_hit_admissions']}; forwards "
         f"{forwards} ({eng['prefill_calls']} admission prefills, "
         f"{decode_steps} decode steps, {eng['mixed_steps']} mixed steps); "
-        f"launches {launches} [{card}]")
+        f"{graphs_line(eng)}; launches {launches} [{card}]")
     return wave1, results[0], launches
 
 
@@ -1699,9 +1692,6 @@ def phase_int4_inproc(torch, card: str, wave1, served, profile_it: bool):
     mixed steps' time; a bf16 int8 engine's times; then fp32 at full
     width, int4 and int8 (``fp32_chains``). ``profile_it``: also the int4
     decode and mixed-step profiles."""
-    from distributed_inference_engine_tpu_torch.config import EngineConfig
-    from distributed_inference_engine_tpu_torch.engine.continuous import (
-        ContinuousEngine)
     from distributed_inference_engine_tpu_torch.models import (
         spec_for_architecture)
     from distributed_inference_engine_tpu_torch.ops.quant import (
@@ -1741,15 +1731,18 @@ def phase_int4_inproc(torch, card: str, wave1, served, profile_it: bool):
         f"{wall:.3f} s = {sum(len(r.tokens) for r in out) / wall:.1f} tok/s;"
         f" decode {decode_ms_per_step(eng, launches):.2f} ms/step; launches "
         f"{launches}; teacher-forced {m} strict, {t} ties [{card}]")
-    log(f"[int4] {mixed_steps_line(torch, spec, params, wave1)} [{card}]")
+    # the int4 decode scheme, graphs against eager, with the int4 GEMV's
+    # ms per decode step (129 launches a step)
+    out, launches, eng, wall = pair_run(
+        torch, spec, params, wave1, "int4", card,
+        profile_share=("int4_gemv", "flash_decode_kernel"),
+        attention_impl="pallas-decode")
+    assert launches["int4_matmul"] == INT4_PER_FORWARD * (
+        eng["prefill_calls"] + launches["flash_decode"] // N_LAYERS), \
+        (launches, eng["prefill_calls"])
+    log(f"[int4] {mixed_pair_line(torch, spec, params, wave1, card, 'int4')}"
+        f" [{card}]")
     if profile_it:
-        # the int4 GEMV's ms per int4 decode step: 129 launches a step
-        engine = ContinuousEngine(spec, params=params, config=EngineConfig(
-            max_slots=8, max_seq_len=1024, attention_impl="pallas-decode"),
-            device="cuda")
-        profile_decode(torch, engine, wave1, card, label="int4 decode",
-                       share_of=("int4_gemv", "flash_decode_kernel"))
-        del engine
         profile_mixed(torch, spec, params, wave1, card, label="int4 mixed")
     del params
     torch.cuda.empty_cache()
@@ -1770,7 +1763,8 @@ def phase_int4_inproc(torch, card: str, wave1, served, profile_it: bool):
         f"{param_bytes(params) / 1e9:.2f} GB; launches {launches}; bf16 "
         f"decode-vs-forward_train max|logit gap| per step "
         f"{[round(g, 4) for g in gaps]} [{card}]")
-    log(f"[int8] {mixed_steps_line(torch, spec, params, wave1)} [{card}]")
+    log(f"[int8] {mixed_pair_line(torch, spec, params, wave1, card, 'int8', ('graph',))}"
+        f" [{card}]")
     del params
     torch.cuda.empty_cache()
 
@@ -1845,6 +1839,7 @@ def report_profile(prof, wall: float, steps: int, label: str,
     log(f"[profile] {label}: {steps} steps in {wall * 1e3:.1f} ms = "
         f"{wall * 1e3 / steps:.2f} ms/step; device busy {busy * 1e3:.1f} ms "
         f"= {100 * busy / wall:.1f}% of wall [{card}]")
+    assert busy > 0, f"{label}: the profiler saw no device time"
     for e in sorted(events, key=dev_us, reverse=True)[:15]:
         log(f"[profile] {label}: {dev_us(e) / 1e3 / steps:9.3f} ms/step "
             f"{100 * dev_us(e) / 1e6 / busy:5.1f}% of device  "
@@ -1859,34 +1854,167 @@ def report_profile(prof, wall: float, steps: int, label: str,
                / 1e3 / steps for name in RETIRED_KERNELS}
     assert not any(retired.values()), \
         f"{label}: retired kernels ran: {retired}"
+    return wall * 1e3 / steps, 100 * busy / wall
 
 
 def profile_decode(torch, engine, prompts, card: str, label: str = "decode",
                    share_of=("flash_decode_kernel", "matmul_residual_kernel",
-                             "norm_matmul_kernel")) -> None:
-    """``--profile``: torch.profiler over two pure-decode chunks of
-    ``engine`` (the fused bf16 engine, or the int4 one; 8 slots live)."""
+                             "norm_matmul_kernel")):
+    """torch.profiler over two pure-decode chunks of ``engine`` with
+    ``prompts`` all prefilled and decoding (8 slots live), the admissions,
+    the prefills and a first decode chunk (and so a graph engine's
+    captures) unprofiled; returns (ms per decode step, device-busy %)."""
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_inference_engine_tpu_torch.engine.types import (
         GenerationRequest)
 
     for i, p in enumerate(prompts):
-        engine.submit(GenerationRequest(prompt=p, max_new_tokens=32,
+        engine.submit(GenerationRequest(prompt=p, max_new_tokens=256,
                                         request_id=f"prof{i}"))
-    engine.step()                    # admission + first chunk, unprofiled
+    while True:                      # admissions and chunked prefills
+        engine.step()
+        m = engine.get_metrics()
+        if not (m["prefilling_slots"] or m["waiting"]):
+            break
+    assert m["live_slots"] == len(prompts), m["live_slots"]
+    engine.step()                    # a first pure-decode chunk
     torch.cuda.synchronize()
-    n_chunks = 2
+    before = engine.get_metrics()["decode_steps"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_chunks):
+        for _ in range(2):
             engine.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    engine.run_until_idle()
-    report_profile(prof, wall, n_chunks * engine.config.decode_steps_per_call,
-                   label, card, share_of=share_of)
+    steps = engine.get_metrics()["decode_steps"] - before
+    engine.abort_all()
+    return report_profile(prof, wall, steps, label, card, share_of=share_of)
+
+
+# --------------------------------------------------- graphs against eager
+
+
+def graph_pool_bytes(torch, pool) -> int:
+    """Bytes of the device memory segments of a graph memory pool
+    (``torch.cuda.graph_pool_handle()``; 0 for None)."""
+    if pool is None:
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def pair_run(torch, spec, params, prompts, label: str, card: str,
+             profile_share=None, **cfg):
+    """``prompts`` (32 new tokens each, greedy) through two in-process
+    engines of one configuration (8 slots, ``max_seq_len`` 1024 unless
+    ``cfg`` says otherwise): one replaying CUDA graphs (the default), one
+    through the engine's eager comparison hook. Holds the graph run's
+    tokens equal to the eager run's and its launch counts equal too
+    (each zeroed just before its run), printing the largest gap between
+    the chosen tokens' logprobs where they are not bit-equal; prints the
+    graphs' count, capture seconds and pool bytes. ``profile_share`` (kernel
+    names, or ``()``): also each engine's decode ms per step and
+    device-busy share over two profiled chunks. Returns the graph run's
+    (results, launches, metrics, wall s)."""
+    from distributed_inference_engine_tpu_torch.config import EngineConfig
+    from distributed_inference_engine_tpu_torch.engine.continuous import (
+        ContinuousEngine)
+    from distributed_inference_engine_tpu_torch.engine.types import (
+        GenerationRequest)
+    from distributed_inference_engine_tpu_torch.ops import _cuda
+
+    runs = {}
+    for mode in ("eager", "graph"):
+        engine = ContinuousEngine(spec, params=params, config=EngineConfig(
+            **dict(dict(max_slots=8, max_seq_len=1024), **cfg)),
+            device="cuda")
+        engine._eager = mode == "eager"
+        _cuda.reset_launch_counts()                  # this path starts here
+        t0 = time.perf_counter()
+        out = engine.generate([GenerationRequest(
+            prompt=p, max_new_tokens=32, request_id=f"{label}{i}")
+            for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _cuda.launch_counts()             # ... and ends here
+        metrics = engine.get_metrics()
+        check_results(out, prompts, f"{label} {mode}",
+                      vocab=spec.vocab_size)
+        pool = graph_pool_bytes(torch, engine._graph_pool)
+        prof = None
+        if profile_share is not None:
+            prof = profile_decode(torch, engine, prompts, card,
+                                  label=f"{label} decode, {mode}",
+                                  share_of=profile_share)
+        runs[mode] = dict(out=out, launches=launches, metrics=metrics,
+                          wall=wall, pool=pool, prof=prof)
+        del engine
+        torch.cuda.empty_cache()
+    e, g = runs["eager"], runs["graph"]
+    for i, (a, b) in enumerate(zip(e["out"], g["out"])):
+        assert a.tokens == b.tokens, (
+            f"{label}: request {i} graph tokens differ from eager at "
+            f"{next(j for j, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y)}")
+    gap = max(abs(x - y) for a, b in zip(e["out"], g["out"])
+              for x, y in zip(a.logprobs, b.logprobs))
+    assert g["launches"] == e["launches"], (label, g["launches"],
+                                            e["launches"])
+    gm = g["metrics"]
+    assert gm["cuda_graphs"] >= 1 and e["metrics"]["cuda_graphs"] == 0, gm
+    gen = sum(len(r.tokens) for r in g["out"])
+    caps = ", ".join(f"{k}: warm-up {w:.3f} s + capture {c:.3f} s"
+                     for k, (w, c) in gm["graph_capture_s"].items())
+    log(f"[graphs] {label}: graph tokens equal to eager ("
+        f"{'bit-equal logprobs' if gap == 0 else f'largest logprob gap {gap:.3e}'}"
+        f"); launches equal ({sum(g['launches'].values())}); {gen} tokens "
+        f"in {g['wall']:.3f} s graph = {gen / g['wall']:.1f} tok/s, eager "
+        f"{e['wall']:.3f} s = {gen / e['wall']:.1f} tok/s [{card}]")
+    log(f"[graphs] {label}: {gm['cuda_graphs']} graphs ({gm['decode_programs']}"
+        f" decode keys, {gm['mixed_programs']} mixed buckets): {caps}; "
+        f"graph pool {g['pool'] / 2**20:.1f} MiB; warm-up launches "
+        f"{gm['graph_warmup_launches']} [{card}]")
+    if profile_share is not None:
+        log(f"[graphs] {label}: decode {e['prof'][0]:.2f} ms/step "
+            f"{e['prof'][1]:.1f}% busy eager -> {g['prof'][0]:.2f} ms/step "
+            f"{g['prof'][1]:.1f}% busy graph [{card}]")
+    return g["out"], g["launches"], gm, g["wall"]
+
+
+def mixed_pair_line(torch, spec, params, prompts, card: str, label: str,
+                    modes=("eager", "graph")) -> str:
+    """``mixed_step_times`` through an eager engine and a graph one: the
+    mean ms of a mixed step by bucket (prefill rows, chunk width), a step
+    that captured its graph apart; the two runs' tokens equal."""
+    parts = []
+    tokens = {}
+    for mode in modes:
+        times, toks, m, pool = mixed_step_times(torch, spec, params, prompts,
+                                                eager=mode == "eager")
+        tokens[mode] = toks
+        by = {}
+        for key, ms, captured in times:
+            by.setdefault(key, ([], []))[captured].append(ms)
+        desc = []
+        for key, (ran, caught) in sorted(by.items()):
+            desc.append(f"{key[0]}x{key[1]}: "
+                        + (f"{statistics.mean(ran):.1f} ms x{len(ran)}"
+                           if ran else "no replay")
+                        + (f" (with its capture {caught[0]:.1f})"
+                           if caught else ""))
+        if mode == "graph":
+            assert m["cuda_graphs"] >= 1, m
+            desc.append(f"{m['cuda_graphs']} graphs: " + ", ".join(
+                f"{k}: warm-up {w:.3f} s + capture {c:.3f} s"
+                for k, (w, c) in m["graph_capture_s"].items())
+                + f"; pool {pool / 2**20:.1f} MiB")
+        parts.append(f"{mode} " + "; ".join(desc))
+    if len(tokens) == 2:
+        assert tokens["eager"] == tokens["graph"], f"{label}: mixed tokens"
+    return (f"{label} mixed steps by bucket (rows x width), admission step "
+            f"apart: " + " | ".join(parts)
+            + ("; tokens equal" if len(tokens) == 2 else ""))
 
 
 def profile_mixed(torch, spec, params, prompts, card: str,
@@ -1943,9 +2071,8 @@ def profile_mixed(torch, spec, params, prompts, card: str,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile two decode chunks of the fused engine "
-                    "and of the inline Mistral engine, and the bf16 and "
-                    "int4 mixed steps, and time the int4 wgmma token tiles")
+                    help="also profile the bf16 and int4 mixed steps and "
+                    "time the int4 wgmma token tiles")
     args = ap.parse_args()
 
     import torch
@@ -1997,7 +2124,7 @@ def main() -> int:
     phase_int4_inproc(torch, card, int4_wave, int4_served, args.profile)
     torch.cuda.empty_cache()
     m_wave, m_served, mistral_launch = phase_mistral(torch, card)
-    phase_mistral_inproc(torch, card, m_wave, m_served, args.profile)
+    phase_mistral_inproc(torch, card, m_wave, m_served)
 
     jax_ops = "distributed_inference_engine_tpu/ops/"
     # kernel: (source, TPU kernel it replaces, launches on its path)

@@ -35,6 +35,18 @@ their pages at once.
 - One host read per chunk or mixed step: tokens, logprobs, active flags,
   the lengths before and after, and a mixed step's prefill samples ride
   one packed int32 buffer.
+- One dispatch per chunk (the JAX engine's one jitted program per chunk,
+  ``_decode_chunk``'s ``lax.scan``, and per mixed-step bucket): on a CUDA
+  device each decode chunk and each mixed step is a replay of a CUDA
+  graph, captured the first time its key is seen. A decode key is
+  (``n_steps``, stop ids in use, top-k/top-p/min-p mask, sampling noise),
+  the values a chunk's body branches on on the host; a mixed key is the
+  bucket (prefill rows, chunk width) plus the same three flags. The body
+  (embedding to packed output, the chunk-end page flush included) reads
+  and writes only tensors at fixed addresses: the per-slot state below,
+  the page pools and table, ``_cap`` and a mixed bucket's input buffer,
+  each filled by one host-to-device copy before the replay. On the CPU
+  the same body runs eagerly.
 
 What the port leaves out, and how it fails when asked for it, is in
 ``config.EngineConfig.check_supported``. The JAX default decode path
@@ -42,8 +54,7 @@ What the port leaves out, and how it fails when asked for it, is in
 layout choice; here "auto", "pallas-decode" and "pallas-ragged" (on its
 pure-decode steps) run the flash-decode kernel on the window scheme, and
 every ``attention_impl`` runs the paged-attention kernel on the inline
-path (JAX sends "auto" there to its XLA gather). Decode chunks are eager
-PyTorch (no CUDA graphs yet).
+path (JAX sends "auto" there to its XLA gather).
 """
 
 from __future__ import annotations
@@ -67,6 +78,7 @@ from ..models.base import (
     forward_prefill_suffix,
     init_params,
     unembed,
+    write_pages_device,
     write_prefill_pages,
 )
 from ..ops import _cuda
@@ -101,6 +113,15 @@ def _pow2_buckets(cap: int, start: int = 1) -> List[int]:
         b *= 2
     out.append(cap)
     return out
+
+
+def _key_name(key: Tuple) -> str:
+    """A decode or mixed graph key as text (``get_metrics``)."""
+    kind, *shape, stops, mask, noise = key
+    dims = (f"n_steps={shape[0]}" if kind == "decode"
+            else f"rows={shape[0]} width={shape[1]}")
+    return (f"{kind} {dims} stops={int(stops)} mask={int(mask)} "
+            f"noise={int(noise)}")
 
 
 class _Slot:
@@ -139,23 +160,16 @@ class _PrefillProgress:
 class _Chunk:
     """A dispatched decode chunk or mixed step: its packed device output
     (flat int32: ``2 * n_steps + 3`` rows of ``max_slots``, then a mixed
-    step's prefill samples), the side window to flush (None for a mixed
-    step, whose kernel wrote the pages) and the slots it was dispatched
-    for."""
+    step's prefill samples) and the slots it was dispatched for."""
 
-    __slots__ = ("packed", "n_steps", "snapshot", "t0", "caps", "side_k",
-                 "side_v", "table")
+    __slots__ = ("packed", "n_steps", "snapshot", "t0", "caps")
 
-    def __init__(self, packed, n_steps, snapshot, t0, caps, side_k, side_v,
-                 table) -> None:
+    def __init__(self, packed, n_steps, snapshot, t0, caps) -> None:
         self.packed = packed
         self.n_steps = n_steps
         self.snapshot = snapshot
         self.t0 = t0
         self.caps = caps
-        self.side_k = side_k
-        self.side_v = side_v
-        self.table = table
 
 
 class ContinuousEngine:
@@ -216,8 +230,7 @@ class ContinuousEngine:
         self._prefilling: Dict[int, _PrefillProgress] = {}
         self._mixed = self.attn_impl == "pallas-ragged" and self._chunk > 0
         # a mixed step's prefill rows pad to one of these widths: short
-        # tails reuse the smaller prefill buckets (CUDA graphs of the mixed
-        # step will need a bounded set of shapes)
+        # tails reuse the smaller prefill buckets (one CUDA graph a bucket)
         self._mixed_q_buckets = (sorted(
             {b for b in self.prefill_buckets if b < self._chunk}
             | {self._chunk}) if self._chunk else [1])
@@ -227,8 +240,10 @@ class ContinuousEngine:
         self._slots: Dict[int, _Slot] = {}
         self._finished: List[GenerationResult] = []
 
-        # device-side per-slot state [max_slots]; replaced by each chunk,
-        # patched in place by admission installs and retires
+        # device-side per-slot state [max_slots], at fixed addresses for
+        # the engine's lifetime (a CUDA graph reads and writes them): each
+        # chunk and mixed step writes them in place at its end, admission
+        # installs and retires patch them in place
         n = cfg.max_slots
         dev = self.device
         i32 = dict(dtype=torch.int32, device=dev)
@@ -243,6 +258,24 @@ class ContinuousEngine:
         self._top_p = torch.ones((n,), dtype=torch.float32, device=dev)
         self._min_p = torch.zeros((n,), dtype=torch.float32, device=dev)
         self._stops_dev = torch.full((n, _DEVICE_STOP_K), -1, **i32)
+        # each slot's token capacity for the chunk, copied in before it
+        self._cap = torch.zeros((n,), **i32)
+        # a mixed bucket's inputs, one int32 buffer a bucket (_step_mixed)
+        self._mixed_inputs: Dict[Tuple[int, int], torch.Tensor] = {}
+        # CUDA graphs by key (module docstring), sharing one memory pool:
+        # replays never overlap, and a replay's packed output is read
+        # before the next one
+        self._graphs: Dict[Tuple, _cuda.CapturedGraph] = {}
+        self._graph_pool: Any = None
+        self._decode_keys: set = set()
+        # launches of the eager warm-up passes before each capture (their
+        # results are discarded; the replays count the chunks' launches)
+        self._graph_warmup_launches: "collections.Counter[str]" = (
+            collections.Counter())
+        # the comparison hook: True runs every body eagerly on the card
+        # (chip_smoke.py and the card tests hold the replays to it); no
+        # config field or flag sets it
+        self._eager = False
         # host mirrors: lengths for the capacity loop, and the sampling
         # knobs so a step knows without a device sync whether any row
         # needs the top-k/top-p/min-p mask or the Gumbel draw
@@ -730,30 +763,82 @@ class ContinuousEngine:
         lp = torch.where(was, lp, torch.zeros_like(lp))
         return lengths, last, active, produced, emitted, lp
 
+    # ------------------------------------------------------ dispatch
+
+    def _state(self) -> Tuple[torch.Tensor, ...]:
+        return self._lengths, self._last, self._active, self._produced
+
+    def _run(self, key: Tuple, body) -> torch.Tensor:
+        """``body()`` on the CPU (or with the ``_eager`` hook); on a CUDA
+        device a replay of ``key``'s graph, captured first if new."""
+        if self.device.type != "cuda" or self._eager:
+            return body()
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = self._capture(body)
+        return graph.replay()
+
+    def _capture(self, body) -> _cuda.CapturedGraph:
+        """One eager warm-up pass of ``body`` on the capture stream, its
+        effects undone (the per-slot state and the generator restored; the
+        pages it wrote, the replay writes again), then the capture. A
+        failure raises: there is no eager fallback."""
+        with _cuda.GRAPH_LOCK:
+            stream = _cuda.capture_stream(self.device)
+            saved = [t.clone() for t in self._state()]
+            gen_state = self._gen.get_state()
+            t0 = time.perf_counter()
+            with _cuda.recording_launches() as warm:
+                _cuda.warm_up(body, stream)
+            warmup_s = time.perf_counter() - t0
+            self._graph_warmup_launches.update(warm)
+            for t, v in zip(self._state(), saved):
+                t.copy_(v)
+            self._gen.set_state(gen_state)
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            graph = _cuda.capture_graph(body, pool=self._graph_pool,
+                                        stream=stream,
+                                        generators=(self._gen,))
+            graph.warmup_s = warmup_s
+            return graph
+
     def _decode_chunk(self, n_steps: int, caps: List[int], t0: float
                       ) -> _Chunk:
         """Queue one chunk of ``n_steps`` decode steps over all slots
-        (``caps``: each slot's token capacity)."""
+        (``caps``: each slot's token capacity): fill the inputs, then run
+        the body (a graph replay on the card)."""
+        needs_mask, needs_noise = self._knob_flags(self._knobs_host)
+        key = ("decode", n_steps, bool(self._stop_slots), needs_mask,
+               needs_noise)
+        self._decode_keys.add(key)
+        self._cap.copy_(torch.as_tensor(caps, dtype=torch.int32))
+        table = self.kv.page_table
+        self._decode_steps += n_steps
+        packed = self._run(key, lambda: self._decode_body(
+            n_steps, key[2], needs_mask, needs_noise, table))
+        return _Chunk(packed, n_steps, dict(self._slots), t0, caps)
+
+    def _decode_body(self, n_steps: int, use_stops: bool, needs_mask: bool,
+                     needs_noise: bool, table: torch.Tensor) -> torch.Tensor:
+        """The decode chunk on the device, from the embedding to the packed
+        output: ``n_steps`` steps, then (window scheme) the side window's
+        flush into the pages, then the per-slot state written in place.
+        Reads only tensors at fixed addresses."""
         spec = self.spec
         n = self.max_slots
-        dev = self.device
-        table = self.kv.page_table
         start_lengths = self._lengths
         lengths, last = self._lengths, self._last
         active, produced = self._active, self._produced
         sampling = SamplingParams(self._temps, self._top_k, self._top_p,
                                   self._min_p)
-        needs_mask, needs_noise = self._knob_flags(self._knobs_host)
-        use_stops = bool(self._stop_slots)
         side_k = side_v = None
         if self.use_window:
             side_k = torch.zeros((spec.n_layers, n, n_steps,
                                   spec.n_kv_heads, spec.head_dim),
-                                 dtype=spec.torch_dtype, device=dev)
+                                 dtype=spec.torch_dtype, device=self.device)
             side_v = torch.zeros_like(side_k)
-        cap = torch.as_tensor(caps, dtype=torch.int32, device=dev)
         toks, lps = [], []
-        self._decode_steps += n_steps
         for _ in range(n_steps):
             if self.use_window:
                 hidden, side_k, side_v = forward_decode_window(
@@ -773,18 +858,24 @@ class ContinuousEngine:
                 logits, sampling, generator=self._gen,
                 needs_mask=needs_mask, needs_noise=needs_noise)
             lengths, last, active, produced, emitted, lp = self._advance(
-                next_tok, lp, lengths, last, active, produced, cap,
+                next_tok, lp, lengths, last, active, produced, self._cap,
                 use_stops)
             toks.append(emitted)
             lps.append(lp)
-        self._lengths, self._last = lengths, last
-        self._active, self._produced = active, produced
+        if self.use_window:
+            # chunk-end flush: slot b's fresh K/V sits in side entries [0,
+            # written) and lands at [start, start + written) of its pages
+            write_pages_device(self.kv.k_rows, self.kv.v_rows, side_k,
+                               side_v, table, lengths - start_lengths,
+                               start_lengths, self.kv.page_size)
         packed = torch.cat([
             torch.stack(toks), torch.stack(lps).view(torch.int32),
             active[None].to(torch.int32), lengths[None],
             start_lengths[None]], dim=0).reshape(-1)
-        return _Chunk(packed, n_steps, dict(self._slots), t0, caps, side_k,
-                      side_v, self.kv._table.copy())
+        for dst, src in zip(self._state(), (lengths, last, active,
+                                             produced)):
+            dst.copy_(src)
+        return packed
 
     def step(self) -> int:
         """One engine iteration: admit, advance the chunked prefills, then
@@ -880,24 +971,27 @@ class ContinuousEngine:
         qb = _next_bucket(max(len(s) for _, _, s in sel),
                           self._mixed_q_buckets)
         self._mixed_programs.add((rpb, qb))
-        pf_tokens = np.zeros((rpb, qb), np.int32)
-        pf_ctx = np.zeros((rpb,), np.int32)
-        pf_qlens = np.zeros((rpb,), np.int32)       # pad rows: inert
-        pf_tables = np.zeros((rpb, self.kv.max_pages_per_seq), np.int32)
+        # the bucket's inputs, one int32 row a prefill row (pad rows inert:
+        # q_len 0, greedy knobs): tokens [qb], ctx, q_len, top_k, the page
+        # table [mp], then the bits of temperature, top_p and min_p
+        mp = self.kv.max_pages_per_seq
+        inputs = np.zeros((rpb, qb + 3 + mp + 3), np.int32)
         for i, (slot, prog, sfx) in enumerate(sel):
-            pf_tokens[i, : len(sfx)] = sfx
-            pf_ctx[i] = prog.done
-            pf_qlens[i] = len(sfx)
-            pf_tables[i] = self.kv._table[slot]
+            inputs[i, : len(sfx)] = sfx
+            inputs[i, qb: qb + 2] = (prog.done, len(sfx))
+            inputs[i, qb + 3: qb + 3 + mp] = self.kv._table[slot]
         pf_knobs = self._request_knobs([prog.request for _, prog, _ in sel],
                                        rpb)
+        inputs[:, qb + 2] = pf_knobs[:, 1]
+        inputs[:, qb + 3 + mp:] = np.ascontiguousarray(
+            pf_knobs[:, [0, 2, 3]]).view(np.int32)
 
         self._steps += 1
         self._mixed_steps += 1
         self._mixed_prefill_tokens += spent
         self._occupancy_sum += len(self._slots)
-        chunk = self._mixed_chunk(pf_tokens, pf_ctx, pf_qlens, pf_tables,
-                                  pf_knobs, self._cap_list(), t0)
+        chunk = self._mixed_chunk(inputs, qb, pf_knobs, self._cap_list(),
+                                  t0)
         self._run_overlap_hook()
         pf_host = self._process_chunk(chunk)
 
@@ -911,58 +1005,76 @@ class ContinuousEngine:
                                      float(pf_lps[i]), rows)
         self._install_device(rows)
 
-    def _mixed_chunk(self, pf_tokens: np.ndarray, pf_ctx: np.ndarray,
-                     pf_qlens: np.ndarray, pf_tables: np.ndarray,
-                     pf_knobs: np.ndarray, caps: List[int], t0: float
-                     ) -> _Chunk:
-        """Queue one mixed step: the decode rows (one per slot; active
-        rows q=1 at ctx=length, the rest inert with q=0, ctx=0) and the
-        prefill rows in one ragged forward, one ``unembed`` over all rows,
-        the decode rows' ``advance`` and the prefill rows' samples."""
+    def _mixed_chunk(self, inputs: np.ndarray, qb: int, pf_knobs: np.ndarray,
+                     caps: List[int], t0: float) -> _Chunk:
+        """Queue one mixed step: copy the bucket's inputs (``inputs``, see
+        ``_step_mixed``) and the capacities in, then run the body (a graph
+        replay on the card)."""
+        rpb = inputs.shape[0]
+        needs_mask, needs_noise = self._knob_flags(
+            np.concatenate([self._knobs_host, pf_knobs]))
+        key = ("mixed", rpb, qb, bool(self._stop_slots), needs_mask,
+               needs_noise)
+        buf = self._mixed_inputs.get((rpb, qb))
+        if buf is None:
+            buf = self._mixed_inputs[(rpb, qb)] = torch.zeros(
+                inputs.shape, dtype=torch.int32, device=self.device)
+        buf.copy_(torch.from_numpy(inputs))
+        self._cap.copy_(torch.as_tensor(caps, dtype=torch.int32))
+        table = self.kv.page_table
+        packed = self._run(key, lambda: self._mixed_body(
+            buf, qb, key[3], needs_mask, needs_noise, table))
+        return _Chunk(packed, 1, dict(self._slots), t0, caps)
+
+    def _mixed_body(self, buf: torch.Tensor, qb: int, use_stops: bool,
+                    needs_mask: bool, needs_noise: bool, table: torch.Tensor
+                    ) -> torch.Tensor:
+        """The mixed step on the device: the decode rows (one per slot;
+        active rows q=1 at ctx=length, the rest inert with q=0, ctx=0) and
+        the prefill rows of ``buf`` in one ragged forward, one ``unembed``
+        and one sampling over all rows, the decode rows' ``advance``, the
+        packed output, the per-slot state written in place."""
         spec = self.spec
         b = self.max_slots
         dev = self.device
-        qb = pf_tokens.shape[1]
+        mp = table.shape[1]
         lengths, last = self._lengths, self._last
         active, produced = self._active, self._produced
+        pf_knobs = buf[:, qb + 3 + mp:].view(torch.float32)
         tokens = torch.zeros((b, qb), dtype=torch.int32, device=dev)
         tokens[:, 0] = last
-        tokens = torch.cat([tokens, torch.from_numpy(pf_tokens).to(dev)])
+        tokens = torch.cat([tokens, buf[:, :qb]])
         ctx = torch.cat([torch.where(active, lengths,
-                                     torch.zeros_like(lengths)),
-                         torch.from_numpy(pf_ctx).to(dev)])
-        qlens = torch.cat([active.to(torch.int32),
-                           torch.from_numpy(pf_qlens).to(dev)])
-        table = torch.cat([self.kv.page_table,
-                           torch.from_numpy(pf_tables).to(dev)])
+                                     torch.zeros_like(lengths)), buf[:, qb]])
+        qlens = torch.cat([active.to(torch.int32), buf[:, qb + 1]])
         hidden, _, _ = forward_mixed_step(
             spec, self.params, tokens, ctx, qlens, self.kv.k_pages,
-            self.kv.v_pages, table)
+            self.kv.v_pages, torch.cat([table, buf[:, qb + 3: qb + 3 + mp]]))
         logits = unembed(spec, self.params, hidden)
-        needs_mask, needs_noise = self._knob_flags(self._knobs_host)
-        next_tok, lp = sample_tokens_with_logprobs(
-            logits[:b], SamplingParams(self._temps, self._top_k,
-                                       self._top_p, self._min_p),
-            generator=self._gen, needs_mask=needs_mask,
+        sampling = SamplingParams(
+            torch.cat([self._temps, pf_knobs[:, 0]]),
+            torch.cat([self._top_k, buf[:, qb + 2]]),
+            torch.cat([self._top_p, pf_knobs[:, 1]]),
+            torch.cat([self._min_p, pf_knobs[:, 2]]))
+        tok, lp = sample_tokens_with_logprobs(
+            logits, sampling, generator=self._gen, needs_mask=needs_mask,
             needs_noise=needs_noise)
-        pf_tok, pf_lp = self._sample_knobs(logits[b:], pf_knobs)
-        cap = torch.as_tensor(caps, dtype=torch.int32, device=dev)
-        new_len, last, active, produced, emitted, lp = self._advance(
-            next_tok, lp, lengths, last, active, produced, cap,
-            bool(self._stop_slots))
-        self._lengths, self._last = new_len, last
-        self._active, self._produced = active, produced
+        new_len, new_last, new_active, new_produced, emitted, dlp = \
+            self._advance(tok[:b], lp[:b], lengths, last, active, produced,
+                          self._cap, use_stops)
         packed = torch.cat([
-            emitted, lp.view(torch.int32), active.to(torch.int32), new_len,
-            lengths, pf_tok, pf_lp.view(torch.int32)])
-        return _Chunk(packed, 1, dict(self._slots), t0, caps, None, None,
-                      None)
+            emitted, dlp.view(torch.int32), new_active.to(torch.int32),
+            new_len, lengths, tok[b:], lp[b:].view(torch.int32)])
+        for dst, src in zip(self._state(), (new_len, new_last, new_active,
+                                             new_produced)):
+            dst.copy_(src)
+        return packed
 
     def _process_chunk(self, chunk: _Chunk) -> np.ndarray:
-        """The one blocking read of a chunk or mixed step, the page flush
-        of a chunk's side window, then token appends, stop scans and
-        finish/revive. Returns what the packed buffer carries past the
-        decode rows (a mixed step's prefill samples)."""
+        """The one blocking read of a chunk or mixed step, then token
+        appends, stop scans and finish/revive. Returns what the packed
+        buffer carries past the decode rows (a mixed step's prefill
+        samples)."""
         n_steps = chunk.n_steps
         b = self.max_slots
         flat = chunk.packed.cpu().numpy()
@@ -971,13 +1083,6 @@ class ContinuousEngine:
         lps_np = host[n_steps:2 * n_steps].view(np.float32)
         active_np = host[2 * n_steps].astype(bool)
         lengths_row = host[2 * n_steps + 1]
-        start_row = host[2 * n_steps + 2]
-        if chunk.side_k is not None:
-            # chunk-end flush: slot b's fresh K/V sits in side entries [0,
-            # written) and lands at [start, start + written) of its pages
-            write_prefill_pages(self.kv.k_pages, self.kv.v_pages,
-                                chunk.side_k, chunk.side_v, chunk.table,
-                                lengths_row - start_row, start=start_row)
         self.chunk_stats.add(time.perf_counter() - chunk.t0)
 
         retired: List[int] = []
@@ -1052,7 +1157,7 @@ class ContinuousEngine:
             self._prefilling.pop(slot, None)
             self.kv.free_slot(slot)
         self._stop_slots.clear()
-        self._active = torch.zeros_like(self._active)
+        self._active.zero_()
         return n
 
     @property
@@ -1083,6 +1188,15 @@ class ContinuousEngine:
             "mixed_steps": self._mixed_steps,
             "mixed_prefill_tokens": self._mixed_prefill_tokens,
             "mixed_programs": len(self._mixed_programs),
+            # distinct decode keys seen (the graphs a card engine needs),
+            # counted on the CPU too, where nothing is captured
+            "decode_programs": len(self._decode_keys),
+            "cuda_graphs": len(self._graphs),
+            # each graph's (eager warm-up, capture) seconds
+            "graph_capture_s": {_key_name(k): [g.warmup_s, g.capture_s]
+                                for k, g in self._graphs.items()},
+            "graph_warmup_launches": sum(
+                self._graph_warmup_launches.values()),
             "prefix_hit_admissions": self._prefix_hit_admissions,
             "prefilling_slots": len(self._prefilling),
             "chunked_admissions": self._chunked_admissions,

@@ -4,8 +4,11 @@
 - Host: free list, per-slot page lists, refcounts and the prefix index
   of full prompt pages keyed by chain hash — the JAX logic, line for line.
 - Device: pools ``[L, N, P, Hkv*Dh]`` in bf16 or fp32, written in place,
-  and an int32 ``page_table`` ``[max_slots, max_pages_per_seq]`` re-uploaded
-  only when host accounting changes.
+  each with one drop row after its last page (``k_rows``/``v_rows``, the
+  target of masked writes: ``models/base.py:write_pages_device``), and one
+  int32 ``page_table`` ``[max_slots, max_pages_per_seq]`` refreshed in
+  place only when host accounting changes, so a CUDA graph that read it
+  reads the current table on every replay.
 
 ``page_chain_hashes`` is byte-identical to the JAX function: the
 coordinator's prefix-affinity key is built from it, so a mixed fleet of
@@ -21,7 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.base import ModelSpec, torch_dtype
+from ..models.base import ModelSpec, pages_with_drop_row, torch_dtype
 
 
 def page_chain_hashes(tokens, n_pages: int, page_size: int) -> List[bytes]:
@@ -54,10 +57,10 @@ class PagedKVCache:
         self.dtype = torch_dtype(dtype) if dtype else spec.torch_dtype
         self.device = torch.device(device)
         shape = (spec.n_layers, num_pages, page_size, fused)
-        self.k_pages = torch.zeros(shape, dtype=self.dtype,
-                                   device=self.device)
-        self.v_pages = torch.zeros(shape, dtype=self.dtype,
-                                   device=self.device)
+        self.k_pages, self.k_rows = pages_with_drop_row(shape, self.dtype,
+                                                        self.device)
+        self.v_pages, self.v_rows = pages_with_drop_row(shape, self.dtype,
+                                                        self.device)
 
         self._free: List[int] = list(range(num_pages))
         self._slot_pages: Dict[int, List[int]] = {}
@@ -65,7 +68,8 @@ class PagedKVCache:
         self._free_slots: List[int] = list(range(max_slots))
         self._table = np.zeros((max_slots, self.max_pages_per_seq), np.int32)
         self._table_dirty = True
-        self._table_dev: Optional[torch.Tensor] = None
+        self._table_dev = torch.zeros(self._table.shape, dtype=torch.int32,
+                                      device=self.device)
         self._peak_pages_used = 0
 
         # prefix cache: shared full pages keyed by their chain hash
@@ -276,10 +280,10 @@ class PagedKVCache:
 
     @property
     def page_table(self) -> torch.Tensor:
-        """Device copy of the table, re-uploaded only after host changes."""
-        if self._table_dirty or self._table_dev is None:
-            self._table_dev = torch.from_numpy(self._table.copy()).to(
-                self.device)
+        """The device table: one tensor for the cache's lifetime, refreshed
+        in place (one host-to-device copy) only after host changes."""
+        if self._table_dirty:
+            self._table_dev.copy_(torch.from_numpy(self._table))
             self._table_dirty = False
         return self._table_dev
 

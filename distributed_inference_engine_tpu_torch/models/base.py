@@ -11,11 +11,12 @@ The JAX ``lax.scan`` over layers is a Python loop over layer views.
 
 Page pools are updated IN PLACE (the JAX functions donate and return new
 pools); functions that write pools still return them, so call sites read
-the same as in the JAX package. Scatter index lists are computed on the
-host from host-known lengths and page tables, so a pool write never
-synchronises with the device; the per-step paged decode computes its one
-row per slot on the device instead, since only the device knows which
-slots still write.
+the same as in the JAX package. The prefill writes compute their scatter
+index lists on the host from host-known lengths and page tables, so a
+pool write never synchronises with the device. The per-step paged decode
+and the decode chunk's page flush (``write_pages_device``) compute theirs
+on the device instead, since only the device knows which slots still
+write, and so that they run inside a CUDA graph.
 
 The slice carries RoPE + RMSNorm + SwiGLU/GeGLU + GQA without biases,
 with Mistral's sliding window: a spec with experts, learned positions,
@@ -695,6 +696,49 @@ def write_prefill_pages(k_pages: torch.Tensor, v_pages: torch.Tensor,
     kflat[:, dst] = ks.reshape(L, B * T, fused)[:, src].to(k_pages.dtype)
     vflat[:, dst] = vs.reshape(L, B * T, fused)[:, src].to(v_pages.dtype)
     return k_pages, v_pages
+
+
+def pages_with_drop_row(shape, dtype: torch.dtype, device
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A zeroed page pool ``shape = [L, N, P, fused]`` and its rows viewed
+    as ``[L * N * P + 1, fused]``: one storage whose last row lies past
+    every page, the target of ``write_pages_device``'s dropped writes (no
+    page table names it, so the allocator never hands it out)."""
+    L, n, p, fused = shape
+    rows = torch.zeros((L * n * p + 1, fused), dtype=dtype, device=device)
+    return rows[:-1].view(L, n, p, fused), rows
+
+
+def write_pages_device(k_rows: torch.Tensor, v_rows: torch.Tensor,
+                       ks: torch.Tensor, vs: torch.Tensor,
+                       page_table: torch.Tensor, seq_lens: torch.Tensor,
+                       start: torch.Tensor, page_size: int):
+    """``write_prefill_pages`` with the indices formed on the device, so it
+    needs no host value and can run inside a CUDA graph (the decode chunk's
+    page flush): row b's token i of ``ks``/``vs`` ``[L, B, T, Hkv, Dh]``
+    goes to absolute position ``start[b] + i`` of its pages for ``i <
+    seq_lens[b]`` (device tensors). ``k_rows``/``v_rows`` are the pools'
+    rows with their drop row (``pages_with_drop_row``): every other token
+    (a count of 0, padding) is aimed at that row, the JAX scatter's
+    out-of-range ``mode="drop"``, so no page a slot owns and no shared
+    prefix page is written. Returns (k_rows, v_rows), updated in place."""
+    L, B, T, Hkv, Dh = ks.shape
+    drop = k_rows.shape[0] - 1
+    per_layer = drop // L
+    dev = ks.device
+    local = torch.arange(T, device=dev)[None, :]                   # [1, T]
+    valid = local < seq_lens.to(dev).long()[:, None]               # [B, T]
+    pos = local + start.to(dev).long()[:, None]
+    logical = torch.clamp(pos // page_size, max=page_table.shape[1] - 1)
+    phys = torch.gather(page_table.long(), 1, logical)
+    dst = phys * page_size + pos % page_size                       # [B, T]
+    layer0 = torch.arange(L, device=dev)[:, None, None] * per_layer
+    idx = torch.where(valid[None], layer0 + dst[None],
+                      torch.full_like(layer0 + dst[None], drop)).reshape(-1)
+    fused = Hkv * Dh
+    k_rows.index_put_((idx,), ks.reshape(L * B * T, fused).to(k_rows.dtype))
+    v_rows.index_put_((idx,), vs.reshape(L * B * T, fused).to(v_rows.dtype))
+    return k_rows, v_rows
 
 
 # ---------------------------------------------------------------- training

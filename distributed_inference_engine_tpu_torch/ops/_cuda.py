@@ -15,11 +15,25 @@ is fetched at run time through ``cudaGetDriverEntryPoint(ByVersion)``.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine class has no ``nvcc``.
+
+CUDA graphs (the engine's decode chunks and mixed steps): ``LAUNCHES``
+counts in Python, where a wrapper launches its kernel, so a replayed graph
+would count nothing. ``capture_graph`` records the counts that the
+capture's one pass through the wrappers added (``recording_launches``),
+takes them back out (a capture launches nothing), and every
+``CapturedGraph.replay`` adds that delta again: the counts read as if the
+body had run eagerly. ``warm_up`` is the eager pass before a capture, on
+the capture stream: it makes each kernel's first-launch host calls
+(``cudaFuncSetAttribute``, the ``cuTensorMapEncodeTiled`` lookup),
+cuBLAS's workspaces and flash-decode's split scratch outside any graph.
+All graphs are captured on one stream a device (``capture_stream``), under
+``GRAPH_LOCK``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import fcntl
 import functools
@@ -27,9 +41,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -57,6 +72,100 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator["collections.Counter[str]"]:
+    """Yield a Counter that, on exit, holds the launches counted inside
+    the block; ``LAUNCHES`` is left as it was before the block."""
+    before = LAUNCHES.copy()
+    delta: "collections.Counter[str]" = collections.Counter()
+    try:
+        yield delta
+    finally:
+        delta.update(LAUNCHES - before)
+        LAUNCHES.clear()
+        LAUNCHES.update(before)
+
+
+class CapturedGraph:
+    """A captured CUDA graph (or anything with ``replay()``), the launches
+    one pass of its body counts, and the body's outputs (tensors at fixed
+    addresses that every replay rewrites)."""
+
+    __slots__ = ("graph", "launches", "outputs", "capture_s", "warmup_s")
+
+    def __init__(self, graph: Any, launches: Dict[str, int], outputs: Any,
+                 capture_s: float = 0.0) -> None:
+        self.graph = graph
+        self.launches = collections.Counter(launches)
+        self.outputs = outputs
+        self.capture_s = capture_s
+        self.warmup_s = 0.0        # the eager pass before it, if any
+
+    def replay(self) -> Any:
+        """Launch the graph (never while another thread warms up or
+        captures one) and count its kernels' launches; returns the
+        outputs."""
+        with GRAPH_LOCK:
+            self.graph.replay()
+        LAUNCHES.update(self.launches)
+        return self.outputs
+
+
+# graphs are captured one at a time per process, and a capture's warm-up
+# must not interleave with another thread's replays (flash-decode's split
+# scratch of the capture stream is shared by every graph: ops/flash_decode.py)
+GRAPH_LOCK = threading.RLock()
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The one stream of ``device`` that every graph is warmed up and
+    captured on."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[idx] = torch.cuda.Stream(device=idx)
+    return _CAPTURE_STREAMS[idx]
+
+
+def warm_up(body: Callable[[], Any], stream: "torch.cuda.Stream") -> Any:
+    """Run ``body`` eagerly on ``stream`` (ordered after the current
+    stream's work, and before its later work); returns its outputs."""
+    cur = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream):
+        out = body()
+    cur.wait_stream(stream)
+    torch.cuda.synchronize(stream.device)
+    return out
+
+
+def capture_graph(body: Callable[[], Any], *, pool: Any,
+                  stream: "torch.cuda.Stream",
+                  generators: Tuple[torch.Generator, ...] = ()
+                  ) -> CapturedGraph:
+    """Capture one call of ``body`` into a CUDA graph in memory ``pool``
+    on ``stream`` (warmed up by the caller); each generator in
+    ``generators`` is registered so every replay draws fresh numbers and
+    advances it. Raises if the capture fails: there is no eager
+    fallback."""
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    t0 = time.perf_counter()
+    # capture_begin/end directly: the torch.cuda.graph context would also
+    # empty the allocator's cache and collect garbage first, which costs
+    # more than the capture itself in a serving process
+    with recording_launches() as delta, torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            out = body()
+        finally:
+            graph.capture_end()
+    return CapturedGraph(graph, delta, out, time.perf_counter() - t0)
+
 
 
 def _nvcc() -> str:

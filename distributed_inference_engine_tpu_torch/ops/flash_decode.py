@@ -28,7 +28,7 @@ cores.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -42,9 +42,12 @@ from .paged_attention import paged_attention_xla, paged_split
 MIN_CHUNK = 64
 
 # (device index, stream) -> (fp32 partials, int32 arrival counters) of the
-# split grid, grown on demand; the kernel leaves the counters at 0. See
-# _scratch for what this asks of CUDA graphs.
+# split grid, grown on demand; the kernel leaves the counters at 0. A buffer
+# that a larger one replaces stays in _RETIRED: a CUDA graph captured
+# against it still writes there. See _scratch for what this asks of CUDA
+# graphs.
 _SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+_RETIRED: List[torch.Tensor] = []
 
 
 def flash_decode_attention_plain(
@@ -122,18 +125,24 @@ def _scratch(device: torch.device, n_partials: int, n_groups: int):
 
     The scratch is keyed by the raw stream pointer, so two launches that
     run at the same time must not share a stream's scratch. A CUDA graph
-    records the pointers of the capture stream's scratch: two graphs
-    captured on one stream share it, and so does an eager call on that
-    stream. Such graphs must not replay at once on different streams, nor
-    overlap an eager call on the capture stream; otherwise their partials
-    and counts mix, and nothing reports it. Capture each graph on its own
-    stream (one scratch per graph), or pass the scratch in from the
-    caller."""
+    records the pointers of the scratch of the stream it was captured on.
+    The design chosen for the engine's graphs (``ops/_cuda.py``): every
+    graph is warmed up and captured on the one capture stream of its
+    device, so the warm-up allocates and zeroes that stream's scratch
+    outside every graph pool and all graphs share it; every replay and
+    every eager call is issued on the caller's current stream, one stream,
+    so none overlaps another, and no eager call runs on the capture stream
+    outside a warm-up (which holds ``_cuda.GRAPH_LOCK``). A buffer is never
+    freed once a graph may hold its address (``_RETIRED``)."""
     key = (device.index, _cuda.stream_ptr(device))
     ws, cnt = _SCRATCH.get(key, (None, None))
     if ws is None or ws.numel() < n_partials:
+        if ws is not None:
+            _RETIRED.append(ws)
         ws = torch.empty((n_partials,), dtype=torch.float32, device=device)
     if cnt is None or cnt.numel() < n_groups:
+        if cnt is not None:
+            _RETIRED.append(cnt)
         cnt = torch.zeros((n_groups,), dtype=torch.int32, device=device)
     _SCRATCH[key] = (ws, cnt)
     return ws, cnt

@@ -17,7 +17,9 @@ leaves to its callers, so that the tests hold both of the kernel's routes.
 The kernel cuts each slot's valid keys into ``n_split`` runs of ``chunk``
 keys (``paged_split``), one block per (slot, KV head, run), and a second
 kernel merges the runs' flash partials: a call makes one device launch
-when ``n_split`` is 1 and two otherwise, and counts as one launch.
+when ``n_split`` is 1 and two otherwise, and counts as one launch. The
+outputs and the split workspace are ``torch.empty`` per call, so inside a
+CUDA graph capture they come from the graph's memory pool.
 """
 
 from __future__ import annotations

@@ -6,7 +6,10 @@ The JAX draw comes from a ``jax.random`` key, which torch cannot
 reproduce. So the draw is an argument: ``uniform`` ([B, V] fp32 in
 [1e-20, 1)) lets a test feed the JAX uniforms and get identical tokens;
 without it the draw comes from ``generator`` (the engine's seeded
-``torch.Generator`` on the logits' device).
+``torch.Generator`` on the logits' device). Inside a CUDA graph the engine
+registers that generator with the graph, so each replay draws fresh
+uniforms from the generator's current offset and advances it, as the
+eager calls would.
 
 The JAX code hides the three [B, V] sorts of the mask behind a
 ``lax.cond`` on a device predicate. Here the predicate is a host bool:

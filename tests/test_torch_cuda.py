@@ -10,12 +10,35 @@ column to max|out - ref32| / max|ref32| <= 1e-2 (bf16) and 1e-4 (fp32) at
 8 rows and more, ref32 being the plain version on the same inputs widened
 to fp32, and at every row count to the same bound relative to the column's
 largest sum |x w| s, at every Llama-3-8B projection shape; each call
-also counts one launch of the instance ``int4_instance`` names."""
+also counts one launch of the instance ``int4_instance`` names.
+
+The engine's CUDA graphs (llama-tiny and mistral-tiny, bf16 and fp32, random
+weights from a seed): on every decode scheme and the mixed step, graph
+replays emit the eager bodies' tokens and logprobs exactly (the same kernels
+on the same inputs), count the same launches, and write the same pages;
+sampled replays advance the generator and reproduce under a seed; two
+engines of different shapes replaying in turn on one stream each emit their
+own eager tokens (flash-decode's shared split scratch)."""
 
 import pytest
 import torch
 
+from distributed_inference_engine_tpu_torch.config import EngineConfig
+from distributed_inference_engine_tpu_torch.engine.continuous import (
+    ContinuousEngine,
+)
+from distributed_inference_engine_tpu_torch.engine.types import (
+    GenerationRequest,
+)
+from distributed_inference_engine_tpu_torch.models.base import init_params
+from distributed_inference_engine_tpu_torch.models.llama import llama_spec
+from distributed_inference_engine_tpu_torch.models.mistral import (
+    mistral_spec,
+)
 from distributed_inference_engine_tpu_torch.ops import _cuda
+from distributed_inference_engine_tpu_torch.ops.quant import (
+    random_quantized_params,
+)
 from distributed_inference_engine_tpu_torch.ops import flash_decode as fd
 from distributed_inference_engine_tpu_torch.ops import fused_decode as fdec
 from distributed_inference_engine_tpu_torch.ops import int4_matmul as i4
@@ -688,3 +711,163 @@ def test_int4_matmul_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError):                   # scale not fp32
         i4.int4_matmul(x, torch.zeros((32, 16), device=card,
                                       dtype=torch.int8), s.half())
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+GRAPH_KW = dict(max_slots=4, max_seq_len=128, prefill_buckets=[16, 64],
+                page_size=16, num_pages=48, decode_steps_per_call=4)
+# (label, spec, engine config, int4 weights): every decode scheme and the
+# mixed step
+GRAPH_PATHS = [
+    ("window", "llama", dict(attention_impl="pallas-decode"), False),
+    ("fused", "llama", dict(attention_impl="pallas-decode",
+                            decode_fused=True), False),
+    ("fw", "llama", dict(attention_impl="pallas-decode-fw"), False),
+    ("pallas", "llama", dict(attention_impl="pallas"), False),
+    ("inline", "llama", dict(decode_mode="inline"), False),
+    ("int4", "llama", dict(attention_impl="pallas-ragged",
+                           prefill_chunk=16), True),
+    ("mixed", "llama", dict(attention_impl="pallas-ragged",
+                            prefill_chunk=16), False),
+    ("mistral", "mistral", dict(attention_impl="pallas",
+                                prefill_chunk=32), False),
+]
+
+
+def _tiny_weights(card, family, dtype, int4=False, seed=0):
+    spec = (llama_spec("llama-tiny", dtype=dtype) if family == "llama"
+            else mistral_spec("mistral-tiny", dtype=dtype))
+    g = torch.Generator(device=card).manual_seed(seed)
+    params = (random_quantized_params(spec, g, bits=4) if int4
+              else init_params(spec, g))
+    return spec, params
+
+
+def _graph_prompts(seed=0):
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    # past mistral-tiny's 64-token window, and over the chunk of 16
+    return [rs.randint(1, 1000, size=n).tolist() for n in (5, 23, 40, 70)]
+
+
+def _graph_run(spec, params, card, cfg, eager, seed=0, **req):
+    eng = ContinuousEngine(spec, params=params, seed=seed,
+                           config=EngineConfig(**dict(GRAPH_KW, **cfg)),
+                           device=card)
+    eng._eager = eager
+    with _cuda.recording_launches() as launches:
+        out = eng.generate([GenerationRequest(
+            prompt=p, max_new_tokens=13, request_id=f"g{i}", **req)
+            for i, p in enumerate(_graph_prompts())])
+        torch.cuda.synchronize()
+    return out, launches, eng
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("label,family,cfg,int4", GRAPH_PATHS,
+                         ids=[p[0] for p in GRAPH_PATHS])
+def test_graph_replays_match_eager(card, label, family, cfg, int4, dtype):
+    spec, params = _tiny_weights(card, family, dtype, int4)
+    want, eager_launches, eng_e = _graph_run(spec, params, card, cfg, True)
+    got, graph_launches, eng_g = _graph_run(spec, params, card, cfg, False)
+    assert [r.tokens for r in got] == [r.tokens for r in want], label
+    assert [r.logprobs for r in got] == [r.logprobs for r in want], label
+    assert graph_launches == eager_launches, (graph_launches,
+                                              eager_launches)
+    m, me = eng_g.get_metrics(), eng_e.get_metrics()
+    assert me["cuda_graphs"] == 0 and m["cuda_graphs"] >= 1
+    assert m["decode_programs"] == me["decode_programs"] >= 1
+    if cfg.get("prefill_chunk") and family == "llama":
+        assert m["mixed_steps"] == me["mixed_steps"] > 0
+    assert torch.equal(eng_g.kv.k_pages, eng_e.kv.k_pages)
+    assert torch.equal(eng_g.kv.v_pages, eng_e.kv.v_pages)
+    assert sum(graph_launches.values()) > 0
+
+
+def test_replay_packed_equals_eager_body(card):
+    """One engine, one state: the eager body's packed output and pages,
+    then (state, pages and generator put back) the replay's: equal."""
+    spec, params = _tiny_weights(card, "llama", "bfloat16")
+    eng = ContinuousEngine(spec, params=params, config=EngineConfig(
+        attention_impl="pallas-decode", **GRAPH_KW), device=card)
+    for i, p in enumerate(_graph_prompts()):
+        eng.submit(GenerationRequest(prompt=p, max_new_tokens=40,
+                                     temperature=0.9, request_id=f"p{i}"))
+    eng.step()
+    eng.step()
+    n = GRAPH_KW["decode_steps_per_call"]
+    for slot in eng._slots:
+        eng.kv.ensure_capacity(slot, int(eng._lengths_host[slot]) + n)
+    caps = eng._cap_list()
+    state = [t.clone() for t in eng._state()]
+    pages = (eng.kv.k_pages.clone(), eng.kv.v_pages.clone())
+    gen = eng._gen.get_state()
+    outs = []
+    for eager in (True, False, False):
+        for t, v in zip(eng._state(), state):
+            t.copy_(v)
+        eng.kv.k_pages.copy_(pages[0])
+        eng.kv.v_pages.copy_(pages[1])
+        eng._gen.set_state(gen)
+        eng._eager = eager
+        packed = eng._decode_chunk(n, caps, 0.0).packed.cpu()
+        outs.append((packed, eng.kv.k_pages.clone(), eng.kv.v_pages.clone(),
+                     [t.clone() for t in eng._state()]))
+    assert eng.get_metrics()["cuda_graphs"] >= 1
+    for packed, kp, vp, st in outs[1:]:
+        assert torch.equal(packed, outs[0][0])
+        assert torch.equal(kp, outs[0][1]) and torch.equal(vp, outs[0][2])
+        assert all(torch.equal(a, b) for a, b in zip(st, outs[0][3]))
+    eng.abort_all()
+
+
+def test_sampled_replays_advance_and_reproduce(card):
+    """Sampled decoding through graphs: the generator's offset advances on
+    every replay, two engines from one seed agree, and so does the eager
+    run from that seed (the graph draws the eager uniforms); another seed
+    samples other chains."""
+    spec, params = _tiny_weights(card, "llama", "bfloat16")
+    cfg = dict(attention_impl="pallas-decode")
+    req = dict(temperature=1.3, top_p=0.95)
+    a, _, eng = _graph_run(spec, params, card, cfg, False, seed=3, **req)
+    b, _, _ = _graph_run(spec, params, card, cfg, False, seed=3, **req)
+    e, _, _ = _graph_run(spec, params, card, cfg, True, seed=3, **req)
+    c, _, _ = _graph_run(spec, params, card, cfg, False, seed=4, **req)
+    toks = [r.tokens for r in a]
+    assert toks == [r.tokens for r in b] == [r.tokens for r in e]
+    assert toks != [r.tokens for r in c]
+    assert all(len(set(t)) > 3 for t in toks)
+    key = next(k for k in eng._graphs if k[0] == "decode" and k[4])
+    before = eng._gen.get_offset()
+    eng._graphs[key].replay()
+    torch.cuda.synchronize()
+    assert eng._gen.get_offset() > before
+
+
+def test_two_engines_replay_in_turn(card):
+    """Two engines of different shapes (4 and 8 slots, so flash-decode's
+    shared scratch grows between their captures) step in turn on one
+    stream: each emits the tokens of its own eager run."""
+    spec, params = _tiny_weights(card, "llama", "bfloat16")
+    spec2, params2 = _tiny_weights(card, "llama", "bfloat16", seed=1)
+    cfg2 = dict(GRAPH_KW, max_slots=8, max_seq_len=256)
+    want = [_graph_run(spec, params, card, {}, True)[0],
+            _graph_run(spec2, params2, card, cfg2, True)[0]]
+    engines = [ContinuousEngine(spec, params=params, config=EngineConfig(
+                   **GRAPH_KW), device=card),
+               ContinuousEngine(spec2, params=params2, config=EngineConfig(
+                   **cfg2), device=card)]
+    for eng in engines:
+        for i, p in enumerate(_graph_prompts()):
+            eng.submit(GenerationRequest(prompt=p, max_new_tokens=13,
+                                         request_id=f"g{i}"))
+    got = [{}, {}]
+    while any(e.n_live or e.n_waiting for e in engines):
+        for k, eng in enumerate(engines):
+            eng.step()
+            got[k].update({r.request_id: r for r in eng.drain_finished()})
+    for k in range(2):
+        assert [got[k][f"g{i}"].tokens for i in range(4)] == \
+            [r.tokens for r in want[k]], k
+        assert engines[k].get_metrics()["cuda_graphs"] >= 1
