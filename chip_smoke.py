@@ -61,11 +61,18 @@ Phases, each failing loudly (any failure exits non-zero):
    bound counts the valid work only (no query padding).
 3. ``serve``: starts the port's worker CLI on a free localhost port with
    the full 32-layer llama3-8b (random bf16 weights from seed 0,
-   ``attention_impl=pallas-decode``), sends 8 concurrent requests (prompts
-   of 16-600 tokens, two sharing a 256-token prefix, 32 new tokens each)
-   through the port's ``WorkerClient``, checks counts, lengths and finish
-   reasons, and reads the worker's kernel launch counts (zeroed just
-   before the requests).
+   ``attention_impl=pallas-decode``, ``warmup=1``: the engine's warmup
+   runs at load and captures its graphs), sends 8 concurrent requests
+   (prompts of 16-600 tokens, two sharing a 256-token prefix, 32 new
+   tokens each) through the port's ``WorkerClient``, checks counts,
+   lengths and finish reasons, and reads the worker's kernel launch counts
+   (zeroed just before the requests) and its engine counters (read there
+   too: the checks use their differences over the waves). Every worker
+   phase prints its warmup's rounds, seconds and graphs, and fails if a
+   graph, decode key or mixed bucket appears during its waves. ``serve``
+   then streams one request through ``generate_stream``: the frames,
+   joined, must equal its result and ``generate``'s greedy tokens for the
+   same prompt.
 4. ``mixed``: the worker CLI again, once the first has shut down, with
    ``attention_impl=pallas-ragged,prefill_chunk=256,mixed_step_tokens=512``
    (same weights): 8 concurrent requests with prompts of 16-900 tokens,
@@ -88,8 +95,20 @@ Phases, each failing loudly (any failure exits non-zero):
    ``decode_fused`` off and on, and ``pallas-ragged`` with
    ``prefill_chunk=256``, holding every chain teacher-forced to
    ``forward_train`` with a 1e-3 tie band and counting the chains equal
-   to ``pallas-decode``'s. Every run is at full depth (32 layers). It also
-   times the bf16 mixed steps over the mixed phase's first wave.
+   to ``pallas-decode``'s. The bf16 runs are at full depth (32 layers)
+   but for the ``pallas``/``inline`` smokes below, which run 8 layers of
+   the full width, as do the fp32 checks (here, in ``int4`` and in
+   ``mistral``; ``CUT_LAYERS``, cut for the time limit). It also
+   times the bf16 mixed steps over the mixed phase's first wave. Its
+   ``[host]`` lines (``phase_host``) run the serve prompts through the
+   engine's host paths (bf16, ``decode_fused``, graphs): sync admission,
+   deferred admission, ``defer_sync``, ``stream_chunk_steps=2`` with a
+   callback on every request, and ``defer_sync`` through the eager hook;
+   the four full-chunk runs must emit equal tokens and logprobs, the
+   ``defer_sync`` graph and eager runs the same launches; each prints its
+   profiled decode ms per step, busy share and host gap per step, and its
+   deferred admissions, firsts fetches, stream-ring counters and decode
+   keys.
 6. ``int4``: the worker CLI with the ``mixed`` model plus
    ``quantized=1,weight_bits=4`` (int4 weights born from seed 0) and the
    mixed phase's two waves. Checks the results, 32 ragged launches per
@@ -113,8 +132,8 @@ Phases, each failing loudly (any failure exits non-zero):
    no flash-decode or ragged launch. Then in this process: the served
    5,200-token chain teacher-forced (bf16 band), and in fp32 the inline
    decode path's logits within 1e-3 of ``forward_train``'s over 32 tokens
-   past the window. Phase ``fused`` also runs Llama-3-8B engines with
-   ``attention_impl="pallas"`` (window scheme) and
+   past the window. Phase ``fused`` also runs Llama-3-8B engines (8
+   layers) with ``attention_impl="pallas"`` (window scheme) and
    ``decode_mode="inline"``, with their launch counts and a chain each.
 
 Phases ``fused``, ``int4`` and ``mistral`` hold their in-process decode
@@ -158,9 +177,13 @@ D_MODEL, D_FF = 4096, 14336
 # ~0.4 over a 128k vocab at random init, 32 layers; fp32 by ~1e-4
 BF16_TIE_EPS = 0.3
 FP32_LOGIT_TOL = 1e-3
+# the fp32 checks and the llama3-8b paged-attention smokes run at full
+# width but 8 of the 32 layers: cut to keep the script within its time
+# limit (the other bf16 paths run every layer)
+CUT_LAYERS = 8
 SERVE_MODEL = ("name=llama3-8b,architecture=llama,size=llama3-8b,"
                "continuous=1,attention_impl=pallas-decode,max_seq_len=1024,"
-               "seed=0")
+               "seed=0,warmup=1")
 # the slice's path: chunked prefill in the ragged mixed step
 MIXED_MODEL = (SERVE_MODEL.replace("attention_impl=pallas-decode",
                                    "attention_impl=pallas-ragged")
@@ -198,7 +221,7 @@ COL_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 # Mistral-7B v0.1 (sliding window 4096) through the per-step paged decode
 MISTRAL_MODEL = ("name=mistral-7b-v01,architecture=mistral,"
                  "size=mistral-7b-v01,continuous=1,attention_impl=pallas,"
-                 "max_seq_len=8192,prefill_chunk=512,seed=0")
+                 "max_seq_len=8192,prefill_chunk=512,seed=0,warmup=1")
 MISTRAL_VOCAB, MISTRAL_WINDOW = 32000, 4096
 # paged attention at the Mistral decode shapes: 8 slots, 48 pages of 128
 # per slot (6,144 keys), lengths over 0-6,000 with one empty slot, around
@@ -1082,7 +1105,7 @@ def start_worker(model: str):
          "--log-level", "WARNING"],
         cwd=str(REPO), env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
-    deadline = time.time() + 400
+    deadline = time.time() + 500
     lines = []
     while time.time() < deadline:
         line = proc.stdout.readline()
@@ -1098,16 +1121,39 @@ def start_worker(model: str):
             threading.Thread(target=lambda: [
                 log(f"[worker] {x.rstrip()}") for x in proc.stdout],
                 daemon=True).start()
-            return proc, m.group(1), int(m.group(2))
+            return proc, m.group(1), int(m.group(2)), lines
     proc.kill()
     raise RuntimeError("worker did not come up:\n" + "\n".join(lines))
 
 
-async def drive_worker(host, port, waves, name: str):
+# engine counters the worker phases read as differences over their waves
+# (the load-time warmup ran the same engine first)
+WAVE_COUNTERS = ("decode_steps", "mixed_steps", "mixed_prefill_tokens",
+                 "prefill_calls", "chunked_admissions",
+                 "prefix_hit_admissions", "engine_steps",
+                 "deferred_admissions", "total_requests")
+
+
+def wave_delta(before, after):
+    """``after``'s engine metrics with ``WAVE_COUNTERS`` and the decode
+    chunk's seconds and count as differences from ``before``."""
+    eng = dict(after)
+    for k in WAVE_COUNTERS:
+        eng[k] = after[k] - before[k]
+    eng["decode_chunk"] = {
+        k: after["decode_chunk"][k] - before["decode_chunk"][k]
+        for k in ("sum_s", "count")}
+    return eng
+
+
+async def drive_worker(host, port, waves, name: str, stream_prompt=None):
     """Each wave's requests concurrently through the port's
     ``WorkerClient`` to model ``name``, a wave after the previous one
     returned; the worker's kernel launch counts are zeroed just before the
-    first wave and read just after the last."""
+    first wave and read just after the last, its engine metrics read at
+    both points (the load-time warmup ran before). ``stream_prompt``: then
+    one request through ``generate_stream`` and the same prompt through
+    ``generate``. Fails if a CUDA graph is captured after the warmup."""
     from distributed_inference_engine_tpu_torch.cluster.worker import (
         WorkerClient)
     from distributed_inference_engine_tpu_torch.engine.types import (
@@ -1118,6 +1164,7 @@ async def drive_worker(host, port, waves, name: str):
         pong = await client.ping()
         assert pong["models"] == [name], pong
         await client.kernel_counts(reset=True)       # main path starts here
+        before = (await client.metrics())["models"][name]
         results, wall = [], 0.0
         for w, prompts in enumerate(waves):
             t0 = time.perf_counter()
@@ -1128,25 +1175,64 @@ async def drive_worker(host, port, waves, name: str):
             wall += time.perf_counter() - t0
             results.append([o[0] for o in outs])
         launches = await client.kernel_counts()      # ... and ends here
-        metrics = await client.metrics()
+        after = (await client.metrics())["models"][name]
+        for k in ("cuda_graphs", "decode_programs", "mixed_programs"):
+            assert after[k] == before[k], (
+                f"{name}: {k} grew during the waves: {before[k]} after "
+                f"the warmup, {after[k]} after the waves")
+        assert before["cuda_graphs"] >= 1, before["cuda_graphs"]
+        stream = None
+        if stream_prompt is not None:
+            frames = []
+            res = await client.generate_stream(name, GenerationRequest(
+                prompt=stream_prompt, max_new_tokens=32,
+                request_id="stream"), frames.append)
+            plain = (await client.generate(name, [GenerationRequest(
+                prompt=stream_prompt, max_new_tokens=32,
+                request_id="plain")]))[0]
+            joined = [t for f in frames for t in f]
+            assert joined == res.tokens, "stream frames != its result"
+            assert res.tokens == plain.tokens and len(plain.tokens) == 32, \
+                "streamed tokens != generate's"
+            last = (await client.metrics())["models"][name]
+            assert last["cuda_graphs"] == before["cuda_graphs"], last
+            stream = dict(frames=len(frames), tokens=len(joined),
+                          ttft=res.ttft_s)
         await client.shutdown()
     finally:
         await client.close()
-    return results, wall, launches, metrics["models"][name]
+    return dict(results=results, wall=wall, launches=launches,
+                eng=wave_delta(before, after), warm=before, stream=stream)
 
 
-def run_worker(model: str, waves):
-    """Start the worker CLI with ``model``, drive ``waves`` through it,
-    and wait for it to exit."""
+def run_worker(model: str, waves, stream_prompt=None):
+    """Start the worker CLI with ``model`` (metadata ``warmup=1``: its
+    engine runs the serving programs at load), drive ``waves`` through it,
+    and wait for it to exit; also returns the warmup's line. This
+    process's cached device memory is freed first."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[worker] starting with {free / 2**30:.1f} of {total / 2**30:.1f} "
+        f"GiB free; this process holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     name = re.search(r"name=([^,]+)", model).group(1)
-    proc, host, port = start_worker(model)
+    proc, host, port, lines = start_worker(model)
     try:
-        out = asyncio.run(drive_worker(host, port, waves, name))
+        out = asyncio.run(drive_worker(host, port, waves, name,
+                                       stream_prompt))
         proc.wait(timeout=120)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+    warmed = [x for x in lines if x.startswith("warmed model")]
+    assert warmed, f"{name}: no load-time warmup line"
+    out["warmed"] = warmed[0]
     return out
 
 
@@ -1157,14 +1243,23 @@ def decode_ms_per_step(eng, launches) -> float:
     return 1e3 * eng["decode_chunk"]["sum_s"] / max(1, steps)
 
 
-def graphs_line(eng) -> str:
-    """A worker engine's CUDA graphs (it must have replayed some)."""
+def graphs_line(out) -> str:
+    """A worker engine's load-time warmup and the CUDA graphs it captured
+    (``run_worker`` holds the waves to capturing none)."""
+    eng = out["warm"]
     assert eng["cuda_graphs"] >= 1, eng["cuda_graphs"]
     warm = sum(w for w, _ in eng["graph_capture_s"].values())
     cap = sum(c for _, c in eng["graph_capture_s"].values())
-    return (f"{eng['cuda_graphs']} CUDA graphs ({eng['decode_programs']} "
-            f"decode keys, {eng['mixed_programs']} mixed buckets), warm-up "
-            f"{warm:.2f} s + capture {cap:.2f} s")
+    return (f"load-time {out['warmed']}: {eng['cuda_graphs']} CUDA graphs "
+            f"({eng['decode_programs']} decode keys, "
+            f"{eng['mixed_programs']} mixed buckets; "
+            f"{', '.join(_key_short(k) for k in eng['graph_capture_s'])}),"
+            f" warm-up {warm:.2f} s + capture {cap:.2f} s; none captured "
+            f"during the waves")
+
+
+def _key_short(key: str) -> str:
+    return " ".join(x for x in key.split() if not x.endswith("=0"))
 
 
 def served_line(results, wall: float) -> str:
@@ -1177,17 +1272,24 @@ def served_line(results, wall: float) -> str:
 
 def phase_serve(torch, card: str):
     prompts = serve_prompts()
-    results, wall, launches, eng = run_worker(SERVE_MODEL, [prompts])
-    results = results[0]
+    out = run_worker(SERVE_MODEL, [prompts], stream_prompt=prompts[0])
+    results, wall, launches, eng = (out["results"][0], out["wall"],
+                                    out["launches"], out["eng"])
     check_results(results, prompts, "serve")
     assert launches.get("flash_decode", 0) > 0, \
         f"serve: flash_decode never launched: {launches}"
     assert launches["flash_decode"] == N_LAYERS * eng["decode_steps"], \
         (launches, eng["decode_steps"])
+    log(f"[serve] {graphs_line(out)} [{card}]")
     log(f"[serve] {served_line(results, wall)}; prefix-hit admissions "
-        f"{eng['prefix_hit_admissions']}; decode "
-        f"{decode_ms_per_step(eng, launches):.2f} ms/step; "
-        f"{graphs_line(eng)}; launches {launches} [{card}]")
+        f"{eng['prefix_hit_admissions']}; deferred admissions "
+        f"{eng['deferred_admissions']}; decode "
+        f"{decode_ms_per_step(eng, launches):.2f} ms/step; launches "
+        f"{launches} [{card}]")
+    st = out["stream"]
+    log(f"[serve] generate_stream: {st['tokens']} tokens in {st['frames']} "
+        f"frames, joined equal to its result and to generate's greedy "
+        f"tokens for the same prompt; TTFT {st['ttft']:.3f} s [{card}]")
     return prompts, results, launches
 
 
@@ -1195,7 +1297,9 @@ def phase_mixed(torch, card: str):
     """The slice's path: chunked prefill in the ragged mixed step, through
     the worker CLI at full width."""
     wave1, wave2 = mixed_prompts()
-    results, wall, launches, eng = run_worker(MIXED_MODEL, [wave1, wave2])
+    out = run_worker(MIXED_MODEL, [wave1, wave2])
+    results, wall, launches, eng = (out["results"], out["wall"],
+                                    out["launches"], out["eng"])
     check_results(results[0], wave1, "mixed wave 1")
     check_results(results[1], wave2, "mixed wave 2")
     for k in ("ragged_attention", "flash_decode"):
@@ -1208,12 +1312,13 @@ def phase_mixed(torch, card: str):
         (launches, eng["mixed_steps"])
     assert launches.get("ragged_attention.mma") == \
         launches["ragged_attention"], launches
+    log(f"[mixed] {graphs_line(out)} [{card}]")
     log(f"[mixed] {served_line(results[0] + results[1], wall)}; mixed steps "
         f"{eng['mixed_steps']} carrying {eng['mixed_prefill_tokens']} "
         f"prefill tokens; chunked admissions {eng['chunked_admissions']}; "
-        f"prefix-hit admissions {eng['prefix_hit_admissions']}; engine "
-        f"steps {eng['engine_steps']}; {graphs_line(eng)}; launches "
-        f"{launches} [{card}]")
+        f"prefix-hit admissions {eng['prefix_hit_admissions']}; deferred "
+        f"admissions {eng['deferred_admissions']}; engine steps "
+        f"{eng['engine_steps']}; launches {launches} [{card}]")
     return wave1, launches
 
 
@@ -1337,37 +1442,46 @@ def phase_fused(torch, card: str, prompts, results, mixed_wave,
     # scheme with attention_impl="pallas" (the kernel over the frozen
     # prefix with stats, merged with the side window) and the per-step
     # paged decode (decode_mode="inline"); bf16 smokes at the tie band
+    spec_p = spec.replace(n_layers=CUT_LAYERS)
+    params_p = init_params(spec_p,
+                           torch.Generator(device="cuda").manual_seed(0))
     for label, extra in (("pallas", dict(attention_impl="pallas")),
                          ("inline", dict(decode_mode="inline"))):
         out_p, launch_p, eng, wall = pair_run(
-            torch, spec, params, prompts, f"paged {label}", card, **extra)
+            torch, spec_p, params_p, prompts, f"paged {label}", card,
+            **extra)
         steps = eng["decode_steps"]
         assert eng["decode_mode"] == ("inline" if label == "inline"
                                       else "window"), eng["decode_mode"]
         assert steps > 0 and launch_p.get("paged_attention", 0) == \
-            N_LAYERS * steps, (launch_p, steps)
+            CUT_LAYERS * steps, (launch_p, steps)
         for k in ("flash_decode", "flash_decode_fw", "ragged_attention"):
             assert not launch_p.get(k), f"paged {label}: {k} launched"
-        m, t = assert_greedy_parity(spec, params, prompts[5],
+        m, t = assert_greedy_parity(spec_p, params_p, prompts[5],
                                     out_p[5].tokens, eps=eps,
                                     label=f"paged {label} chain")
         log(f"[fused] llama3-8b attention_impl/decode_mode {label}: "
             f"{len(out_p)} requests in {wall:.3f} s = "
             f"{sum(len(r.tokens) for r in out_p) / wall:.1f} tok/s; decode "
             f"{1e3 * eng['decode_chunk']['sum_s'] / steps:.2f} ms/step over "
-            f"{steps} steps; launches {launch_p}; teacher-forced {m} "
-            f"strict, {t} ties [{card}]")
+            f"{steps} steps ({CUT_LAYERS} layers); launches {launch_p}; "
+            f"teacher-forced {m} strict, {t} ties [{card}]")
+    del params_p
+    torch.cuda.empty_cache()
     log(f"[fused] {mixed_pair_line(torch, spec, params, mixed_wave, card, 'bf16')}"
         f" [{card}]")
     if profile_it:
         profile_mixed(torch, spec, params, mixed_wave, card)
+    phase_host(torch, card, spec, params, prompts)
     del params
     torch.cuda.empty_cache()
 
-    # fp32 at full width: the decode path through all three kernels must
-    # match forward_train to fp32 rounding, at one slot (logits) and at
-    # the engine's 8 live slots (every chain, teacher-forced)
-    spec32 = spec.replace(dtype="float32")
+    # fp32 at full width (CUT_LAYERS deep): the decode path through all
+    # three kernels must match forward_train to fp32 rounding, at one slot
+    # (logits) and at the engine's 8 live slots (every chain,
+    # teacher-forced)
+    t_fp32 = time.perf_counter()
+    spec32 = spec.replace(dtype="float32", n_layers=CUT_LAYERS)
     params = init_params(spec32, torch.Generator(device="cuda").manual_seed(0))
     cont = out[5].tokens[:8]
     for impl, fused in (("pallas-decode", False), ("pallas-decode", True),
@@ -1420,7 +1534,178 @@ def phase_fused(torch, card: str, prompts, results, mixed_wave,
             f"{same}/{len(mixed_wave)}")
     del params
     torch.cuda.empty_cache()
+    log(f"[fused] the fp32 checks took {time.perf_counter() - t_fp32:.1f} s")
     return launches, fw_launch
+
+
+# the [host] phase: llama3-8b bf16, decode_fused, graphs on, one wave
+# through each of the engine's host paths (the last through the eager
+# comparison hook)
+HOST_CONFIGS = [
+    ("sync admission", dict(defer_admission=False), False),
+    ("deferred admission", dict(), False),
+    ("defer_sync", dict(defer_sync=True), False),
+    ("stream_chunk_steps=2", dict(stream_chunk_steps=2), True),
+    ("defer_sync eager", dict(defer_sync=True), False),
+]
+
+
+def host_wave(torch, engine, prompts, label: str, stream: bool):
+    """``prompts`` (32 new tokens each) through ``engine``: two, one
+    step, then the rest (admitted under decode pressure), stepping with a
+    stream-ring poll between steps as the pump does; a stream callback on
+    every request when ``stream``. Returns (results in order, frames,
+    wall s)."""
+    from distributed_inference_engine_tpu_torch.engine.types import (
+        GenerationRequest)
+
+    frames = {}
+    reqs = [GenerationRequest(prompt=p, max_new_tokens=32,
+                              request_id=f"{label}{i}")
+            for i, p in enumerate(prompts)]
+    out = {}
+    t0 = time.perf_counter()
+    for i, r in enumerate(reqs):
+        if i == 2:
+            engine.step()
+        if stream:
+            frames[r.request_id] = []
+            engine.submit(r, on_tokens=frames[r.request_id].extend)
+        else:
+            engine.submit(r)
+    while engine.n_live or engine.n_waiting:
+        engine.step()
+        engine.poll_stream()
+        out.update({r.request_id: r for r in engine.drain_finished()})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [out[r.request_id] for r in reqs], frames, wall
+
+
+def profile_host(torch, engine, prompts, card: str, label: str,
+                 stream: bool, min_steps: int = 16):
+    """torch.profiler over at least ``min_steps`` pure-decode steps of
+    ``engine`` with ``prompts`` all live (stream callbacks on when
+    ``stream``), a first chunk unprofiled; returns (ms per decode step,
+    device-busy %, host gap ms per step = (wall - device) / steps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_inference_engine_tpu_torch.engine.types import (
+        GenerationRequest)
+
+    for i, p in enumerate(prompts):
+        engine.submit(GenerationRequest(prompt=p, max_new_tokens=256,
+                                        request_id=f"hprof{i}"),
+                      on_tokens=(lambda toks: None) if stream else None)
+    while engine.n_waiting or engine.get_metrics()["prefilling_slots"]:
+        engine.step()
+    engine.step()
+    torch.cuda.synchronize()
+    before = engine.get_metrics()["decode_steps"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while engine.get_metrics()["decode_steps"] - before < min_steps:
+            engine.step()
+            engine.poll_stream()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steps = engine.get_metrics()["decode_steps"] - before
+    engine.abort_all()
+    ms, busy = report_profile(prof, wall, steps, f"host {label}", card)
+    return ms, busy, ms * (1 - busy / 100)
+
+
+def phase_host(torch, card: str, spec, params, prompts):
+    """The engine's host paths at full width (llama3-8b bf16,
+    ``decode_fused``, ``pallas-decode``, graphs on): one wave of the serve
+    prompts through sync admission, the default deferred admission,
+    ``defer_sync``, ``stream_chunk_steps=2`` with a callback on every
+    request, and ``defer_sync`` through the eager hook. The four at the
+    full chunk emit equal greedy tokens and logprobs bit for bit (the same
+    device work, read at other times); the streamed one decodes in chunks
+    of 2, a different split of flash-decode's keys between the pages and
+    the side window, so where its tokens differ its chains are held
+    teacher-forced at the bf16 tie band. The ``defer_sync`` graph run and
+    its eager run count the same launches. Prints for each the decode ms
+    per step, the device-busy share and the host gap per step (profiled),
+    the deferred admissions, firsts fetches, stream-ring counters and the
+    decode keys captured."""
+    from distributed_inference_engine_tpu_torch.config import EngineConfig
+    from distributed_inference_engine_tpu_torch.engine.continuous import (
+        ContinuousEngine)
+    from distributed_inference_engine_tpu_torch.ops import _cuda
+    from distributed_inference_engine_tpu_torch.utils.parity import (
+        assert_greedy_parity)
+
+    t_phase = time.perf_counter()
+    runs = {}
+    for label, cfg, stream in HOST_CONFIGS:
+        engine = ContinuousEngine(spec, params=params, config=EngineConfig(
+            max_slots=8, max_seq_len=1024, attention_impl="pallas-decode",
+            decode_fused=True, **cfg), device="cuda")
+        engine._eager = label.endswith("eager")
+        _cuda.reset_launch_counts()                  # this path starts here
+        out, frames, wall = host_wave(torch, engine, prompts, "host", stream)
+        launches = _cuda.launch_counts()             # ... and ends here
+        check_results(out, prompts, f"host {label}")
+        for r in out:
+            if stream:
+                assert frames[r.request_id] == r.tokens, \
+                    f"host {label}: stream != result"
+        m = engine.get_metrics()
+        assert launches["flash_decode"] == N_LAYERS * m["decode_steps"], \
+            (label, launches, m["decode_steps"])
+        prof = profile_host(torch, engine, prompts, card, label, stream)
+        runs[label] = dict(out=out, launches=launches, m=m, wall=wall,
+                           prof=prof)
+        gen = sum(len(r.tokens) for r in out)
+        keys = [k for k in m["graph_capture_s"] if k.startswith("decode")]
+        log(f"[host] {label}: {gen} tokens in {wall:.3f} s = "
+            f"{gen / wall:.1f} tok/s; decode {prof[0]:.2f} ms/step, "
+            f"{prof[1]:.1f}% busy, host gap {prof[2]:.2f} ms/step; "
+            f"deferred admissions {m['deferred_admissions']}, firsts "
+            f"fetches {m['firsts_fetches']}, stream ring pushes "
+            f"{m['stream_ring_pushes']} polls {m['stream_ring_polls']} "
+            f"ready {m['stream_ring_ready_polls']} depth "
+            f"{m['stream_ring_depth']}, clamped chunks "
+            f"{m['stream_clamped_chunks']}; decode keys captured "
+            f"{[_key_short(k) for k in keys]}; "
+            f"{sum(launches.values())} launches [{card}]")
+        del engine
+        torch.cuda.empty_cache()
+    # the late round's batched admissions defer (a prefix hit among them
+    # reads its first token through the suffix path)
+    base = runs["deferred admission"]
+    assert base["m"]["deferred_admissions"] > 0, base["m"]
+    assert runs["sync admission"]["m"]["deferred_admissions"] == 0
+    for label, cfg, _ in HOST_CONFIGS[2:]:
+        assert runs[label]["m"]["deferred_admissions"] == \
+            base["m"]["deferred_admissions"], label
+    for label, _, stream in HOST_CONFIGS:
+        r = runs[label]
+        if stream:
+            continue
+        for a, b in zip(r["out"], base["out"]):
+            assert a.tokens == b.tokens, f"host {label}: tokens differ"
+            assert a.logprobs == b.logprobs, f"host {label}: logprobs"
+    assert runs["defer_sync"]["launches"] == \
+        runs["defer_sync eager"]["launches"], "defer_sync graph != eager"
+    assert runs["defer_sync"]["m"]["stream_ring_pushes"] > 0
+    sc = runs["stream_chunk_steps=2"]
+    assert sc["m"]["stream_clamped_chunks"] > 0
+    same = sum(a.tokens == b.tokens for a, b in zip(sc["out"], base["out"]))
+    for p, a, b in zip(prompts, sc["out"], base["out"]):
+        if a.tokens != b.tokens:
+            assert_greedy_parity(spec, params, p, a.tokens,
+                                 eps=BF16_TIE_EPS, label="host streamed")
+    log(f"[host] sync admission, deferred admission, defer_sync and "
+        f"defer_sync eager: greedy tokens and logprobs bit-equal; "
+        f"defer_sync graph and eager launches equal; stream_chunk_steps=2: "
+        f"{same}/{len(prompts)} chains bit-equal to the full chunk's"
+        + ("" if same == len(prompts) else
+           ", the rest teacher-forced within the bf16 tie band")
+        + f"; the phase took {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
 def mixed_step_times(torch, spec, params, prompts, eager: bool = False):
@@ -1499,7 +1784,9 @@ def phase_mistral(torch, card: str):
     once per layer (32 launches per step); no flash-decode and no ragged
     launch."""
     wave1, wave2 = mistral_prompts()
-    results, wall, launches, eng = run_worker(MISTRAL_MODEL, [wave1, wave2])
+    out = run_worker(MISTRAL_MODEL, [wave1, wave2])
+    results, wall, launches, eng = (out["results"], out["wall"],
+                                    out["launches"], out["eng"])
     check_results(results[0], wave1, "mistral wave 1", MISTRAL_VOCAB)
     check_results(results[1], wave2, "mistral wave 2", MISTRAL_VOCAB)
     assert eng["decode_mode"] == "inline", eng["decode_mode"]
@@ -1510,13 +1797,14 @@ def phase_mistral(torch, card: str):
         assert not launches.get(k), f"mistral: {k} launched: {launches}"
     assert eng["chunked_admissions"] >= 5, eng["chunked_admissions"]
     assert eng["prefix_hit_admissions"] >= 1, eng["prefix_hit_admissions"]
+    log(f"[mistral] {graphs_line(out)} [{card}]")
     log(f"[mistral] {served_line(results[0] + results[1], wall)}; decode "
         f"{1e3 * eng['decode_chunk']['sum_s'] / steps:.2f} ms/step over "
         f"{steps} steps; chunked admissions {eng['chunked_admissions']}; "
         f"prefix-hit admissions {eng['prefix_hit_admissions']}; prefill "
         f"calls {eng['prefill_calls']}; pools {eng['kv']['kv_bytes'] / 1e9:.2f}"
         f" GB ({eng['kv']['num_pages']} pages of {eng['kv']['page_size']}); "
-        f"{graphs_line(eng)}; launches {launches} [{card}]")
+        f"launches {launches} [{card}]")
     return wave1, results[0], launches
 
 
@@ -1560,7 +1848,8 @@ def phase_mistral_inproc(torch, card: str, wave1, served):
     """The Mistral weights of phase ``mistral`` rebuilt in this process
     (same seed and card, so the same draws): the served 5,200-token chain
     teacher-forced to ``forward_train`` at the bf16 tie band; then in fp32
-    at full width, the inline decode path's logits within 1e-3 of
+    at full width and ``CUT_LAYERS`` deep, the inline decode path's logits
+    within 1e-3 of
     ``forward_train``'s over the 32 served tokens continuing the
     4,500-token prompt (the window skips pages 0-2 and cuts page 3)."""
     from distributed_inference_engine_tpu_torch.models import (
@@ -1594,13 +1883,13 @@ def phase_mistral_inproc(torch, card: str, wave1, served):
     del params
     torch.cuda.empty_cache()
 
-    spec32 = spec.replace(dtype="float32")
+    spec32 = spec.replace(dtype="float32", n_layers=CUT_LAYERS)
     params = init_params(spec32, torch.Generator(device="cuda").manual_seed(0))
     _cuda.reset_launch_counts()
     gaps = paged_logit_gap(torch, spec32, params, wave1[4],
                            served[4].tokens)
     launches = _cuda.launch_counts()
-    assert launches.get("paged_attention") == N_LAYERS * len(
+    assert launches.get("paged_attention") == CUT_LAYERS * len(
         served[4].tokens), launches
     log(f"[mistral] fp32 inline decode-vs-forward_train max|logit gap| "
         f"{max(gaps):.3e} over {len(gaps)} steps past the window (prompt "
@@ -1617,7 +1906,9 @@ def phase_int4(torch, card: str):
     engine init). Every projection and the LM head launch the int4 kernel
     (129 launches per forward); no fused decode GEMV runs."""
     wave1, wave2 = mixed_prompts()
-    results, wall, launches, eng = run_worker(INT4_MODEL, [wave1, wave2])
+    out = run_worker(INT4_MODEL, [wave1, wave2])
+    results, wall, launches, eng = (out["results"], out["wall"],
+                                    out["launches"], out["eng"])
     check_results(results[0], wave1, "int4 wave 1")
     check_results(results[1], wave2, "int4 wave 2")
     for k in ("int4_matmul", "ragged_attention", "flash_decode"):
@@ -1648,13 +1939,14 @@ def phase_int4(torch, card: str):
     per_step = (INT4_PER_FORWARD - 1) * eng["mixed_steps"]
     assert inst.get("wgmma", 0) > per_step and not inst.get("wmma"), \
         (inst, eng["mixed_steps"], eng["prefill_calls"])
+    log(f"[int4] {graphs_line(out)} [{card}]")
     log(f"[int4] {served_line(results[0] + results[1], wall)}; mixed steps "
         f"{eng['mixed_steps']} carrying {eng['mixed_prefill_tokens']} "
         f"prefill tokens; chunked admissions {eng['chunked_admissions']}; "
         f"prefix-hit admissions {eng['prefix_hit_admissions']}; forwards "
         f"{forwards} ({eng['prefill_calls']} admission prefills, "
         f"{decode_steps} decode steps, {eng['mixed_steps']} mixed steps); "
-        f"{graphs_line(eng)}; launches {launches} [{card}]")
+        f"launches {launches} [{card}]")
     return wave1, results[0], launches
 
 
@@ -1768,10 +2060,10 @@ def phase_int4_inproc(torch, card: str, wave1, served, profile_it: bool):
     del params
     torch.cuda.empty_cache()
 
-    # fp32 at full width: int4 through the kernel's fp32 instances (GEMV,
-    # CUDA-core tiles), and int8, on the decode path and through an
-    # engine's chunked mixed step
-    spec32 = spec.replace(dtype="float32")
+    # fp32 at full width (CUT_LAYERS deep): int4 through the kernel's
+    # fp32 instances (GEMV, CUDA-core tiles), and int8, on the decode path
+    # and through an engine's chunked mixed step
+    spec32 = spec.replace(dtype="float32", n_layers=CUT_LAYERS)
     for bits in (4, 8):
         params = born(spec32, bits)
         launches = fp32_chains(torch, card, spec32, params, wave1,
@@ -2112,19 +2404,33 @@ def main() -> int:
         if report:
             log(f"[build] {ptxas_summary(report, source, pattern, key)}")
 
+    def done(phase: str) -> None:
+        log(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s")
+
+    done("build")
     kern = phase_kernels(torch, card)
     torch.cuda.empty_cache()
     if args.profile:
         profile_int4_tiles(torch, card)
+    done("kernels")
+    # the worker phases first: each worker process has the card to itself
+    # but for this process's kernel-phase leftovers (freed here)
     prompts, results, serve_launch = phase_serve(torch, card)
+    done("serve")
     mixed_wave, mixed_launch = phase_mixed(torch, card)
+    done("mixed")
+    int4_wave, int4_served, int4_launch = phase_int4(torch, card)
+    done("int4 worker")
+    m_wave, m_served, mistral_launch = phase_mistral(torch, card)
+    done("mistral worker")
     fused_launch, fw_launch = phase_fused(torch, card, prompts, results,
                                           mixed_wave, args.profile)
-    int4_wave, int4_served, int4_launch = phase_int4(torch, card)
+    done("fused and host")
     phase_int4_inproc(torch, card, int4_wave, int4_served, args.profile)
     torch.cuda.empty_cache()
-    m_wave, m_served, mistral_launch = phase_mistral(torch, card)
+    done("int4 in process")
     phase_mistral_inproc(torch, card, m_wave, m_served)
+    done("mistral in process")
 
     jax_ops = "distributed_inference_engine_tpu/ops/"
     # kernel: (source, TPU kernel it replaces, launches on its path)

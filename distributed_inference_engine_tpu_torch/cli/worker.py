@@ -103,6 +103,10 @@ async def amain(args: argparse.Namespace) -> None:
     for m in models:
         print(f"loading model {m.name} ({m.architecture})...", flush=True)
         await worker.load_model_async(m)
+        if m.name in worker._last_warmup:
+            rounds, secs = worker._last_warmup[m.name]
+            print(f"warmed model {m.name}: {rounds} rounds in {secs:.2f}s",
+                  flush=True)
         print(f"loaded model {m.name} in "
               f"{worker._last_load_s.get(m.name, 0.0):.2f}s", flush=True)
     host, port = await worker.start(install_signal_handlers=True)

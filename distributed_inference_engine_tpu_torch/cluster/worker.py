@@ -1,14 +1,15 @@
 """Worker: the framed-RPC server hosting PyTorch engines (port of the
 ``cluster/worker.py`` subset the serving path needs).
 
-Verbs: ``ping``, ``generate``, ``list_models``, ``metrics``,
-``kernel_counts`` and ``shutdown`` — the wire envelope and the
-request/result dicts are the JAX worker's, so the JAX package's
-``WorkerClient`` (and coordinator) can drive this worker unchanged.
-Each engine gets an ``EnginePump``: concurrent connections join one
-rolling decode batch. Not ported yet (ROADMAP.md A6): multi-model
-residency budgets, staging/swap, drain, streaming, prefill/decode pools,
-KV fabric, profiling, events and OpenMetrics text.
+Verbs: ``ping``, ``generate``, ``generate_stream``, ``list_models``,
+``metrics``, ``kernel_counts`` and ``shutdown`` — the wire envelope, the
+stream frames and the request/result dicts are the JAX worker's, so the
+JAX package's ``WorkerClient`` (and coordinator) can drive this worker
+unchanged. Each engine gets an ``EnginePump``: concurrent connections
+join one rolling decode batch. A model's metadata ``warmup=1`` runs the
+engine's ``warmup()`` at load. Not ported yet (ROADMAP.md A6): multi-model
+residency budgets, staging/swap, drain, prefill/decode pools, KV fabric,
+profiling, events and OpenMetrics text.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ from typing import Any, Awaitable, Callable, Dict, List, Optional, Tuple
 from ..config import ModelConfig, ServerConfig
 from ..engine.types import GenerationRequest, GenerationResult
 from ..ops import _cuda
+from ..models import _coerce
 from ..serving.pump import EnginePump
-from ..utils.rpc import FramedRPCClient, FramedServerMixin
+from ..utils.rpc import FramedRPCClient, FramedServerMixin, relay_stream
 from ..utils.tracing import LatencyStats
 
 logger = logging.getLogger(__name__)
@@ -132,11 +134,14 @@ class WorkerServer(FramedServerMixin):
         self._shutdown_event = asyncio.Event()
         self._request_count = 0
         self._error_count = 0
+        self._overloaded_count = 0     # load sheds, apart from real errors
         self._deadline_expired_count = 0
         self._ping_count = 0
         self.latency = LatencyStats()
         self.model_load_stats = LatencyStats()
         self._last_load_s: Dict[str, float] = {}
+        # model -> (warmup rounds, seconds) of its load-time warmup
+        self._last_warmup: Dict[str, Tuple[int, float]] = {}
         self._methods: Dict[str, Callable[[Dict[str, Any]],
                                           Awaitable[Any]]] = {
             "ping": self._rpc_ping,
@@ -145,6 +150,9 @@ class WorkerServer(FramedServerMixin):
             "metrics": self._rpc_metrics,
             "kernel_counts": self._rpc_kernel_counts,
             "shutdown": self._rpc_shutdown,
+        }
+        self._stream_methods = {
+            "generate_stream": self._rpc_generate_stream,
         }
 
     @property
@@ -180,7 +188,7 @@ class WorkerServer(FramedServerMixin):
             await self._server.wait_closed()
             self._server = None
         for pump in self._pumps.values():
-            pump.shutdown_nowait()
+            await pump.stop()
         self._executor.shutdown(wait=False, cancel_futures=True)
         self._shutdown_event.set()
         logger.info("worker %s stopped", self.worker_id)
@@ -191,11 +199,27 @@ class WorkerServer(FramedServerMixin):
 
     # -- models ------------------------------------------------------------
 
+    def _build_engine(self, cfg: ModelConfig):
+        """The factory, then (metadata ``warmup=1``) the engine's
+        ``warmup()``: the serving programs run once at load, so the first
+        requests pay no first-run costs (on the card, no graph
+        captures)."""
+        engine = self.engine_factory(cfg)
+        if _coerce(False, cfg.metadata.get("warmup", False)) and hasattr(
+                engine, "warmup"):
+            t0 = time.perf_counter()
+            n = engine.warmup()
+            self._last_warmup[cfg.name] = (n, time.perf_counter() - t0)
+            logger.info("worker %s warmed %s (%d rounds, %.2f s)",
+                        self.worker_id, cfg.name, n,
+                        self._last_warmup[cfg.name][1])
+        return engine
+
     def load_model(self, cfg: ModelConfig) -> None:
         if cfg.name in self.engines:
             raise ValueError(f"model {cfg.name!r} already loaded")
         t0 = time.perf_counter()
-        engine = self.engine_factory(cfg)
+        engine = self._build_engine(cfg)
         self.engines[cfg.name] = engine
         self.model_configs[cfg.name] = cfg
         self._pumps[cfg.name] = EnginePump(engine)
@@ -221,12 +245,23 @@ class WorkerServer(FramedServerMixin):
     def _envelope_extra(self) -> Dict[str, Any]:
         return {"worker_id": self.worker_id}
 
+    def _on_handler_error(self, method: str, exc: Exception) -> None:
+        if method in ("generate", "generate_stream"):
+            # load sheds and expired budgets are the engine working as
+            # configured, not faults: each has its own counter
+            kind = getattr(exc, "rpc_error_kind", "")
+            if kind == "overloaded":
+                self._overloaded_count += 1
+                return
+            if kind == "deadline":
+                self._deadline_expired_count += 1
+                return
+            self._error_count += 1
+
     def _after_dispatch(self, method: str, req_id: str, duration_s: float,
                         response: Dict[str, Any]) -> None:
-        if method == "generate":
+        if method in ("generate", "generate_stream"):
             self.latency.add(duration_s)
-            if not response["success"]:
-                self._error_count += 1
 
     # -- RPC methods ---------------------------------------------------------
 
@@ -253,11 +288,27 @@ class WorkerServer(FramedServerMixin):
             raise ValueError("empty 'requests'")
         self._request_count += 1
         results = await self._pumps[name].generate(reqs)
-        # requests shed past their own deadline_s are results, not errors
+        # sheds are per-request results, not errors: counted apart
+        self._overloaded_count += sum(
+            1 for r in results if r.finish_reason == "overloaded")
         self._deadline_expired_count += sum(
             1 for r in results if r.finish_reason == "deadline")
         return {"model": name,
                 "results": [result_to_dict(r) for r in results]}
+
+    async def _rpc_generate_stream(self, msg: Dict[str, Any], send
+                                   ) -> Dict[str, Any]:
+        """Stream one request's tokens as they decode: frames
+        ``{"tokens": [...]}`` ride the connection ahead of the final
+        result's envelope."""
+        name, _engine = self._engine_for(msg)
+        req = request_from_dict(msg.get("request") or {})
+        self._request_count += 1
+        queue: asyncio.Queue = asyncio.Queue()
+        fut = asyncio.ensure_future(
+            self._pumps[name].generate_streaming(req, queue.put_nowait))
+        result = await relay_stream(fut, queue, send)
+        return {"model": name, "result": result_to_dict(result)}
 
     async def _rpc_list_models(self, msg: Dict[str, Any]) -> Dict[str, Any]:
         return {"models": {n: c.to_dict()
@@ -286,6 +337,7 @@ class WorkerServer(FramedServerMixin):
                          if self._started_at else 0.0),
             "request_count": self._request_count,
             "error_count": self._error_count,
+            "overloaded_count": self._overloaded_count,
             "deadline_expired_count": self._deadline_expired_count,
             "ping_count": self._ping_count,
             "latency": self.latency.snapshot(),
@@ -315,6 +367,18 @@ class WorkerClient(FramedRPCClient):
             "generate", model=model,
             requests=[request_to_dict(r) for r in requests], timeout=timeout)
         return [result_from_dict(d) for d in result["results"]]
+
+    async def generate_stream(self, model: str, request: GenerationRequest,
+                              on_tokens, timeout: Optional[float] = None
+                              ) -> GenerationResult:
+        """Stream one request: ``on_tokens(tokens)`` fires per frame;
+        returns the final result. ``timeout`` bounds the gap between
+        frames, not the whole generation."""
+        result = await self.call_stream(
+            "generate_stream",
+            lambda frame: on_tokens(list(frame.get("tokens", []))),
+            model=model, request=request_to_dict(request), timeout=timeout)
+        return result_from_dict(result["result"])
 
     async def list_models(self) -> Dict[str, Any]:
         return await self.call("list_models")

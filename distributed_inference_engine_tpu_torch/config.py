@@ -4,9 +4,8 @@ subset the serving path reads): ``ModelConfig``, ``EngineConfig`` and
 
 The port does not carry every engine feature yet. Setting one that it
 lacks raises ``NotImplementedError`` naming its ROADMAP.md item — it is
-never silently ignored (``EngineConfig.check_supported``). Two defaults
-differ, each noted at its field: ``defer_admission`` and
-``timeline_capacity`` are off until ported.
+never silently ignored (``EngineConfig.check_supported``). One default
+differs, noted at its field: ``timeline_capacity`` is off until ported.
 """
 
 from __future__ import annotations
@@ -78,14 +77,17 @@ class EngineConfig:
     kv_offload_bytes: int = 1 << 30
     prefill_chunk: int = 0
     mixed_step_tokens: int = 0
-    defer_admission: bool = False      # differs from the JAX default (True):
-    # it only moves the first-token read into the next chunk's packed
-    # output, and the port reads firsts at admission until it is ported
-    # (ROADMAP A5c); True raises
-    defer_sync: bool = False
-    stream_chunk_steps: int = 0
-    max_waiting: int = 0
-    queue_deadline_s: float = 0.0
+    defer_admission: bool = True       # under decode pressure (>= 1/4 of
+    # the slots live) an admission round's first tokens stay on the device
+    # and ride the next chunk's packed read instead of a read of their own
+    defer_sync: bool = False           # read chunk k's packed output after
+    # queueing chunk k+1 (needs a fully backed page pool)
+    stream_chunk_steps: int = 0        # while a live slot streams, decode
+    # in chunks of this many steps (rounded up to a power of two)
+    max_waiting: int = 0               # submits past this many waiting
+    # requests raise EngineOverloadedError (0: no cap)
+    queue_deadline_s: float = 0.0      # a request still queued this long
+    # resolves "overloaded" at step start (0: never)
     admission_min_batch: int = 0
     admission_max_hold_s: float = 0.25
     admission_max_rows: int = 0
@@ -104,14 +106,6 @@ class EngineConfig:
                 f"{what} is not ported to the PyTorch engine yet "
                 f"(ROADMAP.md {item})")
 
-        if self.defer_sync:
-            no("defer_sync (deferred chunk read)", "A5b")
-        if self.stream_chunk_steps:
-            no("stream_chunk_steps (sub-chunk streaming)", "A5b")
-        if self.defer_admission:
-            no("defer_admission (deferred first-token read)", "A5c")
-        if self.max_waiting or self.queue_deadline_s:
-            no("max_waiting/queue_deadline_s (overload shedding)", "A5d")
         if self.decode_mode not in ("window", "inline"):
             raise ValueError(
                 f"decode_mode {self.decode_mode!r} is not 'window'|'inline'")

@@ -33,8 +33,17 @@ their pages at once.
   inside the chunk; longer stop lists and stop sequences retire on the
   host, which trims every result with ``trim_at_stops``.
 - One host read per chunk or mixed step: tokens, logprobs, active flags,
-  the lengths before and after, and a mixed step's prefill samples ride
-  one packed int32 buffer.
+  the lengths, the deferred admissions' first tokens (``firsts``) and a
+  mixed step's prefill samples ride one packed int32 buffer, copied to
+  pinned host memory right behind the work that wrote it
+  (``ops/_cuda.py:HostRead``).
+- Deferred admission (``defer_admission``, on by default as in JAX): under
+  decode pressure an admission round's first tokens stay on the device
+  and reach the host in the next chunk's packed read. ``defer_sync``
+  reads chunk k after queueing chunk k+1; ``poll_stream`` harvests a
+  chunk's tokens as soon as its copy has landed, and ``submit(on_tokens=)``
+  streams them (``stream_chunk_steps`` shortens the chunks while a slot
+  streams). ``max_waiting`` and ``queue_deadline_s`` shed load.
 - One dispatch per chunk (the JAX engine's one jitted program per chunk,
   ``_decode_chunk``'s ``lax.scan``, and per mixed-step bucket): on a CUDA
   device each decode chunk and each mixed step is a replay of a CUDA
@@ -87,6 +96,7 @@ from ..ops.sampling import SamplingParams, sample_tokens_with_logprobs
 from ..utils.tracing import LatencyStats
 from .paged_kv import PagedKVCache
 from .types import (
+    EngineOverloadedError,
     GenerationRequest,
     GenerationResult,
     find_stop_cut,
@@ -128,10 +138,11 @@ class _Slot:
     """Host-side bookkeeping for one live sequence."""
 
     __slots__ = ("request", "slot_id", "prompt_len", "produced", "tokens",
-                 "logprobs", "admitted_at", "first_token_at", "stop_cut")
+                 "logprobs", "admitted_at", "first_token_at", "on_tokens",
+                 "streamed", "stop_cut", "first_pending")
 
     def __init__(self, request: GenerationRequest, slot_id: int,
-                 prompt_len: int) -> None:
+                 prompt_len: int, on_tokens=None) -> None:
         self.request = request
         self.slot_id = slot_id
         self.prompt_len = prompt_len
@@ -140,36 +151,68 @@ class _Slot:
         self.logprobs: List[float] = []
         self.admitted_at = time.perf_counter()
         self.first_token_at = 0.0
-        self.stop_cut = -1
+        self.on_tokens = on_tokens      # streaming: cb(new_tokens: List[int])
+        self.streamed = 0               # tokens already emitted to the cb
+        self.stop_cut = -1              # earliest stop cut, once found
+        # deferred admission: the prefill-sampled first token lives in the
+        # device firsts buffer until the next chunk's packed read
+        self.first_pending = False
 
 
 class _PrefillProgress:
     """A long prompt mid-way through chunked prefill: its slot and pages
     are allocated, but it is not decoding yet (not in ``_slots``)."""
 
-    __slots__ = ("request", "prompt", "done", "t_submit")
+    __slots__ = ("request", "prompt", "done", "on_tokens", "t_submit")
 
     def __init__(self, request: GenerationRequest, prompt: List[int],
-                 t_submit: float, done: int) -> None:
+                 on_tokens, t_submit: float, done: int) -> None:
         self.request = request
         self.prompt = prompt
         self.done = done                # tokens prefilled (page-aligned)
+        self.on_tokens = on_tokens
         self.t_submit = t_submit
 
 
-class _Chunk:
+class _ChunkEntry:
     """A dispatched decode chunk or mixed step: its packed device output
-    (flat int32: ``2 * n_steps + 3`` rows of ``max_slots``, then a mixed
-    step's prefill samples) and the slots it was dispatched for."""
+    (flat int32: ``2 * n_steps + 4`` rows of ``max_slots`` — tokens,
+    logprob bits, active flags, lengths, the two ``firsts`` rows — then a
+    mixed step's prefill samples), the host read queued right behind it,
+    and the slots it was dispatched for.
 
-    __slots__ = ("packed", "n_steps", "snapshot", "t0", "caps")
+    Processing has two halves: ``_harvest_chunk`` (the token half: the
+    read, token appends, stop scan, stream emit; idempotent through
+    ``harvested``) and ``_process_packed`` (the control half: finish,
+    host-side stop retires, revives). Under ``defer_sync`` the entry also
+    sits on the stream ring, where ``poll_stream`` harvests it once its
+    copy has landed."""
 
-    def __init__(self, packed, n_steps, snapshot, t0, caps) -> None:
+    __slots__ = ("packed", "read", "n_steps", "snapshot", "t0", "caps",
+                 "fresh_firsts", "host", "harvested", "progressed")
+
+    def __init__(self, packed: torch.Tensor, n_steps: int,
+                 snapshot: Dict[int, _Slot], t0: float, caps: List[int],
+                 fresh_firsts: bool) -> None:
         self.packed = packed
+        # queued right behind the body that wrote ``packed`` (a graph's
+        # static output, which its next replay rewrites)
+        self.read = _cuda.HostRead(packed)
         self.n_steps = n_steps
         self.snapshot = snapshot
         self.t0 = t0
         self.caps = caps
+        # sync call sites: no install ran between dispatch and read, so
+        # the packed firsts rows are current
+        self.fresh_firsts = fresh_firsts
+        self.host: Optional[np.ndarray] = None    # set by _harvest_chunk
+        self.harvested = False
+        # slot -> progressed, stashed at harvest for the control half
+        self.progressed: Dict[int, bool] = {}
+
+    def ready(self) -> bool:
+        """True when the packed buffer can be read without waiting."""
+        return self.host is not None or self.read.ready()
 
 
 class ContinuousEngine:
@@ -188,6 +231,15 @@ class ContinuousEngine:
         cfg.check_supported()        # before any weight is made
         self.device = torch.device(device)
         self.spec = spec.validate()
+        # defer_sync needs a fully backed pool: the host's lengths go one
+        # chunk stale, and only a pool that can always grow every slot to
+        # max_seq_len guarantees a chunk never writes past reserved pages
+        if cfg.defer_sync and cfg.num_pages < cfg.max_slots * (
+                -(-min(cfg.max_seq_len, spec.max_seq_len)
+                  // cfg.page_size)):
+            raise ValueError(
+                "defer_sync needs a fully backed page pool: num_pages >= "
+                "max_slots * ceil(max_seq_len / page_size)")
         if params is None:
             params = init_params(spec, torch.Generator(
                 device=self.device).manual_seed(seed))
@@ -201,6 +253,16 @@ class ContinuousEngine:
             spec, max_slots=cfg.max_slots, page_size=cfg.page_size,
             num_pages=cfg.num_pages, max_seq_len=max_seq,
             dtype=cfg.kv_dtype, device=self.device)
+        # defer_sync: chunk k's packed output is read after chunk k+1 is
+        # queued (the pool's own bound must agree with the check above)
+        self._defer = bool(cfg.defer_sync)
+        assert not self._defer or cfg.num_pages >= (
+            cfg.max_slots * self.kv.max_pages_per_seq)
+        # the deferred chunk in flight; under defer_sync the same entry
+        # also sits on the stream ring until its token half is harvested
+        self._pending: Optional[_ChunkEntry] = None
+        # dispatched but unharvested chunks, oldest first (poll_stream)
+        self._ring: Deque[_ChunkEntry] = collections.deque()
         self.prefill_buckets = sorted(
             {b for b in cfg.prefill_buckets if b < max_seq} | {max_seq})
         self.max_seq_len = max_seq
@@ -235,7 +297,8 @@ class ContinuousEngine:
             {b for b in self.prefill_buckets if b < self._chunk}
             | {self._chunk}) if self._chunk else [1])
 
-        self._waiting: Deque[Tuple[GenerationRequest, float]] = (
+        # (request, stream callback or None, t_submit)
+        self._waiting: Deque[Tuple[GenerationRequest, Any, float]] = (
             collections.deque())
         self._slots: Dict[int, _Slot] = {}
         self._finished: List[GenerationResult] = []
@@ -258,13 +321,22 @@ class ContinuousEngine:
         self._top_p = torch.ones((n,), dtype=torch.float32, device=dev)
         self._min_p = torch.zeros((n,), dtype=torch.float32, device=dev)
         self._stops_dev = torch.full((n, _DEVICE_STOP_K), -1, **i32)
+        # deferred admission: each slot's [token; logprob bits] of its
+        # prefill-sampled first token, copied into every chunk's packed
+        # output, so the host harvests it from the next chunk's read
+        self._firsts_dev = torch.zeros((2, n), **i32)
+        # host copy of it for the retire-path rescues: a sync read caches
+        # the rows that rode the packed output; None = stale (an install
+        # rewrote columns), then _firsts_snapshot reads the whole buffer
+        self._firsts_host: Optional[np.ndarray] = None
+        self._defer_admit = bool(cfg.defer_admission)
         # each slot's token capacity for the chunk, copied in before it
         self._cap = torch.zeros((n,), **i32)
         # a mixed bucket's inputs, one int32 buffer a bucket (_step_mixed)
         self._mixed_inputs: Dict[Tuple[int, int], torch.Tensor] = {}
         # CUDA graphs by key (module docstring), sharing one memory pool:
-        # replays never overlap, and a replay's packed output is read
-        # before the next one
+        # replays never overlap, and a replay's packed output is copied to
+        # the host (_ChunkEntry.read) before any later work is queued
         self._graphs: Dict[Tuple, _cuda.CapturedGraph] = {}
         self._graph_pool: Any = None
         self._decode_keys: set = set()
@@ -292,60 +364,116 @@ class ContinuousEngine:
         self._total_generated = 0
         self._total_prompt_tokens = 0
         self._admission_denied = 0
-        self._deadline_expired = 0
+        self._rejected_full = 0        # submits refused: queue at cap
+        self._shed_deadline = 0        # queued requests shed past deadline
+        self._deadline_expired = 0     # per-request deadline_s expiries
         self._capacity_finishes = 0
         self._steps = 0
         self._decode_steps = 0
         self._prefill_calls = 0
         self._chunked_admissions = 0
+        self._deferred_admissions = 0
         self._mixed_steps = 0
         self._mixed_prefill_tokens = 0
         # (prefill-rows bucket, chunk bucket) shapes the mixed step ran
         self._mixed_programs: set = set()
         self._occupancy_sum = 0
+        # sub-chunk streaming: ring traffic, clamp engagements, and the
+        # firsts buffer's whole reads (one per invalidation, never per slot)
+        self._ring_pushes = 0
+        self._ring_polls = 0
+        self._ring_ready_polls = 0
+        self._ring_high_water = 0
+        self._stream_clamped_chunks = 0
+        self._firsts_fetches = 0
         # called right after a chunk's launches are queued and before its
-        # blocking read (the pump drains its inbox here, in the device's
-        # shadow); it must only enqueue work (submit)
+        # read (the pump drains its inbox and polls the stream ring here,
+        # in the device's shadow); it must only enqueue work (submit) or
+        # poll the ring
         self.overlap_hook: Optional[Any] = None
 
     # ------------------------------------------------------------- submit
 
-    def submit(self, request: GenerationRequest) -> str:
-        """Enqueue; returns the request id (assigned if empty)."""
+    def submit(self, request: GenerationRequest, on_tokens=None) -> str:
+        """Enqueue; returns the request id (assigned if empty).
+
+        ``on_tokens`` (optional) streams the output: called on the
+        engine's thread with each batch of new tokens, trimmed as the
+        final result is (``max_new_tokens``, stops); the final
+        ``GenerationResult`` holds the whole sequence. Past ``max_waiting``
+        queued requests, raises ``EngineOverloadedError``."""
         if not request.prompt:
             raise ValueError("empty prompt")
+        self._check_admission_cap()
         self._total_requests += 1
         if not request.request_id:
             request.request_id = f"creq-{self._total_requests}"
-        self._waiting.append((request, time.perf_counter()))
+        self._waiting.append((request, on_tokens, time.perf_counter()))
         return request.request_id
 
+    # ----------------------------------------------------------- overload
+
+    def _check_admission_cap(self) -> None:
+        """Hard backpressure at submit: a bounded waiting queue degrades
+        service under overload instead of growing without bound."""
+        cap = self.config.max_waiting
+        if cap and self.n_waiting >= cap:
+            self._rejected_full += 1
+            raise EngineOverloadedError(
+                f"waiting queue full ({self.n_waiting}/{cap}); "
+                "retry on another replica or later", reason="queue_full")
+
     def _shed_expired(self) -> None:
-        """A request's own ``deadline_s`` budget, checked at step start
-        before any prefill or decode work is spent on it (the per-request
-        branch of the JAX engine's ``_shed_expired``): a request still
-        queued ``deadline_s`` after its submit resolves with
-        ``finish_reason="deadline"`` and no tokens; the client already
-        stopped caring. The engine-wide ``queue_deadline_s`` is not ported
-        (ROADMAP A5d)."""
-        if not any(req.deadline_s is not None for req, _ in self._waiting):
+        """Deadline shedding, two budgets checked at step start, before
+        any prefill or decode work is spent on the victim:
+
+        - the engine-wide ``queue_deadline_s`` (overload control): a
+          request still queued past it resolves with
+          ``finish_reason="overloaded"`` (``overload_reason`` "deadline",
+          no tokens, ``ttft_s`` its queue wait); the pump turns it into
+          the typed ``EngineOverloadedError`` for single-request callers;
+        - the request's own ``deadline_s``: expiry resolves with
+          ``finish_reason="deadline"`` and is never retried upstream.
+        """
+        q = self._waiting
+        if not q:
             return
+        queue_deadline = self.config.queue_deadline_s
         now = time.perf_counter()
-        keep: Deque[Tuple[GenerationRequest, float]] = collections.deque()
-        for req, t_submit in self._waiting:
-            if req.deadline_s is not None and now - t_submit >= req.deadline_s:
+        cut = (now - queue_deadline) if queue_deadline else None
+        # FIFO: the head is the oldest, so the engine-wide budget is a head
+        # check; per-request deadlines scan only when some request has one
+        if not (cut is not None and q[0][2] <= cut) and not any(
+                item[0].deadline_s is not None for item in q):
+            return
+        keep: Deque[Tuple[GenerationRequest, Any, float]] = (
+            collections.deque())
+        for item in q:
+            req, t = item[0], item[2]
+            if cut is not None and t <= cut:
+                self._shed_deadline += 1
+                self._finished.append(GenerationResult(
+                    request_id=req.request_id,
+                    tokens=[],
+                    finish_reason="overloaded",
+                    prompt_tokens=len(req.prompt),
+                    ttft_s=now - t,
+                    decode_s=0.0,
+                    metadata={"overload_reason": "deadline"},
+                ))
+            elif req.deadline_s is not None and now - t >= req.deadline_s:
                 self._deadline_expired += 1
                 self._finished.append(GenerationResult(
                     request_id=req.request_id,
                     tokens=[],
                     finish_reason="deadline",
                     prompt_tokens=len(req.prompt),
-                    ttft_s=now - t_submit,
+                    ttft_s=now - t,
                     decode_s=0.0,
                     metadata={"deadline_s": req.deadline_s},
                 ))
             else:
-                keep.append((req, t_submit))
+                keep.append(item)
         self._waiting = keep
 
     # ---------------------------------------------------------- admission
@@ -372,7 +500,7 @@ class ContinuousEngine:
     def _sample_knobs(self, logits: torch.Tensor, knobs: np.ndarray):
         """Sample rows of ``logits`` under host knob rows -> (tokens [n]
         int32, logprobs [n] fp32) on the device."""
-        t = torch.from_numpy(knobs).to(self.device)
+        t = _cuda.upload(knobs, self.device)
         sampling = SamplingParams(t[:, 0], t[:, 1].to(torch.int32), t[:, 2],
                                   t[:, 3])
         needs_mask, needs_noise = self._knob_flags(knobs)
@@ -386,7 +514,7 @@ class ContinuousEngine:
         the device as one [2, bb] int32 buffer (tokens; logprob bits), so
         the caller reads both in one transfer, or not at all."""
         bb = hidden.shape[0]
-        idx = torch.as_tensor(last_idx, device=self.device).long()
+        idx = _cuda.upload(last_idx, self.device, torch.int64)
         last = hidden[torch.arange(bb, device=self.device), idx]
         logits = unembed(self.spec, self.params, last)
         toks, lps = self._sample_knobs(logits,
@@ -402,10 +530,10 @@ class ContinuousEngine:
 
     def _register_slot_host(self, req: GenerationRequest, slot: int,
                             prompt_len: int, first: int, t_submit: float,
-                            first_lp: float = 0.0) -> bool:
+                            on_tokens=None, first_lp: float = 0.0) -> bool:
         """Host bookkeeping of one admission; True when the slot stays
         live (its device state needs installing)."""
-        state = _Slot(req, slot, prompt_len)
+        state = _Slot(req, slot, prompt_len, on_tokens)
         state.tokens.append(first)
         state.logprobs.append(first_lp)
         state.produced = 1
@@ -413,6 +541,7 @@ class ContinuousEngine:
         state.first_token_at = time.perf_counter()
         self.ttft_stats.add(state.first_token_at - t_submit)
         self._slots[slot] = state
+        self._emit_stream(state)
         state.stop_cut = find_stop_cut([first], req)
         if state.stop_cut >= 0 or req.max_new_tokens <= 1:
             self._finish(slot, "stop" if state.stop_cut >= 0 else "length")
@@ -428,9 +557,17 @@ class ContinuousEngine:
                 "top_p": req.top_p, "min_p": req.min_p,
                 "stops": list(req.stop_ids or ())[:_DEVICE_STOP_K]}
 
-    def _install_device(self, rows: List[Dict[str, Any]]) -> None:
-        """Write a round's per-slot device state: two host->device copies
-        (ints, floats) and one indexed write per state tensor."""
+    def _install_device(self, rows: List[Dict[str, Any]],
+                        firsts: Optional[torch.Tensor] = None,
+                        cols: Sequence[int] = ()) -> None:
+        """Write a round's per-slot device state: three host->device
+        copies (slots, ints, floats) and one indexed write per state
+        tensor. With ``firsts`` (deferred admission, the counterpart of
+        JAX's ``_install_device_first``) the first tokens come from the
+        prefill's device output instead: row i's from column ``cols[i]``
+        of ``firsts`` ([2, bb]: tokens; logprob bits), parked in
+        ``_firsts_dev`` for the next chunk's packed read; a first token
+        equal to the slot's eos installs it inactive. No host read."""
         if not rows:
             return
         m = len(rows)
@@ -450,12 +587,19 @@ class ContinuousEngine:
             (self._stop_slots.add if r["stops"]
              else self._stop_slots.discard)(s)
         dev = self.device
-        idx = torch.from_numpy(slots).to(dev)
-        it = torch.from_numpy(ints).to(dev)
-        ft = torch.from_numpy(floats).to(dev)
+        idx = _cuda.upload(slots, dev)
+        it = _cuda.upload(ints, dev)
+        ft = _cuda.upload(floats, dev)
         self._lengths[idx] = it[:, 0]
-        self._last[idx] = it[:, 1]
-        self._active[idx] = True
+        if firsts is None:
+            self._last[idx] = it[:, 1]
+            self._active[idx] = True
+        else:
+            sel = firsts[:, _cuda.upload(np.asarray(cols, np.int64), dev)]
+            self._last[idx] = sel[0]
+            self._active[idx] = (sel[0] != it[:, 3]) | (it[:, 3] < 0)
+            self._firsts_dev[:, idx] = sel
+            self._firsts_host = None   # columns rewritten: the cache is stale
         self._produced[idx] = 1
         self._max_new[idx] = it[:, 2]
         self._eos[idx] = it[:, 3]
@@ -467,10 +611,11 @@ class ContinuousEngine:
 
     def _install_slot(self, req: GenerationRequest, slot: int,
                       prompt_len: int, first: int, t_dispatch: float,
-                      t_submit: float, first_lp: float = 0.0) -> None:
+                      on_tokens, t_submit: float,
+                      first_lp: float = 0.0) -> None:
         self.prefill_stats.add(time.perf_counter() - t_dispatch)
         if self._register_slot_host(req, slot, prompt_len, first, t_submit,
-                                    first_lp=first_lp):
+                                    on_tokens, first_lp=first_lp):
             self._install_device(
                 [self._slot_row(req, slot, prompt_len, first)])
 
@@ -491,7 +636,7 @@ class ContinuousEngine:
             return False
         if live * 2 < self.max_slots:
             return False
-        return (time.perf_counter() - self._waiting[0][1]
+        return (time.perf_counter() - self._waiting[0][2]
                 < self.config.admission_max_hold_s)
 
     def _try_admit(self) -> int:
@@ -509,7 +654,7 @@ class ContinuousEngine:
         batch: List[Tuple] = []
         pending_hashes: set = set()
         while self._waiting:
-            req, t_submit = self._waiting[0]
+            req, on_tok, t_submit = self._waiting[0]
             prompt = req.prompt[-(self.max_seq_len - 1):]
             if self.prefix_cache:
                 h1 = self.kv.first_page_hash(prompt)
@@ -543,12 +688,13 @@ class ContinuousEngine:
             admitted += 1
             if will_chunk and n_cached > 0:
                 self._prefix_hit_admissions += 1
-                self._start_chunked(req, slot, prompt, t_submit,
+                self._start_chunked(req, on_tok, slot, prompt, t_submit,
                                     done=n_cached)
             elif will_chunk or n_cached == 0:
                 # a chunked miss sends its first chunk (and the full prompt
                 # for the chunk advance) through the batched prefill
-                batch.append((req, slot, prompt[: self._chunk] if will_chunk
+                batch.append((req, on_tok, slot,
+                              prompt[: self._chunk] if will_chunk
                               else prompt, t_submit,
                               prompt if will_chunk else None))
                 if len(batch) >= self._admit_row_cap():
@@ -563,7 +709,8 @@ class ContinuousEngine:
                 self.kv.register_prefix(slot, prompt)
                 self._total_prompt_tokens += len(prompt)
                 self._install_slot(req, slot, len(prompt), int(toks[0]), t0,
-                                   t_submit=t_submit, first_lp=float(lps[0]))
+                                   on_tok, t_submit=t_submit,
+                                   first_lp=float(lps[0]))
         if batch:
             self._admit_batch(batch)
         return admitted
@@ -573,45 +720,69 @@ class ContinuousEngine:
         one state install for N cache-miss admissions. Rows pad to a
         power-of-two batch and the prompts to a prefill bucket; pad rows
         have seq_len 0 and write nothing. A row with a full prompt
-        (``full`` not None) is the first chunk of a chunked admission."""
+        (``full`` not None) is the first chunk of a chunked admission.
+
+        Deferred admission: under decode pressure (at least a quarter of
+        the slots live) and when every row wants more than one token, the
+        first-token read is skipped: the first tokens are installed on the
+        device and harvested from the next chunk's packed read."""
         t0 = time.perf_counter()
         self._prefill_calls += 1
         n = len(batch)
         bb = 1 << (n - 1).bit_length()
-        tb = _next_bucket(max(len(p) for _, _, p, _, _ in batch),
+        tb = _next_bucket(max(len(p) for _, _, _, p, _, _ in batch),
                           self.prefill_buckets)
         tokens = np.zeros((bb, tb), np.int32)
         seq_lens = np.zeros((bb,), np.int32)
         table_rows = np.zeros((bb, self.kv.max_pages_per_seq), np.int32)
-        for i, (_req, slot, prompt, _ts, _full) in enumerate(batch):
+        for i, (_req, _cb, slot, prompt, _ts, _full) in enumerate(batch):
             tokens[i, : len(prompt)] = prompt
             seq_lens[i] = len(prompt)
             table_rows[i] = self.kv._table[slot]
         hidden, _, _ = forward_prefill_into_pages(
-            self.spec, self.params, torch.from_numpy(tokens).to(self.device),
+            self.spec, self.params, _cuda.upload(tokens, self.device),
             seq_lens, self.kv.k_pages, self.kv.v_pages, table_rows)
-        firsts, first_lps = self._read_firsts(self._sample_firsts(
-            hidden, np.maximum(seq_lens - 1, 0), [r for r, *_ in batch]))
+        first_dev = self._sample_firsts(
+            hidden, np.maximum(seq_lens - 1, 0), [r for r, *_ in batch])
+        # a max_new_tokens <= 1 request must stop before decoding, which
+        # needs its token on the host: such rounds read
+        defer = (self._defer_admit
+                 and len(self._slots) * 4 >= self.max_slots
+                 and all(r.max_new_tokens > 1 for r, *_ in batch))
+        host = None if defer else self._read_firsts(first_dev)
         self.prefill_stats.add(time.perf_counter() - t0)
-        rows = []
-        for i, (req, slot, prompt, t_submit, full) in enumerate(batch):
+        rows: List[Dict[str, Any]] = []
+        cols: List[int] = []
+        for i, (req, cb, slot, prompt, t_submit, full) in enumerate(batch):
             if full is not None:
                 # first chunk of a chunked admission: its pages are written
                 # and its sample is discarded (the logits saw a truncated
                 # prompt); the chunk advance takes over. Its prompt tokens
                 # and prefix pages are counted at the last chunk
-                self._start_chunked(req, slot, full, t_submit,
+                self._start_chunked(req, cb, slot, full, t_submit,
                                     done=len(prompt))
                 continue
             if self.prefix_cache:
                 self.kv.register_prefix(slot, prompt)
             self._total_prompt_tokens += len(prompt)
-            first = int(firsts[i])
+            if defer:
+                state = _Slot(req, slot, len(prompt), cb)
+                state.first_pending = True
+                state.admitted_at = t_submit
+                self._slots[slot] = state
+                rows.append(self._slot_row(req, slot, len(prompt), 0))
+                cols.append(i)
+                continue
+            first = int(host[0][i])
             if self._register_slot_host(req, slot, len(prompt), first,
-                                        t_submit,
-                                        first_lp=float(first_lps[i])):
+                                        t_submit, cb,
+                                        first_lp=float(host[1][i])):
                 rows.append(self._slot_row(req, slot, len(prompt), first))
-        self._install_device(rows)
+        if defer:
+            self._deferred_admissions += len(rows)
+            self._install_device(rows, first_dev, cols)
+        else:
+            self._install_device(rows)
 
     def _run_suffix_prefill(self, suffixes, slots, n_ctxs, reqs
                             ) -> torch.Tensor:
@@ -638,11 +809,11 @@ class ContinuousEngine:
             table_rows[i] = self.kv._table[slot]
         spec = self.spec
         L, Hkv, Dh = spec.n_layers, spec.n_kv_heads, spec.head_dim
-        pages = torch.from_numpy(phys).to(self.device)
+        pages = _cuda.upload(phys, self.device)
         ck = self.kv.k_pages[:, pages].reshape(L, bb, mpb * ps, Hkv, Dh)
         cv = self.kv.v_pages[:, pages].reshape(L, bb, mpb * ps, Hkv, Dh)
         hidden, ks, vs = forward_prefill_suffix(
-            spec, self.params, torch.from_numpy(tokens).to(self.device),
+            spec, self.params, _cuda.upload(tokens, self.device),
             suffix_lens, n_ctx, ck.to(spec.torch_dtype),
             cv.to(spec.torch_dtype))
         write_prefill_pages(self.kv.k_pages, self.kv.v_pages, ks, vs,
@@ -652,15 +823,15 @@ class ContinuousEngine:
 
     # ----------------------------------------------------- chunked prefill
 
-    def _start_chunked(self, req: GenerationRequest, slot: int,
+    def _start_chunked(self, req: GenerationRequest, on_tokens, slot: int,
                        prompt: List[int], t_submit: float, done: int
                        ) -> None:
         """Begin the incremental prefill of a long prompt: its slot and
         pages are reserved; ``done`` (page-aligned, > 0) tokens are in its
         pages, from the batched first chunk or a prefix-cache hit."""
         self._chunked_admissions += 1
-        self._prefilling[slot] = _PrefillProgress(req, prompt, t_submit,
-                                                  done)
+        self._prefilling[slot] = _PrefillProgress(req, prompt, on_tokens,
+                                                  t_submit, done)
 
     def _finish_prefill(self, slot: int, prog: _PrefillProgress, first: int,
                         first_lp: float, rows: List[Dict[str, Any]]) -> None:
@@ -671,7 +842,8 @@ class ContinuousEngine:
             self.kv.register_prefix(slot, prog.prompt)
         self._total_prompt_tokens += len(prog.prompt)
         if self._register_slot_host(prog.request, slot, len(prog.prompt),
-                                    first, prog.t_submit, first_lp=first_lp):
+                                    first, prog.t_submit, prog.on_tokens,
+                                    first_lp=first_lp):
             rows.append(self._slot_row(prog.request, slot, len(prog.prompt),
                                        first))
 
@@ -715,13 +887,63 @@ class ContinuousEngine:
                                  float(host[1][i]), rows)
         self._install_device(rows)
 
+    # ---------------------------------------------------------- streaming
+
+    def _emit_stream(self, state: _Slot) -> int:
+        """Push a slot's new tokens to its streaming callback, trimmed as
+        ``_finish`` trims the final result (``max_new_tokens``, the stop
+        cut), so a consumer never sees a token the result won't hold.
+        Returns 1 when a frame was delivered, else 0."""
+        cb = state.on_tokens
+        if cb is None:
+            return 0
+        req = state.request
+        toks = state.tokens[: req.max_new_tokens]
+        if 0 <= state.stop_cut <= len(toks):
+            toks = toks[: state.stop_cut]
+        if len(toks) > state.streamed:
+            fresh = toks[state.streamed:]
+            state.streamed = len(toks)
+            try:
+                cb(fresh)
+            except Exception:
+                logger.exception("stream callback failed for %s",
+                                 req.request_id)
+                state.on_tokens = None     # don't retry a broken consumer
+            return 1
+        return 0
+
     # ------------------------------------------------------------- finish
+
+    def _firsts_snapshot(self) -> np.ndarray:
+        """Host [2, max_slots] copy of the deferred firsts buffer for the
+        retire-path rescues: the copy that rode a sync packed read, or,
+        when that is stale, one read of the whole buffer (never one per
+        slot; ``firsts_fetches`` counts them)."""
+        if self._firsts_host is None:
+            self._firsts_host = self._firsts_dev.cpu().numpy()
+            self._firsts_fetches += 1
+        return self._firsts_host
+
+    def _rescue_first(self, state: _Slot, slot: int) -> None:
+        """Deliver the deferred first token of a slot that retires before
+        any packed read harvested it, from the batched snapshot."""
+        state.first_pending = False
+        fp = self._firsts_snapshot()
+        state.tokens.insert(0, int(fp[0, slot]))
+        state.logprobs.insert(
+            0, float(fp[1:2, slot].copy().view(np.float32)[0]))
+        state.first_token_at = time.perf_counter()
+        self.ttft_stats.add(state.first_token_at - state.admitted_at)
 
     def _finish(self, slot: int, reason: str) -> None:
         state = self._slots.pop(slot)
         self._stop_slots.discard(slot)
         self.kv.free_slot(slot)
         req = state.request
+        if state.first_pending:
+            # retired before a packed read delivered its first token
+            self._rescue_first(state, slot)
         toks, stopped = trim_at_stops(state.tokens, req)
         if stopped:
             reason = "stop"
@@ -737,8 +959,11 @@ class ContinuousEngine:
         ))
 
     def _set_active(self, slots: List[int], value: bool) -> None:
+        """Retire (False) or revive (True) slots on the device, queued
+        behind any chunk in flight."""
         if slots:
-            self._active[torch.as_tensor(slots, device=self.device)] = value
+            self._active[_cuda.upload(np.asarray(slots, np.int64),
+                                      self.device)] = value
 
     # --------------------------------------------------------------- step
 
@@ -804,20 +1029,22 @@ class ContinuousEngine:
             return graph
 
     def _decode_chunk(self, n_steps: int, caps: List[int], t0: float
-                      ) -> _Chunk:
+                      ) -> _ChunkEntry:
         """Queue one chunk of ``n_steps`` decode steps over all slots
-        (``caps``: each slot's token capacity): fill the inputs, then run
-        the body (a graph replay on the card)."""
+        (``caps``: each slot's token capacity): fill the inputs, run the
+        body (a graph replay on the card), queue the packed output's host
+        copy. The entry's snapshot holds the slots it was dispatched for."""
         needs_mask, needs_noise = self._knob_flags(self._knobs_host)
         key = ("decode", n_steps, bool(self._stop_slots), needs_mask,
                needs_noise)
         self._decode_keys.add(key)
-        self._cap.copy_(torch.as_tensor(caps, dtype=torch.int32))
+        _cuda.upload_into(self._cap, np.asarray(caps, np.int32))
         table = self.kv.page_table
         self._decode_steps += n_steps
         packed = self._run(key, lambda: self._decode_body(
             n_steps, key[2], needs_mask, needs_noise, table))
-        return _Chunk(packed, n_steps, dict(self._slots), t0, caps)
+        return _ChunkEntry(packed, n_steps, dict(self._slots), t0, caps,
+                           fresh_firsts=not self._defer)
 
     def _decode_body(self, n_steps: int, use_stops: bool, needs_mask: bool,
                      needs_noise: bool, table: torch.Tensor) -> torch.Tensor:
@@ -871,7 +1098,7 @@ class ContinuousEngine:
         packed = torch.cat([
             torch.stack(toks), torch.stack(lps).view(torch.int32),
             active[None].to(torch.int32), lengths[None],
-            start_lengths[None]], dim=0).reshape(-1)
+            self._firsts_dev], dim=0).reshape(-1)
         for dst, src in zip(self._state(), (lengths, last, active,
                                              produced)):
             dst.copy_(src)
@@ -881,25 +1108,34 @@ class ContinuousEngine:
         """One engine iteration: admit, advance the chunked prefills, then
         one decode chunk — or, on a ragged engine with prompts
         mid-prefill, one mixed step. Returns the number of live and
-        mid-prefill slots after it. A queued request past its own
-        ``deadline_s`` is resolved first (``_shed_expired``)."""
+        mid-prefill slots after it. Queued requests past a deadline are
+        resolved first (``_shed_expired``). With ``defer_sync`` chunk k's
+        packed output is read after chunk k+1 is queued: finishes,
+        host-side stops and streaming run one chunk behind the device."""
         self._shed_expired()
         self._try_admit()
         if self._mixed and self._prefilling:
             self._step_mixed()
-            return len(self._slots) + len(self._prefilling)
+            return self.n_live
         self._advance_chunked()
         if not self._slots:
+            # a deferred chunk whose processing freed the last live slots
+            # leaves the next one pending with no current snapshot entry:
+            # processing it would be a no-op, so drop it
+            self._pending = None
+            self._ring.clear()
             return len(self._prefilling)
         self._steps += 1
         self._occupancy_sum += len(self._slots)
-        # capacity: grow every slot toward a full chunk; one that can't
-        # fit another token finishes with "length"
+        # capacity: grow every slot toward a full chunk (two under
+        # defer_sync: the device may be a chunk past the host's lengths);
+        # one that can't fit another token finishes with "length"
         n_steps = self.config.decode_steps_per_call
+        ahead = 2 * n_steps if self._defer else n_steps
         retired: List[int] = []
         for slot in list(self._slots):
             cur = int(self._lengths_host[slot])
-            cap_tok = self.kv.ensure_capacity(slot, cur + n_steps)
+            cap_tok = self.kv.ensure_capacity(slot, cur + ahead)
             if cap_tok <= cur:
                 self._capacity_finishes += 1
                 retired.append(slot)
@@ -907,14 +1143,33 @@ class ContinuousEngine:
             else:
                 n_steps = min(n_steps, cap_tok - cur)
         self._set_active(retired, False)
+        # while a live slot streams, decode in shorter chunks so its
+        # tokens reach the host every stream_chunk_steps steps; a power of
+        # two, so a run adds at most one decode key
+        scs = self.config.stream_chunk_steps
+        if scs > 0 and n_steps > 1 and any(
+                s.on_tokens is not None for s in self._slots.values()):
+            sub = 1 << (scs - 1).bit_length()
+            if sub < n_steps:
+                n_steps = sub
+                self._stream_clamped_chunks += 1
         if not self._slots or n_steps <= 0:
-            return len(self._slots) + len(self._prefilling)
+            return self.n_live
 
         t0 = time.perf_counter()
-        chunk = self._decode_chunk(n_steps, self._cap_list(), t0)
+        entry = self._decode_chunk(n_steps, self._cap_list(), t0)
         self._run_overlap_hook()
-        self._process_chunk(chunk)
-        return len(self._slots) + len(self._prefilling)
+        if self._defer:
+            self._ring.append(entry)
+            self._ring_pushes += 1
+            self._ring_high_water = max(self._ring_high_water,
+                                        len(self._ring))
+            prev, self._pending = self._pending, entry
+            if prev is not None:
+                self._process_packed(prev)
+        else:
+            self._process_packed(entry)
+        return self.n_live
 
     def _cap_list(self) -> List[int]:
         """Each slot's token capacity (0 for a free slot)."""
@@ -939,8 +1194,15 @@ class ContinuousEngine:
         ``mixed_step_tokens`` caps the prefill tokens per step at row
         granularity, oldest prompt first and always at least one row. The
         ragged kernel writes every row's K/V into its pages: a mixed step
-        has no side window and no chunk-end flush."""
+        has no side window and no chunk-end flush. It reads its packed
+        output at once (one token a slot leaves nothing for
+        ``defer_sync`` to overlap), after processing a deferred chunk
+        still pending: selection and capacity need the current host
+        state."""
         t0 = time.perf_counter()
+        if self._pending is not None:
+            prev, self._pending = self._pending, None
+            self._process_packed(prev)
         budget = self.config.mixed_step_tokens
         sel: List[Tuple[int, _PrefillProgress, List[int]]] = []
         spent = 0
@@ -990,14 +1252,16 @@ class ContinuousEngine:
         self._mixed_steps += 1
         self._mixed_prefill_tokens += spent
         self._occupancy_sum += len(self._slots)
-        chunk = self._mixed_chunk(inputs, qb, pf_knobs, self._cap_list(),
+        entry = self._mixed_chunk(inputs, qb, pf_knobs, self._cap_list(),
                                   t0)
         self._run_overlap_hook()
-        pf_host = self._process_chunk(chunk)
+        self._process_packed(entry)
 
-        # only a prompt's last chunk yields its first token
-        rows: List[Dict[str, Any]] = []
+        # only a prompt's last chunk yields its first token (the samples
+        # ride the packed output past its decode rows)
+        pf_host = entry.host[(2 * entry.n_steps + 4) * self.max_slots:]
         pf_lps = pf_host[rpb:].view(np.float32)
+        rows: List[Dict[str, Any]] = []
         for i, (slot, prog, sfx) in enumerate(sel):
             prog.done += len(sfx)
             if prog.done >= len(prog.prompt):
@@ -1006,10 +1270,10 @@ class ContinuousEngine:
         self._install_device(rows)
 
     def _mixed_chunk(self, inputs: np.ndarray, qb: int, pf_knobs: np.ndarray,
-                     caps: List[int], t0: float) -> _Chunk:
+                     caps: List[int], t0: float) -> _ChunkEntry:
         """Queue one mixed step: copy the bucket's inputs (``inputs``, see
         ``_step_mixed``) and the capacities in, then run the body (a graph
-        replay on the card)."""
+        replay on the card) and queue the packed output's host copy."""
         rpb = inputs.shape[0]
         needs_mask, needs_noise = self._knob_flags(
             np.concatenate([self._knobs_host, pf_knobs]))
@@ -1019,12 +1283,13 @@ class ContinuousEngine:
         if buf is None:
             buf = self._mixed_inputs[(rpb, qb)] = torch.zeros(
                 inputs.shape, dtype=torch.int32, device=self.device)
-        buf.copy_(torch.from_numpy(inputs))
-        self._cap.copy_(torch.as_tensor(caps, dtype=torch.int32))
+        _cuda.upload_into(buf, inputs)
+        _cuda.upload_into(self._cap, np.asarray(caps, np.int32))
         table = self.kv.page_table
         packed = self._run(key, lambda: self._mixed_body(
             buf, qb, key[3], needs_mask, needs_noise, table))
-        return _Chunk(packed, 1, dict(self._slots), t0, caps)
+        return _ChunkEntry(packed, 1, dict(self._slots), t0, caps,
+                           fresh_firsts=True)
 
     def _mixed_body(self, buf: torch.Tensor, qb: int, use_stops: bool,
                     needs_mask: bool, needs_noise: bool, table: torch.Tensor
@@ -1064,36 +1329,89 @@ class ContinuousEngine:
                           self._cap, use_stops)
         packed = torch.cat([
             emitted, dlp.view(torch.int32), new_active.to(torch.int32),
-            new_len, lengths, tok[b:], lp[b:].view(torch.int32)])
+            new_len, self._firsts_dev.reshape(-1), tok[b:],
+            lp[b:].view(torch.int32)])
         for dst, src in zip(self._state(), (new_len, new_last, new_active,
                                              new_produced)):
             dst.copy_(src)
         return packed
 
-    def _process_chunk(self, chunk: _Chunk) -> np.ndarray:
-        """The one blocking read of a chunk or mixed step, then token
-        appends, stop scans and finish/revive. Returns what the packed
-        buffer carries past the decode rows (a mixed step's prefill
-        samples)."""
-        n_steps = chunk.n_steps
-        b = self.max_slots
-        flat = chunk.packed.cpu().numpy()
-        host = flat[: (2 * n_steps + 3) * b].reshape(2 * n_steps + 3, b)
-        toks_np = host[:n_steps]
-        lps_np = host[n_steps:2 * n_steps].view(np.float32)
-        active_np = host[2 * n_steps].astype(bool)
-        lengths_row = host[2 * n_steps + 1]
-        self.chunk_stats.add(time.perf_counter() - chunk.t0)
+    # ---------------------------------------------------- chunk processing
 
-        retired: List[int] = []
-        revived: List[int] = []
-        for slot, state in chunk.snapshot.items():
-            if self._slots.get(slot) is not state:
+    def poll_stream(self) -> int:
+        """Harvest the token half of every stream-ring entry whose copy has
+        landed, oldest first, without waiting. The pump calls it in the
+        host's gaps (the overlap hook, between steps), so streamed tokens
+        reach consumers as soon as they are host-side; the control half
+        stays with the deferred flush (``_process_packed``). Returns the
+        frames delivered."""
+        if not self._ring:
+            return 0
+        self._ring_polls += 1
+        frames = 0
+        while self._ring:
+            entry = self._ring[0]
+            if entry.harvested:
+                self._ring.popleft()
                 continue
+            if not entry.ready():
+                break
+            self._ring_ready_polls += 1
+            frames += self._harvest_chunk(entry)
+        return frames
+
+    def _harvest_chunk(self, entry: _ChunkEntry) -> int:
+        """The token half of processing a chunk: the host read (a wait on
+        the entry's copy only), token and logprob appends, the deferred
+        first tokens, the length mirror, the incremental stop scan and the
+        stream emit. Idempotent. Columns apply only to the ``_Slot``
+        objects live at dispatch. Returns the frames delivered."""
+        if entry.harvested:
+            return 0
+        entry.harvested = True
+        try:
+            self._ring.remove(entry)
+        except ValueError:
+            pass
+        n_steps = entry.n_steps
+        b = self.max_slots
+        t_read = time.perf_counter()
+        flat = entry.read.numpy()
+        entry.host = flat
+        rows = flat[: (2 * n_steps + 4) * b].reshape(2 * n_steps + 4, b)
+        toks_np = rows[:n_steps]
+        lps_np = rows[n_steps:2 * n_steps].view(np.float32)
+        lengths_row = rows[2 * n_steps + 1]
+        firsts_tok = rows[2 * n_steps + 2]
+        firsts_lp = rows[2 * n_steps + 3].view(np.float32)
+        if entry.fresh_firsts:
+            # the whole firsts buffer rode the read: the rescues use it
+            self._firsts_host = rows[2 * n_steps + 2:]
+        # sync: dispatch to read; defer: the wait alone (a dispatch time
+        # would span an unrelated host step)
+        self.chunk_stats.add(time.perf_counter()
+                             - (t_read if self._defer else entry.t0))
+
+        frames = 0
+        for slot, state in entry.snapshot.items():
+            if self._slots.get(slot) is not state:
+                continue                 # finished earlier (or slot reused)
             self._lengths_host[slot] = lengths_row[slot]
             col, lcol = toks_np[:, slot], lps_np[:, slot]
-            progressed = bool((col >= 0).any())
-            prev = len(state.tokens)
+            # no progress: the slot was inactive on the device for the
+            # whole chunk (under defer_sync, a paused slot whose revive
+            # landed after this chunk was queued); the control half must
+            # not judge it from this chunk's caps
+            entry.progressed[slot] = bool(state.first_pending
+                                          or (col >= 0).any())
+            prev = len(state.tokens)     # first index not stop-scanned
+            if state.first_pending:
+                # TTFT is stamped at delivery under deferral
+                state.first_pending = False
+                state.tokens.append(int(firsts_tok[slot]))
+                state.logprobs.append(float(firsts_lp[slot]))
+                state.first_token_at = time.perf_counter()
+                self.ttft_stats.add(state.first_token_at - state.admitted_at)
             for si in range(n_steps):
                 if col[si] >= 0:
                     state.tokens.append(int(col[si]))
@@ -1103,15 +1421,37 @@ class ContinuousEngine:
             if (req.eos_id >= 0 or req.stop_ids or req.stop_sequences) \
                     and state.stop_cut < 0:
                 state.stop_cut = find_stop_cut(state.tokens, req, start=prev)
+            frames += self._emit_stream(state)
+        return frames
+
+    def _process_packed(self, entry: _ChunkEntry) -> None:
+        """The control half of processing a chunk (after its token half,
+        if the ring poll has not harvested it yet): finish the slots the
+        device retired, retire host-side stops, revive slots paused at the
+        chunk's capacity grant (``entry.caps``)."""
+        self._harvest_chunk(entry)
+        n_steps = entry.n_steps
+        b = self.max_slots
+        rows = entry.host[: (2 * n_steps + 4) * b].reshape(
+            2 * n_steps + 4, b)
+        active_np = rows[2 * n_steps].astype(bool)
+        lengths_row = rows[2 * n_steps + 1]
+
+        retired: List[int] = []
+        revived: List[int] = []
+        for slot, state in entry.snapshot.items():
+            if self._slots.get(slot) is not state:
+                continue
+            req = state.request
             if not active_np[slot]:
-                if not progressed:
+                if not entry.progressed.get(slot, False):
                     # inactive for the whole chunk: the chunk that stopped
                     # it decided pause or finish
                     continue
                 if (state.produced < req.max_new_tokens
                         and state.stop_cut < 0
-                        and int(lengths_row[slot]) >= chunk.caps[slot]
-                        and chunk.caps[slot] < self.max_seq_len):
+                        and int(lengths_row[slot]) >= entry.caps[slot]
+                        and entry.caps[slot] < self.max_seq_len):
                     # stopped at the chunk's capacity grant, not at a
                     # budget or stop: paused, the next step grows it
                     revived.append(slot)
@@ -1123,7 +1463,6 @@ class ContinuousEngine:
                 self._finish(slot, "stop")
         self._set_active(retired, False)
         self._set_active(revived, True)
-        return flat[(2 * n_steps + 3) * b:]
 
     # ---------------------------------------------------------------- run
 
@@ -1138,9 +1477,25 @@ class ContinuousEngine:
 
     def generate(self, requests: List[GenerationRequest]
                  ) -> List[GenerationResult]:
-        """Submit all, pump to completion, return in request order."""
-        order = [self.submit(r) for r in requests]
+        """Submit all, pump to completion, return in request order. With
+        ``max_waiting`` set, a request past the cap comes back as its own
+        ``finish_reason="overloaded"`` result (raising mid-batch would
+        strand the submitted head of the batch in the queue)."""
+        order: List[str] = []
+        shed: Dict[str, GenerationResult] = {}
+        for r in requests:
+            try:
+                order.append(self.submit(r))
+            except EngineOverloadedError as e:
+                rid = r.request_id or f"creq-shed-{self._rejected_full}"
+                r.request_id = rid
+                order.append(rid)
+                shed[rid] = GenerationResult(
+                    request_id=rid, tokens=[], finish_reason="overloaded",
+                    prompt_tokens=len(r.prompt),
+                    metadata={"overload_reason": e.reason})
         results = {r.request_id: r for r in self.run_until_idle()}
+        results.update(shed)
         return [results[i] for i in order]
 
     def drain_finished(self) -> List[GenerationResult]:
@@ -1151,6 +1506,8 @@ class ContinuousEngine:
         """Drop every waiting, mid-prefill and live request and free their
         pages."""
         n = len(self._waiting) + len(self._slots) + len(self._prefilling)
+        self._pending = None            # an unprocessed deferred chunk
+        self._ring.clear()              # and its stream-ring entry
         self._waiting.clear()
         for slot in list(self._slots) + list(self._prefilling):
             self._slots.pop(slot, None)
@@ -1170,6 +1527,53 @@ class ContinuousEngine:
         # pump gates its loop on this
         return len(self._slots) + len(self._prefilling)
 
+    # ------------------------------------------------------------- warmup
+
+    def warmup(self, batch: Optional[int] = None,
+               max_new_tokens: int = 2) -> int:
+        """Run the serving programs once before traffic: one rolling batch
+        per (admission batch bucket x prefill bucket), as the JAX engine's
+        warmup does (``batch`` restricts to one bucket); on a ragged
+        engine with chunked prefill, also one round per (admission batch
+        bucket x mixed-step chunk bucket), whose prompts prefill one chunk
+        and then a tail of that bucket beside one-token tails, so each
+        (rows, width) bucket a served run can reach runs once. On the card
+        this captures the graphs of those keys, so a served run captures
+        none. The prefix cache is off for the duration (warmup prompts
+        would otherwise hit each other's pages and skip the batched
+        prefill) and ``max_waiting`` is lifted; every page and slot is
+        returned at the end. Stat counters tick. Returns the rounds."""
+        if batch:
+            sizes = [batch]
+        else:
+            sizes = _pow2_buckets(self.max_slots)
+        rounds: List[List[int]] = []
+        for n in sizes:
+            for tb in self.prefill_buckets:
+                prompt_len = min(tb, self.max_seq_len - 1 - max_new_tokens)
+                if prompt_len >= 1:
+                    rounds.append([prompt_len] * n)
+        if self._mixed:
+            for n in sizes:
+                for qb in self._mixed_q_buckets:
+                    lens = [self._chunk + qb] + [self._chunk + 1] * (n - 1)
+                    if max(lens) <= self.max_seq_len - 1 - max_new_tokens:
+                        rounds.append(lens)
+        saved_prefix = self.prefix_cache
+        saved_cap = self.config.max_waiting
+        self.prefix_cache = False
+        self.config.max_waiting = 0
+        try:
+            for lens in rounds:
+                for n_tok in lens:
+                    self.submit(GenerationRequest(
+                        prompt=[1] * n_tok, max_new_tokens=max_new_tokens))
+                self.run_until_idle()
+        finally:
+            self.prefix_cache = saved_prefix
+            self.config.max_waiting = saved_cap
+        return len(rounds)
+
     # ------------------------------------------------------------ metrics
 
     def get_metrics(self) -> Dict[str, Any]:
@@ -1180,6 +1584,8 @@ class ContinuousEngine:
             "waiting": self.n_waiting,
             "live_slots": len(self._slots),
             "admission_denied": self._admission_denied,
+            "rejected_queue_full": self._rejected_full,
+            "shed_deadline": self._shed_deadline,
             "deadline_expired": self._deadline_expired,
             "capacity_finishes": self._capacity_finishes,
             "engine_steps": self._steps,
@@ -1200,6 +1606,15 @@ class ContinuousEngine:
             "prefix_hit_admissions": self._prefix_hit_admissions,
             "prefilling_slots": len(self._prefilling),
             "chunked_admissions": self._chunked_admissions,
+            "deferred_admissions": self._deferred_admissions,
+            # sub-chunk streaming: ring traffic, the clamp's engagements,
+            # and the firsts buffer's whole reads
+            "stream_ring_pushes": self._ring_pushes,
+            "stream_ring_polls": self._ring_polls,
+            "stream_ring_ready_polls": self._ring_ready_polls,
+            "stream_ring_depth": self._ring_high_water,
+            "stream_clamped_chunks": self._stream_clamped_chunks,
+            "firsts_fetches": self._firsts_fetches,
             "ttft": self.ttft_stats.snapshot(),
             "batch_occupancy": (self._occupancy_sum
                                 / (self._steps * self.max_slots)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..models.base import ModelSpec, pages_with_drop_row, torch_dtype
+from ..ops import _cuda
 
 
 def page_chain_hashes(tokens, n_pages: int, page_size: int) -> List[bytes]:
@@ -281,9 +282,10 @@ class PagedKVCache:
     @property
     def page_table(self) -> torch.Tensor:
         """The device table: one tensor for the cache's lifetime, refreshed
-        in place (one host-to-device copy) only after host changes."""
+        in place (one host-to-device copy, queued behind the work before
+        it) only after host changes."""
         if self._table_dirty:
-            self._table_dev.copy_(torch.from_numpy(self._table))
+            _cuda.upload_into(self._table_dev, self._table)
             self._table_dirty = False
         return self._table_dev
 

@@ -36,6 +36,26 @@ class EngineOverloadedError(RuntimeError):
         self.rpc_error_detail = reason
 
 
+# machine-readable error class for a request that aged out of its OWN
+# per-request budget (``GenerationRequest.deadline_s``). Distinct from an
+# OVERLOADED shed: a shed is the worker's problem (retriable elsewhere),
+# a deadline expiry is the request's problem (never retried — the client
+# already stopped caring, and replaying it only wastes another worker's
+# engine steps).
+DEADLINE = "deadline"
+
+
+class DeadlineExceededError(RuntimeError):
+    """The request's per-request deadline expired before completion."""
+
+    rpc_error_kind = DEADLINE
+
+    def __init__(self, msg: str, request_id: str = "") -> None:
+        super().__init__(msg)
+        self.request_id = request_id
+        self.rpc_error_detail = request_id
+
+
 @dataclass
 class GenerationRequest:
     """One generation job (token-id space; tokenization is a host concern)."""

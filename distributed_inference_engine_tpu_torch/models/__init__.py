@@ -92,8 +92,6 @@ def engine_from_config(cfg, device="cuda"):
         no("the disaggregated prefill role", "A10")
     if md.get("artifact"):
         no("serving artifacts (artifact=)", "A11")
-    if md.get("warmup"):
-        no("load-time warmup (warmup=)", "A6")
     if not _coerce(False, md.get("continuous", False)):
         no("the static engine (continuous=0)", "A8")
 

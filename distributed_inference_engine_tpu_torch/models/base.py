@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import _cuda
 from ..ops.attention import (
     causal_attention,
     merge_attention,
@@ -364,7 +365,7 @@ def _host(a) -> np.ndarray:
 def _device_ints(a, device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=torch.int32)
-    return torch.as_tensor(np.asarray(a, np.int32), device=device)
+    return _cuda.upload(np.asarray(a, np.int32), device)
 
 
 def scatter_indices(page_table, seq_lens, start, t: int, page_size: int
@@ -421,8 +422,8 @@ def forward_prefill_into_pages(spec: ModelSpec, params: Params,
     x = embed(spec, params, tokens, positions)
     lens = _device_ints(seq_lens, dev)
     src, dst = scatter_indices(page_table, seq_lens, None, t, p)
-    src = torch.as_tensor(src, device=dev)
-    dst = torch.as_tensor(dst, device=dev)
+    src = _cuda.upload(src, dev)
+    dst = _cuda.upload(dst, dev)
     for layer in range(spec.n_layers):
         x, k, v = transformer_block(
             spec, layer_view(params, layer), x, positions,
@@ -689,8 +690,8 @@ def write_prefill_pages(k_pages: torch.Tensor, v_pages: torch.Tensor,
     if dst.size == 0:
         return k_pages, v_pages
     dev = k_pages.device
-    src = torch.as_tensor(src, device=dev)
-    dst = torch.as_tensor(dst, device=dev)
+    src = _cuda.upload(src, dev)
+    dst = _cuda.upload(dst, dev)
     kflat = k_pages.view(L, n * p, fused)
     vflat = v_pages.view(L, n * p, fused)
     kflat[:, dst] = ks.reshape(L, B * T, fused)[:, src].to(k_pages.dtype)

@@ -28,6 +28,16 @@ the capture stream: it makes each kernel's first-launch host calls
 cuBLAS's workspaces and flash-decode's split scratch outside any graph.
 All graphs are captured on one stream a device (``capture_stream``), under
 ``GRAPH_LOCK``.
+
+Host transfers of the engine: ``HostRead`` is the one read of a chunk's
+packed output (the counterpart of JAX's ``copy_to_host_async`` and
+``is_ready``): a non-blocking copy into pinned host memory queued right
+behind the work that wrote it, with an event behind the copy, so the host
+can poll for it and waits on that event only. ``upload`` and
+``upload_into`` copy host data to the card through pinned memory without
+a stream synchronisation (a plain ``copy_`` from pageable memory waits for
+every kernel queued before it), so the host can queue a chunk while the
+previous one runs.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -165,6 +176,62 @@ def capture_graph(body: Callable[[], Any], *, pool: Any,
         finally:
             graph.capture_end()
     return CapturedGraph(graph, delta, out, time.perf_counter() - t0)
+
+
+class HostRead:
+    """One device tensor's copy into host memory. On a CUDA device the
+    copy goes into a pinned buffer of its own (from the caching host
+    allocator, which keeps the block until the copy has run), queued on
+    the current stream right behind the work that wrote the tensor, with
+    an event recorded behind it: ``ready()`` polls that event without a
+    host synchronisation, ``numpy()`` waits on it alone. On the CPU the
+    tensor is already final, so the read is always ready."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, src: torch.Tensor) -> None:
+        if src.device.type != "cuda":
+            self.host, self.event = src, None
+            return
+        self.host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        self.host.copy_(src, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(src.device))
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def numpy(self) -> np.ndarray:
+        """The host bytes (a copy of their own), once the copy has run."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy().copy()
+
+
+def _host_tensor(a, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    t = (a if isinstance(a, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(a)))
+    return t if dtype is None else t.to(dtype)
+
+
+def upload(a, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Host data ``a`` (a numpy array, or a CPU tensor) as a tensor on
+    ``device``: on a CUDA device a pinned copy and a non-blocking
+    host-to-device copy (no stream synchronisation); on the CPU the data
+    itself."""
+    t = _host_tensor(a, dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def upload_into(dst: torch.Tensor, a) -> None:
+    """Copy host data ``a`` into ``dst`` in place, as ``upload`` does."""
+    t = _host_tensor(a, dst.dtype)
+    if dst.device.type != "cuda":
+        dst.copy_(t)
+        return
+    dst.copy_(t.pin_memory(), non_blocking=True)
 
 
 

@@ -21,7 +21,12 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
-from ..engine.types import GenerationRequest, GenerationResult
+from ..engine.types import (
+    DeadlineExceededError,
+    EngineOverloadedError,
+    GenerationRequest,
+    GenerationResult,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -36,18 +41,22 @@ class EnginePump:
     def __init__(self, engine: Any) -> None:
         self.engine = engine
         self._overlap_admitted = 0
+        self._stream_frames_polled = 0
 
         # batch-formation overlap: the engine calls this right after
         # queueing a decode chunk, while the device is busy — the inbox
-        # drain runs in the step's shadow. Safe: the hook fires inside
-        # engine.step(), which only runs on the pump thread, and
-        # _drain_inbox only touches the engine via submit().
+        # drain runs in the step's shadow, then the stream ring's poll
+        # (the previous chunk's copy has had a chunk of device time to
+        # land). Safe: the hook fires inside engine.step(), which only
+        # runs on the pump thread, and it touches the engine only through
+        # submit() and poll_stream().
         def _overlap() -> None:
             self._overlap_admitted += self._drain_inbox()
+            self._stream_frames_polled += self.engine.poll_stream()
 
         engine.overlap_hook = _overlap
-        # (request, future, loop)
-        self._inbox: List[Tuple[GenerationRequest, asyncio.Future,
+        # (request, stream callback or None, future, loop)
+        self._inbox: List[Tuple[GenerationRequest, Any, asyncio.Future,
                                 asyncio.AbstractEventLoop]] = []
         self._inbox_lock = threading.Lock()
         # pump id -> (future, loop, caller's original request id)
@@ -63,17 +72,58 @@ class EnginePump:
 
     async def generate(self, requests: List[GenerationRequest]
                        ) -> List[GenerationResult]:
-        """Submit into the rolling batch; resolves when all finish."""
+        """Submit into the rolling batch; resolves when all finish.
+
+        Overload is a per-request outcome: a request refused at the queue
+        cap comes back as a result with ``finish_reason="overloaded"`` (no
+        tokens) while its siblings complete; single-request callers
+        (``generate_streaming``) get the typed error instead."""
+        return await self._submit_all(requests)
+
+    async def generate_streaming(self, request: GenerationRequest,
+                                 on_tokens) -> GenerationResult:
+        """``generate`` for one request, with ``on_tokens(tokens)`` called
+        on this loop with each batch of new tokens (trimmed as the final
+        result is). A shed request raises ``EngineOverloadedError``, one
+        past its own deadline ``DeadlineExceededError``."""
+        res = (await self._submit_all([request], on_tokens=on_tokens))[0]
+        if res.finish_reason == "overloaded":
+            reason = res.metadata.get("overload_reason", "queue_full")
+            raise EngineOverloadedError(
+                f"request {res.request_id} shed ({reason}); retry on "
+                "another replica or later", reason=reason)
+        if res.finish_reason == "deadline":
+            raise DeadlineExceededError(
+                f"request {res.request_id} deadline expired while queued",
+                request_id=res.request_id)
+        return res
+
+    async def _submit_all(self, requests: List[GenerationRequest],
+                          on_tokens=None) -> List[GenerationResult]:
         self._ensure_thread()
         loop = asyncio.get_running_loop()
+        cb = None
+        if on_tokens is not None:
+            # engine thread -> the caller's loop
+            def cb(tokens, _loop=loop, _cb=on_tokens):
+                _loop.call_soon_threadsafe(_cb, tokens)
         futs: List[asyncio.Future] = []
         with self._inbox_lock:
             for r in requests:
                 fut: asyncio.Future = loop.create_future()
-                self._inbox.append((r, fut, loop))
+                self._inbox.append((r, cb, fut, loop))
                 futs.append(fut)
         self._wake.set()
         return list(await asyncio.gather(*futs))
+
+    async def stop(self) -> None:
+        """Stop the thread and wait (up to 5 s) for its step in flight to
+        end."""
+        self.shutdown_nowait()
+        t = self._thread
+        if t is not None:
+            await asyncio.get_running_loop().run_in_executor(None, t.join,
+                                                             5.0)
 
     def shutdown_nowait(self) -> None:
         """Synchronous shutdown signal (``WorkerServer.stop``): stops the
@@ -84,7 +134,7 @@ class EnginePump:
         exc = RuntimeError("engine pump shut down")
         with self._inbox_lock:
             pending, self._inbox = self._inbox, []
-        for _req, fut, loop in pending:
+        for _req, _cb, fut, loop in pending:
             loop.call_soon_threadsafe(self._set_exc, fut, exc)
         self._fail_all(exc)
 
@@ -108,6 +158,9 @@ class EnginePump:
                     live = self.engine.step()
                     for res in self.engine.drain_finished():
                         self._resolve(res)
+                    # between steps: the chunk step() queued may already
+                    # be host-side
+                    self._stream_frames_polled += self.engine.poll_stream()
             except Exception as e:  # engine failure fans to all in-flight
                 self._step_errors += 1
                 logger.exception("engine pump step failed")
@@ -131,14 +184,24 @@ class EnginePump:
     def _drain_inbox(self) -> int:
         with self._inbox_lock:
             batch, self._inbox = self._inbox, []
-        for req, fut, loop in batch:
+        for req, cb, fut, loop in batch:
             pump_id = (f"pump-{id(self):x}-{len(self._futures)}-"
                        f"{time.monotonic_ns()}")
             original_id = req.request_id
             req.request_id = pump_id
             self._futures[pump_id] = (fut, loop, original_id)
             try:
-                self.engine.submit(req)
+                self.engine.submit(req, on_tokens=cb)
+            except EngineOverloadedError as e:
+                # a per-request outcome: siblings already submitted keep
+                # their futures (see generate())
+                del self._futures[pump_id]
+                shed = GenerationResult(
+                    request_id=original_id or pump_id, tokens=[],
+                    finish_reason="overloaded",
+                    prompt_tokens=len(req.prompt),
+                    metadata={"overload_reason": e.reason})
+                loop.call_soon_threadsafe(self._set_result, fut, shed)
             except Exception as e:      # e.g. an empty prompt
                 del self._futures[pump_id]
                 loop.call_soon_threadsafe(self._set_exc, fut, e)
@@ -182,5 +245,8 @@ class EnginePump:
             # requests admitted INSIDE a device step's shadow via the
             # engine's overlap hook (vs the top-of-loop drain)
             "overlap_admitted": self._overlap_admitted,
+            # streamed frames delivered by the ring polls rather than the
+            # deferred flush
+            "stream_frames_polled": self._stream_frames_polled,
             "engine": self.engine.get_metrics(),
         }

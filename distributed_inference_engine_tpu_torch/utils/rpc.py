@@ -1,11 +1,12 @@
 """Framed-RPC client and server loop (port of the parts of the JAX
-package's ``utils/rpc.py`` that ``ping``/``generate`` need).
+package's ``utils/rpc.py`` that the port's worker verbs need).
 
 Request: ``{"method": m, "id": ..., **params}``; response envelope:
 ``{"id", "success", "result" | "error"[, "error_kind", "error_detail"],
-**extra}`` — the same frames as the JAX plane, so either side's client
-talks to either side's server. Not ported: the plain-HTTP ``/metrics``
-side door, streaming methods and fault injection.
+**extra}``; a streaming method sends ``{"stream": true, "id": ...,
+**chunk}`` frames ahead of its envelope — the same frames as the JAX
+plane, so either side's client talks to either side's server. Not ported:
+the plain-HTTP ``/metrics`` side door and fault injection.
 """
 
 from __future__ import annotations
@@ -69,7 +70,24 @@ class FramedRPCClient:
     async def call(self, method: str, *, timeout: Optional[float] = None,
                    **params: Any) -> Any:
         """One request frame, one response frame. Raises ``RPCError`` when
-        the peer reports failure; transport errors propagate."""
+        the peer reports failure (or sends a stream frame: use
+        ``call_stream``); transport errors propagate."""
+        return await self._roundtrip(method, None, timeout, params)
+
+    async def call_stream(self, method: str, on_chunk: Callable[[Dict], None],
+                          *, timeout: Optional[float] = None,
+                          **params: Any) -> Any:
+        """One request, then the stream frames (each passed to
+        ``on_chunk``) ahead of the usual envelope; returns the final
+        result. ``timeout`` bounds each frame's read, not the call."""
+        return await self._roundtrip(method, on_chunk, timeout, params)
+
+    async def _roundtrip(self, method: str,
+                         on_chunk: Optional[Callable[[Dict], None]],
+                         timeout: Optional[float],
+                         params: Dict[str, Any]) -> Any:
+        """The one request/response cycle of ``call`` and
+        ``call_stream``."""
         if self._slots is None:
             self._slots = asyncio.Semaphore(self.max_connections)
         self._seq += 1
@@ -79,9 +97,21 @@ class FramedRPCClient:
             conn = await self._acquire(effective)
             try:
                 await write_frame(conn[1], msg)
-                response = await read_frame(conn[0], max_frame=self.max_frame,
-                                            timeout=effective)
+                while True:
+                    frame = await read_frame(conn[0],
+                                             max_frame=self.max_frame,
+                                             timeout=effective)
+                    if isinstance(frame, dict) and frame.get("stream"):
+                        if on_chunk is None:
+                            raise RPCError(
+                                f"unexpected stream frame from {method!r} "
+                                "— use call_stream for streaming methods")
+                        on_chunk(frame)
+                        continue
+                    response = frame
+                    break
             except BaseException:
+                # a cancelled or failed caller leaves frames on the socket
                 conn[1].close()
                 raise
             self._free.append(conn)
@@ -94,13 +124,59 @@ class FramedRPCClient:
         return response.get("result")
 
 
+class ClientGone(Exception):
+    """The streaming client hung up mid-stream — not a handler failure."""
+
+
+async def relay_stream(fut: "asyncio.Future", queue: "asyncio.Queue",
+                       send) -> Any:
+    """Forward token chunks from ``queue`` to ``send`` until ``fut``
+    resolves, send the stragglers, return the result. Sound because the
+    chunk callbacks and the future's resolution ride the same
+    ``call_soon_threadsafe`` FIFO: when ``fut`` is done, every chunk is
+    queued."""
+    try:
+        while True:
+            getter = asyncio.ensure_future(queue.get())
+            done, _ = await asyncio.wait(
+                {getter, fut}, return_when=asyncio.FIRST_COMPLETED)
+            if getter in done:
+                await send({"tokens": getter.result()})
+                continue
+            getter.cancel()
+            break
+        while not queue.empty():
+            await send({"tokens": queue.get_nowait()})
+        return await fut
+    except BaseException:
+        fut.cancel()
+        raise
+
+
+def _error_envelope(req_id: str, extra: Dict[str, Any],
+                    e: Exception) -> Dict[str, Any]:
+    response = {"id": req_id, "success": False, **extra, "error": str(e)}
+    kind = getattr(e, "rpc_error_kind", "") or getattr(e, "kind", "")
+    if kind:
+        response["error_kind"] = kind
+    detail = (getattr(e, "rpc_error_detail", "")
+              or getattr(e, "detail", ""))
+    if detail:
+        response["error_detail"] = detail
+    return response
+
+
 class FramedServerMixin:
     """Framed-RPC server connection loop. Subclasses set ``_methods``
-    (name -> async handler) and ``_conn_writers`` (a set), and may
-    override the hooks ``_run_handler``, ``_envelope_extra`` and
-    ``_after_dispatch``. Responses come back in frame order."""
+    (name -> async handler) and ``_conn_writers`` (a set), and may set
+    ``_stream_methods`` (name -> ``handler(msg, send)``, where ``await
+    send(obj)`` writes a ``{"stream": true, "id": ...}`` frame ahead of
+    the envelope) and override the hooks ``_run_handler``,
+    ``_envelope_extra``, ``_on_handler_error`` and ``_after_dispatch``.
+    Responses come back in frame order."""
 
     _methods: Dict[str, Callable[[Dict[str, Any]], Awaitable[Any]]]
+    _stream_methods: Dict[str, Callable[..., Awaitable[Any]]] = {}
     _conn_writers: set
     max_frame_bytes: int = 64 * 1024 * 1024
 
@@ -118,7 +194,13 @@ class FramedServerMixin:
                     await write_frame(writer, {"success": False,
                                                "error": f"bad frame: {e}"})
                     break
-                response = await self._dispatch(msg)
+                if (isinstance(msg, dict)
+                        and msg.get("method") in self._stream_methods):
+                    response = await self._dispatch_stream(msg, writer)
+                    if response is None:      # client hung up mid-stream
+                        break
+                else:
+                    response = await self._dispatch(msg)
                 try:
                     await write_frame(writer, response)
                 except (ConnectionResetError, BrokenPipeError):
@@ -151,17 +233,47 @@ class FramedServerMixin:
             response = {"id": req_id, "success": False, **extra,
                         "error": f"{method} timed out"}
         except Exception as e:       # fan the error back, keep serving
+            self._on_handler_error(method, e)
             logger.warning("%s: %s failed: %s", type(self).__name__,
                            method, e)
-            response = {"id": req_id, "success": False, **extra,
-                        "error": str(e)}
-            kind = getattr(e, "rpc_error_kind", "") or getattr(e, "kind", "")
-            if kind:
-                response["error_kind"] = kind
-            detail = (getattr(e, "rpc_error_detail", "")
-                      or getattr(e, "detail", ""))
-            if detail:
-                response["error_detail"] = detail
+            response = _error_envelope(req_id, extra, e)
+        self._after_dispatch(method, req_id, time.perf_counter() - t0,
+                             response)
+        return response
+
+    async def _dispatch_stream(self, msg: Dict[str, Any],
+                               writer: asyncio.StreamWriter
+                               ) -> Optional[Dict[str, Any]]:
+        """Run a streaming handler: its chunk frames go out as it sends
+        them, then the envelope. Returns None when the client hung up
+        mid-stream (routine for an aborted generation, not a handler
+        failure, and nobody is left to answer)."""
+        t0 = time.perf_counter()
+        method = msg["method"]
+        handler = self._stream_methods[method]
+        req_id = msg.get("id", "")
+        extra = self._envelope_extra()
+
+        async def send(obj: Dict[str, Any]) -> None:
+            try:
+                await write_frame(writer,
+                                  {"stream": True, "id": req_id, **obj})
+            except (ConnectionResetError, BrokenPipeError, OSError) as e:
+                raise ClientGone() from e
+
+        try:
+            result = await handler(msg, send)
+            response = {"id": req_id, "success": True, **extra,
+                        "result": result}
+        except ClientGone:
+            logger.info("%s: client disconnected mid-stream (%s)",
+                        type(self).__name__, method)
+            return None
+        except Exception as e:
+            self._on_handler_error(method, e)
+            logger.warning("%s: %s failed: %s", type(self).__name__,
+                           method, e)
+            response = _error_envelope(req_id, extra, e)
         self._after_dispatch(method, req_id, time.perf_counter() - t0,
                              response)
         return response
@@ -171,6 +283,9 @@ class FramedServerMixin:
 
     def _envelope_extra(self) -> Dict[str, Any]:
         return {}
+
+    def _on_handler_error(self, method: str, exc: Exception) -> None:
+        pass
 
     def _after_dispatch(self, method: str, req_id: str, duration_s: float,
                         response: Dict[str, Any]) -> None:

@@ -18,7 +18,13 @@ replays emit the eager bodies' tokens and logprobs exactly (the same kernels
 on the same inputs), count the same launches, and write the same pages;
 sampled replays advance the generator and reproduce under a seed; two
 engines of different shapes replaying in turn on one stream each emit their
-own eager tokens (flash-decode's shared split scratch)."""
+own eager tokens (flash-decode's shared split scratch).
+
+The host paths on the card: graph replays under deferred admission,
+``defer_sync`` and sub-chunk streaming emit the eager hook's tokens and
+logprobs and count its launches; a packed read's event turns ready without
+a host synchronisation; a served run after ``warmup()`` captures no
+graph."""
 
 import pytest
 import torch
@@ -871,3 +877,119 @@ def test_two_engines_replay_in_turn(card):
         assert [got[k][f"g{i}"].tokens for i in range(4)] == \
             [r.tokens for r in want[k]], k
         assert engines[k].get_metrics()["cuda_graphs"] >= 1
+
+
+# ------------------------------------------------------------ host paths
+
+HOST_PATHS = [
+    ("deferred", {}),
+    ("defer_sync", dict(defer_sync=True)),
+    ("streaming", dict(stream_chunk_steps=2)),
+    ("defer_sync streaming", dict(defer_sync=True, stream_chunk_steps=1)),
+]
+# fully backed, as defer_sync needs: 4 slots x 8 pages of 16
+HOST_KW = dict(GRAPH_KW, num_pages=32)
+
+
+def _host_run(spec, params, card, cfg, eager, label):
+    """Two requests, one step, two more (admitted under decode pressure:
+    deferred), a stream callback on each when ``cfg`` streams; returns
+    (results in request order, launches, frames, engine)."""
+    eng = ContinuousEngine(spec, params=params, seed=0, device=card,
+                           config=EngineConfig(**dict(HOST_KW, **cfg)))
+    eng._eager = eager
+    frames = {}
+    reqs = [GenerationRequest(prompt=p, max_new_tokens=13,
+                              request_id=f"{label}{i}")
+            for i, p in enumerate(_graph_prompts())]
+    with _cuda.recording_launches() as launches:
+        for i, r in enumerate(reqs):
+            if i == 2:
+                eng.step()
+            if cfg.get("stream_chunk_steps"):
+                frames[r.request_id] = []
+                eng.submit(r, on_tokens=frames[r.request_id].extend)
+            else:
+                eng.submit(r)
+        out = {r.request_id: r for r in eng.run_until_idle()}
+        torch.cuda.synchronize()
+    return [out[r.request_id] for r in reqs], launches, frames, eng
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("impl", ["pallas-decode", "pallas-ragged"])
+@pytest.mark.parametrize("label,cfg", HOST_PATHS,
+                         ids=[p[0] for p in HOST_PATHS])
+def test_host_paths_replay_like_eager(card, label, cfg, impl, dtype):
+    """Deferred admission, defer_sync and sub-chunk streaming on the
+    window scheme and the ragged mixed step (chunked prefill): graph
+    replays emit the eager hook's tokens and logprobs bit for bit and
+    count its launches; streams equal their results."""
+    spec, params = _tiny_weights(card, "llama", dtype)
+    cfg = dict(cfg, attention_impl=impl)
+    if impl == "pallas-ragged":
+        cfg["prefill_chunk"] = 16
+    want, e_launches, _, eng_e = _host_run(spec, params, card, cfg, True,
+                                           "h")
+    got, g_launches, frames, eng_g = _host_run(spec, params, card, cfg,
+                                               False, "h")
+    assert [r.tokens for r in got] == [r.tokens for r in want], label
+    assert [r.logprobs for r in got] == [r.logprobs for r in want], label
+    assert g_launches == e_launches and sum(g_launches.values()) > 0
+    m = eng_g.get_metrics()
+    # the ragged engine's later prompts prefill in chunks: no deferral
+    assert m["deferred_admissions"] == eng_e.get_metrics()[
+        "deferred_admissions"] == (2 if impl == "pallas-decode" else 0)
+    assert m["cuda_graphs"] >= 1
+    for r in got:
+        assert len(r.tokens) == 13
+        if frames:
+            assert frames[r.request_id] == r.tokens
+    if cfg.get("defer_sync"):
+        assert m["stream_ring_pushes"] >= 1
+    if cfg.get("stream_chunk_steps"):
+        assert m["stream_clamped_chunks"] >= 1
+
+
+def test_host_read_turns_ready_without_a_sync(card):
+    """A packed read queued behind a long kernel is not ready at once;
+    polling ``ready()`` (an event query, no host synchronisation) turns
+    true once the copy has run, and the bytes are the tensor's."""
+    import time
+
+    src = torch.zeros(4096, dtype=torch.int32, device=card)
+    torch.cuda._sleep(200_000_000)              # ~0.1 s of device time
+    src.add_(7)
+    read = _cuda.HostRead(src)
+    assert not read.ready()
+    t0 = time.perf_counter()
+    while not read.ready():
+        assert time.perf_counter() - t0 < 30
+    assert read.host.is_pinned()
+    assert (read.numpy() == 7).all()
+
+
+def test_served_run_after_warmup_captures_nothing(card):
+    """``warmup()`` runs every key a served run reaches (the decode chunk;
+    on a ragged engine the mixed buckets): the run afterwards captures no
+    graph, and emits the tokens of an engine without the warmup."""
+    spec, params = _tiny_weights(card, "llama", "bfloat16")
+    cfg = dict(attention_impl="pallas-ragged", prefill_chunk=16)
+    want, _, _, _ = _host_run(spec, params, card, cfg, False, "w")
+    eng = ContinuousEngine(spec, params=params, seed=0, device=card,
+                           config=EngineConfig(**dict(HOST_KW, **cfg)))
+    assert eng.warmup() > 0
+    graphs = dict(eng._graphs)
+    assert graphs and eng.n_live == 0
+    assert eng.kv.get_stats()["live_slots"] == 0
+    reqs = [GenerationRequest(prompt=p, max_new_tokens=13,
+                              request_id=f"w{i}")
+            for i, p in enumerate(_graph_prompts())]
+    for i, r in enumerate(reqs):
+        if i == 2:
+            eng.step()
+        eng.submit(r)
+    out = {r.request_id: r for r in eng.run_until_idle()}
+    assert [out[r.request_id].tokens for r in reqs] == \
+        [r.tokens for r in want]
+    assert eng._graphs.keys() == graphs.keys()

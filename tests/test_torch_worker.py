@@ -191,10 +191,20 @@ def test_engine_from_config_rejects_unported():
                    dict(metadata={**base["metadata"], "speculative": 2}),
                    dict(metadata={**base["metadata"], "continuous": False}),
                    dict(metadata={**base["metadata"],
-                                  "stream_chunk_steps": "2"})):
+                                  "kv_dtype": "float8_e4m3fn"}),
+                   dict(metadata={**base["metadata"], "kv_offload": "1"}),
+                   dict(metadata={**base["metadata"], "spec_async": "1"}),
+                   dict(metadata={**base["metadata"], "artifact": "/a"})):
         with pytest.raises(NotImplementedError):
             engine_from_config(ModelConfig(**{**base, **change}),
                                device="cpu")
+    # ported in the host-path slice: streaming, shedding and warmup=
+    eng = engine_from_config(ModelConfig(**{**base, "metadata": {
+        **base["metadata"], "stream_chunk_steps": "2", "max_waiting": "3",
+        "queue_deadline_s": "0.5", "warmup": "1"}}, max_seq_len=64),
+        device="cpu")
+    assert (eng.config.stream_chunk_steps, eng.config.max_waiting,
+            eng.config.queue_deadline_s) == (2, 3, 0.5)
     eng = engine_from_config(ModelConfig(**base, dtype="float32",
                                          max_seq_len=64), device="cpu")
     assert eng.spec.n_layers == 4 and eng.max_seq_len == 64
