@@ -59,20 +59,44 @@ Phases, each failing loudly (any failure exits non-zero):
    Attention kernels are also held per output row to max|out - ref32| /
    max|ref32| against the plain version on the same values in fp32. Each
    bound counts the valid work only (no query padding).
-3. ``serve``: starts the port's worker CLI on a free localhost port with
-   the full 32-layer llama3-8b (random bf16 weights from seed 0,
-   ``attention_impl=pallas-decode``, ``warmup=1``: the engine's warmup
-   runs at load and captures its graphs), sends 8 concurrent requests
-   (prompts of 16-600 tokens, two sharing a 256-token prefix, 32 new
-   tokens each) through the port's ``WorkerClient``, checks counts,
-   lengths and finish reasons, and reads the worker's kernel launch counts
-   (zeroed just before the requests) and its engine counters (read there
-   too: the checks use their differences over the waves). Every worker
-   phase prints its warmup's rounds, seconds and graphs, and fails if a
-   graph, decode key or mixed bucket appears during its waves. ``serve``
-   then streams one request through ``generate_stream``: the frames,
-   joined, must equal its result and ``generate``'s greedy tokens for the
-   same prompt.
+3. ``fleet`` (it holds the ``serve`` phase, whose lines and checks keep
+   their ``[serve]`` tag): starts the port's worker CLI with no model on
+   a free localhost port and drives it through the port's
+   ``WorkerClient``:
+   - deploys ``serve`` over ``load_model``: the full 32-layer llama3-8b
+     (random bf16 weights from seed 0, ``attention_impl=pallas-decode``,
+     ``warmup=1``: the engine's warmup runs at load and captures its
+     graphs), reading the worker's device memory before (``nvidia-smi
+     --query-compute-apps``, or the card's used memory where the tool does
+     not list the pid); the same ``load_model`` again returns at once;
+   - the ``serve`` wave: 8 concurrent requests (prompts of 16-600
+     tokens, two sharing a 256-token prefix, 32 new tokens each), with
+     counts, lengths, finish reasons, each result's ``worker_trace``
+     (received <= first token <= done), the worker's kernel launch counts
+     (zeroed just before the requests) and its engine counters (read there
+     too: the checks use their differences over the waves). Every worker
+     phase prints its warmup's rounds, seconds and graphs, and fails if a
+     graph, decode key or mixed bucket appears during its waves. Then one
+     request streams through ``generate_stream``: the frames, joined, must
+     equal its result and ``generate``'s greedy tokens for the same
+     prompt;
+   - ``stage_model`` of the ``int4`` phase's model (as
+     ``llama3-8b-int4``) and at once ``swap_model`` gated on the int4
+     worker's greedy tokens of the golden prompt, while ``serve`` waves
+     run back to back: their tok/s against the wave before and after,
+     ``stage_overlap_steps``, the stage and swap seconds;
+   - the ``int4`` phase's two waves and checks through the swapped-in
+     model; ``resident_models`` (both, their bytes the engines'
+     ``param_bytes``); a ``profile`` of one int4 wave whose Chrome trace
+     names the ragged and int4 kernels; ``metrics_text`` over RPC and
+     ``GET /metrics`` (the same families); ``events`` (``model.stage``,
+     ``model.swap``, a timeline a model whose ``compile`` records are its
+     warm-up's graph captures);
+   - ``unload_model`` of both: the worker's memory back within
+     ``UNLOAD_SLACK_GIB`` of the reading before the first load; a reload
+     of ``serve`` and one request with the streamed request's tokens;
+     then ``drain`` with two requests in flight (both finish) and a later
+     ``generate`` shed with ``overloaded``/``draining``.
 4. ``mixed``: the worker CLI again, once the first has shut down, with
    ``attention_impl=pallas-ragged,prefill_chunk=256,mixed_step_tokens=512``
    (same weights): 8 concurrent requests with prompts of 16-900 tokens,
@@ -102,14 +126,16 @@ Phases, each failing loudly (any failure exits non-zero):
    times the bf16 mixed steps over the mixed phase's first wave. Its
    ``[host]`` lines (``phase_host``) run the serve prompts through the
    engine's host paths (bf16, ``decode_fused``, graphs): sync admission,
-   deferred admission, ``defer_sync``, ``stream_chunk_steps=2`` with a
-   callback on every request, and ``defer_sync`` through the eager hook;
-   the four full-chunk runs must emit equal tokens and logprobs, the
+   deferred admission with the step timeline on (the default) and off,
+   ``defer_sync``, ``stream_chunk_steps=2`` with a callback on every
+   request, and ``defer_sync`` through the eager hook; the five
+   full-chunk runs must emit equal tokens and logprobs, the
    ``defer_sync`` graph and eager runs the same launches; each prints its
    profiled decode ms per step, busy share and host gap per step, and its
    deferred admissions, firsts fetches, stream-ring counters and decode
    keys.
-6. ``int4``: the worker CLI with the ``mixed`` model plus
+6. ``int4`` (run before ``fleet``, which needs its probe tokens): the
+   worker CLI with the ``mixed`` model plus
    ``quantized=1,weight_bits=4`` (int4 weights born from seed 0) and the
    mixed phase's two waves. Checks the results, 32 ragged launches per
    mixed step (tensor cores), 129 ``int4_matmul`` launches per forward
@@ -150,12 +176,15 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import collections
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -1056,10 +1085,10 @@ def phase_kernels(torch, card: str):
 # ------------------------------------------------------------- phases 3/4
 
 
-def serve_prompts():
+def serve_prompts(seed: int = 7):
     import numpy as np
 
-    rs = np.random.RandomState(7)
+    rs = np.random.RandomState(seed)
     vocab = 128256
     shared = rs.randint(1, vocab, size=256).tolist()
     prompts = [rs.randint(1, vocab, size=n).tolist()
@@ -1080,14 +1109,14 @@ def check_results(results, prompts, label: str, vocab: int = 128256
         assert all(0 <= t < vocab for t in r.tokens), f"{label}: token id"
 
 
-def mixed_prompts():
+def mixed_prompts(seed: int = 11):
     """Wave 1: 8 prompts of 16-900 tokens (the four over 256 prefill in
     chunks). Wave 2: the first 256 tokens of the 520-token prompt plus a
     400-token tail (a prefix hit resuming chunked at 256), and a 40-token
     prompt that decodes while it prefills."""
     import numpy as np
 
-    rs = np.random.RandomState(11)
+    rs = np.random.RandomState(seed)
     vocab = 128256
     wave1 = [rs.randint(1, vocab, size=n).tolist()
              for n in (16, 40, 100, 200, 300, 520, 700, 900)]
@@ -1096,13 +1125,14 @@ def mixed_prompts():
     return wave1, wave2
 
 
-def start_worker(model: str):
+def start_worker(model):
+    """The worker CLI on a free port, preloading ``model`` (None: none)."""
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep +
                os.environ.get("PYTHONPATH", ""))
     proc = subprocess.Popen(
         [sys.executable, "-m", f"{PKG}.cli.worker", "--worker-id", "smoke",
-         "--host", "127.0.0.1", "--port", "0", "--model", model,
-         "--log-level", "WARNING"],
+         "--host", "127.0.0.1", "--port", "0",
+         *(["--model", model] if model else []), "--log-level", "WARNING"],
         cwd=str(REPO), env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     deadline = time.time() + 500
@@ -1146,14 +1176,73 @@ def wave_delta(before, after):
     return eng
 
 
-async def drive_worker(host, port, waves, name: str, stream_prompt=None):
+def check_worker_trace(r, label: str) -> None:
+    """A result's ``worker_trace``: this worker's offsets, ordered."""
+    wt = r.metadata.get("worker_trace")
+    assert wt and wt["worker_id"] == "smoke", (label, r.metadata)
+    o = wt["offsets"]
+    assert 0.0 == o["received"] <= o["first_token"] <= o["done"], (label, o)
+
+
+async def serve_waves(client, waves, name: str, stream_prompt=None):
     """Each wave's requests concurrently through the port's
     ``WorkerClient`` to model ``name``, a wave after the previous one
     returned; the worker's kernel launch counts are zeroed just before the
     first wave and read just after the last, its engine metrics read at
     both points (the load-time warmup ran before). ``stream_prompt``: then
     one request through ``generate_stream`` and the same prompt through
-    ``generate``. Fails if a CUDA graph is captured after the warmup."""
+    ``generate``. Fails if a CUDA graph is captured after the warmup, or a
+    result lacks its ordered ``worker_trace``."""
+    from distributed_inference_engine_tpu_torch.engine.types import (
+        GenerationRequest)
+
+    await client.kernel_counts(reset=True)       # main path starts here
+    before = (await client.metrics())["models"][name]
+    results, wall = [], 0.0
+    for w, prompts in enumerate(waves):
+        t0 = time.perf_counter()
+        outs = await asyncio.gather(*[
+            client.generate(name, [GenerationRequest(
+                prompt=p, max_new_tokens=32, request_id=f"w{w}_{i}")])
+            for i, p in enumerate(prompts)])
+        wall += time.perf_counter() - t0
+        results.append([o[0] for o in outs])
+    launches = await client.kernel_counts()      # ... and ends here
+    for r in (r for rs in results for r in rs):
+        check_worker_trace(r, name)
+    after = (await client.metrics())["models"][name]
+    for k in ("cuda_graphs", "decode_programs", "mixed_programs"):
+        assert after[k] == before[k], (
+            f"{name}: {k} grew during the waves: {before[k]} after "
+            f"the warmup, {after[k]} after the waves")
+    assert before["cuda_graphs"] >= 1, before["cuda_graphs"]
+    stream = None
+    if stream_prompt is not None:
+        frames = []
+        res = await client.generate_stream(name, GenerationRequest(
+            prompt=stream_prompt, max_new_tokens=32,
+            request_id="stream"), frames.append)
+        plain = (await client.generate(name, [GenerationRequest(
+            prompt=stream_prompt, max_new_tokens=32,
+            request_id="plain")]))[0]
+        joined = [t for f in frames for t in f]
+        assert joined == res.tokens, "stream frames != its result"
+        assert res.tokens == plain.tokens and len(plain.tokens) == 32, \
+            "streamed tokens != generate's"
+        last = (await client.metrics())["models"][name]
+        assert last["cuda_graphs"] == before["cuda_graphs"], last
+        check_worker_trace(res, f"{name} stream")
+        stream = dict(frames=len(frames), tokens=len(joined),
+                      ttft=res.ttft_s, result=res.tokens)
+    return dict(results=results, wall=wall, launches=launches,
+                eng=wave_delta(before, after), warm=before, stream=stream)
+
+
+async def drive_worker(host, port, waves, name: str, stream_prompt=None,
+                       probe_prompt=None):
+    """``serve_waves`` on the worker CLI preloaded with model ``name``,
+    then (``probe_prompt``) that prompt's 8 greedy tokens, then the
+    worker's shutdown."""
     from distributed_inference_engine_tpu_torch.cluster.worker import (
         WorkerClient)
     from distributed_inference_engine_tpu_torch.engine.types import (
@@ -1163,56 +1252,22 @@ async def drive_worker(host, port, waves, name: str, stream_prompt=None):
     try:
         pong = await client.ping()
         assert pong["models"] == [name], pong
-        await client.kernel_counts(reset=True)       # main path starts here
-        before = (await client.metrics())["models"][name]
-        results, wall = [], 0.0
-        for w, prompts in enumerate(waves):
-            t0 = time.perf_counter()
-            outs = await asyncio.gather(*[
-                client.generate(name, [GenerationRequest(
-                    prompt=p, max_new_tokens=32, request_id=f"w{w}_{i}")])
-                for i, p in enumerate(prompts)])
-            wall += time.perf_counter() - t0
-            results.append([o[0] for o in outs])
-        launches = await client.kernel_counts()      # ... and ends here
-        after = (await client.metrics())["models"][name]
-        for k in ("cuda_graphs", "decode_programs", "mixed_programs"):
-            assert after[k] == before[k], (
-                f"{name}: {k} grew during the waves: {before[k]} after "
-                f"the warmup, {after[k]} after the waves")
-        assert before["cuda_graphs"] >= 1, before["cuda_graphs"]
-        stream = None
-        if stream_prompt is not None:
-            frames = []
-            res = await client.generate_stream(name, GenerationRequest(
-                prompt=stream_prompt, max_new_tokens=32,
-                request_id="stream"), frames.append)
-            plain = (await client.generate(name, [GenerationRequest(
-                prompt=stream_prompt, max_new_tokens=32,
-                request_id="plain")]))[0]
-            joined = [t for f in frames for t in f]
-            assert joined == res.tokens, "stream frames != its result"
-            assert res.tokens == plain.tokens and len(plain.tokens) == 32, \
-                "streamed tokens != generate's"
-            last = (await client.metrics())["models"][name]
-            assert last["cuda_graphs"] == before["cuda_graphs"], last
-            stream = dict(frames=len(frames), tokens=len(joined),
-                          ttft=res.ttft_s)
+        out = await serve_waves(client, waves, name, stream_prompt)
+        if probe_prompt is not None:
+            (r,) = await client.generate(name, [GenerationRequest(
+                prompt=list(probe_prompt), max_new_tokens=8,
+                request_id="probe")])
+            out["probe"] = list(r.tokens)
         await client.shutdown()
     finally:
         await client.close()
-    return dict(results=results, wall=wall, launches=launches,
-                eng=wave_delta(before, after), warm=before, stream=stream)
+    return out
 
 
-def run_worker(model: str, waves, stream_prompt=None):
-    """Start the worker CLI with ``model`` (metadata ``warmup=1``: its
-    engine runs the serving programs at load), drive ``waves`` through it,
-    and wait for it to exit; also returns the warmup's line. This
-    process's cached device memory is freed first."""
+def free_this_process(torch) -> None:
+    """Give this process's cached device memory back before a worker
+    starts."""
     import gc
-
-    import torch
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -1220,11 +1275,21 @@ def run_worker(model: str, waves, stream_prompt=None):
     log(f"[worker] starting with {free / 2**30:.1f} of {total / 2**30:.1f} "
         f"GiB free; this process holds "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+
+def run_worker(model: str, waves, stream_prompt=None, probe_prompt=None):
+    """Start the worker CLI with ``model`` (metadata ``warmup=1``: its
+    engine runs the serving programs at load), drive ``waves`` through it,
+    and wait for it to exit; also returns the warmup's line. This
+    process's cached device memory is freed first."""
+    import torch
+
+    free_this_process(torch)
     name = re.search(r"name=([^,]+)", model).group(1)
     proc, host, port, lines = start_worker(model)
     try:
         out = asyncio.run(drive_worker(host, port, waves, name,
-                                       stream_prompt))
+                                       stream_prompt, probe_prompt))
         proc.wait(timeout=120)
     finally:
         if proc.poll() is None:
@@ -1270,9 +1335,8 @@ def served_line(results, wall: float) -> str:
             f" max {ttfts[-1]:.3f} s")
 
 
-def phase_serve(torch, card: str):
-    prompts = serve_prompts()
-    out = run_worker(SERVE_MODEL, [prompts], stream_prompt=prompts[0])
+def report_serve(out, prompts, card: str):
+    """The ``serve`` checks and lines over ``serve_waves``'s output."""
     results, wall, launches, eng = (out["results"][0], out["wall"],
                                     out["launches"], out["eng"])
     check_results(results, prompts, "serve")
@@ -1290,7 +1354,343 @@ def phase_serve(torch, card: str):
     log(f"[serve] generate_stream: {st['tokens']} tokens in {st['frames']} "
         f"frames, joined equal to its result and to generate's greedy "
         f"tokens for the same prompt; TTFT {st['ttft']:.3f} s [{card}]")
-    return prompts, results, launches
+    return results, launches
+
+
+# the fleet phase's second model: INT4_MODEL's weights under their own name
+INT4_FLEET_NAME = "llama3-8b-int4"
+# a worker's device memory after unloading everything, against before the
+# first load
+UNLOAD_SLACK_GIB = 2.0
+
+
+def memory_reader(pid: int):
+    """A function reading ``pid``'s device memory in GiB from
+    ``nvidia-smi --query-compute-apps``, or, where the tool does not list
+    that pid (another PID namespace), the card's used memory (this
+    process's allocations stay put meanwhile); and which of the two."""
+    def apps():
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30).stdout
+        rows = [x.split(",") for x in out.strip().splitlines() if "," in x]
+        return {int(p): float(m) / 1024 for p, m in rows
+                if p.strip().isdigit()}
+
+    def device():
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30).stdout
+        return float(out.strip().splitlines()[0]) / 1024
+
+    if pid in apps():
+        return (lambda: apps()[pid]), f"pid {pid}"
+    return device, "the card (pid not listed)"
+
+
+def families(text: str) -> set:
+    """Metric family names with a sample in an OpenMetrics exposition."""
+    names = set()
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            names.add(("decl", line.split()[2]))
+        elif line and not line.startswith("#"):
+            names.add(("sample", line.split("{", 1)[0].split(" ", 1)[0]))
+    decl = {n for k, n in names if k == "decl"}
+    out = set()
+    for k, n in names:
+        if k != "sample":
+            continue
+        for sfx in ("_total", "_bucket", "_count", "_sum", ""):
+            if n.endswith(sfx) and n[: len(n) - len(sfx)] in decl:
+                out.add(n[: len(n) - len(sfx)])
+                break
+    return out
+
+
+async def http_get(host: str, port: int, path: str):
+    reader, writer = await asyncio.open_connection(host, port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: smoke\r\n\r\n".encode())
+    await writer.drain()
+    chunks = []
+    while True:
+        b = await asyncio.wait_for(reader.read(1 << 20), timeout=60)
+        if not b:
+            break
+        chunks.append(b)
+    writer.close()
+    head, _, body = b"".join(chunks).partition(b"\r\n\r\n")
+    return head.decode("latin-1"), body.decode()
+
+
+def traced_kernels(path: str):
+    """A Chrome trace's kernel events by name, and the counts of the
+    ragged tensor-core, int4 and flash-decode kernels among them; fails
+    unless the ragged and an int4 kernel are there."""
+    with open(path) as f:
+        trace = json.load(f)
+    kernels = collections.Counter(
+        e.get("name", "") for e in trace.get("traceEvents", [])
+        if e.get("cat") == "kernel")
+    named = {k: sum(n for name, n in kernels.items() if k in name)
+             for k in ("ragged_mma_kernel", "int4_wgmma_kernel",
+                       "int4_gemv_mma_kernel", "flash_decode_kernel")}
+    assert named["ragged_mma_kernel"] > 0 and \
+        named["int4_wgmma_kernel"] + named["int4_gemv_mma_kernel"] > 0, \
+        (named, kernels.most_common(12))
+    return kernels, named
+
+
+def _tok_s(results, wall: float) -> float:
+    return sum(len(r.tokens) for r in results) / wall
+
+
+async def drive_fleet(host, port, pid: int, prompts, probe, card: str):
+    """The ``fleet`` phase's steps on a worker started with no model (see
+    ``phase_fleet``)."""
+    from distributed_inference_engine_tpu_torch.cli.worker import (
+        parse_model_arg)
+    from distributed_inference_engine_tpu_torch.cluster.worker import (
+        WorkerClient)
+    from distributed_inference_engine_tpu_torch.engine.types import (
+        GenerationRequest)
+    from distributed_inference_engine_tpu_torch.utils.rpc import RPCError
+
+    serve_cfg = parse_model_arg(SERVE_MODEL)
+    int4_cfg = parse_model_arg(INT4_MODEL)
+    int4_cfg.name = INT4_FLEET_NAME
+    serve, int4 = serve_cfg.name, int4_cfg.name
+    client = WorkerClient(host, port, timeout=900.0)
+    res: dict = {}
+
+    async def wave(name, ps, tag, max_new=32):
+        t0 = time.perf_counter()
+        outs = await asyncio.gather(*[client.generate(name, [
+            GenerationRequest(prompt=p, max_new_tokens=max_new,
+                              request_id=f"{tag}_{i}")])
+            for i, p in enumerate(ps)])
+        wall = time.perf_counter() - t0
+        return [o[0] for o in outs], wall
+
+    try:
+        pong = await client.ping()
+        assert pong["models"] == [] and pong["draining"] is False, pong
+        read_mem, mem_src = memory_reader(pid)
+        mem0 = read_mem()
+        # 1. deploy serve over load_model; the same config again: at once
+        t0 = time.perf_counter()
+        receipt = await client.load_model(serve_cfg, timeout=900.0)
+        load_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = await client.load_model(serve_cfg)
+        again_s = time.perf_counter() - t0
+        assert again == receipt and again_s < 1.0, (again, again_s)
+        mem_serve = read_mem()
+        m = await client.metrics()
+        rounds, secs = m["model_warmup"][serve]
+        log(f"[fleet] load_model {serve}: load_s {receipt['load_s']:.2f} "
+            f"(RPC wall {load_wall:.2f} s; warm-up {rounds} rounds in "
+            f"{secs:.2f} s); the same config again returned in "
+            f"{again_s * 1e3:.1f} ms with the same receipt; worker memory "
+            f"({mem_src}) {mem0:.2f} GiB before, {mem_serve:.2f} GiB after "
+            f"[{card}]")
+        # 2. the serve phase's wave and stream, in this worker
+        mono_serve = (await client.ping())["mono"]
+        out = await serve_waves(client, [prompts], serve,
+                                stream_prompt=prompts[0])
+        out["warmed"] = (f"warmed model {serve}: {rounds} rounds in "
+                         f"{secs:.2f}s")
+        res["serve"] = out
+        res["serve_results"], res["serve_launches"] = report_serve(
+            out, prompts, card)
+        base_tok_s = _tok_s(out["results"][0], out["wall"])
+        # 3-4. stage int4 while serve waves run, then swap it in, gated on
+        # the int4 worker's probe tokens
+        staged = await client.stage_model(int4_cfg)
+        assert staged == {"staging": int4, "already_resident": False}, \
+            staged
+        t_stage = time.perf_counter()
+        swap = asyncio.ensure_future(client.swap_model(int4, probe=probe,
+                                                       timeout=900.0))
+        during = []
+        while not swap.done():
+            ps = serve_prompts(100 + len(during))
+            rs, wall = await wave(serve, ps, f"stage{len(during)}")
+            check_results(rs, ps, f"serve wave {len(during)} while staging")
+            during.append(_tok_s(rs, wall))
+        swap_receipt = await swap
+        staged_s = time.perf_counter() - t_stage
+        ps = serve_prompts(99)
+        rs, wall = await wave(serve, ps, "after")
+        check_results(rs, ps, "serve wave after the swap")
+        after_tok_s = _tok_s(rs, wall)
+        assert swap_receipt["swapped"] == int4 and \
+            not swap_receipt["already_resident"], swap_receipt
+        assert swap_receipt["evicted"] == [], swap_receipt
+        assert swap_receipt["overlap_steps"] > 0, swap_receipt
+        m = await client.metrics()
+        assert m["stage_overlap_steps"] == swap_receipt["overlap_steps"]
+        during_sorted = sorted(during)
+        log(f"[fleet] serve tok/s: {base_tok_s:.1f} before staging; "
+            f"{len(during)} waves while {int4} staged and swapped in "
+            f"({staged_s:.1f} s): min {during_sorted[0]:.1f}, median "
+            f"{during_sorted[len(during) // 2]:.1f}, max "
+            f"{during_sorted[-1]:.1f} ({', '.join(f'{x:.1f}' for x in during)}"
+            f"); {after_tok_s:.1f} after [{card}]")
+        log(f"[fleet] swap_model {int4}: probe of {len(probe)} tokens "
+            f"accepted; stage_s {swap_receipt['stage_s']:.2f}, swap_s "
+            f"{swap_receipt['swap_s']:.2f}, stage_overlap_steps "
+            f"{swap_receipt['overlap_steps']}, evicted none; warm-up "
+            f"{m['model_warmup'][int4][0]} rounds in "
+            f"{m['model_warmup'][int4][1]:.2f} s [{card}]")
+        # the int4 phase's waves through the swapped-in model
+        wave1, wave2 = mixed_prompts()
+        mono_int4 = (await client.ping())["mono"]
+        iout = await serve_waves(client, [wave1, wave2], int4)
+        iout["warmed"] = (f"warmed model {int4}: "
+                          f"{m['model_warmup'][int4][0]} rounds in "
+                          f"{m['model_warmup'][int4][1]:.2f}s")
+        report_int4_run(iout, wave1, wave2, card, "fleet int4")
+        # 5. residency
+        resident = await client.resident_models()
+        m = await client.metrics()
+        pbytes = {n: m["models"][n]["param_bytes"] for n in (serve, int4)}
+        assert resident["resident"] == sorted((serve, int4)), resident
+        assert resident["staged"] == [], resident
+        assert resident["resident_bytes"] == sum(pbytes.values()), \
+            (resident, pbytes)
+        mem_both = read_mem()
+        log(f"[fleet] resident_models: {resident['resident']}, "
+            f"resident_bytes {resident['resident_bytes']} = param_bytes "
+            f"{pbytes}; worker memory {mem_both:.2f} GiB [{card}]")
+        # 6. profile one int4 wave of fresh prompts (the waves above left
+        # theirs in the prefix cache: they would skip the mixed steps)
+        trace_dir = tempfile.mkdtemp(prefix="fleet-trace-")
+        fresh = mixed_prompts(12)[0]
+        await client.profile("start", trace_dir=trace_dir)
+        rs, wall = await wave(int4, fresh, "prof")
+        check_results(rs, fresh, "profiled int4 wave")
+        t0 = time.perf_counter()
+        stop = await client.profile("stop")
+        stop_s = time.perf_counter() - t0
+        kernels, named = traced_kernels(stop["trace_file"])
+        window = stop["timelines"].get(int4, [])
+        log(f"[fleet] profile: one int4 wave ({_tok_s(rs, wall):.1f} tok/s "
+            f"under the profiler); Chrome trace "
+            f"{os.path.getsize(stop['trace_file']) / 2**20:.1f} MiB, "
+            f"{sum(kernels.values())} kernel events, by name {named}; "
+            f"{len(window)} step-timeline records of {int4} in the window; "
+            f"stop took {stop_s:.2f} s [{card}]")
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        # 7. metrics_text over RPC and plain GET /metrics
+        await client.metrics_text()      # its self-timing shows next time
+        text = await client.metrics_text()
+        head, body = await http_get(host, port, "/metrics")
+        assert head.startswith("HTTP/1.1 200") and \
+            "openmetrics-text" in head, head
+        assert text.rstrip().endswith("# EOF") and \
+            body.rstrip().endswith("# EOF")
+        fam_rpc, fam_http = families(text), families(body)
+        assert fam_rpc == fam_http and len(fam_rpc) > 40, \
+            (fam_rpc ^ fam_http, len(fam_rpc))
+        log(f"[fleet] metrics_text and GET /metrics: {len(fam_rpc)} "
+            f"families with samples, the same names [{card}]")
+        # 8. events: the ring and one timeline a model, whose compile
+        # marks are the load-time warm-ups' captures
+        ev = await client.events()
+        types = [e["type"] for e in ev["ring"]["events"]]
+        assert "model.stage" in types and "model.swap" in types, types
+        assert set(ev["timelines"]) == {serve, int4}, set(ev["timelines"])
+        m = await client.metrics()
+        for name, mono in ((serve, mono_serve), (int4, mono_int4)):
+            recs = ev["timelines"][name]
+            comp = [r for r in recs if r["args"].get("compile")]
+            graphs = m["models"][name]["cuda_graphs"]
+            assert len(comp) == graphs, (name, len(comp), graphs)
+            assert all(r["t"] < mono for r in comp), name
+            log(f"[fleet] events: {name}'s timeline holds {len(recs)} "
+                f"records, {len(comp)} marked compile = its {graphs} "
+                f"CUDA graphs, all from the load-time warm-up [{card}]")
+        log(f"[fleet] events: ring of {len(types)} "
+            f"({dict(collections.Counter(types))}), dropped "
+            f"{ev['ring']['dropped']} [{card}]")
+        # 10. unload both; memory back; reload serve and serve again (before
+        # the drain, which leaves the worker refusing new work)
+        assert await client.unload_model(int4) is True
+        assert await client.unload_model(serve) is True
+        assert await client.unload_model(serve) is False
+        assert (await client.ping())["models"] == []
+        mem_unloaded = read_mem()
+        assert mem_unloaded - mem0 <= UNLOAD_SLACK_GIB, (mem0, mem_unloaded)
+        t0 = time.perf_counter()
+        receipt2 = await client.load_model(serve_cfg, timeout=900.0)
+        reload_wall = time.perf_counter() - t0
+        mem_reload = read_mem()
+        (one,) = await client.generate(serve, [GenerationRequest(
+            prompt=prompts[0], max_new_tokens=32, request_id="reload")])
+        assert one.tokens == out["stream"]["result"], \
+            "the reloaded model's greedy tokens differ"
+        log(f"[fleet] unload_model both: worker memory {mem_unloaded:.2f} "
+            f"GiB ({mem_unloaded - mem0:+.2f} against {mem0:.2f} before the "
+            f"first load; both loaded {mem_both:.2f}); reload load_s "
+            f"{receipt2['load_s']:.2f} (wall {reload_wall:.2f} s), memory "
+            f"{mem_reload:.2f} GiB; its greedy tokens equal the first "
+            f"load's [{card}]")
+        # 9. drain with two requests in flight
+        busy = [asyncio.ensure_future(client.generate(serve, [
+            GenerationRequest(prompt=prompts[i], max_new_tokens=32,
+                              request_id=f"drain{i}")])) for i in (1, 2)]
+        for _ in range(1000):
+            m = await client.metrics()
+            if m["pumps"][serve]["in_flight"]:
+                break
+            await asyncio.sleep(0.01)
+        t0 = time.perf_counter()
+        summary = await client.drain(timeout_s=300.0)
+        drain_s = time.perf_counter() - t0
+        finished = [(await f)[0] for f in busy]
+        check_results(finished, [prompts[1], prompts[2]], "drained")
+        assert summary["drained"] and summary["in_flight"] == 0, summary
+        try:
+            await client.generate(serve, [GenerationRequest(
+                prompt=prompts[3], max_new_tokens=4)])
+            raise AssertionError("a generate after the drain was served")
+        except RPCError as e:
+            assert (e.kind, e.detail) == ("overloaded", "draining"), e
+        assert (await client.ping())["draining"] is True
+        log(f"[fleet] drain: the 2 requests in flight finished (32 tokens "
+            f"each), drained in {drain_s:.2f} s; a later generate got the "
+            f"overloaded/draining shed [{card}]")
+        await client.shutdown()
+    finally:
+        await client.close()
+    return res
+
+
+def phase_fleet(torch, card: str, probe):
+    """The worker CLI started with no model and driven through the port's
+    ``WorkerClient``: deploy ``serve`` over ``load_model`` (and again: at
+    once); the ``serve`` phase's wave and stream; stage the ``int4`` model
+    while ``serve`` waves run, swap it in gated on ``probe`` (the int4
+    worker's greedy tokens of the golden prompt); the ``int4`` waves;
+    ``resident_models``; a ``profile`` of one int4 wave naming the ragged
+    and int4 kernels; ``metrics_text`` over RPC and ``GET /metrics``;
+    ``events``; unload both (memory back within ``UNLOAD_SLACK_GIB``),
+    reload ``serve`` and serve; ``drain`` with two requests in flight."""
+    prompts = serve_prompts()
+    free_this_process(torch)
+    proc, host, port, _lines = start_worker(None)
+    try:
+        res = asyncio.run(drive_fleet(host, port, proc.pid, prompts, probe,
+                                      card))
+        proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return prompts, res["serve_results"], res["serve_launches"]
 
 
 def phase_mixed(torch, card: str):
@@ -1544,6 +1944,9 @@ def phase_fused(torch, card: str, prompts, results, mixed_wave,
 HOST_CONFIGS = [
     ("sync admission", dict(defer_admission=False), False),
     ("deferred admission", dict(), False),
+    # the step timeline is on by default (4096 records): its cost, read
+    # against the same path with it off
+    ("deferred admission, timeline off", dict(timeline_capacity=0), False),
     ("defer_sync", dict(defer_sync=True), False),
     ("stream_chunk_steps=2", dict(stream_chunk_steps=2), True),
     ("defer_sync eager", dict(defer_sync=True), False),
@@ -1619,9 +2022,9 @@ def profile_host(torch, engine, prompts, card: str, label: str,
 def phase_host(torch, card: str, spec, params, prompts):
     """The engine's host paths at full width (llama3-8b bf16,
     ``decode_fused``, ``pallas-decode``, graphs on): one wave of the serve
-    prompts through sync admission, the default deferred admission,
-    ``defer_sync``, ``stream_chunk_steps=2`` with a callback on every
-    request, and ``defer_sync`` through the eager hook. The four at the
+    prompts through sync admission, the default deferred admission (with
+    the step timeline on, the default, and off), ``defer_sync``, ``stream_chunk_steps=2`` with a callback on every
+    request, and ``defer_sync`` through the eager hook. The five at the
     full chunk emit equal greedy tokens and logprobs bit for bit (the same
     device work, read at other times); the streamed one decodes in chunks
     of 2, a different split of flash-decode's keys between the pages and
@@ -1699,7 +2102,8 @@ def phase_host(torch, card: str, spec, params, prompts):
         if a.tokens != b.tokens:
             assert_greedy_parity(spec, params, p, a.tokens,
                                  eps=BF16_TIE_EPS, label="host streamed")
-    log(f"[host] sync admission, deferred admission, defer_sync and "
+    log(f"[host] sync admission, deferred admission (timeline on and off), "
+        f"defer_sync and "
         f"defer_sync eager: greedy tokens and logprobs bit-equal; "
         f"defer_sync graph and eager launches equal; stream_chunk_steps=2: "
         f"{same}/{len(prompts)} chains bit-equal to the full chunk's"
@@ -1904,9 +2308,22 @@ def phase_int4(torch, card: str):
     """The slice's path: the worker CLI serving the mixed phase's two waves
     with int4 weights (born int4 from seed 0, q|k|v and gate|up fused at
     engine init). Every projection and the LM head launch the int4 kernel
-    (129 launches per forward); no fused decode GEMV runs."""
+    (129 launches per forward); no fused decode GEMV runs. Then the
+    golden prompt's 8 greedy tokens: the probe the ``fleet`` phase's swap
+    of the same model is gated on."""
+    from distributed_inference_engine_tpu_torch.cluster.model_manager import (
+        GOLDEN_PROMPT)
+
     wave1, wave2 = mixed_prompts()
-    out = run_worker(INT4_MODEL, [wave1, wave2])
+    out = run_worker(INT4_MODEL, [wave1, wave2], probe_prompt=GOLDEN_PROMPT)
+    launches = report_int4_run(out, wave1, wave2, card, "int4")
+    log(f"[int4] probe: {len(GOLDEN_PROMPT)}-token golden prompt -> "
+        f"{out['probe']} [{card}]")
+    return wave1, out["results"][0], launches, out["probe"]
+
+
+def report_int4_run(out, wave1, wave2, card: str, label: str):
+    """The ``int4`` checks and lines over ``serve_waves``'s output."""
     results, wall, launches, eng = (out["results"], out["wall"],
                                     out["launches"], out["eng"])
     check_results(results[0], wave1, "int4 wave 1")
@@ -1939,15 +2356,15 @@ def phase_int4(torch, card: str):
     per_step = (INT4_PER_FORWARD - 1) * eng["mixed_steps"]
     assert inst.get("wgmma", 0) > per_step and not inst.get("wmma"), \
         (inst, eng["mixed_steps"], eng["prefill_calls"])
-    log(f"[int4] {graphs_line(out)} [{card}]")
-    log(f"[int4] {served_line(results[0] + results[1], wall)}; mixed steps "
-        f"{eng['mixed_steps']} carrying {eng['mixed_prefill_tokens']} "
+    log(f"[{label}] {graphs_line(out)} [{card}]")
+    log(f"[{label}] {served_line(results[0] + results[1], wall)}; mixed "
+        f"steps {eng['mixed_steps']} carrying {eng['mixed_prefill_tokens']} "
         f"prefill tokens; chunked admissions {eng['chunked_admissions']}; "
         f"prefix-hit admissions {eng['prefix_hit_admissions']}; forwards "
         f"{forwards} ({eng['prefill_calls']} admission prefills, "
         f"{decode_steps} decode steps, {eng['mixed_steps']} mixed steps); "
         f"launches {launches} [{card}]")
-    return wave1, results[0], launches
+    return launches
 
 
 def engine_run(torch, spec, params, prompts, label: str, **cfg):
@@ -2415,12 +2832,12 @@ def main() -> int:
     done("kernels")
     # the worker phases first: each worker process has the card to itself
     # but for this process's kernel-phase leftovers (freed here)
-    prompts, results, serve_launch = phase_serve(torch, card)
-    done("serve")
     mixed_wave, mixed_launch = phase_mixed(torch, card)
     done("mixed")
-    int4_wave, int4_served, int4_launch = phase_int4(torch, card)
+    int4_wave, int4_served, int4_launch, probe = phase_int4(torch, card)
     done("int4 worker")
+    prompts, results, serve_launch = phase_fleet(torch, card, probe)
+    done("fleet (serve)")
     m_wave, m_served, mistral_launch = phase_mistral(torch, card)
     done("mistral worker")
     fused_launch, fw_launch = phase_fused(torch, card, prompts, results,

@@ -6,9 +6,13 @@ the JAX package's ``cli/worker.py``):
         --model name=llama8b,architecture=llama,size=llama3-8b,continuous=1,attention_impl=pallas-decode
 
 Each ``--model`` is ``key=value`` pairs; unknown keys land in
-``ModelConfig.metadata``. ``--device`` picks the torch device (default
-the card). Flags of features the port lacks (``--config``,
-``--artifact-dir``, ``--multihost`` and its coordinates) raise.
+``ModelConfig.metadata``. With no ``--model`` the worker starts empty, for
+a fleet to deploy over ``load_model``. ``--config file.{json,toml}``
+takes the server settings and the models to preload from the file
+instead (``config.load_config``). ``--device`` picks the torch device
+(default the card). Flags of features the port lacks (``--artifact-dir``,
+``--multihost`` and its coordinates, a config file's multihost section)
+raise.
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ import asyncio
 import logging
 from typing import Any, Dict, List
 
-from ..config import ModelConfig, ServerConfig
+import torch
+
+from ..config import ModelConfig, ServerConfig, load_config
 from ..cluster.worker import WorkerServer
 
 _MODEL_FIELDS = {
@@ -65,7 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "(repeatable)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the engines (default: cuda)")
-    p.add_argument("--config", default="", help="not ported yet")
+    p.add_argument("--config", default="",
+                   help="config file (.json/.toml): server and model "
+                   "settings come from the file")
     p.add_argument("--artifact-dir", default="", help="not ported yet")
     p.add_argument("--multihost", action="store_true", help="not ported yet")
     p.add_argument("--coordinator-address", default="",
@@ -80,7 +88,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _reject_unported(args: argparse.Namespace) -> None:
     for flag, on, item in (
-            ("--config", args.config, "A6"),
             ("--artifact-dir", args.artifact_dir, "A11"),
             ("--multihost", args.multihost, "A13"),
             ("--coordinator-address", args.coordinator_address, "A13"),
@@ -94,9 +101,24 @@ def _reject_unported(args: argparse.Namespace) -> None:
 
 async def amain(args: argparse.Namespace) -> None:
     _reject_unported(args)
-    server_cfg = ServerConfig(worker_id=args.worker_id, host=args.host,
-                              port=args.port)
-    models = [parse_model_arg(m) for m in args.model]
+    if args.config:
+        cfg = load_config(args.config)
+        if cfg.multihost.enabled:
+            raise NotImplementedError(
+                "a config file's multihost section is not ported to the "
+                "PyTorch worker yet (ROADMAP.md A13)")
+        server_cfg, models = cfg.server, cfg.models
+    else:
+        server_cfg = ServerConfig(worker_id=args.worker_id, host=args.host,
+                                  port=args.port)
+        models = [parse_model_arg(m) for m in args.model]
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        # the process's context on the card exists before the first
+        # load, so its memory reads the same before a load and after the
+        # matching unload
+        torch.cuda.init()
+        torch.empty(0, device=device)
     worker = WorkerServer(server_cfg, device=args.device)
     # preload BEFORE announcing the address: the "listening" line is the
     # readiness signal launchers wait on

@@ -1,16 +1,19 @@
 """Configuration of the port (copy of the JAX package's ``config.py``
-subset the serving path reads): ``ModelConfig``, ``EngineConfig`` and
-``ServerConfig`` keep their field names and defaults.
+subset a worker reads): ``ModelConfig``, ``EngineConfig``,
+``ServerConfig`` and ``MultihostConfig`` keep their field names and
+defaults, and ``load_config`` reads the same ``.json`` and ``.toml``
+files into a ``Config`` (the JAX minimal TOML reader included).
 
 The port does not carry every engine feature yet. Setting one that it
 lacks raises ``NotImplementedError`` naming its ROADMAP.md item — it is
-never silently ignored (``EngineConfig.check_supported``). One default
-differs, noted at its field: ``timeline_capacity`` is off until ported.
+never silently ignored (``EngineConfig.check_supported``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import pathlib
 from dataclasses import dataclass, field
 from typing import Any, Dict, List
 
@@ -91,9 +94,8 @@ class EngineConfig:
     admission_min_batch: int = 0
     admission_max_hold_s: float = 0.25
     admission_max_rows: int = 0
-    timeline_capacity: int = 0         # differs from the JAX default
-    # (4096): the port records no step timeline yet (ROADMAP A6); nonzero
-    # raises
+    timeline_capacity: int = 4096      # step-timeline ring (obs/timeline.py)
+    # records per engine; 0 disables it
     spec_async: bool = False
     spec_draft_model: str = ""
     spec_max_draft: int = 4
@@ -115,8 +117,6 @@ class EngineConfig:
             no("kv_offload (host KV tier)", "A10")
         if self.spec_async:
             no("spec_async (async speculation)", "A12")
-        if self.timeline_capacity:
-            no("timeline_capacity (step timeline)", "A6")
         if self.attention_impl not in ("auto", "pallas", "pallas-decode",
                                        "pallas-decode-fw", "pallas-ragged"):
             raise ValueError(
@@ -135,6 +135,127 @@ class ServerConfig:
     worker_id: str = "worker-0"
     request_timeout: float = 30.0
     max_frame_bytes: int = 64 * 1024 * 1024
-    max_resident_models: int = 0       # multi-model residency budget: not
-    resident_bytes: int = 0            # ported (ROADMAP A6); nonzero raises
-    event_ring_capacity: int = 2048    # the port keeps no event ring yet
+    # multi-model residency budget (cluster/model_manager.py): how many
+    # engines one worker may hold and their total parameter bytes; over
+    # either, admission evicts idle models, least recently used first
+    # (0 = unbounded)
+    max_resident_models: int = 0
+    resident_bytes: int = 0
+    # the worker's typed event ring (obs/events.py), served by ``events``
+    event_ring_capacity: int = 2048
+
+
+@dataclass
+class MultihostConfig:
+    """Multi-host bootstrap section of a config file (same fields as the
+    JAX package's). The port serves one card a process: ``enabled`` raises
+    in the worker CLI (ROADMAP.md A13)."""
+
+    enabled: bool = False
+    coordinator_address: str = ""
+    num_processes: int = 0
+    process_id: int = -1
+
+
+@dataclass
+class Config:
+    """A config file's sections that a worker reads: ``models``,
+    ``engine``, ``server`` and ``multihost``. The JAX ``Config``'s other
+    sections (``mesh``, ``batcher``, ``cache``, ``health``,
+    ``autoscaler``) configure the coordinator's host plane, which the JAX
+    worker ignores as well; ``load_config`` skips them."""
+
+    models: List[ModelConfig] = field(default_factory=list)
+    engine: EngineConfig = field(default_factory=EngineConfig)
+    server: ServerConfig = field(default_factory=ServerConfig)
+    multihost: MultihostConfig = field(default_factory=MultihostConfig)
+
+
+def config_from_dict(d: Dict[str, Any]) -> Config:
+    cfg = Config()
+    if "models" in d:
+        cfg.models = [ModelConfig.from_dict(m) for m in d["models"]]
+    for section, cls in (("engine", EngineConfig), ("server", ServerConfig),
+                         ("multihost", MultihostConfig)):
+        if section in d:
+            setattr(cfg, section, build_dataclass(cls, d[section]))
+    return cfg
+
+
+def _toml_scalar(raw: str):
+    raw = raw.strip()
+    if raw.startswith('"') and raw.endswith('"'):
+        return raw[1:-1]
+    if raw.startswith("'") and raw.endswith("'"):
+        return raw[1:-1]
+    if raw in ("true", "false"):
+        return raw == "true"
+    if raw.startswith("[") and raw.endswith("]"):
+        inner = raw[1:-1].strip()
+        return [_toml_scalar(x) for x in inner.split(",")] if inner else []
+    try:
+        return int(raw)
+    except ValueError:
+        return float(raw)
+
+
+def _parse_toml_minimal(text: str) -> dict:
+    """TOML reader for the subset the config files use (the JAX
+    package's): ``[table]``, ``[nested.table]``, ``[[array of tables]]``
+    and scalar or flat-list values; used where ``tomllib`` is missing."""
+    root: dict = {}
+    cur = root
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        if line.startswith("[["):
+            parts = line[2:].split("]]", 1)[0].strip().split(".")
+            parent = root
+            for k in parts[:-1]:
+                parent = parent.setdefault(k, {})
+            cur = {}
+            parent.setdefault(parts[-1], []).append(cur)
+        elif line.startswith("["):
+            parts = line[1:].split("]", 1)[0].strip().split(".")
+            # [models.metadata] after [[models]] nests into the last
+            # element of the models array
+            parent = root
+            for k in parts[:-1]:
+                node = parent.get(k)
+                parent = node[-1] if isinstance(node, list) else \
+                    parent.setdefault(k, {})
+            node = parent.get(parts[-1])
+            if isinstance(node, list):
+                cur = node[-1]
+            else:
+                cur = parent.setdefault(parts[-1], {})
+        else:
+            key, _, raw = line.partition("=")
+            raw = raw.strip()
+            if not (raw.startswith('"') or raw.startswith("'")):
+                raw = raw.split("#", 1)[0]       # a trailing comment
+            cur[key.strip()] = _toml_scalar(raw)
+    return root
+
+
+def _loads_toml(text: str) -> dict:
+    try:
+        import tomllib
+    except ImportError:
+        return _parse_toml_minimal(text)
+    return tomllib.loads(text)
+
+
+def load_config(path: str) -> Config:
+    """A ``Config`` from a ``.json`` or ``.toml`` file."""
+    p = pathlib.Path(path)
+    text = p.read_text()
+    if p.suffix == ".json":
+        data = json.loads(text)
+    elif p.suffix == ".toml":
+        data = _loads_toml(text)
+    else:
+        raise ValueError(f"unsupported config extension: {p.suffix} "
+                         "(the port reads .json and .toml)")
+    return config_from_dict(data or {})

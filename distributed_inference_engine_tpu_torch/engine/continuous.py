@@ -77,6 +77,7 @@ import numpy as np
 import torch
 
 from ..config import EngineConfig
+from ..obs.timeline import StepTimeline
 from ..models.base import (
     ModelSpec,
     Params,
@@ -91,7 +92,7 @@ from ..models.base import (
     write_prefill_pages,
 )
 from ..ops import _cuda
-from ..ops.quant import prepare_params
+from ..ops.quant import param_bytes, prepare_params
 from ..ops.sampling import SamplingParams, sample_tokens_with_logprobs
 from ..utils.tracing import LatencyStats
 from .paged_kv import PagedKVCache
@@ -189,12 +190,13 @@ class _ChunkEntry:
     copy has landed."""
 
     __slots__ = ("packed", "read", "n_steps", "snapshot", "t0", "caps",
-                 "fresh_firsts", "host", "harvested", "progressed")
+                 "fresh_firsts", "host", "harvested", "progressed", "key")
 
     def __init__(self, packed: torch.Tensor, n_steps: int,
                  snapshot: Dict[int, _Slot], t0: float, caps: List[int],
-                 fresh_firsts: bool) -> None:
+                 fresh_firsts: bool, key: Tuple) -> None:
         self.packed = packed
+        self.key = key              # the graph key it was dispatched under
         # queued right behind the body that wrote ``packed`` (a graph's
         # static output, which its next replay rewrites)
         self.read = _cuda.HostRead(packed)
@@ -245,6 +247,8 @@ class ContinuousEngine:
                 device=self.device).manual_seed(seed))
         # the int4 q|k|v and gate|up payload fusion (ops/quant.py)
         self.params = prepare_params(params)
+        # the weights' stored bytes (the residency budget's measure)
+        self.param_bytes = param_bytes(self.params)
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
 
         self.max_slots = cfg.max_slots
@@ -386,6 +390,22 @@ class ContinuousEngine:
         self._ring_high_water = 0
         self._stream_clamped_chunks = 0
         self._firsts_fetches = 0
+        # step timeline (obs/timeline.py): one record a dispatch; a record
+        # carries compile=True on its program key's first dispatch. The
+        # port's program keys are the graph keys of the decode chunks and
+        # mixed steps (_run): on the card that dispatch is the capture.
+        # An admission prefill runs eagerly, so it has none
+        cap = int(cfg.timeline_capacity or 0)
+        self.timeline: Optional[StepTimeline] = (
+            StepTimeline(capacity=cap, name="continuous") if cap else None)
+        self._tl_programs: set = set()
+        # the host-gap split, kept with the timeline off too: seconds
+        # inside dispatch brackets against host seconds between them. A
+        # sync decode bracket holds the blocking read (~device-busy wall);
+        # a defer_sync one the dispatch alone, so its gap reads higher
+        self._dispatch_s = 0.0
+        self._host_gap_s = 0.0
+        self._last_dispatch_end: Optional[float] = None
         # called right after a chunk's launches are queued and before its
         # read (the pump drains its inbox and polls the stream ring here,
         # in the device's shadow); it must only enqueue work (submit) or
@@ -614,6 +634,8 @@ class ContinuousEngine:
                       on_tokens, t_submit: float,
                       first_lp: float = 0.0) -> None:
         self.prefill_stats.add(time.perf_counter() - t_dispatch)
+        self._tl_record("prefill", t_dispatch, rows=1,
+                        prefill_tokens=prompt_len)
         if self._register_slot_host(req, slot, prompt_len, first, t_submit,
                                     on_tokens, first_lp=first_lp):
             self._install_device(
@@ -751,6 +773,9 @@ class ContinuousEngine:
                  and all(r.max_new_tokens > 1 for r, *_ in batch))
         host = None if defer else self._read_firsts(first_dev)
         self.prefill_stats.add(time.perf_counter() - t0)
+        tl_args = {"deferred": True} if defer else {}
+        self._tl_record("prefill", t0, rows=n,
+                        prefill_tokens=int(seq_lens.sum()), **tl_args)
         rows: List[Dict[str, Any]] = []
         cols: List[int] = []
         for i, (req, cb, slot, prompt, t_submit, full) in enumerate(batch):
@@ -875,6 +900,8 @@ class ContinuousEngine:
             [prog.request for _, prog in items])
         self._prefill_calls += 1
         self.prefill_stats.add(time.perf_counter() - t0)
+        self._tl_record("prefill_chunk", t0, rows=len(items),
+                        prefill_tokens=sum(len(s) for s in suffixes))
         host = None
         rows: List[Dict[str, Any]] = []
         for i, (slot, prog) in enumerate(items):
@@ -1044,7 +1071,7 @@ class ContinuousEngine:
         packed = self._run(key, lambda: self._decode_body(
             n_steps, key[2], needs_mask, needs_noise, table))
         return _ChunkEntry(packed, n_steps, dict(self._slots), t0, caps,
-                           fresh_firsts=not self._defer)
+                           fresh_firsts=not self._defer, key=key)
 
     def _decode_body(self, n_steps: int, use_stops: bool, needs_mask: bool,
                      needs_noise: bool, table: torch.Tensor) -> torch.Tensor:
@@ -1169,12 +1196,43 @@ class ContinuousEngine:
                 self._process_packed(prev)
         else:
             self._process_packed(entry)
+        self._tl_record("decode", t0, program=entry.key,
+                        rows=len(entry.snapshot), n_steps=n_steps)
         return self.n_live
 
     def _cap_list(self) -> List[int]:
         """Each slot's token capacity (0 for a free slot)."""
         return [min(self.kv.slot_capacity(s), self.max_seq_len)
                 if s in self._slots else 0 for s in range(self.max_slots)]
+
+    def _tl_record(self, kind: str, t0: float, program: Any = None,
+                   **args: Any) -> None:
+        """One dispatch's host-gap accounting and step-timeline record
+        (the JAX engine's ``_tl_record``): ``program`` is its program key
+        (a decode or mixed graph key), whose first dispatch the record
+        marks ``compile=True``. It reads host mirrors only: no device
+        synchronisation."""
+        now = time.perf_counter()
+        self._dispatch_s += now - t0
+        last = self._last_dispatch_end
+        if last is not None and t0 > last:
+            self._host_gap_s += t0 - last
+        self._last_dispatch_end = now
+        tl = self.timeline
+        if tl is None:
+            return
+        if program is not None and program not in self._tl_programs:
+            self._tl_programs.add(program)
+            args["compile"] = True
+        args["live_slots"] = len(self._slots)
+        args["waiting"] = len(self._waiting)
+        if self._prefilling:
+            args["prefilling"] = len(self._prefilling)
+        kv = self.kv
+        args["kv_pages_used"] = (kv.num_pages - len(kv._free)
+                                 - len(kv._reclaimable))
+        args["kv_pages_total"] = kv.num_pages
+        tl.record(kind, t0, now - t0, **args)
 
     def _run_overlap_hook(self) -> None:
         if self.overlap_hook is not None:
@@ -1268,6 +1326,8 @@ class ContinuousEngine:
                 self._finish_prefill(slot, prog, int(pf_host[i]),
                                      float(pf_lps[i]), rows)
         self._install_device(rows)
+        self._tl_record("mixed", t0, program=entry.key, prefill_rows=n,
+                        prefill_tokens=spent)
 
     def _mixed_chunk(self, inputs: np.ndarray, qb: int, pf_knobs: np.ndarray,
                      caps: List[int], t0: float) -> _ChunkEntry:
@@ -1289,7 +1349,7 @@ class ContinuousEngine:
         packed = self._run(key, lambda: self._mixed_body(
             buf, qb, key[3], needs_mask, needs_noise, table))
         return _ChunkEntry(packed, 1, dict(self._slots), t0, caps,
-                           fresh_firsts=True)
+                           fresh_firsts=True, key=key)
 
     def _mixed_body(self, buf: torch.Tensor, qb: int, use_stops: bool,
                     needs_mask: bool, needs_noise: bool, table: torch.Tensor
@@ -1517,6 +1577,22 @@ class ContinuousEngine:
         self._active.zero_()
         return n
 
+    def close(self) -> None:
+        """Drop what holds the engine's device memory: every request, the
+        CUDA graphs (whose private pool is freed with the last of them),
+        the mixed buckets' inputs, the KV pools and the weights, and the
+        overlap hook that ties the engine to its pump. Whoever steps the
+        engine (its pump's thread) must have stopped first; the engine is
+        unusable after. The caller releases the freed blocks
+        (``torch.cuda.empty_cache``) once the last reference is gone."""
+        self.abort_all()
+        self.overlap_hook = None
+        self._graphs.clear()
+        self._graph_pool = None
+        self._mixed_inputs.clear()
+        self.kv = None
+        self.params = None
+
     @property
     def n_waiting(self) -> int:
         return len(self._waiting)
@@ -1577,6 +1653,10 @@ class ContinuousEngine:
     # ------------------------------------------------------------ metrics
 
     def get_metrics(self) -> Dict[str, Any]:
+        # read from other threads while the pump captures graphs or a
+        # release closes the engine: snapshot the dicts, and a closed
+        # engine reports no pool
+        kv = self.kv
         return {
             "total_requests": self._total_requests,
             "total_prompt_tokens": self._total_prompt_tokens,
@@ -1600,9 +1680,9 @@ class ContinuousEngine:
             "cuda_graphs": len(self._graphs),
             # each graph's (eager warm-up, capture) seconds
             "graph_capture_s": {_key_name(k): [g.warmup_s, g.capture_s]
-                                for k, g in self._graphs.items()},
+                                for k, g in list(self._graphs.items())},
             "graph_warmup_launches": sum(
-                self._graph_warmup_launches.values()),
+                list(self._graph_warmup_launches.values())),
             "prefix_hit_admissions": self._prefix_hit_admissions,
             "prefilling_slots": len(self._prefilling),
             "chunked_admissions": self._chunked_admissions,
@@ -1615,17 +1695,24 @@ class ContinuousEngine:
             "stream_ring_depth": self._ring_high_water,
             "stream_clamped_chunks": self._stream_clamped_chunks,
             "firsts_fetches": self._firsts_fetches,
+            # the host-gap split (JAX's keys)
+            "dispatch_s_total": self._dispatch_s,
+            "host_gap_s_total": self._host_gap_s,
+            "host_bubble_frac": (
+                self._host_gap_s / (self._dispatch_s + self._host_gap_s)
+                if (self._dispatch_s + self._host_gap_s) > 0 else 0.0),
             "ttft": self.ttft_stats.snapshot(),
             "batch_occupancy": (self._occupancy_sum
                                 / (self._steps * self.max_slots)
                                 if self._steps else 0.0),
             "prefill": self.prefill_stats.snapshot(),
             "decode_chunk": self.chunk_stats.snapshot(),
-            "kv": self.kv.get_stats(),
+            "kv": kv.get_stats() if kv is not None else {},
             "attn_impl": self.attn_impl,
             "decode_mode": "window" if self.use_window else "inline",
             "decode_fused": self.decode_fused,
             "device": str(self.device),
+            "param_bytes": self.param_bytes,
             # per-process launch counts of the CUDA kernels
             "kernel_launches": _cuda.launch_counts(),
         }

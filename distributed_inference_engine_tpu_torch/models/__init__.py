@@ -1,6 +1,6 @@
 """Model specs and the config-driven engine factory of the port (the
 ``models/__init__.py:engine_from_config`` subset for ``architecture``
-``llama`` and ``mistral``).
+``llama``, ``mistral`` and ``fake``).
 """
 
 from __future__ import annotations
@@ -61,18 +61,63 @@ def _coerce(default: Any, value: Any) -> Any:
     return value
 
 
+def fake_engine_from_config(cfg):
+    """``architecture="fake"`` (the ``ModelConfig`` default): the fakes of
+    ``models/fake.py`` from the JAX factory's metadata keys. ``continuous``
+    gives the pumped ``FakeContinuousEngine``, else the batch
+    ``FakeEngine``; ``load_sleep_s`` models a load's cost on the loader's
+    clock. The prefill role and the speculation model raise."""
+    import time
+
+    from .fake import FakeContinuousEngine, FakeEngine
+
+    md = cfg.metadata
+    if md.get("role") == "prefill":
+        raise NotImplementedError("the disaggregated prefill role is not "
+                                  "ported to PyTorch yet (ROADMAP.md A10)")
+    if _coerce(False, md.get("spec_async", False)):
+        raise NotImplementedError("spec_async (async speculation) is not "
+                                  "ported to PyTorch yet (ROADMAP.md A12)")
+    load_sleep = float(md.get("load_sleep_s", 0) or 0)
+    if load_sleep:
+        time.sleep(load_sleep)
+    if _coerce(False, md.get("continuous", False)):
+        return FakeContinuousEngine(
+            step_latency_s=float(md.get("step_latency_s", 0.0)),
+            tokens_per_step=int(md.get("tokens_per_step", 1)),
+            max_slots=int(md.get("max_slots", 8)),
+            max_waiting=int(md.get("max_waiting", 0)),
+            queue_deadline_s=float(md.get("queue_deadline_s", 0.0)),
+            vocab_size=int(md.get("vocab_size", 997)),
+            admit_latency_per_token_s=float(
+                md.get("admit_latency_per_token_s", 0.0)),
+            prefix_cache=_coerce(False, md.get("prefix_cache", False)),
+            prefix_page_size=int(md.get("prefix_page_size", 64)),
+            stream_chunk_tokens=int(md.get("stream_chunk_tokens", 0)),
+            stream_dispatch_overhead_s=float(
+                md.get("stream_dispatch_overhead_s", 0.0)))
+    return FakeEngine(
+        latency_s=float(md.get("latency_s", 0.0)),
+        per_token_latency_s=float(md.get("per_token_latency_s", 0.0)),
+        error_rate=float(md.get("error_rate", 0.0)))
+
+
 def engine_from_config(cfg, device="cuda"):
     """``ModelConfig`` -> ``ContinuousEngine`` with random weights drawn
     from a seeded ``torch.Generator`` on ``device`` (metadata ``seed``).
     Reads ``size``, ``continuous=1``, ``dtype``, ``quantized`` (with
     metadata ``weight_bits``, 8 by default, or 4) and the engine metadata
     keys; what the port lacks raises ``NotImplementedError``. A quantized
-    model is born quantized (``ops/quant.py:random_quantized_params``)."""
+    model is born quantized (``ops/quant.py:random_quantized_params``).
+    ``architecture="fake"`` builds a fake engine
+    (``fake_engine_from_config``)."""
     from ..config import EngineConfig
     from ..engine.continuous import ContinuousEngine
     from ..ops.quant import random_quantized_params
 
     arch = cfg.architecture.lower()
+    if arch == "fake":
+        return fake_engine_from_config(cfg)
     md = dict(cfg.metadata)
 
     def no(what: str, item: str) -> None:

@@ -17,12 +17,15 @@ Nothing here runs at import: the CPU tests import every module, and this
 machine class has no ``nvcc``.
 
 CUDA graphs (the engine's decode chunks and mixed steps): ``LAUNCHES``
-counts in Python, where a wrapper launches its kernel, so a replayed graph
-would count nothing. ``capture_graph`` records the counts that the
-capture's one pass through the wrappers added (``recording_launches``),
-takes them back out (a capture launches nothing), and every
-``CapturedGraph.replay`` adds that delta again: the counts read as if the
-body had run eagerly. ``warm_up`` is the eager pass before a capture, on
+counts in Python, where a wrapper launches its kernel (``count_launch``),
+so a replayed graph would count nothing. ``capture_graph`` records the
+launches of the capture's one pass through the wrappers
+(``recording_launches``: on the recording thread they go to the
+recording, not to ``LAUNCHES``, since a capture launches nothing), and
+every ``CapturedGraph.replay`` adds that delta again: the counts read as
+if the body had run eagerly. A recording holds its own thread's launches
+only, so a graph captured while another thread serves (a worker staging
+a model) records none of the server's. ``warm_up`` is the eager pass before a capture, on
 the capture stream: it makes each kernel's first-launch host calls
 (``cudaFuncSetAttribute``, the ``cuTensorMapEncodeTiled`` lookup),
 cuBLAS's workspaces and flash-decode's split scratch outside any graph.
@@ -72,6 +75,8 @@ F32, BF16 = 0, 1          # dtype codes of csrc/common.cuh
 # launches per kernel: each wrapper adds one where it launches its kernel
 # (and nowhere else), so a run can show the main path went through it
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
+# the recording_launches block open on each thread, if any
+_RECORDING = threading.local()
 
 _lib: Optional[ctypes.CDLL] = None
 last_build: Dict[str, object] = {}
@@ -85,18 +90,30 @@ def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
 
 
+def _counter() -> "collections.Counter[str]":
+    rec = getattr(_RECORDING, "counter", None)
+    return LAUNCHES if rec is None else rec
+
+
+def count_launch(*names: str) -> None:
+    """One launch under each of ``names`` (a kernel and its instance):
+    into this thread's open ``recording_launches`` block, else into
+    ``LAUNCHES``."""
+    _counter().update(names)
+
+
 @contextlib.contextmanager
 def recording_launches() -> Iterator["collections.Counter[str]"]:
-    """Yield a Counter that, on exit, holds the launches counted inside
-    the block; ``LAUNCHES`` is left as it was before the block."""
-    before = LAUNCHES.copy()
+    """Yield a Counter that holds the launches this thread counts inside
+    the block; ``LAUNCHES`` does not see them, and other threads' launches
+    go to ``LAUNCHES`` as before."""
+    prev = getattr(_RECORDING, "counter", None)
     delta: "collections.Counter[str]" = collections.Counter()
+    _RECORDING.counter = delta
     try:
         yield delta
     finally:
-        delta.update(LAUNCHES - before)
-        LAUNCHES.clear()
-        LAUNCHES.update(before)
+        _RECORDING.counter = prev
 
 
 class CapturedGraph:
@@ -120,7 +137,7 @@ class CapturedGraph:
         outputs."""
         with GRAPH_LOCK:
             self.graph.replay()
-        LAUNCHES.update(self.launches)
+        _counter().update(self.launches)
         return self.outputs
 
 

@@ -28,6 +28,7 @@ cores.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -48,6 +49,9 @@ MIN_CHUNK = 64
 # graphs.
 _SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 _RETIRED: List[torch.Tensor] = []
+# a worker has more than one thread that may launch (a serving pump, a
+# model staging beside it): the lookup and the growth are one step
+_SCRATCH_LOCK = threading.Lock()
 
 
 def flash_decode_attention_plain(
@@ -133,18 +137,24 @@ def _scratch(device: torch.device, n_partials: int, n_groups: int):
     every eager call is issued on the caller's current stream, one stream,
     so none overlaps another, and no eager call runs on the capture stream
     outside a warm-up (which holds ``_cuda.GRAPH_LOCK``). A buffer is never
-    freed once a graph may hold its address (``_RETIRED``)."""
+    freed once a graph may hold its address (``_RETIRED``). Threads that
+    launch on one stream (a worker's pumps and its staging thread all
+    launch on the default stream) run in that stream's order on the card;
+    ``_SCRATCH_LOCK`` keeps the table and its growth consistent on the
+    host."""
     key = (device.index, _cuda.stream_ptr(device))
-    ws, cnt = _SCRATCH.get(key, (None, None))
-    if ws is None or ws.numel() < n_partials:
-        if ws is not None:
-            _RETIRED.append(ws)
-        ws = torch.empty((n_partials,), dtype=torch.float32, device=device)
-    if cnt is None or cnt.numel() < n_groups:
-        if cnt is not None:
-            _RETIRED.append(cnt)
-        cnt = torch.zeros((n_groups,), dtype=torch.int32, device=device)
-    _SCRATCH[key] = (ws, cnt)
+    with _SCRATCH_LOCK:
+        ws, cnt = _SCRATCH.get(key, (None, None))
+        if ws is None or ws.numel() < n_partials:
+            if ws is not None:
+                _RETIRED.append(ws)
+            ws = torch.empty((n_partials,), dtype=torch.float32,
+                             device=device)
+        if cnt is None or cnt.numel() < n_groups:
+            if cnt is not None:
+                _RETIRED.append(cnt)
+            cnt = torch.zeros((n_groups,), dtype=torch.int32, device=device)
+        _SCRATCH[key] = (ws, cnt)
     return ws, cnt
 
 
@@ -162,7 +172,7 @@ def _launch(name, fn, q, k_pages, page_table, side_k, n_kv_heads, base,
              chunk, base, _cuda.dtype_code(q.dtype),
              _cuda.dtype_code(k_pages.dtype), _cuda.stream_ptr(q.device))
     _cuda.check(err, name)
-    _cuda.LAUNCHES[name] += 1
+    _cuda.count_launch(name)
     return out
 
 

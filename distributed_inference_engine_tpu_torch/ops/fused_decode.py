@@ -102,8 +102,7 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, *others) -> None:
 
 
 def _count(name: str, dtype: torch.dtype) -> None:
-    _cuda.LAUNCHES[name] += 1
-    _cuda.LAUNCHES[f"{name}.{gemv_instance(dtype)}"] += 1
+    _cuda.count_launch(name, f"{name}.{gemv_instance(dtype)}")
 
 
 def norm_matmul(x: torch.Tensor, gain: torch.Tensor, w: torch.Tensor, *,

@@ -154,6 +154,5 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
         m, k2, n, ks, chunk, code, INSTANCES[inst], tile,
         _cuda.stream_ptr(x.device))
     _cuda.check(err, f"{name} ({inst})")
-    _cuda.LAUNCHES[name] += 1
-    _cuda.LAUNCHES[f"{name}.{inst}"] += 1
+    _cuda.count_launch(name, f"{name}.{inst}")
     return out

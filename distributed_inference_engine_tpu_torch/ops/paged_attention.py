@@ -158,7 +158,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         base, _cuda.dtype_code(q.dtype), _cuda.dtype_code(k_pages.dtype),
         _cuda.stream_ptr(q.device))
     _cuda.check(err, name)
-    _cuda.LAUNCHES[name] += 1
+    _cuda.count_launch(name)
     if with_stats:
         return out, m, l
     return out

@@ -252,6 +252,5 @@ def ragged_attention(
         n_tiles, grid, base, _cuda.dtype_code(q.dtype),
         _cuda.dtype_code(k_pages.dtype), _cuda.stream_ptr(q.device))
     _cuda.check(err, name)
-    _cuda.LAUNCHES[name] += 1
-    _cuda.LAUNCHES[f"{name}.{inst}"] += 1
+    _cuda.count_launch(name, f"{name}.{inst}")
     return out, k_pages, v_pages

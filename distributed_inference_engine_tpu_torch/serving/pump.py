@@ -10,7 +10,12 @@ at the next chunk boundary.
 
 Thread discipline: every engine method runs on the pump thread only. The
 asyncio side talks through a lock-guarded inbox and resolves futures with
-``call_soon_threadsafe``.
+``call_soon_threadsafe``. ``drain`` waits until nothing is queued or in
+flight (the worker's ``drain`` verb); with an ``event_log`` the pump
+records each admission's acceptance or shed in the worker's event ring.
+Any engine with ``submit``/``step``/``drain_finished`` runs under it
+(the fakes of ``models/fake.py`` too): the overlap hook and the stream
+ring's poll are used where the engine has them.
 """
 
 from __future__ import annotations
@@ -38,10 +43,16 @@ class EnginePump:
     """Drives a ``ContinuousEngine`` on a dedicated thread; asyncio-facing
     ``generate`` joins requests into the rolling batch."""
 
-    def __init__(self, engine: Any) -> None:
+    def __init__(self, engine: Any, event_log: Any = None,
+                 model: str = "") -> None:
         self.engine = engine
+        # the owning worker's event ring (lock-guarded: safe to emit from
+        # the pump thread) and the model name its events carry
+        self._events = event_log
+        self._model = model
         self._overlap_admitted = 0
         self._stream_frames_polled = 0
+        self._poll_stream = getattr(engine, "poll_stream", None)
 
         # batch-formation overlap: the engine calls this right after
         # queueing a decode chunk, while the device is busy — the inbox
@@ -52,9 +63,11 @@ class EnginePump:
         # submit() and poll_stream().
         def _overlap() -> None:
             self._overlap_admitted += self._drain_inbox()
-            self._stream_frames_polled += self.engine.poll_stream()
+            if self._poll_stream is not None:
+                self._stream_frames_polled += self._poll_stream()
 
-        engine.overlap_hook = _overlap
+        if hasattr(engine, "overlap_hook"):
+            engine.overlap_hook = _overlap
         # (request, stream callback or None, future, loop)
         self._inbox: List[Tuple[GenerationRequest, Any, asyncio.Future,
                                 asyncio.AbstractEventLoop]] = []
@@ -116,6 +129,20 @@ class EnginePump:
         self._wake.set()
         return list(await asyncio.gather(*futs))
 
+    async def drain(self, timeout_s: float = 30.0) -> bool:
+        """Wait until nothing is queued or in flight (the caller stops
+        admission first: the worker's ``drain`` verb). True when drained
+        within ``timeout_s``, False when work is still pending then."""
+        deadline = time.monotonic() + max(0.0, timeout_s)
+        while True:
+            with self._inbox_lock:
+                busy = bool(self._inbox)
+            if not (busy or self._futures):
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            await asyncio.sleep(0.02)
+
     async def stop(self) -> None:
         """Stop the thread and wait (up to 5 s) for its step in flight to
         end."""
@@ -124,6 +151,15 @@ class EnginePump:
         if t is not None:
             await asyncio.get_running_loop().run_in_executor(None, t.join,
                                                              5.0)
+
+    def join(self) -> None:
+        """Synchronous stop: signal the thread and wait until it has
+        exited, so no step or graph replay is in flight (the worker's
+        release of an engine, off the event loop)."""
+        self.shutdown_nowait()
+        t = self._thread
+        if t is not None:
+            t.join()
 
     def shutdown_nowait(self) -> None:
         """Synchronous shutdown signal (``WorkerServer.stop``): stops the
@@ -160,7 +196,8 @@ class EnginePump:
                         self._resolve(res)
                     # between steps: the chunk step() queued may already
                     # be host-side
-                    self._stream_frames_polled += self.engine.poll_stream()
+                    if self._poll_stream is not None:
+                        self._stream_frames_polled += self._poll_stream()
             except Exception as e:  # engine failure fans to all in-flight
                 self._step_errors += 1
                 logger.exception("engine pump step failed")
@@ -192,6 +229,9 @@ class EnginePump:
             self._futures[pump_id] = (fut, loop, original_id)
             try:
                 self.engine.submit(req, on_tokens=cb)
+                if self._events is not None:
+                    self._events.emit("admission.accept", model=self._model,
+                                      request_id=original_id or pump_id)
             except EngineOverloadedError as e:
                 # a per-request outcome: siblings already submitted keep
                 # their futures (see generate())
@@ -201,6 +241,10 @@ class EnginePump:
                     finish_reason="overloaded",
                     prompt_tokens=len(req.prompt),
                     metadata={"overload_reason": e.reason})
+                if self._events is not None:
+                    self._events.emit("admission.reject", model=self._model,
+                                      request_id=original_id or pump_id,
+                                      reason=e.reason)
                 loop.call_soon_threadsafe(self._set_result, fut, shed)
             except Exception as e:      # e.g. an empty prompt
                 del self._futures[pump_id]

@@ -235,18 +235,26 @@ async def read_frame(reader: asyncio.StreamReader,
 
     async def _read() -> Any:
         header = await reader.readexactly(HEADER_SIZE)
-        magic, codec, _flags, length = HEADER.unpack(header)
-        if magic != MAGIC:
-            raise FrameError(f"bad magic 0x{magic:04x}")
-        if length > max_frame:
-            raise FrameError(
-                f"frame of {length} bytes exceeds max {max_frame}")
-        payload = await reader.readexactly(length)
-        return _decode_payload(codec, payload)
+        return await read_frame_after_header(reader, header, max_frame)
 
     if timeout is None:
         return await _read()
     return await asyncio.wait_for(_read(), timeout=timeout)
+
+
+async def read_frame_after_header(reader: asyncio.StreamReader,
+                                  header: bytes,
+                                  max_frame: int = DEFAULT_MAX_FRAME) -> Any:
+    """Finish reading a frame whose ``HEADER_SIZE`` bytes were already
+    read (the server reads a connection's first bytes to tell a frame from
+    a plain-HTTP request: ``utils/rpc.py``)."""
+    magic, codec, _flags, length = HEADER.unpack(header)
+    if magic != MAGIC:
+        raise FrameError(f"bad magic 0x{magic:04x}")
+    if length > max_frame:
+        raise FrameError(f"frame of {length} bytes exceeds max {max_frame}")
+    payload = await reader.readexactly(length)
+    return _decode_payload(codec, payload)
 
 
 async def write_frame(writer: asyncio.StreamWriter, obj: Any,

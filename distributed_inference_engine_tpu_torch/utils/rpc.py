@@ -5,8 +5,10 @@ Request: ``{"method": m, "id": ..., **params}``; response envelope:
 ``{"id", "success", "result" | "error"[, "error_kind", "error_detail"],
 **extra}``; a streaming method sends ``{"stream": true, "id": ...,
 **chunk}`` frames ahead of its envelope — the same frames as the JAX
-plane, so either side's client talks to either side's server. Not ported:
-the plain-HTTP ``/metrics`` side door and fault injection.
+plane, so either side's client talks to either side's server. A
+connection whose first bytes spell an HTTP verb gets one plain-HTTP
+answer instead (``GET /metrics`` on the RPC port, ``_http_get``). Not
+ported: fault injection.
 """
 
 from __future__ import annotations
@@ -16,9 +18,20 @@ import logging
 import time
 from typing import Any, Awaitable, Callable, Dict, List, Optional, Tuple
 
-from .framing import FrameError, read_frame, write_frame
+from .framing import (
+    HEADER_SIZE,
+    FrameError,
+    read_frame,
+    read_frame_after_header,
+    write_frame,
+)
 
 logger = logging.getLogger(__name__)
+
+# a frame starts with magic 0xD17E, never printable ASCII: a connection
+# whose first four bytes spell an HTTP verb is a plain HTTP client
+_HTTP_VERB_PREFIXES = (b"GET ", b"HEAD", b"POST", b"PUT ", b"DELE",
+                       b"OPTI", b"PATC")
 
 
 class RPCError(RuntimeError):
@@ -184,10 +197,22 @@ class FramedServerMixin:
                                  writer: asyncio.StreamWriter) -> None:
         self._conn_writers.add(writer)
         try:
+            first = True
             while True:
                 try:
-                    msg = await read_frame(reader,
-                                           max_frame=self.max_frame_bytes)
+                    if first:
+                        # an HTTP verb in the first bytes: one plain-HTTP
+                        # answer (GET /metrics); else a frame header
+                        first = False
+                        head = await reader.readexactly(HEADER_SIZE)
+                        if head[:4] in _HTTP_VERB_PREFIXES:
+                            await self._serve_http(head, reader, writer)
+                            break
+                        msg = await read_frame_after_header(
+                            reader, head, max_frame=self.max_frame_bytes)
+                    else:
+                        msg = await read_frame(
+                            reader, max_frame=self.max_frame_bytes)
                 except (asyncio.IncompleteReadError, ConnectionResetError):
                     break                                  # client closed
                 except FrameError as e:
@@ -231,7 +256,7 @@ class FramedServerMixin:
                         "result": result}
         except asyncio.TimeoutError:
             response = {"id": req_id, "success": False, **extra,
-                        "error": f"{method} timed out"}
+                        "error": self._timeout_error(method)}
         except Exception as e:       # fan the error back, keep serving
             self._on_handler_error(method, e)
             logger.warning("%s: %s failed: %s", type(self).__name__,
@@ -278,11 +303,59 @@ class FramedServerMixin:
                              response)
         return response
 
+    async def _serve_http(self, head: bytes, reader: asyncio.StreamReader,
+                          writer: asyncio.StreamWriter) -> None:
+        """Answer one plain-HTTP request on the framed port; the caller
+        closes the connection. GET and HEAD reach ``_http_get``; anything
+        else, and an unknown path, gets a 404."""
+        try:
+            raw = head
+            if b"\r\n\r\n" not in raw:
+                raw += await asyncio.wait_for(
+                    reader.readuntil(b"\r\n\r\n"), timeout=5.0)
+        except (asyncio.TimeoutError, asyncio.IncompleteReadError,
+                asyncio.LimitOverrunError, ConnectionResetError):
+            return                  # a scraper that hung up loses its scrape
+        parts = raw.split(b"\r\n", 1)[0].decode("latin-1").split()
+        method = parts[0].upper() if parts else ""
+        path = (parts[1] if len(parts) > 1 else "/").split("?", 1)[0]
+        status, ctype, body = ("404 Not Found", "text/plain; charset=utf-8",
+                               b"not found\n")
+        if method in ("GET", "HEAD"):
+            try:
+                got = await self._http_get(path)
+            except Exception as e:
+                logger.warning("%s: HTTP %s %s failed: %s",
+                               type(self).__name__, method, path, e)
+                got = None
+                status, body = ("500 Internal Server Error",
+                                f"{e}\n".encode("utf-8", "replace"))
+            if got is not None:
+                ctype, body = got
+                status = "200 OK"
+        payload = b"" if method == "HEAD" else body
+        try:
+            writer.write(
+                f"HTTP/1.1 {status}\r\n"
+                f"Content-Type: {ctype}\r\n"
+                f"Content-Length: {len(body)}\r\n"
+                "Connection: close\r\n\r\n".encode("latin-1") + payload)
+            await writer.drain()
+        except (ConnectionResetError, BrokenPipeError, OSError):
+            pass
+
+    async def _http_get(self, path: str) -> Optional[Tuple[str, bytes]]:
+        """Override hook: ``(content_type, body)``, or None for a 404."""
+        return None
+
     async def _run_handler(self, method: str, handler, msg) -> Any:
         return await handler(msg)
 
     def _envelope_extra(self) -> Dict[str, Any]:
         return {}
+
+    def _timeout_error(self, method: str) -> str:
+        return f"{method} timed out"
 
     def _on_handler_error(self, method: str, exc: Exception) -> None:
         pass

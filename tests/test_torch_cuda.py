@@ -993,3 +993,172 @@ def test_served_run_after_warmup_captures_nothing(card):
     assert [out[r.request_id].tokens for r in reqs] == \
         [r.tokens for r in want]
     assert eng._graphs.keys() == graphs.keys()
+
+
+# ------------------------------------------------------- the worker's fleet
+
+
+def _worker(card, factories, **server):
+    """A port worker on the card whose engine factory picks by name."""
+    from distributed_inference_engine_tpu_torch.cluster.worker import (
+        WorkerServer)
+    from distributed_inference_engine_tpu_torch.config import ServerConfig
+
+    return WorkerServer(ServerConfig(worker_id="cw", port=0, **server),
+                        engine_factory=lambda cfg: factories[cfg.name](),
+                        device=card)
+
+
+def _tiny_factory(card, cfg, int4=False):
+    spec, params = _tiny_weights(card, "llama", "bfloat16", int4)
+    return lambda: ContinuousEngine(
+        spec, params=params, seed=0, device=card,
+        config=EngineConfig(**dict(GRAPH_KW, **cfg)))
+
+
+def _model(name):
+    from distributed_inference_engine_tpu_torch.config import ModelConfig
+
+    return ModelConfig(name=name, architecture="llama",
+                       metadata={"warmup": 1})
+
+
+STAGE_CFG = dict(attention_impl="pallas-ragged", prefill_chunk=16)
+
+
+def test_staging_beside_a_serving_pump(card):
+    """A model staged (its load-time warm-up capturing its graphs on the
+    side thread) while another model's pump replays its graphs: every
+    served request gets the tokens of the same model served alone, the
+    serving engine captures nothing, the swap's probe is accepted, and the
+    staged engine's graphs record the launches of the same engine warmed
+    up alone (none of the server's)."""
+    import asyncio
+
+    from distributed_inference_engine_tpu_torch.cluster.model_manager import (
+        GOLDEN_PROMPT, run_probe)
+    from distributed_inference_engine_tpu_torch.cluster.worker import (
+        WorkerClient)
+
+    serve = _tiny_factory(card, dict(attention_impl="pallas-decode"))
+    staged = _tiny_factory(card, STAGE_CFG, int4=True)
+    alone = staged()
+    alone.warmup()
+    probe = run_probe(alone, list(GOLDEN_PROMPT), 8)
+    want = serve().generate([GenerationRequest(
+        prompt=p, max_new_tokens=13) for p in _graph_prompts()])
+    worker = _worker(card, {"a": serve, "b": staged})
+    worker.load_model(_model("a"))
+    graphs_a = dict(worker.engines["a"]._graphs)
+
+    async def drive():
+        host, port = await worker.start()
+        client = WorkerClient(host, port, timeout=300.0)
+        try:
+            await client.stage_model(_model("b"))
+            swap = asyncio.ensure_future(client.swap_model("b", probe=probe))
+            waves = 0
+            while not swap.done() or waves < 2:
+                outs = await asyncio.gather(*[client.generate("a", [
+                    GenerationRequest(prompt=p, max_new_tokens=13)])
+                    for p in _graph_prompts()])
+                assert [o[0].tokens for o in outs] == \
+                    [r.tokens for r in want]
+                waves += 1
+            return await swap, waves
+        finally:
+            await client.close()
+            await worker.stop()
+
+    receipt, waves = asyncio.run(drive())
+    assert receipt["swapped"] == "b" and receipt["overlap_steps"] > 0
+    assert worker.engines["a"]._graphs.keys() == graphs_a.keys()
+    got = worker.engines["b"]._graphs
+    assert got.keys() == alone._graphs.keys() and got
+    for key, graph in got.items():
+        assert graph.launches == alone._graphs[key].launches, key
+
+
+def test_unload_gives_the_memory_back(card):
+    """``unload_model`` joins the pump and drops the engine's graphs,
+    pools, KV pages and weights: the process's reserved and allocated
+    device memory return to their readings before the load (the split
+    scratch and cuBLAS's workspaces, kept for the process, within 128
+    MiB), and a reload serves the same tokens."""
+    import asyncio
+    import gc
+
+    from distributed_inference_engine_tpu_torch.cluster.worker import (
+        WorkerClient)
+
+    big = dict(attention_impl="pallas-decode", num_pages=16384)
+    factory = _tiny_factory(card, big)
+    want = factory().generate([GenerationRequest(
+        prompt=p, max_new_tokens=13) for p in _graph_prompts()])
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    worker = _worker(card, {"a": factory})
+
+    async def drive():
+        host, port = await worker.start()
+        client = WorkerClient(host, port, timeout=300.0)
+        try:
+            await client.load_model(_model("a"))
+            loaded = torch.cuda.memory_reserved()
+            outs = await client.generate("a", [GenerationRequest(
+                prompt=p, max_new_tokens=13) for p in _graph_prompts()])
+            assert [o.tokens for o in outs] == [r.tokens for r in want]
+            assert await client.unload_model("a") is True
+            after = (torch.cuda.memory_allocated(),
+                     torch.cuda.memory_reserved())
+            await client.load_model(_model("a"))
+            again = await client.generate("a", [GenerationRequest(
+                prompt=p, max_new_tokens=13) for p in _graph_prompts()])
+            assert [o.tokens for o in again] == [r.tokens for r in want]
+            return loaded, after
+        finally:
+            await client.close()
+            await worker.stop()
+
+    loaded, after = asyncio.run(drive())
+    slack = 128 << 20
+    assert loaded - base[1] > 256 << 20, (loaded, base)
+    assert after[0] - base[0] <= slack, (after, base)
+    assert after[1] - base[1] <= slack, (after, base)
+
+
+def test_profile_names_the_kernels(card, tmp_path):
+    """``profile start``/``stop`` around an int4 ragged model's requests:
+    the Chrome trace holds the ragged tensor-core and int4 kernels
+    (launched from the pump's thread, inside graph replays too), and the
+    step timeline's window."""
+    import asyncio
+    import json
+
+    from distributed_inference_engine_tpu_torch.cluster.worker import (
+        WorkerClient)
+
+    worker = _worker(card, {"b": _tiny_factory(card, STAGE_CFG, int4=True)})
+    worker.load_model(_model("b"))
+
+    async def drive():
+        host, port = await worker.start()
+        client = WorkerClient(host, port, timeout=300.0)
+        try:
+            await client.profile("start", trace_dir=str(tmp_path))
+            await asyncio.gather(*[client.generate("b", [GenerationRequest(
+                prompt=p, max_new_tokens=13)]) for p in _graph_prompts()])
+            return await client.profile("stop")
+        finally:
+            await client.close()
+            await worker.stop()
+
+    stop = asyncio.run(drive())
+    with open(stop["trace_file"]) as f:
+        trace = json.load(f)
+    names = [e.get("name", "") for e in trace["traceEvents"]
+             if e.get("cat") == "kernel"]
+    assert any("ragged_mma_kernel" in n for n in names), set(names)
+    assert any("int4_" in n for n in names), set(names)
+    assert stop["timelines"]["b"]

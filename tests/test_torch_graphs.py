@@ -18,6 +18,7 @@ runs eagerly (the graphs themselves are held on the card in
 """
 
 import collections
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -230,10 +231,10 @@ def test_replay_adds_the_recorded_launches():
     saved = _cuda.LAUNCHES.copy()
     try:
         _cuda.reset_launch_counts()
-        _cuda.LAUNCHES["flash_decode"] += 3
+        _cuda.count_launch(*["flash_decode"] * 3)
         with _cuda.recording_launches() as delta:
-            _cuda.LAUNCHES["flash_decode"] += 32
-            _cuda.LAUNCHES["norm_matmul"] += 160
+            _cuda.count_launch(*["flash_decode"] * 32)
+            _cuda.count_launch(*["norm_matmul"] * 160)
         assert delta == collections.Counter(flash_decode=32,
                                             norm_matmul=160)
         assert _cuda.launch_counts() == {"flash_decode": 3}
@@ -246,9 +247,44 @@ def test_replay_adds_the_recorded_launches():
                                              "norm_matmul": 160 * i}
         with pytest.raises(RuntimeError):
             with _cuda.recording_launches():
-                _cuda.LAUNCHES["paged_attention"] += 1
+                _cuda.count_launch("paged_attention")
                 raise RuntimeError("capture failed")
         assert "paged_attention" not in _cuda.launch_counts()
+    finally:
+        _cuda.LAUNCHES.clear()
+        _cuda.LAUNCHES.update(saved)
+
+
+def test_recording_holds_its_own_thread_only():
+    """A recording on one thread (a graph captured while a worker stages
+    a model) takes none of the launches another thread counts meanwhile
+    (the serving pump's): those reach ``LAUNCHES``, the recording keeps
+    its own, and a replay inside a recording counts into it."""
+    saved = _cuda.LAUNCHES.copy()
+    try:
+        _cuda.reset_launch_counts()
+        inside = threading.Event()
+        done = threading.Event()
+
+        def other():
+            inside.wait(5)
+            _cuda.count_launch("flash_decode", "flash_decode")
+            done.set()
+
+        t = threading.Thread(target=other)
+        t.start()
+        with _cuda.recording_launches() as delta:
+            _cuda.count_launch("int4_matmul", "int4_matmul.wgmma")
+            inside.set()
+            done.wait(5)
+            with _cuda.recording_launches() as inner:
+                _cuda.CapturedGraph(_StubGraph(), {"ragged_attention": 32},
+                                    outputs=None).replay()
+        t.join()
+        assert delta == collections.Counter(
+            {"int4_matmul": 1, "int4_matmul.wgmma": 1})
+        assert inner == collections.Counter(ragged_attention=32)
+        assert _cuda.launch_counts() == {"flash_decode": 2}
     finally:
         _cuda.LAUNCHES.clear()
         _cuda.LAUNCHES.update(saved)
