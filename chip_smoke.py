@@ -6,6 +6,8 @@
                                       # int4 mixed steps (with the ragged
                                       # kernel's ms per step) and the int4
                                       # wgmma token tiles
+    python3 chip_smoke.py --full-depth  # ... with the fp32 logit checks at
+                                      # all 32 layers (CUT_LAYERS: 8)
 
 The engine replays a CUDA graph for every decode chunk and mixed step (the
 worker phases and every in-process engine). Each decode scheme (``serve``,
@@ -56,9 +58,17 @@ Phases, each failing loudly (any failure exits non-zero):
      0 and 4096, on one layer's pool and on the stacked pool (layer 5 of
      32) with the flash stats m and l held too, and one 6,000-token slot
      alone (B=1, window 4096, stacked) (``check_paged``).
+   - the e4m3-pool (fp8) instances of flash-decode, fw, ragged attention
+     and paged attention at the same shapes (bf16 q on the tensor cores
+     where the bf16 instance is, fp32 q on the CUDA cores), q's tolerance,
+     fp32 held to 1e-5; fw's side write with a fresh row past 464 and the
+     ragged writeback with fresh K/V past 464 byte-equal to the plain
+     versions'; each checked by its ``<kernel>.fp8`` launch count; no
+     library yardstick (no one call takes e4m3 K/V: SDPA needs an upcast).
    Attention kernels are also held per output row to max|out - ref32| /
    max|ref32| against the plain version on the same values in fp32. Each
-   bound counts the valid work only (no query padding).
+   bound counts the valid work only (no query padding), the pools' bytes
+   at their width.
 3. ``fleet`` (it holds the ``serve`` phase, whose lines and checks keep
    their ``[serve]`` tag): starts the port's worker CLI with no model on
    a free localhost port and drives it through the port's
@@ -105,6 +115,12 @@ Phases, each failing loudly (any failure exits non-zero):
    Checks the results, one ragged launch per layer per mixed step (all of
    them the tensor-core instance), flash-decode on the pure-decode steps,
    and the mixed, chunked and prefix-hit admission counts.
+4b. ``fp8`` (A5f): the worker CLI again with the ``mixed`` model plus
+   ``kv_dtype=float8_e4m3fn`` (``FP8_MODEL``) over the mixed phase's two
+   waves: both served, every ragged launch (32 per mixed step, tensor
+   cores) and every flash-decode launch on its fp8 instance, the pools'
+   ``hbm_bytes`` half of ``mixed``'s, served tok/s and TTFT printed beside
+   ``mixed``'s from the same run.
 5. ``fused``: rebuilds the same weights in this process, checks one served
    chain teacher-forced against ``forward_train`` (bf16: ties within the
    measured bf16 gap between the two code paths), runs the serve
@@ -162,13 +178,24 @@ Phases, each failing loudly (any failure exits non-zero):
    layers) with ``attention_impl="pallas"`` (window scheme) and
    ``decode_mode="inline"``, with their launch counts and a chain each.
 
+8. ``fp8`` in process (``phase_fp8_inproc``), e4m3 pools, full width and
+   ``CUT_LAYERS`` deep: the fw decode at 8 slots (serve prompts) and
+   Mistral's inline decode past its window (mistral prompts), each graph
+   against eager with tokens, logprobs and launches bit-equal and every
+   fw / paged launch on its fp8 instance; then in fp32 (``FP32_LAYERS``)
+   the teacher-forced decode logits of flash-decode, fw, the ragged mixed
+   step, the inline paged decode and Mistral's inline decode, each
+   through the kernels and through their plain versions (the script's
+   own ``plain_kernels`` switch), within 1e-3 of each other.
+
 Phases ``fused``, ``int4`` and ``mistral`` hold their in-process decode
 schemes graph against eager as above; the worker phases print each worker
 engine's graphs and fail if it captured none.
 
 The last lines are the card's name and power limit, one JSON object
 naming every kernel with its launches (on its own path: serve,
-in-process fused, mixed, fw, int4), error and times, and
+in-process fused, mixed, fw, int4; the fp8 instances: the fp8 worker,
+the in-process fp8 fw and Mistral runs), error and times, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -177,6 +204,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import collections
+import contextlib
 import json
 import os
 import re
@@ -196,6 +224,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,    # dense tensor-core bf16
             "float32": 67e12}      # fp32 outside the tensor cores
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}   # (atol, rtol)
+# e4m3 KV pools (the fp8 instances) widen exactly: q's tolerance, fp32 q
+# held to 1e-5
+FP8 = "float8_e4m3fn"
+FP8_TOL = {"bfloat16": TOL["bfloat16"], "float32": (1e-5, 1e-5)}
 # flash-decode, per output row: max|out - ref| / max|ref| of that row
 ROW_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 
@@ -210,6 +242,8 @@ FP32_LOGIT_TOL = 1e-3
 # width but 8 of the 32 layers: cut to keep the script within its time
 # limit (the other bf16 paths run every layer)
 CUT_LAYERS = 8
+# the fp32 logit checks' depth: CUT_LAYERS, or every layer with --full-depth
+FP32_LAYERS = CUT_LAYERS
 SERVE_MODEL = ("name=llama3-8b,architecture=llama,size=llama3-8b,"
                "continuous=1,attention_impl=pallas-decode,max_seq_len=1024,"
                "seed=0,warmup=1")
@@ -219,6 +253,8 @@ MIXED_MODEL = (SERVE_MODEL.replace("attention_impl=pallas-decode",
                + ",prefill_chunk=256,mixed_step_tokens=512")
 # the same served with int4 weights, born quantized from the seed
 INT4_MODEL = MIXED_MODEL + ",quantized=1,weight_bits=4"
+# ... and from e4m3 KV pools (A5f): half the pool bytes
+FP8_MODEL = MIXED_MODEL + ",kv_dtype=float8_e4m3fn"
 N_LAYERS = 32
 # int4 launches per forward: w_qkv, wo, w_gate_up and w_down per layer, and
 # the LM head
@@ -308,8 +344,14 @@ def ptxas_summary(report: str, source: str, pattern: str, key) -> str:
 PTXAS_REPORTS = [
     ("flash_decode.cu", r"flash_decode_kernel\S*?Li(\d+)ELi(\d+)ELb([01])E",
      lambda m: f"Dh {int(m.group(1)):3d}"),
-    ("ragged_attention.cu", r"ragged_mma_kernelILi(\d+)E",
-     lambda m: f"tensor cores, Dh {int(m.group(1)):3d}"),
+    ("flash_decode_fp8.cu",
+     r"flash_decode_kernelI(13__nv_bfloat16|f)\S*?Li(\d+)ELi(\d+)ELb([01])E",
+     lambda m: (f"e4m3 pools, {'bf16' if m.group(1) != 'f' else 'fp32'} q,"
+                f" Dh {int(m.group(2)):3d}")),
+    ("ragged_attention.cu",
+     r"ragged_mma_kernelILi(\d+)E(13__nv_bfloat16|13__nv_fp8_e4m3)",
+     lambda m: (f"tensor cores{', e4m3 pools' if 'fp8' in m.group(2) else ''}"
+                f", Dh {int(m.group(1)):3d}")),
     ("fused_decode.cu", r"(matmul_residual|norm_matmul)_kernelI"
      r"(13__nv_bfloat16|f)Li(\d)ELb([01])E",
      lambda m: (f"{m.group(1)} {'bf16' if m.group(2) != 'f' else 'fp32'}"
@@ -365,8 +407,8 @@ def max_err(torch, got, ref):
     return float((got.float() - ref.float()).abs().max())
 
 
-def within(torch, got, ref, dtype: str) -> bool:
-    atol, rtol = TOL[dtype]
+def within(torch, got, ref, dtype: str, tol=None) -> bool:
+    atol, rtol = tol or TOL[dtype]
     return bool(((got.float() - ref.float()).abs()
                  <= atol + rtol * ref.float().abs()).all())
 
@@ -384,20 +426,22 @@ FD_CASES = [
 ]
 
 
-def fd_inputs(torch, g, nb: int, dt, n_copies_limit: int = 4):
-    """q, the stacked two-layer pools (copies for cold L2), a shuffled page
-    table and side buffers of an nb-slot flash-decode call."""
+def fd_inputs(torch, g, nb: int, dt, n_copies_limit: int = 4, kv_dt=None):
+    """q, the stacked two-layer pools (in ``kv_dt``, q's dtype by default;
+    copies for cold L2), a shuffled page table and side buffers of an
+    nb-slot flash-decode call."""
+    kv_dt = kv_dt or dt
     n_layers, n_per_layer = 2, nb * MP
     perm = torch.randperm(n_per_layer, generator=g, device="cuda")
     table = perm.reshape(nb, MP).to(torch.int32).contiguous()
     q = torch.randn((nb, H, DH), generator=g, device="cuda").to(dt)
     pool_shape = (n_layers * n_per_layer, P, HKV * DH)
-    item = torch.finfo(dt).bits // 8
+    item = torch.finfo(kv_dt).bits // 8
     n_copies = copies_for(2 * n_per_layer * P * HKV * DH * item,
                           limit=n_copies_limit)
-    kps = [torch.randn(pool_shape, generator=g, device="cuda").to(dt)
+    kps = [torch.randn(pool_shape, generator=g, device="cuda").to(kv_dt)
            for _ in range(n_copies)]
-    vps = [torch.randn(pool_shape, generator=g, device="cuda").to(dt)
+    vps = [torch.randn(pool_shape, generator=g, device="cuda").to(kv_dt)
            for _ in range(n_copies)]
     sk = torch.randn((nb, W, HKV, DH), generator=g, device="cuda").to(dt)
     sv = torch.randn((nb, W, HKV, DH), generator=g, device="cuda").to(dt)
@@ -433,12 +477,16 @@ def fd_row_rel(torch, out, ref32) -> float:
     return float((row_err[live] / row_ref[live]).max())
 
 
-def check_flash_decode(torch):
+def check_flash_decode(torch, kv_name=None):
     """Kernel 1 at the decode shapes (B 8, and B 1 with one 2,040-key
     slot), held against the plain version: elementwise and
     per row against the plain version on the same values in fp32 (the bf16
     plain composition itself rounds three times: prefix part, window part,
-    merge; the kernel once); a slot with no key gives exactly 0."""
+    merge; the kernel once); a slot with no key gives exactly 0. With
+    ``kv_name`` (e4m3) the pools are e4m3 (the fp8 instances, each checked
+    by its launch count), the side window in q's dtype; no single library
+    call takes e4m3 K/V (SDPA needs an upcast first), so no yardstick."""
+    from distributed_inference_engine_tpu_torch.ops import _cuda
     from distributed_inference_engine_tpu_torch.ops import flash_decode as fd
 
     rows = []
@@ -452,8 +500,10 @@ def check_flash_decode(torch):
                                                torch.device("cuda", 0))
         for dtype_name in ("bfloat16", "float32"):
             dt = getattr(torch, dtype_name)
+            tol = FP8_TOL[dtype_name] if kv_name else TOL[dtype_name]
             q, kps, vps, table, sk, sv, n_per_layer = fd_inputs(
-                torch, g, nb, dt)
+                torch, g, nb, dt,
+                kv_dt=getattr(torch, kv_name) if kv_name else None)
             n_copies = len(kps)
             args = (q, kps[0], vps[0], table, prefix, sk, sv, n_side)
             kw = dict(n_kv_heads=HKV, layer=1, n_pages_per_layer=n_per_layer)
@@ -470,18 +520,25 @@ def check_flash_decode(torch):
             t_p = time_ms(torch,
                           lambda *a: fd.flash_decode_attention_plain(*a, **kw),
                           mk, reps=3, per_rep=3)
-            t_l = fd_sdpa_ms(torch, q, kps[0], vps[0], table, prefix, sk, sv,
-                             n_side, n_per_layer)
+            t_l = None if kv_name else fd_sdpa_ms(
+                torch, q, kps[0], vps[0], table, prefix, sk, sv, n_side,
+                n_per_layer)
             keys = int(prefix.sum()) + int(n_side.sum())
             item = torch.finfo(dt).bits // 8
-            nbytes = (2 * keys * HKV * DH + 2 * nb * H * DH) * item + \
-                (table.numel() + 2 * nb) * 4
+            kv_item = torch.finfo(kps[0].dtype).bits // 8
+            # the prefix K/V at the pools' width; side K/V, q and out at q's
+            nbytes = 2 * int(prefix.sum()) * HKV * DH * kv_item + \
+                (2 * int(n_side.sum()) * HKV * DH + 2 * nb * H * DH) * item \
+                + (table.numel() + 2 * nb) * 4
             b_ms, b_by = bound_ms(nbytes, 4.0 * keys * H * DH, dtype_name)
+            before = _cuda.LAUNCHES["flash_decode.fp8"]
             out = fd.flash_decode_attention(*args, **kw)
             torch.cuda.synchronize()
+            assert _cuda.LAUNCHES["flash_decode.fp8"] == before + bool(
+                kv_name), "flash_decode: the fp8 instance's launch count"
             err = max_err(torch, out, ref)
             row_rel = fd_row_rel(torch, out, ref32)
-            ok = (within(torch, out, ref, dtype_name)
+            ok = (within(torch, out, ref, dtype_name, tol)
                   and row_rel <= ROW_REL_TOL[dtype_name])
             assert torch.isfinite(out).all(), "flash_decode: non-finite output"
             empty = (prefix + n_side) == 0
@@ -494,18 +551,23 @@ def check_flash_decode(torch):
             rows.append(dict(
                 dtype=dtype_name, err=err, ok=ok, ms=t_k, plain_ms=t_p,
                 library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
-                row_rel=row_rel, n_split=n_split, chunk=chunk,
+                row_rel=row_rel, n_split=n_split, chunk=chunk, tol=tol,
                 note=f"{n_split} runs of {chunk}",
                 shape=f"{label} H{H} Hkv{HKV} Dh{DH} "
-                f"P{P} MP{MP} W{W} keys{keys}"))
+                f"P{P} MP{MP} W{W} keys{keys}"
+                f"{' e4m3 pools' if kv_name else ''}"))
     return rows
 
 
-def check_flash_decode_fw(torch):
+def check_flash_decode_fw(torch, kv_name=None):
     """The writeback variant at kernel 1's cases: some slots inactive,
     slot 3 of B 8 active at side_idx = W (the fresh row is dropped there,
     as in the plain version); output and the side buffers after the
-    write, bit-equal to the plain version's."""
+    write, bit-equal to the plain version's. With ``kv_name`` (e4m3) the
+    pools are e4m3 (the fp8 instances) and slot 1's fresh row is scaled
+    past 464: the side window, in q's dtype, takes its bytes as they
+    are."""
+    from distributed_inference_engine_tpu_torch.ops import _cuda
     from distributed_inference_engine_tpu_torch.ops import flash_decode as fd
 
     rows = []
@@ -523,13 +585,18 @@ def check_flash_decode_fw(torch):
         wrote = (active > 0) & (side_idx < W)
         for dtype_name in ("bfloat16", "float32"):
             dt = getattr(torch, dtype_name)
+            tol = FP8_TOL[dtype_name] if kv_name else TOL[dtype_name]
             q, kps, vps, table, sk, sv, n_per_layer = fd_inputs(
-                torch, g, nb, dt)
+                torch, g, nb, dt,
+                kv_dt=getattr(torch, kv_name) if kv_name else None)
             n_copies = len(kps)
             fk = torch.randn((nb, 1, HKV, DH), generator=g,
                              device="cuda").to(dt)
             fv = torch.randn((nb, 1, HKV, DH), generator=g,
                              device="cuda").to(dt)
+            if kv_name and nb > 1:
+                fk[1] *= 600.0
+                fv[1] *= 600.0
             kw = dict(n_kv_heads=HKV, layer=1, n_pages_per_layer=n_per_layer)
             sk_p, sv_p = sk.clone(), sv.clone()
             ref, _, _ = fd.flash_decode_attention_fw_plain(
@@ -553,28 +620,33 @@ def check_flash_decode_fw(torch):
                 reps=3, per_rep=3)
             # library yardstick: kernel 1's SDPA over the pre-gathered
             # prefix and the side window after the write
-            t_l = fd_sdpa_ms(torch, q, kps[0], vps[0], table, prefix, sk_p,
-                             sv_p, torch.clamp(side_idx + active, max=W),
-                             n_per_layer)
+            t_l = None if kv_name else fd_sdpa_ms(
+                torch, q, kps[0], vps[0], table, prefix, sk_p, sv_p,
+                torch.clamp(side_idx + active, max=W), n_per_layer)
             n_fresh = int(wrote.sum())
             keys = int(prefix.sum()) + int(n_read.sum()) + n_fresh
             item = torch.finfo(dt).bits // 8
-            # K/V of every key read once, the fresh rows written once, q,
-            # out
-            nbytes = (2 * (keys + n_fresh) * HKV * DH + 2 * nb * H * DH) * \
-                item + (table.numel() + 3 * nb) * 4
+            kv_item = torch.finfo(kps[0].dtype).bits // 8
+            # K/V of every key read once (the prefix at the pools' width),
+            # the fresh rows written once, q, out
+            nbytes = 2 * int(prefix.sum()) * HKV * DH * kv_item + (
+                2 * (int(n_read.sum()) + 2 * n_fresh) * HKV * DH
+                + 2 * nb * H * DH) * item + (table.numel() + 3 * nb) * 4
             b_ms, b_by = bound_ms(nbytes, 4.0 * keys * H * DH, dtype_name)
             sk_k, sv_k = sk.clone(), sv.clone()
+            before = _cuda.LAUNCHES["flash_decode_fw.fp8"]
             out, _, _ = fd.flash_decode_attention_fw(
                 q, kps[0], vps[0], table, prefix, sk_k, sv_k, fk, fv,
                 side_idx, active, **kw)
             torch.cuda.synchronize()
+            assert _cuda.LAUNCHES["flash_decode_fw.fp8"] == before + bool(
+                kv_name), "flash_decode_fw: the fp8 instance's launch count"
             sides_equal = torch.equal(sk_k, sk_p) and torch.equal(sv_k, sv_p)
             assert bool(torch.equal(sk_k[~wrote], sk[~wrote])), \
                 "flash_decode_fw: wrote an inactive or full-window side row"
             err = max_err(torch, out, ref)
             row_rel = fd_row_rel(torch, out, ref32)
-            ok = (within(torch, out, ref, dtype_name) and sides_equal
+            ok = (within(torch, out, ref, dtype_name, tol) and sides_equal
                   and row_rel <= ROW_REL_TOL[dtype_name])
             assert torch.isfinite(out).all(), "flash_decode_fw: non-finite"
             t_k = time_ms(
@@ -582,10 +654,12 @@ def check_flash_decode_fw(torch):
             rows.append(dict(
                 dtype=dtype_name, err=err, ok=ok, ms=t_k, plain_ms=t_p,
                 library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
-                row_rel=row_rel, n_split=n_split, chunk=chunk,
-                note=f"{n_split} runs of {chunk}",
+                row_rel=row_rel, n_split=n_split, chunk=chunk, tol=tol,
+                note=f"{n_split} runs of {chunk}"
+                f"{'; side rows byte-equal' if sides_equal else ''}",
                 shape=f"{label} H{H} Hkv{HKV} Dh{DH} "
-                f"P{P} MP{MP} W{W} keys{keys}"))
+                f"P{P} MP{MP} W{W} keys{keys}"
+                f"{' e4m3 pools' if kv_name else ''}"))
     return rows
 
 
@@ -597,14 +671,21 @@ RAGGED_ROWS = [(0, 0), (1, 1), (127, 1), (128, 1), (383, 1), (640, 1),
 MP_RAGGED = 8
 
 
-def check_ragged(torch):
+def check_ragged(torch, kv_name=None):
     """Ragged attention at full width against its plain version: outputs
     (and, in bf16, each (row, query, head) vector against the plain version
     on the same values in fp32) and the pools after the writeback. bf16
-    must run the tensor-core instance (``mma``), fp32 the CUDA cores."""
+    must run the tensor-core instance (``mma``), fp32 the CUDA cores. With
+    ``kv_name`` (e4m3) the pools are e4m3 (the fp8 instances, bf16 still on
+    the tensor cores): the fp32 reference keeps e4m3 pools, so it rounds
+    the fresh K/V as the kernel does; then a second call with the fresh
+    K/V scaled past 464 must leave the pools byte-equal to the plain
+    version's (NaN bytes, JAX's cast). No single library call takes e4m3
+    K/V, so no yardstick."""
     from distributed_inference_engine_tpu_torch.ops import _cuda
     from distributed_inference_engine_tpu_torch.ops import (
         ragged_attention as ra)
+    from distributed_inference_engine_tpu_torch.ops.attention import raw_view
 
     F = torch.nn.functional
     rows = []
@@ -625,33 +706,42 @@ def check_ragged(torch):
     flops = 4.0 * H * DH * sum(q * (c + (q + 1) / 2) for c, q in RAGGED_ROWS)
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
+        kv_dt = getattr(torch, kv_name) if kv_name else dt
+        tol = FP8_TOL[dtype_name] if kv_name else TOL[dtype_name]
         item = torch.finfo(dt).bits // 8
+        kv_item = torch.finfo(kv_dt).bits // 8
         q = torch.randn((r, qmax, H, DH), generator=g, device="cuda").to(dt)
         fk = torch.randn((r, qmax, HKV, DH), generator=g,
                          device="cuda").to(dt)
         fv = torch.randn((r, qmax, HKV, DH), generator=g,
                          device="cuda").to(dt)
         pool_shape = (n_layers * n, P, HKV * DH)
-        n_copies = copies_for(2 * n * P * HKV * DH * item, limit=4)
-        kps = [torch.randn(pool_shape, generator=g, device="cuda").to(dt)
+        n_copies = copies_for(2 * n * P * HKV * DH * kv_item, limit=4)
+        kps = [torch.randn(pool_shape, generator=g, device="cuda").to(kv_dt)
                for _ in range(n_copies)]
-        vps = [torch.randn(pool_shape, generator=g, device="cuda").to(dt)
+        vps = [torch.randn(pool_shape, generator=g, device="cuda").to(kv_dt)
                for _ in range(n_copies)]
         kw = dict(n_kv_heads=HKV, layer=1, n_pages_per_layer=n)
         kp_p, vp_p = kps[0].clone(), vps[0].clone()
-        kp_32, vp_32 = kps[0].float(), vps[0].float()
-        inst = ra.ragged_instance(dt, dt)
+        # fp32 reference pools: e4m3 ones stay e4m3 (the fresh K/V rounds
+        # into them as in the kernel)
+        kp_32, vp_32 = ((kps[0].clone(), vps[0].clone()) if kv_name
+                        else (kps[0].float(), vps[0].float()))
+        inst = ra.ragged_instance(dt, kv_dt)
         assert inst == ("mma" if dtype_name == "bfloat16" else "simt"), inst
-        before = _cuda.LAUNCHES[f"ragged_attention.{inst}"]
+        names = (f"ragged_attention.{inst}", "ragged_attention.fp8")
+        before = [_cuda.LAUNCHES[k] for k in names]
         out, _, _ = ra.ragged_attention(q, kps[0], vps[0], table, ctx, ql,
                                         fk, fv, **kw)
         torch.cuda.synchronize()
-        assert _cuda.LAUNCHES[f"ragged_attention.{inst}"] == before + 1, \
+        assert [_cuda.LAUNCHES[k] for k in names] == [
+            before[0] + 1, before[1] + bool(kv_name)], \
             f"ragged_attention: the {inst} instance did not run"
         ref, _, _ = ra.ragged_attention_plain(q, kp_p, vp_p, table, ctx, ql,
                                               fk, fv, **kw)
         torch.cuda.synchronize()
-        pages_equal = torch.equal(kps[0], kp_p) and torch.equal(vps[0], vp_p)
+        pages_equal = (torch.equal(raw_view(kps[0]), raw_view(kp_p))
+                       and torch.equal(raw_view(vps[0]), raw_view(vp_p)))
         err = max_err(torch, out, ref)
         ref32, _, _ = ra.ragged_attention_plain(
             q.float(), kp_32, vp_32, table, ctx, ql, fk.float(), fv.float(),
@@ -659,11 +749,31 @@ def check_ragged(torch):
         row_err = (out.float() - ref32).abs().amax(-1)[valid]
         row_ref = ref32.abs().amax(-1)[valid]
         row_rel = float((row_err / row_ref).max())
-        ok = (within(torch, out, ref, dtype_name) and pages_equal
+        ok = (within(torch, out, ref, dtype_name, tol) and pages_equal
               and row_rel <= ROW_REL_TOL[dtype_name])
         assert torch.isfinite(out).all(), "ragged_attention: non-finite"
         assert float(out[~valid].abs().max()) == 0.0, \
             "ragged_attention: padding rows not zero"
+        note = inst
+        if kv_name:
+            # the writeback past 464: NaN bytes, byte-equal to the plain
+            # version's
+            kp_o, vp_o = kps[0].clone(), vps[0].clone()
+            kp_q, vp_q = kps[0].clone(), vps[0].clone()
+            big_k, big_v = fk * 300.0, fv * 300.0
+            ra.ragged_attention(q, kp_o, vp_o, table, ctx, ql, big_k, big_v,
+                                **kw)
+            ra.ragged_attention_plain(q, kp_q, vp_q, table, ctx, ql, big_k,
+                                      big_v, **kw)
+            torch.cuda.synchronize()
+            over_equal = (torch.equal(raw_view(kp_o), raw_view(kp_q))
+                          and torch.equal(raw_view(vp_o), raw_view(vp_q)))
+            n_nan = int(torch.isnan(kp_o.float()).sum())
+            assert n_nan > 0, "ragged_attention: no overflow to NaN"
+            ok = ok and over_equal
+            note += (f"; pools byte-equal, and past 464 ({n_nan} NaN bytes "
+                     f"in K) {'byte-equal' if over_equal else 'DIFFER'}")
+            del kp_o, vp_o, kp_q, vp_q
 
         def mk(i):
             j = i % n_copies
@@ -672,39 +782,44 @@ def check_ragged(torch):
         t_k = time_ms(torch, lambda *a: ra.ragged_attention(*a, **kw), mk)
         t_p = time_ms(torch, lambda *a: ra.ragged_attention_plain(*a, **kw),
                       mk, reps=3, per_rep=3)
-        # library yardstick: SDPA with a boolean mask over the pre-gathered
-        # context ++ fresh K/V (the gather is not timed; padding queries
-        # see key 0, so no row is fully masked)
-        s_ctx = MP_RAGGED * P
-        idx = (n + table.long())
-        kg = torch.cat([kps[0][idx].reshape(r, s_ctx, HKV, DH), fk], 1)
-        vg = torch.cat([vps[0][idx].reshape(r, s_ctx, HKV, DH), fv], 1)
-        kg = kg.transpose(1, 2).contiguous()
-        vg = vg.transpose(1, 2).contiguous()
-        pos = torch.arange(s_ctx + qmax, device="cuda")[None, None, :]
-        qi = torch.arange(qmax, device="cuda")[None, :, None]
-        mask = ((pos < ctx[:, None, None])
-                | ((pos >= s_ctx) & (pos - s_ctx <= qi)
-                   & (pos - s_ctx < ql[:, None, None])))
-        mask[..., 0] |= ~valid
-        q4 = q.transpose(1, 2).contiguous()
-        t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, kg, vg, attn_mask=mask[:, None], enable_gqa=True),
-            lambda i: ())
-        # valid work only: context K/V below ctx_len, the fresh K/V read
-        # and written, the valid queries and their outputs
-        nbytes = (2 * ctx_keys * HKV * DH + 4 * n_q * HKV * DH
-                  + 2 * n_q * H * DH) * item + (table.numel() + 2 * r) * 4
+        t_l = None
+        if not kv_name:
+            # library yardstick: SDPA with a boolean mask over the
+            # pre-gathered context ++ fresh K/V (the gather is not timed;
+            # padding queries see key 0, so no row is fully masked)
+            s_ctx = MP_RAGGED * P
+            idx = (n + table.long())
+            kg = torch.cat([kps[0][idx].reshape(r, s_ctx, HKV, DH), fk], 1)
+            vg = torch.cat([vps[0][idx].reshape(r, s_ctx, HKV, DH), fv], 1)
+            kg = kg.transpose(1, 2).contiguous()
+            vg = vg.transpose(1, 2).contiguous()
+            pos = torch.arange(s_ctx + qmax, device="cuda")[None, None, :]
+            qi = torch.arange(qmax, device="cuda")[None, :, None]
+            mask = ((pos < ctx[:, None, None])
+                    | ((pos >= s_ctx) & (pos - s_ctx <= qi)
+                       & (pos - s_ctx < ql[:, None, None])))
+            mask[..., 0] |= ~valid
+            q4 = q.transpose(1, 2).contiguous()
+            t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, kg, vg, attn_mask=mask[:, None], enable_gqa=True),
+                lambda i: ())
+        # valid work only: context K/V below ctx_len (at the pools' width),
+        # the fresh K/V read (q's width) and written (the pools'), the
+        # valid queries and their outputs
+        nbytes = (2 * ctx_keys + 2 * n_q) * HKV * DH * kv_item + (
+            2 * n_q * HKV * DH + 2 * n_q * H * DH) * item + \
+            (table.numel() + 2 * r) * 4
         b_ms, b_by = bound_ms(nbytes, flops, dtype_name)
         rows.append(dict(dtype=dtype_name, err=err, ok=ok, ms=t_k,
                          plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                         bound_by=b_by, row_rel=row_rel, note=inst,
+                         bound_by=b_by, row_rel=row_rel, note=note, tol=tol,
                          shape=f"R{r} Qmax{qmax} H{H} Hkv{HKV} Dh{DH} P{P} "
-                         f"MP{MP_RAGGED} q{n_q} ctx{ctx_keys}"))
+                         f"MP{MP_RAGGED} q{n_q} ctx{ctx_keys}"
+                         f"{' e4m3 pools' if kv_name else ''}"))
     return rows
 
 
-def check_paged(torch):
+def check_paged(torch, kv_name=None):
     """Paged attention at the Mistral decode shapes against its plain
     version: windows 0 and 4096, on one layer's pool and on the stacked
     pool (layer 5 of 32, with the flash stats), bf16 and fp32, then the
@@ -713,7 +828,10 @@ def check_paged(torch):
     on the same values widened to fp32) and elementwise to the dtype's
     tolerance; m and l to ``STATS_TOL`` of the fp32 plain stats. Timed on
     the stacked pool, rotating over its 32 layers (cold L2); the library
-    yardstick is SDPA over the pre-gathered pages with the window mask."""
+    yardstick is SDPA over the pre-gathered pages with the window mask.
+    With ``kv_name`` (e4m3) the pools are e4m3 (the fp8 instance, checked
+    by its launch count; no yardstick: SDPA needs an upcast first)."""
+    from distributed_inference_engine_tpu_torch.ops import _cuda
     from distributed_inference_engine_tpu_torch.ops import paged_attention \
         as pa
 
@@ -728,6 +846,8 @@ def check_paged(torch):
 
     def one(dtype_name, q, kp, vp, table, lens_list, window, stacked):
         item = torch.finfo(q.dtype).bits // 8
+        kv_item = torch.finfo(kp.dtype).bits // 8
+        tol = FP8_TOL[dtype_name] if kv_name else TOL[dtype_name]
         b = len(lens_list)
         lens = torch.tensor(lens_list, **i32)
         lo = PAGED_LAYER * n
@@ -736,8 +856,11 @@ def check_paged(torch):
         kw = dict(n_kv_heads=HKV, window=window, with_stats=stacked)
         if stacked:
             kw.update(layer=PAGED_LAYER, n_pages_per_layer=n)
+        before = _cuda.LAUNCHES["paged_attention.fp8"]
         got = pa.paged_attention(q, *pools, table, lens, **kw)
         torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["paged_attention.fp8"] == before + bool(
+            kv_name), "paged_attention: the fp8 instance's launch count"
         ref = pa.paged_attention_xla(q, *pools, table, lens, **kw)
         ref32 = pa.paged_attention_xla(
             q.float(), *(t.float() for t in one_pool), table, lens,
@@ -749,7 +872,7 @@ def check_paged(torch):
         row_ref = ref32[0].abs().amax(-1)
         live = row_ref > 0
         row_rel = float((row_err[live] / row_ref[live]).max())
-        ok = (within(torch, out, ref_out, dtype_name)
+        ok = (within(torch, out, ref_out, dtype_name, tol)
               and row_rel <= ROW_REL_TOL[dtype_name])
         assert torch.isfinite(out).all(), "paged_attention: non-finite"
         empty = [i for i, x in enumerate(lens_list) if x == 0]
@@ -785,27 +908,29 @@ def check_paged(torch):
                       lambda i: (i,))
         t_p = time_ms(torch, lambda i: call(pa.paged_attention_xla, i),
                       lambda i: (i,), reps=3, per_rep=3)
-        idx = lo + table.long()
-        kg = kp[idx].reshape(b, MP_PAGED * P, HKV, DH).transpose(
-            1, 2).contiguous()
-        vg = vp[idx].reshape(b, MP_PAGED * P, HKV, DH).transpose(
-            1, 2).contiguous()
-        q4 = q[:, :, None, :]
-        mask = vis[:, None, None, :]
-        t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, kg, vg, attn_mask=mask, enable_gqa=True), lambda i: ())
-        del kg, vg
-        # the live window's K/V read once, q and out (and the stats), the
-        # table and lengths
-        nbytes = (2 * keys * HKV * DH + 2 * b * H * DH) * item + \
+        t_l = None
+        if not kv_name:
+            idx = lo + table.long()
+            kg = kp[idx].reshape(b, MP_PAGED * P, HKV, DH).transpose(
+                1, 2).contiguous()
+            vg = vp[idx].reshape(b, MP_PAGED * P, HKV, DH).transpose(
+                1, 2).contiguous()
+            q4 = q[:, :, None, :]
+            mask = vis[:, None, None, :]
+            t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, kg, vg, attn_mask=mask, enable_gqa=True), lambda i: ())
+            del kg, vg
+        # the live window's K/V read once (at the pools' width), q and out
+        # (and the stats), the table and lengths
+        nbytes = 2 * keys * HKV * DH * kv_item + 2 * b * H * DH * item + \
             (table.numel() + b) * 4 + (8 * b * H if stacked else 0)
         b_ms, b_by = bound_ms(nbytes, 4.0 * keys * H * DH, dtype_name)
         row = dict(dtype=dtype_name, err=err, ok=ok, ms=t_k, plain_ms=t_p,
                    library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
-                   row_rel=row_rel, window=window, stacked=stacked,
+                   row_rel=row_rel, window=window, stacked=stacked, tol=tol,
                    shape=f"B{b} H{H} Hkv{HKV} Dh{DH} P{P} MP{MP_PAGED} "
                    f"win{window} {'L5/32+stats' if stacked else 'layer'} "
-                   f"keys{keys}")
+                   f"keys{keys}{' e4m3 pools' if kv_name else ''}")
         if stats_rel is not None:
             row["stats_rel"] = stats_rel
         return row
@@ -813,8 +938,13 @@ def check_paged(torch):
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
         shape = (PAGED_LAYERS * n, P, HKV * DH)
-        kp = torch.randn(shape, generator=g, device="cuda", dtype=dt)
-        vp = torch.randn(shape, generator=g, device="cuda", dtype=dt)
+        if kv_name:
+            kv_dt = getattr(torch, kv_name)
+            kp = torch.randn(shape, generator=g, device="cuda").to(kv_dt)
+            vp = torch.randn(shape, generator=g, device="cuda").to(kv_dt)
+        else:
+            kp = torch.randn(shape, generator=g, device="cuda", dtype=dt)
+            vp = torch.randn(shape, generator=g, device="cuda", dtype=dt)
         q = torch.randn((B, H, DH), generator=g, device="cuda", dtype=dt)
         for window in (0, MISTRAL_WINDOW):
             for stacked in (False, True):
@@ -1050,11 +1180,16 @@ def phase_kernels(torch, card: str):
         "flash_decode_fw": check_flash_decode_fw(torch),
         "int4_matmul": check_int4(torch),
         "paged_attention": check_paged(torch),
+        # the e4m3-pool instances (A5f) at the same shapes
+        "flash_decode.fp8": check_flash_decode(torch, FP8),
+        "flash_decode_fw.fp8": check_flash_decode_fw(torch, FP8),
+        "ragged_attention.fp8": check_ragged(torch, FP8),
+        "paged_attention.fp8": check_paged(torch, FP8),
     }
     bad = []
     for name, rows in results.items():
         for r in rows:
-            atol, rtol = TOL[r["dtype"]]
+            atol, rtol = r.get("tol", TOL[r["dtype"]])
             held = f"(tol atol={atol} rtol={rtol})"
             rel = (f" row max_rel_err={r['row_rel']:.3e} (tol "
                    f"{ROW_REL_TOL[r['dtype']]})" if "row_rel" in r else "")
@@ -1071,8 +1206,10 @@ def phase_kernels(torch, card: str):
                 f"{rel} {'ok' if r['ok'] else 'FAIL'} | kernel "
                 f"{r['ms']:.4f} ms, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms"
-                f"{' (' + r['note'] + ')' if 'note' in r else ''} [{card}]")
+                f"{r['plain_ms']:.4f} ms, library "
+                + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
+                   else "none (no one call takes e4m3 K/V)")
+                + f"{' (' + r['note'] + ')' if 'note' in r else ''} [{card}]")
             if not r["ok"]:
                 bad.append(f"{name} {r['dtype']} {r['shape']}")
     if bad:
@@ -1718,8 +1855,54 @@ def phase_mixed(torch, card: str):
         f"prefill tokens; chunked admissions {eng['chunked_admissions']}; "
         f"prefix-hit admissions {eng['prefix_hit_admissions']}; deferred "
         f"admissions {eng['deferred_admissions']}; engine steps "
-        f"{eng['engine_steps']}; launches {launches} [{card}]")
+        f"{eng['engine_steps']}; pools {eng['kv']['hbm_bytes'] / 2**30:.2f}"
+        f" GiB; launches {launches} [{card}]")
+    return wave1, launches, out
+
+
+def phase_fp8(torch, card: str, mixed):
+    """A5f: the mixed phase's model and waves from e4m3 KV pools
+    (``kv_dtype=float8_e4m3fn``), through the worker CLI at full width and
+    depth with the load-time warmup. Both waves served; every ragged launch
+    on the fp8 instance (32 per mixed step, on the tensor cores) and every
+    flash-decode launch too; the pools' ``hbm_bytes`` half of ``mixed``'s;
+    served tok/s and TTFT beside ``mixed``'s from this run."""
+    wave1, wave2 = mixed_prompts()
+    out = run_worker(FP8_MODEL, [wave1, wave2])
+    results, wall, launches, eng = (out["results"], out["wall"],
+                                    out["launches"], out["eng"])
+    check_results(results[0], wave1, "fp8 wave 1")
+    check_results(results[1], wave2, "fp8 wave 2")
+    assert eng["mixed_steps"] > 0 and eng["chunked_admissions"] > 0, eng
+    assert eng["prefix_hit_admissions"] >= 1, eng
+    for k in ("ragged_attention", "flash_decode"):
+        assert launches.get(k, 0) > 0 and launches.get(f"{k}.fp8") == \
+            launches[k], f"fp8: {k} not on its fp8 instance: {launches}"
+    assert launches["ragged_attention"] == N_LAYERS * eng["mixed_steps"], \
+        (launches, eng["mixed_steps"])
+    assert launches.get("ragged_attention.mma") == \
+        launches["ragged_attention"], launches
+    half = mixed["eng"]["kv"]["hbm_bytes"]
+    assert 2 * eng["kv"]["hbm_bytes"] == half, (eng["kv"], half)
+    log(f"[fp8] {graphs_line(out)} [{card}]")
+    log(f"[fp8] {served_line(results[0] + results[1], wall)}; mixed steps "
+        f"{eng['mixed_steps']} carrying {eng['mixed_prefill_tokens']} "
+        f"prefill tokens; chunked admissions {eng['chunked_admissions']}; "
+        f"prefix-hit admissions {eng['prefix_hit_admissions']}; pools "
+        f"{eng['kv']['hbm_bytes'] / 2**30:.2f} GiB (mixed "
+        f"{half / 2**30:.2f}); launches {launches} [{card}]")
+    mixed_res = mixed["results"][0] + mixed["results"][1]
+    log(f"[fp8] beside mixed (same run): served "
+        f"{_tok_s(results[0] + results[1], wall):.1f} tok/s against "
+        f"{_tok_s(mixed_res, mixed['wall']):.1f}; TTFT p50 "
+        f"{_p50([r.ttft_s for w in results for r in w]):.3f} s against "
+        f"{_p50([r.ttft_s for r in mixed_res]):.3f} s [{card}]")
     return wave1, launches
+
+
+def _p50(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
 
 
 def decode_logit_gap(torch, spec, params, prompt, cont, fused: bool,
@@ -1881,7 +2064,7 @@ def phase_fused(torch, card: str, prompts, results, mixed_wave,
     # (logits) and at the engine's 8 live slots (every chain,
     # teacher-forced)
     t_fp32 = time.perf_counter()
-    spec32 = spec.replace(dtype="float32", n_layers=CUT_LAYERS)
+    spec32 = spec.replace(dtype="float32", n_layers=FP32_LAYERS)
     params = init_params(spec32, torch.Generator(device="cuda").manual_seed(0))
     cont = out[5].tokens[:8]
     for impl, fused in (("pallas-decode", False), ("pallas-decode", True),
@@ -2206,8 +2389,9 @@ def phase_mistral(torch, card: str):
         f"{1e3 * eng['decode_chunk']['sum_s'] / steps:.2f} ms/step over "
         f"{steps} steps; chunked admissions {eng['chunked_admissions']}; "
         f"prefix-hit admissions {eng['prefix_hit_admissions']}; prefill "
-        f"calls {eng['prefill_calls']}; pools {eng['kv']['kv_bytes'] / 1e9:.2f}"
-        f" GB ({eng['kv']['num_pages']} pages of {eng['kv']['page_size']}); "
+        f"calls {eng['prefill_calls']}; pools "
+        f"{eng['kv']['hbm_bytes'] / 1e9:.2f} GB ({eng['kv']['num_pages']} "
+        f"pages of {eng['kv']['page_size']}); "
         f"launches {launches} [{card}]")
     return wave1, results[0], launches
 
@@ -2287,13 +2471,13 @@ def phase_mistral_inproc(torch, card: str, wave1, served):
     del params
     torch.cuda.empty_cache()
 
-    spec32 = spec.replace(dtype="float32", n_layers=CUT_LAYERS)
+    spec32 = spec.replace(dtype="float32", n_layers=FP32_LAYERS)
     params = init_params(spec32, torch.Generator(device="cuda").manual_seed(0))
     _cuda.reset_launch_counts()
     gaps = paged_logit_gap(torch, spec32, params, wave1[4],
                            served[4].tokens)
     launches = _cuda.launch_counts()
-    assert launches.get("paged_attention") == CUT_LAYERS * len(
+    assert launches.get("paged_attention") == FP32_LAYERS * len(
         served[4].tokens), launches
     log(f"[mistral] fp32 inline decode-vs-forward_train max|logit gap| "
         f"{max(gaps):.3e} over {len(gaps)} steps past the window (prompt "
@@ -2302,6 +2486,202 @@ def phase_mistral_inproc(torch, card: str, wave1, served):
     assert max(gaps) <= FP32_LOGIT_TOL, gaps
     del params
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------- A5f in process
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Test-only switch of this script: every attention kernel the forward
+    calls (``models/base.py``'s names) replaced by its plain version
+    inside the block, restored after. The package has no such knob."""
+    from distributed_inference_engine_tpu_torch.models import base as mb
+    from distributed_inference_engine_tpu_torch.ops import flash_decode as fd
+    from distributed_inference_engine_tpu_torch.ops import (
+        paged_attention as pa)
+    from distributed_inference_engine_tpu_torch.ops import (
+        ragged_attention as ra)
+
+    swaps = {"flash_decode_attention": fd.flash_decode_attention_plain,
+             "flash_decode_attention_fw": fd.flash_decode_attention_fw_plain,
+             "paged_attention": pa.paged_attention_xla,
+             "ragged_attention": ra.ragged_attention_plain}
+    old = {k: getattr(mb, k) for k in swaps}
+    for k, v in swaps.items():
+        setattr(mb, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(mb, k, v)
+
+
+def fp8_decode_logits(torch, spec, params, prompt, cont, path: str):
+    """fp32 logits [len(cont) + 1, V] of one decode path over e4m3 pools,
+    teacher-forced: the prompt prefilled into the pages
+    (``forward_prefill_into_pages``, which attends to its fresh keys
+    unrounded: the same bytes land whatever the attention kernels), then
+    one step per token of ``cont`` through ``forward_decode_window``
+    (``path`` its ``attn_impl``) or the inline ``forward_decode_paged``
+    (``inline``); for ``ragged`` the first half of ``cont`` as one chunk
+    row of ``forward_mixed_step`` (every position's hidden state), the
+    rest as its decode rows."""
+    import numpy as np
+    from distributed_inference_engine_tpu_torch.models import base as mb
+
+    seq = list(prompt) + list(cont)
+    n0, steps = len(prompt), len(cont)
+    L, fusedw = spec.n_layers, spec.n_kv_heads * spec.head_dim
+    n_pages = -(-len(seq) // P)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        kp = torch.zeros((L, n_pages, P, fusedw), dtype=torch.uint8,
+                         device="cuda").view(torch.float8_e4m3fn)
+        vp = torch.zeros((L, n_pages, P, fusedw), dtype=torch.uint8,
+                         device="cuda").view(torch.float8_e4m3fn)
+        table = np.arange(n_pages, dtype=np.int32)[None]
+        tab = torch.tensor(table, device="cuda")
+        h, _, _ = mb.forward_prefill_into_pages(
+            spec, params, torch.tensor([prompt], device="cuda"),
+            np.array([n0], np.int32), kp, vp, table)
+        logits = [mb.unembed(spec, params, h[0, -1:])[0]]
+        side = torch.zeros((2, L, 1, steps, spec.n_kv_heads, spec.head_dim),
+                           dtype=spec.torch_dtype, device="cuda")
+        start = torch.tensor([n0], **i32)
+        active = torch.tensor([True], device="cuda")
+        first = 0
+        if path == "ragged":
+            first = steps // 2
+            h, _, _ = mb.forward_mixed_step(
+                spec, params, torch.tensor([cont[:first]], **i32),
+                np.array([n0], np.int32), np.array([first], np.int32), kp,
+                vp, tab, return_hidden_all=True)
+            logits += list(mb.unembed(spec, params, h[0]))
+        for s in range(first, steps):
+            tok = torch.tensor([seq[n0 + s]], **i32)
+            pos = torch.tensor([n0 + s], **i32)
+            if path == "inline":
+                x, _, _ = mb.forward_decode_paged(spec, params, tok, pos, kp,
+                                                  vp, tab)
+            elif path == "ragged":
+                x, _, _ = mb.forward_mixed_step(
+                    spec, params, tok[:, None], pos, torch.ones_like(pos),
+                    kp, vp, tab)
+            else:
+                x, _, _ = mb.forward_decode_window(
+                    spec, params, tok, pos, start, kp, vp, tab, side[0],
+                    side[1], active, attn_impl=path)
+            logits.append(mb.unembed(spec, params, x)[0])
+    return torch.stack(logits)
+
+
+def fp8_kernel_vs_plain(torch, card: str, spec32, params, prompt, cont,
+                        paths, tag: str):
+    """Each decode path over e4m3 pools in fp32, through the kernels and
+    through their plain versions (``plain_kernels``): the logits within
+    ``FP32_LOGIT_TOL`` of each other, the plain run launching no kernel,
+    the kernel run launching each path's fp8 instance; the gap to the
+    unrounded ``forward_train`` printed beside (the e4m3 rounding itself,
+    not held)."""
+    import numpy as np
+    from distributed_inference_engine_tpu_torch.models import base as mb
+    from distributed_inference_engine_tpu_torch.ops import _cuda
+
+    seq = list(prompt) + list(cont)
+    with torch.no_grad():
+        ref = mb.forward_train(spec32, params, torch.tensor(
+            [seq], device="cuda"), np.array([len(seq)], np.int32))[0]
+    ref = ref[len(prompt) - 1:]
+    want = {"pallas-decode": "flash_decode.fp8",
+            "pallas-decode-fw": "flash_decode_fw.fp8",
+            "inline": "paged_attention.fp8",
+            "ragged": "ragged_attention.fp8"}
+    for path in paths:
+        _cuda.reset_launch_counts()
+        got = fp8_decode_logits(torch, spec32, params, prompt, cont, path)
+        launches = _cuda.launch_counts()
+        assert launches.get(want[path], 0) > 0, (path, launches)
+        with plain_kernels():
+            _cuda.reset_launch_counts()
+            plain = fp8_decode_logits(torch, spec32, params, prompt, cont,
+                                      path)
+            assert not _cuda.launch_counts(), _cuda.launch_counts()
+        gap = float((got - plain).abs().max())
+        drift = float((got - ref).abs().max())
+        log(f"[fp8] fp32 {tag} {path}, e4m3 pools, {spec32.n_layers} layers:"
+            f" kernels-vs-plain max|logit gap| {gap:.3e} over {len(got)} "
+            f"steps (limit {FP32_LOGIT_TOL}); vs the unrounded forward_train "
+            f"{drift:.3e} (the e4m3 rounding, not held); launches "
+            f"{launches} [{card}]")
+        assert gap <= FP32_LOGIT_TOL, (tag, path, gap)
+
+
+def phase_fp8_inproc(torch, card: str):
+    """A5f in this process, at full width and ``CUT_LAYERS`` deep, e4m3
+    pools: the fw decode (``pallas-decode-fw``) at 8 slots over the serve
+    prompts and Mistral's inline decode past its window over the mistral
+    prompts, graph replays against the eager hook (tokens, logprobs and
+    launches bit-equal); then in fp32 (``FP32_LAYERS`` deep) the decode
+    paths' teacher-forced logits through the kernels against the same
+    forward through their plain versions: flash-decode, fw, the ragged
+    mixed step and the inline paged decode (Llama-3-8B), and Mistral's
+    inline decode past the window. Returns the fw and Mistral runs' launch
+    counts (the fp8 instances' paths)."""
+    import numpy as np
+    from distributed_inference_engine_tpu_torch.models import (
+        spec_for_architecture)
+    from distributed_inference_engine_tpu_torch.models.base import init_params
+
+    gen = torch.Generator(device="cuda")
+    spec = spec_for_architecture("llama", "llama3-8b", max_seq_len=1024
+                                 ).replace(n_layers=CUT_LAYERS)
+    params = init_params(spec, gen.manual_seed(0))
+    prompts = serve_prompts()
+    _, fw_launch, eng, _ = pair_run(
+        torch, spec, params, prompts, "fw fp8", card, exact=True,
+        attention_impl="pallas-decode-fw", kv_dtype=FP8)
+    assert fw_launch.get("flash_decode_fw.fp8") == \
+        fw_launch.get("flash_decode_fw") == CUT_LAYERS * eng["decode_steps"]\
+        > 0, (fw_launch, eng["decode_steps"])
+    del params
+    torch.cuda.empty_cache()
+
+    mspec = spec_for_architecture("mistral", "mistral-7b-v01",
+                                  max_seq_len=8192).replace(
+        n_layers=CUT_LAYERS)
+    params = init_params(mspec, gen.manual_seed(0))
+    m_wave, _ = mistral_prompts()
+    _, m_launch, eng, _ = pair_run(
+        torch, mspec, params, m_wave, "mistral fp8", card, exact=True,
+        attention_impl="pallas", max_seq_len=8192, prefill_chunk=512,
+        kv_dtype=FP8)
+    assert eng["decode_mode"] == "inline" and \
+        m_launch.get("paged_attention.fp8") == \
+        m_launch.get("paged_attention") == CUT_LAYERS * eng["decode_steps"]\
+        > 0, (m_launch, eng["decode_steps"])
+    del params
+    torch.cuda.empty_cache()
+
+    rs = np.random.RandomState(17)
+    spec32 = spec.replace(dtype="float32", n_layers=FP32_LAYERS)
+    params = init_params(spec32, gen.manual_seed(0))
+    fp8_kernel_vs_plain(
+        torch, card, spec32, params, mixed_prompts()[0][7],
+        rs.randint(1, spec32.vocab_size, size=16).tolist(),
+        ("pallas-decode", "pallas-decode-fw", "ragged", "inline"),
+        "llama3-8b")
+    del params
+    torch.cuda.empty_cache()
+    mspec32 = mspec.replace(dtype="float32", n_layers=FP32_LAYERS)
+    params = init_params(mspec32, gen.manual_seed(0))
+    fp8_kernel_vs_plain(
+        torch, card, mspec32, params, m_wave[4],
+        rs.randint(1, MISTRAL_VOCAB, size=16).tolist(), ("inline",),
+        "mistral-7b past the window")
+    del params
+    torch.cuda.empty_cache()
+    return fw_launch, m_launch
 
 
 def phase_int4(torch, card: str):
@@ -2480,7 +2860,7 @@ def phase_int4_inproc(torch, card: str, wave1, served, profile_it: bool):
     # fp32 at full width (CUT_LAYERS deep): int4 through the kernel's
     # fp32 instances (GEMV, CUDA-core tiles), and int8, on the decode path
     # and through an engine's chunked mixed step
-    spec32 = spec.replace(dtype="float32", n_layers=CUT_LAYERS)
+    spec32 = spec.replace(dtype="float32", n_layers=FP32_LAYERS)
     for bits in (4, 8):
         params = born(spec32, bits)
         launches = fp32_chains(torch, card, spec32, params, wave1,
@@ -2615,7 +2995,7 @@ def graph_pool_bytes(torch, pool) -> int:
 
 
 def pair_run(torch, spec, params, prompts, label: str, card: str,
-             profile_share=None, **cfg):
+             profile_share=None, exact=False, **cfg):
     """``prompts`` (32 new tokens each, greedy) through two in-process
     engines of one configuration (8 slots, ``max_seq_len`` 1024 unless
     ``cfg`` says otherwise): one replaying CUDA graphs (the default), one
@@ -2625,8 +3005,9 @@ def pair_run(torch, spec, params, prompts, label: str, card: str,
     the chosen tokens' logprobs where they are not bit-equal; prints the
     graphs' count, capture seconds and pool bytes. ``profile_share`` (kernel
     names, or ``()``): also each engine's decode ms per step and
-    device-busy share over two profiled chunks. Returns the graph run's
-    (results, launches, metrics, wall s)."""
+    device-busy share over two profiled chunks. ``exact``: the logprobs
+    must be bit-equal too. Returns the graph run's (results, launches,
+    metrics, wall s)."""
     from distributed_inference_engine_tpu_torch.config import EngineConfig
     from distributed_inference_engine_tpu_torch.engine.continuous import (
         ContinuousEngine)
@@ -2668,6 +3049,7 @@ def pair_run(torch, spec, params, prompts, label: str, card: str,
             f"{next(j for j, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y)}")
     gap = max(abs(x - y) for a, b in zip(e["out"], g["out"])
               for x, y in zip(a.logprobs, b.logprobs))
+    assert not exact or gap == 0, f"{label}: logprobs differ by {gap}"
     assert g["launches"] == e["launches"], (label, g["launches"],
                                             e["launches"])
     gm = g["metrics"]
@@ -2782,7 +3164,13 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile the bf16 and int4 mixed steps and "
                     "time the int4 wgmma token tiles")
+    ap.add_argument("--full-depth", action="store_true",
+                    help=f"run the fp32 logit checks at all {N_LAYERS} "
+                    f"layers instead of {CUT_LAYERS}")
     args = ap.parse_args()
+    global FP32_LAYERS
+    if args.full_depth:
+        FP32_LAYERS = N_LAYERS
 
     import torch
 
@@ -2832,8 +3220,11 @@ def main() -> int:
     done("kernels")
     # the worker phases first: each worker process has the card to itself
     # but for this process's kernel-phase leftovers (freed here)
-    mixed_wave, mixed_launch = phase_mixed(torch, card)
+    mixed_wave, mixed_launch, mixed_out = phase_mixed(torch, card)
     done("mixed")
+    _, fp8_launch = phase_fp8(torch, card, mixed_out)
+    del mixed_out
+    done("fp8 worker")
     int4_wave, int4_served, int4_launch, probe = phase_int4(torch, card)
     done("int4 worker")
     prompts, results, serve_launch = phase_fleet(torch, card, probe)
@@ -2848,11 +3239,15 @@ def main() -> int:
     done("int4 in process")
     phase_mistral_inproc(torch, card, m_wave, m_served)
     done("mistral in process")
+    fw8_launch, paged8_launch = phase_fp8_inproc(torch, card)
+    done("fp8 in process")
 
     jax_ops = "distributed_inference_engine_tpu/ops/"
-    # kernel: (source, TPU kernel it replaces, launches on its path)
+    # kernel: (source, TPU kernel it replaces, launches on its path); the
+    # fp8 instances' paths: the fp8 worker (ragged, flash-decode), the
+    # in-process fw and Mistral runs
     sources = {
-        "flash_decode": ("csrc/flash_decode.cu",
+        "flash_decode": ("csrc/flash_decode.cuh",
                          jax_ops + "flash_decode.py:246", serve_launch),
         "norm_matmul": ("csrc/fused_decode.cu",
                         jax_ops + "fused_decode.py:120", fused_launch),
@@ -2861,25 +3256,38 @@ def main() -> int:
         "ragged_attention": ("csrc/ragged_attention.cu",
                              jax_ops + "ragged_attention.py:181",
                              mixed_launch),
-        "flash_decode_fw": ("csrc/flash_decode.cu",
+        "flash_decode_fw": ("csrc/flash_decode.cuh",
                             jax_ops + "flash_decode.py:314", fw_launch),
         "int4_matmul": ("csrc/int4_matmul.cu",
                         jax_ops + "int4_matmul.py:240", int4_launch),
         "paged_attention": ("csrc/paged_attention.cu",
                             jax_ops + "paged_attention.py:112",
-                            mistral_launch)}
+                            mistral_launch),
+        "flash_decode.fp8": ("csrc/flash_decode_fp8.cu",
+                             jax_ops + "flash_decode.py:246", fp8_launch),
+        "flash_decode_fw.fp8": ("csrc/flash_decode_fp8.cu",
+                                jax_ops + "flash_decode.py:314", fw8_launch),
+        "ragged_attention.fp8": ("csrc/ragged_attention.cu",
+                                 jax_ops + "ragged_attention.py:181",
+                                 fp8_launch),
+        "paged_attention.fp8": ("csrc/paged_attention.cu",
+                                jax_ops + "paged_attention.py:112",
+                                paged8_launch)}
     # representative main-path shape per kernel: bf16, and for the GEMVs
     # the d_ff projections (gate/up for norm_matmul, down for residual,
     # gate|up at the 8 decode rows for int4); paged attention as Mistral
     # calls it (stacked pool, window 4096)
     pick = {"flash_decode": 0, "norm_matmul": 2, "matmul_residual": 1,
             "ragged_attention": 0, "flash_decode_fw": 0,
-            "int4_matmul": INT4_MAIN, "paged_attention": PAGED_MAIN}
+            "int4_matmul": INT4_MAIN, "paged_attention": PAGED_MAIN,
+            "flash_decode.fp8": 0, "flash_decode_fw.fp8": 0,
+            "ragged_attention.fp8": 0, "paged_attention.fp8": PAGED_MAIN}
     kernels = []
     for name, (src, replaces, path_launches) in sources.items():
         rows = kern[name]
         r = rows[pick[name]]
-        launches = path_launches[name]
+        launches = path_launches.get(name, 0)
+        assert launches > 0, f"{name}: never launched on its path"
         kernels.append({
             "name": name, "route": "cuda", "source": f"{PKG}/{src}",
             "replaces": replaces, "launches": launches,
@@ -2887,7 +3295,8 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
-            "dtype": r["dtype"]})
+            "dtype": r["dtype"], **({"kv_dtype": FP8} if name.endswith(
+                ".fp8") else {})})
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 // Shared helpers for the port's hand-written Hopper kernels: float
-// conversion for the two storage types (fp32, bf16), vectorised row loads,
+// conversion for the storage types (fp32, bf16, and e4m3 for KV pools, with
+// JAX's rounding into it), vectorised row loads,
 // cp.async and TMA copies, tensor-core fragments, split-softmax merges and
 // cluster reductions. Every kernel accumulates in fp32 whatever its
 // storage type.
@@ -8,19 +9,26 @@
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace die {
 
-// dtype codes shared with the Python wrappers (ops/_cuda.py)
+// dtype codes shared with the Python wrappers (ops/_cuda.py); kFP8 (e4m3)
+// is a KV pool's only
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
+constexpr int kFP8 = 2;
+
+using fp8 = __nv_fp8_e4m3;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+// e4m3 widens exactly (to fp16 on the hardware path, then fp32)
+__device__ __forceinline__ float to_f(fp8 x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -31,6 +39,53 @@ __device__ __forceinline__ float from_f<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, like astype()
+}
+// Into e4m3 as JAX's astype rounds (ops/attention.py astype_kv): to nearest
+// even, and NaN (0x7F with x's sign) past 464, for +-inf and for NaN. The
+// non-saturating conversion is the library's software path; the hardware
+// cvt.rn.satfinite would saturate to +-448 instead.
+template <>
+__device__ __forceinline__ fp8 from_f<fp8>(float x) {
+  fp8 r;
+  r.__x = __nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E4M3);
+  return r;
+}
+
+template <typename T>
+constexpr bool kIsFp8 = sizeof(T) == 1;
+
+// Elements a lane loads at once from a row of T: 16 bytes, but 8 e4m3
+// values (8 bytes), so that an fp8 row spreads over as many lanes as a bf16
+// one and a lane holds as many fp32 values.
+template <typename T>
+constexpr int kVecOf = kIsFp8<T> ? 8 : 16 / static_cast<int>(sizeof(T));
+
+// Two e4m3 values (lo in the low byte) widened to two bf16 in one 32-bit
+// register, lo in the low half: exact.
+__device__ __forceinline__ uint32_t fp8x2_to_bf16x2(unsigned short v) {
+  const __half2 h = __half2(__nv_cvt_fp8x2_to_halfraw2(v, __NV_E4M3));
+  const float2 f = __half22float2(h);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// Eight e4m3 values (8 bytes) as eight bf16 (16 bytes).
+__device__ __forceinline__ uint4 fp8x8_to_bf16x8(uint2 v) {
+  return make_uint4(fp8x2_to_bf16x2(v.x & 0xffffu),
+                    fp8x2_to_bf16x2(v.x >> 16),
+                    fp8x2_to_bf16x2(v.y & 0xffffu),
+                    fp8x2_to_bf16x2(v.y >> 16));
+}
+
+// Eight bf16 values rounded to e4m3 (from_f<fp8>) and packed into 8 bytes.
+__device__ __forceinline__ uint2 bf16x8_to_fp8x8(uint4 v) {
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    w[i / 4] |= static_cast<uint32_t>(from_f<fp8>(__bfloat162float(e[i])).__x)
+                << (8 * (i % 4));
+  return make_uint2(w[0], w[1]);
 }
 
 // x rounded through storage type T and widened back (T's rounding, as a

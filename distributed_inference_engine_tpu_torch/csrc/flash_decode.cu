@@ -1,761 +1,11 @@
-// Flash-decode attention over a paged prefix plus the chunk's side window.
-//
-// Replaces the TPU kernel ops/flash_decode.py:_flash_decode_kernel of the
-// JAX package (wrapper flash_decode_attention_pallas). Per slot b it
-// computes softmax(q . [prefix pages ++ side window] / sqrt(Dh)) . V with
-// an fp32 online softmax, GQA included: the prefix keys are tokens
-// t < prefix_lens[b] of the slot's pages, page p of layer l living at row
-// layer_base + page_table[b, p] of the stacked [L*N, P, Hkv*Dh] pool; the
-// side keys are entries j < n_side[b] of side_k[b].
-//
-// The writeback variant (die_flash_decode_fw) replaces the TPU kernel
-// ops/flash_decode.py:_flash_decode_fw_kernel (wrapper
-// flash_decode_attention_fw_pallas). It takes this step's fresh K/V as its
-// own operand instead of a side window already holding it: it reads side
-// entries j < min(side_idx[b], W), attends the fresh row as one extra key,
-// and writes it into side[b, side_idx[b]], for active slots with
-// side_idx < W. That is exactly the one-hot side write plus flash-decode
-// that the plain version composes; an active slot at side_idx >= W (a
-// state the engine never reaches: W is the chunk length) keeps its W
-// entries and drops the fresh row, as the plain version does.
-//
-// Bound on the card: the K and V bytes read (one Hkv*Dh row per valid key
-// and head group, each read once) over 3.35 TB/s: 20 MB, 6 us, at the
-// Llama-3-8B decode shape (B 8, 4,873 prefix keys). The arithmetic is ~4
-// FLOP per byte, far below the bf16 ridge (~295).
-//
-// Design: split KV, staged through shared memory.
-// - The grid is (slot x KV head, run): a slot's prefix (mp * page_size
-//   keys at most) is cut into n_split runs of `chunk` keys, sized by the
-//   host from shapes only (ops/paged_attention.py paged_split; the
-//   lengths are never read back). The previous design ran one block per
-//   (slot, KV head), 64 blocks on 132 SMs at B 8, each streaming its slot
-//   alone (~1 MB for 2,040 keys); at that shape the split gives 8 runs of
-//   256 keys, 512 blocks, and a lone slot 32 runs of 64. A run past its
-//   slot's keys has the empty state (m = -1e30, l = 0), which the merge
-//   weighs 0.
-// - The side window (and the fw variant's fresh row and its write) belongs
-//   to the last run of each (slot, KV head) alone: no other block reads
-//   the side buffers, so the write is done once and races nothing; the
-//   reads of the side buffer are coherent (cp.async.cg reads through L2,
-//   the CUDA-core side loads are plain loads in the fw variant).
-// - Each block copies its run's page ids into shared memory with its
-//   lengths, then streams the run in tiles of kKeys key rows (a K and a V
-//   tile of 8 KB each) through a ring of kStages stages filled by
-//   cp.async, 16 bytes a thread: two tiles are in flight while one is
-//   used. A KV head's row in a page is Dh * itemsize contiguous bytes, and
-//   each row's address comes from the page table, so runs that span pages
-//   and pages that are not a multiple of the tile need no special case.
-//   Rows past the run's end are zero-filled and masked (p = 0).
-// - bf16 q over bf16 pools, on the tensor cores: the G query heads of the
-//   KV head are padded to a 16-row tile in shared memory and each warp
-//   takes 16-key sub-tiles: S = Q K^T and O += P V with mma.sync.m16n8k16
-//   from ldmatrix loads (V transposed by ldmatrix.trans), P kept in
-//   registers as bf16
-//   (the S accumulator's layout is the A operand's, as in
-//   FlashAttention-2). wgmma's 64-row tile would be 94% padding at G 4.
-//   Rows of the tiles are padded by 16 bytes, so ldmatrix is
-//   conflict-free. Four blocks fit an SM at Dh <= 128. The CUDA-core loop
-//   below was also timed on bf16 over this grid and lost at every measured
-//   shape (PERF.md), so bf16 takes the tensor cores alone.
-// - Every other dtype pair (fp32 keeps the 1e-4 tolerance that TF32 would
-//   break): lane groups on CUDA cores, as in the paged kernel;
-//   LPK lanes read a key row from the staged tile with 16-byte loads, each
-//   group scores kU rows, rescales its state once and adds them; the side
-//   keys are read straight from global memory after the staged prefix.
-// - Merge: each block merges its warps through shared memory. With one run
-//   it writes out; with more it writes its fp32 partial (common.cuh
-//   SplitPartials) and bumps the (slot, KV head)'s arrival counter, and
-//   the block that arrives last merges the runs with common.cuh
-//   SplitMerge's weights (once per query head), writes out and resets the
-//   counter to 0 for the next call. One device launch: at a 6 us bound a
-//   second merge kernel's launch gap (2-3 us) would show. The counters
-//   live with the caller (zeroed once, per stream): two calls on one
-//   stream never share a count in flight, but two launches in flight at
-//   once on different streams must not share them (ops/flash_decode.py
-//   _scratch).
-//
-// What bounds it now: not the bytes (an L2-resident run is as slow as a
-// cold one) but each block's chain of dependent steps, tile after tile:
-// the copies of a tile, two barriers, one warp's sub-tile of mma.sync and
-// softmax, then the partials and the last block's merge.
-#include <type_traits>
-
-#include "common.cuh"
+// Flash-decode attention and its writeback variant: the launches and the
+// C entry points. The kernels, and what they replace, are in
+// flash_decode.cuh; the e4m3-pool instances are compiled in
+// flash_decode_fp8.cu.
+#include "flash_decode.cuh"
 
 namespace die {
-namespace {
-
-constexpr float kNegInf = -1e30f;  // finite, as in ops/attention.py
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kStages = 3;
-constexpr int kRunPages = 64;  // a run's page ids kept in shared memory
-constexpr int kMaxDevices = 16;
-
-struct FdArgs {
-  const void* q;           // [B, H, Dh] q dtype
-  const void* k_pages;     // stacked [L*N, P, Hkv*Dh] kv dtype
-  const void* v_pages;
-  const int* page_table;   // [B, MP]
-  const int* prefix_lens;  // [B]
-  void* side_k;            // [B, W, Hkv, Dh] q dtype (written by fw)
-  void* side_v;
-  const int* n_side;       // [B] valid side entries (plain variant)
-  const void* fresh_k;     // [B, 1, Hkv, Dh] q dtype (fw variant)
-  const void* fresh_v;
-  const int* side_idx;     // [B] this step's side column (fw variant)
-  const int* active;       // [B] 0/1 (fw variant)
-  void* out;               // [B, H, Dh] q dtype
-  float* ws;               // split partials (n_split > 1)
-  int* counters;           // [B * Hkv] run arrivals, 0 between calls
-  int b, hkv, page_size, mp, w, chunk;
-  long long layer_base;
-};
-
-// Staged tile geometry for rows of DH elements of T: kKeys rows (a tile of
-// 8 KB, 16 to 64 rows) at a stride padded by 16 bytes.
-template <typename T, int DH>
-struct Tile {
-  static constexpr int kRowBytes = DH * static_cast<int>(sizeof(T));
-  static constexpr int kStride = kRowBytes + 16;
-  static constexpr int kRaw = 8192 / kRowBytes;
-  static constexpr int kKeys = kRaw > 64 ? 64 : (kRaw < 16 ? 16 : kRaw);
-  static constexpr int kStageBytes = 2 * kKeys * kStride;  // K and V
-  static_assert(kRowBytes % 16 == 0, "rows of whole 16-byte pieces");
-};
-
-// This block's keys: run `split` of the slot's prefix and, for the last
-// run, the side entries and the fw variant's fresh row. The run's page ids
-// are pages[page - pg0].
-struct Plan {
-  int b, kh, split, s_lo, n_pref, ns, sidx, pg0;
-  bool fresh;
-  const int* pages;
-};
-
-// The block's plan; the run's page ids are copied into run_pages (when
-// they fit) in the same breath as the lengths are read, so the tile loop
-// never waits on the page table. The caller syncs before using them.
-template <bool FW>
-__device__ __forceinline__ Plan make_plan(const FdArgs& a, int* run_pages) {
-  Plan p;
-  const int bk = blockIdx.x;
-  p.b = bk / a.hkv;
-  p.kh = bk - p.b * a.hkv;
-  p.split = blockIdx.y;
-  p.s_lo = p.split * a.chunk;
-  const int* row = a.page_table + static_cast<long long>(p.b) * a.mp;
-  p.pg0 = p.s_lo / a.page_size;
-  const int n_pg =
-      min(a.mp, (p.s_lo + a.chunk - 1) / a.page_size + 1) - p.pg0;
-  if (n_pg <= kRunPages) {
-    for (int i = threadIdx.x; i < n_pg; i += kThreads)
-      run_pages[i] = row[p.pg0 + i];
-    p.pages = run_pages;
-  } else {
-    p.pages = row + p.pg0;
-  }
-  const int plen = min(a.prefix_lens[p.b], a.mp * a.page_size);
-  p.n_pref = max(0, min(plen, p.s_lo + a.chunk) - p.s_lo);
-  p.ns = 0;
-  p.sidx = 0;
-  p.fresh = false;
-  if (p.split == static_cast<int>(gridDim.y) - 1) {  // the side run
-    if constexpr (FW) {
-      p.sidx = a.side_idx[p.b];
-      p.ns = min(max(p.sidx, 0), a.w);
-      p.fresh = a.active[p.b] != 0 && p.sidx >= 0 && p.sidx < a.w;
-    } else {
-      p.ns = min(max(a.n_side[p.b], 0), a.w);
-    }
-  }
-  return p;
-}
-
-// Stage tile `tile` of the block's key sequence (rows v < n_rows; the
-// prefix run first, then, with kSide, the side entries and the fresh row)
-// into dst: the K tile, then the V tile. Rows past n_rows are zeros. Each
-// thread copies 16-byte piece c of rows r0, r0 + kStep, ...: it finds all
-// their sources first (the page and offset stepped along, no division a
-// row), then issues the copies together.
-template <typename TQ, typename TKV, int DH, bool kSide>
-__device__ __forceinline__ void stage_tile(const FdArgs& a, const Plan& p,
-                                           char* dst, int tile,
-                                           int n_rows) {
-  using T = Tile<TKV, DH>;
-  constexpr int kChunks = T::kRowBytes / 16;             // pieces a row
-  constexpr int kStep = kThreads / kChunks;              // rows a pass
-  constexpr int kRows = (T::kKeys + kStep - 1) / kStep;  // passes
-  static_assert(kChunks <= kThreads && kThreads % kChunks == 0,
-                "a pass covers whole rows");
-  const int c = threadIdx.x % kChunks;
-  const int r0 = threadIdx.x / kChunks;
-  const long long fused = static_cast<long long>(a.hkv) * DH;
-  const long long piece = c * (16 / static_cast<int>(sizeof(TKV)));
-  const TKV* k_pages = static_cast<const TKV*>(a.k_pages);
-  const TKV* v_pages = static_cast<const TKV*>(a.v_pages);
-  const int t0 = p.s_lo + tile * T::kKeys + r0;  // this thread's first key
-  int pg = t0 / a.page_size;
-  int off = t0 - pg * a.page_size;
-  const void* ks[kRows];
-  const void* vs[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = r0 + i * kStep;
-    const int v = tile * T::kKeys + r;
-    ks[i] = k_pages;
-    vs[i] = v_pages;
-    if (r < T::kKeys && v < n_rows) {
-      if (v < p.n_pref) {
-        const long long e =
-            ((a.layer_base + p.pages[pg - p.pg0]) * a.page_size + off) *
-                fused +
-            static_cast<long long>(p.kh) * DH + piece;
-        ks[i] = k_pages + e;
-        vs[i] = v_pages + e;
-      } else if constexpr (kSide) {
-        const int j = v - p.n_pref;
-        const bool side = j < p.ns;
-        const long long e =
-            (side ? ((static_cast<long long>(p.b) * a.w + j) * a.hkv + p.kh)
-                  : (static_cast<long long>(p.b) * a.hkv + p.kh)) *
-                DH +
-            c * (16 / static_cast<int>(sizeof(TQ)));
-        ks[i] = static_cast<const TQ*>(side ? a.side_k : a.fresh_k) + e;
-        vs[i] = static_cast<const TQ*>(side ? a.side_v : a.fresh_v) + e;
-      }
-    }
-    off += kStep;
-    while (off >= a.page_size) {
-      off -= a.page_size;
-      ++pg;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = r0 + i * kStep;
-    if (r < T::kKeys) {
-      const bool ok = tile * T::kKeys + r < n_rows;
-      char* dk = dst + r * T::kStride + c * 16;
-      cp_async16(dk, ks[i], ok);
-      cp_async16(dk + T::kKeys * T::kStride, vs[i], ok);
-    }
-  }
-}
-
-// The ring: stage the block's n_rows key rows tile by tile through
-// kStages buffers and call use(stage, tile) on each tile once it landed.
-template <typename TQ, typename TKV, int DH, bool kSide, typename Use>
-__device__ __forceinline__ void stream_tiles(const FdArgs& a, const Plan& p,
-                                             char* ring, int n_rows,
-                                             Use&& use) {
-  using T = Tile<TKV, DH>;
-  const int n_tiles = (n_rows + T::kKeys - 1) / T::kKeys;
-#pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
-    if (t < n_tiles)
-      stage_tile<TQ, TKV, DH, kSide>(a, p, ring + t * T::kStageBytes, t,
-                                     n_rows);
-    cp_async_commit();
-  }
-  for (int t = 0; t < n_tiles; ++t) {
-    const int tn = t + kStages - 1;
-    if (tn < n_tiles)
-      stage_tile<TQ, TKV, DH, kSide>(
-          a, p, ring + (tn % kStages) * T::kStageBytes, tn, n_rows);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();  // tile t has landed (this thread's part)
-    __syncthreads();               // ... and every thread's
-    use(ring + (t % kStages) * T::kStageBytes, t);
-    __syncthreads();               // the stage is free for tile t + kStages
-  }
-  cp_async_wait<0>();
-}
-
-// ---------------------------------------------------------------- simt
-
-// One online-softmax step of a lane group's G query heads over U key rows
-// (kr/vr point at this lane's EL elements of each row; rows with
-// valid false are not read and weigh 0). The LPK lanes of a group reduce
-// their partial dot products by shuffles; every lane runs them.
-template <typename TR, bool kRO, int G, int EL, int LPK, int U>
-__device__ __forceinline__ void simt_rows(const float (&qr)[G][EL],
-                                          const TR* const (&kr)[U],
-                                          const TR* const (&vr)[U],
-                                          const bool (&valid)[U], float scale,
-                                          float (&m)[G], float (&l)[G],
-                                          float (&acc)[G][EL]) {
-  float s[U][G];
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    float k[EL];
-    if (valid[u]) {
-      load_row<TR, EL, kRO>(kr[u], k);
-    } else {
-#pragma unroll
-      for (int e = 0; e < EL; ++e) k[e] = 0.f;
-    }
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      float dot = 0.f;
-#pragma unroll
-      for (int e = 0; e < EL; ++e) dot += qr[gi][e] * k[e];
-#pragma unroll
-      for (int off = LPK / 2; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      s[u][gi] = valid[u] ? dot * scale : kNegInf;
-    }
-  }
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    float mn = m[gi];
-#pragma unroll
-    for (int u = 0; u < U; ++u) mn = fmaxf(mn, s[u][gi]);
-    const float alpha = expf(m[gi] - mn);
-    l[gi] *= alpha;
-#pragma unroll
-    for (int e = 0; e < EL; ++e) acc[gi][e] *= alpha;
-    m[gi] = mn;
-  }
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    if (!valid[u]) continue;
-    float v[EL];
-    load_row<TR, EL, kRO>(vr[u], v);
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      const float pr = expf(s[u][gi] - m[gi]);
-      l[gi] += pr;
-#pragma unroll
-      for (int e = 0; e < EL; ++e) acc[gi][e] = fmaf(pr, v[e], acc[gi][e]);
-    }
-  }
-}
-
-// The CUDA-core path: the staged prefix, then the side keys (and the
-// fresh row) from global memory; each warp leaves its merged state in
-// scratch[warp][G][2 + DH].
-template <typename TQ, typename TKV, int DH, int G, bool FW>
-__device__ __forceinline__ void simt_block(const FdArgs& a, const Plan& p,
-                                           char* ring, float* scratch,
-                                           float scale) {
-  constexpr int kVec = 16 / static_cast<int>(sizeof(TKV));
-  constexpr int kLpk = DH / kVec > 32 ? 32 : DH / kVec;  // lanes a row
-  constexpr int kEl = DH / kLpk;                          // elements a lane
-  constexpr int kKpw = 32 / kLpk;                         // rows a warp
-  constexpr int kSweep = kWarps * kKpw;                   // rows a block
-  using T = Tile<TKV, DH>;
-  constexpr int kPer = T::kKeys / kSweep;                 // sweeps a tile
-  static_assert(kPer >= 1 && T::kKeys % kSweep == 0, "tile of sweeps");
-  constexpr int kU0 = G >= 8 ? 2 : 4;
-  constexpr int kU = kU0 < kPer ? kU0 : kPer;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int grp = lane / kLpk;
-  const int lk = lane - grp * kLpk;
-  const int h = a.hkv * G;
-  const long long row0 = static_cast<long long>(p.b) * h + p.kh * G;
-
-  float qr[G][kEl];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi)
-    load_row<TQ, kEl>(static_cast<const TQ*>(a.q) + (row0 + gi) * DH +
-                          lk * kEl,
-                      qr[gi]);
-  float m[G], l[G], acc[G][kEl];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    m[gi] = kNegInf;
-    l[gi] = 0.f;
-#pragma unroll
-    for (int e = 0; e < kEl; ++e) acc[gi][e] = 0.f;
-  }
-
-  stream_tiles<TQ, TKV, DH, false>(
-      a, p, ring, p.n_pref, [&](const char* st, int t) {
-#pragma unroll
-        for (int i = 0; i < kPer / kU; ++i) {
-          const TKV* kr[kU];
-          const TKV* vr[kU];
-          bool valid[kU];
-#pragma unroll
-          for (int u = 0; u < kU; ++u) {
-            const int r = (i * kU + u) * kSweep + warp * kKpw + grp;
-            kr[u] = reinterpret_cast<const TKV*>(st + r * T::kStride) +
-                    lk * kEl;
-            vr[u] = reinterpret_cast<const TKV*>(
-                        st + (T::kKeys + r) * T::kStride) +
-                    lk * kEl;
-            valid[u] = t * T::kKeys + r < p.n_pref;
-          }
-          simt_rows<TKV, false, G, kEl, kLpk, kU>(qr, kr, vr, valid, scale,
-                                                  m, l, acc);
-        }
-      });
-
-  // side keys of the last run: entries j < ns, then the fresh row
-  const int n_side_keys = p.ns + (p.fresh ? 1 : 0);
-  const TQ* side_k = static_cast<const TQ*>(a.side_k);
-  const TQ* side_v = static_cast<const TQ*>(a.side_v);
-  for (int base = 0; base < n_side_keys; base += kSweep) {
-    const int j = base + warp * kKpw + grp;
-    const bool valid[1] = {j < n_side_keys};
-    const TQ* kr[1] = {side_k};
-    const TQ* vr[1] = {side_v};
-    if (valid[0]) {
-      const long long at =
-          j < p.ns ? ((static_cast<long long>(p.b) * a.w + j) * a.hkv + p.kh)
-                   : (static_cast<long long>(p.b) * a.hkv + p.kh);
-      const long long off = at * DH + lk * kEl;
-      kr[0] = (j < p.ns ? side_k : static_cast<const TQ*>(a.fresh_k)) + off;
-      vr[0] = (j < p.ns ? side_v : static_cast<const TQ*>(a.fresh_v)) + off;
-    }
-    // the fw variant writes the side buffers: plain (coherent) loads there
-    simt_rows<TQ, !FW, G, kEl, kLpk, 1>(qr, kr, vr, valid, scale, m, l,
-                                        acc);
-  }
-
-  // merge the warp's lane groups (lanes lk, lk + kLpk, ... hold the same
-  // elements of different key subsets)
-#pragma unroll
-  for (int off = kLpk; off < 32; off <<= 1) {
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[gi], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[gi], off);
-      float acco[kEl];
-#pragma unroll
-      for (int e = 0; e < kEl; ++e)
-        acco[e] = __shfl_xor_sync(0xffffffffu, acc[gi][e], off);
-      merge_state<kEl>(m[gi], l[gi], acc[gi], mo, lo, acco);
-    }
-  }
-  if (grp == 0) {
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      float* slot = scratch + (warp * G + gi) * (2 + DH);
-      if (lk == 0) {
-        slot[0] = m[gi];
-        slot[1] = l[gi];
-      }
-#pragma unroll
-      for (int e = 0; e < kEl; ++e) slot[2 + lk * kEl + e] = acc[gi][e];
-    }
-  }
-}
-
-// ------------------------------------------------------------------ mma
-
-// The tensor-core path (bf16 q, pools and side): the block's whole key
-// sequence (prefix run, side entries, fresh row) is staged; warp w takes
-// the 16-key sub-tiles i with i % kWarps == w. Lane i holds query row
-// i / 4 (rows G..15 are the padding) and, per 8-wide column tile n of the
-// output, the columns 8n + 2 (i % 4) and + 1.
-template <int DH, int G>
-__device__ __forceinline__ void mma_block(const FdArgs& a, const Plan& p,
-                                          char* ring, char* q_tile,
-                                          float* scratch, float scale) {
-  using T = Tile<__nv_bfloat16, DH>;
-  constexpr int kSub = T::kKeys / 16;  // 16-key sub-tiles a tile
-  static_assert(T::kKeys % 16 == 0, "tiles of 16-key sub-tiles");
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  // Q padded to 16 rows (zeros past G), staged with the first tiles
-  const uint4* q = reinterpret_cast<const uint4*>(
-      static_cast<const __nv_bfloat16*>(a.q) +
-      static_cast<long long>(blockIdx.x) * G * DH);
-  constexpr int kQChunks = T::kRowBytes / 16;
-  for (int i = threadIdx.x; i < 16 * kQChunks; i += kThreads) {
-    const int r = i / kQChunks;
-    const int c = i - r * kQChunks;
-    cp_async16(q_tile + r * T::kStride + c * 16,
-               q + min(r, G - 1) * kQChunks + c, r < G);
-  }
-
-  // scores in log2 units (exp2 is one instruction); m goes back to
-  // natural units for the merges
-  const float scale2 = scale * 1.4426950408889634f;
-  float m = kNegInf, l = 0.f;  // row lane / 4; l is this lane's part
-  float acc[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int n_keys = p.n_pref + p.ns + (p.fresh ? 1 : 0);
-  stream_tiles<__nv_bfloat16, __nv_bfloat16, DH, true>(
-      a, p, ring, n_keys, [&](const char* st, int t) {
-        const char* vt = st + T::kKeys * T::kStride;
-#pragma unroll
-        for (int j = 0; j < kSub; ++j) {
-          const int key0 = t * T::kKeys + j * 16;
-          if ((t * kSub + j) % kWarps != warp || key0 >= n_keys) continue;
-          // S = Q K^T over the sub-tile's 16 keys: two 8-key column tiles
-          float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-          for (int kk = 0; kk < DH / 16; ++kk) {
-            uint32_t qa[4], kb[4];
-            ldsm_x4(qa, q_tile + (lane % 16) * T::kStride +
-                            (kk * 16 + (lane / 16) * 8) * 2);
-            ldsm_x4(kb, st + (j * 16 + (lane / 16) * 8 + lane % 8) *
-                                 T::kStride +
-                            (kk * 16 + ((lane / 8) % 2) * 8) * 2);
-            mma_bf16_16816(s[0], qa, kb[0], kb[1]);
-            mma_bf16_16816(s[1], qa, kb[2], kb[3]);
-          }
-          // scale and mask this lane's keys key0 + 8 nt + 2 (lane % 4) + e
-          float sc[4];
-          bool ok[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int key = key0 + (i / 2) * 8 + 2 * (lane % 4) + (i % 2);
-            ok[i] = key < n_keys;
-            sc[i] = ok[i] ? s[i / 2][i % 2] * scale2 : kNegInf;
-          }
-          float mx = fmaxf(fmaxf(sc[0], sc[1]), fmaxf(sc[2], sc[3]));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-          const float mn = fmaxf(m, mx);
-          const float alpha = exp2f(m - mn);
-          m = mn;
-          float pr[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            pr[i] = ok[i] ? exp2f(sc[i] - mn) : 0.f;  // masked keys weigh 0
-          l = l * alpha + (pr[0] + pr[1]) + (pr[2] + pr[3]);
-#pragma unroll
-          for (int n = 0; n < DH / 8; ++n) {
-            acc[n][0] *= alpha;
-            acc[n][1] *= alpha;
-          }
-          // O += P V: P (bf16, rows 8..15 zero) as the A operand
-          const uint32_t pa[4] = {pack_bf16(pr[0], pr[1]), 0u,
-                                  pack_bf16(pr[2], pr[3]), 0u};
-#pragma unroll
-          for (int n2 = 0; n2 < DH / 16; ++n2) {
-            uint32_t vb[4];
-            ldsm_x4_trans(vb, vt + (j * 16 + lane % 16) * T::kStride +
-                                  (n2 * 16 + (lane / 16) * 8) * 2);
-            mma_bf16_16816(acc[2 * n2], pa, vb[0], vb[1]);
-            mma_bf16_16816(acc[2 * n2 + 1], pa, vb[2], vb[3]);
-          }
-        }
-      });
-
-  // the quad's parts of l; then row lane / 4 into scratch
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
-  const int gi = lane / 4;
-  if (gi < G) {
-    float* slot = scratch + (warp * G + gi) * (2 + DH);
-    if (lane % 4 == 0) {
-      slot[0] = m * 0.6931471805599453f;  // ln 2: back to natural units
-      slot[1] = l;
-    }
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
-      slot[2 + n * 8 + 2 * (lane % 4)] = acc[n][0];
-      slot[2 + n * 8 + 2 * (lane % 4) + 1] = acc[n][1];
-    }
-  }
-}
-
-// --------------------------------------------------------------- kernel
-
-// bf16 q over bf16 pools takes the tensor cores; every other pair the
-// CUDA cores.
-template <typename TQ, typename TKV>
-constexpr bool kMma = std::is_same<TQ, __nv_bfloat16>::value &&
-                      std::is_same<TKV, __nv_bfloat16>::value;
-
-template <typename TQ, typename TKV, int DH, int G>
-struct Smem {
-  static constexpr int kRing = kStages * Tile<TKV, DH>::kStageBytes;
-  static constexpr int kMerge =
-      kWarps * G * (2 + DH) * static_cast<int>(sizeof(float));
-  static constexpr int kQ = 16 * Tile<TQ, DH>::kStride;  // tensor cores only
-  static constexpr int kQAt = kRing > kMerge ? kRing : kMerge;
-  static constexpr int kBytes = kQAt + (kMma<TQ, TKV> ? kQ : 0);
-};
-
-// The tensor-core path at Dh <= 128 fits four blocks on an SM (56 KB
-// of shared memory and at most 128 registers a thread each): a B 8 grid
-// of 512 blocks is resident at once.
-template <typename TQ, typename TKV, int DH, int G, bool FW>
-__global__ void __launch_bounds__(kThreads,
-                                  (kMma<TQ, TKV> && DH <= 128) ? 4 : 1)
-    flash_decode_kernel(FdArgs a, float scale) {
-  extern __shared__ __align__(16) char smem[];
-  using S = Smem<TQ, TKV, DH, G>;
-  char* ring = smem;
-  // the warps' states alias the ring, which is free after the last tile
-  float* scratch = reinterpret_cast<float*>(smem);
-  __shared__ int run_pages[kRunPages];
-  const Plan p = make_plan<FW>(a, run_pages);
-  const int h = a.hkv * G;
-  const long long row0 = static_cast<long long>(p.b) * h + p.kh * G;
-
-  if constexpr (FW) {
-    // the fresh row joins the side window at column side_idx: only this
-    // run's block writes it, and no block reads that column
-    if (p.fresh) {
-      constexpr int kC = DH * static_cast<int>(sizeof(TQ)) / 16;
-      const long long src = (static_cast<long long>(p.b) * a.hkv + p.kh) * DH;
-      const long long dst =
-          ((static_cast<long long>(p.b) * a.w + p.sidx) * a.hkv + p.kh) * DH;
-      for (int c = threadIdx.x; c < kC; c += kThreads) {
-        reinterpret_cast<uint4*>(static_cast<TQ*>(a.side_k) + dst)[c] =
-            __ldg(reinterpret_cast<const uint4*>(
-                      static_cast<const TQ*>(a.fresh_k) + src) + c);
-        reinterpret_cast<uint4*>(static_cast<TQ*>(a.side_v) + dst)[c] =
-            __ldg(reinterpret_cast<const uint4*>(
-                      static_cast<const TQ*>(a.fresh_v) + src) + c);
-      }
-    }
-  }
-  __syncthreads();  // the run's page ids
-
-  if constexpr (kMma<TQ, TKV>) {
-    mma_block<DH, G>(a, p, ring, smem + S::kQAt, scratch, scale);
-  } else {
-    simt_block<TQ, TKV, DH, G, FW>(a, p, ring, scratch, scale);
-  }
-  __syncthreads();
-
-  // merge the warps: one (m, l, acc) per query head of this run
-  const int n_split = gridDim.y;
-  TQ* out = static_cast<TQ*>(a.out);
-  const SplitPartials part(a.ws, static_cast<long long>(gridDim.x) * G,
-                           n_split, DH);
-  for (int idx = threadIdx.x; idx < G * DH; idx += kThreads) {
-    const int gi = idx / DH;
-    const int d = idx - gi * DH;
-    float mx = kNegInf;
-#pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi)
-      mx = fmaxf(mx, scratch[(wi * G + gi) * (2 + DH)]);
-    float den = 0.f, num = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) {
-      const float* slot = scratch + (wi * G + gi) * (2 + DH);
-      const float wgt = expf(slot[0] - mx);
-      den += slot[1] * wgt;
-      num += slot[2 + d] * wgt;
-    }
-    const long long r = row0 + gi;
-    if (n_split == 1) {
-      out[r * DH + d] = from_f<TQ>(num / fmaxf(den, 1e-30f));
-    } else {
-      part.acc[(r * n_split + p.split) * DH + d] = num;
-      if (d == 0) {
-        part.m[r * n_split + p.split] = mx;
-        part.l[r * n_split + p.split] = den;
-      }
-    }
-  }
-  if (n_split == 1) return;
-
-  // the last run of this (slot, KV head) to arrive merges them all
-  __shared__ int last;
-  __threadfence();  // this block's partial is visible before it counts
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int arrived = atomicAdd(a.counters + blockIdx.x, 1);
-    last = arrived == n_split - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // SplitMerge's weights, once per query head rather than once per
-  // element: (m, l) of every run in one round trip (through L2: other
-  // blocks wrote them), then each element's n_split partials in one more
-  float* w = scratch;                    // [G][n_split]; the ring is free
-  float* ls = scratch + G * n_split;     // [G][n_split]
-  for (int i = threadIdx.x; i < G * n_split; i += kThreads) {
-    const long long at = (row0 + i / n_split) * n_split + i % n_split;
-    w[i] = __ldcg(part.m + at);
-    ls[i] = __ldcg(part.l + at);
-  }
-  __syncthreads();
-  if (threadIdx.x < G) {
-    float* wr = w + threadIdx.x * n_split;  // m_s in, weight out
-    const SplitMerge mg(wr, ls + threadIdx.x * n_split, n_split);
-    for (int s = 0; s < n_split; ++s) wr[s] = mg.weight(wr[s]);
-  }
-  __syncthreads();
-  constexpr int kPer = (G * DH + kThreads - 1) / kThreads;
-  float o[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) o[i] = 0.f;
-  const float* acc = part.acc + row0 * n_split * DH;
-#pragma unroll 4
-  for (int s = 0; s < n_split; ++s) {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int gi = idx / DH;
-      if (idx < G * DH)
-        o[i] += __ldcg(acc + (gi * n_split + s) * DH + (idx - gi * DH)) *
-                w[gi * n_split + s];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    if (idx < G * DH) out[row0 * DH + idx] = from_f<TQ>(o[i]);
-  }
-  if (threadIdx.x == 0) a.counters[blockIdx.x] = 0;  // ready for next call
-}
-
-template <typename TQ, typename TKV, int DH, int G, bool FW>
-cudaError_t launch(const FdArgs& a, int n_split, cudaStream_t stream) {
-  using S = Smem<TQ, TKV, DH, G>;
-  constexpr int kSmem = S::kBytes;
-  // the merge keeps the runs' (m, l) of G query heads in the ring
-  if (static_cast<long long>(n_split) * G * 2 * sizeof(float) > S::kQAt)
-    return cudaErrorInvalidValue;
-  const float scale = 1.0f / sqrtf(static_cast<float>(DH));
-  auto kernel = flash_decode_kernel<TQ, TKV, DH, G, FW>;
-  // the shared-memory ceiling, once per instance and device
-  static bool ready[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!ready[dev]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return err;
-    ready[dev] = true;
-  }
-  kernel<<<dim3(a.b * a.hkv, n_split), kThreads, kSmem, stream>>>(a, scale);
-  return cudaGetLastError();
-}
-
-template <typename TQ, typename TKV, int DH, bool FW>
-cudaError_t by_group(int g, const FdArgs& a, int ns, cudaStream_t st) {
-  switch (g) {
-    case 1: return launch<TQ, TKV, DH, 1, FW>(a, ns, st);
-    case 2: return launch<TQ, TKV, DH, 2, FW>(a, ns, st);
-    case 4: return launch<TQ, TKV, DH, 4, FW>(a, ns, st);
-    case 8: return launch<TQ, TKV, DH, 8, FW>(a, ns, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename TQ, typename TKV, bool FW>
-cudaError_t by_width(int dh, int g, const FdArgs& a, int ns,
-                     cudaStream_t st) {
-  switch (dh) {
-    case 32: return by_group<TQ, TKV, 32, FW>(g, a, ns, st);
-    case 64: return by_group<TQ, TKV, 64, FW>(g, a, ns, st);
-    case 128: return by_group<TQ, TKV, 128, FW>(g, a, ns, st);
-    case 256: return by_group<TQ, TKV, 256, FW>(g, a, ns, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
+namespace fd {
 
 template <bool FW>
 int dispatch(const FdArgs& a, int h, int dh, int n_split, int q_dtype,
@@ -778,12 +28,14 @@ int dispatch(const FdArgs& a, int h, int dh, int n_split, int q_dtype,
     err = by_width<__nv_bfloat16, float, FW>(dh, g, a, n_split, st);
   else if (q_dtype == kF32 && kv_dtype == kBF16)
     err = by_width<float, __nv_bfloat16, FW>(dh, g, a, n_split, st);
+  else if (kv_dtype == kFP8)
+    err = dispatch_fp8<FW>(a, dh, g, n_split, q_dtype, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 
-}  // namespace
+}  // namespace fd
 }  // namespace die
 
 // q [B, H, Dh] and side_k/side_v [B, W, Hkv, Dh] in q_dtype; the stacked
@@ -791,9 +43,10 @@ int dispatch(const FdArgs& a, int h, int dh, int n_split, int q_dtype,
 // slot's prefix is cut into n_split runs of `chunk` keys (n_split * chunk
 // >= mp * page_size); with n_split > 1, ws is an fp32 workspace of
 // B * H * n_split * (Dh + 2) values and counters B * Hkv ints that are 0
-// (and are 0 again when the launch ends). bf16 q over bf16 pools runs on
-// the tensor cores, every other pair on the CUDA cores. Returns the
-// launch's cudaGetLastError() (0 on success).
+// (and are 0 again when the launch ends). kv_dtype may also be e4m3
+// (kFP8). bf16 q over bf16 or e4m3 pools runs on the tensor cores, every
+// other pair on the CUDA cores. Returns the launch's cudaGetLastError() (0
+// on success).
 extern "C" int die_flash_decode(const void* q, const void* k_pages,
                                 const void* v_pages, const int* page_table,
                                 const int* prefix_lens, const void* side_k,
@@ -803,7 +56,7 @@ extern "C" int die_flash_decode(const void* q, const void* k_pages,
                                 int w, int n_split, int chunk,
                                 long long layer_base, int q_dtype,
                                 int kv_dtype, void* stream) {
-  die::FdArgs a{};
+  die::fd::FdArgs a{};
   a.q = q;
   a.k_pages = k_pages;
   a.v_pages = v_pages;
@@ -822,7 +75,8 @@ extern "C" int die_flash_decode(const void* q, const void* k_pages,
   a.w = w;
   a.chunk = chunk;
   a.layer_base = layer_base;
-  return die::dispatch<false>(a, h, dh, n_split, q_dtype, kv_dtype, stream);
+  return die::fd::dispatch<false>(a, h, dh, n_split, q_dtype, kv_dtype,
+                                  stream);
 }
 
 // The writeback variant: as die_flash_decode, with fresh_k/fresh_v
@@ -836,7 +90,7 @@ extern "C" int die_flash_decode_fw(
     const int* active, void* out, float* ws, int* counters, int b, int h,
     int hkv, int dh, int page_size, int mp, int w, int n_split, int chunk,
     long long layer_base, int q_dtype, int kv_dtype, void* stream) {
-  die::FdArgs a{};
+  die::fd::FdArgs a{};
   a.q = q;
   a.k_pages = k_pages;
   a.v_pages = v_pages;
@@ -858,5 +112,6 @@ extern "C" int die_flash_decode_fw(
   a.w = w;
   a.chunk = chunk;
   a.layer_base = layer_base;
-  return die::dispatch<true>(a, h, dh, n_split, q_dtype, kv_dtype, stream);
+  return die::fd::dispatch<true>(a, h, dh, n_split, q_dtype, kv_dtype,
+                                 stream);
 }

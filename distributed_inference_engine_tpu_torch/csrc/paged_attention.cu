@@ -42,6 +42,13 @@
 // inside them; this one walks the valid keys only, which reads the same
 // bytes.
 //
+// e4m3 pools (the fp8 instances; the TPU kernel upcasts each page,
+// ops/paged_attention.py:168-169): a lane loads 8 values (8 bytes) of a
+// row, so a row spreads over as many lanes as a bf16 one and a lane holds
+// as many fp32 values; the raw bytes widen exactly in registers. Half the
+// bytes of bf16, so half the bound; the sliding window applies unchanged,
+// which is what Mistral's inline decode on fp8 pools runs.
+//
 // Left: the scores and the weighted sum run on CUDA cores (a decode row
 // has one query per head, G per K/V row: too few for tensor cores), and
 // rows are loaded straight into registers (no cp.async or TMA ring).
@@ -72,10 +79,10 @@ struct PaArgs {
 template <typename TQ, typename TKV, int DH, int G>
 __global__ void __launch_bounds__(kWarps * 32, (G >= 8 ? 1 : 2))
     paged_attention_kernel(PaArgs a, float scale) {
-  constexpr int kVec = 16 / static_cast<int>(sizeof(TKV));  // per load
+  constexpr int kVec = kVecOf<TKV>;      // per load (16 bytes; e4m3 8)
   constexpr int kLpk = DH / kVec;        // lanes per key row
   static_assert(kLpk >= 1 && kLpk <= 32 && 32 % kLpk == 0,
-                "a key row is 1 to 32 sixteen-byte loads");
+                "a key row is 1 to 32 loads");
   constexpr int kKpw = 32 / kLpk;        // key rows a warp reads at once
   constexpr int kSweep = kWarps * kKpw;  // key rows the block reads at once
   constexpr int kU = G >= 8 ? 2 : 4;     // rows in flight per lane group
@@ -329,14 +336,14 @@ cudaError_t by_width(int dh, int g, const PaArgs& a, int b, int ns,
 }  // namespace
 }  // namespace die
 
-// q [B, H, Dh] in q_dtype; the pools [rows, P, Hkv*Dh] in kv_dtype, page p
-// of slot b at row layer_base + page_table[b, p]; out [B, H, Dh] in
-// q_dtype; m_out/l_out [B, H] fp32. window 0 is full attention. The keys
-// of a slot are cut into n_split runs of `chunk` (n_split * chunk must
-// cover the most valid keys a slot can have); with n_split > 1, ws is an
-// fp32 workspace of B * H * n_split * (Dh + 2) values and a second kernel
-// merges the runs. Returns cudaGetLastError() of the launches (0 on
-// success).
+// q [B, H, Dh] in q_dtype; the pools [rows, P, Hkv*Dh] in kv_dtype (fp32,
+// bf16 or e4m3), page p of slot b at row layer_base + page_table[b, p];
+// out [B, H, Dh] in q_dtype; m_out/l_out [B, H] fp32. window 0 is full
+// attention. The keys of a slot are cut into n_split runs of `chunk`
+// (n_split * chunk must cover the most valid keys a slot can have); with
+// n_split > 1, ws is an fp32 workspace of B * H * n_split * (Dh + 2)
+// values and a second kernel merges the runs. Returns cudaGetLastError()
+// of the launches (0 on success).
 extern "C" int die_paged_attention(const void* q, const void* k_pages,
                                    const void* v_pages, const int* page_table,
                                    const int* lengths, void* out, float* m_out,
@@ -376,6 +383,10 @@ extern "C" int die_paged_attention(const void* q, const void* k_pages,
     err = die::by_width<__nv_bfloat16, float>(dh, g, a, b, n_split, st);
   else if (q_dtype == die::kF32 && kv_dtype == die::kBF16)
     err = die::by_width<float, __nv_bfloat16>(dh, g, a, b, n_split, st);
+  else if (q_dtype == die::kBF16 && kv_dtype == die::kFP8)
+    err = die::by_width<__nv_bfloat16, die::fp8>(dh, g, a, b, n_split, st);
+  else if (q_dtype == die::kF32 && kv_dtype == die::kFP8)
+    err = die::by_width<float, die::fp8>(dh, g, a, b, n_split, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -67,6 +67,19 @@
 //   (halving ldmatrix traffic) left the tile cost unchanged; both were
 //   measured and dropped.
 //
+// e4m3 pools (the fp8 instances; the TPU kernel upcasts the staged pages,
+// ops/ragged_attention.py:272-273, and lands the fresh K/V in the pool's
+// dtype, :386-387, attending to those bits as ragged_attention_xla does,
+// :108-112). bf16 q keeps the tensor-core instance: e4m3 is exact in bf16,
+// but ldmatrix moves 16-bit elements, so a context tile lands as e4m3 (one
+// byte a value, in the first half of a bf16 stage) and is widened to bf16
+// rows in place once it has landed; a fresh tile lands as bf16 and is
+// rounded through e4m3 in place (JAX's rounding: NaN past 464, common.cuh
+// from_f), so the tile attends to exactly the bytes the writeback stores.
+// The pool's context bytes halve; the prefill rows' arithmetic does not.
+// fp32 q over e4m3 takes the CUDA-core instance, which widens each value
+// as it loads it and rounds each fresh value the same way.
+//
 // Every other dtype pair (fp32, whose 1e-4 tolerance TF32 would break;
 // bf16 with fp32 pools and back): the CUDA-core instance
 // (ragged_simt_kernel), 64 rows a block; each of its 8 warps owns 8
@@ -416,13 +429,116 @@ __device__ __forceinline__ void zero_tile(const RaggedArgs& a, int r, int kh,
   }
 }
 
+// The e4m3 instance's context tile: K rows, then V rows, of DH bytes each
+// at the stride G8 (the row bytes plus 16), guarded below ctx and
+// zero-filled past it, as stage_keys stages bf16 rows; widen_ctx_tile then
+// turns them into bf16 rows in place.
+template <int DH>
+struct Geo8 {
+  static constexpr int kStride = DH + 16;
+  static_assert(2 * Geo<DH>::kKeys * kStride <= Geo<DH>::kTileBytes,
+                "an e4m3 tile fits a bf16 stage");
+};
+
+template <int DH>
+__device__ __forceinline__ void stage_fp8_ctx(const RaggedArgs& a,
+                                              const int* pg_ids, int kh,
+                                              int ctx, int key0, char* dst) {
+  using G = Geo<DH>;
+  constexpr int kS = Geo8<DH>::kStride;
+  constexpr int kChunks = DH / 16;                 // 16 values a piece
+  constexpr int kRowsPass = kMmaThreads / kChunks;
+  constexpr int kPasses = (G::kKeys + kRowsPass - 1) / kRowsPass;
+  static_assert(kMmaThreads % kChunks == 0, "a pass covers whole rows");
+  const int c = threadIdx.x % kChunks;
+  const int row0 = threadIdx.x / kChunks;
+  const fp8* kp = static_cast<const fp8*>(a.k_pages);
+  const fp8* vp = static_cast<const fp8*>(a.v_pages);
+  const long long fused = static_cast<long long>(a.hkv) * DH;
+  const long long head = static_cast<long long>(kh) * DH + c * 16;
+  const int t0 = key0 + row0;
+  int pg = t0 / a.page_size;
+  int off = t0 - pg * a.page_size;
+  long long src[kPasses];
+  bool ok[kPasses];
+#pragma unroll
+  for (int i = 0; i < kPasses; ++i) {
+    // guarded: positions >= ctx are being written by this launch
+    ok[i] = t0 + i * kRowsPass < ctx;
+    src[i] = ok[i] ? ((a.layer_base + pg_ids[pg]) * a.page_size + off) *
+                             fused + head
+                   : 0;
+    off += kRowsPass;
+    while (off >= a.page_size) {
+      off -= a.page_size;
+      ++pg;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kPasses; ++i) {
+    const int row = row0 + i * kRowsPass;
+    if (row < G::kKeys) {
+      char* d = dst + row * kS + c * 16;
+      cp_async16(d, kp + src[i], ok[i]);
+      cp_async16(d + G::kKeys * kS, vp + src[i], ok[i]);
+    }
+  }
+}
+
+// A landed e4m3 context tile widened in place into the stage's bf16 rows
+// (exact): every thread reads its 8-byte pieces, the block syncs, then each
+// writes them widened, so no write lands on bytes another thread has still
+// to read.
+template <int DH>
+__device__ __forceinline__ void widen_ctx_tile(char* st) {
+  using G = Geo<DH>;
+  constexpr int kS8 = Geo8<DH>::kStride;
+  constexpr int kPieces = DH / 8;                  // 8 values a piece
+  constexpr int kAll = 2 * G::kKeys * kPieces;     // K rows, then V rows
+  constexpr int kPer = kAll / kMmaThreads;
+  static_assert(kAll % kMmaThreads == 0, "whole pieces a thread");
+  uint2 v[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int idx = threadIdx.x + i * kMmaThreads;
+    const int row = idx / kPieces;
+    v[i] = *reinterpret_cast<const uint2*>(st + row * kS8 +
+                                           (idx - row * kPieces) * 8);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int idx = threadIdx.x + i * kMmaThreads;
+    const int row = idx / kPieces;
+    *reinterpret_cast<uint4*>(st + row * G::kStride +
+                              (idx - row * kPieces) * 16) =
+        fp8x8_to_bf16x8(v[i]);
+  }
+}
+
+// A landed fresh tile (bf16 rows) rounded through e4m3 in place, as the
+// pool will hold it (from_f<fp8>, JAX's rounding): the rows are attended
+// as stored. Each thread rounds its own 16-byte pieces.
+template <int DH>
+__device__ __forceinline__ void round_fresh_tile(char* st) {
+  using G = Geo<DH>;
+  constexpr int kPieces = DH / 8;
+  for (int idx = threadIdx.x; idx < 2 * G::kKeys * kPieces;
+       idx += kMmaThreads) {
+    const int row = idx / kPieces;
+    uint4* p = reinterpret_cast<uint4*>(st + row * G::kStride +
+                                        (idx - row * kPieces) * 16);
+    *p = fp8x8_to_bf16x8(bf16x8_to_fp8x8(*p));
+  }
+}
+
 // Stage key tile `tile` of the block's sequence (the context tiles, then
 // the fresh ones) into dst: K rows, then V rows. Context rows are guarded
 // below ctx and fresh rows below fresh_end; others are zero-filled. Each
 // thread copies 16-byte piece c of rows row0, row0 + kRowsPass, ...: it
 // finds all their sources first (the page and offset stepped along, one
 // division a tile), then issues the copies together.
-template <int DH>
+template <int DH, typename TKV>
 __device__ __forceinline__ void stage_keys(const RaggedArgs& a,
                                            const int* pg_ids, int r, int kh,
                                            int ctx, int n_ctx_tiles,
@@ -437,6 +553,12 @@ __device__ __forceinline__ void stage_keys(const RaggedArgs& a,
   const int row0 = threadIdx.x / kChunks;
   const bool fresh = tile >= n_ctx_tiles;
   const int key0 = (fresh ? tile - n_ctx_tiles : tile) * G::kKeys;
+  if constexpr (kIsFp8<TKV>) {
+    if (!fresh) {
+      stage_fp8_ctx<DH>(a, pg_ids, kh, ctx, key0, dst);
+      return;
+    }
+  }
   const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k_pages);
   const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v_pages);
   const __nv_bfloat16* fk = static_cast<const __nv_bfloat16*>(a.fresh_k);
@@ -637,7 +759,7 @@ __device__ __forceinline__ void warp_tile(const char* q_tile, const char* kt,
 // of a tile), each with its own slice of every key tile, and the warps of
 // an m-tile merge their states at the end. A decode row (g live rows) thus
 // spreads each tile over 4 warps instead of leaving it to one.
-template <int DH>
+template <int DH, typename TKV>
 __device__ __forceinline__ void mma_item(const RaggedArgs& a, const Block& bk,
                                          char* smem, int* pages,
                                          const int* q_lens,
@@ -716,18 +838,28 @@ __device__ __forceinline__ void mma_item(const RaggedArgs& a, const Block& bk,
 #pragma unroll
   for (int t = 0; t < G::kStages - 1; ++t) {
     if (t < n_all)
-      stage_keys<DH>(a, pg_ids, r, kh, ctx, n_ctx_tiles, fresh_end,
-                     ring + t * G::kTileBytes, t);
+      stage_keys<DH, TKV>(a, pg_ids, r, kh, ctx, n_ctx_tiles, fresh_end,
+                          ring + t * G::kTileBytes, t);
     cp_async_commit();
   }
   for (int t = 0; t < n_all; ++t) {
     const int tn = t + G::kStages - 1;
     if (tn < n_all)
-      stage_keys<DH>(a, pg_ids, r, kh, ctx, n_ctx_tiles, fresh_end,
-                     ring + (tn % G::kStages) * G::kTileBytes, tn);
+      stage_keys<DH, TKV>(a, pg_ids, r, kh, ctx, n_ctx_tiles, fresh_end,
+                          ring + (tn % G::kStages) * G::kTileBytes, tn);
     cp_async_commit();
     cp_async_wait<G::kStages - 1>();    // tile t landed (this thread's part)
     __syncthreads();                    // ... and every thread's
+    if constexpr (kIsFp8<TKV>) {
+      // e4m3 pools: context rows widened to bf16, fresh rows rounded
+      // through e4m3, both in place
+      char* st = ring + (t % G::kStages) * G::kTileBytes;
+      if (t < n_ctx_tiles)
+        widen_ctx_tile<DH>(st);
+      else
+        round_fresh_tile<DH>(st);
+      __syncthreads();
+    }
     if (live) {
       const char* kt = ring + (t % G::kStages) * G::kTileBytes;
       const char* vt = kt + G::kKeys * G::kStride;
@@ -756,7 +888,9 @@ __device__ __forceinline__ void mma_item(const RaggedArgs& a, const Block& bk,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
   }
 
-  // outputs: live rows divided by their softmax sums, the others 0
+  // outputs: live rows divided by their softmax sums, the others exactly 0
+  // (stored, not scaled by 0: a NaN in an e4m3 pool, JAX's overflow, would
+  // survive a product)
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
   auto out_row = [&](int rr) {
     return out + ((static_cast<long long>(r) * a.qmax + q0 + rr / g) * a.h +
@@ -768,11 +902,13 @@ __device__ __forceinline__ void mma_item(const RaggedArgs& a, const Block& bk,
       const int rr = 16 * warp + lane / 4 + 8 * h;
       const int qi = qrow[h];
       if (qi >= a.qmax) continue;
-      const float inv = qi < qlen ? 1.f / fmaxf(l[h], 1e-30f) : 0.f;
+      const float inv = 1.f / fmaxf(l[h], 1e-30f);
       uint32_t* o = reinterpret_cast<uint32_t*>(out_row(rr) + 2 * (lane % 4));
 #pragma unroll
       for (int n = 0; n < DH / 8; ++n)
-        o[4 * n] = pack_bf16(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
+        o[4 * n] = qi < qlen ? pack_bf16(acc[n][2 * h] * inv,
+                                         acc[n][2 * h + 1] * inv)
+                             : 0u;
     }
   } else {
     // an m-tile's wpm key slices merge through shared memory (the ring is
@@ -817,6 +953,10 @@ __device__ __forceinline__ void mma_item(const RaggedArgs& a, const Block& bk,
       const int rr = i / (DH / 4);      // block row
       const int d = 4 * (i % (DH / 4));
       if (q0 + rr / g >= a.qmax) continue;
+      if (q0 + rr / g >= qlen) {        // a dead query of a live m-tile
+        *reinterpret_cast<uint2*>(out_row(rr) + d) = make_uint2(0u, 0u);
+        continue;
+      }
       const float* ps = part + (rr / 16) * wpm * G::kPart + (rr % 16) * DH + d;
       float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int sl = 0; sl < wpm; ++sl) {
@@ -843,8 +983,31 @@ __device__ __forceinline__ void mma_item(const RaggedArgs& a, const Block& bk,
 
   // writeback: the fresh K/V of this tile's queries -> pool positions
   // ctx + qi (the logical page clamped to the table, as the plain
-  // version), 16 bytes a copy
-  {
+  // version), 16 bytes a copy; into e4m3 pools 8 values a step, rounded
+  // as the tile attended them
+  if constexpr (kIsFp8<TKV>) {
+    constexpr int kChunks = G::kRowBytes / 16;     // 8 values a piece
+    const long long fused = static_cast<long long>(a.hkv) * DH;
+    char* kw = static_cast<char*>(a.k_pages);
+    char* vw = static_cast<char*>(a.v_pages);
+    const uint4* fk = static_cast<const uint4*>(a.fresh_k);
+    const uint4* fv = static_cast<const uint4*>(a.fresh_v);
+    for (int i = threadIdx.x; i < (fresh_end - q0) * kChunks;
+         i += kMmaThreads) {
+      const int qi = q0 + i / kChunks;
+      const int c = i % kChunks;
+      const int pos = ctx_raw + qi;
+      const int pg = table[min(pos / a.page_size, a.mp - 1)];
+      const long long dst =
+          ((a.layer_base + pg) * a.page_size + pos % a.page_size) * fused +
+          static_cast<long long>(kh) * DH + c * 8;
+      const long long src =
+          ((static_cast<long long>(r) * a.qmax + qi) * a.hkv + kh) * DH / 8 +
+          c;
+      *reinterpret_cast<uint2*>(kw + dst) = bf16x8_to_fp8x8(__ldg(fk + src));
+      *reinterpret_cast<uint2*>(vw + dst) = bf16x8_to_fp8x8(__ldg(fv + src));
+    }
+  } else {
     constexpr int kChunks = G::kRowBytes / 16;
     const long long fused = static_cast<long long>(a.hkv) * DH;
     uint4* kw = static_cast<uint4*>(a.k_pages);
@@ -902,7 +1065,7 @@ __device__ __forceinline__ int pair_cost(const RaggedArgs& a, int p,
 // least live work. With more pairs than kMaxPairs (or rows than kMaxRows)
 // the blocks walk block_of's order round-robin. ops/ragged_attention.py
 // ragged_schedule is the same rule on the host.
-template <int DH>
+template <int DH, typename TKV>
 __global__ void __launch_bounds__(kMmaThreads, 1)
     ragged_mma_kernel(RaggedArgs a) {
   extern __shared__ __align__(16) char mma_smem[];
@@ -917,8 +1080,8 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   if (a.r > kMaxRows || n_pairs > kMaxPairs) {
     const int n_items = n_pairs * a.hkv;
     for (int item = blockIdx.x; item < n_items; item += n_blocks)
-      mma_item<DH>(a, block_of(a, item), mma_smem, pages, a.q_lens,
-                   a.ctx_lens);
+      mma_item<DH, TKV>(a, block_of(a, item), mma_smem, pages, a.q_lens,
+                        a.ctx_lens);
     return;
   }
   for (int i = threadIdx.x; i < a.r; i += kMmaThreads) {
@@ -951,31 +1114,33 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     if (cost[p] == 0)
       zero_tile<DH>(a, bk.r, bk.kh, g, bk.tile * tq, tq);
     else
-      mma_item<DH>(a, bk, mma_smem, pages, q_lens, ctx_lens);
+      mma_item<DH, TKV>(a, bk, mma_smem, pages, q_lens, ctx_lens);
   }
 }
 
-template <int DH>
+template <int DH, typename TKV>
 cudaError_t launch_mma(const RaggedArgs& a, int grid, cudaStream_t stream) {
   static bool attr_set = false;        // per instantiation (one card)
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ragged_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Geo<DH>::kSmem);
+        ragged_mma_kernel<DH, TKV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Geo<DH>::kSmem);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  ragged_mma_kernel<DH><<<grid, kMmaThreads, Geo<DH>::kSmem, stream>>>(a);
+  ragged_mma_kernel<DH, TKV>
+      <<<grid, kMmaThreads, Geo<DH>::kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <typename TKV>
 cudaError_t mma_by_width(int dh, const RaggedArgs& a, int grid,
                          cudaStream_t st) {
   switch (dh) {
-    case 32: return launch_mma<32>(a, grid, st);
-    case 64: return launch_mma<64>(a, grid, st);
-    case 128: return launch_mma<128>(a, grid, st);
-    case 256: return launch_mma<256>(a, grid, st);
+    case 32: return launch_mma<32, TKV>(a, grid, st);
+    case 64: return launch_mma<64, TKV>(a, grid, st);
+    case 128: return launch_mma<128, TKV>(a, grid, st);
+    case 256: return launch_mma<256, TKV>(a, grid, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1019,10 +1184,10 @@ cudaError_t simt_by_width(int e, const RaggedArgs& a, cudaStream_t st) {
 // positions [ctx_lens[r], ctx_lens[r] + q_lens[r]) of row r's pages; out
 // [R, Qmax, H, Dh] in q_dtype. n_tiles query tiles a row and grid, the
 // tensor-core instance's persistent block count (the host's ragged_plan):
-// tiles of 128 / (H/Hkv) queries for bf16 over bf16 pools (the tensor
-// cores), 64 / (H/Hkv) for every other pair (one block a tile, grid not
-// read); (H/Hkv) must divide 64. Returns the launch's cudaGetLastError()
-// (0 on success).
+// tiles of 128 / (H/Hkv) queries for bf16 q over bf16 or e4m3 (kFP8)
+// pools (the tensor cores), 64 / (H/Hkv) for every other pair (one block a
+// tile, grid not read); (H/Hkv) must divide 64. Returns the launch's
+// cudaGetLastError() (0 on success).
 extern "C" int die_ragged_attention(
     const void* q, const void* fresh_k, const void* fresh_v, void* k_pages,
     void* v_pages, const int* page_table, const int* ctx_lens,
@@ -1033,7 +1198,8 @@ extern "C" int die_ragged_attention(
   if (r <= 0 || qmax <= 0) return 0;
   if (hkv <= 0 || h % hkv || kRows % (h / hkv) || dh % 32)
     return cudaErrorInvalidValue;
-  const bool mma = q_dtype == kBF16 && kv_dtype == kBF16;
+  const bool mma =
+      q_dtype == kBF16 && (kv_dtype == kBF16 || kv_dtype == kFP8);
   const int tq = (mma ? kMmaRows : kRows) / (h / hkv);
   if (n_tiles <= 0 || static_cast<long long>(n_tiles) * tq < qmax ||
       (n_tiles - 1) * tq >= qmax || (mma && grid <= 0))
@@ -1059,14 +1225,18 @@ extern "C" int die_ragged_attention(
   a.scale = 1.0f / sqrtf(static_cast<float>(dh));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (mma)
-    err = mma_by_width(dh, a, grid, st);
+  if (mma && kv_dtype == kFP8)
+    err = mma_by_width<fp8>(dh, a, grid, st);
+  else if (mma)
+    err = mma_by_width<__nv_bfloat16>(dh, a, grid, st);
   else if (q_dtype == kF32 && kv_dtype == kF32)
     err = simt_by_width<float, float>(dh / 32, a, st);
   else if (q_dtype == kBF16 && kv_dtype == kF32)
     err = simt_by_width<__nv_bfloat16, float>(dh / 32, a, st);
   else if (q_dtype == kF32 && kv_dtype == kBF16)
     err = simt_by_width<float, __nv_bfloat16>(dh / 32, a, st);
+  else if (q_dtype == kF32 && kv_dtype == kFP8)
+    err = simt_by_width<float, fp8>(dh / 32, a, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -92,6 +92,7 @@ from ..models.base import (
     write_prefill_pages,
 )
 from ..ops import _cuda
+from ..ops.attention import raw_view
 from ..ops.quant import param_bytes, prepare_params
 from ..ops.sampling import SamplingParams, sample_tokens_with_logprobs
 from ..utils.tracing import LatencyStats
@@ -835,8 +836,13 @@ class ContinuousEngine:
         spec = self.spec
         L, Hkv, Dh = spec.n_layers, spec.n_kv_heads, spec.head_dim
         pages = _cuda.upload(phys, self.device)
-        ck = self.kv.k_pages[:, pages].reshape(L, bb, mpb * ps, Hkv, Dh)
-        cv = self.kv.v_pages[:, pages].reshape(L, bb, mpb * ps, Hkv, Dh)
+        # the context in the compute dtype (fp8 pages gathered as bytes,
+        # then widened), beside the suffix's fresh keys unrounded
+        kv_dt = self.kv.dtype
+        ck = raw_view(self.kv.k_pages)[:, pages].view(kv_dt).reshape(
+            L, bb, mpb * ps, Hkv, Dh)
+        cv = raw_view(self.kv.v_pages)[:, pages].view(kv_dt).reshape(
+            L, bb, mpb * ps, Hkv, Dh)
         hidden, ks, vs = forward_prefill_suffix(
             spec, self.params, _cuda.upload(tokens, self.device),
             suffix_lens, n_ctx, ck.to(spec.torch_dtype),

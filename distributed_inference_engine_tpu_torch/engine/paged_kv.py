@@ -3,7 +3,8 @@
 
 - Host: free list, per-slot page lists, refcounts and the prefix index
   of full prompt pages keyed by chain hash — the JAX logic, line for line.
-- Device: pools ``[L, N, P, Hkv*Dh]`` in bf16 or fp32, written in place,
+- Device: pools ``[L, N, P, Hkv*Dh]`` in fp32, bf16 or e4m3 (one byte an
+  element: half bf16's, ``get_stats()["hbm_bytes"]``), written in place,
   each with one drop row after its last page (``k_rows``/``v_rows``, the
   target of masked writes: ``models/base.py:write_pages_device``), and one
   int32 ``page_table`` ``[max_slots, max_pages_per_seq]`` refreshed in
@@ -24,7 +25,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.base import ModelSpec, pages_with_drop_row, torch_dtype
+from ..models.base import ModelSpec, kv_torch_dtype, pages_with_drop_row
 from ..ops import _cuda
 
 
@@ -55,7 +56,7 @@ class PagedKVCache:
         self.num_pages = num_pages
         self.max_seq_len = max_seq_len or spec.max_seq_len
         self.max_pages_per_seq = -(-self.max_seq_len // page_size)
-        self.dtype = torch_dtype(dtype) if dtype else spec.torch_dtype
+        self.dtype = kv_torch_dtype(dtype) if dtype else spec.torch_dtype
         self.device = torch.device(device)
         shape = (spec.n_layers, num_pages, page_size, fused)
         self.k_pages, self.k_rows = pages_with_drop_row(shape, self.dtype,
@@ -312,6 +313,6 @@ class PagedKVCache:
             "prefix_hit_tokens": self._prefix_hits_tokens,
             "prefix_reclaimed": self._prefix_reclaimed,
             "prefix_indexed": len(self._prefix_index),
-            "kv_bytes": bytes_total,
-            "kv_gib": bytes_total / (1 << 30),
+            "hbm_bytes": bytes_total,
+            "hbm_gib": bytes_total / (1 << 30),
         }

@@ -18,6 +18,16 @@ and the decode chunk's page flush (``write_pages_device``) compute theirs
 on the device instead, since only the device knows which slots still
 write, and so that they run inside a CUDA graph.
 
+Pools may be e4m3 (``kv_dtype="float8_e4m3fn"``; the compute dtype stays
+fp32, bf16 or fp16). Every pool write rounds through ``astype_kv``, the
+JAX cast (overflow to NaN, where torch's saturates), and moves the bytes
+through the pools' ``uint8`` view (``raw_view``). Each path rounds where
+the JAX function does: the admission prefill attends to its fresh keys
+unrounded, the inline decode writes the fresh row and then attends to the
+stored bits, the mixed step rounds before attending (inside the ragged
+kernel), and the window decode keeps its side window in the compute dtype
+until the chunk-end flush.
+
 The slice carries RoPE + RMSNorm + SwiGLU/GeGLU + GQA without biases,
 with Mistral's sliding window: a spec with experts, learned positions,
 biases, LayerNorm or a logit softcap raises ``NotImplementedError``
@@ -36,8 +46,11 @@ import torch.nn.functional as F
 
 from ..ops import _cuda
 from ..ops.attention import (
+    FP8,
+    astype_kv,
     causal_attention,
     merge_attention,
+    raw_view,
     suffix_attention,
     window_decode_attention,
 )
@@ -59,14 +72,27 @@ from ..ops.rope import apply_rope
 
 Params = Dict[str, Any]
 
+# compute dtypes; a KV pool may also be e4m3 (kv_torch_dtype)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+_KV_DTYPES = {**_DTYPES, "float8_e4m3fn": FP8}
 
 
 def torch_dtype(name: str) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"unsupported dtype {name!r}")
     return _DTYPES[name]
+
+
+def kv_torch_dtype(name: str) -> torch.dtype:
+    """A KV pool's dtype: a compute dtype or ``float8_e4m3fn``."""
+    if name == "float8_e5m2":
+        raise NotImplementedError(
+            "kv_dtype=float8_e5m2 (e5m2 KV pools) is not ported to the "
+            "PyTorch engine yet (ROADMAP.md A5f-e5m2)")
+    if name not in _KV_DTYPES:
+        raise ValueError(f"unsupported KV dtype {name!r}")
+    return _KV_DTYPES[name]
 
 
 @dataclass(frozen=True)
@@ -429,10 +455,13 @@ def forward_prefill_into_pages(spec: ModelSpec, params: Params,
             spec, layer_view(params, layer), x, positions,
             lambda q, k, v: causal_attention(q, k, v, lens,
                                              window=spec.sliding_window))
-        kp = k_pages[layer].view(n * p, fused)
-        vp = v_pages[layer].view(n * p, fused)
-        kp[dst] = k.reshape(b * t, fused)[src].to(kp.dtype)
-        vp[dst] = v.reshape(b * t, fused)[src].to(vp.dtype)
+        # attended unrounded above; the pool takes the JAX cast
+        kp = raw_view(k_pages[layer].view(n * p, fused))
+        vp = raw_view(v_pages[layer].view(n * p, fused))
+        kp[dst] = raw_view(astype_kv(k.reshape(b * t, fused)[src],
+                                     k_pages.dtype))
+        vp[dst] = raw_view(astype_kv(v.reshape(b * t, fused)[src],
+                                     v_pages.dtype))
     return x, k_pages, v_pages
 
 
@@ -602,10 +631,13 @@ def forward_decode_paged(
     lens1 = (lengths + 1).to(torch.int32)
 
     def land(pool_rows, fresh, idx):
-        fresh = fresh.reshape(b, fusedw).to(pool_rows.dtype)
-        anchor = torch.where(any_write, fresh[j], pool_rows[idx[j]])
-        pool_rows.index_put_((idx,), torch.where(mask[:, None], fresh,
-                                                 anchor))
+        # rounded into the pool dtype first: the kernel then attends to
+        # the stored bits, as the JAX scatter-then-attend does
+        fresh = raw_view(astype_kv(fresh.reshape(b, fusedw),
+                                   pool_rows.dtype))
+        rows_b = raw_view(pool_rows)
+        anchor = torch.where(any_write, fresh[j], rows_b[idx[j]])
+        rows_b.index_put_((idx,), torch.where(mask[:, None], fresh, anchor))
 
     for layer in range(L):
         blk = layer_view(params, layer)
@@ -692,10 +724,12 @@ def write_prefill_pages(k_pages: torch.Tensor, v_pages: torch.Tensor,
     dev = k_pages.device
     src = _cuda.upload(src, dev)
     dst = _cuda.upload(dst, dev)
-    kflat = k_pages.view(L, n * p, fused)
-    vflat = v_pages.view(L, n * p, fused)
-    kflat[:, dst] = ks.reshape(L, B * T, fused)[:, src].to(k_pages.dtype)
-    vflat[:, dst] = vs.reshape(L, B * T, fused)[:, src].to(v_pages.dtype)
+    kflat = raw_view(k_pages.view(L, n * p, fused))
+    vflat = raw_view(v_pages.view(L, n * p, fused))
+    kflat[:, dst] = raw_view(astype_kv(ks.reshape(L, B * T, fused)[:, src],
+                                       k_pages.dtype))
+    vflat[:, dst] = raw_view(astype_kv(vs.reshape(L, B * T, fused)[:, src],
+                                       v_pages.dtype))
     return k_pages, v_pages
 
 
@@ -706,7 +740,10 @@ def pages_with_drop_row(shape, dtype: torch.dtype, device
     every page, the target of ``write_pages_device``'s dropped writes (no
     page table names it, so the allocator never hands it out)."""
     L, n, p, fused = shape
-    rows = torch.zeros((L * n * p + 1, fused), dtype=dtype, device=device)
+    # zero bytes viewed in the pool dtype: no fill kernel of that dtype
+    # (e4m3 included) is needed
+    rows = torch.zeros((L * n * p + 1, fused * dtype.itemsize),
+                       dtype=torch.uint8, device=device).view(dtype)
     return rows[:-1].view(L, n, p, fused), rows
 
 
@@ -737,8 +774,10 @@ def write_pages_device(k_rows: torch.Tensor, v_rows: torch.Tensor,
     idx = torch.where(valid[None], layer0 + dst[None],
                       torch.full_like(layer0 + dst[None], drop)).reshape(-1)
     fused = Hkv * Dh
-    k_rows.index_put_((idx,), ks.reshape(L * B * T, fused).to(k_rows.dtype))
-    v_rows.index_put_((idx,), vs.reshape(L * B * T, fused).to(v_rows.dtype))
+    raw_view(k_rows).index_put_((idx,), raw_view(astype_kv(
+        ks.reshape(L * B * T, fused), k_rows.dtype)))
+    raw_view(v_rows).index_put_((idx,), raw_view(astype_kv(
+        vs.reshape(L * B * T, fused), v_rows.dtype)))
     return k_rows, v_rows
 
 

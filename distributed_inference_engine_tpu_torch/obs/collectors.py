@@ -115,8 +115,7 @@ KV_TABLE = [                       # PagedKVCache.get_stats()
      "Cached pages reclaimed for new allocations"),
     ("prefix_indexed", "kv_prefix_indexed", "g",
      "Page hashes currently in the prefix index"),
-    # the port's pools report their bytes as ``kv_bytes``
-    ("kv_bytes", "kv_hbm_bytes", "g", "Device bytes held by the page pools"),
+    ("hbm_bytes", "kv_hbm_bytes", "g", "Device bytes held by the page pools"),
 ]
 
 PUMP_TABLE = [                     # EnginePump.get_stats() (sans "engine")

@@ -65,12 +65,12 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("flash_decode.cu", "fused_decode.cu", "int4_matmul.cu",
-           "paged_attention.cu", "ragged_attention.cu")
+SOURCES = ("flash_decode.cu", "flash_decode_fp8.cu", "fused_decode.cu",
+           "int4_matmul.cu", "paged_attention.cu", "ragged_attention.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
-F32, BF16 = 0, 1          # dtype codes of csrc/common.cuh
+F32, BF16, FP8 = 0, 1, 2  # dtype codes of csrc/common.cuh (FP8: pools only)
 
 # launches per kernel: each wrapper adds one where it launches its kernel
 # (and nowhere else), so a run can show the main path went through it
@@ -356,12 +356,26 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def dtype_code(dt: torch.dtype) -> int:
+def dtype_code(dt: torch.dtype, pool: bool = False) -> int:
+    """The kernels' code of ``dt``: fp32 or bf16 for every operand, and
+    e4m3 for a KV pool (``pool``)."""
     if dt == torch.float32:
         return F32
     if dt == torch.bfloat16:
         return BF16
-    raise TypeError(f"kernel takes float32 or bfloat16, not {dt}")
+    if pool and dt == torch.float8_e4m3fn:
+        return FP8
+    raise TypeError(f"kernel takes float32 or bfloat16"
+                    f"{' (or float8_e4m3fn pools)' if pool else ''}, not {dt}")
+
+
+def pool_instance(name: str, kv_dtype: torch.dtype) -> Tuple[str, ...]:
+    """The names a launch of kernel ``name`` over pools of ``kv_dtype``
+    counts under: the kernel's, and ``<name>.fp8`` for its e4m3-pool
+    instance."""
+    if kv_dtype == torch.float8_e4m3fn:
+        return (name, f"{name}.fp8")
+    return (name,)
 
 
 @functools.lru_cache(maxsize=None)

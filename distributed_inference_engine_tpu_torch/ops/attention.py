@@ -18,6 +18,47 @@ import torch
 
 NEG_INF = -1e30   # large-but-finite: -inf rows would softmax to NaN
 
+FP8 = torch.float8_e4m3fn
+# the largest magnitude that rounds to a finite e4m3 value (448 + half an
+# ulp; 464 itself ties to 448)
+_FP8_LIMIT = 464.0
+
+
+def is_fp8(dt: torch.dtype) -> bool:
+    return dt == FP8
+
+
+def astype_kv(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x.astype(dtype)`` as JAX rounds it, for a KV pool's dtype. Into
+    e4m3 that is round to nearest even, and NaN (``0x7F``, with x's sign
+    bit) for a magnitude past 464, for ±inf and for NaN: torch's own cast
+    saturates those to ±448 instead. Every write into an fp8 pool, and every
+    plain version that rounds through one, takes this cast; the kernels
+    round as it does (``csrc/common.cuh`` ``from_f``)."""
+    if not is_fp8(dtype):
+        return x.to(dtype)
+    bits = x.to(dtype).view(torch.uint8)
+    over = ~(x.abs() <= _FP8_LIMIT)                 # NaN compares false
+    nan = (torch.signbit(x).to(torch.uint8) << 7) | 0x7F
+    return torch.where(over, nan, bits).view(dtype)
+
+
+def raw_view(t: torch.Tensor) -> torch.Tensor:
+    """An fp8 tensor as its ``uint8`` bytes (a view), anything else as it
+    is: torch lacks some ops for fp8 (``gather`` on the CPU), so pool
+    bytes are indexed, selected and scattered through this view."""
+    return t.view(torch.uint8) if is_fp8(t.dtype) else t
+
+
+def upcast_kv(k: torch.Tensor, v: torch.Tensor, dt: torch.dtype
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp8 K/V widened to the query dtype at the attention boundary (the
+    JAX ``_upcast_fp8``; e4m3 is exact in bf16 and fp32). Wider K/V keeps
+    its dtype."""
+    if is_fp8(k.dtype):
+        return k.to(dt), v.to(dt)
+    return k, v
+
 
 def _group_query(q: torch.Tensor, n_kv_heads: int) -> torch.Tensor:
     """[B, T, H, Dh] -> [B, T, Hkv, G, Dh] where H = Hkv * G."""
@@ -45,6 +86,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sliding window). q [B, T, H, Dh], k/v [B, T, Hkv, Dh], seq_lens [B] ->
     [B, T, H, Dh]."""
     b, t, h, dh = q.shape
+    k, v = upcast_kv(k, v, q.dtype)
     qg = _group_query(q, k.shape[2])
     scores = torch.einsum("bikgd,bjkd->bkgij", qg, k).float() * _scale(dh)
     ar = torch.arange(t, device=q.device)
@@ -70,6 +112,8 @@ def suffix_attention(q: torch.Tensor, k_ctx: torch.Tensor,
     q [B, Ts, H, Dh], ctx [B, Tc, Hkv, Dh], suffix K/V [B, Ts, Hkv, Dh]."""
     b, ts, h, dh = q.shape
     tc = k_ctx.shape[1]
+    k_ctx, v_ctx = upcast_kv(k_ctx, v_ctx, q.dtype)
+    k_suf, v_suf = upcast_kv(k_suf, v_suf, q.dtype)
     qg = _group_query(q, k_ctx.shape[2])
     k_all = torch.cat([k_ctx, k_suf], dim=1)
     v_all = torch.cat([v_ctx, v_suf], dim=1)
@@ -107,6 +151,7 @@ def window_decode_attention(q: torch.Tensor, k_side: torch.Tensor,
     b, h, dh = q.shape
     w = k_side.shape[1]
     n_kv = k_side.shape[2]
+    k_side, v_side = upcast_kv(k_side, v_side, q.dtype)
     qg = q.reshape(b, n_kv, h // n_kv, dh)
     scores = torch.einsum("bkgd,bwkd->bkgw", qg, k_side).float() * \
         _scale(dh)
@@ -141,5 +186,6 @@ def merge_attention(parts: Sequence[Tuple[torch.Tensor, torch.Tensor,
     return out.to(dtype or parts[0][0].dtype)
 
 
-__all__: List[str] = ["NEG_INF", "causal_attention", "suffix_attention",
+__all__: List[str] = ["NEG_INF", "FP8", "astype_kv", "is_fp8", "raw_view",
+                      "upcast_kv", "causal_attention", "suffix_attention",
                       "window_decode_attention", "merge_attention"]

@@ -22,8 +22,10 @@ are never read back), one block per (slot, KV head, run); the last run also
 takes the side window. The runs' fp32 partials merge in the same launch
 (the last block of each (slot, KV head) to finish merges them), so a call
 is one device launch and counts one under the kernel's name. bf16 q over
-bf16 pools runs on the tensor cores, every other dtype pair on the CUDA
-cores.
+bf16 or e4m3 pools runs on the tensor cores, every other dtype pair on the
+CUDA cores. e4m3 pools (the fp8 instances, counted also as
+``<kernel>.fp8``) are widened in the kernel, exactly; the side window and
+the fresh row stay in q's dtype, as in JAX.
 """
 
 from __future__ import annotations
@@ -170,9 +172,10 @@ def _launch(name, fn, q, k_pages, page_table, side_k, n_kv_heads, base,
     err = fn(*pointers, out.data_ptr(), ws.data_ptr(), cnt.data_ptr(),
              b, h, n_kv_heads, dh, page_size, mp, side_k.shape[1], n_split,
              chunk, base, _cuda.dtype_code(q.dtype),
-             _cuda.dtype_code(k_pages.dtype), _cuda.stream_ptr(q.device))
+             _cuda.dtype_code(k_pages.dtype, pool=True),
+             _cuda.stream_ptr(q.device))
     _cuda.check(err, name)
-    _cuda.count_launch(name)
+    _cuda.count_launch(*_cuda.pool_instance(name, k_pages.dtype))
     return out
 
 

@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _cuda
-from .attention import NEG_INF, _scale
+from .attention import NEG_INF, _scale, raw_view, upcast_kv
 
 
 # split sizing: aim for this many blocks per SM over the whole grid, and
@@ -79,8 +79,13 @@ def paged_attention_xla(q: torch.Tensor, k_pages: torch.Tensor,
     mp = page_table.shape[1]
     g = h // n_kv_heads
     table = page_table.long()
-    k = k_pages[table].reshape(b, mp * p, n_kv_heads, dh)
-    v = v_pages[table].reshape(b, mp * p, n_kv_heads, dh)
+    # gather first (fp8 pages as bytes), then widen the gathered pages
+    # only, as the JAX reference does
+    k = raw_view(k_pages)[table].view(k_pages.dtype).reshape(
+        b, mp * p, n_kv_heads, dh)
+    v = raw_view(v_pages)[table].view(v_pages.dtype).reshape(
+        b, mp * p, n_kv_heads, dh)
+    k, v = upcast_kv(k, v, q.dtype)
     qg = q.reshape(b, n_kv_heads, g, dh)
     ct = torch.promote_types(q.dtype, k.dtype)      # jnp.einsum promotion
     scores = torch.einsum("bkgd,bskd->bkgs", qg.to(ct), k.to(ct)).float() \
@@ -111,7 +116,8 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          window: int = 0, with_stats: bool = False,
                          layer: Optional[int] = None,
                          n_pages_per_layer: int = 0):
-    """The CUDA kernel: q [B, H, Dh] (bf16 or fp32), pools in bf16 or fp32,
+    """The CUDA kernel: q [B, H, Dh] (bf16 or fp32), pools in bf16, fp32
+    or e4m3 (the fp8 instance, counted also as ``paged_attention.fp8``),
     int32 ``page_table``/``lengths`` -> out [B, H, Dh] in q's dtype, or
     (out, m, l) with ``with_stats``. Raises on what the kernel does not
     take."""
@@ -155,10 +161,11 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         m.data_ptr(), l.data_ptr(), ws.data_ptr() if n_split > 1 else None,
         b, h, n_kv_heads, dh, page_size, mp, int(window), n_split, chunk,
-        base, _cuda.dtype_code(q.dtype), _cuda.dtype_code(k_pages.dtype),
+        base, _cuda.dtype_code(q.dtype),
+        _cuda.dtype_code(k_pages.dtype, pool=True),
         _cuda.stream_ptr(q.device))
     _cuda.check(err, name)
-    _cuda.count_launch(name)
+    _cuda.count_launch(*_cuda.pool_instance(name, k_pages.dtype))
     if with_stats:
         return out, m, l
     return out

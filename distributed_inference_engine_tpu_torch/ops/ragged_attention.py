@@ -15,12 +15,14 @@ the table.
 (``csrc/ragged_attention.cu``, replacing the TPU kernel
 ``ops/ragged_attention.py:_ragged_kernel``) for a CUDA tensor and runs
 the plain version for a CPU tensor. The instance follows the dtypes
-(``ragged_instance``): bf16 q over bf16 pools runs the tensor cores
-(``mma``), every other pair the CUDA cores (``simt``). The launch is
-sized from the shapes (``ragged_plan``), never from the lengths, which
-live on the card; there the tensor-core instance orders its work by the
-lengths (``ragged_schedule`` is the same rule on the host). Both update
-the pools IN PLACE (the
+(``ragged_instance``): bf16 q over bf16 or e4m3 pools runs the tensor
+cores (``mma``), every other pair the CUDA cores (``simt``); an e4m3 pool
+(counted also as ``ragged_attention.fp8``) takes the fresh K/V rounded
+with the JAX cast (``astype_kv``), attends to those bits and writes them.
+The launch is sized from the shapes (``ragged_plan``), never from the
+lengths, which live on the card; there the tensor-core instance orders
+its work by the lengths (``ragged_schedule`` is the same rule on the
+host). Both update the pools IN PLACE (the
 JAX function donated them and returned new ones); they still return
 them, so call sites read as in the JAX package.
 
@@ -38,7 +40,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from . import _cuda
-from .attention import suffix_attention
+from .attention import astype_kv, raw_view, suffix_attention
 
 
 def ragged_attention_plain(
@@ -73,10 +75,12 @@ def ragged_attention_plain(
     ql = q_lens.to(device=dev, dtype=torch.int64)
     table = page_table.to(device=dev, dtype=torch.int64)
     # the kernel attends to the same bits it writes back
-    fk = fresh_k.to(kp.dtype)
-    fv = fresh_v.to(vp.dtype)
-    ctx_k = kp[table].reshape(r, mp * p, n_kv_heads, dh)
-    ctx_v = vp[table].reshape(r, mp * p, n_kv_heads, dh)
+    fk = astype_kv(fresh_k, kp.dtype)
+    fv = astype_kv(fresh_v, vp.dtype)
+    ctx_k = raw_view(kp)[table].view(kp.dtype).reshape(r, mp * p,
+                                                         n_kv_heads, dh)
+    ctx_v = raw_view(vp)[table].view(vp.dtype).reshape(r, mp * p,
+                                                         n_kv_heads, dh)
     out = suffix_attention(q, ctx_k.to(q.dtype), ctx_v.to(q.dtype), ctx,
                            fk.to(q.dtype), fv.to(q.dtype), ql)
     local = torch.arange(qmax, device=dev)[None, :]
@@ -88,8 +92,10 @@ def ragged_attention_plain(
     logical = torch.clamp(pos // p, max=mp - 1)
     phys = torch.gather(table, 1, logical)
     flat = (phys * p + pos % p)[row_valid]
-    kp.view(n * p, fused)[flat] = fk.reshape(r, qmax, fused)[row_valid]
-    vp.view(n * p, fused)[flat] = fv.reshape(r, qmax, fused)[row_valid]
+    raw_view(kp).view(n * p, fused)[flat] = raw_view(fk).reshape(
+        r, qmax, fused)[row_valid]
+    raw_view(vp).view(n * p, fused)[flat] = raw_view(fv).reshape(
+        r, qmax, fused)[row_valid]
     return out, k_pages, v_pages
 
 
@@ -102,8 +108,10 @@ MMA_MAX_PAIRS, MMA_MAX_ROWS = 512, 256
 
 def ragged_instance(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
     """The kernel instance for these dtypes: ``mma`` (tensor cores) for
-    bf16 q over bf16 pools, ``simt`` (CUDA cores) for every other pair."""
-    if q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16:
+    bf16 q over bf16 or e4m3 pools (e4m3 is exact in bf16), ``simt`` (CUDA
+    cores) for every other pair."""
+    if q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16,
+                                                  torch.float8_e4m3fn):
         return "mma"
     return "simt"
 
@@ -250,7 +258,9 @@ def ragged_attention(
         ctx_lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
         r, qmax, h, n_kv_heads, dh, page_size, page_table.shape[1],
         n_tiles, grid, base, _cuda.dtype_code(q.dtype),
-        _cuda.dtype_code(k_pages.dtype), _cuda.stream_ptr(q.device))
+        _cuda.dtype_code(k_pages.dtype, pool=True),
+        _cuda.stream_ptr(q.device))
     _cuda.check(err, name)
-    _cuda.count_launch(name, f"{name}.{inst}")
+    _cuda.count_launch(f"{name}.{inst}",
+                       *_cuda.pool_instance(name, k_pages.dtype))
     return out, k_pages, v_pages

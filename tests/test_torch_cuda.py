@@ -3,7 +3,9 @@ card (run there with ``python -m pytest --noconftest -q
 tests/test_torch_cuda.py``, since ``tests/conftest.py`` imports JAX; skipped
 without a card). Small shapes; chip_smoke.py checks the Llama-3-8B and Mistral ones.
 Tolerances: fp32 atol 1e-4, bf16 (and fp32 over bf16 pools) atol = rtol =
-2e-2; written pages and side rows equal; paged attention's m and l
+2e-2, e4m3 pools q's tolerance (they widen exactly; values past 464 in
+the ragged kernel's fresh K/V included, written bytes equal); written
+pages and side rows equal; paged attention's m and l
 within 1e-4 of the plain version's on the inputs widened to fp32, also
 with a slot's keys split over many blocks. The int4 matmul is held per output
 column to max|out - ref32| / max|ref32| <= 1e-2 (bf16) and 1e-4 (fp32) at
@@ -42,6 +44,7 @@ from distributed_inference_engine_tpu_torch.models.mistral import (
     mistral_spec,
 )
 from distributed_inference_engine_tpu_torch.ops import _cuda
+from distributed_inference_engine_tpu_torch.ops.attention import raw_view
 from distributed_inference_engine_tpu_torch.ops.quant import (
     random_quantized_params,
 )
@@ -54,6 +57,25 @@ from distributed_inference_engine_tpu_torch.ops import ragged_attention as ra
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+FP8 = torch.float8_e4m3fn
+
+
+def _tol_dtype(dtype, kv_dtype):
+    """The tolerance of a (q, pool) pair: q's, where the pool is q's dtype
+    or e4m3 (exact in both), else bf16's."""
+    return dtype if kv_dtype in (dtype, FP8) else torch.bfloat16
+
+
+def _same_bytes(a, b):
+    return torch.equal(raw_view(a), raw_view(b))
+
+
+def _randn_like(t):
+    """``torch.randn_like``, which has no e4m3 kernel: e4m3 draws fp32
+    and rounds."""
+    if t.dtype != FP8:
+        return torch.randn_like(t)
+    return torch.randn(t.shape, device=t.device).to(FP8)
 
 
 @pytest.fixture
@@ -267,7 +289,7 @@ def _fd_split_case(card, dtype, kv_dtype, h, hkv, dh, p, mp, prefix, fw,
     q = torch.randn((b, h, dh), generator=g, device=card).to(dtype)
     kp = torch.randn((2 * n, p, hkv * dh), generator=g,
                      device=card).to(kv_dtype)
-    vp = torch.randn_like(kp)
+    vp = _randn_like(kp)
     table = torch.randperm(n, generator=g, device=card)[: b * mp].reshape(
         b, mp).to(torch.int32)
     plen = torch.tensor(prefix, dtype=torch.int32, device=card)
@@ -276,7 +298,7 @@ def _fd_split_case(card, dtype, kv_dtype, h, hkv, dh, p, mp, prefix, fw,
     sv = torch.randn_like(sk)
     kw = dict(n_kv_heads=hkv, layer=1, n_pages_per_layer=n)
     name = "flash_decode_fw" if fw else "flash_decode"
-    before = _cuda.LAUNCHES[name]
+    before = _cuda.LAUNCHES[name], _cuda.LAUNCHES[f"{name}.fp8"]
     if fw:
         # side columns over 0..W (W: the fresh row is dropped), one in
         # three slots inactive
@@ -316,13 +338,14 @@ def _fd_split_case(card, dtype, kv_dtype, h, hkv, dh, p, mp, prefix, fw,
             *(t.float() if t.is_floating_point() else t for t in args),
             **kw)
         n_keys = plen + nside
-    assert _cuda.LAUNCHES[name] == before + 1
-    _close(out, ref, dtype if kv_dtype == dtype else torch.bfloat16)
+    assert (_cuda.LAUNCHES[name], _cuda.LAUNCHES[f"{name}.fp8"]) == (
+        before[0] + 1, before[1] + (kv_dtype == FP8))
+    _close(out, ref, _tol_dtype(dtype, kv_dtype))
     live = n_keys > 0
     row_err = (out.float() - ref32).abs().amax(-1)[live]
     row_ref = ref32.abs().amax(-1)[live]
     assert float((row_err / row_ref).max()) <= FD_ROW_REL[
-        dtype if kv_dtype == dtype else torch.bfloat16]
+        _tol_dtype(dtype, kv_dtype)]
     if (~live).any():
         assert float(out[~live].abs().max()) == 0.0
 
@@ -373,6 +396,19 @@ def test_flash_decode_bf16_tensor_cores(card, fw, h, hkv, dh):
                    [3, 0, 16, 255, 640], fw, seed=50 + fw)
 
 
+@pytest.mark.parametrize("fw", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,hkv,dh", [(8, 8, 32), (16, 8, 64), (16, 4, 128),
+                                      (32, 4, 128), (16, 2, 256)])
+def test_flash_decode_fp8_pools(card, fw, dtype, h, hkv, dh):
+    """e4m3 pools (the fp8 instances): bf16 q on the tensor cores (the
+    pages widened in shared memory), fp32 q on the CUDA cores, at G 1-8
+    and Dh 32-256, pages of 16, a split grid of several runs; the side
+    window and fw's side write in q's dtype."""
+    _fd_split_case(card, dtype, FP8, h, hkv, dh, 16, 40,
+                   [3, 0, 16, 255, 640], fw, seed=60 + fw)
+
+
 @pytest.mark.parametrize("dtype,kv_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.float32, torch.bfloat16)])
@@ -407,7 +443,7 @@ def test_ragged_attention_kernel(card, dtype, kv_dtype, h, hkv, dh):
         before[0] + 1, before[1] + 1)
     ref, _, _ = ra.ragged_attention_plain(q, kp2, vp2, table, ctx, ql, fk,
                                           fv, **kw)
-    _close(out, ref, dtype if kv_dtype == dtype else torch.bfloat16)
+    _close(out, ref, _tol_dtype(dtype, kv_dtype))
     assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
     for i, (_, qi) in enumerate(rows):
         assert float(out[i, qi:].abs().max() if qi < qmax else 0) == 0.0
@@ -484,6 +520,60 @@ def test_ragged_attention_tensor_cores(card, h, hkv, dh):
                      seed=40 + dh + h + hkv)
 
 
+@pytest.mark.parametrize("fresh_scale", [1.0, 300.0],
+                         ids=["in range", "past 464"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,hkv,dh", [(8, 8, 32), (8, 4, 64), (16, 4, 128),
+                                      (16, 2, 128), (16, 2, 256)])
+def test_ragged_attention_fp8_pools(card, dtype, h, hkv, dh, fresh_scale):
+    """e4m3 pools (the fp8 instances: bf16 q on the tensor cores, fp32 q on
+    the CUDA cores) over the tensor-core instance's rows, G 1-8 and Dh
+    32-256: the pools byte-equal to the plain version's after the
+    writeback (the fresh K/V rounded with JAX's cast; at scale 300 part of
+    it overflows to NaN bytes), outputs within q's tolerance where the
+    plain version's are finite, dead rows exactly 0."""
+    g = torch.Generator(device=card).manual_seed(90 + dh + h)
+    rows, p, mp = RAGGED_MMA_ROWS, 16, 24
+    r, qmax = len(rows), max(q for _, q in RAGGED_MMA_ROWS)
+    n = r * mp + 8
+    i32 = dict(dtype=torch.int32, device=card)
+    ctx = torch.tensor([c for c, _ in rows], **i32)
+    ql = torch.tensor([q for _, q in rows], **i32)
+    table = torch.randperm(n, generator=g, device=card)[: r * mp].reshape(
+        r, mp).to(torch.int32)
+    table[0] = table[1]
+    q = torch.randn((r, qmax, h, dh), generator=g, device=card).to(dtype)
+    fk = (torch.randn((r, qmax, hkv, dh), generator=g, device=card)
+          * fresh_scale).to(dtype)
+    fv = (torch.randn((r, qmax, hkv, dh), generator=g, device=card)
+          * fresh_scale).to(dtype)
+    kp = torch.randn((2 * n, p, hkv * dh), generator=g, device=card).to(FP8)
+    vp = torch.randn((2 * n, p, hkv * dh), generator=g, device=card).to(FP8)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kw = dict(n_kv_heads=hkv, layer=1, n_pages_per_layer=n)
+    inst = "ragged_attention." + ra.ragged_instance(dtype, FP8)
+    assert inst.endswith("mma" if dtype == torch.bfloat16 else "simt")
+    names = ("ragged_attention", "ragged_attention.fp8", inst)
+    before = [_cuda.LAUNCHES[k] for k in names]
+    out, _, _ = ra.ragged_attention(q, kp, vp, table, ctx, ql, fk, fv, **kw)
+    torch.cuda.synchronize()
+    assert [_cuda.LAUNCHES[k] for k in names] == [c + 1 for c in before]
+    ref, _, _ = ra.ragged_attention_plain(q, kp2, vp2, table, ctx, ql, fk,
+                                          fv, **kw)
+    assert _same_bytes(kp, kp2) and _same_bytes(vp, vp2)
+    assert bool(raw_view(kp).any())
+    valid = torch.arange(qmax, device=card)[None, :] < ql[:, None]
+    assert float(out[~valid].float().abs().max()) == 0.0
+    finite = torch.isfinite(ref.float())
+    if fresh_scale > 100:
+        assert bool(torch.isnan(kp.float()).any())
+    else:
+        assert bool(finite.all())
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float()[finite], ref.float()[finite],
+                               atol=atol, rtol=rtol)
+
+
 def test_ragged_attention_tensor_cores_many_pairs(card):
     """More (row, query tile) pairs than the kernel ranks on the card (40
     rows x 16 tiles of 16 queries at G 8): the blocks walk the plain
@@ -503,21 +593,24 @@ def _paged_case(card, dtype, kv_dtype, h, hkv, dh, p, mp, lens, window,
     q = torch.randn((b, h, dh), generator=g, device=card).to(dtype)
     kp = torch.randn((2 * n, p, hkv * dh), generator=g,
                      device=card).to(kv_dtype)
-    vp = torch.randn_like(kp)
+    vp = _randn_like(kp)
     table = torch.randperm(n, generator=g, device=card)[: b * mp].reshape(
         b, mp).to(torch.int32)
     lengths = torch.tensor(lens, dtype=torch.int32, device=card)
     for kw in (dict(), dict(layer=1, n_pages_per_layer=n)):
         pools = (kp[:n], vp[:n]) if not kw else (kp, vp)
-        before = _cuda.LAUNCHES["paged_attention"]
+        before = (_cuda.LAUNCHES["paged_attention"],
+                  _cuda.LAUNCHES["paged_attention.fp8"])
         out, m, l = pa.paged_attention(q, *pools, table, lengths,
                                        n_kv_heads=hkv, window=window,
                                        with_stats=True, **kw)
         torch.cuda.synchronize()
-        assert _cuda.LAUNCHES["paged_attention"] == before + 1
+        assert (_cuda.LAUNCHES["paged_attention"],
+                _cuda.LAUNCHES["paged_attention.fp8"]) == (
+            before[0] + 1, before[1] + (kv_dtype == FP8))
         ref = pa.paged_attention_xla(q, *pools, table, lengths,
                                      n_kv_heads=hkv, window=window, **kw)
-        _close(out, ref, dtype if kv_dtype == dtype else torch.bfloat16)
+        _close(out, ref, _tol_dtype(dtype, kv_dtype))
         # the stats against the plain version on the same values widened
         # to fp32 (the bf16 plain version rounds its scores to bf16; the
         # kernel keeps them in fp32)
@@ -545,6 +638,18 @@ def test_paged_attention_kernel(card, dtype, kv_dtype, window, h, hkv, dh):
     against the plain version."""
     _paged_case(card, dtype, kv_dtype, h, hkv, dh, 16, 6,
                 [0, 1, 15, 16, 17, 40, 41, 56, 57, 96], window, seed=5)
+
+
+@pytest.mark.parametrize("window", [0, 16, 40])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,hkv,dh", [(8, 8, 32), (16, 8, 64), (16, 4, 128),
+                                      (16, 2, 128)])
+def test_paged_attention_fp8_pools(card, dtype, window, h, hkv, dh):
+    """e4m3 pools (the fp8 instance, 8 values a lane) at G 1-8 and Dh
+    32-128 with and without the sliding window: out and the flash stats
+    against the plain version, as the other pairs."""
+    _paged_case(card, dtype, FP8, h, hkv, dh, 16, 6,
+                [0, 1, 15, 16, 17, 40, 41, 56, 57, 96], window, seed=6)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -738,6 +843,20 @@ GRAPH_PATHS = [
                             prefill_chunk=16), False),
     ("mistral", "mistral", dict(attention_impl="pallas",
                                 prefill_chunk=32), False),
+    # e4m3 pools: flash-decode and fw, the paged kernel inline and past
+    # Mistral's window, the ragged mixed step
+    ("window fp8", "llama", dict(attention_impl="pallas-decode",
+                                 kv_dtype="float8_e4m3fn"), False),
+    ("fw fp8", "llama", dict(attention_impl="pallas-decode-fw",
+                             kv_dtype="float8_e4m3fn"), False),
+    ("inline fp8", "llama", dict(decode_mode="inline",
+                                 kv_dtype="float8_e4m3fn"), False),
+    ("mixed fp8", "llama", dict(attention_impl="pallas-ragged",
+                                prefill_chunk=16,
+                                kv_dtype="float8_e4m3fn"), False),
+    ("mistral fp8", "mistral", dict(attention_impl="pallas",
+                                    prefill_chunk=32,
+                                    kv_dtype="float8_e4m3fn"), False),
 ]
 
 
@@ -786,9 +905,12 @@ def test_graph_replays_match_eager(card, label, family, cfg, int4, dtype):
     assert m["decode_programs"] == me["decode_programs"] >= 1
     if cfg.get("prefill_chunk") and family == "llama":
         assert m["mixed_steps"] == me["mixed_steps"] > 0
-    assert torch.equal(eng_g.kv.k_pages, eng_e.kv.k_pages)
-    assert torch.equal(eng_g.kv.v_pages, eng_e.kv.v_pages)
+    assert _same_bytes(eng_g.kv.k_pages, eng_e.kv.k_pages)
+    assert _same_bytes(eng_g.kv.v_pages, eng_e.kv.v_pages)
     assert sum(graph_launches.values()) > 0
+    if cfg.get("kv_dtype") == "float8_e4m3fn":
+        assert eng_g.kv.k_pages.element_size() == 1
+        assert any(k.endswith(".fp8") for k in graph_launches)
 
 
 def test_replay_packed_equals_eager_body(card):

@@ -237,7 +237,7 @@ def _page_pressure(weights, **extra):
 
 
 def test_unported_features_raise():
-    for kw in (dict(kv_dtype="float8_e4m3fn"), dict(kv_offload=True),
+    for kw in (dict(kv_dtype="float8_e5m2"), dict(kv_offload=True),
                dict(spec_async=True)):
         with pytest.raises(NotImplementedError):
             EngineConfig(**kw).check_supported()
