@@ -7,7 +7,8 @@
                                       # kernel's ms per step) and the int4
                                       # wgmma token tiles
     python3 chip_smoke.py --full-depth  # ... with the fp32 logit checks at
-                                      # all 32 layers (CUT_LAYERS: 8)
+                                      # every layer (32; Qwen2-7B and
+                                      # Gemma-7B 28) (CUT_LAYERS: 8)
 
 The engine replays a CUDA graph for every decode chunk and mixed step (the
 worker phases and every in-process engine). Each decode scheme (``serve``,
@@ -188,6 +189,26 @@ Phases, each failing loudly (any failure exits non-zero):
    through the kernels and through their plain versions (the script's
    own ``plain_kernels`` switch), within 1e-3 of each other.
 
+9. The other dense families (A9): the kernels phase also holds
+   flash-decode, fw and paged attention at query-head groups 3, 5, 6, 7,
+   12 and 16 (Hkv 4, Dh 128), ragged attention at 3, 6 and 7, and paged
+   attention at head_dim 256 with Gemma-7B's 16/16 and Gemma-2B's 8/1
+   heads (windows 0 and 4096), each in bf16, fp32 and over e4m3 pools
+   (``family_kernel_rows``, the B 8 case, fewer timing repeats). Then
+   three worker phases at full published width and depth
+   (``phase_family``): ``qwen2-7b`` (28 heads over 4: G 7) with the
+   ``mixed`` settings over the mixed waves (ragged and flash-decode at G
+   7), ``gemma-7b`` (head_dim 256, tied 256,000-row embedding) and
+   ``gpt2`` (learned positions, LayerNorm, biases) with ``serve``'s over
+   the serve wave; served tok/s and TTFT p50 each. In process
+   (``phase_families_inproc``): one served chain of each teacher-forced
+   at full depth (bf16 band), graph against eager at ``CUT_LAYERS``
+   (GPT-2 at 12): Qwen2-7B and Gemma-7B inline paged decode (paged
+   attention at G 7 and at head_dim 256), Gemma-7B's fused decode
+   (``norm_matmul`` over 1 + w), GPT-2's flash-decode; and in fp32 each
+   decode path's teacher-forced logits within 1e-3 of ``forward_train``
+   and of the plain kernels' forward (``plain_kernels``).
+
 Phases ``fused``, ``int4`` and ``mistral`` hold their in-process decode
 schemes graph against eager as above; the worker phases print each worker
 engine's graphs and fail if it captured none.
@@ -195,7 +216,9 @@ engine's graphs and fail if it captured none.
 The last lines are the card's name and power limit, one JSON object
 naming every kernel with its launches (on its own path: serve,
 in-process fused, mixed, fw, int4; the fp8 instances: the fp8 worker,
-the in-process fp8 fw and Mistral runs), error and times, and
+the in-process fp8 fw and Mistral runs; the G 7 and head_dim 256
+instances: the qwen2-7b worker, its in-process fw and inline runs, and
+Gemma-7B's inline run), error and times, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -297,6 +320,40 @@ PAGED_LENS = [0, 1, 127, 1500, 4097, 4224, 4225, 6000]
 # m and l of the flash stats against the plain version's in fp32
 STATS_TOL = 1e-4
 
+# The dense families beyond Llama and Mistral (A9), each at its published
+# width and depth through the worker CLI with the load-time warmup:
+# Qwen2-7B (28 query heads over 4 KV heads: G 7) with the mixed phase's
+# settings, Gemma-7B (head_dim 256, 16 heads over 16, tied 256,000-row
+# embedding) and GPT-2 (124M: learned positions, LayerNorm, biases) with
+# serve's. name -> (model, architecture, size, layers, vocab)
+QWEN_MODEL = MIXED_MODEL.replace("name=llama3-8b,architecture=llama,"
+                                 "size=llama3-8b",
+                                 "name=qwen2-7b,architecture=qwen,"
+                                 "size=qwen2-7b")
+GEMMA_MODEL = SERVE_MODEL.replace("name=llama3-8b,architecture=llama,"
+                                  "size=llama3-8b",
+                                  "name=gemma-7b,architecture=gemma,"
+                                  "size=gemma-7b")
+GPT2_MODEL = SERVE_MODEL.replace("name=llama3-8b,architecture=llama,"
+                                 "size=llama3-8b",
+                                 "name=gpt2,architecture=gpt2,size=gpt2")
+FAMILIES = {"qwen2-7b": (QWEN_MODEL, "qwen", "qwen2-7b", 28, 152064),
+            "gemma-7b": (GEMMA_MODEL, "gemma", "gemma-7b", 28, 256000),
+            "gpt2": (GPT2_MODEL, "gpt2", "gpt2", 12, 50257)}
+
+# The other families' attention instances (A9). Query-head groups G = H /
+# Hkv at Hkv 4, Dh 128, by G: 3, 5, 6, 7 (Qwen2-7B: 28 heads over 4), 12
+# and 16 (two sub-groups of 8) for flash-decode, fw and paged attention;
+# 3, 6, 7 for ragged attention; paged attention at Dh 256 with Gemma-7B's
+# 16 heads over 16 and Gemma-2B's 8 over 1, with and without the window.
+GROUP_SHAPES = {3: (12, 4, 128), 5: (20, 4, 128), 6: (24, 4, 128),
+                7: (28, 4, 128), 12: (48, 4, 128), 16: (64, 4, 128)}
+RAGGED_GROUPS = (3, 6, 7)
+GEMMA_SHAPES = ((16, 16, 256), (8, 1, 256))
+# the stacked pool of the paged instance checks: 4 layers (a Gemma-7B
+# layer's 384 pages are 0.4 GB in bf16)
+FAMILY_PAGED_LAYERS = 4
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -357,6 +414,8 @@ PTXAS_REPORTS = [
      lambda m: (f"{m.group(1)} {'bf16' if m.group(2) != 'f' else 'fp32'}"
                 f" x {8 * int(m.group(3))} tokens"
                 f"{'' if m.group(4) == '1' else ' (4-byte copies)'}")),
+    ("paged_attention.cu", r"paged_attention_kernelI\S*?Li(\d+)ELi(\d+)EE",
+     lambda m: f"paged Dh {int(m.group(1)):3d} x {int(m.group(2))} rows"),
     ("int4_matmul.cu", r"int4_gemv_mma_kernelI(13__nv_bfloat16|f)Li(\d)E"
      r"Lb([01])ELb([01])E",
      lambda m: (f"int4 gemv {'bf16' if m.group(1) != 'f' else 'fp32'} x "
@@ -369,7 +428,8 @@ PTXAS_REPORTS = [
 # ----------------------------------------------------------------- timing
 
 
-def time_ms(torch, fn, make_args, reps: int = 7, per_rep: int = 10) -> float:
+def time_ms(torch, fn, make_args, reps: int = 7, per_rep: int = 10,
+            sleep_cycles: int = 200_000_000) -> float:
     """Median over ``reps`` of the mean time of ``per_rep`` back-to-back
     launches, queued behind a device sleep so host enqueue time is not
     measured; ``make_args(i)`` rotates over input copies (cold L2)."""
@@ -379,7 +439,7 @@ def time_ms(torch, fn, make_args, reps: int = 7, per_rep: int = 10) -> float:
     times = []
     for r in range(reps):
         args = [make_args(r * per_rep + i) for i in range(per_rep)]
-        torch.cuda._sleep(200_000_000)      # ~0.1 s: the host enqueues
+        torch.cuda._sleep(sleep_cycles)     # ~0.1 s: the host enqueues
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -389,6 +449,14 @@ def time_ms(torch, fn, make_args, reps: int = 7, per_rep: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / per_rep)
     return statistics.median(times)
+
+
+# the timing of the instance checks beyond the main shapes (the query-head
+# groups and head widths of the other families): fewer repetitions behind
+# a ~10 ms sleep, which still covers the host's enqueue of 10 launches
+QUICK = dict(reps=3, sleep_cycles=20_000_000)
+QUICK_PLAIN = dict(reps=2, per_rep=2, sleep_cycles=20_000_000)
+MAIN_PLAIN = dict(reps=3, per_rep=3)
 
 
 def copies_for(nbytes: int, limit: int = 8) -> int:
@@ -426,37 +494,41 @@ FD_CASES = [
 ]
 
 
-def fd_inputs(torch, g, nb: int, dt, n_copies_limit: int = 4, kv_dt=None):
+def fd_inputs(torch, g, nb: int, dt, n_copies_limit: int = 4, kv_dt=None,
+              shape=(H, HKV, DH)):
     """q, the stacked two-layer pools (in ``kv_dt``, q's dtype by default;
     copies for cold L2), a shuffled page table and side buffers of an
-    nb-slot flash-decode call."""
+    nb-slot flash-decode call at ``shape`` (H, Hkv, Dh)."""
+    h, hkv, dh = shape
     kv_dt = kv_dt or dt
     n_layers, n_per_layer = 2, nb * MP
     perm = torch.randperm(n_per_layer, generator=g, device="cuda")
     table = perm.reshape(nb, MP).to(torch.int32).contiguous()
-    q = torch.randn((nb, H, DH), generator=g, device="cuda").to(dt)
-    pool_shape = (n_layers * n_per_layer, P, HKV * DH)
+    q = torch.randn((nb, h, dh), generator=g, device="cuda").to(dt)
+    pool_shape = (n_layers * n_per_layer, P, hkv * dh)
     item = torch.finfo(kv_dt).bits // 8
-    n_copies = copies_for(2 * n_per_layer * P * HKV * DH * item,
+    n_copies = copies_for(2 * n_per_layer * P * hkv * dh * item,
                           limit=n_copies_limit)
     kps = [torch.randn(pool_shape, generator=g, device="cuda").to(kv_dt)
            for _ in range(n_copies)]
     vps = [torch.randn(pool_shape, generator=g, device="cuda").to(kv_dt)
            for _ in range(n_copies)]
-    sk = torch.randn((nb, W, HKV, DH), generator=g, device="cuda").to(dt)
-    sv = torch.randn((nb, W, HKV, DH), generator=g, device="cuda").to(dt)
+    sk = torch.randn((nb, W, hkv, dh), generator=g, device="cuda").to(dt)
+    sv = torch.randn((nb, W, hkv, dh), generator=g, device="cuda").to(dt)
     return q, kps, vps, table, sk, sv, n_per_layer
 
 
 def fd_sdpa_ms(torch, q, kp, vp, table, prefix, sk, sv, n_side,
-               n_per_layer):
+               n_per_layer, timing=None):
     """Library yardstick: SDPA over the pre-gathered K/V (layer 1's pages
     and the side window) with a length mask (the gather is not timed)."""
     F = torch.nn.functional
+    hkv, dh = sk.shape[2:]
+    timing = timing or {}
     nb = q.shape[0]
     idx = (n_per_layer + table.long())
-    kg = torch.cat([kp[idx].reshape(nb, MP * P, HKV, DH), sk], 1)
-    vg = torch.cat([vp[idx].reshape(nb, MP * P, HKV, DH), sv], 1)
+    kg = torch.cat([kp[idx].reshape(nb, MP * P, hkv, dh), sk], 1)
+    vg = torch.cat([vp[idx].reshape(nb, MP * P, hkv, dh), sv], 1)
     kg = kg.transpose(1, 2).contiguous()
     vg = vg.transpose(1, 2).contiguous()
     pos = torch.arange(MP * P + W, device="cuda")[None, :]
@@ -464,7 +536,7 @@ def fd_sdpa_ms(torch, q, kp, vp, table, prefix, sk, sv, n_side,
             & (pos - MP * P < n_side[:, None])))[:, None, None, :]
     q4 = q[:, :, None, :]
     return time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, kg, vg, attn_mask=mask, enable_gqa=True), lambda i: ())
+        q4, kg, vg, attn_mask=mask, enable_gqa=True), lambda i: (), **timing)
 
 
 def fd_row_rel(torch, out, ref32) -> float:
@@ -477,7 +549,9 @@ def fd_row_rel(torch, out, ref32) -> float:
     return float((row_err[live] / row_ref[live]).max())
 
 
-def check_flash_decode(torch, kv_name=None):
+def check_flash_decode(torch, kv_name=None, shape=(H, HKV, DH),
+                       cases=FD_CASES, dtypes=("bfloat16", "float32"),
+                       quick=False):
     """Kernel 1 at the decode shapes (B 8, and B 1 with one 2,040-key
     slot), held against the plain version: elementwise and
     per row against the plain version on the same values in fp32 (the bf16
@@ -485,28 +559,36 @@ def check_flash_decode(torch, kv_name=None):
     merge; the kernel once); a slot with no key gives exactly 0. With
     ``kv_name`` (e4m3) the pools are e4m3 (the fp8 instances, each checked
     by its launch count), the side window in q's dtype; no single library
-    call takes e4m3 K/V (SDPA needs an upcast first), so no yardstick."""
+    call takes e4m3 K/V (SDPA needs an upcast first), so no yardstick.
+    ``shape`` (H, Hkv, Dh), ``cases``, ``dtypes`` and ``quick`` (the
+    ``QUICK`` timing) serve the other families' instances."""
     from distributed_inference_engine_tpu_torch.ops import _cuda
     from distributed_inference_engine_tpu_torch.ops import flash_decode as fd
+    from distributed_inference_engine_tpu_torch.ops.paged_attention import (
+        subgroup)
 
+    h, hkv, dh = shape
+    gs, n_sub = subgroup(h // hkv)
+    timing, plain_timing = (QUICK, QUICK_PLAIN) if quick else ({}, MAIN_PLAIN)
     rows = []
     g = torch.Generator(device="cuda").manual_seed(1)
     i32 = dict(dtype=torch.int32, device="cuda")
-    for label, prefix_l, n_side_l, _, _ in FD_CASES:
+    for label, prefix_l, n_side_l, _, _ in cases:
         nb = len(prefix_l)
         prefix = torch.tensor(prefix_l, **i32)
         n_side = torch.tensor(n_side_l, **i32)
-        n_split, chunk = fd.flash_decode_split(nb, HKV, P, MP,
-                                               torch.device("cuda", 0))
-        for dtype_name in ("bfloat16", "float32"):
+        n_split, chunk = fd.flash_decode_split(nb, hkv, P, MP,
+                                               torch.device("cuda", 0), n_sub)
+        for dtype_name in dtypes:
             dt = getattr(torch, dtype_name)
             tol = FP8_TOL[dtype_name] if kv_name else TOL[dtype_name]
             q, kps, vps, table, sk, sv, n_per_layer = fd_inputs(
                 torch, g, nb, dt,
-                kv_dt=getattr(torch, kv_name) if kv_name else None)
+                kv_dt=getattr(torch, kv_name) if kv_name else None,
+                shape=shape)
             n_copies = len(kps)
             args = (q, kps[0], vps[0], table, prefix, sk, sv, n_side)
-            kw = dict(n_kv_heads=HKV, layer=1, n_pages_per_layer=n_per_layer)
+            kw = dict(n_kv_heads=hkv, layer=1, n_pages_per_layer=n_per_layer)
             ref = fd.flash_decode_attention_plain(*args, **kw)
             ref32 = fd.flash_decode_attention_plain(
                 *(t.float() if t.is_floating_point() else t for t in args),
@@ -519,18 +601,18 @@ def check_flash_decode(torch, kv_name=None):
 
             t_p = time_ms(torch,
                           lambda *a: fd.flash_decode_attention_plain(*a, **kw),
-                          mk, reps=3, per_rep=3)
+                          mk, **plain_timing)
             t_l = None if kv_name else fd_sdpa_ms(
                 torch, q, kps[0], vps[0], table, prefix, sk, sv, n_side,
-                n_per_layer)
+                n_per_layer, timing)
             keys = int(prefix.sum()) + int(n_side.sum())
             item = torch.finfo(dt).bits // 8
             kv_item = torch.finfo(kps[0].dtype).bits // 8
             # the prefix K/V at the pools' width; side K/V, q and out at q's
-            nbytes = 2 * int(prefix.sum()) * HKV * DH * kv_item + \
-                (2 * int(n_side.sum()) * HKV * DH + 2 * nb * H * DH) * item \
+            nbytes = 2 * int(prefix.sum()) * hkv * dh * kv_item + \
+                (2 * int(n_side.sum()) * hkv * dh + 2 * nb * h * dh) * item \
                 + (table.numel() + 2 * nb) * 4
-            b_ms, b_by = bound_ms(nbytes, 4.0 * keys * H * DH, dtype_name)
+            b_ms, b_by = bound_ms(nbytes, 4.0 * keys * h * dh, dtype_name)
             before = _cuda.LAUNCHES["flash_decode.fp8"]
             out = fd.flash_decode_attention(*args, **kw)
             torch.cuda.synchronize()
@@ -545,59 +627,71 @@ def check_flash_decode(torch, kv_name=None):
             assert float(out[empty].abs().max() if empty.any()
                          else 0) == 0.0, "flash_decode: empty row"
             assert int((ref32.abs().amax(-1) > 0).sum()) == \
-                int((~empty).sum()) * H, "flash_decode: zero rows"
+                int((~empty).sum()) * h, "flash_decode: zero rows"
             t_k = time_ms(torch,
-                          lambda *a: fd.flash_decode_attention(*a, **kw), mk)
+                          lambda *a: fd.flash_decode_attention(*a, **kw), mk,
+                          **timing)
             rows.append(dict(
                 dtype=dtype_name, err=err, ok=ok, ms=t_k, plain_ms=t_p,
                 library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
                 row_rel=row_rel, n_split=n_split, chunk=chunk, tol=tol,
-                note=f"{n_split} runs of {chunk}",
-                shape=f"{label} H{H} Hkv{HKV} Dh{DH} "
+                note=f"{n_split} runs of {chunk}"
+                + (f"; {n_sub} sub-group(s) of {gs} rows a KV head"
+                   if gs * n_sub != h // hkv or n_sub > 1 else ""),
+                shape=f"{label} H{h} Hkv{hkv} Dh{dh} "
                 f"P{P} MP{MP} W{W} keys{keys}"
                 f"{' e4m3 pools' if kv_name else ''}"))
     return rows
 
 
-def check_flash_decode_fw(torch, kv_name=None):
+def check_flash_decode_fw(torch, kv_name=None, shape=(H, HKV, DH),
+                          cases=FD_CASES, dtypes=("bfloat16", "float32"),
+                          quick=False):
     """The writeback variant at kernel 1's cases: some slots inactive,
     slot 3 of B 8 active at side_idx = W (the fresh row is dropped there,
     as in the plain version); output and the side buffers after the
     write, bit-equal to the plain version's. With ``kv_name`` (e4m3) the
     pools are e4m3 (the fp8 instances) and slot 1's fresh row is scaled
     past 464: the side window, in q's dtype, takes its bytes as they
-    are."""
+    are. ``shape``, ``cases``, ``dtypes``, ``quick``: as
+    ``check_flash_decode``."""
     from distributed_inference_engine_tpu_torch.ops import _cuda
     from distributed_inference_engine_tpu_torch.ops import flash_decode as fd
+    from distributed_inference_engine_tpu_torch.ops.paged_attention import (
+        subgroup)
 
+    h, hkv, dh = shape
+    gs, n_sub = subgroup(h // hkv)
+    timing, plain_timing = (QUICK, QUICK_PLAIN) if quick else ({}, MAIN_PLAIN)
     rows = []
     g = torch.Generator(device="cuda").manual_seed(5)
     i32 = dict(dtype=torch.int32, device="cuda")
-    for label, prefix_l, _, side_idx_l, active_l in FD_CASES:
+    for label, prefix_l, _, side_idx_l, active_l in cases:
         nb = len(prefix_l)
         prefix = torch.tensor(prefix_l, **i32)
         side_idx = torch.tensor(side_idx_l, **i32)
         active = torch.tensor(active_l, **i32)
-        n_split, chunk = fd.flash_decode_split(nb, HKV, P, MP,
-                                               torch.device("cuda", 0))
+        n_split, chunk = fd.flash_decode_split(nb, hkv, P, MP,
+                                               torch.device("cuda", 0), n_sub)
         # side entries read, the fresh rows attended (and written)
         n_read = torch.clamp(side_idx, max=W)
         wrote = (active > 0) & (side_idx < W)
-        for dtype_name in ("bfloat16", "float32"):
+        for dtype_name in dtypes:
             dt = getattr(torch, dtype_name)
             tol = FP8_TOL[dtype_name] if kv_name else TOL[dtype_name]
             q, kps, vps, table, sk, sv, n_per_layer = fd_inputs(
                 torch, g, nb, dt,
-                kv_dt=getattr(torch, kv_name) if kv_name else None)
+                kv_dt=getattr(torch, kv_name) if kv_name else None,
+                shape=shape)
             n_copies = len(kps)
-            fk = torch.randn((nb, 1, HKV, DH), generator=g,
+            fk = torch.randn((nb, 1, hkv, dh), generator=g,
                              device="cuda").to(dt)
-            fv = torch.randn((nb, 1, HKV, DH), generator=g,
+            fv = torch.randn((nb, 1, hkv, dh), generator=g,
                              device="cuda").to(dt)
             if kv_name and nb > 1:
                 fk[1] *= 600.0
                 fv[1] *= 600.0
-            kw = dict(n_kv_heads=HKV, layer=1, n_pages_per_layer=n_per_layer)
+            kw = dict(n_kv_heads=hkv, layer=1, n_pages_per_layer=n_per_layer)
             sk_p, sv_p = sk.clone(), sv.clone()
             ref, _, _ = fd.flash_decode_attention_fw_plain(
                 q, kps[0], vps[0], table, prefix, sk_p, sv_p, fk, fv,
@@ -617,22 +711,22 @@ def check_flash_decode_fw(torch, kv_name=None):
             t_p = time_ms(
                 torch,
                 lambda *a: fd.flash_decode_attention_fw_plain(*a, **kw), mk,
-                reps=3, per_rep=3)
+                **plain_timing)
             # library yardstick: kernel 1's SDPA over the pre-gathered
             # prefix and the side window after the write
             t_l = None if kv_name else fd_sdpa_ms(
                 torch, q, kps[0], vps[0], table, prefix, sk_p, sv_p,
-                torch.clamp(side_idx + active, max=W), n_per_layer)
+                torch.clamp(side_idx + active, max=W), n_per_layer, timing)
             n_fresh = int(wrote.sum())
             keys = int(prefix.sum()) + int(n_read.sum()) + n_fresh
             item = torch.finfo(dt).bits // 8
             kv_item = torch.finfo(kps[0].dtype).bits // 8
             # K/V of every key read once (the prefix at the pools' width),
             # the fresh rows written once, q, out
-            nbytes = 2 * int(prefix.sum()) * HKV * DH * kv_item + (
-                2 * (int(n_read.sum()) + 2 * n_fresh) * HKV * DH
-                + 2 * nb * H * DH) * item + (table.numel() + 3 * nb) * 4
-            b_ms, b_by = bound_ms(nbytes, 4.0 * keys * H * DH, dtype_name)
+            nbytes = 2 * int(prefix.sum()) * hkv * dh * kv_item + (
+                2 * (int(n_read.sum()) + 2 * n_fresh) * hkv * dh
+                + 2 * nb * h * dh) * item + (table.numel() + 3 * nb) * 4
+            b_ms, b_by = bound_ms(nbytes, 4.0 * keys * h * dh, dtype_name)
             sk_k, sv_k = sk.clone(), sv.clone()
             before = _cuda.LAUNCHES["flash_decode_fw.fp8"]
             out, _, _ = fd.flash_decode_attention_fw(
@@ -650,14 +744,17 @@ def check_flash_decode_fw(torch, kv_name=None):
                   and row_rel <= ROW_REL_TOL[dtype_name])
             assert torch.isfinite(out).all(), "flash_decode_fw: non-finite"
             t_k = time_ms(
-                torch, lambda *a: fd.flash_decode_attention_fw(*a, **kw), mk)
+                torch, lambda *a: fd.flash_decode_attention_fw(*a, **kw), mk,
+                **timing)
             rows.append(dict(
                 dtype=dtype_name, err=err, ok=ok, ms=t_k, plain_ms=t_p,
                 library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
                 row_rel=row_rel, n_split=n_split, chunk=chunk, tol=tol,
                 note=f"{n_split} runs of {chunk}"
-                f"{'; side rows byte-equal' if sides_equal else ''}",
-                shape=f"{label} H{H} Hkv{HKV} Dh{DH} "
+                f"{'; side rows byte-equal' if sides_equal else ''}"
+                + (f"; {n_sub} sub-group(s) of {gs} rows a KV head"
+                   if gs * n_sub != h // hkv or n_sub > 1 else ""),
+                shape=f"{label} H{h} Hkv{hkv} Dh{dh} "
                 f"P{P} MP{MP} W{W} keys{keys}"
                 f"{' e4m3 pools' if kv_name else ''}"))
     return rows
@@ -671,7 +768,8 @@ RAGGED_ROWS = [(0, 0), (1, 1), (127, 1), (128, 1), (383, 1), (640, 1),
 MP_RAGGED = 8
 
 
-def check_ragged(torch, kv_name=None):
+def check_ragged(torch, kv_name=None, shape=(H, HKV, DH),
+                 dtypes=("bfloat16", "float32"), quick=False):
     """Ragged attention at full width against its plain version: outputs
     (and, in bf16, each (row, query, head) vector against the plain version
     on the same values in fp32) and the pools after the writeback. bf16
@@ -681,13 +779,16 @@ def check_ragged(torch, kv_name=None):
     the fresh K/V as the kernel does; then a second call with the fresh
     K/V scaled past 464 must leave the pools byte-equal to the plain
     version's (NaN bytes, JAX's cast). No single library call takes e4m3
-    K/V, so no yardstick."""
+    K/V, so no yardstick. ``shape``, ``dtypes``, ``quick``: as
+    ``check_flash_decode``."""
     from distributed_inference_engine_tpu_torch.ops import _cuda
     from distributed_inference_engine_tpu_torch.ops import (
         ragged_attention as ra)
     from distributed_inference_engine_tpu_torch.ops.attention import raw_view
 
     F = torch.nn.functional
+    h, hkv, dh = shape
+    timing, plain_timing = (QUICK, QUICK_PLAIN) if quick else ({}, MAIN_PLAIN)
     rows = []
     g = torch.Generator(device="cuda").manual_seed(6)
     r = len(RAGGED_ROWS)
@@ -703,25 +804,25 @@ def check_ragged(torch, kv_name=None):
     valid = (torch.arange(qmax, device="cuda")[None, :] < ql[:, None])
     ctx_keys = sum(c for c, q in RAGGED_ROWS if q)
     n_q = sum(q for _, q in RAGGED_ROWS)
-    flops = 4.0 * H * DH * sum(q * (c + (q + 1) / 2) for c, q in RAGGED_ROWS)
-    for dtype_name in ("bfloat16", "float32"):
+    flops = 4.0 * h * dh * sum(q * (c + (q + 1) / 2) for c, q in RAGGED_ROWS)
+    for dtype_name in dtypes:
         dt = getattr(torch, dtype_name)
         kv_dt = getattr(torch, kv_name) if kv_name else dt
         tol = FP8_TOL[dtype_name] if kv_name else TOL[dtype_name]
         item = torch.finfo(dt).bits // 8
         kv_item = torch.finfo(kv_dt).bits // 8
-        q = torch.randn((r, qmax, H, DH), generator=g, device="cuda").to(dt)
-        fk = torch.randn((r, qmax, HKV, DH), generator=g,
+        q = torch.randn((r, qmax, h, dh), generator=g, device="cuda").to(dt)
+        fk = torch.randn((r, qmax, hkv, dh), generator=g,
                          device="cuda").to(dt)
-        fv = torch.randn((r, qmax, HKV, DH), generator=g,
+        fv = torch.randn((r, qmax, hkv, dh), generator=g,
                          device="cuda").to(dt)
-        pool_shape = (n_layers * n, P, HKV * DH)
-        n_copies = copies_for(2 * n * P * HKV * DH * kv_item, limit=4)
+        pool_shape = (n_layers * n, P, hkv * dh)
+        n_copies = copies_for(2 * n * P * hkv * dh * kv_item, limit=4)
         kps = [torch.randn(pool_shape, generator=g, device="cuda").to(kv_dt)
                for _ in range(n_copies)]
         vps = [torch.randn(pool_shape, generator=g, device="cuda").to(kv_dt)
                for _ in range(n_copies)]
-        kw = dict(n_kv_heads=HKV, layer=1, n_pages_per_layer=n)
+        kw = dict(n_kv_heads=hkv, layer=1, n_pages_per_layer=n)
         kp_p, vp_p = kps[0].clone(), vps[0].clone()
         # fp32 reference pools: e4m3 ones stay e4m3 (the fresh K/V rounds
         # into them as in the kernel)
@@ -779,9 +880,10 @@ def check_ragged(torch, kv_name=None):
             j = i % n_copies
             return (q, kps[j], vps[j], table, ctx, ql, fk, fv)
 
-        t_k = time_ms(torch, lambda *a: ra.ragged_attention(*a, **kw), mk)
+        t_k = time_ms(torch, lambda *a: ra.ragged_attention(*a, **kw), mk,
+                      **timing)
         t_p = time_ms(torch, lambda *a: ra.ragged_attention_plain(*a, **kw),
-                      mk, reps=3, per_rep=3)
+                      mk, **plain_timing)
         t_l = None
         if not kv_name:
             # library yardstick: SDPA with a boolean mask over the
@@ -789,8 +891,8 @@ def check_ragged(torch, kv_name=None):
             # padding queries see key 0, so no row is fully masked)
             s_ctx = MP_RAGGED * P
             idx = (n + table.long())
-            kg = torch.cat([kps[0][idx].reshape(r, s_ctx, HKV, DH), fk], 1)
-            vg = torch.cat([vps[0][idx].reshape(r, s_ctx, HKV, DH), fv], 1)
+            kg = torch.cat([kps[0][idx].reshape(r, s_ctx, hkv, dh), fk], 1)
+            vg = torch.cat([vps[0][idx].reshape(r, s_ctx, hkv, dh), fv], 1)
             kg = kg.transpose(1, 2).contiguous()
             vg = vg.transpose(1, 2).contiguous()
             pos = torch.arange(s_ctx + qmax, device="cuda")[None, None, :]
@@ -802,24 +904,30 @@ def check_ragged(torch, kv_name=None):
             q4 = q.transpose(1, 2).contiguous()
             t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q4, kg, vg, attn_mask=mask[:, None], enable_gqa=True),
-                lambda i: ())
+                lambda i: (), **timing)
         # valid work only: context K/V below ctx_len (at the pools' width),
         # the fresh K/V read (q's width) and written (the pools'), the
         # valid queries and their outputs
-        nbytes = (2 * ctx_keys + 2 * n_q) * HKV * DH * kv_item + (
-            2 * n_q * HKV * DH + 2 * n_q * H * DH) * item + \
+        nbytes = (2 * ctx_keys + 2 * n_q) * hkv * dh * kv_item + (
+            2 * n_q * hkv * dh + 2 * n_q * h * dh) * item + \
             (table.numel() + 2 * r) * 4
         b_ms, b_by = bound_ms(nbytes, flops, dtype_name)
+        tq = ra.ragged_plan(r, qmax, h, hkv, inst, 132)[0]
+        if (tq * (h // hkv)) % ra.ROWS_PER_BLOCK[inst]:
+            note += (f"; {tq} queries a tile, {tq * (h // hkv)} of "
+                     f"{ra.ROWS_PER_BLOCK[inst]} rows live")
         rows.append(dict(dtype=dtype_name, err=err, ok=ok, ms=t_k,
                          plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                          bound_by=b_by, row_rel=row_rel, note=note, tol=tol,
-                         shape=f"R{r} Qmax{qmax} H{H} Hkv{HKV} Dh{DH} P{P} "
+                         shape=f"R{r} Qmax{qmax} H{h} Hkv{hkv} Dh{dh} P{P} "
                          f"MP{MP_RAGGED} q{n_q} ctx{ctx_keys}"
                          f"{' e4m3 pools' if kv_name else ''}"))
     return rows
 
 
-def check_paged(torch, kv_name=None):
+def check_paged(torch, kv_name=None, shape=(H, HKV, DH),
+                dtypes=("bfloat16", "float32"), quick=False,
+                windows=(0, MISTRAL_WINDOW), layers=PAGED_LAYERS):
     """Paged attention at the Mistral decode shapes against its plain
     version: windows 0 and 4096, on one layer's pool and on the stacked
     pool (layer 5 of 32, with the flash stats), bf16 and fp32, then the
@@ -830,12 +938,19 @@ def check_paged(torch, kv_name=None):
     the stacked pool, rotating over its 32 layers (cold L2); the library
     yardstick is SDPA over the pre-gathered pages with the window mask.
     With ``kv_name`` (e4m3) the pools are e4m3 (the fp8 instance, checked
-    by its launch count; no yardstick: SDPA needs an upcast first)."""
+    by its launch count; no yardstick: SDPA needs an upcast first).
+    ``quick`` (the other families' instances at ``shape``): the stacked
+    pool of ``layers`` layers only, at ``windows``, the ``QUICK``
+    timing, no lone slot."""
     from distributed_inference_engine_tpu_torch.ops import _cuda
     from distributed_inference_engine_tpu_torch.ops import paged_attention \
         as pa
 
     F = torch.nn.functional
+    h, hkv, dh = shape
+    gs, n_sub = pa.subgroup(h // hkv)
+    timing, plain_timing = (QUICK, QUICK_PLAIN) if quick else ({}, MAIN_PLAIN)
+    at = min(PAGED_LAYER, layers - 1)        # the stacked pool's layer
     rows = []
     g = torch.Generator(device="cuda").manual_seed(8)
     n = B * MP_PAGED
@@ -850,12 +965,12 @@ def check_paged(torch, kv_name=None):
         tol = FP8_TOL[dtype_name] if kv_name else TOL[dtype_name]
         b = len(lens_list)
         lens = torch.tensor(lens_list, **i32)
-        lo = PAGED_LAYER * n
+        lo = at * n
         one_pool = (kp[lo:lo + n], vp[lo:lo + n])
         pools = (kp, vp) if stacked else one_pool
-        kw = dict(n_kv_heads=HKV, window=window, with_stats=stacked)
+        kw = dict(n_kv_heads=hkv, window=window, with_stats=stacked)
         if stacked:
-            kw.update(layer=PAGED_LAYER, n_pages_per_layer=n)
+            kw.update(layer=at, n_pages_per_layer=n)
         before = _cuda.LAUNCHES["paged_attention.fp8"]
         got = pa.paged_attention(q, *pools, table, lens, **kw)
         torch.cuda.synchronize()
@@ -879,7 +994,7 @@ def check_paged(torch, kv_name=None):
         for i in empty:
             assert float(out[i].abs().max()) == 0.0, \
                 "paged_attention: empty slot not zero"
-        assert int(live.sum()) == (b - len(empty)) * H, \
+        assert int(live.sum()) == (b - len(empty)) * h, \
             "paged_attention: rows"
         stats_rel = None
         if stacked:
@@ -900,64 +1015,69 @@ def check_paged(torch, kv_name=None):
             vis = pos < lens[:, None]
 
         def call(fn, i):
-            # the stacked pool rotates over its 32 layers (cold L2)
-            kwi = dict(kw, layer=i % PAGED_LAYERS) if stacked else kw
+            # the stacked pool rotates over its layers (cold L2)
+            kwi = dict(kw, layer=i % layers) if stacked else kw
             return fn(q, *pools, table, lens, **kwi)
 
         t_k = time_ms(torch, lambda i: call(pa.paged_attention, i),
-                      lambda i: (i,))
+                      lambda i: (i,), **timing)
         t_p = time_ms(torch, lambda i: call(pa.paged_attention_xla, i),
-                      lambda i: (i,), reps=3, per_rep=3)
+                      lambda i: (i,), **plain_timing)
         t_l = None
         if not kv_name:
             idx = lo + table.long()
-            kg = kp[idx].reshape(b, MP_PAGED * P, HKV, DH).transpose(
+            kg = kp[idx].reshape(b, MP_PAGED * P, hkv, dh).transpose(
                 1, 2).contiguous()
-            vg = vp[idx].reshape(b, MP_PAGED * P, HKV, DH).transpose(
+            vg = vp[idx].reshape(b, MP_PAGED * P, hkv, dh).transpose(
                 1, 2).contiguous()
             q4 = q[:, :, None, :]
             mask = vis[:, None, None, :]
             t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q4, kg, vg, attn_mask=mask, enable_gqa=True), lambda i: ())
+                q4, kg, vg, attn_mask=mask, enable_gqa=True), lambda i: (),
+                **timing)
             del kg, vg
         # the live window's K/V read once (at the pools' width), q and out
         # (and the stats), the table and lengths
-        nbytes = 2 * keys * HKV * DH * kv_item + 2 * b * H * DH * item + \
-            (table.numel() + b) * 4 + (8 * b * H if stacked else 0)
-        b_ms, b_by = bound_ms(nbytes, 4.0 * keys * H * DH, dtype_name)
+        nbytes = 2 * keys * hkv * dh * kv_item + 2 * b * h * dh * item + \
+            (table.numel() + b) * 4 + (8 * b * h if stacked else 0)
+        b_ms, b_by = bound_ms(nbytes, 4.0 * keys * h * dh, dtype_name)
         row = dict(dtype=dtype_name, err=err, ok=ok, ms=t_k, plain_ms=t_p,
                    library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
                    row_rel=row_rel, window=window, stacked=stacked, tol=tol,
-                   shape=f"B{b} H{H} Hkv{HKV} Dh{DH} P{P} MP{MP_PAGED} "
-                   f"win{window} {'L5/32+stats' if stacked else 'layer'} "
+                   shape=f"B{b} H{h} Hkv{hkv} Dh{dh} P{P} MP{MP_PAGED} "
+                   f"win{window} "
+                   f"{f'L{at}/{layers}+stats' if stacked else 'layer'} "
                    f"keys{keys}{' e4m3 pools' if kv_name else ''}")
+        if gs * n_sub != h // hkv or n_sub > 1:
+            row["note"] = f"{n_sub} sub-group(s) of {gs} rows a KV head"
         if stats_rel is not None:
             row["stats_rel"] = stats_rel
         return row
 
-    for dtype_name in ("bfloat16", "float32"):
+    for dtype_name in dtypes:
         dt = getattr(torch, dtype_name)
-        shape = (PAGED_LAYERS * n, P, HKV * DH)
+        pool_shape = (layers * n, P, hkv * dh)
         if kv_name:
             kv_dt = getattr(torch, kv_name)
-            kp = torch.randn(shape, generator=g, device="cuda").to(kv_dt)
-            vp = torch.randn(shape, generator=g, device="cuda").to(kv_dt)
+            kp = torch.randn(pool_shape, generator=g, device="cuda").to(kv_dt)
+            vp = torch.randn(pool_shape, generator=g, device="cuda").to(kv_dt)
         else:
-            kp = torch.randn(shape, generator=g, device="cuda", dtype=dt)
-            vp = torch.randn(shape, generator=g, device="cuda", dtype=dt)
-        q = torch.randn((B, H, DH), generator=g, device="cuda", dtype=dt)
-        for window in (0, MISTRAL_WINDOW):
-            for stacked in (False, True):
+            kp = torch.randn(pool_shape, generator=g, device="cuda", dtype=dt)
+            vp = torch.randn(pool_shape, generator=g, device="cuda", dtype=dt)
+        q = torch.randn((B, h, dh), generator=g, device="cuda", dtype=dt)
+        for window in windows:
+            for stacked in ((True,) if quick else (False, True)):
                 rows.append(one(dtype_name, q, kp, vp, table_all,
                                 PAGED_LENS, window, stacked))
-        if dtype_name == "bfloat16":
+        if dtype_name == "bfloat16" and not quick:
             b1 = PAGED_LENS.index(max(PAGED_LENS))
             long_row = one(dtype_name, q[b1:b1 + 1].contiguous(), kp, vp,
                            table_all[b1:b1 + 1].contiguous(),
                            [PAGED_LENS[b1]], MISTRAL_WINDOW, True)
         del kp, vp
         torch.cuda.empty_cache()
-    rows.append(long_row)
+    if not quick:
+        rows.append(long_row)
     return rows
 
 
@@ -1171,6 +1291,38 @@ def profile_int4_tiles(torch, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def family_kernel_rows(torch):
+    """The other families' attention instances against their plain
+    versions (``GROUP_SHAPES``, ``RAGGED_GROUPS``, ``GEMMA_SHAPES``): the
+    B8 case, bf16 and fp32 and e4m3 pools (bf16 q), at the quick timing;
+    rows by ``<kernel>.g<G>`` and ``paged_attention.dh256``."""
+    results = {}
+    b8 = FD_CASES[:1]
+    for g, shape in GROUP_SHAPES.items():
+        for name, check, kw in (
+                ("flash_decode", check_flash_decode, dict(cases=b8)),
+                ("flash_decode_fw", check_flash_decode_fw, dict(cases=b8)),
+                ("paged_attention", check_paged, dict(
+                    windows=(MISTRAL_WINDOW,),
+                    layers=FAMILY_PAGED_LAYERS)),
+                ("ragged_attention", check_ragged, {})):
+            if name == "ragged_attention" and g not in RAGGED_GROUPS:
+                continue
+            results[f"{name}.g{g}"] = (
+                check(torch, shape=shape, quick=True, **kw)
+                + check(torch, FP8, shape=shape, dtypes=("bfloat16",),
+                        quick=True, **kw))
+            torch.cuda.empty_cache()
+    results["paged_attention.dh256"] = [
+        row for shape in GEMMA_SHAPES for row in (
+            check_paged(torch, shape=shape, quick=True,
+                        layers=FAMILY_PAGED_LAYERS)
+            + check_paged(torch, FP8, shape=shape, dtypes=("bfloat16",),
+                          quick=True, layers=FAMILY_PAGED_LAYERS))]
+    torch.cuda.empty_cache()
+    return results
+
+
 def phase_kernels(torch, card: str):
     results = {
         "flash_decode": check_flash_decode(torch),
@@ -1186,6 +1338,7 @@ def phase_kernels(torch, card: str):
         "ragged_attention.fp8": check_ragged(torch, FP8),
         "paged_attention.fp8": check_paged(torch, FP8),
     }
+    results.update(family_kernel_rows(torch))
     bad = []
     for name, rows in results.items():
         for r in rows:
@@ -2517,9 +2670,10 @@ def plain_kernels():
             setattr(mb, k, v)
 
 
-def fp8_decode_logits(torch, spec, params, prompt, cont, path: str):
-    """fp32 logits [len(cont) + 1, V] of one decode path over e4m3 pools,
-    teacher-forced: the prompt prefilled into the pages
+def decode_logits(torch, spec, params, prompt, cont, path: str,
+                  kv_dtype: str = FP8):
+    """fp32 logits [len(cont) + 1, V] of one decode path over pools of
+    ``kv_dtype`` (e4m3 by default, else the spec's dtype), teacher-forced: the prompt prefilled into the pages
     (``forward_prefill_into_pages``, which attends to its fresh keys
     unrounded: the same bytes land whatever the attention kernels), then
     one step per token of ``cont`` through ``forward_decode_window``
@@ -2535,11 +2689,12 @@ def fp8_decode_logits(torch, spec, params, prompt, cont, path: str):
     L, fusedw = spec.n_layers, spec.n_kv_heads * spec.head_dim
     n_pages = -(-len(seq) // P)
     i32 = dict(dtype=torch.int32, device="cuda")
+    kv = getattr(torch, kv_dtype) if kv_dtype == FP8 else spec.torch_dtype
     with torch.no_grad():
-        kp = torch.zeros((L, n_pages, P, fusedw), dtype=torch.uint8,
-                         device="cuda").view(torch.float8_e4m3fn)
-        vp = torch.zeros((L, n_pages, P, fusedw), dtype=torch.uint8,
-                         device="cuda").view(torch.float8_e4m3fn)
+        # zero bytes viewed in the pool dtype (no e4m3 fill kernel)
+        kp = torch.zeros((L, n_pages, P, fusedw * kv.itemsize),
+                         dtype=torch.uint8, device="cuda").view(kv)
+        vp = torch.zeros_like(kp)
         table = np.arange(n_pages, dtype=np.int32)[None]
         tab = torch.tensor(table, device="cuda")
         h, _, _ = mb.forward_prefill_into_pages(
@@ -2576,14 +2731,17 @@ def fp8_decode_logits(torch, spec, params, prompt, cont, path: str):
     return torch.stack(logits)
 
 
-def fp8_kernel_vs_plain(torch, card: str, spec32, params, prompt, cont,
-                        paths, tag: str):
-    """Each decode path over e4m3 pools in fp32, through the kernels and
-    through their plain versions (``plain_kernels``): the logits within
-    ``FP32_LOGIT_TOL`` of each other, the plain run launching no kernel,
-    the kernel run launching each path's fp8 instance; the gap to the
-    unrounded ``forward_train`` printed beside (the e4m3 rounding itself,
-    not held)."""
+def kernel_vs_plain(torch, card: str, spec32, params, prompt, cont, paths,
+                    tag: str, kv_dtype: str = FP8):
+    """Each decode path over ``kv_dtype`` pools (e4m3, or the spec's fp32)
+    in fp32, through the kernels and through their plain versions
+    (``plain_kernels``): the logits within ``FP32_LOGIT_TOL`` of each
+    other, the plain run launching no kernel, the kernel run launching
+    each path's kernel (its fp8 instance over e4m3 pools); the gap to the
+    unrounded ``forward_train`` printed beside (over e4m3 pools the
+    rounding itself, not held; over fp32 pools held to
+    ``FP32_LOGIT_TOL``). Returns the kernel runs' launch counts by
+    path."""
     import numpy as np
     from distributed_inference_engine_tpu_torch.models import base as mb
     from distributed_inference_engine_tpu_torch.ops import _cuda
@@ -2593,28 +2751,37 @@ def fp8_kernel_vs_plain(torch, card: str, spec32, params, prompt, cont,
         ref = mb.forward_train(spec32, params, torch.tensor(
             [seq], device="cuda"), np.array([len(seq)], np.int32))[0]
     ref = ref[len(prompt) - 1:]
-    want = {"pallas-decode": "flash_decode.fp8",
-            "pallas-decode-fw": "flash_decode_fw.fp8",
-            "inline": "paged_attention.fp8",
-            "ragged": "ragged_attention.fp8"}
+    fp8 = kv_dtype == FP8
+    want = {"pallas-decode": "flash_decode",
+            "pallas-decode-fw": "flash_decode_fw",
+            "inline": "paged_attention",
+            "ragged": "ragged_attention"}
+    by_path = {}
     for path in paths:
         _cuda.reset_launch_counts()
-        got = fp8_decode_logits(torch, spec32, params, prompt, cont, path)
-        launches = _cuda.launch_counts()
-        assert launches.get(want[path], 0) > 0, (path, launches)
+        got = decode_logits(torch, spec32, params, prompt, cont, path,
+                            kv_dtype)
+        launches = by_path[path] = _cuda.launch_counts()
+        assert launches.get(want[path] + (".fp8" if fp8 else ""), 0) > 0, \
+            (path, launches)
         with plain_kernels():
             _cuda.reset_launch_counts()
-            plain = fp8_decode_logits(torch, spec32, params, prompt, cont,
-                                      path)
+            plain = decode_logits(torch, spec32, params, prompt, cont, path,
+                                  kv_dtype)
             assert not _cuda.launch_counts(), _cuda.launch_counts()
         gap = float((got - plain).abs().max())
         drift = float((got - ref).abs().max())
-        log(f"[fp8] fp32 {tag} {path}, e4m3 pools, {spec32.n_layers} layers:"
+        log(f"[{'fp8' if fp8 else 'families'}] fp32 {tag} {path}, "
+            f"{'e4m3' if fp8 else 'fp32'} pools, {spec32.n_layers} layers:"
             f" kernels-vs-plain max|logit gap| {gap:.3e} over {len(got)} "
-            f"steps (limit {FP32_LOGIT_TOL}); vs the unrounded forward_train "
-            f"{drift:.3e} (the e4m3 rounding, not held); launches "
-            f"{launches} [{card}]")
+            f"steps (limit {FP32_LOGIT_TOL}); vs "
+            + (f"the unrounded forward_train {drift:.3e} (the e4m3 "
+               f"rounding, not held)" if fp8 else
+               f"forward_train {drift:.3e} (limit {FP32_LOGIT_TOL})")
+            + f"; launches {launches} [{card}]")
         assert gap <= FP32_LOGIT_TOL, (tag, path, gap)
+        assert fp8 or drift <= FP32_LOGIT_TOL, (tag, path, drift)
+    return by_path
 
 
 def phase_fp8_inproc(torch, card: str):
@@ -2666,7 +2833,7 @@ def phase_fp8_inproc(torch, card: str):
     rs = np.random.RandomState(17)
     spec32 = spec.replace(dtype="float32", n_layers=FP32_LAYERS)
     params = init_params(spec32, gen.manual_seed(0))
-    fp8_kernel_vs_plain(
+    kernel_vs_plain(
         torch, card, spec32, params, mixed_prompts()[0][7],
         rs.randint(1, spec32.vocab_size, size=16).tolist(),
         ("pallas-decode", "pallas-decode-fw", "ragged", "inline"),
@@ -2675,13 +2842,166 @@ def phase_fp8_inproc(torch, card: str):
     torch.cuda.empty_cache()
     mspec32 = mspec.replace(dtype="float32", n_layers=FP32_LAYERS)
     params = init_params(mspec32, gen.manual_seed(0))
-    fp8_kernel_vs_plain(
+    kernel_vs_plain(
         torch, card, mspec32, params, m_wave[4],
         rs.randint(1, MISTRAL_VOCAB, size=16).tolist(), ("inline",),
         "mistral-7b past the window")
     del params
     torch.cuda.empty_cache()
     return fw_launch, m_launch
+
+
+# ------------------------------------------------------ A9 the families
+
+
+def family_waves(name: str):
+    """The prompts a family's worker serves: Qwen2-7B the mixed phase's
+    two waves, Gemma-7B and GPT-2 the serve wave (every prompt and its 32
+    new tokens inside GPT-2's 1,024 positions), token ids folded into the
+    family's vocab."""
+    vocab = FAMILIES[name][4]
+    waves = list(mixed_prompts()) if name == "qwen2-7b" else [
+        serve_prompts()]
+    return [[[t % vocab for t in p] for p in wave] for wave in waves]
+
+
+def phase_family(torch, card: str, name: str):
+    """One family at full published width and depth through the worker
+    CLI (random bf16 weights from seed 0, ``warmup=1``): its waves served
+    (none captures a graph), every result 32 tokens in the vocab. Qwen2-7B
+    (mixed settings): one ragged launch per layer per mixed step, all on
+    the tensor cores, at G 7 (one sub-group of 8 rows, one dead), and
+    flash-decode at G 7 on the pure-decode steps. Gemma-7B and GPT-2
+    (serve's settings): one flash-decode launch per layer per decode step
+    (Gemma at head_dim 256; GPT-2 on the unfused chain), no other
+    attention kernel. Prints the served tok/s and TTFT p50."""
+    model, _arch, _size, layers, vocab = FAMILIES[name]
+    waves = family_waves(name)
+    out = run_worker(model, waves)
+    results, wall, launches, eng = (out["results"], out["wall"],
+                                    out["launches"], out["eng"])
+    for i, (res, prompts) in enumerate(zip(results, waves)):
+        check_results(res, prompts, f"{name} wave {i + 1}", vocab)
+    steps = eng["decode_steps"]
+    if name == "qwen2-7b":
+        assert eng["mixed_steps"] > 0 and eng["chunked_admissions"] > 0, eng
+        assert launches.get("ragged_attention") == layers * eng[
+            "mixed_steps"] == launches.get("ragged_attention.mma"), \
+            (launches, eng["mixed_steps"])
+        assert launches.get("flash_decode", 0) > 0, launches
+        paths = (f"ragged (G 7) {launches['ragged_attention']} launches "
+                 f"over {eng['mixed_steps']} mixed steps carrying "
+                 f"{eng['mixed_prefill_tokens']} prefill tokens, "
+                 f"flash-decode (G 7) {launches['flash_decode']}")
+    else:
+        assert steps > 0 and launches.get("flash_decode") == \
+            layers * steps, (launches, steps)
+        for k in ("ragged_attention", "paged_attention", "flash_decode_fw",
+                  "norm_matmul", "matmul_residual"):
+            assert not launches.get(k), f"{name}: {k} launched: {launches}"
+        paths = (f"flash-decode {launches['flash_decode']} launches over "
+                 f"{steps} decode steps")
+    assert eng["prefix_hit_admissions"] >= 1, eng["prefix_hit_admissions"]
+    every = [r for rs in results for r in rs]
+    log(f"[{name}] {graphs_line(out)} [{card}]")
+    log(f"[{name}] {served_line(every, wall)}; {paths}; prefix-hit "
+        f"admissions {eng['prefix_hit_admissions']}; pools "
+        f"{eng['kv']['hbm_bytes'] / 2**30:.2f} GiB "
+        f"({eng['kv']['num_pages']} pages of {eng['kv']['page_size']}); "
+        f"launches {launches} [{card}]")
+    return dict(waves=waves, results=results, launches=launches,
+                tok_s=_tok_s(every, wall),
+                ttft_p50=_p50([r.ttft_s for r in every]))
+
+
+def phase_families_inproc(torch, card: str, served):
+    """Each family rebuilt in this process (same seed and card, so the
+    same draws as its worker): one served chain teacher-forced to
+    ``forward_train`` at the bf16 tie band, at full depth. Then at full
+    width and ``CUT_LAYERS`` deep (GPT-2 at its 12 layers), graph replays
+    against the eager hook, tokens, launches and logprobs equal (the
+    logprobs bit for bit): Qwen2-7B and Gemma-7B through the inline paged
+    decode (``attention_impl=pallas``, ``decode_mode=inline``: paged
+    attention at G 7 and at head_dim 256), Gemma-7B's fused decode
+    (``norm_matmul`` over 1 + w, flash-decode at head_dim 256), GPT-2's
+    flash-decode. Then in fp32 (``FP32_LAYERS``
+    deep; GPT-2 at 12) each decode path's teacher-forced logits through
+    the kernels within 1e-3 of ``forward_train``'s and of the same
+    forward through their plain versions. Returns the launch counts of
+    the paths that carry the G 7 fw, G 7 paged and head_dim 256 paged
+    instances."""
+    import numpy as np
+    from distributed_inference_engine_tpu_torch.models import (
+        spec_for_architecture)
+    from distributed_inference_engine_tpu_torch.models.base import init_params
+    from distributed_inference_engine_tpu_torch.utils.parity import (
+        assert_greedy_parity)
+
+    gen = torch.Generator(device="cuda")
+    rs = np.random.RandomState(19)
+    paths = {}
+    for name, (_m, arch, size, layers, vocab) in FAMILIES.items():
+        spec = spec_for_architecture(arch, size, max_seq_len=1024)
+        waves, results = served[name]["waves"], served[name]["results"]
+        params = init_params(spec, gen.manual_seed(0))
+        i = max(range(len(waves[0])), key=lambda j: len(waves[0][j]))
+        m, t = assert_greedy_parity(spec, params, waves[0][i],
+                                    results[0][i].tokens, eps=BF16_TIE_EPS,
+                                    label=f"{name} served chain")
+        log(f"[{name}] served chain ({len(waves[0][i])}-token prompt, "
+            f"{layers} layers) teacher-forced to forward_train: {m} strict,"
+            f" {t} ties (band {BF16_TIE_EPS}) [{card}]")
+        del params
+        torch.cuda.empty_cache()
+
+        cut = layers if name == "gpt2" else CUT_LAYERS
+        spec_c = spec.replace(n_layers=cut)
+        params = init_params(spec_c, gen.manual_seed(0))
+        prompts = serve_prompts()
+        prompts = [[t % vocab for t in p] for p in prompts]
+        runs = {"gpt2": [("", {})],
+                "gemma-7b": [(" inline", dict(attention_impl="pallas",
+                                               decode_mode="inline")),
+                             (" fused", dict(decode_fused=True))],
+                "qwen2-7b": [(" inline", dict(attention_impl="pallas",
+                                               decode_mode="inline"))]}[name]
+        for tag, cfg in runs:
+            _, launches, eng, _ = pair_run(torch, spec_c, params, prompts,
+                                           f"{name}{tag}", card, exact=True,
+                                           **cfg)
+            steps = eng["decode_steps"]
+            if tag == " inline":
+                assert eng["decode_mode"] == "inline" and launches.get(
+                    "paged_attention") == cut * steps > 0, (launches, steps)
+                paths[f"{name} inline"] = launches
+            else:
+                assert launches.get("flash_decode") == cut * steps > 0, \
+                    (launches, steps)
+            if tag == " fused":
+                assert launches.get("norm_matmul", 0) > 0 and launches.get(
+                    "matmul_residual", 0) > 0, launches
+            elif name == "gpt2":
+                assert not launches.get("norm_matmul") and not \
+                    launches.get("matmul_residual"), launches
+        del params
+        torch.cuda.empty_cache()
+
+        spec32 = spec.replace(dtype="float32",
+                              n_layers=layers if name == "gpt2"
+                              else min(FP32_LAYERS, layers))
+        params = init_params(spec32, gen.manual_seed(0))
+        prompt = max(prompts, key=len)
+        by_path = kernel_vs_plain(
+            torch, card, spec32, params, prompt,
+            rs.randint(1, vocab, size=16).tolist(),
+            ("pallas-decode", "pallas-decode-fw", "inline")
+            + (("ragged",) if name == "qwen2-7b" else ()), name,
+            kv_dtype="float32")
+        if name == "qwen2-7b":
+            paths["qwen2-7b fw"] = by_path["pallas-decode-fw"]
+        del params
+        torch.cuda.empty_cache()
+    return paths
 
 
 def phase_int4(torch, card: str):
@@ -2783,8 +3103,10 @@ def phase_int4_inproc(torch, card: str, wave1, served, profile_it: bool):
     decode and mixed-step profiles."""
     from distributed_inference_engine_tpu_torch.models import (
         spec_for_architecture)
+    from distributed_inference_engine_tpu_torch.models.base import (
+        random_quantized_params)
     from distributed_inference_engine_tpu_torch.ops.quant import (
-        param_bytes, prepare_params, random_quantized_params)
+        param_bytes, prepare_params)
     from distributed_inference_engine_tpu_torch.utils.parity import (
         assert_greedy_parity)
 
@@ -3165,8 +3487,9 @@ def main() -> int:
                     help="also profile the bf16 and int4 mixed steps and "
                     "time the int4 wgmma token tiles")
     ap.add_argument("--full-depth", action="store_true",
-                    help=f"run the fp32 logit checks at all {N_LAYERS} "
-                    f"layers instead of {CUT_LAYERS}")
+                    help=f"run the fp32 logit checks at every layer "
+                    f"({N_LAYERS}; Qwen2-7B and Gemma-7B 28) instead of "
+                    f"{CUT_LAYERS}")
     args = ap.parse_args()
     global FP32_LAYERS
     if args.full_depth:
@@ -3231,6 +3554,10 @@ def main() -> int:
     done("fleet (serve)")
     m_wave, m_served, mistral_launch = phase_mistral(torch, card)
     done("mistral worker")
+    fam_served = {}
+    for name in FAMILIES:
+        fam_served[name] = phase_family(torch, card, name)
+        done(f"{name} worker")
     fused_launch, fw_launch = phase_fused(torch, card, prompts, results,
                                           mixed_wave, args.profile)
     done("fused and host")
@@ -3241,11 +3568,17 @@ def main() -> int:
     done("mistral in process")
     fw8_launch, paged8_launch = phase_fp8_inproc(torch, card)
     done("fp8 in process")
+    fam_paths = phase_families_inproc(torch, card, fam_served)
+    done("families in process")
+    qwen_launch = fam_served["qwen2-7b"]["launches"]
 
     jax_ops = "distributed_inference_engine_tpu/ops/"
     # kernel: (source, TPU kernel it replaces, launches on its path); the
     # fp8 instances' paths: the fp8 worker (ragged, flash-decode), the
-    # in-process fw and Mistral runs
+    # in-process fw and Mistral runs; the other families' instances (their
+    # launches under the kernel's own count on their path): the qwen2-7b
+    # worker (G 7 ragged and flash-decode), its in-process fp32 fw decode
+    # and inline paged decode, and gemma-7b's inline paged decode (Dh 256)
     sources = {
         "flash_decode": ("csrc/flash_decode.cuh",
                          jax_ops + "flash_decode.py:246", serve_launch),
@@ -3272,7 +3605,21 @@ def main() -> int:
                                  fp8_launch),
         "paged_attention.fp8": ("csrc/paged_attention.cu",
                                 jax_ops + "paged_attention.py:112",
-                                paged8_launch)}
+                                paged8_launch),
+        "flash_decode.g7": ("csrc/flash_decode.cuh",
+                            jax_ops + "flash_decode.py:246", qwen_launch),
+        "flash_decode_fw.g7": ("csrc/flash_decode.cuh",
+                               jax_ops + "flash_decode.py:314",
+                               fam_paths["qwen2-7b fw"]),
+        "ragged_attention.g7": ("csrc/ragged_attention.cu",
+                                jax_ops + "ragged_attention.py:181",
+                                qwen_launch),
+        "paged_attention.g7": ("csrc/paged_attention.cu",
+                               jax_ops + "paged_attention.py:112",
+                               fam_paths["qwen2-7b inline"]),
+        "paged_attention.dh256": ("csrc/paged_attention.cu",
+                                  jax_ops + "paged_attention.py:112",
+                                  fam_paths["gemma-7b inline"])}
     # representative main-path shape per kernel: bf16, and for the GEMVs
     # the d_ff projections (gate/up for norm_matmul, down for residual,
     # gate|up at the 8 decode rows for int4); paged attention as Mistral
@@ -3281,12 +3628,18 @@ def main() -> int:
             "ragged_attention": 0, "flash_decode_fw": 0,
             "int4_matmul": INT4_MAIN, "paged_attention": PAGED_MAIN,
             "flash_decode.fp8": 0, "flash_decode_fw.fp8": 0,
-            "ragged_attention.fp8": 0, "paged_attention.fp8": PAGED_MAIN}
+            "ragged_attention.fp8": 0, "paged_attention.fp8": PAGED_MAIN,
+            "flash_decode.g7": 0, "flash_decode_fw.g7": 0,
+            "ragged_attention.g7": 0, "paged_attention.g7": 0,
+            "paged_attention.dh256": 0}
     kernels = []
     for name, (src, replaces, path_launches) in sources.items():
         rows = kern[name]
         r = rows[pick[name]]
-        launches = path_launches.get(name, 0)
+        # an instance of another family counts under its kernel's name
+        counter = name.split(".")[0] if name.endswith(
+            (".g7", ".dh256")) else name
+        launches = path_launches.get(counter, 0)
         assert launches > 0, f"{name}: never launched on its path"
         kernels.append({
             "name": name, "route": "cuda", "source": f"{PKG}/{src}",
@@ -3297,6 +3650,9 @@ def main() -> int:
             "library_ms": r["library_ms"], "shape": r["shape"],
             "dtype": r["dtype"], **({"kv_dtype": FP8} if name.endswith(
                 ".fp8") else {})})
+    for name, fam in fam_served.items():
+        log(f"[{name}] served {fam['tok_s']:.1f} tok/s, TTFT p50 "
+            f"{fam['ttft_p50']:.3f} s [{card}]")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

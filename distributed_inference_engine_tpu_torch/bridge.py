@@ -20,11 +20,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .models.base import ModelSpec, Params
+from .models.base import ModelSpec, Params, param_shapes
 from .ops.quant import FUSED_GROUPS, QuantizedTensor
-
-BLOCK_KEYS = ("ln1_scale", "ln2_scale", "wq", "wk", "wv", "wo", "w_gate",
-              "w_up", "w_down")
 
 
 def tensor_from_numpy(arr, device="cuda") -> torch.Tensor:
@@ -63,8 +60,8 @@ def leaf_from_numpy(leaf, device="cuda"):
     return tensor_from_numpy(leaf, device)
 
 
-def _check_block_keys(blocks) -> None:
-    want = set(BLOCK_KEYS)
+def _check_block_keys(spec: ModelSpec, blocks) -> None:
+    want = set(param_shapes(spec)["blocks"])
     for fused, members in FUSED_GROUPS.items():
         if fused in blocks:                  # a fused payload replaces them
             want = (want - set(members)) | {fused}
@@ -78,20 +75,23 @@ def _check_block_keys(blocks) -> None:
 def params_from_numpy(tree: Dict[str, Any], spec: ModelSpec,
                       device="cuda") -> Params:
     """JAX parameter tree (numpy leaves) -> port parameters on ``device``.
-    Covers the Llama tree, which Mistral shares: ``tok_emb``, ``lm_head``
-    (vocab-padded when int4), ``lnf_scale`` and the stacked ``blocks``,
-    with the fused ``w_qkv``/``w_gate_up`` payloads in place of their
-    members where the JAX engine fused them."""
+    Covers the tree of every dense family (``models/base.py:param_shapes``):
+    ``tok_emb``, ``lnf_scale`` and the stacked ``blocks``, with
+    ``lnf_bias``, ``pos_emb`` and the block biases where the spec has
+    them, ``lm_head`` (vocab-padded when int4) only when the embeddings
+    are untied, and the fused ``w_qkv``/``w_gate_up`` payloads in place of
+    their members where the JAX engine fused them."""
     spec.check_supported()
     blocks = tree["blocks"]
-    _check_block_keys(blocks)
+    _check_block_keys(spec, blocks)
     out: Params = {
         "tok_emb": tensor_from_numpy(tree["tok_emb"], device),
         "lnf_scale": tensor_from_numpy(tree["lnf_scale"], device),
         "blocks": {k: leaf_from_numpy(v, device) for k, v in blocks.items()},
     }
-    if not spec.tie_embeddings:
-        out["lm_head"] = leaf_from_numpy(tree["lm_head"], device)
+    for name in ("lnf_bias", "pos_emb", "lm_head"):
+        if name in param_shapes(spec):
+            out[name] = leaf_from_numpy(tree[name], device)
     return out
 
 

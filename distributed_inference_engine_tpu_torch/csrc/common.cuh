@@ -244,6 +244,15 @@ __device__ __forceinline__ void merge_state(float& m, float& l,
   m = mx;
 }
 
+// The query rows a block of the decode attention kernels (flash-decode and
+// paged attention) holds for a query-head group of g heads: the least of
+// 1, 2, 4, 8 that holds g, 8 above 8; a KV head's g heads then take
+// ceil(g / rows) blocks. ops/paged_attention.py subgroup is the same rule
+// on the host.
+inline int subgroup_rows(int g) {
+  return g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : 8;
+}
+
 // Workspace of the split-KV attention kernels: for each output row r (a
 // (slot, query head) pair) and split s, m at m[r * n_split + s], l at
 // l[r * n_split + s], and the unnormalised acc at acc[(r * n_split + s) * dh

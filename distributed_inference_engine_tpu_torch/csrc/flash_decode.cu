@@ -42,8 +42,9 @@ int dispatch(const FdArgs& a, int h, int dh, int n_split, int q_dtype,
 // pools [L*N, P, Hkv*Dh] in kv_dtype; out [B, H, Dh] in q_dtype. Each
 // slot's prefix is cut into n_split runs of `chunk` keys (n_split * chunk
 // >= mp * page_size); with n_split > 1, ws is an fp32 workspace of
-// B * H * n_split * (Dh + 2) values and counters B * Hkv ints that are 0
-// (and are 0 again when the launch ends). kv_dtype may also be e4m3
+// B * H * n_split * (Dh + 2) values and counters B * Hkv * n_sub ints that
+// are 0 (and are 0 again when the launch ends), n_sub the sub-groups of a
+// KV head's H / Hkv query heads (any group: flash_decode.cuh). kv_dtype may also be e4m3
 // (kFP8). bf16 q over bf16 or e4m3 pools runs on the tensor cores, every
 // other pair on the CUDA cores. Returns the launch's cudaGetLastError() (0
 // on success).

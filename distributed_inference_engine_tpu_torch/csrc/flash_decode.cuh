@@ -10,6 +10,16 @@
 // layer_base + page_table[b, p] of the stacked [L*N, P, Hkv*Dh] pool; the
 // side keys are entries j < n_side[b] of side_k[b].
 //
+// Any query-head group G = H / Hkv (the TPU kernel takes any, under its
+// Hkv*Dh % 128 rule): the kernels are instances for sub-groups of GS in
+// {1, 2, 4, 8} query heads, and a KV head's G heads are cut into
+// n_sub = ceil(G / GS) sub-groups of GS rows (GS the least instance >= G
+// up to 8; 8 above it), the last one's rows past G dead: computed on
+// zeros, never stored nor merged. Qwen2-7B's G = 7 is one sub-group of 8
+// with one dead row; G = 12 two of 8 (the second half dead). The blocks
+// of one (slot, KV head) are neighbours in the grid, so their K/V tiles
+// come from L2 after the first read.
+//
 // The writeback variant (die_flash_decode_fw) replaces the TPU kernel
 // ops/flash_decode.py:_flash_decode_fw_kernel (wrapper
 // flash_decode_attention_fw_pallas). It takes this step's fresh K/V as its
@@ -124,6 +134,7 @@ struct FdArgs {
   float* ws;               // split partials (n_split > 1)
   int* counters;           // [B * Hkv] run arrivals, 0 between calls
   int b, hkv, page_size, mp, w, chunk;
+  int g, n_sub;            // query heads a KV head; sub-groups a KV head
   long long layer_base;
 };
 
@@ -142,9 +153,11 @@ struct Tile {
 
 // This block's keys: run `split` of the slot's prefix and, for the last
 // run, the side entries and the fw variant's fresh row. The run's page ids
-// are pages[page - pg0].
+// are pages[page - pg0]. Its query rows: sub-group `sub` of the KV head,
+// rows row0 .. row0 + gl - 1 of [B * H] (gl <= GS live).
 struct Plan {
-  int b, kh, split, s_lo, n_pref, ns, sidx, pg0;
+  int b, kh, sub, gl, split, s_lo, n_pref, ns, sidx, pg0;
+  long long row0;
   bool fresh;
   const int* pages;
 };
@@ -152,12 +165,18 @@ struct Plan {
 // The block's plan; the run's page ids are copied into run_pages (when
 // they fit) in the same breath as the lengths are read, so the tile loop
 // never waits on the page table. The caller syncs before using them.
-template <bool FW>
+template <bool FW, int GS>
 __device__ __forceinline__ Plan make_plan(const FdArgs& a, int* run_pages) {
   Plan p;
-  const int bk = blockIdx.x;
-  p.b = bk / a.hkv;
-  p.kh = bk - p.b * a.hkv;
+  const int bk = blockIdx.x;          // (slot, KV head, sub-group)
+  const int per_slot = a.hkv * a.n_sub;
+  p.b = bk / per_slot;
+  const int rem = bk - p.b * per_slot;
+  p.kh = rem / a.n_sub;
+  p.sub = rem - p.kh * a.n_sub;
+  p.gl = min(GS, a.g - p.sub * GS);
+  p.row0 = static_cast<long long>(p.b) * a.hkv * a.g + p.kh * a.g +
+           p.sub * GS;
   p.split = blockIdx.y;
   p.s_lo = p.split * a.chunk;
   const int* row = a.page_table + static_cast<long long>(p.b) * a.mp;
@@ -369,14 +388,13 @@ __device__ __forceinline__ void simt_block(const FdArgs& a, const Plan& p,
   const int warp = threadIdx.x >> 5;
   const int grp = lane / kLpk;
   const int lk = lane - grp * kLpk;
-  const int h = a.hkv * G;
-  const long long row0 = static_cast<long long>(p.b) * h + p.kh * G;
 
+  // dead rows (gi >= gl) repeat the last live one: computed, never stored
   float qr[G][kEl];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi)
-    load_row<TQ, kEl>(static_cast<const TQ*>(a.q) + (row0 + gi) * DH +
-                          lk * kEl,
+    load_row<TQ, kEl>(static_cast<const TQ*>(a.q) +
+                          (p.row0 + min(gi, p.gl - 1)) * DH + lk * kEl,
                       qr[gi]);
   float m[G], l[G], acc[G][kEl];
 #pragma unroll
@@ -570,16 +588,16 @@ __device__ __forceinline__ void mma_block(const FdArgs& a, const Plan& p,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  // Q padded to 16 rows (zeros past G), staged with the first tiles
+  // Q padded to 16 rows (zeros past the live gl), staged with the first
+  // tiles
   const uint4* q = reinterpret_cast<const uint4*>(
-      static_cast<const __nv_bfloat16*>(a.q) +
-      static_cast<long long>(blockIdx.x) * G * DH);
+      static_cast<const __nv_bfloat16*>(a.q) + p.row0 * DH);
   constexpr int kQChunks = T::kRowBytes / 16;
   for (int i = threadIdx.x; i < 16 * kQChunks; i += kThreads) {
     const int r = i / kQChunks;
     const int c = i - r * kQChunks;
     cp_async16(q_tile + r * T::kStride + c * 16,
-               q + min(r, G - 1) * kQChunks + c, r < G);
+               q + min(r, p.gl - 1) * kQChunks + c, r < p.gl);
   }
 
   // scores in log2 units (exp2 is one instruction); m goes back to
@@ -675,14 +693,14 @@ __global__ void __launch_bounds__(kThreads,
   // the warps' states alias the ring, which is free after the last tile
   float* scratch = reinterpret_cast<float*>(smem);
   __shared__ int run_pages[kRunPages];
-  const Plan p = make_plan<FW>(a, run_pages);
-  const int h = a.hkv * G;
-  const long long row0 = static_cast<long long>(p.b) * h + p.kh * G;
+  const Plan p = make_plan<FW, G>(a, run_pages);
+  const long long row0 = p.row0;
 
   if constexpr (FW) {
     // the fresh row joins the side window at column side_idx: only this
-    // run's block writes it, and no block reads that column
-    if (p.fresh) {
+    // run's block of the first sub-group writes it, and no block reads
+    // that column
+    if (p.fresh && p.sub == 0) {
       constexpr int kC = DH * static_cast<int>(sizeof(TQ)) / 16;
       const long long src = (static_cast<long long>(p.b) * a.hkv + p.kh) * DH;
       const long long dst =
@@ -707,12 +725,13 @@ __global__ void __launch_bounds__(kThreads,
   }
   __syncthreads();
 
-  // merge the warps: one (m, l, acc) per query head of this run
+  // merge the warps: one (m, l, acc) per live query head of this run;
+  // the partials are kept by query row ([B * H] rows)
   const int n_split = gridDim.y;
   TQ* out = static_cast<TQ*>(a.out);
-  const SplitPartials part(a.ws, static_cast<long long>(gridDim.x) * G,
+  const SplitPartials part(a.ws, static_cast<long long>(a.b) * a.hkv * a.g,
                            n_split, DH);
-  for (int idx = threadIdx.x; idx < G * DH; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < p.gl * DH; idx += kThreads) {
     const int gi = idx / DH;
     const int d = idx - gi * DH;
     float mx = kNegInf;
@@ -756,13 +775,13 @@ __global__ void __launch_bounds__(kThreads,
   // blocks wrote them), then each element's n_split partials in one more
   float* w = scratch;                    // [G][n_split]; the ring is free
   float* ls = scratch + G * n_split;     // [G][n_split]
-  for (int i = threadIdx.x; i < G * n_split; i += kThreads) {
+  for (int i = threadIdx.x; i < p.gl * n_split; i += kThreads) {
     const long long at = (row0 + i / n_split) * n_split + i % n_split;
     w[i] = __ldcg(part.m + at);
     ls[i] = __ldcg(part.l + at);
   }
   __syncthreads();
-  if (threadIdx.x < G) {
+  if (threadIdx.x < p.gl) {
     float* wr = w + threadIdx.x * n_split;  // m_s in, weight out
     const SplitMerge mg(wr, ls + threadIdx.x * n_split, n_split);
     for (int s = 0; s < n_split; ++s) wr[s] = mg.weight(wr[s]);
@@ -779,7 +798,7 @@ __global__ void __launch_bounds__(kThreads,
     for (int i = 0; i < kPer; ++i) {
       const int idx = threadIdx.x + i * kThreads;
       const int gi = idx / DH;
-      if (idx < G * DH)
+      if (idx < p.gl * DH)
         o[i] += __ldcg(acc + (gi * n_split + s) * DH + (idx - gi * DH)) *
                 w[gi * n_split + s];
     }
@@ -787,7 +806,7 @@ __global__ void __launch_bounds__(kThreads,
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int idx = threadIdx.x + i * kThreads;
-    if (idx < G * DH) out[row0 * DH + idx] = from_f<TQ>(o[i]);
+    if (idx < p.gl * DH) out[row0 * DH + idx] = from_f<TQ>(o[i]);
   }
   if (threadIdx.x == 0) a.counters[blockIdx.x] = 0;  // ready for next call
 }
@@ -813,18 +832,23 @@ cudaError_t launch(const FdArgs& a, int n_split, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     ready[dev] = true;
   }
-  kernel<<<dim3(a.b * a.hkv, n_split), kThreads, kSmem, stream>>>(a, scale);
+  kernel<<<dim3(a.b * a.hkv * a.n_sub, n_split), kThreads, kSmem, stream>>>(
+      a, scale);
   return cudaGetLastError();
 }
 
 template <typename TQ, typename TKV, int DH, bool FW>
-cudaError_t by_group(int g, const FdArgs& a, int ns, cudaStream_t st) {
-  switch (g) {
+cudaError_t by_group(int g, const FdArgs& args, int ns, cudaStream_t st) {
+  if (g < 1) return cudaErrorInvalidValue;
+  FdArgs a = args;
+  const int gs = subgroup_rows(g);
+  a.g = g;
+  a.n_sub = (g + gs - 1) / gs;
+  switch (gs) {
     case 1: return launch<TQ, TKV, DH, 1, FW>(a, ns, st);
     case 2: return launch<TQ, TKV, DH, 2, FW>(a, ns, st);
     case 4: return launch<TQ, TKV, DH, 4, FW>(a, ns, st);
-    case 8: return launch<TQ, TKV, DH, 8, FW>(a, ns, st);
-    default: return cudaErrorInvalidValue;
+    default: return launch<TQ, TKV, DH, 8, FW>(a, ns, st);
   }
 }
 

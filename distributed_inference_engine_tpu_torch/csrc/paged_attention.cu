@@ -49,6 +49,17 @@
 // bytes of bf16, so half the bound; the sliding window applies unchanged,
 // which is what Mistral's inline decode on fp8 pools runs.
 //
+// Any query-head group G = H / Hkv, and head_dim 32 to 256 (the TPU
+// kernel takes any Hkv*Dh that is a multiple of 128): the instances hold
+// sub-groups of GS in {1, 2, 4, 8} query heads in registers, and a KV
+// head's G heads are cut into n_sub = ceil(G / GS) sub-groups (GS the
+// least instance >= G up to 8; 8 above it), one block each, the rows
+// past G dead (computed on a copy of the last live row, never stored).
+// Qwen2-7B's G = 7 takes the GS 8 instance with one dead row. At Dh 256
+// (Gemma) a bf16 or e4m3 row is one load a lane over the warp's 32 lanes
+// and an fp32 row two; Gemma-2B (G 8, Dh 256) holds 64 query values and
+// 64 accumulators a lane, its warps' states 66 KB of shared memory.
+//
 // Left: the scores and the weighted sum run on CUDA cores (a decode row
 // has one query per head, G per K/V row: too few for tensor cores), and
 // rows are loaded straight into registers (no cp.async or TMA ring).
@@ -69,37 +80,46 @@ struct PaArgs {
   void* out;               // [B, H, Dh] q dtype
   float* m_out;            // [B, H]
   float* l_out;            // [B, H]
-  float* ws;               // split partials (n_split > 1)
-  int hkv, page_size, mp, window, chunk;
+  float* ws;               // split partials (n_split > 1), by query row
+  int b, hkv, page_size, mp, window, chunk;
+  int g, n_sub;            // query heads a KV head; sub-groups a KV head
   long long layer_base;
 };
 
-// G >= 8 keeps 64 fp32 accumulators and 64 query values a lane: one block
-// per SM; smaller groups are held to two.
+// A block is one sub-group of G (the instance's GS) query heads of a
+// (slot, KV head). G >= 8 keeps 64 fp32 accumulators and 64 query values
+// a lane at Dh 128 and 256, and so does G 4 over fp32 pools at Dh 256
+// (two loads a row): one block per SM; the others are held to two.
 template <typename TQ, typename TKV, int DH, int G>
-__global__ void __launch_bounds__(kWarps * 32, (G >= 8 ? 1 : 2))
+__global__ void __launch_bounds__(
+    kWarps * 32, (G >= 8 || (G >= 4 && DH / kVecOf<TKV> > 32)) ? 1 : 2)
     paged_attention_kernel(PaArgs a, float scale) {
   constexpr int kVec = kVecOf<TKV>;      // per load (16 bytes; e4m3 8)
-  constexpr int kLpk = DH / kVec;        // lanes per key row
-  static_assert(kLpk >= 1 && kLpk <= 32 && 32 % kLpk == 0,
-                "a key row is 1 to 32 loads");
+  // lanes per key row: one load each, or two (fp32 at Dh 256)
+  constexpr int kLpk = DH / kVec > 32 ? 32 : DH / kVec;
+  constexpr int kEl = DH / kLpk;         // elements a lane
+  static_assert(kLpk >= 1 && 32 % kLpk == 0 && kEl % kVec == 0,
+                "a key row is whole loads over 1 to 32 lanes");
   constexpr int kKpw = 32 / kLpk;        // key rows a warp reads at once
   constexpr int kSweep = kWarps * kKpw;  // key rows the block reads at once
   constexpr int kU = G >= 8 ? 2 : 4;     // rows in flight per lane group
   extern __shared__ float smem[];
   const int hkv = a.hkv;
-  const int b = blockIdx.x / hkv;
-  const int kh = blockIdx.x - b * hkv;
+  const int per_slot = hkv * a.n_sub;
+  const int b = blockIdx.x / per_slot;
+  const int kh = (blockIdx.x - b * per_slot) / a.n_sub;
+  const int sub = blockIdx.x - b * per_slot - kh * a.n_sub;
+  const int gl = min(G, a.g - sub * G);  // live query heads of the block
   const int split = blockIdx.y;
   const int n_split = gridDim.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int grp = lane / kLpk;
   const int lk = lane - grp * kLpk;
-  const int h = hkv * G;
-  const long long row0 = static_cast<long long>(b) * h + kh * G;
+  const long long row0 =
+      static_cast<long long>(b) * hkv * a.g + kh * a.g + sub * G;
   TQ* out = static_cast<TQ*>(a.out);
-  const SplitPartials part(a.ws, static_cast<long long>(gridDim.x) * G,
+  const SplitPartials part(a.ws, static_cast<long long>(a.b) * hkv * a.g,
                            n_split, DH);
 
   // this block's keys: its run of the valid keys [lo, hi), the window's
@@ -110,7 +130,7 @@ __global__ void __launch_bounds__(kWarps * 32, (G >= 8 ? 1 : 2))
   const int s_lo = lo + split * a.chunk;
   const int s_hi = min(hi, s_lo + a.chunk);
   if (s_lo >= s_hi) {  // uniform across the block
-    for (int idx = threadIdx.x; idx < G * DH; idx += blockDim.x) {
+    for (int idx = threadIdx.x; idx < gl * DH; idx += blockDim.x) {
       const int gi = idx / DH;
       const int d = idx - gi * DH;
       const long long r = row0 + gi;
@@ -136,22 +156,23 @@ __global__ void __launch_bounds__(kWarps * 32, (G >= 8 ? 1 : 2))
   const TQ* q = static_cast<const TQ*>(a.q);
   const TKV* k_pages = static_cast<const TKV*>(a.k_pages);
   const TKV* v_pages = static_cast<const TKV*>(a.v_pages);
-  float qr[G][kVec];
+  // dead rows (gi >= gl) repeat the last live one: computed, never stored
+  float qr[G][kEl];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi)
-    load_row<TQ, kVec>(q + (row0 + gi) * DH + lk * kVec, qr[gi]);
-  float m[G], l[G], acc[G][kVec];
+    load_row<TQ, kEl>(q + (row0 + min(gi, gl - 1)) * DH + lk * kEl, qr[gi]);
+  float m[G], l[G], acc[G][kEl];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
     m[gi] = kNegInf;
     l[gi] = 0.f;
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[gi][e] = 0.f;
+    for (int e = 0; e < kEl; ++e) acc[gi][e] = 0.f;
   }
 
   const int* row = a.page_table + static_cast<long long>(b) * a.mp;
-  const long long head_off = static_cast<long long>(kh) * DH + lk * kVec;
-  using Row = RawRow<TKV, kVec>;
+  const long long head_off = static_cast<long long>(kh) * DH + lk * kEl;
+  using Row = RawRow<TKV, kEl>;
   // base is uniform across the warp, so every lane runs every shuffle
   for (int base = s_lo + warp * kKpw; base < s_hi; base += kU * kSweep) {
     Row kraw[kU], vraw[kU];
@@ -175,13 +196,13 @@ __global__ void __launch_bounds__(kWarps * 32, (G >= 8 ? 1 : 2))
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       const bool valid = base + u * kSweep + grp < s_hi;
-      float kr[kVec];
+      float kr[kEl];
       kraw[u].widen(kr);
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
         float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) dot += qr[gi][e] * kr[e];
+        for (int e = 0; e < kEl; ++e) dot += qr[gi][e] * kr[e];
 #pragma unroll
         for (int off = kLpk / 2; off > 0; off >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
@@ -196,20 +217,20 @@ __global__ void __launch_bounds__(kWarps * 32, (G >= 8 ? 1 : 2))
       const float alpha = expf(m[gi] - mn);
       l[gi] *= alpha;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[gi][e] *= alpha;
+      for (int e = 0; e < kEl; ++e) acc[gi][e] *= alpha;
       m[gi] = mn;
     }
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       const bool valid = base + u * kSweep + grp < s_hi;
-      float vr[kVec];
+      float vr[kEl];
       vraw[u].widen(vr);
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
         const float p = valid ? expf(s[u][gi] - m[gi]) : 0.f;
         l[gi] += p;
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) acc[gi][e] = fmaf(p, vr[e], acc[gi][e]);
+        for (int e = 0; e < kEl; ++e) acc[gi][e] = fmaf(p, vr[e], acc[gi][e]);
       }
     }
   }
@@ -222,11 +243,11 @@ __global__ void __launch_bounds__(kWarps * 32, (G >= 8 ? 1 : 2))
     for (int gi = 0; gi < G; ++gi) {
       const float mo = __shfl_xor_sync(0xffffffffu, m[gi], off);
       const float lo2 = __shfl_xor_sync(0xffffffffu, l[gi], off);
-      float acco[kVec];
+      float acco[kEl];
 #pragma unroll
-      for (int e = 0; e < kVec; ++e)
+      for (int e = 0; e < kEl; ++e)
         acco[e] = __shfl_xor_sync(0xffffffffu, acc[gi][e], off);
-      merge_state<kVec>(m[gi], l[gi], acc[gi], mo, lo2, acco);
+      merge_state<kEl>(m[gi], l[gi], acc[gi], mo, lo2, acco);
     }
   }
 
@@ -241,11 +262,11 @@ __global__ void __launch_bounds__(kWarps * 32, (G >= 8 ? 1 : 2))
         slot[1] = l[gi];
       }
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) slot[2 + lk * kVec + e] = acc[gi][e];
+      for (int e = 0; e < kEl; ++e) slot[2 + lk * kEl + e] = acc[gi][e];
     }
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < G * DH; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < gl * DH; idx += blockDim.x) {
     const int gi = idx / DH;
     const int d = idx - gi * DH;
     float mx = kNegInf;
@@ -277,10 +298,10 @@ __global__ void __launch_bounds__(kWarps * 32, (G >= 8 ? 1 : 2))
   }
 }
 
-// One block per output row, one thread per element: the row's split
-// partials merged with SplitMerge's weights and rounded once.
+// One block per output row, one thread per element (up to Dh 256): the
+// row's split partials merged with SplitMerge's weights and rounded once.
 template <typename TQ>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(256)
     paged_merge_kernel(float* ws, int n_split, int dh, void* out_,
                        float* m_out, float* l_out) {
   const SplitPartials part(ws, gridDim.x, n_split, dh);
@@ -298,37 +319,58 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+constexpr int kMaxDevices = 16;
+
 template <typename TQ, typename TKV, int DH, int G>
-cudaError_t launch(const PaArgs& a, int b, int n_split, cudaStream_t stream) {
-  const int smem = kWarps * G * (2 + DH) * static_cast<int>(sizeof(float));
+cudaError_t launch(const PaArgs& a, int n_split, cudaStream_t stream) {
+  constexpr int kSmem = kWarps * G * (2 + DH) * static_cast<int>(sizeof(float));
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
-  paged_attention_kernel<TQ, TKV, DH, G>
-      <<<dim3(b * a.hkv, n_split), kWarps * 32, smem, stream>>>(a, scale);
+  auto kernel = paged_attention_kernel<TQ, TKV, DH, G>;
+  if constexpr (kSmem > 48 * 1024) {
+    // past the default ceiling (G 8 at Dh 256): once per instance and card
+    static bool ready[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (!ready[dev]) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      if (err != cudaSuccess) return err;
+      ready[dev] = true;
+    }
+  }
+  kernel<<<dim3(a.b * a.hkv * a.n_sub, n_split), kWarps * 32, kSmem,
+           stream>>>(a, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
-  paged_merge_kernel<TQ><<<b * a.hkv * G, DH, 0, stream>>>(
+  paged_merge_kernel<TQ><<<a.b * a.hkv * a.g, DH, 0, stream>>>(
       a.ws, n_split, DH, a.out, a.m_out, a.l_out);
   return cudaGetLastError();
 }
 
 template <typename TQ, typename TKV, int DH>
-cudaError_t by_group(int g, const PaArgs& a, int b, int ns, cudaStream_t st) {
-  switch (g) {
-    case 1: return launch<TQ, TKV, DH, 1>(a, b, ns, st);
-    case 2: return launch<TQ, TKV, DH, 2>(a, b, ns, st);
-    case 4: return launch<TQ, TKV, DH, 4>(a, b, ns, st);
-    case 8: return launch<TQ, TKV, DH, 8>(a, b, ns, st);
-    default: return cudaErrorInvalidValue;
+cudaError_t by_group(int g, const PaArgs& args, int ns, cudaStream_t st) {
+  PaArgs a = args;
+  const int gs = subgroup_rows(g);
+  a.g = g;
+  a.n_sub = (g + gs - 1) / gs;
+  switch (gs) {
+    case 1: return launch<TQ, TKV, DH, 1>(a, ns, st);
+    case 2: return launch<TQ, TKV, DH, 2>(a, ns, st);
+    case 4: return launch<TQ, TKV, DH, 4>(a, ns, st);
+    default: return launch<TQ, TKV, DH, 8>(a, ns, st);
   }
 }
 
 template <typename TQ, typename TKV>
-cudaError_t by_width(int dh, int g, const PaArgs& a, int b, int ns,
+cudaError_t by_width(int dh, int g, const PaArgs& a, int ns,
                      cudaStream_t st) {
   switch (dh) {
-    case 32: return by_group<TQ, TKV, 32>(g, a, b, ns, st);
-    case 64: return by_group<TQ, TKV, 64>(g, a, b, ns, st);
-    case 128: return by_group<TQ, TKV, 128>(g, a, b, ns, st);
+    case 32: return by_group<TQ, TKV, 32>(g, a, ns, st);
+    case 64: return by_group<TQ, TKV, 64>(g, a, ns, st);
+    case 128: return by_group<TQ, TKV, 128>(g, a, ns, st);
+    case 256: return by_group<TQ, TKV, 256>(g, a, ns, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -338,8 +380,8 @@ cudaError_t by_width(int dh, int g, const PaArgs& a, int b, int ns,
 
 // q [B, H, Dh] in q_dtype; the pools [rows, P, Hkv*Dh] in kv_dtype (fp32,
 // bf16 or e4m3), page p of slot b at row layer_base + page_table[b, p];
-// out [B, H, Dh] in q_dtype; m_out/l_out [B, H] fp32. window 0 is full
-// attention. The keys of a slot are cut into n_split runs of `chunk`
+// out [B, H, Dh] in q_dtype; m_out/l_out [B, H] fp32; any H / Hkv, Dh 32,
+// 64, 128 or 256. window 0 is full attention. The keys of a slot are cut into n_split runs of `chunk`
 // (n_split * chunk must cover the most valid keys a slot can have); with
 // n_split > 1, ws is an fp32 workspace of B * H * n_split * (Dh + 2)
 // values and a second kernel merges the runs. Returns cudaGetLastError()
@@ -353,7 +395,8 @@ extern "C" int die_paged_attention(const void* q, const void* k_pages,
                                    long long layer_base, int q_dtype,
                                    int kv_dtype, void* stream) {
   if (b <= 0) return 0;
-  if (hkv <= 0 || h % hkv || page_size <= 0 || window < 0 || n_split < 1 ||
+  if (hkv <= 0 || h % hkv || h == 0 || page_size <= 0 || window < 0 ||
+      n_split < 1 ||
       chunk < 1 || (n_split > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   die::PaArgs a{};
@@ -366,6 +409,7 @@ extern "C" int die_paged_attention(const void* q, const void* k_pages,
   a.m_out = m_out;
   a.l_out = l_out;
   a.ws = ws;
+  a.b = b;
   a.hkv = hkv;
   a.page_size = page_size;
   a.mp = mp;
@@ -376,17 +420,17 @@ extern "C" int die_paged_attention(const void* q, const void* k_pages,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q_dtype == die::kBF16 && kv_dtype == die::kBF16)
-    err = die::by_width<__nv_bfloat16, __nv_bfloat16>(dh, g, a, b, n_split, st);
+    err = die::by_width<__nv_bfloat16, __nv_bfloat16>(dh, g, a, n_split, st);
   else if (q_dtype == die::kF32 && kv_dtype == die::kF32)
-    err = die::by_width<float, float>(dh, g, a, b, n_split, st);
+    err = die::by_width<float, float>(dh, g, a, n_split, st);
   else if (q_dtype == die::kBF16 && kv_dtype == die::kF32)
-    err = die::by_width<__nv_bfloat16, float>(dh, g, a, b, n_split, st);
+    err = die::by_width<__nv_bfloat16, float>(dh, g, a, n_split, st);
   else if (q_dtype == die::kF32 && kv_dtype == die::kBF16)
-    err = die::by_width<float, __nv_bfloat16>(dh, g, a, b, n_split, st);
+    err = die::by_width<float, __nv_bfloat16>(dh, g, a, n_split, st);
   else if (q_dtype == die::kBF16 && kv_dtype == die::kFP8)
-    err = die::by_width<__nv_bfloat16, die::fp8>(dh, g, a, b, n_split, st);
+    err = die::by_width<__nv_bfloat16, die::fp8>(dh, g, a, n_split, st);
   else if (q_dtype == die::kF32 && kv_dtype == die::kFP8)
-    err = die::by_width<float, die::fp8>(dh, g, a, b, n_split, st);
+    err = die::by_width<float, die::fp8>(dh, g, a, n_split, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

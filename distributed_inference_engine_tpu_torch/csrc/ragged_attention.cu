@@ -18,9 +18,17 @@
 // cores.
 //
 // Items. An item is a (row, KV head, query tile); a tile holds
-// rows_per_block / g queries of the g = H/Hkv heads that share a K/V head,
-// its (query, head) pairs are the block's rows, so every K/V element a
-// block stages feeds all of them. The tile count comes from the host
+// floor(rows_per_block / g) queries of the g = H/Hkv heads that share a
+// K/V head, its (query, head) pairs are the block's rows, so every K/V
+// element a block stages feeds all of them. Any g, as the TPU kernel
+// takes: where g does not divide the rows, the rows past the tile's
+// queries are dead (Qwen2's g = 7: 18 queries, 126 of 128 rows live on
+// the tensor cores; 9 queries, 63 of 64, on the CUDA cores), computed on
+// zeros and never stored. Above 64 heads a KV head's g heads are cut into
+// sub-groups of at most 64 (n_sub; the last one's rows past g dead), each
+// sub-group a KV head of its own to the items (the "virtual" heads, vh =
+// hkv * n_sub of them); the first sub-group alone writes the fresh K/V
+// back. The tile count comes from the host
 // (ops/ragged_attention.py ragged_plan), from shapes only: the lengths
 // live on the card. block_of orders the items from the highest query tile
 // to the lowest, the rows from the last (the engine puts its prefill rows
@@ -138,26 +146,41 @@ struct RaggedArgs {
   const int* q_lens;      // [R]
   void* out;              // [R, Qmax, H, Dh] q dtype
   int r, qmax, h, hkv, page_size, mp, n_tiles;
+  int g;                  // H / Hkv
+  int gs, n_sub, vh;      // heads an item, sub-groups a KV head, hkv*n_sub
   long long layer_base;
   float scale;
 };
 
-// The block's (row, KV head, query tile): heavy tiles first, the highest
-// query tile of every row, the rows from the last; the host's
-// ragged_block (ops/ragged_attention.py) is the same rule.
+// The block's (row, KV head, sub-group, query tile): heavy tiles first,
+// the highest query tile of every row, the rows from the last; the host's
+// ragged_block (ops/ragged_attention.py) is the same rule over the vh
+// virtual heads. gl of the sub-group's gs heads are live, the first at
+// query head head0 of the row.
 struct Block {
-  int r, kh, tile;
+  int r, kh, sub, tile, gl, head0;
 };
 
 __device__ __forceinline__ Block block_of(const RaggedArgs& a, int item) {
-  const int per_tile = a.r * a.hkv;
+  const int per_tile = a.r * a.vh;
   const int i = item / per_tile;
   const int rem = item - i * per_tile;
   Block b;
   b.tile = a.n_tiles - 1 - i;
-  b.r = a.r - 1 - rem / a.hkv;
-  b.kh = rem - (rem / a.hkv) * a.hkv;
+  b.r = a.r - 1 - rem / a.vh;
+  const int v = rem - (rem / a.vh) * a.vh;
+  b.kh = v / a.n_sub;
+  b.sub = v - b.kh * a.n_sub;
+  b.gl = min(a.gs, a.g - b.sub * a.gs);
+  b.head0 = b.kh * a.g + b.sub * a.gs;
   return b;
+}
+
+// Block row rr of an item ((query, head)-major: rr = (qi - q0) * gs + gi)
+// holds a live head of one of the tile's tq queries.
+__device__ __forceinline__ bool row_ok(const RaggedArgs& a, const Block& bk,
+                                       int tq, int rr) {
+  return rr < tq * a.gs && rr % a.gs < bk.gl;
 }
 
 // A pool value as the plain version attends it: cast to the query dtype.
@@ -183,8 +206,12 @@ __device__ __forceinline__ float fresh_value(float x) {
 
 // ---------------------------------------------------------------- simt
 
+// Two blocks an SM where their shared memory allows it (Dh <= 128), which
+// caps the registers at 128: left to itself ptxas took 146 at Dh 128 in
+// fp32, one block an SM, 16% slower on the card; at Dh 256 one block
+// fills the shared memory.
 template <typename TQ, typename TKV, int E>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, E <= 4 ? 2 : 1)
     ragged_simt_kernel(RaggedArgs a) {
   constexpr int kDh = 32 * E;
   constexpr int kKStride = kDh + 1;     // K rows padded: lane j reads row j
@@ -193,12 +220,16 @@ __global__ void __launch_bounds__(kThreads)
   float* ks = qs + kRows * kDh;         // [kKeys][kDh + 1]
   float* vs = ks + kKeys * kKStride;    // [kKeys][kDh]
 
-  const int g = a.h / a.hkv;
+  const int g = a.gs;                   // heads an item
   const int tq = kRows / g;             // queries per tile
   const Block bk = block_of(a, blockIdx.x);
   const int tile = bk.tile;
   const int kh = bk.kh;
   const int r = bk.r;
+  const int head0 = bk.head0;
+  const int n_live = tq * g;            // rows of the tile's queries
+  const int gl = bk.gl;                 // live heads of a query
+  const bool writes = bk.sub == 0;      // the KV head's first sub-group
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int q0 = tile * tq;
@@ -207,9 +238,9 @@ __global__ void __launch_bounds__(kThreads)
   const long long fused = static_cast<long long>(a.hkv) * kDh;
   const TQ* q = static_cast<const TQ*>(a.q);
   TQ* out = static_cast<TQ*>(a.out);
-  // [R, Qmax, H, Dh] offset of (query qi, head kh*g + gi)
+  // [R, Qmax, H, Dh] offset of (query qi, head head0 + gi)
   auto qo_off = [&](int qi, int gi) {
-    return ((static_cast<long long>(r) * a.qmax + qi) * a.h + kh * g + gi) *
+    return ((static_cast<long long>(r) * a.qmax + qi) * a.h + head0 + gi) *
            kDh;
   };
 
@@ -218,30 +249,38 @@ __global__ void __launch_bounds__(kThreads)
     for (int idx = threadIdx.x; idx < kRows * kDh; idx += kThreads) {
       const int rr = idx / kDh;
       const int qi = q0 + rr / g;
-      if (qi < a.qmax) out[qo_off(qi, rr % g) + idx % kDh] = from_f<TQ>(0.f);
+      const int gi = rr % g;
+      if (rr < n_live && gi < gl && qi < a.qmax)
+        out[qo_off(qi, gi) + idx % kDh] = from_f<TQ>(0.f);
     }
     return;
   }
 
-  // the tile's queries, (query, head)-major: block row rr = (qi - q0)*g + gi
+  // the tile's queries, (query, head)-major: block row rr = (qi - q0)*g +
+  // gi; dead rows are zeros
   for (int idx = threadIdx.x; idx < kRows * kDh; idx += kThreads) {
     const int rr = idx / kDh;
     const int qi = q0 + rr / g;
-    qs[idx] = qi < qlen ? to_f(q[qo_off(qi, rr % g) + idx % kDh]) : 0.f;
+    const int gi = rr % g;
+    qs[idx] = rr < n_live && gi < gl && qi < qlen
+                  ? to_f(q[qo_off(qi, gi) + idx % kDh])
+                  : 0.f;
   }
 
   const int r0 = warp * kRowsPerWarp;   // this warp's first block row
   int qidx[kRowsPerWarp];
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][E];
+  bool warp_live = false;
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     qidx[i] = q0 + (r0 + i) / g;
+    warp_live = warp_live ||
+                (r0 + i < n_live && (r0 + i) % g < gl && qidx[i] < qlen);
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
   }
-  const bool warp_live = qidx[0] < qlen;
 
   const TKV* kp = static_cast<const TKV*>(a.k_pages);
   const TKV* vp = static_cast<const TKV*>(a.v_pages);
@@ -355,7 +394,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int rr = r0 + i;
     const int qi = qidx[i];
-    if (qi >= a.qmax) continue;
+    if (rr >= n_live || rr % g >= gl || qi >= a.qmax) continue;
     const float den = fmaxf(l[i], 1e-30f);
     TQ* o = out + qo_off(qi, rr % g) + lane * E;
 #pragma unroll
@@ -364,10 +403,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // writeback: the fresh K/V of this tile's queries -> pool positions
-  // ctx + qi (the logical page clamped to the table, as the plain version)
+  // ctx + qi (the logical page clamped to the table, as the plain version),
+  // by the KV head's first sub-group alone
   TKV* kw = static_cast<TKV*>(a.k_pages);
   TKV* vw = static_cast<TKV*>(a.v_pages);
-  for (int qi = q0 + warp; qi < fresh_end; qi += kWarps) {
+  for (int qi = q0 + warp; writes && qi < fresh_end; qi += kWarps) {
     const int pos = ctx + qi;
     const int pg = table[min(pos / a.page_size, a.mp - 1)];
     const long long dst =
@@ -412,19 +452,19 @@ struct Geo {
                 "partials and weights fit the ring");
 };
 
-// Zero rows [q0, q0 + tq) of the block's heads (those below qmax), 16
-// bytes a store: a query's g heads of KV head kh are g*DH contiguous
+// Zero rows [q0, q0 + tq) of the block's live heads (those below qmax),
+// 16 bytes a store: a query's gl heads from head0 are gl*DH contiguous
 // elements of out.
 template <int DH>
-__device__ __forceinline__ void zero_tile(const RaggedArgs& a, int r, int kh,
-                                          int g, int q0, int tq) {
-  const int per_q = g * DH * 2 / 16;
+__device__ __forceinline__ void zero_tile(const RaggedArgs& a,
+                                          const Block& bk, int q0, int tq) {
+  const int per_q = bk.gl * DH * 2 / 16;
   const int nq = min(tq, a.qmax - q0);
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
   for (int i = threadIdx.x; i < nq * per_q; i += kMmaThreads) {
     const int qi = q0 + i / per_q;
     const long long o =
-        ((static_cast<long long>(r) * a.qmax + qi) * a.h + kh * g) * DH;
+        ((static_cast<long long>(bk.r) * a.qmax + qi) * a.h + bk.head0) * DH;
     reinterpret_cast<uint4*>(out + o)[i % per_q] = make_uint4(0, 0, 0, 0);
   }
 }
@@ -767,14 +807,14 @@ __device__ __forceinline__ void mma_item(const RaggedArgs& a, const Block& bk,
   using G = Geo<DH>;
   char* q_tile = smem;
   char* ring = smem + G::kQBytes;
-  const int g = a.h / a.hkv;
+  const int g = a.gs;                   // heads an item
   const int tq = kMmaRows / g;          // queries per tile
   const int r = bk.r;
   const int kh = bk.kh;
   const int q0 = bk.tile * tq;
   const int qlen = q_lens[r];
   if (q0 >= qlen) {                     // no live query: zero rows
-    zero_tile<DH>(a, r, kh, g, q0, tq);
+    zero_tile<DH>(a, bk, q0, tq);
     return;
   }
   const int ctx_raw = ctx_lens[r];
@@ -793,7 +833,8 @@ __device__ __forceinline__ void mma_item(const RaggedArgs& a, const Block& bk,
   }
 
   // the tile's queries, (query, head)-major: block row rr = (qi - q0)*g +
-  // gi; rows of dead queries are zeros. Committed with the first tile.
+  // gi; rows of dead queries and dead rows are zeros. Committed with the
+  // first tile.
   {
     constexpr int kChunks = G::kRowBytes / 16;
     const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
@@ -801,10 +842,11 @@ __device__ __forceinline__ void mma_item(const RaggedArgs& a, const Block& bk,
       const int rr = i / kChunks;
       const int c = i - rr * kChunks;
       const int qi = q0 + rr / g;
-      const bool ok = qi < qlen;
+      const bool ok = qi < qlen && row_ok(a, bk, tq, rr);
       const long long e =
-          ((static_cast<long long>(r) * a.qmax + (ok ? qi : 0)) * a.h +
-           kh * g + rr % g) * DH + c * 8;
+          ok ? ((static_cast<long long>(r) * a.qmax + qi) * a.h + bk.head0 +
+                rr % g) * DH + c * 8
+             : 0;
       cp_async16(q_tile + rr * G::kStride + c * 16, q + e, ok);
     }
   }
@@ -894,14 +936,14 @@ __device__ __forceinline__ void mma_item(const RaggedArgs& a, const Block& bk,
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
   auto out_row = [&](int rr) {
     return out + ((static_cast<long long>(r) * a.qmax + q0 + rr / g) * a.h +
-                  kh * g + rr % g) * DH;
+                  bk.head0 + rr % g) * DH;
   };
   if (wpm == 1) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int rr = 16 * warp + lane / 4 + 8 * h;
       const int qi = qrow[h];
-      if (qi >= a.qmax) continue;
+      if (!row_ok(a, bk, tq, rr) || qi >= a.qmax) continue;
       const float inv = 1.f / fmaxf(l[h], 1e-30f);
       uint32_t* o = reinterpret_cast<uint32_t*>(out_row(rr) + 2 * (lane % 4));
 #pragma unroll
@@ -952,7 +994,7 @@ __device__ __forceinline__ void mma_item(const RaggedArgs& a, const Block& bk,
     for (int i = threadIdx.x; i < live_rows * (DH / 4); i += kMmaThreads) {
       const int rr = i / (DH / 4);      // block row
       const int d = 4 * (i % (DH / 4));
-      if (q0 + rr / g >= a.qmax) continue;
+      if (!row_ok(a, bk, tq, rr) || q0 + rr / g >= a.qmax) continue;
       if (q0 + rr / g >= qlen) {        // a dead query of a live m-tile
         *reinterpret_cast<uint2*>(out_row(rr) + d) = make_uint2(0u, 0u);
         continue;
@@ -975,7 +1017,7 @@ __device__ __forceinline__ void mma_item(const RaggedArgs& a, const Block& bk,
     for (int i = threadIdx.x; i < (kMmaRows - live_rows) * (DH / 8);
          i += kMmaThreads) {
       const int rr = live_rows + i / (DH / 8);
-      if (q0 + rr / g >= a.qmax) continue;
+      if (!row_ok(a, bk, tq, rr) || q0 + rr / g >= a.qmax) continue;
       reinterpret_cast<uint4*>(out_row(rr))[i % (DH / 8)] =
           make_uint4(0, 0, 0, 0);
     }
@@ -984,8 +1026,9 @@ __device__ __forceinline__ void mma_item(const RaggedArgs& a, const Block& bk,
   // writeback: the fresh K/V of this tile's queries -> pool positions
   // ctx + qi (the logical page clamped to the table, as the plain
   // version), 16 bytes a copy; into e4m3 pools 8 values a step, rounded
-  // as the tile attended them
-  if constexpr (kIsFp8<TKV>) {
+  // as the tile attended them. The KV head's first sub-group alone.
+  if (bk.sub != 0) {
+  } else if constexpr (kIsFp8<TKV>) {
     constexpr int kChunks = G::kRowBytes / 16;     // 8 values a piece
     const long long fused = static_cast<long long>(a.hkv) * DH;
     char* kw = static_cast<char*>(a.k_pages);
@@ -1041,7 +1084,7 @@ template <int DH>
 __device__ __forceinline__ int pair_cost(const RaggedArgs& a, int p,
                                          const int* q_lens,
                                          const int* ctx_lens) {
-  const int g = a.h / a.hkv;
+  const int g = a.gs;
   const int tq = kMmaRows / g;
   const int r = a.r - 1 - p % a.r;
   const int q0 = (a.n_tiles - 1 - p / a.r) * tq;
@@ -1075,10 +1118,9 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   __shared__ int order[kMaxPairs];
   const int n_blocks = gridDim.x;
   const int n_pairs = a.r * a.n_tiles;
-  const int g = a.h / a.hkv;
-  const int tq = kMmaRows / g;
+  const int tq = kMmaRows / a.gs;
   if (a.r > kMaxRows || n_pairs > kMaxPairs) {
-    const int n_items = n_pairs * a.hkv;
+    const int n_items = n_pairs * a.vh;
     for (int item = blockIdx.x; item < n_items; item += n_blocks)
       mma_item<DH, TKV>(a, block_of(a, item), mma_smem, pages, a.q_lens,
                         a.ctx_lens);
@@ -1104,15 +1146,15 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     order[at] = p;
   }
   __syncthreads();
-  const int n_items = n_pairs * a.hkv;
+  const int n_items = n_pairs * a.vh;
   for (int k = 0; k * n_blocks < n_items; ++k) {
     const int i = k * n_blocks +
                   ((k & 1) ? n_blocks - 1 - blockIdx.x : blockIdx.x);
     if (i >= n_items) continue;
-    const int p = order[i / a.hkv];
-    const Block bk = block_of(a, p * a.hkv + i % a.hkv);
+    const int p = order[i / a.vh];
+    const Block bk = block_of(a, p * a.vh + i % a.vh);
     if (cost[p] == 0)
-      zero_tile<DH>(a, bk.r, bk.kh, g, bk.tile * tq, tq);
+      zero_tile<DH>(a, bk, bk.tile * tq, tq);
     else
       mma_item<DH, TKV>(a, bk, mma_smem, pages, q_lens, ctx_lens);
   }
@@ -1161,7 +1203,7 @@ cudaError_t launch_simt(const RaggedArgs& a, cudaStream_t stream) {
     attr_set = true;
   }
   ragged_simt_kernel<TQ, TKV, E>
-      <<<a.r * a.hkv * a.n_tiles, kThreads, kSmem, stream>>>(a);
+      <<<a.r * a.vh * a.n_tiles, kThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1184,10 +1226,11 @@ cudaError_t simt_by_width(int e, const RaggedArgs& a, cudaStream_t st) {
 // positions [ctx_lens[r], ctx_lens[r] + q_lens[r]) of row r's pages; out
 // [R, Qmax, H, Dh] in q_dtype. n_tiles query tiles a row and grid, the
 // tensor-core instance's persistent block count (the host's ragged_plan):
-// tiles of 128 / (H/Hkv) queries for bf16 q over bf16 or e4m3 (kFP8)
-// pools (the tensor cores), 64 / (H/Hkv) for every other pair (one block a
-// tile, grid not read); (H/Hkv) must divide 64. Returns the launch's
-// cudaGetLastError() (0 on success).
+// tiles of floor(128 / gs) queries for bf16 q over bf16 or e4m3 (kFP8)
+// pools (the tensor cores), floor(64 / gs) for every other pair (one block
+// a tile, grid not read), gs = min(H/Hkv, 64) the heads of an item (any
+// H/Hkv: above 64 a KV head's heads take ceil((H/Hkv) / 64) items).
+// Returns the launch's cudaGetLastError() (0 on success).
 extern "C" int die_ragged_attention(
     const void* q, const void* fresh_k, const void* fresh_v, void* k_pages,
     void* v_pages, const int* page_table, const int* ctx_lens,
@@ -1196,11 +1239,13 @@ extern "C" int die_ragged_attention(
     int q_dtype, int kv_dtype, void* stream) {
   using namespace die;
   if (r <= 0 || qmax <= 0) return 0;
-  if (hkv <= 0 || h % hkv || kRows % (h / hkv) || dh % 32)
+  if (hkv <= 0 || h % hkv || h == 0 || dh % 32)
     return cudaErrorInvalidValue;
   const bool mma =
       q_dtype == kBF16 && (kv_dtype == kBF16 || kv_dtype == kFP8);
-  const int tq = (mma ? kMmaRows : kRows) / (h / hkv);
+  const int g = h / hkv;
+  const int gs = g < kRows ? g : kRows;
+  const int tq = (mma ? kMmaRows : kRows) / gs;
   if (n_tiles <= 0 || static_cast<long long>(n_tiles) * tq < qmax ||
       (n_tiles - 1) * tq >= qmax || (mma && grid <= 0))
     return cudaErrorInvalidValue;
@@ -1218,6 +1263,10 @@ extern "C" int die_ragged_attention(
   a.qmax = qmax;
   a.h = h;
   a.hkv = hkv;
+  a.g = g;
+  a.gs = gs;
+  a.n_sub = (g + gs - 1) / gs;
+  a.vh = hkv * a.n_sub;
   a.page_size = page_size;
   a.mp = mp;
   a.n_tiles = n_tiles;

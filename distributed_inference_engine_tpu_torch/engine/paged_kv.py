@@ -50,6 +50,12 @@ class PagedKVCache:
                  num_pages: int = 512, max_seq_len: Optional[int] = None,
                  dtype: Optional[str] = None, device="cuda") -> None:
         fused = spec.n_kv_heads * spec.head_dim
+        if fused % 128:
+            # the JAX cache's rule (its TPU lane width), kept so that both
+            # engines take the same specs
+            raise ValueError(
+                f"n_kv_heads*head_dim = {fused} must be a multiple of 128 "
+                "for the paged layout (TPU lane alignment)")
         self.spec = spec
         self.max_slots = max_slots
         self.page_size = page_size

@@ -1,6 +1,7 @@
 """Model specs and the config-driven engine factory of the port (the
-``models/__init__.py:engine_from_config`` subset for ``architecture``
-``llama``, ``mistral`` and ``fake``).
+``models/__init__.py:engine_from_config`` subset for the dense families
+``llama``, ``mistral``, ``qwen``, ``gemma`` and ``gpt2``, and ``fake``;
+``mixtral`` raises).
 """
 
 from __future__ import annotations
@@ -11,14 +12,20 @@ from typing import Any
 
 import torch
 
-from .base import ModelSpec
+from .base import ModelSpec, random_quantized_params
+from .gemma import gemma_spec
+from .gpt2 import gpt2_spec
 from .llama import llama_spec
 from .mistral import mistral_spec
+from .qwen import qwen_spec
+
 
 # family prefix -> (spec factory, default size), as in the JAX package;
-# an architecture string like "mistral-7b-v01" selects the size directly
+# an architecture string like "qwen2-7b" selects the size directly
 _FAMILIES = {
+    "qwen": (qwen_spec, "qwen2-7b"),
     "mistral": (mistral_spec, "mistral-7b"),
+    "gemma": (gemma_spec, "gemma-7b"),
     "llama": (llama_spec, "llama3-8b"),
 }
 
@@ -36,14 +43,22 @@ ENGINE_KEYS = ("page_size", "num_pages", "decode_steps_per_call",
 
 def spec_for_architecture(architecture: str, size: str = "",
                           max_seq_len: int = 0) -> ModelSpec:
+    """The JAX package's one spec-selection rule: ``gpt2*`` by its own
+    name (an unknown size raises), else the first family prefix, sized by
+    ``size``, the architecture string itself when it names a size, or the
+    family default. Mixtral (mixture-of-experts) raises."""
     overrides = {"max_seq_len": max_seq_len} if max_seq_len else {}
+    if architecture.startswith("mixtral"):
+        raise NotImplementedError(
+            f"architecture {architecture!r} (mixture-of-experts: "
+            "ops/moe.py) is not ported to PyTorch yet (ROADMAP.md A9)")
+    if architecture.startswith("gpt2"):
+        return gpt2_spec(size or architecture, **overrides)
     for prefix, (factory, default) in _FAMILIES.items():
         if architecture.startswith(prefix):
             name = size or (architecture if "-" in architecture else default)
             return factory(name, **overrides)
-    raise NotImplementedError(
-        f"architecture {architecture!r} is not ported to PyTorch yet "
-        "(ROADMAP.md A9)")
+    raise ValueError(f"unknown architecture {architecture!r}")
 
 
 def _coerce(default: Any, value: Any) -> Any:
@@ -108,12 +123,11 @@ def engine_from_config(cfg, device="cuda"):
     Reads ``size``, ``continuous=1``, ``dtype``, ``quantized`` (with
     metadata ``weight_bits``, 8 by default, or 4) and the engine metadata
     keys; what the port lacks raises ``NotImplementedError``. A quantized
-    model is born quantized (``ops/quant.py:random_quantized_params``).
+    model is born quantized (``models/base.py:random_quantized_params``).
     ``architecture="fake"`` builds a fake engine
     (``fake_engine_from_config``)."""
     from ..config import EngineConfig
     from ..engine.continuous import ContinuousEngine
-    from ..ops.quant import random_quantized_params
 
     arch = cfg.architecture.lower()
     if arch == "fake":

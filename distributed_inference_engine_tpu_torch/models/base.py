@@ -28,10 +28,21 @@ stored bits, the mixed step rounds before attending (inside the ragged
 kernel), and the window decode keeps its side window in the compute dtype
 until the chunk-end flush.
 
-The slice carries RoPE + RMSNorm + SwiGLU/GeGLU + GQA without biases,
-with Mistral's sliding window: a spec with experts, learned positions,
-biases, LayerNorm or a logit softcap raises ``NotImplementedError``
-(``ModelSpec.check_supported``).
+The port carries every dense family of the JAX package: Llama and
+Mistral (RoPE, RMSNorm, SwiGLU, GQA, Mistral's sliding window), Qwen2
+(biases on q/k/v), Gemma (head_dim apart from d_model/n_heads, embeddings
+scaled by sqrt(d_model), RMSNorm over (1 + w), GeGLU, tied embeddings)
+and GPT-2 (learned positions, LayerNorm with biases, biases on every
+projection, an ungated GELU MLP), with the logit softcap. A spec with
+experts (Mixtral) raises ``NotImplementedError``
+(``ModelSpec.check_supported``). The fused decode seams take their
+kernels only where the JAX seams do (RMSNorm, no bias, a gated MLP);
+every other spec takes the unfused chain.
+
+Learned positions are gathered with the index clamped to the table, as a
+JAX gather clamps: the padded rows of the mixed step's lattice and idle
+decode slots carry positions past the table, which a torch index would
+reject (on the card, with a device-side assert).
 """
 
 from __future__ import annotations
@@ -64,9 +75,15 @@ from ..ops.fused_decode import (
     norm_matmul,
     norm_matmul_wants,
 )
-from ..ops.norms import rms_norm
+from ..ops.norms import layer_norm, rms_norm
 from ..ops.paged_attention import paged_attention
-from ..ops.quant import QuantizedTensor, matmul_any
+from ..ops.quant import (
+    _BLOCK_WEIGHTS,
+    QuantizedTensor,
+    _pad_vocab,
+    matmul_any,
+    pack_int4,
+)
 from ..ops.ragged_attention import ragged_attention
 from ..ops.rope import apply_rope
 
@@ -133,28 +150,32 @@ class ModelSpec:
         return torch_dtype(self.dtype)
 
     def validate(self) -> "ModelSpec":
+        """The JAX ``ModelSpec.validate`` checks, then ``check_supported``."""
         if not self.head_dim_override and self.d_model % self.n_heads:
             raise ValueError("d_model must divide by n_heads")
-        if self.sliding_window < 0:
-            raise ValueError("sliding_window must be >= 0")
         if self.n_heads % self.n_kv_heads:
             raise ValueError("n_heads must divide by n_kv_heads")
+        if self.pos_emb not in ("rope", "learned"):
+            raise ValueError(f"unknown pos_emb {self.pos_emb}")
+        if self.mlp not in ("swiglu", "gelu", "geglu"):
+            raise ValueError(f"unknown mlp {self.mlp}")
+        if self.sliding_window < 0:
+            raise ValueError("sliding_window must be >= 0")
+        if self.n_experts:
+            if not 1 <= self.experts_per_token <= self.n_experts:
+                raise ValueError(
+                    f"experts_per_token {self.experts_per_token} out of "
+                    f"range for {self.n_experts} experts")
+            if self.use_bias:
+                raise ValueError("MoE experts do not support biases")
         self.check_supported()
         return self
 
     def check_supported(self) -> None:
-        lacks = [name for name, on in (
-            ("mixture-of-experts", self.n_experts),
-            ("learned positions", self.pos_emb != "rope"),
-            ("biases", self.use_bias or self.qkv_bias),
-            ("LayerNorm", self.norm != "rmsnorm"),
-            ("logit softcap", self.logit_softcap),
-            (f"mlp={self.mlp!r}", self.mlp not in ("swiglu", "geglu")),
-        ) if on]
-        if lacks:
+        if self.n_experts:
             raise NotImplementedError(
-                f"model features not ported to PyTorch yet: "
-                f"{', '.join(lacks)} (ROADMAP.md A9)")
+                "mixture-of-experts (Mixtral: ops/moe.py) is not ported to "
+                "PyTorch yet (ROADMAP.md A9)")
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -172,18 +193,54 @@ class ModelSpec:
 # --------------------------------------------------------------------- init
 
 
+def param_shapes(spec: ModelSpec) -> Dict[str, Any]:
+    """Shapes of the JAX ``init_params`` tree for ``spec``: the stacked
+    block weights, the gated MLP's ``w_gate`` (swiglu, geglu) or the
+    ungated one's ``w_up``/``w_down`` alone (gelu), LayerNorm biases,
+    projection biases (``bq/bk/bv`` with ``qkv_bias`` or ``use_bias``;
+    ``bo/b_up/b_down`` with ``use_bias``), ``pos_emb`` for learned
+    positions, and ``lm_head`` only when the embeddings are untied."""
+    L, D, Fd, V = spec.n_layers, spec.d_model, spec.d_ff, spec.vocab_size
+    H, Hkv, Dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    blocks: Dict[str, Tuple[int, ...]] = {
+        "ln1_scale": (L, D), "ln2_scale": (L, D),
+        "wq": (L, D, H * Dh), "wk": (L, D, Hkv * Dh),
+        "wv": (L, D, Hkv * Dh), "wo": (L, H * Dh, D)}
+    if spec.mlp in ("swiglu", "geglu"):
+        blocks["w_gate"] = (L, D, Fd)
+    blocks["w_up"] = (L, D, Fd)
+    blocks["w_down"] = (L, Fd, D)
+    if spec.norm == "layernorm":
+        blocks["ln1_bias"] = (L, D)
+        blocks["ln2_bias"] = (L, D)
+    if spec.use_bias or spec.qkv_bias:
+        blocks.update(bq=(L, H * Dh), bk=(L, Hkv * Dh), bv=(L, Hkv * Dh))
+    if spec.use_bias:
+        blocks.update(bo=(L, D), b_up=(L, Fd), b_down=(L, D))
+    shapes: Dict[str, Any] = {"tok_emb": (V, D), "blocks": blocks,
+                              "lnf_scale": (D,)}
+    if spec.norm == "layernorm":
+        shapes["lnf_bias"] = (D,)
+    if spec.pos_emb == "learned":
+        shapes["pos_emb"] = (spec.max_seq_len, D)
+    if not spec.tie_embeddings:
+        shapes["lm_head"] = (D, V)
+    return shapes
+
+
 def init_params(spec: ModelSpec, generator: torch.Generator) -> Params:
     """Random-init parameters on the generator's device: normal(0.02),
-    depth-scaled output projections (the JAX scheme; the draws differ).
-    Stacked weights are drawn one layer at a time in fp32 and cast, so
-    the fp32 transient is one layer, not the model."""
+    depth-scaled output projections, norm scales at one and biases at zero
+    (the JAX scheme; the draws differ). Stacked weights are drawn one
+    layer at a time in fp32 and cast, so the fp32 transient is one layer,
+    not the model."""
     spec.validate()
     dev = generator.device
     dt = spec.torch_dtype
-    L, D, Fd, V = spec.n_layers, spec.d_model, spec.d_ff, spec.vocab_size
-    H, Hkv, Dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    L = spec.n_layers
     std = 0.02
     out_std = std / float(np.sqrt(2.0 * L))
+    shapes = param_shapes(spec)
 
     def normal(shape, s=std, stacked=False):
         if not stacked:
@@ -195,25 +252,98 @@ def init_params(spec: ModelSpec, generator: torch.Generator) -> Params:
                                      device=dev) * s
         return out
 
-    blocks: Params = {
-        "ln1_scale": torch.ones((L, D), dtype=dt, device=dev),
-        "ln2_scale": torch.ones((L, D), dtype=dt, device=dev),
-        "wq": normal((L, D, H * Dh), stacked=True),
-        "wk": normal((L, D, Hkv * Dh), stacked=True),
-        "wv": normal((L, D, Hkv * Dh), stacked=True),
-        "wo": normal((L, H * Dh, D), out_std, stacked=True),
-        "w_gate": normal((L, D, Fd), stacked=True),
-        "w_up": normal((L, D, Fd), stacked=True),
-        "w_down": normal((L, Fd, D), out_std, stacked=True),
-    }
-    params: Params = {
-        "tok_emb": normal((V, D)),
-        "blocks": blocks,
-        "lnf_scale": torch.ones((D,), dtype=dt, device=dev),
-    }
-    if not spec.tie_embeddings:
-        params["lm_head"] = normal((D, V))
+    def fixed(shape, value: float):
+        return torch.full(shape, value, dtype=dt, device=dev)
+
+    # weights in the order the Llama tree has always drawn them
+    blocks: Params = {}
+    for name, shape in shapes["blocks"].items():
+        if name.endswith("_scale"):
+            blocks[name] = fixed(shape, 1.0)
+        elif name.startswith("w"):
+            blocks[name] = normal(shape, out_std if name in ("wo", "w_down")
+                                  else std, stacked=True)
+        else:                                    # biases
+            blocks[name] = fixed(shape, 0.0)
+    params: Params = {"tok_emb": normal(shapes["tok_emb"]), "blocks": blocks,
+                      "lnf_scale": fixed(shapes["lnf_scale"], 1.0)}
+    if "lnf_bias" in shapes:
+        params["lnf_bias"] = fixed(shapes["lnf_bias"], 0.0)
+    if "lm_head" in shapes:
+        params["lm_head"] = normal(shapes["lm_head"])
+    if "pos_emb" in shapes:
+        params["pos_emb"] = normal(shapes["pos_emb"])
     return params
+
+
+def random_quantized_params(spec, generator: torch.Generator,
+                            w_std: float = 0.02,
+                            bits: int = 8) -> Dict[str, Any]:
+    """A quantized tree born quantized on the generator's device: no
+    full-precision tree is built (an 8B bf16 tree plus its fp32 working
+    copy would not be needed to serve int4). Payloads are uniform in
+    [-127, 127] (int8) or two uniform nibbles in [-7, 7] per byte (int4,
+    drawn packed), at a constant scale that puts the effective weight std
+    at ``w_std``; norms are ones, biases zeros, embeddings (``pos_emb``
+    too) ``normal * w_std``, the tree of ``param_shapes``
+    (no ``lm_head`` when tied). The draws differ from the JAX package's;
+    the statistics are the same. The int4 LM head is vocab-padded."""
+    spec.validate()
+    dev = generator.device
+    dt = spec.torch_dtype
+
+    def q_leaf(shape, axis: int) -> QuantizedTensor:
+        s_shape = tuple(1 if i == axis else d for i, d in enumerate(shape))
+        if bits == 8:
+            # discrete-uniform std over [-n, n]: sqrt(n (n + 1) / 3)
+            q = torch.randint(-127, 128, shape, generator=generator,
+                              device=dev, dtype=torch.int8)
+            std = (127 * 128 / 3.0) ** 0.5
+            return QuantizedTensor(q=q, s=torch.full(
+                s_shape, w_std / std, dtype=torch.float32, device=dev))
+        if bits != 4:
+            raise ValueError(f"bits must be 4 or 8, got {bits}")
+        if shape[axis] % 2:
+            raise ValueError(f"int4 pack axis {axis} has odd size "
+                             f"{shape[axis]}")
+        half = tuple(d // 2 if i == axis else d for i, d in enumerate(shape))
+        q = torch.empty(half, dtype=torch.int8, device=dev)
+        # one layer (or the head) at a time: the int16 packing transient
+        # stays small
+        for dst in (q if len(half) == 3 else [q]):
+            lo = torch.randint(-7, 8, dst.shape, generator=generator,
+                               device=dev, dtype=torch.int8)
+            hi = torch.randint(-7, 8, dst.shape, generator=generator,
+                               device=dev, dtype=torch.int8)
+            dst.copy_(pack_int4(lo, hi))
+        std = (7 * 8 / 3.0) ** 0.5
+        return QuantizedTensor(
+            q=q, s=torch.full(s_shape, w_std / std, dtype=torch.float32,
+                              device=dev),
+            bits=4, pack_axis=axis - len(shape))
+
+    def f_leaf(name, shape) -> torch.Tensor:
+        if "scale" in name:
+            return torch.ones(shape, dtype=dt, device=dev)
+        if "bias" in name or name.startswith("b"):     # as in JAX
+            return torch.zeros(shape, dtype=dt, device=dev)
+        return (torch.randn(shape, generator=generator, device=dev)
+                * w_std).to(dt)
+
+    shapes = param_shapes(spec)
+    blocks = {name: (q_leaf(shape, 1) if name in _BLOCK_WEIGHTS
+                     else f_leaf(name, shape))
+              for name, shape in shapes["blocks"].items()}
+    out: Dict[str, Any] = {}
+    for name, shape in shapes.items():
+        if name == "blocks":
+            out[name] = blocks
+        elif name == "lm_head":
+            d, v = shape
+            out[name] = q_leaf((d, _pad_vocab(v) if bits == 4 else v), 0)
+        else:
+            out[name] = f_leaf(name, shape)
+    return out
 
 
 def layer_view(params: Params, layer: int) -> Params:
@@ -224,8 +354,10 @@ def layer_view(params: Params, layer: int) -> Params:
 # ------------------------------------------------------------------ helpers
 
 
-def _norm(spec: ModelSpec, x: torch.Tensor, scale: torch.Tensor
-          ) -> torch.Tensor:
+def _norm(spec: ModelSpec, x: torch.Tensor, scale: torch.Tensor,
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if spec.norm == "layernorm":
+        return layer_norm(x, scale, bias, spec.norm_eps)
     if spec.norm_plus_one:
         scale = scale.float() + 1.0        # Gemma stores (w - 1)
     return rms_norm(x, scale, spec.norm_eps)
@@ -234,18 +366,33 @@ def _norm(spec: ModelSpec, x: torch.Tensor, scale: torch.Tensor
 def _act(spec: ModelSpec, gate: torch.Tensor) -> torch.Tensor:
     if spec.mlp == "swiglu":
         return F.silu(gate.float())
-    return F.gelu(gate.float(), approximate="tanh")       # geglu
+    return F.gelu(gate.float(), approximate="tanh")       # geglu, gelu
+
+
+def _gated(spec: ModelSpec) -> bool:
+    return spec.mlp in ("swiglu", "geglu")
 
 
 def _mlp(spec: ModelSpec, blk: Params, x: torch.Tensor) -> torch.Tensor:
-    if "w_gate_up" in blk:
-        # fused gate|up int4 payload (ops/quant.py:fuse_block_weights)
-        gate, up = matmul_any(x, blk["w_gate_up"]).chunk(2, dim=-1)
+    """Gated (swiglu, geglu): act(x W_gate) * x W_up, then W_down. GPT-2's
+    ungated gelu: gelu(x W_up + b_up), then W_down + b_down."""
+    if not _gated(spec):
+        h = matmul_any(x, blk["w_up"])
+        if spec.use_bias:
+            h = h + blk["b_up"]
+        h = _act(spec, h).to(x.dtype)
     else:
-        gate = matmul_any(x, blk["w_gate"])
-        up = matmul_any(x, blk["w_up"])
-    h = _act(spec, gate).to(x.dtype) * up
-    return matmul_any(h, blk["w_down"])
+        if "w_gate_up" in blk:
+            # fused gate|up int4 payload (ops/quant.py:fuse_block_weights)
+            gate, up = matmul_any(x, blk["w_gate_up"]).chunk(2, dim=-1)
+        else:
+            gate = matmul_any(x, blk["w_gate"])
+            up = matmul_any(x, blk["w_up"])
+        h = _act(spec, gate).to(x.dtype) * up
+    out = matmul_any(h, blk["w_down"])
+    if spec.use_bias:
+        out = out + blk["b_down"]
+    return out
 
 
 def _qkv(spec: ModelSpec, blk: Params, x: torch.Tensor,
@@ -253,21 +400,31 @@ def _qkv(spec: ModelSpec, blk: Params, x: torch.Tensor,
     b, t, _ = x.shape
     H, Hkv, Dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
     if "w_qkv" in blk:
-        # fused q|k|v int4 payload (ops/quant.py:fuse_block_weights)
+        # fused q|k|v int4 payload (ops/quant.py:fuse_block_weights; never
+        # built where q/k/v biases exist)
         q, k, v = matmul_any(x, blk["w_qkv"]).split(
             [H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
     else:
         q = matmul_any(x, blk["wq"])
         k = matmul_any(x, blk["wk"])
         v = matmul_any(x, blk["wv"])
-    q = apply_rope(q.reshape(b, t, H, Dh), positions, spec.rope_theta)
-    k = apply_rope(k.reshape(b, t, Hkv, Dh), positions, spec.rope_theta)
+        if spec.use_bias or spec.qkv_bias:
+            q, k, v = q + blk["bq"], k + blk["bk"], v + blk["bv"]
+    q = q.reshape(b, t, H, Dh)
+    k = k.reshape(b, t, Hkv, Dh)
+    if spec.pos_emb == "rope":
+        q = apply_rope(q, positions, spec.rope_theta)
+        k = apply_rope(k, positions, spec.rope_theta)
     return q, k, v.reshape(b, t, Hkv, Dh)
 
 
-def _out_proj(blk: Params, attn_out: torch.Tensor) -> torch.Tensor:
+def _out_proj(spec: ModelSpec, blk: Params, attn_out: torch.Tensor
+              ) -> torch.Tensor:
     b, t, h, dh = attn_out.shape
-    return matmul_any(attn_out.reshape(b, t, h * dh), blk["wo"])
+    out = matmul_any(attn_out.reshape(b, t, h * dh), blk["wo"])
+    if spec.use_bias:
+        out = out + blk["bo"]
+    return out
 
 
 # ------------------------------------------------ fused decode seams
@@ -276,12 +433,15 @@ def _out_proj(blk: Params, attn_out: torch.Tensor) -> torch.Tensor:
 def _qkv_norm(spec: ModelSpec, blk: Params, x: torch.Tensor,
               positions: torch.Tensor, fused: bool = False):
     """ln1 + QKV, the norm folded into three ``norm_matmul`` launches when
-    the weights are eligible (plain; a quantized or fused tree takes the
-    unfused chain, as in JAX)."""
+    the spec and the weights are eligible: RMSNorm and no bias, as in
+    JAX, and plain weights (a quantized or fused tree takes the unfused
+    chain, as in JAX)."""
     b, t, d = x.shape
     x2 = x.reshape(b * t, d)
-    if fused and all(norm_matmul_wants(x2, blk.get(m))
-                     for m in ("wq", "wk", "wv")):
+    if fused and spec.norm != "layernorm" and blk.get("ln1_bias") is None \
+            and not (spec.use_bias or spec.qkv_bias) \
+            and all(norm_matmul_wants(x2, blk.get(m))
+                    for m in ("wq", "wk", "wv")):
         H, Hkv, Dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
 
         def nm(w):
@@ -291,32 +451,40 @@ def _qkv_norm(spec: ModelSpec, blk: Params, x: torch.Tensor,
         q = nm(blk["wq"]).reshape(b, t, H, Dh)
         k = nm(blk["wk"]).reshape(b, t, Hkv, Dh)
         v = nm(blk["wv"]).reshape(b, t, Hkv, Dh)
-        # RoPE stays outside the kernel, as in the JAX package
-        return (apply_rope(q, positions, spec.rope_theta),
-                apply_rope(k, positions, spec.rope_theta), v)
-    return _qkv(spec, blk, _norm(spec, x, blk["ln1_scale"]), positions)
+        if spec.pos_emb == "rope":
+            # RoPE stays outside the kernel, as in the JAX package
+            q = apply_rope(q, positions, spec.rope_theta)
+            k = apply_rope(k, positions, spec.rope_theta)
+        return q, k, v
+    return _qkv(spec, blk, _norm(spec, x, blk["ln1_scale"],
+                                 blk.get("ln1_bias")), positions)
 
 
 def _out_residual(spec: ModelSpec, blk: Params, attn_out: torch.Tensor,
                   x: torch.Tensor, fused: bool = False) -> torch.Tensor:
-    """x + out_proj(attn), the residual folded into the epilogue."""
-    if fused:
+    """x + out_proj(attn), the residual folded into the epilogue (not
+    with an output bias, as in JAX)."""
+    if fused and not spec.use_bias:
         b, t, h, dh = attn_out.shape
         a2 = attn_out.reshape(b * t, h * dh)
         if matmul_residual_wants(a2, blk["wo"]):
             return matmul_residual(a2, blk["wo"],
                                    x.reshape(b * t, -1)).reshape(x.shape)
-    return x + _out_proj(blk, attn_out)
+    return x + _out_proj(spec, blk, attn_out)
 
 
 def _mlp_residual(spec: ModelSpec, blk: Params, x: torch.Tensor,
                   fused: bool = False) -> torch.Tensor:
     """ln2 + MLP + residual; fused: ln2 rides the gate/up projections and
-    the residual rides the down projection."""
+    the residual rides the down projection, where JAX fuses them (RMSNorm,
+    a gated MLP, no bias)."""
     b, t, d = x.shape
     x2 = x.reshape(b * t, d)
-    if fused and norm_matmul_wants(x2, blk.get("w_gate")) and \
-            norm_matmul_wants(x2, blk.get("w_up")):
+    if fused and spec.norm != "layernorm" and not spec.use_bias \
+            and _gated(spec) \
+            and blk.get("ln2_bias") is None \
+            and norm_matmul_wants(x2, blk.get("w_gate")) \
+            and norm_matmul_wants(x2, blk.get("w_up")):
         def nm(w):
             return norm_matmul(x2, blk["ln2_scale"], w, eps=spec.norm_eps,
                                plus_one=spec.norm_plus_one)
@@ -326,15 +494,21 @@ def _mlp_residual(spec: ModelSpec, blk: Params, x: torch.Tensor,
         if matmul_residual_wants(h, blk["w_down"]):
             return matmul_residual(h, blk["w_down"], x2).reshape(b, t, d)
         return x + matmul_any(h, blk["w_down"]).reshape(b, t, d)
-    return x + _mlp(spec, blk, _norm(spec, x, blk["ln2_scale"]))
+    return x + _mlp(spec, blk, _norm(spec, x, blk["ln2_scale"],
+                                     blk.get("ln2_bias")))
 
 
 def embed(spec: ModelSpec, params: Params, tokens: torch.Tensor,
           positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[B, T] tokens -> [B, T, D] activations."""
+    """[B, T] tokens -> [B, T, D] activations. Learned positions are
+    gathered at ``positions`` clamped to the table (the JAX gather's
+    clamp)."""
     x = params["tok_emb"][tokens.long()]
     if spec.emb_scale:
         x = x * torch.tensor(spec.d_model ** 0.5, dtype=x.dtype)
+    if spec.pos_emb == "learned":
+        table = params["pos_emb"]
+        x = x + table[torch.clamp(positions.long(), 0, table.shape[0] - 1)]
     return x
 
 
@@ -350,19 +524,24 @@ def unembed(spec: ModelSpec, params: Params, hidden: torch.Tensor
 
     A quantized head takes the normed hidden state in fp32 through
     ``matmul_any`` (the int4 kernel); an int4 head is vocab-padded, and
-    its zero pad columns are cut off here."""
-    h = _norm(spec, hidden, params["lnf_scale"])
+    its zero pad columns are cut off here, before the softcap
+    ``cap * tanh(logits / cap)``."""
+    h = _norm(spec, hidden, params["lnf_scale"], params.get("lnf_bias"))
     w = params["tok_emb"].t() if spec.tie_embeddings else params["lm_head"]
     if isinstance(w, QuantizedTensor):
-        return matmul_any(h.float(), w)[..., : spec.vocab_size]
-    h = h.to(w.dtype)
-    if w.dtype == torch.float32:
-        return h @ w
-    if h.device.type == "cpu":
-        return h.float() @ w.float()
-    h2 = h.reshape(-1, h.shape[-1])
-    return torch.mm(h2, w, out_dtype=torch.float32).reshape(
-        *h.shape[:-1], w.shape[-1])
+        logits = matmul_any(h.float(), w)[..., : spec.vocab_size]
+    elif w.dtype == torch.float32:
+        logits = h.to(w.dtype) @ w
+    elif h.device.type == "cpu":
+        logits = h.to(w.dtype).float() @ w.float()
+    else:
+        h2 = h.to(w.dtype).reshape(-1, h.shape[-1])
+        logits = torch.mm(h2, w, out_dtype=torch.float32).reshape(
+            *h.shape[:-1], w.shape[-1])
+    if spec.logit_softcap:
+        cap = spec.logit_softcap
+        logits = cap * torch.tanh(logits / cap)
+    return logits
 
 
 # ------------------------------------------------------------------ prefill
@@ -371,10 +550,10 @@ def unembed(spec: ModelSpec, params: Params, hidden: torch.Tensor
 def transformer_block(spec: ModelSpec, blk: Params, x: torch.Tensor,
                       positions: torch.Tensor, attn_fn):
     """One pre-norm block over fresh K/V -> (x_out, k, v)."""
-    h = _norm(spec, x, blk["ln1_scale"])
+    h = _norm(spec, x, blk["ln1_scale"], blk.get("ln1_bias"))
     q, k, v = _qkv(spec, blk, h, positions)
-    x = x + _out_proj(blk, attn_fn(q, k, v))
-    h2 = _norm(spec, x, blk["ln2_scale"])
+    x = x + _out_proj(spec, blk, attn_fn(q, k, v))
+    h2 = _norm(spec, x, blk["ln2_scale"], blk.get("ln2_bias"))
     return x + _mlp(spec, blk, h2), k, v
 
 
@@ -480,12 +659,13 @@ def forward_prefill_suffix(spec: ModelSpec, params: Params,
     ks, vs = [], []
     for layer in range(spec.n_layers):
         blk = layer_view(params, layer)
-        h = _norm(spec, x, blk["ln1_scale"])
+        h = _norm(spec, x, blk["ln1_scale"], blk.get("ln1_bias"))
         q, k, v = _qkv(spec, blk, h, positions)
         attn = suffix_attention(q, k_ctx[layer], v_ctx[layer], ctx, k, v,
                                 slen, window=spec.sliding_window)
-        x = x + _out_proj(blk, attn)
-        x = x + _mlp(spec, blk, _norm(spec, x, blk["ln2_scale"]))
+        x = x + _out_proj(spec, blk, attn)
+        x = x + _mlp(spec, blk, _norm(spec, x, blk["ln2_scale"],
+                                      blk.get("ln2_bias")))
         ks.append(k)
         vs.append(v)
     return x, torch.stack(ks), torch.stack(vs)
@@ -695,14 +875,15 @@ def forward_mixed_step(
     vp_flat = v_pages.view(L * n, p, fusedw)
     for layer in range(L):
         blk = layer_view(params, layer)
-        h = _norm(spec, x, blk["ln1_scale"])
+        h = _norm(spec, x, blk["ln1_scale"], blk.get("ln1_bias"))
         q, k, v = _qkv(spec, blk, h, positions)
         attn, _, _ = ragged_attention(
             q.contiguous(), kp_flat, vp_flat, table, ctx, ql,
             k.contiguous(), v.contiguous(), n_kv_heads=spec.n_kv_heads,
             layer=layer, n_pages_per_layer=n)
-        x = x + _out_proj(blk, attn)
-        x = x + _mlp(spec, blk, _norm(spec, x, blk["ln2_scale"]))
+        x = x + _out_proj(spec, blk, attn)
+        x = x + _mlp(spec, blk, _norm(spec, x, blk["ln2_scale"],
+                                      blk.get("ln2_bias")))
     if return_hidden_all:
         return x, k_pages, v_pages
     last = x[torch.arange(r, device=dev), torch.clamp(ql.long() - 1, min=0)]

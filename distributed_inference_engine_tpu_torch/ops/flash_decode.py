@@ -16,7 +16,11 @@ place (the JAX function donated the side buffers and returned new ones).
 Stacked pools: the engine passes the whole ``[L*N, P, Hkv*Dh]`` pool and
 ``layer``; page p of slot b lives at row ``layer*N + page_table[b, p]``.
 
-Both kernels cut each slot's prefix into ``n_split`` runs of ``chunk``
+Both kernels take any query-head group ``G = H / Hkv``, as the JAX
+launchers do: a KV head's G query heads are cut into sub-groups of the
+kernels' 1, 2, 4 or 8-row instances (``paged_attention.py:subgroup``;
+Qwen2's G = 7 is one sub-group of 8, its last row dead), one block a
+sub-group. Both kernels cut each slot's prefix into ``n_split`` runs of ``chunk``
 keys (``paged_split`` on ``mp * page_size`` keys: shapes only, the lengths
 are never read back), one block per (slot, KV head, run); the last run also
 takes the side window. The runs' fp32 partials merge in the same launch
@@ -37,7 +41,7 @@ import torch
 
 from . import _cuda
 from .attention import merge_attention, window_decode_attention
-from .paged_attention import paged_attention_xla, paged_split
+from .paged_attention import paged_attention_xla, paged_split, subgroup
 
 # the shortest run of prefix keys a block takes (paged_split's
 # min_chunk): a lone slot at 8 KV heads gets 32 runs, not the paged
@@ -88,8 +92,8 @@ def _check_decode(name, q, k_pages, v_pages, page_table, prefix_lens,
     w = side_k.shape[1]
     _cuda.require(q.device.type == "cuda", f"{name}: unsupported device "
                   f"{q.device}")
-    _cuda.require(h % n_kv_heads == 0 and h // n_kv_heads in (1, 2, 4, 8),
-                  f"{name}: H/Hkv = {h}/{n_kv_heads} must be 1, 2, 4 or 8")
+    _cuda.require(n_kv_heads > 0 and h % n_kv_heads == 0,
+                  f"{name}: H = {h} is not a multiple of Hkv = {n_kv_heads}")
     _cuda.require(dh % 32 == 0 and dh // 32 in (1, 2, 4, 8),
                   f"{name}: head_dim {dh} must be 32, 64, 128 or 256")
     _cuda.require(fused == n_kv_heads * dh and v_pages.shape ==
@@ -117,10 +121,12 @@ def _check_decode(name, q, k_pages, v_pages, page_table, prefix_lens,
 
 
 def flash_decode_split(b: int, n_kv_heads: int, page_size: int, mp: int,
-                       device: torch.device) -> Tuple[int, int]:
+                       device: torch.device, n_sub: int = 1
+                       ) -> Tuple[int, int]:
     """(n_split, chunk) of the kernels' grid: the most prefix keys a slot
-    can hold (``mp * page_size``) over ``paged_split``."""
-    return paged_split(b, n_kv_heads, max(1, mp * page_size),
+    can hold (``mp * page_size``) over ``paged_split``, for ``n_sub``
+    query-head sub-groups a KV head (``subgroup``)."""
+    return paged_split(b, n_kv_heads * n_sub, max(1, mp * page_size),
                        _cuda.sm_count(device.index), min_chunk=MIN_CHUNK)
 
 
@@ -165,9 +171,11 @@ def _launch(name, fn, q, k_pages, page_table, side_k, n_kv_heads, base,
     """Size the split grid, take the scratch, launch ``fn`` and count."""
     b, h, dh = q.shape
     page_size, mp = k_pages.shape[1], page_table.shape[1]
+    _gs, n_sub = subgroup(h // n_kv_heads)
     n_split, chunk = flash_decode_split(b, n_kv_heads, page_size, mp,
-                                        q.device)
-    ws, cnt = _scratch(q.device, b * h * n_split * (dh + 2), b * n_kv_heads)
+                                        q.device, n_sub)
+    ws, cnt = _scratch(q.device, b * h * n_split * (dh + 2),
+                       b * n_kv_heads * n_sub)
     out = torch.empty_like(q)
     err = fn(*pointers, out.data_ptr(), ws.data_ptr(), cnt.data_ptr(),
              b, h, n_kv_heads, dh, page_size, mp, side_k.shape[1], n_split,

@@ -14,9 +14,13 @@ the plain version ``paged_attention_xla`` for a CPU tensor. The plain
 version also takes the stacked layer offset, which the JAX XLA path
 leaves to its callers, so that the tests hold both of the kernel's routes.
 
-The kernel cuts each slot's valid keys into ``n_split`` runs of ``chunk``
-keys (``paged_split``), one block per (slot, KV head, run), and a second
-kernel merges the runs' flash partials: a call makes one device launch
+The kernel takes any query-head group ``G = H / Hkv`` and head_dim 32,
+64, 128 or 256: its instances hold sub-groups of 1, 2, 4 or 8 query heads
+(``subgroup``), and a KV head's G heads are cut into ``ceil(G / GS)`` of
+them, the rows past G dead (Qwen2's G = 7 is one sub-group of 8). It cuts
+each slot's valid keys into ``n_split`` runs of ``chunk`` keys
+(``paged_split``), one block per (slot, KV head, sub-group, run), and a
+second kernel merges the runs' flash partials: a call makes one device launch
 when ``n_split`` is 1 and two otherwise, and counts as one launch. The
 outputs and the split workspace are ``torch.empty`` per call, so inside a
 CUDA graph capture they come from the graph's memory pool.
@@ -52,6 +56,15 @@ def paged_split(b: int, n_kv_heads: int, max_keys: int, sms: int,
     chunk = -(-max_keys // n_split)
     chunk = max(_CHUNK_ALIGN, -(-chunk // _CHUNK_ALIGN) * _CHUNK_ALIGN)
     return -(-max_keys // chunk), chunk
+
+
+def subgroup(g: int) -> Tuple[int, int]:
+    """(GS, n_sub) for a query-head group ``g``: the attention kernels'
+    instance of GS query heads (the least of 1, 2, 4, 8 that holds ``g``,
+    8 above it) and the sub-groups of GS rows a KV head's ``g`` heads
+    take (``csrc/flash_decode.cuh`` and ``csrc/paged_attention.cu``)."""
+    gs = next(s for s in (1, 2, 4, 8) if s >= min(g, 8))
+    return gs, -(-g // gs)
 
 
 def _layer_pools(k_pages, v_pages, layer, n_pages_per_layer):
@@ -126,10 +139,10 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     rows, page_size, fused = k_pages.shape
     _cuda.require(q.device.type == "cuda",
                   f"{name}: unsupported device {q.device}")
-    _cuda.require(h % n_kv_heads == 0 and h // n_kv_heads in (1, 2, 4, 8),
-                  f"{name}: H/Hkv = {h}/{n_kv_heads} must be 1, 2, 4 or 8")
-    _cuda.require(dh in (32, 64, 128),
-                  f"{name}: head_dim {dh} must be 32, 64 or 128")
+    _cuda.require(n_kv_heads > 0 and h % n_kv_heads == 0,
+                  f"{name}: H = {h} is not a multiple of Hkv = {n_kv_heads}")
+    _cuda.require(dh in (32, 64, 128, 256),
+                  f"{name}: head_dim {dh} must be 32, 64, 128 or 256")
     _cuda.require(fused == n_kv_heads * dh and v_pages.shape ==
                   k_pages.shape, f"{name}: pool shape {tuple(k_pages.shape)}"
                   f" does not match Hkv*Dh = {n_kv_heads * dh}")
@@ -149,7 +162,8 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     max_keys = mp * page_size
     if window:
         max_keys = min(max_keys, int(window))
-    n_split, chunk = paged_split(b, n_kv_heads, max(1, max_keys),
+    _gs, n_sub = subgroup(h // n_kv_heads)
+    n_split, chunk = paged_split(b, n_kv_heads * n_sub, max(1, max_keys),
                                  _cuda.sm_count(q.device.index))
     out = torch.empty_like(q)
     m = torch.empty((b, h), dtype=torch.float32, device=q.device)

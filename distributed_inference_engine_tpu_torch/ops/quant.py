@@ -211,7 +211,8 @@ def _pad_vocab(n: int) -> int:
 def quantize_params(spec, params: Dict[str, Any],
                     bits: int = 8) -> Dict[str, Any]:
     """Quantize the block weights and an untied LM head (bits 8 or 4; the
-    int4 head vocab-padded). Embeddings and norms stay as they are."""
+    int4 head vocab-padded). Embeddings (``tok_emb``, a tied head with
+    it, ``pos_emb``), norms and biases stay as they are, as in JAX."""
     out = dict(params)
     blocks = dict(params["blocks"])
     for name in _BLOCK_WEIGHTS:
@@ -226,88 +227,6 @@ def quantize_params(spec, params: Dict[str, Any],
         if pad:
             head = torch.nn.functional.pad(head, (0, pad))
         out["lm_head"] = quantize_weight(head, (0,), bits=bits)
-    return out
-
-
-def _param_shapes(spec) -> Dict[str, Any]:
-    """Shapes of ``models/base.py:init_params``'s tree, without drawing."""
-    L, D, F, V = spec.n_layers, spec.d_model, spec.d_ff, spec.vocab_size
-    H, Hkv, Dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
-    blocks = {"ln1_scale": (L, D), "ln2_scale": (L, D),
-              "wq": (L, D, H * Dh), "wk": (L, D, Hkv * Dh),
-              "wv": (L, D, Hkv * Dh), "wo": (L, H * Dh, D),
-              "w_gate": (L, D, F), "w_up": (L, D, F), "w_down": (L, F, D)}
-    shapes: Dict[str, Any] = {"tok_emb": (V, D), "blocks": blocks,
-                              "lnf_scale": (D,)}
-    if not spec.tie_embeddings:
-        shapes["lm_head"] = (D, V)
-    return shapes
-
-
-def random_quantized_params(spec, generator: torch.Generator,
-                            w_std: float = 0.02,
-                            bits: int = 8) -> Dict[str, Any]:
-    """A quantized tree born quantized on the generator's device: no
-    full-precision tree is built (an 8B bf16 tree plus its fp32 working
-    copy would not be needed to serve int4). Payloads are uniform in
-    [-127, 127] (int8) or two uniform nibbles in [-7, 7] per byte (int4,
-    drawn packed), at a constant scale that puts the effective weight std
-    at ``w_std``; norms are ones, embeddings ``normal * w_std``. The draws
-    differ from the JAX package's; the statistics are the same. The int4
-    LM head is vocab-padded."""
-    spec.validate()
-    dev = generator.device
-    dt = spec.torch_dtype
-
-    def q_leaf(shape, axis: int) -> QuantizedTensor:
-        s_shape = tuple(1 if i == axis else d for i, d in enumerate(shape))
-        if bits == 8:
-            # discrete-uniform std over [-n, n]: sqrt(n (n + 1) / 3)
-            q = torch.randint(-127, 128, shape, generator=generator,
-                              device=dev, dtype=torch.int8)
-            std = (127 * 128 / 3.0) ** 0.5
-            return QuantizedTensor(q=q, s=torch.full(
-                s_shape, w_std / std, dtype=torch.float32, device=dev))
-        if bits != 4:
-            raise ValueError(f"bits must be 4 or 8, got {bits}")
-        if shape[axis] % 2:
-            raise ValueError(f"int4 pack axis {axis} has odd size "
-                             f"{shape[axis]}")
-        half = tuple(d // 2 if i == axis else d for i, d in enumerate(shape))
-        q = torch.empty(half, dtype=torch.int8, device=dev)
-        # one layer (or the head) at a time: the int16 packing transient
-        # stays small
-        for dst in (q if len(half) == 3 else [q]):
-            lo = torch.randint(-7, 8, dst.shape, generator=generator,
-                               device=dev, dtype=torch.int8)
-            hi = torch.randint(-7, 8, dst.shape, generator=generator,
-                               device=dev, dtype=torch.int8)
-            dst.copy_(pack_int4(lo, hi))
-        std = (7 * 8 / 3.0) ** 0.5
-        return QuantizedTensor(
-            q=q, s=torch.full(s_shape, w_std / std, dtype=torch.float32,
-                              device=dev),
-            bits=4, pack_axis=axis - len(shape))
-
-    def f_leaf(name, shape) -> torch.Tensor:
-        if "scale" in name:
-            return torch.ones(shape, dtype=dt, device=dev)
-        return (torch.randn(shape, generator=generator, device=dev)
-                * w_std).to(dt)
-
-    shapes = _param_shapes(spec)
-    blocks = {name: (q_leaf(shape, 1) if name in _BLOCK_WEIGHTS
-                     else f_leaf(name, shape))
-              for name, shape in shapes["blocks"].items()}
-    out: Dict[str, Any] = {}
-    for name, shape in shapes.items():
-        if name == "blocks":
-            out[name] = blocks
-        elif name == "lm_head":
-            d, v = shape
-            out[name] = q_leaf((d, _pad_vocab(v) if bits == 4 else v), 0)
-        else:
-            out[name] = f_leaf(name, shape)
     return out
 
 

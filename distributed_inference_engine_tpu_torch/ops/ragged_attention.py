@@ -19,6 +19,10 @@ the plain version for a CPU tensor. The instance follows the dtypes
 cores (``mma``), every other pair the CUDA cores (``simt``); an e4m3 pool
 (counted also as ``ragged_attention.fp8``) takes the fresh K/V rounded
 with the JAX cast (``astype_kv``), attends to those bits and writes them.
+Any query-head group ``g = H / Hkv`` is taken, as the JAX launcher
+takes it: a tile holds ``floor(rows / g)`` queries (``ragged_group``,
+``ragged_plan``), the rows past them dead; above 64 heads a KV head's
+heads are cut into sub-groups of 64, each its own items.
 The launch is sized from the shapes (``ragged_plan``), never from the
 lengths, which live on the card; there the tensor-core instance orders
 its work by the lengths (``ragged_schedule`` is the same rule on the
@@ -116,17 +120,31 @@ def ragged_instance(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
     return "simt"
 
 
+# the most query heads of one KV head an item holds
+MAX_GROUP = 64
+
+
+def ragged_group(h: int, hkv: int) -> Tuple[int, int]:
+    """(gs, n_sub): the query heads an item holds (``g = h // hkv`` up to
+    ``MAX_GROUP``) and the sub-groups a KV head's ``g`` heads take; the
+    kernel's items run over ``hkv * n_sub`` such virtual heads."""
+    g = h // hkv
+    gs = min(g, MAX_GROUP)
+    return gs, -(-g // gs)
+
+
 def ragged_plan(r: int, qmax: int, h: int, hkv: int, instance: str,
                 sms: int) -> Tuple[int, int, int]:
     """(queries per tile, query tiles per row, blocks) of the kernel's
     launch. A tile is ``ROWS_PER_BLOCK[instance]`` (query, head) rows, the
-    g = H/Hkv heads of each of its queries; an item is a (row, KV head,
-    query tile). ``simt`` runs one block an item; ``mma`` is persistent,
-    one block an SM (``sms``), the blocks taking the items in
-    ``ragged_schedule`` order."""
-    tq = ROWS_PER_BLOCK[instance] // (h // hkv)
+    ``gs`` heads (``ragged_group``) of each of its ``floor(rows / gs)``
+    queries; an item is a (row, virtual KV head, query tile). ``simt``
+    runs one block an item; ``mma`` is persistent, one block an SM
+    (``sms``), the blocks taking the items in ``ragged_schedule`` order."""
+    gs, n_sub = ragged_group(h, hkv)
+    tq = ROWS_PER_BLOCK[instance] // gs
     n_tiles = -(-qmax // tq)
-    items = r * hkv * n_tiles
+    items = r * hkv * n_sub * n_tiles
     return tq, n_tiles, items if instance == "simt" else min(items, sms)
 
 
@@ -149,7 +167,9 @@ def _pair_cost(p: int, r: int, n_tiles: int, tq: int, g: int, q_lens,
 def ragged_schedule(q_lens, ctx_lens, qmax: int, h: int, hkv: int, dh: int,
                     page_size: int, mp: int, n_blocks: int
                     ) -> List[List[Tuple[int, int, int, bool]]]:
-    """The tensor-core instance's items, (row, KV head, query tile, live),
+    """The tensor-core instance's items, (row, virtual KV head, query
+    tile, live) (the virtual head ``v`` is KV head ``v // n_sub``'s
+    sub-group ``v % n_sub``; one per KV head up to 64 query heads),
     as each of its ``n_blocks`` persistent blocks takes them (the card
     computes this from the lengths; this host version is the rule the
     tests hold): the (row, query tile) pairs ranked by ``_pair_cost``,
@@ -159,7 +179,8 @@ def ragged_schedule(q_lens, ctx_lens, qmax: int, h: int, hkv: int, dh: int,
     ``MMA_MAX_PAIRS`` pairs or ``MMA_MAX_ROWS`` rows, ``ragged_block``
     order round-robin."""
     r = len(q_lens)
-    g = h // hkv
+    g, n_sub = ragged_group(h, hkv)
+    vh = hkv * n_sub                     # the items' (virtual) KV heads
     tq, n_tiles, _ = ragged_plan(r, qmax, h, hkv, "mma", n_blocks)
     keys = 64 if dh <= 128 else 32
     n_pairs = r * n_tiles
@@ -169,18 +190,18 @@ def ragged_schedule(q_lens, ctx_lens, qmax: int, h: int, hkv: int, dh: int,
         [] for _ in range(n_blocks)]
 
     def item(i: int) -> Tuple[int, int, int, bool]:
-        row, kh, tile = ragged_block(i, r, hkv, n_tiles)
-        return row, kh, tile, costs[i // hkv] > 0
+        row, kh, tile = ragged_block(i, r, vh, n_tiles)
+        return row, kh, tile, costs[i // vh] > 0
 
     if r > MMA_MAX_ROWS or n_pairs > MMA_MAX_PAIRS:
-        for i in range(n_pairs * hkv):
+        for i in range(n_pairs * vh):
             out[i % n_blocks].append(item(i))
         return out
     order = sorted(range(n_pairs), key=lambda p: (-costs[p], p))
-    for i in range(n_pairs * hkv):
+    for i in range(n_pairs * vh):
         k, pos = divmod(i, n_blocks)
         b = pos if k % 2 == 0 else n_blocks - 1 - pos
-        out[b].append(item(order[i // hkv] * hkv + i % hkv))
+        out[b].append(item(order[i // vh] * vh + i % vh))
     return out
 
 
@@ -228,8 +249,8 @@ def ragged_attention(
     _cuda.require_cuda(name, q, k_pages, v_pages, page_table, ctx_lens,
                        q_lens, fresh_k, fresh_v)
     _cuda.require_int32(name, page_table, ctx_lens, q_lens)
-    _cuda.require(h % n_kv_heads == 0 and 64 % (h // n_kv_heads) == 0,
-                  f"{name}: H/Hkv = {h}/{n_kv_heads} must divide 64")
+    _cuda.require(n_kv_heads > 0 and h % n_kv_heads == 0,
+                  f"{name}: H = {h} is not a multiple of Hkv = {n_kv_heads}")
     _cuda.require(dh % 32 == 0 and dh // 32 in (1, 2, 4, 8),
                   f"{name}: head_dim {dh} must be 32, 64, 128 or 256")
     _cuda.require(fused == n_kv_heads * dh and v_pages.shape ==

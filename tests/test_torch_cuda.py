@@ -38,16 +38,16 @@ from distributed_inference_engine_tpu_torch.engine.continuous import (
 from distributed_inference_engine_tpu_torch.engine.types import (
     GenerationRequest,
 )
-from distributed_inference_engine_tpu_torch.models.base import init_params
+from distributed_inference_engine_tpu_torch.models.base import (
+    init_params,
+    random_quantized_params,
+)
 from distributed_inference_engine_tpu_torch.models.llama import llama_spec
 from distributed_inference_engine_tpu_torch.models.mistral import (
     mistral_spec,
 )
 from distributed_inference_engine_tpu_torch.ops import _cuda
 from distributed_inference_engine_tpu_torch.ops.attention import raw_view
-from distributed_inference_engine_tpu_torch.ops.quant import (
-    random_quantized_params,
-)
 from distributed_inference_engine_tpu_torch.ops import flash_decode as fd
 from distributed_inference_engine_tpu_torch.ops import fused_decode as fdec
 from distributed_inference_engine_tpu_torch.ops import int4_matmul as i4
@@ -396,6 +396,26 @@ def test_flash_decode_bf16_tensor_cores(card, fw, h, hkv, dh):
                    [3, 0, 16, 255, 640], fw, seed=50 + fw)
 
 
+# query-head groups past the 1, 2, 4 and 8-row instances: G 3, 5, 6, 7
+# (Qwen2-7B's widths), 12, 16 and 24 (two and three sub-groups of 8)
+ANY_GROUP = [(6, 2, 64), (10, 2, 64), (12, 2, 128), (28, 4, 128),
+             (24, 2, 64), (32, 2, 128), (24, 1, 32)]
+POOL_PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+              (torch.bfloat16, FP8), (torch.float32, FP8)]
+
+
+@pytest.mark.parametrize("fw", [False, True])
+@pytest.mark.parametrize("dtype,kv_dtype", POOL_PAIRS)
+@pytest.mark.parametrize("h,hkv,dh", ANY_GROUP)
+def test_flash_decode_any_group(card, fw, dtype, kv_dtype, h, hkv, dh):
+    """Both flash-decode kernels at query-head groups that are not one of
+    their instances, bf16 on the tensor cores, fp32, and e4m3 pools, pages
+    of 16, a split grid of several runs: the dead rows of a sub-group are
+    never stored (every output row checked), fw's side write once."""
+    _fd_split_case(card, dtype, kv_dtype, h, hkv, dh, 16, 40,
+                   [3, 0, 16, 255, 640], fw, seed=160 + fw + h)
+
+
 @pytest.mark.parametrize("fw", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("h,hkv,dh", [(8, 8, 32), (16, 8, 64), (16, 4, 128),
@@ -413,7 +433,8 @@ def test_flash_decode_fp8_pools(card, fw, dtype, h, hkv, dh):
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.float32, torch.bfloat16)])
 @pytest.mark.parametrize("h,hkv,dh", [(8, 4, 32), (8, 2, 64), (32, 8, 128),
-                                      (4, 4, 32)])
+                                      (4, 4, 32), (12, 4, 32), (14, 2, 64),
+                                      (28, 4, 128), (96, 1, 32)])
 def test_ragged_attention_kernel(card, dtype, kv_dtype, h, hkv, dh):
     """Rows of q_len 0 (one on another row's live pages), 1 and chunks
     straddling pages, against the plain version: outputs, and the pools
@@ -524,7 +545,8 @@ def test_ragged_attention_tensor_cores(card, h, hkv, dh):
                          ids=["in range", "past 464"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("h,hkv,dh", [(8, 8, 32), (8, 4, 64), (16, 4, 128),
-                                      (16, 2, 128), (16, 2, 256)])
+                                      (16, 2, 128), (16, 2, 256),
+                                      (28, 4, 128), (12, 2, 64)])
 def test_ragged_attention_fp8_pools(card, dtype, h, hkv, dh, fresh_scale):
     """e4m3 pools (the fp8 instances: bf16 q on the tensor cores, fp32 q on
     the CUDA cores) over the tensor-core instance's rows, G 1-8 and Dh
@@ -572,6 +594,19 @@ def test_ragged_attention_fp8_pools(card, dtype, h, hkv, dh, fresh_scale):
     atol, rtol = TOL[dtype]
     torch.testing.assert_close(out.float()[finite], ref.float()[finite],
                                atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("h,hkv,dh", [(12, 4, 64), (10, 2, 128),
+                                      (12, 2, 128), (28, 4, 128),
+                                      (14, 2, 64), (24, 2, 32), (32, 2, 256),
+                                      (96, 1, 32)])
+def test_ragged_attention_any_group(card, h, hkv, dh):
+    """The mma instance at query-head groups that do not divide its 128
+    rows (G 3, 5, 6, 7 (Qwen2), 12, 16: floor(128 / G) queries a tile, the
+    rows past them dead) and above 64 (G 96: two sub-groups of 64 rows,
+    the second half dead), see _ragged_mma_case."""
+    _ragged_mma_case(card, RAGGED_MMA_ROWS, h, hkv, dh, 16, 24,
+                     seed=140 + dh + h + hkv)
 
 
 def test_ragged_attention_tensor_cores_many_pairs(card):
@@ -652,6 +687,31 @@ def test_paged_attention_fp8_pools(card, dtype, window, h, hkv, dh):
                 [0, 1, 15, 16, 17, 40, 41, 56, 57, 96], window, seed=6)
 
 
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("dtype,kv_dtype", POOL_PAIRS)
+@pytest.mark.parametrize("h,hkv,dh", ANY_GROUP)
+def test_paged_attention_any_group(card, dtype, kv_dtype, window, h, hkv,
+                                   dh):
+    """Query-head groups that are not one of the instances (sub-groups of
+    8 above 8, dead rows past G), with and without the window, in every
+    pool dtype: out and the flash stats against the plain version."""
+    _paged_case(card, dtype, kv_dtype, h, hkv, dh, 16, 6,
+                [0, 1, 15, 16, 17, 40, 41, 56, 57, 96], window, seed=7 + h)
+
+
+@pytest.mark.parametrize("window", [0, 16, 40])
+@pytest.mark.parametrize("dtype,kv_dtype", POOL_PAIRS + [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("h,hkv", [(16, 16), (8, 1), (14, 2), (4, 2)])
+def test_paged_attention_head_dim_256(card, dtype, kv_dtype, window, h,
+                                      hkv):
+    """Dh 256 (Gemma: 16 heads over 16 KV heads, Gemma-2B's 8 over 1, and
+    G 7 and 2) in every pool dtype, with and without the window: out and
+    the flash stats against the plain version."""
+    _paged_case(card, dtype, kv_dtype, h, hkv, 256, 16, 6,
+                [0, 1, 15, 16, 17, 40, 41, 56, 57, 96], window, seed=8 + h)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("window", [0, 4096, 1000])
 @pytest.mark.parametrize("slots", ["one long", "split edges"])
@@ -698,7 +758,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     q = torch.zeros((1, 2, 32), device=card)
     args = (torch.zeros((1, 2), **i32), torch.ones((1,), **i32))
     for bad in (dict(q=torch.zeros((1, 2, 96), device=card)),   # Dh 96
-                dict(q=torch.zeros((1, 6, 32), device=card)),   # G = 3
+                dict(q=torch.zeros((1, 3, 32), device=card)),   # H % Hkv
                 dict(pool=pool.half()),                          # fp16 pool
                 dict(layer=2, n_pages_per_layer=4)):             # past pool
         kw = {k: v for k, v in bad.items() if k not in ("q", "pool")}

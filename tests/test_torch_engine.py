@@ -13,6 +13,7 @@ package's teacher-forced ``assert_greedy_parity``. Logprobs within
 import jax
 import numpy as np
 import pytest
+import torch
 
 from distributed_inference_engine_tpu.config import EngineConfig as JCfg
 from distributed_inference_engine_tpu.engine.continuous import (
@@ -39,6 +40,10 @@ from distributed_inference_engine_tpu_torch.models.llama import (
 )
 
 pytestmark = pytest.mark.torch_port
+
+# xdist runs several workers on the host's cores: one intra-op thread a
+# worker keeps OpenMP's waiting threads from starving the others
+torch.set_num_threads(1)
 
 ENGINE_KW = dict(max_slots=4, max_seq_len=128, prefill_buckets=[16, 64],
                  page_size=16, num_pages=48, decode_steps_per_call=4,

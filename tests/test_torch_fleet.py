@@ -17,6 +17,7 @@ import time
 import jax
 import numpy as np
 import pytest
+import torch
 
 from distributed_inference_engine_tpu.api.coordinator import (
     Coordinator,
@@ -75,6 +76,10 @@ from distributed_inference_engine_tpu_torch.obs.events import (
 )
 
 pytestmark = pytest.mark.torch_port
+
+# xdist runs several workers on the host's cores: one intra-op thread a
+# worker keeps OpenMP's waiting threads from starving the others
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 KW = dict(max_slots=4, max_seq_len=128, prefill_buckets=[16, 64],

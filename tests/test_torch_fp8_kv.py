@@ -113,6 +113,10 @@ from distributed_inference_engine_tpu_torch.ops.ragged_attention import (
 
 pytestmark = pytest.mark.torch_port
 
+# xdist runs several workers on the host's cores: one intra-op thread a
+# worker keeps OpenMP's waiting threads from starving the others
+torch.set_num_threads(1)
+
 FP8 = "float8_e4m3fn"
 ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 LP_ATOL = 1e-3

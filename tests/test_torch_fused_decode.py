@@ -24,6 +24,10 @@ from distributed_inference_engine_tpu_torch.ops import fused_decode as tfd
 
 pytestmark = pytest.mark.torch_port
 
+# xdist runs several workers on the host's cores: one intra-op thread a
+# worker keeps OpenMP's waiting threads from starving the others
+torch.set_num_threads(1)
+
 TOL = {"float32": (1e-5, 0.0), "bfloat16": (2e-2, 2e-2)}
 B, D, N = 3, 256, 384          # B not a multiple of 16: the JAX pad path
 

@@ -50,6 +50,10 @@ from distributed_inference_engine_tpu_torch.ops import _cuda
 
 pytestmark = pytest.mark.torch_port
 
+# xdist runs several workers on the host's cores: one intra-op thread a
+# worker keeps OpenMP's waiting threads from starving the others
+torch.set_num_threads(1)
+
 L, N, P, HKV, DH = 2, 10, 4, 2, 4
 
 # (label, page table rows, start, counts): row 0 and row 1 share page 1 as

@@ -14,6 +14,7 @@ import time
 import jax
 import numpy as np
 import pytest
+import torch
 
 from distributed_inference_engine_tpu.cluster.worker import (
     WorkerClient as JClient,
@@ -61,6 +62,10 @@ from distributed_inference_engine_tpu_torch.ops import _cuda
 from distributed_inference_engine_tpu_torch.serving.pump import EnginePump
 
 pytestmark = pytest.mark.torch_port
+
+# xdist runs several workers on the host's cores: one intra-op thread a
+# worker keeps OpenMP's waiting threads from starving the others
+torch.set_num_threads(1)
 
 # 4 slots x 8 pages of 16: a fully backed pool (defer_sync's requirement)
 KW = dict(max_slots=4, max_seq_len=128, prefill_buckets=[16, 64],

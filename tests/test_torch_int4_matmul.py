@@ -41,6 +41,10 @@ from distributed_inference_engine_tpu_torch.ops.int4_matmul import (
 
 pytestmark = pytest.mark.torch_port
 
+# xdist runs several workers on the host's cores: one intra-op thread a
+# worker keeps OpenMP's waiting threads from starving the others
+torch.set_num_threads(1)
+
 TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 K, N = 512, 384                     # K/2 and N tile the TPU kernel
 

@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from distributed_inference_engine_tpu.config import EngineConfig as JCfg
 from distributed_inference_engine_tpu.engine.continuous import (
@@ -42,6 +43,10 @@ from distributed_inference_engine_tpu_torch.models.mistral import (
 )
 
 pytestmark = pytest.mark.torch_port
+
+# xdist runs several workers on the host's cores: one intra-op thread a
+# worker keeps OpenMP's waiting threads from starving the others
+torch.set_num_threads(1)
 
 ATOL = 1e-4
 WINDOW = 64

@@ -35,6 +35,10 @@ from distributed_inference_engine_tpu_torch.models.llama import (
 
 pytestmark = pytest.mark.torch_port
 
+# xdist runs several workers on the host's cores: one intra-op thread a
+# worker keeps OpenMP's waiting threads from starving the others
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 L_, N_, P_ = 4, 24, 16           # llama-tiny layers; pool pages; page size
 
@@ -232,10 +236,16 @@ def test_paged_kv_accounting_matches_jax():
 
 
 def test_unsupported_spec_features_raise():
-    for kw in (dict(n_experts=4), dict(pos_emb="learned"),
-               dict(use_bias=True), dict(norm="layernorm"),
-               dict(logit_softcap=30.0)):
-        with pytest.raises(NotImplementedError):
+    # experts (Mixtral) are the one unported spec feature; the dense
+    # families' features are ported
+    with pytest.raises(NotImplementedError, match="A9"):
+        tspec("llama-tiny", n_experts=4)
+    for kw in (dict(pos_emb="learned"), dict(use_bias=True),
+               dict(norm="layernorm"), dict(logit_softcap=30.0),
+               dict(qkv_bias=True), dict(mlp="gelu")):
+        assert tspec("llama-tiny", **kw).to_dict().items() >= kw.items()
+    for kw in (dict(pos_emb="alibi"), dict(mlp="relu")):
+        with pytest.raises(ValueError):
             tspec("llama-tiny", **kw)
     with pytest.raises(ValueError):
         tspec("llama-tiny", sliding_window=-1)

@@ -26,6 +26,10 @@ from distributed_inference_engine_tpu_torch.ops import paged_attention as tpa
 
 pytestmark = pytest.mark.torch_port
 
+# xdist runs several workers on the host's cores: one intra-op thread a
+# worker keeps OpenMP's waiting threads from starving the others
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 P, MP, N = 16, 8, 128           # page size, pages per slot, pages per layer
 # lengths (this step's token included): empty, one key, around the first

@@ -30,6 +30,10 @@ from distributed_inference_engine_tpu_torch.ops.int4_matmul import (
 
 pytestmark = pytest.mark.torch_port
 
+# xdist runs several workers on the host's cores: one intra-op thread a
+# worker keeps OpenMP's waiting threads from starving the others
+torch.set_num_threads(1)
+
 
 def _weights(shape, seed):
     rs = np.random.RandomState(seed)
@@ -150,7 +154,7 @@ def test_fuse_block_weights():
 @pytest.mark.parametrize("bits", [4, 8])
 def test_random_quantized_params_statistics(bits):
     ts = tspec("llama-tiny", dtype="float32")
-    p = tq.random_quantized_params(ts, torch.Generator().manual_seed(5),
+    p = tb.random_quantized_params(ts, torch.Generator().manual_seed(5),
                                    bits=bits)
     ref = tb.init_params(ts, torch.Generator().manual_seed(0))
     assert set(p["blocks"]) == set(ref["blocks"]) and set(p) == set(ref)

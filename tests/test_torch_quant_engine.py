@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from distributed_inference_engine_tpu.cluster.worker import (
     WorkerClient as JClient,
@@ -53,6 +54,10 @@ from distributed_inference_engine_tpu_torch.models.llama import (
 from distributed_inference_engine_tpu_torch.ops import quant as tq
 
 pytestmark = pytest.mark.torch_port
+
+# xdist runs several workers on the host's cores: one intra-op thread a
+# worker keeps OpenMP's waiting threads from starving the others
+torch.set_num_threads(1)
 
 KW = dict(max_slots=4, max_seq_len=128, prefill_buckets=[16, 64],
           page_size=16, num_pages=48, decode_steps_per_call=4,

@@ -41,6 +41,10 @@ from distributed_inference_engine_tpu_torch.ops.ragged_attention import (
 
 pytestmark = pytest.mark.torch_port
 
+# xdist runs several workers on the host's cores: one intra-op thread a
+# worker keeps OpenMP's waiting threads from starving the others
+torch.set_num_threads(1)
+
 
 def _t(a):
     return tensor_from_numpy(a, "cpu")

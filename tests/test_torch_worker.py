@@ -13,6 +13,7 @@ import jax
 import msgpack
 import numpy as np
 import pytest
+import torch
 
 from distributed_inference_engine_tpu.cli.worker import (
     parse_model_arg as j_parse,
@@ -58,6 +59,10 @@ from distributed_inference_engine_tpu_torch.models.llama import (
 from distributed_inference_engine_tpu_torch.utils import framing as tframing
 
 pytestmark = pytest.mark.torch_port
+
+# xdist runs several workers on the host's cores: one intra-op thread a
+# worker keeps OpenMP's waiting threads from starving the others
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_PKG = ROOT / "distributed_inference_engine_tpu_torch"
