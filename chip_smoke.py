@@ -58,7 +58,11 @@ Phases, each failing loudly (any failure exits non-zero):
      Dh=128, P=128, MP=48, lengths 0-6,000 with one empty slot), windows
      0 and 4096, on one layer's pool and on the stacked pool (layer 5 of
      32) with the flash stats m and l held too, and one 6,000-token slot
-     alone (B=1, window 4096, stacked) (``check_paged``).
+     alone (B=1, window 4096, stacked) (``check_paged``). Each row names
+     the route its launch took (``mma``: the tensor cores, ``simt``: the
+     CUDA cores; checked by the route's launch count), its rows a block
+     and its split grid; a bf16 row at G <= 4 also holds and times the
+     other route.
    - the e4m3-pool (fp8) instances of flash-decode, fw, ragged attention
      and paged attention at the same shapes (bf16 q on the tensor cores
      where the bf16 instance is, fp32 q on the CUDA cores), q's tolerance,
@@ -191,10 +195,12 @@ Phases, each failing loudly (any failure exits non-zero):
 
 9. The other dense families (A9): the kernels phase also holds
    flash-decode, fw and paged attention at query-head groups 3, 5, 6, 7,
-   12 and 16 (Hkv 4, Dh 128), ragged attention at 3, 6 and 7, and paged
-   attention at head_dim 256 with Gemma-7B's 16/16 and Gemma-2B's 8/1
-   heads (windows 0 and 4096), each in bf16, fp32 and over e4m3 pools
-   (``family_kernel_rows``, the B 8 case, fewer timing repeats). Then
+   12 and 16 (Hkv 4, Dh 128), paged attention at 8 too, ragged attention
+   at 3, 6 and 7, and paged attention at head_dim 256 with Gemma-7B's
+   16/16 and Gemma-2B's 8/1 heads (windows 0 and 4096), each in bf16,
+   fp32 and over e4m3 pools (``family_kernel_rows``, the B 8 case, fewer
+   timing repeats); and paged attention's two routes for bf16 q at G 1
+   and 2 (Dh 128) and G 2 and 4 (Dh 256) (``ROUTE_SHAPES``). Then
    three worker phases at full published width and depth
    (``phase_family``): ``qwen2-7b`` (28 heads over 4: G 7) with the
    ``mixed`` settings over the mixed waves (ragged and flash-decode at G
@@ -343,13 +349,21 @@ FAMILIES = {"qwen2-7b": (QWEN_MODEL, "qwen", "qwen2-7b", 28, 152064),
 
 # The other families' attention instances (A9). Query-head groups G = H /
 # Hkv at Hkv 4, Dh 128, by G: 3, 5, 6, 7 (Qwen2-7B: 28 heads over 4), 12
-# and 16 (two sub-groups of 8) for flash-decode, fw and paged attention;
-# 3, 6, 7 for ragged attention; paged attention at Dh 256 with Gemma-7B's
-# 16 heads over 16 and Gemma-2B's 8 over 1, with and without the window.
+# and 16 for flash-decode, fw and paged attention, and 8 (Llama-3-70B's and
+# Qwen2-72B's group) for paged attention; 3, 6, 7 for ragged attention;
+# paged attention at Dh 256 with Gemma-7B's 16 heads over 16 and Gemma-2B's
+# 8 over 1, with and without the window.
 GROUP_SHAPES = {3: (12, 4, 128), 5: (20, 4, 128), 6: (24, 4, 128),
-                7: (28, 4, 128), 12: (48, 4, 128), 16: (64, 4, 128)}
+                7: (28, 4, 128), 8: (32, 4, 128), 12: (48, 4, 128),
+                16: (64, 4, 128)}
+PAGED_ONLY_GROUPS = (8,)
 RAGGED_GROUPS = (3, 6, 7)
 GEMMA_SHAPES = ((16, 16, 256), (8, 1, 256))
+# paged attention's two routes for bf16 q at G <= 4 (check_paged times the
+# other route beside every such row): G 1 and 2 over Mistral's 8 KV heads at
+# Dh 128 (its G 4 is the main rows), G 2 and 4 over 8 KV heads at Dh 256
+# (Gemma-7B's G 1 is a GEMMA_SHAPES row)
+ROUTE_SHAPES = ((8, 8, 128), (16, 8, 128), (16, 8, 256), (32, 8, 256))
 # the stacked pool of the paged instance checks: 4 layers (a Gemma-7B
 # layer's 384 pages are 0.4 GB in bf16)
 FAMILY_PAGED_LAYERS = 4
@@ -414,8 +428,10 @@ PTXAS_REPORTS = [
      lambda m: (f"{m.group(1)} {'bf16' if m.group(2) != 'f' else 'fp32'}"
                 f" x {8 * int(m.group(3))} tokens"
                 f"{'' if m.group(4) == '1' else ' (4-byte copies)'}")),
-    ("paged_attention.cu", r"paged_attention_kernelI\S*?Li(\d+)ELi(\d+)EE",
-     lambda m: f"paged Dh {int(m.group(1)):3d} x {int(m.group(2))} rows"),
+    ("paged_attention.cu",
+     r"paged_(mma|simt)_kernelI(\S*?)Li(\d+)ELi(\d+)EE",
+     lambda m: (f"paged {m.group(1)}{' e4m3' if 'fp8' in m.group(2) else ''}"
+                f" Dh {int(m.group(3)):3d} x {int(m.group(4))} rows")),
     ("int4_matmul.cu", r"int4_gemv_mma_kernelI(13__nv_bfloat16|f)Li(\d)E"
      r"Lb([01])ELb([01])E",
      lambda m: (f"int4 gemv {'bf16' if m.group(1) != 'f' else 'fp32'} x "
@@ -948,7 +964,7 @@ def check_paged(torch, kv_name=None, shape=(H, HKV, DH),
 
     F = torch.nn.functional
     h, hkv, dh = shape
-    gs, n_sub = pa.subgroup(h // hkv)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     timing, plain_timing = (QUICK, QUICK_PLAIN) if quick else ({}, MAIN_PLAIN)
     at = min(PAGED_LAYER, layers - 1)        # the stacked pool's layer
     rows = []
@@ -971,42 +987,57 @@ def check_paged(torch, kv_name=None, shape=(H, HKV, DH),
         kw = dict(n_kv_heads=hkv, window=window, with_stats=stacked)
         if stacked:
             kw.update(layer=at, n_pages_per_layer=n)
-        before = _cuda.LAUNCHES["paged_attention.fp8"]
+        max_keys = min(MP_PAGED * P, window) if window else MP_PAGED * P
+        plan = pa.paged_plan(b, h, hkv, dh, max_keys, sms, q.dtype,
+                             kp.dtype)
+        route = "mma" if plan.mma else "simt"
+        before = (_cuda.LAUNCHES["paged_attention.fp8"],
+                  _cuda.LAUNCHES[f"paged_attention.{route}"])
         got = pa.paged_attention(q, *pools, table, lens, **kw)
         torch.cuda.synchronize()
-        assert _cuda.LAUNCHES["paged_attention.fp8"] == before + bool(
+        assert _cuda.LAUNCHES["paged_attention.fp8"] == before[0] + bool(
             kv_name), "paged_attention: the fp8 instance's launch count"
+        assert _cuda.LAUNCHES[f"paged_attention.{route}"] == before[1] + 1, \
+            f"paged_attention: the {route} route's launch count"
         ref = pa.paged_attention_xla(q, *pools, table, lens, **kw)
         ref32 = pa.paged_attention_xla(
             q.float(), *(t.float() for t in one_pool), table, lens,
             **dict(kw, with_stats=True, layer=None, n_pages_per_layer=0))
-        out = got[0] if stacked else got
         ref_out = ref[0] if stacked else ref
-        err = max_err(torch, out, ref_out)
-        row_err = (out.float() - ref32[0]).abs().amax(-1)
-        row_ref = ref32[0].abs().amax(-1)
-        live = row_ref > 0
-        row_rel = float((row_err[live] / row_ref[live]).max())
-        ok = (within(torch, out, ref_out, dtype_name, tol)
-              and row_rel <= ROW_REL_TOL[dtype_name])
-        assert torch.isfinite(out).all(), "paged_attention: non-finite"
         empty = [i for i, x in enumerate(lens_list) if x == 0]
-        for i in empty:
-            assert float(out[i].abs().max()) == 0.0, \
-                "paged_attention: empty slot not zero"
-        assert int(live.sum()) == (b - len(empty)) * h, \
-            "paged_attention: rows"
-        stats_rel = None
-        if stacked:
-            _, m, l = got
-            _, m32, l32 = ref32
-            has = l32 > 0
-            stats_rel = max(
-                float(((m - m32).abs()[has] / m32.abs()[has]
-                       .clamp_min(1.0)).max()),
-                float(((l - l32).abs() / l32.clamp_min(1.0)).max()))
-            ok = ok and stats_rel <= STATS_TOL and all(
-                float(l[i].abs().max()) == 0.0 for i in empty)
+
+        def held(got):
+            """(max_abs_err, row_rel, stats_rel, ok) of one launch's
+            result against the plain version's."""
+            out = got[0] if stacked else got
+            err = max_err(torch, out, ref_out)
+            row_err = (out.float() - ref32[0]).abs().amax(-1)
+            row_ref = ref32[0].abs().amax(-1)
+            live = row_ref > 0
+            row_rel = float((row_err[live] / row_ref[live]).max())
+            ok = (within(torch, out, ref_out, dtype_name, tol)
+                  and row_rel <= ROW_REL_TOL[dtype_name])
+            assert torch.isfinite(out).all(), "paged_attention: non-finite"
+            for i in empty:
+                assert float(out[i].abs().max()) == 0.0, \
+                    "paged_attention: empty slot not zero"
+            assert int(live.sum()) == (b - len(empty)) * h, \
+                "paged_attention: rows"
+            stats_rel = None
+            if stacked:
+                _, m, l = got
+                _, m32, l32 = ref32
+                has = l32 > 0
+                stats_rel = max(
+                    float(((m - m32).abs()[has] / m32.abs()[has]
+                           .clamp_min(1.0)).max()),
+                    float(((l - l32).abs() / l32.clamp_min(1.0)).max()))
+                ok = ok and stats_rel <= STATS_TOL and all(
+                    float(l[i].abs().max()) == 0.0
+                    and bool((m[i] == -1e30).all()) for i in empty)
+            return err, row_rel, stats_rel, ok
+
+        err, row_rel, stats_rel, ok = held(got)
         if window:
             keys = sum(min(x, window) for x in lens_list)
             vis = (pos < lens[:, None]) & (pos >= lens[:, None] - window)
@@ -1021,6 +1052,23 @@ def check_paged(torch, kv_name=None, shape=(H, HKV, DH),
 
         t_k = time_ms(torch, lambda i: call(pa.paged_attention, i),
                       lambda i: (i,), **timing)
+        # bf16 q at G <= 4: the other route too, held the same and timed
+        # at the quick timing
+        alt = None
+        if q.dtype == torch.bfloat16 and h // hkv <= 4:
+            other = pa.paged_plan(b, h, hkv, dh, max_keys, sms, q.dtype,
+                                  kp.dtype, mma=not plan.mma)
+
+            def launch_other(*a, **k):
+                return pa.paged_attention_launch(*a[:5], other, *a[5:], **k)
+
+            a_err, _, _, a_ok = held(
+                launch_other(q, *pools, table, lens, **kw))
+            ok = ok and a_ok
+            err = max(err, a_err)
+            alt = ("mma" if other.mma else "simt",
+                   time_ms(torch, lambda i: call(launch_other, i),
+                           lambda i: (i,), **QUICK))
         t_p = time_ms(torch, lambda i: call(pa.paged_attention_xla, i),
                       lambda i: (i,), **plain_timing)
         t_l = None
@@ -1044,12 +1092,15 @@ def check_paged(torch, kv_name=None, shape=(H, HKV, DH),
         row = dict(dtype=dtype_name, err=err, ok=ok, ms=t_k, plain_ms=t_p,
                    library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
                    row_rel=row_rel, window=window, stacked=stacked, tol=tol,
+                   route=f"{route}, {plan.rows} rows"
+                   f"{f' x {plan.n_sub}' if plan.n_sub > 1 else ''}, "
+                   f"{plan.n_split} runs of {plan.chunk}",
                    shape=f"B{b} H{h} Hkv{hkv} Dh{dh} P{P} MP{MP_PAGED} "
                    f"win{window} "
                    f"{f'L{at}/{layers}+stats' if stacked else 'layer'} "
                    f"keys{keys}{' e4m3 pools' if kv_name else ''}")
-        if gs * n_sub != h // hkv or n_sub > 1:
-            row["note"] = f"{n_sub} sub-group(s) of {gs} rows a KV head"
+        if alt:
+            row["note"] = f"the {alt[0]} route {alt[1]:.4f} ms"
         if stats_rel is not None:
             row["stats_rel"] = stats_rel
         return row
@@ -1295,7 +1346,9 @@ def family_kernel_rows(torch):
     """The other families' attention instances against their plain
     versions (``GROUP_SHAPES``, ``RAGGED_GROUPS``, ``GEMMA_SHAPES``): the
     B8 case, bf16 and fp32 and e4m3 pools (bf16 q), at the quick timing;
-    rows by ``<kernel>.g<G>`` and ``paged_attention.dh256``."""
+    rows by ``<kernel>.g<G>`` and ``paged_attention.dh256``; and paged
+    attention's two routes at ``ROUTE_SHAPES`` (``paged_attention.routes``,
+    bf16 q)."""
     results = {}
     b8 = FD_CASES[:1]
     for g, shape in GROUP_SHAPES.items():
@@ -1306,7 +1359,8 @@ def family_kernel_rows(torch):
                     windows=(MISTRAL_WINDOW,),
                     layers=FAMILY_PAGED_LAYERS)),
                 ("ragged_attention", check_ragged, {})):
-            if name == "ragged_attention" and g not in RAGGED_GROUPS:
+            if (name == "ragged_attention" and g not in RAGGED_GROUPS
+                    or name != "paged_attention" and g in PAGED_ONLY_GROUPS):
                 continue
             results[f"{name}.g{g}"] = (
                 check(torch, shape=shape, quick=True, **kw)
@@ -1319,6 +1373,14 @@ def family_kernel_rows(torch):
                         layers=FAMILY_PAGED_LAYERS)
             + check_paged(torch, FP8, shape=shape, dtypes=("bfloat16",),
                           quick=True, layers=FAMILY_PAGED_LAYERS))]
+    results["paged_attention.routes"] = [
+        row for shape in ROUTE_SHAPES for row in (
+            check_paged(torch, shape=shape, dtypes=("bfloat16",), quick=True,
+                        windows=(MISTRAL_WINDOW,),
+                        layers=FAMILY_PAGED_LAYERS)
+            + check_paged(torch, FP8, shape=shape, dtypes=("bfloat16",),
+                          quick=True, windows=(MISTRAL_WINDOW,),
+                          layers=FAMILY_PAGED_LAYERS))]
     torch.cuda.empty_cache()
     return results
 
@@ -1357,7 +1419,8 @@ def phase_kernels(torch, card: str):
             log(f"[kernels] {name:16s} {r['dtype']:8s} {r['shape']:34s} "
                 f"max_abs_err={r['err']:.3e} {held}"
                 f"{rel} {'ok' if r['ok'] else 'FAIL'} | kernel "
-                f"{r['ms']:.4f} ms, "
+                f"{r['ms']:.4f} ms"
+                f"{' (' + r['route'] + ')' if 'route' in r else ''}, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
                 f"{r['plain_ms']:.4f} ms, library "
                 + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
@@ -2533,6 +2596,8 @@ def phase_mistral(torch, card: str):
     steps = eng["decode_steps"]
     assert steps > 0 and launches.get("paged_attention", 0) == \
         N_LAYERS * steps, (launches, steps)
+    # bf16 q at G 4: every launch on the tensor-core route
+    assert launches.get("paged_attention.mma") == N_LAYERS * steps, launches
     for k in ("flash_decode", "flash_decode_fw", "ragged_attention"):
         assert not launches.get(k), f"mistral: {k} launched: {launches}"
     assert eng["chunked_admissions"] >= 5, eng["chunked_admissions"]
@@ -2613,7 +2678,7 @@ def phase_mistral_inproc(torch, card: str, wave1, served):
     # contexts up to 5,200 (ms per step and busy share)
     out, launches, eng, _ = pair_run(
         torch, spec, params, wave1, "mistral", card,
-        profile_share=("paged_attention_kernel", "paged_merge_kernel"),
+        profile_share=("paged_mma_kernel", "paged_simt_kernel"),
         attention_impl="pallas", max_seq_len=8192, prefill_chunk=512)
     assert eng["decode_mode"] == "inline" and launches.get(
         "paged_attention") == N_LAYERS * eng["decode_steps"], \
@@ -2973,6 +3038,11 @@ def phase_families_inproc(torch, card: str, served):
             if tag == " inline":
                 assert eng["decode_mode"] == "inline" and launches.get(
                     "paged_attention") == cut * steps > 0, (launches, steps)
+                # Qwen2-7B's G 7 on the tensor cores, Gemma-7B's G 1 on
+                # the CUDA cores (paged_plan's rule)
+                route = "mma" if name == "qwen2-7b" else "simt"
+                assert launches.get(f"paged_attention.{route}") == \
+                    cut * steps, (route, launches)
                 paths[f"{name} inline"] = launches
             else:
                 assert launches.get("flash_decode") == cut * steps > 0, \
@@ -3226,10 +3296,11 @@ def fp32_chains(torch, card: str, spec32, params, prompts, cont, label: str):
     return launches
 
 
-# kernels that the one-launch GEMVs replaced (norm_matmul's prologue, GEMV
-# and split-K reduce; the int4 GEMV and its reduce): no profile may see one
+# kernels that the one-launch kernels replaced (norm_matmul's prologue, GEMV
+# and split-K reduce; the int4 GEMV and its reduce; paged attention's
+# second, merging launch): no profile may see one
 RETIRED_KERNELS = ("rms_inv_kernel", "::gemv_kernel<", "splitk_reduce_kernel",
-                   "int4_gemv_kernel<")
+                   "int4_gemv_kernel<", "paged_merge_kernel")
 
 
 def report_profile(prof, wall: float, steps: int, label: str,

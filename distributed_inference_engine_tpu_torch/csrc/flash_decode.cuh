@@ -1,6 +1,9 @@
 // Flash-decode attention over a paged prefix plus the chunk's side window:
 // the kernels (the launches and C entry points are in flash_decode.cu and,
-// for e4m3 pools, flash_decode_fp8.cu).
+// for e4m3 pools, flash_decode_fp8.cu). Paged attention's tensor-core route
+// (paged_attention.cu) runs the same tile ring, e4m3 widening and mma core
+// with no side window, and above 8 query rows the core's warp pairs
+// (kPairs).
 //
 // Replaces the TPU kernel ops/flash_decode.py:_flash_decode_kernel of the
 // JAX package (wrapper flash_decode_attention_pallas). Per slot b it
@@ -162,13 +165,22 @@ struct Plan {
   const int* pages;
 };
 
-// The block's plan; the run's page ids are copied into run_pages (when
-// they fit) in the same breath as the lengths are read, so the tile loop
-// never waits on the page table. The caller syncs before using them.
-template <bool FW, int GS>
-__device__ __forceinline__ Plan make_plan(const FdArgs& a, int* run_pages) {
-  Plan p;
-  const int bk = blockIdx.x;          // (slot, KV head, sub-group)
+// The page ids pg0 .. pg0 + n_pg - 1 of a slot's page-table row, copied
+// into run_pages by the block's kT threads when they fit (else read from
+// the table); the caller syncs before using them.
+template <int kT>
+__device__ __forceinline__ const int* run_page_ids(const int* row, int pg0,
+                                                   int n_pg, int* run_pages) {
+  if (n_pg > kRunPages) return row + pg0;
+  for (int i = threadIdx.x; i < n_pg; i += kT) run_pages[i] = row[pg0 + i];
+  return run_pages;
+}
+
+// The block's query rows: blockIdx.x is (slot, KV head, sub-group of GS
+// rows), blockIdx.y the run.
+template <int GS>
+__device__ __forceinline__ void plan_rows(const FdArgs& a, Plan& p) {
+  const int bk = blockIdx.x;
   const int per_slot = a.hkv * a.n_sub;
   p.b = bk / per_slot;
   const int rem = bk - p.b * per_slot;
@@ -178,18 +190,21 @@ __device__ __forceinline__ Plan make_plan(const FdArgs& a, int* run_pages) {
   p.row0 = static_cast<long long>(p.b) * a.hkv * a.g + p.kh * a.g +
            p.sub * GS;
   p.split = blockIdx.y;
+}
+
+// The block's plan; the run's page ids are copied into run_pages (when
+// they fit) in the same breath as the lengths are read, so the tile loop
+// never waits on the page table. The caller syncs before using them.
+template <bool FW, int GS>
+__device__ __forceinline__ Plan make_plan(const FdArgs& a, int* run_pages) {
+  Plan p;
+  plan_rows<GS>(a, p);
   p.s_lo = p.split * a.chunk;
-  const int* row = a.page_table + static_cast<long long>(p.b) * a.mp;
   p.pg0 = p.s_lo / a.page_size;
-  const int n_pg =
-      min(a.mp, (p.s_lo + a.chunk - 1) / a.page_size + 1) - p.pg0;
-  if (n_pg <= kRunPages) {
-    for (int i = threadIdx.x; i < n_pg; i += kThreads)
-      run_pages[i] = row[p.pg0 + i];
-    p.pages = run_pages;
-  } else {
-    p.pages = row + p.pg0;
-  }
+  p.pages = run_page_ids<kThreads>(
+      a.page_table + static_cast<long long>(p.b) * a.mp, p.pg0,
+      min(a.mp, (p.s_lo + a.chunk - 1) / a.page_size + 1) - p.pg0,
+      run_pages);
   const int plen = min(a.prefix_lens[p.b], a.mp * a.page_size);
   p.n_pref = max(0, min(plen, p.s_lo + a.chunk) - p.s_lo);
   p.ns = 0;
@@ -480,12 +495,23 @@ __device__ __forceinline__ void simt_block(const FdArgs& a, const Plan& p,
 
 // ------------------------------------------------------------------ mma
 
+// Up to 8 query rows (G <= 8), a warp holds them all and the warps take
+// turns over a tile's 16-key sub-tiles. Above 8 (paged attention's 16-row
+// instance) the warps go in pairs: the two warps of a pair take the same
+// sub-tiles, one the rows 0-7 and the other the rows 8-15, so a tile's
+// sub-tiles keep twice the warps busy and each warp's chain is the 8-row
+// one; each pair keeps one state per row (kStates of them a block).
+template <int G>
+constexpr bool kPairs = G > 8;
+template <int G>
+constexpr int kStates = kPairs<G> ? kWarps / 2 : kWarps;
+
 // One staged tile of bf16 keys on the tensor cores: tile t of a key
 // sequence of n_keys keys (K rows at st, V rows after them), each warp
-// taking the 16-key sub-tiles i with i % kWarps == its index. Lane i holds
-// query row i / 4 (rows G..15 are the padding) and, per 8-wide column tile
-// n of the output, the columns 8n + 2 (i % 4) and + 1; scores in log2
-// units.
+// (pair) taking the 16-key sub-tiles i with i % kStates == its index. Lane
+// i holds query row i / 4 of its warp's 8 (rows past G are the padding)
+// and, per 8-wide column tile n of the output, the columns 8n + 2 (i % 4)
+// and + 1; scores in log2 units.
 template <int DH, int G>
 __device__ __forceinline__ void mma_tile(const char* st, int t, int n_keys,
                                          const char* q_tile, float scale2,
@@ -496,17 +522,22 @@ __device__ __forceinline__ void mma_tile(const char* st, int t, int n_keys,
   static_assert(T::kKeys % 16 == 0, "tiles of 16-key sub-tiles");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int turn = kPairs<G> ? warp / 2 : warp;
+  // the Q row whose address this lane gives ldmatrix: the upper warp of a
+  // pair takes rows 8-15 as its fragment's rows 0-7 (its fragment rows
+  // 8-15, rows 0-7 of the tile, are the padding)
+  const int q_row = kPairs<G> ? (lane + (warp % 2) * 8) % 16 : lane % 16;
   const char* vt = st + T::kKeys * T::kStride;
 #pragma unroll
   for (int j = 0; j < kSub; ++j) {
     const int key0 = t * T::kKeys + j * 16;
-    if ((t * kSub + j) % kWarps != warp || key0 >= n_keys) continue;
+    if ((t * kSub + j) % kStates<G> != turn || key0 >= n_keys) continue;
     // S = Q K^T over the sub-tile's 16 keys: two 8-key column tiles
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
       uint32_t qa[4], kb[4];
-      ldsm_x4(qa, q_tile + (lane % 16) * T::kStride +
+      ldsm_x4(qa, q_tile + q_row * T::kStride +
                       (kk * 16 + (lane / 16) * 8) * 2);
       ldsm_x4(kb, st + (j * 16 + (lane / 16) * 8 + lane % 8) * T::kStride +
                       (kk * 16 + ((lane / 8) % 2) * 8) * 2);
@@ -633,12 +664,14 @@ __device__ __forceinline__ void mma_block(const FdArgs& a, const Plan& p,
         });
   }
 
-  // the quad's parts of l; then row lane / 4 into scratch
+  // the quad's parts of l; then row lane / 4 (+ 8 in a pair's upper warp)
+  // into the warp's (pair's) state in scratch
   l += __shfl_xor_sync(0xffffffffu, l, 1);
   l += __shfl_xor_sync(0xffffffffu, l, 2);
-  const int gi = lane / 4;
+  const int gi = lane / 4 + (kPairs<G> ? (warp % 2) * 8 : 0);
   if (gi < G) {
-    float* slot = scratch + (warp * G + gi) * (2 + DH);
+    const int state = kPairs<G> ? warp / 2 : warp;
+    float* slot = scratch + (state * G + gi) * (2 + DH);
     if (lane % 4 == 0) {
       slot[0] = m * 0.6931471805599453f;  // ln 2: back to natural units
       slot[1] = l;
@@ -674,7 +707,7 @@ struct Smem {
                  kStages * Tile<__nv_bfloat16, DH>::kStageBytes>
           : kStages * Tile<TKV, DH>::kStageBytes;
   static constexpr int kMerge =
-      kWarps * G * (2 + DH) * static_cast<int>(sizeof(float));
+      kStates<G> * G * (2 + DH) * static_cast<int>(sizeof(float));
   static constexpr int kQ = 16 * Tile<TQ, DH>::kStride;  // tensor cores only
   static constexpr int kQAt = kRing > kMerge ? kRing : kMerge;
   static constexpr int kBytes = kQAt + (kMma<TQ, TKV> ? kQ : 0);

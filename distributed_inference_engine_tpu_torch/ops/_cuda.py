@@ -28,7 +28,8 @@ only, so a graph captured while another thread serves (a worker staging
 a model) records none of the server's. ``warm_up`` is the eager pass before a capture, on
 the capture stream: it makes each kernel's first-launch host calls
 (``cudaFuncSetAttribute``, the ``cuTensorMapEncodeTiled`` lookup),
-cuBLAS's workspaces and flash-decode's split scratch outside any graph.
+cuBLAS's workspaces and the split scratch of flash-decode and paged
+attention (``split_scratch``) outside any graph.
 All graphs are captured on one stream a device (``capture_stream``), under
 ``GRAPH_LOCK``.
 
@@ -344,8 +345,9 @@ def lib() -> ctypes.CDLL:
         handle.die_int4_matmul.argtypes = [
             P, P, P, P, I, I, I, I, I, I, I, I, P]
         handle.die_paged_attention.argtypes = [
-            P, P, P, P, P, P, P, P, P,           # q .. l_out, workspace
+            P, P, P, P, P, P, P, P, P, P,        # q .. l_out, ws, counters
             I, I, I, I, I, I, I, I, I,           # shapes, window, split
+            I, I,                                # rows a block, route
             LL, I, I, P]                         # layer base, dtypes, stream
         for fn in (handle.die_flash_decode, handle.die_flash_decode_fw,
                    handle.die_ragged_attention, handle.die_norm_matmul,
@@ -409,6 +411,53 @@ def cluster_split(k_tiles: int, blocks: int, sms: int) -> Tuple[int, int]:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# (device index, stream) -> (fp32 partials, int32 arrival counters) of the
+# split-KV grids of flash-decode, fw and paged attention, grown on demand;
+# each kernel leaves the counters at 0. A buffer that a larger one replaces
+# stays in _RETIRED: a CUDA graph captured against it still writes there.
+# See split_scratch for what this asks of CUDA graphs.
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+_RETIRED: List[torch.Tensor] = []
+# a worker has more than one thread that may launch (a serving pump, a
+# model staging beside it): the lookup and the growth are one step
+_SCRATCH_LOCK = threading.Lock()
+
+
+def split_scratch(device: torch.device, n_partials: int, n_groups: int):
+    """Workspace and zeroed counters of a split-KV grid on this device's
+    current stream (kept: calls on one stream run in order, and each
+    launch leaves its counters at 0; the attention kernels share them).
+
+    The scratch is keyed by the raw stream pointer, so two launches that
+    run at the same time must not share a stream's scratch. A CUDA graph
+    records the pointers of the scratch of the stream it was captured on.
+    The design chosen for the engine's graphs: every graph is warmed up
+    and captured on the one capture stream of its device, so the warm-up
+    allocates and zeroes that stream's scratch outside every graph pool
+    and all graphs share it; every replay and every eager call is issued
+    on the caller's current stream, one stream, so none overlaps another,
+    and no eager call runs on the capture stream outside a warm-up (which
+    holds ``GRAPH_LOCK``). A buffer is never freed once a graph may hold
+    its address (``_RETIRED``). Threads that launch on one stream (a
+    worker's pumps and its staging thread all launch on the default
+    stream) run in that stream's order on the card; ``_SCRATCH_LOCK``
+    keeps the table and its growth consistent on the host."""
+    key = (device.index, stream_ptr(device))
+    with _SCRATCH_LOCK:
+        ws, cnt = _SCRATCH.get(key, (None, None))
+        if ws is None or ws.numel() < n_partials:
+            if ws is not None:
+                _RETIRED.append(ws)
+            ws = torch.empty((n_partials,), dtype=torch.float32,
+                             device=device)
+        if cnt is None or cnt.numel() < n_groups:
+            if cnt is not None:
+                _RETIRED.append(cnt)
+            cnt = torch.zeros((n_groups,), dtype=torch.int32, device=device)
+        _SCRATCH[key] = (ws, cnt)
+    return ws, cnt
 
 
 def check(err: int, name: str) -> None:

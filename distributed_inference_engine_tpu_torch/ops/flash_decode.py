@@ -34,8 +34,7 @@ the fresh row stay in q's dtype, as in JAX.
 
 from __future__ import annotations
 
-import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -47,18 +46,6 @@ from .paged_attention import paged_attention_xla, paged_split, subgroup
 # min_chunk): a lone slot at 8 KV heads gets 32 runs, not the paged
 # kernel's 8, where a block's time is mostly its fixed chain of steps
 MIN_CHUNK = 64
-
-# (device index, stream) -> (fp32 partials, int32 arrival counters) of the
-# split grid, grown on demand; the kernel leaves the counters at 0. A buffer
-# that a larger one replaces stays in _RETIRED: a CUDA graph captured
-# against it still writes there. See _scratch for what this asks of CUDA
-# graphs.
-_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
-_RETIRED: List[torch.Tensor] = []
-# a worker has more than one thread that may launch (a serving pump, a
-# model staging beside it): the lookup and the growth are one step
-_SCRATCH_LOCK = threading.Lock()
-
 
 def flash_decode_attention_plain(
     q: torch.Tensor,            # [B, H, Dh]
@@ -130,42 +117,6 @@ def flash_decode_split(b: int, n_kv_heads: int, page_size: int, mp: int,
                        _cuda.sm_count(device.index), min_chunk=MIN_CHUNK)
 
 
-def _scratch(device: torch.device, n_partials: int, n_groups: int):
-    """Workspace and zeroed counters of the split grid on this device's
-    current stream (kept: calls on one stream run in order, and each
-    launch leaves its counters at 0).
-
-    The scratch is keyed by the raw stream pointer, so two launches that
-    run at the same time must not share a stream's scratch. A CUDA graph
-    records the pointers of the scratch of the stream it was captured on.
-    The design chosen for the engine's graphs (``ops/_cuda.py``): every
-    graph is warmed up and captured on the one capture stream of its
-    device, so the warm-up allocates and zeroes that stream's scratch
-    outside every graph pool and all graphs share it; every replay and
-    every eager call is issued on the caller's current stream, one stream,
-    so none overlaps another, and no eager call runs on the capture stream
-    outside a warm-up (which holds ``_cuda.GRAPH_LOCK``). A buffer is never
-    freed once a graph may hold its address (``_RETIRED``). Threads that
-    launch on one stream (a worker's pumps and its staging thread all
-    launch on the default stream) run in that stream's order on the card;
-    ``_SCRATCH_LOCK`` keeps the table and its growth consistent on the
-    host."""
-    key = (device.index, _cuda.stream_ptr(device))
-    with _SCRATCH_LOCK:
-        ws, cnt = _SCRATCH.get(key, (None, None))
-        if ws is None or ws.numel() < n_partials:
-            if ws is not None:
-                _RETIRED.append(ws)
-            ws = torch.empty((n_partials,), dtype=torch.float32,
-                             device=device)
-        if cnt is None or cnt.numel() < n_groups:
-            if cnt is not None:
-                _RETIRED.append(cnt)
-            cnt = torch.zeros((n_groups,), dtype=torch.int32, device=device)
-        _SCRATCH[key] = (ws, cnt)
-    return ws, cnt
-
-
 def _launch(name, fn, q, k_pages, page_table, side_k, n_kv_heads, base,
             pointers):
     """Size the split grid, take the scratch, launch ``fn`` and count."""
@@ -174,7 +125,7 @@ def _launch(name, fn, q, k_pages, page_table, side_k, n_kv_heads, base,
     _gs, n_sub = subgroup(h // n_kv_heads)
     n_split, chunk = flash_decode_split(b, n_kv_heads, page_size, mp,
                                         q.device, n_sub)
-    ws, cnt = _scratch(q.device, b * h * n_split * (dh + 2),
+    ws, cnt = _cuda.split_scratch(q.device, b * h * n_split * (dh + 2),
                        b * n_kv_heads * n_sub)
     out = torch.empty_like(q)
     err = fn(*pointers, out.data_ptr(), ws.data_ptr(), cnt.data_ptr(),

@@ -618,10 +618,22 @@ def test_ragged_attention_tensor_cores_many_pairs(card):
     _ragged_mma_case(card, rows, 16, 2, 128, 16, 64, seed=77)
 
 
+def _paged_plan(card, b, h, hkv, dh, p, mp, window, dtype, kv_dtype,
+                mma=None):
+    """The wrapper's launch plan at these shapes (``mma`` given: that
+    route's)."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    max_keys = min(mp * p, window) if window else mp * p
+    return pa.paged_plan(b, h, hkv, dh, max_keys, sms, dtype, kv_dtype,
+                         mma=mma)
+
+
 def _paged_case(card, dtype, kv_dtype, h, hkv, dh, p, mp, lens, window,
-                seed):
+                seed, mma=None):
     """Per-layer and stacked (layer 1) pools: out and the flash stats
-    against the plain version (stats on the inputs widened to fp32)."""
+    against the plain version (stats on the inputs widened to fp32), each
+    call one launch of its route and pool instance; ``mma`` given: that
+    route (``paged_attention_launch``) rather than the wrapper's rule."""
     g = torch.Generator(device=card).manual_seed(seed)
     b = len(lens)
     n = b * mp + 4
@@ -632,17 +644,26 @@ def _paged_case(card, dtype, kv_dtype, h, hkv, dh, p, mp, lens, window,
     table = torch.randperm(n, generator=g, device=card)[: b * mp].reshape(
         b, mp).to(torch.int32)
     lengths = torch.tensor(lens, dtype=torch.int32, device=card)
+    plan = _paged_plan(card, b, h, hkv, dh, p, mp, window, dtype, kv_dtype,
+                      mma)
+    route = f"paged_attention.{'mma' if plan.mma else 'simt'}"
     for kw in (dict(), dict(layer=1, n_pages_per_layer=n)):
         pools = (kp[:n], vp[:n]) if not kw else (kp, vp)
         before = (_cuda.LAUNCHES["paged_attention"],
-                  _cuda.LAUNCHES["paged_attention.fp8"])
-        out, m, l = pa.paged_attention(q, *pools, table, lengths,
-                                       n_kv_heads=hkv, window=window,
-                                       with_stats=True, **kw)
+                  _cuda.LAUNCHES["paged_attention.fp8"],
+                  _cuda.LAUNCHES[route])
+        call_kw = dict(n_kv_heads=hkv, window=window, with_stats=True, **kw)
+        if mma is None:
+            out, m, l = pa.paged_attention(q, *pools, table, lengths,
+                                           **call_kw)
+        else:
+            out, m, l = pa.paged_attention_launch(q, *pools, table, lengths,
+                                                  plan, **call_kw)
         torch.cuda.synchronize()
         assert (_cuda.LAUNCHES["paged_attention"],
-                _cuda.LAUNCHES["paged_attention.fp8"]) == (
-            before[0] + 1, before[1] + (kv_dtype == FP8))
+                _cuda.LAUNCHES["paged_attention.fp8"],
+                _cuda.LAUNCHES[route]) == (
+            before[0] + 1, before[1] + (kv_dtype == FP8), before[2] + 1)
         ref = pa.paged_attention_xla(q, *pools, table, lengths,
                                      n_kv_heads=hkv, window=window, **kw)
         _close(out, ref, _tol_dtype(dtype, kv_dtype))
@@ -733,6 +754,145 @@ def test_paged_attention_split_kv(card, dtype, window, slots):
                 min(mp * p, (window or 4096) + chunk), 6000]
     _paged_case(card, dtype, dtype, 32, hkv, 128, p, mp, lens, window,
                 seed=len(lens) + window)
+
+
+# the tensor-core route's edges: G 9, 15 and 16 (one 16-row block a KV
+# head, rows past G dead), 17, 24, 32 and 96 (sub-groups of 16)
+MMA_GROUPS = [(9, 1, 128), (15, 1, 64), (16, 1, 128), (17, 1, 64),
+              (24, 1, 128), (64, 2, 64), (96, 1, 32)]
+BF16_POOLS = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, FP8)]
+
+
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("dtype,kv_dtype", BF16_POOLS)
+@pytest.mark.parametrize("h,hkv,dh", MMA_GROUPS)
+def test_paged_attention_tensor_core_groups(card, dtype, kv_dtype, window,
+                                            h, hkv, dh):
+    """bf16 q over bf16 and e4m3 pools on the tensor cores at the 16-row
+    instance's edges, with and without the window: out and the flash
+    stats of every row against the plain version."""
+    plan = _paged_plan(card, 10, h, hkv, dh, 16, 6, window, dtype, kv_dtype)
+    assert plan.mma and plan.rows == 16
+    assert plan.n_sub == -(-(h // hkv) // 16)
+    _paged_case(card, dtype, kv_dtype, h, hkv, dh, 16, 6,
+                [0, 1, 15, 16, 17, 40, 41, 56, 57, 96], window, seed=9 + h)
+
+
+PAGED_PAIRS = POOL_PAIRS + [(torch.float32, torch.bfloat16),
+                            (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("dtype,kv_dtype", PAGED_PAIRS)
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("h,hkv", [(12, 2), (16, 1)])
+def test_paged_attention_every_width(card, dtype, kv_dtype, window, dh, h,
+                                     hkv):
+    """Every head width in every pool pair, the mixed pairs included, at G
+    6 (the 8-row tile, two dead rows; a sub-group of 8 on the CUDA cores)
+    and G 16 (the full 16-row tile; two sub-groups of 8)."""
+    _paged_case(card, dtype, kv_dtype, h, hkv, dh, 16, 6,
+                [0, 1, 15, 16, 17, 40, 41, 56, 57, 96], window,
+                seed=11 + dh + h)
+
+
+@pytest.mark.parametrize("dtype,kv_dtype", PAGED_PAIRS)
+@pytest.mark.parametrize("h,hkv,dh", [(28, 4, 128), (16, 1, 256),
+                                      (64, 4, 64)])
+def test_paged_attention_window_mid_tile(card, dtype, kv_dtype, h, hkv, dh):
+    """A window whose first key falls mid-page (pages of 16) and mid-tile
+    (tiles of 16 to 64 keys) for every slot, the runs of a split grid
+    starting there: len - window = 23, 50, 137, 201 and 2,101."""
+    window = 1000
+    lens = [1023, 1050, 1137, 1201, 3101, 0]
+    plan = _paged_plan(card, len(lens), h, hkv, dh, 16, 200, window, dtype,
+                       kv_dtype)
+    assert plan.n_split > 1 and plan.n_split * plan.chunk >= window
+    _paged_case(card, dtype, kv_dtype, h, hkv, dh, 16, 200, lens, window,
+                seed=12 + h)
+
+
+@pytest.mark.parametrize("dtype,kv_dtype", BF16_POOLS)
+@pytest.mark.parametrize("window", [0, 4096, 1000])
+@pytest.mark.parametrize("h,hkv,dh", [(28, 4, 128), (64, 4, 128),
+                                      (8, 1, 256)])
+@pytest.mark.parametrize("slots", ["one run", "split edges"])
+def test_paged_attention_tensor_core_split(card, dtype, kv_dtype, window, h,
+                                           hkv, dh, slots):
+    """The tensor-core route's split grid at Qwen2-7B's G 7, G 16 and
+    Gemma-2B's 8 over 1 at Dh 256 (pages of 128, 48 a slot): 8 slots with
+    lengths on the run edges and one key either side, a window whose first
+    key falls mid-run, the empty slot; and one run a slot (64 slots of
+    short tables: no merge)."""
+    p = 128
+    if slots == "one run":
+        mp, lens = 2, [0, 1, 100, 127, 128, 129, 200, 256] * 8
+    else:
+        mp = 48
+        plan = _paged_plan(card, 8, h, hkv, dh, p, mp, window, dtype,
+                           kv_dtype)
+        chunk = plan.chunk
+        assert plan.n_split > 1
+        lens = [0, 1, chunk, chunk + 1, 2 * chunk - 1, 3 * chunk,
+                min(mp * p, (window or 4096) + chunk), 6000]
+    plan = _paged_plan(card, len(lens), h, hkv, dh, p, mp, window, dtype,
+                       kv_dtype)
+    assert plan.mma and (plan.n_split == 1) == (slots == "one run")
+    _paged_case(card, dtype, kv_dtype, h, hkv, dh, p, mp, lens, window,
+                seed=13 + h + window)
+
+
+@pytest.mark.parametrize("mma", [True, False])
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("dtype,kv_dtype", BF16_POOLS)
+@pytest.mark.parametrize("h,hkv,dh", [(8, 8, 128), (8, 4, 128), (8, 2, 128),
+                                      (4, 4, 256), (4, 2, 256),
+                                      (4, 1, 256)])
+def test_paged_attention_both_routes(card, mma, window, dtype, kv_dtype, h,
+                                     hkv, dh):
+    """bf16 q at G 1, 2 and 4 (Dh 128 and 256) on both routes, the
+    wrapper's rule and the other: each against the plain version."""
+    _paged_case(card, dtype, kv_dtype, h, hkv, dh, 16, 6,
+                [0, 1, 15, 16, 17, 40, 41, 56, 57, 96], window,
+                seed=14 + h + dh, mma=mma)
+
+
+def test_paged_attention_graph_replay(card):
+    """The tensor-core route (G 7, split grid, stats, e4m3 and bf16 pools)
+    captured in a CUDA graph replays bit-equal to an eager call, and a
+    replay over new lengths and q equals an eager call on them."""
+    g = torch.Generator(device=card).manual_seed(15)
+    b, h, hkv, dh, p, mp, window = 8, 28, 4, 128, 128, 48, 4096
+    n = b * mp
+    i32 = dict(dtype=torch.int32, device=card)
+    for kv_dtype in (torch.bfloat16, FP8):
+        q = torch.randn((b, h, dh), generator=g, device=card).to(
+            torch.bfloat16)
+        kp = torch.randn((n, p, hkv * dh), generator=g,
+                         device=card).to(kv_dtype)
+        vp = _randn_like(kp)
+        table = torch.randperm(n, generator=g, device=card).reshape(
+            b, mp).to(torch.int32)
+        lens = torch.tensor([0, 1, 127, 1500, 4097, 4224, 4225, 6000], **i32)
+        kw = dict(n_kv_heads=hkv, window=window, with_stats=True)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):  # the capture stream's scratch
+            pa.paged_attention(q, kp, vp, table, lens, **kw)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            got = pa.paged_attention(q, kp, vp, table, lens, **kw)
+        for new in (False, True):
+            if new:
+                q.copy_(torch.randn(q.shape, generator=g, device=card))
+                lens.copy_(torch.tensor([6000, 0, 4097, 33, 1, 4096, 129,
+                                         5000], **i32))
+            graph.replay()
+            want = pa.paged_attention(q, kp, vp, table, lens, **kw)
+            torch.cuda.synchronize()
+            for a, w in zip(got, want):
+                assert torch.equal(a, w), kv_dtype
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):

@@ -250,3 +250,94 @@ def test_paged_split_sizing(b, hkv, max_keys, sms, want):
     assert (n_split, chunk) == want
     assert n_split * chunk >= max_keys > (n_split - 1) * chunk
     assert chunk % 64 == 0
+
+
+# (b, H, Hkv, Dh, max_keys, q dtype, pool dtype) -> the kernel's launch plan
+# at 132 SMs: the route, the rows a block, the sub-groups a KV head, the
+# runs
+BF, F32, E4 = torch.bfloat16, torch.float32, torch.float8_e4m3fn
+
+
+@pytest.mark.parametrize("b,h,hkv,dh,max_keys,qd,kvd,want", [
+    # Mistral decode (G 4): one 8-row tile a KV head; at window 0 the runs
+    # are held to 16 tiles of 32 keys
+    (8, 32, 8, 128, 4096, BF, BF, (True, 8, 1, 8, 512)),
+    (8, 32, 8, 128, 6144, BF, BF, (True, 8, 1, 12, 512)),
+    # Qwen2-7B's G 7 and G 8 (Llama-3-70B, Qwen2-72B) at Hkv 4, and G 3
+    (8, 28, 4, 128, 4096, BF, BF, (True, 8, 1, 16, 256)),
+    (8, 32, 4, 128, 4096, BF, E4, (True, 8, 1, 16, 256)),
+    (8, 12, 4, 128, 6144, BF, BF, (True, 8, 1, 16, 384)),
+    # G 9-16: the 16-row tile, one block a (slot, KV head, run)
+    (8, 36, 4, 128, 4096, BF, BF, (True, 16, 1, 16, 256)),
+    (8, 64, 4, 128, 4096, BF, E4, (True, 16, 1, 16, 256)),
+    # G 17 and 96: sub-groups of 16
+    (8, 68, 4, 128, 4096, BF, BF, (True, 16, 2, 8, 512)),
+    (8, 96, 1, 128, 4096, BF, BF, (True, 16, 6, 11, 384)),
+    # Dh 256: runs of at most 16 tiles of 16 keys (Gemma-2B's 8 over 1 at
+    # window 0; G 4 over 8 KV heads)
+    (8, 8, 1, 256, 6144, BF, BF, (True, 8, 1, 24, 256)),
+    (8, 32, 8, 256, 4096, BF, BF, (True, 8, 1, 16, 256)),
+    # G 1 and 2 stay on the CUDA cores (Gemma-7B's 16 over 16)
+    (8, 16, 16, 256, 6144, BF, BF, (False, 1, 1, 5, 1280)),
+    (8, 16, 8, 128, 4096, BF, E4, (False, 2, 1, 8, 512)),
+    # every other pair: the CUDA cores in subgroup()'s sub-groups of 8
+    (8, 28, 4, 128, 4096, F32, F32, (False, 8, 1, 16, 256)),
+    (8, 48, 4, 128, 4096, F32, E4, (False, 8, 2, 8, 512)),
+    (8, 32, 8, 128, 4096, BF, F32, (False, 4, 1, 8, 512)),
+    (1, 4, 4, 128, 100, F32, BF, (False, 1, 1, 1, 128)),
+])
+def test_paged_grid_rule(b, h, hkv, dh, max_keys, qd, kvd, want):
+    """The kernel's launch plan from shapes and dtypes alone: bf16 q over
+    bf16 or e4m3 pools at G >= 3 on the tensor cores with up to 16 query
+    heads a block (8 rows up to G 8) in runs of at most 16 staged tiles,
+    everything else on the CUDA cores, and the split grid over the (slot,
+    KV head, sub-group) blocks."""
+    plan = tpa.paged_plan(b, h, hkv, dh, max_keys, 132, qd, kvd)
+    assert tuple(plan) == want
+    assert plan.rows * plan.n_sub >= h // hkv > plan.rows * (plan.n_sub - 1)
+    assert plan.n_split * plan.chunk >= max_keys
+    if not plan.mma:
+        assert (plan.n_split, plan.chunk) == tpa.paged_split(
+            b, hkv * plan.n_sub, max_keys, 132)
+    # the other route on request, on its own grid rule
+    other = tpa.paged_plan(b, h, hkv, dh, max_keys, 132, qd, kvd,
+                           mma=not plan.mma)
+    assert other.mma != plan.mma
+    assert other.rows == ((8 if h // hkv <= 8 else 16) if other.mma
+                          else tpa.subgroup(h // hkv)[0])
+    assert other.n_split * other.chunk >= max_keys
+
+
+@pytest.mark.parametrize("g,want", [
+    (1, (1, 1)), (2, (2, 1)), (3, (4, 1)), (4, (4, 1)), (5, (8, 1)),
+    (7, (8, 1)), (8, (8, 1)), (9, (8, 2)), (12, (8, 2)), (16, (8, 2)),
+    (17, (8, 3)), (96, (8, 12))])
+def test_flash_decode_subgroup_unchanged(g, want):
+    """Flash-decode's sub-group rule (1, 2, 4 or 8 rows, 8 above) and its
+    split grid stay as they were: the paged kernel's rule is its own."""
+    assert tpa.subgroup(g) == want
+    assert tpa.paged_split(8, 8, 2048, 132, min_chunk=64) == (8, 256)
+    assert tpa.paged_split(1, 8, 2048, 132, min_chunk=64) == (32, 64)
+
+
+# (H, Hkv, Dh): G 9, 15, 16 and 17 around the 16-row tile, and Gemma-2B's
+# 8 query heads over one KV head at Dh 256
+GROUPS_16 = [(9, 1, 128), (15, 1, 64), (32, 2, 64), (17, 1, 128),
+             (8, 1, 256)]
+
+
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("h,hkv,dh", GROUPS_16)
+def test_plain_matches_jax_xla_at_wide_groups(window, h, hkv, dh):
+    """The plain version, which the tensor-core route is held to on the
+    card, against JAX's XLA paged attention at the groups the 16-row tile
+    takes: out, m and l in fp32 within 1e-5."""
+    case = _case(90 + window + h + dh, h, hkv, dh)
+    got, m, l = _port(case, hkv, window=window, with_stats=True)
+    want = jpaged.paged_attention_xla(*case, n_kv_heads=hkv, window=window,
+                                      with_stats=True)
+    _close(got, want[0])
+    np.testing.assert_allclose(_np(l), _np(want[2]), rtol=1e-5, atol=ATOL)
+    live = np.asarray(LENS) > 0
+    _close(m[live], np.asarray(want[1])[live])
+    assert float(got[0].abs().max()) == 0.0 and float(l[0].max()) == 0.0
