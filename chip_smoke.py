@@ -69,7 +69,13 @@ Phases, each failing loudly (any failure exits non-zero):
      fp32 held to 1e-5; fw's side write with a fresh row past 464 and the
      ragged writeback with fresh K/V past 464 byte-equal to the plain
      versions'; each checked by its ``<kernel>.fp8`` launch count; no
-     library yardstick (no one call takes e4m3 K/V: SDPA needs an upcast).
+     library yardstick (no one call takes e4m3 K/V: SDPA needs an upcast);
+     each e4m3 row prints the bf16-pool instance's time at the same case
+     from the same run and the ratio (``note_fp8_against_bf16``);
+   - flash-decode at 128 slots (``FD_B128``: prefix lengths drawn
+     uniformly from 0-2,040 and side counts from 0-8 with a seeded
+     generator), bf16 q over bf16 and over e4m3 pools, where the pools'
+     bytes dominate a layer (the TPU bench's default rung runs 128 slots).
    Attention kernels are also held per output row to max|out - ref32| /
    max|ref32| against the plain version on the same values in fp32. Each
    bound counts the valid work only (no query padding), the pools' bytes
@@ -508,6 +514,21 @@ FD_CASES = [
      [0, 1, 3, W, 2, 5, 7, 6], [1, 1, 0, 1, 1, 0, 1, 1]),
     ("B1", [2040], [W], [6], [1]),
 ]
+
+
+def _b128_case(seed: int = 128):
+    """The many-slot decode (the TPU bench's default rung runs 128 slots):
+    128 prefix lengths drawn uniformly from 0-2,040 and side counts from
+    0-8 with a seeded generator, where the K/V bytes dominate the layer."""
+    import random
+    rs = random.Random(seed)
+    prefix = [rs.randint(0, 2040) for _ in range(128)]
+    n_side = [rs.randint(0, W) for _ in range(128)]
+    return ("B128", prefix, n_side, [min(n, W - 1) for n in n_side],
+            [1] * 128)
+
+
+FD_B128 = [_b128_case()]
 
 
 def fd_inputs(torch, g, nb: int, dt, n_copies_limit: int = 4, kv_dt=None,
@@ -1385,6 +1406,27 @@ def family_kernel_rows(torch):
     return results
 
 
+def note_fp8_against_bf16(results) -> None:
+    """Beside each e4m3-pool row, the bf16-pool instance's time at the
+    same case and q dtype from the same run (the ``.fp8`` lists' twins are
+    in the list without it, the families' in their own list), and the
+    ratio."""
+    for name, rows in results.items():
+        base = results.get(name.replace(".fp8", ""), []) if ".fp8" in name \
+            else rows
+        for r in rows:
+            if " e4m3 pools" not in r["shape"]:
+                continue
+            shape = r["shape"].replace(" e4m3 pools", "")
+            twin = [b for b in base if b["shape"] == shape
+                    and b["dtype"] == r["dtype"]]
+            if twin:
+                t = twin[0]["ms"]
+                r["bf16_ms"] = t
+                r["note"] = (r.get("note", "") + f"; bf16 pools {t:.4f} ms,"
+                             f" e4m3/bf16 {r['ms'] / t:.3f}").lstrip("; ")
+
+
 def phase_kernels(torch, card: str):
     results = {
         "flash_decode": check_flash_decode(torch),
@@ -1400,7 +1442,15 @@ def phase_kernels(torch, card: str):
         "ragged_attention.fp8": check_ragged(torch, FP8),
         "paged_attention.fp8": check_paged(torch, FP8),
     }
+    # 128 slots: the regime where the pools' bytes dominate a layer
+    results["flash_decode.b128"] = check_flash_decode(
+        torch, cases=FD_B128, dtypes=("bfloat16",))
+    torch.cuda.empty_cache()
+    results["flash_decode.fp8.b128"] = check_flash_decode(
+        torch, FP8, cases=FD_B128, dtypes=("bfloat16",))
+    torch.cuda.empty_cache()
     results.update(family_kernel_rows(torch))
+    note_fp8_against_bf16(results)
     bad = []
     for name, rows in results.items():
         for r in rows:

@@ -40,14 +40,30 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, like astype()
 }
-// Into e4m3 as JAX's astype rounds (ops/attention.py astype_kv): to nearest
-// even, and NaN (0x7F with x's sign) past 464, for +-inf and for NaN. The
-// non-saturating conversion is the library's software path; the hardware
-// cvt.rn.satfinite would saturate to +-448 instead.
+// Two floats into e4m3 as JAX's astype rounds them (ops/attention.py
+// astype_kv), lo in the low byte: to nearest even, and NaN (0x7F with x's
+// sign) past 464, for +-inf and for NaN. The card's conversion
+// (cvt.rn.satfinite, one instruction for the pair) rounds to nearest even
+// and saturates to +-448, which is JAX's answer up to 464; past it (and
+// for NaN) the byte is set to NaN, as astype_kv sets it. (The library's
+// non-saturating conversion gives the same bytes on a software path of
+// dozens of instructions a value.)
+__device__ __forceinline__ uint32_t fp8_nan_byte(float x) {
+  return 0x7Fu | (signbit(x) ? 0x80u : 0u);
+}
+__device__ __forceinline__ uint32_t f32x2_to_fp8x2(float lo, float hi) {
+  uint32_t v = __nv_cvt_float2_to_fp8x2(make_float2(lo, hi), __NV_SATFINITE,
+                                        __NV_E4M3);
+  if (!(fabsf(lo) <= 464.f && fabsf(hi) <= 464.f)) {   // rare: overflow
+    if (!(fabsf(lo) <= 464.f)) v = (v & 0xff00u) | fp8_nan_byte(lo);
+    if (!(fabsf(hi) <= 464.f)) v = (v & 0x00ffu) | (fp8_nan_byte(hi) << 8);
+  }
+  return v;
+}
 template <>
 __device__ __forceinline__ fp8 from_f<fp8>(float x) {
   fp8 r;
-  r.__x = __nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E4M3);
+  r.__x = static_cast<__nv_fp8_storage_t>(f32x2_to_fp8x2(x, 0.f) & 0xffu);
   return r;
 }
 
@@ -61,31 +77,65 @@ template <typename T>
 constexpr int kVecOf = kIsFp8<T> ? 8 : 16 / static_cast<int>(sizeof(T));
 
 // Two e4m3 values (lo in the low byte) widened to two bf16 in one 32-bit
-// register, lo in the low half: exact.
+// register, lo in the low half: exact. e4m3 -> f16x2 is one conversion
+// and exact (every e4m3 value, subnormals included, is an f16 normal or
+// zero); each f16 widens to an fp32 whose low 16 bits are zero (at most 4
+// significant bits), so its high half IS the bf16, and one byte permute
+// packs the two high halves. No rounding conversion into bf16 is left.
+// NaN bytes (0x7F, 0xFF) give f16 NaN, an fp32 NaN, and a bf16 whose
+// exponent is all ones with a non-zero mantissa: NaN.
 __device__ __forceinline__ uint32_t fp8x2_to_bf16x2(unsigned short v) {
   const __half2 h = __half2(__nv_cvt_fp8x2_to_halfraw2(v, __NV_E4M3));
   const float2 f = __half22float2(h);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
-  return *reinterpret_cast<const uint32_t*>(&b);
+  return __byte_perm(__float_as_uint(f.x), __float_as_uint(f.y), 0x7632);
 }
 
-// Eight e4m3 values (8 bytes) as eight bf16 (16 bytes).
+// Two e4m3 values widened to two f16 (lo in the low half): one exact
+// conversion. The e4m3 paths' P V takes V in f16 (common.cuh v_frags).
+__device__ __forceinline__ uint32_t fp8x2_to_f16x2(unsigned short v) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(v, __NV_E4M3);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The two e4m3 pairs of a 32-bit word: bytes 0-1 and bytes 2-3.
+__device__ __forceinline__ uint32_t fp8_lo_to_bf16x2(uint32_t w) {
+  return fp8x2_to_bf16x2(static_cast<unsigned short>(w & 0xffffu));
+}
+__device__ __forceinline__ uint32_t fp8_hi_to_bf16x2(uint32_t w) {
+  return fp8x2_to_bf16x2(static_cast<unsigned short>(w >> 16));
+}
+
+// Eight e4m3 values (8 bytes) widened to eight bf16 (16 bytes), exact.
 __device__ __forceinline__ uint4 fp8x8_to_bf16x8(uint2 v) {
-  return make_uint4(fp8x2_to_bf16x2(v.x & 0xffffu),
-                    fp8x2_to_bf16x2(v.x >> 16),
-                    fp8x2_to_bf16x2(v.y & 0xffffu),
-                    fp8x2_to_bf16x2(v.y >> 16));
+  return make_uint4(fp8_lo_to_bf16x2(v.x), fp8_hi_to_bf16x2(v.x),
+                    fp8_lo_to_bf16x2(v.y), fp8_hi_to_bf16x2(v.y));
 }
 
-// Eight bf16 values rounded to e4m3 (from_f<fp8>) and packed into 8 bytes.
+// Eight bf16 values rounded to e4m3 (from_f<fp8>'s rounding) and packed
+// into 8 bytes; a bf16 widens to fp32 by a shift. One test for the eight
+// finds a magnitude past 464 (or inf, NaN): a half h of a bf16 pair is past
+// 0x43E8 (464) iff (h & 0x7FFF) + 0x3C17 reaches bit 15; then the pairs
+// take f32x2_to_fp8x2's NaN bytes.
 __device__ __forceinline__ uint2 bf16x8_to_fp8x8(uint4 v) {
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-  uint32_t w[2] = {0u, 0u};
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t over = 0u;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-    w[i / 4] |= static_cast<uint32_t>(from_f<fp8>(__bfloat162float(e[i])).__x)
-                << (8 * (i % 4));
-  return make_uint2(w[0], w[1]);
+  for (int i = 0; i < 4; ++i) over |= (w[i] & 0x7fff7fffu) + 0x3c173c17u;
+  uint32_t p[4];
+  if (over & 0x80008000u) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p[i] = f32x2_to_fp8x2(__uint_as_float(w[i] << 16),
+                            __uint_as_float(w[i] & 0xffff0000u));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p[i] = __nv_cvt_float2_to_fp8x2(
+          make_float2(__uint_as_float(w[i] << 16),
+                      __uint_as_float(w[i] & 0xffff0000u)),
+          __NV_SATFINITE, __NV_E4M3);
+  }
+  return make_uint2(p[0] | (p[1] << 16), p[2] | (p[3] << 16));
 }
 
 // x rounded through storage type T and widened back (T's rounding, as a
@@ -367,11 +417,190 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// An 8x8 b16 matrix held as mma fragments (lane i: row i / 4, columns
+// 2 (i % 4) and + 1) transposed across the warp, in the same layout.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+
+// d += a . b on the tensor cores in f16 (the e4m3 paths' P V: e4m3 is
+// exact in f16, P in [0, 1] keeps 3 more bits than in bf16).
+__device__ __forceinline__ void mma_f16_16816(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two fp32 values rounded to f16 in one 32-bit register, lo in the low
+// half.
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // Two fp32 values rounded to bf16 in one 32-bit register, lo in the low
 // half (the element with the smaller column index of a fragment).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ------------------------------------------- e4m3 fragments in registers
+//
+// The tensor-core instances of flash-decode, its fw form and paged
+// attention over e4m3 pools (flash_decode.cuh fp8_block) read their K and
+// V mma fragments straight from the
+// staged e4m3 tiles as 32-bit words of four consecutive head dims, and
+// widen them in registers: ldmatrix moves 16-bit elements only. A K word
+// feeds a lane's k pairs (2t, 2t + 1) and (2t + 8, 2t + 9) of one K-step
+// (t = lane % 4), so a K-step's k index runs over the head dims in the
+// order kdim gives, and Q is read in the same order (a sum over Dh does not
+// depend on its order). A V word gives four dims of one key; a pair of
+// keys in one dim column is gathered from two key rows by one byte
+// permute, so the output's dims come in vdim's order, undone where the
+// output is written. ops/flash_decode.py fp8_fragment_dims mirrors both
+// orders on the host.
+
+// The first of the four consecutive head dims that lane quad t reads for
+// K-step kk (k pairs 2t, 2t + 1 and 2t + 8, 2t + 9). A lane's dims of four
+// consecutive K-steps are 16 contiguous dims (one 16-byte e4m3 load); at
+// Dh 128 and 256 the pieces of lanes t and t + 1 are two apart, so that the
+// loads of two key rows at the e4m3 stride hit different banks.
+template <int DH>
+__host__ __device__ constexpr int kdim(int kk, int t) {
+  return DH == 32   ? 8 * t + 4 * kk
+         : DH == 64 ? 16 * t + 4 * kk
+                    : 16 * (2 * t + ((kk >> 2) & 1) + 8 * (kk >> 3)) +
+                          4 * (kk & 3);
+}
+
+// The first of the four consecutive head dims of V word q (0 .. DH/32 - 1)
+// that lane row g (lane / 4) reads: flash-decode's O^T takes them as dim
+// rows g, g + 8 of m-tiles 2q and 2q + 1. At Dh >= 128 a lane's four words
+// of a 128-dim block are one 16-byte load.
+template <int DH>
+__host__ __device__ constexpr int vdim(int g, int q) {
+  return DH == 32   ? 4 * g
+         : DH == 64 ? 8 * g + 4 * q
+                    : 128 * (q >> 2) + 16 * g + 4 * (q & 3);
+}
+
+// A lane's part of one K row for K-step group c (kSteps K-steps: four, two
+// at Dh 32): dims kdim(kk, t) .. + 3 of each K-step kk of the group, as
+// e4m3 words (one a step) or bf16 pairs (two a step), one 8- to 32-byte
+// contiguous load. Also Q^T's B operand (bf16, from global memory).
+template <typename T, int DH>
+struct KGroup {
+  static constexpr int kSteps = DH == 32 ? 2 : 4;
+  static constexpr int kGroups = DH / 16 / kSteps;
+  static constexpr int kWords = kSteps * (kIsFp8<T> ? 1 : 2);
+  uint32_t w[kWords];
+
+  __device__ __forceinline__ void load(const char* row, int c, int t) {
+    const char* p = row + static_cast<int>(sizeof(T)) *
+                              kdim<DH>(kSteps * c, t);
+    if constexpr (kWords == 2) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
+    } else {
+#pragma unroll
+      for (int h = 0; h < kWords / 4; ++h) {
+        const uint4 v = reinterpret_cast<const uint4*>(p)[h];
+        w[4 * h] = v.x; w[4 * h + 1] = v.y; w[4 * h + 2] = v.z;
+        w[4 * h + 3] = v.w;
+      }
+    }
+  }
+
+  // step u's pairs as bf16: k 2t, 2t + 1 (lo) and 2t + 8, 2t + 9 (hi)
+  __device__ __forceinline__ uint32_t lo(int u) const {
+    if constexpr (kIsFp8<T>) return fp8_lo_to_bf16x2(w[u]);
+    else return w[2 * u];
+  }
+  __device__ __forceinline__ uint32_t hi(int u) const {
+    if constexpr (kIsFp8<T>) return fp8_hi_to_bf16x2(w[u]);
+    else return w[2 * u + 1];
+  }
+};
+
+// A lane's V words of one key row for word group c: dims vdim(g, q) .. + 3
+// of each word q of the group (kQs of them: four, fewer below Dh 128),
+// e4m3 (one 32-bit word each) or bf16 (two), one contiguous load.
+template <typename T, int DH>
+struct VGroup {
+  static constexpr int kQs = DH >= 128 ? 4 : DH / 32;
+  static constexpr int kGroups = DH / 32 / kQs;
+  static constexpr int kWords = kQs * (kIsFp8<T> ? 1 : 2);
+  uint32_t w[kWords];
+
+  __device__ __forceinline__ void load(const char* row, int c, int g) {
+    const char* p = row + static_cast<int>(sizeof(T)) * vdim<DH>(g, kQs * c);
+    if constexpr (kWords == 1) {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    } else if constexpr (kWords == 2) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
+    } else {
+#pragma unroll
+      for (int h = 0; h < kWords / 4; ++h) {
+        const uint4 v = reinterpret_cast<const uint4*>(p)[h];
+        w[4 * h] = v.x; w[4 * h + 1] = v.y; w[4 * h + 2] = v.z;
+        w[4 * h + 3] = v.w;
+      }
+    }
+  }
+};
+
+// The pairs (key 2t, key 2t + 1) and (2t + 8, 2t + 9) of the four dims of
+// word q of a group, from the V words of key rows 2t (va), 2t + 1 (vb), 2t
+// + 8 (vc) and 2t + 9 (vd): a0[0] dim d, a0[1] dim d + 1 over keys 2t,
+// 2t + 1, a0[2], a0[3] the same over keys 2t + 8, 2t + 9; a1 dims d + 2
+// and d + 3 (d = vdim(g, q)). e4m3 words give f16 pairs (one conversion
+// a pair), bf16 words bf16 pairs. Flash-decode's O^T takes a0 and a1 as the A
+// fragments of m-tiles 2q and 2q + 1 (dim rows g, g + 8).
+template <typename T, int DH>
+__device__ __forceinline__ void v_frags(const VGroup<T, DH>& va,
+                                        const VGroup<T, DH>& vb,
+                                        const VGroup<T, DH>& vc,
+                                        const VGroup<T, DH>& vd, int q,
+                                        uint32_t (&a0)[4], uint32_t (&a1)[4]) {
+  if constexpr (kIsFp8<T>) {
+    // bytes (va_d, vb_d) of dims d, d + 1 | d + 2, d + 3, then widened to
+    // f16
+    const uint32_t ab01 = __byte_perm(va.w[q], vb.w[q], 0x5140);
+    const uint32_t ab23 = __byte_perm(va.w[q], vb.w[q], 0x7362);
+    const uint32_t cd01 = __byte_perm(vc.w[q], vd.w[q], 0x5140);
+    const uint32_t cd23 = __byte_perm(vc.w[q], vd.w[q], 0x7362);
+    a0[0] = fp8x2_to_f16x2(static_cast<unsigned short>(ab01 & 0xffffu));
+    a0[1] = fp8x2_to_f16x2(static_cast<unsigned short>(ab01 >> 16));
+    a0[2] = fp8x2_to_f16x2(static_cast<unsigned short>(cd01 & 0xffffu));
+    a0[3] = fp8x2_to_f16x2(static_cast<unsigned short>(cd01 >> 16));
+    a1[0] = fp8x2_to_f16x2(static_cast<unsigned short>(ab23 & 0xffffu));
+    a1[1] = fp8x2_to_f16x2(static_cast<unsigned short>(ab23 >> 16));
+    a1[2] = fp8x2_to_f16x2(static_cast<unsigned short>(cd23 & 0xffffu));
+    a1[3] = fp8x2_to_f16x2(static_cast<unsigned short>(cd23 >> 16));
+  } else {
+    // bf16 halves (va_d, vb_d): dim d from the low halves, d + 1 high
+    const int i = 2 * q;
+    a0[0] = __byte_perm(va.w[i], vb.w[i], 0x5410);
+    a0[1] = __byte_perm(va.w[i], vb.w[i], 0x7632);
+    a0[2] = __byte_perm(vc.w[i], vd.w[i], 0x5410);
+    a0[3] = __byte_perm(vc.w[i], vd.w[i], 0x7632);
+    a1[0] = __byte_perm(va.w[i + 1], vb.w[i + 1], 0x5410);
+    a1[1] = __byte_perm(va.w[i + 1], vb.w[i + 1], 0x7632);
+    a1[2] = __byte_perm(vc.w[i + 1], vd.w[i + 1], 0x5410);
+    a1[3] = __byte_perm(vc.w[i + 1], vd.w[i + 1], 0x7632);
+  }
 }
 
 // ------------------------------------- TMA copies tracked by mbarriers

@@ -1,9 +1,9 @@
 // Flash-decode attention over a paged prefix plus the chunk's side window:
 // the kernels (the launches and C entry points are in flash_decode.cu and,
 // for e4m3 pools, flash_decode_fp8.cu). Paged attention's tensor-core route
-// (paged_attention.cu) runs the same tile ring, e4m3 widening and mma core
-// with no side window, and above 8 query rows the core's warp pairs
-// (kPairs).
+// (paged_attention.cu) runs the same tile ring and mma cores (fp8_block
+// over e4m3 pools) with no side window, and above 8 query rows the cores'
+// warp pairs (kPairs).
 //
 // Replaces the TPU kernel ops/flash_decode.py:_flash_decode_kernel of the
 // JAX package (wrapper flash_decode_attention_pallas). Per slot b it
@@ -76,13 +76,19 @@
 // - e4m3 pools (the fp8 instances; the TPU kernels stage fp8 pages and
 //   upcast them, ops/flash_decode.py:228-229). The pages move at one byte
 //   a value: half the bytes, and half the bound. bf16 q stays on the
-//   tensor cores: e4m3 is exact in bf16, but ldmatrix moves 16-bit
-//   elements, so each staged e4m3 tile (as many rows as a bf16 tile, at
-//   half the bytes) is widened into a bf16 work tile behind the ring before
-//   its mma.sync. The side window and the fresh row stay in q's dtype (as
-//   in JAX), so they take a second pass of bf16 tiles through the same
-//   ring and the same online softmax. fp32 q over e4m3 takes the CUDA-core
-//   loop, 8 values (8 bytes) a lane, the registers of its bf16-pool form.
+//   tensor cores (e4m3 is exact in bf16; the card's fp8 mma would round q
+//   to e4m3, which the JAX kernels never do). An e4m3 tile holds its own
+//   keys, twice a bf16 tile's (64 at Dh 128), so a run takes half the
+//   tiles. ldmatrix moves 16-bit elements only, so each warp reads its
+//   sub-tile's K and V as 32-bit words of four e4m3 values and widens them
+//   in registers (fp8_block): no work tile and no barrier beyond the
+//   ring's. The sub-tile is taken transposed (S^T = K Q^T, O^T += V^T P^T),
+//   so the 8 query rows are the mma's N and no row is padding. The side
+//   window and the fresh row stay in q's dtype (as in JAX) and ride the
+//   same ring pass as bf16 side tiles of 16 keys after the run's e4m3
+//   tiles, in the same online softmax. fp32 q over e4m3 takes the
+//   CUDA-core loop, 8 values (8 bytes) a lane, the registers of its
+//   bf16-pool form.
 // - Every other dtype pair (fp32 keeps the 1e-4 tolerance that TF32 would
 //   break): lane groups on CUDA cores, as in the paged kernel;
 //   LPK lanes read a key row from the staged tile with 16-byte loads, each
@@ -103,7 +109,9 @@
 // What bounds it now: not the bytes (an L2-resident run is as slow as a
 // cold one) but each block's chain of dependent steps, tile after tile:
 // the copies of a tile, two barriers, one warp's sub-tile of mma.sync and
-// softmax, then the partials and the last block's merge.
+// softmax (over e4m3 pools also its K and V widened in registers), then
+// the partials and the last block's merge.
+// Halving the e4m3 tiles halves that chain over a run.
 #pragma once
 
 #include <type_traits>
@@ -142,17 +150,24 @@ struct FdArgs {
 };
 
 // Staged tile geometry for rows of DH elements of T: kKeys rows (a tile of
-// 8 KB, 16 to 64 rows; an e4m3 tile takes as many rows as a bf16 one, so
-// that it widens into one) at a stride padded by 16 bytes.
-template <typename T, int DH>
+// 8 KB, 16 to 64 rows; the CUDA cores' e4m3 tile takes as many rows as a
+// bf16 one) at a stride padded by 16 bytes. kWide: the tensor cores' e4m3
+// tile, which holds its own keys, twice a bf16 tile's up to 64 (64 at Dh
+// 128, 32 at Dh 256): 8 KB of K rows.
+template <typename T, int DH, bool kWide = false>
 struct Tile {
   static constexpr int kRowBytes = DH * static_cast<int>(sizeof(T));
   static constexpr int kStride = kRowBytes + 16;
-  static constexpr int kRaw = 8192 / (kIsFp8<T> ? 2 * kRowBytes : kRowBytes);
+  static constexpr int kRaw =
+      8192 / (kIsFp8<T> && !kWide ? 2 * kRowBytes : kRowBytes);
   static constexpr int kKeys = kRaw > 64 ? 64 : (kRaw < 16 ? 16 : kRaw);
   static constexpr int kStageBytes = 2 * kKeys * kStride;  // K and V
   static_assert(kRowBytes % 16 == 0, "rows of whole 16-byte pieces");
 };
+
+// The tensor cores' e4m3 tile (fp8_block).
+template <int DH>
+using Tile8 = Tile<fp8, DH, true>;
 
 // This block's keys: run `split` of the slot's prefix and, for the last
 // run, the side entries and the fw variant's fresh row. The run's page ids
@@ -228,11 +243,11 @@ __device__ __forceinline__ Plan make_plan(const FdArgs& a, int* run_pages) {
 // thread copies 16-byte piece c of rows r0, r0 + kStep, ...: it finds all
 // their sources first (the page and offset stepped along, no division a
 // row), then issues the copies together.
-template <typename TQ, typename TKV, int DH, bool kSide>
+template <typename TQ, typename TKV, int DH, bool kSide,
+          typename T = Tile<TKV, DH>>
 __device__ __forceinline__ void stage_tile(const FdArgs& a, const Plan& p,
                                            char* dst, int tile,
                                            int n_rows) {
-  using T = Tile<TKV, DH>;
   constexpr int kChunks = T::kRowBytes / 16;             // pieces a row
   constexpr int kStep = kThreads / kChunks;              // rows a pass
   constexpr int kRows = (T::kKeys + kStep - 1) / kStep;  // passes
@@ -583,35 +598,11 @@ __device__ __forceinline__ void mma_tile(const char* st, int t, int n_keys,
   }
 }
 
-// A staged e4m3 tile (K rows, then V rows, at Tile<fp8>'s stride) widened
-// into a bf16 tile (Tile<bf16>'s layout, as many rows), 8 values a step:
-// exact, so the tensor cores see the pool's values.
-template <int DH>
-__device__ __forceinline__ void widen_tile(const char* src, char* dst) {
-  using T8 = Tile<fp8, DH>;
-  using T16 = Tile<__nv_bfloat16, DH>;
-  static_assert(T8::kKeys == T16::kKeys, "an e4m3 tile widens into one");
-  constexpr int kPieces = DH / 8;                      // 8 values a piece
-  constexpr int kAll = 2 * T8::kKeys * kPieces;        // K and V rows
-  for (int i = threadIdx.x; i < kAll; i += kThreads) {
-    const int row = i / kPieces;                       // K rows, then V
-    const int c = i - row * kPieces;
-    const uint2 v = *reinterpret_cast<const uint2*>(src + row * T8::kStride +
-                                                    c * 8);
-    *reinterpret_cast<uint4*>(dst + row * T16::kStride + c * 16) =
-        fp8x8_to_bf16x8(v);
-  }
-}
-
-// The tensor-core path (bf16 q and side, bf16 or e4m3 pools). The Q tile
-// (the G heads padded to 16 rows) lands with the first tiles. bf16 pools:
-// the block's whole key sequence (prefix run, side entries, fresh row) is
-// staged and taken tile by tile. e4m3 pools (kFp8): two passes over the one
-// online softmax: the prefix run staged as e4m3 (half the bytes a tile)
-// and each tile widened into a bf16 work tile behind the ring before its
-// mma, then the side entries and the fresh row, in q's dtype, staged as
-// bf16 through the same ring.
-template <int DH, int G, bool kFp8>
+// The tensor-core path over bf16 pools (bf16 q and side). The Q tile (the
+// G heads padded to 16 rows) lands with the first tiles; the block's whole
+// key sequence (prefix run, side entries, fresh row) is staged and taken
+// tile by tile.
+template <int DH, int G>
 __device__ __forceinline__ void mma_block(const FdArgs& a, const Plan& p,
                                           char* ring, char* q_tile,
                                           float* scratch, float scale) {
@@ -641,28 +632,11 @@ __device__ __forceinline__ void mma_block(const FdArgs& a, const Plan& p,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  if constexpr (!kFp8) {
-    const int n_keys = p.n_pref + p.ns + (p.fresh ? 1 : 0);
-    stream_tiles<__nv_bfloat16, __nv_bfloat16, DH, true>(
-        a, p, ring, n_keys, [&](const char* st, int t) {
-          mma_tile<DH, G>(st, t, n_keys, q_tile, scale2, m, l, acc);
-        });
-  } else {
-    char* work = ring + kStages * Tile<fp8, DH>::kStageBytes;
-    stream_tiles<__nv_bfloat16, fp8, DH, false>(
-        a, p, ring, p.n_pref, [&](const char* st, int t) {
-          widen_tile<DH>(st, work);
-          __syncthreads();
-          mma_tile<DH, G>(work, t, p.n_pref, q_tile, scale2, m, l, acc);
-        });
-    Plan side = p;
-    side.n_pref = 0;              // the side keys from the sequence's start
-    const int n_side = p.ns + (p.fresh ? 1 : 0);
-    stream_tiles<__nv_bfloat16, __nv_bfloat16, DH, true>(
-        a, side, ring, n_side, [&](const char* st, int t) {
-          mma_tile<DH, G>(st, t, n_side, q_tile, scale2, m, l, acc);
-        });
-  }
+  const int n_keys = p.n_pref + p.ns + (p.fresh ? 1 : 0);
+  stream_tiles<__nv_bfloat16, __nv_bfloat16, DH, true>(
+      a, p, ring, n_keys, [&](const char* st, int t) {
+        mma_tile<DH, G>(st, t, n_keys, q_tile, scale2, m, l, acc);
+      });
 
   // the quad's parts of l; then row lane / 4 (+ 8 in a pair's upper warp)
   // into the warp's (pair's) state in scratch
@@ -684,6 +658,275 @@ __device__ __forceinline__ void mma_block(const FdArgs& a, const Plan& p,
   }
 }
 
+// ------------------------------------------------------------ e4m3 pools
+//
+// bf16 q over e4m3 pools on the tensor cores. The fragments are read
+// straight from the staged e4m3 tile and widened in registers: no bf16
+// work tile, no widening pass, no barrier of its own. A warp's 16-key
+// sub-tile is taken transposed, so that the block's (up to) 8 query rows
+// are the mma's N and no row of the m16 tile is padding:
+//   S^T  = K Q^T    (M: the 16 keys, N: 8 queries, K: 16 head dims a step)
+//   O^T += V^T P^T  (M: 16 head dims, N: 8 queries, K: the 16 keys)
+// S^T on the bf16 core (q stays bf16; e4m3 is exact in bf16), O^T on the
+// f16 core: e4m3 is exact in f16 too and widens to it in one conversion
+// (to bf16 in four), and P in [0, 1] keeps 3 more bits in f16.
+// A (K rows, V^T rows) comes from shared memory as 32-bit words of four
+// consecutive e4m3 dims (ldmatrix moves 16-bit elements only), B from
+// registers: Q^T loaded from global memory once a block, P^T the S^T
+// accumulator's probabilities moved into B's layout by movmatrix.
+//
+// The words' dim orders (kdim for K and Q^T, vdim for V^T's rows and so
+// the output's) are common.cuh's.
+
+// One warp's 16-key sub-tile (K rows at kt, V rows at vt, `stride` bytes
+// apart; e4m3 prefix rows or bf16 side rows), keys below n_valid live,
+// against the warp's 8 queries (Q^T in qf): the transposed online-softmax
+// step. Lane i holds queries 2 (i % 4) and + 1 (h = 0, 1): S^T of keys
+// i / 4 and i / 4 + 8; m and l of its queries (l its part, summed over the
+// lane rows at the end); O^T of dim rows i / 4 and i / 4 + 8 of every
+// m-tile. Scores in log2 units.
+template <typename T, int DH>
+__device__ __forceinline__ void fp8_subtile(
+    const char* kt, const char* vt, int stride, int n_valid,
+    const uint32_t (&qf)[DH / 16][2], float scale2, float (&m)[2],
+    float (&l)[2], float (&acc)[DH / 16][4]) {
+  using KG = KGroup<T, DH>;
+  using VG = VGroup<T, DH>;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // S^T = K Q^T: s[0], s[1] key g, queries 2t, 2t + 1; s[2], s[3] key g + 8
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < KG::kGroups; ++c) {
+    KG k0, k1;
+    k0.load(kt + g * stride, c, t);
+    k1.load(kt + (g + 8) * stride, c, t);
+#pragma unroll
+    for (int u = 0; u < KG::kSteps; ++u) {
+      const int kk = KG::kSteps * c + u;
+      const uint32_t a[4] = {k0.lo(u), k1.lo(u), k0.hi(u), k1.hi(u)};
+      mma_bf16_16816(s, a, qf[kk][0], qf[kk][1]);
+    }
+  }
+  float sc[4];
+  bool ok[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ok[i] = g + 8 * (i >> 1) < n_valid;
+    sc[i] = ok[i] ? s[i] * scale2 : kNegInf;
+  }
+  float alpha[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    // the query's max over the sub-tile's keys: the lane's two, then the
+    // eight lane rows
+    float mx = fmaxf(sc[h], sc[h + 2]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+    const float mn = fmaxf(m[h], mx);
+    alpha[h] = exp2f(m[h] - mn);
+    m[h] = mn;
+  }
+  float pr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    pr[i] = ok[i] ? exp2f(sc[i] - m[i & 1]) : 0.f;   // masked keys weigh 0
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + (pr[h] + pr[h + 2]);
+#pragma unroll
+  for (int mi = 0; mi < DH / 16; ++mi) {
+    acc[mi][0] *= alpha[0];
+    acc[mi][1] *= alpha[1];
+    acc[mi][2] *= alpha[0];
+    acc[mi][3] *= alpha[1];
+  }
+  // P^T (f16 against e4m3 V, bf16 against the side tile's bf16 V): key
+  // g's row of queries, transposed to query g's row of keys
+  const uint32_t b0 = movmatrix_trans(kIsFp8<T> ? pack_f16(pr[0], pr[1])
+                                                : pack_bf16(pr[0], pr[1]));
+  const uint32_t b1 = movmatrix_trans(kIsFp8<T> ? pack_f16(pr[2], pr[3])
+                                                : pack_bf16(pr[2], pr[3]));
+  // O^T += V^T P^T
+  const char* v0 = vt + (2 * t) * stride;
+#pragma unroll
+  for (int c = 0; c < VG::kGroups; ++c) {
+    VG va, vb, vc, vd;
+    va.load(v0, c, g);
+    vb.load(v0 + stride, c, g);
+    vc.load(v0 + 8 * stride, c, g);
+    vd.load(v0 + 9 * stride, c, g);
+#pragma unroll
+    for (int u = 0; u < VG::kQs; ++u) {
+      const int q = VG::kQs * c + u;
+      uint32_t a0[4], a1[4];
+      v_frags<T, DH>(va, vb, vc, vd, u, a0, a1);
+      if constexpr (kIsFp8<T>) {
+        mma_f16_16816(acc[2 * q], a0, b0, b1);
+        mma_f16_16816(acc[2 * q + 1], a1, b0, b1);
+      } else {
+        mma_bf16_16816(acc[2 * q], a0, b0, b1);
+        mma_bf16_16816(acc[2 * q + 1], a1, b0, b1);
+      }
+    }
+  }
+}
+
+// The side tile of the e4m3 instances: the side entries and the fresh
+// row, in q's dtype (bf16), 16 keys a tile, staged into a ring stage after
+// the run's e4m3 tiles (K rows, then V rows, at the bf16 tile's stride).
+template <int DH>
+struct SideTile {
+  static constexpr int kKeys = 16;
+  static constexpr int kStride = Tile<__nv_bfloat16, DH>::kStride;
+  static_assert(2 * kKeys * kStride <= Tile8<DH>::kStageBytes,
+                "a side tile fits an e4m3 stage");
+};
+
+// Stage side tile s: side keys 16 s .. 16 s + 15 (entries j < ns, then the
+// fresh row at j == ns), zeros past n_side.
+template <int DH>
+__device__ __forceinline__ void stage_side(const FdArgs& a, const Plan& p,
+                                           char* dst, int s, int n_side) {
+  using TS = SideTile<DH>;
+  constexpr int kChunks = 2 * DH / 16;             // 16-byte pieces a row
+  for (int i = threadIdx.x; i < TS::kKeys * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c = i - r * kChunks;
+    const int j = s * TS::kKeys + r;
+    const void* ks = a.k_pages;                    // not read past n_side
+    const void* vs = a.k_pages;
+    if (j < n_side) {
+      const bool side = j < p.ns;
+      const long long e =
+          (side ? ((static_cast<long long>(p.b) * a.w + j) * a.hkv + p.kh)
+                : (static_cast<long long>(p.b) * a.hkv + p.kh)) * DH +
+          c * 8;
+      ks = static_cast<const __nv_bfloat16*>(side ? a.side_k : a.fresh_k) + e;
+      vs = static_cast<const __nv_bfloat16*>(side ? a.side_v : a.fresh_v) + e;
+    }
+    char* d = dst + r * TS::kStride + c * 16;
+    cp_async16(d, ks, j < n_side);
+    cp_async16(d + TS::kKeys * TS::kStride, vs, j < n_side);
+  }
+}
+
+// The e4m3 path of a tensor-core block (flash-decode and paged attention).
+// One ring pass: the run's e4m3 tiles, then (the last run of flash-decode)
+// the side tiles, each tile's 16-key sub-tiles taken by the warps (pairs)
+// in turn; each warp (pair) leaves its states in scratch as mma_block's.
+template <int DH, int G>
+__device__ __forceinline__ void fp8_block(const FdArgs& a, const Plan& p,
+                                          char* ring, float* scratch,
+                                          float scale) {
+  using T8 = Tile8<DH>;
+  using TS = SideTile<DH>;
+  constexpr int kSub = T8::kKeys / 16;    // sub-tiles an e4m3 tile
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int turn = kPairs<G> ? warp / 2 : warp;
+  const int half = kPairs<G> ? warp % 2 : 0;   // query rows 0-7 or 8-15
+
+  // Q^T: lane / 4 is the query (rows past the live gl are zeros)
+  uint32_t qf[DH / 16][2];
+  {
+    using QG = KGroup<__nv_bfloat16, DH>;
+    const int row = half * 8 + lane / 4;
+    const char* q = reinterpret_cast<const char*>(
+        static_cast<const __nv_bfloat16*>(a.q) +
+        (p.row0 + min(row, p.gl - 1)) * DH);
+#pragma unroll
+    for (int c = 0; c < QG::kGroups; ++c) {
+      QG qg;
+      qg.load(q, c, lane & 3);
+#pragma unroll
+      for (int u = 0; u < QG::kSteps; ++u) {
+        qf[QG::kSteps * c + u][0] = row < p.gl ? qg.lo(u) : 0u;
+        qf[QG::kSteps * c + u][1] = row < p.gl ? qg.hi(u) : 0u;
+      }
+    }
+  }
+  const float scale2 = scale * 1.4426950408889634f;   // exp2 units
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  float acc[DH / 16][4];
+#pragma unroll
+  for (int mi = 0; mi < DH / 16; ++mi)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[mi][e] = 0.f;
+
+  const int n_pt = (p.n_pref + T8::kKeys - 1) / T8::kKeys;
+  const int n_side = p.ns + (p.fresh ? 1 : 0);
+  const int n_all = n_pt + (n_side + TS::kKeys - 1) / TS::kKeys;
+  auto stage = [&](int tile) {
+    char* dst = ring + (tile % kStages) * T8::kStageBytes;
+    if (tile < n_pt)
+      stage_tile<__nv_bfloat16, fp8, DH, false, T8>(a, p, dst, tile,
+                                                     p.n_pref);
+    else
+      stage_side<DH>(a, p, dst, tile - n_pt, n_side);
+  };
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_all) stage(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_all; ++t) {
+    const int tn = t + kStages - 1;
+    if (tn < n_all) stage(tn);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // tile t has landed (this thread's part)
+    __syncthreads();               // ... and every thread's
+    const char* st = ring + (t % kStages) * T8::kStageBytes;
+    if (t < n_pt) {
+#pragma unroll 1
+      for (int j = 0; j < kSub; ++j) {
+        const int key0 = t * T8::kKeys + 16 * j;
+        if ((t * kSub + j) % kStates<G> != turn || key0 >= p.n_pref) continue;
+        fp8_subtile<fp8, DH>(st + 16 * j * T8::kStride,
+                             st + (T8::kKeys + 16 * j) * T8::kStride,
+                             T8::kStride, p.n_pref - key0, qf, scale2, m, l,
+                             acc);
+      }
+    } else if ((t - n_pt) % kStates<G> == turn) {
+      fp8_subtile<__nv_bfloat16, DH>(
+          st, st + TS::kKeys * TS::kStride, TS::kStride,
+          n_side - (t - n_pt) * TS::kKeys, qf, scale2, m, l, acc);
+    }
+    __syncthreads();               // the stage is free for tile t + kStages
+  }
+  cp_async_wait<0>();
+
+  // l over the eight lane rows; then queries 2 (lane % 4) + h (+ 8 in a
+  // pair's upper warp) into the warp's (pair's) state, dims in order
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 4);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 8);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 16);
+  }
+  const int g = lane >> 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gi = half * 8 + 2 * (lane & 3) + h;
+    if (gi >= G) continue;
+    float* slot = scratch + (turn * G + gi) * (2 + DH);
+    if (g == 0) {
+      slot[0] = m[h] * 0.6931471805599453f;  // ln 2: back to natural units
+      slot[1] = l[h];
+    }
+#pragma unroll
+    for (int q = 0; q < DH / 32; ++q) {
+      float* o = slot + 2 + vdim<DH>(g, q);
+      *reinterpret_cast<float2*>(o) =
+          make_float2(acc[2 * q][h], acc[2 * q][2 + h]);
+      *reinterpret_cast<float2*>(o + 2) =
+          make_float2(acc[2 * q + 1][h], acc[2 * q + 1][2 + h]);
+    }
+  }
+}
+
 // --------------------------------------------------------------- kernel
 
 // bf16 q over bf16 or e4m3 pools takes the tensor cores; every other pair
@@ -693,29 +936,26 @@ constexpr bool kMma = std::is_same<TQ, __nv_bfloat16>::value &&
                       (std::is_same<TKV, __nv_bfloat16>::value ||
                        std::is_same<TKV, fp8>::value);
 
-template <int A, int B>
-constexpr int kMax = A > B ? A : B;
-
 template <typename TQ, typename TKV, int DH, int G>
 struct Smem {
-  // e4m3 on the tensor cores: the e4m3 ring and the bf16 work tile behind
-  // it, or the side pass's bf16 ring over both
+  // the ring (the tensor cores' e4m3 ring, of Tile8, also takes the side
+  // tiles); the e4m3 instances hold Q^T in registers, the bf16 ones stage
+  // the Q tile behind the ring
   static constexpr int kRing =
-      (kMma<TQ, TKV> && kIsFp8<TKV>)
-          ? kMax<kStages * Tile<fp8, DH>::kStageBytes +
-                     Tile<__nv_bfloat16, DH>::kStageBytes,
-                 kStages * Tile<__nv_bfloat16, DH>::kStageBytes>
-          : kStages * Tile<TKV, DH>::kStageBytes;
+      kStages * (kMma<TQ, TKV> && kIsFp8<TKV> ? Tile8<DH>::kStageBytes
+                                               : Tile<TKV, DH>::kStageBytes);
   static constexpr int kMerge =
       kStates<G> * G * (2 + DH) * static_cast<int>(sizeof(float));
-  static constexpr int kQ = 16 * Tile<TQ, DH>::kStride;  // tensor cores only
+  static constexpr int kQ = 16 * Tile<TQ, DH>::kStride;
+  static constexpr bool kQTile = kMma<TQ, TKV> && !kIsFp8<TKV>;
   static constexpr int kQAt = kRing > kMerge ? kRing : kMerge;
-  static constexpr int kBytes = kQAt + (kMma<TQ, TKV> ? kQ : 0);
+  static constexpr int kBytes = kQAt + (kQTile ? kQ : 0);
 };
 
-// The tensor-core path at Dh <= 128 fits four blocks on an SM (56 KB
-// of shared memory and at most 128 registers a thread each): a B 8 grid
-// of 512 blocks is resident at once.
+// The tensor-core path at Dh <= 128 fits four blocks on an SM (at most 56
+// KB of shared memory, 55,296 bytes of ring for e4m3 pools and 56,576 with
+// the Q tile for bf16 ones, and at most 128 registers a thread each): a B 8
+// grid of 512 blocks is resident at once.
 template <typename TQ, typename TKV, int DH, int G, bool FW>
 __global__ void __launch_bounds__(kThreads,
                                   (kMma<TQ, TKV> && DH <= 128) ? 4 : 1)
@@ -751,8 +991,10 @@ __global__ void __launch_bounds__(kThreads,
   __syncthreads();  // the run's page ids
 
   if constexpr (kMma<TQ, TKV>) {
-    mma_block<DH, G, kIsFp8<TKV>>(a, p, ring, smem + S::kQAt, scratch,
-                                   scale);
+    if constexpr (kIsFp8<TKV>)
+      fp8_block<DH, G>(a, p, ring, scratch, scale);
+    else
+      mma_block<DH, G>(a, p, ring, smem + S::kQAt, scratch, scale);
   } else {
     simt_block<TQ, TKV, DH, G, FW>(a, p, ring, scratch, scale);
   }

@@ -29,41 +29,43 @@
 // covers the window or the table; ops/paged_attention.py paged_plan) and
 // never reads the lengths. Two routes, chosen there by one rule from the
 // dtypes and G:
-// - Tensor cores: bf16 q over bf16 or e4m3 pools at G >= 3. This is
-//   flash-decode's tensor-core core (flash_decode.cuh) with no side window,
-//   a lower key bound and the stats: a block takes up to 16 query heads of
-//   one KV head as the rows of one m16 tile (the 8-row form up to G 8; above
-//   it the warps go in pairs, one a row half; G > 16 in sub-groups of 16),
-//   so each K/V tile is read once for all of them, and its state lives in
-//   mma fragments whatever G is. The run's K/V rows are staged tile by tile
-//   through the 3-stage cp.async ring (stream_tiles; row addresses from the
-//   run's page ids, copied into shared memory first); e4m3 tiles are
-//   widened into a bf16 work tile behind the ring (widen_tile); S = Q K^T
-//   and O += P V run with mma.sync m16n8k16 from ldmatrix (mma_tile), with
-//   an fp32 online softmax whose l sums the fp32 probabilities before P is
-//   rounded to bf16. A run holds at most 16 tiles (a block's time is its
-//   chain of tiles: ring wait, two barriers, one sub-tile's mma and
-//   softmax). The runs merge in the same launch: the last run of a (slot,
-//   KV head, sub-group) to arrive merges their fp32 partials (common.cuh
-//   SplitPartials, SplitMerge) and writes out, m and l (finish_paged),
-//   with per-stream arrival counters as flash-decode's (ops/_cuda.py
+// - Tensor cores: bf16 q over bf16 pools at G >= 3, over e4m3 pools at every
+//   G. This is flash-decode's tensor-core core
+//   (flash_decode.cuh) with no side window, a lower key bound and the stats: a
+//   block takes up to 16 query heads of one KV head as the rows of one m16
+//   tile (the 8-row form up to G 8; above it the warps go in pairs, one a row
+//   half; G > 16 in sub-groups of 16), so each K/V tile is read once for all
+//   of them, and its state lives in mma fragments whatever G is. The run's K/V
+//   rows are staged tile by tile through the 3-stage cp.async ring
+//   (stream_tiles; row addresses from the run's page ids, copied into shared
+//   memory first); over bf16 pools S = Q K^T and O += P V run with mma.sync
+//   m16n8k16 from ldmatrix (mma_tile); over e4m3 pools the tiles hold twice
+//   the keys and each warp takes its sub-tiles transposed, the fragments read
+//   from the e4m3 tile and widened in registers (fp8_block); both with an fp32
+//   online softmax whose l sums the fp32 probabilities before P is rounded (to
+//   bf16; to f16 against e4m3 V). A run holds at most 16 tiles (a block's time
+//   is its chain of tiles: ring wait, two barriers, one sub-tile's mma and
+//   softmax). The runs merge in the same launch: the last run of a (slot, KV
+//   head, sub-group) to arrive merges their fp32 partials (common.cuh
+//   SplitPartials, SplitMerge) and writes out, m and l (finish_paged), with
+//   per-stream arrival counters as flash-decode's (ops/_cuda.py
 //   split_scratch). That merge is the tail of every launch; it reads the
 //   partials four values a load with a bounded number in flight, and each
 //   row's state weights once. Four blocks fit an SM at Dh <= 128.
-// - CUDA cores: every other case (fp32 q keeps its 1e-4 tolerance, which
-//   TF32 would break; bf16 q at G 1 and 2, where this route measured
-//   faster: PERF.md). A key row of this head is Dh elements; LPK lanes read
-//   it with one 16-byte load each (8 bytes of e4m3), so a warp reads KPW =
-//   32 / LPK rows at once. Each lane group keeps its own (m, l, acc) for
-//   GS query heads (1, 2, 4 or 8; a KV head's G heads in ceil(G / GS)
-//   sub-groups, the rows past G dead: computed on a copy of the last live
-//   row, never stored) over a strided subset of the run's keys: it loads kU
-//   rows straight from global memory, scores all of them, rescales its
-//   state once and adds them. The groups of a warp merge through shuffles
-//   and the warps through shared memory; with more than one run a second
-//   kernel merges the runs (paged_merge_kernel): merging them in the same
-//   launch instead measured slower on this route (PERF.md). At Dh 256 a
-//   bf16 or e4m3 row is one load a lane and an fp32 row two.
+// - CUDA cores: every other case (fp32 q keeps its 1e-4 tolerance, which TF32
+//   would break; bf16 q over bf16 pools at G 1 and 2, where this route
+//   measured faster: PERF.md). A key row
+//   of this head is Dh elements; LPK lanes read it with one 16-byte load each
+//   (8 bytes of e4m3), so a warp reads KPW = 32 / LPK rows at once. Each lane
+//   group keeps its own (m, l, acc) for GS query heads (1, 2, 4 or 8; a KV
+//   head's G heads in ceil(G / GS) sub-groups, the rows past G dead: computed
+//   on a copy of the last live row, never stored) over a strided subset of the
+//   run's keys: it loads kU rows straight from global memory, scores all of
+//   them, rescales its state once and adds them. The groups of a warp merge
+//   through shuffles and the warps through shared memory; with more than one
+//   run a second kernel merges the runs (paged_merge_kernel): merging them in
+//   the same launch instead measured slower on this route (PERF.md). At Dh 256
+//   a bf16 or e4m3 row is one load a lane and an fp32 row two.
 //
 // The route rule (ops/paged_attention.py paged_plan), from times on an
 // NVIDIA H100 80GB HBM3 at 700 W (scripts/paged_times.py and chip_smoke.py;
@@ -75,7 +77,12 @@
 // 0.0799. So the tensor cores take G >= 3, where they win but for Dh 256
 // at G 4 without a window; below it the CUDA cores, which win at Dh 256
 // and without a window (at Dh 128 with a window the tensor cores would be
-// 10-15% faster at G 1 and 2: the price of one rule by shape).
+// 10-15% faster at G 1 and 2: the price of one rule by shape). Over e4m3
+// pools the tensor cores widen their fragments in registers and take every
+// G: at window 4096 they measured 0.0273 / 0.0336 ms at Dh 128 G 1, 0.0275 /
+// 0.0457 at G 2, 0.0549 / 0.0827 at Dh 256 G 2; at Gemma-7B's G 1, Dh 256
+// 0.1095 / 0.1250 at window 0 (Gemma-7B has no window; at 4096 it would be
+// 0.0934 / 0.0869) (chip_smoke.py).
 //
 // What the TPU kernel needed and this one does not: the sequential (slot,
 // page) grid with scratch accumulators, the 0/1 segment-sum matmuls and
@@ -300,8 +307,10 @@ __global__ void __launch_bounds__(fd::kThreads, DH <= 128 ? 4 : 1)
   __syncthreads();  // the run's page ids
   // the warps' states alias the ring, which is free after the last tile
   float* scratch = reinterpret_cast<float*>(smem);
-  fd::mma_block<DH, R, kIsFp8<TKV>>(a.f, p, smem, smem + S::kQAt, scratch,
-                                    scale);
+  if constexpr (kIsFp8<TKV>)
+    fd::fp8_block<DH, R>(a.f, p, smem, scratch, scale);
+  else
+    fd::mma_block<DH, R>(a.f, p, smem, smem + S::kQAt, scratch, scale);
   __syncthreads();
   finish_paged<DH, R>(a, p, scratch);
 }

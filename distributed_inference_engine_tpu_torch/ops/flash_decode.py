@@ -34,7 +34,7 @@ the fresh row stay in q's dtype, as in JAX.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -115,6 +115,46 @@ def flash_decode_split(b: int, n_kv_heads: int, page_size: int, mp: int,
     query-head sub-groups a KV head (``subgroup``)."""
     return paged_split(b, n_kv_heads * n_sub, max(1, mp * page_size),
                        _cuda.sm_count(device.index), min_chunk=MIN_CHUNK)
+
+
+def fp8_tile_keys(dh: int) -> int:
+    """Keys an e4m3 K (and V) tile of the tensor-core path holds: 8 KB of
+    one-byte rows, 16 to 64 of them (``csrc/flash_decode.cuh`` Tile8): 64
+    up to Dh 128, 32 at Dh 256, twice a bf16 tile's. ``flash_decode_split``'s
+    runs are whole multiples of it (``paged_split`` aligns them to 64)."""
+    return min(64, max(16, 8192 // dh))
+
+
+def fp8_fragment_dims(dh: int) -> Tuple[List[int], List[int]]:
+    """The head-dim orders of the e4m3 fragments (``csrc/common.cuh``
+    kdim, vdim): ``k[16 kk + j]`` is the dim that k index j of K-step kk
+    of S = Q K^T reads (lane quad t reads dims kdim(kk, t) .. + 3 as k
+    pairs 2t, 2t + 1 and 2t + 8, 2t + 9); ``v[4 (8 q + g) + j]`` is the dim
+    that word q of lane row g holds as its byte j (its V^T rows and output
+    columns). Both are permutations of ``range(dh)``."""
+    def kdim(kk: int, t: int) -> int:
+        if dh == 32:
+            return 8 * t + 4 * kk
+        if dh == 64:
+            return 16 * t + 4 * kk
+        return 16 * (2 * t + ((kk >> 2) & 1) + 8 * (kk >> 3)) + 4 * (kk & 3)
+
+    def vdim(g: int, q: int) -> int:
+        if dh == 32:
+            return 4 * g
+        if dh == 64:
+            return 8 * g + 4 * q
+        return 128 * (q >> 2) + 16 * g + 4 * (q & 3)
+
+    k = [0] * dh
+    for kk in range(dh // 16):
+        for t in range(4):
+            d = kdim(kk, t)
+            k[16 * kk + 2 * t:16 * kk + 2 * t + 2] = [d, d + 1]
+            k[16 * kk + 8 + 2 * t:16 * kk + 8 + 2 * t + 2] = [d + 2, d + 3]
+    v = [vdim(g, q) + j for q in range(dh // 32) for g in range(8)
+         for j in range(4)]
+    return k, v
 
 
 def _launch(name, fn, q, k_pages, page_table, side_k, n_kv_heads, base,

@@ -15,18 +15,19 @@ version also takes the stacked layer offset, which the JAX XLA path
 leaves to its callers, so that the tests hold both of the kernel's routes.
 
 The kernel has two routes, chosen by ``paged_plan`` from the dtypes and
-shapes alone. bf16 q over bf16 or e4m3 pools at G >= 3 runs on the tensor
-cores: a block takes up to 16 query heads of one KV head as the rows of
-one m16 tile, so each K/V tile is read once for all of them (above 16 in
-sub-groups of 16). Every other case runs on the CUDA cores, whose
-instances hold sub-groups of 1, 2, 4 or 8 query heads (``subgroup``,
-flash-decode's rule), a KV head's G heads cut into ``ceil(G / GS)`` of
-them, the rows past G dead. Either way each slot's valid keys are cut
-into ``n_split`` runs of ``chunk`` keys (``paged_split``), one block per
-(slot, KV head, sub-group, run). The tensor-core route merges the runs'
-flash partials in the same launch (the last run of each to arrive), the
-CUDA-core route in a second kernel; a call counts one launch under
-``paged_attention`` and its route (``paged_attention.mma`` or ``.simt``).
+shapes alone. bf16 q over bf16 pools at G >= 3, and over e4m3 pools at
+every G, runs on the tensor cores: a block takes
+up to 16 query heads of one KV head as the rows of one m16 tile, so each
+K/V tile is read once for all of them (above 16 in sub-groups of 16).
+Every other case runs on the CUDA cores, whose instances hold sub-groups
+of 1, 2, 4 or 8 query heads (``subgroup``, flash-decode's rule), a KV
+head's G heads cut into ``ceil(G / GS)`` of them, the rows past G dead.
+Either way each slot's valid keys are cut into ``n_split`` runs of
+``chunk`` keys (``paged_split``), one block per (slot, KV head,
+sub-group, run). The tensor-core route merges the runs' flash partials in
+the same launch (the last run of each to arrive), the CUDA-core route in
+a second kernel; a call counts one launch under ``paged_attention`` and
+its route (``paged_attention.mma`` or ``.simt``).
 The outputs are ``torch.empty`` per call, so inside a CUDA graph capture
 they come from the graph's memory pool; the split workspace and arrival
 counters are the stream's (``_cuda.split_scratch``), as flash-decode's.
@@ -48,7 +49,10 @@ from .attention import NEG_INF, _scale, raw_view, upcast_kv
 _BLOCKS_PER_SM = 4
 _MIN_CHUNK = 256
 _CHUNK_ALIGN = 64
-# the tensor-core route: bf16 q at G >= _MMA_MIN_G; its runs hold at most
+# the tensor-core route: bf16 q over bf16 pools at G >= _MMA_MIN_G, over
+# e4m3 pools at every G (its fragments widened in registers, it measured
+# faster there, but for Dh 256 at G 1 with a window, which no registered
+# model runs: PERF.md); its runs hold at most
 # _MMA_RUN_TILES of its staged tiles (8 KB of K rows: 16 to 64 keys), since
 # a block's time is its chain of tiles (csrc/paged_attention.cu)
 _MMA_MIN_G = 3
@@ -153,17 +157,19 @@ def paged_plan(b: int, h: int, n_kv_heads: int, dh: int, max_keys: int,
                sms: int, q_dtype: torch.dtype, kv_dtype: torch.dtype,
                mma: Optional[bool] = None) -> PagedPlan:
     """The kernel's launch from shapes and dtypes alone. bf16 q over bf16
-    or e4m3 pools at G >= 3 runs on the tensor cores, one 16-row tile a
-    KV head (the 8-row form up to G 8), sub-groups of 16 above G 16, in
-    runs of at most 16 staged tiles; every other case on the CUDA cores in
-    ``subgroup``'s sub-groups (at G 1 and 2 they are faster: PERF.md).
+    pools at G >= 3, and over e4m3 pools at every G, runs on the tensor
+    cores, one 16-row tile a KV head (the 8-row form up to G 8),
+    sub-groups of 16 above G 16, in runs of at most 16 staged tiles; every
+    other case on the CUDA cores in ``subgroup``'s sub-groups (bf16 pools
+    at G 1 and 2 are not slower there: PERF.md).
     ``max_keys`` is the most valid keys a slot can have (the window, or the
-    table's keys). ``mma`` given instead of the rule's route: the card
-    tests and ``chip_smoke.py`` hold and time both routes."""
+    table's keys). ``mma`` given instead of the rule's route: the card tests
+    and ``chip_smoke.py`` hold and time both routes."""
     g = h // n_kv_heads
     if mma is None:
-        mma = g >= _MMA_MIN_G and q_dtype == torch.bfloat16 and kv_dtype in (
-            torch.bfloat16, torch.float8_e4m3fn)
+        mma = q_dtype == torch.bfloat16 and (
+            kv_dtype == torch.float8_e4m3fn
+            or (kv_dtype == torch.bfloat16 and g >= _MMA_MIN_G))
     rows = (8 if g <= 8 else 16) if mma else subgroup(g)[0]
     n_sub = -(-g // rows)
     tile_keys = min(64, max(16, 4096 // dh))    # 8 KB of bf16 K rows

@@ -422,7 +422,7 @@ def test_flash_decode_any_group(card, fw, dtype, kv_dtype, h, hkv, dh):
                                       (32, 4, 128), (16, 2, 256)])
 def test_flash_decode_fp8_pools(card, fw, dtype, h, hkv, dh):
     """e4m3 pools (the fp8 instances): bf16 q on the tensor cores (the
-    pages widened in shared memory), fp32 q on the CUDA cores, at G 1-8
+    pages widened in registers), fp32 q on the CUDA cores, at G 1-8
     and Dh 32-256, pages of 16, a split grid of several runs; the side
     window and fw's side write in q's dtype."""
     _fd_split_case(card, dtype, FP8, h, hkv, dh, 16, 40,
@@ -893,6 +893,343 @@ def test_paged_attention_graph_replay(card):
             torch.cuda.synchronize()
             for a, w in zip(got, want):
                 assert torch.equal(a, w), kv_dtype
+
+
+# ------------------------------------------------- e4m3 tiles (PERF.md)
+#
+# The e4m3 (fp8) path of flash-decode, its fw form and paged attention's
+# tensor-core route reads its K and V fragments from e4m3 tiles and widens
+# them in registers; the ragged tensor-core instance widens its e4m3 tiles
+# in place in shared memory: every e4m3 byte through them, keys on and
+# around the tiles' edges (64 keys, 32 at Dh 256), NaN bytes, graph
+# replays.
+
+
+def _all_bytes(n_rows, width, shift=0):
+    """n_rows rows of e4m3 holding every byte value (0x7F and 0xFF are
+    NaN), each row's bytes rolled by its index (plus ``shift``)."""
+    base = torch.arange(256, dtype=torch.uint8).repeat(-(-width // 256))
+    rows = [torch.roll(base[:width], i + shift) for i in range(n_rows)]
+    return torch.stack(rows).view(FP8)
+
+
+def _widened_equal(got, want):
+    """got (bf16) equals want (e4m3 widened exactly) value for value: NaN
+    where the byte is NaN, every other value equal (-0 reads as 0: the
+    sum of one weighted key starts from +0)."""
+    want = want.to(torch.bfloat16)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+@pytest.mark.parametrize("kernel", ["flash_decode", "flash_decode_fw",
+                                    "paged_attention"])
+@pytest.mark.parametrize("hkv,dh", [(2, 128), (1, 256), (4, 64)])
+def test_fp8_one_key_gives_every_widened_byte(card, kernel, hkv, dh):
+    """A slot whose one key's V row holds every e4m3 byte: the softmax
+    weight is exactly 1, so each output row is that V row widened to bf16,
+    value for value, NaN where the byte is NaN (G 4, bf16 q, the tensor
+    cores; a split grid of several runs, all but the first empty)."""
+    g = torch.Generator(device=card).manual_seed(70 + dh)
+    b, p, mp, h = 4, 16, 24, 4 * hkv
+    n = b * mp
+    i32 = dict(dtype=torch.int32, device=card)
+    q = torch.randn((b, h, dh), generator=g, device=card).to(torch.bfloat16)
+    kp = torch.randn((n, p, hkv * dh), generator=g, device=card).to(FP8)
+    vp = torch.randn((n, p, hkv * dh), generator=g, device=card).to(FP8)
+    table = torch.randperm(n, generator=g, device=card).reshape(b, mp).to(
+        torch.int32)
+    rows = _all_bytes(b, hkv * dh).to(card)
+    for i in range(b):
+        raw_view(vp)[table[i, 0], 0] = raw_view(rows[i])   # slot i's key 0
+    ones = torch.ones(b, **i32)
+    if kernel == "paged_attention":
+        out = pa.paged_attention(q, kp, vp, table, ones, n_kv_heads=hkv)
+    else:
+        w = 8
+        sk = torch.randn((b, w, hkv, dh), generator=g, device=card).to(
+            torch.bfloat16)
+        sv = torch.randn_like(sk)
+        zeros = torch.zeros(b, **i32)
+        if kernel == "flash_decode":
+            out = fd.flash_decode_attention(q, kp, vp, table, ones, sk, sv,
+                                            zeros, n_kv_heads=hkv)
+        else:
+            out, _, _ = fd.flash_decode_attention_fw(
+                q, kp, vp, table, ones, sk, sv, sk[:, :1].contiguous(),
+                sv[:, :1].contiguous(), zeros, zeros, n_kv_heads=hkv)
+    torch.cuda.synchronize()
+    want = rows.to(torch.bfloat16).reshape(b, hkv, 1, dh).expand(
+        b, hkv, h // hkv, dh)
+    _widened_equal(out, want.reshape(b, h, dh))
+
+
+@pytest.mark.parametrize("dh", [128, 256, 64])
+def test_ragged_attention_fp8_one_key_gives_every_widened_byte(card, dh):
+    """The ragged e4m3 instance's staging paths with one weighted key
+    (decode rows, and rows of 9 queries at G 4): rows over one context key
+    whose V row holds every e4m3 byte (its K all 448 against q of ones, the
+    fresh keys' K and V zero, so they weigh exp(-thousands) = 0), and rows
+    with no context whose first fresh V holds every e4m3 value in bf16
+    (rounded to e4m3 exactly; query 0 sees that key alone): each such
+    output row is that V row widened, NaN where the byte is NaN."""
+    hkv, b, p, mp = 256 // dh, 4, 16, 8
+    h = 4 * hkv
+    g = torch.Generator(device=card).manual_seed(80 + dh)
+    rows = ([(1, 1)] * b + [(0, 1)] * b + [(1, 9)] * b + [(0, 9)] * b)
+    r = len(rows)
+    n = r * mp
+    i32 = dict(dtype=torch.int32, device=card)
+    ctx = torch.tensor([c for c, _ in rows], **i32)
+    ql = torch.tensor([q for _, q in rows], **i32)
+    table = torch.randperm(n, generator=g, device=card).reshape(r, mp).to(
+        torch.int32)
+    q = torch.ones((r, 9, h, dh), dtype=torch.bfloat16, device=card)
+    kp = torch.randn((n, p, hkv * dh), generator=g, device=card).to(FP8)
+    vp = torch.randn((n, p, hkv * dh), generator=g, device=card).to(FP8)
+    want = _all_bytes(r, hkv * dh).to(card)
+    fk = torch.zeros((r, 9, hkv, dh), dtype=torch.bfloat16, device=card)
+    fv = torch.zeros_like(fk)
+    k448 = raw_view(torch.full((hkv * dh,), 448.0).to(FP8)).to(card)
+    for i, (c, _) in enumerate(rows):
+        if c:
+            raw_view(kp)[table[i, 0], 0] = k448
+            raw_view(vp)[table[i, 0], 0] = raw_view(want[i])
+        else:
+            fk[i, 0] = torch.randn((hkv, dh), generator=g, device=card).to(
+                torch.bfloat16)
+            fv[i, 0] = want[i].to(torch.bfloat16).reshape(hkv, dh)
+    before = _cuda.LAUNCHES["ragged_attention.fp8"]
+    out, _, _ = ra.ragged_attention(q, kp, vp, table, ctx, ql, fk, fv,
+                                    n_kv_heads=hkv)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["ragged_attention.fp8"] == before + 1
+    rows_bf = want.to(torch.bfloat16).reshape(r, hkv, 1, dh).expand(
+        r, hkv, h // hkv, dh).reshape(r, h, dh)
+    for i, (c, n_q) in enumerate(rows):
+        # context rows: every query; fresh rows: query 0 alone
+        for qi in range(n_q if c else 1):
+            _widened_equal(out[i, qi], rows_bf[i])
+
+
+def _fp8_edges(card, dh, p, mp, hkv):
+    """Twelve prefix lengths: one below, on and one above the e4m3 tile's
+    keys and twice them, a page's keys, and the split grid's run at twelve
+    slots."""
+    keys = fd.fp8_tile_keys(dh)
+    _, chunk = fd.flash_decode_split(12, hkv, p, mp, card)
+    return [k + d for k in (keys, 2 * keys, p, chunk) for d in (-1, 0, 1)]
+
+
+@pytest.mark.parametrize("fw", [False, True])
+@pytest.mark.parametrize("h,hkv,dh", [(32, 8, 128), (28, 4, 128),
+                                      (8, 1, 256), (16, 4, 64)])
+def test_flash_decode_fp8_tile_edges(card, fw, h, hkv, dh):
+    """e4m3 pools, bf16 q: prefix lengths on and around the e4m3 tile's
+    keys, the pages (16) and the split grid's runs (see _fd_split_case)."""
+    lens = _fp8_edges(card, dh, 16, 40, hkv)
+    _fd_split_case(card, torch.bfloat16, FP8, h, hkv, dh, 16, 40, lens, fw,
+                   seed=170 + fw + dh)
+
+
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("h,hkv,dh", [(32, 8, 128), (28, 4, 128),
+                                      (8, 1, 256), (64, 4, 128)])
+def test_paged_attention_fp8_tile_edges(card, window, h, hkv, dh):
+    """The tensor-core route over e4m3 pools at lengths on and around the
+    e4m3 tile's keys and the pages (see _paged_case)."""
+    keys = fd.fp8_tile_keys(dh)
+    lens = sorted({k + d for k in (keys, 2 * keys, 16, 96)
+                   for d in (-1, 0, 1)})
+    _paged_case(card, torch.bfloat16, FP8, h, hkv, dh, 16, 12, lens, window,
+                seed=180 + dh + h)
+
+
+def _nan_bytes(pool, pages, key, kh, dh, dims):
+    """Set dims ``dims`` of KV head kh of key ``key`` (in pages ``pages``
+    of 16) to the NaN byte 0x7F."""
+    raw = raw_view(pool)
+    row = raw[pages[key // 16], key % 16]
+    for d in dims:
+        row[kh * dh + d] = 0x7F
+
+
+@pytest.mark.parametrize("kernel", ["flash_decode", "flash_decode_fw",
+                                    "paged_attention", "ragged_attention"])
+@pytest.mark.parametrize("h,hkv,dh", [(32, 8, 128), (8, 1, 256)])
+def test_fp8_nan_bytes_in_live_keys(card, kernel, h, hkv, dh):
+    """NaN bytes (0x7F, JAX's overflow) in live keys match the plain
+    version: a NaN in a K row makes its KV head's rows NaN, a NaN in a V
+    row that dim of them; every other output within q's tolerance."""
+    g = torch.Generator(device=card).manual_seed(190 + dh)
+    b, p, mp = 6, 16, 24
+    n = b * mp + 4
+    i32 = dict(dtype=torch.int32, device=card)
+    lens = [5, 70, 200, 63, 333, 17]
+    q = torch.randn((b, h, dh), generator=g, device=card).to(torch.bfloat16)
+    kp = torch.randn((n, p, hkv * dh), generator=g, device=card).to(FP8)
+    vp = torch.randn((n, p, hkv * dh), generator=g, device=card).to(FP8)
+    table = torch.randperm(n, generator=g, device=card)[: b * mp].reshape(
+        b, mp).to(torch.int32)
+    _nan_bytes(kp, table[1], 66, 0, dh, [3])           # K: slot 1, head 0
+    _nan_bytes(vp, table[2], 150, hkv - 1, dh, [0, dh - 1])   # V: slot 2
+    _nan_bytes(kp, table[4], 331, hkv - 1, dh, [dh // 2])     # slot 4
+    plen = torch.tensor(lens, **i32)
+    w = 8
+    sk = torch.randn((b, w, hkv, dh), generator=g, device=card).to(
+        torch.bfloat16)
+    sv = torch.randn_like(sk)
+    nside = torch.tensor([3, 0, 8, 1, 5, 2], **i32)
+    if kernel == "flash_decode":
+        args = (q, kp, vp, table, plen, sk, sv, nside)
+        out = fd.flash_decode_attention(*args, n_kv_heads=hkv)
+        ref = fd.flash_decode_attention_plain(*args, n_kv_heads=hkv)
+    elif kernel == "flash_decode_fw":
+        fk = torch.randn((b, 1, hkv, dh), generator=g, device=card).to(
+            torch.bfloat16)
+        fv = torch.randn_like(fk)
+        active = torch.ones(b, **i32)
+        out, _, _ = fd.flash_decode_attention_fw(
+            q, kp, vp, table, plen, sk.clone(), sv.clone(), fk, fv, nside,
+            active, n_kv_heads=hkv)
+        ref, _, _ = fd.flash_decode_attention_fw_plain(
+            q, kp, vp, table, plen, sk.clone(), sv.clone(), fk, fv, nside,
+            active, n_kv_heads=hkv)
+    elif kernel == "paged_attention":
+        out = pa.paged_attention(q, kp, vp, table, plen, n_kv_heads=hkv)
+        ref = pa.paged_attention_xla(q, kp, vp, table, plen, n_kv_heads=hkv)
+    else:
+        # decode rows over the same contexts: the fresh key at position
+        # len (its K/V in range), written after the context
+        ctx = plen
+        ql = torch.ones(b, **i32)
+        fk = torch.randn((b, 1, hkv, dh), generator=g, device=card).to(
+            torch.bfloat16)
+        fv = torch.randn_like(fk)
+        kp2, vp2 = kp.clone(), vp.clone()
+        out, _, _ = ra.ragged_attention(q[:, None], kp, vp, table, ctx, ql,
+                                        fk, fv, n_kv_heads=hkv)
+        ref, _, _ = ra.ragged_attention_plain(q[:, None], kp2, vp2, table,
+                                              ctx, ql, fk, fv,
+                                              n_kv_heads=hkv)
+        assert _same_bytes(kp, kp2) and _same_bytes(vp, vp2)
+        out, ref = out[:, 0], ref[:, 0]
+    torch.cuda.synchronize()
+    nan = torch.isnan(ref)
+    assert bool(nan.any()) and bool((~nan).any())
+    assert torch.equal(torch.isnan(out), nan)
+    _close(out[~nan], ref[~nan], torch.bfloat16)
+
+
+@pytest.mark.parametrize("h,hkv,dh", [(32, 8, 128), (16, 2, 256),
+                                      (28, 4, 128)])
+def test_ragged_attention_fp8_tile_edges_past_464(card, h, hkv, dh):
+    """The ragged e4m3 instance with contexts and chunks on and around its
+    key tiles (64 keys, 32 at Dh 256) and the fresh K/V scaled past 464:
+    the pools byte-equal to the plain version's after the writeback (NaN
+    bytes where JAX's cast overflows), outputs within q's tolerance where
+    the plain version's are finite, dead rows exactly 0."""
+    keys = 64 if dh <= 128 else 32
+    rows = [(keys - 1, 1), (keys, 1), (keys + 1, 1), (2 * keys, 1),
+            (keys + 3, 8), (0, 5), (0, keys + 2), (keys - 1, keys), (3, 0),
+            (keys + 5, 40)]
+    g = torch.Generator(device=card).manual_seed(200 + dh)
+    p, mp = 16, 2 * (-(-3 * keys // 16))
+    r, qmax = len(rows), max(q for _, q in rows)
+    n = r * mp + 8
+    i32 = dict(dtype=torch.int32, device=card)
+    ctx = torch.tensor([c for c, _ in rows], **i32)
+    ql = torch.tensor([q for _, q in rows], **i32)
+    table = torch.randperm(n, generator=g, device=card)[: r * mp].reshape(
+        r, mp).to(torch.int32)
+    bf = torch.bfloat16
+    q = torch.randn((r, qmax, h, dh), generator=g, device=card).to(bf)
+    fk = (torch.randn((r, qmax, hkv, dh), generator=g, device=card)
+          * 600.0).to(bf)
+    fv = (torch.randn((r, qmax, hkv, dh), generator=g, device=card)
+          * 600.0).to(bf)
+    kp = torch.randn((2 * n, p, hkv * dh), generator=g, device=card).to(FP8)
+    vp = torch.randn((2 * n, p, hkv * dh), generator=g, device=card).to(FP8)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kw = dict(n_kv_heads=hkv, layer=1, n_pages_per_layer=n)
+    out, _, _ = ra.ragged_attention(q, kp, vp, table, ctx, ql, fk, fv, **kw)
+    torch.cuda.synchronize()
+    ref, _, _ = ra.ragged_attention_plain(q, kp2, vp2, table, ctx, ql, fk,
+                                          fv, **kw)
+    assert _same_bytes(kp, kp2) and _same_bytes(vp, vp2)
+    assert bool(torch.isnan(kp.float()).any())
+    valid = torch.arange(qmax, device=card)[None, :] < ql[:, None]
+    assert float(out[~valid].float().abs().max()) == 0.0
+    finite = torch.isfinite(ref.float())
+    assert torch.equal(torch.isnan(out.float()), ~finite)
+    torch.testing.assert_close(out.float()[finite], ref.float()[finite],
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_fp8_kernels_graph_replay(card):
+    """Flash-decode, its fw form and ragged attention over e4m3 pools,
+    each captured in a CUDA graph: a replay is bit-equal to an eager call
+    on the same inputs (fw's side write and ragged's writeback too), and
+    so is a replay after new lengths are written in place."""
+    g = torch.Generator(device=card).manual_seed(210)
+    b, h, hkv, dh, p, mp, w = 8, 32, 8, 128, 16, 40, 8
+    n = b * mp
+    i32 = dict(dtype=torch.int32, device=card)
+    bf = torch.bfloat16
+    q = torch.randn((b, h, dh), generator=g, device=card).to(bf)
+    kp = torch.randn((n, p, hkv * dh), generator=g, device=card).to(FP8)
+    vp = torch.randn((n, p, hkv * dh), generator=g, device=card).to(FP8)
+    table = torch.randperm(n, generator=g, device=card).reshape(b, mp).to(
+        torch.int32)
+    sk = torch.randn((b, w, hkv, dh), generator=g, device=card).to(bf)
+    sv = torch.randn_like(sk)
+    fk = torch.randn((b, 1, hkv, dh), generator=g, device=card).to(bf)
+    fv = torch.randn_like(fk)
+    lens = torch.tensor([0, 1, 63, 64, 65, 300, 511, 600], **i32)
+    nside = torch.tensor([0, 3, 8, 1, 2, 8, 5, 0], **i32)
+    active = torch.tensor([1, 1, 0, 1, 1, 1, 1, 1], **i32)
+    new_lens = torch.tensor([639, 0, 129, 7, 64, 32, 1, 500], **i32)
+    sk_g, sv_g = sk.clone(), sv.clone()
+    kp_g, vp_g = kp.clone(), vp.clone()
+    calls = {
+        "flash_decode": lambda sk_, sv_, kp_, vp_: fd.flash_decode_attention(
+            q, kp_, vp_, table, lens, sk_, sv_, nside, n_kv_heads=hkv),
+        "flash_decode_fw": lambda sk_, sv_, kp_, vp_:
+            fd.flash_decode_attention_fw(
+                q, kp_, vp_, table, lens, sk_, sv_, fk, fv, nside, active,
+                n_kv_heads=hkv)[0],
+        "ragged_attention": lambda sk_, sv_, kp_, vp_: ra.ragged_attention(
+            q[:, None], kp_, vp_, table, lens, active, fk, fv,
+            n_kv_heads=hkv)[0],
+    }
+    for name, call in calls.items():
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):  # the capture stream's scratch
+            call(sk_g, sv_g, kp_g, vp_g)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            got = call(sk_g, sv_g, kp_g, vp_g)
+        for new in (False, True):
+            if new:
+                lens.copy_(new_lens)
+            graph.replay()
+            sk_e, sv_e = sk.clone(), sv.clone()
+            kp_e, vp_e = kp.clone(), vp.clone()
+            want = call(sk_e, sv_e, kp_e, vp_e)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (name, new)
+            if name == "flash_decode_fw":
+                assert torch.equal(sk_g, sk_e) and torch.equal(sv_g, sv_e)
+                sk_g.copy_(sk)
+                sv_g.copy_(sv)
+            if name == "ragged_attention":
+                assert _same_bytes(kp_g, kp_e) and _same_bytes(vp_g, vp_e)
+                kp_g.copy_(kp)
+                vp_g.copy_(vp)
+        lens.copy_(torch.tensor([0, 1, 63, 64, 65, 300, 511, 600], **i32))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):

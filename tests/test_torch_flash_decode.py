@@ -33,10 +33,14 @@ from distributed_inference_engine_tpu_torch.models import base as tb
 from distributed_inference_engine_tpu_torch.models.llama import (
     llama_spec as tspec,
 )
+from distributed_inference_engine_tpu_torch.ops import flash_decode as tfd
 from distributed_inference_engine_tpu_torch.ops.flash_decode import (
     MIN_CHUNK,
     flash_decode_attention,
     flash_decode_attention_fw,
+    flash_decode_split,
+    fp8_fragment_dims,
+    fp8_tile_keys,
 )
 from distributed_inference_engine_tpu_torch.ops.paged_attention import (
     paged_split,
@@ -369,3 +373,63 @@ def test_flash_decode_grid_at_llama3_8b_shapes(b, max_keys, want):
     """The kernels' grid on a 132-SM card at 8 KV heads (paged_split with
     flash-decode's shortest run), from shapes only."""
     assert paged_split(b, 8, max_keys, 132, min_chunk=MIN_CHUNK) == want
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+def test_split_runs_are_whole_e4m3_tiles(monkeypatch, dh):
+    """``flash_decode_split`` on a 132-SM card at B 1-128: every run a
+    whole number of the e4m3 tile's keys (64, 32 at Dh 256), and the runs
+    cover each of the slot's keys once (none starts past them)."""
+    monkeypatch.setattr(tfd._cuda, "sm_count", lambda index: 132)
+    keys = fp8_tile_keys(dh)
+    assert keys == {32: 64, 64: 64, 128: 64, 256: 32}[dh]
+    for b in range(1, 129):
+        for hkv, n_sub in ((1, 1), (4, 2), (8, 1), (16, 1)):
+            for page_size, mp in ((16, 40), (128, 8), (128, 16), (128, 48)):
+                n_split, chunk = flash_decode_split(
+                    b, hkv, page_size, mp, torch.device("cpu"), n_sub)
+                total = mp * page_size
+                assert chunk % keys == 0, (b, hkv, page_size, mp)
+                assert n_split * chunk >= total > (n_split - 1) * chunk
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+def test_fp8_fragment_dims(dh):
+    """The e4m3 fragments' dim orders (csrc/common.cuh kdim, vdim): both
+    permutations of the head dims; a lane quad's k pairs (2t, 2t + 1) and
+    (2t + 8, 2t + 9) of a K-step are four consecutive dims (one word of
+    e4m3), and so are the four bytes of a V word; Q K^T through the K
+    order and P V through the V order, put back, equal the plain products
+    in fp32."""
+    k, v = fp8_fragment_dims(dh)
+    assert sorted(k) == list(range(dh)) and sorted(v) == list(range(dh))
+    for kk in range(dh // 16):
+        for t in range(4):
+            d = k[16 * kk + 2 * t]
+            assert [k[16 * kk + 2 * t + 1], k[16 * kk + 8 + 2 * t],
+                    k[16 * kk + 8 + 2 * t + 1]] == [d + 1, d + 2, d + 3]
+    assert all(v[i + j] == v[i] + j for i in range(0, dh, 4)
+               for j in range(4))
+    rng = np.random.default_rng(dh)
+    q = torch.from_numpy(rng.standard_normal((8, dh)).astype(np.float32))
+    kt = torch.from_numpy(rng.standard_normal((16, dh)).astype(np.float32))
+    p = torch.from_numpy(rng.random((8, 16)).astype(np.float32))
+    vt = torch.from_numpy(rng.standard_normal((16, dh)).astype(np.float32))
+    torch.testing.assert_close(q[:, k] @ kt[:, k].T, q @ kt.T, rtol=1e-6,
+                               atol=1e-5)
+    o = torch.empty((8, dh))
+    o[:, v] = p @ vt[:, v]
+    torch.testing.assert_close(o, p @ vt, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dh", [128, 256])
+def test_fp8_k_loads_hit_distinct_banks(dh):
+    """At Dh 128 and 256 a quarter-warp's 16-byte K loads (lane rows 0 and
+    1, quads 0-3, rows at the e4m3 stride Dh + 16) land in eight distinct
+    16-byte bank groups: the pieces of quads t and t + 1 are two apart."""
+    k, _ = fp8_fragment_dims(dh)
+    stride = dh + 16
+    for c in range(dh // 64):
+        groups = {(g * stride + k[16 * 4 * c + 2 * t]) // 16 % 8
+                  for g in range(2) for t in range(4)}
+        assert len(groups) == 8

@@ -277,21 +277,26 @@ BF, F32, E4 = torch.bfloat16, torch.float32, torch.float8_e4m3fn
     # window 0; G 4 over 8 KV heads)
     (8, 8, 1, 256, 6144, BF, BF, (True, 8, 1, 24, 256)),
     (8, 32, 8, 256, 4096, BF, BF, (True, 8, 1, 16, 256)),
-    # G 1 and 2 stay on the CUDA cores (Gemma-7B's 16 over 16)
+    # G 1 and 2 over bf16 pools stay on the CUDA cores (Gemma-7B's 16 over
+    # 16); over e4m3 pools G 2 takes the tensor cores
     (8, 16, 16, 256, 6144, BF, BF, (False, 1, 1, 5, 1280)),
-    (8, 16, 8, 128, 4096, BF, E4, (False, 2, 1, 8, 512)),
+    (8, 16, 8, 128, 4096, BF, E4, (True, 8, 1, 8, 512)),
     # every other pair: the CUDA cores in subgroup()'s sub-groups of 8
     (8, 28, 4, 128, 4096, F32, F32, (False, 8, 1, 16, 256)),
     (8, 48, 4, 128, 4096, F32, E4, (False, 8, 2, 8, 512)),
     (8, 32, 8, 128, 4096, BF, F32, (False, 4, 1, 8, 512)),
     (1, 4, 4, 128, 100, F32, BF, (False, 1, 1, 1, 128)),
+    # e4m3 pools at G 1: the tensor cores at every width (Gemma-7B's 16
+    # over 16 at Dh 256)
+    (8, 8, 8, 128, 4096, BF, E4, (True, 8, 1, 8, 512)),
+    (8, 16, 16, 256, 6144, BF, E4, (True, 8, 1, 24, 256)),
 ])
 def test_paged_grid_rule(b, h, hkv, dh, max_keys, qd, kvd, want):
     """The kernel's launch plan from shapes and dtypes alone: bf16 q over
-    bf16 or e4m3 pools at G >= 3 on the tensor cores with up to 16 query
-    heads a block (8 rows up to G 8) in runs of at most 16 staged tiles,
-    everything else on the CUDA cores, and the split grid over the (slot,
-    KV head, sub-group) blocks."""
+    bf16 pools at G >= 3 and over e4m3 pools at every G on the tensor
+    cores with up to 16 query heads a block (8 rows up to G 8) in runs of
+    at most 16 staged tiles, everything else on the CUDA cores, and the
+    split grid over the (slot, KV head, sub-group) blocks."""
     plan = tpa.paged_plan(b, h, hkv, dh, max_keys, 132, qd, kvd)
     assert tuple(plan) == want
     assert plan.rows * plan.n_sub >= h // hkv > plan.rows * (plan.n_sub - 1)

@@ -288,3 +288,39 @@ def test_schedule_takes_every_item_once(rows, h, hkv, dh, n_blocks):
     n_live = sum(live for *_, live in items)
     firsts = [blk[0] for blk in sched if blk and blk[0][3]]
     assert len(firsts) == min(n_blocks, n_live)
+
+
+@pytest.mark.parametrize("rows", ENGINE_ROWS)
+@pytest.mark.parametrize("dh", [128, 256])
+def test_schedule_ranks_items_by_key_tiles(rows, dh):
+    """One block takes every item in the schedule's rank order: the (row,
+    query tile) pairs by their key tiles of 64 keys (32 at Dh 256; twice
+    when more than 64 of the tile's rows are live), heaviest first, ties
+    in block order, each pair's KV heads together."""
+    h, hkv, page_size, mp = 32, 8, 128, 8
+    q_lens = [q for _, q in rows]
+    ctx_lens = [c for c, _ in rows]
+    qmax = max(q_lens)
+    r = len(rows)
+    g = h // hkv
+    tq, n_tiles, _ = ragged_plan(r, qmax, h, hkv, "mma", 1)
+    keys = 64 if dh <= 128 else 32
+
+    def cost(row, tile):
+        q0 = tile * tq
+        if q0 >= q_lens[row]:
+            return 0
+        fresh_end = min(q0 + tq, q_lens[row])
+        ctx = min(ctx_lens[row], mp * page_size)
+        tiles = -(-ctx // keys) + -(-fresh_end // keys)
+        return 2 * tiles if (fresh_end - q0) * g > 64 else tiles
+
+    (items,) = ragged_schedule(q_lens, ctx_lens, qmax, h, hkv, dh,
+                               page_size, mp, 1)
+    pairs = [(row, t) for row, _, t, _ in items[::hkv]]
+    assert [(row, kh, t) for row, kh, t, _ in items] == [
+        (row, kh, t) for row, t in pairs for kh in range(hkv)]
+    block_order = [(row, t) for t in reversed(range(n_tiles))
+                   for row in reversed(range(r))]
+    assert pairs == sorted(block_order, key=lambda p: (
+        -cost(*p), block_order.index(p)))
