@@ -16,8 +16,8 @@ fused, fw, ``pallas``, ``inline``, int4, Mistral's inline) and the mixed
 step (bf16, int4, int8) also runs through a second engine with the eager
 comparison hook (``pair_run``, ``mixed_pair_line``): the graph run's greedy
 tokens and launch counts must equal the eager run's; each prints both runs'
-decode ms per step and device-busy share (``torch.profiler`` over two
-decode chunks with 8 slots live, each failing if a kernel the one-launch
+decode ms per step and device-busy share (``torch.profiler`` over one
+decode chunk with 8 slots live, each failing if a kernel the one-launch
 GEMVs replaced runs), the mixed steps' ms by bucket, and the graphs' count,
 capture seconds and pool bytes.
 
@@ -35,8 +35,7 @@ Phases, each failing loudly (any failure exits non-zero):
    calls) with CUDA events over back-to-back launches on rotating
    buffers (cold L2):
    - flash-decode and its writeback variant at the decode shapes (B=8,
-     H=32, Hkv=8, Dh=128, P=128, W=8, MP=16), and with one 2,040-key slot
-     alone (B=1, the single-user decode), each row printing its split
+     H=32, Hkv=8, Dh=128, P=128, W=8, MP=16), each row printing its split
      grid (runs x keys); the fw check with inactive slots and a slot at
      side_idx = W, the side buffers compared;
    - ragged attention at R=10 rows (8 decode rows with context 0-1000, two
@@ -55,27 +54,36 @@ Phases, each failing loudly (any failure exits non-zero):
      yardstick is cuBLAS on the dequantized weight, which reads 4x (bf16)
      or 8x (fp32) the packed bytes;
    - paged attention at the Mistral decode shapes (B=8, H=32, Hkv=8,
-     Dh=128, P=128, MP=48, lengths 0-6,000 with one empty slot), windows
-     0 and 4096, on one layer's pool and on the stacked pool (layer 5 of
-     32) with the flash stats m and l held too, and one 6,000-token slot
-     alone (B=1, window 4096, stacked) (``check_paged``). Each row names
+     Dh=128, P=128, MP=48, lengths 0-6,000 with one empty slot): bf16 at
+     window 4096 on the stacked pool (layer 5 of 32) with the flash stats m
+     and l held too, bf16 without a window on one layer's pool, fp32 at
+     window 4096 stacked (``PAGED_CASES``), and one 6,000-token slot alone
+     (B=1, window 4096, stacked) (``check_paged``). Each row names
      the route its launch took (``mma``: the tensor cores, ``simt``: the
      CUDA cores; checked by the route's launch count), its rows a block
      and its split grid; a bf16 row at G <= 4 also holds and times the
      other route.
-   - the e4m3-pool (fp8) instances of flash-decode, fw, ragged attention
-     and paged attention at the same shapes (bf16 q on the tensor cores
-     where the bf16 instance is, fp32 q on the CUDA cores), q's tolerance,
-     fp32 held to 1e-5; fw's side write with a fresh row past 464 and the
-     ragged writeback with fresh K/V past 464 byte-equal to the plain
-     versions'; each checked by its ``<kernel>.fp8`` launch count; no
-     library yardstick (no one call takes e4m3 K/V: SDPA needs an upcast);
-     each e4m3 row prints the bf16-pool instance's time at the same case
-     from the same run and the ratio (``note_fp8_against_bf16``);
+   - the e4m3-pool (fp8) and e5m2-pool instances of flash-decode, fw,
+     ragged attention and paged attention at the same shapes (bf16 q on
+     the tensor cores where the bf16 instance is, fp32 q on the CUDA
+     cores), q's tolerance, fp32 held to 1e-5; fw's side write with a
+     fresh row past the dtype's limit (464; 61,440 for e5m2) and the ragged
+     writeback with fresh K/V past it byte-equal to the plain versions'
+     (NaN bytes for e4m3, +-inf for e5m2); each checked by its
+     ``<kernel>.fp8`` or ``<kernel>.e5m2`` launch count; no library
+     yardstick (no one call takes fp8 K/V: SDPA needs an upcast); each
+     fp8 row prints the bf16-pool instance's time at the same case from
+     the same run and the ratio (``note_fp8_against_bf16``);
    - flash-decode at 128 slots (``FD_B128``: prefix lengths drawn
      uniformly from 0-2,040 and side counts from 0-8 with a seeded
      generator), bf16 q over bf16 and over e4m3 pools, where the pools'
-     bytes dominate a layer (the TPU bench's default rung runs 128 slots).
+     bytes dominate a layer (the TPU bench's default rung runs 128 slots)
+     and the grid is one run a slot (the unsplit grid).
+   The default run keeps one case of each instance and route; the sweeps
+   around them run in ``scripts/paged_times.py --sweep`` (paged attention
+   over every case, the families' instances at every group and head
+   width, the routes at G <= 4) and ``scripts/fp8_times.py`` (flash-decode
+   and fw with one 2,040-key slot alone; the fp8 instances at 128 slots).
    Attention kernels are also held per output row to max|out - ref32| /
    max|ref32| against the plain version on the same values in fp32. Each
    bound counts the valid work only (no query padding), the pools' bytes
@@ -126,12 +134,15 @@ Phases, each failing loudly (any failure exits non-zero):
    Checks the results, one ragged launch per layer per mixed step (all of
    them the tensor-core instance), flash-decode on the pure-decode steps,
    and the mixed, chunked and prefix-hit admission counts.
-4b. ``fp8`` (A5f): the worker CLI again with the ``mixed`` model plus
-   ``kv_dtype=float8_e4m3fn`` (``FP8_MODEL``) over the mixed phase's two
-   waves: both served, every ragged launch (32 per mixed step, tensor
-   cores) and every flash-decode launch on its fp8 instance, the pools'
-   ``hbm_bytes`` half of ``mixed``'s, served tok/s and TTFT printed beside
-   ``mixed``'s from the same run.
+4b. ``fp8`` (A5f) and ``e5m2`` (A5f-e5m2): the worker CLI again with the
+   ``mixed`` model plus ``kv_dtype=float8_e4m3fn`` (``FP8_MODEL``) over the
+   mixed phase's two waves; then, in the same worker process, that model
+   unloaded and ``E5M2_MODEL`` (``kv_dtype=float8_e5m2``) loaded over
+   ``load_model`` and served the same waves. For each: both served, every
+   ragged launch (32 per mixed step, tensor cores) and every flash-decode
+   launch on its ``.fp8`` (``.e5m2``) instance, the pools' ``hbm_bytes``
+   half of ``mixed``'s, served tok/s and TTFT printed beside ``mixed``'s
+   (and e5m2's beside fp8's) from the same run.
 5. ``fused``: rebuilds the same weights in this process, checks one served
    chain teacher-forced against ``forward_train`` (bf16: ties within the
    measured bf16 gap between the two code paths), runs the serve
@@ -139,7 +150,8 @@ Phases, each failing loudly (any failure exits non-zero):
    ``decode_fused=True`` (every matmul_residual and norm_matmul launch on
    the tensor cores) and with ``attention_impl="pallas-decode-fw"`` (launch counts
    zeroed just before each) and checks a chain of each the same way (bf16
-   smokes); then, in fp32 at full width, holds the decode
+   smokes; the fw one ``CUT_LAYERS`` deep); then, in fp32 at full width,
+   holds the decode
    path's logits to ``forward_train``'s within 1e-3 (flash-decode fused
    off and on, and the fw kernel), and runs the mixed phase's first wave
    through fp32 engines (fp32 pools): ``pallas-decode`` with
@@ -151,8 +163,9 @@ Phases, each failing loudly (any failure exits non-zero):
    the full width, as do the fp32 checks (here, in ``int4`` and in
    ``mistral``; ``CUT_LAYERS``, cut for the time limit). It also
    times the bf16 mixed steps over the mixed phase's first wave. Its
-   ``[host]`` lines (``phase_host``) run the serve prompts through the
-   engine's host paths (bf16, ``decode_fused``, graphs): sync admission,
+   ``[host]`` lines (``phase_host``, ``CUT_LAYERS`` deep) run the serve
+   prompts through the engine's host paths (bf16, ``decode_fused``,
+   graphs): sync admission,
    deferred admission with the step timeline on (the default) and off,
    ``defer_sync``, ``stream_chunk_steps=2`` with a callback on every
    request, and ``defer_sync`` through the eager hook; the five
@@ -171,7 +184,8 @@ Phases, each failing loudly (any failure exits non-zero):
    decode GEMV. Then in this process, on the same weights: the served chain teacher-forced (bf16 band); a
    ``decode_fused=True`` engine launching no fused GEMV and 129 int4
    launches per forward; the int4 mixed steps' time; a bf16 int8 engine
-   (``weight_bits`` 8) with its decode and mixed-step times; then in fp32,
+   (``weight_bits`` 8, ``CUT_LAYERS`` deep) with its decode and mixed-step
+   times; then in fp32,
    for int4 and for int8, the decode path's logits within 1e-3 of
    ``forward_train``'s and a ``pallas-ragged`` engine at 8 slots (chunk
    256) holding every chain teacher-forced at the 1e-3 band.
@@ -189,11 +203,12 @@ Phases, each failing loudly (any failure exits non-zero):
    layers) with ``attention_impl="pallas"`` (window scheme) and
    ``decode_mode="inline"``, with their launch counts and a chain each.
 
-8. ``fp8`` in process (``phase_fp8_inproc``), e4m3 pools, full width and
-   ``CUT_LAYERS`` deep: the fw decode at 8 slots (serve prompts) and
-   Mistral's inline decode past its window (mistral prompts), each graph
-   against eager with tokens, logprobs and launches bit-equal and every
-   fw / paged launch on its fp8 instance; then in fp32 (``FP32_LAYERS``)
+8. ``fp8`` in process (``phase_fp8_inproc``), e4m3 then e5m2 pools, full
+   width and ``CUT_LAYERS`` deep: the fw decode at 8 slots (serve prompts)
+   and Mistral's inline decode past its window (mistral prompts), each
+   graph against eager with tokens, logprobs and launches bit-equal and
+   every fw / paged launch on its fp8 (e5m2) instance; then in fp32
+   (``FP32_LAYERS``)
    the teacher-forced decode logits of flash-decode, fw, the ragged mixed
    step, the inline paged decode and Mistral's inline decode, each
    through the kernels and through their plain versions (the script's
@@ -205,16 +220,20 @@ Phases, each failing loudly (any failure exits non-zero):
    at 3, 6 and 7, and paged attention at head_dim 256 with Gemma-7B's
    16/16 and Gemma-2B's 8/1 heads (windows 0 and 4096), each in bf16,
    fp32 and over e4m3 pools (``family_kernel_rows``, the B 8 case, fewer
-   timing repeats); and paged attention's two routes for bf16 q at G 1
-   and 2 (Dh 128) and G 2 and 4 (Dh 256) (``ROUTE_SHAPES``). Then
-   three worker phases at full published width and depth
-   (``phase_family``): ``qwen2-7b`` (28 heads over 4: G 7) with the
+   timing repeats), in the default run at G 7 (and paged attention's
+   16-row instance at G 16), Gemma-7B without a window and Gemma-2B with
+   one (``FAMILY_GROUPS``, ``GEMMA_CASES``); and paged attention's two
+   routes for bf16 q at G 1 and 2 (Dh 128) and G 2 and 4 (Dh 256)
+   (in ``scripts/paged_times.py --sweep``). Then
+   three models at full published width and depth through one worker
+   process, each loaded once the one before it is unloaded
+   (``phase_families``): ``qwen2-7b`` (28 heads over 4: G 7) with the
    ``mixed`` settings over the mixed waves (ragged and flash-decode at G
    7), ``gemma-7b`` (head_dim 256, tied 256,000-row embedding) and
    ``gpt2`` (learned positions, LayerNorm, biases) with ``serve``'s over
    the serve wave; served tok/s and TTFT p50 each. In process
    (``phase_families_inproc``): one served chain of each teacher-forced
-   at full depth (bf16 band), graph against eager at ``CUT_LAYERS``
+   at full depth (bf16 band), graph against eager at ``FAMILY_LAYERS``
    (GPT-2 at 12): Qwen2-7B and Gemma-7B inline paged decode (paged
    attention at G 7 and at head_dim 256), Gemma-7B's fused decode
    (``norm_matmul`` over 1 + w), GPT-2's flash-decode; and in fp32 each
@@ -227,8 +246,9 @@ engine's graphs and fail if it captured none.
 
 The last lines are the card's name and power limit, one JSON object
 naming every kernel with its launches (on its own path: serve,
-in-process fused, mixed, fw, int4; the fp8 instances: the fp8 worker,
-the in-process fp8 fw and Mistral runs; the G 7 and head_dim 256
+in-process fused, mixed, fw, int4; the fp8 and e5m2 instances: the fp8
+phase's worker, the in-process fw and Mistral runs over each; the G 7
+and head_dim 256
 instances: the qwen2-7b worker, its in-process fw and inline runs, and
 Gemma-7B's inline run), error and times, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -259,10 +279,27 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12,    # dense tensor-core bf16
             "float32": 67e12}      # fp32 outside the tensor cores
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}   # (atol, rtol)
-# e4m3 KV pools (the fp8 instances) widen exactly: q's tolerance, fp32 q
-# held to 1e-5
+# e4m3 and e5m2 KV pools (the fp8 and e5m2 instances) widen exactly: q's
+# tolerance, fp32 q held to 1e-5
 FP8 = "float8_e4m3fn"
+E5M2 = "float8_e5m2"
 FP8_TOL = {"bfloat16": TOL["bfloat16"], "float32": (1e-5, 1e-5)}
+# per fp8 pool dtype: the suffix its instances count launches under, the
+# tag its kernel rows carry, and a scale of fresh K/V past the dtype's
+# largest value (e4m3 rounds it to NaN bytes, e5m2 to +-inf)
+KV8 = {FP8: ("fp8", " e4m3 pools", 300.0),
+       E5M2: ("e5m2", " e5m2 pools", 3e4)}
+
+
+def inst8(name: str, kv_name) -> str:
+    """The launch counter of kernel ``name``'s instance over ``kv_name``
+    pools (``<name>.fp8`` stands for the bf16/fp32 pools' case, whose count
+    must not move)."""
+    return f"{name}.{KV8[kv_name][0] if kv_name else 'fp8'}"
+
+
+def pool_tag(kv_name) -> str:
+    return KV8[kv_name][1] if kv_name else ""
 # flash-decode, per output row: max|out - ref| / max|ref| of that row
 ROW_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 
@@ -273,6 +310,16 @@ D_MODEL, D_FF = 4096, 14336
 # ~0.4 over a 128k vocab at random init, 32 layers; fp32 by ~1e-4
 BF16_TIE_EPS = 0.3
 FP32_LOGIT_TOL = 1e-3
+# --full-depth only: kernels against plain versions over e5m2 pools on the
+# paths that store each step's K/V into the pools (ragged, inline). The two
+# forwards differ by fp32 rounding; a stored value that lies at a rounding
+# boundary lands on another e5m2 value (12.5-25% apart) in one of them, and
+# 32 layers carry such flips to the logits. scripts/fp8_logit_gap.py shows
+# it: the kernels agree with the plain versions call by call on the same
+# inputs, pool bytes included, and the plain versions against themselves,
+# with a 2^-20 relative noise on each attention output, differ as much
+# (PERF.md, PR 16). At CUT_LAYERS every path keeps FP32_LOGIT_TOL.
+E5M2_STORE_LOGIT_TOL = 5e-3
 # the fp32 checks and the llama3-8b paged-attention smokes run at full
 # width but 8 of the 32 layers: cut to keep the script within its time
 # limit (the other bf16 paths run every layer)
@@ -290,6 +337,10 @@ MIXED_MODEL = (SERVE_MODEL.replace("attention_impl=pallas-decode",
 INT4_MODEL = MIXED_MODEL + ",quantized=1,weight_bits=4"
 # ... and from e4m3 KV pools (A5f): half the pool bytes
 FP8_MODEL = MIXED_MODEL + ",kv_dtype=float8_e4m3fn"
+# ... and from e5m2 KV pools (A5f-e5m2), under its own name, loaded over
+# RPC into the fp8 phase's worker once the e4m3 model is unloaded
+E5M2_MODEL = (MIXED_MODEL.replace("name=llama3-8b,", "name=llama3-8b-e5m2,")
+              + ",kv_dtype=float8_e5m2")
 N_LAYERS = 32
 # int4 launches per forward: w_qkv, wo, w_gate_up and w_down per layer, and
 # the LM head
@@ -362,21 +413,39 @@ FAMILIES = {"qwen2-7b": (QWEN_MODEL, "qwen", "qwen2-7b", 28, 152064),
 GROUP_SHAPES = {3: (12, 4, 128), 5: (20, 4, 128), 6: (24, 4, 128),
                 7: (28, 4, 128), 8: (32, 4, 128), 12: (48, 4, 128),
                 16: (64, 4, 128)}
-PAGED_ONLY_GROUPS = (8,)
-RAGGED_GROUPS = (3, 6, 7)
 GEMMA_SHAPES = ((16, 16, 256), (8, 1, 256))
-# paged attention's two routes for bf16 q at G <= 4 (check_paged times the
-# other route beside every such row): G 1 and 2 over Mistral's 8 KV heads at
-# Dh 128 (its G 4 is the main rows), G 2 and 4 over 8 KV heads at Dh 256
-# (Gemma-7B's G 1 is a GEMMA_SHAPES row)
-ROUTE_SHAPES = ((8, 8, 128), (16, 8, 128), (16, 8, 256), (32, 8, 256))
+# the default run's representatives of those (scripts/paged_times.py --sweep
+# runs every group, head width, window and route): one case of each instance
+# and route, the G 7 instances of the four kernels (Qwen2-7B's: one sub-group
+# of 8 rows, one dead) and paged attention's 16-row tensor-core instance
+# at G 16; at Dh 256 Gemma-7B's G 1 (bf16 q on the CUDA cores, e4m3 on the
+# tensor cores) without a window and Gemma-2B's G 8 with one
+FAMILY_GROUPS = {"flash_decode": (7,), "flash_decode_fw": (7,),
+                 "ragged_attention": (7,), "paged_attention": (7, 16)}
+GEMMA_CASES = ((GEMMA_SHAPES[0], (0,)),
+               (GEMMA_SHAPES[1], (MISTRAL_WINDOW,)))
 # the stacked pool of the paged instance checks: 4 layers (a Gemma-7B
 # layer's 384 pages are 0.4 GB in bf16)
 FAMILY_PAGED_LAYERS = 4
+# the families' in-process runs (graph against eager, fp32 logits) at full
+# width and this depth (GPT-2 at its 12 layers): an earlier path than the
+# slice's, cut for the time limit; --full-depth runs the fp32 checks at
+# every layer
+FAMILY_LAYERS = 4
+FAMILY_FP32_LAYERS = FAMILY_LAYERS
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# the script's start (main sets it): every phase, and the longer parts of
+# some, print when they end, as seconds since it
+T0 = [0.0]
+
+
+def done(phase: str) -> None:
+    log(f"[time] {phase} done at {time.perf_counter() - T0[0]:.1f} s")
 
 
 def smi_line() -> str:
@@ -421,23 +490,35 @@ def ptxas_summary(report: str, source: str, pattern: str, key) -> str:
 PTXAS_REPORTS = [
     ("flash_decode.cu", r"flash_decode_kernel\S*?Li(\d+)ELi(\d+)ELb([01])E",
      lambda m: f"Dh {int(m.group(1)):3d}"),
+    ("flash_decode_fw.cu",
+     r"flash_decode_kernel\S*?Li(\d+)ELi(\d+)ELb([01])E",
+     lambda m: f"fw Dh {int(m.group(1)):3d}"),
     ("flash_decode_fp8.cu",
      r"flash_decode_kernelI(13__nv_bfloat16|f)\S*?Li(\d+)ELi(\d+)ELb([01])E",
      lambda m: (f"e4m3 pools, {'bf16' if m.group(1) != 'f' else 'fp32'} q,"
                 f" Dh {int(m.group(2)):3d}")),
-    ("ragged_attention.cu",
-     r"ragged_mma_kernelILi(\d+)E(13__nv_bfloat16|13__nv_fp8_e4m3)",
-     lambda m: (f"tensor cores{', e4m3 pools' if 'fp8' in m.group(2) else ''}"
-                f", Dh {int(m.group(1)):3d}")),
+    ("flash_decode_e5m2.cu",
+     r"flash_decode_kernelI(13__nv_bfloat16|f)\S*?Li(\d+)ELi(\d+)ELb([01])E",
+     lambda m: (f"e5m2 pools, {'bf16' if m.group(1) != 'f' else 'fp32'} q,"
+                f" Dh {int(m.group(2)):3d}")),
+    *((src, r"ragged_mma_kernelILi(\d+)E(13__nv_bfloat16|13__nv_fp8_e4m3|"
+            r"13__nv_fp8_e5m2)",
+       lambda m: (f"tensor cores"
+                  f"{', e4m3 pools' if 'e4m3' in m.group(2) else ''}"
+                  f"{', e5m2 pools' if 'e5m2' in m.group(2) else ''}"
+                  f", Dh {int(m.group(1)):3d}"))
+      for src in ("ragged_attention.cu", "ragged_attention_fp8.cu")),
     ("fused_decode.cu", r"(matmul_residual|norm_matmul)_kernelI"
      r"(13__nv_bfloat16|f)Li(\d)ELb([01])E",
      lambda m: (f"{m.group(1)} {'bf16' if m.group(2) != 'f' else 'fp32'}"
                 f" x {8 * int(m.group(3))} tokens"
                 f"{'' if m.group(4) == '1' else ' (4-byte copies)'}")),
-    ("paged_attention.cu",
-     r"paged_(mma|simt)_kernelI(\S*?)Li(\d+)ELi(\d+)EE",
-     lambda m: (f"paged {m.group(1)}{' e4m3' if 'fp8' in m.group(2) else ''}"
-                f" Dh {int(m.group(3)):3d} x {int(m.group(4))} rows")),
+    *((src, r"paged_(mma|simt)_kernelI(\S*?)Li(\d+)ELi(\d+)EE",
+       lambda m: (f"paged {m.group(1)}"
+                  f"{' e4m3' if 'e4m3' in m.group(2) else ''}"
+                  f"{' e5m2' if 'e5m2' in m.group(2) else ''}"
+                  f" Dh {int(m.group(3)):3d} x {int(m.group(4))} rows"))
+      for src in ("paged_attention.cu", "paged_attention_fp8.cu")),
     ("int4_matmul.cu", r"int4_gemv_mma_kernelI(13__nv_bfloat16|f)Li(\d)E"
      r"Lb([01])ELb([01])E",
      lambda m: (f"int4 gemv {'bf16' if m.group(1) != 'f' else 'fp32'} x "
@@ -451,10 +532,12 @@ PTXAS_REPORTS = [
 
 
 def time_ms(torch, fn, make_args, reps: int = 7, per_rep: int = 10,
-            sleep_cycles: int = 200_000_000) -> float:
+            sleep_cycles: int = 40_000_000) -> float:
     """Median over ``reps`` of the mean time of ``per_rep`` back-to-back
-    launches, queued behind a device sleep so host enqueue time is not
-    measured; ``make_args(i)`` rotates over input copies (cold L2)."""
+    launches, queued behind a device sleep (~20 ms by default, far longer
+    than the host takes to enqueue 10 kernel launches) so host enqueue time
+    is not measured; ``make_args(i)`` rotates over input copies (cold
+    L2)."""
     for i in range(3):
         fn(*make_args(i))
     torch.cuda.synchronize()
@@ -478,7 +561,9 @@ def time_ms(torch, fn, make_args, reps: int = 7, per_rep: int = 10,
 # a ~10 ms sleep, which still covers the host's enqueue of 10 launches
 QUICK = dict(reps=3, sleep_cycles=20_000_000)
 QUICK_PLAIN = dict(reps=2, per_rep=2, sleep_cycles=20_000_000)
-MAIN_PLAIN = dict(reps=3, per_rep=3)
+# the plain versions' many small launches take the host longer to enqueue:
+# a ~0.1 s sleep
+MAIN_PLAIN = dict(reps=3, per_rep=3, sleep_cycles=200_000_000)
 
 
 def copies_for(nbytes: int, limit: int = 8) -> int:
@@ -507,12 +592,11 @@ def within(torch, got, ref, dtype: str, tol=None) -> bool:
 
 
 # flash-decode cases: (label, prefix lengths, n_side, fw side_idx, fw
-# active). The Llama-3-8B decode batch, and one 2,040-key slot alone (the
-# single-user decode, where one block per (slot, KV head) used 8 SMs)
+# active). The Llama-3-8B decode batch (scripts/fp8_times.py also times one
+# 2,040-key slot alone)
 FD_CASES = [
     ("B8", [0, 1, 127, 128, 300, 777, 1500, 2040], [0, 1, 3, 8, 2, 5, 8, 7],
      [0, 1, 3, W, 2, 5, 7, 6], [1, 1, 0, 1, 1, 0, 1, 1]),
-    ("B1", [2040], [W], [6], [1]),
 ]
 
 
@@ -589,8 +673,8 @@ def fd_row_rel(torch, out, ref32) -> float:
 def check_flash_decode(torch, kv_name=None, shape=(H, HKV, DH),
                        cases=FD_CASES, dtypes=("bfloat16", "float32"),
                        quick=False):
-    """Kernel 1 at the decode shapes (B 8, and B 1 with one 2,040-key
-    slot), held against the plain version: elementwise and
+    """Kernel 1 at the decode shapes (``cases``: B 8 by default), held
+    against the plain version: elementwise and
     per row against the plain version on the same values in fp32 (the bf16
     plain composition itself rounds three times: prefix part, window part,
     merge; the kernel once); a slot with no key gives exactly 0. With
@@ -650,11 +734,12 @@ def check_flash_decode(torch, kv_name=None, shape=(H, HKV, DH),
                 (2 * int(n_side.sum()) * hkv * dh + 2 * nb * h * dh) * item \
                 + (table.numel() + 2 * nb) * 4
             b_ms, b_by = bound_ms(nbytes, 4.0 * keys * h * dh, dtype_name)
-            before = _cuda.LAUNCHES["flash_decode.fp8"]
+            before = _cuda.LAUNCHES[inst8("flash_decode", kv_name)]
             out = fd.flash_decode_attention(*args, **kw)
             torch.cuda.synchronize()
-            assert _cuda.LAUNCHES["flash_decode.fp8"] == before + bool(
-                kv_name), "flash_decode: the fp8 instance's launch count"
+            assert _cuda.LAUNCHES[inst8("flash_decode", kv_name)] == \
+                before + bool(kv_name), \
+                "flash_decode: the fp8 instance's launch count"
             err = max_err(torch, out, ref)
             row_rel = fd_row_rel(torch, out, ref32)
             ok = (within(torch, out, ref, dtype_name, tol)
@@ -676,8 +761,7 @@ def check_flash_decode(torch, kv_name=None, shape=(H, HKV, DH),
                 + (f"; {n_sub} sub-group(s) of {gs} rows a KV head"
                    if gs * n_sub != h // hkv or n_sub > 1 else ""),
                 shape=f"{label} H{h} Hkv{hkv} Dh{dh} "
-                f"P{P} MP{MP} W{W} keys{keys}"
-                f"{' e4m3 pools' if kv_name else ''}"))
+                f"P{P} MP{MP} W{W} keys{keys}{pool_tag(kv_name)}"))
     return rows
 
 
@@ -726,8 +810,8 @@ def check_flash_decode_fw(torch, kv_name=None, shape=(H, HKV, DH),
             fv = torch.randn((nb, 1, hkv, dh), generator=g,
                              device="cuda").to(dt)
             if kv_name and nb > 1:
-                fk[1] *= 600.0
-                fv[1] *= 600.0
+                fk[1] *= 2 * KV8[kv_name][2]
+                fv[1] *= 2 * KV8[kv_name][2]
             kw = dict(n_kv_heads=hkv, layer=1, n_pages_per_layer=n_per_layer)
             sk_p, sv_p = sk.clone(), sv.clone()
             ref, _, _ = fd.flash_decode_attention_fw_plain(
@@ -765,13 +849,14 @@ def check_flash_decode_fw(torch, kv_name=None, shape=(H, HKV, DH),
                 + 2 * nb * h * dh) * item + (table.numel() + 3 * nb) * 4
             b_ms, b_by = bound_ms(nbytes, 4.0 * keys * h * dh, dtype_name)
             sk_k, sv_k = sk.clone(), sv.clone()
-            before = _cuda.LAUNCHES["flash_decode_fw.fp8"]
+            before = _cuda.LAUNCHES[inst8("flash_decode_fw", kv_name)]
             out, _, _ = fd.flash_decode_attention_fw(
                 q, kps[0], vps[0], table, prefix, sk_k, sv_k, fk, fv,
                 side_idx, active, **kw)
             torch.cuda.synchronize()
-            assert _cuda.LAUNCHES["flash_decode_fw.fp8"] == before + bool(
-                kv_name), "flash_decode_fw: the fp8 instance's launch count"
+            assert _cuda.LAUNCHES[inst8("flash_decode_fw", kv_name)] == \
+                before + bool(kv_name), \
+                "flash_decode_fw: the fp8 instance's launch count"
             sides_equal = torch.equal(sk_k, sk_p) and torch.equal(sv_k, sv_p)
             assert bool(torch.equal(sk_k[~wrote], sk[~wrote])), \
                 "flash_decode_fw: wrote an inactive or full-window side row"
@@ -792,8 +877,7 @@ def check_flash_decode_fw(torch, kv_name=None, shape=(H, HKV, DH),
                 + (f"; {n_sub} sub-group(s) of {gs} rows a KV head"
                    if gs * n_sub != h // hkv or n_sub > 1 else ""),
                 shape=f"{label} H{h} Hkv{hkv} Dh{dh} "
-                f"P{P} MP{MP} W{W} keys{keys}"
-                f"{' e4m3 pools' if kv_name else ''}"))
+                f"P{P} MP{MP} W{W} keys{keys}{pool_tag(kv_name)}"))
     return rows
 
 
@@ -867,7 +951,8 @@ def check_ragged(torch, kv_name=None, shape=(H, HKV, DH),
                         else (kps[0].float(), vps[0].float()))
         inst = ra.ragged_instance(dt, kv_dt)
         assert inst == ("mma" if dtype_name == "bfloat16" else "simt"), inst
-        names = (f"ragged_attention.{inst}", "ragged_attention.fp8")
+        names = (f"ragged_attention.{inst}",
+                 inst8("ragged_attention", kv_name))
         before = [_cuda.LAUNCHES[k] for k in names]
         out, _, _ = ra.ragged_attention(q, kps[0], vps[0], table, ctx, ql,
                                         fk, fv, **kw)
@@ -894,11 +979,12 @@ def check_ragged(torch, kv_name=None, shape=(H, HKV, DH),
             "ragged_attention: padding rows not zero"
         note = inst
         if kv_name:
-            # the writeback past 464: NaN bytes, byte-equal to the plain
+            # the writeback past the dtype's largest value (e4m3: 464, NaN
+            # bytes; e5m2: 61,440, +-inf), byte-equal to the plain
             # version's
             kp_o, vp_o = kps[0].clone(), vps[0].clone()
             kp_q, vp_q = kps[0].clone(), vps[0].clone()
-            big_k, big_v = fk * 300.0, fv * 300.0
+            big_k, big_v = fk * KV8[kv_name][2], fv * KV8[kv_name][2]
             ra.ragged_attention(q, kp_o, vp_o, table, ctx, ql, big_k, big_v,
                                 **kw)
             ra.ragged_attention_plain(q, kp_q, vp_q, table, ctx, ql, big_k,
@@ -906,11 +992,13 @@ def check_ragged(torch, kv_name=None, shape=(H, HKV, DH),
             torch.cuda.synchronize()
             over_equal = (torch.equal(raw_view(kp_o), raw_view(kp_q))
                           and torch.equal(raw_view(vp_o), raw_view(vp_q)))
-            n_nan = int(torch.isnan(kp_o.float()).sum())
-            assert n_nan > 0, "ragged_attention: no overflow to NaN"
+            n_over = int((~torch.isfinite(kp_o.float())).sum())
+            assert n_over > 0, "ragged_attention: no overflow"
             ok = ok and over_equal
-            note += (f"; pools byte-equal, and past 464 ({n_nan} NaN bytes "
-                     f"in K) {'byte-equal' if over_equal else 'DIFFER'}")
+            note += (f"; pools byte-equal, and past "
+                     f"{'464' if kv_name == FP8 else '61,440'} ({n_over} "
+                     f"{'NaN' if kv_name == FP8 else 'inf'} bytes in K) "
+                     f"{'byte-equal' if over_equal else 'DIFFER'}")
             del kp_o, vp_o, kp_q, vp_q
 
         def mk(i):
@@ -958,17 +1046,24 @@ def check_ragged(torch, kv_name=None, shape=(H, HKV, DH),
                          bound_by=b_by, row_rel=row_rel, note=note, tol=tol,
                          shape=f"R{r} Qmax{qmax} H{h} Hkv{hkv} Dh{dh} P{P} "
                          f"MP{MP_RAGGED} q{n_q} ctx{ctx_keys}"
-                         f"{' e4m3 pools' if kv_name else ''}"))
+                         f"{pool_tag(kv_name)}"))
     return rows
 
 
-def check_paged(torch, kv_name=None, shape=(H, HKV, DH),
-                dtypes=("bfloat16", "float32"), quick=False,
-                windows=(0, MISTRAL_WINDOW), layers=PAGED_LAYERS):
+# check_paged's cases (q dtype, window, stacked pool) at the Mistral
+# shapes: the Mistral path's call (bf16, window 4096, the stacked pool with
+# the stats), one layer's pool without a window, fp32 q (the CUDA cores);
+# scripts/paged_times.py --sweep runs every pair of them
+PAGED_CASES = (("bfloat16", MISTRAL_WINDOW, True), ("bfloat16", 0, False),
+               ("float32", MISTRAL_WINDOW, True))
+
+
+def check_paged(torch, kv_name=None, shape=(H, HKV, DH), quick=False,
+                layers=PAGED_LAYERS, cases=PAGED_CASES):
     """Paged attention at the Mistral decode shapes against its plain
-    version: windows 0 and 4096, on one layer's pool and on the stacked
-    pool (layer 5 of 32, with the flash stats), bf16 and fp32, then the
-    6,000-token slot alone (B=1, bf16, window 4096, stacked). Held per
+    version: ``cases`` (q dtype, window, stacked: one layer's pool or the
+    stacked pool, layer 5 of 32, with the flash stats), then with bf16 q
+    the 6,000-token slot alone (B=1, window 4096, stacked). Held per
     output row to max|out - ref32| / max|ref32| (ref32: the plain version
     on the same values widened to fp32) and elementwise to the dtype's
     tolerance; m and l to ``STATS_TOL`` of the fp32 plain stats. Timed on
@@ -976,9 +1071,8 @@ def check_paged(torch, kv_name=None, shape=(H, HKV, DH),
     yardstick is SDPA over the pre-gathered pages with the window mask.
     With ``kv_name`` (e4m3) the pools are e4m3 (the fp8 instance, checked
     by its launch count; no yardstick: SDPA needs an upcast first).
-    ``quick`` (the other families' instances at ``shape``): the stacked
-    pool of ``layers`` layers only, at ``windows``, the ``QUICK``
-    timing, no lone slot."""
+    ``quick`` (the other families' instances at ``shape``): the pool of
+    ``layers`` layers, the ``QUICK`` timing, no lone slot."""
     from distributed_inference_engine_tpu_torch.ops import _cuda
     from distributed_inference_engine_tpu_torch.ops import paged_attention \
         as pa
@@ -1012,11 +1106,12 @@ def check_paged(torch, kv_name=None, shape=(H, HKV, DH),
         plan = pa.paged_plan(b, h, hkv, dh, max_keys, sms, q.dtype,
                              kp.dtype)
         route = "mma" if plan.mma else "simt"
-        before = (_cuda.LAUNCHES["paged_attention.fp8"],
+        counter = inst8("paged_attention", kv_name)
+        before = (_cuda.LAUNCHES[counter],
                   _cuda.LAUNCHES[f"paged_attention.{route}"])
         got = pa.paged_attention(q, *pools, table, lens, **kw)
         torch.cuda.synchronize()
-        assert _cuda.LAUNCHES["paged_attention.fp8"] == before[0] + bool(
+        assert _cuda.LAUNCHES[counter] == before[0] + bool(
             kv_name), "paged_attention: the fp8 instance's launch count"
         assert _cuda.LAUNCHES[f"paged_attention.{route}"] == before[1] + 1, \
             f"paged_attention: the {route} route's launch count"
@@ -1119,14 +1214,15 @@ def check_paged(torch, kv_name=None, shape=(H, HKV, DH),
                    shape=f"B{b} H{h} Hkv{hkv} Dh{dh} P{P} MP{MP_PAGED} "
                    f"win{window} "
                    f"{f'L{at}/{layers}+stats' if stacked else 'layer'} "
-                   f"keys{keys}{' e4m3 pools' if kv_name else ''}")
+                   f"keys{keys}{pool_tag(kv_name)}")
         if alt:
             row["note"] = f"the {alt[0]} route {alt[1]:.4f} ms"
         if stats_rel is not None:
             row["stats_rel"] = stats_rel
         return row
 
-    for dtype_name in dtypes:
+    long_row = None
+    for dtype_name in dict.fromkeys(d for d, _, _ in cases):
         dt = getattr(torch, dtype_name)
         pool_shape = (layers * n, P, hkv * dh)
         if kv_name:
@@ -1137,8 +1233,8 @@ def check_paged(torch, kv_name=None, shape=(H, HKV, DH),
             kp = torch.randn(pool_shape, generator=g, device="cuda", dtype=dt)
             vp = torch.randn(pool_shape, generator=g, device="cuda", dtype=dt)
         q = torch.randn((B, h, dh), generator=g, device="cuda", dtype=dt)
-        for window in windows:
-            for stacked in ((True,) if quick else (False, True)):
+        for case_dtype, window, stacked in cases:
+            if case_dtype == dtype_name:
                 rows.append(one(dtype_name, q, kp, vp, table_all,
                                 PAGED_LENS, window, stacked))
         if dtype_name == "bfloat16" and not quick:
@@ -1148,14 +1244,14 @@ def check_paged(torch, kv_name=None, shape=(H, HKV, DH),
                            [PAGED_LENS[b1]], MISTRAL_WINDOW, True)
         del kp, vp
         torch.cuda.empty_cache()
-    if not quick:
+    if long_row is not None:
         rows.append(long_row)
     return rows
 
 
 # the kernels line's paged row: the Mistral path's call (bf16, stacked
-# pool, window 4096)
-PAGED_MAIN = 3
+# pool, window 4096), PAGED_CASES' first
+PAGED_MAIN = 0
 
 
 def check_gemv(torch, which: str):
@@ -1363,68 +1459,73 @@ def profile_int4_tiles(torch, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def family_kernel_rows(torch):
+def family_paged(torch, kv_name=None, shape=(H, HKV, DH),
+                 dtypes=("bfloat16", "float32"), quick=True,
+                 windows=(MISTRAL_WINDOW,)):
+    """``check_paged`` on another family's instance at ``shape``: the
+    stacked pool of ``FAMILY_PAGED_LAYERS`` layers, each of ``dtypes`` at
+    each of ``windows``, at the quick timing."""
+    return check_paged(torch, kv_name, shape=shape, quick=quick,
+                       layers=FAMILY_PAGED_LAYERS,
+                       cases=tuple((d, w, True) for d in dtypes
+                                   for w in windows))
+
+
+def family_kernel_rows(torch, groups=FAMILY_GROUPS, gemma=GEMMA_CASES):
     """The other families' attention instances against their plain
-    versions (``GROUP_SHAPES``, ``RAGGED_GROUPS``, ``GEMMA_SHAPES``): the
-    B8 case, bf16 and fp32 and e4m3 pools (bf16 q), at the quick timing;
-    rows by ``<kernel>.g<G>`` and ``paged_attention.dh256``; and paged
-    attention's two routes at ``ROUTE_SHAPES`` (``paged_attention.routes``,
-    bf16 q)."""
+    versions: each kernel at the query-head groups ``groups`` gives it
+    (``GROUP_SHAPES``), paged attention at Dh 256 (``gemma``: (shape,
+    windows) pairs), the B8 case, bf16 and fp32 and e4m3 pools (bf16 q),
+    at the quick timing; rows by ``<kernel>.g<G>`` and
+    ``paged_attention.dh256`` (scripts/paged_times.py --sweep passes every
+    group and window)."""
     results = {}
     b8 = FD_CASES[:1]
-    for g, shape in GROUP_SHAPES.items():
-        for name, check, kw in (
-                ("flash_decode", check_flash_decode, dict(cases=b8)),
-                ("flash_decode_fw", check_flash_decode_fw, dict(cases=b8)),
-                ("paged_attention", check_paged, dict(
-                    windows=(MISTRAL_WINDOW,),
-                    layers=FAMILY_PAGED_LAYERS)),
-                ("ragged_attention", check_ragged, {})):
-            if (name == "ragged_attention" and g not in RAGGED_GROUPS
-                    or name != "paged_attention" and g in PAGED_ONLY_GROUPS):
-                continue
+    checks = {"flash_decode": (check_flash_decode, dict(cases=b8)),
+              "flash_decode_fw": (check_flash_decode_fw, dict(cases=b8)),
+              "paged_attention": (family_paged, {}),
+              "ragged_attention": (check_ragged, {})}
+    for name, gs in groups.items():
+        check, kw = checks[name]
+        for g in gs:
+            shape = GROUP_SHAPES[g]
             results[f"{name}.g{g}"] = (
                 check(torch, shape=shape, quick=True, **kw)
                 + check(torch, FP8, shape=shape, dtypes=("bfloat16",),
                         quick=True, **kw))
             torch.cuda.empty_cache()
     results["paged_attention.dh256"] = [
-        row for shape in GEMMA_SHAPES for row in (
-            check_paged(torch, shape=shape, quick=True,
-                        layers=FAMILY_PAGED_LAYERS)
-            + check_paged(torch, FP8, shape=shape, dtypes=("bfloat16",),
-                          quick=True, layers=FAMILY_PAGED_LAYERS))]
-    results["paged_attention.routes"] = [
-        row for shape in ROUTE_SHAPES for row in (
-            check_paged(torch, shape=shape, dtypes=("bfloat16",), quick=True,
-                        windows=(MISTRAL_WINDOW,),
-                        layers=FAMILY_PAGED_LAYERS)
-            + check_paged(torch, FP8, shape=shape, dtypes=("bfloat16",),
-                          quick=True, windows=(MISTRAL_WINDOW,),
-                          layers=FAMILY_PAGED_LAYERS))]
+        row for shape, windows in gemma for row in (
+            family_paged(torch, shape=shape, windows=windows)
+            + family_paged(torch, FP8, shape=shape, dtypes=("bfloat16",),
+                           windows=windows))]
     torch.cuda.empty_cache()
     return results
 
 
 def note_fp8_against_bf16(results) -> None:
-    """Beside each e4m3-pool row, the bf16-pool instance's time at the
-    same case and q dtype from the same run (the ``.fp8`` lists' twins are
-    in the list without it, the families' in their own list), and the
-    ratio."""
+    """Beside each e4m3- or e5m2-pool row, the bf16-pool instance's time at
+    the same case and q dtype from the same run (the ``.fp8`` and ``.e5m2``
+    lists' twins are in the list without the suffix, the families' in
+    their own list), and the ratio."""
     for name, rows in results.items():
-        base = results.get(name.replace(".fp8", ""), []) if ".fp8" in name \
-            else rows
+        base = rows
+        for suffix, _, _ in KV8.values():
+            if f".{suffix}" in name:
+                base = results.get(name.replace(f".{suffix}", ""), [])
         for r in rows:
-            if " e4m3 pools" not in r["shape"]:
+            tag = [t for _, t, _ in KV8.values() if t in r["shape"]]
+            if not tag:
                 continue
-            shape = r["shape"].replace(" e4m3 pools", "")
+            shape = r["shape"].replace(tag[0], "")
             twin = [b for b in base if b["shape"] == shape
                     and b["dtype"] == r["dtype"]]
             if twin:
                 t = twin[0]["ms"]
                 r["bf16_ms"] = t
                 r["note"] = (r.get("note", "") + f"; bf16 pools {t:.4f} ms,"
-                             f" e4m3/bf16 {r['ms'] / t:.3f}").lstrip("; ")
+                             f" {tag[0].split()[0]}/bf16 "
+                             f"{r['ms'] / t:.3f}").lstrip("; ")
 
 
 def phase_kernels(torch, card: str):
@@ -1441,6 +1542,11 @@ def phase_kernels(torch, card: str):
         "flash_decode_fw.fp8": check_flash_decode_fw(torch, FP8),
         "ragged_attention.fp8": check_ragged(torch, FP8),
         "paged_attention.fp8": check_paged(torch, FP8),
+        # the e5m2-pool instances (A5f-e5m2) at the same shapes
+        "flash_decode.e5m2": check_flash_decode(torch, E5M2),
+        "flash_decode_fw.e5m2": check_flash_decode_fw(torch, E5M2),
+        "ragged_attention.e5m2": check_ragged(torch, E5M2),
+        "paged_attention.e5m2": check_paged(torch, E5M2),
     }
     # 128 slots: the regime where the pools' bytes dominate a layer
     results["flash_decode.b128"] = check_flash_decode(
@@ -1474,7 +1580,7 @@ def phase_kernels(torch, card: str):
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
                 f"{r['plain_ms']:.4f} ms, library "
                 + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
-                   else "none (no one call takes e4m3 K/V)")
+                   else "none (no one call takes fp8 K/V)")
                 + f"{' (' + r['note'] + ')' if 'note' in r else ''} [{card}]")
             if not r["ok"]:
                 bad.append(f"{name} {r['dtype']} {r['shape']}")
@@ -1642,10 +1748,16 @@ async def serve_waves(client, waves, name: str, stream_prompt=None):
 
 
 async def drive_worker(host, port, waves, name: str, stream_prompt=None,
-                       probe_prompt=None):
+                       probe_prompt=None, then=()):
     """``serve_waves`` on the worker CLI preloaded with model ``name``,
-    then (``probe_prompt``) that prompt's 8 greedy tokens, then the
-    worker's shutdown."""
+    then (``probe_prompt``) that prompt's 8 greedy tokens; then for each
+    model of ``then`` in turn (a model string, or a (model, waves) pair),
+    the model before it unloaded, the model loaded over ``load_model``
+    (its load-time warm-up included) and the same waves (or its own)
+    served (their outputs in ``out["then"]``); then the worker's
+    shutdown."""
+    from distributed_inference_engine_tpu_torch.cli.worker import (
+        parse_model_arg)
     from distributed_inference_engine_tpu_torch.cluster.worker import (
         WorkerClient)
     from distributed_inference_engine_tpu_torch.engine.types import (
@@ -1661,6 +1773,20 @@ async def drive_worker(host, port, waves, name: str, stream_prompt=None,
                 prompt=list(probe_prompt), max_new_tokens=8,
                 request_id="probe")])
             out["probe"] = list(r.tokens)
+        out["then"] = []
+        last = name
+        for model in then:
+            model, its_waves = (model if isinstance(model, tuple)
+                                else (model, waves))
+            cfg = parse_model_arg(model)
+            assert await client.unload_model(last) is True, last
+            receipt = await client.load_model(cfg, timeout=900.0)
+            last = cfg.name
+            nxt = await serve_waves(client, its_waves, last)
+            rounds, secs = (await client.metrics())["model_warmup"][last]
+            nxt["warmed"] = (f"warmed model {last}: {rounds} rounds in "
+                             f"{secs:.2f}s (load_s {receipt['load_s']:.2f})")
+            out["then"].append(nxt)
         await client.shutdown()
     finally:
         await client.close()
@@ -1680,11 +1806,14 @@ def free_this_process(torch) -> None:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
 
-def run_worker(model: str, waves, stream_prompt=None, probe_prompt=None):
+def run_worker(model: str, waves, stream_prompt=None, probe_prompt=None,
+               then=()):
     """Start the worker CLI with ``model`` (metadata ``warmup=1``: its
-    engine runs the serving programs at load), drive ``waves`` through it,
-    and wait for it to exit; also returns the warmup's line. This
-    process's cached device memory is freed first."""
+    engine runs the serving programs at load), drive ``waves`` through it
+    (and through each model of ``then`` in turn, loaded over RPC into the
+    same process: ``drive_worker``), and wait for it to exit; also returns
+    the warmup's line. This process's cached device memory is freed
+    first."""
     import torch
 
     free_this_process(torch)
@@ -1692,7 +1821,7 @@ def run_worker(model: str, waves, stream_prompt=None, probe_prompt=None):
     proc, host, port, lines = start_worker(model)
     try:
         out = asyncio.run(drive_worker(host, port, waves, name,
-                                       stream_prompt, probe_prompt))
+                                       stream_prompt, probe_prompt, then))
         proc.wait(timeout=120)
     finally:
         if proc.poll() is None:
@@ -1704,10 +1833,10 @@ def run_worker(model: str, waves, stream_prompt=None, probe_prompt=None):
     return out
 
 
-def decode_ms_per_step(eng, launches) -> float:
+def decode_ms_per_step(eng, launches, n_layers: int = N_LAYERS) -> float:
     """Decode chunk wall per decode step of an engine whose every chunk
     is pure decode (flash-decode launches once per layer per step)."""
-    steps = launches.get("flash_decode", 0) // N_LAYERS
+    steps = launches.get("flash_decode", 0) // n_layers
     return 1e3 * eng["decode_chunk"]["sum_s"] / max(1, steps)
 
 
@@ -2127,43 +2256,56 @@ def phase_mixed(torch, card: str):
 
 
 def phase_fp8(torch, card: str, mixed):
-    """A5f: the mixed phase's model and waves from e4m3 KV pools
-    (``kv_dtype=float8_e4m3fn``), through the worker CLI at full width and
-    depth with the load-time warmup. Both waves served; every ragged launch
-    on the fp8 instance (32 per mixed step, on the tensor cores) and every
+    """A5f and A5f-e5m2: the mixed phase's model and waves from e4m3 KV
+    pools (``kv_dtype=float8_e4m3fn``), then, in the same worker process
+    (the e4m3 model unloaded, ``load_model`` over RPC), from e5m2 pools
+    (``E5M2_MODEL``), at full width and depth with the load-time warmup.
+    For each: both waves served; every ragged launch on its fp8 (or e5m2)
+    instance (32 per mixed step, on the tensor cores) and every
     flash-decode launch too; the pools' ``hbm_bytes`` half of ``mixed``'s;
-    served tok/s and TTFT beside ``mixed``'s from this run."""
+    served tok/s and TTFT beside ``mixed``'s from this run. Returns the
+    launch counts by pool dtype."""
     wave1, wave2 = mixed_prompts()
-    out = run_worker(FP8_MODEL, [wave1, wave2])
-    results, wall, launches, eng = (out["results"], out["wall"],
-                                    out["launches"], out["eng"])
-    check_results(results[0], wave1, "fp8 wave 1")
-    check_results(results[1], wave2, "fp8 wave 2")
-    assert eng["mixed_steps"] > 0 and eng["chunked_admissions"] > 0, eng
-    assert eng["prefix_hit_admissions"] >= 1, eng
-    for k in ("ragged_attention", "flash_decode"):
-        assert launches.get(k, 0) > 0 and launches.get(f"{k}.fp8") == \
-            launches[k], f"fp8: {k} not on its fp8 instance: {launches}"
-    assert launches["ragged_attention"] == N_LAYERS * eng["mixed_steps"], \
-        (launches, eng["mixed_steps"])
-    assert launches.get("ragged_attention.mma") == \
-        launches["ragged_attention"], launches
-    half = mixed["eng"]["kv"]["hbm_bytes"]
-    assert 2 * eng["kv"]["hbm_bytes"] == half, (eng["kv"], half)
-    log(f"[fp8] {graphs_line(out)} [{card}]")
-    log(f"[fp8] {served_line(results[0] + results[1], wall)}; mixed steps "
-        f"{eng['mixed_steps']} carrying {eng['mixed_prefill_tokens']} "
-        f"prefill tokens; chunked admissions {eng['chunked_admissions']}; "
-        f"prefix-hit admissions {eng['prefix_hit_admissions']}; pools "
-        f"{eng['kv']['hbm_bytes'] / 2**30:.2f} GiB (mixed "
-        f"{half / 2**30:.2f}); launches {launches} [{card}]")
+    first = run_worker(FP8_MODEL, [wave1, wave2], then=[E5M2_MODEL])
     mixed_res = mixed["results"][0] + mixed["results"][1]
-    log(f"[fp8] beside mixed (same run): served "
-        f"{_tok_s(results[0] + results[1], wall):.1f} tok/s against "
-        f"{_tok_s(mixed_res, mixed['wall']):.1f}; TTFT p50 "
-        f"{_p50([r.ttft_s for w in results for r in w]):.3f} s against "
-        f"{_p50([r.ttft_s for r in mixed_res]):.3f} s [{card}]")
-    return wave1, launches
+    half = mixed["eng"]["kv"]["hbm_bytes"]
+    launched, served = {}, {}
+    for kv, out in zip((FP8, E5M2), [first] + first["then"]):
+        suffix = KV8[kv][0]
+        results, wall, launches, eng = (out["results"], out["wall"],
+                                        out["launches"], out["eng"])
+        check_results(results[0], wave1, f"{suffix} wave 1")
+        check_results(results[1], wave2, f"{suffix} wave 2")
+        assert eng["mixed_steps"] > 0 and eng["chunked_admissions"] > 0, eng
+        assert eng["prefix_hit_admissions"] >= 1, eng
+        for k in ("ragged_attention", "flash_decode"):
+            assert launches.get(k, 0) > 0 and launches.get(
+                f"{k}.{suffix}") == launches[k], \
+                f"{suffix}: {k} not on its {suffix} instance: {launches}"
+        assert launches["ragged_attention"] == N_LAYERS * eng[
+            "mixed_steps"], (launches, eng["mixed_steps"])
+        assert launches.get("ragged_attention.mma") == \
+            launches["ragged_attention"], launches
+        assert 2 * eng["kv"]["hbm_bytes"] == half, (eng["kv"], half)
+        every = results[0] + results[1]
+        served[suffix] = (_tok_s(every, wall),
+                          _p50([r.ttft_s for r in every]))
+        log(f"[{suffix}] {graphs_line(out)} [{card}]")
+        log(f"[{suffix}] {served_line(every, wall)}; mixed steps "
+            f"{eng['mixed_steps']} carrying {eng['mixed_prefill_tokens']} "
+            f"prefill tokens; chunked admissions "
+            f"{eng['chunked_admissions']}; prefix-hit admissions "
+            f"{eng['prefix_hit_admissions']}; pools "
+            f"{eng['kv']['hbm_bytes'] / 2**30:.2f} GiB (mixed "
+            f"{half / 2**30:.2f}); launches {launches} [{card}]")
+        launched[kv] = launches
+    log(f"[e5m2] beside mixed and fp8 (same run): served "
+        f"{served['e5m2'][0]:.1f} tok/s against mixed's "
+        f"{_tok_s(mixed_res, mixed['wall']):.1f} and fp8's "
+        f"{served['fp8'][0]:.1f}; TTFT p50 {served['e5m2'][1]:.3f} s "
+        f"against {_p50([r.ttft_s for r in mixed_res]):.3f} s and "
+        f"{served['fp8'][1]:.3f} s [{card}]")
+    return launched
 
 
 def _p50(xs) -> float:
@@ -2274,26 +2416,28 @@ def phase_fused(torch, card: str, prompts, results, mixed_wave,
         f"{launches}; teacher-forced {m} strict, {t} ties; chains equal to "
         f"the served ones: {same}/{len(out)} [{card}]")
 
-    # the fw decode configuration: a bf16 engine through the writeback
-    # kernel (a smoke, teacher-forced at the bf16 tie band)
-    out_fw, fw_launch, _, wall = pair_run(
-        torch, spec, params, prompts, "fw", card,
-        profile_share=("flash_decode_kernel",),
-        attention_impl="pallas-decode-fw")
-    assert fw_launch.get("flash_decode_fw", 0) > 0, fw_launch
-    assert fw_launch.get("flash_decode", 0) == 0, fw_launch
-    m, t = assert_greedy_parity(spec, params, prompts[5], out_fw[5].tokens,
-                                eps=eps, label="fw chain")
-    log(f"[fused] fw engine: {len(out_fw)} requests in {wall:.3f} s = "
-        f"{sum(len(r.tokens) for r in out_fw) / wall:.1f} tok/s; launches "
-        f"{fw_launch}; teacher-forced {m} strict, {t} ties [{card}]")
     # the paged-attention kernel's two routes on Llama-3-8B: the window
     # scheme with attention_impl="pallas" (the kernel over the frozen
     # prefix with stats, merged with the side window) and the per-step
     # paged decode (decode_mode="inline"); bf16 smokes at the tie band
+    done("fused: serve and fused pairs")
     spec_p = spec.replace(n_layers=CUT_LAYERS)
     params_p = init_params(spec_p,
                            torch.Generator(device="cuda").manual_seed(0))
+    # the fw decode configuration, CUT_LAYERS deep: a bf16 engine through
+    # the writeback kernel (a smoke, teacher-forced at the bf16 tie band)
+    out_fw, fw_launch, _, wall = pair_run(
+        torch, spec_p, params_p, prompts, "fw", card,
+        profile_share=("flash_decode_kernel",),
+        attention_impl="pallas-decode-fw")
+    assert fw_launch.get("flash_decode_fw", 0) > 0, fw_launch
+    assert fw_launch.get("flash_decode", 0) == 0, fw_launch
+    m, t = assert_greedy_parity(spec_p, params_p, prompts[5],
+                                out_fw[5].tokens, eps=eps, label="fw chain")
+    log(f"[fused] fw engine ({CUT_LAYERS} layers): {len(out_fw)} requests in"
+        f" {wall:.3f} s = {sum(len(r.tokens) for r in out_fw) / wall:.1f} "
+        f"tok/s; launches {fw_launch}; teacher-forced {m} strict, {t} ties "
+        f"[{card}]")
     for label, extra in (("pallas", dict(attention_impl="pallas")),
                          ("inline", dict(decode_mode="inline"))):
         out_p, launch_p, eng, wall = pair_run(
@@ -2315,15 +2459,20 @@ def phase_fused(torch, card: str, prompts, results, mixed_wave,
             f"{1e3 * eng['decode_chunk']['sum_s'] / steps:.2f} ms/step over "
             f"{steps} steps ({CUT_LAYERS} layers); launches {launch_p}; "
             f"teacher-forced {m} strict, {t} ties [{card}]")
+    done("fused: fw, paged pallas and inline pairs")
+    # the host paths at CUT_LAYERS deep: the host's work a step does not
+    # grow with the depth, the device's does
+    phase_host(torch, card, spec_p, params_p, prompts)
     del params_p
     torch.cuda.empty_cache()
+    done("fused: host")
     log(f"[fused] {mixed_pair_line(torch, spec, params, mixed_wave, card, 'bf16')}"
         f" [{card}]")
     if profile_it:
         profile_mixed(torch, spec, params, mixed_wave, card)
-    phase_host(torch, card, spec, params, prompts)
     del params
     torch.cuda.empty_cache()
+    done("fused: bf16 mixed steps")
 
     # fp32 at full width (CUT_LAYERS deep): the decode path through all
     # three kernels must match forward_train to fp32 rounding, at one slot
@@ -2470,7 +2619,8 @@ def profile_host(torch, engine, prompts, card: str, label: str,
 
 def phase_host(torch, card: str, spec, params, prompts):
     """The engine's host paths at full width (llama3-8b bf16,
-    ``decode_fused``, ``pallas-decode``, graphs on): one wave of the serve
+    ``CUT_LAYERS`` deep, ``decode_fused``, ``pallas-decode``, graphs on):
+    one wave of the serve
     prompts through sync admission, the default deferred admission (with
     the step timeline on, the default, and off), ``defer_sync``, ``stream_chunk_steps=2`` with a callback on every
     request, and ``defer_sync`` through the eager hook. The five at the
@@ -2506,8 +2656,8 @@ def phase_host(torch, card: str, spec, params, prompts):
                 assert frames[r.request_id] == r.tokens, \
                     f"host {label}: stream != result"
         m = engine.get_metrics()
-        assert launches["flash_decode"] == N_LAYERS * m["decode_steps"], \
-            (label, launches, m["decode_steps"])
+        assert launches["flash_decode"] == spec.n_layers * m[
+            "decode_steps"], (label, launches, m["decode_steps"])
         prof = profile_host(torch, engine, prompts, card, label, stream)
         runs[label] = dict(out=out, launches=launches, m=m, wall=wall,
                            prof=prof)
@@ -2786,16 +2936,18 @@ def plain_kernels():
 
 
 def decode_logits(torch, spec, params, prompt, cont, path: str,
-                  kv_dtype: str = FP8):
+                  kv_dtype: str = FP8, device: str = "cuda"):
     """fp32 logits [len(cont) + 1, V] of one decode path over pools of
-    ``kv_dtype`` (e4m3 by default, else the spec's dtype), teacher-forced: the prompt prefilled into the pages
+    ``kv_dtype`` (e4m3 by default, or e5m2; else the spec's dtype),
+    teacher-forced: the prompt prefilled into the pages
     (``forward_prefill_into_pages``, which attends to its fresh keys
     unrounded: the same bytes land whatever the attention kernels), then
     one step per token of ``cont`` through ``forward_decode_window``
     (``path`` its ``attn_impl``) or the inline ``forward_decode_paged``
     (``inline``); for ``ragged`` the first half of ``cont`` as one chunk
     row of ``forward_mixed_step`` (every position's hidden state), the
-    rest as its decode rows."""
+    rest as its decode rows. On ``device``: the card unless the caller
+    asks for the CPU."""
     import numpy as np
     from distributed_inference_engine_tpu_torch.models import base as mb
 
@@ -2803,23 +2955,23 @@ def decode_logits(torch, spec, params, prompt, cont, path: str,
     n0, steps = len(prompt), len(cont)
     L, fusedw = spec.n_layers, spec.n_kv_heads * spec.head_dim
     n_pages = -(-len(seq) // P)
-    i32 = dict(dtype=torch.int32, device="cuda")
-    kv = getattr(torch, kv_dtype) if kv_dtype == FP8 else spec.torch_dtype
+    i32 = dict(dtype=torch.int32, device=device)
+    kv = getattr(torch, kv_dtype) if kv_dtype in KV8 else spec.torch_dtype
     with torch.no_grad():
-        # zero bytes viewed in the pool dtype (no e4m3 fill kernel)
+        # zero bytes viewed in the pool dtype (no fp8 fill kernel)
         kp = torch.zeros((L, n_pages, P, fusedw * kv.itemsize),
-                         dtype=torch.uint8, device="cuda").view(kv)
+                         dtype=torch.uint8, device=device).view(kv)
         vp = torch.zeros_like(kp)
         table = np.arange(n_pages, dtype=np.int32)[None]
-        tab = torch.tensor(table, device="cuda")
+        tab = torch.tensor(table, device=device)
         h, _, _ = mb.forward_prefill_into_pages(
-            spec, params, torch.tensor([prompt], device="cuda"),
+            spec, params, torch.tensor([prompt], device=device),
             np.array([n0], np.int32), kp, vp, table)
         logits = [mb.unembed(spec, params, h[0, -1:])[0]]
         side = torch.zeros((2, L, 1, steps, spec.n_kv_heads, spec.head_dim),
-                           dtype=spec.torch_dtype, device="cuda")
+                           dtype=spec.torch_dtype, device=device)
         start = torch.tensor([n0], **i32)
-        active = torch.tensor([True], device="cuda")
+        active = torch.tensor([True], device=device)
         first = 0
         if path == "ragged":
             first = steps // 2
@@ -2848,15 +3000,15 @@ def decode_logits(torch, spec, params, prompt, cont, path: str,
 
 def kernel_vs_plain(torch, card: str, spec32, params, prompt, cont, paths,
                     tag: str, kv_dtype: str = FP8):
-    """Each decode path over ``kv_dtype`` pools (e4m3, or the spec's fp32)
-    in fp32, through the kernels and through their plain versions
+    """Each decode path over ``kv_dtype`` pools (e4m3 or e5m2, or the spec's
+    fp32) in fp32, through the kernels and through their plain versions
     (``plain_kernels``): the logits within ``FP32_LOGIT_TOL`` of each
-    other, the plain run launching no kernel, the kernel run launching
-    each path's kernel (its fp8 instance over e4m3 pools); the gap to the
-    unrounded ``forward_train`` printed beside (over e4m3 pools the
-    rounding itself, not held; over fp32 pools held to
-    ``FP32_LOGIT_TOL``). Returns the kernel runs' launch counts by
-    path."""
+    other (``E5M2_STORE_LOGIT_TOL`` at full depth over e5m2 pools on the
+    ragged and inline paths), the plain run launching no kernel, the
+    kernel run launching each path's kernel (its fp8 or e5m2 instance over
+    fp8 pools); the gap to the unrounded ``forward_train`` printed beside
+    (over fp8 pools the rounding itself, not held; over fp32 pools held to
+    ``FP32_LOGIT_TOL``). Returns the kernel runs' launch counts by path."""
     import numpy as np
     from distributed_inference_engine_tpu_torch.models import base as mb
     from distributed_inference_engine_tpu_torch.ops import _cuda
@@ -2866,7 +3018,7 @@ def kernel_vs_plain(torch, card: str, spec32, params, prompt, cont, paths,
         ref = mb.forward_train(spec32, params, torch.tensor(
             [seq], device="cuda"), np.array([len(seq)], np.int32))[0]
     ref = ref[len(prompt) - 1:]
-    fp8 = kv_dtype == FP8
+    fp8 = kv_dtype in KV8
     want = {"pallas-decode": "flash_decode",
             "pallas-decode-fw": "flash_decode_fw",
             "inline": "paged_attention",
@@ -2877,8 +3029,8 @@ def kernel_vs_plain(torch, card: str, spec32, params, prompt, cont, paths,
         got = decode_logits(torch, spec32, params, prompt, cont, path,
                             kv_dtype)
         launches = by_path[path] = _cuda.launch_counts()
-        assert launches.get(want[path] + (".fp8" if fp8 else ""), 0) > 0, \
-            (path, launches)
+        assert launches.get(inst8(want[path], kv_dtype) if fp8
+                            else want[path], 0) > 0, (path, launches)
         with plain_kernels():
             _cuda.reset_launch_counts()
             plain = decode_logits(torch, spec32, params, prompt, cont, path,
@@ -2886,46 +3038,55 @@ def kernel_vs_plain(torch, card: str, spec32, params, prompt, cont, paths,
             assert not _cuda.launch_counts(), _cuda.launch_counts()
         gap = float((got - plain).abs().max())
         drift = float((got - ref).abs().max())
-        log(f"[{'fp8' if fp8 else 'families'}] fp32 {tag} {path}, "
-            f"{'e4m3' if fp8 else 'fp32'} pools, {spec32.n_layers} layers:"
+        tol = (E5M2_STORE_LOGIT_TOL if kv_dtype == E5M2
+               and path in ("ragged", "inline")
+               and spec32.n_layers > CUT_LAYERS else FP32_LOGIT_TOL)
+        pools = KV8[kv_dtype][1].split()[0] if fp8 else "fp32"
+        log(f"[{KV8[kv_dtype][0] if fp8 else 'families'}] fp32 {tag} {path}, "
+            f"{pools} pools, {spec32.n_layers} layers:"
             f" kernels-vs-plain max|logit gap| {gap:.3e} over {len(got)} "
-            f"steps (limit {FP32_LOGIT_TOL}); vs "
-            + (f"the unrounded forward_train {drift:.3e} (the e4m3 "
+            f"steps (limit {tol}); vs "
+            + (f"the unrounded forward_train {drift:.3e} (the {pools} "
                f"rounding, not held)" if fp8 else
                f"forward_train {drift:.3e} (limit {FP32_LOGIT_TOL})")
             + f"; launches {launches} [{card}]")
-        assert gap <= FP32_LOGIT_TOL, (tag, path, gap)
+        assert gap <= tol, (tag, path, gap)
         assert fp8 or drift <= FP32_LOGIT_TOL, (tag, path, drift)
     return by_path
 
 
 def phase_fp8_inproc(torch, card: str):
-    """A5f in this process, at full width and ``CUT_LAYERS`` deep, e4m3
-    pools: the fw decode (``pallas-decode-fw``) at 8 slots over the serve
+    """A5f in this process, at full width and ``CUT_LAYERS`` deep, over
+    e4m3 and then e5m2 pools (each model's weights built once for both):
+    the fw decode (``pallas-decode-fw``) at 8 slots over the serve
     prompts and Mistral's inline decode past its window over the mistral
     prompts, graph replays against the eager hook (tokens, logprobs and
     launches bit-equal); then in fp32 (``FP32_LAYERS`` deep) the decode
     paths' teacher-forced logits through the kernels against the same
     forward through their plain versions: flash-decode, fw, the ragged
     mixed step and the inline paged decode (Llama-3-8B), and Mistral's
-    inline decode past the window. Returns the fw and Mistral runs' launch
-    counts (the fp8 instances' paths)."""
+    inline decode past the window. Returns, by pool dtype, the fw and
+    Mistral runs' launch counts (the fp8 and e5m2 instances' paths)."""
     import numpy as np
     from distributed_inference_engine_tpu_torch.models import (
         spec_for_architecture)
     from distributed_inference_engine_tpu_torch.models.base import init_params
 
     gen = torch.Generator(device="cuda")
+    launched = {kv: {} for kv in KV8}
     spec = spec_for_architecture("llama", "llama3-8b", max_seq_len=1024
                                  ).replace(n_layers=CUT_LAYERS)
     params = init_params(spec, gen.manual_seed(0))
     prompts = serve_prompts()
-    _, fw_launch, eng, _ = pair_run(
-        torch, spec, params, prompts, "fw fp8", card, exact=True,
-        attention_impl="pallas-decode-fw", kv_dtype=FP8)
-    assert fw_launch.get("flash_decode_fw.fp8") == \
-        fw_launch.get("flash_decode_fw") == CUT_LAYERS * eng["decode_steps"]\
-        > 0, (fw_launch, eng["decode_steps"])
+    for kv, (suffix, _, _) in KV8.items():
+        _, fw_launch, eng, _ = pair_run(
+            torch, spec, params, prompts, f"fw {suffix}", card, exact=True,
+            attention_impl="pallas-decode-fw", kv_dtype=kv)
+        assert fw_launch.get(f"flash_decode_fw.{suffix}") == \
+            fw_launch.get("flash_decode_fw") == \
+            CUT_LAYERS * eng["decode_steps"] > 0, \
+            (fw_launch, eng["decode_steps"])
+        launched[kv]["fw"] = fw_launch
     del params
     torch.cuda.empty_cache()
 
@@ -2934,36 +3095,41 @@ def phase_fp8_inproc(torch, card: str):
         n_layers=CUT_LAYERS)
     params = init_params(mspec, gen.manual_seed(0))
     m_wave, _ = mistral_prompts()
-    _, m_launch, eng, _ = pair_run(
-        torch, mspec, params, m_wave, "mistral fp8", card, exact=True,
-        attention_impl="pallas", max_seq_len=8192, prefill_chunk=512,
-        kv_dtype=FP8)
-    assert eng["decode_mode"] == "inline" and \
-        m_launch.get("paged_attention.fp8") == \
-        m_launch.get("paged_attention") == CUT_LAYERS * eng["decode_steps"]\
-        > 0, (m_launch, eng["decode_steps"])
+    for kv, (suffix, _, _) in KV8.items():
+        _, m_launch, eng, _ = pair_run(
+            torch, mspec, params, m_wave, f"mistral {suffix}", card,
+            exact=True, attention_impl="pallas", max_seq_len=8192,
+            prefill_chunk=512, kv_dtype=kv)
+        assert eng["decode_mode"] == "inline" and \
+            m_launch.get(f"paged_attention.{suffix}") == \
+            m_launch.get("paged_attention") == \
+            CUT_LAYERS * eng["decode_steps"] > 0, \
+            (m_launch, eng["decode_steps"])
+        launched[kv]["mistral"] = m_launch
     del params
     torch.cuda.empty_cache()
 
     rs = np.random.RandomState(17)
     spec32 = spec.replace(dtype="float32", n_layers=FP32_LAYERS)
     params = init_params(spec32, gen.manual_seed(0))
-    kernel_vs_plain(
-        torch, card, spec32, params, mixed_prompts()[0][7],
-        rs.randint(1, spec32.vocab_size, size=16).tolist(),
-        ("pallas-decode", "pallas-decode-fw", "ragged", "inline"),
-        "llama3-8b")
+    cont = rs.randint(1, spec32.vocab_size, size=16).tolist()
+    for kv in KV8:
+        kernel_vs_plain(
+            torch, card, spec32, params, mixed_prompts()[0][7], cont,
+            ("pallas-decode", "pallas-decode-fw", "ragged", "inline"),
+            "llama3-8b", kv_dtype=kv)
     del params
     torch.cuda.empty_cache()
     mspec32 = mspec.replace(dtype="float32", n_layers=FP32_LAYERS)
     params = init_params(mspec32, gen.manual_seed(0))
-    kernel_vs_plain(
-        torch, card, mspec32, params, m_wave[4],
-        rs.randint(1, MISTRAL_VOCAB, size=16).tolist(), ("inline",),
-        "mistral-7b past the window")
+    cont = rs.randint(1, MISTRAL_VOCAB, size=16).tolist()
+    for kv in KV8:
+        kernel_vs_plain(torch, card, mspec32, params, m_wave[4], cont,
+                        ("inline",), "mistral-7b past the window",
+                        kv_dtype=kv)
     del params
     torch.cuda.empty_cache()
-    return fw_launch, m_launch
+    return launched
 
 
 # ------------------------------------------------------ A9 the families
@@ -2980,9 +3146,22 @@ def family_waves(name: str):
     return [[[t % vocab for t in p] for p in wave] for wave in waves]
 
 
-def phase_family(torch, card: str, name: str):
+def phase_families(torch, card: str):
+    """The three families through one worker CLI process (``run_worker``:
+    each after the one before it is unloaded), each checked by
+    ``check_family``; returns ``check_family``'s results by name."""
+    models = {name: (FAMILIES[name][0], family_waves(name))
+              for name in FAMILIES}
+    first, *rest = FAMILIES
+    out = run_worker(*models[first], then=[models[n] for n in rest])
+    return {name: check_family(card, name, o)
+            for name, o in zip(FAMILIES, [out] + out["then"])}
+
+
+def check_family(card: str, name: str, out):
     """One family at full published width and depth through the worker
-    CLI (random bf16 weights from seed 0, ``warmup=1``): its waves served
+    CLI (random bf16 weights from seed 0, ``warmup=1``; ``out``:
+    ``serve_waves``' output): its waves served
     (none captures a graph), every result 32 tokens in the vocab. Qwen2-7B
     (mixed settings): one ragged launch per layer per mixed step, all on
     the tensor cores, at G 7 (one sub-group of 8 rows, one dead), and
@@ -2990,9 +3169,8 @@ def phase_family(torch, card: str, name: str):
     (serve's settings): one flash-decode launch per layer per decode step
     (Gemma at head_dim 256; GPT-2 on the unfused chain), no other
     attention kernel. Prints the served tok/s and TTFT p50."""
-    model, _arch, _size, layers, vocab = FAMILIES[name]
+    _model, _arch, _size, layers, vocab = FAMILIES[name]
     waves = family_waves(name)
-    out = run_worker(model, waves)
     results, wall, launches, eng = (out["results"], out["wall"],
                                     out["launches"], out["eng"])
     for i, (res, prompts) in enumerate(zip(results, waves)):
@@ -3033,13 +3211,13 @@ def phase_families_inproc(torch, card: str, served):
     """Each family rebuilt in this process (same seed and card, so the
     same draws as its worker): one served chain teacher-forced to
     ``forward_train`` at the bf16 tie band, at full depth. Then at full
-    width and ``CUT_LAYERS`` deep (GPT-2 at its 12 layers), graph replays
+    width and ``FAMILY_LAYERS`` deep (GPT-2 at its 12 layers), graph replays
     against the eager hook, tokens, launches and logprobs equal (the
     logprobs bit for bit): Qwen2-7B and Gemma-7B through the inline paged
     decode (``attention_impl=pallas``, ``decode_mode=inline``: paged
     attention at G 7 and at head_dim 256), Gemma-7B's fused decode
     (``norm_matmul`` over 1 + w, flash-decode at head_dim 256), GPT-2's
-    flash-decode. Then in fp32 (``FP32_LAYERS``
+    flash-decode. Then in fp32 (``FAMILY_FP32_LAYERS``
     deep; GPT-2 at 12) each decode path's teacher-forced logits through
     the kernels within 1e-3 of ``forward_train``'s and of the same
     forward through their plain versions. Returns the launch counts of
@@ -3069,7 +3247,7 @@ def phase_families_inproc(torch, card: str, served):
         del params
         torch.cuda.empty_cache()
 
-        cut = layers if name == "gpt2" else CUT_LAYERS
+        cut = layers if name == "gpt2" else FAMILY_LAYERS
         spec_c = spec.replace(n_layers=cut)
         params = init_params(spec_c, gen.manual_seed(0))
         prompts = serve_prompts()
@@ -3108,7 +3286,7 @@ def phase_families_inproc(torch, card: str, served):
 
         spec32 = spec.replace(dtype="float32",
                               n_layers=layers if name == "gpt2"
-                              else min(FP32_LAYERS, layers))
+                              else min(FAMILY_FP32_LAYERS, layers))
         params = init_params(spec32, gen.manual_seed(0))
         prompt = max(prompts, key=len)
         by_path = kernel_vs_plain(
@@ -3218,7 +3396,8 @@ def phase_int4_inproc(torch, card: str, wave1, served, profile_it: bool):
     """The int4 weights of phase ``int4`` rebuilt in this process (same
     seed and card, so the same draws): the served chain teacher-forced to
     ``forward_train``; ``decode_fused=True`` launching no fused GEMV; the
-    mixed steps' time; a bf16 int8 engine's times; then fp32 at full
+    mixed steps' time; a bf16 int8 engine's times (``CUT_LAYERS`` deep);
+    then fp32 at full
     width, int4 and int8 (``fp32_chains``). ``profile_it``: also the int4
     decode and mixed-step profiles."""
     from distributed_inference_engine_tpu_torch.models import (
@@ -3278,23 +3457,26 @@ def phase_int4_inproc(torch, card: str, wave1, served, profile_it: bool):
     del params
     torch.cuda.empty_cache()
 
-    # int8: the payload widened to bf16 per call, no kernel of its own. Its
+    # int8: the payload widened to bf16 per call, no kernel of its own, at
+    # CUT_LAYERS deep (an earlier path, cut for the time limit). Its
     # bf16 chains are timed, not held: two bf16 code paths differ by ~0.4
     # in a logit here (printed), more than the 0.3 tie band, so the int8
     # chains are held in fp32 below
-    params = born(spec, 8)
-    gaps = decode_logit_gap(torch, spec, params, wave1[5],
+    spec8 = spec.replace(n_layers=CUT_LAYERS)
+    params = born(spec8, 8)
+    gaps = decode_logit_gap(torch, spec8, params, wave1[5],
                             served[5].tokens[:8], fused=False)
     out, launches, eng, wall = engine_run(
-        torch, spec, params, wave1, "int8", attention_impl="pallas-decode")
+        torch, spec8, params, wave1, "int8", attention_impl="pallas-decode")
     assert not launches.get("int4_matmul"), launches
-    log(f"[int8] bf16 engine: {len(out)} requests in {wall:.3f} s = "
-        f"{sum(len(r.tokens) for r in out) / wall:.1f} tok/s; decode "
-        f"{decode_ms_per_step(eng, launches):.2f} ms/step; weights "
-        f"{param_bytes(params) / 1e9:.2f} GB; launches {launches}; bf16 "
-        f"decode-vs-forward_train max|logit gap| per step "
+    log(f"[int8] bf16 engine ({CUT_LAYERS} layers): {len(out)} requests in "
+        f"{wall:.3f} s = {sum(len(r.tokens) for r in out) / wall:.1f} "
+        f"tok/s; decode "
+        f"{decode_ms_per_step(eng, launches, CUT_LAYERS):.2f} ms/step; "
+        f"weights {param_bytes(params) / 1e9:.2f} GB; launches {launches}; "
+        f"bf16 decode-vs-forward_train max|logit gap| per step "
         f"{[round(g, 4) for g in gaps]} [{card}]")
-    log(f"[int8] {mixed_pair_line(torch, spec, params, wave1, card, 'int8', ('graph',))}"
+    log(f"[int8] {mixed_pair_line(torch, spec8, params, wave1, card, 'int8', ('graph',))}"
         f" [{card}]")
     del params
     torch.cuda.empty_cache()
@@ -3392,10 +3574,12 @@ def report_profile(prof, wall: float, steps: int, label: str,
 def profile_decode(torch, engine, prompts, card: str, label: str = "decode",
                    share_of=("flash_decode_kernel", "matmul_residual_kernel",
                              "norm_matmul_kernel")):
-    """torch.profiler over two pure-decode chunks of ``engine`` with
-    ``prompts`` all prefilled and decoding (8 slots live), the admissions,
-    the prefills and a first decode chunk (and so a graph engine's
-    captures) unprofiled; returns (ms per decode step, device-busy %)."""
+    """torch.profiler over one pure-decode chunk (8 steps: an eager chunk's
+    trace takes the profiler seconds to reduce) of ``engine`` with
+    ``prompts`` all prefilled and
+    decoding (8 slots live), the admissions, the prefills and a first
+    decode chunk (and so a graph engine's captures) unprofiled; returns
+    (ms per decode step, device-busy %)."""
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_inference_engine_tpu_torch.engine.types import (
@@ -3416,8 +3600,7 @@ def profile_decode(torch, engine, prompts, card: str, label: str = "decode",
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(2):
-            engine.step()
+        engine.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     steps = engine.get_metrics()["decode_steps"] - before
@@ -3448,7 +3631,7 @@ def pair_run(torch, spec, params, prompts, label: str, card: str,
     the chosen tokens' logprobs where they are not bit-equal; prints the
     graphs' count, capture seconds and pool bytes. ``profile_share`` (kernel
     names, or ``()``): also each engine's decode ms per step and
-    device-busy share over two profiled chunks. ``exact``: the logprobs
+    device-busy share over a profiled chunk. ``exact``: the logprobs
     must be bit-equal too. Returns the graph run's (results, launches,
     metrics, wall s)."""
     from distributed_inference_engine_tpu_torch.config import EngineConfig
@@ -3485,6 +3668,7 @@ def pair_run(torch, spec, params, prompts, label: str, card: str,
                           wall=wall, pool=pool, prof=prof)
         del engine
         torch.cuda.empty_cache()
+        done(f"pair {label} {mode}")
     e, g = runs["eager"], runs["graph"]
     for i, (a, b) in enumerate(zip(e["out"], g["out"])):
         assert a.tokens == b.tokens, (
@@ -3612,9 +3796,9 @@ def main() -> int:
                     f"({N_LAYERS}; Qwen2-7B and Gemma-7B 28) instead of "
                     f"{CUT_LAYERS}")
     args = ap.parse_args()
-    global FP32_LAYERS
+    global FP32_LAYERS, FAMILY_FP32_LAYERS
     if args.full_depth:
-        FP32_LAYERS = N_LAYERS
+        FP32_LAYERS = FAMILY_FP32_LAYERS = N_LAYERS
 
     import torch
 
@@ -3634,7 +3818,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | device {kind} x{torch.cuda.device_count()}")
-    t0 = time.perf_counter()
+    t0 = T0[0] = time.perf_counter()
     _cuda.build(verbose=True)
     rep = dict(_cuda.last_build)
     _cuda.lib()
@@ -3647,14 +3831,13 @@ def main() -> int:
     log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s "
         f"(cached={rep.get('cached')}); registers max "
         f"{max(regs) if regs else 'n/a'}, spill stores max "
-        f"{max(spills) if spills else 'n/a'}")
+        f"{max(spills) if spills else 'n/a'}; each source's nvcc ended at "
+        + ", ".join(f"{src} {sec:.1f} s" for src, sec in sorted(
+            rep.get("source_seconds", {}).items(), key=lambda x: x[1])))
     for source, pattern, key in PTXAS_REPORTS:
         report = rep.get("reports", {}).get(source)
         if report:
             log(f"[build] {ptxas_summary(report, source, pattern, key)}")
-
-    def done(phase: str) -> None:
-        log(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s")
 
     done("build")
     kern = phase_kernels(torch, card)
@@ -3666,19 +3849,17 @@ def main() -> int:
     # but for this process's kernel-phase leftovers (freed here)
     mixed_wave, mixed_launch, mixed_out = phase_mixed(torch, card)
     done("mixed")
-    _, fp8_launch = phase_fp8(torch, card, mixed_out)
+    fp8_launch = phase_fp8(torch, card, mixed_out)
     del mixed_out
-    done("fp8 worker")
+    done("fp8 and e5m2 worker")
     int4_wave, int4_served, int4_launch, probe = phase_int4(torch, card)
     done("int4 worker")
     prompts, results, serve_launch = phase_fleet(torch, card, probe)
     done("fleet (serve)")
     m_wave, m_served, mistral_launch = phase_mistral(torch, card)
     done("mistral worker")
-    fam_served = {}
-    for name in FAMILIES:
-        fam_served[name] = phase_family(torch, card, name)
-        done(f"{name} worker")
+    fam_served = phase_families(torch, card)
+    done("qwen2-7b, gemma-7b and gpt2 worker")
     fused_launch, fw_launch = phase_fused(torch, card, prompts, results,
                                           mixed_wave, args.profile)
     done("fused and host")
@@ -3687,16 +3868,17 @@ def main() -> int:
     done("int4 in process")
     phase_mistral_inproc(torch, card, m_wave, m_served)
     done("mistral in process")
-    fw8_launch, paged8_launch = phase_fp8_inproc(torch, card)
-    done("fp8 in process")
+    fp8_inproc = phase_fp8_inproc(torch, card)
+    done("fp8 and e5m2 in process")
     fam_paths = phase_families_inproc(torch, card, fam_served)
     done("families in process")
     qwen_launch = fam_served["qwen2-7b"]["launches"]
 
     jax_ops = "distributed_inference_engine_tpu/ops/"
     # kernel: (source, TPU kernel it replaces, launches on its path); the
-    # fp8 instances' paths: the fp8 worker (ragged, flash-decode), the
-    # in-process fw and Mistral runs; the other families' instances (their
+    # fp8 and e5m2 instances' paths: the fp8 phase's worker (ragged,
+    # flash-decode; e4m3, then e5m2), the in-process fw and Mistral runs
+    # over each; the other families' instances (their
     # launches under the kernel's own count on their path): the qwen2-7b
     # worker (G 7 ragged and flash-decode), its in-process fp32 fw decode
     # and inline paged decode, and gemma-7b's inline paged decode (Dh 256)
@@ -3707,38 +3889,52 @@ def main() -> int:
                         jax_ops + "fused_decode.py:120", fused_launch),
         "matmul_residual": ("csrc/fused_decode.cu",
                             jax_ops + "fused_decode.py:165", fused_launch),
-        "ragged_attention": ("csrc/ragged_attention.cu",
+        "ragged_attention": ("csrc/ragged_attention.cuh",
                              jax_ops + "ragged_attention.py:181",
                              mixed_launch),
         "flash_decode_fw": ("csrc/flash_decode.cuh",
                             jax_ops + "flash_decode.py:314", fw_launch),
         "int4_matmul": ("csrc/int4_matmul.cu",
                         jax_ops + "int4_matmul.py:240", int4_launch),
-        "paged_attention": ("csrc/paged_attention.cu",
+        "paged_attention": ("csrc/paged_attention.cuh",
                             jax_ops + "paged_attention.py:112",
                             mistral_launch),
         "flash_decode.fp8": ("csrc/flash_decode_fp8.cu",
-                             jax_ops + "flash_decode.py:246", fp8_launch),
+                             jax_ops + "flash_decode.py:246",
+                             fp8_launch[FP8]),
         "flash_decode_fw.fp8": ("csrc/flash_decode_fp8.cu",
-                                jax_ops + "flash_decode.py:314", fw8_launch),
-        "ragged_attention.fp8": ("csrc/ragged_attention.cu",
+                                jax_ops + "flash_decode.py:314",
+                                fp8_inproc[FP8]["fw"]),
+        "ragged_attention.fp8": ("csrc/ragged_attention_fp8.cu",
                                  jax_ops + "ragged_attention.py:181",
-                                 fp8_launch),
-        "paged_attention.fp8": ("csrc/paged_attention.cu",
+                                 fp8_launch[FP8]),
+        "paged_attention.fp8": ("csrc/paged_attention_fp8.cu",
                                 jax_ops + "paged_attention.py:112",
-                                paged8_launch),
+                                fp8_inproc[FP8]["mistral"]),
+        "flash_decode.e5m2": ("csrc/flash_decode_e5m2.cu",
+                              jax_ops + "flash_decode.py:246",
+                              fp8_launch[E5M2]),
+        "flash_decode_fw.e5m2": ("csrc/flash_decode_e5m2.cu",
+                                 jax_ops + "flash_decode.py:314",
+                                 fp8_inproc[E5M2]["fw"]),
+        "ragged_attention.e5m2": ("csrc/ragged_attention_fp8.cu",
+                                  jax_ops + "ragged_attention.py:181",
+                                  fp8_launch[E5M2]),
+        "paged_attention.e5m2": ("csrc/paged_attention_fp8.cu",
+                                 jax_ops + "paged_attention.py:112",
+                                 fp8_inproc[E5M2]["mistral"]),
         "flash_decode.g7": ("csrc/flash_decode.cuh",
                             jax_ops + "flash_decode.py:246", qwen_launch),
         "flash_decode_fw.g7": ("csrc/flash_decode.cuh",
                                jax_ops + "flash_decode.py:314",
                                fam_paths["qwen2-7b fw"]),
-        "ragged_attention.g7": ("csrc/ragged_attention.cu",
+        "ragged_attention.g7": ("csrc/ragged_attention.cuh",
                                 jax_ops + "ragged_attention.py:181",
                                 qwen_launch),
-        "paged_attention.g7": ("csrc/paged_attention.cu",
+        "paged_attention.g7": ("csrc/paged_attention.cuh",
                                jax_ops + "paged_attention.py:112",
                                fam_paths["qwen2-7b inline"]),
-        "paged_attention.dh256": ("csrc/paged_attention.cu",
+        "paged_attention.dh256": ("csrc/paged_attention.cuh",
                                   jax_ops + "paged_attention.py:112",
                                   fam_paths["gemma-7b inline"])}
     # representative main-path shape per kernel: bf16, and for the GEMVs
@@ -3750,6 +3946,8 @@ def main() -> int:
             "int4_matmul": INT4_MAIN, "paged_attention": PAGED_MAIN,
             "flash_decode.fp8": 0, "flash_decode_fw.fp8": 0,
             "ragged_attention.fp8": 0, "paged_attention.fp8": PAGED_MAIN,
+            "flash_decode.e5m2": 0, "flash_decode_fw.e5m2": 0,
+            "ragged_attention.e5m2": 0, "paged_attention.e5m2": PAGED_MAIN,
             "flash_decode.g7": 0, "flash_decode_fw.g7": 0,
             "ragged_attention.g7": 0, "paged_attention.g7": 0,
             "paged_attention.dh256": 0}
@@ -3769,8 +3967,9 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
-            "dtype": r["dtype"], **({"kv_dtype": FP8} if name.endswith(
-                ".fp8") else {})})
+            "dtype": r["dtype"], **{"kv_dtype": kv for kv, (suffix, _, _)
+                                    in KV8.items()
+                                    if name.endswith(f".{suffix}")}})
     for name, fam in fam_served.items():
         log(f"[{name}] served {fam['tok_s']:.1f} tok/s, TTFT p50 "
             f"{fam['ttft_p50']:.3f} s [{card}]")

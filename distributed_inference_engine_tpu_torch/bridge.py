@@ -4,8 +4,8 @@
 numpy arrays (a caller on the JAX side runs ``jax.device_get``; the port
 never sees JAX) and returns the port's parameter dict on ``device``, the
 card unless the caller asks for the CPU, like every entry point of the
-port. The layouts are the same, so this is a copy. bf16 and e4m3 (fp8 KV
-pages) arrive with the ``ml_dtypes`` numpy dtypes; they are reinterpreted
+port. The layouts are the same, so this is a copy. bf16, e4m3 and e5m2
+(fp8 KV pages) arrive with the ``ml_dtypes`` numpy dtypes; they are reinterpreted
 bit for bit through ``uint16`` and ``uint8`` without importing
 ``ml_dtypes``. A quantized leaf (any object
 with ``q``, ``s``, ``bits`` and ``pack_axis``, as ``jax.device_get`` of the
@@ -23,29 +23,33 @@ import torch
 from .models.base import ModelSpec, Params, param_shapes
 from .ops.quant import FUSED_GROUPS, QuantizedTensor
 
+# the fp8 dtypes carried as their bytes, by numpy (ml_dtypes) name
+_FP8 = {"float8_e4m3fn": torch.float8_e4m3fn,
+        "float8_e5m2": torch.float8_e5m2}
+
 
 def tensor_from_numpy(arr, device="cuda") -> torch.Tensor:
-    """numpy array (fp32, int, or ml_dtypes bf16 or e4m3) -> torch
+    """numpy array (fp32, int, or ml_dtypes bf16, e4m3 or e5m2) -> torch
     tensor, bit for bit."""
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         bits = np.ascontiguousarray(arr).view(np.uint16).view(np.int16)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
-    if arr.dtype.name == "float8_e4m3fn":
+    if arr.dtype.name in _FP8:
         bits = np.ascontiguousarray(arr).view(np.uint8)
-        return torch.from_numpy(bits.copy()).view(torch.float8_e4m3fn).to(
+        return torch.from_numpy(bits.copy()).view(_FP8[arr.dtype.name]).to(
             device)
     return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     """torch tensor -> numpy; bf16 comes back as its raw ``uint16`` bits
-    and e4m3 as its ``uint8`` bytes (compare with
+    and e4m3 or e5m2 as its ``uint8`` bytes (compare with
     ``jax_array.view(np.uint16)`` / ``.view(np.uint8)``)."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
-    if t.dtype == torch.float8_e4m3fn:
+    if t.dtype in _FP8.values():
         return t.view(torch.uint8).numpy()
     return t.numpy()
 

@@ -111,8 +111,6 @@ class EngineConfig:
         if self.decode_mode not in ("window", "inline"):
             raise ValueError(
                 f"decode_mode {self.decode_mode!r} is not 'window'|'inline'")
-        if str(self.kv_dtype) == "float8_e5m2":
-            no(f"kv_dtype={self.kv_dtype} (e5m2 KV pools)", "A5f-e5m2")
         if self.kv_offload:
             no("kv_offload (host KV tier)", "A10")
         if self.spec_async:

@@ -1,6 +1,6 @@
 // Shared helpers for the port's hand-written Hopper kernels: float
-// conversion for the storage types (fp32, bf16, and e4m3 for KV pools, with
-// JAX's rounding into it), vectorised row loads,
+// conversion for the storage types (fp32, bf16, and e4m3 or e5m2 for KV
+// pools, with JAX's rounding into them), vectorised row loads,
 // cp.async and TMA copies, tensor-core fragments, split-softmax merges and
 // cluster reductions. Every kernel accumulates in fp32 whatever its
 // storage type.
@@ -13,15 +13,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace die {
 
 // dtype codes shared with the Python wrappers (ops/_cuda.py); kFP8 (e4m3)
-// is a KV pool's only
+// and kE5M2 are a KV pool's only
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 constexpr int kFP8 = 2;
+constexpr int kE5M2 = 3;
 
 using fp8 = __nv_fp8_e4m3;
+using e5m2 = __nv_fp8_e5m2;
+
+template <typename T>
+constexpr bool kIsFp8 = sizeof(T) == 1;
+template <typename T>
+constexpr bool kIsE5m2 = std::is_same<T, e5m2>::value;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -29,6 +38,11 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
 }
 // e4m3 widens exactly (to fp16 on the hardware path, then fp32)
 __device__ __forceinline__ float to_f(fp8 x) { return static_cast<float>(x); }
+// e5m2 is the top byte of an f16: exact, infinities and NaN included
+__device__ __forceinline__ float to_f(e5m2 x) {
+  return __half2float(__ushort_as_half(
+      static_cast<unsigned short>(static_cast<unsigned short>(x.__x) << 8)));
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -40,18 +54,26 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, like astype()
 }
-// Two floats into e4m3 as JAX's astype rounds them (ops/attention.py
-// astype_kv), lo in the low byte: to nearest even, and NaN (0x7F with x's
-// sign) past 464, for +-inf and for NaN. The card's conversion
+
+// Two floats into an 8-bit pool type as JAX's astype rounds them
+// (ops/attention.py astype_kv), lo in the low byte. The card's conversion
 // (cvt.rn.satfinite, one instruction for the pair) rounds to nearest even
-// and saturates to +-448, which is JAX's answer up to 464; past it (and
-// for NaN) the byte is set to NaN, as astype_kv sets it. (The library's
-// non-saturating conversion gives the same bytes on a software path of
-// dozens of instructions a value.)
+// and saturates to the largest finite value; the rare values past it are
+// patched. e4m3: JAX's answer up to 464, and NaN (0x7F with x's sign) past
+// it, for +-inf and for NaN. e5m2: JAX's answer below 61,440, +-inf (0x7C
+// with x's sign) from it, and for an fp32 NaN 0x7E with x's sign. (The
+// library's non-saturating conversion gives the e4m3 bytes on a software
+// path of dozens of instructions a value.)
 __device__ __forceinline__ uint32_t fp8_nan_byte(float x) {
   return 0x7Fu | (signbit(x) ? 0x80u : 0u);
 }
-__device__ __forceinline__ uint32_t f32x2_to_fp8x2(float lo, float hi) {
+__device__ __forceinline__ uint32_t e5m2_over_byte(float x) {
+  return (isnan(x) ? 0x7Eu : 0x7Cu) | (signbit(x) ? 0x80u : 0u);
+}
+template <typename T8>
+__device__ __forceinline__ uint32_t f32x2_to_f8x2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t f32x2_to_f8x2<fp8>(float lo, float hi) {
   uint32_t v = __nv_cvt_float2_to_fp8x2(make_float2(lo, hi), __NV_SATFINITE,
                                         __NV_E4M3);
   if (!(fabsf(lo) <= 464.f && fabsf(hi) <= 464.f)) {   // rare: overflow
@@ -61,79 +83,124 @@ __device__ __forceinline__ uint32_t f32x2_to_fp8x2(float lo, float hi) {
   return v;
 }
 template <>
+__device__ __forceinline__ uint32_t f32x2_to_f8x2<e5m2>(float lo, float hi) {
+  uint32_t v = __nv_cvt_float2_to_fp8x2(make_float2(lo, hi), __NV_SATFINITE,
+                                        __NV_E5M2);
+  if (!(fabsf(lo) < 61440.f && fabsf(hi) < 61440.f)) {   // rare: overflow
+    if (!(fabsf(lo) < 61440.f)) v = (v & 0xff00u) | e5m2_over_byte(lo);
+    if (!(fabsf(hi) < 61440.f)) v = (v & 0x00ffu) | (e5m2_over_byte(hi) << 8);
+  }
+  return v;
+}
+template <>
 __device__ __forceinline__ fp8 from_f<fp8>(float x) {
   fp8 r;
-  r.__x = static_cast<__nv_fp8_storage_t>(f32x2_to_fp8x2(x, 0.f) & 0xffu);
+  r.__x = static_cast<__nv_fp8_storage_t>(f32x2_to_f8x2<fp8>(x, 0.f) & 0xffu);
+  return r;
+}
+template <>
+__device__ __forceinline__ e5m2 from_f<e5m2>(float x) {
+  e5m2 r;
+  r.__x =
+      static_cast<__nv_fp8_storage_t>(f32x2_to_f8x2<e5m2>(x, 0.f) & 0xffu);
   return r;
 }
 
-template <typename T>
-constexpr bool kIsFp8 = sizeof(T) == 1;
-
-// Elements a lane loads at once from a row of T: 16 bytes, but 8 e4m3
+// Elements a lane loads at once from a row of T: 16 bytes, but 8 fp8
 // values (8 bytes), so that an fp8 row spreads over as many lanes as a bf16
 // one and a lane holds as many fp32 values.
 template <typename T>
 constexpr int kVecOf = kIsFp8<T> ? 8 : 16 / static_cast<int>(sizeof(T));
 
-// Two e4m3 values (lo in the low byte) widened to two bf16 in one 32-bit
-// register, lo in the low half: exact. e4m3 -> f16x2 is one conversion
-// and exact (every e4m3 value, subnormals included, is an f16 normal or
-// zero); each f16 widens to an fp32 whose low 16 bits are zero (at most 4
-// significant bits), so its high half IS the bf16, and one byte permute
-// packs the two high halves. No rounding conversion into bf16 is left.
-// NaN bytes (0x7F, 0xFF) give f16 NaN, an fp32 NaN, and a bf16 whose
-// exponent is all ones with a non-zero mantissa: NaN.
-__device__ __forceinline__ uint32_t fp8x2_to_bf16x2(unsigned short v) {
-  const __half2 h = __half2(__nv_cvt_fp8x2_to_halfraw2(v, __NV_E4M3));
-  const float2 f = __half22float2(h);
+// Two 8-bit values (lo in the low byte) widened to two f16 in one 32-bit
+// register, lo in the low half, exactly. e4m3: one conversion (every e4m3
+// value, subnormals included, is an f16 normal or zero). e5m2: one byte
+// permute, each byte over a zero low byte (an e5m2 value is an f16's top
+// byte; +-inf and NaN come through as f16 +-inf and NaN). The fp8 paths'
+// P V takes V in f16 (common.cuh v_frags).
+template <typename T8>
+__device__ __forceinline__ uint32_t f8x2_to_f16x2(unsigned short v) {
+  if constexpr (kIsE5m2<T8>) {
+    return __byte_perm(static_cast<uint32_t>(v), 0u, 0x1404);
+  } else {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(v, __NV_E4M3);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+}
+
+// Two 8-bit values widened to two bf16 in one 32-bit register, lo in the
+// low half: exact. Each f16 of f8x2_to_f16x2 widens to an fp32 whose low
+// 16 bits are zero (at most 4 significant bits, e5m2's range inside
+// bf16's), so its high half IS the bf16, and one byte permute packs the two
+// high halves. No rounding conversion into bf16 is left. NaN bytes give f16
+// NaN, an fp32 NaN, and a bf16 whose exponent is all ones with a non-zero
+// mantissa: NaN; e5m2's infinities stay infinite.
+template <typename T8>
+__device__ __forceinline__ uint32_t f8x2_to_bf16x2(unsigned short v) {
+  const uint32_t h = f8x2_to_f16x2<T8>(v);
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
   return __byte_perm(__float_as_uint(f.x), __float_as_uint(f.y), 0x7632);
 }
 
-// Two e4m3 values widened to two f16 (lo in the low half): one exact
-// conversion. The e4m3 paths' P V takes V in f16 (common.cuh v_frags).
-__device__ __forceinline__ uint32_t fp8x2_to_f16x2(unsigned short v) {
-  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(v, __NV_E4M3);
-  return *reinterpret_cast<const uint32_t*>(&h);
+// The two 8-bit pairs of a 32-bit word: bytes 0-1 and bytes 2-3.
+template <typename T8>
+__device__ __forceinline__ uint32_t f8_lo_to_bf16x2(uint32_t w) {
+  return f8x2_to_bf16x2<T8>(static_cast<unsigned short>(w & 0xffffu));
+}
+template <typename T8>
+__device__ __forceinline__ uint32_t f8_hi_to_bf16x2(uint32_t w) {
+  return f8x2_to_bf16x2<T8>(static_cast<unsigned short>(w >> 16));
 }
 
-// The two e4m3 pairs of a 32-bit word: bytes 0-1 and bytes 2-3.
-__device__ __forceinline__ uint32_t fp8_lo_to_bf16x2(uint32_t w) {
-  return fp8x2_to_bf16x2(static_cast<unsigned short>(w & 0xffffu));
-}
-__device__ __forceinline__ uint32_t fp8_hi_to_bf16x2(uint32_t w) {
-  return fp8x2_to_bf16x2(static_cast<unsigned short>(w >> 16));
-}
-
-// Eight e4m3 values (8 bytes) widened to eight bf16 (16 bytes), exact.
-__device__ __forceinline__ uint4 fp8x8_to_bf16x8(uint2 v) {
-  return make_uint4(fp8_lo_to_bf16x2(v.x), fp8_hi_to_bf16x2(v.x),
-                    fp8_lo_to_bf16x2(v.y), fp8_hi_to_bf16x2(v.y));
+// Eight 8-bit values (8 bytes) widened to eight bf16 (16 bytes), exact.
+template <typename T8>
+__device__ __forceinline__ uint4 f8x8_to_bf16x8(uint2 v) {
+  return make_uint4(f8_lo_to_bf16x2<T8>(v.x), f8_hi_to_bf16x2<T8>(v.x),
+                    f8_lo_to_bf16x2<T8>(v.y), f8_hi_to_bf16x2<T8>(v.y));
 }
 
-// Eight bf16 values rounded to e4m3 (from_f<fp8>'s rounding) and packed
-// into 8 bytes; a bf16 widens to fp32 by a shift. One test for the eight
-// finds a magnitude past 464 (or inf, NaN): a half h of a bf16 pair is past
-// 0x43E8 (464) iff (h & 0x7FFF) + 0x3C17 reaches bit 15; then the pairs
-// take f32x2_to_fp8x2's NaN bytes.
-__device__ __forceinline__ uint2 bf16x8_to_fp8x8(uint4 v) {
+// Eight bf16 values rounded to the 8-bit type (from_f's rounding) and
+// packed into 8 bytes; a bf16 widens to fp32 by a shift. One test for the
+// eight finds a magnitude past the type's limit (or inf, NaN): a half h of
+// a bf16 pair is past L iff (h & 0x7FFF) + (0x8000 - L) reaches bit 15,
+// L = 0x43E8 (464) for e4m3 and 0x4770 (61,440) for e5m2. Then e4m3 takes
+// f32x2_to_f8x2's NaN bytes; e5m2 takes +-inf (0x7C with the sign), and
+// for a bf16 NaN of either sign 0x7F, as JAX casts bf16 (not fp32's 0x7E).
+template <typename T8>
+__device__ __forceinline__ uint2 bf16x8_to_f8x8(uint4 v) {
+  constexpr uint32_t kBias = kIsE5m2<T8> ? 0x38903890u : 0x3c173c17u;
+  constexpr __nv_fp8_interpretation_t kFmt =
+      kIsE5m2<T8> ? __NV_E5M2 : __NV_E4M3;
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
   uint32_t over = 0u;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) over |= (w[i] & 0x7fff7fffu) + 0x3c173c17u;
+  for (int i = 0; i < 4; ++i) over |= (w[i] & 0x7fff7fffu) + kBias;
   uint32_t p[4];
-  if (over & 0x80008000u) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[i] = f32x2_to_fp8x2(__uint_as_float(w[i] << 16),
-                            __uint_as_float(w[i] & 0xffff0000u));
-  } else {
+  for (int i = 0; i < 4; ++i)
+    p[i] = __nv_cvt_float2_to_fp8x2(
+        make_float2(__uint_as_float(w[i] << 16),
+                    __uint_as_float(w[i] & 0xffff0000u)),
+        __NV_SATFINITE, kFmt);
+  if (over & 0x80008000u) {   // rare: overflow, inf or NaN
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[i] = __nv_cvt_float2_to_fp8x2(
-          make_float2(__uint_as_float(w[i] << 16),
-                      __uint_as_float(w[i] & 0xffff0000u)),
-          __NV_SATFINITE, __NV_E4M3);
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (kIsE5m2<T8>) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const uint32_t h = (w[i] >> (16 * j)) & 0xffffu;
+          const uint32_t mag = h & 0x7fffu;
+          if (mag + 0x3890u >= 0x8000u) {
+            const uint32_t b =
+                mag > 0x7f80u ? 0x7Fu : (0x7Cu | ((h >> 8) & 0x80u));
+            p[i] = (p[i] & ~(0xffu << (8 * j))) | (b << (8 * j));
+          }
+        }
+      } else {
+        p[i] = f32x2_to_f8x2<T8>(__uint_as_float(w[i] << 16),
+                                 __uint_as_float(w[i] & 0xffff0000u));
+      }
+    }
   }
   return make_uint2(p[0] | (p[1] << 16), p[2] | (p[3] << 16));
 }
@@ -523,11 +590,11 @@ struct KGroup {
 
   // step u's pairs as bf16: k 2t, 2t + 1 (lo) and 2t + 8, 2t + 9 (hi)
   __device__ __forceinline__ uint32_t lo(int u) const {
-    if constexpr (kIsFp8<T>) return fp8_lo_to_bf16x2(w[u]);
+    if constexpr (kIsFp8<T>) return f8_lo_to_bf16x2<T>(w[u]);
     else return w[2 * u];
   }
   __device__ __forceinline__ uint32_t hi(int u) const {
-    if constexpr (kIsFp8<T>) return fp8_hi_to_bf16x2(w[u]);
+    if constexpr (kIsFp8<T>) return f8_hi_to_bf16x2<T>(w[u]);
     else return w[2 * u + 1];
   }
 };
@@ -581,14 +648,14 @@ __device__ __forceinline__ void v_frags(const VGroup<T, DH>& va,
     const uint32_t ab23 = __byte_perm(va.w[q], vb.w[q], 0x7362);
     const uint32_t cd01 = __byte_perm(vc.w[q], vd.w[q], 0x5140);
     const uint32_t cd23 = __byte_perm(vc.w[q], vd.w[q], 0x7362);
-    a0[0] = fp8x2_to_f16x2(static_cast<unsigned short>(ab01 & 0xffffu));
-    a0[1] = fp8x2_to_f16x2(static_cast<unsigned short>(ab01 >> 16));
-    a0[2] = fp8x2_to_f16x2(static_cast<unsigned short>(cd01 & 0xffffu));
-    a0[3] = fp8x2_to_f16x2(static_cast<unsigned short>(cd01 >> 16));
-    a1[0] = fp8x2_to_f16x2(static_cast<unsigned short>(ab23 & 0xffffu));
-    a1[1] = fp8x2_to_f16x2(static_cast<unsigned short>(ab23 >> 16));
-    a1[2] = fp8x2_to_f16x2(static_cast<unsigned short>(cd23 & 0xffffu));
-    a1[3] = fp8x2_to_f16x2(static_cast<unsigned short>(cd23 >> 16));
+    a0[0] = f8x2_to_f16x2<T>(static_cast<unsigned short>(ab01 & 0xffffu));
+    a0[1] = f8x2_to_f16x2<T>(static_cast<unsigned short>(ab01 >> 16));
+    a0[2] = f8x2_to_f16x2<T>(static_cast<unsigned short>(cd01 & 0xffffu));
+    a0[3] = f8x2_to_f16x2<T>(static_cast<unsigned short>(cd01 >> 16));
+    a1[0] = f8x2_to_f16x2<T>(static_cast<unsigned short>(ab23 & 0xffffu));
+    a1[1] = f8x2_to_f16x2<T>(static_cast<unsigned short>(ab23 >> 16));
+    a1[2] = f8x2_to_f16x2<T>(static_cast<unsigned short>(cd23 & 0xffffu));
+    a1[3] = f8x2_to_f16x2<T>(static_cast<unsigned short>(cd23 >> 16));
   } else {
     // bf16 halves (va_d, vb_d): dim d from the low halves, d + 1 high
     const int i = 2 * q;

@@ -1,11 +1,18 @@
 // Flash-decode attention and its writeback variant: the launches and the
 // C entry points. The kernels, and what they replace, are in
-// flash_decode.cuh; the e4m3-pool instances are compiled in
-// flash_decode_fp8.cu.
+// flash_decode.cuh. This file compiles the plain variant's bf16- and
+// fp32-pool instances; the writeback variant's are compiled in
+// flash_decode_fw.cu, the e4m3- and e5m2-pool instances in
+// flash_decode_fp8.cu and flash_decode_e5m2.cu.
 #include "flash_decode.cuh"
 
 namespace die {
 namespace fd {
+
+extern template cudaError_t dispatch_wide<true>(const FdArgs&, int, int, int,
+                                                int, int, cudaStream_t);
+template cudaError_t dispatch_wide<false>(const FdArgs&, int, int, int, int,
+                                          int, cudaStream_t);
 
 template <bool FW>
 int dispatch(const FdArgs& a, int h, int dh, int n_split, int q_dtype,
@@ -20,18 +27,12 @@ int dispatch(const FdArgs& a, int h, int dh, int n_split, int q_dtype,
   const int g = h / a.hkv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (q_dtype == kBF16 && kv_dtype == kBF16)
-    err = by_width<__nv_bfloat16, __nv_bfloat16, FW>(dh, g, a, n_split, st);
-  else if (q_dtype == kF32 && kv_dtype == kF32)
-    err = by_width<float, float, FW>(dh, g, a, n_split, st);
-  else if (q_dtype == kBF16 && kv_dtype == kF32)
-    err = by_width<__nv_bfloat16, float, FW>(dh, g, a, n_split, st);
-  else if (q_dtype == kF32 && kv_dtype == kBF16)
-    err = by_width<float, __nv_bfloat16, FW>(dh, g, a, n_split, st);
-  else if (kv_dtype == kFP8)
+  if (kv_dtype == kFP8)
     err = dispatch_fp8<FW>(a, dh, g, n_split, q_dtype, st);
+  else if (kv_dtype == kE5M2)
+    err = dispatch_e5m2<FW>(a, dh, g, n_split, q_dtype, st);
   else
-    err = cudaErrorInvalidValue;
+    err = dispatch_wide<FW>(a, dh, g, n_split, q_dtype, kv_dtype, st);
   return static_cast<int>(err);
 }
 
@@ -44,9 +45,9 @@ int dispatch(const FdArgs& a, int h, int dh, int n_split, int q_dtype,
 // >= mp * page_size); with n_split > 1, ws is an fp32 workspace of
 // B * H * n_split * (Dh + 2) values and counters B * Hkv * n_sub ints that
 // are 0 (and are 0 again when the launch ends), n_sub the sub-groups of a
-// KV head's H / Hkv query heads (any group: flash_decode.cuh). kv_dtype may also be e4m3
-// (kFP8). bf16 q over bf16 or e4m3 pools runs on the tensor cores, every
-// other pair on the CUDA cores. Returns the launch's cudaGetLastError() (0
+// KV head's H / Hkv query heads (any group: flash_decode.cuh). kv_dtype may
+// also be e4m3 (kFP8) or e5m2 (kE5M2). bf16 q over bf16, e4m3 or e5m2 pools
+// runs on the tensor cores, every other pair on the CUDA cores. Returns the launch's cudaGetLastError() (0
 // on success).
 extern "C" int die_flash_decode(const void* q, const void* k_pages,
                                 const void* v_pages, const int* page_table,

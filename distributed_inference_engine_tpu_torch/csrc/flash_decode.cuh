@@ -1,8 +1,8 @@
 // Flash-decode attention over a paged prefix plus the chunk's side window:
 // the kernels (the launches and C entry points are in flash_decode.cu and,
-// for e4m3 pools, flash_decode_fp8.cu). Paged attention's tensor-core route
-// (paged_attention.cu) runs the same tile ring and mma cores (fp8_block
-// over e4m3 pools) with no side window, and above 8 query rows the cores'
+// for e4m3 and e5m2 pools, flash_decode_fp8.cu and flash_decode_e5m2.cu).
+// Paged attention's tensor-core route (paged_attention.cuh) runs the same
+// tile ring and mma cores (fp8_block over fp8 pools) with no side window, and above 8 query rows the cores'
 // warp pairs (kPairs).
 //
 // Replaces the TPU kernel ops/flash_decode.py:_flash_decode_kernel of the
@@ -89,6 +89,13 @@
 //   tiles, in the same online softmax. fp32 q over e4m3 takes the
 //   CUDA-core loop, 8 values (8 bytes) a lane, the registers of its
 //   bf16-pool form.
+// - e5m2 pools (the e5m2 instances, flash_decode_e5m2.cu; the TPU kernels
+//   widen any fp8 page alike): the e4m3 design and geometry, one byte a
+//   value. Only the widening differs: an e5m2 value is an f16's top byte,
+//   so a pair widens to f16x2 by one byte permute (V for the f16 P V core)
+//   and on to bf16 through fp32 (K for the bf16 Q K^T core), exactly, with
+//   +-inf (JAX's overflow) and NaN kept: the online softmax then gives NaN
+//   or +-inf where the plain version does.
 // - Every other dtype pair (fp32 keeps the 1e-4 tolerance that TF32 would
 //   break): lane groups on CUDA cores, as in the paged kernel;
 //   LPK lanes read a key row from the staged tile with 16-byte loads, each
@@ -165,7 +172,8 @@ struct Tile {
   static_assert(kRowBytes % 16 == 0, "rows of whole 16-byte pieces");
 };
 
-// The tensor cores' e4m3 tile (fp8_block).
+// The tensor cores' fp8 tile (fp8_block; e4m3 and e5m2 alike, one byte a
+// value).
 template <int DH>
 using Tile8 = Tile<fp8, DH, true>;
 
@@ -658,9 +666,11 @@ __device__ __forceinline__ void mma_block(const FdArgs& a, const Plan& p,
   }
 }
 
-// ------------------------------------------------------------ e4m3 pools
+// ------------------------------------------------- e4m3 and e5m2 pools
 //
-// bf16 q over e4m3 pools on the tensor cores. The fragments are read
+// bf16 q over fp8 pools on the tensor cores (written for e4m3; e5m2 takes
+// the same path, only its pairs widen by byte permutes: common.cuh
+// f8x2_to_f16x2). The fragments are read
 // straight from the staged e4m3 tile and widened in registers: no bf16
 // work tile, no widening pass, no barrier of its own. A warp's 16-key
 // sub-tile is taken transposed, so that the block's (up to) 8 query rows
@@ -679,7 +689,7 @@ __device__ __forceinline__ void mma_block(const FdArgs& a, const Plan& p,
 // the output's) are common.cuh's.
 
 // One warp's 16-key sub-tile (K rows at kt, V rows at vt, `stride` bytes
-// apart; e4m3 prefix rows or bf16 side rows), keys below n_valid live,
+// apart; fp8 prefix rows or bf16 side rows), keys below n_valid live,
 // against the warp's 8 queries (Q^T in qf): the transposed online-softmax
 // step. Lane i holds queries 2 (i % 4) and + 1 (h = 0, 1): S^T of keys
 // i / 4 and i / 4 + 8; m and l of its queries (l its part, summed over the
@@ -816,13 +826,13 @@ __device__ __forceinline__ void stage_side(const FdArgs& a, const Plan& p,
 // One ring pass: the run's e4m3 tiles, then (the last run of flash-decode)
 // the side tiles, each tile's 16-key sub-tiles taken by the warps (pairs)
 // in turn; each warp (pair) leaves its states in scratch as mma_block's.
-template <int DH, int G>
+template <typename T8, int DH, int G>
 __device__ __forceinline__ void fp8_block(const FdArgs& a, const Plan& p,
                                           char* ring, float* scratch,
                                           float scale) {
-  using T8 = Tile8<DH>;
+  using TT = Tile8<DH>;
   using TS = SideTile<DH>;
-  constexpr int kSub = T8::kKeys / 16;    // sub-tiles an e4m3 tile
+  constexpr int kSub = TT::kKeys / 16;    // sub-tiles an fp8 tile
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int turn = kPairs<G> ? warp / 2 : warp;
@@ -856,14 +866,14 @@ __device__ __forceinline__ void fp8_block(const FdArgs& a, const Plan& p,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[mi][e] = 0.f;
 
-  const int n_pt = (p.n_pref + T8::kKeys - 1) / T8::kKeys;
+  const int n_pt = (p.n_pref + TT::kKeys - 1) / TT::kKeys;
   const int n_side = p.ns + (p.fresh ? 1 : 0);
   const int n_all = n_pt + (n_side + TS::kKeys - 1) / TS::kKeys;
   auto stage = [&](int tile) {
-    char* dst = ring + (tile % kStages) * T8::kStageBytes;
+    char* dst = ring + (tile % kStages) * TT::kStageBytes;
     if (tile < n_pt)
-      stage_tile<__nv_bfloat16, fp8, DH, false, T8>(a, p, dst, tile,
-                                                     p.n_pref);
+      stage_tile<__nv_bfloat16, T8, DH, false, Tile8<DH>>(a, p, dst, tile,
+                                                           p.n_pref);
     else
       stage_side<DH>(a, p, dst, tile - n_pt, n_side);
   };
@@ -878,16 +888,16 @@ __device__ __forceinline__ void fp8_block(const FdArgs& a, const Plan& p,
     cp_async_commit();
     cp_async_wait<kStages - 1>();  // tile t has landed (this thread's part)
     __syncthreads();               // ... and every thread's
-    const char* st = ring + (t % kStages) * T8::kStageBytes;
+    const char* st = ring + (t % kStages) * TT::kStageBytes;
     if (t < n_pt) {
 #pragma unroll 1
       for (int j = 0; j < kSub; ++j) {
-        const int key0 = t * T8::kKeys + 16 * j;
+        const int key0 = t * TT::kKeys + 16 * j;
         if ((t * kSub + j) % kStates<G> != turn || key0 >= p.n_pref) continue;
-        fp8_subtile<fp8, DH>(st + 16 * j * T8::kStride,
-                             st + (T8::kKeys + 16 * j) * T8::kStride,
-                             T8::kStride, p.n_pref - key0, qf, scale2, m, l,
-                             acc);
+        fp8_subtile<T8, DH>(st + 16 * j * TT::kStride,
+                            st + (TT::kKeys + 16 * j) * TT::kStride,
+                            TT::kStride, p.n_pref - key0, qf, scale2, m, l,
+                            acc);
       }
     } else if ((t - n_pt) % kStates<G> == turn) {
       fp8_subtile<__nv_bfloat16, DH>(
@@ -929,12 +939,12 @@ __device__ __forceinline__ void fp8_block(const FdArgs& a, const Plan& p,
 
 // --------------------------------------------------------------- kernel
 
-// bf16 q over bf16 or e4m3 pools takes the tensor cores; every other pair
-// the CUDA cores.
+// bf16 q over bf16, e4m3 or e5m2 pools takes the tensor cores; every
+// other pair the CUDA cores.
 template <typename TQ, typename TKV>
 constexpr bool kMma = std::is_same<TQ, __nv_bfloat16>::value &&
                       (std::is_same<TKV, __nv_bfloat16>::value ||
-                       std::is_same<TKV, fp8>::value);
+                       kIsFp8<TKV>);
 
 template <typename TQ, typename TKV, int DH, int G>
 struct Smem {
@@ -992,7 +1002,7 @@ __global__ void __launch_bounds__(kThreads,
 
   if constexpr (kMma<TQ, TKV>) {
     if constexpr (kIsFp8<TKV>)
-      fp8_block<DH, G>(a, p, ring, scratch, scale);
+      fp8_block<TKV, DH, G>(a, p, ring, scratch, scale);
     else
       mma_block<DH, G>(a, p, ring, smem + S::kQAt, scratch, scale);
   } else {
@@ -1139,12 +1149,34 @@ cudaError_t by_width(int dh, int g, const FdArgs& a, int ns,
   }
 }
 
-// The e4m3-pool instances (bf16 q on the tensor cores, fp32 q on the CUDA
-// cores), compiled apart in flash_decode_fp8.cu so that the build runs them
-// beside the other instances.
+// The bf16- and fp32-pool instances (bf16 over bf16 on the tensor cores,
+// every other pair on the CUDA cores), one variant a file: flash_decode.cu
+// compiles the plain one, flash_decode_fw.cu the writeback one, so that
+// the build runs them side by side.
+template <bool FW>
+cudaError_t dispatch_wide(const FdArgs& a, int dh, int g, int n_split,
+                          int q_dtype, int kv_dtype, cudaStream_t st) {
+  if (q_dtype == kBF16 && kv_dtype == kBF16)
+    return by_width<__nv_bfloat16, __nv_bfloat16, FW>(dh, g, a, n_split, st);
+  if (q_dtype == kF32 && kv_dtype == kF32)
+    return by_width<float, float, FW>(dh, g, a, n_split, st);
+  if (q_dtype == kBF16 && kv_dtype == kF32)
+    return by_width<__nv_bfloat16, float, FW>(dh, g, a, n_split, st);
+  if (q_dtype == kF32 && kv_dtype == kBF16)
+    return by_width<float, __nv_bfloat16, FW>(dh, g, a, n_split, st);
+  return cudaErrorInvalidValue;
+}
+
+// The e4m3- and e5m2-pool instances (bf16 q on the tensor cores, fp32 q on
+// the CUDA cores), compiled apart in flash_decode_fp8.cu and
+// flash_decode_e5m2.cu so that the build runs them beside the other
+// instances.
 template <bool FW>
 cudaError_t dispatch_fp8(const FdArgs& a, int dh, int g, int n_split,
                          int q_dtype, cudaStream_t st);
+template <bool FW>
+cudaError_t dispatch_e5m2(const FdArgs& a, int dh, int g, int n_split,
+                          int q_dtype, cudaStream_t st);
 
 }  // namespace fd
 }  // namespace die

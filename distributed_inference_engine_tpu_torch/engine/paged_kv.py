@@ -3,7 +3,7 @@
 
 - Host: free list, per-slot page lists, refcounts and the prefix index
   of full prompt pages keyed by chain hash — the JAX logic, line for line.
-- Device: pools ``[L, N, P, Hkv*Dh]`` in fp32, bf16 or e4m3 (one byte an
+- Device: pools ``[L, N, P, Hkv*Dh]`` in fp32, bf16, e4m3 or e5m2 (one byte an
   element: half bf16's, ``get_stats()["hbm_bytes"]``), written in place,
   each with one drop row after its last page (``k_rows``/``v_rows``, the
   target of masked writes: ``models/base.py:write_pages_device``), and one

@@ -18,9 +18,10 @@ and the decode chunk's page flush (``write_pages_device``) compute theirs
 on the device instead, since only the device knows which slots still
 write, and so that they run inside a CUDA graph.
 
-Pools may be e4m3 (``kv_dtype="float8_e4m3fn"``; the compute dtype stays
-fp32, bf16 or fp16). Every pool write rounds through ``astype_kv``, the
-JAX cast (overflow to NaN, where torch's saturates), and moves the bytes
+Pools may be e4m3 or e5m2 (``kv_dtype="float8_e4m3fn"`` or
+``"float8_e5m2"``; the compute dtype stays fp32, bf16 or fp16). Every pool
+write rounds through ``astype_kv``, the JAX cast (e4m3's overflow to NaN,
+where torch's saturates; e5m2's NaN bytes), and moves the bytes
 through the pools' ``uint8`` view (``raw_view``). Each path rounds where
 the JAX function does: the admission prefill attends to its fresh keys
 unrounded, the inline decode writes the fresh row and then attends to the
@@ -57,6 +58,7 @@ import torch.nn.functional as F
 
 from ..ops import _cuda
 from ..ops.attention import (
+    E5M2,
     FP8,
     astype_kv,
     causal_attention,
@@ -89,10 +91,10 @@ from ..ops.rope import apply_rope
 
 Params = Dict[str, Any]
 
-# compute dtypes; a KV pool may also be e4m3 (kv_torch_dtype)
+# compute dtypes; a KV pool may also be e4m3 or e5m2 (kv_torch_dtype)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
-_KV_DTYPES = {**_DTYPES, "float8_e4m3fn": FP8}
+_KV_DTYPES = {**_DTYPES, "float8_e4m3fn": FP8, "float8_e5m2": E5M2}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -102,11 +104,8 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def kv_torch_dtype(name: str) -> torch.dtype:
-    """A KV pool's dtype: a compute dtype or ``float8_e4m3fn``."""
-    if name == "float8_e5m2":
-        raise NotImplementedError(
-            "kv_dtype=float8_e5m2 (e5m2 KV pools) is not ported to the "
-            "PyTorch engine yet (ROADMAP.md A5f-e5m2)")
+    """A KV pool's dtype: a compute dtype, ``float8_e4m3fn`` or
+    ``float8_e5m2``."""
     if name not in _KV_DTYPES:
         raise ValueError(f"unsupported KV dtype {name!r}")
     return _KV_DTYPES[name]

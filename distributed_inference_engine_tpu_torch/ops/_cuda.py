@@ -66,12 +66,18 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("flash_decode.cu", "flash_decode_fp8.cu", "fused_decode.cu",
-           "int4_matmul.cu", "paged_attention.cu", "ragged_attention.cu")
+SOURCES = ("flash_decode.cu", "flash_decode_fw.cu", "flash_decode_fp8.cu",
+           "flash_decode_e5m2.cu", "fused_decode.cu", "int4_matmul.cu",
+           "paged_attention.cu", "paged_attention_fp8.cu",
+           "ragged_attention.cu", "ragged_attention_fp8.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
-F32, BF16, FP8 = 0, 1, 2  # dtype codes of csrc/common.cuh (FP8: pools only)
+# dtype codes of csrc/common.cuh (FP8, e4m3, and E5M2: pools only)
+F32, BF16, FP8, E5M2 = 0, 1, 2, 3
+# a KV pool's fp8 dtypes: (code, the instance's launch-count suffix)
+_POOL_FP8 = {torch.float8_e4m3fn: (FP8, "fp8"),
+             torch.float8_e5m2: (E5M2, "e5m2")}
 
 # launches per kernel: each wrapper adds one where it launches its kernel
 # (and nowhere else), so a run can show the main path went through it
@@ -274,8 +280,10 @@ def _digest() -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless a current library exists; returns its
-    path. ``last_build`` records the build seconds and, with ``verbose``,
-    each source's ``-Xptxas -v`` report (registers, spills, smem)."""
+    path. ``last_build`` records the build seconds, each source's seconds
+    (``source_seconds``: when its ``nvcc`` ended, all started together)
+    and, with ``verbose``, each source's ``-Xptxas -v`` report (registers,
+    spills, smem)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"libdie_kernels_{_digest()}.so"
     with open(BUILD_DIR / "build.lock", "w") as lock:
@@ -295,13 +303,19 @@ def build(verbose: bool = False) -> Path:
                 [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *extra, "-c",
                  str(CSRC / src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        reports = {}
-        failed = []
-        for src, p in procs:
-            out, _ = p.communicate()
-            reports[src] = out
-            if p.returncode:
-                failed.append(f"{src}:\n{out}")
+        reports, ended = {}, {}
+
+        def wait(src, p):
+            reports[src], _ = p.communicate()
+            ended[src] = time.perf_counter() - t0
+
+        waits = [threading.Thread(target=wait, args=sp) for sp in procs]
+        for t in waits:
+            t.start()
+        for t in waits:
+            t.join()
+        failed = [f"{src}:\n{reports[src]}" for src, p in procs
+                  if p.returncode]
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp = lib_path.with_suffix(".so.tmp")
@@ -314,7 +328,7 @@ def build(verbose: bool = False) -> Path:
         os.replace(tmp, lib_path)
         last_build.update(path=str(lib_path),
                           seconds=time.perf_counter() - t0, cached=False,
-                          reports=reports)
+                          reports=reports, source_seconds=ended)
     return lib_path
 
 
@@ -360,23 +374,24 @@ def lib() -> ctypes.CDLL:
 
 def dtype_code(dt: torch.dtype, pool: bool = False) -> int:
     """The kernels' code of ``dt``: fp32 or bf16 for every operand, and
-    e4m3 for a KV pool (``pool``)."""
+    e4m3 or e5m2 for a KV pool (``pool``)."""
     if dt == torch.float32:
         return F32
     if dt == torch.bfloat16:
         return BF16
-    if pool and dt == torch.float8_e4m3fn:
-        return FP8
+    if pool and dt in _POOL_FP8:
+        return _POOL_FP8[dt][0]
     raise TypeError(f"kernel takes float32 or bfloat16"
-                    f"{' (or float8_e4m3fn pools)' if pool else ''}, not {dt}")
+                    f"{' (or float8_e4m3fn, float8_e5m2 pools)' if pool else ''}"
+                    f", not {dt}")
 
 
 def pool_instance(name: str, kv_dtype: torch.dtype) -> Tuple[str, ...]:
     """The names a launch of kernel ``name`` over pools of ``kv_dtype``
     counts under: the kernel's, and ``<name>.fp8`` for its e4m3-pool
-    instance."""
-    if kv_dtype == torch.float8_e4m3fn:
-        return (name, f"{name}.fp8")
+    instance or ``<name>.e5m2`` for its e5m2-pool one."""
+    if kv_dtype in _POOL_FP8:
+        return (name, f"{name}.{_POOL_FP8[kv_dtype][1]}")
     return (name,)
 
 

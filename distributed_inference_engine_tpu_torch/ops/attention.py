@@ -19,25 +19,35 @@ import torch
 NEG_INF = -1e30   # large-but-finite: -inf rows would softmax to NaN
 
 FP8 = torch.float8_e4m3fn
+E5M2 = torch.float8_e5m2
 # the largest magnitude that rounds to a finite e4m3 value (448 + half an
 # ulp; 464 itself ties to 448)
 _FP8_LIMIT = 464.0
 
 
 def is_fp8(dt: torch.dtype) -> bool:
-    return dt == FP8
+    return dt in (FP8, E5M2)
 
 
 def astype_kv(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``x.astype(dtype)`` as JAX rounds it, for a KV pool's dtype. Into
     e4m3 that is round to nearest even, and NaN (``0x7F``, with x's sign
     bit) for a magnitude past 464, for ±inf and for NaN: torch's own cast
-    saturates those to ±448 instead. Every write into an fp8 pool, and every
-    plain version that rounds through one, takes this cast; the kernels
-    round as it does (``csrc/common.cuh`` ``from_f``)."""
+    saturates those to ±448 instead. Into e5m2 torch rounds as JAX does
+    (±inf from 61,440 up) but for NaN: JAX writes ``0x7E`` with x's sign
+    from fp32 and ``0x7F`` whatever the sign from bf16, torch ``0x7F``
+    with the sign. Every write into an fp8 pool, and every plain version
+    that rounds through one, takes this cast; the kernels round as it does
+    (``csrc/common.cuh`` ``from_f``)."""
     if not is_fp8(dtype):
         return x.to(dtype)
     bits = x.to(dtype).view(torch.uint8)
+    if dtype == E5M2:
+        if x.dtype == torch.bfloat16:
+            nan = torch.full_like(bits, 0x7F)
+        else:
+            nan = (torch.signbit(x).to(torch.uint8) << 7) | 0x7E
+        return torch.where(torch.isnan(x), nan, bits).view(dtype)
     over = ~(x.abs() <= _FP8_LIMIT)                 # NaN compares false
     nan = (torch.signbit(x).to(torch.uint8) << 7) | 0x7F
     return torch.where(over, nan, bits).view(dtype)
@@ -53,8 +63,8 @@ def raw_view(t: torch.Tensor) -> torch.Tensor:
 def upcast_kv(k: torch.Tensor, v: torch.Tensor, dt: torch.dtype
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp8 K/V widened to the query dtype at the attention boundary (the
-    JAX ``_upcast_fp8``; e4m3 is exact in bf16 and fp32). Wider K/V keeps
-    its dtype."""
+    JAX ``_upcast_fp8``; e4m3 and e5m2 are exact in bf16 and fp32). Wider
+    K/V keeps its dtype."""
     if is_fp8(k.dtype):
         return k.to(dt), v.to(dt)
     return k, v
@@ -186,6 +196,6 @@ def merge_attention(parts: Sequence[Tuple[torch.Tensor, torch.Tensor,
     return out.to(dtype or parts[0][0].dtype)
 
 
-__all__: List[str] = ["NEG_INF", "FP8", "astype_kv", "is_fp8", "raw_view",
+__all__: List[str] = ["NEG_INF", "FP8", "E5M2", "astype_kv", "is_fp8", "raw_view",
                       "upcast_kv", "causal_attention", "suffix_attention",
                       "window_decode_attention", "merge_attention"]

@@ -26,10 +26,11 @@ are never read back), one block per (slot, KV head, run); the last run also
 takes the side window. The runs' fp32 partials merge in the same launch
 (the last block of each (slot, KV head) to finish merges them), so a call
 is one device launch and counts one under the kernel's name. bf16 q over
-bf16 or e4m3 pools runs on the tensor cores, every other dtype pair on the
-CUDA cores. e4m3 pools (the fp8 instances, counted also as
-``<kernel>.fp8``) are widened in the kernel, exactly; the side window and
-the fresh row stay in q's dtype, as in JAX.
+bf16, e4m3 or e5m2 pools runs on the tensor cores, every other dtype pair
+on the CUDA cores. fp8 pools (the fp8 instances, counted also as
+``<kernel>.fp8`` for e4m3 and ``<kernel>.e5m2`` for e5m2) are widened in
+the kernel, exactly; the side window and the fresh row stay in q's dtype,
+as in JAX.
 """
 
 from __future__ import annotations

@@ -8,15 +8,15 @@ the current token); with ``window`` > 0 only ``j >= lengths[b] - window``
 too (Mistral v0.1's sliding window).
 
 ``paged_attention`` launches the hand-written CUDA kernel
-(``csrc/paged_attention.cu``, replacing the TPU kernel
+(``csrc/paged_attention.cuh``, replacing the TPU kernel
 ``ops/paged_attention.py:_paged_attn_kernel``) for a CUDA tensor and runs
 the plain version ``paged_attention_xla`` for a CPU tensor. The plain
 version also takes the stacked layer offset, which the JAX XLA path
 leaves to its callers, so that the tests hold both of the kernel's routes.
 
 The kernel has two routes, chosen by ``paged_plan`` from the dtypes and
-shapes alone. bf16 q over bf16 pools at G >= 3, and over e4m3 pools at
-every G, runs on the tensor cores: a block takes
+shapes alone. bf16 q over bf16 pools at G >= 3, and over e4m3 or e5m2
+pools at every G, runs on the tensor cores: a block takes
 up to 16 query heads of one KV head as the rows of one m16 tile, so each
 K/V tile is read once for all of them (above 16 in sub-groups of 16).
 Every other case runs on the CUDA cores, whose instances hold sub-groups
@@ -40,7 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import _cuda
-from .attention import NEG_INF, _scale, raw_view, upcast_kv
+from .attention import NEG_INF, _scale, is_fp8, raw_view, upcast_kv
 
 
 # split sizing: aim for this many blocks per SM over the whole grid, and
@@ -54,7 +54,7 @@ _CHUNK_ALIGN = 64
 # faster there, but for Dh 256 at G 1 with a window, which no registered
 # model runs: PERF.md); its runs hold at most
 # _MMA_RUN_TILES of its staged tiles (8 KB of K rows: 16 to 64 keys), since
-# a block's time is its chain of tiles (csrc/paged_attention.cu)
+# a block's time is its chain of tiles (csrc/paged_attention.cuh)
 _MMA_MIN_G = 3
 _MMA_RUN_TILES = 16
 
@@ -81,7 +81,7 @@ def subgroup(g: int) -> Tuple[int, int]:
     """(GS, n_sub) for a query-head group ``g``: the attention kernels'
     instance of GS query heads (the least of 1, 2, 4, 8 that holds ``g``,
     8 above it) and the sub-groups of GS rows a KV head's ``g`` heads
-    take (``csrc/flash_decode.cuh`` and ``csrc/paged_attention.cu``)."""
+    take (``csrc/flash_decode.cuh`` and ``csrc/paged_attention.cuh``)."""
     gs = next(s for s in (1, 2, 4, 8) if s >= min(g, 8))
     return gs, -(-g // gs)
 
@@ -157,8 +157,8 @@ def paged_plan(b: int, h: int, n_kv_heads: int, dh: int, max_keys: int,
                sms: int, q_dtype: torch.dtype, kv_dtype: torch.dtype,
                mma: Optional[bool] = None) -> PagedPlan:
     """The kernel's launch from shapes and dtypes alone. bf16 q over bf16
-    pools at G >= 3, and over e4m3 pools at every G, runs on the tensor
-    cores, one 16-row tile a KV head (the 8-row form up to G 8),
+    pools at G >= 3, and over e4m3 or e5m2 pools at every G, runs on the
+    tensor cores, one 16-row tile a KV head (the 8-row form up to G 8),
     sub-groups of 16 above G 16, in runs of at most 16 staged tiles; every
     other case on the CUDA cores in ``subgroup``'s sub-groups (bf16 pools
     at G 1 and 2 are not slower there: PERF.md).
@@ -168,7 +168,7 @@ def paged_plan(b: int, h: int, n_kv_heads: int, dh: int, max_keys: int,
     g = h // n_kv_heads
     if mma is None:
         mma = q_dtype == torch.bfloat16 and (
-            kv_dtype == torch.float8_e4m3fn
+            is_fp8(kv_dtype)
             or (kv_dtype == torch.bfloat16 and g >= _MMA_MIN_G))
     rows = (8 if g <= 8 else 16) if mma else subgroup(g)[0]
     n_sub = -(-g // rows)
@@ -261,7 +261,8 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          layer: Optional[int] = None,
                          n_pages_per_layer: int = 0):
     """The CUDA kernel: q [B, H, Dh] (bf16 or fp32), pools in bf16, fp32
-    or e4m3 (the fp8 instance, counted also as ``paged_attention.fp8``),
+    e4m3 or e5m2 (the fp8 instances, counted also as
+    ``paged_attention.fp8`` or ``paged_attention.e5m2``),
     int32 ``page_table``/``lengths`` -> out [B, H, Dh] in q's dtype, or
     (out, m, l) with ``with_stats``. Raises on what the kernel does not
     take."""

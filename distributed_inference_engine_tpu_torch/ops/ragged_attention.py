@@ -12,13 +12,14 @@ ctx_lens[r] + q_lens[r])`` of the row's pages, straddling pages through
 the table.
 
 ``ragged_attention`` launches the hand-written CUDA kernel
-(``csrc/ragged_attention.cu``, replacing the TPU kernel
+(``csrc/ragged_attention.cuh``, replacing the TPU kernel
 ``ops/ragged_attention.py:_ragged_kernel``) for a CUDA tensor and runs
 the plain version for a CPU tensor. The instance follows the dtypes
-(``ragged_instance``): bf16 q over bf16 or e4m3 pools runs the tensor
-cores (``mma``), every other pair the CUDA cores (``simt``); an e4m3 pool
-(counted also as ``ragged_attention.fp8``) takes the fresh K/V rounded
-with the JAX cast (``astype_kv``), attends to those bits and writes them.
+(``ragged_instance``): bf16 q over bf16, e4m3 or e5m2 pools runs the
+tensor cores (``mma``), every other pair the CUDA cores (``simt``); an fp8
+pool (counted also as ``ragged_attention.fp8`` for e4m3,
+``ragged_attention.e5m2`` for e5m2) takes the fresh K/V rounded with the
+JAX cast (``astype_kv``), attends to those bits and writes them.
 Any query-head group ``g = H / Hkv`` is taken, as the JAX launcher
 takes it: a tile holds ``floor(rows / g)`` queries (``ragged_group``,
 ``ragged_plan``), the rows past them dead; above 64 heads a KV head's
@@ -44,7 +45,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from . import _cuda
-from .attention import astype_kv, raw_view, suffix_attention
+from .attention import astype_kv, is_fp8, raw_view, suffix_attention
 
 
 def ragged_attention_plain(
@@ -105,17 +106,17 @@ def ragged_attention_plain(
 
 # (query, head) rows of one block, by instance, and the (row, query tile)
 # pairs and rows the tensor-core instance ranks on the card
-# (csrc/ragged_attention.cu)
+# (csrc/ragged_attention.cuh)
 ROWS_PER_BLOCK = {"mma": 128, "simt": 64}
 MMA_MAX_PAIRS, MMA_MAX_ROWS = 512, 256
 
 
 def ragged_instance(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
     """The kernel instance for these dtypes: ``mma`` (tensor cores) for
-    bf16 q over bf16 or e4m3 pools (e4m3 is exact in bf16), ``simt`` (CUDA
-    cores) for every other pair."""
-    if q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16,
-                                                  torch.float8_e4m3fn):
+    bf16 q over bf16, e4m3 or e5m2 pools (both fp8 formats are exact in
+    bf16), ``simt`` (CUDA cores) for every other pair."""
+    if q_dtype == torch.bfloat16 and (kv_dtype == torch.bfloat16
+                                      or is_fp8(kv_dtype)):
         return "mma"
     return "simt"
 

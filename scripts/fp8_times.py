@@ -1,15 +1,16 @@
-"""Time the port's attention kernels over e4m3 (fp8) pools beside their
-bf16-pool instances, on one card.
+"""Time the port's attention kernels over e4m3 and e5m2 (fp8) pools
+beside their bf16-pool instances, on one card.
 
-``chip_smoke.py`` times each e4m3 instance at the main shapes and prints
+``chip_smoke.py`` times each fp8 instance at the main shapes and prints
 the bf16 instance's time beside it. This script splits the ragged kernel's
 main lattice (8 decode rows and two prefill chunks) into a decode-only and
-a chunk-only lattice, to show which kind of item its e4m3 path (tiles
+a chunk-only lattice, to show which kind of item its fp8 path (tiles
 widened in place in shared memory) loses time on, and times
-flash-decode and its writeback form at B 8, B 1 and B 128 with bf16 and
-fp32 q. Every row is held to the plain version as in ``chip_smoke.py``
-(its checks are reused) and prints the bf16-pool time of the same case
-and q dtype from the same run, and the ratio.
+flash-decode and its writeback form at B 8, B 1 (``FD_B1``, which
+chip_smoke's default run leaves out) and B 128 with bf16 and fp32 q.
+Every row is held to the plain version as in ``chip_smoke.py`` (its
+checks are reused) and prints the bf16-pool time of the same case and q
+dtype from the same run, and the ratio.
 
     python scripts/fp8_times.py
 
@@ -28,6 +29,10 @@ REPO = Path(__file__).resolve().parent.parent
 DECODE_ROWS = ([(0, 0)] + [(100 + 240 * i, 1) for i in range(6)] + [(0, 0)]
                + [(1540, 1), (1780, 1)])
 CHUNK_ROWS = [(0, 0)] * 8 + [(0, 256), (444, 177)]
+# flash-decode's single-user decode, which chip_smoke's default run leaves
+# out: one 2,040-key slot alone (label, prefix lengths, n_side, fw side_idx,
+# fw active; 8 side rows)
+FD_B1 = [("B1", [2040], [8], [6], [1])]
 
 
 def main() -> int:
@@ -49,19 +54,23 @@ def main() -> int:
                        ("ragged chunks", CHUNK_ROWS)):
         cs.RAGGED_ROWS = rows
         res[name] = cs.check_ragged(torch, dtypes=("bfloat16",))
-        res[name + ".fp8"] = cs.check_ragged(torch, cs.FP8,
-                                             dtypes=("bfloat16",))
+        for kv, (suffix, _, _) in cs.KV8.items():
+            res[f"{name}.{suffix}"] = cs.check_ragged(torch, kv,
+                                                      dtypes=("bfloat16",))
     cs.RAGGED_ROWS = main_rows
+    b8_b1 = cs.FD_CASES + FD_B1
     for name, check, cases, dtypes in (
-            ("flash_decode", cs.check_flash_decode, cs.FD_CASES,
+            ("flash_decode", cs.check_flash_decode, b8_b1,
              ("bfloat16", "float32")),
-            ("flash_decode_fw", cs.check_flash_decode_fw, cs.FD_CASES,
+            ("flash_decode_fw", cs.check_flash_decode_fw, b8_b1,
              ("bfloat16", "float32")),
             ("flash_decode b128", cs.check_flash_decode, cs.FD_B128,
              ("bfloat16",))):
         res[name] = check(torch, cases=cases, dtypes=dtypes)
-        res[name + ".fp8"] = check(torch, cs.FP8, cases=cases, dtypes=dtypes)
-        torch.cuda.empty_cache()
+        for kv, (suffix, _, _) in cs.KV8.items():
+            res[f"{name}.{suffix}"] = check(torch, kv, cases=cases,
+                                            dtypes=dtypes)
+            torch.cuda.empty_cache()
     cs.note_fp8_against_bf16(res)
     bad = []
     for name, rows in res.items():

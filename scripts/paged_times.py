@@ -14,6 +14,17 @@ largest error against the plain version in fp32.
     python scripts/paged_times.py                 # the default plans
     python scripts/paged_times.py --routes        # G 1, 2, 4: both routes
     python scripts/paged_times.py --plans FILE    # a JSON list of cases
+    python scripts/paged_times.py --sweep         # chip_smoke's sweeps
+
+``--sweep`` runs, through ``chip_smoke.py``'s own checks (held to the
+plain versions as there), the kernel cases that its default run keeps one
+representative of: paged attention at the Mistral shapes over every case
+(q dtype, window 0 and 4096, one layer's pool and the stacked one) over
+bf16, e4m3 and e5m2 pools; the other families' instances of the four
+attention kernels at every query-head group and paged attention at Dh 256
+at both windows; and paged attention's two routes at ``ROUTE_SHAPES``.
+Each row prints as chip_smoke's kernel rows do (time, bound, plain
+version; the fp8 rows with the bf16-pool time of the same case).
 
 A case is ``{"shape": [H, Hkv, Dh], "window": 4096, "q": "bfloat16",
 "kv": "bfloat16", "plans": [[mma, rows, chunk], ...]}``. Needs a card.
@@ -76,11 +87,69 @@ def route_cases(torch, pa, sms: int):
     return cases
 
 
+# --sweep: the groups ragged attention serves, and the group paged
+# attention alone serves (Llama-3-70B's and Qwen2-72B's); paged
+# attention's two routes for bf16 q at G 1 and 2 over 8 KV heads at Dh 128
+# (its G 4 is chip_smoke's main rows) and G 2 and 4 at Dh 256 (Gemma-7B's
+# G 1 is a Dh 256 row)
+RAGGED_GROUPS = (3, 6, 7)
+PAGED_ONLY_GROUPS = (8,)
+ROUTE_SHAPES = ((8, 8, 128), (16, 8, 128), (16, 8, 256), (32, 8, 256))
+
+
+def sweep(torch, cs, card: str) -> int:
+    """``--sweep``: chip_smoke's checks over the cases its default run
+    leaves out; 1 if any row disagrees with its plain version."""
+    paged_sweep = tuple((d, w, st) for d in ("bfloat16", "float32")
+                        for w in (0, cs.MISTRAL_WINDOW)
+                        for st in (False, True))
+    family_sweep = {
+        name: tuple(g for g in cs.GROUP_SHAPES
+                    if (g in RAGGED_GROUPS if name == "ragged_attention"
+                        else name == "paged_attention"
+                        or g not in PAGED_ONLY_GROUPS))
+        for name in cs.FAMILY_GROUPS}
+    gemma_sweep = tuple((shape, (0, cs.MISTRAL_WINDOW))
+                        for shape in cs.GEMMA_SHAPES)
+    res = {"paged_attention": cs.check_paged(torch, cases=paged_sweep)}
+    for kv, (suffix, _, _) in cs.KV8.items():
+        res[f"paged_attention.{suffix}"] = cs.check_paged(
+            torch, kv, cases=paged_sweep)
+        torch.cuda.empty_cache()
+    res.update(cs.family_kernel_rows(torch, groups=family_sweep,
+                                     gemma=gemma_sweep))
+    res["paged_attention.routes"] = [
+        row for shape in ROUTE_SHAPES for row in (
+            cs.family_paged(torch, shape=shape, dtypes=("bfloat16",))
+            + cs.family_paged(torch, cs.FP8, shape=shape,
+                              dtypes=("bfloat16",)))]
+    cs.note_fp8_against_bf16(res)
+    bad = []
+    for name, rows in res.items():
+        for r in rows:
+            print(f"[paged_times] {name:24s} {r['dtype']:8s} "
+                  f"{r['shape']:60s} {'ok' if r['ok'] else 'FAIL'} "
+                  f"{r['ms']:.4f} ms ({r.get('route', '')}), bound "
+                  f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"library " + (f"{r['library_ms']:.4f} ms"
+                                 if r["library_ms"] is not None else "none")
+                  + f" ({r.get('note', '')}) [{card}]", flush=True)
+            if not r["ok"]:
+                bad.append(f"{name} {r['dtype']} {r['shape']}")
+    if bad:
+        print(f"paged_times: disagree with the plain versions: {bad}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--plans", help="a JSON file of cases")
     ap.add_argument("--routes", action="store_true",
                     help="both routes at G 1, 2 and 4 (route_cases)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="chip_smoke.py's kernel sweeps (see above)")
     args = ap.parse_args()
 
     import torch
@@ -95,7 +164,10 @@ def main() -> int:
         paged_attention as pa
 
     _cuda.lib()
-    print(cs.smi_line(), flush=True)
+    card = cs.smi_line()
+    print(card, flush=True)
+    if args.sweep:
+        return sweep(torch, cs, card)
     if args.routes:
         cases = route_cases(torch, pa, _cuda.sm_count(0))
     elif args.plans:

@@ -242,15 +242,16 @@ def _page_pressure(weights, **extra):
 
 
 def test_unported_features_raise():
-    for kw in (dict(kv_dtype="float8_e5m2"), dict(kv_offload=True),
-               dict(spec_async=True)):
+    for kw in (dict(kv_offload=True), dict(spec_async=True)):
         with pytest.raises(NotImplementedError):
             EngineConfig(**kw).check_supported()
     # the host paths are ported: defer_admission is on by default, as in
     # JAX, and so is the step timeline, at the JAX default capacity
     assert EngineConfig().defer_admission
     assert EngineConfig().timeline_capacity == 4096
-    for kw in (dict(defer_sync=True), dict(stream_chunk_steps=2),
+    # e5m2 KV pools are ported (A5f-e5m2), as e4m3 ones are
+    for kw in (dict(kv_dtype="float8_e5m2"), dict(kv_dtype="float8_e4m3fn"),
+               dict(defer_sync=True), dict(stream_chunk_steps=2),
                dict(defer_admission=False), dict(max_waiting=4),
                dict(queue_deadline_s=1.0), dict(timeline_capacity=16),
                dict(timeline_capacity=0)):

@@ -195,8 +195,6 @@ def test_engine_from_config_rejects_unported():
                    dict(metadata={**base["metadata"], "tp": 2}),
                    dict(metadata={**base["metadata"], "speculative": 2}),
                    dict(metadata={**base["metadata"], "continuous": False}),
-                   dict(metadata={**base["metadata"],
-                                  "kv_dtype": "float8_e5m2"}),
                    dict(metadata={**base["metadata"], "kv_offload": "1"}),
                    dict(metadata={**base["metadata"], "spec_async": "1"}),
                    dict(metadata={**base["metadata"], "artifact": "/a"})):
