@@ -224,7 +224,10 @@ Phases, each failing loudly (any failure exits non-zero):
    16-row instance at G 16), Gemma-7B without a window and Gemma-2B with
    one (``FAMILY_GROUPS``, ``GEMMA_CASES``); and paged attention's two
    routes for bf16 q at G 1 and 2 (Dh 128) and G 2 and 4 (Dh 256)
-   (in ``scripts/paged_times.py --sweep``). Then
+   (in ``scripts/paged_times.py --sweep``). Flash-decode and fw at G 12
+   and 16 run their 16-row instances (one sub-group a KV head, counted
+   under ``.rows16``) over bf16, e4m3 and e5m2 pools at the main timing,
+   bf16 beside SDPA (``ROWS16_GROUPS``). Then
    three models at full published width and depth through one worker
    process, each loaded once the one before it is unloaded
    (``phase_families``): ``qwen2-7b`` (28 heads over 4: G 7) with the
@@ -424,6 +427,10 @@ FAMILY_GROUPS = {"flash_decode": (7,), "flash_decode_fw": (7,),
                  "ragged_attention": (7,), "paged_attention": (7, 16)}
 GEMMA_CASES = ((GEMMA_SHAPES[0], (0,)),
                (GEMMA_SHAPES[1], (MISTRAL_WINDOW,)))
+# flash-decode's and fw's 16-row instances (one sub-group a KV head at Dh
+# 128 on the tensor cores): G 12 and 16 over bf16, e4m3 and e5m2 pools,
+# bf16 q, at the main timing, bf16 beside SDPA
+ROWS16_GROUPS = (12, 16)
 # the stacked pool of the paged instance checks: 4 layers (a Gemma-7B
 # layer's 384 pages are 0.4 GB in bf16)
 FAMILY_PAGED_LAYERS = 4
@@ -501,13 +508,14 @@ PTXAS_REPORTS = [
      r"flash_decode_kernelI(13__nv_bfloat16|f)\S*?Li(\d+)ELi(\d+)ELb([01])E",
      lambda m: (f"e5m2 pools, {'bf16' if m.group(1) != 'f' else 'fp32'} q,"
                 f" Dh {int(m.group(2)):3d}")),
-    *((src, r"ragged_mma_kernelILi(\d+)E(13__nv_bfloat16|13__nv_fp8_e4m3|"
-            r"13__nv_fp8_e5m2)",
-       lambda m: (f"tensor cores"
-                  f"{', e4m3 pools' if 'e4m3' in m.group(2) else ''}"
-                  f"{', e5m2 pools' if 'e5m2' in m.group(2) else ''}"
-                  f", Dh {int(m.group(1)):3d}"))
-      for src in ("ragged_attention.cu", "ragged_attention_fp8.cu")),
+    ("ragged_attention.cu", r"ragged_mma_kernelILi(\d+)EE",
+     lambda m: f"tensor cores, Dh {int(m.group(1)):3d}"),
+    # the warp-specialised fp8 instances: their registers at launch (the
+    # kernel's setmaxnreg then splits them between mma warps and producers)
+    ("ragged_attention_fp8.cu",
+     r"ragged_fp8_kernelILi(\d+)E13__nv_fp8_(e4m3|e5m2)",
+     lambda m: (f"tensor cores, {m.group(2)} pools, at launch, "
+                f"Dh {int(m.group(1)):3d}")),
     ("fused_decode.cu", r"(matmul_residual|norm_matmul)_kernelI"
      r"(13__nv_bfloat16|f)Li(\d)ELb([01])E",
      lambda m: (f"{m.group(1)} {'bf16' if m.group(2) != 'f' else 'fp32'}"
@@ -685,11 +693,8 @@ def check_flash_decode(torch, kv_name=None, shape=(H, HKV, DH),
     ``QUICK`` timing) serve the other families' instances."""
     from distributed_inference_engine_tpu_torch.ops import _cuda
     from distributed_inference_engine_tpu_torch.ops import flash_decode as fd
-    from distributed_inference_engine_tpu_torch.ops.paged_attention import (
-        subgroup)
 
     h, hkv, dh = shape
-    gs, n_sub = subgroup(h // hkv)
     timing, plain_timing = (QUICK, QUICK_PLAIN) if quick else ({}, MAIN_PLAIN)
     rows = []
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -698,10 +703,11 @@ def check_flash_decode(torch, kv_name=None, shape=(H, HKV, DH),
         nb = len(prefix_l)
         prefix = torch.tensor(prefix_l, **i32)
         n_side = torch.tensor(n_side_l, **i32)
-        n_split, chunk = fd.flash_decode_split(nb, hkv, P, MP,
-                                               torch.device("cuda", 0), n_sub)
         for dtype_name in dtypes:
             dt = getattr(torch, dtype_name)
+            gs, n_sub, n_split, chunk = fd.decode_plan(
+                nb, h, hkv, dh, P, MP, torch.device("cuda", 0), dt,
+                getattr(torch, kv_name) if kv_name else dt)
             tol = FP8_TOL[dtype_name] if kv_name else TOL[dtype_name]
             q, kps, vps, table, sk, sv, n_per_layer = fd_inputs(
                 torch, g, nb, dt,
@@ -734,12 +740,13 @@ def check_flash_decode(torch, kv_name=None, shape=(H, HKV, DH),
                 (2 * int(n_side.sum()) * hkv * dh + 2 * nb * h * dh) * item \
                 + (table.numel() + 2 * nb) * 4
             b_ms, b_by = bound_ms(nbytes, 4.0 * keys * h * dh, dtype_name)
-            before = _cuda.LAUNCHES[inst8("flash_decode", kv_name)]
+            names = (inst8("flash_decode", kv_name), "flash_decode.rows16")
+            before = [_cuda.LAUNCHES[k] for k in names]
             out = fd.flash_decode_attention(*args, **kw)
             torch.cuda.synchronize()
-            assert _cuda.LAUNCHES[inst8("flash_decode", kv_name)] == \
-                before + bool(kv_name), \
-                "flash_decode: the fp8 instance's launch count"
+            assert [_cuda.LAUNCHES[k] for k in names] == [
+                before[0] + bool(kv_name), before[1] + (gs == 16)], \
+                "flash_decode: the fp8 or 16-row instance's launch count"
             err = max_err(torch, out, ref)
             row_rel = fd_row_rel(torch, out, ref32)
             ok = (within(torch, out, ref, dtype_name, tol)
@@ -759,7 +766,8 @@ def check_flash_decode(torch, kv_name=None, shape=(H, HKV, DH),
                 row_rel=row_rel, n_split=n_split, chunk=chunk, tol=tol,
                 note=f"{n_split} runs of {chunk}"
                 + (f"; {n_sub} sub-group(s) of {gs} rows a KV head"
-                   if gs * n_sub != h // hkv or n_sub > 1 else ""),
+                   if gs * n_sub != h // hkv or n_sub > 1 or gs == 16
+                   else ""),
                 shape=f"{label} H{h} Hkv{hkv} Dh{dh} "
                 f"P{P} MP{MP} W{W} keys{keys}{pool_tag(kv_name)}"))
     return rows
@@ -778,11 +786,8 @@ def check_flash_decode_fw(torch, kv_name=None, shape=(H, HKV, DH),
     ``check_flash_decode``."""
     from distributed_inference_engine_tpu_torch.ops import _cuda
     from distributed_inference_engine_tpu_torch.ops import flash_decode as fd
-    from distributed_inference_engine_tpu_torch.ops.paged_attention import (
-        subgroup)
 
     h, hkv, dh = shape
-    gs, n_sub = subgroup(h // hkv)
     timing, plain_timing = (QUICK, QUICK_PLAIN) if quick else ({}, MAIN_PLAIN)
     rows = []
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -792,13 +797,14 @@ def check_flash_decode_fw(torch, kv_name=None, shape=(H, HKV, DH),
         prefix = torch.tensor(prefix_l, **i32)
         side_idx = torch.tensor(side_idx_l, **i32)
         active = torch.tensor(active_l, **i32)
-        n_split, chunk = fd.flash_decode_split(nb, hkv, P, MP,
-                                               torch.device("cuda", 0), n_sub)
         # side entries read, the fresh rows attended (and written)
         n_read = torch.clamp(side_idx, max=W)
         wrote = (active > 0) & (side_idx < W)
         for dtype_name in dtypes:
             dt = getattr(torch, dtype_name)
+            gs, n_sub, n_split, chunk = fd.decode_plan(
+                nb, h, hkv, dh, P, MP, torch.device("cuda", 0), dt,
+                getattr(torch, kv_name) if kv_name else dt)
             tol = FP8_TOL[dtype_name] if kv_name else TOL[dtype_name]
             q, kps, vps, table, sk, sv, n_per_layer = fd_inputs(
                 torch, g, nb, dt,
@@ -849,14 +855,16 @@ def check_flash_decode_fw(torch, kv_name=None, shape=(H, HKV, DH),
                 + 2 * nb * h * dh) * item + (table.numel() + 3 * nb) * 4
             b_ms, b_by = bound_ms(nbytes, 4.0 * keys * h * dh, dtype_name)
             sk_k, sv_k = sk.clone(), sv.clone()
-            before = _cuda.LAUNCHES[inst8("flash_decode_fw", kv_name)]
+            names = (inst8("flash_decode_fw", kv_name),
+                     "flash_decode_fw.rows16")
+            before = [_cuda.LAUNCHES[k] for k in names]
             out, _, _ = fd.flash_decode_attention_fw(
                 q, kps[0], vps[0], table, prefix, sk_k, sv_k, fk, fv,
                 side_idx, active, **kw)
             torch.cuda.synchronize()
-            assert _cuda.LAUNCHES[inst8("flash_decode_fw", kv_name)] == \
-                before + bool(kv_name), \
-                "flash_decode_fw: the fp8 instance's launch count"
+            assert [_cuda.LAUNCHES[k] for k in names] == [
+                before[0] + bool(kv_name), before[1] + (gs == 16)], \
+                "flash_decode_fw: the fp8 or 16-row instance's launch count"
             sides_equal = torch.equal(sk_k, sk_p) and torch.equal(sv_k, sv_p)
             assert bool(torch.equal(sk_k[~wrote], sk[~wrote])), \
                 "flash_decode_fw: wrote an inactive or full-window side row"
@@ -875,7 +883,8 @@ def check_flash_decode_fw(torch, kv_name=None, shape=(H, HKV, DH),
                 note=f"{n_split} runs of {chunk}"
                 f"{'; side rows byte-equal' if sides_equal else ''}"
                 + (f"; {n_sub} sub-group(s) of {gs} rows a KV head"
-                   if gs * n_sub != h // hkv or n_sub > 1 else ""),
+                   if gs * n_sub != h // hkv or n_sub > 1 or gs == 16
+                   else ""),
                 shape=f"{label} H{h} Hkv{hkv} Dh{dh} "
                 f"P{P} MP{MP} W{W} keys{keys}{pool_tag(kv_name)}"))
     return rows
@@ -1476,7 +1485,9 @@ def family_kernel_rows(torch, groups=FAMILY_GROUPS, gemma=GEMMA_CASES):
     versions: each kernel at the query-head groups ``groups`` gives it
     (``GROUP_SHAPES``), paged attention at Dh 256 (``gemma``: (shape,
     windows) pairs), the B8 case, bf16 and fp32 and e4m3 pools (bf16 q),
-    at the quick timing; rows by ``<kernel>.g<G>`` and
+    at the quick timing; flash-decode and fw at ``ROWS16_GROUPS`` (their
+    16-row instances) over bf16, e4m3 and e5m2 pools at the main timing;
+    rows by ``<kernel>.g<G>``, ``<kernel>.rows16.g<G>`` and
     ``paged_attention.dh256`` (scripts/paged_times.py --sweep passes every
     group and window)."""
     results = {}
@@ -1493,6 +1504,14 @@ def family_kernel_rows(torch, groups=FAMILY_GROUPS, gemma=GEMMA_CASES):
                 check(torch, shape=shape, quick=True, **kw)
                 + check(torch, FP8, shape=shape, dtypes=("bfloat16",),
                         quick=True, **kw))
+            torch.cuda.empty_cache()
+    for name in ("flash_decode", "flash_decode_fw"):
+        check, kw = checks[name]
+        for g in ROWS16_GROUPS:
+            results[f"{name}.rows16.g{g}"] = [
+                row for kv in (None, FP8, E5M2) for row in check(
+                    torch, kv, shape=GROUP_SHAPES[g], dtypes=("bfloat16",),
+                    **kw)]
             torch.cuda.empty_cache()
     results["paged_attention.dh256"] = [
         row for shape, windows in gemma for row in (

@@ -159,6 +159,16 @@ __device__ __forceinline__ uint4 f8x8_to_bf16x8(uint2 v) {
                     f8_lo_to_bf16x2<T8>(v.y), f8_hi_to_bf16x2<T8>(v.y));
 }
 
+// Eight 8-bit values (8 bytes) widened to eight f16 (16 bytes), exact.
+template <typename T8>
+__device__ __forceinline__ uint4 f8x8_to_f16x8(uint2 v) {
+  return make_uint4(
+      f8x2_to_f16x2<T8>(static_cast<unsigned short>(v.x & 0xffffu)),
+      f8x2_to_f16x2<T8>(static_cast<unsigned short>(v.x >> 16)),
+      f8x2_to_f16x2<T8>(static_cast<unsigned short>(v.y & 0xffffu)),
+      f8x2_to_f16x2<T8>(static_cast<unsigned short>(v.y >> 16)));
+}
+
 // Eight bf16 values rounded to the 8-bit type (from_f's rounding) and
 // packed into 8 bytes; a bf16 widens to fp32 by a shift. One test for the
 // eight finds a magnitude past the type's limit (or inf, NaN): a half h of
@@ -364,10 +374,12 @@ __device__ __forceinline__ void merge_state(float& m, float& l,
 // The query rows a block of the decode attention kernels (flash-decode and
 // paged attention) holds for a query-head group of g heads: the least of
 // 1, 2, 4, 8 that holds g, 8 above 8; a KV head's g heads then take
-// ceil(g / rows) blocks. ops/paged_attention.py subgroup is the same rule
-// on the host.
-inline int subgroup_rows(int g) {
-  return g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : 8;
+// ceil(g / rows) blocks. With wide (flash-decode's tensor cores at Dh 128)
+// 16 above 8: the warp pairs' 16-row instance, so that G 9-16 read each
+// K/V tile once. ops/paged_attention.py subgroup and ops/flash_decode.py
+// decode_subgroup are the same rule on the host.
+inline int subgroup_rows(int g, bool wide = false) {
+  return g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : g <= 8 || !wide ? 8 : 16;
 }
 
 // Workspace of the split-KV attention kernels: for each output row r (a

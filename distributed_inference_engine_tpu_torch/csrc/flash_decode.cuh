@@ -15,13 +15,15 @@
 //
 // Any query-head group G = H / Hkv (the TPU kernel takes any, under its
 // Hkv*Dh % 128 rule): the kernels are instances for sub-groups of GS in
-// {1, 2, 4, 8} query heads, and a KV head's G heads are cut into
-// n_sub = ceil(G / GS) sub-groups of GS rows (GS the least instance >= G
-// up to 8; 8 above it), the last one's rows past G dead: computed on
-// zeros, never stored nor merged. Qwen2-7B's G = 7 is one sub-group of 8
-// with one dead row; G = 12 two of 8 (the second half dead). The blocks
-// of one (slot, KV head) are neighbours in the grid, so their K/V tiles
-// come from L2 after the first read.
+// {1, 2, 4, 8} query heads, and 16 on the tensor cores at Dh 128 (the warp
+// pairs, kPairs); a KV head's G heads are cut into n_sub = ceil(G / GS)
+// sub-groups of GS rows (GS the least instance >= G, common.cuh
+// subgroup_rows), the last one's rows past G dead: computed on zeros,
+// never stored nor merged. Qwen2-7B's G = 7 is one sub-group of 8 with
+// one dead row; G = 12 one of 16 (four dead rows), so each K/V tile is
+// read once for all of a KV head's query heads, where two sub-groups of 8
+// read it twice (the second time from L2) and ran level with SDPA; on the
+// CUDA cores (fp32 q) G = 12 stays two sub-groups of 8.
 //
 // The writeback variant (die_flash_decode_fw) replaces the TPU kernel
 // ops/flash_decode.py:_flash_decode_fw_kernel (wrapper
@@ -519,8 +521,8 @@ __device__ __forceinline__ void simt_block(const FdArgs& a, const Plan& p,
 // ------------------------------------------------------------------ mma
 
 // Up to 8 query rows (G <= 8), a warp holds them all and the warps take
-// turns over a tile's 16-key sub-tiles. Above 8 (paged attention's 16-row
-// instance) the warps go in pairs: the two warps of a pair take the same
+// turns over a tile's 16-key sub-tiles. Above 8 (the 16-row instances of
+// paged attention and flash-decode) the warps go in pairs: the two warps of a pair take the same
 // sub-tiles, one the rows 0-7 and the other the rows 8-15, so a tile's
 // sub-tiles keep twice the warps busy and each warp's chain is the 8-row
 // one; each pair keeps one state per row (kStates of them a block).
@@ -937,6 +939,176 @@ __device__ __forceinline__ void fp8_block(const FdArgs& a, const Plan& p,
   }
 }
 
+// Four fp32 values rounded to bf16 and stored at dst (8-byte aligned).
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float a,
+                                             float b, float c, float d) {
+  *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(a, b),
+                                              pack_bf16(c, d));
+}
+
+// The end of a tensor-core block of bf16 q (paged attention's, and
+// flash-decode's 16-row instance): its kStates states of each live query
+// row (scratch[state][G][2 + DH], m in natural units) merge with weights
+// computed once a row, four elements a thread step; with one run it
+// writes out (and with kStats m and l to m_out, l_out), else the run's
+// fp32 partial (common.cuh SplitPartials, by query row), and the last run
+// of its (slot, KV head, sub-group) to arrive merges the runs with
+// SplitMerge's weights. That merge reads the partials four values a load
+// and keeps at most 16 loads of a thread in flight whatever G is: it is
+// the tail of every launch, which loads of one value each lengthen
+// fourfold at 16 rows.
+template <int DH, int G, bool kStats>
+__device__ __forceinline__ void finish_mma(const FdArgs& a, const Plan& p,
+                                           float* scratch, float* m_out,
+                                           float* l_out) {
+  constexpr int kT = kThreads;
+  constexpr int kS = kStates<G>;
+  constexpr int kStride = 2 + DH;
+  constexpr int kQ = (G * DH / 4 + kT - 1) / kT;  // 4-element steps a thread
+  constexpr int kRuns = kQ >= 16 ? 1 : 16 / kQ;   // runs a merge step loads
+  const int n_split = gridDim.y;
+  const long long row0 = p.row0;
+  const int n_q = p.gl * DH / 4;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) + row0 * DH;
+  const SplitPartials part(a.ws, static_cast<long long>(a.b) * a.hkv * a.g,
+                           n_split, DH);
+  __shared__ float wts[G][kS];  // each state's weight in its row
+  __shared__ float row_m[G], row_l[G];
+  if (threadIdx.x < p.gl) {
+    const int gi = threadIdx.x;
+    float mx = kNegInf;
+#pragma unroll
+    for (int wi = 0; wi < kS; ++wi)
+      mx = fmaxf(mx, scratch[(wi * G + gi) * kStride]);
+    float den = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kS; ++wi) {
+      const float* slot = scratch + (wi * G + gi) * kStride;
+      const float wgt = expf(slot[0] - mx);
+      wts[gi][wi] = wgt;
+      den += slot[1] * wgt;
+    }
+    row_m[gi] = mx;
+    row_l[gi] = den;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_q; i += kT) {
+    const int gi = 4 * i / DH;
+    const int d = 4 * i - gi * DH;
+    float num[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int wi = 0; wi < kS; ++wi) {
+      const float* src = scratch + (wi * G + gi) * kStride + 2 + d;
+      const float2 lo = *reinterpret_cast<const float2*>(src);
+      const float2 hi = *reinterpret_cast<const float2*>(src + 2);
+      const float wgt = wts[gi][wi];
+      num[0] += lo.x * wgt;
+      num[1] += lo.y * wgt;
+      num[2] += hi.x * wgt;
+      num[3] += hi.y * wgt;
+    }
+    if (n_split == 1) {
+      const float den = fmaxf(row_l[gi], 1e-30f);
+      store_bf16x4(out + gi * DH + d, num[0] / den, num[1] / den,
+                   num[2] / den, num[3] / den);
+    } else {
+      *reinterpret_cast<float4*>(
+          part.acc + ((row0 + gi) * n_split + p.split) * DH + d) =
+          make_float4(num[0], num[1], num[2], num[3]);
+    }
+  }
+  if (threadIdx.x < p.gl) {
+    const long long r = row0 + threadIdx.x;
+    const float mx = row_m[threadIdx.x], den = row_l[threadIdx.x];
+    if (n_split == 1) {
+      if constexpr (kStats) {
+        m_out[r] = den > 0.f ? mx : kNegInf;
+        l_out[r] = den;
+      }
+    } else {
+      part.m[r * n_split + p.split] = mx;
+      part.l[r * n_split + p.split] = den;
+    }
+  }
+  if (n_split == 1) return;
+
+  // the last run of this (slot, KV head, sub-group) to arrive merges them
+  __shared__ int last;
+  __threadfence();  // this block's partial is visible before it counts
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int arrived = atomicAdd(a.counters + blockIdx.x, 1);
+    last = arrived == n_split - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // SplitMerge's weights once a row: (m, l) of every run in one round trip
+  // (through L2: other blocks wrote them), into the free scratch
+  float* w = scratch;                 // [gl][n_split]: m_s in, weight out
+  float* ls = scratch + G * n_split;  // [gl][n_split]
+  for (int i = threadIdx.x; i < p.gl * n_split; i += kT) {
+    const long long at = row0 * n_split + i;
+    w[i] = __ldcg(part.m + at);
+    ls[i] = __ldcg(part.l + at);
+  }
+  __syncthreads();
+  if (threadIdx.x < p.gl) {
+    float* wr = w + threadIdx.x * n_split;
+    const SplitMerge mg(wr, ls + threadIdx.x * n_split, n_split);
+    for (int s = 0; s < n_split; ++s) wr[s] = mg.weight(wr[s]);
+    if constexpr (kStats) {
+      const long long r = row0 + threadIdx.x;
+      m_out[r] = mg.l > 0.f ? mg.m : kNegInf;
+      l_out[r] = mg.l;
+    }
+  }
+  __syncthreads();
+  // out = sum_s weight_s acc_s: a thread's kQ steps of four elements, kRuns
+  // runs of them loaded at once
+  float o[kQ][4];
+#pragma unroll
+  for (int j = 0; j < kQ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  const float* acc = part.acc + row0 * n_split * DH;
+  for (int s0 = 0; s0 < n_split; s0 += kRuns) {
+    float4 v[kRuns][kQ];
+#pragma unroll
+    for (int u = 0; u < kRuns; ++u)
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) {
+        const int i = threadIdx.x + j * kT;
+        const int gi = 4 * i / DH;
+        v[u][j] = s0 + u < n_split && i < n_q
+                      ? __ldcg(reinterpret_cast<const float4*>(
+                            acc + (gi * n_split + s0 + u) * DH + 4 * i -
+                            gi * DH))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+    for (int u = 0; u < kRuns; ++u)
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) {
+        const int i = threadIdx.x + j * kT;
+        const int gi = 4 * i / DH;
+        const float wt =
+            s0 + u < n_split && i < n_q ? w[gi * n_split + s0 + u] : 0.f;
+        o[j][0] += v[u][j].x * wt;
+        o[j][1] += v[u][j].y * wt;
+        o[j][2] += v[u][j].z * wt;
+        o[j][3] += v[u][j].w * wt;
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    const int i = threadIdx.x + j * kT;
+    if (i < n_q)
+      store_bf16x4(out + 4 * i, o[j][0], o[j][1], o[j][2], o[j][3]);
+  }
+  if (threadIdx.x == 0) a.counters[blockIdx.x] = 0;  // ready for next call
+}
+
 // --------------------------------------------------------------- kernel
 
 // bf16 q over bf16, e4m3 or e5m2 pools takes the tensor cores; every
@@ -1009,9 +1181,14 @@ __global__ void __launch_bounds__(kThreads,
     simt_block<TQ, TKV, DH, G, FW>(a, p, ring, scratch, scale);
   }
   __syncthreads();
+  if constexpr (kPairs<G>) {
+    // the 16-row instance ends as paged attention's blocks do
+    finish_mma<DH, G, false>(a, p, scratch, nullptr, nullptr);
+    return;
+  }
 
-  // merge the warps: one (m, l, acc) per live query head of this run;
-  // the partials are kept by query row ([B * H] rows)
+  // merge the warps' (pairs') states: one (m, l, acc) per live query head
+  // of this run; the partials are kept by query row ([B * H] rows)
   const int n_split = gridDim.y;
   TQ* out = static_cast<TQ*>(a.out);
   const SplitPartials part(a.ws, static_cast<long long>(a.b) * a.hkv * a.g,
@@ -1021,11 +1198,11 @@ __global__ void __launch_bounds__(kThreads,
     const int d = idx - gi * DH;
     float mx = kNegInf;
 #pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi)
+    for (int wi = 0; wi < kStates<G>; ++wi)
       mx = fmaxf(mx, scratch[(wi * G + gi) * (2 + DH)]);
     float den = 0.f, num = 0.f;
 #pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) {
+    for (int wi = 0; wi < kStates<G>; ++wi) {
       const float* slot = scratch + (wi * G + gi) * (2 + DH);
       const float wgt = expf(slot[0] - mx);
       den += slot[1] * wgt;
@@ -1122,18 +1299,29 @@ cudaError_t launch(const FdArgs& a, int n_split, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The tensor cores' 16-row instance (the warp pairs of mma_tile and
+// fp8_block) is built at Dh 128 alone, the head width of every query-head
+// group above 8 that is run (PERF.md's G 12 and 16 at Hkv 4); elsewhere
+// such a group takes sub-groups of 8.
+template <typename TQ, typename TKV, int DH>
+constexpr bool kRows16 = kMma<TQ, TKV> && DH == 128;
+
 template <typename TQ, typename TKV, int DH, bool FW>
 cudaError_t by_group(int g, const FdArgs& args, int ns, cudaStream_t st) {
   if (g < 1) return cudaErrorInvalidValue;
   FdArgs a = args;
-  const int gs = subgroup_rows(g);
+  const int gs = subgroup_rows(g, kRows16<TQ, TKV, DH>);
   a.g = g;
   a.n_sub = (g + gs - 1) / gs;
   switch (gs) {
     case 1: return launch<TQ, TKV, DH, 1, FW>(a, ns, st);
     case 2: return launch<TQ, TKV, DH, 2, FW>(a, ns, st);
     case 4: return launch<TQ, TKV, DH, 4, FW>(a, ns, st);
-    default: return launch<TQ, TKV, DH, 8, FW>(a, ns, st);
+    case 8: return launch<TQ, TKV, DH, 8, FW>(a, ns, st);
+    default:
+      if constexpr (kRows16<TQ, TKV, DH>)
+        return launch<TQ, TKV, DH, 16, FW>(a, ns, st);
+      return cudaErrorInvalidValue;
   }
 }
 

@@ -48,7 +48,8 @@
 //   is its chain of tiles: ring wait, two barriers, one sub-tile's mma and
 //   softmax). The runs merge in the same launch: the last run of a (slot, KV
 //   head, sub-group) to arrive merges their fp32 partials (common.cuh
-//   SplitPartials, SplitMerge) and writes out, m and l (finish_paged), with
+//   SplitPartials, SplitMerge) and writes out, m and l (flash_decode.cuh
+//   finish_mma), with
 //   per-stream arrival counters as flash-decode's (ops/_cuda.py
 //   split_scratch). That merge is the tail of every launch; it reads the
 //   partials four values a load with a bounded number in flight, and each
@@ -130,170 +131,6 @@ __device__ __forceinline__ fd::Plan make_plan(const PaArgs& a) {
 
 // ---------------------------------------------------------- tensor cores
 
-// Four fp32 values rounded to bf16 and stored at dst (8-byte aligned).
-__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float a,
-                                             float b, float c, float d) {
-  *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(a, b),
-                                              pack_bf16(c, d));
-}
-
-// The end of a tensor-core block: its kStates states of each live query
-// row (scratch[state][G][2 + DH], m in natural units) merge with weights
-// computed once a row, four elements a thread step; with one run it
-// writes out, m and l, else the run's fp32 partial (common.cuh
-// SplitPartials, by query row), and the last run of its (slot, KV head,
-// sub-group) to arrive merges the runs with SplitMerge's weights. That
-// merge reads the partials four values a load and keeps at most 16 loads
-// of a thread in flight whatever G is: it is the tail of every launch.
-template <int DH, int G>
-__device__ __forceinline__ void finish_paged(const PaArgs& args,
-                                             const fd::Plan& p,
-                                             float* scratch) {
-  constexpr int kT = fd::kThreads;
-  constexpr int kS = fd::kStates<G>;
-  constexpr int kStride = 2 + DH;
-  constexpr int kQ = (G * DH / 4 + kT - 1) / kT;  // 4-element steps a thread
-  constexpr int kRuns = kQ >= 16 ? 1 : 16 / kQ;   // runs a merge step loads
-  const fd::FdArgs& a = args.f;
-  const int n_split = gridDim.y;
-  const long long row0 = p.row0;
-  const int n_q = p.gl * DH / 4;
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) + row0 * DH;
-  const SplitPartials part(a.ws, static_cast<long long>(a.b) * a.hkv * a.g,
-                           n_split, DH);
-  __shared__ float wts[G][kS];  // each state's weight in its row
-  __shared__ float row_m[G], row_l[G];
-  if (threadIdx.x < p.gl) {
-    const int gi = threadIdx.x;
-    float mx = kNegInf;
-#pragma unroll
-    for (int wi = 0; wi < kS; ++wi)
-      mx = fmaxf(mx, scratch[(wi * G + gi) * kStride]);
-    float den = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < kS; ++wi) {
-      const float* slot = scratch + (wi * G + gi) * kStride;
-      const float wgt = expf(slot[0] - mx);
-      wts[gi][wi] = wgt;
-      den += slot[1] * wgt;
-    }
-    row_m[gi] = mx;
-    row_l[gi] = den;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n_q; i += kT) {
-    const int gi = 4 * i / DH;
-    const int d = 4 * i - gi * DH;
-    float num[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int wi = 0; wi < kS; ++wi) {
-      const float* src = scratch + (wi * G + gi) * kStride + 2 + d;
-      const float2 lo = *reinterpret_cast<const float2*>(src);
-      const float2 hi = *reinterpret_cast<const float2*>(src + 2);
-      const float wgt = wts[gi][wi];
-      num[0] += lo.x * wgt;
-      num[1] += lo.y * wgt;
-      num[2] += hi.x * wgt;
-      num[3] += hi.y * wgt;
-    }
-    if (n_split == 1) {
-      const float den = fmaxf(row_l[gi], 1e-30f);
-      store_bf16x4(out + gi * DH + d, num[0] / den, num[1] / den,
-                   num[2] / den, num[3] / den);
-    } else {
-      *reinterpret_cast<float4*>(
-          part.acc + ((row0 + gi) * n_split + p.split) * DH + d) =
-          make_float4(num[0], num[1], num[2], num[3]);
-    }
-  }
-  if (threadIdx.x < p.gl) {
-    const long long r = row0 + threadIdx.x;
-    const float mx = row_m[threadIdx.x], den = row_l[threadIdx.x];
-    if (n_split == 1) {
-      args.m_out[r] = den > 0.f ? mx : kNegInf;
-      args.l_out[r] = den;
-    } else {
-      part.m[r * n_split + p.split] = mx;
-      part.l[r * n_split + p.split] = den;
-    }
-  }
-  if (n_split == 1) return;
-
-  // the last run of this (slot, KV head, sub-group) to arrive merges them
-  __shared__ int last;
-  __threadfence();  // this block's partial is visible before it counts
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int arrived = atomicAdd(a.counters + blockIdx.x, 1);
-    last = arrived == n_split - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // SplitMerge's weights once a row: (m, l) of every run in one round trip
-  // (through L2: other blocks wrote them), into the free scratch
-  float* w = scratch;                 // [gl][n_split]: m_s in, weight out
-  float* ls = scratch + G * n_split;  // [gl][n_split]
-  for (int i = threadIdx.x; i < p.gl * n_split; i += kT) {
-    const long long at = row0 * n_split + i;
-    w[i] = __ldcg(part.m + at);
-    ls[i] = __ldcg(part.l + at);
-  }
-  __syncthreads();
-  if (threadIdx.x < p.gl) {
-    float* wr = w + threadIdx.x * n_split;
-    const SplitMerge mg(wr, ls + threadIdx.x * n_split, n_split);
-    for (int s = 0; s < n_split; ++s) wr[s] = mg.weight(wr[s]);
-    const long long r = row0 + threadIdx.x;
-    args.m_out[r] = mg.l > 0.f ? mg.m : kNegInf;
-    args.l_out[r] = mg.l;
-  }
-  __syncthreads();
-  // out = sum_s weight_s acc_s: a thread's kQ steps of four elements, kRuns
-  // runs of them loaded at once
-  float o[kQ][4];
-#pragma unroll
-  for (int j = 0; j < kQ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  const float* acc = part.acc + row0 * n_split * DH;
-  for (int s0 = 0; s0 < n_split; s0 += kRuns) {
-    float4 v[kRuns][kQ];
-#pragma unroll
-    for (int u = 0; u < kRuns; ++u)
-#pragma unroll
-      for (int j = 0; j < kQ; ++j) {
-        const int i = threadIdx.x + j * kT;
-        const int gi = 4 * i / DH;
-        v[u][j] = s0 + u < n_split && i < n_q
-                      ? __ldcg(reinterpret_cast<const float4*>(
-                            acc + (gi * n_split + s0 + u) * DH + 4 * i -
-                            gi * DH))
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-    for (int u = 0; u < kRuns; ++u)
-#pragma unroll
-      for (int j = 0; j < kQ; ++j) {
-        const int i = threadIdx.x + j * kT;
-        const int gi = 4 * i / DH;
-        const float wt =
-            s0 + u < n_split && i < n_q ? w[gi * n_split + s0 + u] : 0.f;
-        o[j][0] += v[u][j].x * wt;
-        o[j][1] += v[u][j].y * wt;
-        o[j][2] += v[u][j].z * wt;
-        o[j][3] += v[u][j].w * wt;
-      }
-  }
-#pragma unroll
-  for (int j = 0; j < kQ; ++j) {
-    const int i = threadIdx.x + j * kT;
-    if (i < n_q)
-      store_bf16x4(out + 4 * i, o[j][0], o[j][1], o[j][2], o[j][3]);
-  }
-  if (threadIdx.x == 0) a.counters[blockIdx.x] = 0;  // ready for next call
-}
-
 template <typename TKV, int DH, int R>
 __global__ void __launch_bounds__(fd::kThreads, DH <= 128 ? 4 : 1)
     paged_mma_kernel(PaArgs a, float scale) {
@@ -315,7 +152,7 @@ __global__ void __launch_bounds__(fd::kThreads, DH <= 128 ? 4 : 1)
   else
     fd::mma_block<DH, R>(a.f, p, smem, smem + S::kQAt, scratch, scale);
   __syncthreads();
-  finish_paged<DH, R>(a, p, scratch);
+  fd::finish_mma<DH, R, true>(a.f, p, scratch, a.m_out, a.l_out);
 }
 
 // ------------------------------------------------------------ CUDA cores

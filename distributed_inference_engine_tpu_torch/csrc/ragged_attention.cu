@@ -4,6 +4,25 @@
 // ragged_attention_fp8.cu.
 #include "ragged_attention.cuh"
 
+namespace die {
+namespace ra {
+
+// The bf16-pool tensor-core instances (the fp8-pool ones are compiled in
+// ragged_attention_fp8.cu).
+cudaError_t mma_by_width(int dh, const RaggedArgs& a, int grid,
+                         cudaStream_t st) {
+  switch (dh) {
+    case 32: return launch_mma<32>(a, grid, st);
+    case 64: return launch_mma<64>(a, grid, st);
+    case 128: return launch_mma<128>(a, grid, st);
+    case 256: return launch_mma<256>(a, grid, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace ra
+}  // namespace die
+
 // q [R, Qmax, H, Dh] and fresh_k/fresh_v [R, Qmax, Hkv, Dh] in q_dtype;
 // the stacked pools [L*N, P, Hkv*Dh] in kv_dtype, written in place at
 // positions [ctx_lens[r], ctx_lens[r] + q_lens[r]) of row r's pages; out
@@ -63,7 +82,7 @@ extern "C" int die_ragged_attention(
   if (kv_dtype == kFP8 || kv_dtype == kE5M2)
     err = dispatch_fp8(q_dtype, kv_dtype, dh, a, grid, st);
   else if (mma)
-    err = mma_by_width<__nv_bfloat16>(dh, a, grid, st);
+    err = mma_by_width(dh, a, grid, st);
   else if (q_dtype == kF32 && kv_dtype == kF32)
     err = simt_by_width<float, float>(dh / 32, a, st);
   else if (q_dtype == kBF16 && kv_dtype == kF32)

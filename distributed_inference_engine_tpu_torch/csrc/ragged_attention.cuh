@@ -75,22 +75,24 @@
 //   (halving ldmatrix traffic) left the tile cost unchanged; both were
 //   measured and dropped.
 //
-// e4m3 pools (the fp8 instances; the TPU kernel upcasts the staged pages,
-// ops/ragged_attention.py:272-273, and lands the fresh K/V in the pool's
-// dtype, :386-387, attending to those bits as ragged_attention_xla does,
-// :108-112). bf16 q keeps the tensor-core instance: e4m3 is exact in bf16,
-// but ldmatrix moves 16-bit elements, so a context tile lands as e4m3 (one
-// byte a value, in the first half of a bf16 stage) and is widened to bf16
-// rows in place once it has landed; a fresh tile lands as bf16 and is
-// rounded through e4m3 in place (JAX's rounding: NaN past 464, common.cuh
-// from_f), so the tile attends to exactly the bytes the writeback stores.
-// The pool's context bytes halve; the prefill rows' arithmetic does not.
-// fp32 q over e4m3 takes the CUDA-core instance, which widens each value
-// as it loads it and rounds each fresh value the same way. e5m2 pools take
-// the same instances and design (the TPU kernel casts any fp8 pool alike):
-// their widening is a byte permute to f16, and their rounding JAX's, +-inf
-// from 61,440 and JAX's NaN bytes (0x7F from a bf16 fresh value, 0x7E with
-// the sign from fp32; common.cuh bf16x8_to_f8x8, from_f).
+// e4m3 and e5m2 pools (the fp8 instances; the TPU kernel upcasts the
+// staged pages, ops/ragged_attention.py:272-273, and lands the fresh K/V
+// in the pool's dtype, :386-387, attending to those bits as
+// ragged_attention_xla does, :108-112). bf16 q keeps the tensor cores and
+// the bf16 instance's items, schedule and warp_tile (both fp8 formats are
+// exact in bf16), fed by a producer warpgroup (ragged_fp8_kernel, below):
+// the producers copy the fp8 context tiles (one byte a value: half the
+// context bytes) and the fresh bf16 tiles into a ring of their own with
+// the Tensor Memory Accelerator, widen each context tile into one of two
+// buffers (K in bf16, V in f16) and round each fresh tile through the pool
+// dtype as the writeback stores it (JAX's rounding: e4m3's NaN past 464,
+// e5m2's +-inf from 61,440 and its NaN bytes, common.cuh bf16x8_to_f8x8),
+// and hand each buffer to the mma warps on a named barrier; setmaxnreg
+// gives the mma warps the registers. So the widening and the rounding
+// leave the mma warps' chain, with the block barrier they took there, and
+// more keys are in flight. fp32 q over fp8 pools takes
+// the CUDA-core instance, which widens each value as it loads it and rounds
+// each fresh value the same way.
 //
 // Every other dtype pair (fp32, whose 1e-4 tolerance TF32 would break;
 // bf16 with fp32 pools and back): the CUDA-core instance
@@ -121,6 +123,7 @@
 // through L2), as the pools are written during the launch.
 #pragma once
 
+#include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
@@ -475,117 +478,13 @@ __device__ __forceinline__ void zero_tile(const RaggedArgs& a,
   }
 }
 
-// The e4m3 instance's context tile: K rows, then V rows, of DH bytes each
-// at the stride G8 (the row bytes plus 16), guarded below ctx and
-// zero-filled past it, as stage_keys stages bf16 rows; widen_ctx_tile then
-// turns them into bf16 rows in place.
-template <int DH>
-struct Geo8 {
-  static constexpr int kStride = DH + 16;
-  static_assert(2 * Geo<DH>::kKeys * kStride <= Geo<DH>::kTileBytes,
-                "an e4m3 tile fits a bf16 stage");
-};
-
-template <int DH>
-__device__ __forceinline__ void stage_fp8_ctx(const RaggedArgs& a,
-                                              const int* pg_ids, int kh,
-                                              int ctx, int key0, char* dst) {
-  // one byte a value, e4m3 or e5m2 alike
-  using G = Geo<DH>;
-  constexpr int kS = Geo8<DH>::kStride;
-  constexpr int kChunks = DH / 16;                 // 16 values a piece
-  constexpr int kRowsPass = kMmaThreads / kChunks;
-  constexpr int kPasses = (G::kKeys + kRowsPass - 1) / kRowsPass;
-  static_assert(kMmaThreads % kChunks == 0, "a pass covers whole rows");
-  const int c = threadIdx.x % kChunks;
-  const int row0 = threadIdx.x / kChunks;
-  const fp8* kp = static_cast<const fp8*>(a.k_pages);
-  const fp8* vp = static_cast<const fp8*>(a.v_pages);
-  const long long fused = static_cast<long long>(a.hkv) * DH;
-  const long long head = static_cast<long long>(kh) * DH + c * 16;
-  const int t0 = key0 + row0;
-  int pg = t0 / a.page_size;
-  int off = t0 - pg * a.page_size;
-  long long src[kPasses];
-  bool ok[kPasses];
-#pragma unroll
-  for (int i = 0; i < kPasses; ++i) {
-    // guarded: positions >= ctx are being written by this launch
-    ok[i] = t0 + i * kRowsPass < ctx;
-    src[i] = ok[i] ? ((a.layer_base + pg_ids[pg]) * a.page_size + off) *
-                             fused + head
-                   : 0;
-    off += kRowsPass;
-    while (off >= a.page_size) {
-      off -= a.page_size;
-      ++pg;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kPasses; ++i) {
-    const int row = row0 + i * kRowsPass;
-    if (row < G::kKeys) {
-      char* d = dst + row * kS + c * 16;
-      cp_async16(d, kp + src[i], ok[i]);
-      cp_async16(d + G::kKeys * kS, vp + src[i], ok[i]);
-    }
-  }
-}
-
-// A landed fp8 (T8: e4m3 or e5m2) context tile widened in place into the
-// stage's bf16 rows (exact): every thread reads its 8-byte pieces, the
-// block syncs, then each writes them widened, so no write lands on bytes
-// another thread has still to read.
-template <typename T8, int DH>
-__device__ __forceinline__ void widen_ctx_tile(char* st) {
-  using G = Geo<DH>;
-  constexpr int kS8 = Geo8<DH>::kStride;
-  constexpr int kPieces = DH / 8;                  // 8 values a piece
-  constexpr int kAll = 2 * G::kKeys * kPieces;     // K rows, then V rows
-  constexpr int kPer = kAll / kMmaThreads;
-  static_assert(kAll % kMmaThreads == 0, "whole pieces a thread");
-  uint2 v[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int idx = threadIdx.x + i * kMmaThreads;
-    const int row = idx / kPieces;
-    v[i] = *reinterpret_cast<const uint2*>(st + row * kS8 +
-                                           (idx - row * kPieces) * 8);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int idx = threadIdx.x + i * kMmaThreads;
-    const int row = idx / kPieces;
-    *reinterpret_cast<uint4*>(st + row * G::kStride +
-                              (idx - row * kPieces) * 16) =
-        f8x8_to_bf16x8<T8>(v[i]);
-  }
-}
-
-// A landed fresh tile (bf16 rows) rounded through T8 in place, as the
-// pool will hold it (bf16x8_to_f8x8, JAX's rounding of bf16): the rows are
-// attended as stored. Each thread rounds its own 16-byte pieces.
-template <typename T8, int DH>
-__device__ __forceinline__ void round_fresh_tile(char* st) {
-  using G = Geo<DH>;
-  constexpr int kPieces = DH / 8;
-  for (int idx = threadIdx.x; idx < 2 * G::kKeys * kPieces;
-       idx += kMmaThreads) {
-    const int row = idx / kPieces;
-    uint4* p = reinterpret_cast<uint4*>(st + row * G::kStride +
-                                        (idx - row * kPieces) * 16);
-    *p = f8x8_to_bf16x8<T8>(bf16x8_to_f8x8<T8>(*p));
-  }
-}
-
 // Stage key tile `tile` of the block's sequence (the context tiles, then
 // the fresh ones) into dst: K rows, then V rows. Context rows are guarded
 // below ctx and fresh rows below fresh_end; others are zero-filled. Each
 // thread copies 16-byte piece c of rows row0, row0 + kRowsPass, ...: it
 // finds all their sources first (the page and offset stepped along, one
 // division a tile), then issues the copies together.
-template <int DH, typename TKV>
+template <int DH>
 __device__ __forceinline__ void stage_keys(const RaggedArgs& a,
                                            const int* pg_ids, int r, int kh,
                                            int ctx, int n_ctx_tiles,
@@ -600,12 +499,6 @@ __device__ __forceinline__ void stage_keys(const RaggedArgs& a,
   const int row0 = threadIdx.x / kChunks;
   const bool fresh = tile >= n_ctx_tiles;
   const int key0 = (fresh ? tile - n_ctx_tiles : tile) * G::kKeys;
-  if constexpr (kIsFp8<TKV>) {
-    if (!fresh) {
-      stage_fp8_ctx<DH>(a, pg_ids, kh, ctx, key0, dst);
-      return;
-    }
-  }
   const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k_pages);
   const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v_pages);
   const __nv_bfloat16* fk = static_cast<const __nv_bfloat16*>(a.fresh_k);
@@ -678,8 +571,10 @@ __device__ __forceinline__ void qk_frags(const char* qt, const char* kt,
 // `masked`, key kb + c of the tile is visible to row h iff kb + c <
 // lim[h]; invisible keys weigh exactly 0. The next K-step's (and V
 // column tile's) fragments are loaded before the current ones' mma.sync
-// issue, so their shared-memory latency overlaps the tensor cores.
-template <int DH, int NK>
+// issue, so their shared-memory latency overlaps the tensor cores. With
+// kF16V the V rows are f16 and P V runs on the f16 core (the fp8
+// instance's: both fp8 formats are exact in f16, and P keeps 3 more bits).
+template <int DH, int NK, bool kF16V = false>
 __device__ __forceinline__ void mma_step(const char* qt, const char* kt,
                                          const char* vt, int q_row0, int kb,
                                          bool masked, const int (&lim)[2],
@@ -734,7 +629,7 @@ __device__ __forceinline__ void mma_step(const char* qt, const char* kt,
     m[h] = mn;
   }
   float rs[2] = {0.f, 0.f};
-  uint32_t pa[kJ][4];                  // P in bf16, the A operand of P V
+  uint32_t pa[kJ][4];                  // P in bf16 (f16), the A operand of P V
 #pragma unroll
   for (int i = 0; i < kN; ++i) {
     float p[4];
@@ -745,8 +640,13 @@ __device__ __forceinline__ void mma_step(const char* qt, const char* kt,
       p[e] = off ? 0.f : fast_exp2(s[i][e] - m[e >> 1]);
       rs[e >> 1] += p[e];
     }
-    pa[i / 2][2 * (i % 2)] = pack_bf16(p[0], p[1]);
-    pa[i / 2][2 * (i % 2) + 1] = pack_bf16(p[2], p[3]);
+    if constexpr (kF16V) {
+      pa[i / 2][2 * (i % 2)] = pack_f16(p[0], p[1]);
+      pa[i / 2][2 * (i % 2) + 1] = pack_f16(p[2], p[3]);
+    } else {
+      pa[i / 2][2 * (i % 2)] = pack_bf16(p[0], p[1]);
+      pa[i / 2][2 * (i % 2) + 1] = pack_bf16(p[2], p[3]);
+    }
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
@@ -771,15 +671,20 @@ __device__ __forceinline__ void mma_step(const char* qt, const char* kt,
     }
     const int j = i / kD;
     const int n2 = i % kD;
-    mma_bf16_16816(acc[2 * n2], pa[j], vb[i & 1][0], vb[i & 1][1]);
-    mma_bf16_16816(acc[2 * n2 + 1], pa[j], vb[i & 1][2], vb[i & 1][3]);
+    if constexpr (kF16V) {
+      mma_f16_16816(acc[2 * n2], pa[j], vb[i & 1][0], vb[i & 1][1]);
+      mma_f16_16816(acc[2 * n2 + 1], pa[j], vb[i & 1][2], vb[i & 1][3]);
+    } else {
+      mma_bf16_16816(acc[2 * n2], pa[j], vb[i & 1][0], vb[i & 1][1]);
+      mma_bf16_16816(acc[2 * n2 + 1], pa[j], vb[i & 1][2], vb[i & 1][3]);
+    }
   }
 }
 
 // A warp's keys of one staged tile: NK keys from key row slot * NK (NK =
 // kKeys / wpm), for the rows of m-tile mt; skips the keys no row of the
 // m-tile sees, masks the ones that straddle a row's limit.
-template <int DH, int NK>
+template <int DH, int NK, bool kF16V = false>
 __device__ __forceinline__ void warp_tile(const char* q_tile, const char* kt,
                                           const char* vt, int mt, int slot,
                                           bool fresh, int key0, int ctx,
@@ -796,8 +701,45 @@ __device__ __forceinline__ void warp_tile(const char* q_tile, const char* kt,
 #pragma unroll
   for (int h = 0; h < 2; ++h)
     lim[h] = fresh ? qrow[h] + 1 - key0 : ctx - key0;
-  mma_step<DH, NK>(q_tile, kt, vt, 16 * mt, kb, masked, lim, scale2, m, l,
-                   acc);
+  mma_step<DH, NK, kF16V>(q_tile, kt, vt, 16 * mt, kb, masked, lim, scale2,
+                          m, l, acc);
+}
+
+// The fresh K/V of a tile's queries [q0, fresh_end) into the pool at
+// positions ctx_raw + qi (the logical page clamped to the table, as the
+// plain version), 16 bytes of the fresh rows a step; into fp8 pools (T8:
+// e4m3 or e5m2) 8 values a step, rounded as bf16x8_to_f8x8 rounds them
+// (JAX's cast), the bytes the tile attended. The kT threads from tid.
+template <int DH, typename TKV, int kT>
+__device__ __forceinline__ void write_fresh(const RaggedArgs& a, int r,
+                                            int kh, int q0, int fresh_end,
+                                            int ctx_raw, const int* table,
+                                            int tid) {
+  constexpr int kChunks = DH * 2 / 16;             // 8 values a piece
+  const long long fused = static_cast<long long>(a.hkv) * DH;
+  const uint4* fk = static_cast<const uint4*>(a.fresh_k);
+  const uint4* fv = static_cast<const uint4*>(a.fresh_v);
+  for (int i = tid; i < (fresh_end - q0) * kChunks; i += kT) {
+    const int qi = q0 + i / kChunks;
+    const int c = i % kChunks;
+    const int pos = ctx_raw + qi;
+    const int pg = table[min(pos / a.page_size, a.mp - 1)];
+    const long long dst =
+        ((a.layer_base + pg) * a.page_size + pos % a.page_size) * fused +
+        static_cast<long long>(kh) * DH + c * 8;
+    const long long src =
+        ((static_cast<long long>(r) * a.qmax + qi) * a.hkv + kh) * DH / 8 +
+        c;
+    if constexpr (kIsFp8<TKV>) {
+      *reinterpret_cast<uint2*>(static_cast<char*>(a.k_pages) + dst) =
+          bf16x8_to_f8x8<TKV>(__ldg(fk + src));
+      *reinterpret_cast<uint2*>(static_cast<char*>(a.v_pages) + dst) =
+          bf16x8_to_f8x8<TKV>(__ldg(fv + src));
+    } else {
+      static_cast<uint4*>(a.k_pages)[dst / 8] = __ldg(fk + src);
+      static_cast<uint4*>(a.v_pages)[dst / 8] = __ldg(fv + src);
+    }
+  }
 }
 
 // One (row, KV head, query tile) of the tensor-core instance. The tile's
@@ -806,7 +748,7 @@ __device__ __forceinline__ void warp_tile(const char* q_tile, const char* kt,
 // of a tile), each with its own slice of every key tile, and the warps of
 // an m-tile merge their states at the end. A decode row (g live rows) thus
 // spreads each tile over 4 warps instead of leaving it to one.
-template <int DH, typename TKV>
+template <int DH>
 __device__ __forceinline__ void mma_item(const RaggedArgs& a, const Block& bk,
                                          char* smem, int* pages,
                                          const int* q_lens,
@@ -887,28 +829,18 @@ __device__ __forceinline__ void mma_item(const RaggedArgs& a, const Block& bk,
 #pragma unroll
   for (int t = 0; t < G::kStages - 1; ++t) {
     if (t < n_all)
-      stage_keys<DH, TKV>(a, pg_ids, r, kh, ctx, n_ctx_tiles, fresh_end,
-                          ring + t * G::kTileBytes, t);
+      stage_keys<DH>(a, pg_ids, r, kh, ctx, n_ctx_tiles, fresh_end,
+                     ring + t * G::kTileBytes, t);
     cp_async_commit();
   }
   for (int t = 0; t < n_all; ++t) {
     const int tn = t + G::kStages - 1;
     if (tn < n_all)
-      stage_keys<DH, TKV>(a, pg_ids, r, kh, ctx, n_ctx_tiles, fresh_end,
-                          ring + (tn % G::kStages) * G::kTileBytes, tn);
+      stage_keys<DH>(a, pg_ids, r, kh, ctx, n_ctx_tiles, fresh_end,
+                     ring + (tn % G::kStages) * G::kTileBytes, tn);
     cp_async_commit();
     cp_async_wait<G::kStages - 1>();    // tile t landed (this thread's part)
     __syncthreads();                    // ... and every thread's
-    if constexpr (kIsFp8<TKV>) {
-      // e4m3 pools: context rows widened to bf16, fresh rows rounded
-      // through e4m3, both in place
-      char* st = ring + (t % G::kStages) * G::kTileBytes;
-      if (t < n_ctx_tiles)
-        widen_ctx_tile<TKV, DH>(st);
-      else
-        round_fresh_tile<TKV, DH>(st);
-      __syncthreads();
-    }
     if (live) {
       const char* kt = ring + (t % G::kStages) * G::kTileBytes;
       const char* vt = kt + G::kKeys * G::kStride;
@@ -1030,58 +962,11 @@ __device__ __forceinline__ void mma_item(const RaggedArgs& a, const Block& bk,
     }
   }
 
-  // writeback: the fresh K/V of this tile's queries -> pool positions
-  // ctx + qi (the logical page clamped to the table, as the plain
-  // version), 16 bytes a copy; into e4m3 pools 8 values a step, rounded
-  // as the tile attended them. The KV head's first sub-group alone.
-  if (bk.sub != 0) {
-  } else if constexpr (kIsFp8<TKV>) {
-    constexpr int kChunks = G::kRowBytes / 16;     // 8 values a piece
-    const long long fused = static_cast<long long>(a.hkv) * DH;
-    char* kw = static_cast<char*>(a.k_pages);
-    char* vw = static_cast<char*>(a.v_pages);
-    const uint4* fk = static_cast<const uint4*>(a.fresh_k);
-    const uint4* fv = static_cast<const uint4*>(a.fresh_v);
-    for (int i = threadIdx.x; i < (fresh_end - q0) * kChunks;
-         i += kMmaThreads) {
-      const int qi = q0 + i / kChunks;
-      const int c = i % kChunks;
-      const int pos = ctx_raw + qi;
-      const int pg = table[min(pos / a.page_size, a.mp - 1)];
-      const long long dst =
-          ((a.layer_base + pg) * a.page_size + pos % a.page_size) * fused +
-          static_cast<long long>(kh) * DH + c * 8;
-      const long long src =
-          ((static_cast<long long>(r) * a.qmax + qi) * a.hkv + kh) * DH / 8 +
-          c;
-      *reinterpret_cast<uint2*>(kw + dst) =
-          bf16x8_to_f8x8<TKV>(__ldg(fk + src));
-      *reinterpret_cast<uint2*>(vw + dst) =
-          bf16x8_to_f8x8<TKV>(__ldg(fv + src));
-    }
-  } else {
-    constexpr int kChunks = G::kRowBytes / 16;
-    const long long fused = static_cast<long long>(a.hkv) * DH;
-    uint4* kw = static_cast<uint4*>(a.k_pages);
-    uint4* vw = static_cast<uint4*>(a.v_pages);
-    const uint4* fk = static_cast<const uint4*>(a.fresh_k);
-    const uint4* fv = static_cast<const uint4*>(a.fresh_v);
-    for (int i = threadIdx.x; i < (fresh_end - q0) * kChunks;
-         i += kMmaThreads) {
-      const int qi = q0 + i / kChunks;
-      const int c = i % kChunks;
-      const int pos = ctx_raw + qi;
-      const int pg = table[min(pos / a.page_size, a.mp - 1)];
-      const long long dst =
-          (((a.layer_base + pg) * a.page_size + pos % a.page_size) * fused +
-           static_cast<long long>(kh) * DH) / 8 + c;
-      const long long src =
-          ((static_cast<long long>(r) * a.qmax + qi) * a.hkv + kh) * DH / 8 +
-          c;
-      kw[dst] = __ldg(fk + src);
-      vw[dst] = __ldg(fv + src);
-    }
-  }
+  // writeback: the fresh K/V of this tile's queries, by the KV head's
+  // first sub-group alone
+  if (bk.sub == 0)
+    write_fresh<DH, __nv_bfloat16, kMmaThreads>(a, r, kh, q0, fresh_end,
+                                                ctx_raw, table, threadIdx.x);
   __syncthreads();                      // shared memory free for the next
 }
 
@@ -1117,7 +1002,42 @@ __device__ __forceinline__ int pair_cost(const RaggedArgs& a, int p,
 // least live work. With more pairs than kMaxPairs (or rows than kMaxRows)
 // the blocks walk block_of's order round-robin. ops/ragged_attention.py
 // ragged_schedule is the same rule on the host.
-template <int DH, typename TKV>
+// The ranking of the persistent blocks (ragged_mma_kernel's, below): the
+// rows' lengths into lens (q_lens, then ctx_lens at kMaxRows), each pair's
+// cost and the pairs by rank into order, by the block's kT threads. Ends
+// synced.
+template <int DH, int kT>
+__device__ __forceinline__ void rank_pairs(const RaggedArgs& a, int* lens,
+                                           int* cost, int* order) {
+  const int n_pairs = a.r * a.n_tiles;
+  for (int i = threadIdx.x; i < a.r; i += kT) {
+    lens[i] = a.q_lens[i];
+    lens[kMaxRows + i] = a.ctx_lens[i];
+  }
+  __syncthreads();
+  for (int p = threadIdx.x; p < n_pairs; p += kT)
+    cost[p] = pair_cost<DH>(a, p, lens, lens + kMaxRows);
+  __syncthreads();
+  for (int p = threadIdx.x; p < n_pairs; p += kT) {
+    const int c = cost[p];
+    int at = 0;
+    for (int q = 0; q < n_pairs; ++q) {
+      const int cq = cost[q];
+      at += cq > c || (cq == c && q < p);
+    }
+    order[at] = p;
+  }
+  __syncthreads();
+}
+
+// Whether the persistent blocks rank the pairs (rank_pairs) or, past the
+// rows and pairs whose lengths and ranks fit in shared memory, walk
+// block_of's order round-robin.
+__device__ __forceinline__ bool ranked(const RaggedArgs& a) {
+  return a.r <= kMaxRows && a.r * a.n_tiles <= kMaxPairs;
+}
+
+template <int DH>
 __global__ void __launch_bounds__(kMmaThreads, 1)
     ragged_mma_kernel(RaggedArgs a) {
   extern __shared__ __align__(16) char mma_smem[];
@@ -1128,33 +1048,16 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   const int n_blocks = gridDim.x;
   const int n_pairs = a.r * a.n_tiles;
   const int tq = kMmaRows / a.gs;
-  if (a.r > kMaxRows || n_pairs > kMaxPairs) {
+  if (!ranked(a)) {
     const int n_items = n_pairs * a.vh;
     for (int item = blockIdx.x; item < n_items; item += n_blocks)
-      mma_item<DH, TKV>(a, block_of(a, item), mma_smem, pages, a.q_lens,
-                        a.ctx_lens);
+      mma_item<DH>(a, block_of(a, item), mma_smem, pages, a.q_lens,
+                   a.ctx_lens);
     return;
   }
-  for (int i = threadIdx.x; i < a.r; i += kMmaThreads) {
-    lens[i] = a.q_lens[i];
-    lens[kMaxRows + i] = a.ctx_lens[i];
-  }
-  __syncthreads();
+  rank_pairs<DH, kMmaThreads>(a, lens, cost, order);
   const int* q_lens = lens;
   const int* ctx_lens = lens + kMaxRows;
-  for (int p = threadIdx.x; p < n_pairs; p += kMmaThreads)
-    cost[p] = pair_cost<DH>(a, p, q_lens, ctx_lens);
-  __syncthreads();
-  for (int p = threadIdx.x; p < n_pairs; p += kMmaThreads) {
-    const int c = cost[p];
-    int at = 0;
-    for (int q = 0; q < n_pairs; ++q) {
-      const int cq = cost[q];
-      at += cq > c || (cq == c && q < p);
-    }
-    order[at] = p;
-  }
-  __syncthreads();
   const int n_items = n_pairs * a.vh;
   for (int k = 0; k * n_blocks < n_items; ++k) {
     const int i = k * n_blocks +
@@ -1165,33 +1068,677 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     if (cost[p] == 0)
       zero_tile<DH>(a, bk, bk.tile * tq, tq);
     else
-      mma_item<DH, TKV>(a, bk, mma_smem, pages, q_lens, ctx_lens);
+      mma_item<DH>(a, bk, mma_smem, pages, q_lens, ctx_lens);
   }
 }
 
-template <int DH, typename TKV>
+template <int DH>
 cudaError_t launch_mma(const RaggedArgs& a, int grid, cudaStream_t stream) {
   static bool attr_set = false;        // per instantiation (one card)
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ragged_mma_kernel<DH, TKV>,
+        ragged_mma_kernel<DH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, Geo<DH>::kSmem);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  ragged_mma_kernel<DH, TKV>
-      <<<grid, kMmaThreads, Geo<DH>::kSmem, stream>>>(a);
+  ragged_mma_kernel<DH><<<grid, kMmaThreads, Geo<DH>::kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename TKV>
-cudaError_t mma_by_width(int dh, const RaggedArgs& a, int grid,
+
+// ------------------------------------------- fp8 pools: warp specialised
+//
+// bf16 q over e4m3 or e5m2 pools (the fp8 instances, ragged_fp8_kernel):
+// the tensor-core instance's items, schedule and warps (warp_tile on bf16
+// K rows and f16 V rows), fed by a producer warpgroup. 12 warps: the 8 mma warps (the
+// consumers, threads 0-255) and 4 producer warps (threads 256-383), which
+// take the loads, the widening and the rounding off the consumers' chain:
+// - One producer thread copies each context tile's fp8 K and V rows (one
+//   byte a value: a box of rows a page segment) and each fresh tile's bf16
+//   rows (one box each) into a ring of units with the Tensor Memory
+//   Accelerator, completing on the unit's mbarrier, as many tiles ahead as
+//   the ring holds (a context tile takes one unit, half a bf16 tile's
+//   bytes, a fresh tile two: 7 units and the 2 buffers at Dh 128,
+//   against the bf16 instance's 5 stages). Issued as 16-byte cp.async
+//   from all 128 producer threads, the same loads were the producers'
+//   longest step on the card (clock64 stamps of a tuning build).
+// - Once a tile has landed, each producer thread widens its context
+//   pieces into one of two buffers (exact; K rows to bf16, V rows to f16,
+//   one conversion a pair, and the consumers take P V on the f16 core),
+//   or rounds its fresh pieces through the pool dtype as the writeback
+//   will store them (JAX's cast: bf16x8_to_f8x8, e5m2's +-inf from 61,440
+//   and its NaN bytes) and widens them back, rows past the context (past
+//   the fresh keys) as zeros, and the warpgroup hands the buffer over on a
+//   named barrier (kBarFull + b, bar.arrive against the consumers'
+//   bar.sync); the consumers give it back on kBarEmpty + b after their
+//   warp_tile. No widening pass, copy issue or block barrier is left on
+//   the consumers' chain: they wait only for a full buffer, which the
+//   producers fill while they take the previous one.
+// - The widening bounds the producers: a timing build that skipped it ran
+//   below the bf16 instance, and a decode row, whose tiles ask little of
+//   the mma warps, waits on it most. Letting the idle mma warps of a
+//   decode row's item (4 of 8) fill half of each tile brought the decode
+//   rows level with bf16 but slowed the chunks' mma warps by more (their
+//   loop compiled beside the fill), so it was taken out (PERF.md).
+// - setmaxnreg moves registers to the consumers within the block's pool
+//   (384 threads of 168): 224 a thread for the mma warps and 56 for the
+//   producers at Dh <= 128, 240 and 24 at Dh 256.
+// - An m-tile's key slices (wpm > 1) merge pairwise through the Q tile
+//   (the ring and buffers may already hold the next item's tiles); the
+//   consumers write the fresh K/V back as the bf16 instance does.
+// The producers skip dead items; both roles walk the block's items in
+// the schedule's order and count the same tiles, so the barriers' phases
+// agree.
+
+constexpr int kProdWarps = 4;
+constexpr int kProdThreads = 32 * kProdWarps;
+constexpr int kWsThreads = kMmaThreads + kProdThreads;
+// the registers a thread of the launch gets (65,536 / 384, in steps of 8),
+// the block's pool that setmaxnreg redistributes: an increase past it
+// waits forever. The mma warps' share by head width (they held 223-227
+// registers at Dh 128 and 255 at Dh 256 as the 8 warps of a block); at
+// Dh 128, 224 against the producers' 56 measured faster than 232 against
+// 40 (the producers' widening keeps more pieces in flight).
+constexpr int kLaunchRegs = 168;
+template <int DH>
+constexpr int kConsumerRegs = DH <= 128 ? 224 : 240;
+template <int DH>
+constexpr int kProducerRegs =
+    (kWsThreads * kLaunchRegs - kMmaThreads * kConsumerRegs<DH>) /
+    kProdThreads;
+static_assert(kProducerRegs<128> == 56 && kProducerRegs<256> == 24,
+              "the block's registers, redistributed");
+// named barriers (0 is __syncthreads): buffer b full, empty; the
+// consumers' own; the producers' own
+constexpr int kBarFull = 1;
+constexpr int kBarEmpty = 3;
+constexpr int kBarConsumers = 5;
+constexpr int kBarProducers = 6;
+// the ring's units at most (their mbarriers are static shared memory)
+constexpr int kMaxUnits = 16;
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// The fp8 instance's shared memory at head width DH: the Q tile, the two
+// buffers (Geo's K/V tile each, V rows in f16), then the ring: kUnits
+// units of one fp8 context tile each (its K rows, then its V rows, DH
+// bytes a row, as the copies land them), as many as fit beside the static
+// arrays; a fresh tile takes two units (its bf16 K rows in one, its V rows
+// in the next).
+template <int DH>
+struct Ws {
+  using G = Geo<DH>;
+  static constexpr int kUnitBytes = 2 * G::kKeys * DH;
+  static constexpr int kBufAt = G::kQBytes;
+  static constexpr int kRingAt = kBufAt + 2 * G::kTileBytes;
+  static constexpr int kStatic =
+      4 * (kMaxPages + 2 * kMaxRows + 2 * kMaxPairs) + 8 * kMaxUnits;
+  static constexpr int kFit = (232448 - kStatic - kRingAt) / kUnitBytes;
+  static constexpr int kUnits = kFit < kMaxUnits ? kFit : kMaxUnits;
+  static constexpr int kSmem = kRingAt + kUnits * kUnitBytes;
+  // the merge's partials, in the Q tile: a writer warp's fragments (acc,
+  // then m and l), 32 lanes apart, for each of 4 warp pairs
+  static constexpr int kPart = (DH / 2 + 4) * 32;
+  static_assert(kRingAt % 128 == 0 && kUnitBytes % 128 == 0,
+                "the copies land 128-byte aligned");
+  static_assert(kUnits >= 2, "a fresh tile fits the ring");
+  static_assert(4 * kPart * 4 <= G::kQBytes, "the partials fit the Q tile");
+};
+
+// A live item's key sequence as both roles read it from the lengths: its
+// context tiles, then its fresh tiles (Geo's kKeys keys each).
+struct Seq {
+  int r, kh, q0, qlen, ctx_raw, ctx, fresh_end, n_ctx_tiles, n_all;
+};
+
+template <int DH>
+__device__ __forceinline__ Seq seq_of(const RaggedArgs& a, const Block& bk,
+                                      const int* q_lens,
+                                      const int* ctx_lens) {
+  constexpr int kK = Geo<DH>::kKeys;
+  const int tq = kMmaRows / a.gs;
+  Seq s;
+  s.r = bk.r;
+  s.kh = bk.kh;
+  s.q0 = bk.tile * tq;
+  s.qlen = q_lens[bk.r];
+  s.ctx_raw = ctx_lens[bk.r];
+  s.ctx = min(s.ctx_raw, a.mp * a.page_size);
+  s.fresh_end = min(s.q0 + tq, s.qlen);
+  s.n_ctx_tiles = (s.ctx + kK - 1) / kK;
+  s.n_all = s.n_ctx_tiles + (s.fresh_end + kK - 1) / kK;
+  return s;
+}
+
+// The block's items in ragged_mma_kernel's order, as fn(block, live): the
+// ranked pairs dealt in a snake, or block_of's order round-robin when the
+// block does not rank (ranked).
+template <typename Fn>
+__device__ __forceinline__ void walk_items(const RaggedArgs& a, bool rank,
+                                           const int* cost,
+                                           const int* order, Fn&& fn) {
+  const int n_blocks = gridDim.x;
+  const int n_items = a.r * a.n_tiles * a.vh;
+  if (!rank) {
+    const int tq = kMmaRows / a.gs;
+    for (int item = blockIdx.x; item < n_items; item += n_blocks) {
+      const Block bk = block_of(a, item);
+      fn(bk, bk.tile * tq < a.q_lens[bk.r]);
+    }
+    return;
+  }
+  for (int k = 0; k * n_blocks < n_items; ++k) {
+    const int i = k * n_blocks +
+                  ((k & 1) ? n_blocks - 1 - blockIdx.x : blockIdx.x);
+    if (i >= n_items) continue;
+    const int p = order[i / a.vh];
+    fn(block_of(a, p * a.vh + i % a.vh), cost[p] > 0);
+  }
+}
+
+// The producers' bookkeeping of the ring, the same in every producer
+// thread: rd is the unit of the next tile to take, head the next free
+// unit, `used` the units in flight or landed, `issued` the item's tiles
+// issued; bit u of ph is the parity of unit u's mbarrier's next phase (a
+// tile completes on its first unit's).
+struct Ring {
+  int head, rd, used, issued;
+  uint32_t ph;
+};
+
+// The ring units tile t of an item takes: one a context tile, two a fresh
+// one.
+__device__ __forceinline__ int units_of(const Seq& s, int t) {
+  return t < s.n_ctx_tiles ? 1 : 2;
+}
+
+// Thread 0 of the producers: tile t of an item into ring unit u (and u + 1
+// for a fresh tile) by the Tensor Memory Accelerator, completing on unit
+// u's mbarrier. A context tile is copied in boxes of `box` key rows (the
+// host's box divides the page size, so a box never leaves its page), one
+// box of K rows and one of V rows from each page segment that holds a key
+// below ctx; the rows of a box past ctx (the writeback's positions) are
+// copied but never used. A fresh tile is one box of the fresh K rows and
+// one of V, kKeys rows of [R * Qmax, Hkv * Dh] from the item's row; rows
+// past R * Qmax come as zeros.
+template <int DH>
+__device__ __forceinline__ void tma_tile(const RaggedArgs& a,
+                                         const int* pg_ids, const Seq& s,
+                                         int t, char* ring, int u,
+                                         uint64_t* bars, int box,
+                                         const CUtensorMap* kmap,
+                                         const CUtensorMap* vmap,
+                                         const CUtensorMap* fkmap,
+                                         const CUtensorMap* fvmap) {
+  using W = Ws<DH>;
+  constexpr int kK = Geo<DH>::kKeys;
+  char* dst = ring + u * W::kUnitBytes;
+  uint64_t* bar = bars + u;
+  if (t < s.n_ctx_tiles) {
+    const int key0 = t * kK;
+    const int n_box = (min(kK, s.ctx - key0) + box - 1) / box;
+    mbar_expect_tx(bar, 2 * n_box * box * DH);
+    for (int j = 0; j < n_box; ++j) {
+      const int key = key0 + j * box;
+      const int pg = key / a.page_size;
+      const int row = static_cast<int>(
+          (a.layer_base + pg_ids[pg]) * a.page_size + key - pg * a.page_size);
+      tma_load_2d(dst + j * box * DH, kmap, s.kh * DH, row, bar);
+      tma_load_2d(dst + (kK + j * box) * DH, vmap, s.kh * DH, row, bar);
+    }
+  } else {
+    char* dst_v = ring + (u + 1 < W::kUnits ? u + 1 : 0) * W::kUnitBytes;
+    const int row = s.r * a.qmax + (t - s.n_ctx_tiles) * kK;
+    mbar_expect_tx(bar, 2 * kK * DH * 2);
+    tma_load_2d(dst, fkmap, s.kh * DH, row, bar);
+    tma_load_2d(dst_v, fvmap, s.kh * DH, row, bar);
+  }
+}
+
+// Producer thread p's pieces of tile t, landed in ring unit u (and u + 1),
+// into the buffer buf (K rows in bf16, then V rows in f16, at Geo's
+// stride): context pieces widened (exact), fresh pieces rounded through
+// T8 as the pool will hold them and widened back, so that the tile attends
+// to the bytes the writeback stores; rows past ctx (past fresh_end) stored
+// as zeros. V widens to f16 in one conversion a pair (e4m3) or one byte
+// permute (e5m2), K to bf16 in four: the consumers take P V on the f16
+// core. The
+// thread takes piece p % kC of rows p / kC, + 128 / kC, ... of K and of V.
+// A context piece's two 16-byte halves are stored in the order that puts
+// a quarter-warp's eight stores on eight distinct bank groups.
+template <int DH, typename T8>
+__device__ __forceinline__ void fill_buffer(const Seq& s, int t,
+                                            const char* ring, int u,
+                                            char* buf, int p) {
+  using G = Geo<DH>;
+  using W = Ws<DH>;
+  constexpr int kK = G::kKeys;
+  const char* src = ring + u * W::kUnitBytes;
+  if (t < s.n_ctx_tiles) {
+    constexpr int kC = DH / 16;
+    constexpr int kPass = kProdThreads / kC;
+    static_assert(kK % kPass == 0, "whole passes a tile");
+    const int c = p % kC;
+    const int h0 = (c >> 2) & 1;
+    const int n_valid = s.ctx - t * kK;
+#pragma unroll
+    for (int i = 0; i < 2 * (kK / kPass); ++i) {
+      const int row = p / kC + (i >> 1) * kPass;   // key row of the tile
+      const int at = (i & 1) * kK + row;           // K rows, then V rows
+      uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
+      if (row < n_valid) {
+        const uint4 v =
+            *reinterpret_cast<const uint4*>(src + at * DH + c * 16);
+        if (i & 1) {
+          lo = f8x8_to_f16x8<T8>(make_uint2(v.x, v.y));
+          hi = f8x8_to_f16x8<T8>(make_uint2(v.z, v.w));
+        } else {
+          lo = f8x8_to_bf16x8<T8>(make_uint2(v.x, v.y));
+          hi = f8x8_to_bf16x8<T8>(make_uint2(v.z, v.w));
+        }
+      }
+      char* d = buf + at * G::kStride + c * 32;
+      *reinterpret_cast<uint4*>(d + 16 * h0) = h0 ? hi : lo;
+      *reinterpret_cast<uint4*>(d + 16 - 16 * h0) = h0 ? lo : hi;
+    }
+  } else {
+    constexpr int kC = DH / 8;
+    constexpr int kPass = kProdThreads / kC;
+    static_assert(kK % kPass == 0, "whole passes a tile");
+    const char* src_v = ring + (u + 1 < W::kUnits ? u + 1 : 0) * W::kUnitBytes;
+    const int c = p % kC;
+    const int n_valid = s.fresh_end - (t - s.n_ctx_tiles) * kK;
+#pragma unroll
+    for (int i = 0; i < 2 * (kK / kPass); ++i) {
+      const int row = p / kC + (i >> 1) * kPass;
+      uint4 w = make_uint4(0, 0, 0, 0);
+      if (row < n_valid) {
+        const uint2 f8 = bf16x8_to_f8x8<T8>(*reinterpret_cast<const uint4*>(
+            ((i & 1) ? src_v : src) + row * DH * 2 + c * 16));
+        w = (i & 1) ? f8x8_to_f16x8<T8>(f8) : f8x8_to_bf16x8<T8>(f8);
+      }
+      *reinterpret_cast<uint4*>(buf + ((i & 1) * kK + row) * G::kStride +
+                                c * 16) = w;
+    }
+  }
+}
+
+// The producer warpgroup: the block's live items, tile by tile, into the
+// buffers (seq counts the tiles handed over; buffer seq & 1). Thread
+// 0 issues the copies; every producer thread keeps the ring's bookkeeping,
+// waits on each tile's mbarrier and fills its own pieces.
+template <int DH, typename T8>
+__device__ __forceinline__ void produce(
+    const RaggedArgs& a, bool rank, const int* cost, const int* order,
+    const int* q_lens, const int* ctx_lens, char* smem, int* pages,
+    uint64_t* bars, int box, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* fkmap,
+    const CUtensorMap* fvmap) {
+  using W = Ws<DH>;
+  const int p = threadIdx.x - kMmaThreads;
+  char* ring = smem + W::kRingAt;
+  Ring rg{0, 0, 0, 0, 0u};
+  int seq = 0;
+  walk_items(a, rank, cost, order, [&](const Block& bk, bool live) {
+    if (!live) return;
+    const Seq s = seq_of<DH>(a, bk, q_lens, ctx_lens);
+    // the context's page ids, once every producer is done with the last
+    // item's (thread 0 reads them when it issues)
+    const int* table = a.page_table + static_cast<long long>(s.r) * a.mp;
+    const int n_pg = (s.ctx + a.page_size - 1) / a.page_size;
+    const int* pg_ids = table;
+    bar_sync(kBarProducers, kProdThreads);
+    if (n_pg <= kMaxPages) {
+      for (int i = p; i < n_pg; i += kProdThreads) pages[i] = table[i];
+      pg_ids = pages;
+    }
+    bar_sync(kBarProducers, kProdThreads);
+    rg.issued = 0;
+    auto issue_ahead = [&]() {
+      while (rg.issued < s.n_all) {
+        const int need = units_of(s, rg.issued);
+        if (rg.used + need > W::kUnits) break;
+        if (p == 0)
+          tma_tile<DH>(a, pg_ids, s, rg.issued, ring, rg.head, bars, box,
+                       kmap, vmap, fkmap, fvmap);
+        rg.head = (rg.head + need) % W::kUnits;
+        rg.used += need;
+        ++rg.issued;
+      }
+    };
+    issue_ahead();
+    for (int t = 0; t < s.n_all; ++t) {
+      const int u = rg.rd;
+      mbar_wait(bars + u, (rg.ph >> u) & 1);    // tile t landed
+      rg.ph ^= 1u << u;
+      const int b = seq & 1;
+      if (seq >= 2) bar_sync(kBarEmpty + b, kWsThreads);
+      fill_buffer<DH, T8>(s, t, ring, u,
+                          smem + W::kBufAt + b * Geo<DH>::kTileBytes, p);
+      // the barrier orders the buffer's stores before the consumers'
+      // loads (bar.arrive against their bar.sync)
+      bar_arrive(kBarFull + b, kWsThreads);
+      ++seq;
+      const int need = units_of(s, t);
+      rg.rd = (rg.rd + need) % W::kUnits;
+      rg.used -= need;
+      // every producer is done with the tile's units: they take the next
+      // copies
+      bar_sync(kBarProducers, kProdThreads);
+      issue_ahead();
+    }
+  });
+  // the consumers' last two hand-backs
+  for (int k = max(seq - 2, 0); k < seq; ++k)
+    bar_sync(kBarEmpty + (k & 1), kWsThreads);
+}
+
+// One live item on the consumers (threads 0-255): mma_item's Q tile, warps
+// and warp_tile over the buffers the producers fill; the key slices of an
+// m-tile merged pairwise through the Q tile; the outputs and the
+// writeback as mma_item's.
+template <int DH, typename T8>
+__device__ __forceinline__ void consume_item(const RaggedArgs& a,
+                                             const Block& bk, const Seq& s,
+                                             char* smem, int& seq) {
+  using G = Geo<DH>;
+  using W = Ws<DH>;
+  char* q_tile = smem;
+  const int g = a.gs;
+  const int tq = kMmaRows / g;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q0 = s.q0;
+  const int qlen = s.qlen;
+
+  // the tile's queries (as mma_item's), once the last item's merge has
+  // left the Q tile
+  bar_sync(kBarConsumers, kMmaThreads);
+  {
+    constexpr int kChunks = G::kRowBytes / 16;
+    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+    for (int i = threadIdx.x; i < kMmaRows * kChunks; i += kMmaThreads) {
+      const int rr = i / kChunks;
+      const int c = i - rr * kChunks;
+      const int qi = q0 + rr / g;
+      const bool ok = qi < qlen && row_ok(a, bk, tq, rr);
+      const long long e =
+          ok ? ((static_cast<long long>(s.r) * a.qmax + qi) * a.h +
+                bk.head0 + rr % g) * DH + c * 8
+             : 0;
+      cp_async16(q_tile + rr * G::kStride + c * 16, q + e, ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  bar_sync(kBarConsumers, kMmaThreads);
+
+  // warps to m-tiles (as mma_item)
+  const int n_mt = ((s.fresh_end - q0) * g + 15) / 16;
+  int wpm = G::kKeys / 16;
+  while (wpm > 1 && wpm * n_mt > kMmaWarps) wpm >>= 1;
+  const int mt = warp / wpm;
+  const int slot = warp - mt * wpm;
+  const bool live = mt < n_mt;
+  const int qw_lo = q0 + (16 * mt) / g;
+  const int qw_hi = min(q0 + (16 * mt + 15) / g, qlen - 1);
+  int qrow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) qrow[h] = q0 + (16 * mt + lane / 4 + 8 * h) / g;
+
+  const float scale2 = a.scale * 1.4426950408889634f;   // exp2 units
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int t = 0; t < s.n_all; ++t, ++seq) {
+    const int b = seq & 1;
+    bar_sync(kBarFull + b, kWsThreads);         // buffer b holds tile t
+    if (live) {
+      const char* kt = smem + W::kBufAt + b * G::kTileBytes;
+      const char* vt = kt + G::kKeys * G::kStride;
+      const bool fresh = t >= s.n_ctx_tiles;
+      const int key0 = (fresh ? t - s.n_ctx_tiles : t) * G::kKeys;
+      if (wpm == 1) {
+        warp_tile<DH, G::kKeys, true>(q_tile, kt, vt, mt, slot, fresh, key0,
+                                      s.ctx, qrow, qw_lo, qw_hi, scale2, m,
+                                      l, acc);
+      } else if (wpm == 2) {
+        warp_tile<DH, G::kKeys / 2, true>(q_tile, kt, vt, mt, slot, fresh,
+                                          key0, s.ctx, qrow, qw_lo, qw_hi,
+                                          scale2, m, l, acc);
+      } else {
+        if constexpr (G::kKeys >= 64)
+          warp_tile<DH, G::kKeys / 4, true>(q_tile, kt, vt, mt, slot, fresh,
+                                            key0, s.ctx, qrow, qw_lo, qw_hi,
+                                            scale2, m, l, acc);
+      }
+    }
+    bar_arrive(kBarEmpty + b, kWsThreads);      // ... and is free again
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+
+  // an m-tile's wpm key slices merge pairwise, slot s + step into slot s,
+  // through the Q tile (free once every warp has taken its last tile):
+  // each writer's fragments in the layout its partner holds them
+  if (wpm > 1) {
+    float* part = reinterpret_cast<float*>(q_tile);
+    bar_sync(kBarConsumers, kMmaThreads);
+    for (int step = 1; step < wpm; step <<= 1) {
+      if (live && (slot & (2 * step - 1)) == step) {
+        float* w = part + (warp >> 1) * W::kPart + lane;
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) w[(4 * n + e) * 32] = acc[n][e];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          w[(DH / 2 + h) * 32] = m[h];
+          w[(DH / 2 + 2 + h) * 32] = l[h];
+        }
+      }
+      bar_sync(kBarConsumers, kMmaThreads);
+      if (live && (slot & (2 * step - 1)) == 0) {
+        const float* w = part + ((warp + step) >> 1) * W::kPart + lane;
+        float wa[2], wb[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float mo = w[(DH / 2 + h) * 32];
+          const float lo = w[(DH / 2 + 2 + h) * 32];
+          const float mx = fmaxf(m[h], mo);
+          wa[h] = fast_exp2(m[h] - mx);
+          wb[h] = fast_exp2(mo - mx);
+          l[h] = l[h] * wa[h] + lo * wb[h];
+          m[h] = mx;
+        }
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[n][e] = acc[n][e] * wa[e >> 1] + w[(4 * n + e) * 32] * wb[e >> 1];
+      }
+      if (2 * step < wpm) bar_sync(kBarConsumers, kMmaThreads);
+    }
+  }
+
+  // outputs: live rows divided by their softmax sums, the others exactly 0
+  // (stored, not scaled by 0), from each m-tile's first warp
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+  auto out_row = [&](int rr) {
+    return out + ((static_cast<long long>(s.r) * a.qmax + q0 + rr / g) * a.h +
+                  bk.head0 + rr % g) * DH;
+  };
+  if (wpm == 1 || (live && slot == 0)) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = 16 * mt + lane / 4 + 8 * h;
+      const int qi = qrow[h];
+      if (!row_ok(a, bk, tq, rr) || qi >= a.qmax) continue;
+      const float inv = 1.f / fmaxf(l[h], 1e-30f);
+      uint32_t* o = reinterpret_cast<uint32_t*>(out_row(rr) + 2 * (lane % 4));
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n)
+        o[4 * n] = qi < qlen ? pack_bf16(acc[n][2 * h] * inv,
+                                         acc[n][2 * h + 1] * inv)
+                             : 0u;
+    }
+  }
+  if (wpm > 1) {
+    // rows past the live m-tiles (dead queries) are 0
+    const int live_rows = 16 * n_mt;
+    for (int i = threadIdx.x; i < (kMmaRows - live_rows) * (DH / 8);
+         i += kMmaThreads) {
+      const int rr = live_rows + i / (DH / 8);
+      if (!row_ok(a, bk, tq, rr) || q0 + rr / g >= a.qmax) continue;
+      reinterpret_cast<uint4*>(out_row(rr))[i % (DH / 8)] =
+          make_uint4(0, 0, 0, 0);
+    }
+  }
+
+  // writeback, by the KV head's first sub-group alone
+  if (bk.sub == 0)
+    write_fresh<DH, T8, kMmaThreads>(
+        a, s.r, s.kh, q0, s.fresh_end, s.ctx_raw,
+        a.page_table + static_cast<long long>(s.r) * a.mp, threadIdx.x);
+}
+
+// Persistent, one block an SM, ranked as ragged_mma_kernel; then the
+// producer warpgroup and the consumers part for the rest of the launch.
+// kmap, vmap: the stacked pools as [rows, Hkv * Dh] bytes; fkmap, fvmap:
+// the fresh K/V as [R * Qmax, Hkv * Dh] bf16 (launch_fp8).
+template <int DH, typename T8>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    ragged_fp8_kernel(RaggedArgs a, const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap fkmap,
+                      const __grid_constant__ CUtensorMap fvmap, int box) {
+  extern __shared__ __align__(128) char ws_smem[];
+  __shared__ int pages[kMaxPages];
+  __shared__ int lens[2 * kMaxRows];
+  __shared__ int cost[kMaxPairs];
+  __shared__ int order[kMaxPairs];
+  __shared__ __align__(8) uint64_t bars[kMaxUnits];   // a ring unit's copies
+  if (threadIdx.x == 0) {
+    for (int u = 0; u < Ws<DH>::kUnits; ++u) mbar_init(bars + u, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  const bool rank = ranked(a);
+  if (rank) rank_pairs<DH, kWsThreads>(a, lens, cost, order);
+  else __syncthreads();                 // the mbarriers
+  const int* q_lens = rank ? lens : a.q_lens;
+  const int* ctx_lens = rank ? lens + kMaxRows : a.ctx_lens;
+  if (threadIdx.x >= kMmaThreads) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 ::"n"(kProducerRegs<DH>));
+    if (threadIdx.x == kMmaThreads) {     // the copies' descriptors, cached
+      const CUtensorMap* maps[4] = {&kmap, &vmap, &fkmap, &fvmap};
+      for (int i = 0; i < 4; ++i)
+        asm volatile("prefetch.tensormap [%0];" ::"l"(
+                         reinterpret_cast<uint64_t>(maps[i]))
+                     : "memory");
+    }
+    produce<DH, T8>(a, rank, cost, order, q_lens, ctx_lens, ws_smem, pages,
+                    bars, box, &kmap, &vmap, &fkmap, &fvmap);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 ::"n"(kConsumerRegs<DH>));
+    const int tq = kMmaRows / a.gs;
+    int seq = 0;
+    walk_items(a, rank, cost, order, [&](const Block& bk, bool live) {
+      if (live)
+        consume_item<DH, T8>(a, bk, seq_of<DH>(a, bk, q_lens, ctx_lens),
+                             ws_smem, seq);
+      else
+        zero_tile<DH>(a, bk, bk.tile * tq, tq);
+    });
+  }
+}
+
+// The tensor maps of the producers' copies: a 2-D view [rows, cols] of
+// `base` (rows `row_bytes` apart), boxes of DH columns by box_rows rows
+// landing dense; rows past `rows` come as zeros.
+inline cudaError_t encode_rows(CUtensorMap* map, const void* base,
+                               CUtensorMapDataType type, int elem_bytes,
+                               long long cols, long long rows, int box_cols,
+                               int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t ones[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// The pools' box: the largest power of two up to Geo's kKeys that divides
+// the page size (a box never leaves its page), at least 128 bytes of rows
+// (the copies land 128-byte aligned); the pools' view takes every row the
+// 32-bit coordinates reach (the producers copy only rows of the table's
+// pages).
+template <int DH, typename T8>
+cudaError_t launch_fp8(const RaggedArgs& a, int grid, cudaStream_t stream) {
+  using G = Geo<DH>;
+  const int box = std::min(G::kKeys, a.page_size & -a.page_size);
+  if (box * DH % 128) return cudaErrorInvalidValue;
+  const long long fused = static_cast<long long>(a.hkv) * DH;
+  CUtensorMap kmap, vmap, fkmap, fvmap;
+  cudaError_t err;
+  const long long pool_rows = 1ll << 31;
+  if ((err = encode_rows(&kmap, a.k_pages, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                         fused, pool_rows, DH, box)) != cudaSuccess ||
+      (err = encode_rows(&vmap, a.v_pages, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                         fused, pool_rows, DH, box)) != cudaSuccess ||
+      (err = encode_rows(&fkmap, a.fresh_k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         2, fused, static_cast<long long>(a.r) * a.qmax, DH,
+                         G::kKeys)) != cudaSuccess ||
+      (err = encode_rows(&fvmap, a.fresh_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         2, fused, static_cast<long long>(a.r) * a.qmax, DH,
+                         G::kKeys)) != cudaSuccess)
+    return err;
+  static bool attr_set = false;        // per instantiation (one card)
+  if (!attr_set) {
+    err = cudaFuncSetAttribute(ragged_fp8_kernel<DH, T8>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Ws<DH>::kSmem);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  ragged_fp8_kernel<DH, T8><<<grid, kWsThreads, Ws<DH>::kSmem, stream>>>(
+      a, kmap, vmap, fkmap, fvmap, box);
+  return cudaGetLastError();
+}
+
+template <typename T8>
+cudaError_t fp8_by_width(int dh, const RaggedArgs& a, int grid,
                          cudaStream_t st) {
   switch (dh) {
-    case 32: return launch_mma<32, TKV>(a, grid, st);
-    case 64: return launch_mma<64, TKV>(a, grid, st);
-    case 128: return launch_mma<128, TKV>(a, grid, st);
-    case 256: return launch_mma<256, TKV>(a, grid, st);
+    case 32: return launch_fp8<32, T8>(a, grid, st);
+    case 64: return launch_fp8<64, T8>(a, grid, st);
+    case 128: return launch_fp8<128, T8>(a, grid, st);
+    case 256: return launch_fp8<256, T8>(a, grid, st);
     default: return cudaErrorInvalidValue;
   }
 }

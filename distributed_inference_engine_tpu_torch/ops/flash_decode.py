@@ -18,15 +18,18 @@ Stacked pools: the engine passes the whole ``[L*N, P, Hkv*Dh]`` pool and
 
 Both kernels take any query-head group ``G = H / Hkv``, as the JAX
 launchers do: a KV head's G query heads are cut into sub-groups of the
-kernels' 1, 2, 4 or 8-row instances (``paged_attention.py:subgroup``;
-Qwen2's G = 7 is one sub-group of 8, its last row dead), one block a
-sub-group. Both kernels cut each slot's prefix into ``n_split`` runs of ``chunk``
-keys (``paged_split`` on ``mp * page_size`` keys: shapes only, the lengths
+kernels' 1, 2, 4 or 8-row instances, or 16 rows on the tensor cores at
+head_dim 128 (``decode_subgroup``; Qwen2's G = 7 is one sub-group of 8,
+its last row dead; G 9-16 one of 16, which reads each K/V tile once for
+all of them), one block a sub-group. Both kernels cut each slot's prefix
+into ``n_split`` runs of ``chunk`` keys (``decode_plan``: ``paged_split``
+on ``mp * page_size`` keys: shapes only, the lengths
 are never read back), one block per (slot, KV head, run); the last run also
 takes the side window. The runs' fp32 partials merge in the same launch
 (the last block of each (slot, KV head) to finish merges them), so a call
-is one device launch and counts one under the kernel's name. bf16 q over
-bf16, e4m3 or e5m2 pools runs on the tensor cores, every other dtype pair
+is one device launch and counts one under the kernel's name (and under
+``<kernel>.rows16`` on the 16-row instance). bf16 q over bf16, e4m3 or
+e5m2 pools runs on the tensor cores, every other dtype pair
 on the CUDA cores. fp8 pools (the fp8 instances, counted also as
 ``<kernel>.fp8`` for e4m3 and ``<kernel>.e5m2`` for e5m2) are widened in
 the kernel, exactly; the side window and the fresh row stay in q's dtype,
@@ -40,13 +43,17 @@ from typing import List, Optional, Tuple
 import torch
 
 from . import _cuda
-from .attention import merge_attention, window_decode_attention
+from .attention import is_fp8, merge_attention, window_decode_attention
 from .paged_attention import paged_attention_xla, paged_split, subgroup
 
 # the shortest run of prefix keys a block takes (paged_split's
 # min_chunk): a lone slot at 8 KV heads gets 32 runs, not the paged
 # kernel's 8, where a block's time is mostly its fixed chain of steps
 MIN_CHUNK = 64
+# ... on the 16-row instance over fp8 pools: four of its 64-key tiles (at
+# G 12 and 16, B 8, Hkv 4, runs of two measured no faster than the two
+# 8-row sub-groups they replace: PERF.md)
+ROWS16_FP8_MIN_CHUNK = 256
 
 def flash_decode_attention_plain(
     q: torch.Tensor,            # [B, H, Dh]
@@ -108,14 +115,43 @@ def _check_decode(name, q, k_pages, v_pages, page_table, prefix_lens,
     return base
 
 
+def decode_subgroup(g: int, dh: int, q_dtype: torch.dtype,
+                    kv_dtype: torch.dtype) -> Tuple[int, int]:
+    """(GS, n_sub) of the kernels' launch for a query-head group ``g``:
+    ``subgroup``'s 1, 2, 4 or 8 rows, but 16 above 8 where the tensor
+    cores run (bf16 q over bf16, e4m3 or e5m2 pools) at head_dim 128, the
+    only width with a 16-row instance (``csrc/common.cuh``
+    subgroup_rows)."""
+    mma = q_dtype == torch.bfloat16 and (kv_dtype == torch.bfloat16
+                                         or is_fp8(kv_dtype))
+    if mma and dh == 128 and g > 8:
+        return 16, -(-g // 16)
+    return subgroup(g)
+
+
 def flash_decode_split(b: int, n_kv_heads: int, page_size: int, mp: int,
-                       device: torch.device, n_sub: int = 1
-                       ) -> Tuple[int, int]:
+                       device: torch.device, n_sub: int = 1,
+                       min_chunk: int = MIN_CHUNK) -> Tuple[int, int]:
     """(n_split, chunk) of the kernels' grid: the most prefix keys a slot
     can hold (``mp * page_size``) over ``paged_split``, for ``n_sub``
-    query-head sub-groups a KV head (``subgroup``)."""
+    query-head sub-groups a KV head (``decode_subgroup``), runs of at
+    least ``min_chunk`` keys."""
     return paged_split(b, n_kv_heads * n_sub, max(1, mp * page_size),
-                       _cuda.sm_count(device.index), min_chunk=MIN_CHUNK)
+                       _cuda.sm_count(device.index), min_chunk=min_chunk)
+
+
+def decode_plan(b: int, h: int, n_kv_heads: int, dh: int, page_size: int,
+                mp: int, device: torch.device, q_dtype: torch.dtype,
+                kv_dtype: torch.dtype) -> Tuple[int, int, int, int]:
+    """(GS, n_sub, n_split, chunk) of a launch of either kernel: the
+    sub-groups (``decode_subgroup``) and the split grid
+    (``flash_decode_split``; runs of ``ROWS16_FP8_MIN_CHUNK`` keys at
+    least on the 16-row instance over fp8 pools)."""
+    gs, n_sub = decode_subgroup(h // n_kv_heads, dh, q_dtype, kv_dtype)
+    min_chunk = (ROWS16_FP8_MIN_CHUNK if gs == 16 and is_fp8(kv_dtype)
+                 else MIN_CHUNK)
+    return (gs, n_sub) + flash_decode_split(b, n_kv_heads, page_size, mp,
+                                            device, n_sub, min_chunk)
 
 
 def fp8_tile_keys(dh: int) -> int:
@@ -163,9 +199,9 @@ def _launch(name, fn, q, k_pages, page_table, side_k, n_kv_heads, base,
     """Size the split grid, take the scratch, launch ``fn`` and count."""
     b, h, dh = q.shape
     page_size, mp = k_pages.shape[1], page_table.shape[1]
-    _gs, n_sub = subgroup(h // n_kv_heads)
-    n_split, chunk = flash_decode_split(b, n_kv_heads, page_size, mp,
-                                        q.device, n_sub)
+    gs, n_sub, n_split, chunk = decode_plan(
+        b, h, n_kv_heads, dh, page_size, mp, q.device, q.dtype,
+        k_pages.dtype)
     ws, cnt = _cuda.split_scratch(q.device, b * h * n_split * (dh + 2),
                        b * n_kv_heads * n_sub)
     out = torch.empty_like(q)
@@ -175,7 +211,8 @@ def _launch(name, fn, q, k_pages, page_table, side_k, n_kv_heads, base,
              _cuda.dtype_code(k_pages.dtype, pool=True),
              _cuda.stream_ptr(q.device))
     _cuda.check(err, name)
-    _cuda.count_launch(*_cuda.pool_instance(name, k_pages.dtype))
+    _cuda.count_launch(*_cuda.pool_instance(name, k_pages.dtype),
+                       *((f"{name}.rows16",) if gs == 16 else ()))
     return out
 
 

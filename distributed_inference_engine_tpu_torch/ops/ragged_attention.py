@@ -9,7 +9,9 @@ visible iff ``j < ctx_lens[r]``; fresh key j is visible to query i iff
 ``j <= i < q_lens[r]``; output rows ``i >= q_lens[r]`` are 0. The fresh
 K/V, cast to the pool dtype, lands at positions ``[ctx_lens[r],
 ctx_lens[r] + q_lens[r])`` of the row's pages, straddling pages through
-the table.
+the table. A key a query may not see weighs exactly 0 (the TPU kernel's
+``_ragged_block`` zeroes its probability), so a query whose visible keys
+all score -inf gets 0.
 
 ``ragged_attention`` launches the hand-written CUDA kernel
 (``csrc/ragged_attention.cuh``, replacing the TPU kernel
@@ -19,7 +21,9 @@ the plain version for a CPU tensor. The instance follows the dtypes
 tensor cores (``mma``), every other pair the CUDA cores (``simt``); an fp8
 pool (counted also as ``ragged_attention.fp8`` for e4m3,
 ``ragged_attention.e5m2`` for e5m2) takes the fresh K/V rounded with the
-JAX cast (``astype_kv``), attends to those bits and writes them.
+JAX cast (``astype_kv``), attends to those bits and writes them; there
+the tensor-core instance is warp specialised (a producer warpgroup widens
+the fp8 tiles and rounds the fresh ones for the mma warps).
 Any query-head group ``g = H / Hkv`` is taken, as the JAX launcher
 takes it: a tile holds ``floor(rows / g)`` queries (``ragged_group``,
 ``ragged_plan``), the rows past them dead; above 64 heads a KV head's
@@ -45,7 +49,40 @@ from typing import List, Optional, Tuple
 import torch
 
 from . import _cuda
-from .attention import astype_kv, is_fp8, raw_view, suffix_attention
+from .attention import NEG_INF, _scale, astype_kv, is_fp8, raw_view
+
+
+def _ragged_softmax(q, k_ctx, v_ctx, n_ctx, k_suf, v_suf, suffix_lens):
+    """``suffix_attention``'s attention (q [R, Ts, H, Dh], context and
+    fresh K/V in q's dtype) with the TPU kernel's rule for keys a query
+    may not see (``ops/ragged_attention.py:_ragged_block``): the row max
+    starts at NEG_INF and their probabilities are zeroed before they are
+    summed or multiplied, and the sum is floored at 1e-30. A query whose
+    visible keys all score -inf then gives 0, as the TPU kernel and the
+    CUDA kernel do, where ``suffix_attention`` averages the masked keys'
+    V. On finite inputs the result is ``suffix_attention``'s bit for bit:
+    there a masked key's exp(-1e30 - m) is already 0 and the sum is at
+    least 1."""
+    r, ts, h, dh = q.shape
+    tc, hkv = k_ctx.shape[1], k_ctx.shape[2]
+    qg = q.reshape(r, ts, hkv, h // hkv, dh)
+    k_all = torch.cat([k_ctx, k_suf], dim=1)
+    v_all = torch.cat([v_ctx, v_suf], dim=1)
+    scores = torch.einsum("bikgd,bjkd->bkgij", qg, k_all).float() * \
+        _scale(dh)
+    i = torch.arange(ts, device=q.device)[:, None]
+    j = torch.arange(tc + ts, device=q.device)[None, :]
+    suf_j = j - tc
+    mask = (((j < tc) & (j < n_ctx[:, None, None]))
+            | ((j >= tc) & (suf_j <= i)
+               & (suf_j < suffix_lens[:, None, None])))[:, None, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    m = torch.clamp(scores.amax(dim=-1, keepdim=True), min=NEG_INF)
+    probs = torch.where(mask, torch.exp(scores - m),
+                        torch.zeros_like(scores))
+    probs = probs / torch.clamp(probs.sum(dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bkgij,bjkd->bikgd", probs.to(v_all.dtype), v_all)
+    return out.reshape(r, ts, h, dh).to(q.dtype)
 
 
 def ragged_attention_plain(
@@ -64,8 +101,11 @@ def ragged_attention_plain(
 ):
     """The JAX reference ``ragged_attention_xla`` on one layer of the
     stacked pools: round the fresh K/V through the pool dtype, gather
-    each row's table, ``suffix_attention``, zero rows ``i >= q_len``,
-    write the fresh K/V into the pages. Returns (out, k_pages, v_pages)."""
+    each row's table, attend (``_ragged_softmax``: ``suffix_attention``
+    with the TPU kernel's rule for invisible keys, so that a query whose
+    visible keys all score -inf gets 0, as from the TPU and CUDA kernels),
+    zero rows ``i >= q_len``, write the fresh K/V into the pages. Returns
+    (out, k_pages, v_pages)."""
     if layer is not None:
         n = n_pages_per_layer or k_pages.shape[0]
         kp = k_pages[layer * n:(layer + 1) * n]           # views, no copy
@@ -86,8 +126,8 @@ def ragged_attention_plain(
                                                          n_kv_heads, dh)
     ctx_v = raw_view(vp)[table].view(vp.dtype).reshape(r, mp * p,
                                                          n_kv_heads, dh)
-    out = suffix_attention(q, ctx_k.to(q.dtype), ctx_v.to(q.dtype), ctx,
-                           fk.to(q.dtype), fv.to(q.dtype), ql)
+    out = _ragged_softmax(q, ctx_k.to(q.dtype), ctx_v.to(q.dtype), ctx,
+                          fk.to(q.dtype), fv.to(q.dtype), ql)
     local = torch.arange(qmax, device=dev)[None, :]
     row_valid = local < ql[:, None]                               # [R, Qmax]
     out = torch.where(row_valid[..., None, None], out,
@@ -271,6 +311,14 @@ def ragged_attention(
     _cuda.require(0 <= base and base + n <= rows,
                   f"{name}: layer {layer} outside the stacked pool")
     inst = ragged_instance(q.dtype, k_pages.dtype)
+    if inst == "mma" and is_fp8(k_pages.dtype):
+        # the fp8 instance copies a page's rows in boxes of the largest
+        # power of two up to its tile's keys that divides the page size,
+        # landing 128-byte aligned (csrc/ragged_attention.cuh launch_fp8)
+        box = min(64 if dh <= 128 else 32, page_size & -page_size)
+        _cuda.require(box * dh % 128 == 0,
+                      f"{name}: page size {page_size} gives {box}-row "
+                      f"copies of {dh} bytes, not whole 128-byte pieces")
     _, n_tiles, grid = ragged_plan(r, qmax, h, n_kv_heads, inst,
                                    _cuda.sm_count(q.device.index))
     out = torch.empty_like(q)

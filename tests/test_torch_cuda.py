@@ -407,7 +407,8 @@ def test_flash_decode_bf16_tensor_cores(card, fw, h, hkv, dh):
 
 
 # query-head groups past the 1, 2, 4 and 8-row instances: G 3, 5, 6, 7
-# (Qwen2-7B's widths), 12, 16 and 24 (two and three sub-groups of 8)
+# (Qwen2-7B's widths), 12, 16 and 24 (sub-groups of 8, or at Dh 128 on the
+# tensor cores of 16)
 ANY_GROUP = [(6, 2, 64), (10, 2, 64), (12, 2, 128), (28, 4, 128),
              (24, 2, 64), (32, 2, 128), (24, 1, 32)]
 POOL_PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
@@ -425,6 +426,25 @@ def test_flash_decode_any_group(card, fw, dtype, kv_dtype, h, hkv, dh):
     never stored (every output row checked), fw's side write once."""
     _fd_split_case(card, dtype, kv_dtype, h, hkv, dh, 16, 40,
                    [3, 0, 16, 255, 640], fw, seed=160 + fw + h)
+
+
+@pytest.mark.parametrize("fw", [False, True])
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, FP8, E5M2],
+                         ids=["bf16", "e4m3", "e5m2"])
+@pytest.mark.parametrize("g", [9, 10, 11, 12, 13, 14, 15, 16, 24])
+def test_flash_decode_16_row_instance(card, fw, kv_dtype, g):
+    """Both flash-decode kernels at G 9-16 and 24, bf16 q over bf16, e4m3
+    and e5m2 pools at Dh 128: one 16-row sub-group a KV head (two at G
+    24, the second's rows past G dead), counted under ``.rows16``, held
+    to the plain versions as ``_fd_split_case`` holds them; fw's fresh row
+    written once."""
+    name = "flash_decode_fw" if fw else "flash_decode"
+    assert fd.decode_subgroup(g, 128, torch.bfloat16, kv_dtype) == (
+        16, -(-g // 16))
+    before = _cuda.LAUNCHES[f"{name}.rows16"]
+    _fd_split_case(card, torch.bfloat16, kv_dtype, 2 * g, 2, 128, 16, 40,
+                   [3, 0, 16, 255, 640], fw, seed=300 + g + fw)
+    assert _cuda.LAUNCHES[f"{name}.rows16"] == before + 1
 
 
 @pytest.mark.parametrize("kv8", list(FP8S), ids=FP8_IDS)
@@ -602,19 +622,20 @@ def _minus_inf_rows(q, kp, table, ctx, ql, fk, kv8, hkv, layer, n):
 
 
 def _ragged_specials(out, ref, dead):
-    """The ragged kernel over infinite fresh keys: +-inf where the plain
-    version has them, NaN only where it has NaN, and finite values where
-    it is finite, outside the ``dead`` vectors (``_minus_inf_rows``). The
-    plain version (as JAX's ragged_attention_xla) also multiplies every
-    masked key's V by its probability 0, so a later fresh key's infinite V
-    makes an earlier query's dim NaN (0 x inf); the kernel multiplies the
+    """The ragged kernel over infinite fresh keys, held to the plain
+    version, which follows the TPU kernel's rule (``_ragged_block``) as
+    the CUDA kernel does: outside the ``dead`` vectors
+    (``_minus_inf_rows``) +-inf where the plain version has them, NaN only
+    where it has NaN, finite values where it is finite; on the dead
+    vectors, whose visible keys all score -inf, every probability is 0:
+    both give exactly 0, NaN only in a dim where a key they multiply has
+    an infinite V (0 x inf). One case stays outside this contract: a
+    masked key whose V is infinite. The plain version (as both JAX
+    implementations) multiplies every masked key's V by its probability
+    0, so such a key makes a query's dim NaN; the kernel multiplies the
     masked keys of the tiles it visits alone, so where the plain version
-    is NaN the kernel may be NaN, +-inf or finite. Where every visible key
-    scores -inf the plain version's -1e30 mask becomes the row's largest
-    score and it averages the masked keys' V; the kernel gives the empty
-    row's 0 there (every probability 0), NaN in a dim where a key of a
-    tile it visits has an infinite V (0 x inf), where the plain version is
-    not finite either."""
+    is NaN the kernel may be NaN, +-inf or finite, and on a dead vector
+    0 or NaN."""
     keep = ~dead[..., None].expand_as(out)
     o, r = out.float()[keep], ref.float()[keep]
     assert not (torch.isnan(o) & ~torch.isnan(r)).any()
@@ -622,9 +643,10 @@ def _ragged_specials(out, ref, dead):
     assert torch.equal(o[inf], r[inf])
     assert bool(torch.isfinite(o[torch.isfinite(r)]).all())
     o, r = out.float()[~keep], ref.float()[~keep]
-    nan = torch.isnan(o)
-    assert bool((o[~nan] == 0).all())
-    assert not bool(torch.isfinite(r[nan]).any())
+    assert bool(((r == 0) | torch.isnan(r)).all())
+    assert bool(((o == 0) | torch.isnan(o)).all())
+    assert not (torch.isnan(o) & ~torch.isnan(r)).any()
+    assert bool((o[r == 0] == 0).all())
 
 
 @pytest.mark.parametrize("kv8", list(FP8S), ids=FP8_IDS)

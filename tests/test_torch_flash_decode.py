@@ -36,6 +36,7 @@ from distributed_inference_engine_tpu_torch.models.llama import (
 from distributed_inference_engine_tpu_torch.ops import flash_decode as tfd
 from distributed_inference_engine_tpu_torch.ops.flash_decode import (
     MIN_CHUNK,
+    decode_subgroup,
     flash_decode_attention,
     flash_decode_attention_fw,
     flash_decode_split,
@@ -118,7 +119,8 @@ def _ground_truth(c, kp, vp, hkv):
     return np.asarray(out)[:, 0]
 
 
-@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2), (8, 2)])
+# G 1, 2, 4, and G 12 and 16 (the kernels' 16-row instance at Dh 128)
+@pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2), (8, 2), (24, 2), (32, 2)])
 def test_plain_matches_xla_and_ground_truth(h, hkv):
     c = _case(0, h, hkv)
     got = _port(c, hkv)
@@ -151,7 +153,7 @@ SIDE_IDX = np.array([0, 1, 2, W, 3, W - 1], np.int32)
 ACTIVE = np.array([1, 1, 0, 0, 1, 1], np.int32)
 
 
-@pytest.mark.parametrize("h,hkv", [(4, 2), (8, 2)])
+@pytest.mark.parametrize("h,hkv", [(4, 2), (8, 2), (24, 2), (32, 2)])
 def test_fw_plain_matches_onehot_write_and_xla(h, hkv):
     """The fw plain version: the fresh K/V lands at side_idx for active
     slots only (not for inactive ones, nor at side_idx = W), and the
@@ -373,6 +375,48 @@ def test_flash_decode_grid_at_llama3_8b_shapes(b, max_keys, want):
     """The kernels' grid on a 132-SM card at 8 KV heads (paged_split with
     flash-decode's shortest run), from shapes only."""
     assert paged_split(b, 8, max_keys, 132, min_chunk=MIN_CHUNK) == want
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "float8_e4m3fn", "float8_e5m2",
+                                "float32"])
+@pytest.mark.parametrize("q", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_decode_subgroup_plan(dh, q, kv):
+    """The kernels' sub-groups for G 1-32 (``csrc/common.cuh``
+    subgroup_rows, ``flash_decode.cuh`` by_group): 1, 2, 4 or 8 rows up
+    to G 8; above it one 16-row sub-group per 16 heads where the tensor
+    cores run (bf16 q over bf16, e4m3 or e5m2 pools) at Dh 128, else
+    sub-groups of 8. G 12 and 16 take one 16-row block a KV head there."""
+    wide = (q == "bfloat16" and kv != "float32" and dh == 128)
+    for g in range(1, 33):
+        gs = (1 if g == 1 else 2 if g == 2 else 4 if g <= 4 else
+              8 if g <= 8 or not wide else 16)
+        assert decode_subgroup(g, dh, getattr(torch, q),
+                               getattr(torch, kv)) == (gs, -(-g // gs)), g
+    assert decode_subgroup(12, 128, torch.bfloat16, torch.bfloat16) == (16, 1)
+    assert decode_subgroup(16, 128, torch.bfloat16,
+                           torch.float8_e5m2) == (16, 1)
+    assert decode_subgroup(24, 128, torch.bfloat16,
+                           torch.float8_e4m3fn) == (16, 2)
+    assert decode_subgroup(12, 128, torch.float32, torch.bfloat16) == (8, 2)
+
+
+@pytest.mark.parametrize("g,kv,want", [
+    (12, "bfloat16", (16, 1, 16, 128)),
+    (16, "float8_e4m3fn", (16, 1, 8, 256)),    # runs of four fp8 tiles
+    (12, "float8_e5m2", (16, 1, 8, 256)),
+    (24, "float8_e4m3fn", (16, 2, 8, 256)),
+    (7, "float8_e4m3fn", (8, 1, 16, 128)),     # the 8-row grid as before
+    (4, "bfloat16", (4, 1, 16, 128)),
+])
+def test_decode_plan_at_b8_hkv4(monkeypatch, g, kv, want):
+    """The kernels' launch (sub-groups and split grid) on a 132-SM card
+    at B 8, Hkv 4, Dh 128, 2,048 keys a slot: the 16-row instance over
+    fp8 pools takes runs of ``ROWS16_FP8_MIN_CHUNK`` keys, every other
+    launch ``MIN_CHUNK``'s grid."""
+    monkeypatch.setattr(tfd._cuda, "sm_count", lambda index: 132)
+    assert tfd.decode_plan(8, 4 * g, 4, 128, 128, 16, torch.device("cpu"),
+                           torch.bfloat16, getattr(torch, kv)) == want
 
 
 @pytest.mark.parametrize("dh", [32, 64, 128, 256])

@@ -413,6 +413,39 @@ def _ragged_case(seed, dtype, fresh_scale, kv, h=8, hkv=2, layers=2):
                 fv=_cast(rs.randn(r, qmax, hkv, DH) * fresh_scale, dtype))
 
 
+def _ragged_block_rows(c, kv, pools, jo):
+    """``ragged_attention_xla``'s output ``jo`` with the TPU kernel's rule
+    (``_ragged_block``) on the (row, query, head) rows whose visible keys
+    all score -inf: there the probabilities are 0, so each output element
+    is 0, or NaN where a key the plain version multiplies (the row's whole
+    gathered table and its fresh rows) has a non-finite V in that dim (0 x
+    inf); ``ragged_attention_xla`` averages the masked keys' V instead.
+    ``pools``: layer 1's K/V pools before the launch."""
+    want = np.array(_f32(jo), np.float32)
+    q = _f32(c["q"]).astype(np.float64)
+    kp, vp = (_f32(x).astype(np.float64) for x in pools)
+    fk = _f32(jnp.asarray(c["fk"]).astype(kv)).astype(np.float64)
+    fv = _f32(jnp.asarray(c["fv"]).astype(kv)).astype(np.float64)
+    hkv = c["hkv"]
+    r, qmax, h, dh = q.shape
+    g = h // hkv
+    with np.errstate(invalid="ignore"):
+        for b in range(r):
+            kc = kp[c["table"][b]].reshape(-1, hkv, dh)
+            vc = vp[c["table"][b]].reshape(-1, hkv, dh)
+            ctx = int(c["ctx"][b])
+            for i in range(int(c["q_lens"][b])):
+                for hh in range(h):
+                    kvh = hh // g
+                    k = np.concatenate([kc[:ctx, kvh], fk[b, :i + 1, kvh]])
+                    if not (k @ q[b, i, hh] == -np.inf).all():
+                        continue
+                    v = np.concatenate([vc[:, kvh], fv[b, :, kvh]])
+                    want[b, i, hh] = np.where(
+                        np.isfinite(v).all(0), 0.0, np.nan)
+    return want
+
+
 @kv8
 @pytest.mark.parametrize("past", [False, True], ids=["2.0", "past limit"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -421,7 +454,8 @@ def test_ragged_plain_matches_jax_on_fp8_pools(dtype, past, kv):
     written back byte-equal to ``ragged_attention_xla``'s pools; past the
     limit (scale 300 for e4m3, 3e4 for e5m2) part of it overflows to NaN
     bytes (e5m2: ±inf), and the outputs of the rows that see one are NaN
-    (or ±inf) in both."""
+    (or ±inf) in both; a row whose visible keys all score -inf follows the
+    TPU kernel's rule (``_ragged_block_rows``), not the XLA reference's."""
     fresh_scale = PAST[kv] if past else 2.0
     c = _ragged_case(5, dtype, fresh_scale, kv)
     layer, n = 1, c["n"]
@@ -442,7 +476,9 @@ def test_ragged_plain_matches_jax_on_fp8_pools(dtype, past, kv):
         np.testing.assert_allclose(_f32(out), _f32(jo), rtol=0,
                                    atol=ATOL[dtype])
     else:
-        _specials_match(out, jo, exact=dtype == "float32")
+        _specials_match(out, _ragged_block_rows(
+            c, kv, (c["kp"][sl], c["vp"][sl]), jo),
+            exact=dtype == "float32")
     if past:
         special = np.isnan if kv == FP8 else np.isinf
         assert special(_f32(jkp)).any()

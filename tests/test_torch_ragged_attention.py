@@ -157,6 +157,91 @@ def test_low_precision_pools(q_dtype, kv_dtype, atol):
     _check(_case(2, 8, 2, q_dtype=q_dtype, kv_dtype=kv_dtype), 2, atol=atol)
 
 
+def _ragged_block_rule(q, kc, vc, ctx, fk, fv, qlen, scale):
+    """The TPU kernel's rule (``_ragged_block``) in numpy, one (row,
+    query, head) at a time over its visible keys only: the max starts at
+    NEG_INF, the probabilities of the keys it may not see are 0 (so they
+    are left out), out = sum(p v) / max(sum p, 1e-30); rows past q_len
+    are 0."""
+    r, qmax, h, dh = q.shape
+    hkv = kc.shape[2]
+    out = np.zeros(q.shape, np.float64)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for b in range(r):
+            for i in range(qlen[b]):
+                for hh in range(h):
+                    kv = hh // (h // hkv)
+                    k = np.concatenate([kc[b, :ctx[b], kv], fk[b, :i + 1, kv]])
+                    v = np.concatenate([vc[b, :ctx[b], kv], fv[b, :i + 1, kv]])
+                    s = (k.astype(np.float64) @ q[b, i, hh]) * scale
+                    m = max(-1e30, s.max())
+                    p = np.exp(s - m)
+                    out[b, i, hh] = (p @ v) / max(p.sum(), 1e-30)
+    return out
+
+
+def test_plain_gives_zero_where_every_visible_key_scores_neg_inf():
+    """C2: a query whose visible keys all score -inf gets 0 from the plain
+    version, as from the TPU kernel's ``_ragged_block`` (and the CUDA
+    kernel), held against a numpy reference of that rule; +inf rows are
+    NaN in both, finite rows agree within 1e-5. KV head 0's keys of both
+    rows (context and fresh) hold +inf in dim 0, so a head of that group
+    scores -inf where its q[0] < 0 and +inf where it is > 0; V is
+    finite."""
+    rs = np.random.RandomState(17)
+    r, h, hkv, mp = 2, 4, 2, 2
+    rows = [(3, 4), (5, 1)]                  # a chunk and a decode row
+    ctx = np.array([c for c, _ in rows], np.int32)
+    ql = np.array([q for _, q in rows], np.int32)
+    qmax = int(ql.max())
+    q = rs.randn(r, qmax, h, DH).astype(np.float32)
+    q[..., 0, 0] = -np.abs(q[..., 0, 0]) - 0.5   # head 0: -inf scores
+    q[..., 1, 0] = np.abs(q[..., 1, 0]) + 0.5    # head 1: +inf scores
+    fk = rs.randn(r, qmax, hkv, DH).astype(np.float32)
+    fv = rs.randn(r, qmax, hkv, DH).astype(np.float32)
+    kp = rs.randn(r * mp, P, hkv * DH).astype(np.float32)
+    vp = rs.randn(r * mp, P, hkv * DH).astype(np.float32)
+    kp.reshape(r * mp, P, hkv, DH)[:, :, 0, 0] = np.inf
+    fk[:, :, 0, 0] = np.inf
+    table = np.arange(r * mp, dtype=np.int32).reshape(r, mp)
+    kc = kp.reshape(r, mp * P, hkv, DH)
+    vc = vp.reshape(r, mp * P, hkv, DH)
+    want = _ragged_block_rule(q, kc, vc, ctx, fk, fv, ql,
+                              1.0 / np.sqrt(np.float32(DH)))
+    got, _, _ = ragged_attention(
+        *(_t(a) for a in (q, kp, vp, table, ctx, ql, fk, fv)),
+        n_kv_heads=hkv)
+    got = tensor_to_numpy(got)
+    valid = np.arange(qmax)[None, :] < ql[:, None]
+    assert (got[valid][:, 0] == 0).all() and (want[valid][:, 0] == 0).all()
+    assert np.isnan(got[valid][:, 1]).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5, equal_nan=True)
+
+
+def test_plain_on_finite_inputs_is_suffix_attention_bit_for_bit():
+    """On finite inputs the plain version's attention is the shared
+    ``suffix_attention`` (the JAX ``ragged_attention_xla``'s) exactly on
+    every live query: the zeroed probabilities were already 0 there."""
+    from distributed_inference_engine_tpu_torch.ops.attention import (
+        suffix_attention)
+    from distributed_inference_engine_tpu_torch.ops.ragged_attention import (
+        _ragged_softmax)
+    for q_dtype in ("float32", "bfloat16"):
+        c = _case(4, 8, 2, q_dtype=q_dtype, kv_dtype=q_dtype)
+        r = len(ROWS)
+        kc = _t(c["kp"])[torch.as_tensor(c["table"]).long()].reshape(
+            r, MP * P, 2, DH)
+        vc = _t(c["vp"])[torch.as_tensor(c["table"]).long()].reshape(
+            r, MP * P, 2, DH)
+        args = (_t(c["q"]), kc, vc, _t(CTX).long(), _t(c["fk"]),
+                _t(c["fv"]), _t(QLEN).long())
+        # the live queries (an inert row sees no key: suffix_attention
+        # averages, this gives 0, and the plain version stores 0 there)
+        live = torch.arange(QMAX)[None, :] < _t(QLEN)[:, None]
+        assert torch.equal(_ragged_softmax(*args)[live],
+                           suffix_attention(*args)[live])
+
+
 def test_forward_mixed_step_matches_jax():
     """One mixed step of decode and chunk rows through every layer (one
     ragged call per layer on the stacked pools): the last-token hidden
