@@ -95,9 +95,8 @@ Phases, each failing loudly (any failure exits non-zero):
    - deploys ``serve`` over ``load_model``: the full 32-layer llama3-8b
      (random bf16 weights from seed 0, ``attention_impl=pallas-decode``,
      ``warmup=1``: the engine's warmup runs at load and captures its
-     graphs), reading the worker's device memory before (``nvidia-smi
-     --query-compute-apps``, or the card's used memory where the tool does
-     not list the pid); the same ``load_model`` again returns at once;
+     graphs), reading the worker's device memory before
+     (``WorkerMemory``); the same ``load_model`` again returns at once;
    - the ``serve`` wave: 8 concurrent requests (prompts of 16-600
      tokens, two sharing a 256-token prefix, 32 new tokens each), with
      counts, lengths, finish reasons, each result's ``worker_trace``
@@ -122,7 +121,11 @@ Phases, each failing loudly (any failure exits non-zero):
      ``model.swap``, a timeline a model whose ``compile`` records are its
      warm-up's graph captures);
    - ``unload_model`` of both: the worker's memory back within
-     ``UNLOAD_SLACK_GIB`` of the reading before the first load; a reload
+     ``UNLOAD_SLACK_GIB`` of the reading before the first load
+     (``WorkerMemory``: its pid's memory where ``nvidia-smi`` lists the
+     pid, else the card's less this process's change in reserve; each
+     reading printed beside this process's reserve and the worker's own
+     allocator); a reload
      of ``serve`` and one request with the streamed request's tokens;
      then ``drain`` with two requests in flight (both finish) and a later
      ``generate`` shed with ``overloaded``/``draining``.
@@ -134,6 +137,25 @@ Phases, each failing loudly (any failure exits non-zero):
    Checks the results, one ragged launch per layer per mixed step (all of
    them the tensor-core instance), flash-decode on the pure-decode steps,
    and the mixed, chunked and prefix-hit admission counts.
+4a. ``ckpt`` (A11): the ``mixed`` model's seed-0 bf16 tree (drawn on the
+   card as the engine draws it) written at full width and depth as an HF
+   Llama checkpoint, sharded as HF ships Llama-3-8B (``CKPT_SHARD_BYTES``,
+   with the index and ``config.json``), under the checkout's ``_work/``
+   (about 21 GB of disk with the int4 artifact; the write's and the
+   free disk's figures printed). One worker CLI started with no model
+   loads it over ``load_model`` three times, each served the mixed
+   phase's two waves and unloaded (memory back within
+   ``UNLOAD_SLACK_GIB``): ``path=<dir>`` in bf16, whose tokens must equal
+   the ``mixed`` phase's; ``quantized=1,weight_bits=4,artifact=<dir2>``,
+   the slow path (read, quantize, prepare, write the artifact, record the
+   golden probe); the same config again, which must be an artifact cold
+   start (one hit, one miss, the golden probe replayed equal, no graph
+   captured during the waves) with the slow path's tokens. Prints each
+   load's phases (read GB/s, quantize, artifact write and checksum
+   seconds, golden probe), the worker's peak host RSS, the artifact's
+   bytes, and the launches (ragged attention and flash-decode; the int4
+   matmul on the int4 loads). Both directories are removed at the end
+   whatever happens.
 4b. ``fp8`` (A5f) and ``e5m2`` (A5f-e5m2): the worker CLI again with the
    ``mixed`` model plus ``kv_dtype=float8_e4m3fn`` (``FP8_MODEL``) over the
    mixed phase's two waves; then, in the same worker process, that model
@@ -1712,15 +1734,20 @@ def check_worker_trace(r, label: str) -> None:
     assert 0.0 == o["received"] <= o["first_token"] <= o["done"], (label, o)
 
 
-async def serve_waves(client, waves, name: str, stream_prompt=None):
+async def serve_waves(client, waves, name: str, stream_prompt=None,
+                      batched: bool = False):
     """Each wave's requests concurrently through the port's
     ``WorkerClient`` to model ``name``, a wave after the previous one
-    returned; the worker's kernel launch counts are zeroed just before the
-    first wave and read just after the last, its engine metrics read at
-    both points (the load-time warmup ran before). ``stream_prompt``: then
-    one request through ``generate_stream`` and the same prompt through
-    ``generate``. Fails if a CUDA graph is captured after the warmup, or a
-    result lacks its ordered ``worker_trace``."""
+    returned: one ``generate`` each, or with ``batched`` one ``generate``
+    carrying the whole wave, which the worker's pump admits at once (the
+    same admission rounds in every run, so runs on equal weights emit
+    equal tokens: the ``[ckpt]`` phase compares them). The worker's
+    kernel launch counts are zeroed just before the first wave and read
+    just after the last, its engine metrics read at both points (the
+    load-time warmup ran before). ``stream_prompt``: then one request
+    through ``generate_stream`` and the same prompt through ``generate``.
+    Fails if a CUDA graph is captured after the warmup, or a result lacks
+    its ordered ``worker_trace``."""
     from distributed_inference_engine_tpu_torch.engine.types import (
         GenerationRequest)
 
@@ -1728,13 +1755,17 @@ async def serve_waves(client, waves, name: str, stream_prompt=None):
     before = (await client.metrics())["models"][name]
     results, wall = [], 0.0
     for w, prompts in enumerate(waves):
+        reqs = [GenerationRequest(prompt=p, max_new_tokens=32,
+                                  request_id=f"w{w}_{i}")
+                for i, p in enumerate(prompts)]
         t0 = time.perf_counter()
-        outs = await asyncio.gather(*[
-            client.generate(name, [GenerationRequest(
-                prompt=p, max_new_tokens=32, request_id=f"w{w}_{i}")])
-            for i, p in enumerate(prompts)])
+        if batched:
+            outs = [await client.generate(name, reqs)]
+        else:
+            outs = await asyncio.gather(*[client.generate(name, [r])
+                                          for r in reqs])
         wall += time.perf_counter() - t0
-        results.append([o[0] for o in outs])
+        results.append([r for o in outs for r in o])
     launches = await client.kernel_counts()      # ... and ends here
     for r in (r for rs in results for r in rs):
         check_worker_trace(r, name)
@@ -1767,8 +1798,9 @@ async def serve_waves(client, waves, name: str, stream_prompt=None):
 
 
 async def drive_worker(host, port, waves, name: str, stream_prompt=None,
-                       probe_prompt=None, then=()):
-    """``serve_waves`` on the worker CLI preloaded with model ``name``,
+                       probe_prompt=None, then=(), batched: bool = False):
+    """``serve_waves`` (``batched``: a wave one RPC) on the worker CLI
+    preloaded with model ``name``,
     then (``probe_prompt``) that prompt's 8 greedy tokens; then for each
     model of ``then`` in turn (a model string, or a (model, waves) pair),
     the model before it unloaded, the model loaded over ``load_model``
@@ -1786,7 +1818,8 @@ async def drive_worker(host, port, waves, name: str, stream_prompt=None,
     try:
         pong = await client.ping()
         assert pong["models"] == [name], pong
-        out = await serve_waves(client, waves, name, stream_prompt)
+        out = await serve_waves(client, waves, name, stream_prompt,
+                                batched=batched)
         if probe_prompt is not None:
             (r,) = await client.generate(name, [GenerationRequest(
                 prompt=list(probe_prompt), max_new_tokens=8,
@@ -1826,7 +1859,7 @@ def free_this_process(torch) -> None:
 
 
 def run_worker(model: str, waves, stream_prompt=None, probe_prompt=None,
-               then=()):
+               then=(), batched: bool = False):
     """Start the worker CLI with ``model`` (metadata ``warmup=1``: its
     engine runs the serving programs at load), drive ``waves`` through it
     (and through each model of ``then`` in turn, loaded over RPC into the
@@ -1840,7 +1873,8 @@ def run_worker(model: str, waves, stream_prompt=None, probe_prompt=None,
     proc, host, port, lines = start_worker(model)
     try:
         out = asyncio.run(drive_worker(host, port, waves, name,
-                                       stream_prompt, probe_prompt, then))
+                                       stream_prompt, probe_prompt, then,
+                                       batched))
         proc.wait(timeout=120)
     finally:
         if proc.poll() is None:
@@ -1915,30 +1949,54 @@ INT4_FLEET_NAME = "llama3-8b-int4"
 UNLOAD_SLACK_GIB = 2.0
 
 
-def memory_reader(pid: int):
-    """A function reading ``pid``'s device memory in GiB from
-    ``nvidia-smi --query-compute-apps``, or, where the tool does not list
-    that pid (another PID namespace), the card's used memory (this
-    process's allocations stay put meanwhile); and which of the two."""
-    def apps():
-        out = subprocess.run(
-            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
-             "--format=csv,noheader,nounits"], capture_output=True,
-            text=True, timeout=30).stdout
-        rows = [x.split(",") for x in out.strip().splitlines() if "," in x]
-        return {int(p): float(m) / 1024 for p, m in rows
-                if p.strip().isdigit()}
+def _smi_apps():
+    """``nvidia-smi``'s device memory of each listed process, GiB by pid."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True,
+        text=True, timeout=30).stdout
+    rows = [x.split(",") for x in out.strip().splitlines() if "," in x]
+    return {int(p): float(m) / 1024 for p, m in rows if p.strip().isdigit()}
 
-    def device():
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=memory.used",
-             "--format=csv,noheader,nounits"], capture_output=True,
-            text=True, timeout=30).stdout
-        return float(out.strip().splitlines()[0]) / 1024
 
-    if pid in apps():
-        return (lambda: apps()[pid]), f"pid {pid}"
-    return device, "the card (pid not listed)"
+def _smi_card() -> float:
+    """The card's used memory, GiB."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True,
+        text=True, timeout=30).stdout
+    return float(out.strip().splitlines()[0]) / 1024
+
+
+class WorkerMemory:
+    """A worker's device memory in GiB, for the unload checks: its pid's
+    ``used_memory`` where ``nvidia-smi`` lists that pid, else (another
+    PID namespace) the card's used memory less this process's change in
+    reserved memory since the reader was made: the card's reading holds
+    this process too, whose CUDA context stays put. Each reading notes
+    this process's ``torch.cuda.memory_reserved()`` and the worker's own
+    caching allocator (``metrics()["device_memory"]``) beside it, so an
+    excess can be told apart (``note``)."""
+
+    def __init__(self, torch, pid: int, client) -> None:
+        self.torch, self.pid, self.client = torch, pid, client
+        self.own0 = torch.cuda.memory_reserved()
+        self.by_pid = pid in _smi_apps()
+        self.source = (f"pid {pid}" if self.by_pid else
+                       "the card less this process's change in reserve")
+        self.note = ""
+
+    async def read(self) -> float:
+        own = self.torch.cuda.memory_reserved()
+        dev = (await self.client.metrics()).get("device_memory", {})
+        gib = (_smi_apps()[self.pid] if self.by_pid
+               else _smi_card() - (own - self.own0) / 2**30)
+        self.note = (
+            f"this process reserves {own / 2**30:.2f} GiB "
+            f"({(own - self.own0) / 2**30:+.2f}); the worker's allocator "
+            f"{dev.get('allocated_bytes', 0) / 2**30:.2f} GiB allocated, "
+            f"{dev.get('reserved_bytes', 0) / 2**30:.2f} reserved")
+        return gib
 
 
 def families(text: str) -> set:
@@ -2001,6 +2059,8 @@ def _tok_s(results, wall: float) -> float:
 async def drive_fleet(host, port, pid: int, prompts, probe, card: str):
     """The ``fleet`` phase's steps on a worker started with no model (see
     ``phase_fleet``)."""
+    import torch
+
     from distributed_inference_engine_tpu_torch.cli.worker import (
         parse_model_arg)
     from distributed_inference_engine_tpu_torch.cluster.worker import (
@@ -2028,8 +2088,9 @@ async def drive_fleet(host, port, pid: int, prompts, probe, card: str):
     try:
         pong = await client.ping()
         assert pong["models"] == [] and pong["draining"] is False, pong
-        read_mem, mem_src = memory_reader(pid)
-        mem0 = read_mem()
+        mem = WorkerMemory(torch, pid, client)
+        mem0 = await mem.read()
+        note0 = mem.note
         # 1. deploy serve over load_model; the same config again: at once
         t0 = time.perf_counter()
         receipt = await client.load_model(serve_cfg, timeout=900.0)
@@ -2038,15 +2099,15 @@ async def drive_fleet(host, port, pid: int, prompts, probe, card: str):
         again = await client.load_model(serve_cfg)
         again_s = time.perf_counter() - t0
         assert again == receipt and again_s < 1.0, (again, again_s)
-        mem_serve = read_mem()
+        mem_serve = await mem.read()
         m = await client.metrics()
         rounds, secs = m["model_warmup"][serve]
         log(f"[fleet] load_model {serve}: load_s {receipt['load_s']:.2f} "
             f"(RPC wall {load_wall:.2f} s; warm-up {rounds} rounds in "
             f"{secs:.2f} s); the same config again returned in "
             f"{again_s * 1e3:.1f} ms with the same receipt; worker memory "
-            f"({mem_src}) {mem0:.2f} GiB before, {mem_serve:.2f} GiB after "
-            f"[{card}]")
+            f"({mem.source}) {mem0:.2f} GiB before ({note0}), "
+            f"{mem_serve:.2f} GiB after ({mem.note}) [{card}]")
         # 2. the serve phase's wave and stream, in this worker
         mono_serve = (await client.ping())["mono"]
         out = await serve_waves(client, [prompts], serve,
@@ -2112,10 +2173,11 @@ async def drive_fleet(host, port, pid: int, prompts, probe, card: str):
         assert resident["staged"] == [], resident
         assert resident["resident_bytes"] == sum(pbytes.values()), \
             (resident, pbytes)
-        mem_both = read_mem()
+        mem_both = await mem.read()
         log(f"[fleet] resident_models: {resident['resident']}, "
             f"resident_bytes {resident['resident_bytes']} = param_bytes "
-            f"{pbytes}; worker memory {mem_both:.2f} GiB [{card}]")
+            f"{pbytes}; worker memory {mem_both:.2f} GiB ({mem.note}) "
+            f"[{card}]")
         # 6. profile one int4 wave of fresh prompts (the waves above left
         # theirs in the prefix cache: they would skip the mixed steps)
         trace_dir = tempfile.mkdtemp(prefix="fleet-trace-")
@@ -2173,12 +2235,16 @@ async def drive_fleet(host, port, pid: int, prompts, probe, card: str):
         assert await client.unload_model(serve) is True
         assert await client.unload_model(serve) is False
         assert (await client.ping())["models"] == []
-        mem_unloaded = read_mem()
-        assert mem_unloaded - mem0 <= UNLOAD_SLACK_GIB, (mem0, mem_unloaded)
+        mem_unloaded = await mem.read()
+        note_unloaded = mem.note
+        log(f"[fleet] unloaded both: worker memory {mem_unloaded:.2f} GiB "
+            f"({note_unloaded}) [{card}]")
+        assert mem_unloaded - mem0 <= UNLOAD_SLACK_GIB, \
+            (mem0, note0, mem_unloaded, note_unloaded)
         t0 = time.perf_counter()
         receipt2 = await client.load_model(serve_cfg, timeout=900.0)
         reload_wall = time.perf_counter() - t0
-        mem_reload = read_mem()
+        mem_reload = await mem.read()
         (one,) = await client.generate(serve, [GenerationRequest(
             prompt=prompts[0], max_new_tokens=32, request_id="reload")])
         assert one.tokens == out["stream"]["result"], \
@@ -2248,7 +2314,8 @@ def phase_mixed(torch, card: str):
     """The slice's path: chunked prefill in the ragged mixed step, through
     the worker CLI at full width."""
     wave1, wave2 = mixed_prompts()
-    out = run_worker(MIXED_MODEL, [wave1, wave2])
+    # a wave one RPC: the [ckpt] phase's bf16 load must emit these tokens
+    out = run_worker(MIXED_MODEL, [wave1, wave2], batched=True)
     results, wall, launches, eng = (out["results"], out["wall"],
                                     out["launches"], out["eng"])
     check_results(results[0], wave1, "mixed wave 1")
@@ -2272,6 +2339,265 @@ def phase_mixed(torch, card: str):
         f"{eng['engine_steps']}; pools {eng['kv']['hbm_bytes'] / 2**30:.2f}"
         f" GiB; launches {launches} [{card}]")
     return wave1, launches, out
+
+
+# the [ckpt] phase's checkpoint: MIXED_MODEL's seed-0 bf16 tree at full
+# width and depth in HF Llama naming, sharded as HF ships Llama-3-8B
+# (files of at most 5 GB, an index, config.json); written, with the int4
+# serving artifact, under the checkout's _work/ and removed at the end
+CKPT_SHARD_BYTES = 5 * 10**9
+# HF Llama naming of the block weights (nn.Linear stores [out, in])
+HF_LLAMA_BLOCKS = (("ln1_scale", "input_layernorm"),
+                   ("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
+                   ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj"),
+                   ("ln2_scale", "post_attention_layernorm"),
+                   ("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
+                   ("w_down", "mlp.down_proj"))
+
+
+def hf_llama_tensors(params, n_layers: int):
+    """``(HF name, tensor)`` of a Llama tree in HF's order: each weight a
+    transposed view (no copy) of the port's ``[in, out]`` slice."""
+    yield "model.embed_tokens.weight", params["tok_emb"]
+    for layer in range(n_layers):
+        for ours, theirs in HF_LLAMA_BLOCKS:
+            t = params["blocks"][ours][layer]
+            yield (f"model.layers.{layer}.{theirs}.weight",
+                   t.t() if t.dim() == 2 else t)
+    yield "model.norm.weight", params["lnf_scale"]
+    yield "lm_head.weight", params["lm_head"].t()
+
+
+def write_hf_checkpoint(torch, path: Path, spec, seed: int = 0):
+    """The engine's seed-``seed`` tree of ``spec`` (``init_params`` on the
+    card, as the engine draws it) written to ``path`` in HF Llama naming,
+    sharded at ``CKPT_SHARD_BYTES``, with ``model.safetensors.index.json``
+    and ``config.json``; each tensor reaches the host alone. Returns the
+    files, bytes and seconds."""
+    from distributed_inference_engine_tpu_torch.models.base import (
+        init_params)
+    from distributed_inference_engine_tpu_torch.utils.safetensors_io import (
+        save_file)
+
+    t0 = time.perf_counter()
+    params = init_params(spec, torch.Generator(device="cuda").manual_seed(
+        seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    shards, cur, size = [], [], 0
+    for name, t in hf_llama_tensors(params, spec.n_layers):
+        nbytes = t.numel() * t.element_size()
+        if cur and size + nbytes > CKPT_SHARD_BYTES:
+            shards.append(cur)
+            cur, size = [], 0
+        cur.append((name, t))
+        size += nbytes
+    shards.append(cur)
+    weight_map, total = {}, 0
+    t0 = time.perf_counter()
+    for i, shard in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        save_file(dict(shard), str(path / fname), metadata={"format": "pt"})
+        for name, t in shard:
+            weight_map[name] = fname
+            total += t.numel() * t.element_size()
+    write_s = time.perf_counter() - t0
+    (path / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map},
+        indent=2))
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": spec.vocab_size, "hidden_size": spec.d_model,
+        "num_hidden_layers": spec.n_layers,
+        "num_attention_heads": spec.n_heads,
+        "num_key_value_heads": spec.n_kv_heads,
+        "intermediate_size": spec.d_ff,
+        "max_position_embeddings": spec.max_seq_len,
+        "rope_theta": spec.rope_theta, "rms_norm_eps": spec.norm_eps,
+        "tie_word_embeddings": spec.tie_embeddings, "hidden_act": "silu",
+        "torch_dtype": "bfloat16"}, indent=2))
+    n_files = len(shards)
+    del params, shards, cur
+    return dict(files=n_files, bytes=total, init_s=init_s, write_s=write_s)
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+async def drive_ckpt(torch, host, port, pid: int, ck: Path, art: Path,
+                     waves, card: str):
+    """The ``[ckpt]`` phase's three loads on one worker started with no
+    model, each served ``waves`` and then unloaded (the worker's memory
+    back within ``UNLOAD_SLACK_GIB`` of the reading before the first):
+    the checkpoint in bf16; the same with int4 weights and ``artifact=``
+    (the slow path: read, quantize, prepare, write the artifact, record
+    the golden probe); the same config again (the artifact cold start)."""
+    from distributed_inference_engine_tpu_torch.cli.worker import (
+        parse_model_arg)
+    from distributed_inference_engine_tpu_torch.cluster.worker import (
+        WorkerClient)
+
+    bf16 = parse_model_arg(MIXED_MODEL + f",path={ck}")
+    int4 = parse_model_arg(MIXED_MODEL + f",path={ck},quantized=1,"
+                           f"weight_bits=4,artifact={art}")
+    client = WorkerClient(host, port, timeout=900.0)
+    runs = []
+    try:
+        mem = WorkerMemory(torch, pid, client)
+        mem0 = await mem.read()
+        log(f"[ckpt] worker memory ({mem.source}) {mem0:.2f} GiB before "
+            f"the first load ({mem.note}) [{card}]")
+        for label, cfg in (("bf16", bf16), ("int4 slow path", int4),
+                           ("int4 cold start", int4)):
+            t0 = time.perf_counter()
+            receipt = await client.load_model(cfg, timeout=900.0)
+            wall = time.perf_counter() - t0
+            m = await client.metrics()
+            rounds, secs = m["model_warmup"][cfg.name]
+            run = dict(label=label, receipt=receipt, load_wall=wall,
+                       warmed=(f"warmed model {cfg.name}: {rounds} rounds "
+                               f"in {secs:.2f}s"),
+                       load=m["models"][cfg.name]["load"],
+                       hits=m["artifact_hits"], misses=m["artifact_misses"],
+                       rss=m["peak_rss_bytes"] / 2**30,
+                       mem_loaded=await mem.read(),
+                       note_loaded=mem.note)
+            run.update(await serve_waves(client, waves, cfg.name,
+                                         batched=True))
+            assert await client.unload_model(cfg.name) is True
+            run["mem_unloaded"] = await mem.read()
+            run["note_unloaded"] = mem.note
+            runs.append(run)
+            assert run["mem_unloaded"] - mem0 <= UNLOAD_SLACK_GIB, \
+                (label, mem0, run["mem_unloaded"], mem.note)
+        await client.shutdown()
+    finally:
+        await client.close()
+    return runs
+
+
+def _tokens(out):
+    return [[r.tokens for r in wave] for wave in out["results"]]
+
+
+def report_ckpt_run(run, card: str) -> None:
+    """A ``[ckpt]`` load's lines: the load's phases (seconds, bytes), the
+    worker's resident set and device memory, the waves and launches."""
+    info, results = run["load"], run["results"][0] + run["results"][1]
+    phases = ", ".join(f"{k} {v:.2f}" for k, v in info.items()
+                       if k.endswith("_s"))
+    read = (f"; read {info['bytes_read'] / 1e9:.2f} GB in "
+            f"{info['read_s']:.2f} s = "
+            f"{info['bytes_read'] / 1e9 / info['read_s']:.2f} GB/s (warm "
+            "page cache: written just before; the layers copied, "
+            "transposed and cast on the card)"
+            if "bytes_read" in info else "")
+    log(f"[ckpt] {run['label']}: load_s {run['receipt']['load_s']:.2f} "
+        f"(RPC wall {run['load_wall']:.2f} s, the warm-up included); "
+        f"source {info['source']}, phases "
+        f"(s): {phases}{read}; artifact hits {run['hits']}, misses "
+        f"{run['misses']}; worker peak host RSS {run['rss']:.2f} GiB "
+        f"(the process's so far); worker memory {run['mem_loaded']:.2f} "
+        f"GiB loaded ({run['note_loaded']}), {run['mem_unloaded']:.2f} "
+        f"after unloading ({run['note_unloaded']}) [{card}]")
+    log(f"[ckpt] {run['label']}: {graphs_line(run)}; "
+        f"{served_line(results, run['wall'])}; launches "
+        f"{run['launches']} [{card}]")
+
+
+def phase_ckpt(torch, card: str, mixed):
+    """A11 at full width and depth on the card: write the seed-0
+    llama3-8b bf16 tree (``mixed``'s weights) as an HF checkpoint, then
+    through one worker load it in bf16 (its tokens must equal ``mixed``'s
+    on the same waves), with int4 weights and ``artifact=`` (the slow
+    path writes the artifact), and again (an artifact cold start: one
+    artifact hit, the golden probe replayed, no capture during the waves,
+    the slow path's tokens). Both directories are removed at the end,
+    whatever happens. Returns the bf16 and int4 runs' launches."""
+    from distributed_inference_engine_tpu_torch.cli.worker import (
+        parse_model_arg)
+    from distributed_inference_engine_tpu_torch.engine.artifact import (
+        has_artifact)
+    from distributed_inference_engine_tpu_torch.models import (
+        spec_for_architecture)
+
+    mixed_cfg = parse_model_arg(MIXED_MODEL)
+    wave1, wave2 = mixed_prompts()
+    parent = REPO / "_work"
+    parent.mkdir(exist_ok=True)
+    free0 = shutil.disk_usage(parent).free
+    ck = Path(tempfile.mkdtemp(prefix="ckpt-hf-", dir=parent))
+    art_root = Path(tempfile.mkdtemp(prefix="ckpt-art-", dir=parent))
+    art = art_root / "llama3-8b"
+    try:
+        # the family's published spec (config.json's widths and positions)
+        spec = spec_for_architecture(mixed_cfg.architecture,
+                                     mixed_cfg.metadata["size"])
+        w = write_hf_checkpoint(torch, ck, spec)
+        free1 = shutil.disk_usage(parent).free
+        log(f"[ckpt] wrote {w['files']} files, {w['bytes'] / 1e9:.2f} GB "
+            f"in HF Llama naming in {w['write_s']:.2f} s = "
+            f"{w['bytes'] / 1e9 / w['write_s']:.2f} GB/s (each tensor "
+            f"copied off the card and written; the tree drawn in "
+            f"{w['init_s']:.2f} s); free disk {free0 / 1e9:.2f} GB before, "
+            f"{free1 / 1e9:.2f} after [{card}]")
+        free_this_process(torch)
+        proc, host, port, _lines = start_worker(None)
+        try:
+            runs = asyncio.run(drive_ckpt(
+                torch, host, port, proc.pid, ck, art, [wave1, wave2], card))
+            proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        bf16, slow, cold = runs
+        for run in runs:
+            check_results(run["results"][0], wave1, f"ckpt {run['label']}")
+            check_results(run["results"][1], wave2, f"ckpt {run['label']}")
+        assert bf16["load"]["source"] == "hf", bf16["load"]
+        assert _tokens(bf16) == _tokens(mixed), \
+            "the checkpoint's bf16 tokens differ from the mixed phase's"
+        assert (slow["load"]["source"], slow["misses"], slow["hits"]) == \
+            ("hf", 1, 0), slow["load"]
+        assert "artifact_save_s" in slow["load"] and has_artifact(str(art))
+        assert (cold["load"]["source"], cold["hits"], cold["misses"]) == \
+            ("artifact", 1, 1), cold["load"]
+        assert "golden_probe_s" in cold["load"], cold["load"]
+        assert _tokens(cold) == _tokens(slow), \
+            "the artifact cold start's tokens differ from the slow path's"
+        for run in runs:
+            launches = run["launches"]
+            assert launches.get("ragged_attention", 0) == N_LAYERS * run[
+                "eng"]["mixed_steps"] > 0, (run["label"], launches)
+            assert launches.get("flash_decode", 0) > 0, launches
+            assert (launches.get("int4_matmul", 0) > 0) == \
+                (run is not bf16), (run["label"], launches)
+        manifest = json.loads((art / "manifest.json").read_text())
+        abytes = _dir_bytes(art)
+        for run in runs:
+            report_ckpt_run(run, card)
+        log(f"[ckpt] artifact: {abytes / 1e9:.3f} GB ({abytes} bytes; quant "
+            f"{manifest['quant']}; batch buckets "
+            f"{manifest['buckets']['batch']}); checksum "
+            f"{slow['load']['artifact_checksum_s']:.2f} s at save, "
+            f"{cold['load']['artifact_checksum_s']:.2f} s at the cold start "
+            f"(sha256 over the tree read back from the card); golden probe "
+            f"{manifest['golden']['tokens']} replayed equal in "
+            f"{cold['load']['golden_probe_s']:.2f} s; cold start load_s "
+            f"{cold['receipt']['load_s']:.2f} against the slow path's "
+            f"{slow['receipt']['load_s']:.2f} [{card}]")
+        log(f"[ckpt] bf16 from the checkpoint: tokens equal the mixed "
+            f"phase's on both waves; int4 cold start: tokens equal the slow "
+            f"path's, no graph captured during its waves [{card}]")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+        shutil.rmtree(art_root, ignore_errors=True)
+        log(f"[ckpt] removed {ck.name} and {art_root.name}: free disk "
+            f"{shutil.disk_usage(parent).free / 1e9:.2f} GB [{card}]")
+    assert not ck.exists() and not art_root.exists()
+    return bf16["launches"], slow["launches"]
 
 
 def phase_fp8(torch, card: str, mixed):
@@ -3328,7 +3654,7 @@ def phase_int4(torch, card: str):
     (129 launches per forward); no fused decode GEMV runs. Then the
     golden prompt's 8 greedy tokens: the probe the ``fleet`` phase's swap
     of the same model is gated on."""
-    from distributed_inference_engine_tpu_torch.cluster.model_manager import (
+    from distributed_inference_engine_tpu_torch.engine.artifact import (
         GOLDEN_PROMPT)
 
     wave1, wave2 = mixed_prompts()
@@ -3868,6 +4194,8 @@ def main() -> int:
     # but for this process's kernel-phase leftovers (freed here)
     mixed_wave, mixed_launch, mixed_out = phase_mixed(torch, card)
     done("mixed")
+    phase_ckpt(torch, card, mixed_out)
+    done("ckpt")
     fp8_launch = phase_fp8(torch, card, mixed_out)
     del mixed_out
     done("fp8 and e5m2 worker")

@@ -10,9 +10,13 @@ Each ``--model`` is ``key=value`` pairs; unknown keys land in
 a fleet to deploy over ``load_model``. ``--config file.{json,toml}``
 takes the server settings and the models to preload from the file
 instead (``config.load_config``). ``--device`` picks the torch device
-(default the card). Flags of features the port lacks (``--artifact-dir``,
-``--multihost`` and its coordinates, a config file's multihost section)
-raise.
+(default the card). ``path=<dir>`` serves an HF safetensors checkpoint
+or a native one of the port; ``artifact=<dir>`` cold-starts from a
+serving artifact there (written on the first, slow boot);
+``--artifact-dir DIR`` gives every model without its own
+``artifact=`` the artifact ``DIR/<name>``. Flags of features the port
+lacks (``--multihost`` and its coordinates, a config file's multihost
+section) raise.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import os
 from typing import Any, Dict, List
 
 import torch
@@ -74,7 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--config", default="",
                    help="config file (.json/.toml): server and model "
                    "settings come from the file")
-    p.add_argument("--artifact-dir", default="", help="not ported yet")
+    p.add_argument("--artifact-dir", default="",
+                   help="serving-artifact root: each model without its own "
+                   "artifact= cold-starts from <dir>/<name>")
     p.add_argument("--multihost", action="store_true", help="not ported yet")
     p.add_argument("--coordinator-address", default="",
                    help="not ported yet")
@@ -88,7 +95,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _reject_unported(args: argparse.Namespace) -> None:
     for flag, on, item in (
-            ("--artifact-dir", args.artifact_dir, "A11"),
             ("--multihost", args.multihost, "A13"),
             ("--coordinator-address", args.coordinator_address, "A13"),
             ("--num-processes", args.num_processes, "A13"),
@@ -112,6 +118,11 @@ async def amain(args: argparse.Namespace) -> None:
         server_cfg = ServerConfig(worker_id=args.worker_id, host=args.host,
                                   port=args.port)
         models = [parse_model_arg(m) for m in args.model]
+    if args.artifact_dir:
+        for m in models:
+            # a model's own artifact= wins over the shared root
+            m.metadata.setdefault(
+                "artifact", os.path.join(args.artifact_dir, m.name))
     device = torch.device(args.device)
     if device.type == "cuda":
         # the process's context on the card exists before the first
@@ -129,8 +140,11 @@ async def amain(args: argparse.Namespace) -> None:
             rounds, secs = worker._last_warmup[m.name]
             print(f"warmed model {m.name}: {rounds} rounds in {secs:.2f}s",
                   flush=True)
+        cold = getattr(worker.engines.get(m.name), "artifact_manifest",
+                       None) is not None
         print(f"loaded model {m.name} in "
-              f"{worker._last_load_s.get(m.name, 0.0):.2f}s", flush=True)
+              f"{worker._last_load_s.get(m.name, 0.0):.2f}s"
+              f"{' [artifact cold-start]' if cold else ''}", flush=True)
     host, port = await worker.start(install_signal_handlers=True)
     print(f"worker {worker.worker_id} listening on {host}:{port}", flush=True)
     await worker.serve_forever()

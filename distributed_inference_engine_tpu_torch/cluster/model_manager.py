@@ -12,12 +12,12 @@ same receipts, errors and counters).
   (``stage_overlap_steps``). On the card a staged engine's load-time
   warm-up captures its graphs under ``ops/_cuda.py:GRAPH_LOCK``, which
   every replay also takes: the serving pump waits for each capture.
-- ``swap(name)``: wait for the stage, golden-gate the engine against a
-  caller-supplied expected token list over ``GOLDEN_PROMPT``, then admit
-  it under the residency budget. A mismatch discards the staged engine
-  and raises ``ModelProbeError``; the resident models keep serving. The
-  JAX gate's other source, an artifact manifest's recorded probe, waits
-  for artifacts (ROADMAP.md A11).
+- ``swap(name)``: wait for the stage, golden-gate the engine, then admit
+  it under the residency budget. An engine cold-started from a serving
+  artifact replays its manifest's recorded probe; any other is held to a
+  caller-supplied expected token list over ``GOLDEN_PROMPT``
+  (``engine/artifact.py``). A mismatch discards the staged engine and
+  raises ``ModelProbeError``; the resident models keep serving.
 - LRU eviction: admission over ``max_resident_models`` or
   ``resident_bytes`` evicts the least recently used idle model. A model
   with work in flight is never evicted (``busy_fn``), nor is the model
@@ -38,13 +38,15 @@ from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional
 
 from ..config import ModelConfig
-from ..engine.types import GenerationRequest
+from ..engine.artifact import (
+    GOLDEN_PROMPT,
+    ArtifactCorruptError,
+    run_probe,
+    verify_golden,
+)
 from ..utils.tracing import LatencyStats
 
 logger = logging.getLogger(__name__)
-
-# the JAX package's golden probe prompt (engine/artifact.py)
-GOLDEN_PROMPT = (1, 2, 3, 5, 8, 13, 21)
 
 
 class ModelProbeError(RuntimeError):
@@ -82,14 +84,6 @@ def engine_size_bytes(cfg: ModelConfig, engine: Any) -> int:
     if declared:
         return int(declared)
     return int(getattr(engine, "param_bytes", 0))
-
-
-def run_probe(engine: Any, prompt: List[int], max_new: int) -> List[int]:
-    """One greedy generation of ``max_new`` tokens over ``prompt``."""
-    req = GenerationRequest(prompt=[int(t) for t in prompt],
-                            max_new_tokens=int(max_new), temperature=0.0,
-                            request_id="__artifact_probe__")
-    return [int(t) for t in engine.generate([req])[0].tokens]
 
 
 class ModelManager:
@@ -273,8 +267,17 @@ class ModelManager:
 
     def _golden_gate(self, engine: Any,
                      probe_expected: Optional[List[int]]) -> None:
-        """Replay ``probe_expected`` greedily over ``GOLDEN_PROMPT``; with
-        no expected tokens there is no gate (as ``load_model``)."""
+        """The same trust boundary as an artifact cold start: an engine
+        with a manifest replays its recorded golden generation; any other
+        replays ``probe_expected`` greedily over ``GOLDEN_PROMPT``. With
+        neither there is no gate (as ``load_model``)."""
+        manifest = getattr(engine, "artifact_manifest", None)
+        if manifest is not None:
+            try:
+                verify_golden(engine, manifest)
+                return
+            except ArtifactCorruptError as e:
+                raise ModelProbeError(str(e)) from e
         if probe_expected:
             want = [int(t) for t in probe_expected]
             got = run_probe(engine, list(GOLDEN_PROMPT), len(want))

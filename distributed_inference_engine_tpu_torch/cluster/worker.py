@@ -28,7 +28,11 @@ The KV-fabric and disaggregation verbs (``prefill``, ``prefix_probe``,
 a request for one gets the unknown-method error. Each continuous engine
 gets an ``EnginePump``: concurrent connections join one rolling decode
 batch. A model's metadata ``warmup=1`` runs the engine's ``warmup()`` at
-load (or stage). ``unload_model`` joins the model's pump thread, drops its
+load (or stage). A model with ``artifact=<dir>`` cold-starts from its
+serving artifact where one matches (``engine/artifact.py``), warming the
+batch buckets its manifest records; ``metrics`` counts such loads in
+``artifact_hits`` and the ones that fell back to the slow path in
+``artifact_misses``. ``unload_model`` joins the model's pump thread, drops its
 engine's graphs, pools and weights and empties torch's caches, so the
 card's memory comes back. The ``process`` dict of ``metrics`` stays empty
 (the JAX worker fills it only where psutil is installed).
@@ -41,8 +45,10 @@ import concurrent.futures
 import gc
 import logging
 import os
+import resource
 import signal
 import tempfile
+import threading
 import time
 from typing import Any, Awaitable, Callable, Dict, List, Optional, Tuple
 
@@ -164,17 +170,28 @@ def _engine_features(cfg: ModelConfig) -> frozenset:
     return frozenset({"generate"})
 
 
-def _free_device_memory() -> None:
+def _free_device_memory(idle: bool = False) -> None:
     """Release the freed blocks: torch's caching allocator (and the
     pinned host blocks of the caching host allocator) keep them until
-    asked."""
+    asked. ``idle`` (no engine resident or staging): the kernels' split
+    scratch and cuBLAS's workspaces go too (``_cuda.release_scratch``),
+    so that no segment stays pinned by them."""
     gc.collect()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+        if idle:
+            _cuda.release_scratch()
         torch.cuda.empty_cache()
         empty_host = getattr(torch._C, "_host_emptyCache", None)
         if empty_host is not None:
             empty_host()
+
+
+def _device_memory() -> Dict[str, int]:
+    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+        return {}
+    return {"allocated_bytes": torch.cuda.memory_allocated(),
+            "reserved_bytes": torch.cuda.memory_reserved()}
 
 
 # -------------------------------------------------------------------- server
@@ -220,8 +237,15 @@ class WorkerServer(FramedServerMixin):
         self._busy = 0
         self._drain_count = 0
         self.latency = LatencyStats()
+        # load_model wall time per load, and whether each artifact-configured
+        # load cold-started from its artifact (hit) or fell back to the
+        # slow path (miss)
         self.model_load_stats = LatencyStats()
         self._last_load_s: Dict[str, float] = {}
+        self._artifact_hits = 0
+        self._artifact_misses = 0
+        # builds run on the engine thread and on staging threads
+        self._artifact_lock = threading.Lock()
         # model -> (warmup rounds, seconds) of its load-time warmup
         self._last_warmup: Dict[str, Tuple[int, float]] = {}
         self._methods: Dict[str, Callable[[Dict[str, Any]],
@@ -304,15 +328,28 @@ class WorkerServer(FramedServerMixin):
     # -- models ------------------------------------------------------------
 
     def _build_engine(self, cfg: ModelConfig):
-        """The factory, then (metadata ``warmup=1``) the engine's
-        ``warmup()``: the serving programs run once at load, so the first
-        requests pay no first-run costs (on the card, no graph captures).
+        """The factory, the artifact accounting, then (metadata
+        ``warmup=1``) the engine's warm-up: the serving programs run once
+        at load, so the first requests pay no first-run costs (on the
+        card, no graph captures). An artifact cold start warms the batch
+        buckets its manifest records (``warmup_from_manifest``; the
+        factory's artifacts record every bucket the engine serves).
         Shared by ``load_model`` and the staging thread."""
         engine = self.engine_factory(cfg)
+        artifact_hit = getattr(engine, "artifact_manifest", None) is not None
+        if cfg.metadata.get("artifact"):
+            with self._artifact_lock:
+                if artifact_hit:
+                    self._artifact_hits += 1
+                else:
+                    self._artifact_misses += 1
         if _coerce(False, cfg.metadata.get("warmup", False)) and hasattr(
                 engine, "warmup"):
             t0 = time.perf_counter()
-            n = engine.warmup()
+            if artifact_hit and hasattr(engine, "warmup_from_manifest"):
+                n = engine.warmup_from_manifest()
+            else:
+                n = engine.warmup()
             self._last_warmup[cfg.name] = (n, time.perf_counter() - t0)
             logger.info("worker %s warmed %s (%d rounds, %.2f s)",
                         self.worker_id, cfg.name, n,
@@ -339,7 +376,8 @@ class WorkerServer(FramedServerMixin):
         if close is not None:
             close()
         del engine, pump
-        _free_device_memory()
+        _free_device_memory(idle=not self.engines
+                            and not self.model_manager.staged_names())
 
     def _on_model_evicted(self, name: str, engine) -> None:
         self._release(engine, self._pumps.pop(name, None))
@@ -382,8 +420,11 @@ class WorkerServer(FramedServerMixin):
         load_s = time.perf_counter() - t0
         self.model_load_stats.add(load_s)
         self._last_load_s[cfg.name] = load_s
-        logger.info("worker %s loaded model %s (%s) in %.2fs",
-                    self.worker_id, cfg.name, cfg.architecture, load_s)
+        logger.info("worker %s loaded model %s (%s) in %.2fs%s",
+                    self.worker_id, cfg.name, cfg.architecture, load_s,
+                    " [artifact cold-start]"
+                    if getattr(engine, "artifact_manifest", None) is not None
+                    else "")
 
     async def load_model_async(self, cfg: ModelConfig) -> None:
         """Load on the engine thread, off the event loop; loads and
@@ -796,6 +837,8 @@ class WorkerServer(FramedServerMixin):
             "active_connections": self._active_connections,
             "latency": self.latency.snapshot(),
             "model_load": self.model_load_stats.snapshot(),
+            "artifact_hits": self._artifact_hits,
+            "artifact_misses": self._artifact_misses,
             # model -> [rounds, seconds] of its load-time warm-up
             "model_warmup": {n: list(w) for n, w in self._last_warmup.items()},
             # residency: resident and staged gauges, stage and swap
@@ -807,6 +850,12 @@ class WorkerServer(FramedServerMixin):
                              if k != "engine"}
                       for name, pump in list(self._pumps.items())},
             "process": {},
+            # this process's caching allocator on the card (bytes in live
+            # tensors, bytes reserved from the device), and its peak
+            # resident set on the host (a checkpoint load's footprint)
+            "device_memory": _device_memory(),
+            "peak_rss_bytes": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss * 1024,
             "kernel_launches": _cuda.launch_counts(),
         }
 

@@ -224,15 +224,35 @@ class ContinuousEngine:
     Synchronous: callers ``submit`` and drive ``step()`` (or
     ``run_until_idle``); ``serving/pump.py`` runs it on its own thread.
     ``device`` defaults to the card; tests pass ``device="cpu"``, where the
-    kernels' plain versions run."""
+    kernels' plain versions run.
 
-    def __init__(self, spec: ModelSpec, params: Optional[Params] = None,
+    ``artifact_path`` restores ``(spec, params, manifest)`` from a serving
+    artifact (``engine/artifact.py``; ``spec`` may be None, the sidecar's
+    is used) and skips ``prepare_params``: the artifact IS the prepared
+    tree. With ``artifact_selfcheck`` the manifest's golden probe is
+    replayed before the engine admits traffic; a divergence raises
+    ``ArtifactCorruptError``. ``load_info`` holds the load's phases in
+    seconds and bytes (the factory's and the artifact's), reported under
+    ``get_metrics()["load"]``."""
+
+    def __init__(self, spec: Optional[ModelSpec],
+                 params: Optional[Params] = None,
                  config: Optional[EngineConfig] = None, seed: int = 0,
-                 device="cuda") -> None:
+                 device="cuda", artifact_path: Optional[str] = None,
+                 artifact_selfcheck: bool = True) -> None:
         self.config = config or EngineConfig()
         cfg = self.config
         cfg.check_supported()        # before any weight is made
         self.device = torch.device(device)
+        self.load_info: Dict[str, Any] = {}
+        self.artifact_manifest: Optional[Dict[str, Any]] = None
+        if artifact_path is not None:
+            from .artifact import load_artifact
+
+            a_spec, params, self.artifact_manifest = load_artifact(
+                artifact_path, device=self.device, stats=self.load_info)
+            if spec is None:
+                spec = a_spec
         self.spec = spec.validate()
         # defer_sync needs a fully backed pool: the host's lengths go one
         # chunk stale, and only a pool that can always grow every slot to
@@ -246,8 +266,10 @@ class ContinuousEngine:
         if params is None:
             params = init_params(spec, torch.Generator(
                 device=self.device).manual_seed(seed))
-        # the int4 q|k|v and gate|up payload fusion (ops/quant.py)
-        self.params = prepare_params(params)
+        # the int4 q|k|v and gate|up payload fusion (ops/quant.py); an
+        # artifact's tree is already prepared
+        self.params = (params if self.artifact_manifest is not None
+                       else prepare_params(params))
         # the weights' stored bytes (the residency budget's measure)
         self.param_bytes = param_bytes(self.params)
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
@@ -412,6 +434,16 @@ class ContinuousEngine:
         # in the device's shadow); it must only enqueue work (submit) or
         # poll the ring
         self.overlap_hook: Optional[Any] = None
+
+        if self.artifact_manifest is not None and artifact_selfcheck:
+            # the golden-token self-check BEFORE any traffic: the save-time
+            # probe replayed on the restored tree through the serving
+            # path (on the card its graphs are captured here, at load)
+            from .artifact import verify_golden
+
+            t0 = time.perf_counter()
+            if verify_golden(self, self.artifact_manifest):
+                self.load_info["golden_probe_s"] = time.perf_counter() - t0
 
     # ------------------------------------------------------------- submit
 
@@ -1656,6 +1688,19 @@ class ContinuousEngine:
             self.config.max_waiting = saved_cap
         return len(rounds)
 
+    def warmup_from_manifest(self, max_new_tokens: int = 2) -> int:
+        """The artifact-aware warmup: only the admission batch buckets the
+        artifact's writer recorded (a respawned worker warms what its
+        predecessor served); the full ``warmup`` when the manifest records
+        none that fit this engine."""
+        valid = set(_pow2_buckets(self.max_slots))
+        b = (self.artifact_manifest or {}).get("buckets", {})
+        batches = [n for n in b.get("batch", []) if n in valid]
+        if not batches:
+            return self.warmup(max_new_tokens=max_new_tokens)
+        return sum(self.warmup(batch=n, max_new_tokens=max_new_tokens)
+                   for n in batches)
+
     # ------------------------------------------------------------ metrics
 
     def get_metrics(self) -> Dict[str, Any]:
@@ -1719,6 +1764,8 @@ class ContinuousEngine:
             "decode_fused": self.decode_fused,
             "device": str(self.device),
             "param_bytes": self.param_bytes,
+            # the load's phases (factory, artifact), seconds and bytes
+            "load": dict(self.load_info),
             # per-process launch counts of the CUDA kernels
             "kernel_launches": _cuda.launch_counts(),
         }

@@ -1,17 +1,23 @@
 """Model specs and the config-driven engine factory of the port (the
 ``models/__init__.py:engine_from_config`` subset for the dense families
 ``llama``, ``mistral``, ``qwen``, ``gemma`` and ``gpt2``, and ``fake``;
-``mixtral`` raises).
+``mixtral`` raises): random weights, HF and native checkpoints
+(``path=``) and serving artifacts (``artifact=``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
-from typing import Any
+import logging
+import os
+import time
+from typing import Any, Dict
 
 import torch
 
+from ..ops.quant import quantize_params
 from .base import ModelSpec, random_quantized_params
 from .gemma import gemma_spec
 from .gpt2 import gpt2_spec
@@ -19,6 +25,7 @@ from .llama import llama_spec
 from .mistral import mistral_spec
 from .qwen import qwen_spec
 
+logger = logging.getLogger(__name__)
 
 # family prefix -> (spec factory, default size), as in the JAX package;
 # an architecture string like "qwen2-7b" selects the size directly
@@ -118,14 +125,32 @@ def fake_engine_from_config(cfg):
 
 
 def engine_from_config(cfg, device="cuda"):
-    """``ModelConfig`` -> ``ContinuousEngine`` with random weights drawn
-    from a seeded ``torch.Generator`` on ``device`` (metadata ``seed``).
-    Reads ``size``, ``continuous=1``, ``dtype``, ``quantized`` (with
-    metadata ``weight_bits``, 8 by default, or 4) and the engine metadata
-    keys; what the port lacks raises ``NotImplementedError``. A quantized
-    model is born quantized (``models/base.py:random_quantized_params``).
-    ``architecture="fake"`` builds a fake engine
-    (``fake_engine_from_config``)."""
+    """``ModelConfig`` -> ``ContinuousEngine`` on ``device``, in the JAX
+    factory's order of branches:
+
+    1. metadata ``artifact=<dir>``: a committed serving artifact whose
+       feature hash matches restores the prepared tree
+       (``engine/artifact.py``), its golden probe replayed unless
+       ``artifact_selfcheck=0``. A mismatch or a corrupt artifact falls
+       back to the slow path below, which rewrites it;
+       ``artifact_required=1`` raises instead.
+    2. ``path=<dir>`` of a native checkpoint (``utils/checkpoint.py``):
+       its spec sidecar rules (dtype included), ``max_seq_len`` clamped to
+       it. A JAX Orbax directory raises.
+    3. ``path=<dir>`` of an HF checkpoint: ``spec_from_hf_config``, then
+       ``load_checkpoint`` (``models/loader.py``), in ``dtype`` where the
+       config names one.
+    4. no path: random weights from a seeded ``torch.Generator`` on
+       ``device`` (metadata ``seed``; ``size`` picks the family's size).
+
+    ``quantized`` (with metadata ``weight_bits``, 8 by default, or 4)
+    quantizes a loaded tree, and draws a random one born quantized
+    (``models/base.py:random_quantized_params``). After a slow-path build
+    with ``artifact=``, the artifact is (re)written, best-effort. The
+    engine metadata keys configure the engine; what the port lacks raises
+    ``NotImplementedError``. ``architecture="fake"`` builds a fake engine
+    (``fake_engine_from_config``). ``engine.load_info`` records the
+    load's source and phases."""
     from ..config import EngineConfig
     from ..engine.continuous import ContinuousEngine
 
@@ -138,8 +163,6 @@ def engine_from_config(cfg, device="cuda"):
         raise NotImplementedError(
             f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
 
-    if cfg.path:
-        no("checkpoint loading (path=)", "A11")
     bits = int(md.get("weight_bits", 8) or 8)
     if cfg.quantized and bits not in (4, 8):
         raise ValueError(f"weight_bits must be 4 or 8, got {bits}")
@@ -149,15 +172,9 @@ def engine_from_config(cfg, device="cuda"):
         no("speculative decoding", "A12")
     if md.get("role") == "prefill":
         no("the disaggregated prefill role", "A10")
-    if md.get("artifact"):
-        no("serving artifacts (artifact=)", "A11")
     if not _coerce(False, md.get("continuous", False)):
         no("the static engine (continuous=0)", "A8")
 
-    spec = spec_for_architecture(arch, size=md.get("size", ""),
-                                 max_seq_len=cfg.max_seq_len)
-    if cfg.dtype:
-        spec = spec.replace(dtype=cfg.dtype)
     ecfg = EngineConfig(max_slots=cfg.max_batch_size,
                         max_seq_len=cfg.max_seq_len)
     defaults = {f.name: getattr(ecfg, f.name)
@@ -166,10 +183,149 @@ def engine_from_config(cfg, device="cuda"):
         if k in md:
             setattr(ecfg, k, _coerce(defaults[k], md[k]))
     seed = int(md.get("seed", 0) or 0)
-    params = None
+
+    art = str(md.get("artifact", "") or "")
+    art_required = bool(_coerce(False, md.get("artifact_required", False)))
+    art_selfcheck = bool(_coerce(True, md.get("artifact_selfcheck", True)))
+    if art:
+        eng = _from_artifact(cfg, art, ecfg, seed, device, art_required,
+                             art_selfcheck)
+        if eng is not None:
+            return eng
+
+    from ..utils.checkpoint import SPEC_FILE, load_params, load_spec
+
+    info: Dict[str, Any] = {}
+    t0 = time.perf_counter()
+    if cfg.path and os.path.isfile(os.path.join(cfg.path, SPEC_FILE)):
+        # the port's own checkpoint: the sidecar's spec rules, its dtype
+        # included (the params are stored in it); load_params refuses a
+        # JAX Orbax directory, which has a spec.json too
+        ck_spec = load_spec(cfg.path)
+        spec = ck_spec.replace(max_seq_len=min(cfg.max_seq_len,
+                                               ck_spec.max_seq_len))
+        params = load_params(cfg.path, device=device)
+        info["source"] = "native"
+    elif cfg.path and os.path.isdir(cfg.path):
+        from .loader import load_checkpoint, spec_from_hf_config
+
+        hf_spec = spec_from_hf_config(cfg.path)
+        spec = hf_spec.replace(max_seq_len=min(cfg.max_seq_len,
+                                               hf_spec.max_seq_len),
+                               dtype=cfg.dtype or hf_spec.dtype)
+        params = load_checkpoint(cfg.path, spec, device=device, stats=info)
+        info["source"] = "hf"
+    elif cfg.path:
+        # JAX would serve random weights here; a checkpoint that is not
+        # there must not be answered by a random model
+        raise FileNotFoundError(
+            f"checkpoint path {cfg.path!r} is not a directory")
+    else:
+        spec = spec_for_architecture(arch, size=md.get("size", ""),
+                                     max_seq_len=cfg.max_seq_len)
+        if cfg.dtype:
+            spec = spec.replace(dtype=cfg.dtype)
+        params = None
+        info["source"] = "random"
+    _sync(device)
+    info["read_s"] = time.perf_counter() - t0
     if cfg.quantized:
-        params = random_quantized_params(
-            spec, torch.Generator(device=device).manual_seed(seed),
-            bits=bits)
-    return ContinuousEngine(spec, params=params, config=ecfg, seed=seed,
-                            device=device)
+        t0 = time.perf_counter()
+        if params is None:
+            params = random_quantized_params(
+                spec, torch.Generator(device=device).manual_seed(seed),
+                bits=bits)
+        else:
+            params = quantize_params(spec, params, bits=bits)
+        _sync(device)
+        info["quantize_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = ContinuousEngine(spec, params=params, config=ecfg, seed=seed,
+                           device=device)
+    del params                 # the engine holds the prepared tree
+    _sync(device)
+    info["engine_s"] = time.perf_counter() - t0
+    eng.load_info.update(info)
+    if art:
+        # the first (slow) boot commits the prepared tree, so the next one
+        # cold-starts from it
+        _refresh_artifact(art, cfg, eng, probe=art_selfcheck)
+    return eng
+
+
+def _sync(device) -> None:
+    """Wait for ``device``'s queued work, so a phase's seconds hold it."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _from_artifact(cfg, art: str, ecfg, seed: int, device,
+                   required: bool, selfcheck: bool):
+    """The artifact fast path: an engine restored from ``art``, or None
+    (no committed artifact, or one that failed a check) for the slow path.
+    With ``required`` every failure raises."""
+    from ..engine.artifact import (
+        ArtifactCorruptError,
+        ArtifactError,
+        ArtifactMismatchError,
+        feature_hash,
+        has_artifact,
+        load_manifest,
+    )
+    from ..engine.continuous import ContinuousEngine
+
+    if not has_artifact(art):
+        if required:
+            raise ArtifactCorruptError(
+                f"artifact_required is set but no committed artifact "
+                f"exists at {art}")
+        return None
+    try:
+        manifest = load_manifest(art)
+        if (manifest["feature_hash"]
+                and manifest["feature_hash"] != feature_hash(cfg)):
+            raise ArtifactMismatchError(
+                f"artifact {art} was built for a different deploy config "
+                "(feature hash differs) — refusing to serve it")
+        t0 = time.perf_counter()
+        eng = ContinuousEngine(None, config=ecfg, seed=seed, device=device,
+                               artifact_path=art, artifact_selfcheck=selfcheck)
+        _sync(device)
+        eng.load_info.update(source="artifact",
+                             engine_s=time.perf_counter() - t0)
+        return eng
+    except ArtifactError as e:
+        if required:
+            raise
+        logger.warning(
+            "artifact %s rejected (%s: %s) — falling back to the slow path "
+            "and rewriting it", art, type(e).__name__, e)
+    # a rejected engine's restored tree and pools go before the slow path
+    # builds its own
+    gc.collect()
+    return None
+
+
+def _refresh_artifact(path: str, cfg, engine, probe: bool = True) -> None:
+    """Best-effort artifact (re)write after a slow-path build: a failure is
+    logged, never raised (the engine just built serves either way; the
+    next boot pays the slow path again)."""
+    from ..engine.artifact import save_artifact
+    from ..engine.continuous import _pow2_buckets
+
+    t0 = time.perf_counter()
+    try:
+        # every admission batch bucket the engine serves: a cold start
+        # warms them all (warmup_from_manifest)
+        buckets = {"batch": _pow2_buckets(engine.max_slots),
+                   "prefill": [int(x) for x in engine.prefill_buckets],
+                   "seq": []}
+        save_artifact(path, engine.spec, engine.params, cfg=cfg,
+                      buckets=buckets, engine=engine if probe else None,
+                      stats=engine.load_info)
+        engine.load_info["artifact_save_s"] = time.perf_counter() - t0
+    # best-effort local persistence: the slow-path engine serves either way
+    except Exception:
+        logger.exception(
+            "serving-artifact write to %s failed — serving from the "
+            "slow-path engine anyway", path)

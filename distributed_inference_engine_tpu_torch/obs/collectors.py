@@ -8,8 +8,10 @@ belong to modules the port does not carry, and the port's exposition
 leaves them out rather than printing empty families for them: the
 coordinator, batcher, cache, router, load balancer, registry, autoscaler,
 upgrade and SLO families (the host plane), the speculation families
-(A12), the host KV tier and fabric families (A10), the artifact families
-(A11), fault injection and the disaggregated handoff.
+(A12), the host KV tier and fabric families (A10), fault injection and
+the disaggregated handoff. The artifact families (``worker_artifact_hits``,
+``worker_artifact_misses``) are filled since the serving artifacts were
+ported (A11).
 
 Per-engine families (``engine_*``, ``kv_*``, ``pump_*``) carry ``model``
 and ``worker_id``; ``worker_*`` families carry ``worker_id``.
@@ -145,6 +147,10 @@ WORKER_TABLE = [                   # WorkerServer.get_metrics() top level
     ("ping_count", "worker_pings", "c", "Health probes answered"),
     ("active_connections", "worker_active_connections", "g",
      "Open RPC connections"),
+    ("artifact_hits", "worker_artifact_hits", "c",
+     "Model loads cold-started from a pre-fused serving artifact"),
+    ("artifact_misses", "worker_artifact_misses", "c",
+     "Artifact-configured loads that fell back to the slow path"),
     ("latency", "worker_request_seconds", "h",
      "generate/generate_stream RPC wall time"),
     ("model_load", "worker_model_load_seconds", "h",

@@ -57,6 +57,7 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -128,7 +129,8 @@ class CapturedGraph:
     one pass of its body counts, and the body's outputs (tensors at fixed
     addresses that every replay rewrites)."""
 
-    __slots__ = ("graph", "launches", "outputs", "capture_s", "warmup_s")
+    __slots__ = ("graph", "launches", "outputs", "capture_s", "warmup_s",
+                 "__weakref__")
 
     def __init__(self, graph: Any, launches: Dict[str, int], outputs: Any,
                  capture_s: float = 0.0) -> None:
@@ -137,6 +139,7 @@ class CapturedGraph:
         self.outputs = outputs
         self.capture_s = capture_s
         self.warmup_s = 0.0        # the eager pass before it, if any
+        _LIVE_GRAPHS.add(self)
 
     def replay(self) -> Any:
         """Launch the graph (never while another thread warms up or
@@ -152,6 +155,9 @@ class CapturedGraph:
 # must not interleave with another thread's replays (flash-decode's split
 # scratch of the capture stream is shared by every graph: ops/flash_decode.py)
 GRAPH_LOCK = threading.RLock()
+# every captured graph still alive in the process (release_scratch's guard:
+# a graph holds the scratch's and cuBLAS workspaces' addresses)
+_LIVE_GRAPHS: "weakref.WeakSet[CapturedGraph]" = weakref.WeakSet()
 _CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
 
 
@@ -473,6 +479,26 @@ def split_scratch(device: torch.device, n_partials: int, n_groups: int):
             cnt = torch.zeros((n_groups,), dtype=torch.int32, device=device)
         _SCRATCH[key] = (ws, cnt)
     return ws, cnt
+
+
+def release_scratch() -> bool:
+    """Free the split scratch (current and retired) and cuBLAS's
+    workspaces, so that the caching allocator can give their segments
+    back: done only when no captured graph is alive, since a graph
+    replays into their addresses; returns whether it was done. For a
+    process that has closed every engine (a worker with no model left):
+    these small buffers, kept for later models, would otherwise pin the
+    allocator segments they were carved from. The next launch that needs
+    them allocates them again."""
+    with GRAPH_LOCK, _SCRATCH_LOCK:
+        if len(_LIVE_GRAPHS):
+            return False
+        _SCRATCH.clear()
+        _RETIRED.clear()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None and torch.cuda.is_initialized():
+        clear()
+    return True
 
 
 def check(err: int, name: str) -> None:

@@ -21,10 +21,13 @@ counterpart: they keep a scanned layer slice away from an opaque custom
 call, which XLA would copy first; here ``q[layer]`` of the contiguous
 stacked payload is a zero-copy view whose pointer the kernel takes.
 
-Not ported yet: ``repack_int4_interleaved_to_split`` and the layout
-marker (with checkpoints, ROADMAP A11), ``resolve_kernel_modes`` and the
-``kernel_mode`` stamp (with tp, A13), the MoE weight axes (with Mixtral,
-A9).
+Checkpoints record the int4 layout (``INT4_LAYOUT_SPLIT_HALF``); an
+int4 payload saved without it is in the older even/odd interleave and is
+repacked once on restore (``repack_int4_interleaved_to_split``,
+``utils/checkpoint.py``).
+
+Not ported yet: ``resolve_kernel_modes`` and the ``kernel_mode`` stamp
+(with tp, A13), the MoE weight axes (with Mixtral, A9).
 """
 
 from __future__ import annotations
@@ -108,6 +111,29 @@ def quantize_weight(w: torch.Tensor, reduce_axes: Sequence[int],
     lo, hi = q.chunk(2, dim=a)
     return QuantizedTensor(q=pack_int4(lo, hi), s=scale, bits=4,
                            pack_axis=a - w32.dim())
+
+
+def repack_int4_interleaved_to_split(qt: QuantizedTensor) -> QuantizedTensor:
+    """An int4 payload in the older even/odd interleave (source index
+    ``2k`` in byte ``k``'s low nibble, ``2k+1`` in its high one) repacked
+    to the split-half layout every int4 product reads. Checkpoints store
+    the packed bytes, so a restore calls this once for a payload saved
+    without the layout marker; without it every weight would be silently
+    row-permuted. Identity for int8."""
+    if qt.bits != 4:
+        return qt
+    a = qt.pack_axis % qt.q.dim()
+    q16 = qt.q.to(torch.int16)
+    even = ((q16 & 0xF) ^ 8) - 8          # the low nibble, sign-extended
+    odd = q16 >> 4                         # the high nibble, signed
+    full = torch.stack([even, odd], dim=a + 1).reshape(qt.shape)
+    lo, hi = full.chunk(2, dim=a)
+    return dataclasses.replace(qt, q=pack_int4(lo, hi))
+
+
+# the split-half int4 layout's version, stored with checkpoints (bits=4
+# only): absent = the older even/odd interleave, 1 = split-half
+INT4_LAYOUT_SPLIT_HALF = 1
 
 
 # Same-input matmul groups whose int4 payloads concatenate along the output
@@ -208,18 +234,36 @@ def _pad_vocab(n: int) -> int:
     return -(-n // _LM_HEAD_PAD) * _LM_HEAD_PAD
 
 
+def _quantize_stacked(w: torch.Tensor, bits: int) -> QuantizedTensor:
+    """``quantize_weight(w, (1,), bits)`` of a stacked ``[L, D_in, D_out]``
+    weight, one layer at a time into the stacked payload and scales: the
+    same bits (each layer's scales reduce over its own D_in), with an fp32
+    transient of one layer instead of the whole stack."""
+    first = quantize_weight(w[0], (0,), bits=bits)
+    q = torch.empty((w.shape[0], *first.q.shape), dtype=first.q.dtype,
+                    device=w.device)
+    s = torch.empty((w.shape[0], *first.s.shape), dtype=first.s.dtype,
+                    device=w.device)
+    q[0], s[0] = first.q, first.s
+    for layer in range(1, w.shape[0]):
+        ql = quantize_weight(w[layer], (0,), bits=bits)
+        q[layer], s[layer] = ql.q, ql.s
+    return dataclasses.replace(first, q=q, s=s)
+
+
 def quantize_params(spec, params: Dict[str, Any],
                     bits: int = 8) -> Dict[str, Any]:
     """Quantize the block weights and an untied LM head (bits 8 or 4; the
     int4 head vocab-padded). Embeddings (``tok_emb``, a tied head with
-    it, ``pos_emb``), norms and biases stay as they are, as in JAX."""
+    it, ``pos_emb``), norms and biases stay as they are, as in JAX. The
+    stacked block weights are quantized a layer at a time."""
     out = dict(params)
     blocks = dict(params["blocks"])
     for name in _BLOCK_WEIGHTS:
         w = blocks.get(name)
         if w is None or isinstance(w, QuantizedTensor):
             continue
-        blocks[name] = quantize_weight(w, (1,), bits=bits)
+        blocks[name] = _quantize_stacked(w, bits)
     out["blocks"] = blocks
     head = out.get("lm_head")
     if not spec.tie_embeddings and isinstance(head, torch.Tensor):

@@ -2084,3 +2084,130 @@ def test_profile_names_the_kernels(card, tmp_path):
     assert any("ragged_mma_kernel" in n for n in names), set(names)
     assert any("int4_" in n for n in names), set(names)
     assert stop["timelines"]["b"]
+
+
+# ------------------------------------------- checkpoints and artifacts
+
+# HF Llama naming of the port's block weights (nn.Linear: [out, in])
+_HF_BLOCKS = {"ln1_scale": "input_layernorm",
+              "ln2_scale": "post_attention_layernorm",
+              "wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+              "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+              "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+              "w_down": "mlp.down_proj"}
+
+
+def _write_hf_tiny(path, file_dtype):
+    """llama-tiny drawn in fp32 from a seed, written in HF Llama naming in
+    ``file_dtype`` by the port's own writer (the card's machine has no
+    ``safetensors`` package), with its ``config.json``."""
+    import json
+
+    from distributed_inference_engine_tpu_torch.utils.safetensors_io import (
+        save_file)
+
+    spec = llama_spec("llama-tiny", dtype="float32")
+    p = init_params(spec, torch.Generator().manual_seed(3))
+    raw = {"model.embed_tokens.weight": p["tok_emb"],
+           "model.norm.weight": p["lnf_scale"] + 0.01 * torch.randn(
+               spec.d_model, generator=torch.Generator().manual_seed(4)),
+           "lm_head.weight": p["lm_head"].t()}
+    for layer in range(spec.n_layers):
+        for ours, theirs in _HF_BLOCKS.items():
+            t = p["blocks"][ours][layer]
+            raw[f"model.layers.{layer}.{theirs}.weight"] = (
+                t.t() if t.dim() == 2 else t)
+    save_file({k: v.to(file_dtype) for k, v in raw.items()},
+              str(path / "model.safetensors"))
+    (path / "config.json").write_text(json.dumps({
+        "model_type": "llama", "vocab_size": spec.vocab_size,
+        "hidden_size": spec.d_model, "num_hidden_layers": spec.n_layers,
+        "num_attention_heads": spec.n_heads,
+        "num_key_value_heads": spec.n_kv_heads,
+        "intermediate_size": spec.d_ff, "max_position_embeddings": 512,
+        "rope_theta": spec.rope_theta, "rms_norm_eps": spec.norm_eps}))
+
+
+def _leaf_bytes(tree):
+    from distributed_inference_engine_tpu_torch.utils.checkpoint import (
+        tree_leaves)
+
+    return {k: (v.dtype, tuple(v.shape), v.device.type,
+                v.detach().cpu().reshape(-1).view(torch.uint8))
+            for k, v in tree_leaves(tree)}
+
+
+@pytest.mark.parametrize("file_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32-file", "bf16-file"])
+@pytest.mark.parametrize("spec_dtype", ["float32", "bfloat16"])
+def test_checkpoint_copied_on_the_card_equals_a_host_load(
+        card, tmp_path, file_dtype, spec_dtype):
+    """``load_checkpoint`` to the card (each layer's tensor moved in the
+    file's dtype, then transposed and cast into its slice there) gives
+    the bits of the same load on the host."""
+    from distributed_inference_engine_tpu_torch.models.loader import (
+        load_checkpoint, spec_from_hf_config)
+
+    _write_hf_tiny(tmp_path, file_dtype)
+    spec = spec_from_hf_config(str(tmp_path)).replace(dtype=spec_dtype)
+    host = _leaf_bytes(load_checkpoint(str(tmp_path), spec, device="cpu"))
+    dev = _leaf_bytes(load_checkpoint(str(tmp_path), spec, device=card))
+    assert sorted(host) == sorted(dev)
+    for k, (dt, shape, where, b) in dev.items():
+        assert where == "cuda" and (dt, shape) == host[k][:2], k
+        assert torch.equal(b, host[k][3]), k
+
+
+def test_artifact_restored_on_the_card_equals_the_saved_tree(card,
+                                                             tmp_path):
+    """A prepared int4 tree (q|k|v and gate|up fused) saved from the card
+    restores to the card bit for bit, its checksum the saved one, and the
+    same as a restore to the host."""
+    from distributed_inference_engine_tpu_torch.engine.artifact import (
+        load_artifact, save_artifact, tree_checksum)
+    from distributed_inference_engine_tpu_torch.ops.quant import (
+        prepare_params)
+
+    spec = llama_spec("llama-tiny", max_seq_len=64)
+    params = prepare_params(random_quantized_params(
+        spec, torch.Generator(device=card).manual_seed(0), bits=4))
+    path = save_artifact(str(tmp_path / "art"), spec, params)
+    _, restored, manifest = load_artifact(path, device=card)
+    _, on_host, _ = load_artifact(path, device="cpu")
+    assert manifest["checksum"] == tree_checksum(params) == \
+        tree_checksum(on_host)
+    want, got = _leaf_bytes(params), _leaf_bytes(restored)
+    assert sorted(want) == sorted(got) and "blocks.w_qkv.q" in got
+    for k, (dt, shape, where, b) in got.items():
+        assert where == "cuda" and (dt, shape) == want[k][:2], k
+        assert torch.equal(b, want[k][3]), k
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int4"])
+def test_factory_cold_start_on_the_card(card, tmp_path, quant):
+    """The factory on the card from an HF directory with ``artifact=``:
+    the slow path writes the artifact, the second build cold-starts from
+    it (golden probe replayed through the graphs), and both emit the same
+    greedy tokens."""
+    from distributed_inference_engine_tpu_torch.config import ModelConfig
+    from distributed_inference_engine_tpu_torch.models import (
+        engine_from_config)
+
+    _write_hf_tiny(tmp_path, torch.bfloat16)
+    md = {"continuous": "1", "attention_impl": "pallas-ragged",
+          "prefill_chunk": "32", "page_size": "16", "num_pages": "64",
+          "artifact": str(tmp_path / "art")}
+    if quant:
+        md["weight_bits"] = "4"
+    cfg = ModelConfig(name="m", architecture="llama", path=str(tmp_path),
+                      max_seq_len=256, max_batch_size=4, quantized=quant,
+                      metadata=md)
+    slow = engine_from_config(cfg, device=card)
+    fast = engine_from_config(cfg, device=card)
+    assert slow.artifact_manifest is None
+    assert fast.artifact_manifest is not None
+    assert fast.load_info["source"] == "artifact"
+    reqs = [GenerationRequest(prompt=p, max_new_tokens=13)
+            for p in _graph_prompts()]
+    assert [r.tokens for r in fast.generate(reqs)] == \
+        [r.tokens for r in slow.generate(reqs)]

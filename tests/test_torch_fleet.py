@@ -497,15 +497,13 @@ def _families(text):
 
 
 # families the JAX worker fills for the same engine config that the port
-# lacks: the KV fabric and disaggregated handoff (A10), artifacts (A11),
-# fault injection, the speculation counters the JAX engine reports even
+# lacks: the KV fabric and disaggregated handoff (A10), fault injection, the speculation counters the JAX engine reports even
 # when off (A12), and the process's resident set, which the JAX worker
 # reads through psutil where it is installed (the port does not use it)
 NOT_PORTED = {"worker_rss_bytes",
     "kv_fabric_exports", "kv_fabric_imports", "kv_fabric_export_bytes",
     "kv_fabric_import_bytes", "kv_fabric_import_fallbacks",
-    "worker_handoff_bytes_shipped", "worker_artifact_hits",
-    "worker_artifact_misses", "worker_injected_faults",
+    "worker_handoff_bytes_shipped", "worker_injected_faults",
     "engine_spec_async_drafted_tokens", "engine_spec_async_accepted_tokens",
     "engine_spec_async_wasted_tokens", "engine_spec_async_catchup_tokens",
     "engine_spec_async_accept_rate", "engine_spec_async_draft_rounds",

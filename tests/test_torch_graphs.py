@@ -259,6 +259,29 @@ def test_replay_adds_the_recorded_launches():
         _cuda.LAUNCHES.update(saved)
 
 
+def test_scratch_is_released_only_with_no_graph_alive():
+    """``release_scratch`` keeps the split scratch while any captured
+    graph is alive (a replay writes into it) and frees it, retired
+    buffers included, once none is."""
+    import gc
+
+    saved = dict(_cuda._SCRATCH), list(_cuda._RETIRED)
+    try:
+        _cuda._SCRATCH[(0, 1)] = (torch.empty(8), torch.zeros(2))
+        _cuda._RETIRED.append(torch.empty(4))
+        graph = _cuda.CapturedGraph(_StubGraph(), {}, outputs=None)
+        assert _cuda.release_scratch() is False
+        assert (0, 1) in _cuda._SCRATCH and _cuda._RETIRED
+        del graph
+        gc.collect()
+        assert _cuda.release_scratch() is True
+        assert not _cuda._SCRATCH and not _cuda._RETIRED
+    finally:
+        _cuda._SCRATCH.clear()
+        _cuda._SCRATCH.update(saved[0])
+        _cuda._RETIRED[:] = saved[1]
+
+
 def test_recording_holds_its_own_thread_only():
     """A recording on one thread (a graph captured while a worker stages
     a model) takes none of the launches another thread counts meanwhile

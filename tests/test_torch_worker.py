@@ -191,16 +191,19 @@ def test_engine_from_config_rejects_unported():
     base = dict(name="m", architecture="llama",
                 metadata={"size": "llama-tiny", "continuous": True,
                           "device": "cpu"})
-    for change in (dict(path="/ckpt"),
-                   dict(metadata={**base["metadata"], "tp": 2}),
+    for change in (dict(metadata={**base["metadata"], "tp": 2}),
                    dict(metadata={**base["metadata"], "speculative": 2}),
                    dict(metadata={**base["metadata"], "continuous": False}),
                    dict(metadata={**base["metadata"], "kv_offload": "1"}),
-                   dict(metadata={**base["metadata"], "spec_async": "1"}),
-                   dict(metadata={**base["metadata"], "artifact": "/a"})):
+                   dict(metadata={**base["metadata"], "spec_async": "1"})):
         with pytest.raises(NotImplementedError):
             engine_from_config(ModelConfig(**{**base, **change}),
                                device="cpu")
+    # ported with checkpoints and artifacts (A11): a path that is not a
+    # checkpoint directory is refused as such, not as unported
+    with pytest.raises(FileNotFoundError):
+        engine_from_config(ModelConfig(**{**base, "path": "/ckpt"}),
+                           device="cpu")
     # ported in the host-path slice: streaming, shedding and warmup=
     eng = engine_from_config(ModelConfig(**{**base, "metadata": {
         **base["metadata"], "stream_chunk_steps": "2", "max_waiting": "3",
@@ -214,7 +217,9 @@ def test_engine_from_config_rejects_unported():
     assert str(eng.device) == "cpu"
 
 
-_BANNED = ("jax", "jaxlib", "ml_dtypes", "msgpack", "psutil",
+# the card's machine has none of these (safetensors: the port carries its
+# own reader and writer, utils/safetensors_io.py)
+_BANNED = ("jax", "jaxlib", "ml_dtypes", "msgpack", "psutil", "safetensors",
            "distributed_inference_engine_tpu")
 
 
@@ -244,7 +249,7 @@ def test_importing_the_port_loads_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'ml_dtypes', 'msgpack', "
+        "('jax', 'jaxlib', 'ml_dtypes', 'msgpack', 'safetensors', "
         "'distributed_inference_engine_tpu')]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
