@@ -8,7 +8,9 @@
                                       # wgmma token tiles
     python3 chip_smoke.py --full-depth  # ... with the fp32 logit checks at
                                       # every layer (32; Qwen2-7B and
-                                      # Gemma-7B 28) (CUT_LAYERS: 8)
+                                      # Gemma-7B 28) (CUT_LAYERS: 8);
+                                      # Mixtral's at 8 (4): fp32 at 32
+                                      # layers would be 187 GB
 
 The engine replays a CUDA graph for every decode chunk and mixed step (the
 worker phases and every in-process engine). Each decode scheme (``serve``,
@@ -52,7 +54,9 @@ Phases, each failing loudly (any failure exits non-zero):
      row naming the instance it ran (gemv, with its cluster plan; wgmma,
      wmma, simt); its library
      yardstick is cuBLAS on the dequantized weight, which reads 4x (bf16)
-     or 8x (fp32) the packed bytes;
+     or 8x (fp32) the packed bytes; and at Mixtral-8x7B's expert shapes
+     (gate/up [K/2 2048, N 14336], down [7168, 4096]) at M 8 and 2,048
+     (``int4_matmul.moe``);
    - paged attention at the Mistral decode shapes (B=8, H=32, Hkv=8,
      Dh=128, P=128, MP=48, lengths 0-6,000 with one empty slot): bf16 at
      window 4096 on the stacked pool (layer 5 of 32) with the flash stats m
@@ -265,6 +269,39 @@ Phases, each failing loudly (any failure exits non-zero):
    decode path's teacher-forced logits within 1e-3 of ``forward_train``
    and of the plain kernels' forward (``plain_kernels``).
 
+10. Mixtral-8x7B (A9), int4 at full width and depth (32 layers x 8
+   experts, top 2; 93.4 GB in bf16 does not fit the card):
+   ``mixtral`` (``phase_mixtral``): a worker CLI started with no model
+   loads ``MIXTRAL_MODEL`` over ``load_model`` (int4 born from seed 0,
+   the mixed phase's settings) and serves the mixed phase's two waves
+   (token ids folded into its vocab); checks every request, 32 ragged
+   launches per mixed step, 32 flash-decode launches per pure decode
+   step, 833 ``int4_matmul`` launches per forward (w_qkv, wo and each
+   expert's gate, up and down a layer, and the head), no capture during
+   the waves, and the worker's memory back within ``UNLOAD_SLACK_GIB``
+   after the unload; prints ``load_s``, the warm-up, ``param_bytes``,
+   the worker's device memory, tok/s and TTFT. ``mixtral ckpt``
+   (``phase_mixtral_ckpt``): a full-width 2-layer Mixtral written as an
+   HF Mixtral checkpoint under ``_work/`` (6.3 GB), loaded through a
+   worker with ``quantized=1,weight_bits=4`` (each layer quantized as it
+   is read), its tokens equal to an in-process engine's on the same tree
+   quantized by ``quantize_params``; the directory removed at the end.
+   In process (``phase_mixtral_inproc``): the seed-0 int4 tree rebuilt,
+   the worker's tokens again through an eager engine that records its
+   expert choices, and one chain of each wave teacher-forced to
+   ``forward_train`` at the bf16 band: printed as it stands (a
+   random-init router's choices flip between the two paths' bf16
+   roundings), held with ``forward_train``'s choices and gates pinned to
+   the served path's, the pairs chosen apart counted and the nearest
+   one's K-th and (K+1)-th probabilities printed;
+   at 32 layers on graph replays, the mixed steps' times by bucket and
+   one profiled pure-decode chunk beside the weights' bytes bound; then
+   at ``MIXTRAL_LAYERS`` (4) deep, graph against eager over the
+   first wave (decode chunks and mixed steps), an int8 tree's fp32
+   decode chain within 1e-3, and the fp32 tree (22.5 GB) through
+   flash-decode and the ragged mixed step within 1e-3 of
+   ``forward_train`` and of the plain kernels.
+
 Phases ``fused``, ``int4`` and ``mistral`` hold their in-process decode
 schemes graph against eager as above; the worker phases print each worker
 engine's graphs and fail if it captured none.
@@ -275,7 +312,8 @@ in-process fused, mixed, fw, int4; the fp8 and e5m2 instances: the fp8
 phase's worker, the in-process fw and Mistral runs over each; the G 7
 and head_dim 256
 instances: the qwen2-7b worker, its in-process fw and inline runs, and
-Gemma-7B's inline run), error and times, and
+Gemma-7B's inline run; the int4 matmul at the expert shapes: the
+mixtral worker), error and times, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -462,6 +500,32 @@ FAMILY_PAGED_LAYERS = 4
 # every layer
 FAMILY_LAYERS = 4
 FAMILY_FP32_LAYERS = FAMILY_LAYERS
+
+# Mixtral-8x7B (A9) at full width and depth (32 layers, 8 experts, top 2):
+# 46.7B parameters, 93.4 GB in bf16, more than the card holds; served int4
+# (23.6 GB) with the mixed phase's settings, through a worker CLI started
+# with no model (load_model over RPC)
+MIXTRAL_MODEL = (MIXED_MODEL.replace("name=llama3-8b,architecture=llama,"
+                                     "size=llama3-8b",
+                                     "name=mixtral-8x7b,architecture=mixtral,"
+                                     "size=mixtral-8x7b")
+                 + ",quantized=1,weight_bits=4")
+MIXTRAL_VOCAB, N_EXPERTS = 32000, 8
+# the int4 matmul at the expert shapes (gate and up [K/2 2048, N 14336],
+# down [7168, 4096]) at the decode slots (the GEMV) and a 2,048-row
+# admission or mixed lattice (wgmma)
+MOE_INT4_CASES = [(name, m, k2, n, "bfloat16")
+                  for name, k2, n in (("expert w_gate/w_up", 2048, 14336),
+                                      ("expert w_down", 7168, 4096))
+                  for m in (8, 2048)]
+# the in-process Mixtral checks (fp32 logits, int8, graph against eager)
+# at full width and this depth; --full-depth: 8 layers (fp32 at 32 layers
+# would be 187 GB)
+MIXTRAL_LAYERS = FAMILY_LAYERS
+MIXTRAL_FP32_LAYERS = MIXTRAL_LAYERS
+# the loader check: a full-width Mixtral of 2 layers written as an HF
+# checkpoint (6.3 GB in bf16) and loaded int4 through the worker
+MIXTRAL_CKPT_LAYERS = 2
 
 
 def log(msg: str) -> None:
@@ -1358,9 +1422,10 @@ def check_gemv(torch, which: str):
     return rows
 
 
-def check_int4(torch):
+def check_int4(torch, cases=None):
     """The packed-int4 matmul at every Llama-3-8B shape and the rows the
-    path gives it, and at two ragged shapes. Held per output column to
+    path gives it, and at two ragged shapes (or at ``cases``: (name, M,
+    K/2, N, dtype)). Held per output column to
     max|out - ref32| / max|ref32| (ref32: the plain version on the same
     inputs widened to fp32) at 8 rows and more; at every row count to the
     same bound relative to the column's largest sum |x w| s, since a
@@ -1373,8 +1438,8 @@ def check_int4(torch):
 
     g = torch.Generator(device="cuda").manual_seed(3)
     rows = []
-    cases = [(name, m, k2, n, dt) for name, k2, n, dt in INT4_SHAPES
-             for m in INT4_ROWS] + INT4_EDGES
+    cases = cases or [(name, m, k2, n, dt) for name, k2, n, dt in INT4_SHAPES
+                      for m in INT4_ROWS] + INT4_EDGES
     for name, m, k2, n, dtype_name in cases:
         dt = getattr(torch, dtype_name)
         item = torch.finfo(dt).bits // 8
@@ -1588,6 +1653,8 @@ def phase_kernels(torch, card: str):
         "flash_decode_fw.e5m2": check_flash_decode_fw(torch, E5M2),
         "ragged_attention.e5m2": check_ragged(torch, E5M2),
         "paged_attention.e5m2": check_paged(torch, E5M2),
+        # Mixtral-8x7B's expert products (A9)
+        "int4_matmul.moe": check_int4(torch, MOE_INT4_CASES),
     }
     # 128 slots: the regime where the pools' bytes dominate a layer
     results["flash_decode.b128"] = check_flash_decode(
@@ -2355,25 +2422,41 @@ HF_LLAMA_BLOCKS = (("ln1_scale", "input_layernorm"),
                    ("w_down", "mlp.down_proj"))
 
 
-def hf_llama_tensors(params, n_layers: int):
-    """``(HF name, tensor)`` of a Llama tree in HF's order: each weight a
+# HF Mixtral naming of the MoE weights: the router, and each expert's w1
+# (gate), w2 (down) and w3 (up)
+HF_MIXTRAL_EXPERTS = (("w_gate", "w1"), ("w_down", "w2"), ("w_up", "w3"))
+
+
+def hf_llama_tensors(params, spec):
+    """``(HF name, tensor)`` of a Llama tree in HF's order (a Mixtral
+    tree's MLP in its ``block_sparse_moe`` naming): each weight a
     transposed view (no copy) of the port's ``[in, out]`` slice."""
     yield "model.embed_tokens.weight", params["tok_emb"]
-    for layer in range(n_layers):
+    blocks = params["blocks"]
+    for layer in range(spec.n_layers):
+        pre = f"model.layers.{layer}."
         for ours, theirs in HF_LLAMA_BLOCKS:
-            t = params["blocks"][ours][layer]
-            yield (f"model.layers.{layer}.{theirs}.weight",
-                   t.t() if t.dim() == 2 else t)
+            if spec.n_experts and theirs.startswith("mlp."):
+                continue
+            t = blocks[ours][layer]
+            yield f"{pre}{theirs}.weight", t.t() if t.dim() == 2 else t
+        if spec.n_experts:
+            yield (f"{pre}block_sparse_moe.gate.weight",
+                   blocks["w_router"][layer].t())
+            for e in range(spec.n_experts):
+                for ours, theirs in HF_MIXTRAL_EXPERTS:
+                    yield (f"{pre}block_sparse_moe.experts.{e}.{theirs}."
+                           "weight", blocks[ours][layer][e].t())
     yield "model.norm.weight", params["lnf_scale"]
     yield "lm_head.weight", params["lm_head"].t()
 
 
 def write_hf_checkpoint(torch, path: Path, spec, seed: int = 0):
     """The engine's seed-``seed`` tree of ``spec`` (``init_params`` on the
-    card, as the engine draws it) written to ``path`` in HF Llama naming,
-    sharded at ``CKPT_SHARD_BYTES``, with ``model.safetensors.index.json``
-    and ``config.json``; each tensor reaches the host alone. Returns the
-    files, bytes and seconds."""
+    card, as the engine draws it) written to ``path`` in HF Llama naming
+    (Mixtral's for a spec with experts), sharded at ``CKPT_SHARD_BYTES``,
+    with ``model.safetensors.index.json`` and ``config.json``; each tensor
+    reaches the host alone. Returns the files, bytes and seconds."""
     from distributed_inference_engine_tpu_torch.models.base import (
         init_params)
     from distributed_inference_engine_tpu_torch.utils.safetensors_io import (
@@ -2385,7 +2468,7 @@ def write_hf_checkpoint(torch, path: Path, spec, seed: int = 0):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     shards, cur, size = [], [], 0
-    for name, t in hf_llama_tensors(params, spec.n_layers):
+    for name, t in hf_llama_tensors(params, spec):
         nbytes = t.numel() * t.element_size()
         if cur and size + nbytes > CKPT_SHARD_BYTES:
             shards.append(cur)
@@ -2405,8 +2488,14 @@ def write_hf_checkpoint(torch, path: Path, spec, seed: int = 0):
     (path / "model.safetensors.index.json").write_text(json.dumps(
         {"metadata": {"total_size": total}, "weight_map": weight_map},
         indent=2))
+    family = ({"architectures": ["MixtralForCausalLM"],
+               "model_type": "mixtral",
+               "num_local_experts": spec.n_experts,
+               "num_experts_per_tok": spec.experts_per_token}
+              if spec.n_experts else
+              {"architectures": ["LlamaForCausalLM"], "model_type": "llama"})
     (path / "config.json").write_text(json.dumps({
-        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        **family,
         "vocab_size": spec.vocab_size, "hidden_size": spec.d_model,
         "num_hidden_layers": spec.n_layers,
         "num_attention_heads": spec.n_heads,
@@ -3647,6 +3736,547 @@ def phase_families_inproc(torch, card: str, served):
     return paths
 
 
+# ------------------------------------------------------------- Mixtral (A9)
+
+
+def mixtral_waves():
+    """The mixed phase's two waves, token ids folded into Mixtral's
+    vocab."""
+    return [[[t % MIXTRAL_VOCAB for t in p] for p in wave]
+            for wave in mixed_prompts()]
+
+
+async def drive_load(torch, host, port, pid: int, model: str, waves,
+                     card: str):
+    """On a worker started with no model: ``model`` loaded over
+    ``load_model`` (its load-time warm-up included), ``waves`` served
+    (each wave one RPC: ``serve_waves``), the model unloaded (the worker's
+    memory back within ``UNLOAD_SLACK_GIB`` of the reading before the
+    load) and the worker shut down. Returns ``serve_waves``' output with
+    the load's receipt, wall, warm-up, phases, the engine's
+    ``param_bytes`` and the memory readings."""
+    from distributed_inference_engine_tpu_torch.cli.worker import (
+        parse_model_arg)
+    from distributed_inference_engine_tpu_torch.cluster.worker import (
+        WorkerClient)
+
+    cfg = parse_model_arg(model)
+    client = WorkerClient(host, port, timeout=900.0)
+    try:
+        mem = WorkerMemory(torch, pid, client)
+        run = dict(mem0=await mem.read())
+        run["note0"] = mem.note
+        t0 = time.perf_counter()
+        run["receipt"] = await client.load_model(cfg, timeout=900.0)
+        run["load_wall"] = time.perf_counter() - t0
+        m = await client.metrics()
+        rounds, secs = m["model_warmup"][cfg.name]
+        run.update(warmed=(f"warmed model {cfg.name}: {rounds} rounds in "
+                           f"{secs:.2f}s"), warmup_s=secs,
+                   load=m["models"][cfg.name]["load"],
+                   param_bytes=m["models"][cfg.name]["param_bytes"],
+                   mem_loaded=await mem.read(), note_loaded=mem.note)
+        run.update(await serve_waves(client, waves, cfg.name, batched=True))
+        assert await client.unload_model(cfg.name) is True
+        run["mem_unloaded"] = await mem.read()
+        run["note_unloaded"] = mem.note
+        assert run["mem_unloaded"] - run["mem0"] <= UNLOAD_SLACK_GIB, \
+            (cfg.name, run["mem0"], run["mem_unloaded"], mem.note)
+        await client.shutdown()
+    finally:
+        await client.close()
+    return run
+
+
+def load_run(torch, model: str, waves, card: str):
+    """``drive_load`` on a fresh worker CLI started with no model."""
+    free_this_process(torch)
+    proc, host, port, _lines = start_worker(None)
+    try:
+        run = asyncio.run(drive_load(torch, host, port, proc.pid, model,
+                                     waves, card))
+        proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return run
+
+
+def check_mixtral_run(run, waves, label: str, n_layers: int = N_LAYERS):
+    """A Mixtral worker run's checks: every request finished (32 tokens in
+    the vocab), one ragged launch per layer per mixed step (all on the
+    tensor cores), one flash-decode launch per layer per pure decode step,
+    ``n_layers * (2 + 3 * 8) + 1`` int4 launches per forward (admission
+    prefills, decode steps and mixed steps), none on the wmma instance,
+    no fused decode GEMV. Returns the forwards by kind."""
+    results, launches, eng = run["results"], run["launches"], run["eng"]
+    for i, (res, prompts) in enumerate(zip(results, waves)):
+        check_results(res, prompts, f"{label} wave {i + 1}", MIXTRAL_VOCAB)
+    assert eng["mixed_steps"] > 0 and eng["chunked_admissions"] > 0, eng
+    assert eng["prefix_hit_admissions"] >= 1, eng
+    assert launches.get("ragged_attention") == n_layers * eng[
+        "mixed_steps"] == launches.get("ragged_attention.mma"), \
+        (launches, eng["mixed_steps"])
+    decode_steps = launches.get("flash_decode", 0) // n_layers
+    assert decode_steps > 0 and \
+        launches["flash_decode"] == n_layers * decode_steps, launches
+    forwards = eng["prefill_calls"] + decode_steps + eng["mixed_steps"]
+    # w_qkv, wo and each expert's gate, up and down per layer (the 4-D
+    # expert payloads are not fused), and the head: 833 at 32 layers
+    per_forward = n_layers * (2 + 3 * N_EXPERTS) + 1
+    assert launches.get("int4_matmul") == per_forward * forwards, \
+        (label, launches, eng["prefill_calls"], decode_steps,
+         eng["mixed_steps"])
+    inst = {k.split(".", 1)[1]: v for k, v in launches.items()
+            if k.startswith("int4_matmul.")}
+    assert sum(inst.values()) == launches["int4_matmul"] and \
+        not inst.get("wmma"), inst
+    for k in ("norm_matmul", "matmul_residual"):
+        assert not launches.get(k), f"{label}: {k} launched: {launches}"
+    return dict(prefills=eng["prefill_calls"], decode=decode_steps,
+                mixed=eng["mixed_steps"], per_forward=per_forward)
+
+
+def phase_mixtral(torch, card: str):
+    """A9 at full width and depth: ``MIXTRAL_MODEL`` (Mixtral-8x7B, 32
+    layers x 8 experts, int4 born from seed 0) loaded over ``load_model``
+    into a worker CLI started with no model, and the mixed phase's two
+    waves served (``check_mixtral_run``: 833 int4 launches per forward);
+    unloading brings the worker's memory back. Prints the load's seconds,
+    the warm-up's, the weights' bytes, the worker's device memory, tok/s
+    and TTFT p50/max. Returns the waves and the run."""
+    waves = mixtral_waves()
+    run = load_run(torch, MIXTRAL_MODEL, waves, card)
+    fw = check_mixtral_run(run, waves, "mixtral")
+    results, wall, launches, eng = (run["results"], run["wall"],
+                                    run["launches"], run["eng"])
+    load = run["load"]
+    phases = ", ".join(f"{k} {v:.2f}" for k, v in load.items()
+                       if k.endswith("_s"))
+    log(f"[mixtral] load_s {run['receipt']['load_s']:.2f} (RPC wall "
+        f"{run['load_wall']:.2f} s; phases (s): {phases}; warm-up "
+        f"{run['warmup_s']:.2f} s); weights {run['param_bytes'] / 1e9:.3f} "
+        f"GB ({run['param_bytes']} bytes; predicted ~23.6); worker memory "
+        f"({run['note0']}) {run['mem0']:.2f} GiB before the load, "
+        f"{run['mem_loaded']:.2f} loaded ({run['note_loaded']}), "
+        f"{run['mem_unloaded']:.2f} after unloading "
+        f"({run['note_unloaded']}); pools "
+        f"{eng['kv']['hbm_bytes'] / 2**30:.2f} GiB [{card}]")
+    log(f"[mixtral] {graphs_line(run)} [{card}]")
+    every = results[0] + results[1]
+    log(f"[mixtral] {served_line(every, wall)}; mixed steps "
+        f"{eng['mixed_steps']} carrying {eng['mixed_prefill_tokens']} "
+        f"prefill tokens; chunked admissions {eng['chunked_admissions']}; "
+        f"prefix-hit admissions {eng['prefix_hit_admissions']}; forwards: "
+        f"{fw['prefills']} admission prefills, {fw['decode']} decode steps, "
+        f"{fw['mixed']} mixed steps, {fw['per_forward']} int4 launches "
+        f"each; launches {launches} [{card}]")
+    return waves, run
+
+
+class RouteRecorder:
+    """The expert choices of an engine run, by sequence position: while
+    ``recording()`` is on, the engine's forwards (admission prefill, mixed
+    step, window decode; the names ``engine/continuous.py`` calls) note
+    which rows carry which (page-table row's first page, position, token),
+    and ``ops/moe.py:route`` records each such row's experts at each layer,
+    keyed ``(wave, first page, position)``, with their gates. An engine run
+    through its eager hook calls the Python forwards every step, so the
+    records are the served path's own choices (graph replays equal the
+    eager bodies bit for bit). ``pinned(seq, wave)`` then makes
+    ``forward_train`` over ``seq`` route each position as that run did,
+    with its gates: each MoE layer then combines the same experts with the
+    same weights in both paths, as a dense MLP does, and what is left
+    between them is the bf16 rounding the tie band was set for. It counts
+    the choices that differ from ``forward_train``'s own and the nearest
+    of those (its K-th and (K+1)-th probabilities). A prefix hit's first
+    pages are found in the wave that wrote them."""
+
+    def __init__(self, torch, n_layers: int, device="cuda") -> None:
+        self.torch, self.n_layers, self.device = torch, n_layers, device
+        self.records = {}
+        self.wave = 0
+        self.rows = None
+        self.layer = 0
+
+    def _rows(self, fn, args, kwargs):
+        """[(row, first page, position, token)] of one forward's live
+        rows, on the host."""
+        import inspect
+
+        import numpy as np
+        from distributed_inference_engine_tpu_torch.models import base as mb
+
+        a = inspect.signature(getattr(mb, fn)).bind(*args, **kwargs).arguments
+
+        def host(x):
+            return (x.detach().cpu().numpy() if hasattr(x, "detach")
+                    else np.asarray(x))
+
+        toks, table = host(a["tokens"]), host(a["page_table"])
+        out = []
+        if fn == "forward_prefill_into_pages":
+            lens = host(a["seq_lens"])
+            t = toks.shape[1]
+            for b in range(toks.shape[0]):
+                out += [(b * t + i, int(table[b, 0]), i, int(toks[b, i]))
+                        for i in range(int(lens[b]))]
+        elif fn == "forward_mixed_step":
+            ctx, ql = host(a["ctx_lens"]), host(a["q_lens"])
+            qm = toks.shape[1]
+            for r in range(toks.shape[0]):
+                out += [(r * qm + i, int(table[r, 0]), int(ctx[r]) + i,
+                         int(toks[r, i])) for i in range(int(ql[r]))]
+        else:                                     # forward_decode_window
+            lens, act = host(a["lengths"]), host(a["active"])
+            out = [(b, int(table[b, 0]), int(lens[b]), int(toks[b]))
+                   for b in range(toks.shape[0]) if act[b]]
+        return out
+
+    @contextlib.contextmanager
+    def recording(self):
+        from distributed_inference_engine_tpu_torch.engine import continuous
+        from distributed_inference_engine_tpu_torch.ops import moe
+
+        names = ("forward_prefill_into_pages", "forward_mixed_step",
+                 "forward_decode_window")
+        old = {n: getattr(continuous, n) for n in names}
+        real_route = moe.route
+
+        def wrap(fn):
+            def call(*args, **kwargs):
+                self.rows, self.layer = self._rows(fn, args, kwargs), 0
+                return old[fn](*args, **kwargs)
+            return call
+
+        def route(w, xf, k):
+            probs, gate, idx = real_route(w, xf, k)
+            experts, gates = idx.cpu().numpy(), gate.cpu().numpy()
+            for row, page, pos, tok in self.rows:
+                rec = self.records.setdefault(
+                    (self.wave, page, pos),
+                    {"token": tok, "idx": [None] * self.n_layers})
+                rec["idx"][self.layer] = (
+                    tuple(int(e) for e in experts[row]),
+                    tuple(float(g) for g in gates[row]))
+            self.layer += 1
+            return probs, gate, idx
+
+        def no_suffix(*args, **kwargs):
+            raise AssertionError("the ragged engine ran a suffix prefill")
+
+        for n in names:
+            setattr(continuous, n, wrap(n))
+        continuous.forward_prefill_suffix, suffix = no_suffix, \
+            continuous.forward_prefill_suffix
+        moe.route = route
+        try:
+            yield self
+        finally:
+            for n, f in old.items():
+                setattr(continuous, n, f)
+            continuous.forward_prefill_suffix = suffix
+            moe.route = real_route
+
+    def choices(self, seq, wave: int):
+        """Position -> experts by layer for ``seq`` as wave ``wave`` (or,
+        for a cached prefix, the wave before it) routed it: the first page
+        whose records match ``seq``'s tokens most."""
+        hits = collections.Counter(
+            page for (w, page, pos), rec in self.records.items()
+            if w == wave and pos < len(seq) and rec["token"] == seq[pos])
+        page = hits.most_common(1)[0][0]
+        out = {}
+        for pos in range(len(seq)):
+            for w in range(wave, -1, -1):
+                rec = self.records.get((w, page, pos))
+                if rec is not None and rec["token"] == seq[pos]:
+                    out[pos] = rec["idx"]
+                    break
+        return out
+
+    @contextlib.contextmanager
+    def pinned(self, seq, wave: int):
+        torch = self.torch
+        from distributed_inference_engine_tpu_torch.ops import moe
+
+        chosen = self.choices(seq, wave)
+        # per layer: the recorded positions, their experts and gates
+        pins = []
+        for li in range(self.n_layers):
+            at = [(pos, e[li]) for pos, e in chosen.items()
+                  if e[li] is not None]
+            pins.append((
+                torch.tensor([p for p, _ in at], device=self.device),
+                torch.tensor([e for _, (e, _) in at], device=self.device),
+                torch.tensor([g for _, (_, g) in at], device=self.device)))
+        real_route = moe.route
+        stats = dict(pinned=sum(len(p[0]) for p in pins), differ=0,
+                     nearest=None)
+        layer = [0]
+
+        def route(w, xf, k):
+            probs, gate, own = real_route(w, xf, k)
+            idx, gate = own.clone(), gate.clone()
+            li, layer[0] = layer[0], layer[0] + 1
+            pos, experts, gates = pins[li]
+            if len(pos):
+                idx[pos], gate[pos] = experts, gates
+            diff = (idx.sort(-1).values != own.sort(-1).values).any(-1)
+            if bool(diff.any()):
+                top = torch.sort(probs[diff], -1, descending=True).values
+                gaps = top[:, k - 1] - top[:, k]
+                j = int(torch.argmin(gaps))
+                near = (float(gaps[j]), float(top[j, k - 1]),
+                        float(top[j, k]))
+                stats["differ"] += int(diff.sum())
+                if stats["nearest"] is None or near[0] < stats["nearest"][0]:
+                    stats["nearest"] = near
+            return probs, gate, idx
+
+        moe.route = route
+        try:
+            yield stats
+        finally:
+            moe.route = real_route
+
+
+def served_chain_parity(torch, recorder, spec, params, prompt, tokens,
+                        wave: int, label: str, card: str):
+    """A served chain teacher-forced to ``forward_train`` at the bf16 tie
+    band, first as it stands (printed, not held: the two paths' bf16
+    roundings flip experts whose K-th and (K+1)-th probabilities nearly
+    tie, and a flip moves that token's MLP output), then with
+    ``forward_train``'s expert choices and gates pinned to the served
+    path's (``RouteRecorder``), which must hold. Prints how many (layer,
+    position) choices the two paths made apart and the nearest of them
+    (``forward_train``'s K-th and (K+1)-th probabilities there)."""
+    from distributed_inference_engine_tpu_torch.utils.parity import (
+        assert_greedy_parity)
+
+    def held(**kw):
+        try:
+            m, t = assert_greedy_parity(spec, params, prompt, tokens,
+                                        eps=BF16_TIE_EPS, label=label)
+            return True, f"{m} strict, {t} ties"
+        except AssertionError as e:
+            return False, f"outside the band: {e}"
+
+    seq = list(prompt) + list(tokens)
+    _, own = held()
+    with recorder.pinned(seq, wave) as st:
+        ok, pinned = held()
+    near = ("" if st["nearest"] is None else
+            f"; the nearest: K-th {st['nearest'][1]:.6e}, (K+1)-th "
+            f"{st['nearest'][2]:.6e} (gap {st['nearest'][0]:.3e})")
+    log(f"[mixtral] {label} ({len(prompt)}-token prompt, {spec.n_layers} "
+        f"layers) teacher-forced to forward_train (band {BF16_TIE_EPS}): "
+        f"as it stands {own}; with its expert choices and gates pinned to "
+        f"the served path's ({st['pinned']} of {len(seq) * spec.n_layers} "
+        f"(layer, position) pairs): {pinned}; the two paths chose apart at "
+        f"{st['differ']} pairs{near} [{card}]")
+    assert ok, f"{label}, experts pinned: {pinned}"
+
+
+def phase_mixtral_inproc(torch, card: str, waves, served):
+    """Mixtral-8x7B in this process after its worker shut down: the same
+    seed-0 int4 tree rebuilt (same seed and card, so the same draws), the
+    longest chain of each wave teacher-forced to ``forward_train`` at the
+    bf16 tie band (32 layers); on graph replays at 32 layers, the mixed
+    steps' times by bucket and one profiled pure-decode chunk (ms a step,
+    device-busy share, the int4 GEMV's share) beside the weights' bytes
+    bound. Then at full width and ``MIXTRAL_LAYERS`` deep: int4 graph
+    replays against the eager hook over the first wave
+    (decode chunks and mixed steps; tokens, logprobs and launches equal);
+    an int8 tree's decode chain in fp32 within 1e-3 of ``forward_train``;
+    and the fp32 tree (not quantized; ``MIXTRAL_FP32_LAYERS`` deep) through
+    flash-decode and the ragged mixed step, its teacher-forced logits
+    within 1e-3 of ``forward_train``'s and of the plain kernels'. Returns
+    the graph run's launches."""
+    from distributed_inference_engine_tpu_torch.cli.worker import (
+        parse_model_arg)
+    from distributed_inference_engine_tpu_torch.engine.continuous import (
+        ContinuousEngine)
+    from distributed_inference_engine_tpu_torch.engine.types import (
+        GenerationRequest)
+    from distributed_inference_engine_tpu_torch.models import (
+        engine_config, spec_for_architecture)
+    from distributed_inference_engine_tpu_torch.models.base import (
+        init_params, random_quantized_params)
+    from distributed_inference_engine_tpu_torch.ops.quant import (
+        param_bytes, prepare_params)
+
+    spec = spec_for_architecture("mixtral", "mixtral-8x7b",
+                                 max_seq_len=1024)
+    gen = torch.Generator(device="cuda")
+
+    def born(spec, bits):
+        return prepare_params(random_quantized_params(
+            spec, gen.manual_seed(0), bits=bits))
+
+    params = born(spec, 4)
+    log(f"[mixtral] rebuilt in process: {param_bytes(params) / 1e9:.3f} GB "
+        f"of int4 weights [{card}]")
+    # the served path again, in this process through the eager hook with
+    # the worker's config (each wave one batch, as the worker admitted
+    # it): the worker's tokens, its expert choices recorded
+    recorder = RouteRecorder(torch, spec.n_layers)
+    engine = ContinuousEngine(spec, params=params, config=engine_config(
+        parse_model_arg(MIXTRAL_MODEL)), device="cuda")
+    engine._eager = True
+    t0 = time.perf_counter()
+    with recorder.recording():
+        for w, (prompts, results) in enumerate(zip(waves,
+                                                   served["results"])):
+            recorder.wave = w
+            out = engine.generate([GenerationRequest(
+                prompt=p, max_new_tokens=32, request_id=f"w{w}_{i}")
+                for i, p in enumerate(prompts)])
+            assert [r.tokens for r in out] == [r.tokens for r in results], \
+                f"wave {w + 1}: the eager engine's tokens differ from the " \
+                "worker's"
+    del engine
+    torch.cuda.empty_cache()
+    log(f"[mixtral] the eager engine (this process, 32 layers) emitted the "
+        f"worker's tokens on both waves in {time.perf_counter() - t0:.1f} "
+        f"s; {len(recorder.records)} (wave, page, position) routes "
+        f"recorded [{card}]")
+    for w, (prompts, results) in enumerate(zip(waves, served["results"])):
+        i = max(range(len(prompts)), key=lambda j: len(prompts[j]))
+        served_chain_parity(torch, recorder, spec, params, prompts[i],
+                            results[i].tokens, w,
+                            f"served chain, wave {w + 1}", card)
+    del recorder
+    # the served configuration's steps at 32 layers, on graph replays: the
+    # mixed steps by bucket, and one profiled pure-decode chunk (the
+    # worker's decode-chunk wall would also hold the admission prefills
+    # queued before a chunk)
+    log(f"[mixtral] {mixed_pair_line(torch, spec, params, waves[0], card, 'int4 (32 layers)', ('graph',))}"
+        f" [{card}]")
+    engine = ContinuousEngine(spec, params=params, config=engine_config(
+        parse_model_arg(MIXTRAL_MODEL)), device="cuda")
+    ms, busy = profile_decode(torch, engine, waves[0], card,
+                              label="mixtral decode, graph",
+                              share_of=("int4_gemv", "flash_decode_kernel"))
+    del engine
+    log(f"[mixtral] decode at 32 layers x 8 experts, 8 slots: {ms:.2f} "
+        f"ms/step, device busy {busy:.1f}%; bound "
+        f"{param_bytes(params) / HBM_BYTES_PER_S * 1e3:.2f} ms (the "
+        f"weights' bytes at 3.35 TB/s) [{card}]")
+    del params
+    torch.cuda.empty_cache()
+
+    cut = spec.replace(n_layers=MIXTRAL_LAYERS)
+    params = born(cut, 4)
+    _, launches, eng, _ = pair_run(
+        torch, cut, params, waves[0], "mixtral int4", card, exact=True,
+        attention_impl="pallas-ragged", prefill_chunk=256,
+        mixed_step_tokens=512)
+    assert eng["mixed_steps"] > 0 and launches.get("ragged_attention") == \
+        MIXTRAL_LAYERS * eng["mixed_steps"], (launches, eng["mixed_steps"])
+    decode_steps = launches.get("flash_decode", 0) // MIXTRAL_LAYERS
+    assert decode_steps > 0, launches
+    assert launches.get("int4_matmul") == (
+        MIXTRAL_LAYERS * (2 + 3 * N_EXPERTS) + 1) * (
+        eng["prefill_calls"] + decode_steps + eng["mixed_steps"]), \
+        (launches, eng["prefill_calls"], eng["mixed_steps"])
+    del params
+    torch.cuda.empty_cache()
+
+    spec32 = spec.replace(dtype="float32", n_layers=MIXTRAL_FP32_LAYERS)
+    prompt, cont = waves[0][5], served["results"][0][5].tokens[:8]
+    params = born(spec32, 8)
+    gaps = decode_logit_gap(torch, spec32, params, prompt, cont,
+                            fused=False)
+    log(f"[mixtral] int8 fp32 decode chain ({MIXTRAL_FP32_LAYERS} layers): "
+        f"decode-vs-forward_train max|logit gap| {max(gaps):.3e} over "
+        f"{len(gaps)} steps (limit {FP32_LOGIT_TOL}); weights "
+        f"{param_bytes(params) / 1e9:.2f} GB [{card}]")
+    assert max(gaps) <= FP32_LOGIT_TOL, gaps
+    del params
+    torch.cuda.empty_cache()
+
+    params = init_params(spec32, gen.manual_seed(0))
+    log(f"[mixtral] fp32 tree ({MIXTRAL_FP32_LAYERS} layers, full width): "
+        f"{param_bytes(params) / 1e9:.2f} GB [{card}]")
+    kernel_vs_plain(torch, card, spec32, params, prompt,
+                    served["results"][0][5].tokens[:16],
+                    ("pallas-decode", "ragged"), "mixtral-8x7b",
+                    kv_dtype="float32")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mixtral_ckpt(torch, card: str, waves):
+    """The Mixtral loader on the card: a full-width Mixtral of
+    ``MIXTRAL_CKPT_LAYERS`` layers (seed-0 bf16 tree, drawn on the card as
+    the engine draws it) written as an HF Mixtral checkpoint under the
+    checkout's ``_work/``, loaded through a worker CLI with
+    ``quantized=1,weight_bits=4`` (each layer quantized as it is read)
+    and served the two waves; its tokens must equal an in-process engine's
+    on the same tree quantized by ``quantize_params``. The directory is
+    removed at the end, whatever happens."""
+    from distributed_inference_engine_tpu_torch.cli.worker import (
+        parse_model_arg)
+    from distributed_inference_engine_tpu_torch.engine.continuous import (
+        ContinuousEngine)
+    from distributed_inference_engine_tpu_torch.engine.types import (
+        GenerationRequest)
+    from distributed_inference_engine_tpu_torch.models import (
+        engine_config, spec_for_architecture)
+    from distributed_inference_engine_tpu_torch.models.base import (
+        init_params)
+    from distributed_inference_engine_tpu_torch.ops.quant import (
+        quantize_params)
+
+    spec = spec_for_architecture("mixtral", "mixtral-8x7b",
+                                 max_seq_len=1024).replace(
+        n_layers=MIXTRAL_CKPT_LAYERS)
+    parent = REPO / "_work"
+    parent.mkdir(exist_ok=True)
+    ck = Path(tempfile.mkdtemp(prefix="ckpt-mixtral-", dir=parent))
+    try:
+        w = write_hf_checkpoint(torch, ck, spec)
+        log(f"[mixtral ckpt] wrote {w['files']} files, {w['bytes'] / 1e9:.2f}"
+            f" GB in HF Mixtral naming ({spec.n_layers} layers at full "
+            f"width) in {w['write_s']:.2f} s [{card}]")
+        model = (MIXTRAL_MODEL.replace("name=mixtral-8x7b,",
+                                       "name=mixtral-ckpt,")
+                 + f",path={ck}")
+        run = load_run(torch, model, waves, card)
+        fw = check_mixtral_run(run, waves, "mixtral ckpt",
+                               n_layers=spec.n_layers)
+        assert run["load"]["source"] == "hf", run["load"]
+        got = [[r.tokens for r in wave] for wave in run["results"]]
+        engine = ContinuousEngine(
+            spec, params=quantize_params(spec, init_params(
+                spec, torch.Generator(device="cuda").manual_seed(0)),
+                bits=4),
+            config=engine_config(parse_model_arg(model)), device="cuda")
+        want = [[r.tokens for r in engine.generate([GenerationRequest(
+            prompt=p, max_new_tokens=32, request_id=f"w{w}_{i}")
+            for i, p in enumerate(wave)])] for w, wave in enumerate(waves)]
+        del engine
+        torch.cuda.empty_cache()
+        assert got == want, "the loaded int4 Mixtral's tokens differ from " \
+            "the tree quantized in process"
+        load = run["load"]
+        log(f"[mixtral ckpt] loaded int4 through the worker: load_s "
+            f"{run['receipt']['load_s']:.2f} (read and quantize "
+            f"{load['read_s']:.2f} s of {load['bytes_read'] / 1e9:.2f} GB, "
+            f"the head {load['quantize_s']:.2f} s); weights "
+            f"{run['param_bytes'] / 1e9:.3f} GB; "
+            f"{served_line(run['results'][0] + run['results'][1], run['wall'])}"
+            f"; {fw['per_forward']} int4 launches a forward; tokens equal "
+            f"the in-process engine's on the tree quantized by "
+            f"quantize_params [{card}]")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    assert not ck.exists()
+
+
 def phase_int4(torch, card: str):
     """The slice's path: the worker CLI serving the mixed phase's two waves
     with int4 weights (born int4 from seed 0, q|k|v and gate|up fused at
@@ -4141,9 +4771,10 @@ def main() -> int:
                     f"({N_LAYERS}; Qwen2-7B and Gemma-7B 28) instead of "
                     f"{CUT_LAYERS}")
     args = ap.parse_args()
-    global FP32_LAYERS, FAMILY_FP32_LAYERS
+    global FP32_LAYERS, FAMILY_FP32_LAYERS, MIXTRAL_FP32_LAYERS
     if args.full_depth:
         FP32_LAYERS = FAMILY_FP32_LAYERS = N_LAYERS
+        MIXTRAL_FP32_LAYERS = CUT_LAYERS
 
     import torch
 
@@ -4207,6 +4838,11 @@ def main() -> int:
     done("mistral worker")
     fam_served = phase_families(torch, card)
     done("qwen2-7b, gemma-7b and gpt2 worker")
+    mx_waves, mixtral_run = phase_mixtral(torch, card)
+    mixtral_launch = mixtral_run["launches"]
+    done("mixtral worker")
+    phase_mixtral_ckpt(torch, card, mx_waves)
+    done("mixtral checkpoint")
     fused_launch, fw_launch = phase_fused(torch, card, prompts, results,
                                           mixed_wave, args.profile)
     done("fused and host")
@@ -4219,10 +4855,14 @@ def main() -> int:
     done("fp8 and e5m2 in process")
     fam_paths = phase_families_inproc(torch, card, fam_served)
     done("families in process")
+    phase_mixtral_inproc(torch, card, mx_waves, mixtral_run)
+    del mixtral_run
+    done("mixtral in process")
     qwen_launch = fam_served["qwen2-7b"]["launches"]
 
     jax_ops = "distributed_inference_engine_tpu/ops/"
     # kernel: (source, TPU kernel it replaces, launches on its path); the
+    # int4 matmul at the Mixtral expert shapes: the mixtral worker; the
     # fp8 and e5m2 instances' paths: the fp8 phase's worker (ragged,
     # flash-decode; e4m3, then e5m2), the in-process fw and Mistral runs
     # over each; the other families' instances (their
@@ -4283,7 +4923,10 @@ def main() -> int:
                                fam_paths["qwen2-7b inline"]),
         "paged_attention.dh256": ("csrc/paged_attention.cuh",
                                   jax_ops + "paged_attention.py:112",
-                                  fam_paths["gemma-7b inline"])}
+                                  fam_paths["gemma-7b inline"]),
+        "int4_matmul.moe": ("csrc/int4_matmul.cu",
+                            jax_ops + "int4_matmul.py:240",
+                            mixtral_launch)}
     # representative main-path shape per kernel: bf16, and for the GEMVs
     # the d_ff projections (gate/up for norm_matmul, down for residual,
     # gate|up at the 8 decode rows for int4); paged attention as Mistral
@@ -4297,14 +4940,14 @@ def main() -> int:
             "ragged_attention.e5m2": 0, "paged_attention.e5m2": PAGED_MAIN,
             "flash_decode.g7": 0, "flash_decode_fw.g7": 0,
             "ragged_attention.g7": 0, "paged_attention.g7": 0,
-            "paged_attention.dh256": 0}
+            "paged_attention.dh256": 0, "int4_matmul.moe": 0}
     kernels = []
     for name, (src, replaces, path_launches) in sources.items():
         rows = kern[name]
         r = rows[pick[name]]
         # an instance of another family counts under its kernel's name
         counter = name.split(".")[0] if name.endswith(
-            (".g7", ".dh256")) else name
+            (".g7", ".dh256", ".moe")) else name
         launches = path_launches.get(counter, 0)
         assert launches > 0, f"{name}: never launched on its path"
         kernels.append({

@@ -79,13 +79,13 @@ def _check_block_keys(spec: ModelSpec, blocks) -> None:
 def params_from_numpy(tree: Dict[str, Any], spec: ModelSpec,
                       device="cuda") -> Params:
     """JAX parameter tree (numpy leaves) -> port parameters on ``device``.
-    Covers the tree of every dense family (``models/base.py:param_shapes``):
-    ``tok_emb``, ``lnf_scale`` and the stacked ``blocks``, with
+    Covers the tree of every family (``models/base.py:param_shapes``):
+    ``tok_emb``, ``lnf_scale`` and the stacked ``blocks`` (a MoE tree's
+    router and ``[L, E, ...]`` experts, plain or quantized), with
     ``lnf_bias``, ``pos_emb`` and the block biases where the spec has
     them, ``lm_head`` (vocab-padded when int4) only when the embeddings
     are untied, and the fused ``w_qkv``/``w_gate_up`` payloads in place of
     their members where the JAX engine fused them."""
-    spec.check_supported()
     blocks = tree["blocks"]
     _check_block_keys(spec, blocks)
     out: Params = {

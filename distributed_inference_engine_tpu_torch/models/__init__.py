@@ -1,8 +1,8 @@
 """Model specs and the config-driven engine factory of the port (the
-``models/__init__.py:engine_from_config`` subset for the dense families
-``llama``, ``mistral``, ``qwen``, ``gemma`` and ``gpt2``, and ``fake``;
-``mixtral`` raises): random weights, HF and native checkpoints
-(``path=``) and serving artifacts (``artifact=``).
+``models/__init__.py:engine_from_config`` subset for the families
+``llama``, ``mistral``, ``qwen``, ``gemma``, ``mixtral`` and ``gpt2``, and
+``fake``): random weights, HF and native checkpoints (``path=``) and
+serving artifacts (``artifact=``).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from ..ops.quant import quantize_params
 from .base import ModelSpec, random_quantized_params
 from .gemma import gemma_spec
 from .gpt2 import gpt2_spec
-from .llama import llama_spec
+from .llama import llama_spec, mixtral_spec
 from .mistral import mistral_spec
 from .qwen import qwen_spec
 
@@ -33,6 +33,7 @@ _FAMILIES = {
     "qwen": (qwen_spec, "qwen2-7b"),
     "mistral": (mistral_spec, "mistral-7b"),
     "gemma": (gemma_spec, "gemma-7b"),
+    "mixtral": (mixtral_spec, "mixtral-8x7b"),
     "llama": (llama_spec, "llama3-8b"),
 }
 
@@ -53,12 +54,8 @@ def spec_for_architecture(architecture: str, size: str = "",
     """The JAX package's one spec-selection rule: ``gpt2*`` by its own
     name (an unknown size raises), else the first family prefix, sized by
     ``size``, the architecture string itself when it names a size, or the
-    family default. Mixtral (mixture-of-experts) raises."""
+    family default."""
     overrides = {"max_seq_len": max_seq_len} if max_seq_len else {}
-    if architecture.startswith("mixtral"):
-        raise NotImplementedError(
-            f"architecture {architecture!r} (mixture-of-experts: "
-            "ops/moe.py) is not ported to PyTorch yet (ROADMAP.md A9)")
     if architecture.startswith("gpt2"):
         return gpt2_spec(size or architecture, **overrides)
     for prefix, (factory, default) in _FAMILIES.items():
@@ -124,6 +121,22 @@ def fake_engine_from_config(cfg):
         error_rate=float(md.get("error_rate", 0.0)))
 
 
+def engine_config(cfg):
+    """The ``EngineConfig`` of a ``ModelConfig``: its slots and sequence
+    length, and the engine keys of its metadata (``ENGINE_KEYS``) in their
+    fields' types."""
+    from ..config import EngineConfig
+
+    ecfg = EngineConfig(max_slots=cfg.max_batch_size,
+                        max_seq_len=cfg.max_seq_len)
+    defaults = {f.name: getattr(ecfg, f.name)
+                for f in dataclasses.fields(ecfg)}
+    for k in ENGINE_KEYS:
+        if k in cfg.metadata:
+            setattr(ecfg, k, _coerce(defaults[k], cfg.metadata[k]))
+    return ecfg
+
+
 def engine_from_config(cfg, device="cuda"):
     """``ModelConfig`` -> ``ContinuousEngine`` on ``device``, in the JAX
     factory's order of branches:
@@ -144,14 +157,15 @@ def engine_from_config(cfg, device="cuda"):
        ``device`` (metadata ``seed``; ``size`` picks the family's size).
 
     ``quantized`` (with metadata ``weight_bits``, 8 by default, or 4)
-    quantizes a loaded tree, and draws a random one born quantized
+    quantizes a loaded tree (an HF checkpoint's block weights a layer at
+    a time as they are read, so ``quantize_s`` holds the rest: the LM
+    head), and draws a random one born quantized
     (``models/base.py:random_quantized_params``). After a slow-path build
     with ``artifact=``, the artifact is (re)written, best-effort. The
     engine metadata keys configure the engine; what the port lacks raises
     ``NotImplementedError``. ``architecture="fake"`` builds a fake engine
     (``fake_engine_from_config``). ``engine.load_info`` records the
     load's source and phases."""
-    from ..config import EngineConfig
     from ..engine.continuous import ContinuousEngine
 
     arch = cfg.architecture.lower()
@@ -175,13 +189,7 @@ def engine_from_config(cfg, device="cuda"):
     if not _coerce(False, md.get("continuous", False)):
         no("the static engine (continuous=0)", "A8")
 
-    ecfg = EngineConfig(max_slots=cfg.max_batch_size,
-                        max_seq_len=cfg.max_seq_len)
-    defaults = {f.name: getattr(ecfg, f.name)
-                for f in dataclasses.fields(ecfg)}
-    for k in ENGINE_KEYS:
-        if k in md:
-            setattr(ecfg, k, _coerce(defaults[k], md[k]))
+    ecfg = engine_config(cfg)
     seed = int(md.get("seed", 0) or 0)
 
     art = str(md.get("artifact", "") or "")
@@ -213,7 +221,10 @@ def engine_from_config(cfg, device="cuda"):
         spec = hf_spec.replace(max_seq_len=min(cfg.max_seq_len,
                                                hf_spec.max_seq_len),
                                dtype=cfg.dtype or hf_spec.dtype)
-        params = load_checkpoint(cfg.path, spec, device=device, stats=info)
+        # a quantized deploy quantizes the block weights a layer at a time
+        # as they are read
+        params = load_checkpoint(cfg.path, spec, device=device, stats=info,
+                                 bits=bits if cfg.quantized else 0)
         info["source"] = "hf"
     elif cfg.path:
         # JAX would serve random weights here; a checkpoint that is not

@@ -29,16 +29,17 @@ stored bits, the mixed step rounds before attending (inside the ragged
 kernel), and the window decode keeps its side window in the compute dtype
 until the chunk-end flush.
 
-The port carries every dense family of the JAX package: Llama and
-Mistral (RoPE, RMSNorm, SwiGLU, GQA, Mistral's sliding window), Qwen2
-(biases on q/k/v), Gemma (head_dim apart from d_model/n_heads, embeddings
-scaled by sqrt(d_model), RMSNorm over (1 + w), GeGLU, tied embeddings)
-and GPT-2 (learned positions, LayerNorm with biases, biases on every
-projection, an ungated GELU MLP), with the logit softcap. A spec with
-experts (Mixtral) raises ``NotImplementedError``
-(``ModelSpec.check_supported``). The fused decode seams take their
-kernels only where the JAX seams do (RMSNorm, no bias, a gated MLP);
-every other spec takes the unfused chain.
+The port carries every family of the JAX package: Llama and Mistral
+(RoPE, RMSNorm, SwiGLU, GQA, Mistral's sliding window), Qwen2 (biases on
+q/k/v), Gemma (head_dim apart from d_model/n_heads, embeddings scaled by
+sqrt(d_model), RMSNorm over (1 + w), GeGLU, tied embeddings), GPT-2
+(learned positions, LayerNorm with biases, biases on every projection,
+an ungated GELU MLP), with the logit softcap, and Mixtral (experts, a
+spec with ``n_experts``): its MLP is ``ops/moe.py:moe_mlp``, the JAX
+serving path's drop-free form, over stacked expert weights ``[L, E, D_in,
+D_out]`` and a router ``[L, D, E]``. The fused decode seams take their
+kernels only where the JAX seams do (RMSNorm, no bias, a gated dense
+MLP); every other spec takes the unfused chain.
 
 Learned positions are gathered with the index clamped to the table, as a
 JAX gather clamps: the padded rows of the mixed step's lattice and idle
@@ -77,12 +78,14 @@ from ..ops.fused_decode import (
     norm_matmul,
     norm_matmul_wants,
 )
+from ..ops.moe import moe_mlp
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.paged_attention import paged_attention
 from ..ops.quant import (
     _BLOCK_WEIGHTS,
     QuantizedTensor,
     _pad_vocab,
+    block_quant_axis,
     matmul_any,
     pack_int4,
 )
@@ -149,7 +152,7 @@ class ModelSpec:
         return torch_dtype(self.dtype)
 
     def validate(self) -> "ModelSpec":
-        """The JAX ``ModelSpec.validate`` checks, then ``check_supported``."""
+        """The JAX ``ModelSpec.validate`` checks."""
         if not self.head_dim_override and self.d_model % self.n_heads:
             raise ValueError("d_model must divide by n_heads")
         if self.n_heads % self.n_kv_heads:
@@ -167,14 +170,7 @@ class ModelSpec:
                     f"range for {self.n_experts} experts")
             if self.use_bias:
                 raise ValueError("MoE experts do not support biases")
-        self.check_supported()
         return self
-
-    def check_supported(self) -> None:
-        if self.n_experts:
-            raise NotImplementedError(
-                "mixture-of-experts (Mixtral: ops/moe.py) is not ported to "
-                "PyTorch yet (ROADMAP.md A9)")
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -195,7 +191,10 @@ class ModelSpec:
 def param_shapes(spec: ModelSpec) -> Dict[str, Any]:
     """Shapes of the JAX ``init_params`` tree for ``spec``: the stacked
     block weights, the gated MLP's ``w_gate`` (swiglu, geglu) or the
-    ungated one's ``w_up``/``w_down`` alone (gelu), LayerNorm biases,
+    ungated one's ``w_up``/``w_down`` alone (gelu); with experts the
+    router ``w_router [L, D, E]`` and the experts' ``w_up``/``w_gate``
+    ``[L, E, D, F]`` and ``w_down [L, E, F, D]`` in place of the dense MLP
+    (``w_gate`` for swiglu only, as in JAX), LayerNorm biases,
     projection biases (``bq/bk/bv`` with ``qkv_bias`` or ``use_bias``;
     ``bo/b_up/b_down`` with ``use_bias``), ``pos_emb`` for learned
     positions, and ``lm_head`` only when the embeddings are untied."""
@@ -205,10 +204,18 @@ def param_shapes(spec: ModelSpec) -> Dict[str, Any]:
         "ln1_scale": (L, D), "ln2_scale": (L, D),
         "wq": (L, D, H * Dh), "wk": (L, D, Hkv * Dh),
         "wv": (L, D, Hkv * Dh), "wo": (L, H * Dh, D)}
-    if spec.mlp in ("swiglu", "geglu"):
-        blocks["w_gate"] = (L, D, Fd)
-    blocks["w_up"] = (L, D, Fd)
-    blocks["w_down"] = (L, Fd, D)
+    if spec.n_experts:
+        E = spec.n_experts
+        blocks["w_router"] = (L, D, E)
+        blocks["w_up"] = (L, E, D, Fd)
+        blocks["w_down"] = (L, E, Fd, D)
+        if spec.mlp == "swiglu":
+            blocks["w_gate"] = (L, E, D, Fd)
+    else:
+        if spec.mlp in ("swiglu", "geglu"):
+            blocks["w_gate"] = (L, D, Fd)
+        blocks["w_up"] = (L, D, Fd)
+        blocks["w_down"] = (L, Fd, D)
     if spec.norm == "layernorm":
         blocks["ln1_bias"] = (L, D)
         blocks["ln2_bias"] = (L, D)
@@ -231,8 +238,8 @@ def init_params(spec: ModelSpec, generator: torch.Generator) -> Params:
     """Random-init parameters on the generator's device: normal(0.02),
     depth-scaled output projections, norm scales at one and biases at zero
     (the JAX scheme; the draws differ). Stacked weights are drawn one
-    layer at a time in fp32 and cast, so the fp32 transient is one layer,
-    not the model."""
+    layer (an expert weight one layer's expert) at a time in fp32 and
+    cast, so the fp32 transient is one slice, not the model."""
     spec.validate()
     dev = generator.device
     dt = spec.torch_dtype
@@ -246,9 +253,9 @@ def init_params(spec: ModelSpec, generator: torch.Generator) -> Params:
             return (torch.randn(shape, generator=generator, device=dev)
                     * s).to(dt)
         out = torch.empty(shape, dtype=dt, device=dev)
-        for layer in range(shape[0]):
-            out[layer] = torch.randn(shape[1:], generator=generator,
-                                     device=dev) * s
+        for dst in (out.flatten(0, 1) if len(shape) == 4 else out):
+            dst.copy_(torch.randn(dst.shape, generator=generator,
+                                  device=dev) * s)
         return out
 
     def fixed(shape, value: float):
@@ -285,8 +292,11 @@ def random_quantized_params(spec, generator: torch.Generator,
     drawn packed), at a constant scale that puts the effective weight std
     at ``w_std``; norms are ones, biases zeros, embeddings (``pos_emb``
     too) ``normal * w_std``, the tree of ``param_shapes``
-    (no ``lm_head`` when tied). The draws differ from the JAX package's;
-    the statistics are the same. The int4 LM head is vocab-padded."""
+    (no ``lm_head`` when tied). A MoE tree's experts are born quantized
+    over each expert's D_in (packed there for int4); its router is
+    ``normal * w_std``, in full precision. The draws differ from the JAX
+    package's; the statistics are the same. The int4 LM head is
+    vocab-padded."""
     spec.validate()
     dev = generator.device
     dt = spec.torch_dtype
@@ -307,9 +317,10 @@ def random_quantized_params(spec, generator: torch.Generator,
                              f"{shape[axis]}")
         half = tuple(d // 2 if i == axis else d for i, d in enumerate(shape))
         q = torch.empty(half, dtype=torch.int8, device=dev)
-        # one layer (or the head) at a time: the int16 packing transient
-        # stays small
-        for dst in (q if len(half) == 3 else [q]):
+        # one layer (an expert weight one layer's expert; the head whole)
+        # at a time: the int16 packing transient stays small
+        slices = {2: [q], 3: q, 4: q.flatten(0, 1)}[len(half)]
+        for dst in slices:
             lo = torch.randint(-7, 8, dst.shape, generator=generator,
                                device=dev, dtype=torch.int8)
             hi = torch.randint(-7, 8, dst.shape, generator=generator,
@@ -330,8 +341,8 @@ def random_quantized_params(spec, generator: torch.Generator,
                 * w_std).to(dt)
 
     shapes = param_shapes(spec)
-    blocks = {name: (q_leaf(shape, 1) if name in _BLOCK_WEIGHTS
-                     else f_leaf(name, shape))
+    blocks = {name: (q_leaf(shape, 1 + block_quant_axis(spec, name))
+                     if name in _BLOCK_WEIGHTS else f_leaf(name, shape))
               for name, shape in shapes["blocks"].items()}
     out: Dict[str, Any] = {}
     for name, shape in shapes.items():
@@ -374,7 +385,10 @@ def _gated(spec: ModelSpec) -> bool:
 
 def _mlp(spec: ModelSpec, blk: Params, x: torch.Tensor) -> torch.Tensor:
     """Gated (swiglu, geglu): act(x W_gate) * x W_up, then W_down. GPT-2's
-    ungated gelu: gelu(x W_up + b_up), then W_down + b_down."""
+    ungated gelu: gelu(x W_up + b_up), then W_down + b_down. Experts:
+    ``moe_mlp``."""
+    if spec.n_experts:
+        return moe_mlp(spec, blk, x)
     if not _gated(spec):
         h = matmul_any(x, blk["w_up"])
         if spec.use_bias:
@@ -476,11 +490,11 @@ def _mlp_residual(spec: ModelSpec, blk: Params, x: torch.Tensor,
                   fused: bool = False) -> torch.Tensor:
     """ln2 + MLP + residual; fused: ln2 rides the gate/up projections and
     the residual rides the down projection, where JAX fuses them (RMSNorm,
-    a gated MLP, no bias)."""
+    a gated dense MLP, no bias; experts take the unfused chain)."""
     b, t, d = x.shape
     x2 = x.reshape(b * t, d)
-    if fused and spec.norm != "layernorm" and not spec.use_bias \
-            and _gated(spec) \
+    if fused and spec.norm != "layernorm" and not spec.n_experts \
+            and not spec.use_bias and _gated(spec) \
             and blk.get("ln2_bias") is None \
             and norm_matmul_wants(x2, blk.get("w_gate")) \
             and norm_matmul_wants(x2, blk.get("w_up")):

@@ -2,9 +2,11 @@
 of the JAX package's ``models/loader.py``).
 
 ``load_checkpoint`` maps a local HuggingFace checkpoint directory (GPT-2,
-or Llama naming: Llama, Mistral, Qwen2, Gemma) onto the stacked ``[L,
-...]`` tree of ``models/base.py``, cast to the spec's dtype; the casts
-round as the JAX ``astype`` does (fp32 to bf16 to nearest even). The files
+Llama naming: Llama, Mistral, Qwen2, Gemma, or Mixtral's, whose
+``block_sparse_moe`` router and experts stack to ``[L, D, E]`` and ``[L,
+E, ...]``) onto the stacked ``[L, ...]`` tree of ``models/base.py``, cast
+to the spec's dtype; the casts round as the JAX ``astype`` does (fp32 to
+bf16 to nearest even). The files
 are read by the port's own reader (``utils/safetensors_io.py``); a sharded
 directory's shards are globbed in name order and its index file is not
 read, as in JAX.
@@ -15,12 +17,16 @@ Llama-3-8B). Here each stacked leaf is allocated once on ``device`` and
 each layer's tensor is copied into its slice straight from the mapped
 file, transposed (Llama's ``nn.Linear`` is ``[out, in]``) and cast there;
 the file's pages are released once copied. The result is the same bits.
+With ``bits`` (a quantized deploy) each block weight is quantized a layer
+at a time as it is read (``ops/quant.py:StackedQuantizer``), so the
+full-precision stack is never whole on the device (a published Mixtral
+checkpoint is 93 GB in bf16); the bits are those of ``quantize_params``
+over the loaded tree, which then quantizes the LM head.
 
 ``spec_from_hf_config`` reads ``config.json`` with the JAX package's
 exact-match rule: a relative that shares a name prefix (``gemma2``,
-``qwen3``) raises ``ValueError`` and Mixtral raises
-``NotImplementedError`` (ROADMAP.md A9). ``save_checkpoint_gpt2`` writes
-a tree back in GPT-2 naming (a test fixture, as in JAX).
+``qwen3``) raises ``ValueError``. ``save_checkpoint_gpt2`` writes a tree
+back in GPT-2 naming (a test fixture, as in JAX).
 
 Nothing is downloaded: the weights must already be on local disk.
 """
@@ -33,6 +39,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..ops.quant import StackedQuantizer
 from ..utils.safetensors_io import SafetensorsFile, iter_checkpoint, save_file
 from .base import ModelSpec, Params
 
@@ -82,11 +89,14 @@ class _Checkpoint:
 
 class _Leaves:
     """Leaf builders over a ``_Checkpoint``: every leaf is allocated once,
-    in the spec's dtype, on the target device."""
+    in the spec's dtype, on the target device; with ``bits`` a block
+    weight (``quant=True``) is quantized a layer at a time instead."""
 
-    def __init__(self, ck: _Checkpoint, spec: ModelSpec, device) -> None:
+    def __init__(self, ck: _Checkpoint, spec: ModelSpec, device,
+                 bits: int = 0) -> None:
         self.ck, self.dtype, self.device = ck, spec.torch_dtype, device
-        self.n_layers = spec.n_layers
+        self.n_layers, self.n_experts = spec.n_layers, spec.n_experts
+        self.bits = bits
 
     def one(self, name: str, transpose: bool = False) -> torch.Tensor:
         out = torch.empty(self.ck.shape(name, transpose), dtype=self.dtype,
@@ -95,14 +105,41 @@ class _Leaves:
         return out
 
     def stack(self, template: str, transpose: bool = False,
-              cols: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+              cols: Optional[Tuple[int, int]] = None, quant: bool = False):
+        """``[L, ...]`` of the tensors ``template.format(layer)``."""
         shape = self.ck.shape(template.format(0), transpose, cols)
-        out = torch.empty((self.n_layers, *shape), dtype=self.dtype,
-                          device=self.device)
+        return self._layers(shape, quant, 0, lambda layer, dst: (
+            self.ck.copy_into(template.format(layer), dst, transpose, cols)))
+
+    def experts(self, template: str, transpose: bool = False,
+                quant: bool = False):
+        """``[L, E, ...]`` of the tensors ``template.format(layer,
+        expert)``."""
+        shape = self.ck.shape(template.format(0, 0), transpose)
+
+        def fill(layer, dst):
+            for e in range(self.n_experts):
+                self.ck.copy_into(template.format(layer, e), dst[e],
+                                  transpose)
+
+        return self._layers((self.n_experts, *shape), quant, 1, fill)
+
+    def _layers(self, shape, quant: bool, axis: int, fill):
+        """A stacked leaf of per-layer ``shape``, each layer written by
+        ``fill(layer, dst)``; quantized over its ``axis`` when ``quant``
+        and ``bits`` are set."""
+        if not (quant and self.bits):
+            out = torch.empty((self.n_layers, *shape), dtype=self.dtype,
+                              device=self.device)
+            for layer in range(self.n_layers):
+                fill(layer, out[layer])
+            return out
+        sq = StackedQuantizer(self.n_layers, axis, self.bits)
+        buf = torch.empty(shape, dtype=self.dtype, device=self.device)
         for layer in range(self.n_layers):
-            self.ck.copy_into(template.format(layer), out[layer], transpose,
-                              cols)
-        return out
+            fill(layer, buf)
+            sq.put(layer, buf)
+        return sq.qt
 
 
 # HF GPT-2 Conv1D stores weights as [in, out] (no transpose for x @ W);
@@ -120,15 +157,16 @@ def _map_gpt2(ck: _Checkpoint, leaves: _Leaves, spec: ModelSpec
         "ln2_scale": leaves.stack(h + "ln_2.weight"),
         "ln2_bias": leaves.stack(h + "ln_2.bias"),
         # the fused c_attn [D, 3D] and its bias [3D], split at D and 2D
-        **{f"w{x}": leaves.stack(h + "attn.c_attn.weight", cols=c)
+        **{f"w{x}": leaves.stack(h + "attn.c_attn.weight", cols=c,
+                                 quant=True)
            for x, c in thirds.items()},
         **{f"b{x}": leaves.stack(h + "attn.c_attn.bias", cols=c)
            for x, c in thirds.items()},
-        "wo": leaves.stack(h + "attn.c_proj.weight"),
+        "wo": leaves.stack(h + "attn.c_proj.weight", quant=True),
         "bo": leaves.stack(h + "attn.c_proj.bias"),
-        "w_up": leaves.stack(h + "mlp.c_fc.weight"),
+        "w_up": leaves.stack(h + "mlp.c_fc.weight", quant=True),
         "b_up": leaves.stack(h + "mlp.c_fc.bias"),
-        "w_down": leaves.stack(h + "mlp.c_proj.weight"),
+        "w_down": leaves.stack(h + "mlp.c_proj.weight", quant=True),
         "b_down": leaves.stack(h + "mlp.c_proj.bias"),
     }
     return {
@@ -142,17 +180,21 @@ def _map_gpt2(ck: _Checkpoint, leaves: _Leaves, spec: ModelSpec
 
 def _map_llama_attn(ck: _Checkpoint, leaves: _Leaves, spec: ModelSpec,
                     pre: str) -> Dict[str, Any]:
-    """The Llama-family tree minus the MLP weights (shared with Mixtral,
-    which the port does not carry yet)."""
+    """The Llama-family tree minus the MLP weights (shared with
+    Mixtral)."""
     lay = pre + "layers.{}."
     attn = lay + "self_attn."
     blocks = {
         "ln1_scale": leaves.stack(lay + "input_layernorm.weight"),
         "ln2_scale": leaves.stack(lay + "post_attention_layernorm.weight"),
-        "wq": leaves.stack(attn + "q_proj.weight", transpose=True),
-        "wk": leaves.stack(attn + "k_proj.weight", transpose=True),
-        "wv": leaves.stack(attn + "v_proj.weight", transpose=True),
-        "wo": leaves.stack(attn + "o_proj.weight", transpose=True),
+        "wq": leaves.stack(attn + "q_proj.weight", transpose=True,
+                           quant=True),
+        "wk": leaves.stack(attn + "k_proj.weight", transpose=True,
+                           quant=True),
+        "wv": leaves.stack(attn + "v_proj.weight", transpose=True,
+                           quant=True),
+        "wo": leaves.stack(attn + "o_proj.weight", transpose=True,
+                           quant=True),
     }
     if spec.qkv_bias:   # Qwen2: biases on q/k/v only
         for x in "qkv":
@@ -177,23 +219,39 @@ def _map_llama(ck: _Checkpoint, leaves: _Leaves, spec: ModelSpec
     params = _map_llama_attn(ck, leaves, spec, pre)
     mlp = pre + "layers.{}.mlp."
     params["blocks"].update({
-        "w_gate": leaves.stack(mlp + "gate_proj.weight", transpose=True),
-        "w_up": leaves.stack(mlp + "up_proj.weight", transpose=True),
-        "w_down": leaves.stack(mlp + "down_proj.weight", transpose=True),
-    })
+        name: leaves.stack(mlp + f"{hf}_proj.weight", transpose=True,
+                           quant=True)
+        for name, hf in (("w_gate", "gate"), ("w_up", "up"),
+                         ("w_down", "down"))})
     return params
 
 
-def _map_mixtral(ck: _Checkpoint, leaves: _Leaves, spec: ModelSpec):
-    raise NotImplementedError(
-        "Mixtral checkpoints (block_sparse_moe experts) are not ported to "
-        "PyTorch yet (ROADMAP.md A9)")
+def _map_mixtral(ck: _Checkpoint, leaves: _Leaves, spec: ModelSpec
+                 ) -> Dict[str, Any]:
+    """HF Mixtral naming: the attention and norm tree is Llama's; the MLP
+    is the router ``block_sparse_moe.gate`` ``[E, D]`` (transposed to
+    ``[D, E]``) and each expert's ``w1`` (gate), ``w2`` (down) and ``w3``
+    (up), transposed and stacked ``[L, E, ...]``."""
+    pre = "model." if "model.embed_tokens.weight" in ck else ""
+    params = _map_llama_attn(ck, leaves, spec, pre)
+    moe = pre + "layers.{}.block_sparse_moe."
+    params["blocks"]["w_router"] = leaves.stack(moe + "gate.weight",
+                                                transpose=True)
+    params["blocks"].update({
+        name: leaves.experts(moe + "experts.{}." + hf + ".weight",
+                             transpose=True, quant=True)
+        for name, hf in (("w_gate", "w1"), ("w_down", "w2"),
+                         ("w_up", "w3"))})
+    return params
 
 
 def load_checkpoint(path: str, spec: ModelSpec, device="cuda",
-                    stats: Optional[Dict[str, Any]] = None) -> Params:
+                    stats: Optional[Dict[str, Any]] = None,
+                    bits: int = 0) -> Params:
     """Load a local HF checkpoint directory into the stacked parameter
-    tree on ``device``, cast to ``spec.dtype``. ``stats`` (optional)
+    tree on ``device``, cast to ``spec.dtype``; with ``bits`` (8 or 4)
+    the block weights quantized a layer at a time as they are read (the
+    LM head is left to ``quantize_params``). ``stats`` (optional)
     receives ``bytes_read``, the file bytes the load copied."""
     ck = _Checkpoint(pathlib.Path(path))
     try:
@@ -207,7 +265,8 @@ def load_checkpoint(path: str, spec: ModelSpec, device="cuda",
         else:
             raise ValueError(f"unrecognized checkpoint naming in {path}")
         with torch.no_grad():
-            tree = mapper(ck, _Leaves(ck, spec, torch.device(device)), spec)
+            tree = mapper(ck, _Leaves(ck, spec, torch.device(device), bits),
+                          spec)
         if stats is not None:
             stats["bytes_read"] = ck.bytes_read
         return tree
@@ -269,9 +328,13 @@ def spec_from_hf_config(path: str, cfg: Optional[dict] = None) -> ModelSpec:
             norm_eps=cfg.get("layer_norm_epsilon", 1e-5),
         ).validate()
     if is_("mixtral"):
-        raise NotImplementedError(
-            f"architecture mixtral in {path} (mixture-of-experts: "
-            "ops/moe.py) is not ported to PyTorch yet (ROADMAP.md A9)")
+        return _llama_like(
+            cfg,
+            max_seq_len=cfg.get("max_position_embeddings", 32768),
+            rope_theta=cfg.get("rope_theta", 1e6),
+            n_experts=cfg["num_local_experts"],
+            experts_per_token=cfg.get("num_experts_per_tok", 2),
+        )
     if is_("qwen2"):
         return _llama_like(
             cfg,

@@ -51,6 +51,7 @@ import contextlib
 import ctypes
 import fcntl
 import functools
+import gc
 import hashlib
 import os
 import shutil
@@ -198,13 +199,23 @@ def capture_graph(body: Callable[[], Any], *, pool: Any,
     t0 = time.perf_counter()
     # capture_begin/end directly: the torch.cuda.graph context would also
     # empty the allocator's cache and collect garbage first, which costs
-    # more than the capture itself in a serving process
-    with recording_launches() as delta, torch.cuda.stream(stream):
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        try:
-            out = body()
-        finally:
-            graph.capture_end()
+    # more than the capture itself in a serving process. The cyclic
+    # collector is off instead while the stream captures: a collection
+    # there could tear down an unreachable graph (an engine left in a
+    # reference cycle), and that teardown is not permitted during a
+    # capture, so it would invalidate this one
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with recording_launches() as delta, torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                out = body()
+            finally:
+                graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
     return CapturedGraph(graph, delta, out, time.perf_counter() - t0)
 
 

@@ -26,8 +26,17 @@ int4 payload saved without it is in the older even/odd interleave and is
 repacked once on restore (``repack_int4_interleaved_to_split``,
 ``utils/checkpoint.py``).
 
+Mixture-of-experts trees (Mixtral) stack their experts' weights ``[L, E,
+D_in, D_out]``: they are quantized over D_in (``_MOE_WEIGHTS``), an int4
+payload packed there (``pack_axis`` -2). ``qt[layer][e]`` is one
+expert's contiguous 2-D view (payload ``[D_in/2, D_out]``, scales ``[1,
+D_out]``), so ``matmul_any`` sends each expert product to the int4
+kernel (or the int8 widening) as it does a dense projection; at
+Mixtral's shapes every view starts on 16 bytes, where the kernel's TMA
+instance can take it. The router stays in full precision, as in JAX.
+
 Not ported yet: ``resolve_kernel_modes`` and the ``kernel_mode`` stamp
-(with tp, A13), the MoE weight axes (with Mixtral, A9).
+(with tp, A13).
 """
 
 from __future__ import annotations
@@ -223,6 +232,16 @@ def matmul_any(x: torch.Tensor, w: Any) -> torch.Tensor:
 
 # block weights, stored [L, D_in, D_out]: quantized over D_in (axis 1)
 _BLOCK_WEIGHTS = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
+# a MoE tree's expert weights, stored [L, E, D_in, D_out]: quantized over
+# D_in (axis 2; one layer's slice: axis 1)
+_MOE_WEIGHTS = ("w_up", "w_gate", "w_down")
+
+
+def block_quant_axis(spec, name: str) -> int:
+    """The contraction axis of block weight ``name`` within one layer's
+    slice: 1 for a MoE tree's experts (``[E, D_in, D_out]``), else 0."""
+    return 1 if getattr(spec, "n_experts", 0) and name in _MOE_WEIGHTS else 0
+
 
 # the int4 LM head's vocab is padded to a multiple of this; the pad columns
 # are zero weights (scale at the 1e-8 floor), so their logits are exactly
@@ -234,36 +253,55 @@ def _pad_vocab(n: int) -> int:
     return -(-n // _LM_HEAD_PAD) * _LM_HEAD_PAD
 
 
-def _quantize_stacked(w: torch.Tensor, bits: int) -> QuantizedTensor:
-    """``quantize_weight(w, (1,), bits)`` of a stacked ``[L, D_in, D_out]``
-    weight, one layer at a time into the stacked payload and scales: the
-    same bits (each layer's scales reduce over its own D_in), with an fp32
-    transient of one layer instead of the whole stack."""
-    first = quantize_weight(w[0], (0,), bits=bits)
-    q = torch.empty((w.shape[0], *first.q.shape), dtype=first.q.dtype,
-                    device=w.device)
-    s = torch.empty((w.shape[0], *first.s.shape), dtype=first.s.dtype,
-                    device=w.device)
-    q[0], s[0] = first.q, first.s
-    for layer in range(1, w.shape[0]):
-        ql = quantize_weight(w[layer], (0,), bits=bits)
-        q[layer], s[layer] = ql.q, ql.s
-    return dataclasses.replace(first, q=q, s=s)
+class StackedQuantizer:
+    """A stacked ``QuantizedTensor`` filled one layer at a time:
+    ``put(layer, w_layer)`` quantizes that layer's slice over its axis
+    ``axis`` (``quantize_weight``) into the stacked payload and scales,
+    allocated at the first ``put``. The same bits as quantizing the stack
+    at once (each layer's scales reduce over its own D_in), with an fp32
+    transient of one layer."""
+
+    def __init__(self, n_layers: int, axis: int, bits: int) -> None:
+        self.n_layers, self.axis, self.bits = n_layers, axis, bits
+        self.qt = None
+
+    def put(self, layer: int, w: torch.Tensor) -> None:
+        ql = quantize_weight(w, (self.axis,), bits=self.bits)
+        if self.qt is None:
+            self.qt = dataclasses.replace(ql, q=torch.empty(
+                (self.n_layers, *ql.q.shape), dtype=ql.q.dtype,
+                device=w.device), s=torch.empty(
+                (self.n_layers, *ql.s.shape), dtype=ql.s.dtype,
+                device=w.device))
+        self.qt.q[layer], self.qt.s[layer] = ql.q, ql.s
+
+
+def _quantize_stacked(w: torch.Tensor, bits: int,
+                      axis: int = 0) -> QuantizedTensor:
+    """``quantize_weight(w, (axis + 1,), bits)`` of a stacked weight,
+    one layer at a time (``StackedQuantizer``)."""
+    sq = StackedQuantizer(w.shape[0], axis, bits)
+    for layer in range(w.shape[0]):
+        sq.put(layer, w[layer])
+    return sq.qt
 
 
 def quantize_params(spec, params: Dict[str, Any],
                     bits: int = 8) -> Dict[str, Any]:
     """Quantize the block weights and an untied LM head (bits 8 or 4; the
     int4 head vocab-padded). Embeddings (``tok_emb``, a tied head with
-    it, ``pos_emb``), norms and biases stay as they are, as in JAX. The
-    stacked block weights are quantized a layer at a time."""
+    it, ``pos_emb``), norms, biases and the MoE router stay as they are,
+    as in JAX; a MoE tree's experts are quantized over their D_in. The
+    stacked block weights are quantized a layer at a time, and a leaf
+    already quantized (a loader's) is kept."""
     out = dict(params)
     blocks = dict(params["blocks"])
     for name in _BLOCK_WEIGHTS:
         w = blocks.get(name)
         if w is None or isinstance(w, QuantizedTensor):
             continue
-        blocks[name] = _quantize_stacked(w, bits)
+        blocks[name] = _quantize_stacked(w, bits,
+                                         block_quant_axis(spec, name))
     out["blocks"] = blocks
     head = out.get("lm_head")
     if not spec.tie_embeddings and isinstance(head, torch.Tensor):

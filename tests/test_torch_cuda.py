@@ -30,6 +30,8 @@ logprobs and count its launches; a packed read's event turns ready without
 a host synchronisation; a served run after ``warmup()`` captures no
 graph."""
 
+import gc
+
 import pytest
 import torch
 
@@ -44,7 +46,11 @@ from distributed_inference_engine_tpu_torch.models.base import (
     init_params,
     random_quantized_params,
 )
-from distributed_inference_engine_tpu_torch.models.llama import llama_spec
+from distributed_inference_engine_tpu_torch.models.base import layer_view
+from distributed_inference_engine_tpu_torch.models.llama import (
+    llama_spec,
+    mixtral_spec,
+)
 from distributed_inference_engine_tpu_torch.models.mistral import (
     mistral_spec,
 )
@@ -56,6 +62,8 @@ from distributed_inference_engine_tpu_torch.ops.attention import (
 from distributed_inference_engine_tpu_torch.ops import flash_decode as fd
 from distributed_inference_engine_tpu_torch.ops import fused_decode as fdec
 from distributed_inference_engine_tpu_torch.ops import int4_matmul as i4
+from distributed_inference_engine_tpu_torch.ops import moe
+from distributed_inference_engine_tpu_torch.ops import quant as tq
 from distributed_inference_engine_tpu_torch.ops import paged_attention as pa
 from distributed_inference_engine_tpu_torch.ops import ragged_attention as ra
 
@@ -1498,6 +1506,75 @@ def test_int4_gemv_instance(card, dtype, m, k2, n, x_offset, p_offset):
                x_offset=x_offset, p_offset=p_offset)
 
 
+# Mixtral-8x7B's experts: gate/up [K/2 2048, N 14336], down [7168, 4096], at
+# the decode slots (the GEMV) and an admission's or mixed step's rows
+@pytest.mark.parametrize("k2,n", [(2048, 14336), (7168, 4096)])
+@pytest.mark.parametrize("m", [8, 2048])
+def test_int4_matmul_mixtral_expert_shapes(card, m, k2, n):
+    _int4_case(card, torch.bfloat16, m, k2, n, seed=m + n,
+               expect="gemv" if m <= 16 else "wgmma")
+
+
+@pytest.mark.parametrize("m", [8, 64])
+def test_int4_expert_views_take_the_kernel(card, m):
+    """``matmul_any`` on the views of a stacked int4 expert payload ``[L,
+    E, K/2, N]``: every (layer, expert) view starts on 16 bytes and takes the
+    instance of its row count (the GEMV, or wgmma by TMA), each launch
+    counted, each product equal to the plain version's on the view."""
+    g = torch.Generator(device=card).manual_seed(m)
+    L, E, k2, n = 2, 3, 512, 1024
+    qt = tq.QuantizedTensor(
+        q=torch.randint(-128, 128, (L, E, k2, n), generator=g, device=card,
+                        dtype=torch.int8),
+        s=0.01 * torch.rand((L, E, 1, n), generator=g, device=card) + 1e-3,
+        bits=4, pack_axis=-2)
+    x = torch.randn((m, 2 * k2), generator=g, device=card).bfloat16()
+    inst = "gemv" if m <= 16 else "wgmma"
+    for layer in range(L):
+        for e in range(E):
+            view = qt[layer][e]
+            assert view.q.data_ptr() % 16 == 0 and view.q.is_contiguous()
+            before = _cuda.LAUNCHES[f"int4_matmul.{inst}"]
+            out = tq.matmul_any(x, view)
+            torch.cuda.synchronize()
+            assert _cuda.LAUNCHES[f"int4_matmul.{inst}"] == before + 1
+            ref = i4.int4_matmul_plain(x.cpu(), view.q.cpu(),
+                                       view.s[0].cpu())
+            _close(out.cpu(), ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [0, 8, 4])
+def test_moe_mlp_on_the_card_equals_its_cpu_form(card, dtype, bits):
+    """``moe_mlp`` over ``mixtral-tiny``'s layer 0 (plain, int8 or int4
+    experts) on the card against the same call on the CPU (the int4
+    matmul's plain version there), at the mixed step's row count and a
+    decode chunk's: within the dtype's tolerance, the routing equal."""
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    spec = mixtral_spec("mixtral-tiny", dtype=name)
+    g = torch.Generator(device=card).manual_seed(bits)
+    params = (random_quantized_params(spec, g, bits=bits) if bits
+              else init_params(spec, g))
+    blk = layer_view(params, 0)
+    cpu_blk = {k: (tq.QuantizedTensor(q=v.q.cpu(), s=v.s.cpu(),
+                                      bits=v.bits, pack_axis=v.pack_axis)
+                   if isinstance(v, tq.QuantizedTensor) else v.cpu())
+               for k, v in blk.items()}
+    for rows in (8, 40):
+        x = torch.randn((1, rows, spec.d_model), generator=g,
+                        device=card).to(dtype)
+        before = _cuda.LAUNCHES["int4_matmul"]
+        out = moe.moe_mlp(spec, blk, x)
+        torch.cuda.synchronize()
+        if bits == 4:        # gate, up and down per expert
+            assert _cuda.LAUNCHES["int4_matmul"] == before + 3 * 4
+        want = moe.moe_mlp(spec, cpu_blk, x.cpu())
+        _close(out.cpu(), want, dtype)
+        _, _, idx = moe.route(blk["w_router"], x[0], 2)
+        _, _, idx_cpu = moe.route(cpu_blk["w_router"], x[0].cpu(), 2)
+        assert torch.equal(idx.cpu(), idx_cpu)
+
+
 # K/2 = 1000 is not a multiple of the wgmma instance's 64-row k-tile
 @pytest.mark.parametrize("k2,n", [(2048, 4096), (1000, 1040)])
 @pytest.mark.parametrize("m", [17, 63, 64, 65, 129, 512, 2560])
@@ -1577,12 +1654,18 @@ GRAPH_PATHS = [
     ("mistral e5m2", "mistral", dict(attention_impl="pallas",
                                      prefill_chunk=32,
                                      kv_dtype="float8_e5m2"), False),
+    # Mixtral (mixtral-tiny): the router, its sort and the experts inside
+    # the decode chunk's and the mixed step's graphs
+    ("mixtral window", "mixtral", dict(attention_impl="pallas-decode"),
+     False),
+    ("mixtral mixed int4", "mixtral", dict(attention_impl="pallas-ragged",
+                                           prefill_chunk=16), True),
 ]
 
 
 def _tiny_weights(card, family, dtype, int4=False, seed=0):
-    spec = (llama_spec("llama-tiny", dtype=dtype) if family == "llama"
-            else mistral_spec("mistral-tiny", dtype=dtype))
+    spec = {"llama": llama_spec, "mistral": mistral_spec,
+            "mixtral": mixtral_spec}[family](f"{family}-tiny", dtype=dtype)
     g = torch.Generator(device=card).manual_seed(seed)
     params = (random_quantized_params(spec, g, bits=4) if int4
               else init_params(spec, g))
@@ -1623,7 +1706,7 @@ def test_graph_replays_match_eager(card, label, family, cfg, int4, dtype):
     m, me = eng_g.get_metrics(), eng_e.get_metrics()
     assert me["cuda_graphs"] == 0 and m["cuda_graphs"] >= 1
     assert m["decode_programs"] == me["decode_programs"] >= 1
-    if cfg.get("prefill_chunk") and family == "llama":
+    if cfg.get("prefill_chunk") and family != "mistral":
         assert m["mixed_steps"] == me["mixed_steps"] > 0
     assert _same_bytes(eng_g.kv.k_pages, eng_e.kv.k_pages)
     assert _same_bytes(eng_g.kv.v_pages, eng_e.kv.v_pages)
@@ -1632,6 +1715,37 @@ def test_graph_replays_match_eager(card, label, family, cfg, int4, dtype):
         suffix = FP8S[getattr(torch, cfg["kv_dtype"])]
         assert eng_g.kv.k_pages.element_size() == 1
         assert any(k.endswith(f".{suffix}") for k in graph_launches)
+
+
+def test_capture_is_not_broken_by_a_collection(card):
+    """A graph that only a reference cycle still holds (an engine dropped
+    without a collection) is not torn down inside a later capture:
+    ``capture_graph`` keeps the cyclic collector off while the stream
+    captures (a graph's teardown is not permitted during a capture and
+    would invalidate it) and turns it back on after. The body allocates
+    past the collector's first threshold, where a collection would run."""
+    stream = _cuda.capture_stream(card)
+    pool = torch.cuda.graph_pool_handle()
+    x = torch.arange(4096, dtype=torch.float32, device=card)
+    seen = []
+
+    def body():
+        seen.append(gc.isenabled())
+        junk = [[i] for i in range(5000)]
+        return x + len(junk)
+
+    _cuda.warm_up(body, stream)
+    gc.collect()
+    old = _cuda.capture_graph(lambda: x * 3, pool=pool, stream=stream)
+    cycle = [old]
+    cycle.append(cycle)
+    del old, cycle                       # unreachable but for the cycle
+    graph = _cuda.capture_graph(body, pool=pool, stream=stream)
+    assert seen == [True, False] and gc.isenabled()
+    out = graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, x + 5000)
+    gc.collect()
 
 
 def test_replay_packed_equals_eager_body(card):

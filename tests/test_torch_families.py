@@ -18,8 +18,8 @@ attention) on the window decode (fused off and on), the writeback
 decode, the inline paged decode, the window scheme through the paged
 kernel and the ragged chunked prefill, and with int8 and int4 weights on
 Qwen and Gemma; the fused decode seams taking the unfused chain for
-biases and LayerNorm; the factory and the worker selecting each
-architecture as JAX does, and Mixtral raising, naming A9."""
+biases and LayerNorm, and for a MoE (Mixtral) MLP; the factory and the
+worker selecting each architecture as JAX does, Mixtral included."""
 
 import asyncio
 
@@ -43,6 +43,7 @@ from distributed_inference_engine_tpu.engine.types import (
 from distributed_inference_engine_tpu.models import base as jb
 from distributed_inference_engine_tpu.models import gemma as jgemma
 from distributed_inference_engine_tpu.models import gpt2 as jgpt2
+from distributed_inference_engine_tpu.models import llama as jllama
 from distributed_inference_engine_tpu.models import qwen as jqwen
 from distributed_inference_engine_tpu.ops import norms as jnorms
 from distributed_inference_engine_tpu.ops import quant as jq
@@ -73,6 +74,7 @@ from distributed_inference_engine_tpu_torch.engine.types import (
 from distributed_inference_engine_tpu_torch.models import base as tb
 from distributed_inference_engine_tpu_torch.models import gemma as tgemma
 from distributed_inference_engine_tpu_torch.models import gpt2 as tgpt2
+from distributed_inference_engine_tpu_torch.models import llama as tllama
 from distributed_inference_engine_tpu_torch.models import qwen as tqwen
 from distributed_inference_engine_tpu_torch.ops import norms as tnorms
 from distributed_inference_engine_tpu_torch.ops import quant as tq
@@ -166,7 +168,9 @@ def test_spec_for_architecture_selects_as_jax():
     for arch, size in (("qwen", ""), ("qwen2-0.5b", ""), ("qwen", "qwen2-1.5b"),
                        ("gemma", ""), ("gemma-2b", ""), ("gpt2", ""),
                        ("gpt2-medium", ""), ("gpt2", "gpt2-xl"),
-                       ("llama", ""), ("mistral-7b-v01", "")):
+                       ("llama", ""), ("mistral-7b-v01", ""), ("mixtral", ""),
+                       ("mixtral-8x7b", ""), ("mixtral-tiny", ""),
+                       ("mixtral", "mixtral-small")):
         want = jmodels.spec_for_architecture(arch, size=size,
                                              max_seq_len=512)
         got = tmodels.spec_for_architecture(arch, size=size, max_seq_len=512)
@@ -176,9 +180,7 @@ def test_spec_for_architecture_selects_as_jax():
             jmodels.spec_for_architecture(bad)
         with pytest.raises(ValueError):
             tmodels.spec_for_architecture(bad)
-    for arch in ("mixtral", "mixtral-8x7b", "mixtral-tiny"):
-        with pytest.raises(NotImplementedError, match="A9"):
-            tmodels.spec_for_architecture(arch)
+    assert tmodels.spec_for_architecture("mixtral-tiny").n_experts == 4
 
 
 def test_layer_norm_matches_jax():
@@ -330,6 +332,71 @@ def test_fused_seams_take_the_unfused_chain(family, monkeypatch):
                                rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("tree", ["plain", "int4"])
+def test_fused_seams_leave_the_moe_mlp_unfused(tree, monkeypatch):
+    """decode_fused with experts (``mixtral-tiny``): the MoE MLP takes no
+    fused seam (JAX ``models/base.py``'s ``not spec.n_experts``); a plain
+    tree still folds ln1 into q/k/v (3 ``norm_matmul`` a layer) and the
+    residual into the output projection (1 ``matmul_residual``), as JAX
+    does, and an int4 tree (q|k|v fused, the experts' 4-D payloads) takes
+    neither. The fused step's logits equal the unfused one's, and an int4
+    ``decode_fused=True`` engine emits the unfused engine's tokens with no
+    fused launch."""
+    js = jllama.mixtral_spec("mixtral-tiny", dtype="float32")
+    ts = tllama.mixtral_spec("mixtral-tiny", dtype="float32")
+    jp = (jb.init_params(js, jax.random.key(8)) if tree == "plain" else
+          jq.random_quantized_params(js, jax.random.key(8), bits=4))
+    tp = tq.prepare_params(params_from_numpy(jax.device_get(jp), ts, "cpu"))
+    calls = {"norm_matmul": 0, "matmul_residual": 0}
+    for name in calls:
+        real = getattr(tb, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(tb, name, spy)
+    rs = np.random.RandomState(9)
+    b, w, n, p = 3, 4, 12, 16
+    L, fused_w = ts.n_layers, ts.n_kv_heads * ts.head_dim
+    step = (rs.randint(1, VOCAB, size=(b,)).astype(np.int32),
+            np.array([0, 6, 42], np.int32), np.array([0, 5, 40], np.int32),
+            rs.randn(L, n, p, fused_w).astype(np.float32),
+            rs.randn(L, n, p, fused_w).astype(np.float32),
+            rs.randint(0, n, size=(b, 4)).astype(np.int32),
+            rs.randn(L, b, w, ts.n_kv_heads, ts.head_dim).astype(np.float32),
+            rs.randn(L, b, w, ts.n_kv_heads, ts.head_dim).astype(np.float32),
+            np.array([True, True, False]))
+    outs = []
+    for fused in (False, True):
+        x, _, _ = tb.forward_decode_window(
+            ts, tp, *(torch.from_numpy(a.copy()) for a in step),
+            fused=fused)
+        outs.append(_np(tb.unembed(ts, tp, x)))
+    per_layer = (3, 1) if tree == "plain" else (0, 0)
+    assert (calls["norm_matmul"], calls["matmul_residual"]) == tuple(
+        k * L for k in per_layer)
+    np.testing.assert_allclose(outs[1], outs[0], rtol=0, atol=1e-5)
+    if tree == "plain":
+        jx, _, _ = jb.forward_decode_window(
+            js, jp, *(jnp.asarray(a) for a in step), attn_impl="xla")
+        np.testing.assert_allclose(outs[0], _np(jb.unembed(js, jp, jx)),
+                                   rtol=0, atol=1e-4)
+        return
+    prompts = [rs.randint(1, VOCAB, size=n).tolist() for n in (9, 30)]
+    tokens = []
+    for fused in (False, True):
+        te = ContinuousEngine(ts, params=tp, config=EngineConfig(
+            attention_impl="pallas-decode", decode_fused=fused, **KW),
+            device="cpu")
+        before = dict(calls)
+        tokens.append([r.tokens for r in te.generate(
+            [GenerationRequest(prompt=q, max_new_tokens=6)
+             for q in prompts])])
+        assert calls == before
+    assert tokens[1] == tokens[0]
+
+
 # ----------------------------------------------------------------- engine
 
 
@@ -436,7 +503,7 @@ def test_engine_from_config_builds_each_family():
     """The factory builds each family from its architecture string as
     JAX does (the spec, the tree without ``lm_head`` when tied); JAX's
     paged-layout rule refuses ``gemma-tiny`` (1 KV head of 32) in both;
-    Mixtral raises naming A9."""
+    Mixtral (``mixtral-tiny``) builds, plain and born int4."""
     base = dict(max_seq_len=64, max_batch_size=2, dtype="bfloat16")
     md = {"continuous": "1", "num_pages": "8", "page_size": "16",
           "prefill_buckets": "[16, 64]"}
@@ -454,11 +521,18 @@ def test_engine_from_config_builds_each_family():
     with pytest.raises(ValueError, match="multiple of 128"):
         JEngine(jmodels.spec_for_architecture("gemma", "gemma-tiny"),
                 config=JCfg(**dict(KW, num_pages=8)))
-    for arch in ("mixtral", "mixtral-8x7b"):
-        cfg = ModelConfig(name="m", architecture=arch, metadata=dict(md),
+    for arch, size, quantized in (("mixtral", "mixtral-tiny", False),
+                                  ("mixtral-tiny", "", True)):
+        cfg = ModelConfig(name="m", architecture=arch, quantized=quantized,
+                          metadata=dict(md, size=size, weight_bits="4"),
                           **base)
-        with pytest.raises(NotImplementedError, match="A9"):
-            tmodels.engine_from_config(cfg, device="cpu")
+        eng = tmodels.engine_from_config(cfg, device="cpu")
+        want = jmodels.spec_for_architecture(arch, size=size, max_seq_len=64)
+        assert eng.spec.to_dict() == dict(want.to_dict(), dtype="bfloat16")
+        up = eng.params["blocks"]["w_up"]
+        # born quantized: the experts' int4 payload packed on each D_in
+        assert (up.q.shape if quantized else up.shape) == (
+            (4, 4, 128, 256) if quantized else (4, 4, 256, 256))
 
 
 async def test_worker_serves_qwen_through_jax_client():

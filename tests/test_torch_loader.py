@@ -218,17 +218,21 @@ def test_near_miss_relatives_raise_as_in_jax(model_type, arch):
 
 
 def test_mixtral_raises_naming_a9(tmp_path):
+    """Mixtral (A9) no longer raises: its HF config gives JAX's spec, and
+    a checkpoint with expert tensors takes the Mixtral mapping, which
+    names the first tensor it misses (the full load against JAX:
+    ``tests/test_torch_moe.py``)."""
     cfg = {**_LLAMA, "model_type": "mixtral",
            "architectures": ["MixtralForCausalLM"], "num_local_experts": 8}
-    with pytest.raises(NotImplementedError, match="A9"):
-        tl.spec_from_hf_config("", cfg=cfg)
-    # a checkpoint with expert tensors raises too, before any weight moves
+    want = jl.spec_from_hf_config("", cfg=cfg)
+    assert tl.spec_from_hf_config("", cfg=cfg).to_dict() == want.to_dict()
+    assert (want.n_experts, want.experts_per_token) == (8, 2)
     stnp.save_file({"model.embed_tokens.weight": np.ones((4, 4), np.float32),
                     "model.layers.0.block_sparse_moe.gate.weight":
                         np.ones((2, 4), np.float32)},
                    str(tmp_path / "model.safetensors"))
-    spec = tmodels.spec_for_architecture("llama", "llama-tiny")
-    with pytest.raises(NotImplementedError, match="A9"):
+    spec = tmodels.spec_for_architecture("mixtral", "mixtral-tiny")
+    with pytest.raises(KeyError, match="input_layernorm"):
         tl.load_checkpoint(str(tmp_path), spec, device="cpu")
 
 

@@ -236,10 +236,13 @@ def test_paged_kv_accounting_matches_jax():
 
 
 def test_unsupported_spec_features_raise():
-    # experts (Mixtral) are the one unported spec feature; the dense
-    # families' features are ported
-    with pytest.raises(NotImplementedError, match="A9"):
-        tspec("llama-tiny", n_experts=4)
+    # every spec feature of the JAX package is ported, experts (Mixtral)
+    # included; what JAX refuses is refused
+    assert tspec("llama-tiny", n_experts=4).n_experts == 4
+    with pytest.raises(ValueError, match="experts_per_token"):
+        tspec("llama-tiny", n_experts=4, experts_per_token=5)
+    with pytest.raises(ValueError, match="biases"):
+        tspec("llama-tiny", n_experts=4, use_bias=True)
     for kw in (dict(pos_emb="learned"), dict(use_bias=True),
                dict(norm="layernorm"), dict(logit_softcap=30.0),
                dict(qkv_bias=True), dict(mlp="gelu")):
