@@ -82,7 +82,14 @@ Phases, each failing loudly (any failure exits non-zero):
      uniformly from 0-2,040 and side counts from 0-8 with a seeded
      generator), bf16 q over bf16 and over e4m3 pools, where the pools'
      bytes dominate a layer (the TPU bench's default rung runs 128 slots)
-     and the grid is one run a slot (the unsplit grid).
+     and the grid is one run a slot (the unsplit grid);
+   - speculation's two kernel cases (A12): ragged attention at the async
+     verify step's lattice (``VERIFY_ROWS``: 8 rows of 1 + 4 queries over
+     contexts 0-1,000, one plain q=1 row, two inert; bf16 on ``mma``,
+     fp32 on ``simt``, pools and outputs against the plain version,
+     ``ragged_attention.verify``), and the int4 matmul at the speculative
+     verify window's M 40 (8 slots x 5) on the four Llama-3-8B products,
+     each on ``wgmma`` (``int4_matmul.verify``), beside SDPA and cuBLAS.
    The default run keeps one case of each instance and route; the sweeps
    around them run in ``scripts/paged_times.py --sweep`` (paged attention
    over every case, the families' instances at every group and head
@@ -215,6 +222,34 @@ Phases, each failing loudly (any failure exits non-zero):
    for int4 and for int8, the decode path's logits within 1e-3 of
    ``forward_train``'s and a ``pallas-ragged`` engine at 8 slots (chunk
    256) holding every chain teacher-forced at the 1e-3 band.
+6a. ``static`` and ``spec_async`` (A8, A12; ``spec_worker_phases``), in
+   the ``int4`` phase's worker once its waves and probe are done: the int4
+   model unloaded, ``STATIC_MODEL`` (``continuous=0``: the static
+   ``Engine``, no pump, the executor path) loaded over ``load_model`` and
+   the mixed phase's waves sent request by request at once (32 tokens
+   each; a prompt past 512 tokens keeps its tail), with no attention
+   kernel launched (``cached_attention`` is plain PyTorch, as JAX's is
+   XLA), 128 ``wgmma`` launches a call (its prefill) and 129 GEMV
+   launches a decode step; prints tok/s, TTFT p50, the engine's prefill
+   and decode seconds, ms a decode step and int4 launches by instance.
+   Then it unloaded and ``SPEC_ASYNC_MODEL`` (``spec_async=1``, a
+   ``layers:2`` self-draft, k 4, a bubble floor of 0) loaded and the
+   waves streamed (``generate_stream``: the drafter serves streaming
+   slots): fails unless verify steps and drafted tokens are above 0 and
+   every ragged launch is the verify steps' and mixed steps' (32 each, on
+   ``mma``); prints the accept rate, the drafter's counters, the verify
+   step's ms (the step timeline) against the ``int4`` phase's plain
+   decode step and tok/s beside ``int4``'s. In process (``spec``,
+   ``phase_spec_inproc``, after ``int4``'s): every static and async
+   chain teacher-forced at 32 layers (bf16 band); the
+   ``SpeculativeEngine`` (``truncated_draft`` of 2 layers, k 4, 4 rounds
+   a call) over the first wave, its chains teacher-forced and counted
+   against the static worker's, its accept rate, tokens a round, ms a
+   round against the static step and its ``wgmma`` launches at M 40 (128
+   a round run; the head's fp32 M 40 on ``simt``); the async verify step
+   graph against eager (equal tokens and launches); and in fp32 at
+   ``CUT_LAYERS`` ``forward_window``'s logits within ``FP32_LOGIT_TOL``
+   of ``forward_train``'s.
 7. ``mistral``: the worker CLI with Mistral-7B v0.1 at full width and
    depth (``MISTRAL_MODEL``: random bf16 weights from seed 0, window
    4096, ``attention_impl=pallas``, ``prefill_chunk=512``,
@@ -313,7 +348,9 @@ phase's worker, the in-process fw and Mistral runs over each; the G 7
 and head_dim 256
 instances: the qwen2-7b worker, its in-process fw and inline runs, and
 Gemma-7B's inline run; the int4 matmul at the expert shapes: the
-mixtral worker), error and times, and
+mixtral worker; ragged attention at the verify lattice: the spec_async
+worker's verify steps, 32 a step; the int4 matmul at M 40: the
+in-process speculative engine's verify windows), error and times, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -408,6 +445,24 @@ N_LAYERS = 32
 # int4 launches per forward: w_qkv, wo, w_gate_up and w_down per layer, and
 # the LM head
 INT4_PER_FORWARD = 4 * N_LAYERS + 1
+# the static engine (A8) and async speculation (A12) on the int4 model,
+# each loaded over RPC into the int4 phase's worker once the model before
+# it is unloaded (no load-time warmup: the static engine captures no
+# graphs, and the drafter's graphs are captured by the first streamed
+# requests); the static engine clamps a prompt to the largest prefill
+# bucket at or under max_seq_len (512: a longer prompt keeps its tail)
+STATIC_MODEL = (INT4_MODEL.replace("name=llama3-8b,", "name=llama3-8b-static,")
+                .replace("continuous=1", "continuous=0")
+                .replace(",warmup=1", ""))
+STATIC_PROMPT_CAP = 512
+SPEC_ASYNC_MODEL = (INT4_MODEL.replace("name=llama3-8b,",
+                                       "name=llama3-8b-spec,")
+                    .replace(",warmup=1", "")
+                    + ",spec_async=1,spec_draft_model=layers:2,"
+                    "spec_max_draft=4,spec_bubble_floor_s=0")
+# the in-process speculative engine: truncated self-draft of 2 layers,
+# k 4, 4 rounds a call; its verify window is M = 8 slots x 5 rows
+SPEC_K, SPEC_ROUNDS, SPEC_DRAFT_LAYERS = 4, 4, 2
 # Llama-3-8B int4 products (name, K/2, N, activation dtype): the fused
 # q|k|v, o, fused gate|up, down, and the vocab-padded head, which takes fp32
 # activations (models/base.py:unembed)
@@ -429,6 +484,10 @@ INT4_TILE_ROWS = (64, 200, 320, 512, 900, 2560)
 # off the tiles and the vector widths: the tensor-core and GEMV instances
 INT4_EDGES = [("edges", 37, 2000, 4100, "bfloat16"),
               ("edges", 5, 2000, 4100, "float32")]
+# the speculative verify window's rows (8 slots x (k + 1)) on the four
+# Llama-3-8B products: the wgmma instance; the kernels line's row: gate|up
+INT4_VERIFY_CASES = [(name, 8 * (SPEC_K + 1), k2, n, dt)
+                     for name, k2, n, dt in INT4_SHAPES[:4]]
 # per output column: max|out - ref32| / max|ref32|
 COL_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 
@@ -982,10 +1041,15 @@ def check_flash_decode_fw(torch, kv_name=None, shape=(H, HKV, DH),
 RAGGED_ROWS = [(0, 0), (1, 1), (127, 1), (128, 1), (383, 1), (640, 1),
                (1000, 1), (0, 0), (0, 256), (384 + 60, 177)]
 MP_RAGGED = 8
+# the async verify step's lattice (A12): 8 rows of 1 + k = 5 queries over
+# contexts 0-1,000, a plain q=1 decode row, rows 0 and 7 inert
+VERIFY_ROWS = [(0, 0), (0, 5), (1, 5), (127, 5), (128, 5), (383, 5),
+               (640, 5), (0, 0), (900, 5), (1000, 5), (63, 1)]
 
 
 def check_ragged(torch, kv_name=None, shape=(H, HKV, DH),
-                 dtypes=("bfloat16", "float32"), quick=False):
+                 dtypes=("bfloat16", "float32"), quick=False,
+                 lattice=RAGGED_ROWS):
     """Ragged attention at full width against its plain version: outputs
     (and, in bf16, each (row, query, head) vector against the plain version
     on the same values in fp32) and the pools after the writeback. bf16
@@ -996,7 +1060,8 @@ def check_ragged(torch, kv_name=None, shape=(H, HKV, DH),
     K/V scaled past 464 must leave the pools byte-equal to the plain
     version's (NaN bytes, JAX's cast). No single library call takes e4m3
     K/V, so no yardstick. ``shape``, ``dtypes``, ``quick``: as
-    ``check_flash_decode``."""
+    ``check_flash_decode``; ``lattice``: the rows (ctx_len, q_len), rows 0
+    and 7 inert (``RAGGED_ROWS``, or the verify step's ``VERIFY_ROWS``)."""
     from distributed_inference_engine_tpu_torch.ops import _cuda
     from distributed_inference_engine_tpu_torch.ops import (
         ragged_attention as ra)
@@ -1007,20 +1072,20 @@ def check_ragged(torch, kv_name=None, shape=(H, HKV, DH),
     timing, plain_timing = (QUICK, QUICK_PLAIN) if quick else ({}, MAIN_PLAIN)
     rows = []
     g = torch.Generator(device="cuda").manual_seed(6)
-    r = len(RAGGED_ROWS)
-    qmax = max(q for _, q in RAGGED_ROWS)
+    r = len(lattice)
+    qmax = max(q for _, q in lattice)
     i32 = dict(dtype=torch.int32, device="cuda")
-    ctx = torch.tensor([c for c, _ in RAGGED_ROWS], **i32)
-    ql = torch.tensor([q for _, q in RAGGED_ROWS], **i32)
+    ctx = torch.tensor([c for c, _ in lattice], **i32)
+    ql = torch.tensor([q for _, q in lattice], **i32)
     n_layers, n = 2, r * MP_RAGGED + 8
     perm = torch.randperm(n, generator=g, device="cuda")[: r * MP_RAGGED]
     table = perm.reshape(r, MP_RAGGED).to(torch.int32).contiguous()
     table[0] = table[1]               # inert rows aim at live pages
     table[7] = table[6]
     valid = (torch.arange(qmax, device="cuda")[None, :] < ql[:, None])
-    ctx_keys = sum(c for c, q in RAGGED_ROWS if q)
-    n_q = sum(q for _, q in RAGGED_ROWS)
-    flops = 4.0 * h * dh * sum(q * (c + (q + 1) / 2) for c, q in RAGGED_ROWS)
+    ctx_keys = sum(c for c, q in lattice if q)
+    n_q = sum(q for _, q in lattice)
+    flops = 4.0 * h * dh * sum(q * (c + (q + 1) / 2) for c, q in lattice)
     for dtype_name in dtypes:
         dt = getattr(torch, dtype_name)
         kv_dt = getattr(torch, kv_name) if kv_name else dt
@@ -1655,6 +1720,10 @@ def phase_kernels(torch, card: str):
         "paged_attention.e5m2": check_paged(torch, E5M2),
         # Mixtral-8x7B's expert products (A9)
         "int4_matmul.moe": check_int4(torch, MOE_INT4_CASES),
+        # the async verify step's lattice and the speculative verify
+        # window's rows (A12)
+        "ragged_attention.verify": check_ragged(torch, lattice=VERIFY_ROWS),
+        "int4_matmul.verify": check_int4(torch, INT4_VERIFY_CASES),
     }
     # 128 slots: the regime where the pools' bytes dominate a layer
     results["flash_decode.b128"] = check_flash_decode(
@@ -1865,15 +1934,17 @@ async def serve_waves(client, waves, name: str, stream_prompt=None,
 
 
 async def drive_worker(host, port, waves, name: str, stream_prompt=None,
-                       probe_prompt=None, then=(), batched: bool = False):
+                       probe_prompt=None, then=(), batched: bool = False,
+                       after=None):
     """``serve_waves`` (``batched``: a wave one RPC) on the worker CLI
     preloaded with model ``name``,
     then (``probe_prompt``) that prompt's 8 greedy tokens; then for each
     model of ``then`` in turn (a model string, or a (model, waves) pair),
     the model before it unloaded, the model loaded over ``load_model``
     (its load-time warm-up included) and the same waves (or its own)
-    served (their outputs in ``out["then"]``); then the worker's
-    shutdown."""
+    served (their outputs in ``out["then"]``); then ``after(client,
+    last)`` (``last``: the resident model's name; its result in
+    ``out["after"]``); then the worker's shutdown."""
     from distributed_inference_engine_tpu_torch.cli.worker import (
         parse_model_arg)
     from distributed_inference_engine_tpu_torch.cluster.worker import (
@@ -1906,6 +1977,8 @@ async def drive_worker(host, port, waves, name: str, stream_prompt=None,
             nxt["warmed"] = (f"warmed model {last}: {rounds} rounds in "
                              f"{secs:.2f}s (load_s {receipt['load_s']:.2f})")
             out["then"].append(nxt)
+        if after is not None:
+            out["after"] = await after(client, last)
         await client.shutdown()
     finally:
         await client.close()
@@ -1926,11 +1999,12 @@ def free_this_process(torch) -> None:
 
 
 def run_worker(model: str, waves, stream_prompt=None, probe_prompt=None,
-               then=(), batched: bool = False):
+               then=(), batched: bool = False, after=None):
     """Start the worker CLI with ``model`` (metadata ``warmup=1``: its
     engine runs the serving programs at load), drive ``waves`` through it
     (and through each model of ``then`` in turn, loaded over RPC into the
-    same process: ``drive_worker``), and wait for it to exit; also returns
+    same process, and ``after``: ``drive_worker``), and wait for it to
+    exit; also returns
     the warmup's line. This process's cached device memory is freed
     first."""
     import torch
@@ -1941,7 +2015,7 @@ def run_worker(model: str, waves, stream_prompt=None, probe_prompt=None,
     try:
         out = asyncio.run(drive_worker(host, port, waves, name,
                                        stream_prompt, probe_prompt, then,
-                                       batched))
+                                       batched, after))
         proc.wait(timeout=120)
     finally:
         if proc.poll() is None:
@@ -4288,11 +4362,19 @@ def phase_int4(torch, card: str):
         GOLDEN_PROMPT)
 
     wave1, wave2 = mixed_prompts()
-    out = run_worker(INT4_MODEL, [wave1, wave2], probe_prompt=GOLDEN_PROMPT)
+    out = run_worker(INT4_MODEL, [wave1, wave2], probe_prompt=GOLDEN_PROMPT,
+                     after=lambda client, last: spec_worker_phases(
+                         client, last, [wave1, wave2]))
     launches = report_int4_run(out, wave1, wave2, card, "int4")
     log(f"[int4] probe: {len(GOLDEN_PROMPT)}-token golden prompt -> "
         f"{out['probe']} [{card}]")
-    return wave1, out["results"][0], launches, out["probe"]
+    spec = out["after"]
+    spec["static"]["launches_by_path"] = report_static(
+        spec["static"], [wave1, wave2], card)
+    spec["spec_async"]["launches_by_path"] = report_spec_async(
+        spec["spec_async"], [wave1, wave2], card, out,
+        spec["int4_decode_ms"])
+    return wave1, out["results"][0], launches, out["probe"], spec
 
 
 def report_int4_run(out, wave1, wave2, card: str, label: str):
@@ -4338,6 +4420,333 @@ def report_int4_run(out, wave1, wave2, card: str, label: str):
         f"{decode_steps} decode steps, {eng['mixed_steps']} mixed steps); "
         f"launches {launches} [{card}]")
     return launches
+
+
+# ------------------------------------------- static engine and speculation
+
+
+async def spec_worker_phases(client, last: str, waves):
+    """Phases ``static`` (A8) and ``spec_async`` (A12) in the int4 phase's
+    worker: ``last`` unloaded, then ``STATIC_MODEL`` loaded over
+    ``load_model`` and ``waves`` sent request by request at once (each its
+    own ``generate``: the executor path, one batch a call), then it
+    unloaded and ``SPEC_ASYNC_MODEL`` loaded and the waves streamed
+    (``generate_stream``: the drafter serves streaming slots), each with
+    the worker's launch counts zeroed just before and read just after, its
+    engine metrics (and the spec model's step timeline) read after."""
+    from distributed_inference_engine_tpu_torch.cli.worker import (
+        parse_model_arg)
+    from distributed_inference_engine_tpu_torch.engine.types import (
+        GenerationRequest)
+
+    # the int4 model's plain decode step (its timeline), beside which the
+    # verify step is printed
+    out = {"int4_decode_ms": _timeline_ms(
+        (await client.events())["timelines"][last], "decode")}
+    for label, model in (("static", STATIC_MODEL),
+                         ("spec_async", SPEC_ASYNC_MODEL)):
+        assert await client.unload_model(last) is True, last
+        cfg = parse_model_arg(model)
+        receipt = await client.load_model(cfg, timeout=900.0)
+        last = cfg.name
+        before = (await client.metrics())["models"][last]
+        await client.kernel_counts(reset=True)    # this path starts here
+        results, wall = [], 0.0
+        for w, prompts in enumerate(waves):
+            reqs = [GenerationRequest(prompt=p, max_new_tokens=32,
+                                      request_id=f"{label}{w}_{i}")
+                    for i, p in enumerate(prompts)]
+            t0 = time.perf_counter()
+            if label == "static":
+                outs = [o[0] for o in await asyncio.gather(*[
+                    client.generate(last, [r]) for r in reqs])]
+            else:
+                outs = await asyncio.gather(*[
+                    client.generate_stream(last, r, lambda t: None)
+                    for r in reqs])
+            wall += time.perf_counter() - t0
+            results.append(outs)
+        launches = await client.kernel_counts()   # ... and ends here
+        after = (await client.metrics())["models"][last]
+        timeline = (await client.events())["timelines"].get(last, [])
+        out[label] = dict(results=results, wall=wall, launches=launches,
+                          before=before, eng=after, timeline=timeline,
+                          load_s=receipt["load_s"], name=last)
+    assert await client.unload_model(last) is True, last
+    return out
+
+
+def _int4_by_instance(launches):
+    return {k.split(".", 1)[1]: v for k, v in launches.items()
+            if k.startswith("int4_matmul.")}
+
+
+def report_static(run, waves, card: str):
+    """Phase ``static``: every request's 32 tokens (a prompt past
+    ``STATIC_PROMPT_CAP`` keeps its tail), no attention kernel (the static
+    engine attends through ``cached_attention``, plain PyTorch as the JAX
+    engine's XLA), and its int4 launches by instance: each call's prefill
+    projections on wgmma (128 a call, at the prompt's bucket rows), the
+    decode steps' and every head's on the GEMV (129 a decode step, one
+    head a prefill). Prints tok/s, TTFT p50, the engine's prefill and
+    decode seconds and ms per decode step. Returns the path's launches."""
+    results, launches, eng = run["results"], run["launches"], run["eng"]
+    for w, (rs, ps) in enumerate(zip(results, waves)):
+        check_results(rs, ps, f"static wave {w + 1}")
+    for k in ("ragged_attention", "flash_decode", "paged_attention"):
+        assert not launches.get(k), f"static: {k} launched: {launches}"
+    calls = sum(len(w) for w in waves)
+    inst = _int4_by_instance(launches)
+    assert sum(inst.values()) == launches["int4_matmul"], launches
+    assert inst.get("wgmma") == (INT4_PER_FORWARD - 1) * calls, inst
+    steps, rem = divmod(inst["gemv"] - calls, INT4_PER_FORWARD)
+    assert rem == 0 and steps > 0, (inst, calls)
+    d_prefill = {k: eng["prefill"][k] - run["before"]["prefill"][k]
+                 for k in ("sum_s", "count")}
+    d_decode = {k: eng["decode"][k] - run["before"]["decode"][k]
+                for k in ("sum_s", "count")}
+    assert d_prefill["count"] == d_decode["count"] == calls, eng
+    flat = [r for rs in results for r in rs]
+    log(f"[static] {run['name']} (continuous=0) over load_model in "
+        f"{run['load_s']:.2f} s: {served_line(flat, run['wall'])}; engine "
+        f"prefill {d_prefill['sum_s']:.3f} s over {calls} calls, decode "
+        f"{d_decode['sum_s']:.3f} s over {steps} decode steps = "
+        f"{1e3 * d_decode['sum_s'] / steps:.2f} ms/step (eager, 1 row a "
+        f"call: the executor runs one generate at a time); int4 launches "
+        f"by instance {inst} [{card}]")
+    run["ms_per_step"] = 1e3 * d_decode["sum_s"] / steps
+    return {"int4_matmul": launches["int4_matmul"]}
+
+
+def _timeline_ms(events, kind: str):
+    """Mean ms per step of an engine's ``kind`` records (a decode record
+    holds ``n_steps`` steps), leaving out each key's first dispatch (its
+    graph's capture)."""
+    xs = [1e3 * e["dur"] / e["args"].get("n_steps", 1) for e in events
+          if e["name"] == kind and not e["args"].get("compile")]
+    return (sum(xs) / len(xs), len(xs)) if xs else (float("nan"), 0)
+
+
+def report_spec_async(run, waves, card: str, int4_out, int4_decode_ms):
+    """Phase ``spec_async``: every request's 32 tokens, the verify step
+    run (``spec_async_verify_steps``) with drafted tokens, the ragged
+    kernel at the verify lattice (one launch a layer a verify step, on the
+    tensor cores), and the drafter's counters; prints the accept rate,
+    verify steps, ms per verify step against a plain decode step (the
+    step timeline; the int4 model's decode chunks for the plain step,
+    ``int4_decode_ms``) and tok/s beside the ``int4`` phase's. Returns the
+    verify path's launches."""
+    results, launches, eng, before = (run["results"], run["launches"],
+                                      run["eng"], run["before"])
+    for w, (rs, ps) in enumerate(zip(results, waves)):
+        check_results(rs, ps, f"spec_async wave {w + 1}")
+    d = {k: eng[k] - before[k] for k in (
+        "spec_async_verify_steps", "spec_async_drafted_tokens",
+        "spec_async_accepted_tokens", "spec_async_wasted_tokens",
+        "spec_async_draft_rounds", "spec_async_propose_rounds",
+        "spec_async_catchup_tokens", "mixed_steps", "decode_steps")}
+    assert d["spec_async_verify_steps"] > 0, d
+    assert d["spec_async_drafted_tokens"] > 0, d
+    verify_ragged = N_LAYERS * d["spec_async_verify_steps"]
+    assert launches.get("ragged_attention", 0) == verify_ragged +         N_LAYERS * d["mixed_steps"], (launches, d)
+    assert launches.get("ragged_attention.mma") ==         launches["ragged_attention"], launches
+    t_ver, n_ver = _timeline_ms(run["timeline"], "verify")
+    # a plain decode step: the int4 phase's (the same model, no drafter;
+    # here every step with a live stream verifies)
+    t_dec, n_dec = int4_decode_ms
+    flat = [r for rs in results for r in rs]
+    int4_flat = [r for rs in int4_out["results"] for r in rs]
+    acc = (d["spec_async_accepted_tokens"] / d["spec_async_drafted_tokens"])
+    log(f"[spec_async] {run['name']} over load_model in {run['load_s']:.2f}"
+        f" s, waves streamed: {served_line(flat, run['wall'])}; the int4 "
+        f"phase's {served_line(int4_flat, int4_out['wall'])}; accept rate "
+        f"{acc:.3f} ({d['spec_async_accepted_tokens']} of "
+        f"{d['spec_async_drafted_tokens']} drafted, "
+        f"{d['spec_async_wasted_tokens']} wasted, "
+        f"{d['spec_async_catchup_tokens']} caught up); verify steps "
+        f"{d['spec_async_verify_steps']}, draft rounds "
+        f"{d['spec_async_draft_rounds']} ({d['spec_async_propose_rounds']} "
+        f"proposing), mixed steps {d['mixed_steps']}; verify step "
+        f"{t_ver:.2f} ms ({n_ver} records) against the int4 phase's plain "
+        f"decode step {t_dec:.2f} ms ({n_dec} chunks; each key's capture "
+        f"left out); int4 launches by instance "
+        f"{_int4_by_instance(launches)}; launches {launches} [{card}]")
+    return {"ragged_attention": verify_ragged}
+
+
+def phase_spec_inproc(torch, card: str, waves, spec_runs):
+    """Phase ``spec`` (A12) in this process on the int4 weights of phase
+    ``int4`` (same seed and card): the static and async workers' chains
+    teacher-forced to ``forward_train`` (bf16 band); the
+    ``SpeculativeEngine`` at 32 layers with ``truncated_draft(..., 2)``, k
+    4, 4 rounds a call over the first wave, its chains teacher-forced and
+    against the static worker's on the same prompts, with its accept rate,
+    tokens a round, ms a round against the static engine's ms a decode
+    step and its wgmma launches at M 40; the async verify step graph
+    against eager (equal tokens and launches); then in fp32 at
+    ``CUT_LAYERS`` ``forward_window``'s logits within ``FP32_LOGIT_TOL`` of
+    ``forward_train``'s. Returns the verify window's int4 launches."""
+    from distributed_inference_engine_tpu_torch.config import EngineConfig
+    from distributed_inference_engine_tpu_torch.engine.continuous import (
+        ContinuousEngine)
+    from distributed_inference_engine_tpu_torch.engine.engine import (
+        prefill_cache)
+    from distributed_inference_engine_tpu_torch.engine.speculative import (
+        SpeculativeEngine, truncated_draft)
+    from distributed_inference_engine_tpu_torch.engine.types import (
+        GenerationRequest)
+    from distributed_inference_engine_tpu_torch.models import (
+        spec_for_architecture)
+    from distributed_inference_engine_tpu_torch.models.base import (
+        forward_prefill, forward_train, forward_window, init_params,
+        random_quantized_params)
+    from distributed_inference_engine_tpu_torch.ops import _cuda
+    from distributed_inference_engine_tpu_torch.ops.quant import (
+        prepare_params)
+    from distributed_inference_engine_tpu_torch.utils.parity import (
+        assert_greedy_parity)
+
+    spec = spec_for_architecture("llama", "llama3-8b", max_seq_len=1024)
+    params = prepare_params(random_quantized_params(
+        spec, torch.Generator(device="cuda").manual_seed(0), bits=4))
+    static = [r for rs in spec_runs["static"]["results"] for r in rs]
+    served = [r for rs in spec_runs["spec_async"]["results"] for r in rs]
+    prompts = [p for w in waves for p in w]
+    for label, rs, cap in (("static", static, STATIC_PROMPT_CAP),
+                           ("spec_async", served, None)):
+        m = t = 0
+        for i, (p, r) in enumerate(zip(prompts, rs)):
+            mi, ti = assert_greedy_parity(
+                spec, params, p[-cap:] if cap else p, r.tokens,
+                eps=BF16_TIE_EPS, label=f"{label} chain {i}")
+            m, t = m + mi, t + ti
+        log(f"[{label}] every served chain teacher-forced ({len(rs)}): "
+            f"{m} strict, {t} ties (band {BF16_TIE_EPS}) [{card}]")
+
+    # the speculative engine over the first wave (one batch of 8)
+    cfg = EngineConfig(max_slots=8, max_seq_len=1024)
+    d_spec, d_params = truncated_draft(spec, params, SPEC_DRAFT_LAYERS)
+    se = SpeculativeEngine(spec, d_spec, params=params,
+                           draft_params=d_params, config=cfg,
+                           speculate_k=SPEC_K, rounds_per_call=SPEC_ROUNDS,
+                           device="cuda")
+    reqs = [GenerationRequest(prompt=p, max_new_tokens=32,
+                              request_id=f"spec{i}")
+            for i, p in enumerate(waves[0])]
+    se.generate(reqs[:1])                     # first-use costs, untimed
+    live0 = se.get_metrics()["rounds"]
+    with _cuda.recording_launches() as launches:   # this path starts here
+        t0 = time.perf_counter()
+        out = se.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(launches)                      # ... and ends here
+    check_results(out, waves[0], "spec")
+    m = se.get_metrics()
+    inst = _int4_by_instance(launches)
+    # the prefill's projections (target 32 layers and draft 2, at the
+    # prompts' bucket rows) and every verify window's (M 40) take wgmma;
+    # the draft's steps (M 8) and every head but the verify's (fp32, M
+    # 40: the CUDA-core instance) the GEMV
+    prefill_wgmma = 4 * (N_LAYERS + SPEC_DRAFT_LAYERS)
+    verify_wgmma = inst.get("wgmma", 0) - prefill_wgmma
+    # every call runs its rounds, rows frozen or not (a live round has a
+    # row emitting)
+    rounds_run, rem = divmod(verify_wgmma, 4 * N_LAYERS)
+    assert rem == 0 and rounds_run % SPEC_ROUNDS == 0 and \
+        rounds_run >= m["rounds"] - live0 > 0, (inst, m)
+    assert inst.get("simt") == rounds_run, inst
+    ms_round = 1e3 * out[0].decode_s / rounds_run
+    m_tf = t_tf = same = 0
+    for i, (p, r) in enumerate(zip(waves[0], out)):
+        mi, ti = assert_greedy_parity(
+            spec, params, p[-STATIC_PROMPT_CAP:], r.tokens, eps=BF16_TIE_EPS,
+            label=f"spec chain {i}")
+        m_tf, t_tf = m_tf + mi, t_tf + ti
+        same += r.tokens == static[i].tokens
+    log(f"[spec] SpeculativeEngine (truncated_draft {SPEC_DRAFT_LAYERS} "
+        f"layers, k {SPEC_K}, {SPEC_ROUNDS} rounds a call), 8 requests in "
+        f"{wall:.3f} s = {sum(len(r.tokens) for r in out) / wall:.1f} tok/s;"
+        f" accept rate {m['draft_acceptance_rate']:.3f}, "
+        f"{m['tokens_per_round']:.2f} tokens a live round; "
+        f"{rounds_run} rounds run at {ms_round:.2f} ms a round against "
+        f"{spec_runs['static']['ms_per_step']:.2f} ms a static decode step "
+        f"(worker, 1 row); wgmma launches at M {8 * (SPEC_K + 1)}: "
+        f"{verify_wgmma}; chains teacher-forced {m_tf} strict, {t_tf} ties,"
+        f" {same}/8 equal to the static worker's; launches {launches} "
+        f"[{card}]")
+    del se, d_params
+
+    # the async verify step, graph against eager, over the first wave; then
+    # the same engine without the drafter (graphs): its plain decode step
+    runs = []
+    for eager, spec_async in ((True, True), (False, True), (False, False)):
+        eng = ContinuousEngine(spec, params=params, device="cuda",
+                               config=EngineConfig(
+                                   max_slots=8, max_seq_len=1024,
+                                   num_pages=64,
+                                   attention_impl="pallas-ragged",
+                                   prefill_chunk=256, mixed_step_tokens=512,
+                                   spec_async=spec_async,
+                                   spec_draft_model="layers:2",
+                                   spec_bubble_floor_s=0.0))
+        eng._eager = eager
+        with _cuda.recording_launches() as la:
+            for i, p in enumerate(waves[0]):
+                eng.submit(GenerationRequest(prompt=p, max_new_tokens=32,
+                                             request_id=f"v{i}"),
+                           on_tokens=lambda t: None)
+            res = eng.run_until_idle()
+            torch.cuda.synchronize()
+        runs.append((sorted((r.request_id, r.tokens) for r in res),
+                     dict(la), eng.get_metrics(),
+                     _timeline_ms(eng.timeline.events(), "verify")[0],
+                     _timeline_ms(eng.timeline.events(), "decode")[0]))
+        del eng
+    (te, le, me, ve, _), (tg, lg, mg, vg, _), (tp, _, mp, _, dp) = runs
+    assert tg == te, "spec_async: graph tokens != eager"
+    assert lg == le, ("spec_async: graph launches != eager", lg, le)
+    assert mg["spec_async_verify_steps"] == me["spec_async_verify_steps"] \
+        > 0, (mg, me)
+    same = sum(a == b for a, b in zip(tg, tp))
+    log(f"[spec_async] in process, graph against eager: equal tokens and "
+        f"launches; verify steps {mg['spec_async_verify_steps']}, accept "
+        f"rate {mg['spec_async_accept_rate']:.3f}, graphs "
+        f"{mg['cuda_graphs']}; verify step {vg:.2f} ms graph, {ve:.2f} ms "
+        f"eager, against a plain decode step of the same engine without "
+        f"the drafter {dp:.2f} ms ({mp['decode_steps']} steps; {same}/8 "
+        f"chains equal to its) [{card}]")
+    del params
+    torch.cuda.empty_cache()
+
+    # fp32 at full width, CUT_LAYERS deep: forward_window over a 5-token
+    # window after a 520-token prompt against forward_train
+    spec32 = spec.replace(dtype="float32", n_layers=CUT_LAYERS)
+    params = init_params(spec32, torch.Generator(device="cuda").manual_seed(0))
+    prompt = waves[0][5]
+    window = static[5].tokens[:SPEC_K + 1]
+    n = len(prompt)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    _, ks, vs = forward_prefill(spec32, params, torch.tensor([prompt], **i32),
+                                [n])
+    ck = prefill_cache(ks, n + 8, torch.float32)
+    cv = prefill_cache(vs, n + 8, torch.float32)
+    del ks, vs
+    got, _, _ = forward_window(spec32, params, torch.tensor([window], **i32),
+                               torch.tensor([len(window)], **i32),
+                               torch.tensor([n], **i32), ck, cv)
+    # window position i: the distribution after window token i (at n + i)
+    ref = forward_train(spec32, params, torch.tensor([prompt + window],
+                                                     **i32),
+                        [n + len(window)])[:, n: n + len(window)]
+    gap = float((got - ref).abs().max())
+    log(f"[spec] fp32 forward_window ({CUT_LAYERS} layers) against "
+        f"forward_train max|logit gap| {gap:.3e} over {len(window)} "
+        f"positions (limit {FP32_LOGIT_TOL}) [{card}]")
+    assert gap <= FP32_LOGIT_TOL, gap
+    del params, ck, cv
+    torch.cuda.empty_cache()
+    return {"int4_matmul": verify_wgmma}
 
 
 def engine_run(torch, spec, params, prompts, label: str, **cfg):
@@ -4830,8 +5239,9 @@ def main() -> int:
     fp8_launch = phase_fp8(torch, card, mixed_out)
     del mixed_out
     done("fp8 and e5m2 worker")
-    int4_wave, int4_served, int4_launch, probe = phase_int4(torch, card)
-    done("int4 worker")
+    int4_wave, int4_served, int4_launch, probe, spec_runs = phase_int4(
+        torch, card)
+    done("int4, static and spec_async worker")
     prompts, results, serve_launch = phase_fleet(torch, card, probe)
     done("fleet (serve)")
     m_wave, m_served, mistral_launch = phase_mistral(torch, card)
@@ -4849,6 +5259,9 @@ def main() -> int:
     phase_int4_inproc(torch, card, int4_wave, int4_served, args.profile)
     torch.cuda.empty_cache()
     done("int4 in process")
+    spec_launch = phase_spec_inproc(torch, card, list(mixed_prompts()),
+                                    spec_runs)
+    done("spec in process")
     phase_mistral_inproc(torch, card, m_wave, m_served)
     done("mistral in process")
     fp8_inproc = phase_fp8_inproc(torch, card)
@@ -4926,7 +5339,15 @@ def main() -> int:
                                   fam_paths["gemma-7b inline"]),
         "int4_matmul.moe": ("csrc/int4_matmul.cu",
                             jax_ops + "int4_matmul.py:240",
-                            mixtral_launch)}
+                            mixtral_launch),
+        # the async verify step's ragged launches in the spec_async worker
+        # (one a layer a verify step), and the speculative engine's wgmma
+        # launches at the verify window's M 40 (A12)
+        "ragged_attention.verify": (
+            "csrc/ragged_attention.cuh", jax_ops + "ragged_attention.py:181",
+            spec_runs["spec_async"]["launches_by_path"]),
+        "int4_matmul.verify": ("csrc/int4_matmul.cu",
+                               jax_ops + "int4_matmul.py:240", spec_launch)}
     # representative main-path shape per kernel: bf16, and for the GEMVs
     # the d_ff projections (gate/up for norm_matmul, down for residual,
     # gate|up at the 8 decode rows for int4); paged attention as Mistral
@@ -4940,14 +5361,15 @@ def main() -> int:
             "ragged_attention.e5m2": 0, "paged_attention.e5m2": PAGED_MAIN,
             "flash_decode.g7": 0, "flash_decode_fw.g7": 0,
             "ragged_attention.g7": 0, "paged_attention.g7": 0,
-            "paged_attention.dh256": 0, "int4_matmul.moe": 0}
+            "paged_attention.dh256": 0, "int4_matmul.moe": 0,
+            "ragged_attention.verify": 0, "int4_matmul.verify": 2}
     kernels = []
     for name, (src, replaces, path_launches) in sources.items():
         rows = kern[name]
         r = rows[pick[name]]
         # an instance of another family counts under its kernel's name
         counter = name.split(".")[0] if name.endswith(
-            (".g7", ".dh256", ".moe")) else name
+            (".g7", ".dh256", ".moe", ".verify")) else name
         launches = path_launches.get(counter, 0)
         assert launches > 0, f"{name}: never launched on its path"
         kernels.append({

@@ -113,8 +113,6 @@ class EngineConfig:
                 f"decode_mode {self.decode_mode!r} is not 'window'|'inline'")
         if self.kv_offload:
             no("kv_offload (host KV tier)", "A10")
-        if self.spec_async:
-            no("spec_async (async speculation)", "A12")
         if self.attention_impl not in ("auto", "pallas", "pallas-decode",
                                        "pallas-decode-fw", "pallas-ragged"):
             raise ValueError(

@@ -94,9 +94,16 @@ from ..models.base import (
 from ..ops import _cuda
 from ..ops.attention import raw_view
 from ..ops.quant import param_bytes, prepare_params
-from ..ops.sampling import SamplingParams, sample_tokens_with_logprobs
+from ..ops.sampling import (
+    SamplingParams,
+    gumbel_noise,
+    masked_sampling_probs,
+    sample_tokens_with_logprobs,
+)
 from ..utils.tracing import LatencyStats
+from .engine import _next_bucket, _pow2_buckets, knob_flags, request_knobs
 from .paged_kv import PagedKVCache
+from .spec_accept import rejection_accept
 from .types import (
     EngineOverloadedError,
     GenerationRequest,
@@ -111,29 +118,20 @@ logger = logging.getLogger(__name__)
 _DEVICE_STOP_K = 8
 
 
-def _next_bucket(n: int, buckets: Sequence[int]) -> int:
-    for b in sorted(buckets):
-        if n <= b:
-            return b
-    raise ValueError(f"size {n} exceeds largest bucket {max(buckets)}")
-
-
-def _pow2_buckets(cap: int, start: int = 1) -> List[int]:
-    out, b = [], start
-    while b < cap:
-        out.append(b)
-        b *= 2
-    out.append(cap)
-    return out
-
-
 def _key_name(key: Tuple) -> str:
-    """A decode or mixed graph key as text (``get_metrics``)."""
-    kind, *shape, stops, mask, noise = key
-    dims = (f"n_steps={shape[0]}" if kind == "decode"
-            else f"rows={shape[0]} width={shape[1]}")
-    return (f"{kind} {dims} stops={int(stops)} mask={int(mask)} "
+    """A decode, mixed, verify or draft graph key as text
+    (``get_metrics``)."""
+    kind, *shape, flag, mask, noise = key
+    if kind == "mixed":
+        dims = f"rows={shape[0]} width={shape[1]}"
+    else:
+        dims = f"{_KEY_DIM[kind]}={shape[0]}"
+    flag_name = "propose" if kind == "draft" else "stops"
+    return (f"{kind} {dims} {flag_name}={int(flag)} mask={int(mask)} "
             f"noise={int(noise)}")
+
+
+_KEY_DIM = {"decode": "n_steps", "verify": "k", "draft": "width"}
 
 
 class _Slot:
@@ -239,7 +237,8 @@ class ContinuousEngine:
                  params: Optional[Params] = None,
                  config: Optional[EngineConfig] = None, seed: int = 0,
                  device="cuda", artifact_path: Optional[str] = None,
-                 artifact_selfcheck: bool = True) -> None:
+                 artifact_selfcheck: bool = True, draft_spec=None,
+                 draft_params=None) -> None:
         self.config = config or EngineConfig()
         cfg = self.config
         cfg.check_supported()        # before any weight is made
@@ -435,6 +434,35 @@ class ContinuousEngine:
         # poll the ring
         self.overlap_hook: Optional[Any] = None
 
+        # async speculation (engine/spec_async.py): dispatched but
+        # unprocessed chunks; while one is in flight the host lags the
+        # device, so the speculator only catches its caches up
+        self._inflight_chunks = 0
+        self._spec_verify_steps = 0
+        # the verify step's draft-column counts, at a fixed address
+        self._n_drafts = torch.zeros((n,), **i32)
+        self.speculator = None
+        if cfg.spec_async:
+            if self._defer:
+                raise ValueError(
+                    "spec_async requires defer_sync=False: proposals "
+                    "need the live host frontier, which deferral keeps "
+                    "one chunk stale")
+            if self.spec.sliding_window:
+                raise ValueError(
+                    "spec_async does not support sliding-window "
+                    "attention (the ragged verify path rejects it)")
+            from .spec_async import AsyncSpeculator, resolve_draft
+
+            if draft_spec is None or draft_params is None:
+                draft_spec, draft_params = resolve_draft(
+                    self.spec, self.params, cfg.spec_draft_model,
+                    device=self.device)
+            self.speculator = AsyncSpeculator(
+                self, draft_spec, draft_params,
+                k=int(cfg.spec_max_draft or 4),
+                bubble_floor_s=float(cfg.spec_bubble_floor_s), seed=seed)
+
         if self.artifact_manifest is not None and artifact_selfcheck:
             # the golden-token self-check BEFORE any traffic: the save-time
             # probe replayed on the restored tree through the serving
@@ -531,24 +559,10 @@ class ContinuousEngine:
 
     # ---------------------------------------------------------- admission
 
-    @staticmethod
-    def _knob_flags(knobs: np.ndarray) -> Tuple[bool, bool]:
-        """(needs_mask, needs_noise) of host knob rows [temp, k, p, min_p]:
-        whether any row uses top-k/top-p/min-p, or samples at all."""
-        needs_mask = bool((knobs[:, 1] > 0).any() | (knobs[:, 2] < 1.0).any()
-                          | (knobs[:, 3] > 0).any())
-        return needs_mask, bool((knobs[:, 0] > 0).any())
-
-    @staticmethod
-    def _request_knobs(reqs: Sequence[GenerationRequest], n: int
-                       ) -> np.ndarray:
-        """Host knob rows [temp, k, p, min_p] of ``reqs``, padded to ``n``
-        rows with greedy defaults."""
-        knobs = np.zeros((n, 4), np.float32)
-        knobs[:, 2] = 1.0
-        for i, r in enumerate(reqs):
-            knobs[i] = (r.temperature, r.top_k, r.top_p, r.min_p)
-        return knobs
+    # the host knob rows and the sampler's flags (engine/engine.py, shared
+    # with the static and speculative engines)
+    _knob_flags = staticmethod(knob_flags)
+    _request_knobs = staticmethod(request_knobs)
 
     def _sample_knobs(self, logits: torch.Tensor, knobs: np.ndarray):
         """Sample rows of ``logits`` under host knob rows -> (tokens [n]
@@ -1058,25 +1072,28 @@ class ContinuousEngine:
     def _state(self) -> Tuple[torch.Tensor, ...]:
         return self._lengths, self._last, self._active, self._produced
 
-    def _run(self, key: Tuple, body) -> torch.Tensor:
+    def _run(self, key: Tuple, body, generators=None) -> torch.Tensor:
         """``body()`` on the CPU (or with the ``_eager`` hook); on a CUDA
-        device a replay of ``key``'s graph, captured first if new."""
+        device a replay of ``key``'s graph, captured first if new.
+        ``generators`` are the ones ``body`` draws from (the engine's by
+        default; a draft round's, the speculator's)."""
         if self.device.type != "cuda" or self._eager:
             return body()
         graph = self._graphs.get(key)
         if graph is None:
-            graph = self._graphs[key] = self._capture(body)
+            graph = self._graphs[key] = self._capture(
+                body, generators or (self._gen,))
         return graph.replay()
 
-    def _capture(self, body) -> _cuda.CapturedGraph:
+    def _capture(self, body, generators) -> _cuda.CapturedGraph:
         """One eager warm-up pass of ``body`` on the capture stream, its
-        effects undone (the per-slot state and the generator restored; the
-        pages it wrote, the replay writes again), then the capture. A
-        failure raises: there is no eager fallback."""
+        effects undone (the per-slot state and the generators restored;
+        the pages and draft caches it wrote, the replay writes again), then
+        the capture. A failure raises: there is no eager fallback."""
         with _cuda.GRAPH_LOCK:
             stream = _cuda.capture_stream(self.device)
             saved = [t.clone() for t in self._state()]
-            gen_state = self._gen.get_state()
+            gen_states = [g.get_state() for g in generators]
             t0 = time.perf_counter()
             with _cuda.recording_launches() as warm:
                 _cuda.warm_up(body, stream)
@@ -1084,12 +1101,13 @@ class ContinuousEngine:
             self._graph_warmup_launches.update(warm)
             for t, v in zip(self._state(), saved):
                 t.copy_(v)
-            self._gen.set_state(gen_state)
+            for g, st in zip(generators, gen_states):
+                g.set_state(st)
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
             graph = _cuda.capture_graph(body, pool=self._graph_pool,
                                         stream=stream,
-                                        generators=(self._gen,))
+                                        generators=tuple(generators))
             graph.warmup_s = warmup_s
             return graph
 
@@ -1108,6 +1126,7 @@ class ContinuousEngine:
         self._decode_steps += n_steps
         packed = self._run(key, lambda: self._decode_body(
             n_steps, key[2], needs_mask, needs_noise, table))
+        self._inflight_chunks += 1
         return _ChunkEntry(packed, n_steps, dict(self._slots), t0, caps,
                            fresh_firsts=not self._defer, key=key)
 
@@ -1169,6 +1188,106 @@ class ContinuousEngine:
             dst.copy_(src)
         return packed
 
+    def _step_verify(self, drafts, q_probs, n_drafts: np.ndarray,
+                     verified) -> None:
+        """A decode step carrying the pending proposals as extra verify
+        columns (the JAX ``_step_verify``): one dispatch advances a drafted
+        slot by its accepted run plus one target token and every other
+        slot by one plain token. Its packed output is a decode chunk's at
+        ``n_steps = k + 1`` plus one row of accept counts, which the
+        speculator reads off the same host read."""
+        kd = self.speculator.k
+        t0 = time.perf_counter()
+        caps = self._cap_list()
+        needs_mask, needs_noise = self._knob_flags(self._knobs_host)
+        use_stops = bool(self._stop_slots)
+        key = ("verify", kd, use_stops, needs_mask, needs_noise)
+        _cuda.upload_into(self._cap, np.asarray(caps, np.int32))
+        _cuda.upload_into(self._n_drafts, n_drafts)
+        table = self.kv.page_table
+        packed = self._run(key, lambda: self._verify_body(
+            drafts, q_probs, use_stops, needs_mask, needs_noise, table))
+        self._inflight_chunks += 1
+        entry = _ChunkEntry(packed, kd + 1, dict(self._slots), t0, caps,
+                            fresh_firsts=True, key=key)
+        self._run_overlap_hook()
+        self._process_packed(entry)
+        self._spec_verify_steps += 1
+        self.speculator.note_verified(entry, verified)
+        self._tl_record("verify", t0, program=key, rows=len(entry.snapshot),
+                        n_steps=kd + 1)
+
+    def _verify_body(self, drafts: torch.Tensor, q_probs: torch.Tensor,
+                     use_stops: bool, needs_mask: bool, needs_noise: bool,
+                     table: torch.Tensor) -> torch.Tensor:
+        """The verify step on the device (the JAX ``_verify_chunk``): one
+        ragged ``forward_mixed_step`` over ``[last, d_0 .. d_{m-1}]`` a row
+        (a plain row is a q=1 decode row, an idle one inert), the target's
+        knob-masked distributions at every position, ``rejection_accept``
+        with the column mask, then the emission replaying the decode
+        step's eos/budget/cap/stop order position by position. Reads only
+        tensors at fixed addresses."""
+        spec = self.spec
+        b = self.max_slots
+        kd = drafts.shape[1]
+        dev = self.device
+        lengths, last = self._lengths, self._last
+        active, produced = self._active, self._produced
+        n_drafts = self._n_drafts
+        tokens = torch.cat([last[:, None], drafts], dim=1)       # [B, kd+1]
+        zero = torch.zeros_like(lengths)
+        ctx = torch.where(active, lengths, zero)
+        qlens = torch.where(active, 1 + n_drafts, zero)
+        x, _, _ = forward_mixed_step(
+            spec, self.params, tokens, ctx, qlens, self.kv.k_pages,
+            self.kv.v_pages, table, return_hidden_all=True)
+        logits = unembed(spec, self.params, x)                   # [B, kd+1, V]
+        sampling = SamplingParams(self._temps, self._top_k, self._top_p,
+                                  self._min_p)
+        p_probs = masked_sampling_probs(logits, sampling, needs_mask)
+        if needs_noise:
+            u = torch.rand((b, kd), generator=self._gen, device=dev)
+            noise = gumbel_noise((b, spec.vocab_size), self._gen, dev)
+        else:
+            u, noise = torch.zeros((b, kd), device=dev), None
+        valid = torch.arange(kd, device=dev)[None, :] < n_drafts[:, None]
+        qz = torch.where(valid[:, :, None], q_probs,
+                         torch.zeros_like(q_probs))
+        n_acc, final, _ = rejection_accept(
+            p_probs, qz, drafts, self._temps <= 0.0, u, noise, valid=valid)
+        cand = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+        cand = cand.scatter(1, n_acc.long()[:, None], final[:, None])
+        # the untempered logprob at each position, as the sampler reports
+        lp_all = torch.log_softmax(logits.float(), dim=-1)
+        lp_cand = torch.gather(lp_all, 2, cand.long()[:, :, None])[..., 0]
+        toks, lps = [], []
+        for j in range(kd + 1):
+            tok_j = cand[:, j]
+            # a row past its accepted run stays active but emits nothing:
+            # its stale done conditions must not retire it
+            em = active & (j <= n_acc)
+            produced = produced + em.to(torch.int32)
+            hit_eos = (tok_j == self._eos) & (self._eos >= 0)
+            new_len = lengths + em.to(torch.int32)
+            done = hit_eos | (produced >= self._max_new) | (new_len >= self._cap)
+            if use_stops:
+                done = done | ((tok_j[:, None] == self._stops_dev)
+                               & (self._stops_dev >= 0)).any(dim=-1)
+            active = active & ~(em & done)
+            last = torch.where(em, tok_j, last)
+            lengths = new_len
+            toks.append(torch.where(em, tok_j, torch.full_like(tok_j, -1)))
+            lps.append(torch.where(em, lp_cand[:, j],
+                                   torch.zeros_like(lp_cand[:, j])))
+        packed = torch.cat([
+            torch.stack(toks), torch.stack(lps).view(torch.int32),
+            active[None].to(torch.int32), lengths[None], self._firsts_dev,
+            n_acc[None]], dim=0).reshape(-1)
+        for dst, src in zip(self._state(), (lengths, last, active,
+                                             produced)):
+            dst.copy_(src)
+        return packed
+
     def step(self) -> int:
         """One engine iteration: admit, advance the chunked prefills, then
         one decode chunk — or, on a ragged engine with prompts
@@ -1187,16 +1306,27 @@ class ContinuousEngine:
             # a deferred chunk whose processing freed the last live slots
             # leaves the next one pending with no current snapshot entry:
             # processing it would be a no-op, so drop it
+            if self._pending is not None:
+                self._inflight_chunks = max(0, self._inflight_chunks - 1)
             self._pending = None
             self._ring.clear()
             return len(self._prefilling)
         self._steps += 1
         self._occupancy_sum += len(self._slots)
+        if self.speculator is not None:
+            # the step top is the one gap where the host state IS the
+            # device frontier: draft proposals happen here (the overlap
+            # hook's calls, a chunk in flight, only catch caches up)
+            self.speculator.schedule()
         # capacity: grow every slot toward a full chunk (two under
         # defer_sync: the device may be a chunk past the host's lengths);
         # one that can't fit another token finishes with "length"
         n_steps = self.config.decode_steps_per_call
         ahead = 2 * n_steps if self._defer else n_steps
+        if self.speculator is not None:
+            # a verify window writes K/V at [L, L + k + 1): a smaller grant
+            # would write through stale table entries into other slots
+            ahead = max(ahead, self.speculator.k + 1)
         retired: List[int] = []
         for slot in list(self._slots):
             cur = int(self._lengths_host[slot])
@@ -1220,6 +1350,13 @@ class ContinuousEngine:
                 self._stream_clamped_chunks += 1
         if not self._slots or n_steps <= 0:
             return self.n_live
+        if self.speculator is not None:
+            ver = self.speculator.take_verifiable()
+            if ver is not None:
+                # fresh proposals: this step verifies them instead of a
+                # plain decode chunk
+                self._step_verify(*ver)
+                return self.n_live
 
         t0 = time.perf_counter()
         entry = self._decode_chunk(n_steps, self._cap_list(), t0)
@@ -1386,6 +1523,7 @@ class ContinuousEngine:
         table = self.kv.page_table
         packed = self._run(key, lambda: self._mixed_body(
             buf, qb, key[3], needs_mask, needs_noise, table))
+        self._inflight_chunks += 1
         return _ChunkEntry(packed, 1, dict(self._slots), t0, caps,
                            fresh_firsts=True, key=key)
 
@@ -1528,6 +1666,8 @@ class ContinuousEngine:
         device retired, retire host-side stops, revive slots paused at the
         chunk's capacity grant (``entry.caps``)."""
         self._harvest_chunk(entry)
+        # counted at dispatch; processed once an entry
+        self._inflight_chunks = max(0, self._inflight_chunks - 1)
         n_steps = entry.n_steps
         b = self.max_slots
         rows = entry.host[: (2 * n_steps + 4) * b].reshape(
@@ -1606,6 +1746,7 @@ class ContinuousEngine:
         n = len(self._waiting) + len(self._slots) + len(self._prefilling)
         self._pending = None            # an unprocessed deferred chunk
         self._ring.clear()              # and its stream-ring entry
+        self._inflight_chunks = 0
         self._waiting.clear()
         for slot in list(self._slots) + list(self._prefilling):
             self._slots.pop(slot, None)
@@ -1625,6 +1766,7 @@ class ContinuousEngine:
         (``torch.cuda.empty_cache``) once the last reference is gone."""
         self.abort_all()
         self.overlap_hook = None
+        self.speculator = None
         self._graphs.clear()
         self._graph_pool = None
         self._mixed_inputs.clear()
@@ -1746,6 +1888,17 @@ class ContinuousEngine:
             "stream_ring_depth": self._ring_high_water,
             "stream_clamped_chunks": self._stream_clamped_chunks,
             "firsts_fetches": self._firsts_fetches,
+            # async speculation: zeros when the drafter is off, as in JAX
+            **{f"spec_async_{k}": v for k, v in (
+                self.speculator.get_metrics()
+                if self.speculator is not None else {
+                    "drafted_tokens": 0, "accepted_tokens": 0,
+                    "wasted_tokens": 0, "catchup_tokens": 0,
+                    "accept_rate": 0.0, "draft_rounds": 0,
+                    "propose_rounds": 0, "auto_idles": 0,
+                    "bubble_consumed_s": 0.0, "draft_cost_ema_s": 0.0,
+                    "pending": 0}).items()},
+            "spec_async_verify_steps": self._spec_verify_steps,
             # the host-gap split (JAX's keys)
             "dispatch_s_total": self._dispatch_s,
             "host_gap_s_total": self._host_gap_s,

@@ -117,6 +117,24 @@ def find_stop_cut(tokens: List[int], req: "GenerationRequest",
     return cut
 
 
+def scan_host_stops(out_tokens: List[List[int]], requests, act_host,
+                    scanned: List[int]) -> List[int]:
+    """The static and speculative decode loops' host stop scan, after each
+    chunk: for each still-active request with ``stop_ids`` or
+    ``stop_sequences``, check its newly appended tokens; matched rows are
+    cleared in ``act_host`` (the loop condition) and returned, so the
+    caller clears their device flags in one write. ``scanned`` holds each
+    request's resume offset, advanced here."""
+    stopped: List[int] = []
+    for i, r in enumerate(requests):
+        if act_host[i] and (r.stop_ids or r.stop_sequences):
+            if find_stop_cut(out_tokens[i], r, start=scanned[i]) >= 0:
+                stopped.append(i)
+                act_host[i] = False
+        scanned[i] = len(out_tokens[i])
+    return stopped
+
+
 def trim_at_stops(tokens: List[int], req: "GenerationRequest"
                   ) -> Tuple[List[int], bool]:
     """Cap at ``max_new_tokens`` and cut at the EARLIEST stop condition,

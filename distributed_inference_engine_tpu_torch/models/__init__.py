@@ -85,7 +85,8 @@ def fake_engine_from_config(cfg):
     ``models/fake.py`` from the JAX factory's metadata keys. ``continuous``
     gives the pumped ``FakeContinuousEngine``, else the batch
     ``FakeEngine``; ``load_sleep_s`` models a load's cost on the loader's
-    clock. The prefill role and the speculation model raise."""
+    clock; ``spec_async`` and its knobs, the speculation model. The
+    prefill role raises."""
     import time
 
     from .fake import FakeContinuousEngine, FakeEngine
@@ -94,9 +95,6 @@ def fake_engine_from_config(cfg):
     if md.get("role") == "prefill":
         raise NotImplementedError("the disaggregated prefill role is not "
                                   "ported to PyTorch yet (ROADMAP.md A10)")
-    if _coerce(False, md.get("spec_async", False)):
-        raise NotImplementedError("spec_async (async speculation) is not "
-                                  "ported to PyTorch yet (ROADMAP.md A12)")
     load_sleep = float(md.get("load_sleep_s", 0) or 0)
     if load_sleep:
         time.sleep(load_sleep)
@@ -114,7 +112,11 @@ def fake_engine_from_config(cfg):
             prefix_page_size=int(md.get("prefix_page_size", 64)),
             stream_chunk_tokens=int(md.get("stream_chunk_tokens", 0)),
             stream_dispatch_overhead_s=float(
-                md.get("stream_dispatch_overhead_s", 0.0)))
+                md.get("stream_dispatch_overhead_s", 0.0)),
+            spec_async=_coerce(False, md.get("spec_async", False)),
+            spec_max_draft=int(md.get("spec_max_draft", 4)),
+            spec_accept_rate=float(md.get("spec_accept_rate", 0.7)),
+            spec_bubble_floor_s=float(md.get("spec_bubble_floor_s", 0.0)))
     return FakeEngine(
         latency_s=float(md.get("latency_s", 0.0)),
         per_token_latency_s=float(md.get("per_token_latency_s", 0.0)),
@@ -138,8 +140,8 @@ def engine_config(cfg):
 
 
 def engine_from_config(cfg, device="cuda"):
-    """``ModelConfig`` -> ``ContinuousEngine`` on ``device``, in the JAX
-    factory's order of branches:
+    """``ModelConfig`` -> an engine on ``device``, in the JAX factory's
+    order of branches:
 
     1. metadata ``artifact=<dir>``: a committed serving artifact whose
        feature hash matches restores the prepared tree
@@ -161,12 +163,19 @@ def engine_from_config(cfg, device="cuda"):
     a time as they are read, so ``quantize_s`` holds the rest: the LM
     head), and draws a random one born quantized
     (``models/base.py:random_quantized_params``). After a slow-path build
-    with ``artifact=``, the artifact is (re)written, best-effort. The
-    engine metadata keys configure the engine; what the port lacks raises
-    ``NotImplementedError``. ``architecture="fake"`` builds a fake engine
+    with ``artifact=``, the artifact is (re)written, best-effort.
+
+    The engine: ``speculative=K`` builds a ``SpeculativeEngine`` whose
+    draft is ``draft_path`` (an HF checkpoint) or the random ``draft_size``
+    spec of the same family; else ``continuous=1`` a ``ContinuousEngine``
+    and ``continuous=0`` the static ``Engine``. A speculative deploy is not
+    artifact-eligible (JAX's rule): ``artifact=`` is ignored with a
+    warning, or raises with ``artifact_required=1``. The engine metadata
+    keys configure the engine; what the port lacks raises
+    ``NotImplementedError`` naming its ROADMAP.md item.
+    ``architecture="fake"`` builds a fake engine
     (``fake_engine_from_config``). ``engine.load_info`` records the
     load's source and phases."""
-    from ..engine.continuous import ContinuousEngine
 
     arch = cfg.architecture.lower()
     if arch == "fake":
@@ -180,24 +189,43 @@ def engine_from_config(cfg, device="cuda"):
     bits = int(md.get("weight_bits", 8) or 8)
     if cfg.quantized and bits not in (4, 8):
         raise ValueError(f"weight_bits must be 4 or 8, got {bits}")
-    if any(int(md.get(k, 1) or 1) > 1 for k in ("tp", "sp", "dp")):
+    spec_k = int(md.get("speculative", 0) or 0)
+    tp, sp, dp = (int(md.get(k, 1) or 1) for k in ("tp", "sp", "dp"))
+    if spec_k and (sp > 1 or dp > 1):
+        raise ValueError(
+            "speculative decoding composes with tp only (target "
+            "sharded, draft replicated); sp/dp shard the prefill "
+            "batch/sequence, which the speculative window forwards "
+            "do not — drop sp/dp or deploy replicas via the load "
+            "balancer")
+    if spec_k and tp > 1:
+        no("speculative decoding with tp", "A13")
+    if max(tp, sp, dp) > 1:
         no("tp/sp/dp parallel serving", "A13")
-    if int(md.get("speculative", 0) or 0):
-        no("speculative decoding", "A12")
     if md.get("role") == "prefill":
         no("the disaggregated prefill role", "A10")
-    if not _coerce(False, md.get("continuous", False)):
-        no("the static engine (continuous=0)", "A8")
 
     ecfg = engine_config(cfg)
     seed = int(md.get("seed", 0) or 0)
+    continuous = bool(_coerce(False, md.get("continuous", False)))
 
     art = str(md.get("artifact", "") or "")
     art_required = bool(_coerce(False, md.get("artifact_required", False)))
     art_selfcheck = bool(_coerce(True, md.get("artifact_selfcheck", True)))
+    if art and spec_k:
+        if art_required:
+            raise ValueError(
+                "artifact_required is set but this deploy is not "
+                "artifact-eligible: mesh/speculative/prefill engines "
+                "cannot cold-start from a serving artifact")
+        logger.warning(
+            "artifact metadata ignored for model %s: only single-host "
+            "Engine/ContinuousEngine deploys cold-start from artifacts",
+            cfg.name)
+        art = ""
     if art:
         eng = _from_artifact(cfg, art, ecfg, seed, device, art_required,
-                             art_selfcheck)
+                             art_selfcheck, continuous)
         if eng is not None:
             return eng
 
@@ -251,8 +279,12 @@ def engine_from_config(cfg, device="cuda"):
         _sync(device)
         info["quantize_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    eng = ContinuousEngine(spec, params=params, config=ecfg, seed=seed,
-                           device=device)
+    if spec_k:
+        eng = _speculative_engine(cfg, arch, spec, params, ecfg, spec_k,
+                                  seed, device)
+    else:
+        eng = _engine_class(continuous)(spec, params=params, config=ecfg,
+                                        seed=seed, device=device)
     del params                 # the engine holds the prepared tree
     _sync(device)
     info["engine_s"] = time.perf_counter() - t0
@@ -264,6 +296,52 @@ def engine_from_config(cfg, device="cuda"):
     return eng
 
 
+def _engine_class(continuous: bool):
+    """The continuous engine, or the static one (``continuous=0``)."""
+    if continuous:
+        from ..engine.continuous import ContinuousEngine
+
+        return ContinuousEngine
+    from ..engine.engine import Engine
+
+    return Engine
+
+
+def _speculative_engine(cfg, arch: str, spec, params, ecfg, spec_k: int,
+                        seed: int, device):
+    """The speculative branch (JAX's order and errors): metadata
+    ``draft_size`` (a spec of the architecture's family, random weights)
+    and/or ``draft_path`` (an HF checkpoint directory, which wins)."""
+    from ..engine.speculative import SpeculativeEngine
+
+    md = cfg.metadata
+    draft_size = md.get("draft_size", "")
+    if not draft_size and not md.get("draft_path"):
+        raise ValueError(
+            "speculative decoding needs metadata draft_size and/or "
+            "draft_path")
+    draft_path = md.get("draft_path", "")
+    if draft_path and not os.path.isdir(draft_path):
+        # a typo'd checkpoint must not fall back to a random-weight draft
+        raise ValueError(f"draft_path {draft_path!r} is not a directory")
+    if draft_path:
+        from .loader import load_checkpoint, spec_from_hf_config
+
+        d_spec = spec_from_hf_config(draft_path)
+        d_spec = d_spec.replace(max_seq_len=min(cfg.max_seq_len,
+                                                d_spec.max_seq_len))
+        d_params = load_checkpoint(draft_path, d_spec, device=device)
+    else:
+        d_spec = spec_for_architecture(arch, size=draft_size,
+                                       max_seq_len=cfg.max_seq_len)
+        if cfg.dtype:
+            d_spec = d_spec.replace(dtype=cfg.dtype)
+        d_params = None
+    return SpeculativeEngine(spec, d_spec, params=params,
+                             draft_params=d_params, config=ecfg,
+                             speculate_k=spec_k, seed=seed, device=device)
+
+
 def _sync(device) -> None:
     """Wait for ``device``'s queued work, so a phase's seconds hold it."""
     if torch.device(device).type == "cuda":
@@ -271,10 +349,10 @@ def _sync(device) -> None:
 
 
 def _from_artifact(cfg, art: str, ecfg, seed: int, device,
-                   required: bool, selfcheck: bool):
-    """The artifact fast path: an engine restored from ``art``, or None
-    (no committed artifact, or one that failed a check) for the slow path.
-    With ``required`` every failure raises."""
+                   required: bool, selfcheck: bool, continuous: bool):
+    """The artifact fast path: a continuous or static engine restored from
+    ``art``, or None (no committed artifact, or one that failed a check)
+    for the slow path. With ``required`` every failure raises."""
     from ..engine.artifact import (
         ArtifactCorruptError,
         ArtifactError,
@@ -283,8 +361,6 @@ def _from_artifact(cfg, art: str, ecfg, seed: int, device,
         has_artifact,
         load_manifest,
     )
-    from ..engine.continuous import ContinuousEngine
-
     if not has_artifact(art):
         if required:
             raise ArtifactCorruptError(
@@ -299,8 +375,9 @@ def _from_artifact(cfg, art: str, ecfg, seed: int, device,
                 f"artifact {art} was built for a different deploy config "
                 "(feature hash differs) — refusing to serve it")
         t0 = time.perf_counter()
-        eng = ContinuousEngine(None, config=ecfg, seed=seed, device=device,
-                               artifact_path=art, artifact_selfcheck=selfcheck)
+        eng = _engine_class(continuous)(
+            None, config=ecfg, seed=seed, device=device, artifact_path=art,
+            artifact_selfcheck=selfcheck)
         _sync(device)
         eng.load_info.update(source="artifact",
                              engine_s=time.perf_counter() - t0)
@@ -322,15 +399,19 @@ def _refresh_artifact(path: str, cfg, engine, probe: bool = True) -> None:
     logged, never raised (the engine just built serves either way; the
     next boot pays the slow path again)."""
     from ..engine.artifact import save_artifact
-    from ..engine.continuous import _pow2_buckets
+    from ..engine.engine import _pow2_buckets
 
     t0 = time.perf_counter()
     try:
-        # every admission batch bucket the engine serves: a cold start
-        # warms them all (warmup_from_manifest)
-        buckets = {"batch": _pow2_buckets(engine.max_slots),
-                   "prefill": [int(x) for x in engine.prefill_buckets],
-                   "seq": []}
+        # every batch bucket the engine serves (the static engine's own;
+        # the continuous engine's admission buckets): a cold start warms
+        # them all (warmup_from_manifest)
+        buckets = {
+            "batch": [int(x) for x in (
+                getattr(engine, "batch_buckets", None)
+                or _pow2_buckets(engine.max_slots))],
+            "prefill": [int(x) for x in engine.prefill_buckets],
+            "seq": [int(x) for x in getattr(engine, "seq_buckets", [])]}
         save_artifact(path, engine.spec, engine.params, cfg=cfg,
                       buckets=buckets, engine=engine if probe else None,
                       stats=engine.load_info)

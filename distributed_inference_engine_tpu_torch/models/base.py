@@ -18,6 +18,13 @@ and the decode chunk's page flush (``write_pages_device``) compute theirs
 on the device instead, since only the device knows which slots still
 write, and so that they run inside a CUDA graph.
 
+The static and speculative engines decode over dense caches ``[L, B, S,
+Hkv, Dh]`` (``forward_decode``, ``forward_window``), made by
+``dense_kv_cache`` with one spare row past their end: a write the JAX
+scatter drops (a position past ``S``, a window slot past ``n_valid``) is
+aimed at that row, since an out-of-range ``index_put_`` raises, or
+asserts on the card.
+
 Pools may be e4m3 or e5m2 (``kv_dtype="float8_e4m3fn"`` or
 ``"float8_e5m2"``; the compute dtype stays fp32, bf16 or fp16). Every pool
 write rounds through ``astype_kv``, the JAX cast (e4m3's overflow to NaN,
@@ -62,6 +69,7 @@ from ..ops.attention import (
     E5M2,
     FP8,
     astype_kv,
+    cached_attention,
     causal_attention,
     merge_attention,
     raw_view,
@@ -901,6 +909,114 @@ def forward_mixed_step(
         return x, k_pages, v_pages
     last = x[torch.arange(r, device=dev), torch.clamp(ql.long() - 1, min=0)]
     return last, k_pages, v_pages
+
+
+# ------------------------------------------------------ dense-cache decode
+
+
+def dense_kv_cache(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """A zeroed dense KV cache ``[L, B, S, Hkv, Dh]`` (the static and
+    speculative engines' layout) whose storage holds one spare row of
+    ``Hkv * Dh`` past its end: the target of ``forward_decode``'s and
+    ``forward_window``'s dropped writes (the JAX scatters' out-of-range
+    ``mode="drop"``), which no read of the cache reaches."""
+    L, b, s, hkv, dh = shape
+    rows = torch.zeros((L * b * s + 1, hkv * dh * dtype.itemsize),
+                       dtype=torch.uint8, device=device).view(dtype)
+    return rows[:-1].view(L, b, s, hkv, dh)
+
+
+def _cache_rows(cache: torch.Tensor) -> torch.Tensor:
+    """A ``dense_kv_cache`` as its rows ``[L * B * S + 1, Hkv * Dh]``, the
+    spare row last (a view: writes land in the cache)."""
+    L, b, s, hkv, dh = cache.shape
+    n, fused = L * b * s, hkv * dh
+    need = (cache.storage_offset() + (n + 1) * fused) * cache.element_size()
+    if not cache.is_contiguous() or cache.untyped_storage().nbytes() < need:
+        raise ValueError("a dense KV cache needs its spare row for dropped "
+                         "writes: make it with dense_kv_cache")
+    return cache.as_strided((n + 1, fused), (fused, 1))
+
+
+def _write_dense(rows: torch.Tensor, fresh: torch.Tensor, layer: int,
+                 b: int, s: int, pos: torch.Tensor, valid: torch.Tensor
+                 ) -> None:
+    """Write ``fresh`` [B, W, Hkv, Dh] at ``(layer, b, pos[b, w])`` of a
+    cache's rows, rounded into its dtype (the JAX cast); a position that
+    is not ``valid`` or lies past ``S`` goes to the spare row."""
+    w = pos.shape[1]
+    keep = valid & (pos >= 0) & (pos < s)
+    base = (layer * b + torch.arange(b, device=pos.device))[:, None] * s
+    idx = torch.where(keep, base + pos.long(),
+                      torch.full_like(pos, rows.shape[0] - 1, dtype=torch.long))
+    vals = astype_kv(fresh.reshape(b * w, rows.shape[1]), rows.dtype)
+    raw_view(rows).index_put_((idx.reshape(-1),), raw_view(vals))
+
+
+def forward_window(spec: ModelSpec, params: Params, tokens: torch.Tensor,
+                   n_valid: torch.Tensor, start: torch.Tensor,
+                   cache_k: torch.Tensor, cache_v: torch.Tensor):
+    """The W-token verify and catch-up step over a dense cache (the JAX
+    ``forward_window``): window token i of slot b sits at position
+    ``start[b] + i``; each layer writes the window's K/V into the cache
+    (slots ``i >= n_valid[b]`` and positions past ``S`` dropped), then
+    attends to the cache before ``start`` plus the causal window, its own
+    K/V unrounded (``suffix_attention``). Returns (logits [B, W, V] fp32,
+    cache_k, cache_v), the caches (``dense_kv_cache``) updated in place.
+    Position i of the logits is the next-token distribution after window
+    token i."""
+    b, w = tokens.shape
+    s = cache_k.shape[2]
+    dev = tokens.device
+    start = _device_ints(start, dev)
+    n_valid = _device_ints(n_valid, dev)
+    ar = torch.arange(w, device=dev)[None, :]
+    positions = start[:, None].long() + ar
+    valid = ar < n_valid[:, None]
+    x = embed(spec, params, tokens, positions)
+    k_rows, v_rows = _cache_rows(cache_k), _cache_rows(cache_v)
+    for layer in range(cache_k.shape[0]):
+        blk = layer_view(params, layer)
+        h = _norm(spec, x, blk["ln1_scale"], blk.get("ln1_bias"))
+        q, k, v = _qkv(spec, blk, h, positions)
+        _write_dense(k_rows, k, layer, b, s, positions, valid)
+        _write_dense(v_rows, v, layer, b, s, positions, valid)
+        attn = suffix_attention(
+            q, cache_k[layer].to(q.dtype), cache_v[layer].to(q.dtype),
+            start, k, v, n_valid, window=spec.sliding_window)
+        x = x + _out_proj(spec, blk, attn)
+        x = x + _mlp(spec, blk, _norm(spec, x, blk["ln2_scale"],
+                                      blk.get("ln2_bias")))
+    return unembed(spec, params, x), cache_k, cache_v
+
+
+def forward_decode(spec: ModelSpec, params: Params, tokens: torch.Tensor,
+                   lengths: torch.Tensor, cache_k: torch.Tensor,
+                   cache_v: torch.Tensor, *, fused: bool = False):
+    """One decode step over a dense cache (the JAX ``forward_decode``):
+    each layer writes every slot's fresh K/V at position ``lengths[b]``
+    (past ``S``: dropped), then attends over the slot's ``lengths + 1``
+    stored keys (``cached_attention``, windowed by the spec). ``fused``
+    takes the fused decode seams, as in JAX. Returns (hidden [B, D],
+    cache_k, cache_v), the caches (``dense_kv_cache``) updated in place.
+    Lengths stay on the device: no host read."""
+    b = tokens.shape[0]
+    s = cache_k.shape[2]
+    positions = lengths[:, None].long()
+    x = embed(spec, params, tokens[:, None], positions)
+    k_rows, v_rows = _cache_rows(cache_k), _cache_rows(cache_v)
+    valid = torch.ones((b, 1), dtype=torch.bool, device=tokens.device)
+    lens1 = lengths + 1
+    for layer in range(cache_k.shape[0]):
+        blk = layer_view(params, layer)
+        q, k, v = _qkv_norm(spec, blk, x, positions, fused=fused)
+        _write_dense(k_rows, k, layer, b, s, positions, valid)
+        _write_dense(v_rows, v, layer, b, s, positions, valid)
+        attn = cached_attention(q, cache_k[layer], cache_v[layer], lens1,
+                                window=spec.sliding_window)
+        x = _out_residual(spec, blk, attn, x, fused=fused)
+        x = _mlp_residual(spec, blk, x, fused=fused)
+    return x[:, 0, :], cache_k, cache_v
 
 
 def write_prefill_pages(k_pages: torch.Tensor, v_pages: torch.Tensor,

@@ -11,8 +11,9 @@ model.
   output does not depend on which worker serves a request, and a replay
   of prompt plus generated prefix continues with the same tokens.
 
-The JAX fakes' KV-fabric hooks, disaggregated prefill and speculation
-model belong to features the port does not carry (ROADMAP.md A10, A12);
+``FakeContinuousEngine`` also carries the JAX fake's async-speculation
+model (``spec_async``). The JAX fakes' KV-fabric hooks and disaggregated
+prefill belong to features the port does not carry (ROADMAP.md A10);
 ``models/__init__.py`` raises for their metadata.
 """
 
@@ -111,7 +112,15 @@ class FakeContinuousEngine:
     uncached prompt token, with ``prefix_cache`` crediting page-aligned
     prompt heads already admitted. ``stream_chunk_tokens`` splits a step
     into sub-chunks while a live slot streams, each extra one costing
-    ``stream_dispatch_overhead_s``."""
+    ``stream_dispatch_overhead_s``.
+
+    ``spec_async`` models the async drafter (the JAX fake's model): the
+    step's host bubble is its idle-slot share, ``(1 - live / max_slots) *
+    step_latency_s``; when a streaming slot exists and the bubble clears
+    ``spec_bubble_floor_s``, each streaming slot gains an accept credit of
+    ``spec_max_draft * spec_accept_rate`` a step and emits its whole
+    credits (at most ``spec_max_draft``) as extra chain tokens at no added
+    wall time; else the step counts an auto-idle."""
 
     def __init__(self, step_latency_s: float = 0.0, tokens_per_step: int = 1,
                  max_slots: int = 8, max_waiting: int = 0,
@@ -119,7 +128,10 @@ class FakeContinuousEngine:
                  admit_latency_per_token_s: float = 0.0,
                  prefix_cache: bool = False, prefix_page_size: int = 64,
                  stream_chunk_tokens: int = 0,
-                 stream_dispatch_overhead_s: float = 0.0) -> None:
+                 stream_dispatch_overhead_s: float = 0.0,
+                 spec_async: bool = False, spec_max_draft: int = 4,
+                 spec_accept_rate: float = 0.7,
+                 spec_bubble_floor_s: float = 0.0) -> None:
         self.config = FakeEngineConfig(
             max_waiting=int(max_waiting),
             queue_deadline_s=float(queue_deadline_s))
@@ -128,6 +140,16 @@ class FakeContinuousEngine:
         self.stream_chunk_tokens = max(0, int(stream_chunk_tokens))
         self.stream_dispatch_overhead_s = float(stream_dispatch_overhead_s)
         self._stream_sub_chunks = 0
+        self.spec_async = bool(spec_async)
+        self.spec_max_draft = max(1, int(spec_max_draft))
+        self.spec_accept_rate = min(1.0, max(0.0, float(spec_accept_rate)))
+        self.spec_bubble_floor_s = float(spec_bubble_floor_s)
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._spec_wasted = 0
+        self._spec_rounds = 0
+        self._spec_auto_idles = 0
+        self._spec_bubble_s = 0.0
         self.max_slots = max(1, int(max_slots))
         self.vocab_size = max(2, int(vocab_size))
         self.admit_latency_per_token_s = float(admit_latency_per_token_s)
@@ -227,7 +249,8 @@ class FakeContinuousEngine:
             state = 0
             for tok in req.prompt:
                 state = _chain(state, tok)
-            self._live.append([req, cb, t, state, []])
+            # the trailing 0.0: the slot's speculation accept credit
+            self._live.append([req, cb, t, state, [], 0.0])
         if not self._live:
             return 0
         # sub-chunks only while a live slot streams
@@ -243,6 +266,28 @@ class FakeContinuousEngine:
         t_step = time.perf_counter()
         self._steps += 1
         had = {id(s): bool(s[4]) for s in self._live}
+        # the draft rounds, decided once a step; a slot's extra tokens ride
+        # its first sub-chunk
+        spec_extra: Dict[int, int] = {}
+        if self.spec_async:
+            bubble = ((1.0 - len(self._live) / self.max_slots)
+                      * self.step_latency_s)
+            streaming = [s for s in self._live if s[1] is not None]
+            if streaming and bubble >= self.spec_bubble_floor_s:
+                k = self.spec_max_draft
+                self._spec_bubble_s += bubble
+                for slot in streaming:
+                    slot[5] += k * self.spec_accept_rate
+                    extra = min(int(slot[5]), k)
+                    slot[5] -= extra
+                    self._spec_rounds += 1
+                    self._spec_drafted += k
+                    self._spec_accepted += extra
+                    self._spec_wasted += k - extra
+                    if extra:
+                        spec_extra[id(slot)] = extra
+            else:
+                self._spec_auto_idles += 1
         done_slots: set = set()
         now = t_step
         for si, budget in enumerate(sizes):
@@ -257,10 +302,10 @@ class FakeContinuousEngine:
                 key = id(slot)
                 if key in done_slots:
                     continue
-                req, cb, t, state, toks = slot
+                req, cb, t, state, toks = slot[:5]
                 fresh: List[int] = []
                 done = False
-                for _ in range(budget):
+                for _ in range(budget + spec_extra.pop(key, 0)):
                     nxt = state % self.vocab_size
                     state = _chain(state, nxt)
                     toks.append(nxt)
@@ -339,6 +384,22 @@ class FakeContinuousEngine:
             "prefix_cached_tokens": self._prefix_cached_tokens,
             "admit_sleep_s": self._admit_sleep_s,
             "stream_sub_chunks": self._stream_sub_chunks,
+            # the real engine's spec_async_* family; a fake draft round is
+            # its own verify step
+            "spec_async_drafted_tokens": self._spec_drafted,
+            "spec_async_accepted_tokens": self._spec_accepted,
+            "spec_async_wasted_tokens": self._spec_wasted,
+            "spec_async_catchup_tokens": 0,
+            "spec_async_accept_rate": (
+                self._spec_accepted / self._spec_drafted
+                if self._spec_drafted else 0.0),
+            "spec_async_draft_rounds": self._spec_rounds,
+            "spec_async_propose_rounds": self._spec_rounds,
+            "spec_async_auto_idles": self._spec_auto_idles,
+            "spec_async_bubble_consumed_s": self._spec_bubble_s,
+            "spec_async_draft_cost_ema_s": 0.0,
+            "spec_async_pending": 0,
+            "spec_async_verify_steps": self._spec_rounds,
             "ttft": self.ttft_stats.snapshot(),
             "decode_chunk": self.step_stats.snapshot(),
             "spec": {"fake": True, "continuous": True},

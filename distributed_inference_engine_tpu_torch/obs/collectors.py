@@ -7,11 +7,13 @@ The tables hold the families the port fills. The JAX catalog's others
 belong to modules the port does not carry, and the port's exposition
 leaves them out rather than printing empty families for them: the
 coordinator, batcher, cache, router, load balancer, registry, autoscaler,
-upgrade and SLO families (the host plane), the speculation families
-(A12), the host KV tier and fabric families (A10), fault injection and
-the disaggregated handoff. The artifact families (``worker_artifact_hits``,
-``worker_artifact_misses``) are filled since the serving artifacts were
-ported (A11).
+upgrade and SLO families (the host plane), the host KV tier and fabric
+families (A10), fault injection and the disaggregated handoff. The
+artifact families (``worker_artifact_hits``, ``worker_artifact_misses``)
+are filled since the serving artifacts were ported (A11); the speculative
+engine's and the async drafter's (``engine_spec_*``), and the static
+engine's ``engine_decode_seconds``, since speculation and the static
+engine were (A12, A8).
 
 Per-engine families (``engine_*``, ``kv_*``, ``pump_*``) carry ``model``
 and ``worker_id``; ``worker_*`` families carry ``worker_id``.
@@ -60,6 +62,8 @@ ENGINE_TABLE = [
      "Admissions that prefill in chunks"),
     ("deferred_admissions", "engine_deferred_admissions", "c",
      "Admissions whose first-token read was deferred"),
+    ("rounds", "engine_spec_rounds", "c",
+     "Speculative target+draft verification rounds"),
     ("waiting", "engine_waiting", "g", "Requests in the waiting queue"),
     ("live_slots", "engine_live_slots", "g", "Decoding slots right now"),
     ("prefilling_slots", "engine_prefilling_slots", "g",
@@ -74,6 +78,37 @@ ENGINE_TABLE = [
      "Host seconds between consecutive dispatch brackets"),
     ("host_bubble_frac", "engine_host_bubble_fraction", "g",
      "Host gap share of dispatch+gap wall (roofline split)"),
+    ("speculate_k", "engine_spec_k", "g", "Draft tokens proposed per round"),
+    ("draft_acceptance_rate", "engine_spec_draft_acceptance_rate", "g",
+     "Accepted / proposed draft tokens"),
+    ("tokens_per_round", "engine_spec_tokens_per_round", "g",
+     "Mean tokens emitted per speculative round"),
+    ("spec_async_drafted_tokens", "engine_spec_async_drafted_tokens", "c",
+     "Draft tokens proposed by the async bubble drafter"),
+    ("spec_async_accepted_tokens", "engine_spec_async_accepted_tokens", "c",
+     "Async draft tokens accepted and emitted by verify"),
+    ("spec_async_wasted_tokens", "engine_spec_async_wasted_tokens", "c",
+     "Async draft tokens discarded (rejected, stale, or clipped)"),
+    ("spec_async_catchup_tokens", "engine_spec_async_catchup_tokens", "c",
+     "Tokens re-forwarded to catch the draft KV cache up"),
+    ("spec_async_accept_rate", "engine_spec_async_accept_rate", "g",
+     "Accepted / drafted async speculation tokens"),
+    ("spec_async_draft_rounds", "engine_spec_async_draft_rounds", "c",
+     "Async draft dispatches (catch-up or propose)"),
+    ("spec_async_propose_rounds", "engine_spec_async_propose_rounds", "c",
+     "Async draft dispatches that proposed draft tokens"),
+    ("spec_async_auto_idles", "engine_spec_async_auto_idles", "c",
+     "Scheduler passes skipped: bubble below spec_bubble_floor_s"),
+    ("spec_async_bubble_consumed_s", "engine_spec_async_bubble_"
+     "consumed_seconds", "c",
+     "Host seconds the drafter spent inside the megastep bubble"),
+    ("spec_async_draft_cost_ema_s", "engine_spec_async_draft_cost_"
+     "ema_seconds", "g",
+     "EMA host cost of one draft round (budget gate input)"),
+    ("spec_async_pending", "engine_spec_async_pending", "g",
+     "Draft proposals awaiting piggybacked verification"),
+    ("spec_async_verify_steps", "engine_spec_async_verify_steps", "c",
+     "Megasteps that carried extra draft verify columns"),
     ("stream_ring_pushes", "engine_stream_ring_pushes", "c",
      "Decode chunks pushed onto the device->host token ring"),
     ("stream_ring_polls", "engine_stream_ring_polls", "c",

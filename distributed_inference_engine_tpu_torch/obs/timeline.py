@@ -12,7 +12,9 @@ brackets it around the profiler's start and stop.
 
 Each step is a complete event (``"ph": "X"``) with microsecond
 ``ts``/``dur`` from the timeline's epoch; ``args`` carry the per-step
-payload.
+payload. ``busy_gap_split`` splits a window of records into time inside
+dispatch brackets and host time between them (the async drafter's
+bubble estimate reads it).
 """
 
 from __future__ import annotations
@@ -103,3 +105,27 @@ class StepTimeline:
             raise
         return path
 
+
+def busy_gap_split(events: List[Dict[str, Any]]) -> Dict[str, float]:
+    """A window of dispatch records split into busy seconds (inside a
+    dispatch bracket) and gap seconds (host time between consecutive
+    brackets; overlapping brackets clamp it at zero). Records without a
+    ``dur`` are skipped. Returns busy_s, gap_s, bubble_frac = gap / (busy +
+    gap), and the count of records split."""
+    spans = sorted((e["t"], e["t"] + e["dur"]) for e in events
+                   if e.get("dur") is not None)
+    busy = 0.0
+    gap = 0.0
+    prev_end: Optional[float] = None
+    for t0, t1 in spans:
+        busy += t1 - t0
+        if prev_end is not None and t0 > prev_end:
+            gap += t0 - prev_end
+        prev_end = max(prev_end, t1) if prev_end is not None else t1
+    total = busy + gap
+    return {
+        "busy_s": busy,
+        "gap_s": gap,
+        "bubble_frac": (gap / total) if total > 0 else 0.0,
+        "n_events": len(spans),
+    }

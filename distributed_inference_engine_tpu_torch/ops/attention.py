@@ -1,5 +1,5 @@
-"""Attention for prefill and the windowed decode (port of
-``ops/attention.py``).
+"""Attention for prefill, the windowed decode and the dense-cache decode
+(port of ``ops/attention.py``).
 
 Prefill attention is plain tensor code in the JAX package (XLA, no
 Pallas), so here it is plain PyTorch too: an einsum for the scores, a
@@ -196,6 +196,32 @@ def merge_attention(parts: Sequence[Tuple[torch.Tensor, torch.Tensor,
     return out.to(dtype or parts[0][0].dtype)
 
 
+def cached_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, lengths: torch.Tensor,
+                     window: int = 0) -> torch.Tensor:
+    """Decode attention of q [B, 1, H, Dh] against a dense cache [B, S,
+    Hkv, Dh], masked to each slot's ``lengths`` live keys (the new token's
+    included) and, with ``window`` > 0, to the last ``window`` of them ->
+    [B, 1, H, Dh] in q's dtype. fp8 caches are widened to q's dtype
+    first; a wider or narrower cache keeps its dtype for the probabilities'
+    product, as the JAX einsum does (the scores promote)."""
+    b, t, h, dh = q.shape
+    s, n_kv = cache_k.shape[1], cache_k.shape[2]
+    cache_k, cache_v = upcast_kv(cache_k, cache_v, q.dtype)
+    qg = _group_query(q, n_kv)
+    dt = torch.promote_types(q.dtype, cache_k.dtype)
+    scores = torch.einsum("bikgd,bjkd->bkgij", qg.to(dt),
+                          cache_k.to(dt)).float() * _scale(dh)
+    pos = torch.arange(s, device=q.device)[None, :]
+    valid = pos < lengths[:, None]                              # [B, S]
+    if window:
+        valid &= pos >= (lengths[:, None] - window)
+    probs = _softmax_masked(scores, valid[:, None, None, None, :])
+    out = torch.einsum("bkgij,bjkd->bikgd", probs.to(cache_v.dtype), cache_v)
+    return out.reshape(b, t, h, dh).to(q.dtype)
+
+
 __all__: List[str] = ["NEG_INF", "FP8", "E5M2", "astype_kv", "is_fp8", "raw_view",
                       "upcast_kv", "causal_attention", "suffix_attention",
-                      "window_decode_attention", "merge_attention"]
+                      "window_decode_attention", "merge_attention",
+                      "cached_attention"]

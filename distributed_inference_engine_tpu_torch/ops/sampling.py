@@ -86,6 +86,38 @@ def _masked_scaled_logits(logits: torch.Tensor, params: SamplingParams,
     return _mask_topk_topp(scaled, params) if needs_mask else scaled
 
 
+def masked_sampling_probs(logits: torch.Tensor, params: SamplingParams,
+                          needs_mask: Optional[bool] = None) -> torch.Tensor:
+    """The sampling distribution ``sample_tokens`` draws from, as
+    probabilities: tempered, top-k/top-p/min-p masked, renormalised.
+    ``logits`` is [B, V] or [B, P, V] (P positions a row, each masked with
+    its row's knobs); params are [B]. Greedy rows come back near one-hot
+    at the argmax."""
+    lg = logits.float()
+    squeeze = lg.dim() == 2
+    if squeeze:
+        lg = lg[:, None, :]
+    b, p, v = lg.shape
+
+    def rep(x: torch.Tensor) -> torch.Tensor:
+        return torch.repeat_interleave(x, p, dim=0)
+
+    flat = SamplingParams(rep(params.temperature), rep(params.top_k),
+                          rep(params.top_p), rep(params.min_p_or_zeros()))
+    masked = _masked_scaled_logits(lg.reshape(b * p, v), flat, needs_mask)
+    probs = torch.softmax(masked, dim=-1).reshape(b, p, v)
+    return probs[:, 0] if squeeze else probs
+
+
+def gumbel_noise(shape, generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """Gumbel noise ``-log(-log(u))`` fp32, u uniform in [1e-20, 1) as
+    ``sample_tokens`` draws it: what a categorical draw (the JAX
+    ``jax.random.categorical``, ``argmax(gumbel + logits)``) adds."""
+    u = torch.rand(shape, generator=generator, device=device) + 1e-20
+    return -torch.log(-torch.log(u))
+
+
 def sample_tokens(logits: torch.Tensor, params: SamplingParams,
                   generator: Optional[torch.Generator] = None,
                   uniform: Optional[torch.Tensor] = None,

@@ -52,19 +52,26 @@ class EnginePump:
         self._model = model
         self._overlap_admitted = 0
         self._stream_frames_polled = 0
+        self._spec_rounds = 0
         self._poll_stream = getattr(engine, "poll_stream", None)
 
         # batch-formation overlap: the engine calls this right after
         # queueing a decode chunk, while the device is busy — the inbox
         # drain runs in the step's shadow, then the stream ring's poll
         # (the previous chunk's copy has had a chunk of device time to
-        # land). Safe: the hook fires inside engine.step(), which only
-        # runs on the pump thread, and it touches the engine only through
-        # submit() and poll_stream().
+        # land), then the async drafter's catch-up round, strictly after
+        # the poll: computed tokens go out before predicted ones, and the
+        # poll commits the state the catch-up reads. Safe: the hook fires
+        # inside engine.step(), which only runs on the pump thread, and it
+        # touches the engine only through submit(), poll_stream() and the
+        # speculator's schedule() (one queued dispatch, no host read).
         def _overlap() -> None:
             self._overlap_admitted += self._drain_inbox()
             if self._poll_stream is not None:
                 self._stream_frames_polled += self._poll_stream()
+            spec = getattr(self.engine, "speculator", None)
+            if spec is not None:
+                self._spec_rounds += spec.schedule()
 
         if hasattr(engine, "overlap_hook"):
             engine.overlap_hook = _overlap
@@ -292,5 +299,8 @@ class EnginePump:
             # streamed frames delivered by the ring polls rather than the
             # deferred flush
             "stream_frames_polled": self._stream_frames_polled,
+            # draft rounds dispatched from the overlap hook (the step-top
+            # propose rounds are the engine's)
+            "spec_overlap_rounds": self._spec_rounds,
             "engine": self.engine.get_metrics(),
         }

@@ -2325,3 +2325,146 @@ def test_factory_cold_start_on_the_card(card, tmp_path, quant):
             for p in _graph_prompts()]
     assert [r.tokens for r in fast.generate(reqs)] == \
         [r.tokens for r in slow.generate(reqs)]
+
+
+# ------------------------------------- static engine and speculation (A8, A12)
+
+# the verify step's lattice (ctx_len, q_len): rows of 1 + 4 queries over
+# contexts of 0 to 1,000, a plain q=1 decode row, two inert rows
+VERIFY_ROWS = [(0, 5), (1, 5), (127, 5), (128, 5), (500, 5), (1000, 5),
+               (63, 1), (0, 0), (300, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,hkv,dh", [(8, 2, 64), (32, 8, 128)])
+def test_ragged_attention_verify_lattice(card, dtype, h, hkv, dh):
+    """Ragged attention at the async verify step's lattice (bf16 on its
+    tensor cores, fp32 on the CUDA cores) against the plain version: the
+    outputs, and the pools equal after the writeback."""
+    g = torch.Generator(device=card).manual_seed(20)
+    rows = VERIFY_ROWS
+    r, p = len(rows), 16
+    mp = -(-max(c + q for c, q in rows) // p)
+    n = r * mp + 4
+    qmax = max(q for _, q in rows)
+    i32 = dict(dtype=torch.int32, device=card)
+    ctx = torch.tensor([c for c, _ in rows], **i32)
+    ql = torch.tensor([q for _, q in rows], **i32)
+    table = torch.randperm(n, generator=g, device=card)[: r * mp].reshape(
+        r, mp).to(torch.int32)
+    q = torch.randn((r, qmax, h, dh), generator=g, device=card).to(dtype)
+    fk = torch.randn((r, qmax, hkv, dh), generator=g, device=card).to(dtype)
+    fv = torch.randn_like(fk)
+    kp = torch.randn((2 * n, p, hkv * dh), generator=g,
+                     device=card).to(dtype)
+    vp = torch.randn_like(kp)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kw = dict(n_kv_heads=hkv, layer=1, n_pages_per_layer=n)
+    inst = "ragged_attention." + ra.ragged_instance(dtype, dtype)
+    before = _cuda.LAUNCHES[inst]
+    out, _, _ = ra.ragged_attention(q, kp, vp, table, ctx, ql, fk, fv, **kw)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[inst] == before + 1
+    ref, _, _ = ra.ragged_attention_plain(q, kp2, vp2, table, ctx, ql, fk,
+                                          fv, **kw)
+    _close(out, ref, dtype)
+    assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
+
+
+# Llama-3-8B's four products at the speculative verify window's rows, M =
+# 8 slots x (k + 1 = 5): q|k|v, o, gate|up, down (bf16: the wgmma
+# instance), and the LM head (fp32 activations)
+@pytest.mark.parametrize("k2,n,dtype,inst", [
+    (2048, 6144, torch.bfloat16, "wgmma"),
+    (2048, 4096, torch.bfloat16, "wgmma"),
+    (2048, 28672, torch.bfloat16, "wgmma"),
+    (7168, 4096, torch.bfloat16, "wgmma"),
+    (2048, 129024, torch.float32, "simt")])
+def test_int4_matmul_verify_rows(card, k2, n, dtype, inst):
+    _int4_case(card, dtype, 40, k2, n, seed=40 + n, expect=inst)
+
+
+def _spec_async_run(spec, params, card, eager, temp=0.0, seed=0):
+    cfg = EngineConfig(**dict(GRAPH_KW, spec_async=True,
+                              spec_draft_model="layers:1",
+                              spec_bubble_floor_s=0.0,
+                              attention_impl="pallas-ragged",
+                              prefill_chunk=16))
+    eng = ContinuousEngine(spec, params=params, seed=seed, config=cfg,
+                           device=card)
+    eng._eager = eager
+    streamed = {}
+    with _cuda.recording_launches() as launches:
+        for i, p in enumerate(_graph_prompts()):
+            eng.submit(GenerationRequest(prompt=p, max_new_tokens=17,
+                                         temperature=temp,
+                                         request_id=f"v{i}"),
+                       on_tokens=lambda t, i=i: streamed.setdefault(
+                           i, []).extend(t))
+        out = eng.run_until_idle()
+        torch.cuda.synchronize()
+    return sorted((r.request_id, r.tokens, r.logprobs) for r in out), \
+        streamed, launches, eng
+
+
+@pytest.mark.parametrize("temp", [0.0, 0.9], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("dtype,int4", [("bfloat16", False),
+                                        ("float32", False),
+                                        ("bfloat16", True)],
+                         ids=["bf16", "fp32", "int4"])
+def test_spec_async_verify_replays_match_eager(card, dtype, int4, temp):
+    """Async speculation on the card: the verify step and the draft rounds
+    as graph replays emit the eager bodies' tokens and logprobs, stream
+    the same tokens, count the same launches (the ragged kernel at the
+    verify lattice among them) and write the same pages; verify steps
+    ran, and with a sampled run the speculator's generator reproduces."""
+    spec, params = _tiny_weights(card, "llama", dtype, int4)
+    want, ws, wl, eng_e = _spec_async_run(spec, params, card, True, temp)
+    got, gs, gl, eng_g = _spec_async_run(spec, params, card, False, temp)
+    assert got == want and gs == ws
+    assert gl == wl
+    m, me = eng_g.get_metrics(), eng_e.get_metrics()
+    assert m["spec_async_verify_steps"] == me["spec_async_verify_steps"] > 0
+    assert m["spec_async_draft_rounds"] == me["spec_async_draft_rounds"]
+    assert me["cuda_graphs"] == 0 and m["cuda_graphs"] >= 2
+    assert any(k.startswith("verify") for k in m["graph_capture_s"])
+    assert any(k.startswith("draft") for k in m["graph_capture_s"])
+    assert gl["ragged_attention"] > 0
+    assert _same_bytes(eng_g.kv.k_pages, eng_e.kv.k_pages)
+    assert _same_bytes(eng_g.kv.v_pages, eng_e.kv.v_pages)
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["bf16", "int4"])
+def test_static_and_speculative_engines_on_the_card(card, int4):
+    """The static engine and the speculative one (a truncated self-draft,
+    k 4) on the card: every greedy chain held teacher-forced to the plain
+    forward (a random int4 llama-tiny's logits are nearly flat, so its
+    steps may all be ties, each within the band); an int4 speculative
+    engine's verify window takes the wgmma instance (M = 8 x 5)."""
+    from distributed_inference_engine_tpu_torch.engine.engine import Engine
+    from distributed_inference_engine_tpu_torch.engine.speculative import (
+        SpeculativeEngine, truncated_draft)
+    from distributed_inference_engine_tpu_torch.utils.parity import (
+        assert_greedy_parity)
+
+    spec, params = _tiny_weights(card, "llama", "bfloat16", int4)
+    cfg = EngineConfig(max_slots=8, max_seq_len=128,
+                       prefill_buckets=[16, 64])
+    prompts = _graph_prompts() * 2
+    reqs = [GenerationRequest(prompt=p, max_new_tokens=12) for p in prompts]
+    static = Engine(spec, params=params, config=cfg, device=card)
+    ds, dp = truncated_draft(spec, static.params, 2)
+    se = SpeculativeEngine(spec, ds, params=static.params, draft_params=dp,
+                           config=cfg, speculate_k=4, device=card)
+    with _cuda.recording_launches() as launches:
+        outs = [static.generate(reqs), se.generate(reqs)]
+        torch.cuda.synchronize()
+    for out in outs:
+        for r, p in zip(out, prompts):
+            assert len(r.tokens) == 12
+            # a prompt past the largest prefill bucket keeps its tail
+            assert_greedy_parity(spec, static.params, p[-64:], r.tokens,
+                                 eps=5e-2, min_matched=0 if int4 else 2)
+    assert se.get_metrics()["rounds"] > 0
+    if int4:
+        assert launches["int4_matmul.wgmma"] > 0

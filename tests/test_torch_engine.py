@@ -242,9 +242,11 @@ def _page_pressure(weights, **extra):
 
 
 def test_unported_features_raise():
-    for kw in (dict(kv_offload=True), dict(spec_async=True)):
+    for kw in (dict(kv_offload=True),):
         with pytest.raises(NotImplementedError):
             EngineConfig(**kw).check_supported()
+    # async speculation is ported (A12)
+    EngineConfig(spec_async=True).check_supported()
     # the host paths are ported: defer_admission is on by default, as in
     # JAX, and so is the step timeline, at the JAX default capacity
     assert EngineConfig().defer_admission

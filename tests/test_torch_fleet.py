@@ -228,7 +228,7 @@ async def test_port_worker_serves_behind_the_jax_coordinator(tiny):
     ``worker_trace`` marks; ``drain_worker`` on the port worker lets its
     in-flight requests finish, later requests for it move to the JAX
     worker through the shed retry, and its summary has the JAX worker's
-    keys (less the speculation counters the port lacks, A12)."""
+    keys (the speculation counters included, since A12)."""
     js, jp, ts, tp = tiny
     want_engine = JEngine(js, params=jp, config=JEngCfg(
         attention_impl="xla", **KW))
@@ -295,10 +295,8 @@ async def test_port_worker_serves_behind_the_jax_coordinator(tiny):
         assert t.get_metrics()["overloaded_count"] >= 1
         jsum = await JClient(jh, jpt).drain(timeout_s=30.0)
         assert set(summary) == set(jsum)
-        spec = {k for k in jsum["models"]["tiny"]
-                if k.startswith("spec_async_")}
         assert set(summary["models"]["tiny"]) == \
-            set(jsum["models"]["tiny"]) - spec
+            set(jsum["models"]["tiny"])
     finally:
         await coord.stop()
         await stop_all(j, t)
@@ -497,20 +495,14 @@ def _families(text):
 
 
 # families the JAX worker fills for the same engine config that the port
-# lacks: the KV fabric and disaggregated handoff (A10), fault injection, the speculation counters the JAX engine reports even
-# when off (A12), and the process's resident set, which the JAX worker
-# reads through psutil where it is installed (the port does not use it)
+# lacks: the KV fabric and disaggregated handoff (A10), fault injection,
+# and the process's resident set, which the JAX worker reads through
+# psutil where it is installed (the port does not use it). The speculation
+# counters the JAX engine reports even when off are the port's too (A12)
 NOT_PORTED = {"worker_rss_bytes",
     "kv_fabric_exports", "kv_fabric_imports", "kv_fabric_export_bytes",
     "kv_fabric_import_bytes", "kv_fabric_import_fallbacks",
     "worker_handoff_bytes_shipped", "worker_injected_faults",
-    "engine_spec_async_drafted_tokens", "engine_spec_async_accepted_tokens",
-    "engine_spec_async_wasted_tokens", "engine_spec_async_catchup_tokens",
-    "engine_spec_async_accept_rate", "engine_spec_async_draft_rounds",
-    "engine_spec_async_propose_rounds", "engine_spec_async_auto_idles",
-    "engine_spec_async_bubble_consumed_seconds",
-    "engine_spec_async_draft_cost_ema_seconds", "engine_spec_async_pending",
-    "engine_spec_async_verify_steps",
 }
 
 

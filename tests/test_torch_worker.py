@@ -192,13 +192,33 @@ def test_engine_from_config_rejects_unported():
                 metadata={"size": "llama-tiny", "continuous": True,
                           "device": "cpu"})
     for change in (dict(metadata={**base["metadata"], "tp": 2}),
-                   dict(metadata={**base["metadata"], "speculative": 2}),
-                   dict(metadata={**base["metadata"], "continuous": False}),
-                   dict(metadata={**base["metadata"], "kv_offload": "1"}),
-                   dict(metadata={**base["metadata"], "spec_async": "1"})):
+                   dict(metadata={**base["metadata"], "kv_offload": "1"})):
         with pytest.raises(NotImplementedError):
             engine_from_config(ModelConfig(**{**base, **change}),
                                device="cpu")
+    # ported with the static engine and speculation (A8, A12): each builds
+    # its engine, and serves
+    from distributed_inference_engine_tpu_torch.engine.engine import Engine
+    from distributed_inference_engine_tpu_torch.engine.speculative import (
+        SpeculativeEngine,
+    )
+
+    for change, cls in (
+            ({"speculative": 2, "draft_size": "llama-tiny"},
+             SpeculativeEngine),
+            ({"continuous": False}, Engine),
+            ({"spec_async": "1", "spec_bubble_floor_s": "0"},
+             ContinuousEngine)):
+        eng = engine_from_config(ModelConfig(**{
+            **base, "metadata": {**base["metadata"], **change}},
+            dtype="float32", max_seq_len=64), device="cpu")
+        assert type(eng) is cls
+        out = eng.generate([GenerationRequest(prompt=[1, 2, 3],
+                                              max_new_tokens=3)])
+        assert len(out[0].tokens) == 3
+    assert engine_from_config(ModelConfig(**{**base, "metadata": {
+        **base["metadata"], "spec_async": "1"}}, max_seq_len=64),
+        device="cpu").speculator is not None
     # ported with checkpoints and artifacts (A11): a path that is not a
     # checkpoint directory is refused as such, not as unported
     with pytest.raises(FileNotFoundError):
